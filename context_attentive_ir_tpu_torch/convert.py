@@ -1,0 +1,56 @@
+"""Weight bridge: a JAX CARS param tree -> the port's state dict.
+
+The port keeps the JAX layouts (dense kernels ``[in, out]``, RNN ``w_ih
+[D, 4H]`` / ``w_hh [H, 4H]`` in gate order i, f, g, o; checkpoint shapes
+at the logical emsize) and names its parameters after the JAX tree, so the
+bridge is a rename: the nested path ``query_encoder/layer0/w_ih_fwd``
+becomes ``query_encoder.layer0.w_ih_fwd``.  Any leaf that the port does
+not have, any parameter that the tree lacks, and any shape mismatch raise.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Mapping
+
+import numpy as np
+import torch
+
+from .config import ModelConfig
+from .models.multitask.cars import CARS
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Iterator[tuple[str, object]]:
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            yield from _flatten(v, name + ".")
+        else:
+            yield name, v
+
+
+def params_from_jax(params_np: Mapping,
+                    config: ModelConfig) -> dict[str, torch.Tensor]:
+    """``params_np``: the JAX param tree as nested dicts of numpy arrays
+    (``jax.device_get(model.init(...)["params"])``).  Returns float32 CPU
+    tensors keyed by the port's parameter names."""
+    expected = {k: tuple(v.shape) for k, v in
+                CARS(config, device="meta", seed=None).state_dict().items()}
+    flat = dict(_flatten(params_np))
+    unknown = sorted(set(flat) - set(expected))
+    missing = sorted(set(expected) - set(flat))
+    if unknown or missing:
+        raise ValueError(f"JAX params do not match the port's CARS: unknown "
+                         f"{unknown}, missing {missing}")
+    out = {}
+    for name, value in flat.items():
+        arr = np.asarray(value, dtype=np.float32)
+        if arr.shape != expected[name]:
+            raise ValueError(f"{name}: JAX shape {arr.shape}, port shape "
+                             f"{expected[name]}")
+        out[name] = torch.from_numpy(arr.copy())
+    return out
+
+
+def load_jax_params(model: CARS, params_np: Mapping) -> None:
+    """Copy a JAX param tree into ``model`` (in place)."""
+    model.load_state_dict(params_from_jax(params_np, model.config))

@@ -1,0 +1,129 @@
+"""Package rules of the PyTorch port: no JAX anywhere in it or in
+``chip_smoke.py``, entry points that refuse to fall back to the CPU, and
+kernels that stay unlaunched on CPU tensors."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from context_attentive_ir_tpu_torch.config import default_config
+from context_attentive_ir_tpu_torch.data import Dictionary
+from context_attentive_ir_tpu_torch.models.multitask.cars import CARS
+from context_attentive_ir_tpu_torch.ops.kernels import beamgen, lstm
+from context_attentive_ir_tpu_torch.serve import Engine
+
+ROOT = Path(__file__).resolve().parent.parent
+BANNED_ROOTS = {"jax", "flax", "optax"}
+JAX_PACKAGE = "context_attentive_ir_tpu"
+
+
+def _banned(module: str) -> bool:
+    """True for jax/flax/optax and for the JAX package itself -- matched
+    as a module path, so ``context_attentive_ir_tpu_torch`` passes."""
+    return (module.split(".")[0] in BANNED_ROOTS or module == JAX_PACKAGE
+            or module.startswith(JAX_PACKAGE + "."))
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _port_sources():
+    files = sorted((ROOT / "context_attentive_ir_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def test_banned_matcher_is_exact():
+    assert _banned("jax.numpy") and _banned("flax") and _banned("optax")
+    assert _banned("context_attentive_ir_tpu")
+    assert _banned("context_attentive_ir_tpu.ops.rnn")
+    assert not _banned("context_attentive_ir_tpu_torch.ops.rnn")
+    assert not _banned("jaxlib_free_name") and not _banned("torch")
+
+
+def test_port_imports_no_jax():
+    files = _port_sources()
+    assert len(files) > 20
+    bad = [(str(f.relative_to(ROOT)), m) for f in files
+           for m in _imports(f) if _banned(m)]
+    assert not bad, bad
+
+
+def _tiny():
+    cfg = default_config("cars").replace(
+        vocab_size=40, emsize=8, nhid=4, nhid_ffnn=8, max_query_len=5,
+        max_doc_len=6, max_session_len=2, num_candidates=4, dropout=0.0,
+        dropout_emb=0.0, dropout_rnn=0.0)
+    wd = Dictionary()
+    for k in range(cfg.vocab_size - len(wd)):
+        wd.add(f"w{k}")
+    return cfg, wd
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, wd = _tiny()
+    params = CARS(cfg, device="cpu").state_dict()
+    x = torch.zeros(2, 3, 4)
+    mask = torch.ones(2, 3, dtype=torch.bool)
+    for call in (lambda: Engine(cfg, wd, params),
+                 lambda: CARS(cfg),
+                 lambda: lstm.lstm_fused(x, mask, torch.zeros(4, 8),
+                                         torch.zeros(8), torch.zeros(2, 8)),
+                 lambda: beamgen.generator_topk_lse(torch.zeros(2, 4),
+                                                    torch.zeros(4, 9), 2)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
+
+
+def test_cuda_request_never_runs_cpu_tensors(monkeypatch):
+    """With a card present, CPU tensors handed to a CUDA wrapper raise
+    instead of silently taking the plain version."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    x = torch.zeros(2, 3, 4)
+    mask = torch.ones(2, 3, dtype=torch.bool)
+    with pytest.raises(ValueError, match="device"):
+        lstm.lstm_fused(x, mask, torch.zeros(4, 8), torch.zeros(8),
+                        torch.zeros(2, 8))
+    with pytest.raises(ValueError, match="device"):
+        beamgen.generator_topk_lse(torch.zeros(2, 4), torch.zeros(4, 9), 2)
+
+
+def test_kernels_unlaunched_on_cpu(monkeypatch):
+    """The whole CPU path (rank, beam and greedy suggest) takes the plain
+    versions: the launch counts stay 0."""
+    monkeypatch.setattr(lstm.lstm_fused, "launches", 0)
+    monkeypatch.setattr(beamgen.generator_topk_lse, "launches", 0)
+    cfg, wd = _tiny()
+    params = CARS(cfg, device="cpu", seed=3).state_dict()
+    words = wd.tokens()
+    for beam in (2, 1):
+        eng = Engine(cfg, wd, params, beam_size=beam, batch_bucket=2,
+                     device="cpu")
+        scores = eng.rank(" ".join(words[:3]),
+                          [" ".join(words[i:i + 4]) for i in range(3)],
+                          [(" ".join(words[5:7]), [" ".join(words[1:5])])])
+        assert len(scores) == 3 and np.isfinite(scores).all()
+        sugg = eng.suggest([" ".join(words[2:6]), " ".join(words[:2])])
+        assert len(sugg) == beam
+    assert lstm.lstm_fused.launches == 0
+    assert beamgen.generator_topk_lse.launches == 0
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; chip_smoke.py would run")
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=tmp_path)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
