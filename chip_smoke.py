@@ -14,17 +14,32 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    shape the main path gives it and at row counts off its row block, in
    float32 (TF32 off for matmuls and cuDNN) and bfloat16; then shapes a
    kernel cannot hold must be refused with the launcher's CUDA error;
-4. the main path at full width: CARS at the serving widths (vocab 50,000,
-   emsize 256, nhid 128, nhid_ffnn 256, S=5, N=50, Lq=15, Ld=30, bf16,
-   seeded random weights) behind ``serve.Engine``, answering ``rank_batch``
-   for 64 requests, then beam-5 and greedy ``suggest_batch`` for 64
-   histories, each call run with every kernel's launch count set to 0
-   just before it and read just after it (rank must launch kernel 1 only,
-   both suggest calls kernels 1 and 2); then a small float32 CARS whose
-   ``Engine`` on the card must agree with the same ``Engine`` on the CPU
-   (plain versions);
+   The training pair (kernels 4 and 5) is checked at every shape training
+   gives it (doc and query encoders, both directions), at row counts off
+   its row block and at a T the time chunk does not divide, output by
+   output (out, hb, cb, dx, dW_ih, db, dW_hh), and kernel 5 must give the
+   same bits twice;
+4. the serving path at full width: CARS at the serving widths (vocab
+   50,000, emsize 256, nhid 128, nhid_ffnn 256, S=5, N=50, Lq=15, Ld=30,
+   bf16, seeded random weights) behind ``serve.Engine``, answering
+   ``rank_batch`` for 64 requests, then beam-5 and greedy ``suggest_batch``
+   for 64 histories, each call run with every kernel's launch count set to
+   0 just before it and read just after it (rank must launch kernel 1
+   only, both suggest calls kernels 1 and 2); then a small float32 CARS
+   whose ``Engine`` on the card must agree with the same ``Engine`` on the
+   CPU (plain versions);
+   the training path at the same widths with the default dropouts (0.2):
+   ``create_train_state`` + ``make_train_step`` (Adam, clip 5) take 8 steps
+   on one seeded batch of 64 sessions (one step counted: kernels 4 and 5
+   four times each, kernel 1 never), then one ``make_eval_loss_step``
+   (kernel 1 only); the trained state goes through ``Checkpointer`` and
+   ``Engine.from_checkpoint``, whose scores must equal an ``Engine`` built
+   from the trained weights in memory; one train step is profiled; then
+   one train step of a small float32 CARS on the card must agree with the
+   same step on the CPU;
 5. kernel, plain-version and library times (CUDA events after warm-up)
-   with each kernel's bound, printed as one ``{"kernels": [...]}`` line.
+   with each kernel's bound, printed as one ``{"kernels": [...]}`` line,
+   and the train step's time.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script needs a
 card: without one it exits non-zero and prints no result.
@@ -33,8 +48,10 @@ card: without one it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -53,6 +70,8 @@ VOCAB, EMSIZE, NHID, NHID_FFNN = 50_000, 256, 128, 256
 B, S, N, LQ, LD = 64, 5, 50, 15, 30
 BEAM = 5
 MAX_CLICKS = 4  # ModelConfig.suggest_max_clicks: clicked docs per turn
+TRAIN_STEPS = 8
+TIME_CHUNK = 6  # the training pair's time chunk (lstm_fused_train default)
 
 
 def log(msg: str) -> None:
@@ -141,6 +160,83 @@ def check_lstm(gen) -> dict:
     return out
 
 
+# (rows, steps) the training pair (kernels 4 and 5) sees on the main path --
+# doc encoder, query encoder -- plus row counts off the 32-row block and a
+# T that the time chunk (6) does not divide (Lq = 15 is one already)
+TRAIN_SHAPES = ((B * S * N, LD), (B * S, LQ), (B * S * N + 7, LD),
+                (B * S + 13, LQ), (333, 17))
+PAIR_OUTPUTS = ("out", "hb", "cb", "dx", "dw_ih", "db", "dw_hh")
+
+
+def train_pair_errors(gen, dtype, rows, steps, reverse) -> dict:
+    """Kernels 4 and 5 against their plain versions on the same inputs
+    (kernel 5 and its plain version both read kernel 4's hb, cb): per
+    output, (max abs error, max abs error / max |plain|).  Kernel 5 must
+    give the same bits twice (no atomics)."""
+    from context_attentive_ir_tpu_torch.ops.kernels.lstm import (
+        lstm_fused_bwd,
+        lstm_fused_bwd_reference,
+        lstm_fused_res,
+        lstm_fused_res_reference,
+    )
+
+    (x, w_ih, b, w_hh), mask = lstm_inputs(gen, dtype, rows, steps)
+    out, hb, cb = lstm_fused_res(x, mask, w_ih, b, w_hh, reverse)
+    ref = lstm_fused_res_reference(x, mask, w_ih, b, w_hh, reverse)
+    dout = (torch.randn(out.shape, generator=gen, device="cuda")
+            * 0.5).to(dtype)
+    got_b = lstm_fused_bwd(x, mask, w_ih, b, w_hh, hb, cb, dout, reverse)
+    again = lstm_fused_bwd(x, mask, w_ih, b, w_hh, hb, cb, dout, reverse)
+    ref_b = lstm_fused_bwd_reference(x, mask, w_ih, b, w_hh, hb, cb, dout,
+                                     reverse)
+    torch.cuda.synchronize()
+    if not bool((out[~mask] == 0).all()):
+        raise AssertionError("lstm_fused_res: masked outputs not zero")
+    if not all(torch.equal(p, q) for p, q in zip(got_b, again)):
+        raise AssertionError("lstm_fused_bwd: two runs differ")
+    errs = {}
+    for name, g, r in zip(PAIR_OUTPUTS, (out, hb, cb, *got_b),
+                          (*ref, *ref_b)):
+        err = float((g.float() - r.float()).abs().max())
+        errs[name] = (err, err / max(float(r.float().abs().max()), 1e-30))
+    return errs
+
+
+# per output, max abs error / max |plain| (kernel 1's tolerances: float32
+# sums in another order; bf16 h and dgates rounded from f32 values that
+# differ in their last bits)
+PAIR_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def check_train_pair(gen) -> dict:
+    """Kernels 4 and 5 over TRAIN_SHAPES, both directions, f32 and bf16;
+    returns each kernel's worst max abs error per dtype."""
+    worst = {"lstm_fused_res": {}, "lstm_fused_bwd": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = PAIR_TOL[dtype]
+        for kernel in worst:
+            worst[kernel][dtype] = 0.0
+        for rows, steps in TRAIN_SHAPES:
+            for reverse in (False, True):
+                errs = train_pair_errors(gen, dtype, rows, steps, reverse)
+                log(f"lstm train pair {dtype} [{rows},{steps},{EMSIZE}]->"
+                    f"{NHID} {'reverse' if reverse else 'forward'}: " +
+                    ", ".join(f"{k} {a:.2e} ({r:.2e})"
+                              for k, (a, r) in errs.items()) +
+                    f" (abs (rel); tol rel {tol:g}; kernel 5 same bits "
+                    "twice)")
+                bad = {k: r for k, (_, r) in errs.items() if not r <= tol}
+                if bad:
+                    raise AssertionError(f"lstm train pair {dtype} [{rows},"
+                                         f"{steps}] reverse={reverse}: "
+                                         f"{bad} > {tol}")
+                for k, (a, _) in errs.items():
+                    kernel = ("lstm_fused_res" if k in ("out", "hb", "cb")
+                              else "lstm_fused_bwd")
+                    worst[kernel][dtype] = max(worst[kernel][dtype], a)
+    return worst
+
+
 def beamgen_inputs(gen, rows, dtype, integer):
     dev = "cuda"
     if integer:
@@ -227,12 +323,28 @@ def check_refusals(gen) -> None:
     from context_attentive_ir_tpu_torch.ops.kernels.beamgen import (
         generator_topk_lse,
     )
-    from context_attentive_ir_tpu_torch.ops.kernels.lstm import lstm_fused
+    from context_attentive_ir_tpu_torch.ops.kernels.lstm import (
+        lstm_fused,
+        lstm_fused_bwd,
+        lstm_fused_res,
+    )
 
     def lstm_at(e, h):
         (x, w_ih, b, w_hh), mask = lstm_inputs(gen, torch.float32, 40, 3,
                                                e=e, h=h)
         return lstm_fused(x, mask, w_ih, b, w_hh)
+
+    def res_at(e, h):
+        (x, w_ih, b, w_hh), mask = lstm_inputs(gen, torch.float32, 40, 3,
+                                               e=e, h=h)
+        return lstm_fused_res(x, mask, w_ih, b, w_hh)
+
+    def bwd_at(e, h):
+        (x, w_ih, b, w_hh), mask = lstm_inputs(gen, torch.float32, 40, 3,
+                                               e=e, h=h)
+        hb = torch.zeros((1, 40, h), device="cuda")
+        return lstm_fused_bwd(x, mask, w_ih, b, w_hh, hb, hb,
+                              torch.zeros((40, 3, h), device="cuda"))
 
     def beamgen_at(e):
         x = torch.randn((70, e), generator=gen, device="cuda")
@@ -243,6 +355,14 @@ def check_refusals(gen) -> None:
                       lambda: lstm_at(4096, NHID)),
                      ("lstm_fused H=1024 (threads per block)",
                       lambda: lstm_at(EMSIZE, 1024)),
+                     ("lstm_fused_res E=4096 (shared tile)",
+                      lambda: res_at(4096, NHID)),
+                     ("lstm_fused_res H=1024 (threads per block)",
+                      lambda: res_at(EMSIZE, 1024)),
+                     ("lstm_fused_bwd E=4096 (shared tile)",
+                      lambda: bwd_at(4096, NHID)),
+                     ("lstm_fused_bwd H=1024 (threads per block)",
+                      lambda: bwd_at(EMSIZE, 1024)),
                      ("generator_topk_lse E=1024 (shared tile)",
                       lambda: beamgen_at(1024))):
         try:
@@ -252,6 +372,8 @@ def check_refusals(gen) -> None:
         else:
             raise AssertionError(f"{name} was not refused")
     lstm_at(EMSIZE, NHID)
+    res_at(EMSIZE, NHID)
+    bwd_at(EMSIZE, NHID)
     beamgen_at(EMSIZE)
     torch.cuda.synchronize()
     log("kernels launch clean after the refusals")
@@ -287,7 +409,9 @@ def counters() -> dict:
     from context_attentive_ir_tpu_torch.ops.kernels import beamgen, lstm
 
     return {"lstm_fused": lstm.lstm_fused,
-            "generator_topk_lse": beamgen.generator_topk_lse}
+            "generator_topk_lse": beamgen.generator_topk_lse,
+            "lstm_fused_res": lstm.lstm_fused_res,
+            "lstm_fused_bwd": lstm.lstm_fused_bwd}
 
 
 # the kernels each main-path call launches; every other count stays 0
@@ -295,7 +419,28 @@ PATH_KERNELS = {
     "rank_batch": ("lstm_fused",),
     "suggest_beam5": ("lstm_fused", "generator_topk_lse"),
     "suggest_greedy": ("lstm_fused", "generator_topk_lse"),
+    "train_step": ("lstm_fused_res", "lstm_fused_bwd"),
+    "eval_loss": ("lstm_fused",),
 }
+# launches per train step: query + doc encoder, two directions each
+TRAIN_STEP_LAUNCHES = {"lstm_fused_res": 4, "lstm_fused_bwd": 4}
+
+
+def counted(path: str, fn):
+    """Run ``fn`` with every launch count set to 0 just before it and read
+    just after it; raise unless exactly PATH_KERNELS[path] launched.
+    Returns (fn's result, {kernel: launches})."""
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {k: f.launches for k, f in fns.items()}
+    for k, n in counts.items():
+        if (n > 0) != (k in PATH_KERNELS[path]):
+            raise AssertionError(f"{path} launched kernel {k} {n} times; it "
+                                 f"must launch {PATH_KERNELS[path]}")
+    return out, counts
 
 
 def by_path(launches: dict, kernel: str) -> dict:
@@ -328,21 +473,11 @@ def main_path() -> dict:
              ("suggest_greedy", lambda: greedy.suggest_batch(hists)))
     outs, launches, first_ms = {}, {}, {}
     for path, fn in calls:
-        fns = counters()
-        for f in fns.values():
-            f.launches = 0
         t = time.perf_counter()
-        outs[path] = fn()
-        torch.cuda.synchronize()
+        outs[path], launches[path] = counted(path, fn)
         first_ms[path] = (time.perf_counter() - t) * 1e3
-        launches[path] = {k: f.launches for k, f in fns.items()}
     log(f"main path launches per path: {json.dumps(launches)}")
     log(f"first-call wall ms: {json.dumps(first_ms)}")
-    for path, counts in launches.items():
-        for k, n in counts.items():
-            if (n > 0) != (k in PATH_KERNELS[path]):
-                raise AssertionError(f"{path} launched kernel {k} {n} times;"
-                                     f" it must launch {PATH_KERNELS[path]}")
     scores = outs["rank_batch"]
     sugg, sugg_g = outs["suggest_beam5"], outs["suggest_greedy"]
 
@@ -442,6 +577,172 @@ def small_reference_check() -> None:
             raise AssertionError("card Engine disagrees with CPU Engine")
 
 
+def random_session_batch(rng, b=B, s=S, n=N, lq=LQ, ld=LD, vocab=VOCAB,
+                         ragged=False):
+    """A numpy SessionBatch of random ids.  Full (as bench.py's train
+    batch: every turn, candidate and token valid, one click per turn on
+    candidate 0), or ``ragged``: random query, document and target
+    lengths (empty documents included), padded candidates and turns, and
+    turns without a click."""
+    from context_attentive_ir_tpu_torch.data.vectorize import SessionBatch
+
+    def ids(shape):
+        return rng.randint(4, vocab, size=shape).astype(np.int32)
+
+    def lengths(shape, lo, hi):
+        return np.arange(hi)[None] < rng.randint(lo, hi + 1, size=shape)[
+            ..., None]
+
+    tin = ids((b, s, lq + 1))
+    clicks = np.zeros((b, s, n), np.float32)
+    if not ragged:
+        clicks[:, :, 0] = 1.0
+        full = np.ones
+        return SessionBatch(
+            query=ids((b, s, lq)), query_mask=full((b, s, lq), bool),
+            docs=ids((b, s, n, ld)), doc_mask=full((b, s, n, ld), bool),
+            clicks=clicks, cand_mask=full((b, s, n), bool),
+            turn_mask=full((b, s), bool), target_in=tin, target_out=tin,
+            target_mask=full((b, s, lq + 1), bool),
+            row_mask=full((b,), bool))
+    cand_mask = lengths((b, s), 1, n)
+    clicked = rng.randint(0, n, size=(b, s))
+    has = (rng.rand(b, s) < 0.8) & np.take_along_axis(
+        cand_mask, clicked[..., None], -1)[..., 0]
+    clicks[np.arange(b)[:, None], np.arange(s)[None], clicked] = has
+    return SessionBatch(
+        query=ids((b, s, lq)), query_mask=lengths((b, s), 1, lq),
+        docs=ids((b, s, n, ld)), doc_mask=lengths((b, s, n), 0, ld),
+        clicks=clicks, cand_mask=cand_mask,
+        turn_mask=lengths((b,), 1, s), target_in=tin,
+        target_out=ids((b, s, lq + 1)),
+        target_mask=lengths((b, s), 0, lq + 1),
+        row_mask=np.arange(b) < b - 1)
+
+
+def train_path() -> tuple[dict, float]:
+    """The training path at full width (see the module docstring).
+    Returns ({path: launches}, train step ms)."""
+    from context_attentive_ir_tpu_torch.config import default_config
+    from context_attentive_ir_tpu_torch.models.multitask.cars import CARS
+    from context_attentive_ir_tpu_torch.serve import Engine
+    from context_attentive_ir_tpu_torch.train import (
+        Checkpointer,
+        create_train_state,
+        make_eval_loss_step,
+        make_train_step,
+        param_count,
+    )
+
+    cfg = default_config("cars").replace(
+        vocab_size=VOCAB, emsize=EMSIZE, nhid=NHID, nhid_ffnn=NHID_FFNN,
+        max_query_len=LQ, max_doc_len=LD, max_session_len=S,
+        num_candidates=N, compute_dtype="bfloat16")
+    word_dict = synthetic_dictionary(VOCAB)
+    model = CARS(cfg, device="cuda", seed=0)
+    batch = random_session_batch(np.random.RandomState(0)).to("cuda")
+    state = create_train_state(model, cfg)
+    step = make_train_step(model, cfg)
+    log(f"train path: CARS with {param_count(state)} parameters, dropout "
+        f"{cfg.dropout}/{cfg.dropout_emb}/{cfg.dropout_rnn}, "
+        f"{cfg.optimizer} lr {cfg.learning_rate}, clip {cfg.grad_clipping}, "
+        f"{cfg.compute_dtype}, B={B}")
+
+    launches, metrics = {}, []
+    for i in range(TRAIN_STEPS):
+        if i == 1:   # one step counted, past the first call's set-up
+            (state, m), launches["train_step"] = counted(
+                "train_step", lambda: step(state, batch, 1))
+        else:
+            state, m = step(state, batch, 1)
+        metrics.append({k: float(v) for k, v in m.items()})
+    log(f"train step launches: {json.dumps(launches['train_step'])}")
+    for k, n in TRAIN_STEP_LAUNCHES.items():
+        if launches["train_step"][k] != n:
+            raise AssertionError(f"a train step launched {k} "
+                                 f"{launches['train_step'][k]} times, not {n}")
+    losses = [m["loss"] for m in metrics]
+    log(f"{TRAIN_STEPS} steps: loss {[round(x, 4) for x in losses]}, "
+        f"grad_norm {[round(m['grad_norm'], 4) for m in metrics]}")
+    if not all(math.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError("non-finite loss or grad norm")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses[0]} -> "
+                             f"{losses[-1]}")
+
+    ev, launches["eval_loss"] = counted(
+        "eval_loss", lambda: make_eval_loss_step(model, cfg)(batch))
+    ev = {k: float(v) for k, v in ev.items()}
+    log(f"eval loss step: {json.dumps(ev)}, launches "
+        f"{json.dumps(launches['eval_loss'])}")
+    if not all(math.isfinite(v) for v in ev.values()):
+        raise AssertionError("non-finite eval loss")
+
+    reqs, _ = requests(np.random.RandomState(2), word_dict, 8)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Checkpointer(tmp, "cars")
+        ckpt.save_latest(state, cfg, word_dict, {"step": state.step})
+        ckpt.wait()
+        loaded = Engine.from_checkpoint(ckpt.latest_path, batch_bucket=8)
+        got = loaded.rank_batch(reqs)
+    want = Engine(cfg, word_dict, model.state_dict(),
+                  batch_bucket=8).rank_batch(reqs)
+    log(f"checkpoint -> Engine.from_checkpoint: rank_batch over "
+        f"{len(reqs)} requests equal to the in-memory Engine's: "
+        f"{got == want}")
+    if got != want:
+        raise AssertionError("Engine.from_checkpoint scores differ")
+
+    where_time_goes("train_step", lambda: step(state, batch, 1))
+    train_ms = timed_ms(lambda: step(state, batch, 1), iters=5, warmup=1)
+    log(f"train step (CUDA events, mean of 5 after warm-up, B={B}): "
+        f"{train_ms:.2f} ms -> {B * S * N / train_ms * 1e3:.0f} trained "
+        "docs/s")
+    return launches, train_ms
+
+
+def small_train_check() -> None:
+    """One train step of a small float32 CARS on the card (kernels 4 and
+    5) against the same step on the CPU (plain versions), on a ragged
+    batch.  SGD keeps the update linear in the gradient, so a float32
+    rounding difference in a near-zero gradient element cannot flip an
+    Adam step's sign and the parameters compare as tightly as the
+    gradients."""
+    from context_attentive_ir_tpu_torch.config import default_config
+    from context_attentive_ir_tpu_torch.models.multitask.cars import CARS
+    from context_attentive_ir_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+    )
+
+    cfg = default_config("cars").replace(
+        vocab_size=300, emsize=32, nhid=16, nhid_ffnn=32, max_query_len=8,
+        max_doc_len=12, max_session_len=3, num_candidates=8, dropout=0.0,
+        dropout_emb=0.0, dropout_rnn=0.0, optimizer="sgd",
+        learning_rate=0.1)
+    batch = random_session_batch(np.random.RandomState(3), 6, 3, 8, 8, 12,
+                                 cfg.vocab_size, ragged=True)
+    cpu = CARS(cfg, device="cpu", seed=1)
+    gpu = CARS(cfg, device="cuda", seed=None)
+    gpu.load_state_dict(cpu.state_dict())
+    res = {}
+    for dev, model in (("cpu", cpu), ("cuda", gpu)):
+        state = create_train_state(model, cfg)
+        _, m = make_train_step(model, cfg)(state, batch.to(dev), 0)
+        res[dev] = ({k: float(v) for k, v in m.items()},
+                    {n: p.detach().cpu() for n, p in
+                     model.named_parameters()})
+    (mc, pc), (mg, pg) = res["cpu"], res["cuda"]
+    loss_rel = abs(mg["loss"] - mc["loss"]) / abs(mc["loss"])
+    norm_rel = abs(mg["grad_norm"] - mc["grad_norm"]) / mc["grad_norm"]
+    p_err = max(float((pg[n] - pc[n]).abs().max()) for n in pc)
+    log(f"small f32 CARS train step, card vs CPU: loss rel err "
+        f"{loss_rel:.2e} (tol 1e-5), grad_norm rel err {norm_rel:.2e} (tol "
+        f"1e-5), updated parameters max abs err {p_err:.2e} (tol 1e-6)")
+    if not (loss_rel <= 1e-5 and norm_rel <= 1e-5 and p_err <= 1e-6):
+        raise AssertionError("card train step disagrees with the CPU step")
+
+
 # -- phase 5: times ----------------------------------------------------------
 
 
@@ -513,6 +814,91 @@ def time_beamgen(gen, launches: dict, max_err: float) -> dict:
             "library_ms": lib}
 
 
+def time_train_pair(gen, launches: dict, max_err: dict) -> list[dict]:
+    """Kernels 4 and 5 at the doc encoder's shape, one direction, bf16,
+    against their plain versions and cuDNN's training LSTM (forward with
+    autograd on; backward alone, from a retained graph)."""
+    from context_attentive_ir_tpu_torch.ops.kernels.lstm import (
+        lstm_fused_bwd,
+        lstm_fused_bwd_reference,
+        lstm_fused_res,
+        lstm_fused_res_reference,
+    )
+
+    dtype = torch.bfloat16
+    (x, w_ih, b, w_hh), mask = lstm_inputs(gen, dtype)
+    rows, steps, e = x.shape
+    h = w_hh.shape[0]
+    out, hb, cb = lstm_fused_res(x, mask, w_ih, b, w_hh)
+    dout = (torch.randn(out.shape, generator=gen, device="cuda")
+            * 0.5).to(dtype)
+    ms_f = timed_ms(lambda: lstm_fused_res(x, mask, w_ih, b, w_hh), 5)
+    plain_f = timed_ms(
+        lambda: lstm_fused_res_reference(x, mask, w_ih, b, w_hh), 3)
+    ms_b = timed_ms(lambda: lstm_fused_bwd(x, mask, w_ih, b, w_hh, hb, cb,
+                                           dout), 5)
+    plain_b = timed_ms(lambda: lstm_fused_bwd_reference(
+        x, mask, w_ih, b, w_hh, hb, cb, dout), 3)
+    cudnn = torch.nn.LSTM(e, h, batch_first=True, device="cuda", dtype=dtype)
+    xg = x.detach().requires_grad_()
+    lib_f = timed_ms(lambda: cudnn(xg), 5)
+    o, _ = cudnn(xg)
+    wrt = [xg, *cudnn.parameters()]
+    lib_b = timed_ms(lambda: torch.autograd.grad(o, wrt, dout,
+                                                 retain_graph=True), 5)
+    del o
+
+    n_chunks = -(-steps // TIME_CHUNK)
+    weights = (w_ih.numel() + b.numel() + w_hh.numel()) * 2
+    boundaries = 2 * n_chunks * rows * h * 4
+    flops_f = 2.0 * rows * steps * (e + h) * 4 * h
+    bytes_f = ((x.numel() + out.numel()) * 2 + weights + mask.numel()
+               + boundaries)
+    # recompute + dx + dh + dW_ih + dW_hh: three times the forward's flops
+    flops_b = 3 * flops_f
+    bytes_b = ((2 * x.numel() + dout.numel()) * 2 + 2 * weights
+               + mask.numel() + boundaries)
+    rows_out = []
+    for name, src, line, ms, plain, lib, flops, n_bytes in (
+            ("lstm_fused_res", "lstm_fwd.cu", 494, ms_f, plain_f, lib_f,
+             flops_f, bytes_f),
+            ("lstm_fused_bwd", "lstm_bwd.cu", 563, ms_b, plain_b, lib_b,
+             flops_b, bytes_b)):
+        bnd, by = bound_ms(flops, n_bytes, dtype)
+        log(f"{name} bf16 [{rows},{steps},{e}]->{h} one direction, TC="
+            f"{TIME_CHUNK}: kernel {ms:.3f} ms, plain {plain:.3f} ms, cuDNN "
+            f"nn.LSTM {'forward' if name == 'lstm_fused_res' else 'backward'}"
+            f" {lib:.3f} ms, bound {bnd:.4f} ms ({by})")
+        rows_out.append({
+            "name": name, "route": "cuda",
+            "source": f"context_attentive_ir_tpu_torch/csrc/{src}",
+            "replaces": f"context_attentive_ir_tpu/ops/pallas/lstm.py:{line}",
+            **by_path(launches, name), "max_abs_err": max_err[name][dtype],
+            "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib})
+    return rows_out
+
+
+def ptxas_summary(text: str) -> str:
+    """One line per compiled kernel from ``nvcc -Xptxas -v``'s output:
+    registers, spill bytes and static shared memory."""
+    import re
+
+    lines, name, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "",
+                          m.group(1))[:60]
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and name:
+            lines.append(f"  {name}: {line.split(':', 1)[1].strip()}; "
+                         f"{spill}")
+            name = None
+    return "ptxas per kernel:\n" + "\n".join(lines)
+
+
 def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -534,7 +920,7 @@ def main() -> int:
     t = time.perf_counter()
     ptxas = build(ptxas_info=True)
     log(f"kernel library built in {time.perf_counter() - t:.1f} s")
-    log(ptxas)
+    log(ptxas_summary(ptxas))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -543,15 +929,21 @@ def main() -> int:
         "(torch.backends.cuda.matmul.allow_tf32 = "
         "torch.backends.cudnn.allow_tf32 = False)")
     lstm_err = check_lstm(gen)
+    pair_err = check_train_pair(gen)
     beam_err = check_beamgen(gen)
     check_refusals(gen)
 
     with torch.inference_mode():
         launches = main_path()
         small_reference_check()
+    train_launches, train_ms = train_path()
+    launches.update(train_launches)
+    small_train_check()
 
     kernels = [time_lstm(gen, launches, lstm_err[torch.bfloat16]),
-               time_beamgen(gen, launches, beam_err[torch.bfloat16])]
+               time_beamgen(gen, launches, beam_err[torch.bfloat16]),
+               *time_train_pair(gen, launches, pair_err)]
+    log(f"train step {train_ms:.2f} ms at B={B} (chip_smoke train phase)")
     log(card())
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,17 @@ from .constants import (
     NUM_CANDIDATES,
 )
 
+# Fields that define the network and survive checkpoint round trips (the
+# JAX package's ARCHITECTURE_FIELDS; ``override_model_args`` keeps them).
+ARCHITECTURE_FIELDS = (
+    "model_type", "emsize", "nhid", "nlayers", "bidirection", "rnn_type",
+    "dropout", "dropout_emb", "dropout_rnn", "attn_type", "fix_embeddings",
+    "nhid_ffnn", "pool_size", "nfilters", "filter_widths", "session_rnn_type",
+    "use_charngram", "regularize_coeff", "alpha", "tie_embeddings",
+    "max_query_len", "max_doc_len", "max_session_len", "num_candidates",
+    "loss_type", "margin", "ablate_history", "cars_ablation",
+)
+
 
 @dataclass(frozen=True)
 class ModelConfig:
@@ -107,6 +118,17 @@ class ModelConfig:
             d["filter_widths"] = tuple(d["filter_widths"])
         known = {f.name for f in fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
+
+
+def override_model_args(saved: ModelConfig, new: ModelConfig) -> ModelConfig:
+    """Test-time merge: the checkpoint's architecture (and vocabulary size)
+    wins, runtime and optimizer flags come from ``new``."""
+    merged = dataclasses.asdict(new)
+    for k in ARCHITECTURE_FIELDS:
+        merged[k] = getattr(saved, k)
+    merged["vocab_size"] = saved.vocab_size
+    merged["filter_widths"] = tuple(merged["filter_widths"])
+    return ModelConfig(**merged)
 
 
 # Per-model flag bundles -- the role of the reference's scripts/*.sh model

@@ -20,4 +20,6 @@ def make_embeddings(config: ModelConfig, device) -> Embeddings:
         raise NotImplementedError(
             "the int8 embedding table is not ported yet")
     return Embeddings(config.vocab_size, config.emsize,
-                      dtype=compute_dtype(config), device=device)
+                      dtype=compute_dtype(config), device=device,
+                      dropout=config.dropout_emb,
+                      fixed=config.fix_embeddings)

@@ -1,5 +1,5 @@
 """CARS: Context Attentive document-Ranking and query-Suggestion (port of
-the inference methods of ``context_attentive_ir_tpu/models/multitask/cars.py``).
+``context_attentive_ir_tpu/models/multitask/cars.py``).
 
 Same structure as the JAX model: encoders run over flattened ``[B*S(,N)]``
 slates; the two session recurrences (query flow, click flow) run over the
@@ -9,6 +9,12 @@ query vector; the ranking head scores the whole ``[B, S, N]`` slate in one
 MLP; the suggestion head is an attention LSTM decoder over ``[B*S]`` rows
 with a tied generator.  Parameter names mirror the JAX tree, so
 ``convert.params_from_jax`` is a rename.
+
+``forward`` is the training forward (scores and teacher-forced generator
+logits); ``deterministic`` and a dropout ``generator`` are threaded through
+the embeddings, encoders, ranking MLP and decoder as the JAX model threads
+``deterministic``.  The inference methods run under
+``torch.inference_mode`` with dropout off.
 """
 
 from __future__ import annotations
@@ -68,7 +74,8 @@ class CARS(nn.Module):
         for name in ("query_encoder", "doc_encoder"):
             self.add_module(name, RNNEncoder(
                 cfg.emsize, cfg.nhid, cfg.nlayers, cfg.bidirection,
-                use_kernel=cfg.use_pallas_rnn, dtype=dt, device=dev))
+                use_kernel=cfg.use_pallas_rnn, dtype=dt, device=dev,
+                dropout=cfg.dropout_rnn))
         self.query_pool = AttentionPool(h2, h2, use_query=False, dtype=dt,
                                         device=dev)
         self.doc_pool = AttentionPool(h2, h2, use_query=True, dtype=dt,
@@ -86,32 +93,38 @@ class CARS(nn.Module):
             self.ctx_v = Dense(h2, 1, use_bias=False, dtype=dt, device=dev)
             self.ctx_gate = Dense(2 * h2, h2, dtype=dt, device=dev)
         self.rank_mlp = MLP(3 * h2, (cfg.nhid_ffnn, 1), activation=torch.tanh,
-                            final_activation=False, dtype=dt, device=dev)
+                            final_activation=False, dtype=dt, device=dev,
+                            dropout=cfg.dropout)
         self.mem_proj = Dense(2 * h2, h2, dtype=dt, device=dev)
         self.init_proj = Dense(3 * h2, h2, dtype=dt, device=dev)
         self.decoder = AttnLSTMDecoder(h2, cfg.emsize, cfg.nlayers,
-                                       cfg.attn_type, dtype=dt, device=dev)
+                                       cfg.attn_type, dtype=dt, device=dev,
+                                       dropout=cfg.dropout_rnn)
         self.generator = Generator(h2, self.embeddings, dtype=dt, device=dev)
         if seed is not None and dev.type != "meta":
             reset_parameters(self, seed)
 
     # -- session encoding ----------------------------------------------------
 
-    def encode_docs(self, docs: torch.Tensor,
-                    doc_mask: torch.Tensor) -> torch.Tensor:
+    def encode_docs(self, docs: torch.Tensor, doc_mask: torch.Tensor,
+                    deterministic: bool = True,
+                    generator: torch.Generator | None = None) -> torch.Tensor:
         """Query-independent document token states: docs [..., Ld] ->
         [..., Ld, H2]."""
         lead, Ld = docs.shape[:-1], docs.shape[-1]
-        d = self.embeddings(docs)
+        d = self.embeddings(docs, deterministic, generator)
         d_states, _ = self.doc_encoder(d.reshape(-1, Ld, d.shape[-1]),
-                                       doc_mask.reshape(-1, Ld))
+                                       doc_mask.reshape(-1, Ld),
+                                       deterministic, generator)
         return d_states.reshape(*lead, *d_states.shape[-2:])
 
-    def _encode_queries(self, batch: SessionBatch):
+    def _encode_queries(self, batch: SessionBatch, deterministic: bool = True,
+                        generator: torch.Generator | None = None):
         B, S, Lq = batch.query.shape
-        q = self.embeddings(batch.query)
+        q = self.embeddings(batch.query, deterministic, generator)
         q_states, _ = self.query_encoder(q.reshape(B * S, Lq, -1),
-                                         batch.query_mask.reshape(B * S, Lq))
+                                         batch.query_mask.reshape(B * S, Lq),
+                                         deterministic, generator)
         q_states = q_states.reshape(B, S, Lq, -1)
         qv = self.query_pool(q_states, batch.query_mask)        # [B, S, H2]
         return q_states, qv
@@ -122,10 +135,13 @@ class CARS(nn.Module):
 
     def encode_session(self, batch: SessionBatch,
                        d_states: torch.Tensor | None = None,
-                       d_proj: torch.Tensor | None = None):
-        q_states, qv = self._encode_queries(batch)
+                       d_proj: torch.Tensor | None = None,
+                       deterministic: bool = True,
+                       generator: torch.Generator | None = None):
+        q_states, qv = self._encode_queries(batch, deterministic, generator)
         if d_states is None:
-            d_states = self.encode_docs(batch.docs, batch.doc_mask)
+            d_states = self.encode_docs(batch.docs, batch.doc_mask,
+                                        deterministic, generator)
         # query-aware pooling: each candidate pools its tokens w.r.t. its
         # query vector
         dv = self.doc_pool(d_states, batch.doc_mask,
@@ -200,10 +216,12 @@ class CARS(nn.Module):
         g = g * has_ctx + (1.0 - has_ctx)
         return g * qv + (1.0 - g) * context
 
-    def rank_scores(self, q_ctx, dv):
+    def rank_scores(self, q_ctx, dv, deterministic: bool = True,
+                    generator: torch.Generator | None = None):
         qb = q_ctx[:, :, None, :].expand_as(dv)
         feats = torch.cat([qb, dv, qb * dv], dim=-1)
-        return self.rank_mlp(feats)[..., 0]                     # [B, S, N]
+        return self.rank_mlp(feats, deterministic,
+                             generator)[..., 0]                 # [B, S, N]
 
     def _decoder_inputs(self, q_states, q_ctx, sq, sc, batch):
         """Context-enriched decoder memory + init state, flattened [B*S]."""
@@ -220,6 +238,28 @@ class CARS(nn.Module):
         return (memory.reshape(B * S, Lq, -1),
                 batch.query_mask.reshape(B * S, Lq),
                 init.reshape(B * S, -1))
+
+    # -- training forward ----------------------------------------------------
+
+    def forward(self, batch: SessionBatch, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> dict:
+        """``{"scores" [B, S, N], "gen_logits" [B, S, Lt, V]}``: the slate
+        scores and the teacher-forced suggestion logits (JAX
+        ``CARS.__call__``).  ``deterministic=False`` turns dropout on, its
+        noise drawn from ``generator``."""
+        B, S, _ = batch.query.shape
+        Lt = batch.target_in.shape[-1]
+        q_states, qv, dv, sq, sc = self.encode_session(
+            batch, deterministic=deterministic, generator=generator)
+        q_ctx = self.context_attend(qv, sq, sc, batch.turn_mask)
+        scores = self.rank_scores(q_ctx, dv, deterministic, generator)
+        memory, mem_mask, init = self._decoder_inputs(q_states, q_ctx, sq,
+                                                      sc, batch)
+        tgt = self.embeddings(batch.target_in, deterministic, generator)
+        attn_hs, _ = self.decoder(tgt.reshape(B * S, Lt, -1), memory,
+                                  mem_mask, init, deterministic, generator)
+        logits = self.generator(attn_hs, self.embeddings)
+        return {"scores": scores, "gen_logits": logits.reshape(B, S, Lt, -1)}
 
     # -- inference -----------------------------------------------------------
 

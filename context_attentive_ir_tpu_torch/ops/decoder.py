@@ -1,16 +1,18 @@
-"""Attention LSTM decoder with input feeding (port of ``init_state`` and
-``step`` of ``context_attentive_ir_tpu/ops/decoder.py``).
+"""Attention LSTM decoder with input feeding (port of
+``context_attentive_ir_tpu/ops/decoder.py``): ``init_state``, one decode
+``step``, and the teacher-forced unroll (``forward``).
 
 State is a plain dict of batch-leading tensors (``h``/``c`` tuples over
 layers and ``input_feed``), so beam search reorders the whole state with one
-gather.  The teacher-forced unroll arrives with the training slice.
+gather.  As in the JAX module, dropout applies to the attentional outputs of
+the unroll only, not between stacked layers inside a step.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .layers import ParamModule
+from .layers import ParamModule, dropout
 from .masking import masked_softmax
 
 
@@ -20,8 +22,10 @@ class AttnLSTMDecoder(ParamModule):
 
     def __init__(self, features: int, embed_dim: int, num_layers: int = 1,
                  attn_type: str = "general", input_feed: bool = True,
-                 dtype: torch.dtype = torch.float32, device="cuda"):
+                 dtype: torch.dtype = torch.float32, device="cuda",
+                 dropout: float = 0.0):
         super().__init__(device)
+        self.dropout = dropout
         if attn_type not in ("dot", "general"):
             raise ValueError(f"unknown attn_type {attn_type!r}")
         H, E = features, embed_dim
@@ -81,3 +85,21 @@ class AttnLSTMDecoder(ParamModule):
                             @ self.linear_out.to(dt))
         return ({"h": tuple(hs), "c": tuple(cs), "input_feed": attn_h},
                 attn_h, align)
+
+    def forward(self, emb_targets: torch.Tensor, memory: torch.Tensor,
+                memory_mask: torch.Tensor,
+                init_hidden: torch.Tensor | None = None,
+                deterministic: bool = True,
+                generator: torch.Generator | None = None):
+        """Teacher-forced unroll: emb_targets [B, T, E] (BOS-shifted) ->
+        (attn_hs [B, T, H], aligns [B, T, S])."""
+        state = self.init_state(emb_targets.shape[0], init_hidden)
+        attn_hs, aligns = [], []
+        for t in range(emb_targets.shape[1]):
+            state, attn_h, align = self.step(state, emb_targets[:, t], memory,
+                                             memory_mask)
+            attn_hs.append(attn_h)
+            aligns.append(align)
+        attn_hs = dropout(torch.stack(attn_hs, dim=1), self.dropout,
+                          deterministic, generator)
+        return attn_hs, torch.stack(aligns, dim=1)

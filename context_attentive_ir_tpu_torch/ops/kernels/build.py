@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernel library.
 
-The sources ``context_attentive_ir_tpu_torch/csrc/*.cu`` export plain
+The sources ``context_attentive_ir_tpu_torch/csrc/*.cu`` (with their
+shared ``*.cuh`` headers) export plain
 ``extern "C"`` launchers.  At first use they are compiled by ``nvcc`` for
 ``sm_90a`` -- one ``nvcc -c`` per source, all started together, then one
 link -- into ``build/torch_kernels/libcair_torch_kernels.so`` beside the
 package, and loaded with ``ctypes``.  The library is rebuilt whenever the
-sources' hash changes.  Nothing here runs at import time, so the CPU tests
+sources' or headers' hash changes.  Nothing here runs at import time, so the CPU tests
 import the kernel modules without ``nvcc`` or a card.
 """
 
@@ -32,6 +33,9 @@ _IP = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "cair_lstm_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
                       _I),
+    "cair_lstm_fwd_res": ([_P] * 8 + [_I] * 7 + [_P], _I),
+    "cair_lstm_bwd_workspace": ([_I] * 6, ctypes.c_longlong),
+    "cair_lstm_bwd": ([_P] * 15 + [_I] * 7 + [_P], _I),
     "cair_beamgen_splits": ([_I, _I, _I, _IP, _IP], _I),
     "cair_beamgen": ([_P, _P, _I, _I, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P, _I, _P], _I),
@@ -56,7 +60,7 @@ def _sources() -> list[Path]:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()

@@ -19,3 +19,10 @@ def masked_softmax(logits: torch.Tensor, mask: torch.Tensor,
     unnorm = torch.exp(logits) * mask.to(logits.dtype)
     denom = unnorm.sum(dim=dim, keepdim=True)
     return unnorm / denom.clamp_min(1e-13)
+
+
+def masked_log_softmax(logits: torch.Tensor, mask: torch.Tensor,
+                       dim: int = -1) -> torch.Tensor:
+    """``log(masked_softmax)``, floored at 1e-13 (masked entries read
+    log(1e-13))."""
+    return torch.log(masked_softmax(logits, mask, dim).clamp_min(1e-13))

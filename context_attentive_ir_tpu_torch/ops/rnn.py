@@ -7,9 +7,11 @@ Gate order is i, f, g, o and weights keep the JAX layout (``w_ih [D, 4H]``,
 ``w_hh [H, 4H]``, ``b_ih [4H]``).
 
 ``RNNLayer(use_kernel=True)`` runs each direction through the fused LSTM
-kernel (``ops/kernels/lstm.py``) whenever no initial state is given -- the
-JAX ``_pallas_ok`` condition without the TPU dispatch table.  On CPU
-tensors that wrapper runs its plain version.
+kernels (``ops/kernels/lstm.py``) whenever no initial state is given -- the
+JAX ``_pallas_ok`` condition without the TPU dispatch table: kernel 1
+(``lstm_fused``) when no gradient is needed, the training pair (kernels 4
+and 5, ``lstm_fused_train``) when one is.  On CPU tensors those wrappers
+run their plain versions.
 """
 
 from __future__ import annotations
@@ -17,8 +19,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .kernels.lstm import lstm_fused
-from .layers import ParamModule
+from .kernels.lstm import lstm_fused, lstm_fused_train
+from .layers import ParamModule, dropout
 
 
 def lstm_scan(x_proj: torch.Tensor, mask: torch.Tensor, w_hh: torch.Tensor,
@@ -73,11 +75,14 @@ class RNNLayer(ParamModule):
             w_hh = getattr(self, f"w_hh_{d}").to(self.dtype)
             b_ih = getattr(self, f"b_ih_{d}").to(self.dtype)
             if self.use_kernel and h0 is None:
-                # the fused kernel computes the input projection itself:
+                # the fused kernels compute the input projection themselves:
                 # no [B, T, 4H] gate tensor reaches device memory
-                o = lstm_fused(x, mask.contiguous(), w_ih.contiguous(),
-                               b_ih.contiguous(), w_hh.contiguous(),
-                               reverse=d == "bwd", device=x.device)
+                train = torch.is_grad_enabled() and any(
+                    t.requires_grad for t in (x, w_ih, w_hh, b_ih))
+                o = (lstm_fused_train if train else lstm_fused)(
+                    x, mask.contiguous(), w_ih.contiguous(),
+                    b_ih.contiguous(), w_hh.contiguous(),
+                    reverse=d == "bwd", device=x.device)
                 # final state from the outputs: masks are contiguous from
                 # the front (length-based), so the last valid output is
                 # the carried state
@@ -100,21 +105,28 @@ class RNNLayer(ParamModule):
 
 class RNNEncoder(nn.Module):
     """Stacked LSTM encoder (``layer0``, ``layer1``, ...): per-token states
-    ``[B, T, H*dirs]`` and the final state ``[B, H*dirs]``."""
+    ``[B, T, H*dirs]`` and the final state ``[B, H*dirs]``, with
+    ``dropout`` between layers."""
 
     def __init__(self, in_features: int, features: int, num_layers: int = 1,
                  bidirectional: bool = True, use_kernel: bool = False,
-                 dtype: torch.dtype = torch.float32, device="cuda"):
+                 dtype: torch.dtype = torch.float32, device="cuda",
+                 dropout: float = 0.0):
         super().__init__()
         self.num_layers = num_layers
+        self.dropout = dropout
         width = features * (2 if bidirectional else 1)
         for layer in range(num_layers):
             self.add_module(f"layer{layer}", RNNLayer(
                 in_features if layer == 0 else width, features,
                 bidirectional, use_kernel, dtype, device))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor):
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                deterministic: bool = True,
+                generator: torch.Generator | None = None):
         out, final = x, None
         for layer in range(self.num_layers):
+            if layer > 0:
+                out = dropout(out, self.dropout, deterministic, generator)
             out, final = getattr(self, f"layer{layer}")(out, mask)
         return out, final

@@ -9,13 +9,15 @@ for beam, top-2 for greedy -- so the ``[rows, V]`` logits never exist.  On
 the CPU (``device="cpu"``) the same step structure runs on the kernels'
 plain versions.
 
-Not ported yet: ``from_checkpoint``, the cached-document index
+``Engine.from_checkpoint`` loads a checkpoint written by the port's
+``train.Checkpointer``.  Not ported yet: the cached-document index
 (``index_documents`` / ``rank_indexed*``), int8 embeddings, the suggestion
 shortlist and the device mesh.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Optional, Sequence
 
 import torch
@@ -27,6 +29,7 @@ from .decode import beam_search, greedy_decode, make_fused_beam_step
 from .device import resolve_device
 from .models.base import compute_dtype
 from .models.multitask.cars import CARS, clicks_exceed_suggest_cap
+from .train.checkpoint import Checkpointer
 
 
 class ServeError(ValueError):
@@ -59,6 +62,21 @@ class Engine:
         # all-finished early exit: on at this serving surface, where trained
         # models emit EOS well inside the max_len budget
         self.suggest_early_exit = suggest_early_exit
+
+    @classmethod
+    def from_checkpoint(cls, path: str | Path, beam_size: int = 5,
+                        quantize_embeddings: bool = False, device="cuda",
+                        **kw) -> "Engine":
+        """An Engine over the parameters of a checkpoint directory written
+        by ``train.Checkpointer`` (config and vocabulary from its
+        sidecars)."""
+        if quantize_embeddings:
+            raise NotImplementedError(
+                "quantize_embeddings needs the int8 embedding table and "
+                "kernel 2's int8 mode, which are not ported yet")
+        config, word_dict, _ = Checkpointer.peek(path)
+        params = Checkpointer.read_state(path)["params"]
+        return cls(config, word_dict, params, beam_size, device=device, **kw)
 
     # -- request -> batch -----------------------------------------------------
 
