@@ -6,6 +6,9 @@ at the logical emsize) and names its parameters after the JAX tree, so the
 bridge is a rename: the nested path ``query_encoder/layer0/w_ih_fwd``
 becomes ``query_encoder.layer0.w_ih_fwd``.  Any leaf that the port does
 not have, any parameter that the tree lacks, and any shape mismatch raise.
+A serving tree from ``quantize_embedding_params`` (int8 ``embedding_q``
+and f32 ``embedding_scale`` in place of ``embedding``) loads into a CARS
+whose config has ``quantize_embeddings``; its int8 leaves stay int8.
 """
 
 from __future__ import annotations
@@ -31,9 +34,10 @@ def _flatten(tree: Mapping, prefix: str = "") -> Iterator[tuple[str, object]]:
 def params_from_jax(params_np: Mapping,
                     config: ModelConfig) -> dict[str, torch.Tensor]:
     """``params_np``: the JAX param tree as nested dicts of numpy arrays
-    (``jax.device_get(model.init(...)["params"])``).  Returns float32 CPU
-    tensors keyed by the port's parameter names."""
-    expected = {k: tuple(v.shape) for k, v in
+    (``jax.device_get(model.init(...)["params"])``).  Returns CPU tensors
+    keyed by the port's parameter names, float32 except the int8 table of
+    a quantized config (whose leaf must already be int8)."""
+    expected = {k: (tuple(v.shape), v.dtype) for k, v in
                 CARS(config, device="meta", seed=None).state_dict().items()}
     flat = dict(_flatten(params_np))
     unknown = sorted(set(flat) - set(expected))
@@ -43,10 +47,17 @@ def params_from_jax(params_np: Mapping,
                          f"{unknown}, missing {missing}")
     out = {}
     for name, value in flat.items():
-        arr = np.asarray(value, dtype=np.float32)
-        if arr.shape != expected[name]:
+        shape, dtype = expected[name]
+        if dtype == torch.int8:
+            arr = np.asarray(value)
+            if arr.dtype != np.int8:
+                raise ValueError(f"{name}: JAX dtype {arr.dtype}, port dtype "
+                                 "int8")
+        else:
+            arr = np.asarray(value, dtype=np.float32)
+        if arr.shape != shape:
             raise ValueError(f"{name}: JAX shape {arr.shape}, port shape "
-                             f"{expected[name]}")
+                             f"{shape}")
         out[name] = torch.from_numpy(arr.copy())
     return out
 

@@ -1,8 +1,16 @@
-"""Decoding: beam search, greedy, and the fused-generator step."""
+"""Decoding: beam search, greedy, the fused-generator step and the
+suggestion shortlist."""
 
 from .beam import beam_search
-from .fusedgen import fused_generator_table, make_fused_beam_step
+from .fusedgen import (
+    can_fuse_generator,
+    fused_generator_table,
+    make_fused_beam_step,
+    make_shortlist_xla_step,
+)
 from .greedy import greedy_decode
+from .shortlist import build_shortlist
 
-__all__ = ["beam_search", "greedy_decode", "fused_generator_table",
-           "make_fused_beam_step"]
+__all__ = ["beam_search", "greedy_decode", "build_shortlist",
+           "can_fuse_generator", "fused_generator_table",
+           "make_fused_beam_step", "make_shortlist_xla_step"]

@@ -1,40 +1,119 @@
-"""Fused-generator step construction (port of the float-table path of
+"""Fused-generator step construction (port of
 ``context_attentive_ir_tpu/decode/fusedgen.py``).
 
 Bridges a model's ``decode_step_fused`` (tie projection, no logits matmul)
 and the fused generator kernel (``ops/kernels/beamgen.py``) into the
 ``(state, (vals, idx, lse))`` step contract of ``beam_search`` and
-``greedy_decode``.  The shortlist, pipelined, pruned and int8-table modes
-are not ported yet.
+``greedy_decode``, for a float or an int8 table, the serial, pruned or
+pipelined kernel, and an optional vocabulary shortlist.
+
+The JAX package resolves ``pipeline=None`` and ``prune=None`` from its
+measured TPU dispatch table; the port has no table of its own yet, so
+``None`` resolves to ``False``, as the JAX lookup does for a shape it has
+not measured.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
-from ..ops.kernels.beamgen import generator_topk_lse
+from ..ops.kernels.beamgen import (
+    generator_topk_lse,
+    generator_topk_lse_reference,
+)
 
 
-def fused_generator_table(model, dtype: torch.dtype) -> torch.Tensor:
-    """The tied table transposed, ``[E, V]`` contiguous in ``dtype``."""
-    return model.embeddings.embedding.detach().to(dtype).t().contiguous()
+def fused_generator_table(model, dtype: torch.dtype = torch.bfloat16):
+    """``(table_t [E, V], scale [V] | None)`` of the model's tied table,
+    contiguous, or None when the model has none.
+
+    A float table returns ``(table.T`` in ``dtype``, ``None)``; the int8
+    serving table (``embedding_q`` + ``embedding_scale``) returns ``(q.T``
+    int8, ``scale`` float32 ``[V])``, the int8 mode of the kernel."""
+    emb = getattr(model, "embeddings", None)
+    if emb is None:
+        return None
+    if getattr(emb, "quantized", False):
+        return (emb.embedding_q.detach().t().contiguous(),
+                emb.embedding_scale.detach().reshape(-1).float()
+                .contiguous())
+    return emb.embedding.detach().to(dtype).t().contiguous(), None
+
+
+def can_fuse_generator(model) -> bool:
+    return (hasattr(model, "decode_step_fused")
+            and fused_generator_table(model) is not None)
+
+
+def _shortlisted(table_t, scale, shortlist):
+    """The table's shortlist columns (and their scales), gathered once per
+    decode, and the shortlist as an int32 map from column to vocab id."""
+    sl = torch.as_tensor(shortlist, dtype=torch.long,
+                         device=table_t.device)
+    table_t = table_t.index_select(1, sl).contiguous()
+    if scale is not None:
+        scale = scale.index_select(0, sl).contiguous()
+    return table_t, scale, sl.to(torch.int32)
 
 
 def make_fused_beam_step(model, memory: torch.Tensor,
                          memory_mask: torch.Tensor, kc: int,
-                         dtype: torch.dtype) -> Callable:
-    """``(state, tokens) -> (state, (vals, idx, lse))``.  ``memory`` and
-    ``memory_mask`` must already be beam-tiled.  The transposed table is
-    built once here and reused by every step."""
-    table_t = fused_generator_table(model, dtype)
+                         dtype: torch.dtype = torch.bfloat16,
+                         pipeline: bool | None = None,
+                         prune: bool | None = None,
+                         shortlist=None) -> Optional[Callable]:
+    """``(state, tokens) -> (state, (vals, idx, lse))`` or None when the
+    model cannot take the fused path.  ``memory`` and ``memory_mask`` must
+    already be beam-tiled.  The transposed table is built once here and
+    reused by every step.
+
+    An int8 table forces ``pipeline=False`` and ``pipeline`` forces
+    ``prune=False`` (both are serial-kernel modes); every choice gives the
+    same outputs.  ``shortlist``: int32 ``[C]`` sorted vocab ids
+    (``decode/shortlist.py``) -- the generator scores only these columns
+    and the returned indices are mapped back to vocab ids."""
+    if not can_fuse_generator(model):
+        return None
+    table_t, scale = fused_generator_table(model, dtype)
+    pipeline = bool(pipeline) and scale is None
+    prune = bool(prune) and not pipeline
+    sl = None
+    if shortlist is not None:
+        table_t, scale, sl = _shortlisted(table_t, scale, shortlist)
 
     def step(state, tokens):
         state, proj, _ = model.decode_step_fused(state, tokens, memory,
                                                  memory_mask)
-        out = generator_topk_lse(proj.to(dtype).contiguous(), table_t, kc,
-                                 device=proj.device)
-        return state, out
+        vals, idx, lse = generator_topk_lse(
+            proj.to(dtype).contiguous(), table_t, kc, scale=scale,
+            prune=prune, pipeline=pipeline, device=proj.device)
+        if sl is not None:
+            idx = sl[idx.long()]
+        return state, (vals, idx, lse)
+
+    return step
+
+
+def make_shortlist_xla_step(model, memory: torch.Tensor,
+                            memory_mask: torch.Tensor, kc: int,
+                            dtype: torch.dtype = torch.bfloat16,
+                            shortlist=None) -> Optional[Callable]:
+    """The plain-version shortlist step: the same ``(vals, idx, lse)``
+    contract and restricted-softmax math as the fused step's shortlist
+    mode, through ``generator_topk_lse_reference`` on the gathered columns
+    on any device.  None without a shortlist or a tied table."""
+    if shortlist is None or not can_fuse_generator(model):
+        return None
+    table_t, scale, sl = _shortlisted(*fused_generator_table(model, dtype),
+                                      shortlist)
+
+    def step(state, tokens):
+        state, proj, _ = model.decode_step_fused(state, tokens, memory,
+                                                 memory_mask)
+        vals, idx, lse = generator_topk_lse_reference(proj.to(dtype),
+                                                      table_t, kc, scale)
+        return state, (vals, sl[idx.long()], lse)
 
     return step

@@ -16,10 +16,8 @@ def compute_dtype(config: ModelConfig) -> torch.dtype:
 def make_embeddings(config: ModelConfig, device) -> Embeddings:
     if config.vocab_size <= 0:
         raise ValueError("config.vocab_size must be set")
-    if config.quantize_embeddings:
-        raise NotImplementedError(
-            "the int8 embedding table is not ported yet")
     return Embeddings(config.vocab_size, config.emsize,
                       dtype=compute_dtype(config), device=device,
                       dropout=config.dropout_emb,
-                      fixed=config.fix_embeddings)
+                      fixed=config.fix_embeddings,
+                      quantized=config.quantize_embeddings)

@@ -61,8 +61,6 @@ class CARS(nn.Module):
             raise NotImplementedError("only the tied generator is ported")
         if cfg.rnn_type != "lstm" or cfg.session_rnn_type != "lstm":
             raise NotImplementedError("only LSTM encoders are ported")
-        if cfg.use_pallas_slate:
-            raise NotImplementedError("the slate-pool kernel is not ported")
         if cfg.cars_ablation not in ("none", "no_click_flow",
                                      "no_context_attn"):
             raise ValueError(f"unknown cars_ablation {cfg.cars_ablation!r}")
@@ -79,7 +77,8 @@ class CARS(nn.Module):
         self.query_pool = AttentionPool(h2, h2, use_query=False, dtype=dt,
                                         device=dev)
         self.doc_pool = AttentionPool(h2, h2, use_query=True, dtype=dt,
-                                      device=dev)
+                                      device=dev,
+                                      use_kernel=cfg.use_pallas_slate)
         self.query_flow = RNNLayer(h2, h2, bidirectional=False, dtype=dt,
                                    device=dev)
         # an ablation drops the layers it never calls, as the JAX param
@@ -117,6 +116,11 @@ class CARS(nn.Module):
                                        doc_mask.reshape(-1, Ld),
                                        deterministic, generator)
         return d_states.reshape(*lead, *d_states.shape[-2:])
+
+    def encode_docs_proj(self, d_states: torch.Tensor) -> torch.Tensor:
+        """The query-independent half of the doc pooling, ``tanh(d_states
+        @ W_p + b_p)``: cacheable per corpus beside ``encode_docs``."""
+        return self.doc_pool(d_states, proj_only=True)
 
     def _encode_queries(self, batch: SessionBatch, deterministic: bool = True,
                         generator: torch.Generator | None = None):

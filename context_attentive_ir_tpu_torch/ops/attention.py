@@ -5,12 +5,21 @@ Pools token states into one vector, optionally conditioned on an external
 query vector (CARS's query-aware document pooling).  The query-independent
 half ``tanh(states @ W_p + b_p)`` is exposed (``proj_only``) and reusable
 (``proj_states``) for cached-document ranking.
+
+``use_kernel=True`` sends the query-conditioned pool to the fused
+slate-pool kernel (kernel 10, ``ops/kernels/slate.py``) when the JAX
+``_pallas_ok`` conditions hold -- a query is given, no cached projection,
+``states`` has the pool's width, ``pool_supported`` -- and the states lie
+on a CUDA device; otherwise the formulation below runs unchanged.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from .kernels.slate import attn_pool, attn_pool_train, pool_supported
 from .layers import ParamModule
 from .masking import masked_softmax
 
@@ -21,10 +30,13 @@ class AttentionPool(ParamModule):
     ``v`` exactly when it is called without a query)."""
 
     def __init__(self, in_features: int, dim: int, use_query: bool,
-                 dtype: torch.dtype = torch.float32, device="cuda"):
+                 dtype: torch.dtype = torch.float32, device="cuda",
+                 use_kernel: bool = False):
         super().__init__(device)
         self.dtype = dtype
+        self.dim = dim
         self.use_query = use_query
+        self.use_kernel = use_kernel
         self.proj_kernel = self.new_param("proj_kernel", (in_features, dim),
                                           "glorot")
         self.proj_bias = self.new_param("proj_bias", (dim,), "zeros")
@@ -36,15 +48,27 @@ class AttentionPool(ParamModule):
                 proj_states: torch.Tensor | None = None,
                 proj_only: bool = False) -> torch.Tensor:
         s = states.to(self.dtype)
+        w_p = self.proj_kernel.to(self.dtype)
+        b_p = self.proj_bias.to(self.dtype)
         if proj_only:
-            return torch.tanh(s @ self.proj_kernel.to(self.dtype)
-                              + self.proj_bias.to(self.dtype))
+            return torch.tanh(s @ w_p + b_p)
         if (query is not None) != self.use_query:
             raise ValueError("query must be given exactly when the pool was "
                              "built with use_query=True")
+        lead, T, D = states.shape[:-2], states.shape[-2], states.shape[-1]
+        if (self.use_kernel and query is not None and proj_states is None
+                and D == self.dim and pool_supported(D, math.prod(lead))
+                and states.device.type == "cuda"):
+            train = torch.is_grad_enabled() and any(
+                t.requires_grad for t in (s, query, w_p, b_p))
+            out = (attn_pool_train if train else attn_pool)(
+                s.reshape(-1, T, D).contiguous(),
+                mask.reshape(-1, T).contiguous(),
+                query.to(self.dtype).reshape(-1, D).contiguous(),
+                w_p.contiguous(), b_p.contiguous(), device=states.device)
+            return out.reshape(*lead, D)
         if proj_states is None:
-            h = torch.tanh(s @ self.proj_kernel.to(self.dtype)
-                           + self.proj_bias.to(self.dtype))
+            h = torch.tanh(s @ w_p + b_p)
         else:
             h = proj_states.to(self.dtype)
         if query is not None:

@@ -37,8 +37,9 @@ SIGNATURES = {
     "cair_lstm_bwd_workspace": ([_I] * 6, ctypes.c_longlong),
     "cair_lstm_bwd": ([_P] * 15 + [_I] * 7 + [_P], _I),
     "cair_beamgen_splits": ([_I, _I, _I, _IP, _IP], _I),
-    "cair_beamgen": ([_P, _P, _I, _I, _I, _I, _I, _I,
-                      _P, _P, _P, _P, _P, _P, _P, _I, _P], _I),
+    "cair_beamgen": ([_P, _P, _P] + [_I] * 6 + [_P] * 7 + [_I] * 4 + [_P],
+                     _I),
+    "cair_slate_pool": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "cair_error_string": ([_I], ctypes.c_char_p),
 }
 

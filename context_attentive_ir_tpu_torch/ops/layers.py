@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -39,10 +40,12 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool,
 def init_param_(p: torch.Tensor, kind: str, gen: torch.Generator) -> None:
     """Fill ``p`` in place from the CPU generator ``gen`` (flax's
     initializer families: glorot-uniform, lecun-normal, orthogonal, the
-    embedding normal(0.1), zeros)."""
+    embedding normal(0.1), zeros, ones)."""
     shape = tuple(p.shape)
     if kind == "zeros":
         v = torch.zeros(shape)
+    elif kind == "ones":
+        v = torch.ones(shape)
     elif kind == "embedding":
         v = torch.randn(shape, generator=gen) * 0.1
     elif kind == "glorot":
@@ -63,18 +66,21 @@ def init_param_(p: torch.Tensor, kind: str, gen: torch.Generator) -> None:
 
 
 class ParamModule(nn.Module):
-    """An ``nn.Module`` whose float32 parameters each carry an initializer
-    name; ``reset_parameters`` fills a whole tree from one seed."""
+    """An ``nn.Module`` whose parameters (float32 unless said otherwise)
+    each carry an initializer name; ``reset_parameters`` fills a whole tree
+    from one seed."""
 
     def __init__(self, device):
         super().__init__()
         self.device = torch.device(device)
         self.inits: dict[str, str] = {}
 
-    def new_param(self, name: str, shape: Sequence[int],
-                  init: str) -> nn.Parameter:
-        p = nn.Parameter(torch.empty(tuple(shape), dtype=torch.float32,
-                                     device=self.device))
+    def new_param(self, name: str, shape: Sequence[int], init: str,
+                  dtype: torch.dtype = torch.float32,
+                  requires_grad: bool = True) -> nn.Parameter:
+        p = nn.Parameter(torch.empty(tuple(shape), dtype=dtype,
+                                     device=self.device),
+                         requires_grad=requires_grad)
         self.register_parameter(name, p)
         self.inits[name] = init
         return p
@@ -114,18 +120,35 @@ class Embeddings(ParamModule):
     tied-generator ``attend``.  ``fixed=True`` stops the gradient through
     the table in both (``--fix_embeddings``).  The JAX ``lookup_padded``
     lane pad is a TPU layout matter and is exact to drop: the port's
-    encoders take the logical width."""
+    encoders take the logical width.
+
+    ``quantized=True`` is the serving-time int8 table of the JAX module:
+    ``embedding_q`` int8 ``[V, E]`` and a per-row ``embedding_scale`` f32
+    ``[V, 1]`` (``quantize_embedding_table``), neither trainable.  Lookup
+    multiplies the gathered rows by their scales in the compute dtype, as
+    the JAX module does; ``attend`` applies the scale after the product."""
 
     def __init__(self, vocab_size: int, features: int,
                  dtype: torch.dtype = torch.float32, device="cuda",
-                 dropout: float = 0.0, fixed: bool = False):
+                 dropout: float = 0.0, fixed: bool = False,
+                 quantized: bool = False):
         super().__init__(device)
         self.features = features
         self.dtype = dtype
         self.dropout = dropout
         self.fixed = fixed
-        self.embedding = self.new_param("embedding", (vocab_size, features),
-                                        "embedding")
+        self.quantized = quantized
+        if quantized:
+            self.embedding_q = self.new_param(
+                "embedding_q", (vocab_size, features), "zeros",
+                dtype=torch.int8, requires_grad=False)
+            self.embedding_scale = self.new_param(
+                "embedding_scale", (vocab_size, 1), "ones",
+                requires_grad=False)
+        else:
+            self.embedding = self.new_param("embedding",
+                                            (vocab_size, features),
+                                            "embedding")
 
     def _table(self) -> torch.Tensor:
         """The float32 table, cut from the gradient when ``fixed``."""
@@ -133,12 +156,31 @@ class Embeddings(ParamModule):
 
     def forward(self, ids: torch.Tensor, deterministic: bool = True,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        out = F.embedding(ids, self._table()).to(self.dtype)
+        if self.quantized:
+            out = (self.embedding_q[ids].to(self.dtype)
+                   * self.embedding_scale[ids].to(self.dtype))
+        else:
+            out = F.embedding(ids, self._table()).to(self.dtype)
         return dropout(out, self.dropout, deterministic, generator)
 
     def attend(self, h: torch.Tensor) -> torch.Tensor:
         """Tied-generator logits: ``h [..., E] @ table.T -> [..., V]``."""
+        if self.quantized:
+            logits = h.to(self.dtype) @ self.embedding_q.to(self.dtype).T
+            return logits * self.embedding_scale[:, 0].to(self.dtype)
         return h.to(self.dtype) @ self._table().to(self.dtype).T
+
+
+def quantize_embedding_table(table) -> tuple[np.ndarray, np.ndarray]:
+    """Per-row symmetric int8 quantization of a ``[V, E]`` table (a copy of
+    the JAX package's numpy function): ``(q int8 [V, E], scale f32
+    [V, 1])`` with ``scale = max(max|row|, 1e-8) / 127`` and ``q =
+    clip(round(row / scale), -127, 127)``, rounding half to even."""
+    table = np.asarray(table, np.float32)
+    scale = np.maximum(np.abs(table).max(axis=1, keepdims=True),
+                       1e-8) / 127.0
+    q = np.clip(np.round(table / scale), -127, 127).astype(np.int8)
+    return q, scale.astype(np.float32)
 
 
 class MLP(nn.Module):

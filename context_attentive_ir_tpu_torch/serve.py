@@ -3,33 +3,65 @@
 
 Requests are padded to the model's static shapes and batched into buckets
 of ``batch_bucket`` rows, as in the JAX engine.  Ranking runs the encoders
-through the fused LSTM kernel; suggestion runs beam search (or greedy at
-``beam_size=1``) through the fused generator step -- top-``beam_size + 1``
-for beam, top-2 for greedy -- so the ``[rows, V]`` logits never exist.  On
-the CPU (``device="cpu"``) the same step structure runs on the kernels'
-plain versions.
+through the fused LSTM kernel (and the query-aware doc pooling through the
+slate-pool kernel when the config sets ``use_pallas_slate``); suggestion
+runs beam search (or greedy at ``beam_size=1``) through the fused
+generator step -- top-``beam_size + 1`` for beam, top-2 for greedy -- so
+the ``[rows, V]`` logits never exist.  On the CPU (``device="cpu"``) the
+same step structure runs on the kernels' plain versions.
 
+``index_documents`` encodes a corpus once; ``rank_indexed`` /
+``rank_indexed_batch`` then rank its documents by id, paying only for the
+queries, the pooling and the scoring.  ``suggest_shortlist=C`` restricts
+the generator to C vocab ids per request batch (``decode/shortlist.py``).
 ``Engine.from_checkpoint`` loads a checkpoint written by the port's
-``train.Checkpointer``.  Not ported yet: the cached-document index
-(``index_documents`` / ``rank_indexed*``), int8 embeddings, the suggestion
-shortlist and the device mesh.
+``train.Checkpointer``, optionally with the int8 embedding table
+(``quantize_embeddings=True``), whose suggestions run through the
+generator kernel's int8 mode.  Not ported: the device mesh.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .config import ModelConfig
 from .data import Dictionary, build_session_batch, shapes_from_config
 from .data.objects import Document, Query, Session
-from .decode import beam_search, greedy_decode, make_fused_beam_step
+from .decode import (
+    beam_search,
+    build_shortlist,
+    greedy_decode,
+    make_fused_beam_step,
+)
 from .device import resolve_device
 from .models.base import compute_dtype
 from .models.multitask.cars import CARS, clicks_exceed_suggest_cap
+from .ops.layers import quantize_embedding_table
 from .train.checkpoint import Checkpointer
+
+
+def quantize_embedding_params(params: Mapping) -> dict:
+    """A state dict with every 2-D ``<prefix>.embedding`` table replaced by
+    its int8 values ``<prefix>.embedding_q`` and per-row scales
+    ``<prefix>.embedding_scale`` (``quantize_embedding_table``), for a
+    model whose config sets ``quantize_embeddings`` (the JAX
+    ``quantize_embedding_params`` on a flat state dict)."""
+    out = {}
+    for name, value in params.items():
+        prefix, _, leaf = name.rpartition(".")
+        if prefix and leaf == "embedding" and value.dim() == 2:
+            q, scale = quantize_embedding_table(
+                value.detach().float().cpu().numpy())
+            out[f"{prefix}.embedding_q"] = torch.from_numpy(q)
+            out[f"{prefix}.embedding_scale"] = torch.from_numpy(scale)
+        else:
+            out[name] = value
+    return out
 
 
 class ServeError(ValueError):
@@ -41,11 +73,19 @@ class Engine:
     """One loaded CARS model behind ``rank``/``suggest``.
 
     ``params``: a state dict of the port's CARS (``convert.params_from_jax``
-    of a JAX param tree, or ``CARS(...).state_dict()``).
+    of a JAX param tree, or ``CARS(...).state_dict()``; for a config with
+    ``quantize_embeddings``, ``quantize_embedding_params`` of one).
+
+    ``suggest_shortlist``: > 0 restricts the suggestion generator to that
+    many vocab ids per request batch -- the specials, the batch's query
+    and clicked-document tokens, the most frequent ids as fill
+    (approximate: the softmax support is the shortlist); 0 decodes over
+    the whole vocabulary.
     """
 
     def __init__(self, config: ModelConfig, word_dict: Dictionary, params,
                  beam_size: int = 5, batch_bucket: int = 8,
+                 suggest_shortlist: int = 0,
                  suggest_early_exit: bool = True, device="cuda"):
         if config.model_type != "cars":
             raise ServeError(f"{config.model_type} is not ported; the "
@@ -59,6 +99,7 @@ class Engine:
         self.shapes = shapes_from_config(config)
         self.beam_size = beam_size
         self.batch_bucket = batch_bucket
+        self.suggest_shortlist = min(suggest_shortlist, config.vocab_size)
         # all-finished early exit: on at this serving surface, where trained
         # models emit EOS well inside the max_len budget
         self.suggest_early_exit = suggest_early_exit
@@ -69,13 +110,12 @@ class Engine:
                         **kw) -> "Engine":
         """An Engine over the parameters of a checkpoint directory written
         by ``train.Checkpointer`` (config and vocabulary from its
-        sidecars)."""
-        if quantize_embeddings:
-            raise NotImplementedError(
-                "quantize_embeddings needs the int8 embedding table and "
-                "kernel 2's int8 mode, which are not ported yet")
+        sidecars); ``quantize_embeddings`` serves from the int8 table."""
         config, word_dict, _ = Checkpointer.peek(path)
         params = Checkpointer.read_state(path)["params"]
+        if quantize_embeddings:
+            config = config.replace(quantize_embeddings=True)
+            params = quantize_embedding_params(params)
         return cls(config, word_dict, params, beam_size, device=device, **kw)
 
     # -- request -> batch -----------------------------------------------------
@@ -142,9 +182,143 @@ class Engine:
                        .tolist())
         return out
 
+    # -- cached-document ranking ----------------------------------------------
+
+    def index_documents(self, texts: Sequence[str],
+                        cache_pool_proj: bool = False) -> dict:
+        """Precompute query-independent document encodings: ``{"states"
+        [n, Ld, H2], "mask" [n, Ld], "proj" [n, Ld, H2] | None}`` on the
+        engine's device.  ``cache_pool_proj`` also caches the pooling
+        projection ``tanh(states @ W_p + b_p)`` (query-independent too) at
+        twice the index memory; ranking then skips it, and the slate-pool
+        kernel with it."""
+        self._check_doc_cache()
+        Ld = self.shapes.max_doc_len
+        ids = np.zeros((len(texts), Ld), np.int64)
+        mask = np.zeros((len(texts), Ld), bool)
+        for i, t in enumerate(texts):
+            toks = self.word_dict.encode(t.split()[:Ld])
+            ids[i, :len(toks)] = toks
+            mask[i, :len(toks)] = True
+        ids = torch.from_numpy(ids).to(self.device)
+        mask = torch.from_numpy(mask).to(self.device)
+        with torch.inference_mode():
+            states = self.model.encode_docs(ids, mask)
+            proj = (self.model.encode_docs_proj(states) if cache_pool_proj
+                    else None)
+        return {"states": states, "mask": mask, "proj": proj}
+
+    def _check_doc_cache(self) -> None:
+        if not hasattr(self.model, "encode_docs"):
+            raise ServeError(
+                f"{self.config.model_type} has no cached-doc path")
+
+    def _rank_indexed_impl(self, batch, states, smask, idx, proj=None):
+        """Score a session batch against per-row cached doc states.
+        ``idx`` indexes the corpus rows; two layouts, told apart by rank:
+
+        - ``[B, N]`` -- one slate serves every turn of the request session
+          (broadcast over the session axis: gathers B*N state rows);
+        - ``[B, S, N]`` -- per-turn slates, used when history turns carry
+          clicked doc ids (their slots marked clicked by the batch), the
+          final turn holding the request slate."""
+        B, S = batch.query.shape[:2]
+
+        def expand(arr):
+            g = arr.index_select(0, idx.reshape(-1))
+            g = g.reshape(*idx.shape, *arr.shape[1:])
+            return g if idx.dim() == 3 else g[:, None].expand(
+                B, S, *g.shape[1:])
+
+        batch = dataclasses.replace(batch, doc_mask=expand(smask))
+        return self.model.score(batch, expand(states),
+                                None if proj is None else expand(proj))
+
+    def rank_indexed(self, query: str, doc_ids: Sequence[int], index: dict,
+                     history: Sequence = ()) -> list[float]:
+        """Score indexed documents for one query without re-encoding them.
+        History entries are ``query`` or ``(query, [clicked doc ids])``;
+        clicked ids resolve against the same ``index`` and feed the click
+        flow."""
+        return self.rank_indexed_batch([(query, doc_ids, history)],
+                                       index)[0]
+
+    def rank_indexed_batch(self, requests: Sequence[tuple],
+                           index: dict) -> list[list[float]]:
+        """requests: [(query, doc_ids, history)] -> per-request scores over
+        a prebuilt ``index_documents`` index.  Requests without click
+        history take the broadcast slate layout, the others per-turn slates
+        (``_rank_indexed_impl``)."""
+        self._check_doc_cache()
+        N = self.shapes.num_candidates
+        n_corpus = getattr(index["states"], "shape", (0,))[0]
+        reqs = [(r[0], r[1], r[2] if len(r) > 2 else ()) for r in requests]
+
+        def check_ids(ids, what):
+            if len(ids) > N:
+                raise ServeError(
+                    f"{len(ids)} {what} exceed the slate size {N}")
+            bad = [i for i in ids if not 0 <= int(i) < n_corpus]
+            if bad:
+                raise ServeError(
+                    f"{what} {bad} out of range for a {n_corpus}-doc index")
+
+        has_clicks = False
+        hist_ids: list[list[list[int]]] = []   # per request, per turn
+        hist_texts: list[list] = []            # history for _to_sessions
+        for _, doc_ids, history in reqs:
+            check_ids(doc_ids, "doc_ids")
+            ids_t, texts = [], []
+            for h in history:
+                if isinstance(h, (tuple, list)):
+                    clicked = [int(c) for c in h[1]]
+                    check_ids(clicked, "clicked doc ids")
+                    has_clicks = has_clicks or bool(clicked)
+                    # placeholder texts: the gathered cached states replace
+                    # the token content; label-1 docs mark the clicks
+                    ids_t.append(clicked)
+                    texts.append((h[0], ["x"] * len(clicked)))
+                else:
+                    ids_t.append([])
+                    texts.append(h)
+            hist_ids.append(ids_t)
+            hist_texts.append(texts)
+
+        sessions = [self._to_sessions(texts, q, ["x"] * len(ids))
+                    for (q, ids, _), texts in zip(reqs, hist_texts)]
+        B = self._bucket(len(sessions))
+        batch = build_session_batch(sessions, self.word_dict, self.shapes,
+                                    batch_size=B)
+        S = self.shapes.max_session_len
+        if has_clicks:
+            idx = np.zeros((B, S, N), np.int64)
+            for i, ((_, ids, _), turns) in enumerate(zip(reqs, hist_ids)):
+                kept = turns[-(S - 1):] if S > 1 else []
+                for t, clicked in enumerate(kept):
+                    idx[i, t, : len(clicked)] = clicked
+                idx[i, len(kept), : len(ids)] = ids
+        else:
+            idx = np.zeros((B, N), np.int64)
+            for i, (_, ids, _) in enumerate(reqs):
+                idx[i, : len(ids)] = ids
+        with torch.inference_mode():
+            scores = self._rank_indexed_impl(
+                batch.to(self.device), index["states"], index["mask"],
+                torch.from_numpy(idx).to(self.device), index.get("proj"))
+            scores = scores.float().cpu().numpy()
+        out = []
+        for i, ((_, ids, _), sess) in enumerate(zip(reqs, sessions)):
+            out.append(scores[i, len(sess.queries) - 1][: len(ids)]
+                       .tolist())
+        return out
+
     # -- suggestion -----------------------------------------------------------
 
-    def _suggest_impl(self, batch, init_method: str):
+    def _suggest_impl(self, batch, init_method: str, shortlist=None):
+        """Decode through the fused generator step with its pruned
+        selection: exact, and on the H100 at the serving shapes faster
+        than the unpruned one (PERF.md), where the JAX engine reads the
+        choice from its TPU dispatch table."""
         state, memory, memory_mask = getattr(self.model, init_method)(batch)
         rows = memory.shape[0]
         max_len = self.shapes.max_target_len
@@ -154,13 +328,15 @@ class Engine:
             mem_k = memory.repeat_interleave(K, dim=0)
             mask_k = memory_mask.repeat_interleave(K, dim=0)
             step = make_fused_beam_step(self.model, mem_k, mask_k, K + 1,
-                                        dtype)
+                                        dtype, prune=True,
+                                        shortlist=shortlist)
             return beam_search(step, state, rows, max_len, K,
                                return_nbest=True,
                                early_exit=self.suggest_early_exit)
         # greedy takes the same fused step at kc=2 (one spare slot covers a
         # min_length-blocked EOS -- exact)
-        step = make_fused_beam_step(self.model, memory, memory_mask, 2, dtype)
+        step = make_fused_beam_step(self.model, memory, memory_mask, 2, dtype,
+                                    prune=True, shortlist=shortlist)
         seqs, scores = greedy_decode(step, state, rows, max_len,
                                      early_exit=self.suggest_early_exit)
         return seqs[:, None], scores[:, None]
@@ -187,8 +363,15 @@ class Engine:
         # exact at any click count: past the cap, decode from the full slate
         init = ("decode_init_full" if clicks_exceed_suggest_cap(
             batch, self.config.suggest_max_clicks) else "decode_init")
+        shortlist = None
+        if 0 < self.suggest_shortlist < self.config.vocab_size:
+            shortlist = build_shortlist(
+                self.suggest_shortlist, self.config.vocab_size,
+                np.concatenate([batch.query.reshape(-1),
+                                batch.docs[batch.clicks > 0].reshape(-1)]))
         with torch.inference_mode():
-            seqs, scores = self._suggest_impl(batch.to(self.device), init)
+            seqs, scores = self._suggest_impl(batch.to(self.device), init,
+                                              shortlist)
             seqs, scores = seqs.cpu().numpy(), scores.float().cpu().numpy()
         S = self.shapes.max_session_len
         out = []

@@ -430,9 +430,14 @@ def test_engine_from_checkpoint_scores_like_the_trained_model(setup,
     # the score step is the model's own score
     scores = make_score_step(model, pcfg)(pb)
     assert scores.shape == pb.clicks.shape
-    with pytest.raises(NotImplementedError, match="int8"):
-        Engine.from_checkpoint(ckpt.best_path, quantize_embeddings=True,
-                               device="cpu")
+    # the int8 table: scores near the float engine's (the JAX package's
+    # tolerance, tests/test_serve.py:103)
+    int8 = Engine.from_checkpoint(ckpt.best_path, quantize_embeddings=True,
+                                  batch_bucket=4, device="cpu")
+    assert int8.model.embeddings.embedding_q.dtype == torch.int8
+    np.testing.assert_allclose(np.concatenate(int8.rank_batch(reqs)),
+                               np.concatenate(in_memory.rank_batch(reqs)),
+                               atol=0.08, rtol=0.1)
 
 
 def test_param_count_matches_jax(setup):
