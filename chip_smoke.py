@@ -11,24 +11,23 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 2. the build of the kernel library from ``context_attentive_ir_tpu_torch/
    csrc`` (``nvcc`` for sm_90a, one process per source, timed);
 3. every kernel against its plain PyTorch version on the card at every
-   shape the main path gives it and at row counts off its row block, in
-   float32 (TF32 off for matmuls and cuDNN) and bfloat16: kernels 1 and 2
-   (serving), the training pair 4 and 5 output by output, also at a T the
-   time chunk does not divide (kernel 5 must give the same bits twice),
-   kernel 10 (slate pool) at the rank slate and suggest init's row counts
-   with fully masked rows pooling to exactly 0 and its autograd Function's
-   gradients, kernel 2's int8 mode on a quantized table, and ``prune`` on
-   and off and kernel 3 (pipelined) against kernel 2, which must give the
-   same bits; then shapes a kernel cannot hold must be refused;
+   shape the main paths give it and at row counts off its row block, in
+   float32 (TF32 off for matmuls and cuDNN) and bfloat16: the LSTM and GRU
+   forwards (kernels 1 and 7) and training pairs (4 and 5, 8 and 9) output
+   by output, also at a T the time chunk does not divide (kernels 5 and 9
+   must give the same bits twice), kernel 2, kernel 10 (slate pool) at the
+   rank slate and suggest init's row counts with fully masked rows pooling
+   to exactly 0 and its autograd Function's gradients, kernel 2's int8
+   mode on a quantized table, and ``prune`` on and off and kernel 3
+   (pipelined) against kernel 2, which must give the same bits; then
+   shapes a kernel cannot hold must be refused;
 4. the main paths at full width: CARS at the serving widths (vocab
    50,000, emsize 256, nhid 128, nhid_ffnn 256, S=5, N=50, Lq=15, Ld=30,
    bf16, seeded random weights) behind ``serve.Engine``: ``rank_batch``
    for 64 requests, beam-5 and greedy ``suggest_batch`` for 64 histories;
-   a small float32 CARS whose ``Engine`` on the card must agree with the
-   same ``Engine`` on the CPU (plain versions); the training path at the
-   same widths with the default dropouts (8 Adam steps, an eval-loss step,
-   a checkpoint -> ``Engine.from_checkpoint`` round trip with equal scores,
-   a small float32 train step card vs CPU); then the rest of serving: a
+   the training path at the same widths with the default dropouts (8 Adam
+   steps, an eval-loss step, a checkpoint -> ``Engine.from_checkpoint``
+   round trip with equal scores); then the rest of serving: a
    20,000-document ``index_documents`` (also with the pooling projection
    cached), ``rank_indexed_batch`` for 64 requests x 50 ids in the
    broadcast and per-turn (click history) layouts and over the projection
@@ -37,14 +36,20 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``Engine.from_checkpoint(quantize_embeddings=True)`` over the trained
    checkpoint, a beam-5 ``Engine(suggest_shortlist=4096)``, and beam-5
    decodes through the unpruned and the pipelined generator (tokens and
-   scores equal to the Engine's pruned decode); then small float32
-   indexed, int8 and shortlist Engines card vs CPU.  Every call runs with
-   every launch count set to 0 just before it and read just after it and
-   must launch exactly the kernels ``PATH_KERNELS`` names; each is timed
-   (three steady walls) and profiled once;
+   scores equal to the Engine's pruned decode), with small float32
+   indexed, int8 and shortlist Engines card vs CPU; then the GRU slice:
+   CARS with GRU encoders and session recurrences (``rank_batch``, beam-5
+   ``suggest_batch``, 8 Adam steps and an eval-loss step) and HRED-QS with
+   GRUs (beam-5 and greedy ``suggest_batch``, 8 Adam steps, a checkpoint
+   -> ``Engine.from_checkpoint`` round trip with equal suggestions); and
+   small float32 CARS (LSTM), CARS (GRU) and HRED-QS Engines and train
+   steps card vs CPU.  Every call runs with every launch count set to 0
+   just before it and read just after it and must launch exactly the
+   kernels ``PATH_KERNELS`` names (``EXACT_LAUNCHES`` times, where fixed);
+   each is timed (three steady walls) and profiled once;
 5. kernel, plain-version and library times (CUDA events after warm-up)
    with each kernel's bound, printed as one ``{"kernels": [...]}`` line,
-   and the train step's time.
+   and the train steps' times.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script needs a
 card: without one it exits non-zero and prints no result.
@@ -122,126 +127,163 @@ def lstm_inputs(gen, dtype, rows=B * S * N, steps=LD, e=EMSIZE, h=NHID):
     return [t.to(dtype) for t in (x, w_ih, b, w_hh)], mask
 
 
-# (rows, steps) kernel 1 sees on the main path -- doc encoder, query
-# encoder, suggest's clicked-doc encoder -- plus row counts off the 32-row
-# block, so the last block's row guard is checked at serving widths
+def gru_inputs(gen, dtype, rows=B * S * N, steps=LD, e=EMSIZE, h=NHID):
+    """GRU operands ``[x, w_ih, b_ih, w_hh, b_hh]`` in ``dtype`` and a
+    length mask with row 0 full and row 1 fully masked."""
+    dev = "cuda"
+    x = torch.randn((rows, steps, e), generator=gen, device=dev) * 0.5
+    w_ih = torch.randn((e, 3 * h), generator=gen, device=dev) * 0.08
+    b_ih = torch.randn((3 * h,), generator=gen, device=dev) * 0.1
+    w_hh = torch.randn((h, 3 * h), generator=gen, device=dev) * 0.08
+    b_hh = torch.randn((3 * h,), generator=gen, device=dev) * 0.1
+    lens = torch.randint(0, steps + 1, (rows,), generator=gen, device=dev)
+    lens[0] = steps
+    lens[1] = 0
+    mask = torch.arange(steps, device=dev)[None, :] < lens[:, None]
+    return [t.to(dtype) for t in (x, w_ih, b_ih, w_hh, b_hh)], mask
+
+
+# the fused recurrent kernels, by recurrence: (module under
+# ops/kernels, operand maker, names of the training pair's outputs)
+RNNS = {
+    "lstm": (lstm_inputs,
+             ("out", "hb", "cb", "dx", "dw_ih", "db", "dw_hh")),
+    "gru": (gru_inputs,
+            ("out", "hb", "dx", "dw_ih", "db_ih", "dw_hh", "db_hh")),
+}
+
+
+def rnn_kernels(rnn: str):
+    """The kernel module of ``rnn`` (``ops/kernels/{lstm,gru}.py``)."""
+    import importlib
+
+    return importlib.import_module(
+        f"context_attentive_ir_tpu_torch.ops.kernels.{rnn}")
+
+
+# (rows, steps) the forward kernels (1, 7) see on the main paths -- doc
+# encoder, query encoder (also HRED-QS's), suggest's clicked-doc encoder --
+# plus row counts off the 32-row block, so the last block's row guard is
+# checked at serving widths
 LSTM_SHAPES = ((B * S * N, LD), (B * S, LQ), (B * S * MAX_CLICKS, LD),
                (B * S * N + 7, LD), (B * S * MAX_CLICKS + 5, LD),
                (B * S + 13, LQ))
 
 
-def check_lstm(gen) -> dict:
-    """Worst bf16 and f32 abs error of kernel 1 over LSTM_SHAPES."""
-    from context_attentive_ir_tpu_torch.ops.kernels.lstm import (
-        lstm_fused,
-        lstm_fused_reference,
-    )
-
+def check_forward(gen, rnn: str) -> dict:
+    """Worst bf16 and f32 abs error of the forward kernel of ``rnn``
+    (kernel 1 or 7) over LSTM_SHAPES, both directions: f32 abs (tol 1e-4),
+    bf16 relative to max |plain| (tol 2e-2); masked outputs, fully masked
+    rows included, must be exactly 0."""
+    mod = rnn_kernels(rnn)
+    name = f"{rnn}_fused"
+    kernel, plain = getattr(mod, name), getattr(mod, name + "_reference")
+    inputs = RNNS[rnn][0]
     out = {}
     for dtype, tol, kind in ((torch.float32, 1e-4, "abs"),
                              (torch.bfloat16, 2e-2, "rel")):
         out[dtype] = 0.0
         for rows, steps in LSTM_SHAPES:
-            (x, w_ih, b, w_hh), mask = lstm_inputs(gen, dtype, rows, steps)
+            (x, *w), mask = inputs(gen, dtype, rows, steps)
             worst_abs = worst_rel = 0.0
             for reverse in (False, True):
-                got = lstm_fused(x, mask, w_ih, b, w_hh, reverse).float()
-                ref = lstm_fused_reference(x, mask, w_ih, b, w_hh,
-                                           reverse).float()
+                got = kernel(x, mask, *w, reverse).float()
+                ref = plain(x, mask, *w, reverse).float()
                 torch.cuda.synchronize()
-                err = float((got - ref).abs().max())
                 if not bool((got[~mask] == 0).all()):
-                    raise AssertionError("lstm_fused: masked outputs not "
-                                         "zero")
+                    raise AssertionError(f"{name}: masked outputs not zero")
+                err = float((got - ref).abs().max())
                 worst_abs = max(worst_abs, err)
                 worst_rel = max(worst_rel, err / float(ref.abs().max()))
             worst = worst_abs if kind == "abs" else worst_rel
-            log(f"lstm_fused {dtype} [{rows},{steps},{x.shape[2]}]"
-                f"->{w_hh.shape[0]} both directions: max abs err "
+            log(f"{name} {dtype} [{rows},{steps},{x.shape[2]}]->"
+                f"{w[2].shape[0]} both directions: max abs err "
                 f"{worst_abs:.3e}, max rel err {worst_rel:.3e} (tol {kind} "
-                f"{tol:g})")
+                f"{tol:g}; masked outputs 0)")
             if not worst <= tol:
-                raise AssertionError(f"lstm_fused {dtype} [{rows},{steps}]: "
+                raise AssertionError(f"{name} {dtype} [{rows},{steps}]: "
                                      f"{kind} error {worst} > {tol}")
             out[dtype] = max(out[dtype], worst_abs)
     return out
 
 
-# (rows, steps) the training pair (kernels 4 and 5) sees on the main path --
-# doc encoder, query encoder -- plus row counts off the 32-row block and a
-# T that the time chunk (6) does not divide (Lq = 15 is one already)
+# (rows, steps) the training pairs (kernels 4/5, 8/9) see on the main paths
+# -- doc encoder, query encoder (also HRED-QS's) -- plus row counts off the
+# 32-row block and a T that the time chunk (6) does not divide (Lq = 15 is
+# one already)
 TRAIN_SHAPES = ((B * S * N, LD), (B * S, LQ), (B * S * N + 7, LD),
                 (B * S + 13, LQ), (333, 17))
-PAIR_OUTPUTS = ("out", "hb", "cb", "dx", "dw_ih", "db", "dw_hh")
 
 
-def train_pair_errors(gen, dtype, rows, steps, reverse) -> dict:
-    """Kernels 4 and 5 against their plain versions on the same inputs
-    (kernel 5 and its plain version both read kernel 4's hb, cb): per
-    output, (max abs error, max abs error / max |plain|).  Kernel 5 must
-    give the same bits twice (no atomics)."""
-    from context_attentive_ir_tpu_torch.ops.kernels.lstm import (
-        lstm_fused_bwd,
-        lstm_fused_bwd_reference,
-        lstm_fused_res,
-        lstm_fused_res_reference,
-    )
-
-    (x, w_ih, b, w_hh), mask = lstm_inputs(gen, dtype, rows, steps)
-    out, hb, cb = lstm_fused_res(x, mask, w_ih, b, w_hh, reverse)
-    ref = lstm_fused_res_reference(x, mask, w_ih, b, w_hh, reverse)
+def pair_errors(gen, rnn: str, dtype, rows, steps, reverse) -> dict:
+    """The training pair of ``rnn`` against its plain versions on the same
+    inputs (the backward kernel and its plain version both read the
+    residual kernel's boundary state): per output, (max abs error, max abs
+    error / max |plain|).  The backward kernel must give the same bits
+    twice (no atomics)."""
+    mod = rnn_kernels(rnn)
+    inputs, names = RNNS[rnn]
+    res, bwd = f"{rnn}_fused_res", f"{rnn}_fused_bwd"
+    (x, *w), mask = inputs(gen, dtype, rows, steps)
+    fwd = getattr(mod, res)(x, mask, *w, reverse, TIME_CHUNK)
+    ref = getattr(mod, res + "_reference")(x, mask, *w, reverse, TIME_CHUNK)
+    out, state = fwd[0], fwd[1:]
     dout = (torch.randn(out.shape, generator=gen, device="cuda")
             * 0.5).to(dtype)
-    got_b = lstm_fused_bwd(x, mask, w_ih, b, w_hh, hb, cb, dout, reverse)
-    again = lstm_fused_bwd(x, mask, w_ih, b, w_hh, hb, cb, dout, reverse)
-    ref_b = lstm_fused_bwd_reference(x, mask, w_ih, b, w_hh, hb, cb, dout,
-                                     reverse)
+    got_b = getattr(mod, bwd)(x, mask, *w, *state, dout, reverse, TIME_CHUNK)
+    again = getattr(mod, bwd)(x, mask, *w, *state, dout, reverse, TIME_CHUNK)
+    ref_b = getattr(mod, bwd + "_reference")(x, mask, *w, *state, dout,
+                                            reverse, TIME_CHUNK)
     torch.cuda.synchronize()
     if not bool((out[~mask] == 0).all()):
-        raise AssertionError("lstm_fused_res: masked outputs not zero")
-    if not all(torch.equal(p, q) for p, q in zip(got_b, again)):
-        raise AssertionError("lstm_fused_bwd: two runs differ")
+        raise AssertionError(f"{res}: masked outputs not zero")
+    if not same_bits(got_b, again):
+        raise AssertionError(f"{bwd}: two runs differ")
     errs = {}
-    for name, g, r in zip(PAIR_OUTPUTS, (out, hb, cb, *got_b),
-                          (*ref, *ref_b)):
+    for name, g, r in zip(names, (*fwd, *got_b), (*ref, *ref_b)):
         err = float((g.float() - r.float()).abs().max())
         errs[name] = (err, err / max(float(r.float().abs().max()), 1e-30))
     return errs
 
 
-# per output, max abs error / max |plain| (kernel 1's tolerances: float32
-# sums in another order; bf16 h and dgates rounded from f32 values that
-# differ in their last bits)
+# per output, max abs error / max |plain| (the forward kernels' tolerances:
+# float32 sums in another order; bf16 h and gate gradients rounded from f32
+# values that differ in their last bits)
 PAIR_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
-def check_train_pair(gen) -> dict:
-    """Kernels 4 and 5 over TRAIN_SHAPES, both directions, f32 and bf16;
-    returns each kernel's worst max abs error per dtype."""
-    worst = {"lstm_fused_res": {}, "lstm_fused_bwd": {}}
+def check_train_pair(gen, rnn: str) -> dict:
+    """The training pair of ``rnn`` (kernels 4 and 5, or 8 and 9) over
+    TRAIN_SHAPES, both directions, f32 and bf16; returns each kernel's
+    worst max abs error per dtype."""
+    res, bwd = f"{rnn}_fused_res", f"{rnn}_fused_bwd"
+    n_res = RNNS[rnn][1].index("dx")   # outputs of the residual kernel
+    worst = {res: {}, bwd: {}}
     for dtype in (torch.float32, torch.bfloat16):
         tol = PAIR_TOL[dtype]
         for kernel in worst:
             worst[kernel][dtype] = 0.0
         for rows, steps in TRAIN_SHAPES:
             for reverse in (False, True):
-                errs = train_pair_errors(gen, dtype, rows, steps, reverse)
-                log(f"lstm train pair {dtype} [{rows},{steps},{EMSIZE}]->"
-                    f"{NHID} {'reverse' if reverse else 'forward'}: " +
+                errs = pair_errors(gen, rnn, dtype, rows, steps, reverse)
+                log(f"{rnn} train pair {dtype} [{rows},{steps},{EMSIZE}]->"
+                    f"{NHID} TC={TIME_CHUNK} "
+                    f"{'reverse' if reverse else 'forward'}: " +
                     ", ".join(f"{k} {a:.2e} ({r:.2e})"
                               for k, (a, r) in errs.items()) +
-                    f" (abs (rel); tol rel {tol:g}; kernel 5 same bits "
-                    "twice)")
+                    f" (abs (rel); tol rel {tol:g}; {bwd} same bits twice)")
                 bad = {k: r for k, (_, r) in errs.items() if not r <= tol}
                 if bad:
-                    raise AssertionError(f"lstm train pair {dtype} [{rows},"
+                    raise AssertionError(f"{rnn} train pair {dtype} [{rows},"
                                          f"{steps}] reverse={reverse}: "
                                          f"{bad} > {tol}")
-                for k, (a, _) in errs.items():
-                    kernel = ("lstm_fused_res" if k in ("out", "hb", "cb")
-                              else "lstm_fused_bwd")
+                for i, (a, _) in enumerate(errs.values()):
+                    kernel = res if i < n_res else bwd
                     worst[kernel][dtype] = max(worst[kernel][dtype], a)
     return worst
+
+
+GRU_KERNELS = ("gru_fused", "gru_fused_res", "gru_fused_bwd")
 
 
 def beamgen_inputs(gen, rows, dtype, integer):
@@ -516,12 +558,17 @@ def check_refusals(gen) -> None:
     from context_attentive_ir_tpu_torch.ops.kernels.beamgen import (
         generator_topk_lse,
     )
-    from context_attentive_ir_tpu_torch.ops.kernels.slate import attn_pool
+    from context_attentive_ir_tpu_torch.ops.kernels.gru import (
+        gru_fused,
+        gru_fused_bwd,
+        gru_fused_res,
+    )
     from context_attentive_ir_tpu_torch.ops.kernels.lstm import (
         lstm_fused,
         lstm_fused_bwd,
         lstm_fused_res,
     )
+    from context_attentive_ir_tpu_torch.ops.kernels.slate import attn_pool
 
     def lstm_at(e, h):
         (x, w_ih, b, w_hh), mask = lstm_inputs(gen, torch.float32, 40, 3,
@@ -539,6 +586,16 @@ def check_refusals(gen) -> None:
         hb = torch.zeros((1, 40, h), device="cuda")
         return lstm_fused_bwd(x, mask, w_ih, b, w_hh, hb, hb,
                               torch.zeros((40, 3, h), device="cuda"))
+
+    def gru_at(kernel, e, h):
+        (x, *w), mask = gru_inputs(gen, torch.float32, 40, 3, e=e, h=h)
+        if kernel == "gru_fused":
+            return gru_fused(x, mask, *w)
+        if kernel == "gru_fused_res":
+            return gru_fused_res(x, mask, *w)
+        hb = torch.zeros((1, 40, h), device="cuda")
+        return gru_fused_bwd(x, mask, *w, hb,
+                             torch.zeros((40, 3, h), device="cuda"))
 
     def beamgen_at(e, v=300, **kw):
         x = torch.randn((70, e), generator=gen, device="cuda")
@@ -564,6 +621,13 @@ def check_refusals(gen) -> None:
                       lambda: bwd_at(4096, NHID)),
                      ("lstm_fused_bwd H=1024 (threads per block)",
                       lambda: bwd_at(EMSIZE, 1024)),
+                     *((f"{k} {what}", lambda k=k, e=e, h=h:
+                        gru_at(k, e, h))
+                       for k in GRU_KERNELS
+                       for what, e, h in (("E=4096 (shared tile)", 4096,
+                                           NHID),
+                                          ("H=1024 (threads per block)",
+                                           EMSIZE, 1024))),
                      ("generator_topk_lse E=1024 (shared tile)",
                       lambda: beamgen_at(1024)),
                      ("generator_topk_lse pipeline E=1024 (shared tile)",
@@ -585,6 +649,8 @@ def check_refusals(gen) -> None:
     lstm_at(EMSIZE, NHID)
     res_at(EMSIZE, NHID)
     bwd_at(EMSIZE, NHID)
+    for k in GRU_KERNELS:
+        gru_at(k, EMSIZE, NHID)
     beamgen_at(EMSIZE)
     beamgen_at(EMSIZE, 304, pipeline=True)
     pool_at(H2)
@@ -623,6 +689,7 @@ def counters() -> dict:
     one count per mode."""
     from context_attentive_ir_tpu_torch.ops.kernels import (
         beamgen,
+        gru,
         lstm,
         slate,
     )
@@ -635,7 +702,10 @@ def counters() -> dict:
             "generator_topk_lse_pipelined": (gen, "launches_pipelined"),
             "lstm_fused_res": (lstm.lstm_fused_res, "launches"),
             "lstm_fused_bwd": (lstm.lstm_fused_bwd, "launches"),
-            "attn_pool": (slate.attn_pool, "launches")}
+            "attn_pool": (slate.attn_pool, "launches"),
+            "gru_fused": (gru.gru_fused, "launches"),
+            "gru_fused_res": (gru.gru_fused_res, "launches"),
+            "gru_fused_bwd": (gru.gru_fused_bwd, "launches")}
 
 
 # the kernels each main-path call launches; every other count stays 0
@@ -657,9 +727,29 @@ PATH_KERNELS = {
     "decode_unpruned": ("lstm_fused", "generator_topk_lse", "attn_pool"),
     "decode_pipelined": ("lstm_fused", "generator_topk_lse_pipelined",
                          "attn_pool"),
+    # CARS with GRU encoders and session recurrences, and HRED-QS (GRU)
+    "rank_batch_gru": ("gru_fused",),
+    "suggest_beam5_gru": ("gru_fused", "generator_topk_lse_pruned"),
+    "train_step_gru": ("gru_fused_res", "gru_fused_bwd"),
+    "eval_loss_gru": ("gru_fused",),
+    "suggest_beam5_hredqs": ("gru_fused",),
+    "suggest_greedy_hredqs": ("gru_fused",),
+    "train_step_hredqs": ("gru_fused_res", "gru_fused_bwd"),
 }
-# launches per train step: query + doc encoder, two directions each
-TRAIN_STEP_LAUNCHES = {"lstm_fused_res": 4, "lstm_fused_bwd": 4}
+# exact encoder launches where they are fixed: CARS runs its query and doc
+# encoders (suggest: the clicked docs), two directions each; HRED-QS its
+# query encoder only (its session RNN and generator take no kernel)
+EXACT_LAUNCHES = {
+    "train_step": {"lstm_fused_res": 4, "lstm_fused_bwd": 4},
+    "eval_loss": {"lstm_fused": 4},
+    "rank_batch_gru": {"gru_fused": 4},
+    "suggest_beam5_gru": {"gru_fused": 4},
+    "train_step_gru": {"gru_fused_res": 4, "gru_fused_bwd": 4},
+    "eval_loss_gru": {"gru_fused": 4},
+    "suggest_beam5_hredqs": {"gru_fused": 2},
+    "suggest_greedy_hredqs": {"gru_fused": 2},
+    "train_step_hredqs": {"gru_fused_res": 2, "gru_fused_bwd": 2},
+}
 
 
 def counted(path: str, fn):
@@ -676,6 +766,10 @@ def counted(path: str, fn):
         if (n > 0) != (k in PATH_KERNELS[path]):
             raise AssertionError(f"{path} launched kernel {k} {n} times; it "
                                  f"must launch {PATH_KERNELS[path]}")
+    for k, n in EXACT_LAUNCHES.get(path, {}).items():
+        if counts[k] != n:
+            raise AssertionError(f"{path} launched kernel {k} {counts[k]} "
+                                 f"times, not {n}")
     return out, counts
 
 
@@ -687,15 +781,10 @@ def by_path(launches: dict, kernel: str) -> dict:
 
 
 def main_path() -> dict:
-    from context_attentive_ir_tpu_torch.config import default_config
     from context_attentive_ir_tpu_torch.models.multitask.cars import CARS
     from context_attentive_ir_tpu_torch.serve import Engine
 
-    cfg = default_config("cars").replace(
-        vocab_size=VOCAB, emsize=EMSIZE, nhid=NHID, nhid_ffnn=NHID_FFNN,
-        max_query_len=LQ, max_doc_len=LD, max_session_len=S,
-        num_candidates=N, compute_dtype="bfloat16", dropout=0.0,
-        dropout_emb=0.0, dropout_rnn=0.0)
+    cfg = full_width_config("cars")
     word_dict = synthetic_dictionary(VOCAB)
     params = CARS(cfg, device="cuda", seed=0).state_dict()
     beam = Engine(cfg, word_dict, params, beam_size=BEAM, batch_bucket=B)
@@ -721,14 +810,8 @@ def main_path() -> dict:
         raise AssertionError("rank_batch returned the wrong shape")
     if not np.isfinite(np.asarray(scores)).all():
         raise AssertionError("rank_batch returned non-finite scores")
-    for out, k in ((sugg, BEAM), (sugg_g, 1)):
-        if len(out) != B or any(len(nb) != k for nb in out):
-            raise AssertionError("suggest_batch returned the wrong shape")
-        if not all(isinstance(t, str) and np.isfinite(sc)
-                   for nb in out for t, sc in nb):
-            raise AssertionError("suggest_batch returned bad suggestions")
-    if sum(len(t) > 0 for nb in sugg for t, _ in nb) == 0:
-        raise AssertionError("beam suggestions are all empty")
+    check_suggestions("suggest_beam5", sugg, BEAM)
+    check_suggestions("suggest_greedy", sugg_g, 1)
     log(f"sample suggestion: {sugg[0][0]}; greedy: {sugg_g[0][0]}")
 
     walls = steady_walls(calls)
@@ -764,46 +847,6 @@ def where_time_goes(name: str, fn) -> None:
         f"{json.dumps(top)}")
 
 
-def small_reference_check() -> None:
-    """A small float32 CARS: the Engine on the card (kernels) must agree
-    with the same Engine on the CPU (plain versions)."""
-    from context_attentive_ir_tpu_torch.config import default_config
-    from context_attentive_ir_tpu_torch.models.multitask.cars import CARS
-    from context_attentive_ir_tpu_torch.serve import Engine
-
-    cfg = default_config("cars").replace(
-        vocab_size=300, emsize=32, nhid=16, nhid_ffnn=32, max_query_len=8,
-        max_doc_len=12, max_session_len=3, num_candidates=8, dropout=0.0,
-        dropout_emb=0.0, dropout_rnn=0.0)
-    word_dict = synthetic_dictionary(cfg.vocab_size)
-    params = CARS(cfg, device="cpu", seed=1).state_dict()
-    rng = np.random.RandomState(1)
-    words = word_dict.tokens()
-
-    def text(n):
-        return " ".join(rng.choice(words, size=n))
-
-    reqs = [(text(4), [text(7) for _ in range(6)],
-             [(text(3), [text(5)]), text(2)]) for _ in range(5)]
-    hists = [[(text(3), [text(6), text(4)]), text(5)] for _ in range(5)]
-    for beam in (3, 1):
-        gpu = Engine(cfg, word_dict, params, beam_size=beam, batch_bucket=4)
-        cpu = Engine(cfg, word_dict, params, beam_size=beam, batch_bucket=4,
-                     device="cpu")
-        rg, rc = gpu.rank_batch(reqs), cpu.rank_batch(reqs)
-        err = max(abs(a - b) for x, y in zip(rg, rc) for a, b in zip(x, y))
-        sg, sc = gpu.suggest_batch(hists), cpu.suggest_batch(hists)
-        same = [[t for t, _ in nb] for nb in sg] == [[t for t, _ in nb]
-                                                      for nb in sc]
-        s_err = max(abs(a[1] - b[1]) for x, y in zip(sg, sc)
-                    for a, b in zip(x, y))
-        log(f"small f32 CARS, beam {beam}: card vs CPU rank max abs err "
-            f"{err:.3e} (tol 1e-4), suggestions identical={same}, score "
-            f"max abs err {s_err:.3e} (tol 1e-4)")
-        if not (err <= 1e-4 and same and s_err <= 1e-4):
-            raise AssertionError("card Engine disagrees with CPU Engine")
-
-
 def corpus_texts(rng, word_dict, n: int) -> list[str]:
     words = word_dict.tokens()
     return [" ".join(rng.choice(words, size=rng.randint(5, LD + 1)))
@@ -835,7 +878,6 @@ def serving_paths(ckpt_path: str) -> dict:
     beam-5 decodes through the unpruned serial and the pipelined generator
     (the Engine's take the pruned one), each counted.  Returns {path:
     launches}."""
-    from context_attentive_ir_tpu_torch.config import default_config
     from context_attentive_ir_tpu_torch.decode import (
         beam_search,
         make_fused_beam_step,
@@ -843,11 +885,7 @@ def serving_paths(ckpt_path: str) -> dict:
     from context_attentive_ir_tpu_torch.models.multitask.cars import CARS
     from context_attentive_ir_tpu_torch.serve import Engine
 
-    cfg = default_config("cars").replace(
-        vocab_size=VOCAB, emsize=EMSIZE, nhid=NHID, nhid_ffnn=NHID_FFNN,
-        max_query_len=LQ, max_doc_len=LD, max_session_len=S,
-        num_candidates=N, compute_dtype="bfloat16", dropout=0.0,
-        dropout_emb=0.0, dropout_rnn=0.0, use_pallas_slate=True)
+    cfg = full_width_config("cars", use_pallas_slate=True)
     word_dict = synthetic_dictionary(VOCAB)
     params = CARS(cfg, device="cuda", seed=0).state_dict()
     eng = Engine(cfg, word_dict, params, beam_size=BEAM, batch_bucket=B)
@@ -928,11 +966,7 @@ def serving_paths(ckpt_path: str) -> dict:
     if not (diff <= 2e-2 and proj_diff <= 2e-2):
         raise AssertionError("indexed ranking disagrees with rank_batch")
     for path in ("suggest_beam5_int8", "suggest_shortlist"):
-        out = outs[path]
-        if len(out) != B or not all(len(nb) == BEAM and all(
-                isinstance(t, str) and np.isfinite(sc) for t, sc in nb)
-                for nb in out):
-            raise AssertionError(f"{path} returned bad suggestions")
+        check_suggestions(path, outs[path], BEAM)
     log(f"sample int8 suggestion: {outs['suggest_beam5_int8'][0][0]}; "
         f"shortlist: {outs['suggest_shortlist'][0][0]}")
     serial = decode(prune=True)   # the Engine's step
@@ -1070,64 +1104,22 @@ def random_session_batch(rng, b=B, s=S, n=N, lq=LQ, ld=LD, vocab=VOCAB,
         row_mask=np.arange(b) < b - 1)
 
 
-def train_path(ckpt_dir: str) -> tuple[dict, float, str]:
+def train_path(ckpt_dir: str) -> tuple[dict, dict, str]:
     """The training path at full width (see the module docstring); the
-    checkpoint goes under ``ckpt_dir``.  Returns ({path: launches}, train
-    step ms, the checkpoint's path)."""
-    from context_attentive_ir_tpu_torch.config import default_config
+    checkpoint goes under ``ckpt_dir``.  Returns ({path: launches},
+    {"train_step": ms}, the checkpoint's path)."""
     from context_attentive_ir_tpu_torch.models.multitask.cars import CARS
     from context_attentive_ir_tpu_torch.serve import Engine
-    from context_attentive_ir_tpu_torch.train import (
-        Checkpointer,
-        create_train_state,
-        make_eval_loss_step,
-        make_train_step,
-        param_count,
-    )
+    from context_attentive_ir_tpu_torch.train import Checkpointer
 
-    cfg = default_config("cars").replace(
-        vocab_size=VOCAB, emsize=EMSIZE, nhid=NHID, nhid_ffnn=NHID_FFNN,
-        max_query_len=LQ, max_doc_len=LD, max_session_len=S,
-        num_candidates=N, compute_dtype="bfloat16")
+    cfg = full_width_config("cars", train=True)
     word_dict = synthetic_dictionary(VOCAB)
     model = CARS(cfg, device="cuda", seed=0)
     batch = random_session_batch(np.random.RandomState(0)).to("cuda")
-    state = create_train_state(model, cfg)
-    step = make_train_step(model, cfg)
-    log(f"train path: CARS with {param_count(state)} parameters, dropout "
-        f"{cfg.dropout}/{cfg.dropout_emb}/{cfg.dropout_rnn}, "
-        f"{cfg.optimizer} lr {cfg.learning_rate}, clip {cfg.grad_clipping}, "
-        f"{cfg.compute_dtype}, B={B}")
-
-    launches, metrics = {}, []
-    for i in range(TRAIN_STEPS):
-        if i == 1:   # one step counted, past the first call's set-up
-            (state, m), launches["train_step"] = counted(
-                "train_step", lambda: step(state, batch, 1))
-        else:
-            state, m = step(state, batch, 1)
-        metrics.append({k: float(v) for k, v in m.items()})
-    log(f"train step launches: {json.dumps(launches['train_step'])}")
-    for k, n in TRAIN_STEP_LAUNCHES.items():
-        if launches["train_step"][k] != n:
-            raise AssertionError(f"a train step launched {k} "
-                                 f"{launches['train_step'][k]} times, not {n}")
-    losses = [m["loss"] for m in metrics]
-    log(f"{TRAIN_STEPS} steps: loss {[round(x, 4) for x in losses]}, "
-        f"grad_norm {[round(m['grad_norm'], 4) for m in metrics]}")
-    if not all(math.isfinite(v) for m in metrics for v in m.values()):
-        raise AssertionError("non-finite loss or grad norm")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"loss did not fall: {losses[0]} -> "
-                             f"{losses[-1]}")
-
-    ev, launches["eval_loss"] = counted(
-        "eval_loss", lambda: make_eval_loss_step(model, cfg)(batch))
-    ev = {k: float(v) for k, v in ev.items()}
-    log(f"eval loss step: {json.dumps(ev)}, launches "
-        f"{json.dumps(launches['eval_loss'])}")
-    if not all(math.isfinite(v) for v in ev.values()):
-        raise AssertionError("non-finite eval loss")
+    launches = {}
+    state, step, launches["train_step"] = train_steps("train_step", cfg,
+                                                      model, batch)
+    launches["eval_loss"] = eval_loss("eval_loss", cfg, model, batch)
 
     reqs, _ = requests(np.random.RandomState(2), word_dict, 8)
     ckpt = Checkpointer(ckpt_dir, "cars")
@@ -1148,78 +1140,321 @@ def train_path(ckpt_dir: str) -> tuple[dict, float, str]:
     log(f"train step (CUDA events, mean of 5 after warm-up, B={B}): "
         f"{train_ms:.2f} ms -> {B * S * N / train_ms * 1e3:.0f} trained "
         "docs/s")
-    return launches, train_ms, ckpt.latest_path
+    return launches, {"train_step": train_ms}, ckpt.latest_path
 
 
-def small_train_check() -> None:
-    """One train step of a small float32 CARS on the card (kernels 4 and
-    5) against the same step on the CPU (plain versions), on a ragged
-    batch.  SGD keeps the update linear in the gradient, so a float32
-    rounding difference in a near-zero gradient element cannot flip an
-    Adam step's sign and the parameters compare as tightly as the
-    gradients."""
+def full_width_config(model_type: str, train: bool = False, **kw):
+    """The main paths' widths (bf16) for ``model_type``: dropout 0 for
+    serving, the ModelConfig default dropouts with ``train``; ``kw``
+    replaces fields."""
     from context_attentive_ir_tpu_torch.config import default_config
-    from context_attentive_ir_tpu_torch.models.multitask.cars import CARS
+
+    cfg = default_config(model_type).replace(
+        vocab_size=VOCAB, emsize=EMSIZE, nhid=NHID, nhid_ffnn=NHID_FFNN,
+        max_query_len=LQ, max_doc_len=LD, max_session_len=S,
+        num_candidates=N, compute_dtype="bfloat16", **kw)
+    if not train:
+        cfg = cfg.replace(dropout=0.0, dropout_emb=0.0, dropout_rnn=0.0)
+    return cfg
+
+
+GRU = {"rnn_type": "gru", "session_rnn_type": "gru"}
+
+
+def random_suggest_batch(rng, b=B, s=S, lq=LQ, vocab=VOCAB):
+    """A numpy SuggestBatch of random ids: 1..S context turns of 1..Lq
+    tokens, a target of 1..Lq tokens, the last row padded."""
+    from context_attentive_ir_tpu_torch.data.vectorize import SuggestBatch
+
+    def ids(shape):
+        return rng.randint(4, vocab, size=shape).astype(np.int32)
+
+    def lengths(shape, lo, hi):
+        return np.arange(hi)[None] < rng.randint(lo, hi + 1, size=shape)[
+            ..., None]
+
+    turn_mask = lengths((b,), 1, s)
+    context_mask = lengths((b, s), 1, lq) & turn_mask[..., None]
+    tin = ids((b, lq + 1))
+    source_mask = lengths((b,), 1, s * lq)
+    return SuggestBatch(
+        source=ids((b, s * lq)), source_mask=source_mask,
+        context=ids((b, s, lq)), context_mask=context_mask,
+        turn_mask=turn_mask, target_in=tin, target_out=ids((b, lq + 1)),
+        target_mask=lengths((b,), 1, lq + 1), row_mask=np.arange(b) < b - 1)
+
+
+def nll_f32(model, batch) -> float:
+    """A recommender's teacher-forced NLL on ``batch`` with dropout off,
+    its logits taken to float32 first: a reading of the training loss that
+    resolves changes below bf16's spacing (0.0625 at ln 50,000)."""
+    from context_attentive_ir_tpu_torch.models.losses import (
+        sequence_nll_loss,
+    )
+
+    with torch.no_grad():
+        logits = model(batch).float()
+        tmask = batch.target_mask & batch.row_mask[:, None]
+        return float(sequence_nll_loss(logits, batch.target_out, tmask))
+
+
+def train_steps(path: str, cfg, model, batch, steps: int = TRAIN_STEPS,
+                reading=None):
+    """``steps`` Adam steps of ``model`` on one batch, the second one
+    counted against PATH_KERNELS[path] / EXACT_LAUNCHES.  The loss must
+    fall: the step losses, or ``reading(model, batch)`` before and after
+    the steps where one is given.  Returns (state, step function, launches
+    of the counted step)."""
+    from context_attentive_ir_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+        param_count,
+    )
+
+    before = reading(model, batch) if reading else None
+    state = create_train_state(model, cfg)
+    step = make_train_step(model, cfg)
+    log(f"{path}: {type(model).__name__} ({cfg.rnn_type} encoders, "
+        f"{cfg.session_rnn_type} session RNN) with {param_count(state)} "
+        f"parameters, dropout {cfg.dropout}/{cfg.dropout_emb}/"
+        f"{cfg.dropout_rnn}, {cfg.optimizer} lr {cfg.learning_rate}, "
+        f"{cfg.compute_dtype}, B={B}")
+    metrics, launches = [], None
+    for i in range(steps):
+        if i == 1:   # one step counted, past the first call's set-up
+            (state, m), launches = counted(path, lambda: step(state, batch,
+                                                             1))
+        else:
+            state, m = step(state, batch, 1)
+        metrics.append({k: float(v) for k, v in m.items()})
+    losses = [m["loss"] for m in metrics]
+    log(f"{path}: launches of one step {json.dumps(launches)}; {steps} "
+        f"steps: loss {[round(x, 4) for x in losses]}, grad_norm "
+        f"{[round(m['grad_norm'], 4) for m in metrics]}")
+    if not all(math.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"{path}: non-finite loss or grad norm")
+    first, last = losses[0], losses[-1]
+    if reading:
+        first, last = before, reading(model, batch)
+        log(f"{path}: float32 NLL reading {first:.5f} -> {last:.5f}")
+    if not last < first:
+        raise AssertionError(f"{path}: loss did not fall: {first} -> {last}")
+    return state, step, launches
+
+
+def eval_loss(path: str, cfg, model, batch) -> dict:
+    """One counted eval-loss step (dropout off, no gradient); the losses
+    must be finite.  Returns its launches."""
+    from context_attentive_ir_tpu_torch.train import make_eval_loss_step
+
+    ev, launches = counted(path, lambda: make_eval_loss_step(model, cfg)(
+        batch))
+    ev = {k: float(v) for k, v in ev.items()}
+    log(f"{path}: {json.dumps(ev)}, launches {json.dumps(launches)}")
+    if not all(math.isfinite(v) for v in ev.values()):
+        raise AssertionError(f"{path}: non-finite eval loss")
+    return launches
+
+
+def check_suggestions(path: str, out, k: int) -> None:
+    if len(out) != B or any(len(nb) != k for nb in out):
+        raise AssertionError(f"{path} returned the wrong shape")
+    if not all(isinstance(t, str) and np.isfinite(sc)
+               for nb in out for t, sc in nb):
+        raise AssertionError(f"{path} returned bad suggestions")
+    if sum(len(t) > 0 for nb in out for t, _ in nb) == 0:
+        raise AssertionError(f"{path}: the suggestions are all empty")
+
+
+def gru_paths(ckpt_dir: str) -> tuple[dict, dict]:
+    """The GRU slice at the serving widths: CARS with GRU encoders and GRU
+    session recurrences behind ``Engine`` (``rank_batch`` for 64 requests x
+    50 docs, beam-5 ``suggest_batch`` for 64 histories), 8 Adam steps of it
+    at the ModelConfig dropouts and an eval-loss step; HRED-QS (GRU) beam-5
+    and greedy ``suggest_batch`` for 64 histories, 8 Adam steps of it and a
+    checkpoint -> ``Engine.from_checkpoint`` round trip with equal
+    suggestions.  Each call counted, walled and profiled.  Returns ({path:
+    launches}, {path: train step ms})."""
+    from context_attentive_ir_tpu_torch.models import build_model
+    from context_attentive_ir_tpu_torch.serve import Engine
+    from context_attentive_ir_tpu_torch.train import Checkpointer
+
+    word_dict = synthetic_dictionary(VOCAB)
+    reqs, hists = requests(np.random.RandomState(6), word_dict, B)
+    cars_cfg = full_width_config("cars", **GRU)
+    hred_cfg = full_width_config("hredqs", **GRU)
+    engines = {}
+    with torch.inference_mode():
+        for name, cfg in (("cars", cars_cfg), ("hredqs", hred_cfg)):
+            params = build_model(cfg, device="cuda", seed=0).state_dict()
+            engines[name] = (Engine(cfg, word_dict, params, beam_size=BEAM,
+                                    batch_bucket=B),
+                             Engine(cfg, word_dict, params, beam_size=1,
+                                    batch_bucket=B))
+    cars, _ = engines["cars"]
+    hred, hred_greedy = engines["hredqs"]
+    calls = (("rank_batch_gru", lambda: cars.rank_batch(reqs)),
+             ("suggest_beam5_gru", lambda: cars.suggest_batch(hists)),
+             ("suggest_beam5_hredqs", lambda: hred.suggest_batch(hists)),
+             ("suggest_greedy_hredqs",
+              lambda: hred_greedy.suggest_batch(hists)))
+    launches, outs, first_ms = {}, {}, {}
+    with torch.inference_mode():
+        for path, fn in calls:
+            t = time.perf_counter()
+            outs[path], launches[path] = counted(path, fn)
+            first_ms[path] = (time.perf_counter() - t) * 1e3
+    log(f"GRU paths, launches per path: {json.dumps(launches)}")
+    log(f"first-call wall ms: {json.dumps(first_ms)}")
+    scores = np.asarray(outs["rank_batch_gru"])
+    if scores.shape != (B, N) or not np.isfinite(scores).all():
+        raise AssertionError("rank_batch_gru returned bad scores")
+    for path, k in (("suggest_beam5_gru", BEAM), ("suggest_beam5_hredqs", BEAM),
+                    ("suggest_greedy_hredqs", 1)):
+        check_suggestions(path, outs[path], k)
+    log(f"sample CARS-GRU suggestion: {outs['suggest_beam5_gru'][0][0]}; "
+        f"HRED-QS beam-5: {outs['suggest_beam5_hredqs'][0][0]}, greedy: "
+        f"{outs['suggest_greedy_hredqs'][0][0]}")
+    with torch.inference_mode():
+        walls = steady_walls(calls)
+        log(f"steady wall ms (3 runs each, B={B}): {json.dumps(walls)}")
+        for name, fn in calls:
+            where_time_goes(name, fn)
+    del engines, cars, hred, hred_greedy
+
+    # training at the ModelConfig dropouts (0.2) and optimizer (Adam)
+    train_ms = {}
+    cfg = full_width_config("cars", train=True, **GRU)
+    model = build_model(cfg, device="cuda", seed=0)
+    batch = random_session_batch(np.random.RandomState(7)).to("cuda")
+    state, step, launches["train_step_gru"] = train_steps("train_step_gru",
+                                                          cfg, model, batch)
+    launches["eval_loss_gru"] = eval_loss("eval_loss_gru", cfg, model, batch)
+    where_time_goes("train_step_gru", lambda: step(state, batch, 1))
+    train_ms["train_step_gru"] = timed_ms(lambda: step(state, batch, 1),
+                                          iters=5, warmup=1)
+    del model, state, step, batch
+
+    cfg = full_width_config("hredqs", train=True, **GRU)
+    model = build_model(cfg, device="cuda", seed=0)
+    batch = random_suggest_batch(np.random.RandomState(8)).to("cuda")
+    state, step, launches["train_step_hredqs"] = train_steps(
+        "train_step_hredqs", cfg, model, batch, reading=nll_f32)
+    where_time_goes("train_step_hredqs", lambda: step(state, batch, 1))
+    train_ms["train_step_hredqs"] = timed_ms(lambda: step(state, batch, 1),
+                                             iters=5, warmup=1)
+    ckpt = Checkpointer(ckpt_dir, "hredqs")
+    ckpt.save_latest(state, cfg, word_dict, {"step": state.step})
+    ckpt.wait()
+    with torch.inference_mode():
+        loaded = Engine.from_checkpoint(ckpt.latest_path, beam_size=BEAM,
+                                        batch_bucket=8)
+        got = loaded.suggest_batch(hists[:8])
+        want = Engine(cfg, word_dict, model.state_dict(), beam_size=BEAM,
+                      batch_bucket=8).suggest_batch(hists[:8])
+    log(f"HRED-QS checkpoint -> Engine.from_checkpoint: beam-5 suggestions "
+        f"for 8 histories equal to the in-memory Engine's: {got == want}")
+    if got != want:
+        raise AssertionError("HRED-QS Engine.from_checkpoint suggestions "
+                             "differ")
+    log(f"train steps (CUDA events, mean of 5 after warm-up, B={B}): "
+        f"{json.dumps(train_ms)}")
+    return launches, train_ms
+
+
+# (model type, encoders) of the small card-vs-CPU checks
+SMALL_MODELS = (("cars", "lstm"), ("cars", "gru"), ("hredqs", "gru"))
+
+
+def small_model_check() -> None:
+    """Small float32 models -- CARS with LSTMs, CARS with GRUs, HRED-QS
+    with GRUs: each ``Engine`` on the card (kernel 1 or 7, kernel 2 for
+    CARS) must agree with the same ``Engine`` on the CPU (plain versions),
+    and one SGD train step of each on the card (kernels 4/5 or 8/9) with
+    the same step on the CPU, on ragged batches.  SGD keeps the update
+    linear in the gradient, so a float32 rounding difference in a
+    near-zero gradient element cannot flip an Adam step's sign and the
+    parameters compare as tightly as the gradients."""
+    from context_attentive_ir_tpu_torch.config import default_config
+    from context_attentive_ir_tpu_torch.models import build_model
+    from context_attentive_ir_tpu_torch.serve import Engine
     from context_attentive_ir_tpu_torch.train import (
         create_train_state,
         make_train_step,
     )
 
-    cfg = default_config("cars").replace(
-        vocab_size=300, emsize=32, nhid=16, nhid_ffnn=32, max_query_len=8,
-        max_doc_len=12, max_session_len=3, num_candidates=8, dropout=0.0,
-        dropout_emb=0.0, dropout_rnn=0.0, optimizer="sgd",
-        learning_rate=0.1)
-    batch = random_session_batch(np.random.RandomState(3), 6, 3, 8, 8, 12,
-                                 cfg.vocab_size, ragged=True)
-    cpu = CARS(cfg, device="cpu", seed=1)
-    gpu = CARS(cfg, device="cuda", seed=None)
-    gpu.load_state_dict(cpu.state_dict())
-    res = {}
-    for dev, model in (("cpu", cpu), ("cuda", gpu)):
-        state = create_train_state(model, cfg)
-        _, m = make_train_step(model, cfg)(state, batch.to(dev), 0)
-        res[dev] = ({k: float(v) for k, v in m.items()},
-                    {n: p.detach().cpu() for n, p in
-                     model.named_parameters()})
-    (mc, pc), (mg, pg) = res["cpu"], res["cuda"]
-    loss_rel = abs(mg["loss"] - mc["loss"]) / abs(mc["loss"])
-    norm_rel = abs(mg["grad_norm"] - mc["grad_norm"]) / mc["grad_norm"]
-    p_err = max(float((pg[n] - pc[n]).abs().max()) for n in pc)
-    log(f"small f32 CARS train step, card vs CPU: loss rel err "
-        f"{loss_rel:.2e} (tol 1e-5), grad_norm rel err {norm_rel:.2e} (tol "
-        f"1e-5), updated parameters max abs err {p_err:.2e} (tol 1e-6)")
-    if not (loss_rel <= 1e-5 and norm_rel <= 1e-5 and p_err <= 1e-6):
-        raise AssertionError("card train step disagrees with the CPU step")
+    dims = dict(vocab_size=300, emsize=32, nhid=16, nhid_ffnn=32,
+                max_query_len=8, max_doc_len=12, max_session_len=3,
+                num_candidates=8, dropout=0.0, dropout_emb=0.0,
+                dropout_rnn=0.0)
+    word_dict = synthetic_dictionary(dims["vocab_size"])
+    rng = np.random.RandomState(9)
+    words = word_dict.tokens()
+
+    def text(n):
+        return " ".join(rng.choice(words, size=n))
+
+    reqs = [(text(4), [text(7) for _ in range(6)],
+             [(text(3), [text(5)]), text(2)]) for _ in range(5)]
+    hists = [[(text(3), [text(6), text(4)]), text(5)] for _ in range(5)]
+    hists.append([text(6)])
+    for model_type, rnn in SMALL_MODELS:
+        cfg = default_config(model_type).replace(
+            rnn_type=rnn, session_rnn_type=rnn, **dims)
+        params = build_model(cfg, device="cpu", seed=1).state_dict()
+        for beam in (3, 1):
+            gpu = Engine(cfg, word_dict, params, beam_size=beam,
+                         batch_bucket=4)
+            cpu = Engine(cfg, word_dict, params, beam_size=beam,
+                         batch_bucket=4, device="cpu")
+            err = 0.0
+            if model_type == "cars":
+                rg, rc = gpu.rank_batch(reqs), cpu.rank_batch(reqs)
+                err = max(abs(a - b) for x, y in zip(rg, rc)
+                          for a, b in zip(x, y))
+            sg, sc = gpu.suggest_batch(hists), cpu.suggest_batch(hists)
+            same = ([[t for t, _ in nb] for nb in sg]
+                    == [[t for t, _ in nb] for nb in sc])
+            s_err = max(abs(a[1] - b[1]) for x, y in zip(sg, sc)
+                        for a, b in zip(x, y))
+            log(f"small f32 {model_type} ({rnn}) Engine, beam {beam}: card vs "
+                f"CPU rank max abs err {err:.3e} (tol 1e-4), suggestions "
+                f"identical={same}, score max abs err {s_err:.3e} (tol "
+                "1e-4)")
+            if not (err <= 1e-4 and same and s_err <= 1e-4):
+                raise AssertionError(f"card {model_type} ({rnn}) Engine "
+                                     "disagrees with the CPU Engine")
+
+        tcfg = cfg.replace(optimizer="sgd", learning_rate=0.1)
+        if model_type == "cars":
+            batch = random_session_batch(np.random.RandomState(3), 6, 3, 8,
+                                         8, 12, 300, ragged=True)
+        else:
+            batch = random_suggest_batch(np.random.RandomState(3), 6, 3, 8,
+                                         300)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            model = build_model(tcfg, device=dev, seed=None)
+            model.load_state_dict(params)
+            _, m = make_train_step(model, tcfg)(
+                create_train_state(model, tcfg), batch.to(dev), 0)
+            res[dev] = ({k: float(v) for k, v in m.items()},
+                        {n: p.detach().cpu() for n, p in
+                         model.named_parameters()})
+        (mc, pc), (mg, pg) = res["cpu"], res["cuda"]
+        loss_rel = abs(mg["loss"] - mc["loss"]) / abs(mc["loss"])
+        norm_rel = abs(mg["grad_norm"] - mc["grad_norm"]) / mc["grad_norm"]
+        p_err = max(float((pg[n] - pc[n]).abs().max()) for n in pc)
+        log(f"small f32 {model_type} ({rnn}) train step, card vs CPU: loss rel "
+            f"err {loss_rel:.2e} (tol 1e-5), grad_norm rel err "
+            f"{norm_rel:.2e} (tol 1e-5), updated parameters max abs err "
+            f"{p_err:.2e} (tol 1e-6)")
+        if not (loss_rel <= 1e-5 and norm_rel <= 1e-5 and p_err <= 1e-6):
+            raise AssertionError(f"card {model_type} ({rnn}) train step "
+                                 "disagrees with the CPU step")
 
 
 # -- phase 5: times ----------------------------------------------------------
-
-
-def time_lstm(gen, launches: dict, max_err: float) -> dict:
-    from context_attentive_ir_tpu_torch.ops.kernels.lstm import (
-        lstm_fused,
-        lstm_fused_reference,
-    )
-
-    dtype = torch.bfloat16
-    (x, w_ih, b, w_hh), mask = lstm_inputs(gen, dtype)
-    rows, steps, e = x.shape
-    h = w_hh.shape[0]
-    ms = timed_ms(lambda: lstm_fused(x, mask, w_ih, b, w_hh), 5)
-    plain = timed_ms(lambda: lstm_fused_reference(x, mask, w_ih, b, w_hh), 5)
-    cudnn = torch.nn.LSTM(e, h, batch_first=True, device="cuda", dtype=dtype)
-    with torch.inference_mode():
-        lib = timed_ms(lambda: cudnn(x), 5)
-    flops = 2.0 * rows * steps * (e + h) * 4 * h
-    n_bytes = (x.numel() + rows * steps * h + w_ih.numel() + b.numel()
-               + w_hh.numel()) * 2 + mask.numel()
-    bnd, by = bound_ms(flops, n_bytes, dtype)
-    log(f"lstm_fused bf16 [{rows},{steps},{e}]->{h} one direction: kernel "
-        f"{ms:.3f} ms, plain {plain:.3f} ms, cuDNN nn.LSTM {lib:.3f} ms, "
-        f"bound {bnd:.4f} ms ({by})")
-    return kernel_row("lstm_fused", "lstm_fwd.cu", "lstm.py:314", launches,
-                      max_err, ms, plain, lib, bnd, by)
 
 
 def time_beamgen(gen, launches: dict, max_err: float) -> dict:
@@ -1254,64 +1489,78 @@ def time_beamgen(gen, launches: dict, max_err: float) -> dict:
                       launches, max_err, ms, plain, lib, bnd, by)
 
 
-def time_train_pair(gen, launches: dict, max_err: dict) -> list[dict]:
-    """Kernels 4 and 5 at the doc encoder's shape, one direction, bf16,
-    against their plain versions and cuDNN's training LSTM (forward with
-    autograd on; backward alone, from a retained graph)."""
-    from context_attentive_ir_tpu_torch.ops.kernels.lstm import (
-        lstm_fused_bwd,
-        lstm_fused_bwd_reference,
-        lstm_fused_res,
-        lstm_fused_res_reference,
-    )
+# what the timing rows name for each recurrence: cuDNN's module, the source
+# files, and the lines of the TPU kernels' pallas_call (forward, residual,
+# backward)
+RNN_TIMING = {
+    "lstm": (torch.nn.LSTM, ("lstm_fwd.cu", "lstm_fwd.cu", "lstm_bwd.cu"),
+             ("lstm.py:314", "lstm.py:494", "lstm.py:563")),
+    "gru": (torch.nn.GRU, ("gru_fwd.cu", "gru_fwd.cu", "gru_bwd.cu"),
+            ("gru.py:116", "gru.py:289", "gru.py:348")),
+}
 
+
+def time_rnn(gen, rnn: str, launches: dict, fwd_err: float,
+             pair_err: dict) -> list[dict]:
+    """The forward kernel and the training pair of ``rnn`` (kernels 1, 4,
+    5 or 7, 8, 9) at the doc encoder's shape, one direction, bf16, against
+    their plain versions and cuDNN's module of the same recurrence as the
+    yardstick (inference forward; training forward with autograd on;
+    backward alone, from a retained graph)."""
+    mod = rnn_kernels(rnn)
+    cudnn_cls, sources, replaces = RNN_TIMING[rnn]
+    fwd, res, bwd = f"{rnn}_fused", f"{rnn}_fused_res", f"{rnn}_fused_bwd"
+    plain = {k: getattr(mod, k + "_reference") for k in (fwd, res, bwd)}
     dtype = torch.bfloat16
-    (x, w_ih, b, w_hh), mask = lstm_inputs(gen, dtype)
+    (x, *w), mask = RNNS[rnn][0](gen, dtype)
     rows, steps, e = x.shape
-    h = w_hh.shape[0]
-    out, hb, cb = lstm_fused_res(x, mask, w_ih, b, w_hh)
+    h = w[2].shape[0]
+    out, *state = getattr(mod, res)(x, mask, *w)
     dout = (torch.randn(out.shape, generator=gen, device="cuda")
             * 0.5).to(dtype)
-    ms_f = timed_ms(lambda: lstm_fused_res(x, mask, w_ih, b, w_hh), 5)
-    plain_f = timed_ms(
-        lambda: lstm_fused_res_reference(x, mask, w_ih, b, w_hh), 3)
-    ms_b = timed_ms(lambda: lstm_fused_bwd(x, mask, w_ih, b, w_hh, hb, cb,
-                                           dout), 5)
-    plain_b = timed_ms(lambda: lstm_fused_bwd_reference(
-        x, mask, w_ih, b, w_hh, hb, cb, dout), 3)
-    cudnn = torch.nn.LSTM(e, h, batch_first=True, device="cuda", dtype=dtype)
+    cudnn = cudnn_cls(e, h, batch_first=True, device="cuda", dtype=dtype)
+    ms, plain_ms, lib = {}, {}, {}
+    with torch.inference_mode():
+        ms[fwd] = timed_ms(lambda: getattr(mod, fwd)(x, mask, *w), 5)
+        plain_ms[fwd] = timed_ms(lambda: plain[fwd](x, mask, *w), 3)
+        lib[fwd] = timed_ms(lambda: cudnn(x), 5)
+    ms[res] = timed_ms(lambda: getattr(mod, res)(x, mask, *w), 5)
+    plain_ms[res] = timed_ms(lambda: plain[res](x, mask, *w), 3)
+    ms[bwd] = timed_ms(lambda: getattr(mod, bwd)(x, mask, *w, *state, dout),
+                       5)
+    plain_ms[bwd] = timed_ms(lambda: plain[bwd](x, mask, *w, *state, dout),
+                             3)
     xg = x.detach().requires_grad_()
-    lib_f = timed_ms(lambda: cudnn(xg), 5)
+    lib[res] = timed_ms(lambda: cudnn(xg), 5)
     o, _ = cudnn(xg)
     wrt = [xg, *cudnn.parameters()]
-    lib_b = timed_ms(lambda: torch.autograd.grad(o, wrt, dout,
-                                                 retain_graph=True), 5)
+    lib[bwd] = timed_ms(lambda: torch.autograd.grad(o, wrt, dout,
+                                                    retain_graph=True), 5)
     del o
 
-    n_chunks = -(-steps // TIME_CHUNK)
-    weights = (w_ih.numel() + b.numel() + w_hh.numel()) * 2
-    boundaries = 2 * n_chunks * rows * h * 4
-    flops_f = 2.0 * rows * steps * (e + h) * 4 * h
-    bytes_f = ((x.numel() + out.numel()) * 2 + weights + mask.numel()
-               + boundaries)
+    gates = w[0].shape[1] // h
+    weights = sum(t.numel() for t in w) * 2
+    boundaries = len(state) * state[0].numel() * 4
+    flops_f = 2.0 * rows * steps * (e + h) * gates * h
+    bytes_f = (x.numel() + out.numel()) * 2 + weights + mask.numel()
     # recompute + dx + dh + dW_ih + dW_hh: three times the forward's flops
-    flops_b = 3 * flops_f
     bytes_b = ((2 * x.numel() + dout.numel()) * 2 + 2 * weights
                + mask.numel() + boundaries)
     rows_out = []
-    for name, src, line, ms, plain, lib, flops, n_bytes in (
-            ("lstm_fused_res", "lstm_fwd.cu", 494, ms_f, plain_f, lib_f,
-             flops_f, bytes_f),
-            ("lstm_fused_bwd", "lstm_bwd.cu", 563, ms_b, plain_b, lib_b,
-             flops_b, bytes_b)):
+    for name, src, line, flops, n_bytes, err, what in (
+            (fwd, sources[0], replaces[0], flops_f, bytes_f, fwd_err,
+             "inference forward"),
+            (res, sources[1], replaces[1], flops_f, bytes_f + boundaries,
+             pair_err[res][dtype], "training forward"),
+            (bwd, sources[2], replaces[2], 3 * flops_f, bytes_b,
+             pair_err[bwd][dtype], "backward alone")):
         bnd, by = bound_ms(flops, n_bytes, dtype)
         log(f"{name} bf16 [{rows},{steps},{e}]->{h} one direction, TC="
-            f"{TIME_CHUNK}: kernel {ms:.3f} ms, plain {plain:.3f} ms, cuDNN "
-            f"nn.LSTM {'forward' if name == 'lstm_fused_res' else 'backward'}"
-            f" {lib:.3f} ms, bound {bnd:.4f} ms ({by})")
-        rows_out.append(kernel_row(name, src, f"lstm.py:{line}", launches,
-                                   max_err[name][dtype], ms, plain, lib, bnd,
-                                   by))
+            f"{TIME_CHUNK}: kernel {ms[name]:.3f} ms, plain "
+            f"{plain_ms[name]:.3f} ms, cuDNN {cudnn_cls.__name__} {what} "
+            f"{lib[name]:.3f} ms, bound {bnd:.4f} ms ({by})")
+        rows_out.append(kernel_row(name, src, line, launches, err, ms[name],
+                                   plain_ms[name], lib[name], bnd, by))
     return rows_out
 
 
@@ -1458,8 +1707,8 @@ def main() -> int:
     log("float32 comparisons run with TF32 off "
         "(torch.backends.cuda.matmul.allow_tf32 = "
         "torch.backends.cudnn.allow_tf32 = False)")
-    lstm_err = check_lstm(gen)
-    pair_err = check_train_pair(gen)
+    fwd_err = {rnn: check_forward(gen, rnn) for rnn in RNNS}
+    pair_err = {rnn: check_train_pair(gen, rnn) for rnn in RNNS}
     beam_err = check_beamgen(gen)
     slate_err = check_slate(gen)
     int8_err = check_beamgen_modes(gen)
@@ -1467,22 +1716,26 @@ def main() -> int:
 
     with torch.inference_mode():
         launches = main_path()
-        small_reference_check()
     with tempfile.TemporaryDirectory() as tmp:
         train_launches, train_ms, ckpt_path = train_path(tmp)
         launches.update(train_launches)
-        small_train_check()
         with torch.inference_mode():
             launches.update(serving_paths(ckpt_path))
             small_serving_check()
+        gru_launches, gru_train_ms = gru_paths(tmp)
+        launches.update(gru_launches)
+        train_ms.update(gru_train_ms)
+    small_model_check()
 
-    kernels = [time_lstm(gen, launches, lstm_err[torch.bfloat16]),
+    kernels = [*(row for rnn in RNNS for row in time_rnn(
+                   gen, rnn, launches, fwd_err[rnn][torch.bfloat16],
+                   pair_err[rnn])),
                time_beamgen(gen, launches, beam_err[torch.bfloat16]),
-               *time_train_pair(gen, launches, pair_err),
                *time_slate(gen, launches, slate_err[torch.bfloat16]),
                *time_beamgen_modes(gen, launches, beam_err[torch.bfloat16],
                                    int8_err)]
-    log(f"train step {train_ms:.2f} ms at B={B} (chip_smoke train phase)")
+    log(f"train steps (CUDA events, mean of 5, B={B}): "
+        f"{json.dumps(train_ms)}")
     log(card())
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 The port's copy of ``context_attentive_ir_tpu/config.py``'s ``ModelConfig``:
 the same fields and defaults, so ``ModelConfig.from_json`` reads a config
 written by the JAX package.  The kernel flags keep their JAX names:
-``use_pallas_rnn`` selects the port's fused CUDA LSTM kernel for the
-encoders (``ops/rnn.py``).
+``use_pallas_rnn`` selects the port's fused CUDA LSTM or GRU kernels for
+the encoders (``ops/rnn.py``).  ``RANKERS``, ``RECOMMENDERS`` and
+``MULTITASK`` name the model families as in the JAX package.
 """
 
 from __future__ import annotations
@@ -90,8 +91,9 @@ class ModelConfig:
     warmup_steps: int = 0
     # precision / kernels
     compute_dtype: str = "float32"   # 'bfloat16' for the serving fast path
-    # port: eval-mode LSTM encoders take the fused CUDA LSTM kernel
-    # (ops/kernels/lstm.py) on a CUDA device, its plain version on the CPU
+    # port: the encoders take the fused CUDA LSTM or GRU kernels
+    # (ops/kernels/{lstm,gru}.py) on a CUDA device, their plain versions on
+    # the CPU
     use_pallas_rnn: bool = True
     # the slate-pool kernel is not ported yet; the port rejects True
     use_pallas_slate: bool = False
@@ -149,6 +151,12 @@ MODEL_DEFAULTS: dict[str, dict[str, Any]] = {
     "m_match_tensor": dict(nhid=128, nfilters=32, alpha=1.0),
     "cars": dict(alpha=1.0),
 }
+
+
+RANKERS = ("esm", "dssm", "cdssm", "duet", "arci", "arcii", "drmm",
+           "match_tensor")
+RECOMMENDERS = ("seq2seq", "hredqs", "acg")
+MULTITASK = ("mnsrf", "m_match_tensor", "cars")
 
 
 def default_config(model_type: str, **overrides) -> ModelConfig:

@@ -41,7 +41,8 @@
 //   memory (k-major, like kernel 1's [x | h]) for the dx and dh products.
 //   It writes dx, and dgates_c and h_prev_c per (row, step) to the
 //   workspace for phase B, and a per-block partial db.
-// - Phase B (wgrad_partial_kernel): dW_ih = X^T G and dW_hh = Hp^T G over
+// - Phase B (lstm_common.cuh's wgrad_partial_kernel, shared with the GRU
+//   backward): dW_ih = X^T G and dW_hh = Hp^T G over
 //   all B*T (row, step) pairs as 64 x 64 output tiles, split over up to 32
 //   row ranges to fill the card; sum_partials_kernel then adds the splits
 //   (and the per-block db partials) in a fixed order.
@@ -57,9 +58,6 @@ namespace {
 using namespace cair_lstm;
 
 constexpr int kSaved = 6;  // per step: i, f, g, o, c_prev, c_new
-constexpr int kTile = 64;  // phase B output tile (kTile x kTile)
-constexpr int kTileK = 32;  // phase B rows per staged slab
-constexpr int kMaxSplits = 32;
 
 template <typename T>
 __global__ void lstm_bwd_cell_kernel(
@@ -239,82 +237,6 @@ __global__ void lstm_bwd_cell_kernel(
   }
 }
 
-// partial[z][m][n] = sum over rows r of split z of a[r][m] * g[r][n]:
-// a [n_rows, a_cols], g [n_rows, g_cols], f32 FMAs in row order.  256
-// threads, a kTile x kTile output tile per block, 4 x 4 per thread.
-template <typename T>
-__global__ void wgrad_partial_kernel(const T* __restrict__ a, int a_cols,
-                                     const T* __restrict__ g, int g_cols,
-                                     int n_rows, int rows_per_split,
-                                     float* __restrict__ partial) {
-  __shared__ __align__(16) float as[kTileK][kTile + 4];
-  __shared__ __align__(16) float gs[kTileK][kTile + 4];
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int m0 = blockIdx.x * kTile;
-  const int n0 = blockIdx.y * kTile;
-  const int r_begin = blockIdx.z * rows_per_split;
-  const int r_end = min(n_rows, r_begin + rows_per_split);
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.0f;
-  }
-  for (int rb = r_begin; rb < r_end; rb += kTileK) {
-    for (int idx = threadIdx.x; idx < kTileK * kTile; idx += blockDim.x) {
-      const int kk = idx / kTile;
-      const int mm = idx - kk * kTile;
-      const int r = rb + kk;
-      const bool in = r < r_end;
-      as[kk][mm] = (in && m0 + mm < a_cols)
-                       ? to_f32(a[(size_t)r * a_cols + m0 + mm])
-                       : 0.0f;
-      gs[kk][mm] = (in && n0 + mm < g_cols)
-                       ? to_f32(g[(size_t)r * g_cols + n0 + mm])
-                       : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kTileK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-      const float4 gv = *reinterpret_cast<const float4*>(&gs[kk][tx * 4]);
-      const float a4[4] = {av.x, av.y, av.z, av.w};
-      const float b4[4] = {gv.x, gv.y, gv.z, gv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) acc[i][jj] += a4[i] * b4[jj];
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int nn = n0 + tx * 4 + jj;
-      if (m < a_cols && nn < g_cols)
-        partial[((size_t)blockIdx.z * a_cols + m) * g_cols + nn] = acc[i][jj];
-    }
-  }
-}
-
-// out[idx] = sum_z partial[z][idx] in z order, cast to T
-template <typename T>
-__global__ void sum_partials_kernel(const float* __restrict__ partial,
-                                    int parts, int count, T* __restrict__ out) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= count) return;
-  float s = 0.0f;
-  for (int z = 0; z < parts; ++z) s += partial[(size_t)z * count + idx];
-  out[idx] = from_f32<T>(s);
-}
-
-size_t align256(size_t v) { return (v + 255) & ~(size_t)255; }
-
 // Byte offsets of the workspace regions (each 256-B aligned).
 struct Layout {
   int n_blocks, splits, rows_per_split;
@@ -325,11 +247,9 @@ Layout layout(int n_rows, int n_steps, int e, int h_dim, int tc, size_t elt) {
   Layout L;
   const long long n = (long long)n_rows * n_steps;
   L.n_blocks = (n_rows + kRows - 1) / kRows;
-  long long splits = n / 8192;
-  L.splits = (int)(splits < 1 ? 1 : (splits > kMaxSplits ? kMaxSplits
-                                                           : splits));
-  const long long per = (n + L.splits - 1) / L.splits;
-  L.rows_per_split = (int)((per + kTileK - 1) / kTileK * kTileK);
+  const Splits sp = make_splits(n);
+  L.splits = sp.splits;
+  L.rows_per_split = sp.rows_per_split;
   const size_t g4 = 4 * (size_t)h_dim;
   size_t off = 0;
   L.act = off;
@@ -397,17 +317,19 @@ int launch(const void* x, const void* mask, const void* w_ih, const void* b,
   const int tiles_g = (g4 + kTile - 1) / kTile;
   wgrad_partial_kernel<T><<<dim3((e + kTile - 1) / kTile, tiles_g, L.splits),
                             256, 0, stream>>>(static_cast<const T*>(x), e,
-                                              dgates, g4, n,
-                                              L.rows_per_split, part_ih);
+                                              dgates, g4, g4, n,
+                                              L.rows_per_split, part_ih, g4,
+                                              0);
   wgrad_partial_kernel<T>
       <<<dim3((h_dim + kTile - 1) / kTile, tiles_g, L.splits), 256, 0,
-         stream>>>(h_prev, h_dim, dgates, g4, n, L.rows_per_split, part_hh);
+         stream>>>(h_prev, h_dim, dgates, g4, g4, n, L.rows_per_split,
+                   part_hh, g4, 0);
   sum_partials_kernel<T><<<(e * g4 + 255) / 256, 256, 0, stream>>>(
-      part_ih, L.splits, e * g4, static_cast<T*>(dw_ih));
+      part_ih, L.splits, e * g4, e * g4, static_cast<T*>(dw_ih));
   sum_partials_kernel<T><<<(h_dim * g4 + 255) / 256, 256, 0, stream>>>(
-      part_hh, L.splits, h_dim * g4, static_cast<T*>(dw_hh));
+      part_hh, L.splits, h_dim * g4, h_dim * g4, static_cast<T*>(dw_hh));
   sum_partials_kernel<T><<<(g4 + 255) / 256, 256, 0, stream>>>(
-      db_part, L.n_blocks, g4, static_cast<T*>(db));
+      db_part, L.n_blocks, g4, g4, static_cast<T*>(db));
   return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,15 @@
-// Device helpers shared by the LSTM kernels (lstm_fwd.cu, lstm_bwd.cu).
+// Device helpers shared by the recurrent kernels: the LSTM pair
+// (lstm_fwd.cu, lstm_bwd.cu) and the GRU pair (gru_fwd.cu, gru_bwd.cu).
 //
 // Thread layout of every row-tile kernel here: a block owns kRows = 32 rows
 // and has kRowGroups * H threads; thread (rg, j) owns hidden unit j of rows
 // rg*16 .. rg*16+15.  Operands of a product are staged in shared memory
 // k-major, one padded row of kStride floats per k, so a thread reads its 16
 // rows as four float4 broadcasts.
+//
+// The backward kernels also share the weight-gradient reduction (phase B):
+// wgrad_partial_kernel and sum_partials_kernel, in a fixed order with no
+// atomics.
 
 #pragma once
 
@@ -86,17 +91,15 @@ __device__ __forceinline__ void dot_rows(float acc[NG][kRowsPerThread],
   }
 }
 
-// One step's gate pre-activations for the thread's 16 rows and unit j:
-// acc[g][i] = bias_g + x_t @ W_ih[:, g*H + j] + h @ W_hh[:, g*H + j], with
-// h rounded to T before the recurrent product (as the TPU kernel does).
-// Stages [x_t | h] in `tile` ((e + h_dim) rows) and synchronises; the caller
-// synchronises again before the tile is overwritten.
+// Stage [x_t | h] for the block's rows in `tile` ((e + h_dim) k-major rows),
+// h rounded to T (the recurrent product reads h in the input dtype, as the
+// TPU kernels do), and synchronise.  The caller synchronises again before
+// the tile is overwritten.
 template <typename T>
-__device__ __forceinline__ void gate_preacts(
-    float acc[4][kRowsPerThread], float* tile, const T* __restrict__ x,
-    const T* __restrict__ w_ih, const T* __restrict__ w_hh,
-    const float bg[4], const float h[kRowsPerThread], int row0, int n_rows,
-    int n_steps, int t, int e, int h_dim, int j, int rg) {
+__device__ __forceinline__ void stage_x_h(float* tile, const T* __restrict__ x,
+                                          const float h[kRowsPerThread],
+                                          int row0, int n_rows, int n_steps,
+                                          int t, int e, int j, int rg) {
   for (int idx = threadIdx.x; idx < kRows * e; idx += blockDim.x) {
     const int r = idx / e;
     const int k = idx - r * e;
@@ -110,7 +113,18 @@ __device__ __forceinline__ void gate_preacts(
   for (int i = 0; i < kRowsPerThread; ++i) hr[i] = round_to<T>(h[i]);
   store_rows(tile, e + j, rg, hr);
   __syncthreads();
+}
 
+// One LSTM step's gate pre-activations for the thread's 16 rows and unit j:
+// acc[g][i] = bias_g + x_t @ W_ih[:, g*H + j] + h @ W_hh[:, g*H + j].
+// Stages [x_t | h] (stage_x_h).
+template <typename T>
+__device__ __forceinline__ void gate_preacts(
+    float acc[4][kRowsPerThread], float* tile, const T* __restrict__ x,
+    const T* __restrict__ w_ih, const T* __restrict__ w_hh,
+    const float bg[4], const float h[kRowsPerThread], int row0, int n_rows,
+    int n_steps, int t, int e, int h_dim, int j, int rg) {
+  stage_x_h<T>(tile, x, h, row0, n_rows, n_steps, t, e, j, rg);
 #pragma unroll
   for (int g = 0; g < 4; ++g) {
 #pragma unroll
@@ -119,6 +133,113 @@ __device__ __forceinline__ void gate_preacts(
   const int g4 = 4 * h_dim;
   dot_rows<4, T>(acc, tile, 0, rg, w_ih + j, e, g4, h_dim);
   dot_rows<4, T>(acc, tile, e, rg, w_hh + j, h_dim, g4, h_dim);
+}
+
+
+// -- phase B of the backward kernels: dW = A^T G over all (row, step) pairs --
+//
+// Templates with external linkage in this named namespace, instantiated in
+// each backward kernel's file.  (An unnamed namespace here would collide
+// with the including file's own in nvcc's generated launch stubs.)
+
+constexpr int kTile = 64;   // output tile (kTile x kTile)
+constexpr int kTileK = 32;  // rows per staged slab
+constexpr int kMaxSplits = 32;
+
+inline size_t align256(size_t v) { return (v + 255) & ~(size_t)255; }
+
+// The (row, step) pairs split into up to kMaxSplits ranges of a multiple of
+// kTileK rows, one per grid z, to fill the card.
+struct Splits {
+  int splits, rows_per_split;
+};
+
+inline Splits make_splits(long long n) {
+  long long splits = n / 8192;
+  Splits s;
+  s.splits = (int)(splits < 1 ? 1 : (splits > kMaxSplits ? kMaxSplits
+                                                          : splits));
+  const long long per = (n + s.splits - 1) / s.splits;
+  s.rows_per_split = (int)((per + kTileK - 1) / kTileK * kTileK);
+  return s;
+}
+
+// partial[z][m][out_col0 + c] (rows of out_ld floats) = sum over the rows r
+// of split z of a[r][m] * g[r][c]: a [n_rows, a_cols], g read at columns
+// c < g_cols of rows g_ld apart; f32 FMAs in row order.  256 threads, a
+// kTile x kTile output tile per block, 4 x 4 per thread.
+template <typename T>
+__global__ void wgrad_partial_kernel(const T* __restrict__ a, int a_cols,
+                                     const T* __restrict__ g, int g_cols,
+                                     int g_ld, int n_rows, int rows_per_split,
+                                     float* __restrict__ partial, int out_ld,
+                                     int out_col0) {
+  __shared__ __align__(16) float as[kTileK][kTile + 4];
+  __shared__ __align__(16) float gs[kTileK][kTile + 4];
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int m0 = blockIdx.x * kTile;
+  const int n0 = blockIdx.y * kTile;
+  const int r_begin = blockIdx.z * rows_per_split;
+  const int r_end = min(n_rows, r_begin + rows_per_split);
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.0f;
+  }
+  for (int rb = r_begin; rb < r_end; rb += kTileK) {
+    for (int idx = threadIdx.x; idx < kTileK * kTile; idx += blockDim.x) {
+      const int kk = idx / kTile;
+      const int mm = idx - kk * kTile;
+      const int r = rb + kk;
+      const bool in = r < r_end;
+      as[kk][mm] = (in && m0 + mm < a_cols)
+                       ? to_f32(a[(size_t)r * a_cols + m0 + mm])
+                       : 0.0f;
+      gs[kk][mm] = (in && n0 + mm < g_cols)
+                       ? to_f32(g[(size_t)r * g_ld + n0 + mm])
+                       : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < kTileK; ++kk) {
+      const float4 av = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
+      const float4 gv = *reinterpret_cast<const float4*>(&gs[kk][tx * 4]);
+      const float a4[4] = {av.x, av.y, av.z, av.w};
+      const float b4[4] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) acc[i][jj] += a4[i] * b4[jj];
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int nn = n0 + tx * 4 + jj;
+      if (m < a_cols && nn < g_cols)
+        partial[((size_t)blockIdx.z * a_cols + m) * out_ld + out_col0 + nn] =
+            acc[i][jj];
+    }
+  }
+}
+
+// out[idx] = sum_z partial[z * stride + idx] in z order, cast to T
+template <typename T>
+__global__ void sum_partials_kernel(const float* __restrict__ partial,
+                                    int parts, int stride, int count,
+                                    T* __restrict__ out) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= count) return;
+  float s = 0.0f;
+  for (int z = 0; z < parts; ++z) s += partial[(size_t)z * stride + idx];
+  out[idx] = from_f32<T>(s);
 }
 
 }  // namespace cair_lstm

@@ -5,12 +5,14 @@ from .objects import Document, Query, Session
 from .vectorize import (
     SessionBatch,
     ShapeConfig,
+    SuggestBatch,
     build_session_batch,
+    build_suggest_batch,
     shapes_from_config,
 )
 
 __all__ = [
     "Dictionary", "build_dictionary", "Document", "Query", "Session",
-    "SessionBatch", "ShapeConfig", "build_session_batch",
-    "shapes_from_config",
+    "SessionBatch", "ShapeConfig", "SuggestBatch", "build_session_batch",
+    "build_suggest_batch", "shapes_from_config",
 ]

@@ -1,10 +1,12 @@
 """Vectorization: object graph -> static-shape numpy batches.
 
 The port of the Python path of ``context_attentive_ir_tpu/data/vectorize.py``
-for the multitask family: every batch is padded to a fixed ``ShapeConfig``
-and bool masks carry the true lengths, so the port sees exactly the id
-tensors the JAX package builds.  ``SessionBatch`` is a plain dataclass of
-numpy arrays; ``SessionBatch.to`` moves it onto a torch device.
+for the multitask and recommender families: every batch is padded to a
+fixed ``ShapeConfig`` and bool masks carry the true lengths, so the port
+sees exactly the id tensors the JAX package builds.  ``SessionBatch`` (one
+whole session per row) and ``SuggestBatch`` (one session prefix and its
+next query per row) are plain dataclasses of numpy arrays; their ``to``
+moves them onto a torch device.
 """
 
 from __future__ import annotations
@@ -42,12 +44,59 @@ class ShapeConfig:
         """Target length = query length + 1 (room for the BOS/EOS shift)."""
         return self.max_query_len + 1
 
+    @property
+    def max_source_len(self) -> int:
+        """Source length of flat-context recommenders (the session's
+        queries concatenated)."""
+        return self.max_session_len * self.max_query_len
+
 
 def shapes_from_config(config) -> ShapeConfig:
     return ShapeConfig(max_query_len=config.max_query_len,
                        max_doc_len=config.max_doc_len,
                        max_session_len=config.max_session_len,
                        num_candidates=config.num_candidates)
+
+
+def _batch_to(batch, device):
+    """The same batch as torch tensors on ``device`` (ids as int64)."""
+    def conv(a):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if t.dtype == torch.int32:
+            t = t.long()
+        return t.to(device)
+
+    return type(batch)(**{f.name: conv(getattr(batch, f.name))
+                          for f in dataclasses.fields(batch)})
+
+
+@dataclass
+class SuggestBatch:
+    """One (session context, next query) per row (recommenders).
+
+    ``source`` is the flat concatenation of the context queries (seq2seq /
+    ACG-style models); ``context`` keeps them separated per turn
+    (hierarchical models like HRED-QS).  Leaves are numpy arrays as built,
+    torch tensors after ``to``.
+    """
+
+    source: np.ndarray        # int32 [B, Lsrc]
+    source_mask: np.ndarray   # bool  [B, Lsrc]
+    context: np.ndarray       # int32 [B, S, Lq]
+    context_mask: np.ndarray  # bool  [B, S, Lq]
+    turn_mask: np.ndarray     # bool  [B, S]
+    target_in: np.ndarray     # int32 [B, Lt]  (BOS + tokens)
+    target_out: np.ndarray    # int32 [B, Lt]  (tokens + EOS)
+    target_mask: np.ndarray   # bool  [B, Lt]
+    row_mask: np.ndarray      # bool  [B]
+
+    @property
+    def batch_size(self) -> int:
+        return self.source.shape[0]
+
+    def to(self, device) -> "SuggestBatch":
+        """The same batch as torch tensors on ``device`` (ids as int64)."""
+        return _batch_to(self, device)
 
 
 @dataclass
@@ -77,14 +126,7 @@ class SessionBatch:
 
     def to(self, device) -> "SessionBatch":
         """The same batch as torch tensors on ``device`` (ids as int64)."""
-        def conv(a):
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if t.dtype == torch.int32:
-                t = t.long()
-            return t.to(device)
-
-        return SessionBatch(**{f.name: conv(getattr(self, f.name))
-                               for f in dataclasses.fields(self)})
+        return _batch_to(self, device)
 
 
 def _pad_ids(ids: list[int], length: int) -> tuple[np.ndarray, np.ndarray]:
@@ -110,6 +152,40 @@ def _encode_target(q: Query, word_dict: Dictionary, length: int):
     tin, _ = _pad_ids([BOS] + ids, length)
     tout, tmask = _pad_ids(ids + [EOS], length)
     return tin, tout, tmask
+
+
+def build_suggest_batch(examples: list[tuple[list[Query], Query, Query]],
+                        word_dict: Dictionary, shapes: ShapeConfig,
+                        batch_size: int | None = None) -> SuggestBatch:
+    """``examples``: ``(context queries, current query, next query)`` per
+    row; the last ``max_session_len`` context queries are kept and the next
+    query is the teacher-forced target."""
+    B = batch_size or len(examples)
+    S, Lq = shapes.max_session_len, shapes.max_query_len
+    Lt, Lsrc = shapes.max_target_len, shapes.max_source_len
+    source = np.full((B, Lsrc), PAD, np.int32)
+    source_mask = np.zeros((B, Lsrc), bool)
+    context = np.full((B, S, Lq), PAD, np.int32)
+    context_mask = np.zeros((B, S, Lq), bool)
+    turn_mask = np.zeros((B, S), bool)
+    target_in = np.full((B, Lt), PAD, np.int32)
+    target_out = np.full((B, Lt), PAD, np.int32)
+    target_mask = np.zeros((B, Lt), bool)
+    row_mask = np.zeros((B,), bool)
+    for i, (ctx, _cur, nxt) in enumerate(examples[:B]):
+        flat: list[int] = []
+        for t, q in enumerate(ctx[-S:]):
+            context[i, t], context_mask[i, t] = _encode_query(q, word_dict, Lq)
+            turn_mask[i, t] = True
+            # truncated per turn as `context` is, so `flat` never exceeds
+            # S * Lq = Lsrc and the newest turns are never cut
+            flat.extend(word_dict.encode(q.tokens[:Lq]))
+        source[i], source_mask[i] = _pad_ids(flat, Lsrc)
+        target_in[i], target_out[i], target_mask[i] = _encode_target(
+            nxt, word_dict, Lt)
+        row_mask[i] = True
+    return SuggestBatch(source, source_mask, context, context_mask, turn_mask,
+                        target_in, target_out, target_mask, row_mask)
 
 
 def build_session_batch(sessions: list[Session], word_dict: Dictionary,

@@ -6,6 +6,7 @@ import torch
 
 from ..config import ModelConfig
 from ..ops.layers import Embeddings
+from ..ops.rnn import RNN_TYPES
 
 
 def compute_dtype(config: ModelConfig) -> torch.dtype:
@@ -21,3 +22,12 @@ def make_embeddings(config: ModelConfig, device) -> Embeddings:
                       dropout=config.dropout_emb,
                       fixed=config.fix_embeddings,
                       quantized=config.quantize_embeddings)
+
+
+def check_rnn_types(config: ModelConfig) -> None:
+    """Raise unless ``rnn_type`` and ``session_rnn_type`` name a ported
+    recurrence (LSTM or GRU)."""
+    for field in ("rnn_type", "session_rnn_type"):
+        if getattr(config, field) not in RNN_TYPES:
+            raise ValueError(f"unknown {field} {getattr(config, field)!r}; "
+                             f"choose from {RNN_TYPES}")

@@ -2,8 +2,8 @@
 ``context_attentive_ir_tpu/models/multitask/cars.py``).
 
 Same structure as the JAX model: encoders run over flattened ``[B*S(,N)]``
-slates; the two session recurrences (query flow, click flow) run over the
-S turns; context attention over previous turns is one causally-masked
+slates (LSTM or GRU, ``rnn_type``); the two session recurrences (query
+flow, click flow; ``session_rnn_type``) run over the S turns; context attention over previous turns is one causally-masked
 attention over the 2S-slot (query-flow + click-flow) memory, gated into the
 query vector; the ranking head scores the whole ``[B, S, N]`` slate in one
 MLP; the suggestion head is an attention LSTM decoder over ``[B*S]`` rows
@@ -31,7 +31,7 @@ from ...ops.decoder import AttnLSTMDecoder
 from ...ops.layers import MLP, Dense, reset_parameters
 from ...ops.masking import masked_softmax
 from ...ops.rnn import RNNEncoder, RNNLayer
-from ..base import compute_dtype, make_embeddings
+from ..base import check_rnn_types, compute_dtype, make_embeddings
 from ..generator import Generator
 
 
@@ -59,8 +59,7 @@ class CARS(nn.Module):
                              f"{cfg.model_type!r}")
         if not cfg.tie_embeddings:
             raise NotImplementedError("only the tied generator is ported")
-        if cfg.rnn_type != "lstm" or cfg.session_rnn_type != "lstm":
-            raise NotImplementedError("only LSTM encoders are ported")
+        check_rnn_types(cfg)
         if cfg.cars_ablation not in ("none", "no_click_flow",
                                      "no_context_attn"):
             raise ValueError(f"unknown cars_ablation {cfg.cars_ablation!r}")
@@ -73,19 +72,22 @@ class CARS(nn.Module):
             self.add_module(name, RNNEncoder(
                 cfg.emsize, cfg.nhid, cfg.nlayers, cfg.bidirection,
                 use_kernel=cfg.use_pallas_rnn, dtype=dt, device=dev,
-                dropout=cfg.dropout_rnn))
+                dropout=cfg.dropout_rnn, rnn_type=cfg.rnn_type))
         self.query_pool = AttentionPool(h2, h2, use_query=False, dtype=dt,
                                         device=dev)
         self.doc_pool = AttentionPool(h2, h2, use_query=True, dtype=dt,
                                       device=dev,
                                       use_kernel=cfg.use_pallas_slate)
+        # the session recurrences take no kernel, as in JAX (their click
+        # mask has interior gaps: a turn without a click)
         self.query_flow = RNNLayer(h2, h2, bidirectional=False, dtype=dt,
-                                   device=dev)
+                                   device=dev, rnn_type=cfg.session_rnn_type)
         # an ablation drops the layers it never calls, as the JAX param
         # tree does (flax creates parameters only for called submodules)
         if cfg.cars_ablation != "no_click_flow":
             self.click_flow = RNNLayer(h2, h2, bidirectional=False, dtype=dt,
-                                       device=dev)
+                                       device=dev,
+                                       rnn_type=cfg.session_rnn_type)
         if cfg.cars_ablation != "no_context_attn":
             self.ctx_wq = Dense(h2, h2, dtype=dt, device=dev)
             self.ctx_wm = Dense(h2, h2, use_bias=False, dtype=dt, device=dev)

@@ -36,6 +36,10 @@ SIGNATURES = {
     "cair_lstm_fwd_res": ([_P] * 8 + [_I] * 7 + [_P], _I),
     "cair_lstm_bwd_workspace": ([_I] * 6, ctypes.c_longlong),
     "cair_lstm_bwd": ([_P] * 15 + [_I] * 7 + [_P], _I),
+    "cair_gru_fwd": ([_P] * 7 + [_I] * 6 + [_P], _I),
+    "cair_gru_fwd_res": ([_P] * 8 + [_I] * 7 + [_P], _I),
+    "cair_gru_bwd_workspace": ([_I] * 6, ctypes.c_longlong),
+    "cair_gru_bwd": ([_P] * 16 + [_I] * 7 + [_P], _I),
     "cair_beamgen_splits": ([_I, _I, _I, _IP, _IP], _I),
     "cair_beamgen": ([_P, _P, _P] + [_I] * 6 + [_P] * 7 + [_I] * 4 + [_P],
                      _I),

@@ -1,14 +1,16 @@
 """Inference engine: rank and suggest from raw text (port of ``Engine`` in
-``context_attentive_ir_tpu/serve.py`` for CARS).
+``context_attentive_ir_tpu/serve.py`` for CARS and HRED-QS).
 
 Requests are padded to the model's static shapes and batched into buckets
-of ``batch_bucket`` rows, as in the JAX engine.  Ranking runs the encoders
-through the fused LSTM kernel (and the query-aware doc pooling through the
-slate-pool kernel when the config sets ``use_pallas_slate``); suggestion
-runs beam search (or greedy at ``beam_size=1``) through the fused
-generator step -- top-``beam_size + 1`` for beam, top-2 for greedy -- so
-the ``[rows, V]`` logits never exist.  On the CPU (``device="cpu"``) the
-same step structure runs on the kernels' plain versions.
+of ``batch_bucket`` rows, as in the JAX engine.  Ranking (CARS only) runs
+the encoders through the fused LSTM or GRU kernel (and the query-aware doc
+pooling through the slate-pool kernel when the config sets
+``use_pallas_slate``); suggestion runs beam search (or greedy at
+``beam_size=1``).  CARS decodes through the fused generator step --
+top-``beam_size + 1`` for beam, top-2 for greedy -- so the ``[rows, V]``
+logits never exist; HRED-QS, which has no fused step in the JAX package
+either, decodes through its logits step.  On the CPU (``device="cpu"``)
+the same step structure runs on the kernels' plain versions.
 
 ``index_documents`` encodes a corpus once; ``rank_indexed`` /
 ``rank_indexed_batch`` then rank its documents by id, paying only for the
@@ -30,7 +32,12 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
-from .data import Dictionary, build_session_batch, shapes_from_config
+from .data import (
+    Dictionary,
+    build_session_batch,
+    build_suggest_batch,
+    shapes_from_config,
+)
 from .data.objects import Document, Query, Session
 from .decode import (
     beam_search,
@@ -39,8 +46,9 @@ from .decode import (
     make_fused_beam_step,
 )
 from .device import resolve_device
+from .models import MODEL_CLASSES, build_model, task_family
 from .models.base import compute_dtype
-from .models.multitask.cars import CARS, clicks_exceed_suggest_cap
+from .models.multitask.cars import clicks_exceed_suggest_cap
 from .ops.layers import quantize_embedding_table
 from .train.checkpoint import Checkpointer
 
@@ -70,10 +78,12 @@ class ServeError(ValueError):
 
 
 class Engine:
-    """One loaded CARS model behind ``rank``/``suggest``.
+    """One loaded model behind ``rank``/``suggest``: CARS ranks and
+    suggests, HRED-QS (a recommender) only suggests.
 
-    ``params``: a state dict of the port's CARS (``convert.params_from_jax``
-    of a JAX param tree, or ``CARS(...).state_dict()``; for a config with
+    ``params``: a state dict of the port's model for ``config.model_type``
+    (``convert.params_from_jax`` of a JAX param tree, or
+    ``models.build_model(...).state_dict()``; for a config with
     ``quantize_embeddings``, ``quantize_embedding_params`` of one).
 
     ``suggest_shortlist``: > 0 restricts the suggestion generator to that
@@ -87,13 +97,14 @@ class Engine:
                  beam_size: int = 5, batch_bucket: int = 8,
                  suggest_shortlist: int = 0,
                  suggest_early_exit: bool = True, device="cuda"):
-        if config.model_type != "cars":
+        if config.model_type not in MODEL_CLASSES:
             raise ServeError(f"{config.model_type} is not ported; the "
-                             "port serves CARS")
+                             f"port serves {sorted(MODEL_CLASSES)}")
         self.device = resolve_device(device)
         self.config = config
+        self.family = task_family(config.model_type)
         self.word_dict = word_dict
-        self.model = CARS(config, device=self.device, seed=None)
+        self.model = build_model(config, device=self.device, seed=None)
         self.model.load_state_dict(params)
         self.model.eval()
         self.shapes = shapes_from_config(config)
@@ -162,6 +173,8 @@ class Engine:
 
     def rank_batch(self, requests: Sequence[tuple]) -> list[list[float]]:
         """requests: [(query, docs, history)] -> per-request doc scores."""
+        if self.family != "multitask":
+            raise ServeError(f"{self.config.model_type} cannot rank")
         for r in requests:
             if len(r[1]) > self.shapes.num_candidates:
                 raise ServeError(
@@ -314,29 +327,36 @@ class Engine:
 
     # -- suggestion -----------------------------------------------------------
 
+    def _decode_step(self, memory, memory_mask, kc: int, shortlist):
+        """The fused generator step with its pruned selection (exact, and
+        on the H100 at the serving shapes faster than the unpruned one,
+        PERF.md, where the JAX engine reads the choice from its TPU
+        dispatch table); for a model without ``decode_step_fused``, as
+        the JAX engine does, its logits step."""
+        step = make_fused_beam_step(self.model, memory, memory_mask, kc,
+                                    compute_dtype(self.config), prune=True,
+                                    shortlist=shortlist)
+        if step is None:
+            def step(state, tokens):
+                return self.model.decode_step(state, tokens, memory,
+                                              memory_mask)
+        return step
+
     def _suggest_impl(self, batch, init_method: str, shortlist=None):
-        """Decode through the fused generator step with its pruned
-        selection: exact, and on the H100 at the serving shapes faster
-        than the unpruned one (PERF.md), where the JAX engine reads the
-        choice from its TPU dispatch table."""
         state, memory, memory_mask = getattr(self.model, init_method)(batch)
         rows = memory.shape[0]
         max_len = self.shapes.max_target_len
-        dtype = compute_dtype(self.config)
         K = self.beam_size
         if K > 1:
-            mem_k = memory.repeat_interleave(K, dim=0)
-            mask_k = memory_mask.repeat_interleave(K, dim=0)
-            step = make_fused_beam_step(self.model, mem_k, mask_k, K + 1,
-                                        dtype, prune=True,
-                                        shortlist=shortlist)
+            step = self._decode_step(memory.repeat_interleave(K, dim=0),
+                                     memory_mask.repeat_interleave(K, dim=0),
+                                     K + 1, shortlist)
             return beam_search(step, state, rows, max_len, K,
                                return_nbest=True,
                                early_exit=self.suggest_early_exit)
         # greedy takes the same fused step at kc=2 (one spare slot covers a
         # min_length-blocked EOS -- exact)
-        step = make_fused_beam_step(self.model, memory, memory_mask, 2, dtype,
-                                    prune=True, shortlist=shortlist)
+        step = self._decode_step(memory, memory_mask, 2, shortlist)
         seqs, scores = greedy_decode(step, state, rows, max_len,
                                      early_exit=self.suggest_early_exit)
         return seqs[:, None], scores[:, None]
@@ -356,28 +376,44 @@ class Engine:
             raise ServeError(
                 "every history must contain at least the current query")
         n_best = n_best or self.beam_size
-        sessions = [Session("req", self._history_queries(h)[
-            -self.shapes.max_session_len:]) for h in histories]
-        batch = build_session_batch(sessions, self.word_dict, self.shapes,
-                                    batch_size=self._bucket(len(histories)))
-        # exact at any click count: past the cap, decode from the full slate
-        init = ("decode_init_full" if clicks_exceed_suggest_cap(
-            batch, self.config.suggest_max_clicks) else "decode_init")
+        B = self._bucket(len(histories))
+        S = self.shapes.max_session_len
+        if self.family == "multitask":
+            sessions = [Session("req", self._history_queries(h)[-S:])
+                        for h in histories]
+            batch = build_session_batch(sessions, self.word_dict,
+                                        self.shapes, batch_size=B)
+            # exact at any click count: past the cap, decode from the full
+            # slate
+            init = ("decode_init_full" if clicks_exceed_suggest_cap(
+                batch, self.config.suggest_max_clicks) else "decode_init")
+            source = [batch.query, batch.docs[batch.clicks > 0]]
+            rows = [i * S + len(sess.queries) - 1
+                    for i, sess in enumerate(sessions)]
+        else:
+            # a recommender has no click flow: each history is its query
+            # texts, the last one standing as the current and the next query
+            ex = []
+            for h in histories:
+                texts = [e[0] if isinstance(e, (tuple, list)) else e
+                         for e in h]
+                qs = [Query(f"h{i}", t.split()[: self.shapes.max_query_len],
+                            []) for i, t in enumerate(texts)][-S:]
+                ex.append((qs, qs[-1], qs[-1]))
+            batch = build_suggest_batch(ex, self.word_dict, self.shapes,
+                                        batch_size=B)
+            init = "decode_init"
+            source = [batch.source]
+            rows = list(range(len(histories)))
         shortlist = None
         if 0 < self.suggest_shortlist < self.config.vocab_size:
             shortlist = build_shortlist(
                 self.suggest_shortlist, self.config.vocab_size,
-                np.concatenate([batch.query.reshape(-1),
-                                batch.docs[batch.clicks > 0].reshape(-1)]))
+                np.concatenate([a.reshape(-1) for a in source]))
         with torch.inference_mode():
             seqs, scores = self._suggest_impl(batch.to(self.device), init,
                                               shortlist)
             seqs, scores = seqs.cpu().numpy(), scores.float().cpu().numpy()
-        S = self.shapes.max_session_len
-        out = []
-        for i, sess in enumerate(sessions):
-            r = i * S + len(sess.queries) - 1
-            out.append([(" ".join(self.word_dict.decode(seqs[r, k])),
-                         float(scores[r, k]))
-                        for k in range(min(n_best, seqs.shape[1]))])
-        return out
+        return [[(" ".join(self.word_dict.decode(seqs[r, k])),
+                  float(scores[r, k]))
+                 for k in range(min(n_best, seqs.shape[1]))] for r in rows]

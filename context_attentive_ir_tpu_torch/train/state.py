@@ -215,7 +215,7 @@ def _match(path: str, got, want) -> None:
 def create_train_state(model: nn.Module, config: ModelConfig) -> TrainState:
     """A fresh state over ``model``'s current weights (the JAX
     ``create_train_state`` also initialises the weights; the port's models
-    are built with theirs, ``CARS(config, device, seed)``)."""
+    are built with theirs, ``models.build_model(config, device, seed)``)."""
     tx = make_optimizer(config)
     return TrainState(model, tx, tx.init(dict(model.named_parameters())))
 

@@ -1,5 +1,5 @@
 """Train and eval steps (port of ``context_attentive_ir_tpu/train/steps.py``,
-multitask family).
+multitask and recommender families: CARS and HRED-QS).
 
 The JAX package jit-compiles one function per step; the port runs the same
 forward, loss, backward and optimizer update eagerly.  A step's dropout
@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..config import ModelConfig
+from ..models import MODEL_CLASSES, task_family
 from ..models.losses import rank_loss, sequence_nll_loss
 from .state import TrainState
 
@@ -34,30 +35,40 @@ def dropout_generator(seed: int, step: int, device) -> torch.Generator:
     return gen
 
 
-def _check_family(config: ModelConfig) -> None:
-    if config.model_type != "cars":
+def _check_ported(config: ModelConfig) -> None:
+    if config.model_type not in MODEL_CLASSES:
         raise NotImplementedError(
-            f"{config.model_type}: only the multitask family (CARS) is "
-            "ported")
+            f"{config.model_type}: only CARS (multitask) and HRED-QS "
+            "(recommender) are ported")
 
 
 def make_loss_fn(model, config: ModelConfig):
     """``loss_fn(batch, deterministic=False, generator=None) -> (loss,
-    metrics)``: ``rank_loss + alpha * gen_loss`` (plus the
-    ``regularize_coeff`` L2 term) of the multitask family, with the model's
-    current parameters.  Rankers and recommenders are not ported."""
-    _check_family(config)
+    metrics)`` with the model's current parameters: for the multitask
+    family ``rank_loss + alpha * gen_loss`` (metrics ``rank_loss``,
+    ``gen_loss``), for a recommender the target NLL (``gen_loss`` and
+    ``ppl = exp(min(loss, 20))``); plus the ``regularize_coeff`` L2
+    term."""
+    _check_ported(config)
+    family = task_family(config.model_type)
 
     def loss_fn(batch, deterministic: bool = False,
                 generator: torch.Generator | None = None):
         out = model(batch, deterministic, generator)
-        rmask = batch.turn_mask & batch.row_mask[:, None]
-        l_rank = rank_loss(config.loss_type, out["scores"], batch.clicks,
-                           batch.cand_mask, rmask, config.margin)
-        tmask = batch.target_mask & batch.row_mask[:, None, None]
-        l_gen = sequence_nll_loss(out["gen_logits"], batch.target_out, tmask)
-        loss = l_rank + config.alpha * l_gen
-        metrics = {"rank_loss": l_rank, "gen_loss": l_gen}
+        if family == "recommender":
+            tmask = batch.target_mask & batch.row_mask[:, None]
+            loss = sequence_nll_loss(out, batch.target_out, tmask)
+            metrics = {"gen_loss": loss,
+                       "ppl": torch.exp(torch.clamp(loss, max=20.0))}
+        else:
+            rmask = batch.turn_mask & batch.row_mask[:, None]
+            l_rank = rank_loss(config.loss_type, out["scores"], batch.clicks,
+                               batch.cand_mask, rmask, config.margin)
+            tmask = batch.target_mask & batch.row_mask[:, None, None]
+            l_gen = sequence_nll_loss(out["gen_logits"], batch.target_out,
+                                      tmask)
+            loss = l_rank + config.alpha * l_gen
+            metrics = {"rank_loss": l_rank, "gen_loss": l_gen}
         if config.regularize_coeff > 0:
             l2 = 0.5 * sum(p.pow(2).sum() for p in model.parameters())
             loss = loss + config.regularize_coeff * l2
@@ -72,8 +83,8 @@ def make_train_step(model, config: ModelConfig):
     dropout, loss, backward, then the optimizer updates ``state``'s
     parameters and optimizer state in place and ``state.step`` advances.
     ``seed`` takes the place of the JAX step's ``rng``.  Metrics (detached
-    0-d tensors): ``loss``, ``rank_loss``, ``gen_loss`` and ``grad_norm``
-    (before clipping)."""
+    0-d tensors): ``make_loss_fn``'s and ``grad_norm`` (before
+    clipping)."""
     loss_fn = make_loss_fn(model, config)
 
     def train_step(state: TrainState, batch, seed: int):
@@ -97,9 +108,12 @@ def make_train_step(model, config: ModelConfig):
 
 
 def make_score_step(model, config: ModelConfig):
-    """``score_step(batch) -> scores [B, S, N]`` (eval mode).  The model's
-    own parameters take the place of the JAX step's ``params``."""
-    _check_family(config)
+    """``score_step(batch) -> scores [B, S, N]`` (eval mode) of the
+    multitask family.  The model's own parameters take the place of the JAX
+    step's ``params``."""
+    if config.model_type != "cars":
+        raise NotImplementedError(
+            f"{config.model_type}: only CARS scores slates in the port")
 
     def score_step(batch):
         return model.score(batch)

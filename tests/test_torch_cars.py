@@ -42,9 +42,10 @@ ABLATED = {"none": (), "no_click_flow": ("click_flow",),
            "no_context_attn": ("ctx_wq", "ctx_wm", "ctx_v", "ctx_gate")}
 
 
-def tiny_setup(n_sessions=6, seed=0):
+def tiny_setup(n_sessions=6, seed=0, **overrides):
     """(jax model, config, params, batch, word_dict, sessions) of a tiny
-    f32 CARS; one turn clicks more candidates than ``suggest_max_clicks``."""
+    f32 CARS; one turn clicks more candidates than ``suggest_max_clicks``.
+    ``overrides`` replace config fields (e.g. ``rnn_type="gru"``)."""
     sessions = [Session.from_dict(d) for d in generate_sessions(
         n_sessions=n_sessions, n_candidates=8, seed=seed)]
     for d in sessions[0].queries[0].documents[:6]:
@@ -53,7 +54,8 @@ def tiny_setup(n_sessions=6, seed=0):
     streams += [d.tokens for s in sessions for q in s.queries
                 for d in q.documents]
     word_dict = build_dictionary(streams)
-    cfg = default_config("cars").replace(vocab_size=len(word_dict), **DIMS)
+    cfg = default_config("cars").replace(vocab_size=len(word_dict),
+                                        **{**DIMS, **overrides})
     shapes = ShapeConfig(cfg.max_query_len, cfg.max_doc_len,
                          cfg.max_session_len, cfg.num_candidates)
     batch = build_session_batch(sessions, word_dict, shapes,
