@@ -15,7 +15,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    float32 (TF32 off for matmuls and cuDNN) and bfloat16: the LSTM and GRU
    forwards (kernels 1 and 7) and training pairs (4 and 5, 8 and 9) output
    by output, also at a T the time chunk does not divide (kernels 5 and 9
-   must give the same bits twice), kernel 2, kernel 10 (slate pool) at the
+   must give the same bits twice), the LSTM recurrence on precomputed
+   gates (kernel 6, with its autograd Function's gradients), kernel 2, kernel 10 (slate pool) at the
    rank slate and suggest init's row counts with fully masked rows pooling
    to exactly 0 and its autograd Function's gradients, kernel 2's int8
    mode on a quantized table, and ``prune`` on and off and kernel 3
@@ -43,7 +44,18 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    GRUs (beam-5 and greedy ``suggest_batch``, 8 Adam steps, a checkpoint
    -> ``Engine.from_checkpoint`` round trip with equal suggestions); and
    small float32 CARS (LSTM), CARS (GRU) and HRED-QS Engines and train
-   steps card vs CPU.  Every call runs with every launch count set to 0
+   steps card vs CPU; then the doc encoder's two directions as one
+   ``torch.matmul`` projection + kernel 6 (``lstm_precomputed``, held to
+   kernel 1 on the same weights); then the training entry point
+   (``trainer_fit``): ``cli.main.main`` trains CARS on a
+   seeded AOL-scale fixture of 5,120 sessions with a 50,000-word
+   vocabulary (B = 64, the ModelConfig training defaults, beam-5
+   validation on 256 sessions) for 2 epochs, tests, reproduces the test
+   metrics with ``--only_test`` and resumes for one more epoch, then the
+   input pipeline, the training loop, validation and the early exit of
+   the trained decoder are timed; the same once for HRED-QS with GRUs on
+   the first 1,280 sessions (``trainer_fit_hredqs``, 2 epochs).  Every
+   call runs with every launch count set to 0
    just before it and read just after it and must launch exactly the
    kernels ``PATH_KERNELS`` names (``EXACT_LAUNCHES`` times, where fixed);
    each is timed (three steady walls) and profiled once;
@@ -53,11 +65,17 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 
 The last line is ``{"ok": true, "device": {...}}``.  The script needs a
 card: without one it exits non-zero and prints no result.
+
+``python3 chip_smoke.py --only kernel6`` (or ``--only trainer``) runs the
+build and that part alone, for work on it; such a run prints no ``kernels``
+line and no ok line.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import logging
 import math
 import subprocess
 import sys
@@ -170,21 +188,19 @@ LSTM_SHAPES = ((B * S * N, LD), (B * S, LQ), (B * S * MAX_CLICKS, LD),
                (B * S + 13, LQ))
 
 
-def check_forward(gen, rnn: str) -> dict:
-    """Worst bf16 and f32 abs error of the forward kernel of ``rnn``
-    (kernel 1 or 7) over LSTM_SHAPES, both directions: f32 abs (tol 1e-4),
-    bf16 relative to max |plain| (tol 2e-2); masked outputs, fully masked
-    rows included, must be exactly 0."""
-    mod = rnn_kernels(rnn)
-    name = f"{rnn}_fused"
-    kernel, plain = getattr(mod, name), getattr(mod, name + "_reference")
-    inputs = RNNS[rnn][0]
+def forward_errors(name: str, kernel, plain, make_inputs) -> dict:
+    """Worst abs error per dtype of a forward kernel against its plain
+    version over LSTM_SHAPES, both directions: f32 abs (tol 1e-4), bf16
+    relative to max |plain| (tol 2e-2); masked outputs, fully masked rows
+    and the padded steps a reversed walk starts with included, must be
+    exactly 0.  ``make_inputs(dtype, rows, steps) -> (x, mask, weights)``;
+    the kernel is called as ``kernel(x, mask, *weights, reverse)``."""
     out = {}
     for dtype, tol, kind in ((torch.float32, 1e-4, "abs"),
                              (torch.bfloat16, 2e-2, "rel")):
         out[dtype] = 0.0
         for rows, steps in LSTM_SHAPES:
-            (x, *w), mask = inputs(gen, dtype, rows, steps)
+            x, mask, w = make_inputs(dtype, rows, steps)
             worst_abs = worst_rel = 0.0
             for reverse in (False, True):
                 got = kernel(x, mask, *w, reverse).float()
@@ -197,7 +213,7 @@ def check_forward(gen, rnn: str) -> dict:
                 worst_rel = max(worst_rel, err / float(ref.abs().max()))
             worst = worst_abs if kind == "abs" else worst_rel
             log(f"{name} {dtype} [{rows},{steps},{x.shape[2]}]->"
-                f"{w[2].shape[0]} both directions: max abs err "
+                f"{ref.shape[-1]} both directions: max abs err "
                 f"{worst_abs:.3e}, max rel err {worst_rel:.3e} (tol {kind} "
                 f"{tol:g}; masked outputs 0)")
             if not worst <= tol:
@@ -205,6 +221,20 @@ def check_forward(gen, rnn: str) -> dict:
                                      f"{kind} error {worst} > {tol}")
             out[dtype] = max(out[dtype], worst_abs)
     return out
+
+
+def check_forward(gen, rnn: str) -> dict:
+    """The forward kernel of ``rnn`` (kernel 1 or 7) through
+    ``forward_errors``."""
+    mod = rnn_kernels(rnn)
+    name = f"{rnn}_fused"
+
+    def make_inputs(dtype, rows, steps):
+        (x, *w), mask = RNNS[rnn][0](gen, dtype, rows, steps)
+        return x, mask, w
+
+    return forward_errors(name, getattr(mod, name),
+                          getattr(mod, name + "_reference"), make_inputs)
 
 
 # (rows, steps) the training pairs (kernels 4/5, 8/9) see on the main paths
@@ -284,6 +314,47 @@ def check_train_pair(gen, rnn: str) -> dict:
 
 
 GRU_KERNELS = ("gru_fused", "gru_fused_res", "gru_fused_bwd")
+
+
+def recurrence_inputs(gen, dtype, rows=B * S * N, steps=LD, h=NHID):
+    """Kernel 6's operands from ``lstm_inputs``: ``x_proj = x @ W_ih + b``
+    by ``torch.matmul`` (in ``dtype``), the mask, ``w_hh``."""
+    (x, w_ih, b, w_hh), mask = lstm_inputs(gen, dtype, rows, steps, h=h)
+    return (torch.matmul(x, w_ih) + b).contiguous(), mask, w_hh
+
+
+def check_recurrence(gen) -> dict:
+    """Kernel 6 against its plain version through ``forward_errors``, then
+    ``lstm_recurrence``'s gradients (its autograd Function) against
+    autograd of the plain version."""
+    from context_attentive_ir_tpu_torch.ops.kernels.lstm import (
+        lstm_recurrence,
+        lstm_recurrence_fwd,
+        lstm_recurrence_reference,
+    )
+
+    def make_inputs(dtype, rows, steps):
+        xp, mask, w_hh = recurrence_inputs(gen, dtype, rows, steps)
+        return xp, mask, [w_hh]
+
+    out = forward_errors("lstm_recurrence", lstm_recurrence_fwd,
+                         lstm_recurrence_reference, make_inputs)
+
+    xp, mask, w_hh = recurrence_inputs(gen, torch.float32, 40, 9)
+    g = torch.randn((40, 9, NHID), generator=gen, device="cuda")
+    for reverse in (False, True):
+        grads = []
+        for fn in (lstm_recurrence, lstm_recurrence_reference):
+            inputs = [t.clone().requires_grad_() for t in (xp, w_hh)]
+            fn(inputs[0], mask, inputs[1], reverse).backward(g)
+            grads.append([t.grad for t in inputs])
+        gerr = max(float((a - r).abs().max()) for a, r in zip(*grads))
+        log(f"lstm_recurrence [40,9,{4 * NHID}] f32 reverse={reverse}: "
+            f"dx_proj, dw_hh vs autograd of the plain version max abs err "
+            f"{gerr:.3e} (tol 1e-5)")
+        if not gerr <= 1e-5:
+            raise AssertionError("lstm_recurrence gradients disagree")
+    return out
 
 
 def beamgen_inputs(gen, rows, dtype, integer):
@@ -567,8 +638,15 @@ def check_refusals(gen) -> None:
         lstm_fused,
         lstm_fused_bwd,
         lstm_fused_res,
+        lstm_recurrence,
     )
     from context_attentive_ir_tpu_torch.ops.kernels.slate import attn_pool
+
+    def rec_at(h, strided=False):
+        xp, mask, w_hh = recurrence_inputs(gen, torch.float32, 40, 3, h=h)
+        if strided:
+            xp = xp.transpose(0, 1).contiguous().transpose(0, 1)
+        return lstm_recurrence(xp, mask, w_hh)
 
     def lstm_at(e, h):
         (x, w_ih, b, w_hh), mask = lstm_inputs(gen, torch.float32, 40, 3,
@@ -621,6 +699,11 @@ def check_refusals(gen) -> None:
                       lambda: bwd_at(4096, NHID)),
                      ("lstm_fused_bwd H=1024 (threads per block)",
                       lambda: bwd_at(EMSIZE, 1024)),
+                     ("lstm_recurrence H=192 (H % 128)", lambda: rec_at(192)),
+                     ("lstm_recurrence H=640 (threads per block)",
+                      lambda: rec_at(640)),
+                     ("lstm_recurrence strided x_proj (contiguity)",
+                      lambda: rec_at(NHID, strided=True)),
                      *((f"{k} {what}", lambda k=k, e=e, h=h:
                         gru_at(k, e, h))
                        for k in GRU_KERNELS
@@ -649,6 +732,7 @@ def check_refusals(gen) -> None:
     lstm_at(EMSIZE, NHID)
     res_at(EMSIZE, NHID)
     bwd_at(EMSIZE, NHID)
+    rec_at(NHID)
     for k in GRU_KERNELS:
         gru_at(k, EMSIZE, NHID)
     beamgen_at(EMSIZE)
@@ -702,6 +786,7 @@ def counters() -> dict:
             "generator_topk_lse_pipelined": (gen, "launches_pipelined"),
             "lstm_fused_res": (lstm.lstm_fused_res, "launches"),
             "lstm_fused_bwd": (lstm.lstm_fused_bwd, "launches"),
+            "lstm_recurrence": (lstm.lstm_recurrence, "launches"),
             "attn_pool": (slate.attn_pool, "launches"),
             "gru_fused": (gru.gru_fused, "launches"),
             "gru_fused_res": (gru.gru_fused_res, "launches"),
@@ -735,6 +820,12 @@ PATH_KERNELS = {
     "suggest_beam5_hredqs": ("gru_fused",),
     "suggest_greedy_hredqs": ("gru_fused",),
     "train_step_hredqs": ("gru_fused_res", "gru_fused_bwd"),
+    # the doc encoder as one matmul projection + the recurrence kernel
+    "lstm_precomputed": ("lstm_recurrence",),
+    # cli.main: training through kernels 4/5 (8/9), validation and test
+    # through kernel 1 (7) and the logits decode step
+    "trainer_fit": ("lstm_fused", "lstm_fused_res", "lstm_fused_bwd"),
+    "trainer_fit_hredqs": ("gru_fused", "gru_fused_res", "gru_fused_bwd"),
 }
 # exact encoder launches where they are fixed: CARS runs its query and doc
 # encoders (suggest: the clicked docs), two directions each; HRED-QS its
@@ -749,6 +840,7 @@ EXACT_LAUNCHES = {
     "suggest_beam5_hredqs": {"gru_fused": 2},
     "suggest_greedy_hredqs": {"gru_fused": 2},
     "train_step_hredqs": {"gru_fused_res": 2, "gru_fused_bwd": 2},
+    "lstm_precomputed": {"lstm_recurrence": 2},
 }
 
 
@@ -1454,6 +1546,296 @@ def small_model_check() -> None:
                                  "disagrees with the CPU step")
 
 
+def precomputed_path() -> dict:
+    """The CARS doc encoder's two directions at full width (16,000 document
+    rows of a random batch, T = 30, bf16) as one ``torch.matmul`` projection
+    each + ``lstm_recurrence`` (kernel 6), counted; the output is held to
+    kernel 1's on the same weights.  Both compute the same LSTM, but kernel
+    1 rounds ``[x | h]`` to bf16 together and accumulates the gates in f32,
+    while kernel 6 reads a bf16 ``x_proj``: max abs difference <= 2e-2 (the
+    bf16 tolerance; outputs in (-1, 1)), mean <= 5e-4."""
+    from context_attentive_ir_tpu_torch.models.multitask.cars import CARS
+    from context_attentive_ir_tpu_torch.ops.kernels.lstm import (
+        lstm_fused,
+        lstm_recurrence,
+    )
+
+    model = CARS(full_width_config("cars"), device="cuda", seed=0)
+    batch = random_session_batch(np.random.RandomState(11),
+                                 ragged=True).to("cuda")
+    x = model.embeddings(batch.docs.reshape(-1, LD)).contiguous()
+    mask = batch.doc_mask.reshape(-1, LD).contiguous()
+    layer = model.doc_encoder.layer0
+    weights = {d: [getattr(layer, f"{n}_{d}").to(x.dtype).contiguous()
+                   for n in ("w_ih", "b_ih", "w_hh")]
+               for d in ("fwd", "bwd")}
+
+    def encode():
+        outs = []
+        for d, (w_ih, b, w_hh) in weights.items():
+            x_proj = torch.matmul(x, w_ih) + b
+            outs.append(lstm_recurrence(x_proj, mask, w_hh, d == "bwd"))
+        return torch.cat(outs, dim=-1)
+
+    out, launches = counted("lstm_precomputed", encode)
+    ref = torch.cat([lstm_fused(x, mask, *w, d == "bwd")
+                     for d, w in weights.items()], dim=-1)
+    diff = (out.float() - ref.float()).abs()
+    worst, mean = float(diff.max()), float(diff.mean())
+    finite = bool(torch.isfinite(out.float()).all())
+    zeros = bool((out[~mask] == 0).all())
+    log(f"lstm_precomputed: matmul + kernel 6, doc encoder "
+        f"{tuple(x.shape)} -> {tuple(out.shape)} {out.dtype}, launches "
+        f"{json.dumps(launches)}; vs kernel 1 on the same weights: max abs "
+        f"diff {worst:.3e} (tol 2e-2), mean abs diff {mean:.3e} (tol 5e-4); "
+        f"finite={finite}, masked outputs 0: {zeros}")
+    if not (finite and zeros and worst <= 2e-2 and mean <= 5e-4):
+        raise AssertionError("lstm_precomputed disagrees with kernel 1")
+    walls = steady_walls((("lstm_precomputed", encode),))
+    log(f"steady wall ms (3 runs): {json.dumps(walls)}")
+    return {"lstm_precomputed": launches}
+
+
+# -- the training entry point -------------------------------------------------
+
+FIT_TOPICS, FIT_WORDS = 1250, 40   # a 50,000-word vocabulary
+FIT_SESSIONS = {"train": 5120, "dev": 256, "test": 64}
+FIT_EPOCHS = {"cars": 2, "hredqs": 2}
+HRED_SESSIONS = 1280   # HRED-QS trains on the first sessions of the file
+TIMED_STEPS, PROFILED_STEPS = 20, 10
+
+
+def fit_args(model_type: str, files: dict, run_dir: str, *extra) -> list:
+    """The command line of one ``cli.main`` run at the serving widths."""
+    args = ["--model_type", model_type, "--model_dir", run_dir,
+            "--model_name", f"{model_type}_fit", "--batch_size", str(B),
+            "--test_batch_size", str(B), "--emsize", str(EMSIZE), "--nhid",
+            str(NHID), "--nhid_ffnn", str(NHID_FFNN), "--max_query_len",
+            str(LQ), "--max_doc_len", str(LD), "--max_session_len", str(S),
+            "--num_candidates", str(N), "--compute_dtype", "bfloat16",
+            "--beam_size", str(BEAM), "--display_iter", "5",
+            "--test_file", str(files["test"])]
+    if model_type == "hredqs":
+        args += ["--rnn_type", "gru", "--session_rnn_type", "gru",
+                 "--valid_metric", "bleu-1", "--max_examples",
+                 str(HRED_SESSIONS)]
+    return args + list(extra)
+
+
+def trainer_path(model_type: str, files: dict, run_dir: str) -> dict:
+    """``cli.main.main`` at full width for ``model_type``: train with
+    per-epoch official validation, test, ``--only_test``, ``--resume`` for
+    one more epoch; then the Trainer's parts timed on the resumed state.
+    Returns the counted launches of the training run."""
+    from context_attentive_ir_tpu_torch.cli.main import (
+        build_parser,
+        main as cli_main,
+        prepare,
+    )
+    from context_attentive_ir_tpu_torch.constants import EOS
+    from context_attentive_ir_tpu_torch.data import prefetch
+    from context_attentive_ir_tpu_torch.train.trainer import make_iterator
+
+    path = "trainer_fit" if model_type == "cars" else "trainer_fit_hredqs"
+    cars = model_type == "cars"
+    epochs = FIT_EPOCHS[model_type]
+    train = ["--train_file", str(files["train"]), "--dev_file",
+             str(files["dev"])]
+    argv = fit_args(model_type, files, run_dir, *train, "--num_epochs",
+                    str(epochs))
+    runs = Path(run_dir)
+    name = f"{model_type}_fit"
+
+    def dev_of(trainer, sessions):
+        return list(make_iterator(sessions, trainer.config,
+                                  trainer.word_dict, B, shuffle=False,
+                                  seed=0))
+
+    # the untrained model (the run's seed, so its initial weights)
+    _, _, trainer, _, dev_s, _ = prepare(build_parser().parse_args(argv))
+    trainer.init_state()
+    untrained = trainer.validate(dev_of(trainer, dev_s))
+    vocab = len(trainer.word_dict)
+    del trainer
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    res, launches = counted(path, lambda: cli_main(argv))
+    fit_wall = time.perf_counter() - t
+    hist, test = res["fit"]["history"], res["test"]
+    records = [json.loads(line) for line in
+               (runs / f"{name}.metrics.jsonl").read_text().splitlines()]
+    epoch_s = [r["time"] for r in records if r["event"] == "epoch"]
+    log(f"{path}: cli.main trained {model_type} for {len(hist)} epochs + "
+        f"test in {fit_wall:.1f} s; vocabulary {vocab}; launches "
+        f"{json.dumps(launches)}; epoch walls s (train + validation + "
+        f"metrics) {[round(x, 2) for x in epoch_s]}")
+    log(f"{path}: history " + json.dumps(
+        [{k: round(v, 4) for k, v in h.items()} for h in hist]))
+    log(f"{path}: untrained dev " + json.dumps(
+        {k: round(v, 4) for k, v in untrained.items()}))
+    log(f"{path}: test " + json.dumps({k: round(v, 4)
+                                       for k, v in test.items()}))
+
+    if abs(vocab - VOCAB) > VOCAB // 100:
+        raise AssertionError(f"{path}: vocabulary {vocab} is not within 1 % "
+                             f"of {VOCAB}")
+    n_train = FIT_SESSIONS["train"]
+    if cars:
+        steps = epochs * -(-n_train // B)
+    else:
+        from context_attentive_ir_tpu_torch.data import (
+            load_data,
+            suggest_examples,
+        )
+
+        n_ex = len(suggest_examples(load_data(files["train"], LQ, LD, N, S,
+                                              HRED_SESSIONS)))
+        steps = epochs * -(-n_ex // B)
+    fwd, res_k, bwd = PATH_KERNELS[path]
+    per_step = 4 if cars else 2   # encoders x directions
+    if (launches[res_k], launches[bwd]) != (per_step * steps,) * 2:
+        raise AssertionError(f"{path}: {launches[res_k]} / {launches[bwd]} "
+                             f"training-pair launches, not {per_step} a step "
+                             f"for {steps} steps")
+    if len(hist) != epochs or not hist[-1]["train_loss"] < hist[0][
+            "train_loss"]:
+        raise AssertionError(f"{path}: the epoch train loss did not fall")
+    if not all(math.isfinite(v) for h in hist + [test] for v in h.values()):
+        raise AssertionError(f"{path}: non-finite metrics")
+    want = {"bleu-1", "bleu-4", "rouge-l"} | ({"map", "mrr", "ndcg@10"}
+                                              if cars else set())
+    if not want <= set(hist[-1]) or not want <= set(test):
+        raise AssertionError(f"{path}: metric columns missing: "
+                             f"{sorted(hist[-1])}")
+    if cars and not hist[-1]["map"] > untrained["map"]:
+        raise AssertionError(f"{path}: dev MAP {hist[-1]['map']} not above "
+                             f"the untrained model's {untrained['map']}")
+    dumps = [f"{name}.test.hyps.jsonl"] + ([f"{name}.test.ranks.jsonl"]
+                                           if cars else [])
+    for f in (f"{name}.mdl", f"{name}.mdl.checkpoint", *dumps):
+        if not (runs / f).exists():
+            raise AssertionError(f"{path}: {f} was not written")
+    if not all((runs / f).read_text().strip() for f in dumps):
+        raise AssertionError(f"{path}: an empty prediction dump")
+
+    key = "map" if cars else "bleu-1"
+    retest = cli_main(fit_args(model_type, files, run_dir, "--only_test"))
+    log(f"{path}: --only_test {key} {retest['test'][key]} == the run's "
+        f"{test[key]}: {retest['test'][key] == test[key]}")
+    if retest["test"] != test:
+        raise AssertionError(f"{path}: --only_test does not reproduce the "
+                             "test metrics")
+
+    # a resumed run of one more epoch (cli.main's own steps, keeping its
+    # Trainer for the timings below)
+    resume = fit_args(model_type, files, run_dir, *train, "--resume",
+                      "--num_epochs", str(epochs + 1))
+    _, run, trainer, train_s, dev_s, _ = prepare(
+        build_parser().parse_args(resume))
+    more = trainer.fit(train_s, dev_s)["history"]
+    log(f"{path}: --resume for one more epoch continued at epoch "
+        f"{[h['epoch'] for h in more]} (train_loss "
+        f"{[round(h['train_loss'], 4) for h in more]})")
+    if [h["epoch"] for h in more] != [epochs]:
+        raise AssertionError(f"{path}: the resumed run did not continue at "
+                             f"epoch {epochs}")
+
+    # the Trainer's parts on the resumed state
+    dev_batches = dev_of(trainer, dev_s)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    trainer.validate(dev_batches)
+    valid_s = time.perf_counter() - t
+    dec = trainer.decode_fn
+    dec.calls = dec.steps = 0
+    done = rows = 0
+    for b in dev_batches:
+        seqs = dec(b)
+        if cars:
+            valid = (b.target_mask.any(-1) & b.row_mask[:, None]).reshape(-1)
+        else:
+            valid = b.row_mask
+        rows += int(valid.sum())
+        done += int((seqs[valid] == EOS).any(-1).sum())
+    log(f"{path}: validation of {len(dev_s)} dev sessions "
+        f"({len(dev_batches)} batches) {valid_s:.3f} s; beam-{BEAM} decode "
+        f"with early exit: {done}/{rows} hypotheses ended in EOS before "
+        f"max_len ({done / max(rows, 1):.3f}), mean decode steps "
+        f"{dec.steps / max(dec.calls, 1):.2f} of {LQ + 1}, "
+        f"decode_init_full fallbacks {dec.fallbacks}")
+
+    collate = {}
+    for pack in (True, False):
+        t = time.perf_counter()
+        it = make_iterator(train_s, trainer.config, trainer.word_dict, B,
+                           shuffle=True, seed=run.seed, pack=pack)
+        build_s = time.perf_counter() - t
+        t = time.perf_counter()
+        n = sum(1 for _ in zip(range(TIMED_STEPS), it.epoch(0)))
+        collate[pack] = (build_s, (time.perf_counter() - t) / n * 1e3)
+        if pack:
+            train_it = it
+    n_epoch = len(train_it)
+    log(f"{path}: host collate per batch of {B} (mean of {n}): pack_cache on "
+        f"{collate[True][1]:.2f} ms (one-time pack of {n_epoch} batches "
+        f"{collate[True][0]:.2f} s), off {collate[False][1]:.2f} ms")
+
+    def loop(n_steps):   # the train part of Trainer.fit's epoch
+        batches = prefetch(train_it.epoch(epochs + 1), run.prefetch_batches)
+        for _, batch in zip(range(n_steps), batches):
+            trainer.state, _ = trainer.train_step(
+                trainer.state, batch.to(trainer.device), run.seed)
+        batches.close()
+
+    n = min(TIMED_STEPS, n_epoch)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loop(n)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t
+    slots = B * S * N if cars else B
+    log(f"{path}: {n} steps of the Trainer's loop (prefetch "
+        f"{run.prefetch_batches}, pack_cache {run.pack_cache}; an epoch has "
+        f"{n_epoch}): {loop_s:.3f} s = {loop_s / n * 1e3:.1f} ms a step -> "
+        f"{n * slots / loop_s:.0f} trained "
+        f"{'docs' if cars else 'examples'}/s")
+    n = min(PROFILED_STEPS, n_epoch)
+    where_time_goes(f"{path} training loop ({n} steps)", lambda: loop(n))
+    where_time_goes(f"{path} validation", lambda: trainer.validate(
+        dev_batches))
+    del trainer
+    torch.cuda.empty_cache()
+    return {path: launches}
+
+
+def trainer_paths(tmp: str) -> dict:
+    """Seeded AOL-scale fixtures (50,000 words, sessions of 2..S turns, N
+    candidates) under ``tmp``, then ``trainer_path`` for CARS and for
+    HRED-QS."""
+    from context_attentive_ir_tpu_torch.data.synthetic import (
+        write_aol_scale_fixture,
+    )
+
+    t = time.perf_counter()
+    files = {name: write_aol_scale_fixture(
+        Path(tmp) / f"{name}.jsonl", n_sessions=n, n_topics=FIT_TOPICS,
+        words_per_topic=FIT_WORDS, min_turns=2, max_turns=S, n_candidates=N,
+        seed=20 + i) for i, (name, n) in enumerate(FIT_SESSIONS.items())}
+    log(f"trainer fixtures {FIT_SESSIONS} written in "
+        f"{time.perf_counter() - t:.1f} s")
+    launches = {}
+    for model_type in ("cars", "hredqs"):
+        launches.update(trainer_path(model_type, files,
+                                     str(Path(tmp) / "runs")))
+    # cli.main's log handlers (stdout, a file under tmp) end with the phase
+    root = logging.getLogger()
+    for h in list(root.handlers):
+        root.removeHandler(h)
+        h.close()
+    return launches
+
+
 # -- phase 5: times ----------------------------------------------------------
 
 
@@ -1562,6 +1944,40 @@ def time_rnn(gen, rnn: str, launches: dict, fwd_err: float,
         rows_out.append(kernel_row(name, src, line, launches, err, ms[name],
                                    plain_ms[name], lib[name], bnd, by))
     return rows_out
+
+
+def time_recurrence(gen, launches: dict, max_err: float) -> dict:
+    """Kernel 6 at the doc encoder's shape, one direction, bf16: the kernel,
+    the ``torch.matmul`` projection that feeds it, its plain version.  Its
+    bound: x_proj read once and the output written once (bytes), against
+    2*B*T*H*4H flops.  No single PyTorch call runs an LSTM from precomputed
+    gates, so library_ms is null; cuDNN's and kernel 1's times for the
+    whole LSTM stand in the fused kernels' rows."""
+    from context_attentive_ir_tpu_torch.ops.kernels.lstm import (
+        lstm_recurrence_fwd,
+        lstm_recurrence_reference,
+    )
+
+    dtype = torch.bfloat16
+    (x, w_ih, b, w_hh), mask = lstm_inputs(gen, dtype)
+    xp = (torch.matmul(x, w_ih) + b).contiguous()
+    rows, steps, g4 = xp.shape
+    h = g4 // 4
+    with torch.inference_mode():
+        ms = timed_ms(lambda: lstm_recurrence_fwd(xp, mask, w_hh), 5)
+        plain = timed_ms(lambda: lstm_recurrence_reference(xp, mask, w_hh), 3)
+        proj = timed_ms(lambda: torch.matmul(x, w_ih) + b, 5)
+    flops = 2.0 * rows * steps * h * g4
+    n_bytes = ((xp.numel() + rows * steps * h + w_hh.numel()) * 2
+               + mask.numel())
+    bnd, by = bound_ms(flops, n_bytes, dtype)
+    log(f"lstm_recurrence bf16 [{rows},{steps},{g4}]->{h} one direction: "
+        f"kernel {ms:.3f} ms, the matmul projection before it {proj:.3f} ms "
+        f"(together {ms + proj:.3f} ms), plain {plain:.3f} ms, library none "
+        f"(no single PyTorch call), bound {bnd:.4f} ms ({by})")
+    return kernel_row("lstm_recurrence", "lstm_rec.cu", "lstm.py:129",
+                      launches, max_err, ms, plain, None, bnd, by,
+                      matmul_ms=proj)
 
 
 def kernel_row(name: str, src: str, replaces: str, launches: dict,
@@ -1686,6 +2102,10 @@ def card() -> str:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=("kernel6", "trainer"),
+                    help="run the build and this part alone")
+    only = ap.parse_args().only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -1707,7 +2127,20 @@ def main() -> int:
     log("float32 comparisons run with TF32 off "
         "(torch.backends.cuda.matmul.allow_tf32 = "
         "torch.backends.cudnn.allow_tf32 = False)")
+    if only == "kernel6":
+        rec_err = check_recurrence(gen)
+        check_refusals(gen)
+        with torch.inference_mode():
+            launches = precomputed_path()
+        log(json.dumps(time_recurrence(gen, launches,
+                                       rec_err[torch.bfloat16])))
+        return 0
+    if only == "trainer":
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer_paths(tmp)
+        return 0
     fwd_err = {rnn: check_forward(gen, rnn) for rnn in RNNS}
+    rec_err = check_recurrence(gen)
     pair_err = {rnn: check_train_pair(gen, rnn) for rnn in RNNS}
     beam_err = check_beamgen(gen)
     slate_err = check_slate(gen)
@@ -1726,10 +2159,15 @@ def main() -> int:
         launches.update(gru_launches)
         train_ms.update(gru_train_ms)
     small_model_check()
+    with torch.inference_mode():
+        launches.update(precomputed_path())
+    with tempfile.TemporaryDirectory() as tmp:
+        launches.update(trainer_paths(tmp))
 
     kernels = [*(row for rnn in RNNS for row in time_rnn(
                    gen, rnn, launches, fwd_err[rnn][torch.bfloat16],
                    pair_err[rnn])),
+               time_recurrence(gen, launches, rec_err[torch.bfloat16]),
                time_beamgen(gen, launches, beam_err[torch.bfloat16]),
                *time_slate(gen, launches, slate_err[torch.bfloat16]),
                *time_beamgen_modes(gen, launches, beam_err[torch.bfloat16],

@@ -5,7 +5,10 @@ the same fields and defaults, so ``ModelConfig.from_json`` reads a config
 written by the JAX package.  The kernel flags keep their JAX names:
 ``use_pallas_rnn`` selects the port's fused CUDA LSTM or GRU kernels for
 the encoders (``ops/rnn.py``).  ``RANKERS``, ``RECOMMENDERS`` and
-``MULTITASK`` name the model families as in the JAX package.
+``MULTITASK`` name the model families as in the JAX package.  ``RunConfig``
+(the runtime flags of one train / test run) and the argparse bridge
+(``add_config_args``, ``config_from_args``) are copies too, so the same
+command-line flags parse.
 """
 
 from __future__ import annotations
@@ -133,6 +136,52 @@ def override_model_args(saved: ModelConfig, new: ModelConfig) -> ModelConfig:
     return ModelConfig(**merged)
 
 
+@dataclass(frozen=True)
+class RunConfig:
+    """Runtime flags for one train/test run (the reference's runtime
+    argparse group, SURVEY.md SS2.10)."""
+
+    model_dir: str = "runs"
+    model_name: str = "model"
+    batch_size: int = 32
+    test_batch_size: int = 32
+    num_epochs: int = 10
+    display_iter: int = 25
+    valid_metric: str = "map"     # 'map' | 'mrr' | 'bleu-1' | ...
+    early_stop: int = 5           # epochs without improvement
+    seed: int = 1013
+    beam_size: int = 1            # >1 enables beam search at eval
+    max_decode_len: int = 0       # 0 -> max_query_len + 1
+    # beam penalties (reference translator/penalties.py parity, SS2.7)
+    beam_alpha: float = 0.6       # length-penalty strength
+    beam_length_penalty: str = "wu"      # 'wu' | 'avg' | 'none'
+    beam_coverage_beta: float = 0.0      # 0 disables coverage penalty
+    beam_coverage_penalty: str = "wu"    # 'wu' | 'summary'
+    min_decode_len: int = 0       # forbid EOS before this many tokens
+    resume: bool = False          # resume from <name>.mdl.checkpoint
+    pretrained_path: str = ""     # warm-start from another run's best
+    only_test: bool = False
+    max_examples: int = -1
+    async_checkpoint: bool = True
+    native_vectorizer: bool = True  # use native fastvec when buildable
+    tensorboard: bool = False       # also emit tensorboard scalars
+    checkpoint_backend: str = "msgpack"  # 'msgpack' | 'orbax'
+    # session-length buckets for multitask training, e.g. (2, 4, 10):
+    # each bucket compiles its own static shape so short sessions don't
+    # pay max_session_len padding FLOPs; () disables bucketing
+    session_buckets: tuple[int, ...] = ()
+    # host input pipeline (the reference --data_workers analogue,
+    # SURVEY.md SS2.1): vectorize the train set
+    # once and serve batches as row gathers ...
+    pack_cache: bool = True
+    # ... and host-collate this many batches ahead of the device step
+    # (0 disables the prefetch thread)
+    prefetch_batches: int = 2
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)
+
+
 # Per-model flag bundles -- the role of the reference's scripts/*.sh model
 # name -> flags mapping (SURVEY.md SS2.11).
 MODEL_DEFAULTS: dict[str, dict[str, Any]] = {
@@ -167,3 +216,33 @@ def default_config(model_type: str, **overrides) -> ModelConfig:
     kw = dict(MODEL_DEFAULTS[model_type])
     kw.update(overrides)
     return ModelConfig(model_type=model_type, **kw)
+
+
+def add_config_args(parser) -> None:
+    """Attach every ModelConfig field as a ``--flag`` (argparse bridge)."""
+    for f in fields(ModelConfig):
+        name = "--" + f.name
+        if f.type == "bool" or isinstance(f.default, bool):
+            parser.add_argument(name, type=lambda x: x.lower() in
+                                ("1", "true", "yes"), default=None)
+        elif f.name == "filter_widths":
+            parser.add_argument(name, type=lambda s: tuple(
+                int(x) for x in s.split(",")), default=None)
+        else:
+            typ = type(f.default) if f.default is not None else str
+            if f.default is dataclasses.MISSING:
+                typ = str
+            parser.add_argument(name, type=typ, default=None)
+
+
+def config_from_args(args, base: ModelConfig | None = None) -> ModelConfig:
+    overrides = {}
+    for f in fields(ModelConfig):
+        v = getattr(args, f.name, None)
+        if v is not None:
+            overrides[f.name] = v
+    model_type = overrides.pop("model_type",
+                               base.model_type if base else "cars")
+    if base is None:
+        return default_config(model_type, **overrides)
+    return base.replace(model_type=model_type, **overrides)

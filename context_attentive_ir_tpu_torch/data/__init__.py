@@ -1,7 +1,22 @@
-"""Host-side data layer of the port: objects, dictionary, vectorizer."""
+"""Host-side data layer of the port: objects, dictionary, loaders, the
+synthetic fixtures, the vectorizer, the batch iterators and the packed /
+prefetching input pipeline."""
 
+from .dataset import BatchIterator, BucketedIterator
 from .dictionary import Dictionary, build_dictionary
+from .loader import load_data, load_embedding_words, load_embeddings
 from .objects import Document, Query, Session
+from .pipeline import PackedBucketedIterator, PackedIterator, prefetch
+from .synthetic import (
+    ambiguous_vocab,
+    generate_ambiguous_sessions,
+    generate_sessions,
+    generate_suggestion_sessions,
+    write_ambiguous_fixture,
+    write_fixture,
+    write_glove_fixture,
+    write_suggestion_fixture,
+)
 from .vectorize import (
     SessionBatch,
     ShapeConfig,
@@ -9,10 +24,17 @@ from .vectorize import (
     build_session_batch,
     build_suggest_batch,
     shapes_from_config,
+    suggest_examples,
 )
 
 __all__ = [
-    "Dictionary", "build_dictionary", "Document", "Query", "Session",
-    "SessionBatch", "ShapeConfig", "SuggestBatch", "build_session_batch",
-    "build_suggest_batch", "shapes_from_config",
+    "BatchIterator", "BucketedIterator", "Dictionary", "build_dictionary",
+    "load_data", "load_embedding_words", "load_embeddings", "Document",
+    "Query", "Session", "PackedBucketedIterator", "PackedIterator",
+    "prefetch", "ambiguous_vocab", "generate_ambiguous_sessions",
+    "generate_sessions", "generate_suggestion_sessions",
+    "write_ambiguous_fixture", "write_fixture", "write_glove_fixture",
+    "write_suggestion_fixture", "SessionBatch", "ShapeConfig",
+    "SuggestBatch", "build_session_batch", "build_suggest_batch",
+    "shapes_from_config", "suggest_examples",
 ]

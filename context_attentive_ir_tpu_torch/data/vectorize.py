@@ -154,6 +154,16 @@ def _encode_target(q: Query, word_dict: Dictionary, length: int):
     return tin, tout, tmask
 
 
+def suggest_examples(sessions: list[Session]
+                     ) -> list[tuple[list[Query], Query, Query]]:
+    """(context queries incl. current, current query, next query) triples."""
+    out = []
+    for s in sessions:
+        for t in range(len(s.queries) - 1):
+            out.append((s.queries[: t + 1], s.queries[t], s.queries[t + 1]))
+    return out
+
+
 def build_suggest_batch(examples: list[tuple[list[Query], Query, Query]],
                         word_dict: Dictionary, shapes: ShapeConfig,
                         batch_size: int | None = None) -> SuggestBatch:

@@ -9,8 +9,11 @@ breaks ties toward the lower index, as ``lax.top_k`` does (a stable
 descending sort).
 
 Step functions return ``(state, logits [B*K, V])`` (normalised in-loop by a
-logsumexp) or, in the fused-generator mode, ``(state, (vals [B*K, Kc],
-idx [B*K, Kc], lse [B*K]))`` from ``ops/kernels/beamgen.py``.
+logsumexp), optionally with their attention as a third value ``attn
+[B*K, L]``, or, in the fused-generator mode, ``(state, (vals [B*K, Kc],
+idx [B*K, Kc], lse [B*K]))`` from ``ops/kernels/beamgen.py``.  With
+attention exposed and ``coverage_beta > 0`` the accumulated coverage is
+penalised at ranking time (``penalties.COVERAGE_PENALTIES``).
 
 ``early_exit`` breaks out of the step loop once every beam of every row is
 finished.  That is exactly the JAX identity step (``beam.py`` frozen
@@ -26,7 +29,7 @@ import torch
 
 from ..constants import BOS, EOS, PAD
 from ..ops.masking import NEG_INF
-from .penalties import LENGTH_PENALTIES
+from .penalties import COVERAGE_PENALTIES, LENGTH_PENALTIES
 
 StepFn = Callable[..., tuple]
 
@@ -70,11 +73,17 @@ def _gather_beams(tree, parent: torch.Tensor, batch_size: int,
 def beam_search(step_fn: StepFn, init_state, batch_size: int, max_len: int,
                 beam_size: int = 5, alpha: float = 0.6,
                 return_nbest: bool = False, min_length: int = 0,
-                length_penalty: str = "wu", early_exit: bool = False):
+                length_penalty: str = "wu", coverage_beta: float = 0.0,
+                coverage_penalty: str = "wu",
+                cov_mask: torch.Tensor | None = None,
+                early_exit: bool = False):
     """Returns (best tokens [B, max_len], best score [B]); with
     ``return_nbest`` the full beams ([B, K, max_len], [B, K]) sorted by
     normalised score.  ``init_state`` holds ``[B, ...]`` leaves and is tiled
-    here.  ``min_length`` forbids EOS before that many real tokens."""
+    here.  ``min_length`` forbids EOS before that many real tokens.
+    ``cov_mask [B, L]`` marks the real source positions for the coverage
+    term (all of them when None); the fused-generator mode exposes no
+    attention and takes no coverage penalty."""
     B, K = batch_size, beam_size
     state = tree_map(lambda x: x.repeat_interleave(K, dim=0), init_state)
     dev = next(tree_leaves(state)).device
@@ -84,6 +93,7 @@ def beam_search(step_fn: StepFn, init_state, batch_size: int, max_len: int,
     finished = torch.zeros((B, K), dtype=torch.bool, device=dev)
     lengths = torch.zeros((B, K), dtype=torch.long, device=dev)
     seqs = torch.full((B, K, max_len), PAD, dtype=torch.long, device=dev)
+    cov = None   # [B, K, L] once a logits step has exposed its attention
 
     for t in range(max_len):
         if early_exit and bool(finished.all()):
@@ -122,6 +132,13 @@ def beam_search(step_fn: StepFn, init_state, batch_size: int, max_len: int,
         finished_p = torch.gather(finished, 1, parent)
         still = ~finished_p
         lengths = torch.gather(lengths, 1, parent) + still.long()
+        if (coverage_beta > 0 and len(out) == 3
+                and not isinstance(out[1], (tuple, list))):
+            attn = out[2].reshape(B, K, -1).float()
+            if cov is None:
+                cov = torch.zeros_like(attn)
+            cov = torch.gather(cov, 1, parent[..., None].expand_as(cov))
+            cov = cov + attn * still[..., None]
         finished = finished_p | (tok == EOS)
         seqs = torch.gather(seqs, 1, parent[..., None].expand(B, K, max_len))
         seqs[:, :, t] = torch.where(still, tok, PAD)
@@ -129,6 +146,11 @@ def beam_search(step_fn: StepFn, init_state, batch_size: int, max_len: int,
 
     norm = logps / LENGTH_PENALTIES[length_penalty](lengths.clamp_min(1),
                                                     alpha)
+    if cov is not None:
+        mask = (torch.ones_like(cov, dtype=torch.bool) if cov_mask is None
+                else cov_mask[:, None, :])
+        norm = norm + COVERAGE_PENALTIES[coverage_penalty](cov, mask,
+                                                           coverage_beta)
     ranked = norm + finished.float() * 1e4
     if return_nbest:
         order = torch.argsort(-ranked, dim=-1, stable=True)     # [B, K]

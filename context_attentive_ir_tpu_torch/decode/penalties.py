@@ -1,11 +1,11 @@
 """Beam-search penalties.
 
-Wu et al. (GNMT) and average length penalties (the reference's
-OpenNMT-style ``translator/penalties.py``).
+Wu et al. (GNMT) and average length penalties, Wu and summary coverage
+penalties (the reference's OpenNMT-style ``translator/penalties.py``).
+``beam_search`` applies a coverage penalty when the step function exposes
+its attention weights.
 
-Port of ``context_attentive_ir_tpu/decode/penalties.py`` (length
-penalties; the coverage penalties wait for a step mode that exposes
-attention).
+Port of ``context_attentive_ir_tpu/decode/penalties.py``.
 """
 
 from __future__ import annotations
@@ -34,4 +34,31 @@ LENGTH_PENALTIES = {
     "wu": length_wu,
     "avg": length_average,
     "none": length_none,
+}
+
+
+def coverage_wu(coverage: torch.Tensor, mask: torch.Tensor,
+                beta: float = 0.0) -> torch.Tensor:
+    """GNMT coverage penalty: beta * sum_j log(min(cov_j, 1)).
+
+    coverage [..., L] is the attention mass accumulated per source
+    position; mask [..., L] marks real source tokens.  Returns a value to
+    add to the hypothesis score (it is <= 0: hypotheses that ignore source
+    tokens are penalized).
+    """
+    logs = torch.log(coverage.clamp(1e-6, 1.0)) * mask.to(coverage.dtype)
+    return beta * logs.sum(dim=-1)
+
+
+def coverage_summary(coverage: torch.Tensor, mask: torch.Tensor,
+                     beta: float = 0.0) -> torch.Tensor:
+    """OpenNMT 'summary' coverage: -beta * (sum_j max(cov_j, 1) - L)."""
+    m = mask.to(coverage.dtype)
+    over = (coverage.clamp_min(1.0) * m).sum(dim=-1) - m.sum(dim=-1)
+    return -beta * over
+
+
+COVERAGE_PENALTIES = {
+    "wu": coverage_wu,
+    "summary": coverage_summary,
 }

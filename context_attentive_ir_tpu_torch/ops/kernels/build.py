@@ -34,6 +34,7 @@ SIGNATURES = {
     "cair_lstm_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
                       _I),
     "cair_lstm_fwd_res": ([_P] * 8 + [_I] * 7 + [_P], _I),
+    "cair_lstm_rec": ([_P] * 4 + [_I] * 5 + [_P], _I),
     "cair_lstm_bwd_workspace": ([_I] * 6, ctypes.c_longlong),
     "cair_lstm_bwd": ([_P] * 15 + [_I] * 7 + [_P], _I),
     "cair_gru_fwd": ([_P] * 7 + [_I] * 6 + [_P], _I),

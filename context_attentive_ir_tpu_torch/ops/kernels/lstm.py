@@ -1,5 +1,6 @@
 """Fused masked LSTM kernels: forward (kernel 1), training forward with
-chunk-boundary residuals (kernel 4), chunked-remat backward (kernel 5).
+chunk-boundary residuals (kernel 4), chunked-remat backward (kernel 5), and
+the recurrence on precomputed gates (kernel 6, at the end of the file).
 Each has its CUDA launcher, its plain PyTorch version and a launch count.
 
 Kernel 1, ``lstm_fused``, replaces the TPU kernel ``_lstm_fused_kernel``
@@ -349,3 +350,132 @@ def lstm_fused_train(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
     through kernels 4 and 5 (their plain versions on CPU tensors)."""
     return LSTMFusedTrain.apply(x, mask, w_ih, b, w_hh, reverse, time_chunk,
                                 device)
+
+
+# -- kernel 6: the recurrence on precomputed gates ---------------------------
+#
+# ``lstm_recurrence`` replaces the TPU kernel ``_lstm_kernel``
+# (``_lstm_pallas_fwd_impl``, the ``lstm_pallas`` forward): the input
+# projection ``x @ W_ih + b`` is one matmul outside, the kernel
+# (``csrc/lstm_rec.cu``) reads it as ``x_proj [B, T, 4H]`` and runs the serial
+# part.  Bound on the H100 at the doc-encoder shape (B = 16000, T = 30,
+# H = 128, bf16): 614 MB read and written, 0.18 ms at 3.35 TB/s, against
+# 6.3e10 flops (0.064 ms): bound by bytes.
+
+def lstm_recurrence_reference(x_proj: torch.Tensor, mask: torch.Tensor,
+                              w_hh: torch.Tensor,
+                              reverse: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of kernel 6: a masked time loop from a zero
+    state on gates ``f32(x_proj[:, t]) + h @ W_hh``, h rounded to
+    ``w_hh``'s dtype before the product, f32 gates and state.  Returns
+    ``out [B, T, H]`` in ``x_proj``'s dtype, zero where ``mask`` is False."""
+    B, T, G = x_proj.shape
+    H = G // 4
+    whh = w_hh.float()
+    h = torch.zeros((B, H), dtype=torch.float32, device=x_proj.device)
+    c = torch.zeros_like(h)
+    outs = [None] * T
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        gates = x_proj[:, t].float() + h.to(w_hh.dtype).float() @ whh
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        m = mask[:, t, None]
+        h = torch.where(m, h_new, h)
+        c = torch.where(m, c_new, c)
+        outs[t] = h * m
+    return torch.stack(outs, dim=1).to(x_proj.dtype)
+
+
+def _check_rec_args(x_proj, mask, w_hh):
+    """Dtype, shape and contiguity checks of kernel 6's launcher; returns
+    (B, T, H)."""
+    if x_proj.dtype not in _DTYPES or w_hh.dtype != x_proj.dtype:
+        raise TypeError("lstm_recurrence: x_proj and w_hh must share one "
+                        f"dtype, float32 or bfloat16; got {x_proj.dtype}, "
+                        f"{w_hh.dtype}")
+    if mask.dtype != torch.bool:
+        raise TypeError(f"lstm_recurrence: mask must be bool, got "
+                        f"{mask.dtype}")
+    if x_proj.dim() != 3:
+        raise ValueError("lstm_recurrence: x_proj must be [B, T, 4H], got "
+                         f"{tuple(x_proj.shape)}")
+    B, T, G = x_proj.shape
+    H = G // 4
+    if (G != 4 * H or tuple(mask.shape) != (B, T)
+            or tuple(w_hh.shape) != (H, G)):
+        raise ValueError(
+            f"lstm_recurrence: shapes x_proj {tuple(x_proj.shape)}, mask "
+            f"{tuple(mask.shape)}, w_hh {tuple(w_hh.shape)} do not form one "
+            "LSTM")
+    if H % 128 != 0:
+        raise ValueError("lstm_recurrence: the kernel needs a hidden size "
+                         f"that is a multiple of 128, got H={H}")
+    if not all(t.is_contiguous() for t in (x_proj, mask, w_hh)):
+        raise ValueError("lstm_recurrence needs contiguous tensors")
+    return B, T, H
+
+
+def lstm_recurrence_fwd(x_proj: torch.Tensor, mask: torch.Tensor,
+                        w_hh: torch.Tensor, reverse: bool = False,
+                        device="cuda") -> torch.Tensor:
+    """Kernel 6 without a gradient: launches ``cair_lstm_rec`` on CUDA
+    tensors, runs ``lstm_recurrence_reference`` on CPU tensors
+    (``device="cpu"``)."""
+    dev = resolve_device(device)
+    check_on(dev, x_proj, mask, w_hh)
+    if dev.type == "cpu":
+        return lstm_recurrence_reference(x_proj, mask, w_hh, reverse)
+    if dev.type != "cuda":
+        raise ValueError(f"lstm_recurrence runs on cuda or cpu, not {dev}")
+    B, T, H = _check_rec_args(x_proj, mask, w_hh)
+    out = torch.empty((B, T, H), dtype=x_proj.dtype, device=x_proj.device)
+    from .build import check, load_library
+
+    # the launcher reports a hidden size its block cannot hold
+    check(load_library().cair_lstm_rec(
+        x_proj.data_ptr(), mask.data_ptr(), w_hh.data_ptr(), out.data_ptr(),
+        B, T, H, int(reverse), _DTYPES[x_proj.dtype], _stream(x_proj)),
+        "cair_lstm_rec")
+    lstm_recurrence.launches += 1
+    return out
+
+
+class LSTMRecurrenceFn(torch.autograd.Function):
+    """Differentiable kernel 6: ``lstm_recurrence_fwd`` forward; the backward
+    replays autograd of ``lstm_recurrence_reference`` on the saved inputs
+    (the JAX ``lstm_pallas`` custom_vjp, whose ``_bwd`` takes ``jax.vjp`` of
+    the reference) and returns ``(dx_proj, None, dw_hh)``."""
+
+    @staticmethod
+    def forward(ctx, x_proj, mask, w_hh, reverse, device):
+        ctx.save_for_backward(x_proj, mask, w_hh)
+        ctx.reverse = reverse
+        return lstm_recurrence_fwd(x_proj, mask, w_hh, reverse, device)
+
+    @staticmethod
+    def backward(ctx, g):
+        x_proj, mask, w_hh = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_() for t in (x_proj, w_hh)]
+        with torch.enable_grad():
+            out = lstm_recurrence_reference(inputs[0], mask, inputs[1],
+                                            ctx.reverse)
+        dxp, dwhh = torch.autograd.grad(out, inputs, g.to(out.dtype))
+        return dxp, None, dwhh, None, None
+
+
+def lstm_recurrence(x_proj: torch.Tensor, mask: torch.Tensor,
+                    w_hh: torch.Tensor, reverse: bool = False,
+                    device="cuda") -> torch.Tensor:
+    """x_proj [B, T, 4H] (``x @ W_ih + b``, gate order i, f, g, o), mask bool
+    [B, T], w_hh [H, 4H] (one dtype, float32 or bfloat16; H a multiple of
+    128) -> h [B, T, H] in that dtype, from a zero state.
+
+    The counterpart of the JAX ``lstm_pallas``: kernel 6 on CUDA tensors,
+    its plain version on CPU tensors (``device="cpu"``), differentiable in
+    ``x_proj`` and ``w_hh`` (``LSTMRecurrenceFn``).  ``launches`` counts the
+    kernel's launches."""
+    return LSTMRecurrenceFn.apply(x_proj, mask, w_hh, reverse, device)
+
+
+lstm_recurrence.launches = 0

@@ -127,3 +127,86 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                          cwd=tmp_path)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+# the training entry point's modules: each must exist, and importing all of
+# them must load neither JAX nor the JAX package
+TRAINER_MODULES = (
+    "cli.main", "config", "data.dataset", "data.loader", "data.pipeline",
+    "data.synthetic", "decode.penalties", "eval.bleu", "eval.rank_metrics",
+    "eval.rouge", "eval.text_metrics", "train.evaluate", "train.trainer",
+    "utils.logging", "utils.meters",
+)
+
+
+@pytest.mark.parametrize("module", TRAINER_MODULES)
+def test_trainer_module_imports_no_jax(module):
+    path = ROOT / "context_attentive_ir_tpu_torch" / (
+        module.replace(".", "/") + ".py")
+    assert path.is_file(), path
+    assert path in _port_sources()
+    bad = [m for m in _imports(path) if _banned(m)]
+    assert not bad, bad
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import sys, importlib\n"
+        f"mods = {TRAINER_MODULES!r}\n"
+        "for m in mods + ('serve', 'ops.kernels.lstm'):\n"
+        "    importlib.import_module('context_attentive_ir_tpu_torch.' + m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'context_attentive_ir_tpu')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_new_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    from context_attentive_ir_tpu_torch.cli.main import main
+    from context_attentive_ir_tpu_torch.config import RunConfig
+    from context_attentive_ir_tpu_torch.train import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, wd = _tiny()
+    xp = torch.zeros(2, 3, 512)
+    mask = torch.ones(2, 3, dtype=torch.bool)
+    train = tmp_path / "t.jsonl"
+    train.write_text("")
+    for call in (lambda: Trainer(cfg, RunConfig(model_dir=str(tmp_path)),
+                                 wd),
+                 lambda: lstm.lstm_recurrence(xp, mask,
+                                              torch.zeros(128, 512)),
+                 lambda: main(["--train_file", str(train), "--model_dir",
+                               str(tmp_path), "--vocab_size", "40"])):
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
+
+
+def test_decode_steps_return_the_alignment():
+    """The coverage penalty reads the third value of a logits step: CARS
+    and HRED-QS return their attention over the memory (as the JAX models
+    do), rows summing to 1 over the valid positions."""
+    from context_attentive_ir_tpu_torch.models import build_model
+
+    tiny, _ = _tiny()
+    dims = {f: getattr(tiny, f) for f in (
+        "vocab_size", "emsize", "nhid", "nhid_ffnn", "max_query_len",
+        "max_doc_len", "max_session_len", "num_candidates", "dropout",
+        "dropout_emb", "dropout_rnn")}
+    mask = torch.tensor([[1, 1, 1, 0, 0], [1, 1, 1, 1, 1], [1, 0, 0, 0, 0]],
+                        dtype=torch.bool)
+    for model_type, rnn in (("cars", "lstm"), ("hredqs", "gru")):
+        cfg = default_config(model_type).replace(rnn_type=rnn, **dims)
+        model = build_model(cfg, device="cpu", seed=0)
+        memory = torch.randn(3, 5, 2 * cfg.nhid)
+        state = model.decoder.init_state(3)
+        out = model.decode_step(state, torch.full((3,), 5), memory, mask)
+        assert len(out) == 3
+        logits, align = out[1], out[2]
+        assert tuple(logits.shape) == (3, cfg.vocab_size)
+        assert tuple(align.shape) == (3, 5)
+        assert torch.allclose(align.sum(-1), torch.ones(3), atol=1e-5)
+        assert float(align[~mask].abs().max()) == 0.0
