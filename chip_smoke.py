@@ -15,13 +15,17 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    float32 (TF32 off for matmuls and cuDNN) and bfloat16: the LSTM and GRU
    forwards (kernels 1 and 7) and training pairs (4 and 5, 8 and 9) output
    by output, also at a T the time chunk does not divide (kernels 5 and 9
-   must give the same bits twice), the LSTM recurrence on precomputed
+   must give the same bits twice), the LSTM pair in bfloat16 also at the
+   shapes that stress its tensor-core tiles (rows 1, 33 and 16,001, E = 300
+   with H = 100, H = 8, T = 1, T = 17, H = 64, 256 and 384; kernel 4's
+   output must be kernel 1's bits), the LSTM recurrence on precomputed
    gates (kernel 6, with its autograd Function's gradients), kernel 2, kernel 10 (slate pool) at the
    rank slate and suggest init's row counts with fully masked rows pooling
    to exactly 0 and its autograd Function's gradients, kernel 2's int8
    mode on a quantized table, and ``prune`` on and off and kernel 3
    (pipelined) against kernel 2, which must give the same bits; then
-   shapes a kernel cannot hold must be refused;
+   shapes a kernel cannot hold must be refused, and ``fused_supported``
+   must say what the LSTM launchers take;
 4. the main paths at full width: CARS at the serving widths (vocab
    50,000, emsize 256, nhid 128, nhid_ffnn 256, S=5, N=50, Lq=15, Ld=30,
    bf16, seeded random weights) behind ``serve.Engine``: ``rank_batch``
@@ -66,9 +70,17 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 The last line is ``{"ok": true, "device": {...}}``.  The script needs a
 card: without one it exits non-zero and prints no result.
 
-``python3 chip_smoke.py --only kernel6`` (or ``--only trainer``) runs the
-build and that part alone, for work on it; such a run prints no ``kernels``
-line and no ok line.
+``python3 chip_smoke.py --only PHASE[,PHASE...]`` runs the build and those
+phases alone, for work on them: ``kernels`` (every kernel against its plain
+version, the refusals, the timing rows), ``lstm`` (kernels 1, 4, 5 and 6
+alone: checks and timing rows), ``serving`` (``rank_batch``, beam-5 and
+greedy ``suggest_batch``), ``train`` (the CARS train steps and the
+checkpoint round trip), ``indexed`` (the rest of serving; runs ``train``
+first for its checkpoint), ``gru`` (CARS-GRU and HRED-QS), ``small`` (the
+small float32 models card vs CPU), ``kernel6`` (``lstm_precomputed``),
+``trainer`` (``cli.main`` for CARS and HRED-QS).  Every phase prints its
+seconds.  Such a run prints its kernel rows as a "partial run" line and no
+ok line.
 """
 
 from __future__ import annotations
@@ -140,7 +152,8 @@ def lstm_inputs(gen, dtype, rows=B * S * N, steps=LD, e=EMSIZE, h=NHID):
     w_hh = torch.randn((h, 4 * h), generator=gen, device=dev) * 0.08
     lens = torch.randint(0, steps + 1, (rows,), generator=gen, device=dev)
     lens[0] = steps
-    lens[1] = 0
+    if rows > 1:
+        lens[1] = 0
     mask = torch.arange(steps, device=dev)[None, :] < lens[:, None]
     return [t.to(dtype) for t in (x, w_ih, b, w_hh)], mask
 
@@ -245,16 +258,17 @@ TRAIN_SHAPES = ((B * S * N, LD), (B * S, LQ), (B * S * N + 7, LD),
                 (B * S + 13, LQ), (333, 17))
 
 
-def pair_errors(gen, rnn: str, dtype, rows, steps, reverse) -> dict:
+def pair_errors(gen, rnn: str, dtype, rows, steps, reverse, **widths) -> dict:
     """The training pair of ``rnn`` against its plain versions on the same
     inputs (the backward kernel and its plain version both read the
     residual kernel's boundary state): per output, (max abs error, max abs
     error / max |plain|).  The backward kernel must give the same bits
-    twice (no atomics)."""
+    twice (no atomics), and kernel 4's output must be kernel 1's bits.
+    ``widths``: ``e`` and ``h`` other than the main path's."""
     mod = rnn_kernels(rnn)
     inputs, names = RNNS[rnn]
     res, bwd = f"{rnn}_fused_res", f"{rnn}_fused_bwd"
-    (x, *w), mask = inputs(gen, dtype, rows, steps)
+    (x, *w), mask = inputs(gen, dtype, rows, steps, **widths)
     fwd = getattr(mod, res)(x, mask, *w, reverse, TIME_CHUNK)
     ref = getattr(mod, res + "_reference")(x, mask, *w, reverse, TIME_CHUNK)
     out, state = fwd[0], fwd[1:]
@@ -269,6 +283,13 @@ def pair_errors(gen, rnn: str, dtype, rows, steps, reverse) -> dict:
         raise AssertionError(f"{res}: masked outputs not zero")
     if not same_bits(got_b, again):
         raise AssertionError(f"{bwd}: two runs differ")
+    if rnn == "lstm":
+        # kernel 4 is kernel 1 plus the boundaries: the same output bits
+        with torch.no_grad():
+            alone = mod.lstm_fused(x, mask, *w, reverse)
+        if not same_bits((alone,), (out,)):
+            raise AssertionError("lstm_fused_res: output bits differ from "
+                                 "lstm_fused's")
     errs = {}
     for name, g, r in zip(names, (*fwd, *got_b), (*ref, *ref_b)):
         err = float((g.float() - r.float()).abs().max())
@@ -311,6 +332,63 @@ def check_train_pair(gen, rnn: str) -> dict:
                     kernel = res if i < n_res else bwd
                     worst[kernel][dtype] = max(worst[kernel][dtype], a)
     return worst
+
+
+# (rows, steps, E, H) that stress the bf16 tensor-core tiles of kernels 1, 4
+# and 5: rows off the 64-row block (1, 33, 16,001), E and H that are not
+# multiples of 32 (zero-padded by the wrapper), T = 1, a T the time chunk
+# does not divide, and the hidden sizes of each block layout (H <= 64, 128,
+# 256, above)
+TILE_SHAPES = ((1, LD, EMSIZE, NHID), (33, LD, EMSIZE, NHID),
+               (B * S * N + 1, LD, EMSIZE, NHID), (70, 7, 300, 100),
+               (70, 7, 64, 8), (40, 1, EMSIZE, NHID), (130, 17, EMSIZE, NHID),
+               (200, 9, 64, 64), (100, 8, EMSIZE, 256), (50, 7, 128, 384))
+
+
+def check_lstm_tiles(gen) -> dict:
+    """Kernels 1, 4 and 5 in bf16 over TILE_SHAPES, both directions, each
+    output against its plain version (rel 2e-2); masked outputs (rows whose
+    mask is all False included) exactly 0, kernel 5 the same bits twice,
+    kernel 4's output kernel 1's bits.  Returns the worst max abs error of
+    the residual kernel and of the backward."""
+    dtype = torch.bfloat16
+    tol = PAIR_TOL[dtype]
+    worst = {"lstm_fused_res": 0.0, "lstm_fused_bwd": 0.0}
+    for rows, steps, e, h in TILE_SHAPES:
+        for reverse in (False, True):
+            errs = pair_errors(gen, "lstm", dtype, rows, steps, reverse,
+                               e=e, h=h)
+            log(f"lstm tiles bf16 [{rows},{steps},{e}]->{h} "
+                f"{'reverse' if reverse else 'forward'}: " +
+                ", ".join(f"{k} {a:.2e} ({r:.2e})"
+                          for k, (a, r) in errs.items()) +
+                f" (abs (rel); tol rel {tol:g}; kernel 5 same bits twice, "
+                "kernel 4 = kernel 1 bits)")
+            bad = {k: r for k, (_, r) in errs.items() if not r <= tol}
+            if bad:
+                raise AssertionError(f"lstm tiles [{rows},{steps},{e}]->{h} "
+                                     f"reverse={reverse}: {bad} > {tol}")
+            for i, (a, _) in enumerate(errs.values()):
+                k = "lstm_fused_res" if i < 3 else "lstm_fused_bwd"
+                worst[k] = max(worst[k], a)
+    return worst
+
+
+def tile_note() -> str:
+    """The mma flavour and shared-memory bytes of the redesigned kernels at
+    the main path's widths."""
+    from context_attentive_ir_tpu_torch.ops.kernels.lstm import (
+        tile_smem_bytes,
+    )
+
+    return (f"tiles at E={EMSIZE} H={NHID} bf16: lstm_fused / lstm_fused_res "
+            "mma.sync.m16n8k16 (bf16 in, f32 accumulate) + ldmatrix + a "
+            "cp.async.bulk / mbarrier weight ring, "
+            f"{tile_smem_bytes(EMSIZE, NHID)} bytes of "
+            "dynamic shared memory a block of 64 rows; lstm_fused_bwd phase "
+            f"A the same, {tile_smem_bytes(EMSIZE, NHID, backward=True)} "
+            "bytes; phase B (dW, shared with gru_fused_bwd) mma.sync."
+            "m16n8k16 + ldmatrix.trans, 69632 bytes a 128 x 128 tile")
 
 
 GRU_KERNELS = ("gru_fused", "gru_fused_res", "gru_fused_bwd")
@@ -635,6 +713,7 @@ def check_refusals(gen) -> None:
         gru_fused_res,
     )
     from context_attentive_ir_tpu_torch.ops.kernels.lstm import (
+        fused_supported,
         lstm_fused,
         lstm_fused_bwd,
         lstm_fused_res,
@@ -648,22 +727,46 @@ def check_refusals(gen) -> None:
             xp = xp.transpose(0, 1).contiguous().transpose(0, 1)
         return lstm_recurrence(xp, mask, w_hh)
 
-    def lstm_at(e, h):
-        (x, w_ih, b, w_hh), mask = lstm_inputs(gen, torch.float32, 40, 3,
-                                               e=e, h=h)
+    def lstm_at(e, h, dtype=torch.float32):
+        (x, w_ih, b, w_hh), mask = lstm_inputs(gen, dtype, 40, 3, e=e, h=h)
         return lstm_fused(x, mask, w_ih, b, w_hh)
 
-    def res_at(e, h):
-        (x, w_ih, b, w_hh), mask = lstm_inputs(gen, torch.float32, 40, 3,
-                                               e=e, h=h)
+    def res_at(e, h, dtype=torch.float32):
+        (x, w_ih, b, w_hh), mask = lstm_inputs(gen, dtype, 40, 3, e=e, h=h)
         return lstm_fused_res(x, mask, w_ih, b, w_hh)
 
-    def bwd_at(e, h):
-        (x, w_ih, b, w_hh), mask = lstm_inputs(gen, torch.float32, 40, 3,
-                                               e=e, h=h)
+    def bwd_at(e, h, dtype=torch.float32):
+        (x, w_ih, b, w_hh), mask = lstm_inputs(gen, dtype, 40, 3, e=e, h=h)
         hb = torch.zeros((1, 40, h), device="cuda")
         return lstm_fused_bwd(x, mask, w_ih, b, w_hh, hb, hb,
-                              torch.zeros((40, 3, h), device="cuda"))
+                              torch.zeros((40, 3, h), device="cuda",
+                                          dtype=dtype))
+
+    # fused_supported states the launchers' limits: a shape it accepts runs
+    # through all three kernels, one it rejects is refused by the backward
+    # (whose tiles are the largest)
+    bf16 = torch.bfloat16
+    for e, h, dtype in ((448, NHID, bf16), (512, NHID, bf16),
+                        (512, 256, bf16), (EMSIZE, 512, bf16),
+                        (64, 512, bf16), (300, 100, bf16),
+                        (1400, NHID, torch.float32),
+                        (1500, NHID, torch.float32),
+                        (EMSIZE, 512, torch.float32)):
+        ok = fused_supported(e, h, 40, dtype)
+        try:
+            lstm_at(e, h, dtype) if ok else None
+            res_at(e, h, dtype) if ok else None
+            bwd_at(e, h, dtype)
+            torch.cuda.synchronize()
+            ran = True
+        except RuntimeError as err:
+            ran, why = False, err
+        log(f"fused_supported(E={e}, H={h}, {dtype}) = {ok}; the kernels "
+            + ("ran" if ran else f"refused: {why}"))
+        if ran != ok:
+            raise AssertionError(f"fused_supported(E={e}, H={h}, {dtype}) "
+                                 f"= {ok} but the kernels "
+                                 f"{'ran' if ran else 'refused'}")
 
     def gru_at(kernel, e, h):
         (x, *w), mask = gru_inputs(gen, torch.float32, 40, 3, e=e, h=h)
@@ -687,18 +790,38 @@ def check_refusals(gen) -> None:
         (s, q, w, b), mask = slate_inputs(gen, torch.float32, rows, 3, h=h)
         return attn_pool(s, mask, q, w, b)
 
-    for name, fn in (("lstm_fused E=4096 (shared tile)",
-                      lambda: lstm_at(4096, NHID)),
-                     ("lstm_fused H=1024 (threads per block)",
-                      lambda: lstm_at(EMSIZE, 1024)),
-                     ("lstm_fused_res E=4096 (shared tile)",
-                      lambda: res_at(4096, NHID)),
-                     ("lstm_fused_res H=1024 (threads per block)",
-                      lambda: res_at(EMSIZE, 1024)),
-                     ("lstm_fused_bwd E=4096 (shared tile)",
-                      lambda: bwd_at(4096, NHID)),
-                     ("lstm_fused_bwd H=1024 (threads per block)",
-                      lambda: bwd_at(EMSIZE, 1024)),
+    def layer_at(rnn_type, e, h, dtype):
+        # the encoder layer on card tensors never gives way to the scan by
+        # itself: a shape its kernels do not hold raises
+        from context_attentive_ir_tpu_torch.ops.rnn import RNNLayer
+
+        layer = RNNLayer(e, h, use_kernel=True, dtype=dtype,
+                         rnn_type=rnn_type)
+        x = torch.randn((40, 3, e), generator=gen, device="cuda")
+        with torch.no_grad():
+            return layer(x, torch.ones((40, 3), dtype=torch.bool,
+                                       device="cuda"))
+
+    lstm_fns = (("lstm_fused", lstm_at), ("lstm_fused_res", res_at),
+                ("lstm_fused_bwd", bwd_at))
+    for name, fn in (*((f"{k} {what}", lambda at=at, e=e, h=h, dt=dt:
+                        at(e, h, dt))
+                       for k, at in lstm_fns
+                       for what, e, h, dt in (
+                           ("f32 E=4096 (shared tile)", 4096, NHID,
+                            torch.float32),
+                           ("f32 H=1024 (threads per block)", EMSIZE, 1024,
+                            torch.float32),
+                           ("bf16 E=4096 (staged tiles beyond shared "
+                            "memory)", 4096, NHID, bf16),
+                           ("bf16 H=1024 (hidden above 512)", EMSIZE, 1024,
+                            bf16))),
+                     ("RNNLayer lstm bf16 H=520 (hidden above 512)",
+                      lambda: layer_at("lstm", EMSIZE, 520, bf16)),
+                     ("RNNLayer lstm f32 H=520 (threads per block)",
+                      lambda: layer_at("lstm", EMSIZE, 520, torch.float32)),
+                     ("RNNLayer gru f32 E=4096 (shared tile)",
+                      lambda: layer_at("gru", 4096, NHID, torch.float32)),
                      ("lstm_recurrence H=192 (H % 128)", lambda: rec_at(192)),
                      ("lstm_recurrence H=640 (threads per block)",
                       lambda: rec_at(640)),
@@ -729,10 +852,12 @@ def check_refusals(gen) -> None:
             log(f"{name} refused: {type(err).__name__}: {err}")
         else:
             raise AssertionError(f"{name} was not refused")
-    lstm_at(EMSIZE, NHID)
-    res_at(EMSIZE, NHID)
-    bwd_at(EMSIZE, NHID)
+    for dtype in (torch.float32, bf16):
+        lstm_at(EMSIZE, NHID, dtype)
+        res_at(EMSIZE, NHID, dtype)
+        bwd_at(EMSIZE, NHID, dtype)
     rec_at(NHID)
+    layer_at("lstm", 300, 100, bf16)
     for k in GRU_KERNELS:
         gru_at(k, EMSIZE, NHID)
     beamgen_at(EMSIZE)
@@ -1941,6 +2066,12 @@ def time_rnn(gen, rnn: str, launches: dict, fwd_err: float,
             f"{TIME_CHUNK}: kernel {ms[name]:.3f} ms, plain "
             f"{plain_ms[name]:.3f} ms, cuDNN {cudnn_cls.__name__} {what} "
             f"{lib[name]:.3f} ms, bound {bnd:.4f} ms ({by})")
+        if name in EARLIER_MS:  # for the log only: not measured in this run
+            log(f"{name}: {ms[name]:.3f} ms now, {EARLIER_MS[name]:.3f} ms "
+                "in its first (CUDA-core) version on an H100 80GB HBM3 at "
+                f"700 W; {ms[name] / plain_ms[name]:.2f} x its plain "
+                f"version, {ms[name] / lib[name]:.2f} x cuDNN, "
+                f"{ms[name] / bnd:.1f} x its bound")
         rows_out.append(kernel_row(name, src, line, launches, err, ms[name],
                                    plain_ms[name], lib[name], bnd, by))
     return rows_out
@@ -2101,11 +2232,29 @@ def card() -> str:
         text=True).stdout.strip()
 
 
+# the timing rows' earlier readings (ms, bf16, doc-encoder shape, one H100
+# 80GB HBM3 at 700 W): the first, CUDA-core versions of the kernels that
+# have since been redesigned.  Logged beside the new times, never put into
+# the kernels line, which holds only what this run measured.
+EARLIER_MS = {"lstm_fused": 11.269, "lstm_fused_res": 11.256,
+              "lstm_fused_bwd": 44.075, "gru_fused_bwd": 37.372}
+
+# --only selectors, in running order.  "lstm" is the LSTM kernels' share of
+# "kernels"; a run with no selector runs every other phase.
+PHASES = ("kernels", "lstm", "serving", "train", "indexed", "gru", "small",
+          "kernel6", "trainer")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("kernel6", "trainer"),
-                    help="run the build and this part alone")
-    only = ap.parse_args().only
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases to run after the build "
+                         f"(of {', '.join(PHASES)}); default: all")
+    only = [p for p in ap.parse_args().only.split(",") if p]
+    if any(p not in PHASES for p in only):
+        ap.error(f"--only takes phases of {PHASES}")
+    full = not only
+    run = set(only) if only else set(PHASES) - {"lstm"}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -2116,10 +2265,19 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
-    t = time.perf_counter()
-    ptxas = build(ptxas_info=True)
-    log(f"kernel library built in {time.perf_counter() - t:.1f} s")
+    seconds = {}
+
+    def phase(name: str, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = round(time.perf_counter() - t, 1)
+        log(f"phase {name}: {seconds[name]} s")
+        return out
+
+    ptxas = phase("build", lambda: build(ptxas_info=True))
     log(ptxas_summary(ptxas))
+    log(tile_note())
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2127,54 +2285,94 @@ def main() -> int:
     log("float32 comparisons run with TF32 off "
         "(torch.backends.cuda.matmul.allow_tf32 = "
         "torch.backends.cudnn.allow_tf32 = False)")
-    if only == "kernel6":
-        rec_err = check_recurrence(gen)
+
+    errs = {}
+
+    def check_lstm():
+        errs["fwd_lstm"] = check_forward(gen, "lstm")
+        errs["pair_lstm"] = check_train_pair(gen, "lstm")
+        tiles = check_lstm_tiles(gen)
+        for k, v in tiles.items():
+            d = errs["pair_lstm"][k]
+            d[torch.bfloat16] = max(d[torch.bfloat16], v)
+        errs["rec"] = check_recurrence(gen)
+
+    def check_all():
+        check_lstm()
+        errs["fwd_gru"] = check_forward(gen, "gru")
+        errs["pair_gru"] = check_train_pair(gen, "gru")
+        errs["beam"] = check_beamgen(gen)
+        errs["slate"] = check_slate(gen)
+        errs["int8"] = check_beamgen_modes(gen)
         check_refusals(gen)
+
+    if "kernels" in run:
+        phase("kernel checks", check_all)
+    elif "lstm" in run:
+        phase("lstm kernel checks", check_lstm)
+    elif "kernel6" in run:
+        errs["rec"] = phase("kernel 6 checks",
+                            lambda: check_recurrence(gen))
+
+    launches, train_ms = {}, {}
+    if "serving" in run:
         with torch.inference_mode():
-            launches = precomputed_path()
-        log(json.dumps(time_recurrence(gen, launches,
-                                       rec_err[torch.bfloat16])))
-        return 0
-    if only == "trainer":
+            launches.update(phase("serving", main_path))
+    with tempfile.TemporaryDirectory() as tmp:
+        if run & {"train", "indexed"}:
+            # the indexed phase serves the train phase's checkpoint
+            train_launches, ms, ckpt_path = phase(
+                "train", lambda: train_path(tmp))
+            launches.update(train_launches)
+            train_ms.update(ms)
+        if "indexed" in run:
+            def indexed():
+                with torch.inference_mode():
+                    out = serving_paths(ckpt_path)
+                    small_serving_check()
+                return out
+            launches.update(phase("indexed", indexed))
+        if "gru" in run:
+            gru_launches, ms = phase("gru", lambda: gru_paths(tmp))
+            launches.update(gru_launches)
+            train_ms.update(ms)
+    if "small" in run:
+        phase("small", small_model_check)
+    if "kernel6" in run:
+        with torch.inference_mode():
+            launches.update(phase("kernel6", precomputed_path))
+    if "trainer" in run:
         with tempfile.TemporaryDirectory() as tmp:
-            trainer_paths(tmp)
-        return 0
-    fwd_err = {rnn: check_forward(gen, rnn) for rnn in RNNS}
-    rec_err = check_recurrence(gen)
-    pair_err = {rnn: check_train_pair(gen, rnn) for rnn in RNNS}
-    beam_err = check_beamgen(gen)
-    slate_err = check_slate(gen)
-    int8_err = check_beamgen_modes(gen)
-    check_refusals(gen)
+            launches.update(phase("trainer", lambda: trainer_paths(tmp)))
 
-    with torch.inference_mode():
-        launches = main_path()
-    with tempfile.TemporaryDirectory() as tmp:
-        train_launches, train_ms, ckpt_path = train_path(tmp)
-        launches.update(train_launches)
-        with torch.inference_mode():
-            launches.update(serving_paths(ckpt_path))
-            small_serving_check()
-        gru_launches, gru_train_ms = gru_paths(tmp)
-        launches.update(gru_launches)
-        train_ms.update(gru_train_ms)
-    small_model_check()
-    with torch.inference_mode():
-        launches.update(precomputed_path())
-    with tempfile.TemporaryDirectory() as tmp:
-        launches.update(trainer_paths(tmp))
+    bf16 = torch.bfloat16
+    kernels = []
 
-    kernels = [*(row for rnn in RNNS for row in time_rnn(
-                   gen, rnn, launches, fwd_err[rnn][torch.bfloat16],
-                   pair_err[rnn])),
-               time_recurrence(gen, launches, rec_err[torch.bfloat16]),
-               time_beamgen(gen, launches, beam_err[torch.bfloat16]),
-               *time_slate(gen, launches, slate_err[torch.bfloat16]),
-               *time_beamgen_modes(gen, launches, beam_err[torch.bfloat16],
-                                   int8_err)]
-    log(f"train steps (CUDA events, mean of 5, B={B}): "
-        f"{json.dumps(train_ms)}")
+    def timing():
+        rnns = [r for r in RNNS if f"fwd_{r}" in errs]
+        kernels.extend(row for rnn in rnns for row in time_rnn(
+            gen, rnn, launches, errs[f"fwd_{rnn}"][bf16],
+            errs[f"pair_{rnn}"]))
+        if "rec" in errs:
+            kernels.append(time_recurrence(gen, launches, errs["rec"][bf16]))
+        if "beam" in errs:
+            kernels.append(time_beamgen(gen, launches, errs["beam"][bf16]))
+            kernels.extend(time_slate(gen, launches, errs["slate"][bf16]))
+            kernels.extend(time_beamgen_modes(gen, launches,
+                                              errs["beam"][bf16],
+                                              errs["int8"]))
+
+    if errs:
+        phase("kernel timing", timing)
+    if train_ms:
+        log(f"train steps (CUDA events, mean of 5, B={B}): "
+            f"{json.dumps(train_ms)}")
+    log(f"phase seconds: {json.dumps(seconds)}")
     log(card())
+    if not full:
+        log("partial run (--only " + ",".join(only) + "): "
+            + json.dumps({"kernels": kernels}))
+        return 0
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -98,14 +98,17 @@ class ModelConfig:
     # (ops/kernels/{lstm,gru}.py) on a CUDA device, their plain versions on
     # the CPU
     use_pallas_rnn: bool = True
-    # the slate-pool kernel is not ported yet; the port rejects True
+    # CARS's doc_pool through the slate-pool kernel (ops/kernels/slate.py,
+    # behind ops/attention.AttentionPool); off by default, as in the JAX
+    # package
     use_pallas_slate: bool = False
     # suggestion decode: per-turn cap on clicked docs encoded by
     # CARS.encode_session_suggest (exact when turns have <= this many
     # clicks; the slate's other N-C candidates are never encoded)
     suggest_max_clicks: int = 4
-    # serving-only int8 embedding table; not ported yet (the port rejects
-    # True)
+    # serving-only int8 embedding table (ops/layers.Embeddings(quantized=
+    # True)); Engine.from_checkpoint(quantize_embeddings=True) converts a
+    # float checkpoint
     quantize_embeddings: bool = False
 
     def replace(self, **kw) -> "ModelConfig":

@@ -44,15 +44,16 @@
 //   dx product, slots 0, 1, 3 the dh product.  It writes dx, and the four
 //   slots and h_prev_c per (row, step) to the workspace for phase B, and a
 //   per-block partial of each slot's sum (the db's).
-// - Phase B (lstm_common.cuh's wgrad_partial_kernel): dW_ih = X^T G[0:3]
-//   and dW_hh = Hp^T G[0, 1, 3] over all B*T (row, step) pairs as 64 x 64
-//   output tiles, split over up to 32 row ranges to fill the card;
+// - Phase B (lstm_common.cuh's launch_wgrad_partial): dW_ih = X^T G[0:3]
+//   and dW_hh = Hp^T G[0, 1, 3] over all B*T (row, step) pairs as output
+//   tiles (bf16: 128 x 128 on tensor cores; float32: 64 x 64 of f32 FMAs),
+//   split over up to 32 row ranges to fill the card;
 //   sum_partials_kernel then adds the splits (and the per-block db partials)
 //   in a fixed order.
 //
-// No atomics: the gradients are the same bits from run to run.  All
-// products are f32 FMAs on the CUDA cores; tensor cores (wgmma), TMA and a
-// fused dW reduction are later work.
+// No atomics: the gradients are the same bits from run to run.  Phase A's
+// products are f32 FMAs on the CUDA cores; tensor-core tiles for them (as in
+// lstm_bwd.cu) are later work.
 
 #include "lstm_common.cuh"
 
@@ -324,19 +325,19 @@ int launch(const void* x, const void* mask, const void* w_ih,
   }
 
   const int n = n_rows * n_steps;
-  const int rps = L.rows_per_split;
-  auto tiles = [](int v) { return (v + kTile - 1) / kTile; };
-  // dW_ih [E, 3H] from slots 0..2
-  wgrad_partial_kernel<T><<<dim3(tiles(e), tiles(g3), L.splits), 256, 0,
-                            stream>>>(static_cast<const T*>(x), e, dg, g3, g4,
-                                      n, rps, part_ih, g3, 0);
+  const Splits sp = {L.splits, L.rows_per_split};
+  // bf16 operands go through the tensor-core tiles, float32 stays on exact
+  // f32 FMAs (launch_wgrad_partial).  dW_ih [E, 3H] from slots 0..2
+  err = launch_wgrad_partial<T>(static_cast<const T*>(x), e, dg, g3, g4, n,
+                                sp, part_ih, g3, 0, stream);
+  if (err != cudaSuccess) return (int)err;
   // dW_hh [H, 3H]: columns 0..2H-1 from slots 0, 1; 2H..3H-1 from slot 3
-  wgrad_partial_kernel<T><<<dim3(tiles(h_dim), tiles(2 * h_dim), L.splits),
-                            256, 0, stream>>>(h_prev, h_dim, dg, 2 * h_dim,
-                                              g4, n, rps, part_hh, g3, 0);
-  wgrad_partial_kernel<T><<<dim3(tiles(h_dim), tiles(h_dim), L.splits), 256,
-                            0, stream>>>(h_prev, h_dim, dg + g3, h_dim, g4, n,
-                                         rps, part_hh, g3, 2 * h_dim);
+  err = launch_wgrad_partial<T>(h_prev, h_dim, dg, 2 * h_dim, g4, n, sp,
+                                part_hh, g3, 0, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_wgrad_partial<T>(h_prev, h_dim, dg + g3, h_dim, g4, n, sp,
+                                part_hh, g3, 2 * h_dim, stream);
+  if (err != cudaSuccess) return (int)err;
   sum_partials_kernel<T><<<(e * g3 + 255) / 256, 256, 0, stream>>>(
       part_ih, L.splits, e * g3, e * g3, static_cast<T*>(dw_ih));
   sum_partials_kernel<T><<<(h_dim * g3 + 255) / 256, 256, 0, stream>>>(

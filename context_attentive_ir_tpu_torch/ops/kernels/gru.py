@@ -41,7 +41,29 @@ from __future__ import annotations
 import torch
 
 from ...device import check_on, resolve_device
-from .lstm import _DTYPES, _first_in_chunk, _stream, chunk_len
+from .lstm import (
+    _DTYPES,
+    F32_STRIDE,
+    SMEM_LIMIT,
+    _first_in_chunk,
+    _stream,
+    chunk_len,
+)
+
+
+def gru_fused_supported(embed: int, hidden: int, rows: int,
+                        dtype: torch.dtype = torch.float32) -> bool:
+    """Whether kernels 7, 8 and 9 hold an ``[rows, T, embed] -> hidden`` GRU
+    (the counterpart of the JAX ``gru_fused_supported``, with this card's
+    limits, the same for float32 and bfloat16): a block has
+    ``2 * hidden <= 1024`` threads and stages ``max(embed + hidden,
+    4 * hidden)`` k-rows of 36 floats in shared memory (the backward's four
+    gradient slots are the wider tile)."""
+    if embed < 1 or hidden < 1 or rows < 1 or dtype not in _DTYPES:
+        return False
+    return (2 * hidden <= 1024
+            and max(embed + hidden, 4 * hidden) * F32_STRIDE * 4
+            <= SMEM_LIMIT)
 
 
 def _cell(xp: torch.Tensor, hp: torch.Tensor, h: torch.Tensor):

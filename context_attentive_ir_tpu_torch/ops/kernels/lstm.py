@@ -4,11 +4,10 @@ the recurrence on precomputed gates (kernel 6, at the end of the file).
 Each has its CUDA launcher, its plain PyTorch version and a launch count.
 
 Kernel 1, ``lstm_fused``, replaces the TPU kernel ``_lstm_fused_kernel``
-(``_lstm_fused_impl``) in ``context_attentive_ir_tpu/ops/pallas/lstm.py``:
-``csrc/lstm_fwd.cu``, one thread block per 32 rows running every time step
-with h and c in registers (f32), the input projection ``x_t @ W_ih``
-computed inside the kernel so the ``[B, T, 4H]`` gates never reach device
-memory.  It computes no gradient and refuses inputs that need one.
+(``_lstm_fused_impl``) in ``context_attentive_ir_tpu/ops/pallas/lstm.py``
+(``csrc/lstm_fwd.cu``): the input projection ``x_t @ W_ih`` is computed
+inside the kernel, so the ``[B, T, 4H]`` gates never reach device memory.
+It computes no gradient and refuses inputs that need one.
 
 Kernels 4 and 5 are the training pair behind ``lstm_fused_train``, the
 counterpart of the ``lstm_pallas_fused`` custom_vjp:
@@ -25,9 +24,23 @@ counterpart of the ``lstm_pallas_fused`` custom_vjp:
 
 Bounds on the H100 (doc encoder, one direction, [16000, 30, 256] -> 128,
 bf16): kernel 1 and 4 do 2*B*T*(E+H)*4H = 1.9e11 flops, 0.19 ms at the
-bf16 tensor-core peak; kernel 5 5.7e11 flops, 0.57 ms: all compute-bound.
-These first versions use CUDA-core FMAs and stream the weights from L2, so
-they run far above their bounds; ``PERF.md`` records the gap.
+bf16 tensor-core peak; kernel 5 5.7e11 flops, 0.57 ms: all bound by
+operations, through T steps that depend on each other.
+
+What the design does about it, in bfloat16 (the type every full-width path
+runs): every product -- ``[x_t | h] @ [W_ih; W_hh]``, ``dgates @ W^T`` and
+the two ``dW`` reductions -- is ``mma.sync.m16n8k16`` tiles (bf16 in, f32
+accumulate) on operands staged in shared memory in bf16
+(``csrc/lstm_mma.cuh``): a block of 8 warps owns 64 rows for all T steps,
+the weights (``stage_lstm_weights``: one padded matrix a call) stream from
+L2 through a ring of bulk copies, and a thread's
+accumulator fragments are the four gates of its own (row, unit) cells, so
+c, dh and dc stay in registers.  Those kernels take E and H that are
+multiples of 32 and 16-byte aligned tensors; ``pad_lstm_operands`` zero-pads
+other sizes here (zero weights and biases keep a padded unit at exactly 0),
+and the results are cut back.  float32 keeps exact f32 FMAs (no TF32) on
+the first version's one-thread-per-unit layout.  ``fused_supported`` states
+the shapes each dtype's kernels hold; ``PERF.md`` records times and bounds.
 """
 
 from __future__ import annotations
@@ -37,6 +50,118 @@ import torch
 from ...device import check_on, resolve_device
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# -- the shapes the CUDA kernels hold (csrc/lstm_mma.cuh, lstm_common.cuh) ----
+SMEM_LIMIT = 232448   # dynamic shared memory a block may use on sm_90
+TILE_ALIGN = 32       # the bf16 kernels' E and H are multiples of this
+MAX_HIDDEN_BF16 = 512
+F32_STRIDE = 36       # floats per staged k-row of the float32 kernels
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def tile_config(hidden: int) -> tuple[int, int]:
+    """(unit groups per warp, 16-row tiles per block) of the bf16 kernels
+    for a padded hidden size (``pick_config`` in ``csrc/lstm_mma.cuh``)."""
+    if hidden <= 64:
+        return 1, 4
+    if hidden <= 128:
+        return 2, 4
+    if hidden <= 256:
+        return 4, 2
+    return 8, 1
+
+
+def tile_smem_bytes(e: int, h: int, backward: bool = False) -> int:
+    """Dynamic shared memory of the bf16 forward (or backward phase A)
+    kernel at padded widths ``e``, ``h``: the ring's mbarriers (64 bytes),
+    its three slabs of 32 (else 16) k-rows, the staged tiles, the bias; 0 if
+    neither depth fits
+    (``mma_smem`` in ``csrc/lstm_mma.cuh``)."""
+    m = 16 * tile_config(h)[1]
+    x_row, h_row, w_row = 2 * e + 16, 2 * h + 16, 8 * h + 16
+    tiles = 2 * m * x_row + m * h_row
+    if backward:
+        tiles = max(tiles, m * w_row) + m * (h + 8) * 4
+    for depth in (32, 16):
+        n_bytes = 64 + 3 * depth * w_row + tiles + 16 * h
+        if n_bytes <= SMEM_LIMIT:
+            return n_bytes
+    return 0
+
+
+def fused_supported(embed: int, hidden: int, rows: int,
+                    dtype: torch.dtype = torch.float32) -> bool:
+    """Whether kernels 1, 4 and 5 hold an ``[rows, T, embed] -> hidden``
+    LSTM in ``dtype`` (the counterpart of the JAX ``fused_supported``, with
+    this card's limits).  bfloat16: after padding to multiples of 32,
+    ``hidden <= 512`` and the backward's tiles fit a block's shared memory.
+    float32: a block has ``2 * hidden <= 1024`` threads and stages
+    ``max(embed + hidden, 4 * hidden)`` k-rows of 36 floats."""
+    if embed < 1 or hidden < 1 or rows < 1:
+        return False
+    if dtype == torch.bfloat16:
+        e, h = _round_up(embed, TILE_ALIGN), _round_up(hidden, TILE_ALIGN)
+        return (h <= MAX_HIDDEN_BF16
+                and tile_smem_bytes(e, h, backward=True) > 0)
+    if dtype == torch.float32:
+        return (2 * hidden <= 1024
+                and max(embed + hidden, 4 * hidden) * F32_STRIDE * 4
+                <= SMEM_LIMIT)
+    return False
+
+
+def _pad_last(t: torch.Tensor, size: int) -> torch.Tensor:
+    if t.shape[-1] == size:
+        return t
+    return torch.nn.functional.pad(t, (0, size - t.shape[-1]))
+
+
+def _pad_gates(w: torch.Tensor, h: int, hp: int) -> torch.Tensor:
+    """``[..., 4h]`` (gate blocks i, f, g, o) -> ``[..., 4hp]``, each block
+    zero-padded."""
+    if h == hp:
+        return w
+    lead = w.shape[:-1]
+    return _pad_last(w.reshape(*lead, 4, h), hp).reshape(*lead, 4 * hp)
+
+
+def _cut_gates(w: torch.Tensor, h: int, hp: int) -> torch.Tensor:
+    """The inverse of ``_pad_gates``."""
+    if h == hp:
+        return w
+    lead = w.shape[:-1]
+    return w.reshape(*lead, 4, hp)[..., :h].reshape(*lead, 4 * h)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (a copy if it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def pad_lstm_operands(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
+                      w_hh: torch.Tensor):
+    """The operands of an LSTM with E and H zero-padded up to multiples of
+    ``TILE_ALIGN``:
+    ``x [B, T, Ep]``, ``w_ih [Ep, 4Hp]``, ``b [4Hp]``, ``w_hh [Hp, 4Hp]``,
+    every tensor 16-byte aligned.  The padded LSTM's first H units equal the
+    original's: a padded unit has zero weights and bias, so its gates are 0,
+    its c and h stay exactly 0 and it feeds nothing back; its gradients are
+    0.  Aligned operands come back as they are (no copy)."""
+    e, h = x.shape[-1], w_hh.shape[0]
+    ep, hp = _round_up(e, TILE_ALIGN), _round_up(h, TILE_ALIGN)
+    x = _pad_last(x, ep)
+    w_ih = _pad_gates(w_ih, h, hp)
+    if ep != e:
+        w_ih = torch.nn.functional.pad(w_ih, (0, 0, 0, ep - e))
+    b = _pad_gates(b, h, hp)
+    w_hh = _pad_gates(w_hh, h, hp)
+    if hp != h:
+        w_hh = torch.nn.functional.pad(w_hh, (0, 0, 0, hp - h))
+    return tuple(_aligned(t) for t in (x, w_ih, b, w_hh))
 
 
 def chunk_len(n_steps: int, time_chunk: int) -> int:
@@ -159,6 +284,16 @@ def lstm_fused_bwd_reference(x, mask, w_ih, b, w_hh, hb, cb, dout,
             dwhh.to(w_hh.dtype))
 
 
+def stage_lstm_weights(w_ih: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+    """``[W_ih; W_hh]`` as the bf16 kernels' weight ring copies it: one
+    contiguous ``[E + H, 4H + 8]`` matrix, each row followed by 8 zero
+    columns (the 16 bytes of padding a staged row has in shared memory), so
+    a slab of k-rows is one contiguous range (~400 KB a call at the main
+    path's widths)."""
+    return _aligned(torch.nn.functional.pad(torch.cat([w_ih, w_hh], 0),
+                                            (0, 8)))
+
+
 def _check_cuda_args(name: str, x, mask, w_ih, b, w_hh, *extra):
     """Dtype, shape and contiguity checks of the CUDA launchers; returns
     (B, T, E, H)."""
@@ -211,16 +346,21 @@ def lstm_fused(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"lstm_fused runs on cuda or cpu, not {dev}")
     B, T, E, H = _check_cuda_args("lstm_fused", x, mask, w_ih, b, w_hh)
-    out = torch.empty((B, T, H), dtype=x.dtype, device=x.device)
+    if x.dtype == torch.bfloat16:
+        x, w_ih, b, w_hh = pad_lstm_operands(x, w_ih, b, w_hh)
+    Ep, Hp = x.shape[-1], w_hh.shape[0]
+    if x.dtype == torch.bfloat16:
+        w_ih = stage_lstm_weights(w_ih, w_hh)
+    out = torch.empty((B, T, Hp), dtype=x.dtype, device=x.device)
     from .build import check, load_library
 
     # the launcher reports a hidden size or E + H its block cannot hold
     check(load_library().cair_lstm_fwd(
         x.data_ptr(), mask.data_ptr(), w_ih.data_ptr(), b.data_ptr(),
-        w_hh.data_ptr(), out.data_ptr(), B, T, E, H, int(reverse),
+        w_hh.data_ptr(), out.data_ptr(), B, T, Ep, Hp, int(reverse),
         _DTYPES[x.dtype], _stream(x)), "cair_lstm_fwd")
     lstm_fused.launches += 1
-    return out
+    return out if Hp == H else out[..., :H].contiguous()
 
 
 lstm_fused.launches = 0
@@ -243,8 +383,13 @@ def lstm_fused_res(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
         raise ValueError(f"lstm_fused_res runs on cuda or cpu, not {dev}")
     B, T, E, H = _check_cuda_args("lstm_fused_res", x, mask, w_ih, b, w_hh)
     tc = chunk_len(T, time_chunk)
-    out = torch.empty((B, T, H), dtype=x.dtype, device=x.device)
-    hb = torch.empty((-(-T // tc), B, H), dtype=torch.float32,
+    if x.dtype == torch.bfloat16:
+        x, w_ih, b, w_hh = pad_lstm_operands(x, w_ih, b, w_hh)
+    Ep, Hp = x.shape[-1], w_hh.shape[0]
+    if x.dtype == torch.bfloat16:
+        w_ih = stage_lstm_weights(w_ih, w_hh)
+    out = torch.empty((B, T, Hp), dtype=x.dtype, device=x.device)
+    hb = torch.empty((-(-T // tc), B, Hp), dtype=torch.float32,
                      device=x.device)
     cb = torch.empty_like(hb)
     from .build import check, load_library
@@ -252,9 +397,11 @@ def lstm_fused_res(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
     check(load_library().cair_lstm_fwd_res(
         x.data_ptr(), mask.data_ptr(), w_ih.data_ptr(), b.data_ptr(),
         w_hh.data_ptr(), out.data_ptr(), hb.data_ptr(), cb.data_ptr(), B, T,
-        E, H, int(reverse), tc, _DTYPES[x.dtype], _stream(x)),
+        Ep, Hp, int(reverse), tc, _DTYPES[x.dtype], _stream(x)),
         "cair_lstm_fwd_res")
     lstm_fused_res.launches += 1
+    if Hp != H:
+        out, hb, cb = (t[..., :H].contiguous() for t in (out, hb, cb))
     return out, hb, cb
 
 
@@ -295,23 +442,39 @@ def lstm_fused_bwd(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
 
     lib = load_library()
     dtype = _DTYPES[x.dtype]
-    n_bytes = lib.cair_lstm_bwd_workspace(B, T, E, H, tc, dtype)
+    if x.dtype == torch.bfloat16:
+        # the tensor-core kernels read W^T out of the staged W's own slabs
+        x, w_ih, b, w_hh = pad_lstm_operands(x, w_ih, b, w_hh)
+        Hp = w_hh.shape[0]
+        hb, cb, dout = (_aligned(_pad_last(t, Hp)) for t in (hb, cb, dout))
+        staged = stage_lstm_weights(w_ih, w_hh)
+        transposes = (0, 0)
+    else:
+        # float32: transposed weights for the dx and dh products
+        w_ih_t, w_hh_t = w_ih.t().contiguous(), w_hh.t().contiguous()
+        transposes = (w_ih_t.data_ptr(), w_hh_t.data_ptr())
+    Ep, Hp = x.shape[-1], w_hh.shape[0]
+    n_bytes = lib.cair_lstm_bwd_workspace(B, T, Ep, Hp, tc, dtype)
     if n_bytes < 0:
         raise ValueError(f"lstm_fused_bwd: invalid shape B={B} T={T} E={E} "
                          f"H={H}")
     workspace = torch.empty((n_bytes,), dtype=torch.uint8, device=x.device)
-    # transposed weights for the dx and dh products (coalesced reads)
-    w_ih_t, w_hh_t = w_ih.t().contiguous(), w_hh.t().contiguous()
     dx = torch.empty_like(x)
     dw_ih, db, dw_hh = (torch.empty_like(w_ih), torch.empty_like(b),
                         torch.empty_like(w_hh))
     check(lib.cair_lstm_bwd(
-        x.data_ptr(), mask.data_ptr(), w_ih.data_ptr(), b.data_ptr(),
-        w_hh.data_ptr(), w_ih_t.data_ptr(), w_hh_t.data_ptr(), hb.data_ptr(),
+        x.data_ptr(), mask.data_ptr(),
+        (staged if x.dtype == torch.bfloat16 else w_ih).data_ptr(),
+        b.data_ptr(), w_hh.data_ptr(), *transposes, hb.data_ptr(),
         cb.data_ptr(), dout.data_ptr(), dx.data_ptr(), dw_ih.data_ptr(),
-        db.data_ptr(), dw_hh.data_ptr(), workspace.data_ptr(), B, T, E, H,
+        db.data_ptr(), dw_hh.data_ptr(), workspace.data_ptr(), B, T, Ep, Hp,
         int(reverse), tc, dtype, _stream(x)), "cair_lstm_bwd")
     lstm_fused_bwd.launches += 1
+    if (Ep, Hp) != (E, H):
+        dx = dx[..., :E].contiguous()
+        dw_ih = _cut_gates(dw_ih[:E], H, Hp).contiguous()
+        db = _cut_gates(db, H, Hp).contiguous()
+        dw_hh = _cut_gates(dw_hh[:H], H, Hp).contiguous()
     return dx, dw_ih, db, dw_hh
 
 

@@ -8,8 +8,14 @@ and weights keep the JAX layout (``w_ih [D, G]``, ``w_hh [H, G]``, ``b_ih
 [G]`` with G = 4H or 3H; a GRU also has its own ``b_hh [3H]``).
 
 ``RNNLayer(use_kernel=True)`` runs each direction through the fused
-kernels whenever no initial state is given -- the JAX ``_pallas_ok``
-condition without the TPU dispatch table: for an LSTM kernel 1
+kernels whenever no initial state is given and the kernels hold the shape
+(``fused_supported`` / ``gru_fused_supported``) -- the JAX ``_pallas_ok``
+condition without the TPU dispatch table.  A shape they do not hold goes
+through ``lstm_scan`` / ``gru_scan`` on CPU tensors, as in JAX; on CUDA
+tensors it raises with the limit, and the caller chooses the scan with
+``use_kernel=False`` (``use_pallas_rnn=False`` in the model config): the
+layer never leaves the kernels by itself on the card.  For an LSTM that is
+kernel 1
 (``lstm_fused``) when no gradient is needed, the training pair (kernels 4
 and 5, ``lstm_fused_train``) when one is (``ops/kernels/lstm.py``); for a
 GRU kernel 7 (``gru_fused``) or the pair 8 and 9 (``gru_fused_train``,
@@ -24,8 +30,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .kernels.gru import gru_fused, gru_fused_train
-from .kernels.lstm import lstm_fused, lstm_fused_train
+from .kernels.gru import gru_fused, gru_fused_supported, gru_fused_train
+from .kernels.lstm import fused_supported, lstm_fused, lstm_fused_train
 from .layers import ParamModule, dropout
 
 RNN_TYPES = ("lstm", "gru")
@@ -97,6 +103,27 @@ class RNNLayer(ParamModule):
             if rnn_type == "gru":
                 self.new_param(f"b_hh_{d}", (G,), "zeros")
 
+    def kernel_ok(self, x: torch.Tensor, h0) -> bool:
+        """Whether this call takes the fused kernels: asked for, no initial
+        state, and a shape the kernels hold.  A shape they do not hold takes
+        the scan on CPU tensors (as the JAX ``_pallas_ok`` decides) and
+        raises on CUDA tensors."""
+        if not (self.use_kernel and h0 is None):
+            return False
+        supported = (gru_fused_supported if self.rnn_type == "gru"
+                     else fused_supported)
+        if supported(x.shape[-1], self.features, x.shape[0], self.dtype):
+            return True
+        if x.is_cuda:
+            raise ValueError(
+                f"RNNLayer: the fused {self.rnn_type} kernels do not hold "
+                f"[{x.shape[0]}, T, {x.shape[-1]}] -> {self.features} in "
+                f"{self.dtype} ({supported.__name__} states their limits); "
+                "construct the layer with use_kernel=False "
+                "(use_pallas_rnn=False in the model config) to run the "
+                "plain scan on the card")
+        return False
+
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 h0: torch.Tensor | None = None):
         """x [B, T, D], mask bool [B, T] -> (out [B, T, H*dirs],
@@ -106,6 +133,7 @@ class RNNLayer(ParamModule):
         x = x.to(self.dtype).contiguous()
         outs, finals = [], []
         gru = self.rnn_type == "gru"
+        use_kernel = self.kernel_ok(x, h0)
         for d in self.dirs:
             w_ih = getattr(self, f"w_ih_{d}").to(self.dtype)
             w_hh = getattr(self, f"w_hh_{d}").to(self.dtype)
@@ -113,7 +141,7 @@ class RNNLayer(ParamModule):
             # the GRU's recurrent bias: (b_hh,) for a GRU, () for an LSTM
             b_hh = ((getattr(self, f"b_hh_{d}").to(self.dtype),) if gru
                     else ())
-            if self.use_kernel and h0 is None:
+            if use_kernel:
                 # the fused kernels compute the input projection themselves:
                 # no [B, T, G] gate tensor reaches device memory
                 train = torch.is_grad_enabled() and any(
