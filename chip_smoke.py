@@ -15,17 +15,18 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    float32 (TF32 off for matmuls and cuDNN) and bfloat16: the LSTM and GRU
    forwards (kernels 1 and 7) and training pairs (4 and 5, 8 and 9) output
    by output, also at a T the time chunk does not divide (kernels 5 and 9
-   must give the same bits twice), the LSTM pair in bfloat16 also at the
-   shapes that stress its tensor-core tiles (rows 1, 33 and 16,001, E = 300
-   with H = 100, H = 8, T = 1, T = 17, H = 64, 256 and 384; kernel 4's
-   output must be kernel 1's bits), the LSTM recurrence on precomputed
-   gates (kernel 6, with its autograd Function's gradients), kernel 2, kernel 10 (slate pool) at the
+   must give the same bits twice; kernel 4's output must be kernel 1's
+   bits, kernel 8's kernel 7's), both pairs in bfloat16 also at the shapes
+   that stress the tensor-core tiles (rows 1, 33 and 16,001, E = 300 with
+   H = 100, H = 8, T = 1, T = 17, H = 64, 256 and 384), the LSTM
+   recurrence on precomputed gates (kernel 6, with its autograd Function's
+   gradients), kernel 2, kernel 10 (slate pool) at the
    rank slate and suggest init's row counts with fully masked rows pooling
    to exactly 0 and its autograd Function's gradients, kernel 2's int8
    mode on a quantized table, and ``prune`` on and off and kernel 3
    (pipelined) against kernel 2, which must give the same bits; then
-   shapes a kernel cannot hold must be refused, and ``fused_supported``
-   must say what the LSTM launchers take;
+   shapes a kernel cannot hold must be refused, and ``fused_supported`` /
+   ``gru_fused_supported`` must say what the launchers take;
 4. the main paths at full width: CARS at the serving widths (vocab
    50,000, emsize 256, nhid 128, nhid_ffnn 256, S=5, N=50, Lq=15, Ld=30,
    bf16, seeded random weights) behind ``serve.Engine``: ``rank_batch``
@@ -73,7 +74,8 @@ card: without one it exits non-zero and prints no result.
 ``python3 chip_smoke.py --only PHASE[,PHASE...]`` runs the build and those
 phases alone, for work on them: ``kernels`` (every kernel against its plain
 version, the refusals, the timing rows), ``lstm`` (kernels 1, 4, 5 and 6
-alone: checks and timing rows), ``serving`` (``rank_batch``, beam-5 and
+alone: checks and timing rows), ``grukernels`` (kernels 7, 8 and 9 alone:
+checks and timing rows), ``serving`` (``rank_batch``, beam-5 and
 greedy ``suggest_batch``), ``train`` (the CARS train steps and the
 checkpoint round trip), ``indexed`` (the rest of serving; runs ``train``
 first for its checkpoint), ``gru`` (CARS-GRU and HRED-QS), ``small`` (the
@@ -169,7 +171,8 @@ def gru_inputs(gen, dtype, rows=B * S * N, steps=LD, e=EMSIZE, h=NHID):
     b_hh = torch.randn((3 * h,), generator=gen, device=dev) * 0.1
     lens = torch.randint(0, steps + 1, (rows,), generator=gen, device=dev)
     lens[0] = steps
-    lens[1] = 0
+    if rows > 1:
+        lens[1] = 0
     mask = torch.arange(steps, device=dev)[None, :] < lens[:, None]
     return [t.to(dtype) for t in (x, w_ih, b_ih, w_hh, b_hh)], mask
 
@@ -263,7 +266,8 @@ def pair_errors(gen, rnn: str, dtype, rows, steps, reverse, **widths) -> dict:
     inputs (the backward kernel and its plain version both read the
     residual kernel's boundary state): per output, (max abs error, max abs
     error / max |plain|).  The backward kernel must give the same bits
-    twice (no atomics), and kernel 4's output must be kernel 1's bits.
+    twice (no atomics), and the residual kernel's output must be the
+    forward kernel's bits (kernel 4 = kernel 1, kernel 8 = kernel 7).
     ``widths``: ``e`` and ``h`` other than the main path's."""
     mod = rnn_kernels(rnn)
     inputs, names = RNNS[rnn]
@@ -283,13 +287,13 @@ def pair_errors(gen, rnn: str, dtype, rows, steps, reverse, **widths) -> dict:
         raise AssertionError(f"{res}: masked outputs not zero")
     if not same_bits(got_b, again):
         raise AssertionError(f"{bwd}: two runs differ")
-    if rnn == "lstm":
-        # kernel 4 is kernel 1 plus the boundaries: the same output bits
-        with torch.no_grad():
-            alone = mod.lstm_fused(x, mask, *w, reverse)
-        if not same_bits((alone,), (out,)):
-            raise AssertionError("lstm_fused_res: output bits differ from "
-                                 "lstm_fused's")
+    # the residual kernel is the forward plus the boundaries: the same
+    # output bits
+    with torch.no_grad():
+        alone = getattr(mod, f"{rnn}_fused")(x, mask, *w, reverse)
+    if not same_bits((alone,), (out,)):
+        raise AssertionError(f"{res}: output bits differ from "
+                             f"{rnn}_fused's")
     errs = {}
     for name, g, r in zip(names, (*fwd, *got_b), (*ref, *ref_b)):
         err = float((g.float() - r.float()).abs().max())
@@ -335,41 +339,44 @@ def check_train_pair(gen, rnn: str) -> dict:
 
 
 # (rows, steps, E, H) that stress the bf16 tensor-core tiles of kernels 1, 4
-# and 5: rows off the 64-row block (1, 33, 16,001), E and H that are not
-# multiples of 32 (zero-padded by the wrapper), T = 1, a T the time chunk
-# does not divide, and the hidden sizes of each block layout (H <= 64, 128,
-# 256, above)
+# and 5 and of kernels 7 and 8 (with kernel 9 fed their boundaries): rows
+# off the 64-row block (1, 33, 16,001), E and H that are not multiples of 32
+# (zero-padded by the wrapper), T = 1, a T the time chunk does not divide,
+# and the hidden sizes of each block layout (H <= 64, 128, 256, above)
 TILE_SHAPES = ((1, LD, EMSIZE, NHID), (33, LD, EMSIZE, NHID),
                (B * S * N + 1, LD, EMSIZE, NHID), (70, 7, 300, 100),
                (70, 7, 64, 8), (40, 1, EMSIZE, NHID), (130, 17, EMSIZE, NHID),
                (200, 9, 64, 64), (100, 8, EMSIZE, 256), (50, 7, 128, 384))
 
 
-def check_lstm_tiles(gen) -> dict:
-    """Kernels 1, 4 and 5 in bf16 over TILE_SHAPES, both directions, each
-    output against its plain version (rel 2e-2); masked outputs (rows whose
-    mask is all False included) exactly 0, kernel 5 the same bits twice,
-    kernel 4's output kernel 1's bits.  Returns the worst max abs error of
-    the residual kernel and of the backward."""
+def check_tiles(gen, rnn: str) -> dict:
+    """The training pair of ``rnn`` and its forward in bf16 over
+    TILE_SHAPES, both directions, each output against its plain version
+    (rel 2e-2); masked outputs (rows whose mask is all False included)
+    exactly 0, the backward the same bits twice, the residual kernel's
+    output the forward's bits.  Returns the worst max abs error of the
+    residual kernel and of the backward."""
     dtype = torch.bfloat16
     tol = PAIR_TOL[dtype]
-    worst = {"lstm_fused_res": 0.0, "lstm_fused_bwd": 0.0}
+    res, bwd = f"{rnn}_fused_res", f"{rnn}_fused_bwd"
+    n_res = RNNS[rnn][1].index("dx")
+    worst = {res: 0.0, bwd: 0.0}
     for rows, steps, e, h in TILE_SHAPES:
         for reverse in (False, True):
-            errs = pair_errors(gen, "lstm", dtype, rows, steps, reverse,
+            errs = pair_errors(gen, rnn, dtype, rows, steps, reverse,
                                e=e, h=h)
-            log(f"lstm tiles bf16 [{rows},{steps},{e}]->{h} "
+            log(f"{rnn} tiles bf16 [{rows},{steps},{e}]->{h} "
                 f"{'reverse' if reverse else 'forward'}: " +
                 ", ".join(f"{k} {a:.2e} ({r:.2e})"
                           for k, (a, r) in errs.items()) +
-                f" (abs (rel); tol rel {tol:g}; kernel 5 same bits twice, "
-                "kernel 4 = kernel 1 bits)")
+                f" (abs (rel); tol rel {tol:g}; {bwd} same bits twice, "
+                f"{res} = {rnn}_fused bits)")
             bad = {k: r for k, (_, r) in errs.items() if not r <= tol}
             if bad:
-                raise AssertionError(f"lstm tiles [{rows},{steps},{e}]->{h} "
+                raise AssertionError(f"{rnn} tiles [{rows},{steps},{e}]->{h} "
                                      f"reverse={reverse}: {bad} > {tol}")
             for i, (a, _) in enumerate(errs.values()):
-                k = "lstm_fused_res" if i < 3 else "lstm_fused_bwd"
+                k = res if i < n_res else bwd
                 worst[k] = max(worst[k], a)
     return worst
 
@@ -387,8 +394,11 @@ def tile_note() -> str:
             f"{tile_smem_bytes(EMSIZE, NHID)} bytes of "
             "dynamic shared memory a block of 64 rows; lstm_fused_bwd phase "
             f"A the same, {tile_smem_bytes(EMSIZE, NHID, backward=True)} "
-            "bytes; phase B (dW, shared with gru_fused_bwd) mma.sync."
-            "m16n8k16 + ldmatrix.trans, 69632 bytes a 128 x 128 tile")
+            "bytes; gru_fused / gru_fused_res the same tiles with three "
+            f"gate blocks, {tile_smem_bytes(EMSIZE, NHID, gates=3)} bytes a "
+            "block of 64 rows; phase B (dW, shared with gru_fused_bwd) "
+            "mma.sync.m16n8k16 + ldmatrix.trans, 69632 bytes a 128 x 128 "
+            "tile")
 
 
 GRU_KERNELS = ("gru_fused", "gru_fused_res", "gru_fused_bwd")
@@ -711,6 +721,7 @@ def check_refusals(gen) -> None:
         gru_fused,
         gru_fused_bwd,
         gru_fused_res,
+        gru_fused_supported,
     )
     from context_attentive_ir_tpu_torch.ops.kernels.lstm import (
         fused_supported,
@@ -744,13 +755,17 @@ def check_refusals(gen) -> None:
 
     # fused_supported states the launchers' limits: a shape it accepts runs
     # through all three kernels, one it rejects is refused by the backward
-    # (whose tiles are the largest)
+    # (whose tiles are the largest); float32 above H = 128 runs the
+    # row-tile kernels under their wider launch bounds
     bf16 = torch.bfloat16
     for e, h, dtype in ((448, NHID, bf16), (512, NHID, bf16),
                         (512, 256, bf16), (EMSIZE, 512, bf16),
                         (64, 512, bf16), (300, 100, bf16),
                         (1400, NHID, torch.float32),
                         (1500, NHID, torch.float32),
+                        (EMSIZE, 256, torch.float32),
+                        (EMSIZE, 403, torch.float32),
+                        (EMSIZE, 404, torch.float32),
                         (EMSIZE, 512, torch.float32)):
         ok = fused_supported(e, h, 40, dtype)
         try:
@@ -768,15 +783,42 @@ def check_refusals(gen) -> None:
                                  f"= {ok} but the kernels "
                                  f"{'ran' if ran else 'refused'}")
 
-    def gru_at(kernel, e, h):
-        (x, *w), mask = gru_inputs(gen, torch.float32, 40, 3, e=e, h=h)
+    def gru_at(kernel, e, h, dtype=torch.float32):
+        (x, *w), mask = gru_inputs(gen, dtype, 40, 3, e=e, h=h)
         if kernel == "gru_fused":
             return gru_fused(x, mask, *w)
         if kernel == "gru_fused_res":
             return gru_fused_res(x, mask, *w)
         hb = torch.zeros((1, 40, h), device="cuda")
         return gru_fused_bwd(x, mask, *w, hb,
-                             torch.zeros((40, 3, h), device="cuda"))
+                             torch.zeros((40, 3, h), device="cuda",
+                                         dtype=dtype))
+
+    # gru_fused_supported states the launchers' limits: a shape it accepts
+    # runs through all three kernels, one it rejects is refused by at least
+    # one (bf16: the forward's tiles or kernel 9's f32 tile)
+    for e, h, dtype in ((672, NHID, bf16), (704, NHID, bf16),
+                        (EMSIZE, 403, bf16), (EMSIZE, 416, bf16),
+                        (300, 100, bf16), (1400, NHID, torch.float32),
+                        (1500, NHID, torch.float32),
+                        (EMSIZE, 256, torch.float32),
+                        (EMSIZE, 403, torch.float32),
+                        (EMSIZE, 404, torch.float32)):
+        ok = gru_fused_supported(e, h, 40, dtype)
+        refused = []
+        for k in GRU_KERNELS:
+            try:
+                gru_at(k, e, h, dtype)
+                torch.cuda.synchronize()
+            except RuntimeError as err:
+                refused.append(f"{k}: {err}")
+        log(f"gru_fused_supported(E={e}, H={h}, {dtype}) = {ok}; the "
+            "kernels " + ("refused: " + "; ".join(refused) if refused
+                          else "ran"))
+        if ok == bool(refused):
+            raise AssertionError(f"gru_fused_supported(E={e}, H={h}, "
+                                 f"{dtype}) = {ok} but the kernels "
+                                 f"{'refused' if refused else 'ran'}")
 
     def beamgen_at(e, v=300, **kw):
         x = torch.randn((70, e), generator=gen, device="cuda")
@@ -822,18 +864,25 @@ def check_refusals(gen) -> None:
                       lambda: layer_at("lstm", EMSIZE, 520, torch.float32)),
                      ("RNNLayer gru f32 E=4096 (shared tile)",
                       lambda: layer_at("gru", 4096, NHID, torch.float32)),
+                     ("RNNLayer gru bf16 E=704 (staged tiles beyond shared "
+                      "memory)", lambda: layer_at("gru", 704, NHID, bf16)),
                      ("lstm_recurrence H=192 (H % 128)", lambda: rec_at(192)),
                      ("lstm_recurrence H=640 (threads per block)",
                       lambda: rec_at(640)),
                      ("lstm_recurrence strided x_proj (contiguity)",
                       lambda: rec_at(NHID, strided=True)),
-                     *((f"{k} {what}", lambda k=k, e=e, h=h:
-                        gru_at(k, e, h))
+                     *((f"{k} {what}", lambda k=k, e=e, h=h, dt=dt:
+                        gru_at(k, e, h, dt))
                        for k in GRU_KERNELS
-                       for what, e, h in (("E=4096 (shared tile)", 4096,
-                                           NHID),
-                                          ("H=1024 (threads per block)",
-                                           EMSIZE, 1024))),
+                       for what, e, h, dt in (
+                           ("f32 E=4096 (shared tile)", 4096, NHID,
+                            torch.float32),
+                           ("f32 H=1024 (threads per block)", EMSIZE, 1024,
+                            torch.float32),
+                           ("bf16 E=4096 (tiles beyond shared memory)",
+                            4096, NHID, bf16),
+                           ("bf16 H=1024 (hidden above 512)", EMSIZE, 1024,
+                            bf16))),
                      ("generator_topk_lse E=1024 (shared tile)",
                       lambda: beamgen_at(1024)),
                      ("generator_topk_lse pipeline E=1024 (shared tile)",
@@ -858,8 +907,10 @@ def check_refusals(gen) -> None:
         bwd_at(EMSIZE, NHID, dtype)
     rec_at(NHID)
     layer_at("lstm", 300, 100, bf16)
+    layer_at("gru", 300, 100, bf16)
     for k in GRU_KERNELS:
-        gru_at(k, EMSIZE, NHID)
+        for dtype in (torch.float32, bf16):
+            gru_at(k, EMSIZE, NHID, dtype)
     beamgen_at(EMSIZE)
     beamgen_at(EMSIZE, 304, pipeline=True)
     pool_at(H2)
@@ -2237,12 +2288,15 @@ def card() -> str:
 # have since been redesigned.  Logged beside the new times, never put into
 # the kernels line, which holds only what this run measured.
 EARLIER_MS = {"lstm_fused": 11.269, "lstm_fused_res": 11.256,
-              "lstm_fused_bwd": 44.075, "gru_fused_bwd": 37.372}
+              "lstm_fused_bwd": 44.075, "gru_fused": 10.068,
+              "gru_fused_res": 9.722, "gru_fused_bwd": 37.372}
 
-# --only selectors, in running order.  "lstm" is the LSTM kernels' share of
-# "kernels"; a run with no selector runs every other phase.
-PHASES = ("kernels", "lstm", "serving", "train", "indexed", "gru", "small",
-          "kernel6", "trainer")
+# --only selectors, in running order.  "lstm" and "grukernels" are the LSTM
+# and GRU kernels' shares of "kernels"; a run with no selector runs every
+# other phase.
+PHASES = ("kernels", "lstm", "grukernels", "serving", "train", "indexed",
+          "gru", "small", "kernel6", "trainer")
+SHARES = {"lstm", "grukernels"}
 
 
 def main() -> int:
@@ -2254,7 +2308,7 @@ def main() -> int:
     if any(p not in PHASES for p in only):
         ap.error(f"--only takes phases of {PHASES}")
     full = not only
-    run = set(only) if only else set(PHASES) - {"lstm"}
+    run = set(only) if only else set(PHASES) - SHARES
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -2288,19 +2342,20 @@ def main() -> int:
 
     errs = {}
 
-    def check_lstm():
-        errs["fwd_lstm"] = check_forward(gen, "lstm")
-        errs["pair_lstm"] = check_train_pair(gen, "lstm")
-        tiles = check_lstm_tiles(gen)
-        for k, v in tiles.items():
-            d = errs["pair_lstm"][k]
+    def check_rnn(rnn):
+        errs[f"fwd_{rnn}"] = check_forward(gen, rnn)
+        errs[f"pair_{rnn}"] = check_train_pair(gen, rnn)
+        for k, v in check_tiles(gen, rnn).items():
+            d = errs[f"pair_{rnn}"][k]
             d[torch.bfloat16] = max(d[torch.bfloat16], v)
+
+    def check_lstm():
+        check_rnn("lstm")
         errs["rec"] = check_recurrence(gen)
 
     def check_all():
         check_lstm()
-        errs["fwd_gru"] = check_forward(gen, "gru")
-        errs["pair_gru"] = check_train_pair(gen, "gru")
+        check_rnn("gru")
         errs["beam"] = check_beamgen(gen)
         errs["slate"] = check_slate(gen)
         errs["int8"] = check_beamgen_modes(gen)
@@ -2308,8 +2363,11 @@ def main() -> int:
 
     if "kernels" in run:
         phase("kernel checks", check_all)
-    elif "lstm" in run:
-        phase("lstm kernel checks", check_lstm)
+    elif run & SHARES:
+        if "lstm" in run:
+            phase("lstm kernel checks", check_lstm)
+        if "grukernels" in run:
+            phase("gru kernel checks", lambda: check_rnn("gru"))
     elif "kernel6" in run:
         errs["rec"] = phase("kernel 6 checks",
                             lambda: check_recurrence(gen))

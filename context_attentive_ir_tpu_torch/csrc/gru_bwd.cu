@@ -63,16 +63,18 @@ using namespace cair_lstm;
 
 constexpr int kSaved = 5;  // per step: h_prev, r, z, n, hn
 
-template <typename T>
-__global__ void gru_bwd_cell_kernel(
-    const T* __restrict__ x, const uint8_t* __restrict__ mask,
-    const T* __restrict__ w_ih, const T* __restrict__ b_ih,
-    const T* __restrict__ w_hh, const T* __restrict__ b_hh,
-    const T* __restrict__ w_ih_t, const T* __restrict__ w_hh_t,
-    const float* __restrict__ hb, const T* __restrict__ dout,
-    T* __restrict__ dx, T* __restrict__ dg_ws, T* __restrict__ h_prev_ws,
-    float* __restrict__ act, float* __restrict__ db_part, int n_rows,
-    int n_steps, int e, int h_dim, int reverse, int tc) {
+// kBound: the launch bound (row_tile_bound)
+template <typename T, int kBound>
+__global__ void __launch_bounds__(kBound)
+gru_bwd_cell_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
+                    const T* __restrict__ w_ih, const T* __restrict__ b_ih,
+                    const T* __restrict__ w_hh, const T* __restrict__ b_hh,
+                    const T* __restrict__ w_ih_t, const T* __restrict__ w_hh_t,
+                    const float* __restrict__ hb, const T* __restrict__ dout,
+                    T* __restrict__ dx, T* __restrict__ dg_ws,
+                    T* __restrict__ h_prev_ws, float* __restrict__ act,
+                    float* __restrict__ db_part, int n_rows, int n_steps, int e,
+                    int h_dim, int reverse, int tc) {
   extern __shared__ float4 smem4[];
   float* tile = reinterpret_cast<float*>(smem4);
 
@@ -304,15 +306,18 @@ int launch(const void* x, const void* mask, const void* w_ih,
   if (n_rows > 0 && n_steps > 0) {
     const int tile_rows = (e + h_dim) > g4 ? (e + h_dim) : g4;
     const size_t smem = (size_t)tile_rows * kStride * sizeof(float);
-    err = cudaFuncSetAttribute(gru_bwd_cell_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    const int bound = row_tile_bound(kRowGroups * h_dim);
+    if (bound == 0) return (int)cudaErrorInvalidValue;
+    auto* kernel = bound == 256   ? gru_bwd_cell_kernel<T, 256>
+                   : bound == 512 ? gru_bwd_cell_kernel<T, 512>
+                                  : gru_bwd_cell_kernel<T, 1024>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) {  // E + H or 4H too large for the shared tile
       cudaGetLastError();
       return (int)err;
     }
-    gru_bwd_cell_kernel<T><<<L.n_blocks, kRowGroups * h_dim, smem,
-                             stream>>>(
+    kernel<<<L.n_blocks, kRowGroups * h_dim, smem, stream>>>(
         static_cast<const T*>(x), static_cast<const uint8_t*>(mask),
         static_cast<const T*>(w_ih), static_cast<const T*>(b_ih),
         static_cast<const T*>(w_hh), static_cast<const T*>(b_hh),

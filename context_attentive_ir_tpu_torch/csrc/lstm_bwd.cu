@@ -77,16 +77,18 @@ using namespace cair_lstm;
 
 constexpr int kSaved = 6;  // per step: i, f, g, o, c_prev, c_new
 
-template <typename T>
-__global__ void lstm_bwd_cell_kernel(
-    const T* __restrict__ x, const uint8_t* __restrict__ mask,
-    const T* __restrict__ w_ih, const T* __restrict__ bias,
-    const T* __restrict__ w_hh, const T* __restrict__ w_ih_t,
-    const T* __restrict__ w_hh_t, const float* __restrict__ hb,
-    const float* __restrict__ cb, const T* __restrict__ dout,
-    T* __restrict__ dx, T* __restrict__ dgates_ws, T* __restrict__ h_prev_ws,
-    float* __restrict__ act, float* __restrict__ db_part, int n_rows,
-    int n_steps, int e, int h_dim, int reverse, int tc) {
+// kBound: the launch bound (row_tile_bound)
+template <typename T, int kBound>
+__global__ void __launch_bounds__(kBound)
+lstm_bwd_cell_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
+                     const T* __restrict__ w_ih, const T* __restrict__ bias,
+                     const T* __restrict__ w_hh, const T* __restrict__ w_ih_t,
+                     const T* __restrict__ w_hh_t, const float* __restrict__ hb,
+                     const float* __restrict__ cb, const T* __restrict__ dout,
+                     T* __restrict__ dx, T* __restrict__ dgates_ws,
+                     T* __restrict__ h_prev_ws, float* __restrict__ act,
+                     float* __restrict__ db_part, int n_rows, int n_steps,
+                     int e, int h_dim, int reverse, int tc) {
   extern __shared__ float4 smem4[];
   float* tile = reinterpret_cast<float*>(smem4);
 
@@ -278,19 +280,20 @@ lstm_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
   using namespace tiles;
   extern __shared__ __align__(16) char smem[];
   constexpr int M = 16 * MT;
-  const int xs = x_stride(e), hs = h_stride(h_dim), ws = w_stride(h_dim);
+  const int xs = x_stride(e), hs = h_stride(h_dim);
+  const int ws = w_stride(h_dim, kLstmGates);
   const int g4 = 4 * h_dim;
   const int ex_ld = h_dim + 8;  // floats per row of the dh exchange
   WeightRing ring;
-  ring.init(smem, w_staged, e, h_dim, ks, 2LL * n_steps);
+  ring.init(smem, w_staged, e, h_dim, kLstmGates, ks, 2LL * n_steps);
   char* uni = ring.base + kStages * ring.slab_bytes;
   char* xbuf[2];
   xbuf[0] = uni;
   xbuf[1] = uni + M * xs;
   char* h_tile = uni + 2 * M * xs;
   char* dg_tile = uni;
-  float* exch =
-      reinterpret_cast<float*>(uni + staged_bytes(e, h_dim, M, true));
+  float* exch = reinterpret_cast<float*>(
+      uni + staged_bytes(e, h_dim, kLstmGates, M, true));
   float* bias_s = exch + M * ex_ld;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -380,7 +383,7 @@ lstm_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
             mb |= 1u << (mt * 2 + half);
 
       float acc[MT][G][4][4];
-      step_gates<G, MT>(
+      step_gates<kLstmGates, G, MT>(
           acc, ring, n, xbuf[k & 1], h_tile, bias_s, ug0, lane, [&]() {
             if (k + 1 < len)
               load_x_tile(xbuf[(k + 1) & 1], x, row0, M, n_rows, n_steps,
@@ -669,14 +672,18 @@ int launch_cell(const void* x, const void* mask, const void* w_ih,
   const int g4 = 4 * h_dim;
   const int tile_rows = (e + h_dim) > g4 ? (e + h_dim) : g4;
   const size_t smem = (size_t)tile_rows * kStride * sizeof(float);
+  const int bound = row_tile_bound(kRowGroups * h_dim);
+  if (bound == 0) return (int)cudaErrorInvalidValue;
+  auto* kernel = bound == 256   ? lstm_bwd_cell_kernel<T, 256>
+                 : bound == 512 ? lstm_bwd_cell_kernel<T, 512>
+                                : lstm_bwd_cell_kernel<T, 1024>;
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_bwd_cell_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) {  // E + H or 4H too large for the shared tile
     cudaGetLastError();
     return (int)err;
   }
-  lstm_bwd_cell_kernel<T><<<L.n_blocks, kRowGroups * h_dim, smem, stream>>>(
+  kernel<<<L.n_blocks, kRowGroups * h_dim, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const uint8_t*>(mask),
       static_cast<const T*>(w_ih), static_cast<const T*>(b),
       static_cast<const T*>(w_hh), static_cast<const T*>(w_ih_t),
@@ -697,7 +704,8 @@ int launch_mma(const void* x, const void* mask, const void* w_ih,
                int e, int h_dim, int reverse, int tc, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   int ks = 0;
-  const size_t smem = tiles::mma_smem(e, h_dim, 16 * MT, true, &ks);
+  const size_t smem =
+      tiles::mma_smem(e, h_dim, tiles::kLstmGates, 16 * MT, true, &ks);
   if (smem == 0) return (int)cudaErrorInvalidValue;  // E + H too large
   cudaError_t err = cudaFuncSetAttribute(
       lstm_bwd_mma_kernel<G, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,

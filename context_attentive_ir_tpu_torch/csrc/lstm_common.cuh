@@ -4,16 +4,18 @@
 //
 // Two families live here.
 //
-// - The CUDA-core row-tile layout (the float32 LSTM, kernel 6 and the GRU
-//   kernels): a block owns kRows = 32 rows and has kRowGroups * H threads;
-//   thread (rg, j) owns hidden unit j of rows rg*16 .. rg*16+15.  Operands
-//   of a product are staged in shared memory k-major in f32, one padded row
-//   of kStride floats per k, so a thread reads its 16 rows as four float4
-//   broadcasts and multiplies with exact f32 FMAs (dot_rows).  Those
+// - The CUDA-core row-tile layout (the float32 LSTM and GRU forwards,
+//   kernel 6 and the GRU backward's phase A): a block owns kRows = 32 rows
+//   and has kRowGroups * H threads; thread (rg, j) owns hidden unit j of
+//   rows rg*16 .. rg*16+15.  Operands of a product are staged in shared
+//   memory k-major in f32, one padded row of kStride floats per k, so a
+//   thread reads its 16 rows as four float4 broadcasts and multiplies with
+//   exact f32 FMAs (dot_rows).  Those
 //   broadcasts, not FMAs or bytes, bound that layout; the bf16 LSTM kernels
-//   left it for tensor-core tiles (lstm_mma.cuh).
+//   and GRU forwards left it for tensor-core tiles (lstm_mma.cuh).
 // - The bf16 tensor-core primitives (namespace tiles: `cp.async`,
-//   `ldmatrix`, `mma.sync.m16n8k16`), used by lstm_mma.cuh and by phase B.
+//   `ldmatrix`, `mma.sync.m16n8k16`), used by lstm_mma.cuh (the bf16 LSTM
+//   and GRU forwards, the LSTM's phase A) and by phase B.
 //
 // The backward kernels share the weight-gradient reduction (phase B):
 // launch_wgrad_partial (tensor-core tiles for bf16, exact f32 FMAs for
@@ -33,6 +35,17 @@ constexpr int kRowsPerThread = 16;
 constexpr int kRowGroups = 2;
 constexpr int kRows = kRowsPerThread * kRowGroups;  // rows per block
 constexpr int kStride = kRows + 4;  // padded shared row, keeps 16-B alignment
+
+// A row-tile block has kRowGroups * H threads, and all of them must find
+// their registers in the SM's 65,536: the kernels (up to 255 registers a
+// thread) are instantiated with __launch_bounds__ of 256, 512 and 1024
+// threads (at most 255, 128 and 64 registers a thread; spilling above 256)
+// and launched through the smallest that holds the block.  0: no bound
+// holds it.
+inline int row_tile_bound(int threads) {
+  return threads <= 256 ? 256 : threads <= 512 ? 512 : threads <= 1024 ? 1024
+                                                                        : 0;
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -194,6 +207,17 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// two transposed 8 x 8 matrices: rows from the addresses of lanes 0 .. 15
+// (lanes 16 .. 31 pass addresses that are not read)
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_addr(p))
       : "memory");
 }

@@ -57,17 +57,15 @@ namespace {
 using namespace cair_lstm;
 
 // kRes: also store the chunk-boundary state into hb / cb [n_chunks, B, H].
-// Chunk c holds time steps c*tc .. min((c+1)*tc, T) - 1.
-template <typename T, bool kRes>
-__global__ void lstm_fwd_kernel(const T* __restrict__ x,
-                                const uint8_t* __restrict__ mask,
-                                const T* __restrict__ w_ih,
-                                const T* __restrict__ bias,
-                                const T* __restrict__ w_hh,
-                                T* __restrict__ out, float* __restrict__ hb,
-                                float* __restrict__ cb, int n_rows,
-                                int n_steps, int e, int h_dim, int reverse,
-                                int tc) {
+// Chunk c holds time steps c*tc .. min((c+1)*tc, T) - 1.  kBound: the
+// launch bound (row_tile_bound).
+template <typename T, bool kRes, int kBound>
+__global__ void __launch_bounds__(kBound)
+lstm_fwd_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
+                const T* __restrict__ w_ih, const T* __restrict__ bias,
+                const T* __restrict__ w_hh, T* __restrict__ out,
+                float* __restrict__ hb, float* __restrict__ cb, int n_rows,
+                int n_steps, int e, int h_dim, int reverse, int tc) {
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);  // [(e + h_dim)][kStride]
 
@@ -151,7 +149,7 @@ lstm_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
   constexpr int M = 16 * MT;
   const int xs = x_stride(e), hs = h_stride(h_dim);
   WeightRing ring;
-  ring.init(smem, w_staged, e, h_dim, ks, n_steps);
+  ring.init(smem, w_staged, e, h_dim, kLstmGates, ks, n_steps);
   char* xbuf[2];
   xbuf[0] = ring.base + kStages * ring.slab_bytes;
   xbuf[1] = xbuf[0] + M * xs;
@@ -228,12 +226,12 @@ lstm_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
     }
 
     float acc[MT][G][4][4];
-    step_gates<G, MT>(acc, ring, n, xbuf[s & 1], h_tile, bias_s, ug0, lane,
-                      [&]() {
-                        if (s + 1 < n_steps)
-                          load_x_tile(xbuf[(s + 1) & 1], x, row0, M, n_rows,
-                                      n_steps, reverse ? t - 1 : t + 1, e);
-                      });
+    step_gates<kLstmGates, G, MT>(
+        acc, ring, n, xbuf[s & 1], h_tile, bias_s, ug0, lane, [&]() {
+          if (s + 1 < n_steps)
+            load_x_tile(xbuf[(s + 1) & 1], x, row0, M, n_rows, n_steps,
+                        reverse ? t - 1 : t + 1, e);
+        });
     __syncthreads();  // every warp has read the h tile of this step
 
     // cell update; masked steps carry the state and write zeros
@@ -282,7 +280,8 @@ int launch_mma(const void* x, const void* mask, const void* w_ih,
                cudaStream_t stream) {
   using namespace tiles;
   int ks = 0;
-  const size_t smem = mma_smem(e, h_dim, 16 * MT, false, &ks);
+  const size_t smem =
+      mma_smem(e, h_dim, kLstmGates, 16 * MT, false, &ks);
   if (smem == 0) return (int)cudaErrorInvalidValue;  // E + H too large
   cudaError_t err = cudaFuncSetAttribute(
       lstm_fwd_mma_kernel<G, MT, kRes>,
@@ -336,16 +335,20 @@ int launch(const void* x, const void* mask, const void* w_ih, const void* b,
            int n_steps, int e, int h_dim, int reverse, int tc,
            cudaStream_t stream) {
   const size_t smem = (size_t)(e + h_dim) * kStride * sizeof(float);
+  const int bound = row_tile_bound(kRowGroups * h_dim);
+  if (bound == 0) return (int)cudaErrorInvalidValue;
+  auto* kernel = bound == 256   ? lstm_fwd_kernel<T, kRes, 256>
+                 : bound == 512 ? lstm_fwd_kernel<T, kRes, 512>
+                                : lstm_fwd_kernel<T, kRes, 1024>;
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_fwd_kernel<T, kRes>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) {  // e.g. E + H too large for the shared tile
     cudaGetLastError();      // clear it so the next launch reads clean
     return (int)err;
   }
   const dim3 grid((n_rows + kRows - 1) / kRows);
   const dim3 block(kRowGroups * h_dim);
-  lstm_fwd_kernel<T, kRes><<<grid, block, smem, stream>>>(
+  kernel<<<grid, block, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const uint8_t*>(mask),
       static_cast<const T*>(w_ih), static_cast<const T*>(b),
       static_cast<const T*>(w_hh), static_cast<T*>(out),

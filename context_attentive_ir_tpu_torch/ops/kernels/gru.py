@@ -7,12 +7,10 @@ Gate order and semantics are torch's, as in the JAX kernels: r, z, n with
 stays separate because ``r`` multiplies it in the n slot.
 
 Kernel 7, ``gru_fused``, replaces the TPU kernel ``_gru_fused_kernel``
-(``_gru_fused_impl``) in ``context_attentive_ir_tpu/ops/pallas/gru.py``:
-``csrc/gru_fwd.cu``, kernel 1's layout (one thread block per 32 rows
-running every time step with h in registers, f32), the input projection
-``x_t @ W_ih`` computed inside the kernel so the ``[B, T, 3H]`` gates never
-reach device memory.  It computes no gradient and refuses inputs that need
-one.
+(``_gru_fused_impl``) in ``context_attentive_ir_tpu/ops/pallas/gru.py``
+(``csrc/gru_fwd.cu``): the input projection ``x_t @ W_ih`` is computed
+inside the kernel, so the ``[B, T, 3H]`` gates never reach device memory.
+It computes no gradient and refuses inputs that need one.
 
 Kernels 8 and 9 are the training pair behind ``gru_fused_train``, the
 counterpart of the ``gru_pallas_fused`` custom_vjp:
@@ -31,9 +29,26 @@ counterpart of the ``gru_pallas_fused`` custom_vjp:
 
 Bounds on the H100 (doc encoder, one direction, [16000, 30, 256] -> 128,
 bf16): kernels 7 and 8 do 2*B*T*(E+H)*3H = 1.42e11 flops, 0.143 ms at the
-bf16 tensor-core peak; kernel 9 4.25e11 flops, 0.429 ms: all compute-bound.
-These first versions use CUDA-core FMAs and stream the weights from L2, so
-they run far above their bounds; ``PERF.md`` records the gap.
+bf16 tensor-core peak; kernel 9 4.25e11 flops, 0.429 ms: all bound by
+operations, through T steps that depend on each other.
+
+What the design does about it, in bfloat16 (the type every full-width path
+runs): kernels 7 and 8 run ``[x_t | h] @ [W_ih; W_hh]`` as
+``mma.sync.m16n8k16`` tiles (bf16 in, f32 accumulate) on the LSTM's tiles
+(``csrc/lstm_mma.cuh`` with three gate blocks): a block of 8 warps owns 64
+rows for all T steps, the weights (``stage_lstm_weights``, ``[E + H, 3H +
+8]``) stream from L2 through a ring of bulk copies, and a thread keeps four
+f32 slots per (row, unit) -- r and z from every slab, the n gate's
+``x @ W_in`` and ``h @ W_hn`` apart, since r multiplies only the second --
+with h carried in f32 registers.  Those kernels take E and H that are
+multiples of 32 and 16-byte aligned tensors; ``pad_gru_operands`` zero-pads
+other sizes here (a padded unit has r = z = 1/2 and n = 0, so its h stays
+exactly 0) and the results are cut back.  Kernel 9 and float32 keep the
+first version's layout: one thread block per 32 rows, a thread per hidden
+unit of 16 rows, ``[x_t | h]`` staged in f32, exact f32 FMAs, the weights
+read through L2 (phase B of kernel 9 is tensor-core tiles for bf16).
+``gru_fused_supported`` states the shapes each dtype's kernels hold;
+``PERF.md`` records times and bounds.
 """
 
 from __future__ import annotations
@@ -44,26 +59,57 @@ from ...device import check_on, resolve_device
 from .lstm import (
     _DTYPES,
     F32_STRIDE,
+    MAX_HIDDEN_BF16,
     SMEM_LIMIT,
+    TILE_ALIGN,
     _first_in_chunk,
+    _round_up,
     _stream,
     chunk_len,
+    pad_operands,
+    stage_lstm_weights,
+    tile_smem_bytes,
 )
+
+GATES = 3  # r, z, n
 
 
 def gru_fused_supported(embed: int, hidden: int, rows: int,
                         dtype: torch.dtype = torch.float32) -> bool:
     """Whether kernels 7, 8 and 9 hold an ``[rows, T, embed] -> hidden`` GRU
-    (the counterpart of the JAX ``gru_fused_supported``, with this card's
-    limits, the same for float32 and bfloat16): a block has
-    ``2 * hidden <= 1024`` threads and stages ``max(embed + hidden,
+    in ``dtype`` (the counterpart of the JAX ``gru_fused_supported``, with
+    this card's limits).  Kernel 9 (and float32's kernels 7 and 8): a block
+    has ``2 * hidden <= 1024`` threads and stages ``max(embed + hidden,
     4 * hidden)`` k-rows of 36 floats in shared memory (the backward's four
-    gradient slots are the wider tile)."""
+    gradient slots are the wider tile).  bfloat16 adds the tensor-core
+    forward's tiles, since a layer that trains needs both: after padding to
+    multiples of 32, ``hidden <= 512`` and the three-gate tiles fit a
+    block's shared memory (E <= 672 at H = 128; kernel 9 sets H <= 403 at
+    E = 256)."""
     if embed < 1 or hidden < 1 or rows < 1 or dtype not in _DTYPES:
         return False
-    return (2 * hidden <= 1024
-            and max(embed + hidden, 4 * hidden) * F32_STRIDE * 4
-            <= SMEM_LIMIT)
+    kernel9 = (2 * hidden <= 1024
+               and max(embed + hidden, 4 * hidden) * F32_STRIDE * 4
+               <= SMEM_LIMIT)
+    if dtype == torch.float32:
+        return kernel9
+    e, h = _round_up(embed, TILE_ALIGN), _round_up(hidden, TILE_ALIGN)
+    return (kernel9 and h <= MAX_HIDDEN_BF16
+            and tile_smem_bytes(e, h, gates=GATES) > 0)
+
+
+def pad_gru_operands(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
+                     w_hh: torch.Tensor, b_hh: torch.Tensor):
+    """The operands of a GRU with E and H zero-padded up to multiples of
+    ``TILE_ALIGN``: ``x [B, T, Ep]``, ``w_ih [Ep, 3Hp]``, ``b_ih [3Hp]``,
+    ``w_hh [Hp, 3Hp]``, ``b_hh [3Hp]``, every tensor 16-byte aligned.  The
+    padded GRU's first H units equal the original's: a padded unit has zero
+    weights and biases, so r = z = 1/2 and n = 0, its h stays exactly 0 from
+    the zero start and it feeds nothing back.  Aligned operands come back as
+    they are (no copy)."""
+    x, w_ih, w_hh, b_ih, b_hh = pad_operands(x, w_ih, w_hh, (b_ih, b_hh),
+                                             GATES)
+    return x, w_ih, b_ih, w_hh, b_hh
 
 
 def _cell(xp: torch.Tensor, hp: torch.Tensor, h: torch.Tensor):
@@ -206,6 +252,17 @@ def _pointers(*tensors):
     return [t.data_ptr() for t in tensors]
 
 
+def _tile_operands(x, w_ih, b_ih, w_hh, b_hh):
+    """bfloat16: the operands as kernels 7 and 8's tiles take them --
+    padded (``pad_gru_operands``), with the staged ``[W_ih; W_hh]`` in
+    ``w_ih``'s place; float32: as they are.  Returns them and (Ep, Hp)."""
+    if x.dtype == torch.bfloat16:
+        x, w_ih, b_ih, w_hh, b_hh = pad_gru_operands(x, w_ih, b_ih, w_hh,
+                                                     b_hh)
+        w_ih = stage_lstm_weights(w_ih, w_hh)
+    return (x, w_ih, b_ih, w_hh, b_hh), (x.shape[-1], w_hh.shape[0])
+
+
 def gru_fused(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
               b_ih: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
               reverse: bool = False, device="cuda") -> torch.Tensor:
@@ -213,7 +270,9 @@ def gru_fused(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
     [H, 3H], b_hh [3H] (one dtype, float32 or bfloat16) -> h [B, T, H] in
     x's dtype.
 
-    On CUDA tensors this launches ``cair_gru_fwd``; on CPU tensors
+    On CUDA tensors this launches ``cair_gru_fwd`` (bfloat16: on operands
+    padded to the tiles' multiple of 32 and the staged weights, the output
+    cut back to H); on CPU tensors
     (``device="cpu"``) it runs ``gru_fused_reference``.  It computes no
     gradient: with grad mode on and an input that requires one it raises
     (``gru_fused_train`` is the differentiable form)."""
@@ -230,15 +289,16 @@ def gru_fused(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
         raise ValueError(f"gru_fused runs on cuda or cpu, not {dev}")
     B, T, E, H = _check_cuda_args("gru_fused", x, mask, w_ih, b_ih, w_hh,
                                   b_hh)
-    out = torch.empty((B, T, H), dtype=x.dtype, device=x.device)
+    ops, (Ep, Hp) = _tile_operands(x, w_ih, b_ih, w_hh, b_hh)
+    out = torch.empty((B, T, Hp), dtype=x.dtype, device=x.device)
     from .build import check, load_library
 
     # the launcher reports a hidden size or E + H its block cannot hold
     check(load_library().cair_gru_fwd(
-        *_pointers(x, mask, w_ih, b_ih, w_hh, b_hh, out), B, T, E, H,
-        int(reverse), _DTYPES[x.dtype], _stream(x)), "cair_gru_fwd")
+        *_pointers(ops[0], mask, *ops[1:], out), B, T, Ep, Hp, int(reverse),
+        _DTYPES[x.dtype], _stream(x)), "cair_gru_fwd")
     gru_fused.launches += 1
-    return out
+    return out if Hp == H else out[..., :H].contiguous()
 
 
 gru_fused.launches = 0
@@ -261,15 +321,19 @@ def gru_fused_res(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
     B, T, E, H = _check_cuda_args("gru_fused_res", x, mask, w_ih, b_ih, w_hh,
                                   b_hh)
     tc = chunk_len(T, time_chunk)
-    out = torch.empty((B, T, H), dtype=x.dtype, device=x.device)
-    hb = torch.empty((-(-T // tc), B, H), dtype=torch.float32,
+    ops, (Ep, Hp) = _tile_operands(x, w_ih, b_ih, w_hh, b_hh)
+    out = torch.empty((B, T, Hp), dtype=x.dtype, device=x.device)
+    hb = torch.empty((-(-T // tc), B, Hp), dtype=torch.float32,
                      device=x.device)
     from .build import check, load_library
 
     check(load_library().cair_gru_fwd_res(
-        *_pointers(x, mask, w_ih, b_ih, w_hh, b_hh, out, hb), B, T, E, H,
+        *_pointers(ops[0], mask, *ops[1:], out, hb), B, T, Ep, Hp,
         int(reverse), tc, _DTYPES[x.dtype], _stream(x)), "cair_gru_fwd_res")
     gru_fused_res.launches += 1
+    if Hp != H:
+        # kernel 9 takes the unpadded operands and boundaries
+        out, hb = (t[..., :H].contiguous() for t in (out, hb))
     return out, hb
 
 

@@ -74,14 +74,15 @@ def tile_config(hidden: int) -> tuple[int, int]:
     return 8, 1
 
 
-def tile_smem_bytes(e: int, h: int, backward: bool = False) -> int:
-    """Dynamic shared memory of the bf16 forward (or backward phase A)
-    kernel at padded widths ``e``, ``h``: the ring's mbarriers (64 bytes),
-    its three slabs of 32 (else 16) k-rows, the staged tiles, the bias; 0 if
-    neither depth fits
-    (``mma_smem`` in ``csrc/lstm_mma.cuh``)."""
+def tile_smem_bytes(e: int, h: int, backward: bool = False,
+                    gates: int = 4) -> int:
+    """Dynamic shared memory of the bf16 forward (or LSTM backward phase A)
+    kernel at padded widths ``e``, ``h`` with ``gates`` gate blocks (4: the
+    LSTM, 3: the GRU): the ring's mbarriers (64 bytes), its three slabs of
+    32 (else 16) k-rows, the staged tiles, the bias (four f32 slots of H);
+    0 if neither depth fits (``mma_smem`` in ``csrc/lstm_mma.cuh``)."""
     m = 16 * tile_config(h)[1]
-    x_row, h_row, w_row = 2 * e + 16, 2 * h + 16, 8 * h + 16
+    x_row, h_row, w_row = 2 * e + 16, 2 * h + 16, 2 * gates * h + 16
     tiles = 2 * m * x_row + m * h_row
     if backward:
         tiles = max(tiles, m * w_row) + m * (h + 8) * 4
@@ -119,27 +120,51 @@ def _pad_last(t: torch.Tensor, size: int) -> torch.Tensor:
     return torch.nn.functional.pad(t, (0, size - t.shape[-1]))
 
 
-def _pad_gates(w: torch.Tensor, h: int, hp: int) -> torch.Tensor:
-    """``[..., 4h]`` (gate blocks i, f, g, o) -> ``[..., 4hp]``, each block
-    zero-padded."""
+def _pad_gates(w: torch.Tensor, h: int, hp: int,
+               gates: int = 4) -> torch.Tensor:
+    """``[..., gates * h]`` (gate blocks: i, f, g, o for the LSTM, r, z, n
+    for the GRU) -> ``[..., gates * hp]``, each block zero-padded."""
     if h == hp:
         return w
     lead = w.shape[:-1]
-    return _pad_last(w.reshape(*lead, 4, h), hp).reshape(*lead, 4 * hp)
+    return _pad_last(w.reshape(*lead, gates, h), hp).reshape(*lead,
+                                                             gates * hp)
 
 
-def _cut_gates(w: torch.Tensor, h: int, hp: int) -> torch.Tensor:
+def _cut_gates(w: torch.Tensor, h: int, hp: int,
+               gates: int = 4) -> torch.Tensor:
     """The inverse of ``_pad_gates``."""
     if h == hp:
         return w
     lead = w.shape[:-1]
-    return w.reshape(*lead, 4, hp)[..., :h].reshape(*lead, 4 * h)
+    return w.reshape(*lead, gates, hp)[..., :h].reshape(*lead, gates * h)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous at a 16-byte aligned address (a copy if it is not)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def pad_operands(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
+                 biases, gates: int):
+    """``(x, w_ih, w_hh, *biases)`` of a recurrence with ``gates`` gate
+    blocks, E and H zero-padded up to multiples of ``TILE_ALIGN`` (``x [B,
+    T, Ep]``, ``w_ih [Ep, gates * Hp]``, ``w_hh [Hp, gates * Hp]``, each
+    bias ``[gates * Hp]``), every tensor 16-byte aligned; aligned operands
+    come back as they are (no copy).  ``pad_lstm_operands`` and
+    ``pad_gru_operands`` state why the padding is exact."""
+    e, h = x.shape[-1], w_hh.shape[0]
+    ep, hp = _round_up(e, TILE_ALIGN), _round_up(h, TILE_ALIGN)
+    x = _pad_last(x, ep)
+    w_ih = _pad_gates(w_ih, h, hp, gates)
+    if ep != e:
+        w_ih = torch.nn.functional.pad(w_ih, (0, 0, 0, ep - e))
+    w_hh = _pad_gates(w_hh, h, hp, gates)
+    if hp != h:
+        w_hh = torch.nn.functional.pad(w_hh, (0, 0, 0, hp - h))
+    biases = [_pad_gates(b, h, hp, gates) for b in biases]
+    return tuple(_aligned(t) for t in (x, w_ih, w_hh, *biases))
 
 
 def pad_lstm_operands(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
@@ -151,17 +176,8 @@ def pad_lstm_operands(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
     original's: a padded unit has zero weights and bias, so its gates are 0,
     its c and h stay exactly 0 and it feeds nothing back; its gradients are
     0.  Aligned operands come back as they are (no copy)."""
-    e, h = x.shape[-1], w_hh.shape[0]
-    ep, hp = _round_up(e, TILE_ALIGN), _round_up(h, TILE_ALIGN)
-    x = _pad_last(x, ep)
-    w_ih = _pad_gates(w_ih, h, hp)
-    if ep != e:
-        w_ih = torch.nn.functional.pad(w_ih, (0, 0, 0, ep - e))
-    b = _pad_gates(b, h, hp)
-    w_hh = _pad_gates(w_hh, h, hp)
-    if hp != h:
-        w_hh = torch.nn.functional.pad(w_hh, (0, 0, 0, hp - h))
-    return tuple(_aligned(t) for t in (x, w_ih, b, w_hh))
+    x, w_ih, w_hh, b = pad_operands(x, w_ih, w_hh, (b,), 4)
+    return x, w_ih, b, w_hh
 
 
 def chunk_len(n_steps: int, time_chunk: int) -> int:
@@ -286,10 +302,10 @@ def lstm_fused_bwd_reference(x, mask, w_ih, b, w_hh, hb, cb, dout,
 
 def stage_lstm_weights(w_ih: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     """``[W_ih; W_hh]`` as the bf16 kernels' weight ring copies it: one
-    contiguous ``[E + H, 4H + 8]`` matrix, each row followed by 8 zero
-    columns (the 16 bytes of padding a staged row has in shared memory), so
-    a slab of k-rows is one contiguous range (~400 KB a call at the main
-    path's widths)."""
+    contiguous ``[E + H, G + 8]`` matrix (G = 4H for the LSTM, 3H for the
+    GRU), each row followed by 8 zero columns (the 16 bytes of padding a
+    staged row has in shared memory), so a slab of k-rows is one contiguous
+    range (~400 KB a call at the main path's LSTM widths)."""
     return _aligned(torch.nn.functional.pad(torch.cat([w_ih, w_hh], 0),
                                             (0, 8)))
 

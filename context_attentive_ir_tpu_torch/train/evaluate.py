@@ -107,9 +107,12 @@ def evaluate_ranker(score_fn: Callable, batches: Iterable,
     dump = open(dump_path, "w") if dump_path else None
     for batch in batches:
         scores = np.asarray(score_fn(batch), np.float32)
-        # session models: [B, S, N]
-        labels, cand = batch.clicks, batch.cand_mask
-        rows = batch.turn_mask & batch.row_mask[:, None]
+        if scores.ndim == 3:   # session models: [B, S, N]
+            labels, cand = batch.clicks, batch.cand_mask
+            rows = batch.turn_mask & batch.row_mask[:, None]
+        else:                  # rankers: [B, N]
+            labels, cand = batch.labels, batch.cand_mask
+            rows = batch.row_mask
         all_scores.append(scores.reshape(-1, scores.shape[-1]))
         all_labels.append(labels.reshape(-1, labels.shape[-1]))
         all_cand.append(cand.reshape(-1, cand.shape[-1]))

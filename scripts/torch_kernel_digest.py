@@ -1,0 +1,98 @@
+#!/usr/bin/env python3
+"""SHA-256 digests of the PyTorch port's recurrent kernels' outputs on
+seeded inputs, to show whether two checkouts compute the same bits.
+
+    python3 scripts/torch_kernel_digest.py [--root DIR]
+
+Builds the kernel library of the checkout at DIR (default: the one this
+script lies in) and prints one line per kernel, dtype and direction:
+kernels 1, 4 and 5 (LSTM) and 7, 8 and 9 (GRU) at the doc encoder's shape
+[16000, 30, 256] -> 128, time chunk 6, in float32 and bfloat16, with a
+digest of each output's bytes.  Two checkouts print the same line for a
+kernel exactly when it gives the same bits.  The backward kernels (5, 9)
+are fed the boundaries of their residual kernels' plain versions, so their
+lines do not move with kernels 4 and 8.  Needs a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import importlib
+import sys
+from pathlib import Path
+
+import torch
+
+ROWS, STEPS, EMBED, HIDDEN, TIME_CHUNK = 16000, 30, 256, 128, 6
+
+
+def digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
+def inputs(gates: int, n_bias: int, dtype):
+    """x, mask, [w_ih, biases..., w_hh] (the kernels' argument order is
+    built by the caller), dout; made on the CPU from one seed."""
+    gen = torch.Generator().manual_seed(gates)
+    x = torch.randn((ROWS, STEPS, EMBED), generator=gen) * 0.5
+    w_ih = torch.randn((EMBED, gates * HIDDEN), generator=gen) * 0.08
+    w_hh = torch.randn((HIDDEN, gates * HIDDEN), generator=gen) * 0.08
+    biases = [torch.randn((gates * HIDDEN,), generator=gen) * 0.1
+              for _ in range(n_bias)]
+    lens = torch.randint(0, STEPS + 1, (ROWS,), generator=gen)
+    lens[0], lens[1] = STEPS, 0
+    mask = torch.arange(STEPS)[None, :] < lens[:, None]
+    dout = torch.randn((ROWS, STEPS, HIDDEN), generator=gen) * 0.5
+    cuda = [t.to("cuda", dtype) for t in (x, w_ih, *biases, w_hh, dout)]
+    return cuda[0], mask.cuda(), cuda[1:-1], cuda[-1]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    root = Path(ap.parse_args().root).resolve()
+    if not torch.cuda.is_available():
+        print("torch_kernel_digest: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(root))
+    lstm = importlib.import_module(
+        "context_attentive_ir_tpu_torch.ops.kernels.lstm")
+    gru = importlib.import_module(
+        "context_attentive_ir_tpu_torch.ops.kernels.gru")
+    if not Path(lstm.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"imported {lstm.__file__}, not from {root}")
+    print(f"kernels of {root}")
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for rnn, mod, gates, n_bias in (("lstm", lstm, 4, 1),
+                                        ("gru", gru, 3, 2)):
+            x, mask, w, dout = inputs(gates, n_bias, dtype)
+            # the modules' argument order: lstm (w_ih, b, w_hh), gru
+            # (w_ih, b_ih, w_hh, b_hh)
+            w = w if rnn == "lstm" else [w[0], w[1], w[3], w[2]]
+            for reverse in (False, True):
+                way = "reverse" if reverse else "forward"
+                with torch.no_grad():
+                    fwd = getattr(mod, f"{rnn}_fused")(x, mask, *w, reverse)
+                res = getattr(mod, f"{rnn}_fused_res")(x, mask, *w, reverse,
+                                                       TIME_CHUNK)
+                state = getattr(mod, f"{rnn}_fused_res_reference")(
+                    x, mask, *w, reverse, TIME_CHUNK)[1:]
+                bwd = getattr(mod, f"{rnn}_fused_bwd")(
+                    x, mask, *w, *state, dout, reverse, TIME_CHUNK)
+                torch.cuda.synchronize()
+                for kernel, outs in ((f"{rnn}_fused", (fwd,)),
+                                     (f"{rnn}_fused_res", res),
+                                     (f"{rnn}_fused_bwd", bwd)):
+                    print(f"{kernel} {name} {way}: {digest(*outs)}",
+                          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,6 +6,8 @@ scores within 1e-5 (f32; the penalty sums logs of f32 attention masses).
 Metrics are numpy / pure-Python copies, so they must agree exactly.
 """
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -70,6 +72,55 @@ def test_ranking_metrics_equal(seed):
                                       jeval.ndcg_at_k(s, l, c, k))
         np.testing.assert_array_equal(peval.precision_at_k(s, l, c, k),
                                       jeval.precision_at_k(s, l, c, k))
+
+
+def _ranker_batches(layout, seed=5):
+    """Two host batches and their scores: a ranker's ``[B, N]`` slates
+    (``labels``, ``row_mask``) or a session model's ``[B, S, N]`` turns
+    (``clicks``, ``turn_mask``), made with numpy."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for b in (6, 4):
+        lead = (b,) if layout == "flat" else (b, 3)
+        labels = (rng.rand(*lead, 7) < 0.3).astype(np.float32)
+        cand = rng.rand(*lead, 7) < 0.85
+        cand[..., 0] = True
+        row_mask = rng.rand(b) < 0.8
+        row_mask[0] = True
+        batch = SimpleNamespace(cand_mask=cand, row_mask=row_mask)
+        if layout == "flat":
+            batch.labels = labels
+        else:
+            batch.clicks = labels
+            batch.turn_mask = rng.rand(b, 3) < 0.7
+        out.append((batch, rng.normal(size=(*lead, 7)).astype(np.float32)))
+    return out
+
+
+@pytest.mark.parametrize("layout", ["flat", "session"])
+def test_evaluate_ranker_matches_jax(tmp_path, layout):
+    """The port's ``evaluate_ranker`` against the JAX one on the same scores
+    and batches: ranker slates ``[B, N]`` and session turns ``[B, S, N]``,
+    the same metrics and the same dump file."""
+    from context_attentive_ir_tpu.train.evaluate import (
+        evaluate_ranker as jax_evaluate_ranker,
+    )
+    from context_attentive_ir_tpu_torch.train import evaluate_ranker
+
+    pairs = _ranker_batches(layout)
+    scores = {id(b): s for b, s in pairs}
+    batches = [b for b, _ in pairs]
+    got = evaluate_ranker(lambda b: scores[id(b)], batches,
+                          tmp_path / "port.jsonl")
+    want = jax_evaluate_ranker(lambda params, b: jnp.asarray(scores[id(b)]),
+                               None, batches, tmp_path / "jax.jsonl")
+    assert got == want and got["map"] > 0
+    dump = (tmp_path / "port.jsonl").read_text()
+    assert dump == (tmp_path / "jax.jsonl").read_text()
+    rows = sum(int(b.row_mask.sum() if layout == "flat"
+                   else (b.turn_mask & b.row_mask[:, None]).sum())
+               for b in batches)
+    assert len(dump.splitlines()) == rows
 
 
 @pytest.mark.parametrize("seed", SEEDS)

@@ -26,7 +26,7 @@ BF16, F32 = torch.bfloat16, torch.float32
 
 @pytest.mark.parametrize("e,h,dtype,ok", [
     (256, 128, F32, True), (256, 128, BF16, True),
-    (300, 100, BF16, True),          # no alignment rule: f32 staging
+    (300, 100, BF16, True),          # padded to 320, 128 for the tiles
     (256, 403, F32, True),           # 4H * 36 * 4 = 232,128 <= 232,448
     (256, 404, BF16, False),
     (1485, 128, F32, True),          # (E + H) * 36 * 4 = 232,272
