@@ -24,9 +24,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    rank slate and suggest init's row counts with fully masked rows pooling
    to exactly 0 and its autograd Function's gradients, kernel 2's int8
    mode on a quantized table, and ``prune`` on and off and kernel 3
-   (pipelined) against kernel 2, which must give the same bits; then
-   shapes a kernel cannot hold must be refused, and ``fused_supported`` /
-   ``gru_fused_supported`` must say what the launchers take;
+   (pipelined) against kernel 2, which must give the same bits, also on
+   tables laid out as the decoders lay them (V = 50,004 with padded rows,
+   the 4,096-word shortlist; kernel 3 at the greedy shape) and on a
+   contiguous table with unaligned rows; then shapes a kernel cannot hold
+   must be refused, and ``fused_supported`` / ``gru_fused_supported`` /
+   ``beamgen_supported`` must say what the launchers take;
 4. the main paths at full width: CARS at the serving widths (vocab
    50,000, emsize 256, nhid 128, nhid_ffnn 256, S=5, N=50, Lq=15, Ld=30,
    bf16, seeded random weights) behind ``serve.Engine``: ``rank_batch``
@@ -75,7 +78,8 @@ card: without one it exits non-zero and prints no result.
 phases alone, for work on them: ``kernels`` (every kernel against its plain
 version, the refusals, the timing rows), ``lstm`` (kernels 1, 4, 5 and 6
 alone: checks and timing rows), ``grukernels`` (kernels 7, 8 and 9 alone:
-checks and timing rows), ``serving`` (``rank_batch``, beam-5 and
+checks and timing rows), ``beamkernels`` (kernels 2 and 3 alone: checks,
+limits and timing rows), ``serving`` (``rank_batch``, beam-5 and
 greedy ``suggest_batch``), ``train`` (the CARS train steps and the
 checkpoint round trip), ``indexed`` (the rest of serving; runs ``train``
 first for its checkpoint), ``gru`` (CARS-GRU and HRED-QS), ``small`` (the
@@ -88,6 +92,7 @@ ok line.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import logging
 import math
@@ -384,6 +389,9 @@ def check_tiles(gen, rnn: str) -> dict:
 def tile_note() -> str:
     """The mma flavour and shared-memory bytes of the redesigned kernels at
     the main path's widths."""
+    from context_attentive_ir_tpu_torch.ops.kernels.beamgen import (
+        beamgen_smem_bytes,
+    )
     from context_attentive_ir_tpu_torch.ops.kernels.lstm import (
         tile_smem_bytes,
     )
@@ -398,7 +406,12 @@ def tile_note() -> str:
             f"gate blocks, {tile_smem_bytes(EMSIZE, NHID, gates=3)} bytes a "
             "block of 64 rows; phase B (dW, shared with gru_fused_bwd) "
             "mma.sync.m16n8k16 + ldmatrix.trans, 69632 bytes a 128 x 128 "
-            "tile")
+            "tile; generator_topk_lse bf16 mma.sync.m16n8k16 + ldmatrix "
+            "over a cp.async slab ring, "
+            f"{beamgen_smem_bytes(EMSIZE, torch.bfloat16)} bytes a block of "
+            "64 rows (kernel 3: "
+            f"{beamgen_smem_bytes(EMSIZE, torch.bfloat16, True)}, two score "
+            "buffers)")
 
 
 GRU_KERNELS = ("gru_fused", "gru_fused_res", "gru_fused_bwd")
@@ -468,12 +481,60 @@ def near_tie_positions(rv: torch.Tensor, kc: int) -> torch.Tensor:
     return covered
 
 
+def hold(name: str, out, x, tt, kc: int, integer: bool,
+         scale=None) -> float:
+    """``out`` = (vals, idx, lse) of a generator kernel against
+    ``generator_topk_lse_reference`` on the same inputs.  Integer-valued
+    data: vals and idx exact, lse within 1e-6 relative.  Random data: an
+    index may differ from the plain version's only at a near-tie position,
+    and must score (in the plain f32 logits) what the plain version has
+    there; no repeated index; vals and lse within 1e-5 relative.  Returns
+    the max abs error of vals."""
+    from context_attentive_ir_tpu_torch.ops.kernels.beamgen import (
+        generator_topk_lse_reference,
+    )
+
+    v, i, lse = out
+    rows = x.shape[0]
+    rv, ri, rlse = generator_topk_lse_reference(x, tt, kc + 1, scale)
+    torch.cuda.synchronize()
+    lse_rel = float(((lse - rlse).abs() / rlse.abs()).max())
+    v_err = float((v - rv[:, :kc]).abs().max())
+    if integer:
+        exact = torch.equal(v, rv[:, :kc]) and torch.equal(i, ri[:, :kc])
+        log(f"{name}: vals/idx exact={exact}, lse max rel err "
+            f"{lse_rel:.3e}")
+        if not exact or lse_rel > 1e-6:
+            raise AssertionError(f"{name} disagrees")
+        return v_err
+    top = rv.abs().amax(-1, keepdim=True)
+    logits = x.float() @ tt.float()
+    if scale is not None:
+        logits = logits * scale[None, :]
+    got = logits.gather(1, i.long())
+    del logits
+    miss = i != ri[:, :kc]
+    unexplained = miss & ~near_tie_positions(rv, kc)
+    off = ((got - rv[:, :kc]).abs() > 1e-5 * top).any(-1)
+    dup = (i.sort(-1).values.diff(dim=-1) == 0).any(-1)
+    n_miss = int(miss.any(-1).sum())
+    n_unexplained = int(unexplained.any(-1).sum())
+    n_off, n_dup = int(off.sum()), int(dup.sum())
+    v_rel = v_err / float(rv.abs().max())
+    log(f"{name}: idx mismatch rows {n_miss}/{rows} (outside a near tie "
+        f"{n_unexplained}, index scoring off its value {n_off}, repeated "
+        f"index {n_dup}), vals max abs err {v_err:.3e} (rel {v_rel:.3e}), "
+        f"lse max rel err {lse_rel:.3e}")
+    if n_unexplained or n_off or n_dup or v_rel > 1e-5 or lse_rel > 1e-5:
+        raise AssertionError(f"{name} disagrees")
+    return v_err
+
+
 def check_beamgen(gen) -> dict:
     """Kernel 2 against its plain version at the decode steps' shapes
     (beam-5 and greedy rows) and at row counts off the 64-row block."""
     from context_attentive_ir_tpu_torch.ops.kernels.beamgen import (
         generator_topk_lse,
-        generator_topk_lse_reference,
     )
 
     out = {}
@@ -482,48 +543,13 @@ def check_beamgen(gen) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             for integer in (True, False):
                 x, tt = beamgen_inputs(gen, rows, dtype, integer)
-                v, i, lse = generator_topk_lse(x, tt, kc)
-                rv, ri, rlse = generator_topk_lse_reference(x, tt, kc + 1)
-                torch.cuda.synchronize()
-                lse_rel = float(((lse - rlse).abs() / rlse.abs()).max())
-                v_err = float((v - rv[:, :kc]).abs().max())
                 name = (f"generator_topk_lse R={rows} kc={kc} {dtype} "
                         f"{'integer' if integer else 'random'}")
-                if integer:
-                    exact = (torch.equal(v, rv[:, :kc])
-                             and torch.equal(i, ri[:, :kc]))
-                    log(f"{name}: vals/idx exact={exact}, lse max rel err "
-                        f"{lse_rel:.3e}")
-                    if not exact or lse_rel > 1e-6:
-                        raise AssertionError(f"{name} disagrees")
-                else:
-                    # an index may differ from the plain version's only at
-                    # a near-tie position, and must score (in the plain
-                    # f32 logits) what the plain version has there
-                    scale = rv.abs().amax(-1, keepdim=True)
-                    logits = x.float() @ tt.float()
-                    got = logits.gather(1, i.long())
-                    del logits
-                    miss = i != ri[:, :kc]
-                    unexplained = miss & ~near_tie_positions(rv, kc)
-                    off = ((got - rv[:, :kc]).abs() > 1e-5 * scale).any(-1)
-                    dup = (i.sort(-1).values.diff(dim=-1) == 0).any(-1)
-                    n_miss = int(miss.any(-1).sum())
-                    n_unexplained = int(unexplained.any(-1).sum())
-                    n_off, n_dup = int(off.sum()), int(dup.sum())
-                    v_rel = v_err / float(rv.abs().max())
-                    log(f"{name}: idx mismatch rows {n_miss}/{rows} "
-                        f"(outside a near tie {n_unexplained}, index "
-                        f"scoring off its value {n_off}, repeated index "
-                        f"{n_dup}), vals max abs err {v_err:.3e} (rel "
-                        f"{v_rel:.3e}), lse max rel err {lse_rel:.3e}")
-                    if (n_unexplained or n_off or n_dup or v_rel > 1e-5
-                            or lse_rel > 1e-5):
-                        raise AssertionError(f"{name} disagrees")
-                    if rows == B * S * BEAM:
-                        out[dtype] = v_err
+                v_err = hold(name, generator_topk_lse(x, tt, kc), x, tt, kc,
+                             integer)
+                if rows == B * S * BEAM and not integer:
+                    out[dtype] = v_err
     return out
-
 
 
 # (rows, steps, H) kernel 10 sees on the main path -- the rank slate B*S*N and
@@ -654,7 +680,6 @@ def check_beamgen_modes(gen) -> float:
     data at the beam-5 shape (bf16 x)."""
     from context_attentive_ir_tpu_torch.ops.kernels.beamgen import (
         generator_topk_lse,
-        generator_topk_lse_reference,
     )
 
     worst = 0.0
@@ -662,36 +687,17 @@ def check_beamgen_modes(gen) -> float:
         for dtype in (torch.float32, torch.bfloat16):
             for integer in (True, False):
                 x, q_t, scale = int8_inputs(gen, rows, dtype, integer)
-                v, i, lse = generator_topk_lse(x, q_t, kc, scale=scale)
+                base = generator_topk_lse(x, q_t, kc, scale=scale)
                 pruned = generator_topk_lse(x, q_t, kc, scale=scale,
                                             prune=True)
-                rv, ri, rlse = generator_topk_lse_reference(x, q_t, kc + 1,
-                                                            scale)
-                torch.cuda.synchronize()
                 name = (f"generator_topk_lse int8 R={rows} kc={kc} {dtype} "
                         f"{'integer' if integer else 'random'}")
-                lse_rel = float(((lse - rlse).abs() / rlse.abs()).max())
-                v_err = float((v - rv[:, :kc]).abs().max())
-                if integer:
-                    exact = (torch.equal(v, rv[:, :kc])
-                             and torch.equal(i, ri[:, :kc]))
-                    bad = not exact or lse_rel > 1e-6
-                    log(f"{name}: vals/idx exact={exact}, lse max rel err "
-                        f"{lse_rel:.3e}")
-                else:
-                    miss = i != ri[:, :kc]
-                    unexplained = int((miss & ~near_tie_positions(rv, kc))
-                                      .any(-1).sum())
-                    v_rel = v_err / float(rv.abs().max())
-                    bad = unexplained or v_rel > 1e-5 or lse_rel > 1e-5
-                    log(f"{name}: idx mismatch rows "
-                        f"{int(miss.any(-1).sum())}/{rows} (outside a near "
-                        f"tie {unexplained}), vals max abs err {v_err:.3e}, "
-                        f"lse max rel err {lse_rel:.3e}")
-                    if rows == B * S * BEAM and dtype == torch.bfloat16:
-                        worst = v_err
-                if bad or not same_bits((v, i, lse), pruned):
-                    raise AssertionError(f"{name} disagrees")
+                v_err = hold(name, base, x, q_t, kc, integer, scale)
+                if (rows == B * S * BEAM and dtype == torch.bfloat16
+                        and not integer):
+                    worst = v_err
+                if not same_bits(base, pruned):
+                    raise AssertionError(f"{name}: prune changes the bits")
 
             for data in ("random", "front-loaded"):
                 if data == "random":
@@ -708,6 +714,143 @@ def check_beamgen_modes(gen) -> float:
                 if not ok:
                     raise AssertionError("prune / pipeline change the bits")
     return worst
+
+
+# vocabularies of the layout checks: the AOL-scale fixture's 50,004 words
+# (bf16 table rows of 100,008 bytes, which no 16-byte copy can address
+# unpadded) and the suggestion shortlist
+LAYOUT_VOCABS = (VOCAB + 4, SHORTLIST)
+
+
+def layout_inputs(gen, rows, v, dtype, integer, int8):
+    """x [rows, E] and the tied table of a [v, E] embedding laid out as the
+    decoders lay it (``fused_generator_table``: ``aligned_table`` of the
+    transpose, a view of a table padded to 16-byte rows), with its scale in
+    the int8 mode (integer data: small integers and power-of-two scales, so
+    every product and sum is exact)."""
+    from context_attentive_ir_tpu_torch.ops.kernels.beamgen import (
+        aligned_table,
+    )
+
+    dev = "cuda"
+    if integer:
+        x = torch.randint(-3, 4, (rows, EMSIZE), generator=gen, device=dev)
+        emb = torch.randint(-3, 4, (v, EMSIZE), generator=gen, device=dev)
+    else:
+        x = torch.randn((rows, EMSIZE), generator=gen, device=dev) * 0.5
+        emb = torch.randn((v, EMSIZE), generator=gen, device=dev) * 0.5
+    scale = None
+    if int8:
+        if integer:
+            scale = 2.0 ** torch.randint(-3, 3, (v,), generator=gen,
+                                         device=dev).float()
+        else:
+            scale = emb.abs().amax(-1) / 127.0
+            emb = torch.round(emb / scale[:, None])
+        emb = emb.to(torch.int8)
+    else:
+        emb = emb.to(dtype)
+    return x.to(dtype), aligned_table(emb.t()), scale
+
+
+def check_beamgen_layouts(gen) -> None:
+    """Every mode of kernels 2 and 3 on tables laid out as the decoders lay
+    them, at V = 50,004 (padded rows) and at the shortlist's 4,096, at the
+    beam-5 and greedy shapes (kernel 3 at R = 320, kc = 2 among them), in
+    float32 and bfloat16: each table is one the kernels read as it lies (no
+    per-step copy), the serial kernel is held to its plain version, and
+    ``prune`` on / off and kernel 3 give its bits.  Then a contiguous table
+    with unaligned rows (V = 301), padded by the wrapper per call."""
+    from context_attentive_ir_tpu_torch.ops.kernels.beamgen import (
+        aligned_table,
+        generator_topk_lse,
+        table_aligned,
+    )
+
+    for v in LAYOUT_VOCABS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for rows, kc in ((B * S * BEAM, BEAM + 1), (B * S, 2)):
+                for integer in (True, False):
+                    for int8 in (False, True):
+                        x, tt, scale = layout_inputs(gen, rows, v, dtype,
+                                                     integer, int8)
+                        name = (f"generator_topk_lse{' int8' if int8 else ''}"
+                                f" V={v} (row stride {tt.stride(0)}) R={rows} "
+                                f"kc={kc} {dtype} "
+                                f"{'integer' if integer else 'random'}")
+                        if not table_aligned(tt) or aligned_table(tt) is not tt:
+                            raise AssertionError(f"{name}: the decoders' "
+                                                 "table would be copied")
+                        modes = [{}, {"prune": True}]
+                        if not int8:
+                            modes.append({"pipeline": True})
+                        outs = [generator_topk_lse(x, tt, kc, scale=scale,
+                                                   **kw) for kw in modes]
+                        hold(name, outs[0], x, tt, kc, integer, scale)
+                        if not int8 and rows == B * S:
+                            hold(f"{name} kernel 3", outs[2], x, tt, kc,
+                                 integer)
+                        same = all(same_bits(outs[0], o) for o in outs[1:])
+                        log(f"{name}: prune on = off"
+                            f"{'' if int8 else ' = kernel 3'}, same bits: "
+                            f"{same}")
+                        if not same:
+                            raise AssertionError(f"{name}: the modes differ")
+    for dtype in (torch.float32, torch.bfloat16):
+        x, tt = beamgen_inputs(gen, 70, dtype, integer=True)
+        tt = tt[:, :301].contiguous()
+        outs = [generator_topk_lse(x, tt, 2, **kw)
+                for kw in ({}, {"prune": True}, {"pipeline": True})]
+        name = f"generator_topk_lse V=301 contiguous (padded per call) {dtype}"
+        hold(name, outs[0], x, tt, 2, True)
+        if not all(same_bits(outs[0], o) for o in outs[1:]):
+            raise AssertionError(f"{name}: the modes differ")
+
+
+def check_beamgen_limits(gen) -> None:
+    """``beamgen_supported`` states the launchers' limits: in each dtype and
+    kernel, the largest E it accepts runs (and is exact on integer data),
+    the next E is refused by the launcher and the next launch runs clean;
+    E = 300 and E = 100 (not multiples of 16: the zero-filled last k-slab)
+    run too."""
+    from context_attentive_ir_tpu_torch.ops.kernels.beamgen import (
+        beamgen_smem_bytes,
+        beamgen_supported,
+        generator_topk_lse,
+    )
+
+    def at(e, dtype, pipeline):
+        x = torch.randint(-3, 4, (70, e), generator=gen, device="cuda")
+        t = torch.randint(-3, 4, (e, 304), generator=gen, device="cuda")
+        x, t = x.to(dtype), t.to(dtype)
+        return x, t, generator_topk_lse(x, t, 2, pipeline=pipeline)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for pipeline in (False, True):
+            top = max(e for e in range(1, 4096)
+                      if beamgen_supported(e, dtype, pipeline))
+            for e in (100, 300, top, top + 1):
+                ok = beamgen_supported(e, dtype, pipeline)
+                what = (f"generator_topk_lse{' pipeline' if pipeline else ''}"
+                        f" E={e} {dtype}")
+                try:
+                    x, t, out = at(e, dtype, pipeline)
+                    torch.cuda.synchronize()
+                    ran = True
+                except RuntimeError as err:
+                    ran, why = False, err
+                log(f"beamgen_supported(E={e}, {dtype}, pipeline={pipeline})"
+                    f" = {ok} ({beamgen_smem_bytes(e, dtype, pipeline)} "
+                    "bytes of shared memory); the kernel "
+                    + ("ran" if ran else f"refused: {why}"))
+                if ran != ok:
+                    raise AssertionError(f"beamgen_supported disagrees with "
+                                         f"the launcher at {what}")
+                if ran:
+                    hold(what, out, x, t, 2, True)
+    at(EMSIZE, torch.bfloat16, True)
+    torch.cuda.synchronize()
+    log("generator_topk_lse launches clean after the refusals")
 
 
 def check_refusals(gen) -> None:
@@ -887,8 +1030,6 @@ def check_refusals(gen) -> None:
                       lambda: beamgen_at(1024)),
                      ("generator_topk_lse pipeline E=1024 (shared tile)",
                       lambda: beamgen_at(1024, pipeline=True)),
-                     ("generator_topk_lse pipeline V=301 (16-byte rows)",
-                      lambda: beamgen_at(EMSIZE, 301, pipeline=True)),
                      ("generator_topk_lse pipeline with scale (int8)",
                       lambda: beamgen_at(EMSIZE, pipeline=True, scale=1)),
                      ("attn_pool H=192 (H % 128)", lambda: pool_at(192)),
@@ -2043,6 +2184,7 @@ def time_beamgen(gen, launches: dict, max_err: float) -> dict:
             f"({by})")
         res[rows] = (ms, plain, lib, bnd, by)
     ms, plain, lib, bnd, by = res[B * S * BEAM]
+    log_earlier("generator_topk_lse", ms, plain, lib, bnd)
     return kernel_row("generator_topk_lse", "beamgen.cu", "beamgen.py:286",
                       launches, max_err, ms, plain, lib, bnd, by)
 
@@ -2117,12 +2259,7 @@ def time_rnn(gen, rnn: str, launches: dict, fwd_err: float,
             f"{TIME_CHUNK}: kernel {ms[name]:.3f} ms, plain "
             f"{plain_ms[name]:.3f} ms, cuDNN {cudnn_cls.__name__} {what} "
             f"{lib[name]:.3f} ms, bound {bnd:.4f} ms ({by})")
-        if name in EARLIER_MS:  # for the log only: not measured in this run
-            log(f"{name}: {ms[name]:.3f} ms now, {EARLIER_MS[name]:.3f} ms "
-                "in its first (CUDA-core) version on an H100 80GB HBM3 at "
-                f"700 W; {ms[name] / plain_ms[name]:.2f} x its plain "
-                f"version, {ms[name] / lib[name]:.2f} x cuDNN, "
-                f"{ms[name] / bnd:.1f} x its bound")
+        log_earlier(name, ms[name], plain_ms[name], lib[name], bnd)
         rows_out.append(kernel_row(name, src, line, launches, err, ms[name],
                                    plain_ms[name], lib[name], bnd, by))
     return rows_out
@@ -2251,9 +2388,56 @@ def time_beamgen_modes(gen, launches: dict, max_err: float,
         log(f"generator_topk_lse {mode} bf16 R={rows} E={EMSIZE} V={VOCAB} "
             f"kc={kc}: kernel {ms:.3f} ms, plain {plain:.3f} ms, library "
             f"{lib:.3f} ms, bound {bnd:.4f} ms ({by})")
+        log_earlier(name, ms, plain, lib, bnd)
         rows_out.append(kernel_row(name, "beamgen.cu", "beamgen.py:286",
                                    launches, err, ms, plain, lib, bnd, by))
+
+    # the selection nearly skipped: what the product and the logsumexp cost
+    fx, ft = front_loaded(gen, rows, dtype)
+    front = timed_ms(lambda: generator_topk_lse(fx, ft, kc, prune=True), 10)
+    log(f"generator_topk_lse pruned bf16 R={rows} kc={kc} on front-loaded "
+        f"data (every row's top scores in the first 2,048 columns: few "
+        f"insertions, the product and the logsumexp whole): {front:.3f} ms")
+
+    # the greedy step's shape, and each mode's blocks and vocab split
+    from context_attentive_ir_tpu_torch.ops.kernels.beamgen import (
+        _blocks_per_sm,
+        _sm_count,
+        vocab_splits,
+    )
+    from context_attentive_ir_tpu_torch.ops.kernels.build import load_library
+
+    g_rows, g_kc = B * S, 2
+    gx = x[:g_rows].contiguous()
+    for name, kw in (("serial", {}), ("pruned", {"prune": True}),
+                     ("pipelined", {"pipeline": True}),
+                     ("int8", {"scale": scale, "prune": True})):
+        table = q_t if "scale" in kw else tt
+        ms = timed_ms(lambda: generator_topk_lse(gx, table, g_kc, **kw), 10)
+        t_code = 2 if "scale" in kw else 1
+        resident = ctypes.c_int()
+        load_library().cair_beamgen_occupancy(
+            EMSIZE, 1, t_code, int("prune" in kw), int("pipeline" in kw),
+            ctypes.byref(resident))
+        blocks = resident.value
+        # every mode is split as the serial kernel's residency gives
+        slots = _sm_count(0) * _blocks_per_sm(0, EMSIZE, 1, t_code)
+        log(f"generator_topk_lse {name} bf16: greedy R={g_rows} kc={g_kc} "
+            f"{ms:.3f} ms; {blocks} block(s) an SM, splits (n, tiles) at "
+            f"R={rows}: {vocab_splits(rows, VOCAB, slots)}, at R={g_rows}: "
+            f"{vocab_splits(g_rows, VOCAB, slots)}")
     return rows_out
+
+
+def log_earlier(name: str, ms: float, plain: float, lib, bnd: float) -> None:
+    """Log a redesigned kernel's time beside its first version's (for the
+    log only: EARLIER_MS was not measured in this run)."""
+    if name in EARLIER_MS:
+        log(f"{name}: {ms:.3f} ms now, {EARLIER_MS[name]:.3f} ms in its "
+            "first (CUDA-core) version on an H100 80GB HBM3 at 700 W; "
+            f"{ms / plain:.2f} x its plain version, "
+            + (f"{ms / lib:.2f} x the library call, " if lib else "")
+            + f"{ms / bnd:.1f} x its bound")
 
 
 def ptxas_summary(text: str) -> str:
@@ -2283,20 +2467,26 @@ def card() -> str:
         text=True).stdout.strip()
 
 
-# the timing rows' earlier readings (ms, bf16, doc-encoder shape, one H100
-# 80GB HBM3 at 700 W): the first, CUDA-core versions of the kernels that
+# the timing rows' earlier readings (ms, bf16, one H100 80GB HBM3 at
+# 700 W; the recurrent kernels at the doc-encoder shape, the generator's
+# modes at the beam-5 step's, as the last chip_smoke run before their
+# redesign read them): the first, CUDA-core versions of the kernels that
 # have since been redesigned.  Logged beside the new times, never put into
 # the kernels line, which holds only what this run measured.
 EARLIER_MS = {"lstm_fused": 11.269, "lstm_fused_res": 11.256,
               "lstm_fused_bwd": 44.075, "gru_fused": 10.068,
-              "gru_fused_res": 9.722, "gru_fused_bwd": 37.372}
+              "gru_fused_res": 9.722, "gru_fused_bwd": 37.372,
+              "generator_topk_lse": 5.233,
+              "generator_topk_lse_pruned": 3.036,
+              "generator_topk_lse_int8": 3.041,
+              "generator_topk_lse_pipelined": 3.761}
 
-# --only selectors, in running order.  "lstm" and "grukernels" are the LSTM
-# and GRU kernels' shares of "kernels"; a run with no selector runs every
-# other phase.
-PHASES = ("kernels", "lstm", "grukernels", "serving", "train", "indexed",
-          "gru", "small", "kernel6", "trainer")
-SHARES = {"lstm", "grukernels"}
+# --only selectors, in running order.  "lstm", "grukernels" and
+# "beamkernels" are the LSTM, GRU and generator kernels' shares of
+# "kernels"; a run with no selector runs every other phase.
+PHASES = ("kernels", "lstm", "grukernels", "beamkernels", "serving",
+          "train", "indexed", "gru", "small", "kernel6", "trainer")
+SHARES = {"lstm", "grukernels", "beamkernels"}
 
 
 def main() -> int:
@@ -2353,12 +2543,17 @@ def main() -> int:
         check_rnn("lstm")
         errs["rec"] = check_recurrence(gen)
 
+    def check_beam():
+        errs["beam"] = check_beamgen(gen)
+        errs["int8"] = check_beamgen_modes(gen)
+        check_beamgen_layouts(gen)
+        check_beamgen_limits(gen)
+
     def check_all():
         check_lstm()
         check_rnn("gru")
-        errs["beam"] = check_beamgen(gen)
+        check_beam()
         errs["slate"] = check_slate(gen)
-        errs["int8"] = check_beamgen_modes(gen)
         check_refusals(gen)
 
     if "kernels" in run:
@@ -2368,6 +2563,8 @@ def main() -> int:
             phase("lstm kernel checks", check_lstm)
         if "grukernels" in run:
             phase("gru kernel checks", lambda: check_rnn("gru"))
+        if "beamkernels" in run:
+            phase("generator kernel checks", check_beam)
     elif "kernel6" in run:
         errs["rec"] = phase("kernel 6 checks",
                             lambda: check_recurrence(gen))
@@ -2415,7 +2612,9 @@ def main() -> int:
             kernels.append(time_recurrence(gen, launches, errs["rec"][bf16]))
         if "beam" in errs:
             kernels.append(time_beamgen(gen, launches, errs["beam"][bf16]))
+        if "slate" in errs:
             kernels.extend(time_slate(gen, launches, errs["slate"][bf16]))
+        if "beam" in errs:
             kernels.extend(time_beamgen_modes(gen, launches,
                                               errs["beam"][bf16],
                                               errs["int8"]))

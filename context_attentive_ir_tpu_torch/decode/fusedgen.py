@@ -20,6 +20,7 @@ from typing import Callable, Optional
 import torch
 
 from ..ops.kernels.beamgen import (
+    aligned_table,
     generator_topk_lse,
     generator_topk_lse_reference,
 )
@@ -27,7 +28,9 @@ from ..ops.kernels.beamgen import (
 
 def fused_generator_table(model, dtype: torch.dtype = torch.bfloat16):
     """``(table_t [E, V], scale [V] | None)`` of the model's tied table,
-    contiguous, or None when the model has none.
+    or None when the model has none.  ``table_t`` is a view of a table
+    whose rows are padded to a multiple of 16 bytes (``aligned_table``), so
+    the kernels read it as it lies on every step of the decode.
 
     A float table returns ``(table.T`` in ``dtype``, ``None)``; the int8
     serving table (``embedding_q`` + ``embedding_scale``) returns ``(q.T``
@@ -36,10 +39,10 @@ def fused_generator_table(model, dtype: torch.dtype = torch.bfloat16):
     if emb is None:
         return None
     if getattr(emb, "quantized", False):
-        return (emb.embedding_q.detach().t().contiguous(),
+        return (aligned_table(emb.embedding_q.detach().t()),
                 emb.embedding_scale.detach().reshape(-1).float()
                 .contiguous())
-    return emb.embedding.detach().to(dtype).t().contiguous(), None
+    return aligned_table(emb.embedding.detach().to(dtype).t()), None
 
 
 def can_fuse_generator(model) -> bool:
@@ -49,10 +52,11 @@ def can_fuse_generator(model) -> bool:
 
 def _shortlisted(table_t, scale, shortlist):
     """The table's shortlist columns (and their scales), gathered once per
-    decode, and the shortlist as an int32 map from column to vocab id."""
+    decode into an aligned table, and the shortlist as an int32 map from
+    column to vocab id."""
     sl = torch.as_tensor(shortlist, dtype=torch.long,
                          device=table_t.device)
-    table_t = table_t.index_select(1, sl).contiguous()
+    table_t = aligned_table(table_t.index_select(1, sl))
     if scale is not None:
         scale = scale.index_select(0, sl).contiguous()
     return table_t, scale, sl.to(torch.int32)

@@ -8,38 +8,51 @@ modes:
   ``csrc/beamgen.cu``.  Blocks own 64 rows and a contiguous run of
   128-column vocab tiles, keep a running top-kc and an online (max, sumexp)
   per row, and a second tiny kernel merges the vocab splits per row; the
-  ``[R, V]`` logits never reach device memory.  ``prune=True`` skips a
-  tile's selection passes for a row when no column of the tile beats the
-  row's running kc-th entry; ``prune=False`` runs them on every tile, as
-  the TPU's unpruned kernel.  Both give the same bits: tiles are swept in
-  ascending order and ties go to the lower index, so a skipped tile could
-  only have reproduced the buffer.
+  ``[R, V]`` logits never reach device memory.  ``prune=True`` inserts
+  into a row's running top-kc only the columns that beat its kc-th entry
+  (a tile with none costs one warp vote, as the TPU kernel skips the
+  tile); ``prune=False`` runs kc exact argmax passes on every tile, as the
+  TPU's unpruned kernel.  Both keep the exact top-kc with ties to the lower
+  index, so they give the same bits.
 - the same serial kernel on an int8 table with a per-column ``scale``
   (kernel 2's int8 mode, the quantized tied generator): logits are
   ``scale_v * (x @ q_v)``, the scale applied after the dot.
 - the pipelined kernel ``_beamgen_pipelined_kernel`` (kernel 3,
-  ``pipeline=True``, float table only): the copy of the next table tile
-  into shared memory (a two-stage ``cp.async`` ring) overlaps the FMAs and
-  selection of the current one.  It shares the tile product and the
-  selection with kernel 2 (``csrc/beamgen_common.cuh``), so its outputs
-  are kernel 2's bit for bit.
+  ``pipeline=True``, float table only): the product of the next vocab
+  tile overlaps the selection of the current one.  It shares the tile
+  product and the selection with kernel 2 (``csrc/beamgen_common.cuh``),
+  so its outputs are kernel 2's bit for bit.
+
+On bf16 ``x`` (the serving path) the score tiles are ``mma.sync`` bf16
+tensor-core products of the staged x rows and table slabs streamed by
+``cp.async`` (an int8 table widened to bf16 in shared memory); kernel 3
+runs the product and the selection on two warp groups with two score
+buffers.  Float32 ``x`` keeps the exact CUDA-core kernels (one f32 FMA per
+product).  ``beamgen_supported`` states the E the shared tiles hold.
 
 Ties go to the lower vocab index, as ``lax.top_k``.  Each mode keeps its
 own launch count: ``launches`` (float table, serial), ``launches_pruned``
 (float table, ``prune=True``), ``launches_int8`` and
 ``launches_pipelined``.
 
+The table is ``[E, V]`` with unit column stride; its rows may lie further
+apart than V (a view of a padded table, as ``aligned_table`` and the
+decoders' ``fused_generator_table`` build once per decode).  The kernels
+copy 16-byte pieces, so a table whose rows are not a multiple of 16 bytes
+apart is padded by the wrapper on every call; padded columns never reach
+the logsumexp or the top-k.
+
 Bound on the H100 (beam-5 step, R = 1600, E = 256, V = 50,000):
 2*R*E*V = 4.1e10 flops, 41 us at the bf16 tensor-core peak, against a
 25.6 MB bf16 table (8 us; the int8 table 12.8 MB): compute-bound in every
-mode (``x`` stays bf16, so no int8 product applies).  These first versions
-compute the scores with CUDA-core FMAs and run far above that bound;
-``PERF.md`` records the gap.
+mode (``x`` stays bf16, so no int8 product applies).  ``PERF.md`` records
+each mode's time against that bound.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -47,6 +60,96 @@ from ...device import check_on, resolve_device
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 MAX_KC = 32
+ROW_BLOCK = 64     # rows of a block (csrc/beamgen_common.cuh: kRowBlock)
+TILE = 128         # vocab columns of a tile (kTile)
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on the H100
+# the bf16 tiles (namespace tc): score buffer, slab ring, mbarrier header
+_SCORE_BYTES = ROW_BLOCK * (TILE + 8) * 4
+_RING_BYTES = 4 * 32 * (TILE * 2 + 16)
+_HEADER = 64
+_F32_STAGE_BYTES = 32_768  # one slot of the float32 pipelined kernel's ring
+
+
+def beamgen_smem_bytes(e: int, dtype: torch.dtype,
+                       pipeline: bool = False) -> int:
+    """Dynamic shared memory of a partial-kernel block at E = ``e`` for x
+    of ``dtype`` (``tc::smem_bytes`` / ``plan`` in ``csrc/beamgen.cu``).
+    bfloat16: (kernel 3's mbarriers,) the x tile of 64 rows of ``ep(e)``
+    bf16 (E rounded up to 16, the last k-slab zero-filled) plus 16 bytes
+    each, one f32 score buffer (two for kernel 3) and the slab ring.
+    float32: the f32 x tile (and kernel 3's two 32 KB stages)."""
+    if dtype == torch.float32:
+        return e * ROW_BLOCK * 4 + (2 * _F32_STAGE_BYTES if pipeline else 0)
+    ep = -(-e // 16) * 16
+    return ((_HEADER if pipeline else 0) + ROW_BLOCK * (2 * ep + 16)
+            + (2 if pipeline else 1) * _SCORE_BYTES + _RING_BYTES)
+
+
+def beamgen_supported(e: int, dtype: torch.dtype,
+                      pipeline: bool = False) -> bool:
+    """Whether the kernels hold E = ``e`` for x of ``dtype``: bfloat16
+    E <= 1,264 (kernel 3: <= 976), float32 E <= 908 (kernel 3: <= 652).
+    The launcher refuses exactly the E this rejects."""
+    return e >= 1 and beamgen_smem_bytes(e, dtype, pipeline) <= SMEM_LIMIT
+
+
+def table_aligned(table_t: torch.Tensor) -> bool:
+    """Whether the kernels read ``table_t`` [E, V] as it lies: unit column
+    stride, rows at least V and a multiple of 16 bytes apart, 16-byte
+    aligned start."""
+    row = table_t.stride(0)
+    return (table_t.dim() == 2 and table_t.stride(1) == 1
+            and row >= table_t.shape[1]
+            and row * table_t.element_size() % 16 == 0
+            and table_t.data_ptr() % 16 == 0)
+
+
+def aligned_table(table_t: torch.Tensor) -> torch.Tensor:
+    """``table_t`` [E, V] itself if the kernels read it as it lies, else
+    the view ``[:, :V]`` of a zero-padded copy whose rows are a multiple
+    of 16 bytes long."""
+    if table_aligned(table_t):
+        return table_t
+    e, v = table_t.shape
+    per = 16 // table_t.element_size()
+    out = table_t.new_zeros((e, -(-v // per) * per))
+    out[:, :v] = table_t
+    return out[:, :v]
+
+
+def vocab_splits(rows: int, v: int, slots: int,
+                 whole_wave: bool = True) -> tuple[int, int]:
+    """``(n_split, tiles_per_split)``: the vocab split of R rows into runs
+    of 128-column tiles, every split owning at least one tile, for
+    ``slots`` blocks resident on the card at once.  ``whole_wave`` keeps
+    the grid within one wave of slots (the bf16 kernels); without it the
+    grid rounds up past it (the float32 kernels' rule, kept so float32
+    keeps its bits).  The split decides the order of the lse merge, so the
+    modes of one table must share it to share their bits."""
+    row_blocks = max(1, -(-rows // ROW_BLOCK))
+    tiles = -(-v // TILE)
+    want = slots // row_blocks if whole_wave else -(-slots // row_blocks)
+    per = -(-tiles // max(1, min(tiles, want)))
+    return -(-tiles // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(index: int, e: int, x_code: int, t_code: int) -> int:
+    """Blocks of the serial partial kernel one SM of card ``index`` holds
+    at E = ``e`` (refused, with the launcher's error, past the limit)."""
+    from .build import check, load_library
+
+    blocks = ctypes.c_int()
+    with torch.cuda.device(index):
+        check(load_library().cair_beamgen_occupancy(
+            e, x_code, t_code, 0, 0, ctypes.byref(blocks)),
+            "cair_beamgen_occupancy")
+    return blocks.value
 
 
 def generator_topk_lse_reference(x: torch.Tensor, table_t: torch.Tensor,
@@ -97,7 +200,8 @@ def generator_topk_lse(x: torch.Tensor, table_t: torch.Tensor, kc: int,
     mode (``scale`` [V] float32 given): table_t is int8 and x float32 or
     bfloat16.  ``prune`` and ``pipeline`` choose the kernel variant; every
     variant gives the same outputs.  ``prune`` with ``pipeline``, and
-    ``scale`` with ``pipeline``, raise.
+    ``scale`` with ``pipeline``, raise.  ``table_t`` may be a view with
+    unit column stride whose rows lie further apart (``aligned_table``).
 
     On CUDA tensors this launches ``cair_beamgen``; on CPU tensors
     (``device="cpu"``) it runs ``generator_topk_lse_reference``."""
@@ -118,16 +222,25 @@ def generator_topk_lse(x: torch.Tensor, table_t: torch.Tensor, kc: int,
                               or scale.dtype != torch.float32):
         raise TypeError("the int8 mode takes an int8 table_t and a float32 "
                         f"scale; got {table_t.dtype}, {scale.dtype}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("generator_topk_lse needs contiguous tensors")
+    if not x.is_contiguous() or (scale is not None
+                                 and not scale.is_contiguous()):
+        raise ValueError("generator_topk_lse needs a contiguous x and scale")
     from .build import check, load_library
 
-    lib = load_library()
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits, tiles = ctypes.c_int(), ctypes.c_int()
-    check(lib.cair_beamgen_splits(R, V, n_sm, ctypes.byref(splits),
-                                  ctypes.byref(tiles)), "cair_beamgen_splits")
-    n_split, per_split = splits.value, tiles.value
+    table_t = aligned_table(table_t)  # a copy only for an unaligned table
+    index = (x.device.index if x.device.index is not None
+             else torch.cuda.current_device())
+    x_code, t_code = _DTYPES[x.dtype], _DTYPES[table_t.dtype]
+    if x.dtype == torch.float32:
+        n_split, per_split = vocab_splits(R, V, 2 * _sm_count(index),
+                                          whole_wave=False)
+    else:
+        # sized by the serial kernel's residency whatever the mode: every
+        # mode of one table merges the same partials in the same order, so
+        # every mode gives the same bits (kernel 3, one block an SM, runs
+        # the grid in two waves)
+        n_split, per_split = vocab_splits(
+            R, V, _sm_count(index) * _blocks_per_sm(index, E, x_code, t_code))
     f32 = dict(dtype=torch.float32, device=x.device)
     i32 = dict(dtype=torch.int32, device=x.device)
     part_v = torch.empty((n_split, R, kc), **f32)
@@ -137,14 +250,14 @@ def generator_topk_lse(x: torch.Tensor, table_t: torch.Tensor, kc: int,
     vals = torch.empty((R, kc), **f32)
     idx = torch.empty((R, kc), **i32)
     lse = torch.empty((R,), **f32)
-    # the launcher reports an E too large for its shared tile and a table
-    # the pipelined kernel's 16-byte copies cannot stage
-    check(lib.cair_beamgen(
+    # the launcher refuses an E too large for its shared tiles
+    check(load_library().cair_beamgen(
         x.data_ptr(), table_t.data_ptr(),
-        None if scale is None else scale.data_ptr(), R, E, V, kc, n_split,
-        per_split, part_v.data_ptr(), part_i.data_ptr(), part_m.data_ptr(),
-        part_s.data_ptr(), vals.data_ptr(), idx.data_ptr(), lse.data_ptr(),
-        _DTYPES[x.dtype], _DTYPES[table_t.dtype], int(prune), int(pipeline),
+        None if scale is None else scale.data_ptr(), R, E, V,
+        table_t.stride(0), kc, n_split, per_split, part_v.data_ptr(),
+        part_i.data_ptr(), part_m.data_ptr(), part_s.data_ptr(),
+        vals.data_ptr(), idx.data_ptr(), lse.data_ptr(), x_code, t_code,
+        int(prune), int(pipeline),
         torch.cuda.current_stream(x.device).cuda_stream), "cair_beamgen")
     if pipeline:
         generator_topk_lse.launches_pipelined += 1

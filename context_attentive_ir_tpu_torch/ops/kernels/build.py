@@ -41,8 +41,8 @@ SIGNATURES = {
     "cair_gru_fwd_res": ([_P] * 8 + [_I] * 7 + [_P], _I),
     "cair_gru_bwd_workspace": ([_I] * 6, ctypes.c_longlong),
     "cair_gru_bwd": ([_P] * 16 + [_I] * 7 + [_P], _I),
-    "cair_beamgen_splits": ([_I, _I, _I, _IP, _IP], _I),
-    "cair_beamgen": ([_P, _P, _P] + [_I] * 6 + [_P] * 7 + [_I] * 4 + [_P],
+    "cair_beamgen_occupancy": ([_I] * 5 + [_IP], _I),
+    "cair_beamgen": ([_P, _P, _P] + [_I] * 7 + [_P] * 7 + [_I] * 4 + [_P],
                      _I),
     "cair_slate_pool": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "cair_error_string": ([_I], ctypes.c_char_p),

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""SHA-256 digests of the PyTorch port's recurrent kernels' outputs on
-seeded inputs, to show whether two checkouts compute the same bits.
+"""SHA-256 digests of the PyTorch port's kernels' outputs on seeded
+inputs, to show whether two checkouts compute the same bits.
 
     python3 scripts/torch_kernel_digest.py [--root DIR]
 
 Builds the kernel library of the checkout at DIR (default: the one this
 script lies in) and prints one line per kernel, dtype and direction:
 kernels 1, 4 and 5 (LSTM) and 7, 8 and 9 (GRU) at the doc encoder's shape
-[16000, 30, 256] -> 128, time chunk 6, in float32 and bfloat16, with a
-digest of each output's bytes.  Two checkouts print the same line for a
-kernel exactly when it gives the same bits.  The backward kernels (5, 9)
-are fed the boundaries of their residual kernels' plain versions, so their
-lines do not move with kernels 4 and 8.  Needs a card.
+[16000, 30, 256] -> 128, time chunk 6, and the generator's kernel 2
+(serial, ``prune``, int8 ``scale``) and 3 (``pipeline``) at the beam-5
+step's shape (R = 1600, E = 256, V = 50,000, kc = 6), in float32 and
+bfloat16, with a digest of each output's bytes.  Two checkouts print the
+same line for a kernel exactly when it gives the same bits.  The backward
+kernels (5, 9) are fed the boundaries of their residual kernels' plain
+versions, so their lines do not move with kernels 4 and 8.  Needs a card.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from pathlib import Path
 import torch
 
 ROWS, STEPS, EMBED, HIDDEN, TIME_CHUNK = 16000, 30, 256, 128, 6
+BEAM_ROWS, VOCAB, KC = 1600, 50_000, 6
 
 
 def digest(*tensors) -> str:
@@ -52,6 +55,32 @@ def inputs(gates: int, n_bias: int, dtype):
     return cuda[0], mask.cuda(), cuda[1:-1], cuda[-1]
 
 
+def generator_inputs(dtype):
+    """x [1600, 256], table_t [256, 50000] and its int8 form (q_t, scale),
+    made on the CPU from one seed."""
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn((BEAM_ROWS, EMBED), generator=gen) * 0.5
+    emb = torch.randn((VOCAB, EMBED), generator=gen) * 0.5
+    scale = emb.abs().amax(-1) / 127.0
+    q_t = torch.round(emb / scale[:, None]).to(torch.int8).t().contiguous()
+    return (x.to("cuda", dtype), emb.t().contiguous().to("cuda", dtype),
+            q_t.cuda(), scale.cuda())
+
+
+def generator_digests(beamgen, dtype, name: str) -> None:
+    x, table_t, q_t, scale = generator_inputs(dtype)
+    for kernel, table, kw in (
+            ("generator_topk_lse", table_t, {}),
+            ("generator_topk_lse_pruned", table_t, {"prune": True}),
+            ("generator_topk_lse_int8", q_t, {"scale": scale}),
+            ("generator_topk_lse_int8_pruned", q_t,
+             {"scale": scale, "prune": True}),
+            ("generator_topk_lse_pipelined", table_t, {"pipeline": True})):
+        out = beamgen.generator_topk_lse(x, table, KC, **kw)
+        torch.cuda.synchronize()
+        print(f"{kernel} {name}: {digest(*out)}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -64,6 +93,8 @@ def main() -> int:
         "context_attentive_ir_tpu_torch.ops.kernels.lstm")
     gru = importlib.import_module(
         "context_attentive_ir_tpu_torch.ops.kernels.gru")
+    beamgen = importlib.import_module(
+        "context_attentive_ir_tpu_torch.ops.kernels.beamgen")
     if not Path(lstm.__file__).resolve().is_relative_to(root):
         raise RuntimeError(f"imported {lstm.__file__}, not from {root}")
     print(f"kernels of {root}")
@@ -91,6 +122,7 @@ def main() -> int:
                                      (f"{rnn}_fused_bwd", bwd)):
                     print(f"{kernel} {name} {way}: {digest(*outs)}",
                           flush=True)
+        generator_digests(beamgen, dtype, name)
     return 0
 
 
