@@ -20,16 +20,22 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    that stress the tensor-core tiles (rows 1, 33 and 16,001, E = 300 with
    H = 100, H = 8, T = 1, T = 17, H = 64, 256 and 384), the LSTM
    recurrence on precomputed gates (kernel 6, with its autograd Function's
-   gradients), kernel 2, kernel 10 (slate pool) at the
-   rank slate and suggest init's row counts with fully masked rows pooling
-   to exactly 0 and its autograd Function's gradients, kernel 2's int8
+   gradients), kernel 9 in bf16 also with 16-row blocks off their block and
+   at its limits (E = 672 at H = 128, H = 448 at E = 256), kernel 2,
+   kernel 10 (slate pool) at the rank slate and suggest init's row counts
+   and a row count off its tile at every width it holds (H = 128, 256, 384,
+   512), at the tensor-core tiles' edges (T = 1, 7, 15, 17, 33, 64 and 65,
+   the first T beyond a tile) with fully masked rows pooling to exactly 0,
+   fewer than 8 rows refused, and its autograd Function's gradients,
+   kernel 2's int8
    mode on a quantized table, and ``prune`` on and off and kernel 3
    (pipelined) against kernel 2, which must give the same bits, also on
    tables laid out as the decoders lay them (V = 50,004 with padded rows,
    the 4,096-word shortlist; kernel 3 at the greedy shape) and on a
    contiguous table with unaligned rows; then shapes a kernel cannot hold
    must be refused, and ``fused_supported`` / ``gru_fused_supported`` /
-   ``beamgen_supported`` must say what the launchers take;
+   ``beamgen_supported`` must say what the launchers take (each limit run,
+   one past it refused);
 4. the main paths at full width: CARS at the serving widths (vocab
    50,000, emsize 256, nhid 128, nhid_ffnn 256, S=5, N=50, Lq=15, Ld=30,
    bf16, seeded random weights) behind ``serve.Engine``: ``rank_batch``
@@ -69,6 +75,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    each is timed (three steady walls) and profiled once;
 5. kernel, plain-version and library times (CUDA events after warm-up)
    with each kernel's bound, printed as one ``{"kernels": [...]}`` line,
+   the redesigned kernels' earlier times beside them in the log, kernel 9
+   with 16-row and 64-row blocks at the query and doc encoders' shapes,
    and the train steps' times.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script needs a
@@ -79,7 +87,8 @@ phases alone, for work on them: ``kernels`` (every kernel against its plain
 version, the refusals, the timing rows), ``lstm`` (kernels 1, 4, 5 and 6
 alone: checks and timing rows), ``grukernels`` (kernels 7, 8 and 9 alone:
 checks and timing rows), ``beamkernels`` (kernels 2 and 3 alone: checks,
-limits and timing rows), ``serving`` (``rank_batch``, beam-5 and
+limits and timing rows), ``slatekernels`` (kernel 10 alone: checks,
+refusals and timing rows), ``serving`` (``rank_batch``, beam-5 and
 greedy ``suggest_batch``), ``train`` (the CARS train steps and the
 checkpoint round trip), ``indexed`` (the rest of serving; runs ``train``
 first for its checkpoint), ``gru`` (CARS-GRU and HRED-QS), ``small`` (the
@@ -354,9 +363,9 @@ TILE_SHAPES = ((1, LD, EMSIZE, NHID), (33, LD, EMSIZE, NHID),
                (200, 9, 64, 64), (100, 8, EMSIZE, 256), (50, 7, 128, 384))
 
 
-def check_tiles(gen, rnn: str) -> dict:
+def check_tiles(gen, rnn: str, shapes=TILE_SHAPES) -> dict:
     """The training pair of ``rnn`` and its forward in bf16 over
-    TILE_SHAPES, both directions, each output against its plain version
+    ``shapes``, both directions, each output against its plain version
     (rel 2e-2); masked outputs (rows whose mask is all False included)
     exactly 0, the backward the same bits twice, the residual kernel's
     output the forward's bits.  Returns the worst max abs error of the
@@ -366,7 +375,7 @@ def check_tiles(gen, rnn: str) -> dict:
     res, bwd = f"{rnn}_fused_res", f"{rnn}_fused_bwd"
     n_res = RNNS[rnn][1].index("dx")
     worst = {res: 0.0, bwd: 0.0}
-    for rows, steps, e, h in TILE_SHAPES:
+    for rows, steps, e, h in shapes:
         for reverse in (False, True):
             errs = pair_errors(gen, rnn, dtype, rows, steps, reverse,
                                e=e, h=h)
@@ -386,6 +395,14 @@ def check_tiles(gen, rnn: str) -> dict:
     return worst
 
 
+# kernel 9 in bf16 beyond TILE_SHAPES: 16-row blocks at rows off their
+# block (the query encoder's B*S + 13; the doc encoder's row counts take
+# 64-row blocks, TILE_SHAPES' 16,001 rows off theirs), and its new limits
+# (E = 672 at H = 128, H = 448 at E = 256; gru_fused_supported)
+GRU_TILE_SHAPES = ((B * S + 13, LQ, EMSIZE, NHID), (70, 7, 672, NHID),
+                   (40, 5, EMSIZE, 448))
+
+
 def tile_note() -> str:
     """The mma flavour and shared-memory bytes of the redesigned kernels at
     the main path's widths."""
@@ -394,6 +411,9 @@ def tile_note() -> str:
     )
     from context_attentive_ir_tpu_torch.ops.kernels.lstm import (
         tile_smem_bytes,
+    )
+    from context_attentive_ir_tpu_torch.ops.kernels.slate import (
+        pool_smem_bytes,
     )
 
     return (f"tiles at E={EMSIZE} H={NHID} bf16: lstm_fused / lstm_fused_res "
@@ -411,7 +431,15 @@ def tile_note() -> str:
             f"{beamgen_smem_bytes(EMSIZE, torch.bfloat16)} bytes a block of "
             "64 rows (kernel 3: "
             f"{beamgen_smem_bytes(EMSIZE, torch.bfloat16, True)}, two score "
-            "buffers)")
+            "buffers); gru_fused_bwd phase A the GRU tiles with a four-slot "
+            "gradient tile, "
+            f"{tile_smem_bytes(EMSIZE, NHID, backward=True, gates=3)} bytes "
+            "a block of 64 rows, "
+            f"{tile_smem_bytes(EMSIZE, NHID, True, 3, rows=16)} of 16; "
+            "attn_pool bf16 mma.sync.m16n8k16 + ldmatrix on 64-token "
+            "document tiles from a two-buffer cp.async.bulk ring, "
+            f"{pool_smem_bytes(H2)} bytes a persistent block (H = {H2}), "
+            f"{pool_smem_bytes(128)} at H = 128")
 
 
 GRU_KERNELS = ("gru_fused", "gru_fused_res", "gru_fused_bwd")
@@ -553,14 +581,18 @@ def check_beamgen(gen) -> dict:
 
 
 # (rows, steps, H) kernel 10 sees on the main path -- the rank slate B*S*N and
-# suggest init's clicked docs B*S*C -- plus row counts off its 64-row block,
-# each at the documents' Ld and at a short T
+# suggest init's clicked docs B*S*C -- plus a row count off its 2-document
+# tile, at the documents' Ld and every width it holds (H % 128 == 0 up to
+# 512: tensor cores in bf16 at 128 and 256, the CUDA-core kernel otherwise)
 H2 = 2 * NHID
-SLATE_SHAPES = tuple((r, t, H2) for r in (B * S * N, B * S * N + 7,
-                                          B * S * MAX_CLICKS, 333)
-                     for t in (LD, 7))
-# the other widths the kernel holds (H % 128 == 0 up to 512), one shape each
-SLATE_SHAPES += tuple((333, 7, h) for h in (128, 384, 512))
+SLATE_ROWS = (B * S * N, B * S * N + 7, B * S * MAX_CLICKS)
+SLATE_SHAPES = tuple((r, LD, h) for h in (128, 256, 384, 512)
+                     for r in SLATE_ROWS)
+# the tensor-core tiles' edges at 333 rows: T = 1 (four documents of 16
+# rows a tile), 7, 15, 17 (two of 32), 33 (one of 48), 64 (one of 64, the
+# limit), 65 (beyond it: the CUDA-core kernel)
+SLATE_SHAPES += tuple((333, t, h) for h in (128, 256)
+                      for t in (1, 7, 15, 17, 33, 64, 65))
 
 
 def slate_inputs(gen, dtype, rows, steps, h=H2):
@@ -587,9 +619,10 @@ def check_slate(gen) -> dict:
     f32 on the same bf16 inputs (the kernel keeps f32 inside and rounds
     only its output), max abs error / max |plain| (tol 2e-2), with the
     error against the plain version run in bf16 beside it.  Fully masked
-    rows must pool to exactly 0.  Then AttnPoolFn's input gradients at a
-    small shape against autograd of the plain version.  Returns each
-    dtype's worst max abs error at the rank slate's shape."""
+    rows must pool to exactly 0, and fewer than 8 rows are refused.  Then
+    AttnPoolFn's input gradients at a small shape against autograd of the
+    plain version.  Returns each dtype's worst max abs error at the rank
+    slate's shape."""
     from context_attentive_ir_tpu_torch.ops.kernels.slate import (
         AttnPoolFn,
         attn_pool,
@@ -622,6 +655,20 @@ def check_slate(gen) -> dict:
                                      "disagrees")
             if (rows, steps, h) == (B * S * N, LD, H2):
                 out[dtype] = err
+
+    # fewer than 8 rows: refused at every width and dtype (pool_supported)
+    for h in (128, 256, 384, 512):
+        for dtype in (torch.float32, torch.bfloat16):
+            (s, q, w, b), mask = slate_inputs(gen, dtype, 7, LD, h)
+            try:
+                attn_pool(s, mask, q, w, b)
+            except ValueError as err:
+                refused = str(err)
+            else:
+                raise AssertionError(f"attn_pool {dtype} R=7 H={h} was not "
+                                     "refused")
+    log(f"attn_pool R=7 refused at H = 128, 256, 384, 512 in both dtypes "
+        f"({refused})")
 
     (s, q, w, b), mask = slate_inputs(gen, torch.float32, 40, 9)
     g = torch.randn((40, H2), generator=gen, device="cuda")
@@ -939,9 +986,10 @@ def check_refusals(gen) -> None:
 
     # gru_fused_supported states the launchers' limits: a shape it accepts
     # runs through all three kernels, one it rejects is refused by at least
-    # one (bf16: the forward's tiles or kernel 9's f32 tile)
+    # one (bf16: kernel 9's tensor-core tiles, whose limits hold the
+    # forward's; float32: kernel 9's f32 tile)
     for e, h, dtype in ((672, NHID, bf16), (704, NHID, bf16),
-                        (EMSIZE, 403, bf16), (EMSIZE, 416, bf16),
+                        (EMSIZE, 448, bf16), (EMSIZE, 449, bf16),
                         (300, 100, bf16), (1400, NHID, torch.float32),
                         (1500, NHID, torch.float32),
                         (EMSIZE, 256, torch.float32),
@@ -2265,6 +2313,25 @@ def time_rnn(gen, rnn: str, launches: dict, fwd_err: float,
     return rows_out
 
 
+def time_row_tiles(gen) -> None:
+    """Kernel 9 in bf16, one direction, at the query encoder's shape (R =
+    B*S, T = Lq; also HRED-QS's) and the doc encoder's (R = B*S*N, T = Ld)
+    with 16-row blocks (``row_tiles=1``) and the tiles' own 64-row blocks
+    (``row_tiles=4``): the two times ``bwd_row_tiles`` chooses between."""
+    mod = rnn_kernels("gru")
+    for rows, steps in ((B * S, LQ), (B * S * N, LD)):
+        (x, *w), mask = gru_inputs(gen, torch.bfloat16, rows, steps)
+        out, hb = mod.gru_fused_res(x, mask, *w)
+        dout = (torch.randn(out.shape, generator=gen, device="cuda")
+                * 0.5).to(torch.bfloat16)
+        ms = {mt: timed_ms(lambda: mod.gru_fused_bwd(
+            x, mask, *w, hb, dout, row_tiles=mt), 5) for mt in (1, 4)}
+        log(f"gru_fused_bwd bf16 [{rows},{steps},{EMSIZE}]->{NHID}: "
+            f"16-row blocks {ms[1]:.3f} ms ({-(-rows // 16)} blocks), "
+            f"64-row blocks {ms[4]:.3f} ms ({-(-rows // 64)} blocks); "
+            f"bwd_row_tiles takes {mod.bwd_row_tiles(NHID, rows)}")
+
+
 def time_recurrence(gen, launches: dict, max_err: float) -> dict:
     """Kernel 6 at the doc encoder's shape, one direction, bf16: the kernel,
     the ``torch.matmul`` projection that feeds it, its plain version.  Its
@@ -2334,6 +2401,11 @@ def time_slate(gen, launches: dict, max_err: float) -> list[dict]:
         log(f"attn_pool bf16 [{rows},{LD},{h}]: kernel {ms:.3f} ms, plain "
             f"{plain:.3f} ms, library none (no single PyTorch call), bound "
             f"{bnd:.4f} ms ({by})")
+        log_earlier("attn_pool", ms, plain, None, bnd, rows)
+        f32 = [t.float() for t in (s, q, w, b)]
+        ms32 = timed_ms(lambda: attn_pool(f32[0], mask, *f32[1:]), 5)
+        log(f"attn_pool f32 [{rows},{LD},{h}] (the CUDA-core kernel): "
+            f"{ms32:.3f} ms")
         rows_out.append(kernel_row(
             "attn_pool", "slate_pool.cu", "slate.py:158", launches, max_err,
             ms, plain, None, bnd, by, rows=rows, steps=LD))
@@ -2429,12 +2501,18 @@ def time_beamgen_modes(gen, launches: dict, max_err: float,
     return rows_out
 
 
-def log_earlier(name: str, ms: float, plain: float, lib, bnd: float) -> None:
-    """Log a redesigned kernel's time beside its first version's (for the
-    log only: EARLIER_MS was not measured in this run)."""
-    if name in EARLIER_MS:
-        log(f"{name}: {ms:.3f} ms now, {EARLIER_MS[name]:.3f} ms in its "
-            "first (CUDA-core) version on an H100 80GB HBM3 at 700 W; "
+def log_earlier(name: str, ms: float, plain: float, lib, bnd: float,
+                rows: int | None = None) -> None:
+    """Log a redesigned kernel's time beside its last CUDA-core version's
+    (for the log only: EARLIER_MS was not measured in this run); ``rows``
+    picks the reading of a kernel timed at several row counts."""
+    earlier = EARLIER_MS.get(name)
+    if isinstance(earlier, dict):
+        earlier = earlier.get(rows)
+    if earlier is not None:
+        log(f"{name}{'' if rows is None else f' R={rows}'}: {ms:.3f} ms "
+            f"now, {earlier:.3f} ms in its last CUDA-core version on an "
+            "H100 80GB HBM3 at 700 W; "
             f"{ms / plain:.2f} x its plain version, "
             + (f"{ms / lib:.2f} x the library call, " if lib else "")
             + f"{ms / bnd:.1f} x its bound")
@@ -2469,24 +2547,28 @@ def card() -> str:
 
 # the timing rows' earlier readings (ms, bf16, one H100 80GB HBM3 at
 # 700 W; the recurrent kernels at the doc-encoder shape, the generator's
-# modes at the beam-5 step's, as the last chip_smoke run before their
-# redesign read them): the first, CUDA-core versions of the kernels that
-# have since been redesigned.  Logged beside the new times, never put into
-# the kernels line, which holds only what this run measured.
+# modes at the beam-5 step's, kernel 10 by row count at T = Ld, as the last
+# chip_smoke run before their redesign read them): the last CUDA-core
+# versions of the kernels that have since been redesigned.  Logged beside
+# the new times, never put into the kernels line, which holds only what
+# this run measured.
 EARLIER_MS = {"lstm_fused": 11.269, "lstm_fused_res": 11.256,
               "lstm_fused_bwd": 44.075, "gru_fused": 10.068,
-              "gru_fused_res": 9.722, "gru_fused_bwd": 37.372,
+              "gru_fused_res": 9.722, "gru_fused_bwd": 28.380,
               "generator_topk_lse": 5.233,
               "generator_topk_lse_pruned": 3.036,
               "generator_topk_lse_int8": 3.041,
-              "generator_topk_lse_pipelined": 3.761}
+              "generator_topk_lse_pipelined": 3.761,
+              "attn_pool": {B * S * N: 2.067, B * S * MAX_CLICKS: 0.958}}
 
-# --only selectors, in running order.  "lstm", "grukernels" and
-# "beamkernels" are the LSTM, GRU and generator kernels' shares of
-# "kernels"; a run with no selector runs every other phase.
-PHASES = ("kernels", "lstm", "grukernels", "beamkernels", "serving",
-          "train", "indexed", "gru", "small", "kernel6", "trainer")
-SHARES = {"lstm", "grukernels", "beamkernels"}
+# --only selectors, in running order.  "lstm", "grukernels",
+# "beamkernels" and "slatekernels" are the LSTM, GRU, generator and slate
+# pool kernels' shares of "kernels"; a run with no selector runs every
+# other phase.
+PHASES = ("kernels", "lstm", "grukernels", "beamkernels", "slatekernels",
+          "serving", "train", "indexed", "gru", "small", "kernel6",
+          "trainer")
+SHARES = {"lstm", "grukernels", "beamkernels", "slatekernels"}
 
 
 def main() -> int:
@@ -2535,9 +2617,13 @@ def main() -> int:
     def check_rnn(rnn):
         errs[f"fwd_{rnn}"] = check_forward(gen, rnn)
         errs[f"pair_{rnn}"] = check_train_pair(gen, rnn)
-        for k, v in check_tiles(gen, rnn).items():
-            d = errs[f"pair_{rnn}"][k]
-            d[torch.bfloat16] = max(d[torch.bfloat16], v)
+        tiles = [check_tiles(gen, rnn)]
+        if rnn == "gru":
+            tiles.append(check_tiles(gen, rnn, GRU_TILE_SHAPES))
+        for worst in tiles:
+            for k, v in worst.items():
+                d = errs[f"pair_{rnn}"][k]
+                d[torch.bfloat16] = max(d[torch.bfloat16], v)
 
     def check_lstm():
         check_rnn("lstm")
@@ -2565,6 +2651,9 @@ def main() -> int:
             phase("gru kernel checks", lambda: check_rnn("gru"))
         if "beamkernels" in run:
             phase("generator kernel checks", check_beam)
+        if "slatekernels" in run:
+            errs["slate"] = phase("slate kernel checks",
+                                  lambda: check_slate(gen))
     elif "kernel6" in run:
         errs["rec"] = phase("kernel 6 checks",
                             lambda: check_recurrence(gen))
@@ -2608,6 +2697,8 @@ def main() -> int:
         kernels.extend(row for rnn in rnns for row in time_rnn(
             gen, rnn, launches, errs[f"fwd_{rnn}"][bf16],
             errs[f"pair_{rnn}"]))
+        if "gru" in rnns:
+            time_row_tiles(gen)
         if "rec" in errs:
             kernels.append(time_recurrence(gen, launches, errs["rec"][bf16]))
         if "beam" in errs:

@@ -1,5 +1,5 @@
 // bf16 tensor-core tiles of the recurrent kernels (lstm_fwd.cu,
-// lstm_bwd.cu, gru_fwd.cu): `mma.sync.m16n8k16` (bf16 x bf16, f32
+// lstm_bwd.cu, gru_fwd.cu, gru_bwd.cu): `mma.sync.m16n8k16` (bf16 x bf16, f32
 // accumulate) fed by `ldmatrix` from operands staged in shared memory in
 // bf16, and the ring of bulk copies that streams the weights.  Everything
 // here takes the number of gate column blocks NG: 4 for the LSTM (i, f, g,
@@ -33,7 +33,7 @@
 //   tile of an x slab goes into xn and that of an h slab into hn, with no
 //   zero blocks staged and no `mma` wasted.
 // - The same slabs, read through non-transposed `ldmatrix`, are the B
-//   operand of dgates_c @ W^T in the LSTM backward (slab rows = output
+//   operand of dgates_c @ W^T in both backwards (slab rows = output
 //   columns), so no transposed copy of the weights exists anywhere.
 //
 // E and H are multiples of 32 here (the wrapper zero-pads other sizes; zero
@@ -77,22 +77,34 @@ __host__ __device__ inline int w_stride(int h, int gates) {
   return h * gates * 2 + 16;
 }
 
+// bytes per row of a backward's staged gradient tile: four slots of H
+// (the LSTM's four gates; the GRU's da_r, da_z, da_n, da_n * r)
+__host__ __device__ inline int slot_stride(int h) { return h * 8 + 16; }
+// bytes of the f32 tile through which dh returns to its owning threads
+__host__ __device__ inline size_t exch_bytes(int h, int m_rows) {
+  return (size_t)m_rows * (h + 8) * 4;
+}
+
 // Dynamic shared memory of a row-tile block of m_rows rows with `gates`
-// gate blocks, forward or (LSTM) backward phase A, or 0 if no slab depth
-// fits (*ks gets the depth: 32 k-rows, else 16): the ring's header and
-// slabs, the staged tiles, the bias (four f32 slots of H).  The forward
-// stages two x tiles and the h tile; the backward reuses that space for its
-// dgates tile (m_rows staged weight-width rows) and adds the f32 tile that
-// dh returns through.  `tile_smem_bytes` in ops/kernels/lstm.py states the
-// same sum.
+// gate blocks, forward or backward phase A, or 0 if no slab depth fits
+// (*ks gets the depth: 32 k-rows, else 16): the ring's header and slabs,
+// the staged tiles, the bias (four f32 slots of H).  The forward stages two
+// x tiles and the h tile; a backward reuses that space for its gradient
+// tile (m_rows rows of four slots) and needs the f32 tile that dh returns
+// through: the LSTM's kernel 5 keeps it after that union, the GRU's kernel
+// 9 inside it, after the gradient tile (the x tiles are idle in the
+// reverse pass), so kernel 9 holds every E its forward holds.
+// `tile_smem_bytes` in ops/kernels/lstm.py states the same sum.
 constexpr int kRingHeader = 64;  // the slots' mbarriers
 
 __host__ __device__ inline size_t staged_bytes(int e, int h, int gates,
                                                int m_rows, bool backward) {
   const size_t fwd =
       2 * (size_t)m_rows * x_stride(e) + (size_t)m_rows * h_stride(h);
-  const size_t rev = (size_t)m_rows * w_stride(h, gates);
-  return backward && rev > fwd ? rev : fwd;
+  if (!backward) return fwd;
+  size_t rev = (size_t)m_rows * slot_stride(h);
+  if (gates == kGruGates) rev += exch_bytes(h, m_rows);
+  return rev > fwd ? rev : fwd;
 }
 
 inline size_t mma_smem(int e, int h, int gates, int m_rows, bool backward,
@@ -101,7 +113,8 @@ inline size_t mma_smem(int e, int h, int gates, int m_rows, bool backward,
     const size_t bytes =
         kRingHeader + (size_t)kStages * depth * w_stride(h, gates) +
         staged_bytes(e, h, gates, m_rows, backward) +
-        (backward ? (size_t)m_rows * (h + 8) * 4 : 0) + 16 * h;
+        (backward && gates == kLstmGates ? exch_bytes(h, m_rows) : 0) +
+        16 * h;
     if (bytes <= kSmemLimit) {
       *ks = depth;
       return bytes;

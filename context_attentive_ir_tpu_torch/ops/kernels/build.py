@@ -39,8 +39,8 @@ SIGNATURES = {
     "cair_lstm_bwd": ([_P] * 15 + [_I] * 7 + [_P], _I),
     "cair_gru_fwd": ([_P] * 7 + [_I] * 6 + [_P], _I),
     "cair_gru_fwd_res": ([_P] * 8 + [_I] * 7 + [_P], _I),
-    "cair_gru_bwd_workspace": ([_I] * 6, ctypes.c_longlong),
-    "cair_gru_bwd": ([_P] * 16 + [_I] * 7 + [_P], _I),
+    "cair_gru_bwd_workspace": ([_I] * 7, ctypes.c_longlong),
+    "cair_gru_bwd": ([_P] * 16 + [_I] * 8 + [_P], _I),
     "cair_beamgen_occupancy": ([_I] * 5 + [_IP], _I),
     "cair_beamgen": ([_P, _P, _P] + [_I] * 7 + [_P] * 7 + [_I] * 4 + [_P],
                      _I),

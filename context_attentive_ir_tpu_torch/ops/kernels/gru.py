@@ -40,15 +40,21 @@ rows for all T steps, the weights (``stage_lstm_weights``, ``[E + H, 3H +
 8]``) stream from L2 through a ring of bulk copies, and a thread keeps four
 f32 slots per (row, unit) -- r and z from every slab, the n gate's
 ``x @ W_in`` and ``h @ W_hn`` apart, since r multiplies only the second --
-with h carried in f32 registers.  Those kernels take E and H that are
-multiples of 32 and 16-byte aligned tensors; ``pad_gru_operands`` zero-pads
-other sizes here (a padded unit has r = z = 1/2 and n = 0, so its h stays
-exactly 0) and the results are cut back.  Kernel 9 and float32 keep the
+with h carried in f32 registers.  Kernel 9's phase A runs on the same
+tiles as the LSTM's kernel 5: the recompute is kernel 8's step, and the
+four gradient slots ``[da_r, da_z, da_n, da_n * r]``, rounded to bf16 in
+one staged ``[M, 4H]`` tile, multiply the same weight slabs read
+untransposed (``dx_t`` = slots 0..2 @ ``W_ih^T``, the product in ``dh`` =
+slots 0, 1, 3 @ ``W_hh^T``); its blocks take 16 rows where the tiles' own
+64 would leave most of the card idle (``bwd_row_tiles``); phase B is
+tensor-core tiles too.  Those kernels take E and H that are multiples of
+32 and 16-byte aligned tensors; ``pad_gru_operands`` zero-pads other sizes
+here (a padded unit has r = z = 1/2 and n = 0, so its h stays exactly 0
+and its gradients are 0) and the results are cut back.  float32 keeps the
 first version's layout: one thread block per 32 rows, a thread per hidden
 unit of 16 rows, ``[x_t | h]`` staged in f32, exact f32 FMAs, the weights
-read through L2 (phase B of kernel 9 is tensor-core tiles for bf16).
-``gru_fused_supported`` states the shapes each dtype's kernels hold;
-``PERF.md`` records times and bounds.
+read through L2.  ``gru_fused_supported`` states the shapes each dtype's
+kernels hold; ``PERF.md`` records times and bounds.
 """
 
 from __future__ import annotations
@@ -62,12 +68,16 @@ from .lstm import (
     MAX_HIDDEN_BF16,
     SMEM_LIMIT,
     TILE_ALIGN,
+    _aligned,
+    _cut_gates,
     _first_in_chunk,
+    _pad_last,
     _round_up,
     _stream,
     chunk_len,
     pad_operands,
     stage_lstm_weights,
+    tile_config,
     tile_smem_bytes,
 )
 
@@ -78,24 +88,37 @@ def gru_fused_supported(embed: int, hidden: int, rows: int,
                         dtype: torch.dtype = torch.float32) -> bool:
     """Whether kernels 7, 8 and 9 hold an ``[rows, T, embed] -> hidden`` GRU
     in ``dtype`` (the counterpart of the JAX ``gru_fused_supported``, with
-    this card's limits).  Kernel 9 (and float32's kernels 7 and 8): a block
-    has ``2 * hidden <= 1024`` threads and stages ``max(embed + hidden,
-    4 * hidden)`` k-rows of 36 floats in shared memory (the backward's four
-    gradient slots are the wider tile).  bfloat16 adds the tensor-core
-    forward's tiles, since a layer that trains needs both: after padding to
-    multiples of 32, ``hidden <= 512`` and the three-gate tiles fit a
-    block's shared memory (E <= 672 at H = 128; kernel 9 sets H <= 403 at
+    this card's limits).  float32: a block has ``2 * hidden <= 1024``
+    threads and stages ``max(embed + hidden, 4 * hidden)`` k-rows of 36
+    floats in shared memory (kernel 9's four gradient slots are the wider
+    tile).  bfloat16: after padding to multiples of 32, ``hidden <= 512``
+    and kernel 9's tensor-core tiles fit a block's shared memory -- its
+    four-slot gradient tile and dh exchange beside the forward's tiles, so
+    the forward's fit too (E <= 672 at H = 128, as the forward; H <= 448 at
     E = 256)."""
     if embed < 1 or hidden < 1 or rows < 1 or dtype not in _DTYPES:
         return False
-    kernel9 = (2 * hidden <= 1024
-               and max(embed + hidden, 4 * hidden) * F32_STRIDE * 4
-               <= SMEM_LIMIT)
     if dtype == torch.float32:
-        return kernel9
+        return (2 * hidden <= 1024
+                and max(embed + hidden, 4 * hidden) * F32_STRIDE * 4
+                <= SMEM_LIMIT)
     e, h = _round_up(embed, TILE_ALIGN), _round_up(hidden, TILE_ALIGN)
-    return (kernel9 and h <= MAX_HIDDEN_BF16
-            and tile_smem_bytes(e, h, gates=GATES) > 0)
+    return (h <= MAX_HIDDEN_BF16
+            and tile_smem_bytes(e, h, backward=True, gates=GATES) > 0)
+
+
+# kernel 9's bf16 blocks take 16 rows when the tiles' own rows a block
+# would give fewer blocks than one H100 has SMs (``bwd_row_tiles`` in
+# ``csrc/gru_bwd.cu``)
+SMALL_GRID = 132
+
+
+def bwd_row_tiles(hidden: int, rows: int) -> int:
+    """16-row tiles a block of kernel 9's bf16 phase A takes for ``rows``
+    rows at a padded ``hidden`` size: ``tile_config``'s, unless that gives
+    fewer than ``SMALL_GRID`` blocks; then 1."""
+    own = tile_config(hidden)[1]
+    return 1 if -(-rows // (16 * own)) < SMALL_GRID else own
 
 
 def pad_gru_operands(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
@@ -343,11 +366,16 @@ gru_fused_res.launches = 0
 def gru_fused_bwd(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
                   b_ih: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                   hb: torch.Tensor, dout: torch.Tensor, reverse: bool = False,
-                  time_chunk: int = 6, device="cuda"):
+                  time_chunk: int = 6, device="cuda",
+                  row_tiles: int | None = None):
     """Kernel 9: the gradients ``(dx, dw_ih, db_ih, dw_hh, db_hh)`` of
     ``gru_fused_res`` with respect to x and the weights, given its ``hb``
     and ``dout = dL/d out`` (x's dtype).  Launches ``cair_gru_bwd`` on CUDA
-    tensors, runs ``gru_fused_bwd_reference`` on CPU tensors."""
+    tensors (bfloat16: on operands padded to the tiles' multiple of 32 and
+    the staged weights, the gradients cut back), runs
+    ``gru_fused_bwd_reference`` on CPU tensors.  ``row_tiles`` (bfloat16
+    only; 1 or ``tile_config``'s) overrides ``bwd_row_tiles``, to time the
+    two."""
     dev = resolve_device(device)
     check_on(dev, x, mask, w_ih, b_ih, w_hh, b_hh, hb, dout)
     if dev.type == "cpu":
@@ -370,20 +398,40 @@ def gru_fused_bwd(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
 
     lib = load_library()
     dtype = _DTYPES[x.dtype]
-    n_bytes = lib.cair_gru_bwd_workspace(B, T, E, H, tc, dtype)
+    if x.dtype == torch.bfloat16:
+        # the tensor-core kernel reads W^T out of the staged W's own slabs
+        x, w_ih, b_ih, w_hh, b_hh = pad_gru_operands(x, w_ih, b_ih, w_hh,
+                                                     b_hh)
+        Hp = w_hh.shape[0]
+        hb, dout = (_aligned(_pad_last(t, Hp)) for t in (hb, dout))
+        staged = stage_lstm_weights(w_ih, w_hh)  # alive until the launch
+        weights = (staged.data_ptr(), b_ih.data_ptr(), 0, b_hh.data_ptr(),
+                   0, 0)
+    else:
+        # float32: transposed weights for the dx and dh products
+        w_ih_t, w_hh_t = w_ih.t().contiguous(), w_hh.t().contiguous()
+        weights = _pointers(w_ih, b_ih, w_hh, b_hh, w_ih_t, w_hh_t)
+    Ep, Hp = x.shape[-1], w_hh.shape[0]
+    n_bytes = lib.cair_gru_bwd_workspace(B, T, Ep, Hp, tc, dtype,
+                                         row_tiles or 0)
     if n_bytes < 0:
         raise ValueError(f"gru_fused_bwd: invalid shape B={B} T={T} E={E} "
-                         f"H={H}")
+                         f"H={H} {x.dtype} row_tiles={row_tiles}")
     workspace = torch.empty((n_bytes,), dtype=torch.uint8, device=x.device)
-    # transposed weights for the dx and dh products (coalesced reads)
-    w_ih_t, w_hh_t = w_ih.t().contiguous(), w_hh.t().contiguous()
     dx = torch.empty_like(x)
     grads = [torch.empty_like(t) for t in (w_ih, b_ih, w_hh, b_hh)]
     check(lib.cair_gru_bwd(
-        *_pointers(x, mask, w_ih, b_ih, w_hh, b_hh, w_ih_t, w_hh_t, hb, dout,
-                   dx, *grads, workspace), B, T, E, H, int(reverse), tc,
-        dtype, _stream(x)), "cair_gru_bwd")
+        x.data_ptr(), mask.data_ptr(), *weights,
+        *_pointers(hb, dout, dx, *grads, workspace), B, T, Ep, Hp,
+        int(reverse), tc, dtype, row_tiles or 0, _stream(x)), "cair_gru_bwd")
     gru_fused_bwd.launches += 1
+    if (Ep, Hp) != (E, H):
+        dx = dx[..., :E].contiguous()
+        dw_ih, db_ih, dw_hh, db_hh = grads
+        grads = [_cut_gates(dw_ih[:E], H, Hp, GATES).contiguous(),
+                 _cut_gates(db_ih, H, Hp, GATES).contiguous(),
+                 _cut_gates(dw_hh[:H], H, Hp, GATES).contiguous(),
+                 _cut_gates(db_hh, H, Hp, GATES).contiguous()]
     return (dx, *grads)
 
 

@@ -75,17 +75,24 @@ def tile_config(hidden: int) -> tuple[int, int]:
 
 
 def tile_smem_bytes(e: int, h: int, backward: bool = False,
-                    gates: int = 4) -> int:
-    """Dynamic shared memory of the bf16 forward (or LSTM backward phase A)
-    kernel at padded widths ``e``, ``h`` with ``gates`` gate blocks (4: the
-    LSTM, 3: the GRU): the ring's mbarriers (64 bytes), its three slabs of
-    32 (else 16) k-rows, the staged tiles, the bias (four f32 slots of H);
-    0 if neither depth fits (``mma_smem`` in ``csrc/lstm_mma.cuh``)."""
-    m = 16 * tile_config(h)[1]
+                    gates: int = 4, rows: int | None = None) -> int:
+    """Dynamic shared memory of the bf16 forward or backward phase A kernel
+    at padded widths ``e``, ``h`` with ``gates`` gate blocks (4: the LSTM,
+    3: the GRU) and ``rows`` rows a block (default: ``tile_config``'s): the
+    ring's mbarriers (64 bytes), its three slabs of 32 (else 16) k-rows, the
+    staged tiles, the bias (four f32 slots of H); 0 if neither depth fits
+    (``mma_smem`` in ``csrc/lstm_mma.cuh``).  A backward's gradient tile has
+    four slots of H whatever the gate count (the GRU's da_r, da_z, da_n,
+    da_n * r) and takes the place of the forward's tiles, beside the f32
+    tile dh returns through: after that union in the LSTM's kernel 5,
+    inside it in the GRU's kernel 9."""
+    m = rows or 16 * tile_config(h)[1]
     x_row, h_row, w_row = 2 * e + 16, 2 * h + 16, 2 * gates * h + 16
     tiles = 2 * m * x_row + m * h_row
     if backward:
-        tiles = max(tiles, m * w_row) + m * (h + 8) * 4
+        slots, exch = m * (8 * h + 16), m * (h + 8) * 4
+        tiles = (max(tiles, slots) + exch if gates == 4
+                 else max(tiles, slots + exch))
     for depth in (32, 16):
         n_bytes = 64 + 3 * depth * w_row + tiles + 16 * h
         if n_bytes <= SMEM_LIMIT:

@@ -10,22 +10,31 @@ attended by the row's query vector,
     s_t    = h_t . q
     pooled = sum_t softmax_masked(s)_t * states_t
 
-streaming the tokens once with an online softmax (running max, sum and
-weighted sum in float32; masked tokens score -1e30 and weigh 0), so the
-``[R, T, H]`` projection never reaches device memory.  A fully masked row
-pools to exactly 0.  The output has the states' dtype.
+reading the tokens once with the softmax's max, sum and weighted sum in
+float32 (masked tokens score -1e30 and weigh 0), so the ``[R, T, H]``
+projection never reaches device memory.  A fully masked row pools to
+exactly 0.  The output has the states' dtype.
 
-The kernel is ``csrc/slate_pool.cu``: a block owns 64 rows (32 when
-H > 256); per token it stages the rows' states in shared memory as f32,
-computes ``states_t @ W_p`` with CUDA-core FMAs (W_p in shared memory for
-bf16 at H <= 256, from L2 otherwise), then the scores and the softmax
-update from registers.
+The kernel is ``csrc/slate_pool.cu``.  In bfloat16 at H = 128 and 256
+with 1 <= T <= 64 (``pool_tensor_cores``) it runs the projection as the
+GEMM ``[R*T, H] @ [H, H]`` on tensor cores (``mma.sync.m16n8k16``, bf16 in,
+f32 accumulate): a persistent block per SM stages W_p once in shared memory
+and walks tiles of whole documents (``pool_tiles``: 64 token rows, each
+document's T padded to a multiple of 16), copied by ``cp.async.bulk`` into
+one buffer while it works on the other; the scores come out of the
+accumulators' epilogue, each document takes its masked softmax over its T
+scores at once, and the pooled vector is summed off the staged tile in
+f32.  That per-document softmax differs from the online one only in
+rounding.  float32, H = 384 and 512 (whose W_p does not fit in shared
+memory) and T above one tile keep the first version: a block owns 64 rows
+(32 when H > 256), stages each token's states in f32 and runs the
+projection on CUDA cores with an online softmax.
 
 Bound on the H100 (CARS slate, R = B*S*N = 16,000 rows, T = 30, H = 256,
 bf16): 2*R*T*H^2 = 6.3e10 flops (0.064 ms at the bf16 tensor-core peak)
-against 262 MB of states, queries and output (0.078 ms): memory-bound.
-This first version runs the product on CUDA cores, far above that bound;
-``PERF.md`` records the gap.
+against 262 MB of states, queries and output (0.078 ms): memory-bound with
+the projection on tensor cores (on CUDA cores alone it needs >= 0.94 ms).
+``PERF.md`` records the times.
 
 ``AttnPoolFn`` is the differentiable form (the JAX ``custom_vjp``): the
 kernel forward, and a backward that replays autograd of the plain version,
@@ -47,6 +56,42 @@ def pool_supported(hidden: int, rows: int) -> bool:
     """Whether the fused pool kernel takes this shape (the JAX contract:
     128-aligned features, at least 8 rows)."""
     return hidden % 128 == 0 and rows >= 8
+
+
+# the bf16 tensor-core kernel (csrc/slate_pool.cu, slate_pool_tc_kernel)
+SMEM_LIMIT = 232448   # dynamic shared memory a block may use on sm_90
+TILE_ROWS = 64        # token rows of a document tile
+MAX_DOCS = TILE_ROWS // 16
+
+
+def pool_tiles(steps: int) -> tuple[int, int]:
+    """(padded T, documents a tile) of the tensor-core kernel: each
+    document's ``steps`` tokens padded to a multiple of 16, as many whole
+    documents as ``TILE_ROWS`` rows hold."""
+    t_pad = -(-steps // 16) * 16
+    return t_pad, TILE_ROWS // t_pad
+
+
+def pool_smem_bytes(hidden: int) -> int:
+    """Dynamic shared memory of the tensor-core kernel at width ``hidden``
+    (``tc_smem`` in ``csrc/slate_pool.cu``): the buffers' mbarriers (64
+    bytes), W_p and two buffers of ``TILE_ROWS`` token rows in bf16 (rows
+    padded by 16 bytes), two buffers' queries, the score exchange (8 warps
+    x ``TILE_ROWS`` f32), the softmax weights and denominators."""
+    row = 2 * hidden + 16
+    return (64 + hidden * row + 2 * TILE_ROWS * row + 2 * MAX_DOCS * hidden
+            * 2 + 8 * TILE_ROWS * 4 + TILE_ROWS * 4 + MAX_DOCS * 4)
+
+
+def pool_tensor_cores(hidden: int, steps: int, dtype: torch.dtype) -> bool:
+    """Whether ``attn_pool`` runs the tensor-core kernel for this shape (the
+    launcher's gate): bfloat16, H = 128 or 256 (W_p and both buffers fit a
+    block's shared memory; at H = 384 W_p alone does not), and a document
+    fits one tile (1 <= T <= ``TILE_ROWS``).  Every other shape that
+    ``pool_supported`` holds runs the CUDA-core kernel."""
+    return (dtype == torch.bfloat16 and hidden in (128, 256)
+            and 1 <= steps <= TILE_ROWS
+            and pool_smem_bytes(hidden) <= SMEM_LIMIT)
 
 
 def attn_pool_reference(states: torch.Tensor, mask: torch.Tensor,
@@ -93,9 +138,11 @@ def attn_pool(states: torch.Tensor, mask: torch.Tensor, query: torch.Tensor,
     """states [R, T, H], mask bool [R, T], query [R, H], w_p [H, H], b_p
     [H] (one dtype, float32 or bfloat16) -> pooled [R, H] in that dtype.
 
-    On CUDA tensors this launches ``cair_slate_pool``; on CPU tensors
-    (``device="cpu"``) it runs ``attn_pool_reference``.  It computes no
-    gradient (``AttnPoolFn`` is the differentiable form)."""
+    On CUDA tensors this launches ``cair_slate_pool`` (the tensor-core
+    kernel where ``pool_tensor_cores`` says so, the CUDA-core kernel
+    otherwise); on CPU tensors (``device="cpu"``) it runs
+    ``attn_pool_reference``.  It computes no gradient (``AttnPoolFn`` is the
+    differentiable form)."""
     dev = resolve_device(device)
     check_on(dev, states, mask, query, w_p, b_p)
     if dev.type == "cpu":

@@ -7,10 +7,12 @@ inputs, to show whether two checkouts compute the same bits.
 Builds the kernel library of the checkout at DIR (default: the one this
 script lies in) and prints one line per kernel, dtype and direction:
 kernels 1, 4 and 5 (LSTM) and 7, 8 and 9 (GRU) at the doc encoder's shape
-[16000, 30, 256] -> 128, time chunk 6, and the generator's kernel 2
+[16000, 30, 256] -> 128, time chunk 6, the generator's kernel 2
 (serial, ``prune``, int8 ``scale``) and 3 (``pipeline``) at the beam-5
-step's shape (R = 1600, E = 256, V = 50,000, kc = 6), in float32 and
-bfloat16, with a digest of each output's bytes.  Two checkouts print the
+step's shape (R = 1600, E = 256, V = 50,000, kc = 6), and the slate pool's
+kernel 10 at the rank slate's and suggest init's shapes ([16000, 30, 256]
+and [1280, 30, 256]), in float32 and bfloat16, with a digest of each
+output's bytes.  Two checkouts print the
 same line for a kernel exactly when it gives the same bits.  The backward
 kernels (5, 9) are fed the boundaries of their residual kernels' plain
 versions, so their lines do not move with kernels 4 and 8.  Needs a card.
@@ -81,6 +83,27 @@ def generator_digests(beamgen, dtype, name: str) -> None:
         print(f"{kernel} {name}: {digest(*out)}", flush=True)
 
 
+def slate_digests(slate, dtype, name: str) -> None:
+    """Kernel 10 at R = 16,000 and 1,280 documents of T = 30, H = 256 (rows
+    0 and 5 fully masked), inputs made on the CPU from one seed."""
+    gen = torch.Generator().manual_seed(10)
+    for rows in (16000, 1280):
+        states = torch.rand((rows, STEPS, 2 * HIDDEN), generator=gen) * 2 - 1
+        query = torch.rand((rows, 2 * HIDDEN), generator=gen) * 2 - 1
+        w_p = (torch.rand((2 * HIDDEN, 2 * HIDDEN), generator=gen) * 2 - 1
+               ) * 0.1
+        b_p = (torch.rand((2 * HIDDEN,), generator=gen) * 2 - 1) * 0.1
+        lens = torch.randint(0, STEPS + 1, (rows,), generator=gen)
+        lens[0], lens[5] = 0, 0
+        mask = torch.arange(STEPS)[None, :] < lens[:, None]
+        states = states * mask[..., None]
+        out = slate.attn_pool(*(t.to("cuda", dtype) if t.is_floating_point()
+                                else t.cuda()
+                                for t in (states, mask, query, w_p, b_p)))
+        torch.cuda.synchronize()
+        print(f"attn_pool {name} R={rows}: {digest(out)}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -95,6 +118,8 @@ def main() -> int:
         "context_attentive_ir_tpu_torch.ops.kernels.gru")
     beamgen = importlib.import_module(
         "context_attentive_ir_tpu_torch.ops.kernels.beamgen")
+    slate = importlib.import_module(
+        "context_attentive_ir_tpu_torch.ops.kernels.slate")
     if not Path(lstm.__file__).resolve().is_relative_to(root):
         raise RuntimeError(f"imported {lstm.__file__}, not from {root}")
     print(f"kernels of {root}")
@@ -123,6 +148,7 @@ def main() -> int:
                     print(f"{kernel} {name} {way}: {digest(*outs)}",
                           flush=True)
         generator_digests(beamgen, dtype, name)
+        slate_digests(slate, dtype, name)
     return 0
 
 

@@ -73,10 +73,11 @@ def _max_err(a, b):
     (672, 128, BF16, True),     # ... the GRU's: three gate blocks ...
     (673, 128, BF16, False),    # ... 704 after padding does not fit
     (256, 384, BF16, True),     # the LSTM's largest H at E = 256 ...
-    (256, 403, BF16, True),     # ... the GRU's, set by kernel 9's f32 tile
-    (256, 404, BF16, False),    # 4H k-rows of 36 floats beyond 232,448
-    (1486, 64, BF16, False),    # kernel 9 holds it, the forward tiles not
-    (32, 512, BF16, False),     # kernel 9's tile at H = 512
+    (256, 403, BF16, True),     # ... float32's GRU (kernel 9's f32 tile) ...
+    (256, 448, BF16, True),     # ... bf16's, set by kernel 9's four slots
+    (256, 449, BF16, False),    # 480 after padding does not fit
+    (1486, 64, BF16, False),    # neither kernel 9's tiles nor the forward's
+    (32, 512, BF16, False),     # kernel 9's tiles at H = 512
     (256, 513, BF16, False),    # hidden above 512
     (256, 128, F32, True),      # float32 keeps the row-tile rule
     (1485, 128, F32, True),     # (E + H) * 144 = 232,272
@@ -90,14 +91,17 @@ def test_gru_fused_supported_at_and_beyond_each_limit(e, h, dtype, ok):
     assert K.gru_fused_supported(e, h, 0, dtype) is False
 
 
-@pytest.mark.parametrize("e,h", [(672, 128), (256, 403), (300, 100)])
+@pytest.mark.parametrize("e,h", [(672, 128), (256, 403), (300, 100),
+                                 (256, 448), (256, 449), (704, 128)])
 def test_gru_bf16_limit_is_the_forward_tiles_and_kernel_9(e, h):
-    """bf16 holds a shape exactly when the padded three-gate tiles fit and
-    the float32 rule (kernel 9's tile) holds for the unpadded widths."""
+    """bf16 holds a shape exactly when, padded, H <= 512 and kernel 9's
+    tensor-core tiles fit; those hold the three-gate forward's tiles, so
+    the forward fits wherever kernel 9 does."""
     ep, hp = L._round_up(e, 32), L._round_up(h, 32)
-    assert K.gru_fused_supported(e, h, 1, BF16) is (
-        L.tile_smem_bytes(ep, hp, gates=3) > 0
-        and K.gru_fused_supported(e, h, 1, F32))
+    held = L.tile_smem_bytes(ep, hp, backward=True, gates=3) > 0
+    assert K.gru_fused_supported(e, h, 1, BF16) is (hp <= 512 and held)
+    if held:
+        assert L.tile_smem_bytes(ep, hp, gates=3) > 0
 
 
 @pytest.mark.parametrize("e,h,gates,n_bytes", [

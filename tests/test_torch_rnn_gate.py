@@ -28,7 +28,7 @@ BF16, F32 = torch.bfloat16, torch.float32
     (256, 128, F32, True), (256, 128, BF16, True),
     (300, 100, BF16, True),          # padded to 320, 128 for the tiles
     (256, 403, F32, True),           # 4H * 36 * 4 = 232,128 <= 232,448
-    (256, 404, BF16, False),
+    (256, 449, BF16, False),         # kernel 9's tiles hold H <= 448
     (1485, 128, F32, True),          # (E + H) * 36 * 4 = 232,272
     (1487, 128, BF16, False),
     (64, 512, F32, False),           # 2H = 1024 threads, but 4H k-rows
