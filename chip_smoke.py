@@ -20,12 +20,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    that stress the tensor-core tiles (rows 1, 33 and 16,001, E = 300 with
    H = 100, H = 8, T = 1, T = 17, H = 64, 256 and 384), the LSTM
    recurrence on precomputed gates (kernel 6, with its autograd Function's
-   gradients), kernel 9 in bf16 also with 16-row blocks off their block and
-   at its limits (E = 672 at H = 128, H = 448 at E = 256), kernel 2,
-   kernel 10 (slate pool) at the rank slate and suggest init's row counts
-   and a row count off its tile at every width it holds (H = 128, 256, 384,
-   512), at the tensor-core tiles' edges (T = 1, 7, 15, 17, 33, 64 and 65,
-   the first T beyond a tile) with fully masked rows pooling to exactly 0,
+   gradients; in both dtypes also at rows one short of and one past the
+   tensor-core tile's 64-row block, T = 1, masks with interior gaps and
+   H = 256, 384 and 512, and in bf16 the same bits twice), kernel 9 in
+   bf16 also with 16-row blocks off their block and at its limits (E = 672
+   at H = 128, H = 448 at E = 256), kernel 2, kernel 10 (slate pool) at
+   the rank slate and suggest init's row counts and a row count off its
+   tile at every width it holds (H = 128, 256, 384, 512), at the
+   tensor-core tiles' edges (T = 1, 7, 15, 17, 33, 64 and 65, the first T
+   beyond a tile) with fully masked rows pooling to exactly 0,
    fewer than 8 rows refused, and its autograd Function's gradients,
    kernel 2's int8
    mode on a quantized table, and ``prune`` on and off and kernel 3
@@ -218,19 +221,22 @@ LSTM_SHAPES = ((B * S * N, LD), (B * S, LQ), (B * S * MAX_CLICKS, LD),
                (B * S + 13, LQ))
 
 
-def forward_errors(name: str, kernel, plain, make_inputs) -> dict:
+def forward_errors(name: str, kernel, plain, make_inputs,
+                   shapes=LSTM_SHAPES) -> dict:
     """Worst abs error per dtype of a forward kernel against its plain
-    version over LSTM_SHAPES, both directions: f32 abs (tol 1e-4), bf16
-    relative to max |plain| (tol 2e-2); masked outputs, fully masked rows
-    and the padded steps a reversed walk starts with included, must be
-    exactly 0.  ``make_inputs(dtype, rows, steps) -> (x, mask, weights)``;
-    the kernel is called as ``kernel(x, mask, *weights, reverse)``."""
+    version over ``shapes`` (``(rows, steps, ...)``), both directions: f32
+    abs (tol 1e-4), bf16 relative to max |plain| (tol 2e-2); masked
+    outputs, fully masked rows and the padded steps a reversed walk starts
+    with included, must be exactly 0.  ``make_inputs(dtype, *shape) -> (x,
+    mask, weights)``; the kernel is called as ``kernel(x, mask, *weights,
+    reverse)``."""
     out = {}
     for dtype, tol, kind in ((torch.float32, 1e-4, "abs"),
                              (torch.bfloat16, 2e-2, "rel")):
         out[dtype] = 0.0
-        for rows, steps in LSTM_SHAPES:
-            x, mask, w = make_inputs(dtype, rows, steps)
+        for shape in shapes:
+            rows, steps = shape[:2]
+            x, mask, w = make_inputs(dtype, *shape)
             worst_abs = worst_rel = 0.0
             for reverse in (False, True):
                 got = kernel(x, mask, *w, reverse).float()
@@ -410,6 +416,7 @@ def tile_note() -> str:
         beamgen_smem_bytes,
     )
     from context_attentive_ir_tpu_torch.ops.kernels.lstm import (
+        rec_smem_bytes,
         tile_smem_bytes,
     )
     from context_attentive_ir_tpu_torch.ops.kernels.slate import (
@@ -439,21 +446,43 @@ def tile_note() -> str:
             "attn_pool bf16 mma.sync.m16n8k16 + ldmatrix on 64-token "
             "document tiles from a two-buffer cp.async.bulk ring, "
             f"{pool_smem_bytes(H2)} bytes a persistent block (H = {H2}), "
-            f"{pool_smem_bytes(128)} at H = 128")
+            f"{pool_smem_bytes(128)} at H = 128; lstm_recurrence bf16 "
+            "mma.sync.m16n8k16 + ldmatrix with W_hh resident (one "
+            "cp.async.bulk a block) and the x_proj rows by cp.async.bulk "
+            f"into one tile, {rec_smem_bytes(NHID)} bytes a block of 64 "
+            f"rows, {-(-B * S * N // 64)} blocks at the doc encoder's rows")
 
 
 GRU_KERNELS = ("gru_fused", "gru_fused_res", "gru_fused_bwd")
 
 
-def recurrence_inputs(gen, dtype, rows=B * S * N, steps=LD, h=NHID):
+def recurrence_inputs(gen, dtype, rows=B * S * N, steps=LD, h=NHID,
+                      interior=False):
     """Kernel 6's operands from ``lstm_inputs``: ``x_proj = x @ W_ih + b``
-    by ``torch.matmul`` (in ``dtype``), the mask, ``w_hh``."""
+    by ``torch.matmul`` (in ``dtype``), the mask (``interior``: random
+    gaps, row 0 fully valid and row 1 fully masked), ``w_hh``."""
     (x, w_ih, b, w_hh), mask = lstm_inputs(gen, dtype, rows, steps, h=h)
+    if interior:
+        mask = torch.rand((rows, steps), generator=gen, device="cuda") < 0.6
+        mask[0] = True
+        if rows > 1:
+            mask[1] = False
     return (torch.matmul(x, w_ih) + b).contiguous(), mask, w_hh
 
 
+# (rows, steps, H, interior gaps) of kernel 6 beyond LSTM_SHAPES: rows one
+# short of and one past the tensor-core route's 64-row block, T = 1, masks
+# with interior gaps at the doc encoder's rows off the block, and H = 256,
+# 384 and 512 (the CUDA-core route in both dtypes)
+REC_SHAPES = ((63, LD, NHID, False), (65, LD, NHID, True),
+              (300, 1, NHID, True), (B * S * N + 7, LD, NHID, True),
+              (300, LD, 256, True), (300, LD, 384, True),
+              (300, LD, 512, False))
+
+
 def check_recurrence(gen) -> dict:
-    """Kernel 6 against its plain version through ``forward_errors``, then
+    """Kernel 6 against its plain version through ``forward_errors`` at
+    LSTM_SHAPES and REC_SHAPES, the same bf16 bits on two calls, then
     ``lstm_recurrence``'s gradients (its autograd Function) against
     autograd of the plain version."""
     from context_attentive_ir_tpu_torch.ops.kernels.lstm import (
@@ -462,12 +491,27 @@ def check_recurrence(gen) -> dict:
         lstm_recurrence_reference,
     )
 
-    def make_inputs(dtype, rows, steps):
-        xp, mask, w_hh = recurrence_inputs(gen, dtype, rows, steps)
+    def make_inputs(dtype, rows, steps, h=NHID, interior=False):
+        xp, mask, w_hh = recurrence_inputs(gen, dtype, rows, steps, h,
+                                           interior)
         return xp, mask, [w_hh]
 
     out = forward_errors("lstm_recurrence", lstm_recurrence_fwd,
                          lstm_recurrence_reference, make_inputs)
+    edges = forward_errors("lstm_recurrence", lstm_recurrence_fwd,
+                           lstm_recurrence_reference, make_inputs,
+                           REC_SHAPES)
+    out = {dtype: max(err, edges[dtype]) for dtype, err in out.items()}
+
+    xp, mask, w_hh = recurrence_inputs(gen, torch.bfloat16)
+    for reverse in (False, True):
+        once, twice = (lstm_recurrence_fwd(xp, mask, w_hh, reverse)
+                       for _ in range(2))
+        if not same_bits(once, twice):
+            raise AssertionError("lstm_recurrence bf16 gives other bits on "
+                                 "a second call")
+    log(f"lstm_recurrence bf16 {list(xp.shape)}: the same bits on two "
+        "calls, both directions")
 
     xp, mask, w_hh = recurrence_inputs(gen, torch.float32, 40, 9)
     g = torch.randn((40, 9, NHID), generator=gen, device="cuda")
@@ -922,8 +966,8 @@ def check_refusals(gen) -> None:
     )
     from context_attentive_ir_tpu_torch.ops.kernels.slate import attn_pool
 
-    def rec_at(h, strided=False):
-        xp, mask, w_hh = recurrence_inputs(gen, torch.float32, 40, 3, h=h)
+    def rec_at(h, strided=False, dtype=torch.float32):
+        xp, mask, w_hh = recurrence_inputs(gen, dtype, 40, 3, h=h)
         if strided:
             xp = xp.transpose(0, 1).contiguous().transpose(0, 1)
         return lstm_recurrence(xp, mask, w_hh)
@@ -1060,6 +1104,8 @@ def check_refusals(gen) -> None:
                      ("lstm_recurrence H=192 (H % 128)", lambda: rec_at(192)),
                      ("lstm_recurrence H=640 (threads per block)",
                       lambda: rec_at(640)),
+                     ("lstm_recurrence bf16 H=640 (hidden above 512)",
+                      lambda: rec_at(640, dtype=bf16)),
                      ("lstm_recurrence strided x_proj (contiguity)",
                       lambda: rec_at(NHID, strided=True)),
                      *((f"{k} {what}", lambda k=k, e=e, h=h, dt=dt:
@@ -1095,6 +1141,7 @@ def check_refusals(gen) -> None:
         res_at(EMSIZE, NHID, dtype)
         bwd_at(EMSIZE, NHID, dtype)
     rec_at(NHID)
+    rec_at(NHID, dtype=bf16)
     layer_at("lstm", 300, 100, bf16)
     layer_at("gru", 300, 100, bf16)
     for k in GRU_KERNELS:
@@ -2361,6 +2408,7 @@ def time_recurrence(gen, launches: dict, max_err: float) -> dict:
         f"kernel {ms:.3f} ms, the matmul projection before it {proj:.3f} ms "
         f"(together {ms + proj:.3f} ms), plain {plain:.3f} ms, library none "
         f"(no single PyTorch call), bound {bnd:.4f} ms ({by})")
+    log_earlier("lstm_recurrence", ms, plain, None, bnd)
     return kernel_row("lstm_recurrence", "lstm_rec.cu", "lstm.py:129",
                       launches, max_err, ms, plain, None, bnd, by,
                       matmul_ms=proj)
@@ -2559,6 +2607,7 @@ EARLIER_MS = {"lstm_fused": 11.269, "lstm_fused_res": 11.256,
               "generator_topk_lse_pruned": 3.036,
               "generator_topk_lse_int8": 3.041,
               "generator_topk_lse_pipelined": 3.761,
+              "lstm_recurrence": 3.795,
               "attn_pool": {B * S * N: 2.067, B * S * MAX_CLICKS: 0.958}}
 
 # --only selectors, in running order.  "lstm", "grukernels",

@@ -546,7 +546,37 @@ def lstm_fused_train(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
 # (``csrc/lstm_rec.cu``) reads it as ``x_proj [B, T, 4H]`` and runs the serial
 # part.  Bound on the H100 at the doc-encoder shape (B = 16000, T = 30,
 # H = 128, bf16): 614 MB read and written, 0.18 ms at 3.35 TB/s, against
-# 6.3e10 flops (0.064 ms): bound by bytes.
+# 6.3e10 flops (0.064 ms): bound by bytes.  In bfloat16 at H = 128 it runs on
+# ``csrc/lstm_mma.cuh``'s tensor-core tiles with W_hh resident in shared
+# memory (``rec_tensor_cores``); float32 and bf16 H = 256 .. 512 keep the
+# CUDA-core kernel.
+
+MAX_HIDDEN_REC = 512  # the CUDA-core kernel's block: 2H <= 1024 threads
+REC_HIDDEN = 128      # the tensor-core route's H (its tiles' constant)
+REC_ROWS = 64         # rows a block of the tensor-core route
+
+
+def rec_smem_bytes(h: int) -> int:
+    """Dynamic shared memory of a block of ``REC_ROWS`` rows of kernel 6's
+    tensor-core tiles at hidden size ``h``: 64 bytes of mbarriers, the
+    resident W_hh (``h`` rows of 8h + 16 bytes), the x_proj tile (64 rows of
+    8h + 16) and the bf16 h tile (64 rows of 2h + 16); 0 if it does not fit
+    (``kRecSmem`` in ``csrc/lstm_rec.cu``).  217,152 bytes at h = 128; from
+    h = 160 on W_hh and the tiles exceed a block's shared memory."""
+    if h <= 0 or h % TILE_ALIGN:
+        return 0
+    w_row = 8 * h + 16
+    n_bytes = 64 + (h + REC_ROWS) * w_row + REC_ROWS * (2 * h + 16)
+    return n_bytes if n_bytes <= SMEM_LIMIT else 0
+
+
+def rec_tensor_cores(h: int, dtype: torch.dtype) -> bool:
+    """Whether kernel 6 takes its tensor-core route -- bfloat16 at H = 128,
+    the one hidden size it holds (a multiple of 128) whose tiles fit -- and
+    so reads the staged W_hh; the CUDA-core kernel runs otherwise.  The
+    launcher ``cair_lstm_rec`` applies the same rule."""
+    return dtype == torch.bfloat16 and h == REC_HIDDEN
+
 
 def lstm_recurrence_reference(x_proj: torch.Tensor, mask: torch.Tensor,
                               w_hh: torch.Tensor,
@@ -597,6 +627,9 @@ def _check_rec_args(x_proj, mask, w_hh):
     if H % 128 != 0:
         raise ValueError("lstm_recurrence: the kernel needs a hidden size "
                          f"that is a multiple of 128, got H={H}")
+    if H > MAX_HIDDEN_REC:
+        raise ValueError("lstm_recurrence: the kernel holds a hidden size up "
+                         f"to {MAX_HIDDEN_REC}, got H={H}")
     if not all(t.is_contiguous() for t in (x_proj, mask, w_hh)):
         raise ValueError("lstm_recurrence needs contiguous tensors")
     return B, T, H
@@ -615,10 +648,14 @@ def lstm_recurrence_fwd(x_proj: torch.Tensor, mask: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"lstm_recurrence runs on cuda or cpu, not {dev}")
     B, T, H = _check_rec_args(x_proj, mask, w_hh)
+    if rec_tensor_cores(H, x_proj.dtype):
+        # the tensor-core kernel bulk-copies the x_proj rows and the staged
+        # W_hh (an empty W_ih over it: [H, 4H + 8]) into shared memory
+        x_proj = _aligned(x_proj)
+        w_hh = stage_lstm_weights(w_hh[:0], w_hh)
     out = torch.empty((B, T, H), dtype=x_proj.dtype, device=x_proj.device)
     from .build import check, load_library
 
-    # the launcher reports a hidden size its block cannot hold
     check(load_library().cair_lstm_rec(
         x_proj.data_ptr(), mask.data_ptr(), w_hh.data_ptr(), out.data_ptr(),
         B, T, H, int(reverse), _DTYPES[x_proj.dtype], _stream(x_proj)),
@@ -654,8 +691,9 @@ def lstm_recurrence(x_proj: torch.Tensor, mask: torch.Tensor,
                     w_hh: torch.Tensor, reverse: bool = False,
                     device="cuda") -> torch.Tensor:
     """x_proj [B, T, 4H] (``x @ W_ih + b``, gate order i, f, g, o), mask bool
-    [B, T], w_hh [H, 4H] (one dtype, float32 or bfloat16; H a multiple of
-    128) -> h [B, T, H] in that dtype, from a zero state.
+    [B, T], w_hh [H, 4H] (one dtype, float32 or bfloat16; on the card H a
+    multiple of 128 up to 512) -> h [B, T, H] in that dtype, from a zero
+    state.
 
     The counterpart of the JAX ``lstm_pallas``: kernel 6 on CUDA tensors,
     its plain version on CPU tensors (``device="cpu"``), differentiable in

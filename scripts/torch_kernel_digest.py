@@ -7,7 +7,8 @@ inputs, to show whether two checkouts compute the same bits.
 Builds the kernel library of the checkout at DIR (default: the one this
 script lies in) and prints one line per kernel, dtype and direction:
 kernels 1, 4 and 5 (LSTM) and 7, 8 and 9 (GRU) at the doc encoder's shape
-[16000, 30, 256] -> 128, time chunk 6, the generator's kernel 2
+[16000, 30, 256] -> 128, time chunk 6, kernel 6 (the recurrence on
+precomputed gates) at x_proj [16000, 30, 512] -> 128, the generator's kernel 2
 (serial, ``prune``, int8 ``scale``) and 3 (``pipeline``) at the beam-5
 step's shape (R = 1600, E = 256, V = 50,000, kc = 6), and the slate pool's
 kernel 10 at the rank slate's and suggest init's shapes ([16000, 30, 256]
@@ -83,6 +84,23 @@ def generator_digests(beamgen, dtype, name: str) -> None:
         print(f"{kernel} {name}: {digest(*out)}", flush=True)
 
 
+def recurrence_digests(lstm, dtype, name: str) -> None:
+    """Kernel 6 at x_proj [16000, 30, 512] -> 128 (row 0 full, row 1 fully
+    masked), both directions, inputs made on the CPU from one seed."""
+    gen = torch.Generator().manual_seed(6)
+    x_proj = torch.randn((ROWS, STEPS, 4 * HIDDEN), generator=gen) * 0.5
+    w_hh = torch.randn((HIDDEN, 4 * HIDDEN), generator=gen) * 0.08
+    lens = torch.randint(0, STEPS + 1, (ROWS,), generator=gen)
+    lens[0], lens[1] = STEPS, 0
+    mask = (torch.arange(STEPS)[None, :] < lens[:, None]).cuda()
+    x_proj, w_hh = (t.to("cuda", dtype) for t in (x_proj, w_hh))
+    for reverse in (False, True):
+        out = lstm.lstm_recurrence_fwd(x_proj, mask, w_hh, reverse)
+        torch.cuda.synchronize()
+        way = "reverse" if reverse else "forward"
+        print(f"lstm_recurrence {name} {way}: {digest(out)}", flush=True)
+
+
 def slate_digests(slate, dtype, name: str) -> None:
     """Kernel 10 at R = 16,000 and 1,280 documents of T = 30, H = 256 (rows
     0 and 5 fully masked), inputs made on the CPU from one seed."""
@@ -147,6 +165,7 @@ def main() -> int:
                                      (f"{rnn}_fused_bwd", bwd)):
                     print(f"{kernel} {name} {way}: {digest(*outs)}",
                           flush=True)
+        recurrence_digests(lstm, dtype, name)
         generator_digests(beamgen, dtype, name)
         slate_digests(slate, dtype, name)
     return 0
