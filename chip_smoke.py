@@ -26,7 +26,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    bf16 also with 16-row blocks off their block and at its limits (E = 672
    at H = 128, H = 448 at E = 256), kernel 2, kernel 10 (slate pool) at
    the rank slate and suggest init's row counts and a row count off its
-   tile at every width it holds (H = 128, 256, 384, 512), at the
+   tile at every width it holds (H = 128, 256, 384, 512; 640, 768, 896
+   and 1,024 at suggest init's rows, 640 and 768 also at the rank
+   slate's), ``pool_supported`` held to ``cair_slate_pool`` called
+   directly at every multiple of 128 up to 1,152, at the
    tensor-core tiles' edges (T = 1, 7, 15, 17, 33, 64 and 65, the first T
    beyond a tile) with fully masked rows pooling to exactly 0,
    fewer than 8 rows refused, and its autograd Function's gradients,
@@ -37,7 +40,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the 4,096-word shortlist; kernel 3 at the greedy shape) and on a
    contiguous table with unaligned rows; then shapes a kernel cannot hold
    must be refused, and ``fused_supported`` / ``gru_fused_supported`` /
-   ``beamgen_supported`` must say what the launchers take (each limit run,
+   ``beamgen_supported`` must say what the launchers take (kernel 6's
+   launcher called directly at H = 640 must refuse it; each limit run,
    one past it refused);
 4. the main paths at full width: CARS at the serving widths (vocab
    50,000, emsize 256, nhid 128, nhid_ffnn 256, S=5, N=50, Lq=15, Ld=30,
@@ -60,8 +64,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``suggest_batch``, 8 Adam steps and an eval-loss step) and HRED-QS with
    GRUs (beam-5 and greedy ``suggest_batch``, 8 Adam steps, a checkpoint
    -> ``Engine.from_checkpoint`` round trip with equal suggestions); and
-   small float32 CARS (LSTM), CARS (GRU) and HRED-QS Engines and train
-   steps card vs CPU; then the doc encoder's two directions as one
+   small float32 CARS (LSTM), CARS (GRU), HRED-QS, seq2seq, ACG and
+   untied-generator CARS Engines and train steps card vs CPU; then the doc encoder's two directions as one
    ``torch.matmul`` projection + kernel 6 (``lstm_precomputed``, held to
    kernel 1 on the same weights); then the training entry point
    (``trainer_fit``): ``cli.main.main`` trains CARS on a
@@ -71,16 +75,27 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    metrics with ``--only_test`` and resumes for one more epoch, then the
    input pipeline, the training loop, validation and the early exit of
    the trained decoder are timed; the same once for HRED-QS with GRUs on
-   the first 1,280 sessions (``trainer_fit_hredqs``, 2 epochs).  Every
+   the first 1,280 sessions (``trainer_fit_hredqs``, 2 epochs); then the
+   flat-source recommenders (``recommenders``): seq2seq and ACG at the
+   same widths with S = 10 context turns (a source of [64, 150] tokens)
+   behind ``Engine``, beam-5 and greedy ``suggest_batch`` for 64
+   histories, 8 Adam steps each (the float32 NLL reading must fall), a
+   checkpoint -> ``Engine.from_checkpoint`` round trip with equal
+   suggestions each, a small float32 CARS ``Engine`` at beam 40 (past the
+   generator kernels' top-32: its logits step, no generator launch) equal
+   to the CPU's up to near-tied scores, and ``cli.main`` for seq2seq and
+   ACG as for HRED-QS on a fixture of 1,280 sessions.  Every
    call runs with every launch count set to 0
    just before it and read just after it and must launch exactly the
    kernels ``PATH_KERNELS`` names (``EXACT_LAUNCHES`` times, where fixed);
    each is timed (three steady walls) and profiled once;
 5. kernel, plain-version and library times (CUDA events after warm-up)
    with each kernel's bound, printed as one ``{"kernels": [...]}`` line,
-   the redesigned kernels' earlier times beside them in the log, kernel 9
-   with 16-row and 64-row blocks at the query and doc encoders' shapes,
-   and the train steps' times.
+   the redesigned kernels' earlier times beside them in the log, kernels
+   1, 4 and 5 also at the recommenders' source shape ``[64, 150, 256]``
+   (rows with ``rows`` and ``steps``), kernel 9 with 16-row and 64-row
+   blocks at the query and doc encoders' shapes, kernel 10's wider
+   instantiations (logged), and the train steps' times.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script needs a
 card: without one it exits non-zero and prints no result.
@@ -96,7 +111,9 @@ greedy ``suggest_batch``), ``train`` (the CARS train steps and the
 checkpoint round trip), ``indexed`` (the rest of serving; runs ``train``
 first for its checkpoint), ``gru`` (CARS-GRU and HRED-QS), ``small`` (the
 small float32 models card vs CPU), ``kernel6`` (``lstm_precomputed``),
-``trainer`` (``cli.main`` for CARS and HRED-QS).  Every phase prints its
+``trainer`` (``cli.main`` for CARS and HRED-QS), ``recommenders``
+(seq2seq and ACG serving, train steps, checkpoint round trips and
+``cli.main``, and the beam-40 CARS Engine).  Every phase prints its
 seconds.  Such a run prints its kernel rows as a "partial run" line and no
 ok line.
 """
@@ -132,6 +149,7 @@ MAX_CLICKS = 4  # ModelConfig.suggest_max_clicks: clicked docs per turn
 N_CORPUS = 20_000  # documents in the cached-document index
 SHORTLIST = 4096   # suggestion shortlist of the shortlist Engine
 TRAIN_STEPS = 8
+S_REC = 10  # the recommenders' context turns: a flat source of S_REC * LQ
 TIME_CHUNK = 6  # the training pair's time chunk (lstm_fused_train default)
 
 
@@ -218,7 +236,7 @@ def rnn_kernels(rnn: str):
 # checked at serving widths
 LSTM_SHAPES = ((B * S * N, LD), (B * S, LQ), (B * S * MAX_CLICKS, LD),
                (B * S * N + 7, LD), (B * S * MAX_CLICKS + 5, LD),
-               (B * S + 13, LQ))
+               (B * S + 13, LQ), (B, S_REC * LQ))
 
 
 def forward_errors(name: str, kernel, plain, make_inputs,
@@ -278,7 +296,7 @@ def check_forward(gen, rnn: str) -> dict:
 # 32-row block and a T that the time chunk (6) does not divide (Lq = 15 is
 # one already)
 TRAIN_SHAPES = ((B * S * N, LD), (B * S, LQ), (B * S * N + 7, LD),
-                (B * S + 13, LQ), (333, 17))
+                (B * S + 13, LQ), (333, 17), (B, S_REC * LQ))
 
 
 def pair_errors(gen, rnn: str, dtype, rows, steps, reverse, **widths) -> dict:
@@ -637,6 +655,14 @@ SLATE_SHAPES = tuple((r, LD, h) for h in (128, 256, 384, 512)
 # limit), 65 (beyond it: the CUDA-core kernel)
 SLATE_SHAPES += tuple((333, t, h) for h in (128, 256)
                       for t in (1, 7, 15, 17, 33, 64, 65))
+# the wider CUDA-core instantiations (H = 640 .. 1024, a doc pool of
+# 2 * nhid for nhid 320 .. 512): suggest init's rows and a count off their
+# 16- and 8-row blocks, and the rank slate at the two widths that the
+# recurrent kernels' nhid 320 and 384 give
+WIDE_POOLS = (640, 768, 896, 1024)
+SLATE_SHAPES += tuple((r, LD, h) for h in WIDE_POOLS
+                      for r in (B * S * MAX_CLICKS, B * S * MAX_CLICKS + 7))
+SLATE_SHAPES += tuple((B * S * N, LD, h) for h in (640, 768))
 
 
 def slate_inputs(gen, dtype, rows, steps, h=H2):
@@ -701,7 +727,7 @@ def check_slate(gen) -> dict:
                 out[dtype] = err
 
     # fewer than 8 rows: refused at every width and dtype (pool_supported)
-    for h in (128, 256, 384, 512):
+    for h in (128, 256, 384, 512, *WIDE_POOLS):
         for dtype in (torch.float32, torch.bfloat16):
             (s, q, w, b), mask = slate_inputs(gen, dtype, 7, LD, h)
             try:
@@ -711,8 +737,9 @@ def check_slate(gen) -> dict:
             else:
                 raise AssertionError(f"attn_pool {dtype} R=7 H={h} was not "
                                      "refused")
-    log(f"attn_pool R=7 refused at H = 128, 256, 384, 512 in both dtypes "
+    log(f"attn_pool R=7 refused at H = 128 .. 1024 in both dtypes "
         f"({refused})")
+    check_pool_gate(gen)
 
     (s, q, w, b), mask = slate_inputs(gen, torch.float32, 40, 9)
     g = torch.randn((40, H2), generator=gen, device="cuda")
@@ -728,6 +755,36 @@ def check_slate(gen) -> dict:
     if not gerr <= 1e-5:
         raise AssertionError("AttnPoolFn gradients disagree")
     return out
+
+
+def check_pool_gate(gen) -> None:
+    """``pool_supported`` says what the launcher runs: at every multiple of
+    128 up to 1152, in both dtypes, ``cair_slate_pool`` called directly
+    (past the wrapper's check of the gate) succeeds exactly where the gate
+    holds the width, and refuses the rest itself."""
+    from context_attentive_ir_tpu_torch.ops.kernels.build import load_library
+    from context_attentive_ir_tpu_torch.ops.kernels.slate import (
+        pool_supported,
+    )
+
+    lib = load_library()
+    seen = []
+    for h in range(128, 1153, 128):
+        for code, dtype in enumerate((torch.float32, torch.bfloat16)):
+            (s, q, w, b), mask = slate_inputs(gen, dtype, 40, 3, h)
+            out = torch.empty((40, h), dtype=dtype, device="cuda")
+            rc = lib.cair_slate_pool(
+                s.data_ptr(), mask.data_ptr(), q.data_ptr(), w.data_ptr(),
+                b.data_ptr(), out.data_ptr(), 40, 3, h, code,
+                torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            ok = pool_supported(h, 40)
+            if (rc == 0) != ok:
+                raise AssertionError(f"pool_supported({h}, 40) = {ok} but "
+                                     f"cair_slate_pool returned {rc}")
+            seen.append(f"{h}:{'ran' if rc == 0 else f'refused ({rc})'}")
+    log("pool_supported held to cair_slate_pool, f32 / bf16 per width: "
+        + ", ".join(seen))
 
 
 def int8_inputs(gen, rows, dtype, integer):
@@ -1127,8 +1184,8 @@ def check_refusals(gen) -> None:
                      ("generator_topk_lse pipeline with scale (int8)",
                       lambda: beamgen_at(EMSIZE, pipeline=True, scale=1)),
                      ("attn_pool H=192 (H % 128)", lambda: pool_at(192)),
-                     ("attn_pool H=640 (the block's columns)",
-                      lambda: pool_at(640)),
+                     ("attn_pool H=1152 (the launcher's widths)",
+                      lambda: pool_at(1152)),
                      ("attn_pool R=7 (rows)", lambda: pool_at(H2, 7))):
         try:
             fn()
@@ -1136,6 +1193,22 @@ def check_refusals(gen) -> None:
             log(f"{name} refused: {type(err).__name__}: {err}")
         else:
             raise AssertionError(f"{name} was not refused")
+    # kernel 6's launcher refuses H = 640 itself: cair_lstm_rec called
+    # directly, past the wrapper's check (_check_rec_args), which the
+    # lstm_recurrence H=640 entries above meet first
+    from context_attentive_ir_tpu_torch.ops.kernels.build import load_library
+
+    for code, dtype in enumerate((torch.float32, bf16)):
+        xp, mask, w_hh = recurrence_inputs(gen, dtype, 40, 3, h=640)
+        out = torch.empty((40, 3, 640), dtype=dtype, device="cuda")
+        rc = load_library().cair_lstm_rec(
+            xp.data_ptr(), mask.data_ptr(), w_hh.data_ptr(), out.data_ptr(),
+            40, 3, 640, 0, code, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        log(f"cair_lstm_rec {dtype} H=640 called directly: returned {rc}")
+        if rc == 0:
+            raise AssertionError(f"cair_lstm_rec {dtype} H=640 was not "
+                                 "refused by the launcher")
     for dtype in (torch.float32, bf16):
         lstm_at(EMSIZE, NHID, dtype)
         res_at(EMSIZE, NHID, dtype)
@@ -1238,6 +1311,20 @@ PATH_KERNELS = {
     # through kernel 1 (7) and the logits decode step
     "trainer_fit": ("lstm_fused", "lstm_fused_res", "lstm_fused_bwd"),
     "trainer_fit_hredqs": ("gru_fused", "gru_fused_res", "gru_fused_bwd"),
+    # the flat-source recommenders: their encoder over [B, S_REC * Lq]
+    # through kernel 1 (serving) or 4 + 5 (training); their decode step is
+    # the logits step (ACG's the copy mixture), with no generator kernel
+    "suggest_beam5_seq2seq": ("lstm_fused",),
+    "suggest_greedy_seq2seq": ("lstm_fused",),
+    "suggest_beam5_acg": ("lstm_fused",),
+    "suggest_greedy_acg": ("lstm_fused",),
+    "train_step_seq2seq": ("lstm_fused_res", "lstm_fused_bwd"),
+    "train_step_acg": ("lstm_fused_res", "lstm_fused_bwd"),
+    "trainer_fit_seq2seq": ("lstm_fused", "lstm_fused_res", "lstm_fused_bwd"),
+    "trainer_fit_acg": ("lstm_fused", "lstm_fused_res", "lstm_fused_bwd"),
+    # a small float32 CARS at beam 40: past the generator kernels' top-kc,
+    # so it decodes through its logits step
+    "suggest_beam40_cars": ("lstm_fused",),
 }
 # exact encoder launches where they are fixed: CARS runs its query and doc
 # encoders (suggest: the clicked docs), two directions each; HRED-QS its
@@ -1253,6 +1340,10 @@ EXACT_LAUNCHES = {
     "suggest_greedy_hredqs": {"gru_fused": 2},
     "train_step_hredqs": {"gru_fused_res": 2, "gru_fused_bwd": 2},
     "lstm_precomputed": {"lstm_recurrence": 2},
+    **{f"suggest_{mode}_{m}": {"lstm_fused": 2} for mode in ("beam5", "greedy")
+       for m in ("seq2seq", "acg")},
+    **{f"train_step_{m}": {"lstm_fused_res": 2, "lstm_fused_bwd": 2}
+       for m in ("seq2seq", "acg")},
 }
 
 
@@ -1653,10 +1744,11 @@ def full_width_config(model_type: str, train: bool = False, **kw):
     replaces fields."""
     from context_attentive_ir_tpu_torch.config import default_config
 
-    cfg = default_config(model_type).replace(
-        vocab_size=VOCAB, emsize=EMSIZE, nhid=NHID, nhid_ffnn=NHID_FFNN,
-        max_query_len=LQ, max_doc_len=LD, max_session_len=S,
-        num_candidates=N, compute_dtype="bfloat16", **kw)
+    cfg = default_config(model_type).replace(**{
+        "vocab_size": VOCAB, "emsize": EMSIZE, "nhid": NHID,
+        "nhid_ffnn": NHID_FFNN, "max_query_len": LQ, "max_doc_len": LD,
+        "max_session_len": S, "num_candidates": N,
+        "compute_dtype": "bfloat16", **kw})
     if not train:
         cfg = cfg.replace(dropout=0.0, dropout_emb=0.0, dropout_rnn=0.0)
     return cfg
@@ -1690,16 +1782,13 @@ def random_suggest_batch(rng, b=B, s=S, lq=LQ, vocab=VOCAB):
 
 def nll_f32(model, batch) -> float:
     """A recommender's teacher-forced NLL on ``batch`` with dropout off,
-    its logits taken to float32 first: a reading of the training loss that
-    resolves changes below bf16's spacing (0.0625 at ln 50,000)."""
-    from context_attentive_ir_tpu_torch.models.losses import (
-        sequence_nll_loss,
-    )
-
+    its logits (ACG: its mixture probabilities) taken to float32 first: a
+    reading of the training loss that resolves changes below bf16's spacing
+    (0.0625 at ln 50,000)."""
     with torch.no_grad():
-        logits = model(batch).float()
+        out = model(batch).float()
         tmask = batch.target_mask & batch.row_mask[:, None]
-        return float(sequence_nll_loss(logits, batch.target_out, tmask))
+        return float(model.target_nll(out, batch.target_out, tmask))
 
 
 def train_steps(path: str, cfg, model, batch, steps: int = TRAIN_STEPS,
@@ -1866,32 +1955,198 @@ def gru_paths(ckpt_dir: str) -> tuple[dict, dict]:
     return launches, train_ms
 
 
-# (model type, encoders) of the small card-vs-CPU checks
-SMALL_MODELS = (("cars", "lstm"), ("cars", "gru"), ("hredqs", "gru"))
+def rec_histories(rng, word_dict, n: int) -> list[list[str]]:
+    """``n`` histories of S_REC query texts of 2..Lq words: flat sources of
+    up to S_REC * Lq tokens."""
+    words = word_dict.tokens()
+    return [[" ".join(rng.choice(words, size=rng.randint(2, LQ + 1)))
+             for _ in range(S_REC)] for _ in range(n)]
 
 
-def small_model_check() -> None:
-    """Small float32 models -- CARS with LSTMs, CARS with GRUs, HRED-QS
-    with GRUs: each ``Engine`` on the card (kernel 1 or 7, kernel 2 for
-    CARS) must agree with the same ``Engine`` on the CPU (plain versions),
-    and one SGD train step of each on the card (kernels 4/5 or 8/9) with
-    the same step on the CPU, on ragged batches.  SGD keeps the update
-    linear in the gradient, so a float32 rounding difference in a
-    near-zero gradient element cannot flip an Adam step's sign and the
-    parameters compare as tightly as the gradients."""
-    from context_attentive_ir_tpu_torch.config import default_config
+def recommender_paths(ckpt_dir: str) -> tuple[dict, dict]:
+    """seq2seq and ACG at the serving widths with S_REC context turns (a
+    flat source [B, S_REC * Lq] = [64, 150]): beam-5 and greedy
+    ``suggest_batch`` for 64 histories, 8 Adam steps at the ModelConfig
+    dropouts (the float32 NLL reading must fall), and a checkpoint ->
+    ``Engine.from_checkpoint`` round trip with equal suggestions; each
+    call counted, walled and profiled.  Then a small CARS at beam 40.
+    Returns ({path: launches}, {path: train step ms})."""
     from context_attentive_ir_tpu_torch.models import build_model
     from context_attentive_ir_tpu_torch.serve import Engine
-    from context_attentive_ir_tpu_torch.train import (
-        create_train_state,
-        make_train_step,
-    )
+    from context_attentive_ir_tpu_torch.train import Checkpointer
 
-    dims = dict(vocab_size=300, emsize=32, nhid=16, nhid_ffnn=32,
-                max_query_len=8, max_doc_len=12, max_session_len=3,
-                num_candidates=8, dropout=0.0, dropout_emb=0.0,
-                dropout_rnn=0.0)
-    word_dict = synthetic_dictionary(dims["vocab_size"])
+    word_dict = synthetic_dictionary(VOCAB)
+    hists = rec_histories(np.random.RandomState(10), word_dict, B)
+    launches, train_ms = {}, {}
+    for model_type in ("seq2seq", "acg"):
+        cfg = full_width_config(model_type, max_session_len=S_REC)
+        with torch.inference_mode():
+            params = build_model(cfg, device="cuda", seed=0).state_dict()
+            engines = {k: Engine(cfg, word_dict, params, beam_size=k,
+                                 batch_bucket=B) for k in (BEAM, 1)}
+        calls = tuple((f"suggest_{mode}_{model_type}",
+                       lambda e=engines[k]: e.suggest_batch(hists))
+                      for mode, k in (("beam5", BEAM), ("greedy", 1)))
+        outs, first_ms = {}, {}
+        with torch.inference_mode():
+            for path, fn in calls:
+                t = time.perf_counter()
+                outs[path], launches[path] = counted(path, fn)
+                first_ms[path] = (time.perf_counter() - t) * 1e3
+            for (path, _), k in zip(calls, (BEAM, 1)):
+                check_suggestions(path, outs[path], k)
+            log(f"{model_type} (source [{B}, {S_REC * LQ}]): launches "
+                f"{json.dumps({p: launches[p] for p, _ in calls})}; "
+                f"first-call wall ms {json.dumps(first_ms)}; sample beam-5 "
+                f"{outs[calls[0][0]][0][0]}, greedy {outs[calls[1][0]][0][0]}")
+            walls = steady_walls(calls)
+            log(f"steady wall ms (3 runs each, B={B}): {json.dumps(walls)}")
+            for name, fn in calls:
+                where_time_goes(name, fn)
+        del engines, params
+
+        path = f"train_step_{model_type}"
+        tcfg = full_width_config(model_type, train=True,
+                                 max_session_len=S_REC)
+        model = build_model(tcfg, device="cuda", seed=0)
+        batch = random_suggest_batch(np.random.RandomState(11),
+                                     s=S_REC).to("cuda")
+        state, step, launches[path] = train_steps(path, tcfg, model, batch,
+                                                  reading=nll_f32)
+        where_time_goes(path, lambda: step(state, batch, 1))
+        train_ms[path] = timed_ms(lambda: step(state, batch, 1), iters=5,
+                                  warmup=1)
+        ckpt = Checkpointer(ckpt_dir, model_type)
+        ckpt.save_latest(state, tcfg, word_dict, {"step": state.step})
+        ckpt.wait()
+        with torch.inference_mode():
+            loaded = Engine.from_checkpoint(ckpt.latest_path, beam_size=BEAM,
+                                            batch_bucket=8)
+            got = loaded.suggest_batch(hists[:8])
+            want = Engine(tcfg, word_dict, model.state_dict(),
+                          beam_size=BEAM, batch_bucket=8).suggest_batch(
+                hists[:8])
+        log(f"{model_type} checkpoint -> Engine.from_checkpoint: beam-5 "
+            f"suggestions for 8 histories equal to the in-memory Engine's: "
+            f"{got == want}")
+        if got != want:
+            raise AssertionError(f"{model_type} Engine.from_checkpoint "
+                                 "suggestions differ")
+        del model, state, step, batch, loaded
+        torch.cuda.empty_cache()
+    launches.update(beam40_check())
+    log(f"train steps (CUDA events, mean of 5 after warm-up, B={B}): "
+        f"{json.dumps(train_ms)}")
+    return launches, train_ms
+
+
+def nbest_difference(got, want, tol: float) -> dict:
+    """Compare two n-best lists (text, score) best first, as far as their
+    scores tell them apart: the reference's real hypotheses (above
+    NEG_INF) fall into groups whose neighbouring scores lie within
+    ``tol`` (near-ties, which sums in another order may reorder); each
+    group must hold the same texts in both lists, except the last group
+    when it reaches the end of the list (a tied hypothesis past the n-th
+    may take a place in it).  Both lists are taken in descending score
+    order first.  Returns the groups that differ (``differ``), the groups
+    (``groups``), the hypotheses in groups of two or more (``tied``), the
+    hypotheses of a last group left unchecked (``unchecked``) and the
+    max abs score difference by rank (``err``)."""
+    got, want = (sorted(nb, key=lambda e: -e[1]) for nb in (got, want))
+    real = [i for i, (_, sc) in enumerate(want) if sc > -1e8]
+    out = dict(differ=0, groups=0, tied=0, unchecked=0,
+               err=max((abs(got[i][1] - want[i][1]) for i in real),
+                       default=0.0))
+    start = 0
+    for k in range(1, len(real) + 1):
+        if k < len(real) and want[real[k - 1]][1] - want[real[k]][1] <= tol:
+            continue
+        group = real[start:k]
+        out["groups"] += 1
+        if len(group) > 1:
+            out["tied"] += len(group)
+        if k == len(real) and group[-1] == len(want) - 1:
+            out["unchecked"] += len(group)
+        elif ({got[i][0] for i in group} != {want[i][0] for i in group}):
+            out["differ"] += 1
+        start = k
+    return out
+
+
+# near-tied scores of the beam-40 check: a few times the 7.6e-6 by which
+# float32 sums in another order moved a score on the H100 (PERF.md)
+BEAM40_TIE_TOL = 3e-5
+
+
+def beam40_check() -> dict:
+    """A small float32 CARS ``Engine`` at beam 40 (top-41, past the
+    generator kernels' top-32): it decodes through its logits step, so no
+    generator kernel launches, and its n-best lists are the CPU Engine's
+    up to the order of near-tied scores (``nbest_difference`` with
+    ``BEAM40_TIE_TOL``: an exact order check failed on the card, since
+    forty beams of a random model lie about 4e-6 apart, below the 7.6e-6
+    that float32 sums in another order move them).  A shortlist Engine at
+    beam 40 is refused on the card (the generator kernel holds top-32).
+    Returns its launches."""
+    from context_attentive_ir_tpu_torch.models import build_model
+    from context_attentive_ir_tpu_torch.serve import Engine, ServeError
+
+    cfg = small_config("cars")
+    word_dict = synthetic_dictionary(SMALL_DIMS["vocab_size"])
+    _, hists = small_requests(word_dict)
+    params = build_model(cfg, device="cpu", seed=1).state_dict()
+    gpu, cpu = (Engine(cfg, word_dict, params, beam_size=40, batch_bucket=4,
+                       device=d) for d in ("cuda", "cpu"))
+    with torch.inference_mode():
+        got, launches = counted("suggest_beam40_cars",
+                                lambda: gpu.suggest_batch(hists))
+        want = cpu.suggest_batch(hists)
+    total = dict(differ=0, groups=0, tied=0, unchecked=0, err=0.0)
+    for nb_g, nb_c in zip(got, want):
+        d = nbest_difference(nb_g, nb_c, BEAM40_TIE_TOL)
+        total = {k: max(v, d[k]) if k == "err" else v + d[k]
+                 for k, v in total.items()}
+    log(f"small f32 CARS Engine at beam 40: launches {json.dumps(launches)}, "
+        f"{sum(len(nb) for nb in want)} hypotheses in {total['groups']} "
+        f"groups of scores within {BEAM40_TIE_TOL:g} ({total['tied']} "
+        f"hypotheses in groups of two or more, {total['unchecked']} in "
+        f"last groups left unchecked), {total['differ']} groups whose texts "
+        f"differ from the CPU Engine's, score max abs err "
+        f"{total['err']:.3e} (tol 1e-4)")
+    if not (total["differ"] == 0 and total["err"] <= 1e-4):
+        raise AssertionError("the beam-40 CARS Engine disagrees with the CPU "
+                             "Engine")
+    shortlisted = Engine(cfg, word_dict, params, beam_size=40,
+                         batch_bucket=4, suggest_shortlist=64, device="cuda")
+    try:
+        shortlisted.suggest_batch(hists)
+    except ServeError as err:
+        log(f"beam-40 shortlist Engine refused on the card: {err}")
+    else:
+        raise AssertionError("a beam-40 shortlist Engine ran on the card")
+    return {"suggest_beam40_cars": launches}
+
+
+# (model type, encoders, tied generator) of the small card-vs-CPU checks
+SMALL_MODELS = (("cars", "lstm", True), ("cars", "gru", True),
+                ("hredqs", "gru", True), ("seq2seq", "lstm", True),
+                ("acg", "gru", True), ("cars", "lstm", False))
+SMALL_DIMS = dict(vocab_size=300, emsize=32, nhid=16, nhid_ffnn=32,
+                  max_query_len=8, max_doc_len=12, max_session_len=3,
+                  num_candidates=8, dropout=0.0, dropout_emb=0.0,
+                  dropout_rnn=0.0)
+
+
+def small_config(model_type: str, rnn: str = "lstm", tie: bool = True):
+    from context_attentive_ir_tpu_torch.config import default_config
+
+    return default_config(model_type).replace(
+        rnn_type=rnn, session_rnn_type=rnn, tie_embeddings=tie, **SMALL_DIMS)
+
+
+def small_requests(word_dict) -> tuple[list, list]:
+    """Seeded ranking requests and histories (clicks, a one-query
+    history) at SMALL_DIMS: six of each, past one bucket of 4."""
     rng = np.random.RandomState(9)
     words = word_dict.tokens()
 
@@ -1902,10 +2157,33 @@ def small_model_check() -> None:
              [(text(3), [text(5)]), text(2)]) for _ in range(5)]
     hists = [[(text(3), [text(6), text(4)]), text(5)] for _ in range(5)]
     hists.append([text(6)])
-    for model_type, rnn in SMALL_MODELS:
-        cfg = default_config(model_type).replace(
-            rnn_type=rnn, session_rnn_type=rnn, **dims)
+    return reqs, hists
+
+
+def small_model_check() -> None:
+    """Small float32 models -- CARS with LSTMs, CARS with GRUs, HRED-QS
+    with GRUs, seq2seq, ACG (its copy mixture) and CARS with an untied
+    generator: each ``Engine`` on the card (kernel 1 or 7, kernel 2 for
+    tied CARS) must agree with the same ``Engine`` on the CPU (plain
+    versions), and one SGD train step of each on the card (kernels 4/5 or
+    8/9) with the same step on the CPU, on ragged batches.  SGD keeps the
+    update linear in the gradient, so a float32 rounding difference in a
+    near-zero gradient element cannot flip an Adam step's sign and the
+    parameters compare as tightly as the gradients."""
+    from context_attentive_ir_tpu_torch.models import build_model
+    from context_attentive_ir_tpu_torch.serve import Engine
+    from context_attentive_ir_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+    )
+
+    word_dict = synthetic_dictionary(SMALL_DIMS["vocab_size"])
+    reqs, hists = small_requests(word_dict)
+    for model_type, rnn, tie in SMALL_MODELS:
+        cfg = small_config(model_type, rnn, tie)
         params = build_model(cfg, device="cpu", seed=1).state_dict()
+        if not tie:
+            rnn = f"{rnn}, untied"
         for beam in (3, 1):
             gpu = Engine(cfg, word_dict, params, beam_size=beam,
                          batch_bucket=4)
@@ -2012,8 +2290,8 @@ def precomputed_path() -> dict:
 
 FIT_TOPICS, FIT_WORDS = 1250, 40   # a 50,000-word vocabulary
 FIT_SESSIONS = {"train": 5120, "dev": 256, "test": 64}
-FIT_EPOCHS = {"cars": 2, "hredqs": 2}
-HRED_SESSIONS = 1280   # HRED-QS trains on the first sessions of the file
+FIT_EPOCHS = {"cars": 2, "hredqs": 2, "seq2seq": 2, "acg": 2}
+HRED_SESSIONS = 1280   # the recommenders train on the first sessions
 TIMED_STEPS, PROFILED_STEPS = 20, 10
 
 
@@ -2028,8 +2306,9 @@ def fit_args(model_type: str, files: dict, run_dir: str, *extra) -> list:
             "--beam_size", str(BEAM), "--display_iter", "5",
             "--test_file", str(files["test"])]
     if model_type == "hredqs":
-        args += ["--rnn_type", "gru", "--session_rnn_type", "gru",
-                 "--valid_metric", "bleu-1", "--max_examples",
+        args += ["--rnn_type", "gru", "--session_rnn_type", "gru"]
+    if model_type != "cars":
+        args += ["--valid_metric", "bleu-1", "--max_examples",
                  str(HRED_SESSIONS)]
     return args + list(extra)
 
@@ -2048,8 +2327,8 @@ def trainer_path(model_type: str, files: dict, run_dir: str) -> dict:
     from context_attentive_ir_tpu_torch.data import prefetch
     from context_attentive_ir_tpu_torch.train.trainer import make_iterator
 
-    path = "trainer_fit" if model_type == "cars" else "trainer_fit_hredqs"
     cars = model_type == "cars"
+    path = "trainer_fit" if cars else f"trainer_fit_{model_type}"
     epochs = FIT_EPOCHS[model_type]
     train = ["--train_file", str(files["train"]), "--dev_file",
              str(files["dev"])]
@@ -2221,10 +2500,11 @@ def trainer_path(model_type: str, files: dict, run_dir: str) -> dict:
     return {path: launches}
 
 
-def trainer_paths(tmp: str) -> dict:
+def trainer_paths(tmp: str, model_types=("cars", "hredqs"),
+                  sessions=FIT_SESSIONS) -> dict:
     """Seeded AOL-scale fixtures (50,000 words, sessions of 2..S turns, N
-    candidates) under ``tmp``, then ``trainer_path`` for CARS and for
-    HRED-QS."""
+    candidates; ``sessions`` per file) under ``tmp``, then ``trainer_path``
+    for each of ``model_types``."""
     from context_attentive_ir_tpu_torch.data.synthetic import (
         write_aol_scale_fixture,
     )
@@ -2233,11 +2513,11 @@ def trainer_paths(tmp: str) -> dict:
     files = {name: write_aol_scale_fixture(
         Path(tmp) / f"{name}.jsonl", n_sessions=n, n_topics=FIT_TOPICS,
         words_per_topic=FIT_WORDS, min_turns=2, max_turns=S, n_candidates=N,
-        seed=20 + i) for i, (name, n) in enumerate(FIT_SESSIONS.items())}
-    log(f"trainer fixtures {FIT_SESSIONS} written in "
+        seed=20 + i) for i, (name, n) in enumerate(sessions.items())}
+    log(f"trainer fixtures {sessions} written in "
         f"{time.perf_counter() - t:.1f} s")
     launches = {}
-    for model_type in ("cars", "hredqs"):
+    for model_type in model_types:
         launches.update(trainer_path(model_type, files,
                                      str(Path(tmp) / "runs")))
     # cli.main's log handlers (stdout, a file under tmp) end with the phase
@@ -2296,18 +2576,19 @@ RNN_TIMING = {
 
 
 def time_rnn(gen, rnn: str, launches: dict, fwd_err: float,
-             pair_err: dict) -> list[dict]:
+             pair_err: dict, shape: tuple | None = None) -> list[dict]:
     """The forward kernel and the training pair of ``rnn`` (kernels 1, 4,
-    5 or 7, 8, 9) at the doc encoder's shape, one direction, bf16, against
-    their plain versions and cuDNN's module of the same recurrence as the
-    yardstick (inference forward; training forward with autograd on;
-    backward alone, from a retained graph)."""
+    5 or 7, 8, 9) at the doc encoder's shape, or at ``shape`` = (rows,
+    steps) (then the rows carry ``rows`` and ``steps``), one direction,
+    bf16, against their plain versions and cuDNN's module of the same
+    recurrence as the yardstick (inference forward; training forward with
+    autograd on; backward alone, from a retained graph)."""
     mod = rnn_kernels(rnn)
     cudnn_cls, sources, replaces = RNN_TIMING[rnn]
     fwd, res, bwd = f"{rnn}_fused", f"{rnn}_fused_res", f"{rnn}_fused_bwd"
     plain = {k: getattr(mod, k + "_reference") for k in (fwd, res, bwd)}
     dtype = torch.bfloat16
-    (x, *w), mask = RNNS[rnn][0](gen, dtype)
+    (x, *w), mask = RNNS[rnn][0](gen, dtype, *(shape or ()))
     rows, steps, e = x.shape
     h = w[2].shape[0]
     out, *state = getattr(mod, res)(x, mask, *w)
@@ -2354,9 +2635,14 @@ def time_rnn(gen, rnn: str, launches: dict, fwd_err: float,
             f"{TIME_CHUNK}: kernel {ms[name]:.3f} ms, plain "
             f"{plain_ms[name]:.3f} ms, cuDNN {cudnn_cls.__name__} {what} "
             f"{lib[name]:.3f} ms, bound {bnd:.4f} ms ({by})")
-        log_earlier(name, ms[name], plain_ms[name], lib[name], bnd)
+        extra = {}
+        if shape is None:
+            log_earlier(name, ms[name], plain_ms[name], lib[name], bnd)
+        else:
+            extra = {"rows": rows, "steps": steps}
         rows_out.append(kernel_row(name, src, line, launches, err, ms[name],
-                                   plain_ms[name], lib[name], bnd, by))
+                                   plain_ms[name], lib[name], bnd, by,
+                                   **extra))
     return rows_out
 
 
@@ -2457,6 +2743,23 @@ def time_slate(gen, launches: dict, max_err: float) -> list[dict]:
         rows_out.append(kernel_row(
             "attn_pool", "slate_pool.cu", "slate.py:158", launches, max_err,
             ms, plain, None, bnd, by, rows=rows, steps=LD))
+    # the wider CUDA-core instantiations at suggest init's rows (logged
+    # only: no main path runs them at the serving widths)
+    rows = B * S * MAX_CLICKS
+    for h in (384, 512, *WIDE_POOLS):
+        for dtype in (torch.bfloat16, torch.float32):
+            (s, q, w, b), mask = slate_inputs(gen, dtype, rows, LD, h)
+            ms = timed_ms(lambda: attn_pool(s, mask, q, w, b), 5)
+            plain = timed_ms(lambda: attn_pool_reference(s, mask, q, w, b),
+                             3)
+            size = 2 if dtype == torch.bfloat16 else 4
+            flops = 2.0 * rows * LD * h * h + 4.0 * rows * LD * h
+            n_bytes = ((s.numel() + q.numel() + w.numel() + b.numel()
+                        + rows * h) * size + mask.numel())
+            bnd, by = bound_ms(flops, n_bytes, dtype)
+            log(f"attn_pool {dtype} [{rows},{LD},{h}] (CUDA-core kernel): "
+                f"kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
+                f"{bnd:.4f} ms ({by})")
     return rows_out
 
 
@@ -2616,7 +2919,7 @@ EARLIER_MS = {"lstm_fused": 11.269, "lstm_fused_res": 11.256,
 # other phase.
 PHASES = ("kernels", "lstm", "grukernels", "beamkernels", "slatekernels",
           "serving", "train", "indexed", "gru", "small", "kernel6",
-          "trainer")
+          "trainer", "recommenders")
 SHARES = {"lstm", "grukernels", "beamkernels", "slatekernels"}
 
 
@@ -2737,6 +3040,18 @@ def main() -> int:
     if "trainer" in run:
         with tempfile.TemporaryDirectory() as tmp:
             launches.update(phase("trainer", lambda: trainer_paths(tmp)))
+    if "recommenders" in run:
+        def recommenders(tmp):
+            rec_launches, ms = recommender_paths(tmp)
+            rec_launches.update(trainer_paths(
+                tmp, ("seq2seq", "acg"),
+                {**FIT_SESSIONS, "train": HRED_SESSIONS}))
+            return rec_launches, ms
+        with tempfile.TemporaryDirectory() as tmp:
+            rec_launches, ms = phase("recommenders",
+                                     lambda: recommenders(tmp))
+            launches.update(rec_launches)
+            train_ms.update(ms)
 
     bf16 = torch.bfloat16
     kernels = []
@@ -2746,6 +3061,12 @@ def main() -> int:
         kernels.extend(row for rnn in rnns for row in time_rnn(
             gen, rnn, launches, errs[f"fwd_{rnn}"][bf16],
             errs[f"pair_{rnn}"]))
+        if "lstm" in rnns:
+            # the recommenders' encoder over their flat source [B, S*Lq]
+            kernels.extend(time_rnn(gen, "lstm", launches,
+                                    errs["fwd_lstm"][bf16],
+                                    errs["pair_lstm"],
+                                    shape=(B, S_REC * LQ)))
         if "gru" in rnns:
             time_row_tiles(gen)
         if "rec" in errs:

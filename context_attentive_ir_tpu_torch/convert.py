@@ -1,4 +1,4 @@
-"""Weight bridge: a JAX param tree (CARS or HRED-QS) -> the port's state
+"""Weight bridge: a JAX param tree (any ported model) -> the port's state
 dict.
 
 The port keeps the JAX layouts (dense kernels ``[in, out]``; RNN ``w_ih

@@ -48,10 +48,11 @@
 // each other (PERF.md).
 //
 // The first version (slate_pool_kernel) stays for float32 (its bits
-// unchanged), for H = 384 and 512 (whose bf16 W_p, 288 and 512 KB, does not
+// unchanged), for H = 384 .. 1024 (whose bf16 W_p, 288 KB and up, does not
 // fit a block's shared memory) and for T outside 1..64 (a document beyond
-// one tile): a block of 8 warps owns 64 rows (32 when H > 256: 8 or 4 rows
-// per warp) and walks the T tokens.  Per token it stages the rows' states
+// one tile): a block of 8 warps owns 64 rows (32 at H = 384 / 512, 16 at
+// 640 / 768, 8 at 896 / 1024: 8, 4, 2 or 1 rows per warp) and walks the T
+// tokens.  Per token it stages the rows' states
 // in shared memory as f32 (row-major), then each warp computes its rows'
 // projection with CUDA-core FMAs, each lane owning H/32 contiguous output
 // columns, W_p read from shared memory (bf16 at H <= 256) or from L2 (f32,
@@ -269,6 +270,21 @@ int launch_h(const void* states, const void* mask, const void* query,
                                      n_rows, t_len, stream);
     case 512:
       return launch<T, 16, 4, false>(states, mask, query, w_p, b_p, out,
+                                     n_rows, t_len, stream);
+    // wider pools (CARS's doc pool is 2 * nhid wide): fewer rows a warp, so
+    // a thread's accumulators and pooled sums (2 * kCols * kRowsPerWarp
+    // floats) stay inside the 255 registers of the 256-thread block
+    case 640:
+      return launch<T, 20, 2, false>(states, mask, query, w_p, b_p, out,
+                                     n_rows, t_len, stream);
+    case 768:
+      return launch<T, 24, 2, false>(states, mask, query, w_p, b_p, out,
+                                     n_rows, t_len, stream);
+    case 896:
+      return launch<T, 28, 1, false>(states, mask, query, w_p, b_p, out,
+                                     n_rows, t_len, stream);
+    case 1024:
+      return launch<T, 32, 1, false>(states, mask, query, w_p, b_p, out,
                                      n_rows, t_len, stream);
     default:
       return (int)cudaErrorInvalidValue;
@@ -545,8 +561,9 @@ int launch_tc(const void* states, const void* mask, const void* query,
 
 // states [R, T, H], mask bool [R, T], query [R, H], w_p [H, H], b_p [H]
 // (contiguous, one dtype: 0 = float32, 1 = bfloat16; states, query and w_p
-// 16-byte aligned) -> out [R, H] in that dtype.  H must be 128, 256, 384 or
-// 512.  bfloat16 at H = 128 or 256 with 1 <= T <= 64 runs
+// 16-byte aligned) -> out [R, H] in that dtype.  H must be a multiple of
+// 128 from 128 to 1024 (`pool_supported` in ops/kernels/slate.py states the
+// same set).  bfloat16 at H = 128 or 256 with 1 <= T <= 64 runs
 // slate_pool_tc_kernel, everything else slate_pool_kernel.  Returns the
 // cudaError_t (0 = ok).
 extern "C" int cair_slate_pool(const void* states, const void* mask,

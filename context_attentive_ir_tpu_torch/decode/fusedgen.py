@@ -20,7 +20,9 @@ from typing import Callable, Optional
 import torch
 
 from ..ops.kernels.beamgen import (
+    MAX_KC,
     aligned_table,
+    beamgen_supported,
     generator_topk_lse,
     generator_topk_lse_reference,
 )
@@ -28,7 +30,8 @@ from ..ops.kernels.beamgen import (
 
 def fused_generator_table(model, dtype: torch.dtype = torch.bfloat16):
     """``(table_t [E, V], scale [V] | None)`` of the model's tied table,
-    or None when the model has none.  ``table_t`` is a view of a table
+    or None when the model has none (no embeddings, or an untied generator,
+    whose logits come from its own ``proj`` and not from the table).  ``table_t`` is a view of a table
     whose rows are padded to a multiple of 16 bytes (``aligned_table``), so
     the kernels read it as it lies on every step of the decode.
 
@@ -36,7 +39,8 @@ def fused_generator_table(model, dtype: torch.dtype = torch.bfloat16):
     serving table (``embedding_q`` + ``embedding_scale``) returns ``(q.T``
     int8, ``scale`` float32 ``[V])``, the int8 mode of the kernel."""
     emb = getattr(model, "embeddings", None)
-    if emb is None:
+    generator = getattr(model, "generator", None)
+    if emb is None or not getattr(generator, "tie", True):
         return None
     if getattr(emb, "quantized", False):
         return (aligned_table(emb.embedding_q.detach().t()),
@@ -69,8 +73,10 @@ def make_fused_beam_step(model, memory: torch.Tensor,
                          prune: bool | None = None,
                          shortlist=None) -> Optional[Callable]:
     """``(state, tokens) -> (state, (vals, idx, lse))`` or None when the
-    model cannot take the fused path.  ``memory`` and ``memory_mask`` must
-    already be beam-tiled.  The transposed table is built once here and
+    model cannot take the fused path, or the kernels do not hold the shape:
+    ``kc`` above ``MAX_KC`` or an E that ``beamgen_supported`` refuses.  The
+    caller then decodes through the model's logits step, which is exact.
+    ``memory`` and ``memory_mask`` must already be beam-tiled.  The transposed table is built once here and
     reused by every step.
 
     An int8 table forces ``pipeline=False`` and ``pipeline`` forces
@@ -83,6 +89,9 @@ def make_fused_beam_step(model, memory: torch.Tensor,
     table_t, scale = fused_generator_table(model, dtype)
     pipeline = bool(pipeline) and scale is None
     prune = bool(prune) and not pipeline
+    if kc > MAX_KC or not beamgen_supported(table_t.shape[0], dtype,
+                                            pipeline):
+        return None
     sl = None
     if shortlist is not None:
         table_t, scale, sl = _shortlisted(table_t, scale, shortlist)

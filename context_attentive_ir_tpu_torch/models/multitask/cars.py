@@ -7,7 +7,8 @@ flow, click flow; ``session_rnn_type``) run over the S turns; context attention 
 attention over the 2S-slot (query-flow + click-flow) memory, gated into the
 query vector; the ranking head scores the whole ``[B, S, N]`` slate in one
 MLP; the suggestion head is an attention LSTM decoder over ``[B*S]`` rows
-with a tied generator.  Parameter names mirror the JAX tree, so
+with a tied generator (or an untied one, ``tie_embeddings=False``, which
+decodes through the logits step).  Parameter names mirror the JAX tree, so
 ``convert.params_from_jax`` is a rename.
 
 ``forward`` is the training forward (scores and teacher-forced generator
@@ -57,8 +58,6 @@ class CARS(nn.Module):
         if cfg.model_type != "cars":
             raise ValueError(f"CARS needs model_type 'cars', got "
                              f"{cfg.model_type!r}")
-        if not cfg.tie_embeddings:
-            raise NotImplementedError("only the tied generator is ported")
         check_rnn_types(cfg)
         if cfg.cars_ablation not in ("none", "no_click_flow",
                                      "no_context_attn"):
@@ -101,7 +100,10 @@ class CARS(nn.Module):
         self.decoder = AttnLSTMDecoder(h2, cfg.emsize, cfg.nlayers,
                                        cfg.attn_type, dtype=dt, device=dev,
                                        dropout=cfg.dropout_rnn)
-        self.generator = Generator(h2, self.embeddings, dtype=dt, device=dev)
+        self.generator = Generator(h2, self.embeddings,
+                                   tie=cfg.tie_embeddings,
+                                   vocab_size=cfg.vocab_size, dtype=dt,
+                                   device=dev)
         if seed is not None and dev.type != "meta":
             reset_parameters(self, seed)
 
@@ -294,6 +296,10 @@ class CARS(nn.Module):
         memory, mem_mask, init = self._decoder_inputs(q_states, q_ctx, sq,
                                                       sc, batch)
         return self.decoder.init_state(memory.shape[0], init), memory, mem_mask
+
+    def decode_kwargs(self, batch: SessionBatch) -> dict:
+        """Extra per-row tensors ``decode_step`` takes (none here)."""
+        return {}
 
     @torch.inference_mode()
     def decode_step(self, state, tokens, memory, memory_mask):

@@ -30,6 +30,7 @@ from ...ops.layers import reset_parameters
 from ...ops.rnn import RNNEncoder, RNNLayer
 from ..base import check_rnn_types, compute_dtype, make_embeddings
 from ..generator import Generator
+from ..losses import sequence_nll_loss
 
 
 def last_valid(states: torch.Tensor, turn_mask: torch.Tensor) -> torch.Tensor:
@@ -44,6 +45,9 @@ class HredQS(nn.Module):
     leaves them uninitialised, for loading a state dict (and on the
     ``meta`` device, for reading the parameter names and shapes)."""
 
+    # the training loss of ``forward``'s output (logits)
+    target_nll = staticmethod(sequence_nll_loss)
+
     def __init__(self, config: ModelConfig, device="cuda",
                  seed: int | None = 0):
         super().__init__()
@@ -51,8 +55,6 @@ class HredQS(nn.Module):
         if cfg.model_type != "hredqs":
             raise ValueError(f"HredQS needs model_type 'hredqs', got "
                              f"{cfg.model_type!r}")
-        if not cfg.tie_embeddings:
-            raise NotImplementedError("only the tied generator is ported")
         check_rnn_types(cfg)
         dev = resolve_device(device)
         dt = compute_dtype(cfg)
@@ -68,7 +70,10 @@ class HredQS(nn.Module):
         self.decoder = AttnLSTMDecoder(h2, cfg.emsize, cfg.nlayers,
                                        cfg.attn_type, dtype=dt, device=dev,
                                        dropout=cfg.dropout_rnn)
-        self.generator = Generator(h2, self.embeddings, dtype=dt, device=dev)
+        self.generator = Generator(h2, self.embeddings,
+                                   tie=cfg.tie_embeddings,
+                                   vocab_size=cfg.vocab_size, dtype=dt,
+                                   device=dev)
         if seed is not None and dev.type != "meta":
             reset_parameters(self, seed)
 
@@ -101,6 +106,10 @@ class HredQS(nn.Module):
         memory, memory_mask, init = self.encode(batch)
         return (self.decoder.init_state(memory.shape[0], init), memory,
                 memory_mask)
+
+    def decode_kwargs(self, batch: SuggestBatch) -> dict:
+        """Extra per-row tensors ``decode_step`` takes (none here)."""
+        return {}
 
     @torch.inference_mode()
     def decode_step(self, state, tokens, memory, memory_mask):

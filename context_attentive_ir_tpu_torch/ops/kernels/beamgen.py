@@ -181,8 +181,8 @@ def _check_args(x, table_t, kc, scale, prune, pipeline):
                          f"{tuple(table_t.shape)} do not multiply")
     R, E = x.shape
     V = table_t.shape[1]
-    if not 0 < kc <= min(MAX_KC, V):
-        raise ValueError(f"kc={kc} outside 1..min({MAX_KC}, V={V})")
+    if not 0 < kc <= V:
+        raise ValueError(f"kc={kc} outside 1..V={V}")
     if scale is not None and tuple(scale.shape) != (V,):
         raise ValueError(f"scale must be [V] = [{V}], got "
                          f"{tuple(scale.shape)}")
@@ -203,8 +203,9 @@ def generator_topk_lse(x: torch.Tensor, table_t: torch.Tensor, kc: int,
     ``scale`` with ``pipeline``, raise.  ``table_t`` may be a view with
     unit column stride whose rows lie further apart (``aligned_table``).
 
-    On CUDA tensors this launches ``cair_beamgen``; on CPU tensors
-    (``device="cpu"``) it runs ``generator_topk_lse_reference``."""
+    On CUDA tensors this launches ``cair_beamgen`` (``kc <= MAX_KC``); on
+    CPU tensors (``device="cpu"``) it runs ``generator_topk_lse_reference``
+    at any ``1 <= kc <= V``."""
     dev = resolve_device(device)
     tensors = (x, table_t) if scale is None else (x, table_t, scale)
     check_on(dev, *tensors)
@@ -213,6 +214,9 @@ def generator_topk_lse(x: torch.Tensor, table_t: torch.Tensor, kc: int,
         return generator_topk_lse_reference(x, table_t, kc, scale)
     if dev.type != "cuda":
         raise ValueError(f"generator_topk_lse runs on cuda or cpu, not {dev}")
+    if kc > MAX_KC:
+        raise ValueError(f"kc={kc}: the kernels keep a running top-kc of at "
+                         f"most {MAX_KC} entries")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if scale is None and table_t.dtype != x.dtype:

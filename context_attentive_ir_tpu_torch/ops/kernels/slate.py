@@ -25,10 +25,11 @@ one buffer while it works on the other; the scores come out of the
 accumulators' epilogue, each document takes its masked softmax over its T
 scores at once, and the pooled vector is summed off the staged tile in
 f32.  That per-document softmax differs from the online one only in
-rounding.  float32, H = 384 and 512 (whose W_p does not fit in shared
+rounding.  float32, H = 384 .. 1024 (whose W_p does not fit in shared
 memory) and T above one tile keep the first version: a block owns 64 rows
-(32 when H > 256), stages each token's states in f32 and runs the
-projection on CUDA cores with an online softmax.
+(32 at H = 384 / 512, 16 at 640 / 768, 8 at 896 / 1024), stages each
+token's states in f32 and runs the projection on CUDA cores with an online
+softmax.
 
 Bound on the H100 (CARS slate, R = B*S*N = 16,000 rows, T = 30, H = 256,
 bf16): 2*R*T*H^2 = 6.3e10 flops (0.064 ms at the bf16 tensor-core peak)
@@ -52,10 +53,20 @@ from ..masking import masked_softmax
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def pool_supported(hidden: int, rows: int) -> bool:
-    """Whether the fused pool kernel takes this shape (the JAX contract:
-    128-aligned features, at least 8 rows)."""
+MAX_HIDDEN = 1024   # the widest pool the launcher instantiates
+
+
+def pool_jax_gate(hidden: int, rows: int) -> bool:
+    """The JAX package's condition for its Pallas pool (``_pallas_ok`` in
+    ``ops/pallas/slate.py``): 128-aligned features, at least 8 rows."""
     return hidden % 128 == 0 and rows >= 8
+
+
+def pool_supported(hidden: int, rows: int) -> bool:
+    """Whether the fused pool kernel takes this shape -- exactly what the
+    launcher ``cair_slate_pool`` runs: the JAX gate (``pool_jax_gate``) and
+    ``128 <= hidden <= MAX_HIDDEN``."""
+    return pool_jax_gate(hidden, rows) and 128 <= hidden <= MAX_HIDDEN
 
 
 # the bf16 tensor-core kernel (csrc/slate_pool.cu, slate_pool_tc_kernel)
@@ -125,8 +136,9 @@ def _check_cuda_args(states, mask, query, w_p, b_p):
             f"{tuple(w_p.shape)}, b_p {tuple(b_p.shape)} do not form one "
             "pool")
     if not pool_supported(H, R):
-        raise ValueError(f"attn_pool: the kernel needs H % 128 == 0 and at "
-                         f"least 8 rows; got H={H}, R={R}")
+        raise ValueError(f"attn_pool: the kernel needs H % 128 == 0, "
+                         f"128 <= H <= {MAX_HIDDEN} and at least 8 rows; got "
+                         f"H={H}, R={R}")
     if not all(t.is_contiguous() for t in (states, mask, query, w_p, b_p)):
         raise ValueError("attn_pool needs contiguous tensors")
     return R, T, H

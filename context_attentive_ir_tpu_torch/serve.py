@@ -1,16 +1,22 @@
 """Inference engine: rank and suggest from raw text (port of ``Engine`` in
-``context_attentive_ir_tpu/serve.py`` for CARS and HRED-QS).
+``context_attentive_ir_tpu/serve.py`` for CARS and the recommenders
+HRED-QS, seq2seq and ACG).
 
 Requests are padded to the model's static shapes and batched into buckets
 of ``batch_bucket`` rows, as in the JAX engine.  Ranking (CARS only) runs
 the encoders through the fused LSTM or GRU kernel (and the query-aware doc
 pooling through the slate-pool kernel when the config sets
 ``use_pallas_slate``); suggestion runs beam search (or greedy at
-``beam_size=1``).  CARS decodes through the fused generator step --
-top-``beam_size + 1`` for beam, top-2 for greedy -- so the ``[rows, V]``
-logits never exist; HRED-QS, which has no fused step in the JAX package
-either, decodes through its logits step.  On the CPU (``device="cpu"``)
-the same step structure runs on the kernels' plain versions.
+``beam_size=1``).  CARS with a tied generator decodes through the fused
+generator step -- top-``beam_size + 1`` for beam, top-2 for greedy -- so
+the ``[rows, V]`` logits never exist, wherever the kernels hold the shape
+(``make_fused_beam_step``: top-kc up to 32, so beam up to 31, and the
+emsize ``beamgen_supported`` states); past that, untied, and for the
+recommenders, which have no fused step in the JAX package either, it
+decodes through the model's logits step, which is exact.  ACG decodes
+through its copy-mixture step over the request's source tokens and takes
+no shortlist, as in JAX.  On the CPU (``device="cpu"``) the same step
+structure runs on the kernels' plain versions.
 
 ``index_documents`` encodes a corpus once; ``rank_indexed`` /
 ``rank_indexed_batch`` then rank its documents by id, paying only for the
@@ -42,13 +48,16 @@ from .data.objects import Document, Query, Session
 from .decode import (
     beam_search,
     build_shortlist,
+    can_fuse_generator,
     greedy_decode,
     make_fused_beam_step,
+    make_shortlist_xla_step,
 )
 from .device import resolve_device
 from .models import MODEL_CLASSES, build_model, task_family
 from .models.base import compute_dtype
 from .models.multitask.cars import clicks_exceed_suggest_cap
+from .ops.kernels.beamgen import MAX_KC
 from .ops.layers import quantize_embedding_table
 from .train.checkpoint import Checkpointer
 
@@ -79,7 +88,7 @@ class ServeError(ValueError):
 
 class Engine:
     """One loaded model behind ``rank``/``suggest``: CARS ranks and
-    suggests, HRED-QS (a recommender) only suggests.
+    suggests, a recommender (HRED-QS, seq2seq, ACG) only suggests.
 
     ``params``: a state dict of the port's model for ``config.model_type``
     (``convert.params_from_jax`` of a JAX param tree, or
@@ -327,19 +336,40 @@ class Engine:
 
     # -- suggestion -----------------------------------------------------------
 
-    def _decode_step(self, memory, memory_mask, kc: int, shortlist):
+    def _decode_step(self, memory, memory_mask, kc: int, shortlist,
+                     kwargs: dict):
         """The fused generator step with its pruned selection (exact, and
         on the H100 at the serving shapes faster than the unpruned one,
         PERF.md, where the JAX engine reads the choice from its TPU
-        dispatch table); for a model without ``decode_step_fused``, as
-        the JAX engine does, its logits step."""
-        step = make_fused_beam_step(self.model, memory, memory_mask, kc,
-                                    compute_dtype(self.config), prune=True,
-                                    shortlist=shortlist)
+        dispatch table); where it is None (no ``decode_step_fused``, an
+        untied generator, or a kc or E the kernels do not hold), as the JAX
+        engine does, the model's logits step.  A shortlist past the
+        kernels' kc or E takes the plain shortlist step on CPU tensors and
+        raises on CUDA tensors, where that step would do the generator
+        kernel's work in plain PyTorch.  ``kwargs`` (the model's
+        ``decode_kwargs``, ACG's source tokens) go to the logits step and
+        rule out the other two."""
+        dtype = compute_dtype(self.config)
+        step = None
+        if not kwargs:
+            step = make_fused_beam_step(self.model, memory, memory_mask, kc,
+                                        dtype, prune=True,
+                                        shortlist=shortlist)
+            if step is None and shortlist is not None:
+                if memory.is_cuda and can_fuse_generator(self.model):
+                    raise ServeError(
+                        f"suggest_shortlist on the card runs the fused "
+                        f"generator kernel, which holds top-{MAX_KC} "
+                        f"(beam_size <= {MAX_KC - 1}) and the emsize "
+                        f"beamgen_supported states; got top-{kc} at "
+                        f"emsize {self.config.emsize}")
+                step = make_shortlist_xla_step(self.model, memory,
+                                               memory_mask, kc, dtype,
+                                               shortlist)
         if step is None:
             def step(state, tokens):
                 return self.model.decode_step(state, tokens, memory,
-                                              memory_mask)
+                                              memory_mask, **kwargs)
         return step
 
     def _suggest_impl(self, batch, init_method: str, shortlist=None):
@@ -347,16 +377,18 @@ class Engine:
         rows = memory.shape[0]
         max_len = self.shapes.max_target_len
         K = self.beam_size
+        kwargs = self.model.decode_kwargs(batch)
         if K > 1:
-            step = self._decode_step(memory.repeat_interleave(K, dim=0),
-                                     memory_mask.repeat_interleave(K, dim=0),
-                                     K + 1, shortlist)
+            rep = lambda t: t.repeat_interleave(K, dim=0)
+            step = self._decode_step(rep(memory), rep(memory_mask), K + 1,
+                                     shortlist,
+                                     {k: rep(v) for k, v in kwargs.items()})
             return beam_search(step, state, rows, max_len, K,
                                return_nbest=True,
                                early_exit=self.suggest_early_exit)
         # greedy takes the same fused step at kc=2 (one spare slot covers a
         # min_length-blocked EOS -- exact)
-        step = self._decode_step(memory, memory_mask, 2, shortlist)
+        step = self._decode_step(memory, memory_mask, 2, shortlist, kwargs)
         seqs, scores = greedy_decode(step, state, rows, max_len,
                                      early_exit=self.suggest_early_exit)
         return seqs[:, None], scores[:, None]

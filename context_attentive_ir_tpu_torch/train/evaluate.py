@@ -38,7 +38,9 @@ def build_decode_fn(model, config: ModelConfig, beam_size: int = 1,
                     max_len: Optional[int] = None,
                     run: Optional["object"] = None):
     """Returns ``decode(batch) -> token ids [rows, T]`` (numpy) over a host
-    batch, through the model's logits step as in the JAX package.
+    batch, through the model's logits step as in the JAX package, given
+    the model's ``decode_kwargs`` (ACG's source tokens), repeated per
+    beam.
 
     rows = B for recommenders, B*S for multitask models (their
     ``decode_init`` flattens the session axis).  ``run`` (a RunConfig)
@@ -49,9 +51,6 @@ def build_decode_fn(model, config: ModelConfig, beam_size: int = 1,
     ``decode.calls`` and ``decode.steps`` count the decodes and the decoder
     steps they ran (early exit makes the latter data-dependent)."""
     max_len = max_len or (config.max_query_len + 1)
-    if config.model_type == "acg":
-        raise NotImplementedError("acg: the copy decoder's source kwargs "
-                                  "are not ported")
     beam_kw = {}
     if run is not None:
         beam_kw = dict(alpha=run.beam_alpha,
@@ -68,27 +67,30 @@ def build_decode_fn(model, config: ModelConfig, beam_size: int = 1,
         if has_full and clicks_exceed_suggest_cap(batch, cap):
             decode.fallbacks += 1
             init = model.decode_init_full
-        state, memory, memory_mask = init(batch.to(_device_of(model)))
+        batch = batch.to(_device_of(model))
+        state, memory, memory_mask = init(batch)
         rows = memory.shape[0]
         decode.calls += 1
+        kwargs = model.decode_kwargs(batch)
 
-        def make_step(mem, mask):
+        def make_step(mem, mask, kw):
             def step(st, toks):
                 decode.steps += 1
-                return model.decode_step(st, toks, mem, mask)
+                return model.decode_step(st, toks, mem, mask, **kw)
             return step
 
         if beam_size > 1:
-            step = make_step(memory.repeat_interleave(beam_size, dim=0),
-                             memory_mask.repeat_interleave(beam_size, dim=0))
+            rep = lambda t: t.repeat_interleave(beam_size, dim=0)
+            step = make_step(rep(memory), rep(memory_mask),
+                             {k: rep(v) for k, v in kwargs.items()})
             # early_exit: validation decodes run trained(-ish) models that
             # finish in a few steps of the budget
             seqs, _ = beam_search(step, state, rows, max_len, beam_size,
                                   cov_mask=memory_mask, early_exit=True,
                                   **beam_kw)
         else:
-            seqs, _ = greedy_decode(make_step(memory, memory_mask), state,
-                                    rows, max_len,
+            seqs, _ = greedy_decode(make_step(memory, memory_mask, kwargs),
+                                    state, rows, max_len,
                                     min_length=beam_kw.get("min_length", 0),
                                     early_exit=True)
         return seqs.cpu().numpy()

@@ -1,5 +1,5 @@
 """Train and eval steps (port of ``context_attentive_ir_tpu/train/steps.py``,
-multitask and recommender families: CARS and HRED-QS).
+multitask and recommender families: CARS, HRED-QS, seq2seq and ACG).
 
 The JAX package jit-compiles one function per step; the port runs the same
 forward, loss, backward and optimizer update eagerly.  A step's dropout
@@ -38,8 +38,8 @@ def dropout_generator(seed: int, step: int, device) -> torch.Generator:
 def _check_ported(config: ModelConfig) -> None:
     if config.model_type not in MODEL_CLASSES:
         raise NotImplementedError(
-            f"{config.model_type}: only CARS (multitask) and HRED-QS "
-            "(recommender) are ported")
+            f"{config.model_type} is not ported; the port trains "
+            f"{sorted(MODEL_CLASSES)}")
 
 
 def make_loss_fn(model, config: ModelConfig):
@@ -47,8 +47,10 @@ def make_loss_fn(model, config: ModelConfig):
     metrics)`` with the model's current parameters: for the multitask
     family ``rank_loss + alpha * gen_loss`` (metrics ``rank_loss``,
     ``gen_loss``), for a recommender the target NLL (``gen_loss`` and
-    ``ppl = exp(min(loss, 20))``); plus the ``regularize_coeff`` L2
-    term."""
+    ``ppl = exp(min(loss, 20))``, through the model's ``target_nll``:
+    ``copy_generator_nll_loss`` for ACG, whose forward returns the copy
+    mixture's probabilities); plus the
+    ``regularize_coeff`` L2 term."""
     _check_ported(config)
     family = task_family(config.model_type)
 
@@ -57,7 +59,7 @@ def make_loss_fn(model, config: ModelConfig):
         out = model(batch, deterministic, generator)
         if family == "recommender":
             tmask = batch.target_mask & batch.row_mask[:, None]
-            loss = sequence_nll_loss(out, batch.target_out, tmask)
+            loss = model.target_nll(out, batch.target_out, tmask)
             metrics = {"gen_loss": loss,
                        "ppl": torch.exp(torch.clamp(loss, max=20.0))}
         else:

@@ -1,9 +1,9 @@
 """The training engine: epoch loop, validation, early stopping, resume.
 
 Port of ``context_attentive_ir_tpu/train/trainer.py`` for the families the
-port has (multitask: CARS; recommender: HRED-QS): seed, init-or-resume the
-model, epoch loop with ``AverageMeter`` / ``Timer`` and ``display_iter``
-logging, per-epoch official validation, early stopping on
+port has (multitask: CARS; recommender: HRED-QS, seq2seq, ACG): seed,
+init-or-resume the model, epoch loop with ``AverageMeter`` / ``Timer`` and
+``display_iter`` logging, per-epoch official validation, early stopping on
 ``valid_metric``, best / latest checkpoints, final test evaluation with
 prediction dumps.
 

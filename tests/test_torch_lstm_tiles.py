@@ -261,6 +261,35 @@ def test_plain_versions_match_jax_at_ragged_shapes(b, t, e, h, tc, reverse):
         _close_rel(g, r)
 
 
+@pytest.mark.parametrize("reverse", [False, True])
+def test_chunks_at_the_recommenders_source(reverse):
+    """The flat source of seq2seq / ACG, [64 rows, T = 150], which no other
+    path gives the training pair: 25 chunks of the time chunk 6, the
+    boundary states and the gradients as the Pallas kernels in interpret
+    mode give them (E narrowed to 24 for the CPU)."""
+    b, t, e, h, tc = 64, 150, 24, 128, 6
+    x, mask, w_ih, bias, w_hh, dout = _inputs(3, b, t, e, h)
+    tx = list(map(torch.from_numpy, (x, mask, w_ih, bias, w_hh)))
+    out, hb, cb = K.lstm_fused_res(*tx, reverse=reverse, time_chunk=tc,
+                                   device="cpu")
+    assert K.chunk_len(t, tc) == tc and hb.shape == cb.shape == (25, b, h)
+    got = K.lstm_fused_bwd(*tx, hb, cb, torch.from_numpy(dout),
+                           reverse=reverse, time_chunk=tc, device="cpu")
+    jx = list(map(jnp.asarray, (x, mask, w_ih, bias, w_hh)))
+    assert jax_fused_supported(e, h, b)
+    out_j, hb_j, cb_j = _lstm_fused_res_impl(
+        *jx, reverse=reverse, block_b=16, time_chunk=tc, interpret=True)
+    ref = _lstm_fused_bwd_impl(*jx, hb_j, cb_j, jnp.asarray(dout),
+                               reverse=reverse, block_b=16, time_chunk=tc,
+                               interpret=True)
+    assert _max_err(out, out_j) <= TOL
+    assert _max_err(hb, np.asarray(hb_j)[:, :b]) <= TOL
+    assert _max_err(cb, np.asarray(cb_j)[:, :b]) <= TOL
+    for name, g, r in zip(("dx", "dw_ih", "db", "dw_hh"), got, ref):
+        assert g.shape == r.shape, name
+        _close_rel(g, r)
+
+
 def test_jax_gate_splits_the_ragged_shapes_as_the_docstring_says():
     kernel = [s for s in RAGGED if jax_fused_supported(s[2], s[3], s[0])]
     assert [s[:4] for s in kernel] == [(33, 7, 40, 128), (12, 1, 24, 128),

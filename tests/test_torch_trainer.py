@@ -1,7 +1,8 @@
 """The port's ``Trainer`` against the JAX package's, from the same fixture
 file, ``RunConfig`` and initial parameters (the JAX initialisation, through
 ``convert.params_from_jax``), at f32 with dropout 0, for CARS (beam-2
-validation) and HRED-QS (greedy validation): one JAX ``fit`` per family.
+validation), HRED-QS and seq2seq (greedy validation) and ACG (beam-2
+validation through its copy step): one JAX ``fit`` per model.
 
 Tolerances: per-epoch train loss 1e-4 relative (three epochs of Adam steps
 on f32 sums in another order); every validation and test metric 1e-6 abs
@@ -42,7 +43,14 @@ RUN = dict(batch_size=4, test_batch_size=4, num_epochs=3, display_iter=2,
            early_stop=10, seed=7, async_checkpoint=False,
            native_vectorizer=False)
 FAMILY = {"cars": dict(beam_size=2, valid_metric="map"),
-          "hredqs": dict(beam_size=1, valid_metric="bleu-1")}
+          "hredqs": dict(beam_size=1, valid_metric="bleu-1"),
+          "seq2seq": dict(beam_size=1, valid_metric="bleu-1"),
+          "acg": dict(beam_size=2, valid_metric="bleu-1")}
+# ACG starts near its fixture's floor (the copy mixture already gives each
+# target token p ~ 0.05): at the default lr of 1e-3 three epochs of four
+# Adam steps move its epoch loss less than the spread between epochs'
+# batches, in both packages alike; at 1e-2 it falls steadily
+CONFIG = {"acg": dict(learning_rate=0.01)}
 LOSS_REL, METRIC_TOL = 1e-4, 1e-6
 
 
@@ -72,7 +80,8 @@ def _pair(tmp, model_type):
     out = {}
     js, jdev = _load(jdata, train), _load(jdata, dev)
     jd = _dictionary(jdata, js)
-    jcfg = jax_config(model_type, vocab_size=len(jd), **DIMS)
+    jcfg = jax_config(model_type, vocab_size=len(jd), **DIMS,
+                      **CONFIG.get(model_type, {}))
     jrun = JaxRunConfig(model_dir=str(tmp / "jax"), model_name="m", **RUN,
                         **FAMILY[model_type])
     jt = JaxTrainer(jcfg, jrun, jd, use_mesh=False)
@@ -84,7 +93,8 @@ def _pair(tmp, model_type):
 
     ps, pdev = _load(pdata, train), _load(pdata, dev)
     pd_ = _dictionary(pdata, ps)
-    pcfg = default_config(model_type, vocab_size=len(pd_), **DIMS)
+    pcfg = default_config(model_type, vocab_size=len(pd_), **DIMS,
+                          **CONFIG.get(model_type, {}))
     prun = RunConfig(model_dir=str(tmp / "port"), model_name="m", **RUN,
                      **FAMILY[model_type])
     pt = Trainer(pcfg, prun, pd_, device="cpu")
@@ -107,7 +117,17 @@ def hredqs(tmp_path_factory):
     return _pair(tmp_path_factory.mktemp("hredqs"), "hredqs")
 
 
-@pytest.fixture(params=["cars", "hredqs"])
+@pytest.fixture(scope="module")
+def seq2seq(tmp_path_factory):
+    return _pair(tmp_path_factory.mktemp("seq2seq"), "seq2seq")
+
+
+@pytest.fixture(scope="module")
+def acg(tmp_path_factory):
+    return _pair(tmp_path_factory.mktemp("acg"), "acg")
+
+
+@pytest.fixture(params=["cars", "hredqs", "seq2seq", "acg"])
 def pair(request):
     return request.getfixturevalue(request.param)
 
