@@ -64,8 +64,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``suggest_batch``, 8 Adam steps and an eval-loss step) and HRED-QS with
    GRUs (beam-5 and greedy ``suggest_batch``, 8 Adam steps, a checkpoint
    -> ``Engine.from_checkpoint`` round trip with equal suggestions); and
-   small float32 CARS (LSTM), CARS (GRU), HRED-QS, seq2seq, ACG and
-   untied-generator CARS Engines and train steps card vs CPU; then the doc encoder's two directions as one
+   small float32 CARS (LSTM), CARS (GRU), HRED-QS, seq2seq, ACG,
+   untied-generator CARS, M-NSRF (LSTM and GRU) and M-MatchTensor Engines
+   and train steps card vs CPU; then the doc encoder's two directions as one
    ``torch.matmul`` projection + kernel 6 (``lstm_precomputed``, held to
    kernel 1 on the same weights); then the training entry point
    (``trainer_fit``): ``cli.main.main`` trains CARS on a
@@ -84,7 +85,18 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    suggestions each, a small float32 CARS ``Engine`` at beam 40 (past the
    generator kernels' top-32: its logits step, no generator launch) equal
    to the CPU's up to near-tied scores, and ``cli.main`` for seq2seq and
-   ACG as for HRED-QS on a fixture of 1,280 sessions.  Every
+   ACG as for HRED-QS on a fixture of 1,280 sessions; then the multitask
+   baselines (``multitask``): the logits step's top-6 (``exact`` and
+   ``chunked`` equal to ``topk_desc`` on f32, bf16-rounded and
+   integer-valued scores over [1,600 | 320, 50,000], and the three timed),
+   M-MatchTensor's convolution stack at full width in two layouts (timed),
+   M-NSRF and M-MatchTensor (nfilters 32) at the CARS serving widths
+   behind ``Engine`` (``rank_batch`` for 64 requests, beam-5 and greedy
+   ``suggest_batch`` decoding all 320 turns, peak memory read,
+   ``index_documents`` refused), 8 Adam steps each on a ragged batch (the
+   float32 NLL reading must fall; peak memory read), checkpoint round
+   trips, and ``cli.main`` for both as for CARS (5,120 sessions, dev MAP
+   above the untrained model's).  Every
    call runs with every launch count set to 0
    just before it and read just after it and must launch exactly the
    kernels ``PATH_KERNELS`` names (``EXACT_LAUNCHES`` times, where fixed);
@@ -113,7 +125,9 @@ first for its checkpoint), ``gru`` (CARS-GRU and HRED-QS), ``small`` (the
 small float32 models card vs CPU), ``kernel6`` (``lstm_precomputed``),
 ``trainer`` (``cli.main`` for CARS and HRED-QS), ``recommenders``
 (seq2seq and ACG serving, train steps, checkpoint round trips and
-``cli.main``, and the beam-40 CARS Engine).  Every phase prints its
+``cli.main``, and the beam-40 CARS Engine), ``multitask`` (the top-k and
+conv timings, M-NSRF and M-MatchTensor serving, train steps, checkpoint
+round trips and ``cli.main``).  Every phase prints its
 seconds.  Such a run prints its kernel rows as a "partial run" line and no
 ok line.
 """
@@ -1325,6 +1339,16 @@ PATH_KERNELS = {
     # a small float32 CARS at beam 40: past the generator kernels' top-kc,
     # so it decodes through its logits step
     "suggest_beam40_cars": ("lstm_fused",),
+    # M-NSRF and M-MatchTensor: both encoders through kernel 1 (ranking) or
+    # 4 + 5 (training); suggestion encodes the queries alone and decodes
+    # through the logits step (no generator kernel); the session recurrence
+    # starts from a state and takes no kernel, as in JAX
+    **{f"{p}_{m}": ("lstm_fused",) for m in ("mnsrf", "m_match_tensor")
+       for p in ("rank_batch", "suggest_beam5", "suggest_greedy")},
+    **{f"train_step_{m}": ("lstm_fused_res", "lstm_fused_bwd")
+       for m in ("mnsrf", "m_match_tensor")},
+    **{f"trainer_fit_{m}": ("lstm_fused", "lstm_fused_res", "lstm_fused_bwd")
+       for m in ("mnsrf", "m_match_tensor")},
 }
 # exact encoder launches where they are fixed: CARS runs its query and doc
 # encoders (suggest: the clicked docs), two directions each; HRED-QS its
@@ -1344,6 +1368,12 @@ EXACT_LAUNCHES = {
        for m in ("seq2seq", "acg")},
     **{f"train_step_{m}": {"lstm_fused_res": 2, "lstm_fused_bwd": 2}
        for m in ("seq2seq", "acg")},
+    **{f"rank_batch_{m}": {"lstm_fused": 4} for m in ("mnsrf",
+                                                      "m_match_tensor")},
+    **{f"suggest_{mode}_{m}": {"lstm_fused": 2} for mode in ("beam5", "greedy")
+       for m in ("mnsrf", "m_match_tensor")},
+    **{f"train_step_{m}": {"lstm_fused_res": 4, "lstm_fused_bwd": 4}
+       for m in ("mnsrf", "m_match_tensor")},
 }
 
 
@@ -1781,14 +1811,17 @@ def random_suggest_batch(rng, b=B, s=S, lq=LQ, vocab=VOCAB):
 
 
 def nll_f32(model, batch) -> float:
-    """A recommender's teacher-forced NLL on ``batch`` with dropout off,
-    its logits (ACG: its mixture probabilities) taken to float32 first: a
-    reading of the training loss that resolves changes below bf16's spacing
-    (0.0625 at ln 50,000)."""
+    """A model's teacher-forced NLL on ``batch`` with dropout off, its
+    logits (ACG: its mixture probabilities; a multitask model: its
+    ``gen_logits``) taken to float32 first: a reading of the training loss
+    that resolves changes below bf16's spacing (0.0625 at ln 50,000)."""
     with torch.no_grad():
-        out = model(batch).float()
-        tmask = batch.target_mask & batch.row_mask[:, None]
-        return float(model.target_nll(out, batch.target_out, tmask))
+        out = model(batch)
+        if isinstance(out, dict):
+            out = out["gen_logits"]
+        tmask = batch.target_mask & batch.row_mask.view(
+            -1, *(1,) * (batch.target_mask.dim() - 1))
+        return float(model.target_nll(out.float(), batch.target_out, tmask))
 
 
 def train_steps(path: str, cfg, model, batch, steps: int = TRAIN_STEPS,
@@ -2127,10 +2160,217 @@ def beam40_check() -> dict:
     return {"suggest_beam40_cars": launches}
 
 
+# -- the multitask baselines (M-NSRF, M-MatchTensor) and the logits step's
+# top-k ------------------------------------------------------------------------
+
+
+def tied_rows(gen, rows: int, kind: str) -> torch.Tensor:
+    """[rows, VOCAB] float32 scores of one logits step: ``normal`` (f32
+    logits), ``bf16`` (logits rounded to bfloat16, as the bf16 models give
+    them: ties at the top-k's edge in many rows) or ``integer`` (values in
+    -3..3: every row tied at its edge)."""
+    x = torch.randn(rows, VOCAB, generator=gen, device="cuda") * 3
+    if kind == "bf16":
+        return x.to(torch.bfloat16).float()
+    if kind == "integer":
+        return x.round().clamp(-3, 3)
+    return x
+
+
+def topk_check(gen) -> None:
+    """The logits step's top-(K+1) at one beam-5 step of the multitask
+    models (B*S*K = 1,600 rows) and of HRED-QS (B*K = 320 rows) over the
+    50,000-word vocabulary: ``exact`` and ``chunked`` must give the stable
+    sort's (``topk_desc``) values and indices, bit for bit, on f32,
+    bf16-rounded and integer-valued scores; then the three are timed (CUDA
+    events, mean of 20 after warm-up; the rows that need ``_resolve_tied``
+    counted)."""
+    from context_attentive_ir_tpu_torch.decode import beam
+
+    kc = BEAM + 1
+    for rows in (B * S * BEAM, B * BEAM):
+        ms = {}
+        for kind in ("normal", "bf16", "integer"):
+            x = tied_rows(gen, rows, kind)
+            want = beam.topk_desc(x, kc)
+            top = torch.topk(x, kc + 1, dim=-1).values
+            n_tied = int((top[:, kc - 1] == top[:, kc]).sum())
+            for method in ("exact", "chunked"):
+                got = beam._topk_rows(x, kc, method)
+                if not (torch.equal(got[1], want[1]) and torch.equal(
+                        got[0].view(torch.int32), want[0].view(torch.int32))):
+                    raise AssertionError(f"top-k {method} [{rows}, {VOCAB}] "
+                                         f"{kind} differs from topk_desc")
+            ms[kind] = {"rows_tied_at_edge": n_tied, **{
+                name: round(timed_ms(fn, iters=20), 4) for name, fn in (
+                    ("topk_desc", lambda: beam.topk_desc(x, kc)),
+                    ("exact", lambda: beam._topk_rows(x, kc, "exact")),
+                    ("chunked", lambda: beam._topk_rows(x, kc, "chunked")),
+                    ("torch.topk", lambda: torch.topk(x, kc + 1, dim=-1)))}}
+        log(f"logits-step top-{kc} over [{rows}, {VOCAB}] float32: exact and "
+            f"chunked equal to topk_desc (values and indices, f32, "
+            f"bf16-rounded and integer scores); ms {json.dumps(ms)}")
+
+
+def conv_layouts(gen) -> None:
+    """M-MatchTensor's convolution stack at full width (the match tensor
+    [B*S*N, Lq, Ld, C + 1] = [16000, 15, 30, 33], bf16): conv0 -> ReLU ->
+    2x2 pool -> conv1 -> ReLU -> spatial max, forward and forward +
+    backward, on the channels-last view the model passes (``ops/layers.Conv``)
+    and on a contiguous NCHW copy; both give the same features, the times
+    are logged (CUDA events, mean of 5)."""
+    import torch.nn.functional as F
+
+    C, bf16 = 32, torch.bfloat16
+    x = torch.randn(B * S * N, LQ, LD, C + 1, generator=gen, device="cuda",
+                    dtype=bf16)
+    w0 = (torch.randn(C, C + 1, 3, 3, generator=gen, device="cuda") * 0.06
+          ).to(bf16).requires_grad_()
+    w1 = (torch.randn(C, C, 3, 3, generator=gen, device="cuda") * 0.06
+          ).to(bf16).requires_grad_()
+
+    def stack(inp):
+        z = torch.relu(F.conv2d(inp, w0, padding=1))
+        z = F.max_pool2d(z, 2, 2)
+        return torch.relu(F.conv2d(z, w1, padding=1)).amax(dim=(2, 3))
+
+    layouts = {"channels_last view": lambda: x.permute(0, 3, 1, 2),
+               "contiguous NCHW": lambda: x.permute(0, 3, 1, 2).contiguous()}
+    out, ms = {}, {}
+    for name, view in layouts.items():
+        with torch.no_grad():
+            out[name] = stack(view())
+            fwd = timed_ms(lambda: stack(view()), iters=5)
+        both = timed_ms(lambda: stack(view().requires_grad_()).float()
+                        .sum().backward(), iters=5)
+        ms[name] = {"forward": round(fwd, 3), "forward+backward":
+                    round(both, 3)}
+    err = float((out["channels_last view"].float()
+                 - out["contiguous NCHW"].float()).abs().max())
+    log(f"M-MatchTensor conv stack [{B * S * N}, {LQ}, {LD}, {C + 1}] bf16: "
+        f"ms {json.dumps(ms)}; features max abs difference between the "
+        f"layouts {err:.3e}")
+
+
+def memory_peak(fn):
+    """(fn's result, peak MiB allocated during it, MiB allocated before)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, torch.cuda.max_memory_allocated() / 2**20,
+            before / 2**20)
+
+
+def multitask_paths(ckpt_dir: str) -> tuple[dict, dict]:
+    """M-NSRF and M-MatchTensor at the serving widths (bf16, seeded
+    weights; M-MatchTensor's nfilters 32): ``rank_batch`` for 64 requests x
+    50 docs, beam-5 and greedy ``suggest_batch`` for 64 histories (each
+    decodes all B*S = 320 turns through the logits step), each counted,
+    walled, profiled and its peak memory read; ``index_documents`` must
+    raise ``ServeError``; 8 Adam steps on a ragged batch (padded turns,
+    candidates and tokens: NEG_INF rows in bf16) at the ModelConfig
+    dropouts with the float32 NLL reading falling and a peak-memory
+    reading; a checkpoint -> ``Engine.from_checkpoint`` round trip with
+    equal scores and suggestions.  Returns ({path: launches}, {path: train
+    step ms})."""
+    from context_attentive_ir_tpu_torch.models import build_model
+    from context_attentive_ir_tpu_torch.serve import Engine, ServeError
+    from context_attentive_ir_tpu_torch.train import Checkpointer
+
+    word_dict = synthetic_dictionary(VOCAB)
+    reqs, hists = requests(np.random.RandomState(0), word_dict, B)
+    launches, train_ms = {}, {}
+    for model_type in ("mnsrf", "m_match_tensor"):
+        cfg = full_width_config(model_type)
+        with torch.inference_mode():
+            params = build_model(cfg, device="cuda", seed=0).state_dict()
+            engines = {k: Engine(cfg, word_dict, params, beam_size=k,
+                                 batch_bucket=B) for k in (BEAM, 1)}
+        calls = ((f"rank_batch_{model_type}",
+                  lambda e=engines[BEAM]: e.rank_batch(reqs)),
+                 (f"suggest_beam5_{model_type}",
+                  lambda e=engines[BEAM]: e.suggest_batch(hists)),
+                 (f"suggest_greedy_{model_type}",
+                  lambda e=engines[1]: e.suggest_batch(hists)))
+        outs, first_ms, peak = {}, {}, {}
+        with torch.inference_mode():
+            for path, fn in calls:
+                t = time.perf_counter()
+                (outs[path], launches[path]), peak[path], base = memory_peak(
+                    lambda p=path, f=fn: counted(p, f))
+                first_ms[path] = (time.perf_counter() - t) * 1e3
+            scores = outs[calls[0][0]]
+            if len(scores) != B or any(len(x) != N for x in scores):
+                raise AssertionError(f"{model_type} rank_batch returned the "
+                                     "wrong shape")
+            if not np.isfinite(np.asarray(scores)).all():
+                raise AssertionError(f"{model_type} rank_batch returned "
+                                     "non-finite scores")
+            for (path, _), k in zip(calls[1:], (BEAM, 1)):
+                check_suggestions(path, outs[path], k)
+            log(f"{model_type}: launches "
+                f"{json.dumps({p: launches[p] for p, _ in calls})}; "
+                f"first-call wall ms {json.dumps(first_ms)}; peak MiB "
+                f"allocated {json.dumps({p: round(v) for p, v in peak.items()})}"
+                f" (weights and engines {base:.0f}); sample beam-5 "
+                f"{outs[calls[1][0]][0][0]}, greedy {outs[calls[2][0]][0][0]}")
+            try:
+                engines[BEAM].index_documents(["a document"])
+            except ServeError as err:
+                log(f"{model_type} index_documents refused: {err}")
+            else:
+                raise AssertionError(f"{model_type} indexed documents")
+            walls = steady_walls(calls)
+            log(f"steady wall ms (3 runs each, B={B}): {json.dumps(walls)}")
+            for name, fn in calls:
+                where_time_goes(name, fn)
+        del engines, params
+
+        path = f"train_step_{model_type}"
+        tcfg = full_width_config(model_type, train=True)
+        model = build_model(tcfg, device="cuda", seed=0)
+        batch = random_session_batch(np.random.RandomState(12),
+                                     ragged=True).to("cuda")
+        state, step, launches[path] = train_steps(path, tcfg, model, batch,
+                                                  reading=nll_f32)
+        _, peak_mib, base = memory_peak(lambda: step(state, batch, 1))
+        log(f"{path}: peak MiB allocated in a step {peak_mib:.0f} (weights "
+            f"and optimizer state {base:.0f})")
+        where_time_goes(path, lambda: step(state, batch, 1))
+        train_ms[path] = timed_ms(lambda: step(state, batch, 1), iters=5,
+                                  warmup=1)
+        ckpt = Checkpointer(ckpt_dir, model_type)
+        ckpt.save_latest(state, tcfg, word_dict, {"step": state.step})
+        ckpt.wait()
+        with torch.inference_mode():
+            loaded = Engine.from_checkpoint(ckpt.latest_path, beam_size=BEAM,
+                                            batch_bucket=8)
+            mem = Engine(tcfg, word_dict, model.state_dict(), beam_size=BEAM,
+                         batch_bucket=8)
+            same = (loaded.rank_batch(reqs[:8]) == mem.rank_batch(reqs[:8])
+                    and loaded.suggest_batch(hists[:8])
+                    == mem.suggest_batch(hists[:8]))
+        log(f"{model_type} checkpoint -> Engine.from_checkpoint: rank_batch "
+            f"and beam-5 suggestions for 8 requests equal to the in-memory "
+            f"Engine's: {same}")
+        if not same:
+            raise AssertionError(f"{model_type} Engine.from_checkpoint "
+                                 "differs")
+        del model, state, step, batch, loaded, mem
+        torch.cuda.empty_cache()
+    log(f"train steps (CUDA events, mean of 5 after warm-up, B={B}): "
+        f"{json.dumps(train_ms)}")
+    return launches, train_ms
+
+
 # (model type, encoders, tied generator) of the small card-vs-CPU checks
 SMALL_MODELS = (("cars", "lstm", True), ("cars", "gru", True),
                 ("hredqs", "gru", True), ("seq2seq", "lstm", True),
-                ("acg", "gru", True), ("cars", "lstm", False))
+                ("acg", "gru", True), ("cars", "lstm", False),
+                ("mnsrf", "lstm", True), ("mnsrf", "gru", True),
+                ("m_match_tensor", "lstm", True))
 SMALL_DIMS = dict(vocab_size=300, emsize=32, nhid=16, nhid_ffnn=32,
                   max_query_len=8, max_doc_len=12, max_session_len=3,
                   num_candidates=8, dropout=0.0, dropout_emb=0.0,
@@ -2162,15 +2402,16 @@ def small_requests(word_dict) -> tuple[list, list]:
 
 def small_model_check() -> None:
     """Small float32 models -- CARS with LSTMs, CARS with GRUs, HRED-QS
-    with GRUs, seq2seq, ACG (its copy mixture) and CARS with an untied
-    generator: each ``Engine`` on the card (kernel 1 or 7, kernel 2 for
-    tied CARS) must agree with the same ``Engine`` on the CPU (plain
+    with GRUs, seq2seq, ACG (its copy mixture), CARS with an untied
+    generator, M-NSRF with LSTMs and with GRUs, and M-MatchTensor (its
+    convolutions in cuDNN, TF32 off): each ``Engine`` on the card (kernel 1
+    or 7, kernel 2 for tied CARS) must agree with the same ``Engine`` on the CPU (plain
     versions), and one SGD train step of each on the card (kernels 4/5 or
     8/9) with the same step on the CPU, on ragged batches.  SGD keeps the
     update linear in the gradient, so a float32 rounding difference in a
     near-zero gradient element cannot flip an Adam step's sign and the
     parameters compare as tightly as the gradients."""
-    from context_attentive_ir_tpu_torch.models import build_model
+    from context_attentive_ir_tpu_torch.models import build_model, task_family
     from context_attentive_ir_tpu_torch.serve import Engine
     from context_attentive_ir_tpu_torch.train import (
         create_train_state,
@@ -2180,6 +2421,7 @@ def small_model_check() -> None:
     word_dict = synthetic_dictionary(SMALL_DIMS["vocab_size"])
     reqs, hists = small_requests(word_dict)
     for model_type, rnn, tie in SMALL_MODELS:
+        multitask = task_family(model_type) == "multitask"
         cfg = small_config(model_type, rnn, tie)
         params = build_model(cfg, device="cpu", seed=1).state_dict()
         if not tie:
@@ -2190,7 +2432,7 @@ def small_model_check() -> None:
             cpu = Engine(cfg, word_dict, params, beam_size=beam,
                          batch_bucket=4, device="cpu")
             err = 0.0
-            if model_type == "cars":
+            if multitask:
                 rg, rc = gpu.rank_batch(reqs), cpu.rank_batch(reqs)
                 err = max(abs(a - b) for x, y in zip(rg, rc)
                           for a, b in zip(x, y))
@@ -2208,7 +2450,7 @@ def small_model_check() -> None:
                                      "disagrees with the CPU Engine")
 
         tcfg = cfg.replace(optimizer="sgd", learning_rate=0.1)
-        if model_type == "cars":
+        if multitask:
             batch = random_session_batch(np.random.RandomState(3), 6, 3, 8,
                                          8, 12, 300, ragged=True)
         else:
@@ -2290,7 +2532,9 @@ def precomputed_path() -> dict:
 
 FIT_TOPICS, FIT_WORDS = 1250, 40   # a 50,000-word vocabulary
 FIT_SESSIONS = {"train": 5120, "dev": 256, "test": 64}
-FIT_EPOCHS = {"cars": 2, "hredqs": 2, "seq2seq": 2, "acg": 2}
+FIT_EPOCHS = {"cars": 2, "hredqs": 2, "seq2seq": 2, "acg": 2, "mnsrf": 2,
+              "m_match_tensor": 2}
+MULTITASK = ("cars", "mnsrf", "m_match_tensor")
 HRED_SESSIONS = 1280   # the recommenders train on the first sessions
 TIMED_STEPS, PROFILED_STEPS = 20, 10
 
@@ -2307,7 +2551,7 @@ def fit_args(model_type: str, files: dict, run_dir: str, *extra) -> list:
             "--test_file", str(files["test"])]
     if model_type == "hredqs":
         args += ["--rnn_type", "gru", "--session_rnn_type", "gru"]
-    if model_type != "cars":
+    if model_type not in MULTITASK:
         args += ["--valid_metric", "bleu-1", "--max_examples",
                  str(HRED_SESSIONS)]
     return args + list(extra)
@@ -2327,8 +2571,10 @@ def trainer_path(model_type: str, files: dict, run_dir: str) -> dict:
     from context_attentive_ir_tpu_torch.data import prefetch
     from context_attentive_ir_tpu_torch.train.trainer import make_iterator
 
-    cars = model_type == "cars"
-    path = "trainer_fit" if cars else f"trainer_fit_{model_type}"
+    # the multitask family trains on whole sessions and validates on MAP
+    mt = model_type in MULTITASK
+    path = "trainer_fit" if model_type == "cars" else (
+        f"trainer_fit_{model_type}")
     epochs = FIT_EPOCHS[model_type]
     train = ["--train_file", str(files["train"]), "--dev_file",
              str(files["dev"])]
@@ -2372,7 +2618,7 @@ def trainer_path(model_type: str, files: dict, run_dir: str) -> dict:
         raise AssertionError(f"{path}: vocabulary {vocab} is not within 1 % "
                              f"of {VOCAB}")
     n_train = FIT_SESSIONS["train"]
-    if cars:
+    if mt:
         steps = epochs * -(-n_train // B)
     else:
         from context_attentive_ir_tpu_torch.data import (
@@ -2384,7 +2630,7 @@ def trainer_path(model_type: str, files: dict, run_dir: str) -> dict:
                                               HRED_SESSIONS)))
         steps = epochs * -(-n_ex // B)
     fwd, res_k, bwd = PATH_KERNELS[path]
-    per_step = 4 if cars else 2   # encoders x directions
+    per_step = 4 if mt else 2   # encoders x directions
     if (launches[res_k], launches[bwd]) != (per_step * steps,) * 2:
         raise AssertionError(f"{path}: {launches[res_k]} / {launches[bwd]} "
                              f"training-pair launches, not {per_step} a step "
@@ -2395,22 +2641,22 @@ def trainer_path(model_type: str, files: dict, run_dir: str) -> dict:
     if not all(math.isfinite(v) for h in hist + [test] for v in h.values()):
         raise AssertionError(f"{path}: non-finite metrics")
     want = {"bleu-1", "bleu-4", "rouge-l"} | ({"map", "mrr", "ndcg@10"}
-                                              if cars else set())
+                                              if mt else set())
     if not want <= set(hist[-1]) or not want <= set(test):
         raise AssertionError(f"{path}: metric columns missing: "
                              f"{sorted(hist[-1])}")
-    if cars and not hist[-1]["map"] > untrained["map"]:
+    if mt and not hist[-1]["map"] > untrained["map"]:
         raise AssertionError(f"{path}: dev MAP {hist[-1]['map']} not above "
                              f"the untrained model's {untrained['map']}")
     dumps = [f"{name}.test.hyps.jsonl"] + ([f"{name}.test.ranks.jsonl"]
-                                           if cars else [])
+                                           if mt else [])
     for f in (f"{name}.mdl", f"{name}.mdl.checkpoint", *dumps):
         if not (runs / f).exists():
             raise AssertionError(f"{path}: {f} was not written")
     if not all((runs / f).read_text().strip() for f in dumps):
         raise AssertionError(f"{path}: an empty prediction dump")
 
-    key = "map" if cars else "bleu-1"
+    key = "map" if mt else "bleu-1"
     retest = cli_main(fit_args(model_type, files, run_dir, "--only_test"))
     log(f"{path}: --only_test {key} {retest['test'][key]} == the run's "
         f"{test[key]}: {retest['test'][key] == test[key]}")
@@ -2443,7 +2689,7 @@ def trainer_path(model_type: str, files: dict, run_dir: str) -> dict:
     done = rows = 0
     for b in dev_batches:
         seqs = dec(b)
-        if cars:
+        if mt:
             valid = (b.target_mask.any(-1) & b.row_mask[:, None]).reshape(-1)
         else:
             valid = b.row_mask
@@ -2485,12 +2731,12 @@ def trainer_path(model_type: str, files: dict, run_dir: str) -> dict:
     loop(n)
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t
-    slots = B * S * N if cars else B
+    slots = B * S * N if mt else B
     log(f"{path}: {n} steps of the Trainer's loop (prefetch "
         f"{run.prefetch_batches}, pack_cache {run.pack_cache}; an epoch has "
         f"{n_epoch}): {loop_s:.3f} s = {loop_s / n * 1e3:.1f} ms a step -> "
         f"{n * slots / loop_s:.0f} trained "
-        f"{'docs' if cars else 'examples'}/s")
+        f"{'docs' if mt else 'examples'}/s")
     n = min(PROFILED_STEPS, n_epoch)
     where_time_goes(f"{path} training loop ({n} steps)", lambda: loop(n))
     where_time_goes(f"{path} validation", lambda: trainer.validate(
@@ -2919,7 +3165,7 @@ EARLIER_MS = {"lstm_fused": 11.269, "lstm_fused_res": 11.256,
 # other phase.
 PHASES = ("kernels", "lstm", "grukernels", "beamkernels", "slatekernels",
           "serving", "train", "indexed", "gru", "small", "kernel6",
-          "trainer", "recommenders")
+          "trainer", "recommenders", "multitask")
 SHARES = {"lstm", "grukernels", "beamkernels", "slatekernels"}
 
 
@@ -3051,6 +3297,18 @@ def main() -> int:
             rec_launches, ms = phase("recommenders",
                                      lambda: recommenders(tmp))
             launches.update(rec_launches)
+            train_ms.update(ms)
+    if "multitask" in run:
+        def multitask(tmp):
+            topk_check(gen)
+            conv_layouts(gen)
+            mt_launches, ms = multitask_paths(tmp)
+            mt_launches.update(trainer_paths(tmp, ("mnsrf",
+                                                   "m_match_tensor")))
+            return mt_launches, ms
+        with tempfile.TemporaryDirectory() as tmp:
+            mt_launches, ms = phase("multitask", lambda: multitask(tmp))
+            launches.update(mt_launches)
             train_ms.update(ms)
 
     bf16 = torch.bfloat16

@@ -1,12 +1,18 @@
 """Beam search (port of ``context_attentive_ir_tpu/decode/beam.py``, the
-``legacy`` bookkeeping and ``exact`` top-k the JAX package uses off-TPU).
+``legacy`` bookkeeping the JAX package uses off-TPU, and its ``topk_method``
+choices).
 
 Beam state is a tree (dicts/tuples) of ``[B*K, ...]`` tensors; each step is
 per-beam top-(K+1) over the raw scores -> merge over ``[B, K*(K+1)]`` ->
 gather, and finished beams are frozen by forcing PAD continuations at zero
 added log-prob.  The GNMT length penalty ranks the hypotheses.  Every top-k
-breaks ties toward the lower index, as ``lax.top_k`` does (a stable
-descending sort).
+breaks ties toward the lower index, as ``lax.top_k`` does.  The per-beam
+top-(K+1) over the vocabulary (``_topk_rows``) sorts no row: ``exact`` is
+``topk_exact`` (a library top-k, then the order of its few winners fixed);
+``chunked`` is the JAX two-stage form on top of it; ``approx`` and
+``auto`` take ``exact`` (off the TPU ``lax.approx_max_k`` returns
+``lax.top_k``'s values and indices, and the port has no dispatch table).
+The merge over ``K * (K+1)`` columns keeps the stable sort (``topk_desc``).
 
 Step functions return ``(state, logits [B*K, V])`` (normalised in-loop by a
 logsumexp), optionally with their attention as a third value ``attn
@@ -56,10 +62,115 @@ def tree_leaves(tree):
 
 
 def topk_desc(x: torch.Tensor, k: int):
-    """``lax.top_k``: the k largest along the last axis, descending, ties
-    to the lower index."""
+    """The k largest along the last axis, descending, ties to the lower
+    index, by a stable sort of the whole axis (which, unlike ``lax.top_k``,
+    holds -0.0 and +0.0 equal): for short rows and the plain versions."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+TOPK_METHODS = ("auto", "exact", "chunked", "approx")
+
+
+def _sortable_int(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 whose signed order is ``lax.top_k``'s total order
+    of the floats (-0.0 below +0.0; NaN not handled)."""
+    b = x.contiguous().view(torch.int32)
+    return b ^ ((b >> 31) & 0x7FFFFFFF)
+
+
+def _packed_keys(x: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """int64 keys, unique within a row, whose descending order is
+    ``lax.top_k``'s: the value (``_sortable_int``) in the high 32 bits,
+    ``0xFFFFFFFF - column`` in the low ones (ties to the lower column)."""
+    return _sortable_int(x).long() * (1 << 32) + (0xFFFFFFFF - cols)
+
+
+def _resolve_tied(x: torch.Tensor, top: torch.Tensor, idx: torch.Tensor,
+                  k: int) -> torch.Tensor:
+    """Top-k columns of rows whose k-th largest value ``thr`` is tied past
+    the k slots: the columns above ``thr`` (all within ``idx``), then the
+    lowest columns that equal it (+0.0 before -0.0), found by a top-k of
+    their negated ranks (float32, exact below 2**24).  ``top`` / ``idx``:
+    the rows' library top-k values and columns [n, k]."""
+    V = x.shape[-1]
+    thr = top[:, -1:]
+    cols = torch.arange(V, device=x.device, dtype=torch.float32)
+    neg_rank = torch.where(torch.signbit(x), -V - cols, -cols)
+    _, tied = torch.topk(torch.where(x == thr, neg_rank, float("-inf")), k,
+                         dim=-1)
+    above = top > thr
+    n_above = above.sum(-1, keepdim=True)
+    first = idx.gather(1, torch.argsort((~above).int(), dim=1, stable=True))
+    slot = torch.arange(k, device=x.device)[None]
+    rest = tied.gather(1, (slot - n_above).clamp_min(0))
+    return torch.where(slot < n_above, first, rest)
+
+
+def topk_exact(x: torch.Tensor, k: int):
+    """``lax.top_k`` of each row of ``x [R, V]`` (float32): the k largest,
+    descending, ties to the lower column, +0.0 above -0.0; no sort over V.
+
+    A library top-(k+1) gives the k largest values; where the k-th is
+    strictly above the (k+1)-th the set of columns is unique, and only the
+    order of the k winners is fixed (by their packed keys).  Rows whose
+    k-th value is tied past the k slots (which the library may fill from
+    any of the tied columns) take ``_resolve_tied``; finding them reads one
+    flag a row on the host.  A row no wider than k is ordered whole."""
+    R, V = x.shape
+    if k >= V:
+        idx = torch.arange(V, device=x.device).expand(R, V)
+    else:
+        top, idx = torch.topk(x, k + 1, dim=-1)
+        tied = (top[:, k - 1] == top[:, k]).nonzero()[:, 0]
+        top, idx = top[:, :k], idx[:, :k]
+        if tied.numel():
+            idx = idx.index_copy(0, tied, _resolve_tied(
+                x.index_select(0, tied), top.index_select(0, tied),
+                idx.index_select(0, tied), k))
+    order = _packed_keys(x.gather(1, idx), idx).argsort(dim=1,
+                                                        descending=True)
+    idx = idx.gather(1, order)
+    return x.gather(1, idx), idx
+
+
+def _chunk_count(v: int, kc: int) -> int:
+    """Largest G <= 32 with G | V and V/G >= 4*Kc (0 if none)."""
+    for g in range(32, 1, -1):
+        if v % g == 0 and v // g >= 4 * kc:
+            return g
+    return 0
+
+
+def _resolve_topk_method(method: str) -> str:
+    """``auto`` and ``approx`` -> ``exact``: the port has no dispatch table
+    (ROADMAP, "Speed"), and off the TPU ``lax.approx_max_k`` returns
+    ``lax.top_k``'s values and indices at the beam's widths."""
+    if method not in TOPK_METHODS:
+        raise ValueError(f"unknown topk_method {method!r}; choose from "
+                         f"{TOPK_METHODS}")
+    return "exact" if method in ("auto", "approx") else method
+
+
+def _topk_rows(scores: torch.Tensor, kc: int, method: str):
+    """Top-``kc`` of each row of ``[R, V]`` (JAX ``_topk_rows``): ``exact``
+    is ``topk_exact``; ``chunked`` the exact two-stage form -- top-kc
+    within each of G vocab chunks, then top-kc over the G*kc chunk winners
+    (every global winner is within its chunk's top-kc, and chunk order is
+    column order, so the ties resolve as in one stage); it takes ``exact``
+    where ``_chunk_count`` finds no G."""
+    method = _resolve_topk_method(method)
+    if method == "chunked":
+        v = scores.shape[-1]
+        g = _chunk_count(v, kc)
+        if g:
+            r, vc = scores.shape[0], v // g
+            tc, ic = topk_exact(scores.reshape(r * g, vc), kc)
+            base = (torch.arange(g, device=scores.device) * vc)[None, :, None]
+            gid = (ic.reshape(r, g, kc) + base).reshape(r, g * kc)
+            t1, sel = topk_exact(tc.reshape(r, g * kc), kc)
+            return t1, gid.gather(1, sel)
+    return topk_exact(scores, kc)
 
 
 def _gather_beams(tree, parent: torch.Tensor, batch_size: int,
@@ -76,14 +187,16 @@ def beam_search(step_fn: StepFn, init_state, batch_size: int, max_len: int,
                 length_penalty: str = "wu", coverage_beta: float = 0.0,
                 coverage_penalty: str = "wu",
                 cov_mask: torch.Tensor | None = None,
-                early_exit: bool = False):
+                topk_method: str = "auto", early_exit: bool = False):
     """Returns (best tokens [B, max_len], best score [B]); with
     ``return_nbest`` the full beams ([B, K, max_len], [B, K]) sorted by
     normalised score.  ``init_state`` holds ``[B, ...]`` leaves and is tiled
     here.  ``min_length`` forbids EOS before that many real tokens.
     ``cov_mask [B, L]`` marks the real source positions for the coverage
     term (all of them when None); the fused-generator mode exposes no
-    attention and takes no coverage penalty."""
+    attention and takes no coverage penalty.  ``topk_method`` picks the
+    logits step's per-beam top-(K+1) (``_topk_rows``)."""
+    _resolve_topk_method(topk_method)   # raises on an unknown one
     B, K = batch_size, beam_size
     state = tree_map(lambda x: x.repeat_interleave(K, dim=0), init_state)
     dev = next(tree_leaves(state)).device
@@ -114,7 +227,7 @@ def beam_search(step_fn: StepFn, init_state, batch_size: int, max_len: int,
             scores32 = out[1].float()
             Kc = min(K + 1, scores32.shape[-1])
             lse = torch.logsumexp(scores32, dim=-1, keepdim=True)
-            t1, i1 = topk_desc(scores32, Kc)
+            t1, i1 = _topk_rows(scores32, Kc, topk_method)
         logp_top = (t1 - lse).reshape(B, K, Kc)
         i1 = i1.reshape(B, K, Kc).long()
         pad_row = torch.full((Kc,), NEG_INF, dtype=torch.float32, device=dev)

@@ -1,5 +1,5 @@
-"""Model zoo of the port: CARS (multitask) and the recommenders HRED-QS,
-seq2seq and ACG.
+"""Model zoo of the port: the multitask models CARS, M-NSRF and
+M-MatchTensor, and the recommenders HRED-QS, seq2seq and ACG.
 
 ``task_family`` names a model type's family as the JAX package does;
 ``get_model_class`` / ``build_model`` return the port's class for a ported
@@ -10,12 +10,12 @@ that is not ported yet.
 from __future__ import annotations
 
 from ..config import MULTITASK, RANKERS, RECOMMENDERS, ModelConfig
-from .multitask.cars import CARS
+from .multitask import MULTITASK_CLASSES
 from .recommenders.acg import ACG
 from .recommenders.hredqs import HredQS
 from .recommenders.seq2seq import Seq2seq
 
-MODEL_CLASSES = {"cars": CARS, "hredqs": HredQS, "seq2seq": Seq2seq,
+MODEL_CLASSES = {**MULTITASK_CLASSES, "hredqs": HredQS, "seq2seq": Seq2seq,
                  "acg": ACG}
 
 

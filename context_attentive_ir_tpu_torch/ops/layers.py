@@ -1,10 +1,12 @@
-"""Shared layers: parameter plumbing, dropout, Dense, Embeddings, MLP.
+"""Shared layers: parameter plumbing, dropout, Dense, Conv, max_pool,
+Embeddings, MLP.
 
 Port of ``context_attentive_ir_tpu/ops/layers.py`` (``Embeddings``, ``MLP``)
-plus flax's ``nn.Dense`` and ``nn.Dropout``.  Weights keep the JAX layout -- dense kernels are
-``[in, out]`` and layers compute ``x @ W`` -- so the weight bridge
-(``convert.py``) is a rename with no transposes.  Parameters are float32 and
-are cast to the module's compute dtype at use, as flax does.
+plus flax's ``nn.Dense``, ``nn.Conv``, ``nn.max_pool`` and ``nn.Dropout``.
+Weights keep the JAX layout -- dense kernels are ``[in, out]`` and layers
+compute ``x @ W``, conv kernels are ``[kh, kw, in, out]`` -- so the weight
+bridge (``convert.py``) is a rename with no transposes.  Parameters are
+float32 and are cast to the module's compute dtype at use, as flax does.
 """
 
 from __future__ import annotations
@@ -52,7 +54,9 @@ def init_param_(p: torch.Tensor, kind: str, gen: torch.Generator) -> None:
         limit = math.sqrt(6.0 / (shape[-2] + shape[-1]))
         v = (torch.rand(shape, generator=gen) * 2.0 - 1.0) * limit
     elif kind == "lecun":
-        v = torch.randn(shape, generator=gen) * math.sqrt(1.0 / shape[-2])
+        # fan-in: every axis but the output one (a conv kernel's window too)
+        v = torch.randn(shape, generator=gen) * math.sqrt(
+            1.0 / math.prod(shape[:-1]))
     elif kind == "orthogonal":
         rows, cols = shape
         a = torch.randn(max(rows, cols), min(rows, cols), generator=gen)
@@ -113,6 +117,51 @@ class Dense(ParamModule):
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y
+
+
+class Conv(ParamModule):
+    """flax ``nn.Conv`` at stride 1 over channels-last inputs ``[N, H, W,
+    C]``: ``kernel [kh, kw, in, out]`` (the JAX layout, so the weight bridge
+    stays a rename) and ``bias [out]``, permuted to ``[out, in, kh, kw]`` at
+    use.  ``padding="SAME"`` takes odd windows only and pads ``k // 2`` on
+    each side (flax pads ``(k - 1) // 2`` before and ``k // 2`` after);
+    ``"VALID"`` pads nothing.  The product is ``conv2d`` (cuDNN on the
+    card) on a channels-last view of the input: a permute, no copy."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: tuple[int, int] = (3, 3),
+                 padding: str = "SAME", dtype: torch.dtype = torch.float32,
+                 device="cuda"):
+        super().__init__(device)
+        if padding == "SAME":
+            if any(k % 2 == 0 for k in kernel_size):
+                raise ValueError(f"padding='SAME' takes odd windows, got "
+                                 f"{kernel_size}")
+            self.pad = tuple(k // 2 for k in kernel_size)
+        elif padding == "VALID":
+            self.pad = (0, 0)
+        else:
+            raise ValueError(f"unknown padding {padding!r}")
+        self.dtype = dtype
+        self.kernel = self.new_param("kernel", (*kernel_size, in_features,
+                                                features), "lecun")
+        self.bias = self.new_param("bias", (features,), "zeros")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [N, H, W, in] -> [N, H, W, out]."""
+        w = self.kernel.to(self.dtype).permute(3, 2, 0, 1)
+        y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), w,
+                     self.bias.to(self.dtype), padding=self.pad)
+        return y.permute(0, 2, 3, 1)
+
+
+def max_pool(x: torch.Tensor, window: tuple[int, int],
+             strides: tuple[int, int]) -> torch.Tensor:
+    """flax ``nn.max_pool`` with ``padding="VALID"`` over channels-last
+    ``[N, H, W, C]``: output sizes floor, and the gradient goes to the first
+    maximum of each window, as in JAX."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), window,
+                        strides).permute(0, 2, 3, 1)
 
 
 class Embeddings(ParamModule):

@@ -26,3 +26,13 @@ def masked_log_softmax(logits: torch.Tensor, mask: torch.Tensor,
     """``log(masked_softmax)``, floored at 1e-13 (masked entries read
     log(1e-13))."""
     return torch.log(masked_softmax(logits, mask, dim).clamp_min(1e-13))
+
+
+def masked_max(x: torch.Tensor, mask: torch.Tensor,
+               dim: int = -2) -> torch.Tensor:
+    """Max of ``x`` over ``dim`` counting only positions where ``mask`` is
+    True (x [..., T, D], mask [..., T] -> [..., D] at ``dim=-2``); a fully
+    masked row reads ``NEG_INF`` in every feature, as in JAX.  ``amax``
+    splits the gradient evenly over tied maxima, as ``jax.grad`` of
+    ``jnp.max`` does (``max(dim).values`` would give it all to one)."""
+    return torch.where(mask[..., None], x, NEG_INF).amax(dim=dim)

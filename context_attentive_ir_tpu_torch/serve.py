@@ -1,31 +1,34 @@
 """Inference engine: rank and suggest from raw text (port of ``Engine`` in
-``context_attentive_ir_tpu/serve.py`` for CARS and the recommenders
-HRED-QS, seq2seq and ACG).
+``context_attentive_ir_tpu/serve.py`` for the multitask models CARS,
+M-NSRF and M-MatchTensor and the recommenders HRED-QS, seq2seq and ACG).
 
 Requests are padded to the model's static shapes and batched into buckets
-of ``batch_bucket`` rows, as in the JAX engine.  Ranking (CARS only) runs
-the encoders through the fused LSTM or GRU kernel (and the query-aware doc
-pooling through the slate-pool kernel when the config sets
+of ``batch_bucket`` rows, as in the JAX engine.  Ranking (the multitask
+models) runs the encoders through the fused LSTM or GRU kernel (and CARS's
+query-aware doc pooling through the slate-pool kernel when the config sets
 ``use_pallas_slate``); suggestion runs beam search (or greedy at
 ``beam_size=1``).  CARS with a tied generator decodes through the fused
 generator step -- top-``beam_size + 1`` for beam, top-2 for greedy -- so
 the ``[rows, V]`` logits never exist, wherever the kernels hold the shape
 (``make_fused_beam_step``: top-kc up to 32, so beam up to 31, and the
-emsize ``beamgen_supported`` states); past that, untied, and for the
-recommenders, which have no fused step in the JAX package either, it
-decodes through the model's logits step, which is exact.  ACG decodes
-through its copy-mixture step over the request's source tokens and takes
-no shortlist, as in JAX.  On the CPU (``device="cpu"``) the same step
-structure runs on the kernels' plain versions.
+emsize ``beamgen_supported`` states); past that, untied, and for every
+other model, none of which has a fused step in the JAX package either, it
+decodes through the model's logits step, which is exact.  M-NSRF and
+M-MatchTensor decode every turn of the session (``B*S`` rows) from the
+query flow alone.  ACG decodes through its copy-mixture step over the
+request's source tokens and takes no shortlist, as in JAX.  On the CPU
+(``device="cpu"``) the same step structure runs on the kernels' plain
+versions.
 
-``index_documents`` encodes a corpus once; ``rank_indexed`` /
-``rank_indexed_batch`` then rank its documents by id, paying only for the
-queries, the pooling and the scoring.  ``suggest_shortlist=C`` restricts
-the generator to C vocab ids per request batch (``decode/shortlist.py``).
-``Engine.from_checkpoint`` loads a checkpoint written by the port's
-``train.Checkpointer``, optionally with the int8 embedding table
-(``quantize_embeddings=True``), whose suggestions run through the
-generator kernel's int8 mode.  Not ported: the device mesh.
+``index_documents`` (CARS, the one model with ``encode_docs``) encodes a
+corpus once; ``rank_indexed`` / ``rank_indexed_batch`` then rank its
+documents by id, paying only for the queries, the pooling and the
+scoring.  ``suggest_shortlist=C`` restricts the generator to C vocab ids
+per request batch (``decode/shortlist.py``).  ``Engine.from_checkpoint``
+loads a checkpoint written by the port's ``train.Checkpointer``,
+optionally with the int8 embedding table (``quantize_embeddings=True``),
+whose suggestions run through the generator kernel's int8 mode.  Not
+ported: the device mesh.
 """
 
 from __future__ import annotations
@@ -87,8 +90,9 @@ class ServeError(ValueError):
 
 
 class Engine:
-    """One loaded model behind ``rank``/``suggest``: CARS ranks and
-    suggests, a recommender (HRED-QS, seq2seq, ACG) only suggests.
+    """One loaded model behind ``rank``/``suggest``: a multitask model
+    (CARS, M-NSRF, M-MatchTensor) ranks and suggests, a recommender
+    (HRED-QS, seq2seq, ACG) only suggests.
 
     ``params``: a state dict of the port's model for ``config.model_type``
     (``convert.params_from_jax`` of a JAX param tree, or
@@ -415,10 +419,14 @@ class Engine:
                         for h in histories]
             batch = build_session_batch(sessions, self.word_dict,
                                         self.shapes, batch_size=B)
-            # exact at any click count: past the cap, decode from the full
-            # slate
-            init = ("decode_init_full" if clicks_exceed_suggest_cap(
-                batch, self.config.suggest_max_clicks) else "decode_init")
+            # exact at any click count: past the cap, a model with a
+            # full-slate init (CARS) decodes from the full slate; the others
+            # decode from the query flow, which no click changes
+            init = ("decode_init_full"
+                    if hasattr(self.model, "decode_init_full")
+                    and clicks_exceed_suggest_cap(
+                        batch, self.config.suggest_max_clicks)
+                    else "decode_init")
             source = [batch.query, batch.docs[batch.clicks > 0]]
             rows = [i * S + len(sess.queries) - 1
                     for i, sess in enumerate(sessions)]

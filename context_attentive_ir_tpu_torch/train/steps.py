@@ -1,5 +1,6 @@
 """Train and eval steps (port of ``context_attentive_ir_tpu/train/steps.py``,
-multitask and recommender families: CARS, HRED-QS, seq2seq and ACG).
+multitask and recommender families: CARS, M-NSRF, M-MatchTensor, HRED-QS,
+seq2seq and ACG).
 
 The JAX package jit-compiles one function per step; the port runs the same
 forward, loss, backward and optimizer update eagerly.  A step's dropout
@@ -110,12 +111,14 @@ def make_train_step(model, config: ModelConfig):
 
 
 def make_score_step(model, config: ModelConfig):
-    """``score_step(batch) -> scores [B, S, N]`` (eval mode) of the
-    multitask family.  The model's own parameters take the place of the JAX
-    step's ``params``."""
-    if config.model_type != "cars":
+    """``score_step(batch) -> scores [B, S, N]`` (eval mode) of a
+    multitask model (``model.score``).  The model's own parameters take the
+    place of the JAX step's ``params``."""
+    _check_ported(config)
+    if task_family(config.model_type) != "multitask":
         raise NotImplementedError(
-            f"{config.model_type}: only CARS scores slates in the port")
+            f"{config.model_type}: only the multitask models (CARS, M-NSRF, "
+            "M-MatchTensor) score slates in the port")
 
     def score_step(batch):
         return model.score(batch)

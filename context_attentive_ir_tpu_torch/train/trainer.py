@@ -1,11 +1,11 @@
 """The training engine: epoch loop, validation, early stopping, resume.
 
 Port of ``context_attentive_ir_tpu/train/trainer.py`` for the families the
-port has (multitask: CARS; recommender: HRED-QS, seq2seq, ACG): seed,
-init-or-resume the model, epoch loop with ``AverageMeter`` / ``Timer`` and
-``display_iter`` logging, per-epoch official validation, early stopping on
-``valid_metric``, best / latest checkpoints, final test evaluation with
-prediction dumps.
+port has (multitask: CARS, M-NSRF, M-MatchTensor; recommender: HRED-QS,
+seq2seq, ACG): seed, init-or-resume the model, epoch loop with
+``AverageMeter`` / ``Timer`` and ``display_iter`` logging, per-epoch
+official validation, early stopping on ``valid_metric``, best / latest
+checkpoints, final test evaluation with prediction dumps.
 
 The hot loop is host collate (on the prefetch thread) -> ``batch.to(device)``
 -> one eager ``train_step``; metrics and checkpoint IO stay off the device

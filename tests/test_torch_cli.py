@@ -130,8 +130,8 @@ def test_main_end_to_end_hredqs(files):
     assert not (tmp / "runs" / "hred.test.ranks.jsonl").exists()
 
 
-@pytest.mark.parametrize("model_type", ["dssm", "match_tensor",
-                                        "m_match_tensor", "mnsrf"])
+@pytest.mark.parametrize("model_type", ["dssm", "match_tensor", "esm",
+                                        "cdssm"])
 def test_unported_model_type_raises(files, model_type):
     tmp, train, _ = files
     with pytest.raises(NotImplementedError, match=model_type):

@@ -319,7 +319,7 @@ def test_serve_errors(gru_setup):
     for bad in ([], [[]], [["a query"], []]):
         with pytest.raises(ServeError, match="at least"):
             eng.suggest_batch(bad)
-    pcfg = port_config(cfg).replace(model_type="mnsrf")
+    pcfg = port_config(cfg).replace(model_type="arcii")
     with pytest.raises(ServeError, match="not ported"):
         Engine(pcfg, eng.word_dict, {}, device="cpu")
 
@@ -329,7 +329,7 @@ def test_model_registry():
     assert task_family("cars") == "multitask"
     assert task_family("dssm") == "ranker"
     assert get_model_class("hredqs") is HredQS
-    for name in ("m_match_tensor", "arci", "dssm", "mnsrf"):
+    for name in ("esm", "arci", "dssm", "cdssm"):
         with pytest.raises(NotImplementedError, match="not ported"):
             get_model_class(name)
     with pytest.raises(ValueError, match="unknown"):

@@ -241,7 +241,7 @@ def test_cars_loss_and_grads_match_jax(setup, ablation):
 def test_loss_fn_refuses_other_families(setup):
     _, cfg, params, _, _, _ = setup
     pm = port_model(cfg, params)
-    for model_type in ("dssm", "mnsrf"):
+    for model_type in ("dssm", "arcii"):
         with pytest.raises(NotImplementedError, match="not ported"):
             make_loss_fn(pm, PortConfig(model_type=model_type))
 

@@ -1,8 +1,9 @@
 """The port's ``Trainer`` against the JAX package's, from the same fixture
 file, ``RunConfig`` and initial parameters (the JAX initialisation, through
 ``convert.params_from_jax``), at f32 with dropout 0, for CARS (beam-2
-validation), HRED-QS and seq2seq (greedy validation) and ACG (beam-2
-validation through its copy step): one JAX ``fit`` per model.
+validation), HRED-QS and seq2seq (greedy validation), ACG (beam-2
+validation through its copy step), M-NSRF (beam-2) and M-MatchTensor
+(greedy): one JAX ``fit`` per model.
 
 Tolerances: per-epoch train loss 1e-4 relative (three epochs of Adam steps
 on f32 sums in another order); every validation and test metric 1e-6 abs
@@ -45,12 +46,15 @@ RUN = dict(batch_size=4, test_batch_size=4, num_epochs=3, display_iter=2,
 FAMILY = {"cars": dict(beam_size=2, valid_metric="map"),
           "hredqs": dict(beam_size=1, valid_metric="bleu-1"),
           "seq2seq": dict(beam_size=1, valid_metric="bleu-1"),
-          "acg": dict(beam_size=2, valid_metric="bleu-1")}
+          "acg": dict(beam_size=2, valid_metric="bleu-1"),
+          "mnsrf": dict(beam_size=2, valid_metric="map"),
+          "m_match_tensor": dict(beam_size=1, valid_metric="map")}
 # ACG starts near its fixture's floor (the copy mixture already gives each
 # target token p ~ 0.05): at the default lr of 1e-3 three epochs of four
 # Adam steps move its epoch loss less than the spread between epochs'
 # batches, in both packages alike; at 1e-2 it falls steadily
-CONFIG = {"acg": dict(learning_rate=0.01)}
+CONFIG = {"acg": dict(learning_rate=0.01),
+          "m_match_tensor": dict(nfilters=4)}
 LOSS_REL, METRIC_TOL = 1e-4, 1e-6
 
 
@@ -127,7 +131,18 @@ def acg(tmp_path_factory):
     return _pair(tmp_path_factory.mktemp("acg"), "acg")
 
 
-@pytest.fixture(params=["cars", "hredqs", "seq2seq", "acg"])
+@pytest.fixture(scope="module")
+def mnsrf(tmp_path_factory):
+    return _pair(tmp_path_factory.mktemp("mnsrf"), "mnsrf")
+
+
+@pytest.fixture(scope="module")
+def m_match_tensor(tmp_path_factory):
+    return _pair(tmp_path_factory.mktemp("m_match_tensor"), "m_match_tensor")
+
+
+@pytest.fixture(params=["cars", "hredqs", "seq2seq", "acg", "mnsrf",
+                        "m_match_tensor"])
 def pair(request):
     return request.getfixturevalue(request.param)
 
