@@ -66,17 +66,21 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    -> ``Engine.from_checkpoint`` round trip with equal suggestions); and
    small float32 CARS (LSTM), CARS (GRU), HRED-QS, seq2seq, ACG,
    untied-generator CARS, M-NSRF (LSTM and GRU) and M-MatchTensor Engines
-   and train steps card vs CPU; then the doc encoder's two directions as one
-   ``torch.matmul`` projection + kernel 6 (``lstm_precomputed``, held to
-   kernel 1 on the same weights); then the training entry point
+   and train steps card vs CPU, and the eight rankers (Match-Tensor also
+   with GRUs) ``rank_batch`` and train steps card vs CPU; then the doc
+   encoder's two directions as one ``torch.matmul`` projection + kernel 6
+   (``lstm_precomputed``, held to kernel 1 on the same weights); then the
+   training entry point
    (``trainer_fit``): ``cli.main.main`` trains CARS on a
    seeded AOL-scale fixture of 5,120 sessions with a 50,000-word
    vocabulary (B = 64, the ModelConfig training defaults, beam-5
    validation on 256 sessions) for 2 epochs, tests, reproduces the test
    metrics with ``--only_test`` and resumes for one more epoch, then the
    input pipeline, the training loop, validation and the early exit of
-   the trained decoder are timed; the same once for HRED-QS with GRUs on
-   the first 1,280 sessions (``trainer_fit_hredqs``, 2 epochs); then the
+   the trained decoder are timed; the same for HRED-QS with GRUs on the
+   first 1,280 sessions (``trainer_fit_hredqs``, 2 epochs; in the default
+   run, as for every later ``cli.main`` but CARS's, without ``--resume``
+   and the timings, which ``--only`` keeps); then the
    flat-source recommenders (``recommenders``): seq2seq and ACG at the
    same widths with S = 10 context turns (a source of [64, 150] tokens)
    behind ``Engine``, beam-5 and greedy ``suggest_batch`` for 64
@@ -85,7 +89,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    suggestions each, a small float32 CARS ``Engine`` at beam 40 (past the
    generator kernels' top-32: its logits step, no generator launch) equal
    to the CPU's up to near-tied scores, and ``cli.main`` for seq2seq and
-   ACG as for HRED-QS on a fixture of 1,280 sessions; then the multitask
+   ACG as for HRED-QS on the first 1,280 sessions; then the multitask
    baselines (``multitask``): the logits step's top-6 (``exact`` and
    ``chunked`` equal to ``topk_desc`` on f32, bf16-rounded and
    integer-valued scores over [1,600 | 320, 50,000], and the three timed),
@@ -96,7 +100,19 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``index_documents`` refused), 8 Adam steps each on a ragged batch (the
    float32 NLL reading must fall; peak memory read), checkpoint round
    trips, and ``cli.main`` for both as for CARS (5,120 sessions, dev MAP
-   above the untrained model's).  Every
+   above the untrained model's); then the rankers (``rankers``): ESM,
+   DSSM (also with ``use_charngram``, byte ids [64, 50, 30, 16]), CDSSM,
+   DUET, ARC-I, ARC-II, DRMM and Match-Tensor at their published widths
+   (``MODEL_DEFAULTS``) with the serving vocabulary, emsize, lengths,
+   slate and dtype behind ``Engine`` (``rank_batch`` for 64 requests x 50
+   documents, peak memory read, ``suggest_batch`` refused; a GRU
+   Match-Tensor's ``rank_batch``), 8 Adam steps each on a ragged
+   ``RankBatch`` (the float32 rank-loss reading must fall; ESM's frozen
+   table must not move), checkpoint round trips, and ``cli.main`` for each
+   (Match-Tensor on the 5,120 sessions, the others on the first 1,280;
+   train, validate, test, ``--only_test``; dev MAP above the untrained
+   model's, or kept at the fixture's ceiling where the untrained model
+   already reaches it).  Every
    call runs with every launch count set to 0
    just before it and read just after it and must launch exactly the
    kernels ``PATH_KERNELS`` names (``EXACT_LAUNCHES`` times, where fixed);
@@ -127,9 +143,10 @@ small float32 models card vs CPU), ``kernel6`` (``lstm_precomputed``),
 (seq2seq and ACG serving, train steps, checkpoint round trips and
 ``cli.main``, and the beam-40 CARS Engine), ``multitask`` (the top-k and
 conv timings, M-NSRF and M-MatchTensor serving, train steps, checkpoint
-round trips and ``cli.main``).  Every phase prints its
-seconds.  Such a run prints its kernel rows as a "partial run" line and no
-ok line.
+round trips and ``cli.main``), ``rankers`` (the eight rankers' serving,
+train steps, checkpoint round trips and ``cli.main``).  Every phase prints
+its seconds.  Such a run prints its kernel rows as a "partial run" line and
+no ok line.
 """
 
 from __future__ import annotations
@@ -165,6 +182,10 @@ SHORTLIST = 4096   # suggestion shortlist of the shortlist Engine
 TRAIN_STEPS = 8
 S_REC = 10  # the recommenders' context turns: a flat source of S_REC * LQ
 TIME_CHUNK = 6  # the training pair's time chunk (lstm_fused_train default)
+RANKERS = ("esm", "dssm", "cdssm", "duet", "arci", "arcii", "drmm",
+           "match_tensor")
+# the rankers that run no kernel of the port (Match-Tensor's encoders do)
+KERNEL_FREE_RANKERS = RANKERS[:-1] + ("dssm_charngram",)
 
 
 def log(msg: str) -> None:
@@ -1349,6 +1370,17 @@ PATH_KERNELS = {
        for m in ("mnsrf", "m_match_tensor")},
     **{f"trainer_fit_{m}": ("lstm_fused", "lstm_fused_res", "lstm_fused_bwd")
        for m in ("mnsrf", "m_match_tensor")},
+    # the rankers: Match-Tensor's two encoders through kernel 1 (ranking,
+    # validation) or 4 + 5 (training), 7 with GRUs; the other seven (their
+    # convolutions, match matrices and histograms in PyTorch, as outside
+    # any Pallas kernel in JAX) launch no kernel of the port
+    **{f"{p}_{m}": () for m in KERNEL_FREE_RANKERS
+       for p in ("rank_batch", "train_step", "trainer_fit")},
+    "rank_batch_match_tensor": ("lstm_fused",),
+    "rank_batch_match_tensor_gru": ("gru_fused",),
+    "train_step_match_tensor": ("lstm_fused_res", "lstm_fused_bwd"),
+    "trainer_fit_match_tensor": ("lstm_fused", "lstm_fused_res",
+                                 "lstm_fused_bwd"),
 }
 # exact encoder launches where they are fixed: CARS runs its query and doc
 # encoders (suggest: the clicked docs), two directions each; HRED-QS its
@@ -1373,7 +1405,9 @@ EXACT_LAUNCHES = {
     **{f"suggest_{mode}_{m}": {"lstm_fused": 2} for mode in ("beam5", "greedy")
        for m in ("mnsrf", "m_match_tensor")},
     **{f"train_step_{m}": {"lstm_fused_res": 4, "lstm_fused_bwd": 4}
-       for m in ("mnsrf", "m_match_tensor")},
+       for m in ("mnsrf", "m_match_tensor", "match_tensor")},
+    "rank_batch_match_tensor": {"lstm_fused": 4},
+    "rank_batch_match_tensor_gru": {"gru_fused": 4},
 }
 
 
@@ -1829,8 +1863,10 @@ def train_steps(path: str, cfg, model, batch, steps: int = TRAIN_STEPS,
     """``steps`` Adam steps of ``model`` on one batch, the second one
     counted against PATH_KERNELS[path] / EXACT_LAUNCHES.  The loss must
     fall: the step losses, or ``reading(model, batch)`` before and after
-    the steps where one is given.  Returns (state, step function, launches
-    of the counted step)."""
+    the steps where one is given.  A model with no trainable parameter
+    (ESM's published frozen table) must instead count its steps and move
+    nothing.  Returns (state, step function, launches of the counted
+    step)."""
     from context_attentive_ir_tpu_torch.train import (
         create_train_state,
         make_train_step,
@@ -1840,10 +1876,14 @@ def train_steps(path: str, cfg, model, batch, steps: int = TRAIN_STEPS,
     before = reading(model, batch) if reading else None
     state = create_train_state(model, cfg)
     step = make_train_step(model, cfg)
+    frozen = not any(state.tx.trainable(n) for n in state.params)
+    weights = {n: p.detach().clone() for n, p in state.params.items()
+               } if frozen else None
     log(f"{path}: {type(model).__name__} ({cfg.rnn_type} encoders, "
-        f"{cfg.session_rnn_type} session RNN) with {param_count(state)} "
-        f"parameters, dropout {cfg.dropout}/{cfg.dropout_emb}/"
-        f"{cfg.dropout_rnn}, {cfg.optimizer} lr {cfg.learning_rate}, "
+        f"{cfg.session_rnn_type} session RNN, where it has them) with "
+        f"{param_count(state)} parameters, dropout {cfg.dropout}/"
+        f"{cfg.dropout_emb}/{cfg.dropout_rnn}, {cfg.optimizer} lr "
+        f"{cfg.learning_rate}, "
         f"{cfg.compute_dtype}, B={B}")
     metrics, launches = [], None
     for i in range(steps):
@@ -1859,6 +1899,15 @@ def train_steps(path: str, cfg, model, batch, steps: int = TRAIN_STEPS,
         f"{[round(m['grad_norm'], 4) for m in metrics]}")
     if not all(math.isfinite(v) for m in metrics for v in m.values()):
         raise AssertionError(f"{path}: non-finite loss or grad norm")
+    if frozen:
+        moved = [n for n, p in state.params.items()
+                 if not torch.equal(p.detach(), weights[n])]
+        log(f"{path}: no trainable parameter: count "
+            f"{state.opt_state['count']}, parameters moved {moved}")
+        if state.step != steps or moved:
+            raise AssertionError(f"{path}: the frozen model's steps "
+                                 "misbehaved")
+        return state, step, launches
     first, last = losses[0], losses[-1]
     if reading:
         first, last = before, reading(model, batch)
@@ -2365,12 +2414,172 @@ def multitask_paths(ckpt_dir: str) -> tuple[dict, dict]:
     return launches, train_ms
 
 
+# -- the rankers -------------------------------------------------------------
+
+RANKER_SESSIONS = 1280   # the rankers but Match-Tensor train on these
+WORD_LEN = 16            # constants.MAX_WORD_LEN: DSSM's use_charngram
+
+
+def ranker_config(model_type: str, train: bool = False, **kw):
+    """A ranker at its published widths (``MODEL_DEFAULTS``: DSSM's tower
+    300, CDSSM's 300 filters, ...), with the serving vocabulary, emsize,
+    lengths, slate and dtype: dropout 0 for serving, the ModelConfig
+    defaults with ``train``; ``kw`` replaces fields."""
+    from context_attentive_ir_tpu_torch.config import default_config
+
+    cfg = default_config(model_type).replace(**{
+        "vocab_size": VOCAB, "emsize": EMSIZE, "max_query_len": LQ,
+        "max_doc_len": LD, "max_session_len": S, "num_candidates": N,
+        "compute_dtype": "bfloat16", **kw})
+    if not train:
+        cfg = cfg.replace(dropout=0.0, dropout_emb=0.0, dropout_rnn=0.0)
+    return cfg
+
+
+def random_rank_batch(rng, b=B, n=N, lq=LQ, ld=LD, vocab=VOCAB,
+                      word_len=0):
+    """A ragged numpy RankBatch of random ids: 1..Lq query tokens, 1..N
+    candidates (the rest empty slots) of 0..Ld tokens, one click on a valid
+    candidate in most rows (the others none), the last row padded; with
+    ``word_len``, random byte ids."""
+    from context_attentive_ir_tpu_torch.data.vectorize import RankBatch
+
+    def ids(shape):
+        return rng.randint(4, vocab, size=shape).astype(np.int32)
+
+    def lengths(shape, lo, hi):
+        return np.arange(hi)[None] < rng.randint(lo, hi + 1, size=shape)[
+            ..., None]
+
+    cand_mask = lengths((b,), 1, n)
+    clicked = rng.randint(0, n, size=b)
+    labels = np.zeros((b, n), np.float32)
+    has = (rng.rand(b) < 0.85) & cand_mask[np.arange(b), clicked]
+    labels[np.arange(b), clicked] = has
+    chars = (lambda shape: rng.randint(4, 260, size=(*shape, word_len))
+             .astype(np.int32)) if word_len else (lambda shape: None)
+    return RankBatch(
+        query=ids((b, lq)), query_mask=lengths((b,), 1, lq),
+        docs=ids((b, n, ld)),
+        doc_mask=lengths((b, n), 0, ld) & cand_mask[..., None],
+        labels=labels, cand_mask=cand_mask, row_mask=np.arange(b) < b - 1,
+        query_chars=chars((b, lq)), doc_chars=chars((b, n, ld)))
+
+
+def rank_loss_f32(model, batch) -> float:
+    """The listwise rank loss of a model's scores with dropout off, the
+    scores taken to float32 first (bf16 reads the loss in steps of 0.03
+    near ln 50)."""
+    from context_attentive_ir_tpu_torch.models.losses import rank_loss
+
+    with torch.no_grad():
+        return float(rank_loss("listwise", model(batch).float(),
+                               batch.labels, batch.cand_mask,
+                               batch.row_mask))
+
+
+def ranker_paths(ckpt_dir: str) -> tuple[dict, dict]:
+    """The eight rankers at their published widths (``ranker_config``),
+    B = 64 requests of one query and a 50-document slate: ``rank_batch``
+    counted (Match-Tensor launches kernel 1 four times, the others no
+    kernel of the port), walled, profiled, its peak memory read, and
+    ``suggest_batch`` refused; DSSM also with ``use_charngram`` (byte ids
+    [64, 50, 30, 16]); 8 Adam steps each on a ragged RankBatch at the
+    ModelConfig dropouts (the float32 rank-loss reading must fall; ESM's
+    frozen table must not move); a checkpoint -> ``Engine.from_checkpoint``
+    round trip with equal scores; a GRU Match-Tensor's ``rank_batch``
+    (kernel 7 four times).  Returns ({path: launches}, {path: train step
+    ms})."""
+    from context_attentive_ir_tpu_torch.models import build_model
+    from context_attentive_ir_tpu_torch.serve import Engine, ServeError
+    from context_attentive_ir_tpu_torch.train import Checkpointer
+
+    word_dict = synthetic_dictionary(VOCAB)
+    reqs, hists = requests(np.random.RandomState(0), word_dict, B)
+    launches, train_ms, summary = {}, {}, {}
+    variants = [(m, m, {}) for m in RANKERS]
+    variants.insert(2, ("dssm_charngram", "dssm", {"use_charngram": True}))
+    variants.append(("match_tensor_gru", "match_tensor",
+                     {"rnn_type": "gru"}))
+    for name, model_type, kw in variants:
+        t_model = time.perf_counter()
+        cfg = ranker_config(model_type, **kw)
+        path = f"rank_batch_{name}"
+        with torch.inference_mode():
+            params = build_model(cfg, device="cuda", seed=0).state_dict()
+            eng = Engine(cfg, word_dict, params, batch_bucket=B)
+            t = time.perf_counter()
+            (scores, launches[path]), peak, base = memory_peak(
+                lambda: counted(path, lambda: eng.rank_batch(reqs)))
+            first = (time.perf_counter() - t) * 1e3
+            if len(scores) != B or any(len(x) != N for x in scores):
+                raise AssertionError(f"{path} returned the wrong shape")
+            if not np.isfinite(np.asarray(scores)).all():
+                raise AssertionError(f"{path} returned non-finite scores")
+            try:
+                eng.suggest_batch(hists[:1])
+            except ServeError as err:
+                refusal = str(err)
+            else:
+                raise AssertionError(f"{name} suggested")
+            calls = ((path, lambda: eng.rank_batch(reqs)),)
+            walls = steady_walls(calls)
+            log(f"{name}: {sum(p.numel() for p in params.values())} "
+                f"parameters; launches {json.dumps(launches[path])}; "
+                f"first-call wall {first:.1f} ms, steady {walls[path]}; peak "
+                f"MiB allocated {peak:.0f} (weights and engine {base:.0f}); "
+                f"suggest_batch refused: {refusal}")
+            summary[path] = {"walls_ms": [round(x, 1) for x in walls[path]],
+                             "peak_mib": round(peak)}
+            where_time_goes(path, calls[0][1])
+        del eng, params
+        if name == "match_tensor_gru":
+            continue
+
+        path = f"train_step_{name}"
+        tcfg = ranker_config(model_type, train=True, **kw)
+        model = build_model(tcfg, device="cuda", seed=0)
+        batch = random_rank_batch(
+            np.random.RandomState(12),
+            word_len=WORD_LEN if tcfg.use_charngram else 0).to("cuda")
+        state, step, launches[path] = train_steps(path, tcfg, model, batch,
+                                                  reading=rank_loss_f32)
+        _, peak_mib, base = memory_peak(lambda: step(state, batch, 1))
+        where_time_goes(path, lambda: step(state, batch, 1))
+        train_ms[path] = timed_ms(lambda: step(state, batch, 1), iters=5,
+                                  warmup=1)
+        summary[path] = {"ms": round(train_ms[path], 2),
+                         "peak_mib": round(peak_mib)}
+        ckpt = Checkpointer(ckpt_dir, name)
+        ckpt.save_latest(state, tcfg, word_dict, {"step": state.step})
+        ckpt.wait()
+        with torch.inference_mode():
+            got = Engine.from_checkpoint(ckpt.latest_path,
+                                         batch_bucket=8).rank_batch(reqs[:8])
+            want = Engine(tcfg, word_dict, model.state_dict(),
+                          batch_bucket=8).rank_batch(reqs[:8])
+        log(f"{name} checkpoint -> Engine.from_checkpoint: rank_batch for 8 "
+            f"requests equal to the in-memory Engine's: {got == want}; train "
+            f"step peak MiB {peak_mib:.0f} (weights and optimizer state "
+            f"{base:.0f})")
+        if got != want:
+            raise AssertionError(f"{name} Engine.from_checkpoint differs")
+        del model, state, step, batch
+        torch.cuda.empty_cache()
+        log(f"{name}: serving, training and the round trip "
+            f"{time.perf_counter() - t_model:.1f} s")
+    log(f"rankers (B={B}, N={N}): {json.dumps(summary)}")
+    return launches, train_ms
+
+
 # (model type, encoders, tied generator) of the small card-vs-CPU checks
 SMALL_MODELS = (("cars", "lstm", True), ("cars", "gru", True),
                 ("hredqs", "gru", True), ("seq2seq", "lstm", True),
                 ("acg", "gru", True), ("cars", "lstm", False),
                 ("mnsrf", "lstm", True), ("mnsrf", "gru", True),
-                ("m_match_tensor", "lstm", True))
+                ("m_match_tensor", "lstm", True),
+                *((m, "lstm", True) for m in RANKERS),
+                ("match_tensor", "gru", True))
 SMALL_DIMS = dict(vocab_size=300, emsize=32, nhid=16, nhid_ffnn=32,
                   max_query_len=8, max_doc_len=12, max_session_len=3,
                   num_candidates=8, dropout=0.0, dropout_emb=0.0,
@@ -2403,11 +2612,13 @@ def small_requests(word_dict) -> tuple[list, list]:
 def small_model_check() -> None:
     """Small float32 models -- CARS with LSTMs, CARS with GRUs, HRED-QS
     with GRUs, seq2seq, ACG (its copy mixture), CARS with an untied
-    generator, M-NSRF with LSTMs and with GRUs, and M-MatchTensor (its
-    convolutions in cuDNN, TF32 off): each ``Engine`` on the card (kernel 1
-    or 7, kernel 2 for tied CARS) must agree with the same ``Engine`` on the CPU (plain
-    versions), and one SGD train step of each on the card (kernels 4/5 or
-    8/9) with the same step on the CPU, on ragged batches.  SGD keeps the
+    generator, M-NSRF with LSTMs and with GRUs, M-MatchTensor (its
+    convolutions in cuDNN, TF32 off), and the eight rankers (Match-Tensor
+    also with GRUs; their ``rank_batch`` only): each ``Engine`` on the
+    card (kernel 1 or 7, kernel 2 for tied CARS) must agree with the same
+    ``Engine`` on the CPU (plain versions), and one SGD train step of each
+    on the card (kernels 4/5 or 8/9) with the same step on the CPU, on
+    ragged batches.  SGD keeps the
     update linear in the gradient, so a float32 rounding difference in a
     near-zero gradient element cannot flip an Adam step's sign and the
     parameters compare as tightly as the gradients."""
@@ -2421,26 +2632,28 @@ def small_model_check() -> None:
     word_dict = synthetic_dictionary(SMALL_DIMS["vocab_size"])
     reqs, hists = small_requests(word_dict)
     for model_type, rnn, tie in SMALL_MODELS:
-        multitask = task_family(model_type) == "multitask"
+        family = task_family(model_type)
         cfg = small_config(model_type, rnn, tie)
         params = build_model(cfg, device="cpu", seed=1).state_dict()
         if not tie:
             rnn = f"{rnn}, untied"
-        for beam in (3, 1):
+        for beam in ((3, 1) if family != "ranker" else (1,)):
             gpu = Engine(cfg, word_dict, params, beam_size=beam,
                          batch_bucket=4)
             cpu = Engine(cfg, word_dict, params, beam_size=beam,
                          batch_bucket=4, device="cpu")
-            err = 0.0
-            if multitask:
+            err = s_err = 0.0
+            same = True
+            if family != "recommender":
                 rg, rc = gpu.rank_batch(reqs), cpu.rank_batch(reqs)
                 err = max(abs(a - b) for x, y in zip(rg, rc)
                           for a, b in zip(x, y))
-            sg, sc = gpu.suggest_batch(hists), cpu.suggest_batch(hists)
-            same = ([[t for t, _ in nb] for nb in sg]
-                    == [[t for t, _ in nb] for nb in sc])
-            s_err = max(abs(a[1] - b[1]) for x, y in zip(sg, sc)
-                        for a, b in zip(x, y))
+            if family != "ranker":
+                sg, sc = gpu.suggest_batch(hists), cpu.suggest_batch(hists)
+                same = ([[t for t, _ in nb] for nb in sg]
+                        == [[t for t, _ in nb] for nb in sc])
+                s_err = max(abs(a[1] - b[1]) for x, y in zip(sg, sc)
+                            for a, b in zip(x, y))
             log(f"small f32 {model_type} ({rnn}) Engine, beam {beam}: card vs "
                 f"CPU rank max abs err {err:.3e} (tol 1e-4), suggestions "
                 f"identical={same}, score max abs err {s_err:.3e} (tol "
@@ -2450,9 +2663,12 @@ def small_model_check() -> None:
                                      "disagrees with the CPU Engine")
 
         tcfg = cfg.replace(optimizer="sgd", learning_rate=0.1)
-        if multitask:
+        if family == "multitask":
             batch = random_session_batch(np.random.RandomState(3), 6, 3, 8,
                                          8, 12, 300, ragged=True)
+        elif family == "ranker":
+            batch = random_rank_batch(np.random.RandomState(3), 6, 8, 8, 12,
+                                      300)
         else:
             batch = random_suggest_batch(np.random.RandomState(3), 6, 3, 8,
                                          300)
@@ -2467,7 +2683,9 @@ def small_model_check() -> None:
                          model.named_parameters()})
         (mc, pc), (mg, pg) = res["cpu"], res["cuda"]
         loss_rel = abs(mg["loss"] - mc["loss"]) / abs(mc["loss"])
-        norm_rel = abs(mg["grad_norm"] - mc["grad_norm"]) / mc["grad_norm"]
+        # ESM's published table is frozen: a grad_norm of 0 on both
+        norm_rel = (abs(mg["grad_norm"] - mc["grad_norm"])
+                    / (mc["grad_norm"] or 1.0))
         p_err = max(float((pg[n] - pc[n]).abs().max()) for n in pc)
         log(f"small f32 {model_type} ({rnn}) train step, card vs CPU: loss rel "
             f"err {loss_rel:.2e} (tol 1e-5), grad_norm rel err "
@@ -2533,35 +2751,43 @@ def precomputed_path() -> dict:
 FIT_TOPICS, FIT_WORDS = 1250, 40   # a 50,000-word vocabulary
 FIT_SESSIONS = {"train": 5120, "dev": 256, "test": 64}
 FIT_EPOCHS = {"cars": 2, "hredqs": 2, "seq2seq": 2, "acg": 2, "mnsrf": 2,
-              "m_match_tensor": 2}
+              "m_match_tensor": 2, **{m: 2 for m in RANKERS}}
 MULTITASK = ("cars", "mnsrf", "m_match_tensor")
 HRED_SESSIONS = 1280   # the recommenders train on the first sessions
+MAP_CEILING = 0.99     # an untrained dev MAP at or above it has no room
 TIMED_STEPS, PROFILED_STEPS = 20, 10
 
 
 def fit_args(model_type: str, files: dict, run_dir: str, *extra) -> list:
-    """The command line of one ``cli.main`` run at the serving widths."""
+    """The command line of one ``cli.main`` run at the serving widths (a
+    ranker at its published widths, ``MODEL_DEFAULTS``)."""
+    ranker = model_type in RANKERS
+    widths = [] if ranker else ["--nhid", str(NHID), "--nhid_ffnn",
+                                str(NHID_FFNN)]
     args = ["--model_type", model_type, "--model_dir", run_dir,
             "--model_name", f"{model_type}_fit", "--batch_size", str(B),
-            "--test_batch_size", str(B), "--emsize", str(EMSIZE), "--nhid",
-            str(NHID), "--nhid_ffnn", str(NHID_FFNN), "--max_query_len",
-            str(LQ), "--max_doc_len", str(LD), "--max_session_len", str(S),
-            "--num_candidates", str(N), "--compute_dtype", "bfloat16",
-            "--beam_size", str(BEAM), "--display_iter", "5",
-            "--test_file", str(files["test"])]
+            "--test_batch_size", str(B), "--emsize", str(EMSIZE), *widths,
+            "--max_query_len", str(LQ), "--max_doc_len", str(LD),
+            "--max_session_len", str(S), "--num_candidates", str(N),
+            "--compute_dtype", "bfloat16", "--beam_size", str(BEAM),
+            "--display_iter", "5", "--test_file", str(files["test"])]
     if model_type == "hredqs":
         args += ["--rnn_type", "gru", "--session_rnn_type", "gru"]
-    if model_type not in MULTITASK:
+    if ranker:
+        if model_type != "match_tensor":
+            args += ["--max_examples", str(RANKER_SESSIONS)]
+    elif model_type not in MULTITASK:
         args += ["--valid_metric", "bleu-1", "--max_examples",
                  str(HRED_SESSIONS)]
     return args + list(extra)
 
 
-def trainer_path(model_type: str, files: dict, run_dir: str) -> dict:
+def trainer_path(model_type: str, files: dict, run_dir: str,
+                 resume: bool = True) -> dict:
     """``cli.main.main`` at full width for ``model_type``: train with
-    per-epoch official validation, test, ``--only_test``, ``--resume`` for
-    one more epoch; then the Trainer's parts timed on the resumed state.
-    Returns the counted launches of the training run."""
+    per-epoch official validation, test, ``--only_test``; with ``resume``,
+    ``--resume`` for one more epoch, then the Trainer's parts timed on the
+    resumed state.  Returns the counted launches of the training run."""
     from context_attentive_ir_tpu_torch.cli.main import (
         build_parser,
         main as cli_main,
@@ -2569,10 +2795,15 @@ def trainer_path(model_type: str, files: dict, run_dir: str) -> dict:
     )
     from context_attentive_ir_tpu_torch.constants import EOS
     from context_attentive_ir_tpu_torch.data import prefetch
+    from context_attentive_ir_tpu_torch.models import task_family
     from context_attentive_ir_tpu_torch.train.trainer import make_iterator
 
     # the multitask family trains on whole sessions and validates on MAP
-    mt = model_type in MULTITASK
+    # and BLEU, a ranker on (query, slate) rows and MAP, a recommender on
+    # (context, next query) pairs and BLEU
+    family = task_family(model_type)
+    mt = family == "multitask"
+    ranks, suggests = family != "recommender", family != "ranker"
     path = "trainer_fit" if model_type == "cars" else (
         f"trainer_fit_{model_type}")
     epochs = FIT_EPOCHS[model_type]
@@ -2593,6 +2824,9 @@ def trainer_path(model_type: str, files: dict, run_dir: str) -> dict:
     trainer.init_state()
     untrained = trainer.validate(dev_of(trainer, dev_s))
     vocab = len(trainer.word_dict)
+    # ESM's published table is frozen: its model has nothing to train
+    n_trainable = sum(p.numel() for n, p in trainer.state.params.items()
+                      if trainer.state.tx.trainable(n))
     del trainer
     torch.cuda.empty_cache()
 
@@ -2623,53 +2857,71 @@ def trainer_path(model_type: str, files: dict, run_dir: str) -> dict:
     else:
         from context_attentive_ir_tpu_torch.data import (
             load_data,
+            rank_examples,
             suggest_examples,
         )
 
-        n_ex = len(suggest_examples(load_data(files["train"], LQ, LD, N, S,
-                                              HRED_SESSIONS)))
+        examples = rank_examples if ranks else suggest_examples
+        n_ex = len(examples(load_data(
+            files["train"], LQ, LD, N, S,
+            -1 if model_type == "match_tensor" else
+            RANKER_SESSIONS if ranks else HRED_SESSIONS)))
         steps = epochs * -(-n_ex // B)
-    fwd, res_k, bwd = PATH_KERNELS[path]
-    per_step = 4 if mt else 2   # encoders x directions
-    if (launches[res_k], launches[bwd]) != (per_step * steps,) * 2:
-        raise AssertionError(f"{path}: {launches[res_k]} / {launches[bwd]} "
-                             f"training-pair launches, not {per_step} a step "
-                             f"for {steps} steps")
-    if len(hist) != epochs or not hist[-1]["train_loss"] < hist[0][
-            "train_loss"]:
+    if PATH_KERNELS[path]:
+        fwd, res_k, bwd = PATH_KERNELS[path]
+        per_step = 2 if family == "recommender" else 4  # encoders x dirs
+        if (launches[res_k], launches[bwd]) != (per_step * steps,) * 2:
+            raise AssertionError(
+                f"{path}: {launches[res_k]} / {launches[bwd]} training-pair "
+                f"launches, not {per_step} a step for {steps} steps")
+    if len(hist) != epochs or (n_trainable and not hist[-1]["train_loss"]
+                               < hist[0]["train_loss"]):
         raise AssertionError(f"{path}: the epoch train loss did not fall")
     if not all(math.isfinite(v) for h in hist + [test] for v in h.values()):
         raise AssertionError(f"{path}: non-finite metrics")
-    want = {"bleu-1", "bleu-4", "rouge-l"} | ({"map", "mrr", "ndcg@10"}
-                                              if mt else set())
+    want = (({"bleu-1", "bleu-4", "rouge-l"} if suggests else set())
+            | ({"map", "mrr", "ndcg@10"} if ranks else set()))
     if not want <= set(hist[-1]) or not want <= set(test):
         raise AssertionError(f"{path}: metric columns missing: "
                              f"{sorted(hist[-1])}")
-    if mt and not hist[-1]["map"] > untrained["map"]:
-        raise AssertionError(f"{path}: dev MAP {hist[-1]['map']} not above "
-                             f"the untrained model's {untrained['map']}")
-    dumps = [f"{name}.test.hyps.jsonl"] + ([f"{name}.test.ranks.jsonl"]
-                                           if mt else [])
+    # dev MAP must rise above the untrained model's; where the untrained
+    # model already ranks at the fixture's ceiling (ESM, DSSM: the clicked
+    # documents repeat the query's words, and a mean embedding keeps that)
+    # it must stay there
+    if ranks and n_trainable:
+        if untrained["map"] >= MAP_CEILING:
+            if not hist[-1]["map"] >= MAP_CEILING:
+                raise AssertionError(
+                    f"{path}: dev MAP {hist[-1]['map']} fell below "
+                    f"{MAP_CEILING} from the untrained {untrained['map']}")
+        elif not hist[-1]["map"] > untrained["map"]:
+            raise AssertionError(f"{path}: dev MAP {hist[-1]['map']} not "
+                                 f"above the untrained model's "
+                                 f"{untrained['map']}")
+    dumps = (([f"{name}.test.hyps.jsonl"] if suggests else [])
+             + ([f"{name}.test.ranks.jsonl"] if ranks else []))
     for f in (f"{name}.mdl", f"{name}.mdl.checkpoint", *dumps):
         if not (runs / f).exists():
             raise AssertionError(f"{path}: {f} was not written")
     if not all((runs / f).read_text().strip() for f in dumps):
         raise AssertionError(f"{path}: an empty prediction dump")
 
-    key = "map" if mt else "bleu-1"
+    key = "map" if ranks else "bleu-1"
     retest = cli_main(fit_args(model_type, files, run_dir, "--only_test"))
     log(f"{path}: --only_test {key} {retest['test'][key]} == the run's "
         f"{test[key]}: {retest['test'][key] == test[key]}")
     if retest["test"] != test:
         raise AssertionError(f"{path}: --only_test does not reproduce the "
                              "test metrics")
+    if not resume:
+        return {path: launches}
 
     # a resumed run of one more epoch (cli.main's own steps, keeping its
     # Trainer for the timings below)
-    resume = fit_args(model_type, files, run_dir, *train, "--resume",
-                      "--num_epochs", str(epochs + 1))
+    resume_argv = fit_args(model_type, files, run_dir, *train, "--resume",
+                           "--num_epochs", str(epochs + 1))
     _, run, trainer, train_s, dev_s, _ = prepare(
-        build_parser().parse_args(resume))
+        build_parser().parse_args(resume_argv))
     more = trainer.fit(train_s, dev_s)["history"]
     log(f"{path}: --resume for one more epoch continued at epoch "
         f"{[h['epoch'] for h in more]} (train_loss "
@@ -2684,23 +2936,26 @@ def trainer_path(model_type: str, files: dict, run_dir: str) -> dict:
     t = time.perf_counter()
     trainer.validate(dev_batches)
     valid_s = time.perf_counter() - t
-    dec = trainer.decode_fn
-    dec.calls = dec.steps = 0
-    done = rows = 0
-    for b in dev_batches:
-        seqs = dec(b)
-        if mt:
-            valid = (b.target_mask.any(-1) & b.row_mask[:, None]).reshape(-1)
-        else:
-            valid = b.row_mask
-        rows += int(valid.sum())
-        done += int((seqs[valid] == EOS).any(-1).sum())
     log(f"{path}: validation of {len(dev_s)} dev sessions "
-        f"({len(dev_batches)} batches) {valid_s:.3f} s; beam-{BEAM} decode "
-        f"with early exit: {done}/{rows} hypotheses ended in EOS before "
-        f"max_len ({done / max(rows, 1):.3f}), mean decode steps "
-        f"{dec.steps / max(dec.calls, 1):.2f} of {LQ + 1}, "
-        f"decode_init_full fallbacks {dec.fallbacks}")
+        f"({len(dev_batches)} batches) {valid_s:.3f} s")
+    dec = trainer.decode_fn
+    if suggests:
+        dec.calls = dec.steps = 0
+        done = rows = 0
+        for b in dev_batches:
+            seqs = dec(b)
+            if mt:
+                valid = (b.target_mask.any(-1)
+                         & b.row_mask[:, None]).reshape(-1)
+            else:
+                valid = b.row_mask
+            rows += int(valid.sum())
+            done += int((seqs[valid] == EOS).any(-1).sum())
+        log(f"{path}: beam-{BEAM} decode with early exit: {done}/{rows} "
+            f"hypotheses ended in EOS before max_len "
+            f"({done / max(rows, 1):.3f}), mean decode steps "
+            f"{dec.steps / max(dec.calls, 1):.2f} of {LQ + 1}, "
+            f"decode_init_full fallbacks {dec.fallbacks}")
 
     collate = {}
     for pack in (True, False):
@@ -2731,12 +2986,12 @@ def trainer_path(model_type: str, files: dict, run_dir: str) -> dict:
     loop(n)
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t
-    slots = B * S * N if mt else B
+    slots = B * S * N if mt else B * N if ranks else B
     log(f"{path}: {n} steps of the Trainer's loop (prefetch "
         f"{run.prefetch_batches}, pack_cache {run.pack_cache}; an epoch has "
         f"{n_epoch}): {loop_s:.3f} s = {loop_s / n * 1e3:.1f} ms a step -> "
         f"{n * slots / loop_s:.0f} trained "
-        f"{'docs' if mt else 'examples'}/s")
+        f"{'docs' if ranks else 'examples'}/s")
     n = min(PROFILED_STEPS, n_epoch)
     where_time_goes(f"{path} training loop ({n} steps)", lambda: loop(n))
     where_time_goes(f"{path} validation", lambda: trainer.validate(
@@ -2746,31 +3001,56 @@ def trainer_path(model_type: str, files: dict, run_dir: str) -> dict:
     return {path: launches}
 
 
-def trainer_paths(tmp: str, model_types=("cars", "hredqs"),
-                  sessions=FIT_SESSIONS) -> dict:
-    """Seeded AOL-scale fixtures (50,000 words, sessions of 2..S turns, N
-    candidates; ``sessions`` per file) under ``tmp``, then ``trainer_path``
-    for each of ``model_types``."""
+def fit_files(fixture_dir: str) -> dict:
+    """The seeded AOL-scale fixtures of every ``cli.main`` run (50,000
+    words, sessions of 2..S turns, N candidates, ``FIT_SESSIONS`` per
+    file), written under ``fixture_dir`` by the first caller and shared by
+    the later ones (a run with ``--max_examples`` reads the first
+    sessions)."""
     from context_attentive_ir_tpu_torch.data.synthetic import (
         write_aol_scale_fixture,
     )
 
-    t = time.perf_counter()
-    files = {name: write_aol_scale_fixture(
-        Path(tmp) / f"{name}.jsonl", n_sessions=n, n_topics=FIT_TOPICS,
-        words_per_topic=FIT_WORDS, min_turns=2, max_turns=S, n_candidates=N,
-        seed=20 + i) for i, (name, n) in enumerate(sessions.items())}
-    log(f"trainer fixtures {sessions} written in "
-        f"{time.perf_counter() - t:.1f} s")
-    launches = {}
+    files = {name: Path(fixture_dir) / f"{name}.jsonl"
+             for name in FIT_SESSIONS}
+    if not all(f.exists() for f in files.values()):
+        t = time.perf_counter()
+        for i, (name, n) in enumerate(FIT_SESSIONS.items()):
+            write_aol_scale_fixture(
+                files[name], n_sessions=n, n_topics=FIT_TOPICS,
+                words_per_topic=FIT_WORDS, min_turns=2, max_turns=S,
+                n_candidates=N, seed=20 + i)
+        log(f"trainer fixtures {FIT_SESSIONS} written in "
+            f"{time.perf_counter() - t:.1f} s")
+    return files
+
+
+def trainer_paths(tmp: str, fixture_dir: str,
+                  model_types=("cars", "hredqs"), resumed=None) -> dict:
+    """``trainer_path`` under ``tmp`` for each of ``model_types`` on the
+    fixtures of ``fit_files(fixture_dir)`` (with ``--resume`` and the
+    timings for those in ``resumed``; None: all)."""
+    files = fit_files(fixture_dir)
+    launches, failed = {}, []
     for model_type in model_types:
-        launches.update(trainer_path(model_type, files,
-                                     str(Path(tmp) / "runs")))
+        # every model runs; a failed check fails the phase at its end
+        try:
+            t = time.perf_counter()
+            launches.update(trainer_path(
+                model_type, files, str(Path(tmp) / "runs"),
+                resume=resumed is None or model_type in resumed))
+            log(f"trainer_path {model_type}: "
+                f"{time.perf_counter() - t:.1f} s")
+        except AssertionError as err:
+            log(f"FAILED {model_type}: {err}")
+            failed.append(str(err))
     # cli.main's log handlers (stdout, a file under tmp) end with the phase
     root = logging.getLogger()
     for h in list(root.handlers):
         root.removeHandler(h)
         h.close()
+    if failed:
+        raise AssertionError("; ".join(failed))
     return launches
 
 
@@ -3165,7 +3445,7 @@ EARLIER_MS = {"lstm_fused": 11.269, "lstm_fused_res": 11.256,
 # other phase.
 PHASES = ("kernels", "lstm", "grukernels", "beamkernels", "slatekernels",
           "serving", "train", "indexed", "gru", "small", "kernel6",
-          "trainer", "recommenders", "multitask")
+          "trainer", "recommenders", "multitask", "rankers")
 SHARES = {"lstm", "grukernels", "beamkernels", "slatekernels"}
 
 
@@ -3283,15 +3563,23 @@ def main() -> int:
     if "kernel6" in run:
         with torch.inference_mode():
             launches.update(phase("kernel6", precomputed_path))
+    # the cli.main phases share one set of fixtures; the default run keeps
+    # --resume and the Trainer's timings for CARS alone (its time limit), a
+    # phase run alone keeps them for each of its models but the rankers
+    fixture_dir = tempfile.TemporaryDirectory()
+
+    def resumed(*model_types):
+        return model_types if full else None
+
     if "trainer" in run:
         with tempfile.TemporaryDirectory() as tmp:
-            launches.update(phase("trainer", lambda: trainer_paths(tmp)))
+            launches.update(phase("trainer", lambda: trainer_paths(
+                tmp, fixture_dir.name, resumed=resumed("cars"))))
     if "recommenders" in run:
         def recommenders(tmp):
             rec_launches, ms = recommender_paths(tmp)
-            rec_launches.update(trainer_paths(
-                tmp, ("seq2seq", "acg"),
-                {**FIT_SESSIONS, "train": HRED_SESSIONS}))
+            rec_launches.update(trainer_paths(tmp, fixture_dir.name,
+                                              ("seq2seq", "acg"), resumed()))
             return rec_launches, ms
         with tempfile.TemporaryDirectory() as tmp:
             rec_launches, ms = phase("recommenders",
@@ -3303,13 +3591,27 @@ def main() -> int:
             topk_check(gen)
             conv_layouts(gen)
             mt_launches, ms = multitask_paths(tmp)
-            mt_launches.update(trainer_paths(tmp, ("mnsrf",
-                                                   "m_match_tensor")))
+            mt_launches.update(trainer_paths(
+                tmp, fixture_dir.name, ("mnsrf", "m_match_tensor"),
+                resumed()))
             return mt_launches, ms
         with tempfile.TemporaryDirectory() as tmp:
             mt_launches, ms = phase("multitask", lambda: multitask(tmp))
             launches.update(mt_launches)
             train_ms.update(ms)
+    if "rankers" in run:
+        def rankers(tmp):
+            rk_launches, ms = ranker_paths(tmp)
+            # Match-Tensor on the 5,120 sessions, the other seven on the
+            # first RANKER_SESSIONS; train, validate, test, --only_test
+            rk_launches.update(trainer_paths(tmp, fixture_dir.name, RANKERS,
+                                             resumed=()))
+            return rk_launches, ms
+        with tempfile.TemporaryDirectory() as tmp:
+            rk_launches, ms = phase("rankers", lambda: rankers(tmp))
+            launches.update(rk_launches)
+            train_ms.update(ms)
+    fixture_dir.cleanup()
 
     bf16 = torch.bfloat16
     kernels = []

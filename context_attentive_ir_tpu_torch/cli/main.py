@@ -4,8 +4,9 @@ Port of ``context_attentive_ir_tpu/cli/main.py``, same flags: argparse CLI,
 seed setup, data loading, vocabulary building (optionally restricted to the
 embedding file's words), init-or-resume, epoch loop with validation and
 early stopping, final official test eval, prediction dumps.  One entry point
-serves every task family (derived from ``--model_type``); a model type the
-port does not have yet raises ``NotImplementedError``.
+serves every task family (derived from ``--model_type``) and every model of
+the JAX zoo; an unknown model type raises ``ValueError`` before anything is
+written.
 
 Runs on the card unless ``--device cpu`` (or ``main(argv, device="cpu")``)
 asks for the CPU.
@@ -39,7 +40,6 @@ from ..data import (
     load_embedding_words,
     load_embeddings,
 )
-from ..models import get_model_class
 from ..train import Checkpointer, Trainer
 from ..utils import setup_logging
 
@@ -89,7 +89,6 @@ def prepare(args, device="cuda"
     run = run_config_from_args(args)
     model_type = args.model_type or "cars"
     config = config_from_args(args, default_config(model_type))
-    get_model_class(model_type)   # raises for a model that is not ported
 
     setup_logging(Path(run.model_dir) / f"{run.model_name}.txt")
 

@@ -8,8 +8,8 @@ and case folding.
 Design: a plain Python object used only on the host side of the input
 pipeline.  Device code never sees strings -- only the integer id tensors the
 vectorizer emits.  A copy of ``context_attentive_ir_tpu/data/dictionary.py``
-(without the character dictionary, which no ported model uses yet), so the
-port reads the same ``to_json`` blobs.
+(with its byte-level ``CharDictionary``), so the port reads the same
+``to_json`` blobs.
 """
 
 from __future__ import annotations
@@ -144,3 +144,19 @@ def build_dictionary(
             break
     return d
 
+
+class CharDictionary:
+    """Byte-level character vocabulary for the char-CNN word vectors
+    (DSSM's ``use_charngram``): a word's UTF-8 bytes offset past the special
+    ids, cut or padded with PAD to a fixed length.  Closed-world (no OOV
+    characters), so shapes stay static."""
+
+    def __init__(self):
+        self.offset = len(SPECIAL_TOKENS)
+
+    def __len__(self) -> int:
+        return 256 + self.offset
+
+    def encode_word(self, word: str, max_len: int) -> list[int]:
+        ids = [b + self.offset for b in word.encode("utf-8")[:max_len]]
+        return ids + [PAD] * (max_len - len(ids))

@@ -38,14 +38,20 @@ _SENTINEL = object()
 
 
 def _map_fields(fn, batch):
-    """``fn`` over every array of a batch dataclass, as a new batch."""
-    return type(batch)(**{f.name: fn(getattr(batch, f.name))
+    """``fn`` over every array of a batch dataclass, as a new batch; a
+    ``None`` field (a ``RankBatch`` without character ids) stays ``None``,
+    as ``jax.tree.map`` skips it."""
+    def apply(a):
+        return None if a is None else fn(a)
+
+    return type(batch)(**{f.name: apply(getattr(batch, f.name))
                           for f in dataclasses.fields(batch)})
 
 
 def _nbytes(batch) -> int:
-    return sum(getattr(batch, f.name).nbytes
-               for f in dataclasses.fields(batch))
+    return sum(a.nbytes for a in (getattr(batch, f.name)
+                                  for f in dataclasses.fields(batch))
+               if a is not None)
 
 
 def prefetch(batches: Iterable[B], depth: int = 2) -> Iterator[B]:

@@ -1,12 +1,12 @@
 """Vectorization: object graph -> static-shape numpy batches.
 
 The port of the Python path of ``context_attentive_ir_tpu/data/vectorize.py``
-for the multitask and recommender families: every batch is padded to a
-fixed ``ShapeConfig`` and bool masks carry the true lengths, so the port
-sees exactly the id tensors the JAX package builds.  ``SessionBatch`` (one
-whole session per row) and ``SuggestBatch`` (one session prefix and its
-next query per row) are plain dataclasses of numpy arrays; their ``to``
-moves them onto a torch device.
+for the three families: every batch is padded to a fixed ``ShapeConfig``
+and bool masks carry the true lengths, so the port sees exactly the id
+tensors the JAX package builds.  ``RankBatch`` (one query and its slate per
+row, for the rankers), ``SuggestBatch`` (one session prefix and its next
+query per row) and ``SessionBatch`` (one whole session per row) are plain
+dataclasses of numpy arrays; their ``to`` moves them onto a torch device.
 """
 
 from __future__ import annotations
@@ -23,11 +23,14 @@ from ..constants import (
     MAX_DOC_LEN,
     MAX_QUERY_LEN,
     MAX_SESSION_LEN,
+    MAX_WORD_LEN,
     NUM_CANDIDATES,
     PAD,
 )
-from .dictionary import Dictionary
+from .dictionary import CharDictionary, Dictionary
 from .objects import Document, Query, Session
+
+_CHAR_DICT = CharDictionary()
 
 
 @dataclass(frozen=True)
@@ -38,6 +41,8 @@ class ShapeConfig:
     max_doc_len: int = MAX_DOC_LEN
     max_session_len: int = MAX_SESSION_LEN
     num_candidates: int = NUM_CANDIDATES
+    # > 0: per-word byte ids for the char-CNN path (``use_charngram``)
+    max_word_len: int = 0
 
     @property
     def max_target_len(self) -> int:
@@ -55,12 +60,17 @@ def shapes_from_config(config) -> ShapeConfig:
     return ShapeConfig(max_query_len=config.max_query_len,
                        max_doc_len=config.max_doc_len,
                        max_session_len=config.max_session_len,
-                       num_candidates=config.num_candidates)
+                       num_candidates=config.num_candidates,
+                       max_word_len=(MAX_WORD_LEN if config.use_charngram
+                                     else 0))
 
 
 def _batch_to(batch, device):
-    """The same batch as torch tensors on ``device`` (ids as int64)."""
+    """The same batch as torch tensors on ``device`` (ids as int64); a
+    ``None`` field stays ``None``."""
     def conv(a):
+        if a is None:
+            return None
         t = torch.from_numpy(np.ascontiguousarray(a))
         if t.dtype == torch.int32:
             t = t.long()
@@ -68,6 +78,31 @@ def _batch_to(batch, device):
 
     return type(batch)(**{f.name: conv(getattr(batch, f.name))
                           for f in dataclasses.fields(batch)})
+
+
+@dataclass
+class RankBatch:
+    """One (query, candidate slate) per row (rankers).  Leaves are numpy
+    arrays as built, torch tensors after ``to``; the character ids are
+    ``None`` unless the shapes set ``max_word_len``."""
+
+    query: np.ndarray        # int32 [B, Lq]
+    query_mask: np.ndarray   # bool  [B, Lq]
+    docs: np.ndarray         # int32 [B, N, Ld]
+    doc_mask: np.ndarray     # bool  [B, N, Ld]
+    labels: np.ndarray       # f32   [B, N]   (binary clicks)
+    cand_mask: np.ndarray    # bool  [B, N]   (valid candidates)
+    row_mask: np.ndarray     # bool  [B]      (valid rows)
+    query_chars: np.ndarray | None = None  # int32 [B, Lq, Lw]
+    doc_chars: np.ndarray | None = None    # int32 [B, N, Ld, Lw]
+
+    @property
+    def batch_size(self) -> int:
+        return self.query.shape[0]
+
+    def to(self, device) -> "RankBatch":
+        """The same batch as torch tensors on ``device`` (ids as int64)."""
+        return _batch_to(self, device)
 
 
 @dataclass
@@ -146,12 +181,26 @@ def _encode_doc(d: Document, word_dict: Dictionary, length: int):
     return _pad_ids(word_dict.encode(d.tokens), length)
 
 
+def _encode_chars(tokens: list[str], length: int,
+                  word_len: int) -> np.ndarray:
+    """[length, word_len] byte ids of the first ``length`` tokens."""
+    out = np.zeros((length, word_len), np.int32)
+    for i, tok in enumerate(tokens[:length]):
+        out[i] = _CHAR_DICT.encode_word(tok, word_len)
+    return out
+
+
 def _encode_target(q: Query, word_dict: Dictionary, length: int):
     """Teacher-forcing pair: (BOS + toks)[:L], (toks + EOS)[:L]."""
     ids = word_dict.encode(q.tokens)[: length - 1]
     tin, _ = _pad_ids([BOS] + ids, length)
     tout, tmask = _pad_ids(ids + [EOS], length)
     return tin, tout, tmask
+
+
+def rank_examples(sessions: list[Session]) -> list[Query]:
+    """Flatten sessions into (query, slate) examples with >=1 candidate."""
+    return [q for s in sessions for q in s.queries if q.documents]
 
 
 def suggest_examples(sessions: list[Session]
@@ -162,6 +211,39 @@ def suggest_examples(sessions: list[Session]
         for t in range(len(s.queries) - 1):
             out.append((s.queries[: t + 1], s.queries[t], s.queries[t + 1]))
     return out
+
+
+def build_rank_batch(examples: list[Query], word_dict: Dictionary,
+                     shapes: ShapeConfig,
+                     batch_size: int | None = None) -> RankBatch:
+    """One row per query: its ids and its first ``num_candidates``
+    documents with their click labels; character ids too where
+    ``shapes.max_word_len > 0``."""
+    B = batch_size or len(examples)
+    Lq, N, Ld = shapes.max_query_len, shapes.num_candidates, shapes.max_doc_len
+    query = np.full((B, Lq), PAD, np.int32)
+    query_mask = np.zeros((B, Lq), bool)
+    docs = np.full((B, N, Ld), PAD, np.int32)
+    doc_mask = np.zeros((B, N, Ld), bool)
+    labels = np.zeros((B, N), np.float32)
+    cand_mask = np.zeros((B, N), bool)
+    row_mask = np.zeros((B,), bool)
+    Lw = shapes.max_word_len
+    q_chars = np.zeros((B, Lq, Lw), np.int32) if Lw else None
+    d_chars = np.zeros((B, N, Ld, Lw), np.int32) if Lw else None
+    for i, q in enumerate(examples[:B]):
+        query[i], query_mask[i] = _encode_query(q, word_dict, Lq)
+        if Lw:
+            q_chars[i] = _encode_chars(q.tokens, Lq, Lw)
+        for j, d in enumerate(q.documents[:N]):
+            docs[i, j], doc_mask[i, j] = _encode_doc(d, word_dict, Ld)
+            labels[i, j] = float(d.label)
+            cand_mask[i, j] = True
+            if Lw:
+                d_chars[i, j] = _encode_chars(d.tokens, Ld, Lw)
+        row_mask[i] = True
+    return RankBatch(query, query_mask, docs, doc_mask, labels, cand_mask,
+                     row_mask, q_chars, d_chars)
 
 
 def build_suggest_batch(examples: list[tuple[list[Query], Query, Query]],

@@ -1,22 +1,24 @@
-"""Model zoo of the port: the multitask models CARS, M-NSRF and
-M-MatchTensor, and the recommenders HRED-QS, seq2seq and ACG.
+"""Model zoo of the port: all 14 models of the JAX package -- the rankers
+ESM, DSSM, CDSSM, DUET, ARC-I, ARC-II, DRMM and Match-Tensor, the
+recommenders HRED-QS, seq2seq and ACG, and the multitask models CARS,
+M-NSRF and M-MatchTensor.
 
 ``task_family`` names a model type's family as the JAX package does;
-``get_model_class`` / ``build_model`` return the port's class for a ported
-model type and raise ``NotImplementedError`` for a model of the JAX zoo
-that is not ported yet.
+``get_model_class`` / ``build_model`` return the port's class and raise
+``ValueError`` for a model type the JAX zoo does not have.
 """
 
 from __future__ import annotations
 
 from ..config import MULTITASK, RANKERS, RECOMMENDERS, ModelConfig
 from .multitask import MULTITASK_CLASSES
+from .rankers import RANKER_CLASSES
 from .recommenders.acg import ACG
 from .recommenders.hredqs import HredQS
 from .recommenders.seq2seq import Seq2seq
 
-MODEL_CLASSES = {**MULTITASK_CLASSES, "hredqs": HredQS, "seq2seq": Seq2seq,
-                 "acg": ACG}
+MODEL_CLASSES = {**RANKER_CLASSES, **MULTITASK_CLASSES, "hredqs": HredQS,
+                 "seq2seq": Seq2seq, "acg": ACG}
 
 
 def task_family(model_type: str) -> str:
@@ -33,10 +35,6 @@ def task_family(model_type: str) -> str:
 
 def get_model_class(model_type: str):
     task_family(model_type)   # raises on an unknown model type
-    if model_type not in MODEL_CLASSES:
-        raise NotImplementedError(
-            f"{model_type} is not ported; the port has "
-            f"{sorted(MODEL_CLASSES)}")
     return MODEL_CLASSES[model_type]
 
 

@@ -17,7 +17,8 @@ rename.
 At the serving widths (B = 64, S = 5, N = 50, Lq = 15, Ld = 30, C = 32)
 the match tensor is ``[16000, 15, 30, 33]``, 475 MB in bf16; it is built
 once a call in the compute dtype, the masks folded into the two factors
-(the same numbers as masking the product).  The convolutions run on a
+(the same numbers as masking the product), by the Match-Tensor ranker's
+``match_tensor`` and ``match_features``.  The convolutions run on a
 channels-last view (``ops/layers.Conv``).  As in the JAX model there is no
 ``decode_step_fused``, ``encode_docs`` or ``decode_init_full``.
 """
@@ -27,9 +28,9 @@ from __future__ import annotations
 import torch
 
 from ...config import ModelConfig
-from ...constants import PAD
 from ...data.vectorize import SessionBatch
-from ...ops.layers import MLP, Conv, Dense, max_pool
+from ...ops.layers import MLP, Conv, Dense
+from ..rankers.match_tensor import match_features, match_tensor
 from .mnsrf import SessionSuggester
 
 
@@ -54,19 +55,13 @@ class MMatchTensor(SessionSuggester):
                      d_states: torch.Tensor) -> torch.Tensor:
         """``[B*S*N, Lq, Ld, C + 1]``: the channel products of the projected
         query and document states and the exact-match channel, zero where
-        either token is padding."""
+        either token is padding (``rankers.match_tensor.match_tensor`` per
+        turn)."""
         B, S, N, Ld = batch.docs.shape
         Lq = batch.query.shape[-1]
-        qm = batch.query_mask[..., None].to(q_states.dtype)
-        dm = batch.doc_mask[..., None].to(d_states.dtype)
-        qp = self.q_proj(q_states) * qm                         # [B,S,Lq,C]
-        dp = self.d_proj(d_states) * dm                         # [B,S,N,Ld,C]
-        prod = qp[:, :, None, :, None, :] * dp[:, :, :, None, :, :]
-        query = batch.query[:, :, None, :, None]
-        exact = ((query == batch.docs[:, :, :, None, :]) & (query != PAD)
-                 & batch.query_mask[:, :, None, :, None]
-                 & batch.doc_mask[:, :, :, None, :])
-        tensor = torch.cat([prod, exact[..., None].to(prod.dtype)], dim=-1)
+        tensor = match_tensor(self.q_proj(q_states), self.d_proj(d_states),
+                              batch.query, batch.docs, batch.query_mask,
+                              batch.doc_mask)
         return tensor.reshape(B * S * N, Lq, Ld, -1)
 
     def encode_session(self, batch: SessionBatch, deterministic: bool = True,
@@ -75,13 +70,10 @@ class MMatchTensor(SessionSuggester):
         B, S, N, _ = batch.docs.shape
         q_states, qv = self.query_states(batch, deterministic, generator)
         d_states = self.doc_states(batch, deterministic, generator)
-        z = torch.relu(self.conv0(self.match_tensor(batch, q_states,
-                                                    d_states)))
-        z = max_pool(z, (2, 2), (2, 2))
-        z = torch.relu(self.conv1(z))
-        z = z.amax(dim=(1, 2)).reshape(B, S, N, -1)
+        z = match_features(self.conv0, self.conv1,
+                           self.match_tensor(batch, q_states, d_states))
         sess, _ = self.session_rnn(qv, batch.turn_mask)
-        return (z,), sess
+        return (z.reshape(B, S, N, -1),), sess
 
     def rank_scores(self, z, sess, deterministic: bool = True,
                     generator: torch.Generator | None = None):

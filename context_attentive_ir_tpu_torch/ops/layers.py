@@ -1,12 +1,13 @@
 """Shared layers: parameter plumbing, dropout, Dense, Conv, max_pool,
-Embeddings, MLP.
+Embeddings, CharCNN, MLP, cosine_similarity.
 
-Port of ``context_attentive_ir_tpu/ops/layers.py`` (``Embeddings``, ``MLP``)
-plus flax's ``nn.Dense``, ``nn.Conv``, ``nn.max_pool`` and ``nn.Dropout``.
-Weights keep the JAX layout -- dense kernels are ``[in, out]`` and layers
-compute ``x @ W``, conv kernels are ``[kh, kw, in, out]`` -- so the weight
-bridge (``convert.py``) is a rename with no transposes.  Parameters are
-float32 and are cast to the module's compute dtype at use, as flax does.
+Port of ``context_attentive_ir_tpu/ops/layers.py`` (``Embeddings``,
+``CharCNN``, ``MLP``, ``cosine_similarity``) plus flax's ``nn.Dense``,
+``nn.Conv``, ``nn.max_pool`` and ``nn.Dropout``.  Weights keep the JAX
+layout -- dense kernels are ``[in, out]`` and layers compute ``x @ W``, conv
+kernels are ``[*window, in, out]`` -- so the weight bridge (``convert.py``)
+is a rename with no transposes.  Parameters are float32 and are cast to the
+module's compute dtype at use, as flax does.
 """
 
 from __future__ import annotations
@@ -42,12 +43,14 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool,
 def init_param_(p: torch.Tensor, kind: str, gen: torch.Generator) -> None:
     """Fill ``p`` in place from the CPU generator ``gen`` (flax's
     initializer families: glorot-uniform, lecun-normal, orthogonal, the
-    embedding normal(0.1), zeros, ones)."""
+    embedding normal(0.1), zeros, ones, ``constant:<value>``)."""
     shape = tuple(p.shape)
     if kind == "zeros":
         v = torch.zeros(shape)
     elif kind == "ones":
         v = torch.ones(shape)
+    elif kind.startswith("constant:"):
+        v = torch.full(shape, float(kind.partition(":")[2]))
     elif kind == "embedding":
         v = torch.randn(shape, generator=gen) * 0.1
     elif kind == "glorot":
@@ -120,26 +123,29 @@ class Dense(ParamModule):
 
 
 class Conv(ParamModule):
-    """flax ``nn.Conv`` at stride 1 over channels-last inputs ``[N, H, W,
-    C]``: ``kernel [kh, kw, in, out]`` (the JAX layout, so the weight bridge
-    stays a rename) and ``bias [out]``, permuted to ``[out, in, kh, kw]`` at
-    use.  ``padding="SAME"`` takes odd windows only and pads ``k // 2`` on
-    each side (flax pads ``(k - 1) // 2`` before and ``k // 2`` after);
-    ``"VALID"`` pads nothing.  The product is ``conv2d`` (cuDNN on the
-    card) on a channels-last view of the input: a permute, no copy."""
+    """flax ``nn.Conv`` at stride 1 over channels-last inputs ``[N, *spatial,
+    C]`` with one or two spatial axes (``kernel_size=(w,)`` over ``[N, T,
+    C]``, ``(kh, kw)`` over ``[N, H, W, C]``): ``kernel [*window, in, out]``
+    (the JAX layout, so the weight bridge stays a rename) and ``bias
+    [out]``, permuted to ``[out, in, *window]`` at use.  ``padding="SAME"``
+    pads as flax does, ``(k - 1) // 2`` before and ``k // 2`` after: the
+    same on both sides for an odd window (``conv*d``'s own padding), one
+    more after for an even one (an ``F.pad`` first); ``"VALID"`` pads
+    nothing.  The product is ``conv1d`` / ``conv2d`` (cuDNN on the card) on
+    a channels-last view of the input: a permute, no copy."""
 
     def __init__(self, in_features: int, features: int,
-                 kernel_size: tuple[int, int] = (3, 3),
+                 kernel_size: tuple[int, ...] = (3, 3),
                  padding: str = "SAME", dtype: torch.dtype = torch.float32,
                  device="cuda"):
         super().__init__(device)
+        if len(kernel_size) not in (1, 2):
+            raise ValueError(f"Conv takes 1 or 2 spatial axes, got "
+                             f"kernel_size {kernel_size}")
         if padding == "SAME":
-            if any(k % 2 == 0 for k in kernel_size):
-                raise ValueError(f"padding='SAME' takes odd windows, got "
-                                 f"{kernel_size}")
-            self.pad = tuple(k // 2 for k in kernel_size)
+            self.pad = tuple(((k - 1) // 2, k // 2) for k in kernel_size)
         elif padding == "VALID":
-            self.pad = (0, 0)
+            self.pad = tuple((0, 0) for _ in kernel_size)
         else:
             raise ValueError(f"unknown padding {padding!r}")
         self.dtype = dtype
@@ -148,11 +154,19 @@ class Conv(ParamModule):
         self.bias = self.new_param("bias", (features,), "zeros")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [N, H, W, in] -> [N, H, W, out]."""
-        w = self.kernel.to(self.dtype).permute(3, 2, 0, 1)
-        y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), w,
-                     self.bias.to(self.dtype), padding=self.pad)
-        return y.permute(0, 2, 3, 1)
+        """x [N, *spatial, in] -> [N, *spatial, out]."""
+        nd = len(self.pad)
+        w = self.kernel.to(self.dtype).permute(nd + 1, nd, *range(nd))
+        x = x.to(self.dtype).movedim(-1, 1)
+        if all(lo == hi for lo, hi in self.pad):
+            padding = tuple(lo for lo, _ in self.pad)
+        else:
+            # F.pad lists the last axis first
+            x = F.pad(x, [n for lo_hi in reversed(self.pad) for n in lo_hi])
+            padding = 0
+        conv = F.conv1d if nd == 1 else F.conv2d
+        return conv(x, w, self.bias.to(self.dtype),
+                    padding=padding).movedim(1, -1)
 
 
 def max_pool(x: torch.Tensor, window: tuple[int, int],
@@ -232,6 +246,35 @@ def quantize_embedding_table(table) -> tuple[np.ndarray, np.ndarray]:
     return q, scale.astype(np.float32)
 
 
+class CharCNN(nn.Module):
+    """Character-level conv word encoder: byte ids ``[..., Lw]`` -> word
+    vectors ``[..., len(filter_widths) * num_filters]``.  ``char_emb`` (no
+    dropout), then per width ``w`` a ``SAME`` convolution ``conv{w}`` over
+    the word's characters, ReLU and a max over all ``Lw`` positions (padding
+    characters included, as in JAX)."""
+
+    def __init__(self, char_vocab: int, char_dim: int = 16,
+                 filter_widths: Sequence[int] = (2, 3, 4),
+                 num_filters: int = 32, dtype: torch.dtype = torch.float32,
+                 device="cuda"):
+        super().__init__()
+        self.filter_widths = tuple(filter_widths)
+        self.features = len(self.filter_widths) * num_filters
+        self.char_emb = Embeddings(char_vocab, char_dim, dtype=dtype,
+                                   device=device)
+        for w in self.filter_widths:
+            self.add_module(f"conv{w}", Conv(char_dim, num_filters, (w,),
+                                             dtype=dtype, device=device))
+
+    def forward(self, char_ids: torch.Tensor) -> torch.Tensor:
+        emb = self.char_emb(char_ids)
+        x = emb.reshape(-1, *emb.shape[-2:])               # [N, Lw, C]
+        feats = [torch.relu(getattr(self, f"conv{w}")(x)).amax(dim=-2)
+                 for w in self.filter_widths]
+        out = torch.cat(feats, dim=-1)
+        return out.reshape(*emb.shape[:-2], out.shape[-1])
+
+
 class MLP(nn.Module):
     """Plain feed-forward stack (``fc0``, ``fc1``, ...), with ``dropout``
     after every layer but the last."""
@@ -263,3 +306,14 @@ class MLP(nn.Module):
             if not last:
                 x = dropout(x, self.dropout, deterministic, generator)
         return x
+
+
+def cosine_similarity(a: torch.Tensor, b: torch.Tensor, dim: int = -1,
+                      eps: float = 1e-8) -> torch.Tensor:
+    """``sum((a / max(|a|, eps)) * (b / max(|b|, eps)))`` over ``dim``: the
+    JAX forward.  At a zero vector (a padded row, an empty candidate slot)
+    the gradient is finite: ``vector_norm``'s subgradient at 0 is 0, where
+    ``jnp.linalg.norm``'s is NaN even behind the ``maximum``."""
+    na = torch.linalg.vector_norm(a, dim=dim, keepdim=True)
+    nb = torch.linalg.vector_norm(b, dim=dim, keepdim=True)
+    return ((a / na.clamp_min(eps)) * (b / nb.clamp_min(eps))).sum(dim)

@@ -11,10 +11,21 @@ import torch
 NEG_INF = -1e9
 
 
+def sequence_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """bool [..., max_len] with True for positions < length."""
+    pos = torch.arange(max_len, device=lengths.device)
+    return pos < lengths[..., None]
+
+
+def mask_logits(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Set masked-out logits to ``NEG_INF``."""
+    return logits.masked_fill(~mask, NEG_INF)
+
+
 def masked_softmax(logits: torch.Tensor, mask: torch.Tensor,
                    dim: int = -1) -> torch.Tensor:
     """Softmax over valid positions; fully-masked rows return zeros."""
-    logits = logits.masked_fill(~mask, NEG_INF)
+    logits = mask_logits(logits, mask)
     logits = logits - logits.amax(dim=dim, keepdim=True)
     unnorm = torch.exp(logits) * mask.to(logits.dtype)
     denom = unnorm.sum(dim=dim, keepdim=True)
@@ -36,3 +47,12 @@ def masked_max(x: torch.Tensor, mask: torch.Tensor,
     splits the gradient evenly over tied maxima, as ``jax.grad`` of
     ``jnp.max`` does (``max(dim).values`` would give it all to one)."""
     return torch.where(mask[..., None], x, NEG_INF).amax(dim=dim)
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor,
+                dim: int = -2) -> torch.Tensor:
+    """Mean of ``x`` over ``dim`` counting only positions where ``mask`` is
+    True (x [..., T, D], mask [..., T] -> [..., D] at ``dim=-2``); a fully
+    masked row reads 0."""
+    m = mask[..., None].to(x.dtype)
+    return (x * m).sum(dim) / m.sum(dim).clamp_min(1.0)

@@ -1,12 +1,17 @@
 """Inference engine: rank and suggest from raw text (port of ``Engine`` in
-``context_attentive_ir_tpu/serve.py`` for the multitask models CARS,
-M-NSRF and M-MatchTensor and the recommenders HRED-QS, seq2seq and ACG).
+``context_attentive_ir_tpu/serve.py`` for every model of the zoo: the
+rankers, the multitask models CARS, M-NSRF and M-MatchTensor, and the
+recommenders HRED-QS, seq2seq and ACG).
 
 Requests are padded to the model's static shapes and batched into buckets
-of ``batch_bucket`` rows, as in the JAX engine.  Ranking (the multitask
-models) runs the encoders through the fused LSTM or GRU kernel (and CARS's
-query-aware doc pooling through the slate-pool kernel when the config sets
-``use_pallas_slate``); suggestion runs beam search (or greedy at
+of ``batch_bucket`` rows, as in the JAX engine.  A ranker is session-blind:
+it scores one flat ``RankBatch`` row per request, the request's current
+query and its slate (Match-Tensor's encoders through the fused LSTM or GRU
+kernel; the other rankers launch no kernel of the port), and cannot
+suggest.  The multitask models rank with their encoders through the fused
+LSTM or GRU kernel (and CARS's query-aware doc pooling through the
+slate-pool kernel when the config sets ``use_pallas_slate``); suggestion
+runs beam search (or greedy at
 ``beam_size=1``).  CARS with a tied generator decodes through the fused
 generator step -- top-``beam_size + 1`` for beam, top-2 for greedy -- so
 the ``[rows, V]`` logits never exist, wherever the kernels hold the shape
@@ -43,6 +48,7 @@ import torch
 from .config import ModelConfig
 from .data import (
     Dictionary,
+    build_rank_batch,
     build_session_batch,
     build_suggest_batch,
     shapes_from_config,
@@ -57,7 +63,7 @@ from .decode import (
     make_shortlist_xla_step,
 )
 from .device import resolve_device
-from .models import MODEL_CLASSES, build_model, task_family
+from .models import build_model, task_family
 from .models.base import compute_dtype
 from .models.multitask.cars import clicks_exceed_suggest_cap
 from .ops.kernels.beamgen import MAX_KC
@@ -91,8 +97,8 @@ class ServeError(ValueError):
 
 class Engine:
     """One loaded model behind ``rank``/``suggest``: a multitask model
-    (CARS, M-NSRF, M-MatchTensor) ranks and suggests, a recommender
-    (HRED-QS, seq2seq, ACG) only suggests.
+    (CARS, M-NSRF, M-MatchTensor) ranks and suggests, a ranker only ranks,
+    a recommender (HRED-QS, seq2seq, ACG) only suggests.
 
     ``params``: a state dict of the port's model for ``config.model_type``
     (``convert.params_from_jax`` of a JAX param tree, or
@@ -110,9 +116,6 @@ class Engine:
                  beam_size: int = 5, batch_bucket: int = 8,
                  suggest_shortlist: int = 0,
                  suggest_early_exit: bool = True, device="cuda"):
-        if config.model_type not in MODEL_CLASSES:
-            raise ServeError(f"{config.model_type} is not ported; the "
-                             f"port serves {sorted(MODEL_CLASSES)}")
         self.device = resolve_device(device)
         self.config = config
         self.family = task_family(config.model_type)
@@ -185,8 +188,9 @@ class Engine:
         return self.rank_batch([(query, docs, history)])[0]
 
     def rank_batch(self, requests: Sequence[tuple]) -> list[list[float]]:
-        """requests: [(query, docs, history)] -> per-request doc scores."""
-        if self.family != "multitask":
+        """requests: [(query, docs, history)] -> per-request doc scores (a
+        ranker ignores the history)."""
+        if self.family == "recommender":
             raise ServeError(f"{self.config.model_type} cannot rank")
         for r in requests:
             if len(r[1]) > self.shapes.num_candidates:
@@ -197,15 +201,23 @@ class Engine:
         sessions = [self._to_sessions(h, q, d) for q, d, h in
                     ((r[0], r[1], r[2] if len(r) > 2 else ())
                      for r in requests)]
-        batch = build_session_batch(sessions, self.word_dict, self.shapes,
-                                    batch_size=self._bucket(len(sessions)))
+        B = self._bucket(len(sessions))
+        if self.family == "ranker":
+            # one flat row per request: its current (last) query and slate
+            batch = build_rank_batch([s.queries[-1] for s in sessions],
+                                     self.word_dict, self.shapes,
+                                     batch_size=B)
+        else:
+            batch = build_session_batch(sessions, self.word_dict,
+                                        self.shapes, batch_size=B)
         with torch.inference_mode():
             scores = self.model.score(batch.to(self.device))
             scores = scores.float().cpu().numpy()
         out = []
         for i, (req, sess) in enumerate(zip(requests, sessions)):
-            out.append(scores[i, len(sess.queries) - 1][: len(req[1])]
-                       .tolist())
+            row = (scores[i] if scores.ndim == 2
+                   else scores[i, len(sess.queries) - 1])
+            out.append(row[: len(req[1])].tolist())
         return out
 
     # -- cached-document ranking ----------------------------------------------
@@ -407,6 +419,8 @@ class Engine:
                       n_best: Optional[int] = None
                       ) -> list[list[tuple[str, float]]]:
         """Batched ``suggest``: per-request n-best (text, score) lists."""
+        if self.family == "ranker":
+            raise ServeError(f"{self.config.model_type} cannot suggest")
         histories = [list(h) for h in histories]
         if not histories or any(not h for h in histories):
             raise ServeError(

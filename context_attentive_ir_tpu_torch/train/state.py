@@ -70,9 +70,13 @@ def make_schedule(config: ModelConfig) -> Callable[[int], float]:
     return schedule
 
 
-def global_norm(grads: dict[str, torch.Tensor | None]) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient (None counts as 0)."""
+def global_norm(grads: dict[str, torch.Tensor | None],
+                device=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient (None counts as 0); 0
+    on ``device`` when no parameter has a gradient."""
     sq = [g.float().pow(2).sum() for g in grads.values() if g is not None]
+    if not sq:
+        return torch.zeros((), device=device)
     return torch.sqrt(torch.stack(sq).sum())
 
 
@@ -108,7 +112,7 @@ class Optimizer:
     def apply(self, params: dict[str, torch.Tensor],
               grads: dict[str, torch.Tensor | None],
               opt_state: dict) -> torch.Tensor:
-        g_norm = global_norm(grads)
+        g_norm = global_norm(grads, next(iter(params.values())).device)
         count = opt_state["count"]
         lr = self.schedule(count)
         count_inc = count + 1

@@ -1,6 +1,6 @@
-"""Train and eval steps (port of ``context_attentive_ir_tpu/train/steps.py``,
-multitask and recommender families: CARS, M-NSRF, M-MatchTensor, HRED-QS,
-seq2seq and ACG).
+"""Train and eval steps (port of ``context_attentive_ir_tpu/train/steps.py``
+for all three families: the rankers, the recommenders and the multitask
+models).
 
 The JAX package jit-compiles one function per step; the port runs the same
 forward, loss, backward and optimizer update eagerly.  A step's dropout
@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..config import ModelConfig
-from ..models import MODEL_CLASSES, task_family
+from ..models import task_family
 from ..models.losses import rank_loss, sequence_nll_loss
 from .state import TrainState
 
@@ -36,29 +36,27 @@ def dropout_generator(seed: int, step: int, device) -> torch.Generator:
     return gen
 
 
-def _check_ported(config: ModelConfig) -> None:
-    if config.model_type not in MODEL_CLASSES:
-        raise NotImplementedError(
-            f"{config.model_type} is not ported; the port trains "
-            f"{sorted(MODEL_CLASSES)}")
-
-
 def make_loss_fn(model, config: ModelConfig):
     """``loss_fn(batch, deterministic=False, generator=None) -> (loss,
     metrics)`` with the model's current parameters: for the multitask
     family ``rank_loss + alpha * gen_loss`` (metrics ``rank_loss``,
-    ``gen_loss``), for a recommender the target NLL (``gen_loss`` and
+    ``gen_loss``), for a ranker ``rank_loss`` over its ``[B, N]`` scores
+    and ``labels`` (metric ``rank_loss``), for a recommender the target NLL
+    (``gen_loss`` and
     ``ppl = exp(min(loss, 20))``, through the model's ``target_nll``:
     ``copy_generator_nll_loss`` for ACG, whose forward returns the copy
     mixture's probabilities); plus the
     ``regularize_coeff`` L2 term."""
-    _check_ported(config)
     family = task_family(config.model_type)
 
     def loss_fn(batch, deterministic: bool = False,
                 generator: torch.Generator | None = None):
         out = model(batch, deterministic, generator)
-        if family == "recommender":
+        if family == "ranker":
+            loss = rank_loss(config.loss_type, out, batch.labels,
+                             batch.cand_mask, batch.row_mask, config.margin)
+            metrics = {"rank_loss": loss}
+        elif family == "recommender":
             tmask = batch.target_mask & batch.row_mask[:, None]
             loss = model.target_nll(out, batch.target_out, tmask)
             metrics = {"gen_loss": loss,
@@ -87,7 +85,10 @@ def make_train_step(model, config: ModelConfig):
     parameters and optimizer state in place and ``state.step`` advances.
     ``seed`` takes the place of the JAX step's ``rng``.  Metrics (detached
     0-d tensors): ``make_loss_fn``'s and ``grad_norm`` (before
-    clipping)."""
+    clipping).  A loss that reaches no trainable parameter (ESM under its
+    published ``fix_embeddings``: the table is its only leaf, and frozen)
+    has no gradient; the step still counts, reports its metrics and a
+    ``grad_norm`` of 0, and moves nothing, as the JAX step does."""
     loss_fn = make_loss_fn(model, config)
 
     def train_step(state: TrainState, batch, seed: int):
@@ -99,7 +100,8 @@ def make_train_step(model, config: ModelConfig):
         for p in params.values():
             p.grad = None
         _, metrics = loss_fn(batch, False, gen)
-        metrics["loss"].backward()
+        if metrics["loss"].requires_grad:
+            metrics["loss"].backward()
         grads = {n: p.grad for n, p in params.items()}
         metrics["grad_norm"] = state.tx.apply(params, grads, state.opt_state)
         for p in params.values():
@@ -111,14 +113,13 @@ def make_train_step(model, config: ModelConfig):
 
 
 def make_score_step(model, config: ModelConfig):
-    """``score_step(batch) -> scores [B, S, N]`` (eval mode) of a
-    multitask model (``model.score``).  The model's own parameters take the
-    place of the JAX step's ``params``."""
-    _check_ported(config)
-    if task_family(config.model_type) != "multitask":
+    """``score_step(batch) -> scores`` (eval mode, ``model.score``): ``[B,
+    N]`` of a ranker, ``[B, S, N]`` of a multitask model.  The model's own
+    parameters take the place of the JAX step's ``params``."""
+    if task_family(config.model_type) == "recommender":
         raise NotImplementedError(
-            f"{config.model_type}: only the multitask models (CARS, M-NSRF, "
-            "M-MatchTensor) score slates in the port")
+            f"{config.model_type} is a recommender: only the rankers and the "
+            "multitask models (CARS, M-NSRF, M-MatchTensor) score slates")
 
     def score_step(batch):
         return model.score(batch)

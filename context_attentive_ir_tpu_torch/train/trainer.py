@@ -1,8 +1,8 @@
 """The training engine: epoch loop, validation, early stopping, resume.
 
-Port of ``context_attentive_ir_tpu/train/trainer.py`` for the families the
-port has (multitask: CARS, M-NSRF, M-MatchTensor; recommender: HRED-QS,
-seq2seq, ACG): seed, init-or-resume the model, epoch loop with
+Port of ``context_attentive_ir_tpu/train/trainer.py`` for the three
+families (rankers, recommenders, multitask models): seed, init-or-resume
+the model, epoch loop with
 ``AverageMeter`` / ``Timer`` and ``display_iter`` logging, per-epoch
 official validation, early stopping on ``valid_metric``, best / latest
 checkpoints, final test evaluation with prediction dumps.
@@ -31,9 +31,11 @@ from ..data import (
     PackedBucketedIterator,
     PackedIterator,
     Session,
+    build_rank_batch,
     build_session_batch,
     build_suggest_batch,
     prefetch,
+    rank_examples,
     shapes_from_config,
     suggest_examples,
 )
@@ -53,8 +55,9 @@ def make_iterator(sessions: list[Session], config: ModelConfig,
                   shuffle: bool, seed: int,
                   session_buckets: tuple[int, ...] = (),
                   pack: bool = False):
-    """The batch stream of ``config``'s family: whole sessions for the
-    multitask family, (context, next query) pairs for a recommender.
+    """The batch stream of ``config``'s family: (query, slate) rows for a
+    ranker, whole sessions for the multitask family, (context, next query)
+    pairs for a recommender.
 
     ``pack=True`` vectorizes the whole example list once and serves batches
     as row gathers (``data.pipeline.PackedIterator``, a bit-identical batch
@@ -64,9 +67,10 @@ def make_iterator(sessions: list[Session], config: ModelConfig,
     family = task_family(config.model_type)
     shapes = shapes_from_config(config)
     if family == "ranker":
-        raise NotImplementedError(
-            f"{config.model_type}: the rankers' batches are not ported")
-    if family == "recommender":
+        ex = rank_examples(sessions)
+        collate = lambda e, batch_size=batch_size: build_rank_batch(
+            e, word_dict, shapes, batch_size=batch_size)
+    elif family == "recommender":
         ex = suggest_examples(sessions)
         collate = lambda e, batch_size=batch_size: build_suggest_batch(
             e, word_dict, shapes, batch_size=batch_size)
@@ -133,14 +137,15 @@ class Trainer:
         self.model = build_model(config, device=self.device, seed=run.seed)
         self.train_step = make_train_step(self.model, config)
         family = task_family(config.model_type)
-        self.score_fn = None
-        if family == "multitask":
+        self.score_fn = self.decode_fn = None
+        if family in ("ranker", "multitask"):
             score = make_score_step(self.model, config)
             self.score_fn = lambda batch: score(
                 batch.to(self.device)).float().cpu().numpy()
-        self.decode_fn = build_decode_fn(
-            self.model, config, run.beam_size, run.max_decode_len or None,
-            run=run)
+        if family in ("recommender", "multitask"):
+            self.decode_fn = build_decode_fn(
+                self.model, config, run.beam_size,
+                run.max_decode_len or None, run=run)
         self.ckpt = Checkpointer(run.model_dir, run.model_name,
                                  run.async_checkpoint)
         self.metrics = MetricsWriter(

@@ -2,7 +2,8 @@
 tests/test_cli.py against the port's parser, every flag of the JAX parser
 present with the same default, ``main()`` end to end on a CARS fixture on
 the CPU with ``--only_test`` reproducing the metrics, HRED-QS through the
-same entry point, and a model type that is not ported raising."""
+same entry point, and an unknown model type raising before anything is
+written."""
 
 import pytest
 import torch
@@ -130,11 +131,13 @@ def test_main_end_to_end_hredqs(files):
     assert not (tmp / "runs" / "hred.test.ranks.jsonl").exists()
 
 
-@pytest.mark.parametrize("model_type", ["dssm", "match_tensor", "esm",
-                                        "cdssm"])
+@pytest.mark.parametrize("model_type", ["bert", "DSSM", "match-tensor",
+                                        "esm2"])
 def test_unported_model_type_raises(files, model_type):
+    """Every model type of the JAX zoo is ported; a type outside it raises
+    ``ValueError`` before the model directory is written."""
     tmp, train, _ = files
-    with pytest.raises(NotImplementedError, match=model_type):
+    with pytest.raises(ValueError, match=f"unknown model_type '{model_type}'"):
         main(["--model_type", model_type, "--train_file", str(train),
               "--model_dir", str(tmp / "none"), *SMALL])
     assert not (tmp / "none").exists()

@@ -175,10 +175,23 @@ def test_packed_equals_unpacked_within_the_port(tmp_path):
 
 
 def test_ranker_iterator_is_not_ported(tmp_path):
-    _, (ps, pd_, _) = _setup(tmp_path, "cars", n=3)
+    """The ranker iterator is ported (its streams are held to JAX's in
+    ``tests/test_torch_rank_data.py``): a DSSM stream equals JAX's here
+    too; an unknown model type raises."""
+    (js, jd, _), (ps, pd_, _) = _setup(tmp_path, "cars", n=3)
+    jcfg = jax_config("dssm", vocab_size=len(jd), **DIMS)
     cfg = default_config("dssm", vocab_size=len(pd_), **DIMS)
-    with pytest.raises(NotImplementedError, match="dssm"):
-        make_iterator(ps, cfg, pd_, 4, False, 0)
+    jbs = list(jax_make_iterator(js, jcfg, jd, 4, False, 0))
+    pbs = list(make_iterator(ps, cfg, pd_, 4, False, 0))
+    assert len(pbs) == len(jbs) > 0
+    for jb, pb in zip(jbs, pbs):
+        assert isinstance(pb, pdata.RankBatch) and pb.query_chars is None
+        for f in ("query", "query_mask", "docs", "doc_mask", "labels",
+                  "cand_mask", "row_mask"):
+            np.testing.assert_array_equal(np.asarray(getattr(jb, f)),
+                                          getattr(pb, f), err_msg=f)
+    with pytest.raises(ValueError, match="unknown model_type"):
+        make_iterator(ps, cfg.replace(model_type="bert"), pd_, 4, False, 0)
 
 
 def test_packed_iterator_needs_a_batch():

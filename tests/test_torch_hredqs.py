@@ -319,9 +319,13 @@ def test_serve_errors(gru_setup):
     for bad in ([], [[]], [["a query"], []]):
         with pytest.raises(ServeError, match="at least"):
             eng.suggest_batch(bad)
+    # a ranker serves and refuses to suggest
     pcfg = port_config(cfg).replace(model_type="arcii")
-    with pytest.raises(ServeError, match="not ported"):
-        Engine(pcfg, eng.word_dict, {}, device="cpu")
+    ranker = Engine(pcfg, eng.word_dict,
+                    build_model(pcfg, device="cpu").state_dict(),
+                    device="cpu")
+    with pytest.raises(ServeError, match="arcii cannot suggest"):
+        ranker.suggest_batch([["a query"]])
 
 
 def test_model_registry():
@@ -329,8 +333,9 @@ def test_model_registry():
     assert task_family("cars") == "multitask"
     assert task_family("dssm") == "ranker"
     assert get_model_class("hredqs") is HredQS
-    for name in ("esm", "arci", "dssm", "cdssm"):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    # every model type of the JAX zoo is ported; unknown ones raise
+    for name in ("bert", "ESM", "arc-i", "dssm2"):
+        with pytest.raises(ValueError, match="unknown model_type"):
             get_model_class(name)
     with pytest.raises(ValueError, match="unknown"):
         task_family("bert")

@@ -97,8 +97,9 @@ def test_conv_matches_flax(hw):
         out = layer(probe) - layer.bias
     ref = params["kernel"][:2, :2, 0][::-1, ::-1]
     np.testing.assert_allclose(_np(out[0, :2, :2]), ref, rtol=0, atol=1e-6)
-    with pytest.raises(ValueError, match="odd"):
-        Conv(5, 4, (2, 3), "SAME", device="cpu")
+    # an even window pads as flax does, (k - 1) // 2 before and k // 2
+    # after (held to nn.Conv in tests/test_torch_rank_data.py)
+    assert Conv(5, 4, (2, 3), "SAME", device="cpu").pad == ((0, 1), (1, 1))
 
 
 def test_max_pool_matches_flax_floor_and_tie_gradients():

@@ -241,8 +241,9 @@ def test_cars_loss_and_grads_match_jax(setup, ablation):
 def test_loss_fn_refuses_other_families(setup):
     _, cfg, params, _, _, _ = setup
     pm = port_model(cfg, params)
-    for model_type in ("dssm", "arcii"):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    # every family of the JAX zoo has its loss; an unknown type raises
+    for model_type in ("bert", "arc-ii"):
+        with pytest.raises(ValueError, match="unknown model_type"):
             make_loss_fn(pm, PortConfig(model_type=model_type))
 
 

@@ -316,9 +316,10 @@ def test_unsupported_flags_raise(cars, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, run.replace(checkpoint_backend="orbax"), wd,
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="dssm"):
-        Trainer(default_config("dssm", vocab_size=len(wd)), run, wd,
-                device="cpu")
+    # every model type of the JAX zoo trains; an unknown one raises
+    with pytest.raises(ValueError, match="unknown model_type 'bert'"):
+        Trainer(default_config("dssm", vocab_size=len(wd)).replace(
+            model_type="bert"), run, wd, device="cpu")
 
 
 def test_default_device_is_the_card(cars, tmp_path, monkeypatch):
