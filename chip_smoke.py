@@ -59,7 +59,20 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    checkpoint, a beam-5 ``Engine(suggest_shortlist=4096)``, and beam-5
    decodes through the unpruned and the pipelined generator (tokens and
    scores equal to the Engine's pruned decode), with small float32
-   indexed, int8 and shortlist Engines card vs CPU; then the GRU slice:
+   indexed, int8 and shortlist Engines card vs CPU; then the JAX package's
+   run directories and the data-preparation path (``interop``): the
+   train phase's state through ``Checkpointer`` as ``state.msgpack`` (the
+   JAX format; its MiB, write and read seconds), read back bit for bit,
+   ``Engine.from_checkpoint`` on it and on the same state as a pre-msgpack
+   ``state.pt`` directory equal bit for bit to the in-memory Engine
+   (``rank_batch``, beam-5 ``suggest_batch``), beam-5's walls and host
+   reads a decode,
+   ``prepare_data bm25`` on a click log of the AOL-scale fixture's first
+   1,280 train sessions through the native scorer, ``cli.main`` CARS on
+   its output for one epoch with the native vectorizer (its first 8
+   batches bit-equal to the Python vectorizer's, the one-time pack timed
+   both ways), ``--resume`` for one more epoch and ``--pretrained_path``
+   from the run's ``state.msgpack`` files; then the GRU slice:
    CARS with GRU encoders and session recurrences (``rank_batch``, beam-5
    ``suggest_batch``, 8 Adam steps and an eval-loss step) and HRED-QS with
    GRUs (beam-5 and greedy ``suggest_batch``, 8 Adam steps, a checkpoint
@@ -137,7 +150,9 @@ limits and timing rows), ``slatekernels`` (kernel 10 alone: checks,
 refusals and timing rows), ``serving`` (``rank_batch``, beam-5 and
 greedy ``suggest_batch``), ``train`` (the CARS train steps and the
 checkpoint round trip), ``indexed`` (the rest of serving; runs ``train``
-first for its checkpoint), ``gru`` (CARS-GRU and HRED-QS), ``small`` (the
+first for its checkpoint), ``interop`` (run directories, BM25 preparation,
+the native vectorizer, beam-5's host reads; runs ``train`` first for its
+state), ``gru`` (CARS-GRU and HRED-QS), ``small`` (the
 small float32 models card vs CPU), ``kernel6`` (``lstm_precomputed``),
 ``trainer`` (``cli.main`` for CARS and HRED-QS), ``recommenders``
 (seq2seq and ACG serving, train steps, checkpoint round trips and
@@ -1381,6 +1396,14 @@ PATH_KERNELS = {
     "train_step_match_tensor": ("lstm_fused_res", "lstm_fused_bwd"),
     "trainer_fit_match_tensor": ("lstm_fused", "lstm_fused_res",
                                  "lstm_fused_bwd"),
+    # interop: the Engine over a state.msgpack (and a state.pt) directory,
+    # cli.main on the BM25-prepared corpus
+    "rank_batch_msgpack": ("lstm_fused",),
+    "suggest_beam5_msgpack": ("lstm_fused", "generator_topk_lse_pruned"),
+    "rank_batch_state_pt": ("lstm_fused",),
+    "trainer_fit_bm25": ("lstm_fused", "lstm_fused_res", "lstm_fused_bwd"),
+    "trainer_resume_bm25": ("lstm_fused", "lstm_fused_res",
+                            "lstm_fused_bwd"),
 }
 # exact encoder launches where they are fixed: CARS runs its query and doc
 # encoders (suggest: the clicked docs), two directions each; HRED-QS its
@@ -1408,6 +1431,8 @@ EXACT_LAUNCHES = {
        for m in ("mnsrf", "m_match_tensor", "match_tensor")},
     "rank_batch_match_tensor": {"lstm_fused": 4},
     "rank_batch_match_tensor_gru": {"gru_fused": 4},
+    "rank_batch_msgpack": {"lstm_fused": 4},
+    "rank_batch_state_pt": {"lstm_fused": 4},
 }
 
 
@@ -1763,10 +1788,11 @@ def random_session_batch(rng, b=B, s=S, n=N, lq=LQ, ld=LD, vocab=VOCAB,
         row_mask=np.arange(b) < b - 1)
 
 
-def train_path(ckpt_dir: str) -> tuple[dict, dict, str]:
+def train_path(ckpt_dir: str) -> tuple[dict, dict, str, dict]:
     """The training path at full width (see the module docstring); the
     checkpoint goes under ``ckpt_dir``.  Returns ({path: launches},
-    {"train_step": ms}, the checkpoint's path)."""
+    {"train_step": ms}, the checkpoint's path, {"state", "config",
+    "word_dict", "model"} of the trained model)."""
     from context_attentive_ir_tpu_torch.models.multitask.cars import CARS
     from context_attentive_ir_tpu_torch.serve import Engine
     from context_attentive_ir_tpu_torch.train import Checkpointer
@@ -1799,7 +1825,9 @@ def train_path(ckpt_dir: str) -> tuple[dict, dict, str]:
     log(f"train step (CUDA events, mean of 5 after warm-up, B={B}): "
         f"{train_ms:.2f} ms -> {B * S * N / train_ms * 1e3:.0f} trained "
         "docs/s")
-    return launches, {"train_step": train_ms}, ckpt.latest_path
+    trained = {"state": state, "config": cfg, "word_dict": word_dict,
+               "model": model}
+    return launches, {"train_step": train_ms}, ckpt.latest_path, trained
 
 
 def full_width_config(model_type: str, train: bool = False, **kw):
@@ -3054,6 +3082,259 @@ def trainer_paths(tmp: str, fixture_dir: str,
     return launches
 
 
+# -- interop: run directories, data preparation, beam host reads -----------
+
+INTEROP_SESSIONS = 1280   # the click log: the first train sessions
+
+
+def host_reads(name: str, fn) -> dict:
+    """One profiled call: its host reads of device values (scalar reads --
+    ``bool`` / ``item`` of a CUDA tensor -- and ``nonzero``, each a sync)
+    with their count and host ms (profiler overhead included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    reads = {e.key: (e.count, e.cpu_time_total / 1e3)
+             for e in prof.key_averages()
+             if e.key in ("aten::_local_scalar_dense", "aten::nonzero")}
+    out = {"reads": sum(n for n, _ in reads.values()),
+           "ms": round(sum(ms for _, ms in reads.values()), 3),
+           "by_op": {k: [n, round(ms, 3)] for k, (n, ms) in reads.items()}}
+    log(f"{name}: host reads {json.dumps(out)}")
+    return out
+
+
+def write_click_log(train_file: Path, out_dir: Path, n: int
+                    ) -> tuple[Path, Path, int]:
+    """The first ``n`` sessions of a fixture as a click log (tab-separated
+    session id, query, clicked title: one row a click, an empty click for
+    a turn without one) and the distinct titles of their slates as the
+    corpus.  Returns (log, corpus, rows)."""
+    log_path, corpus_path = out_dir / "clicks.tsv", out_dir / "titles.txt"
+    titles: dict[str, None] = {}
+    rows = []
+    with open(train_file) as f:
+        for _, line in zip(range(n), f):
+            sess = json.loads(line)
+            for q in sess["query"]:
+                clicks = [c["title"] for c in q["candidates"] if c["label"]]
+                for c in q["candidates"]:
+                    titles.setdefault(c["title"], None)
+                rows += [f"{sess['session_id']}\t{q['text']}\t{c}\n"
+                         for c in clicks or [""]]
+    log_path.write_text("".join(rows))
+    corpus_path.write_text("".join(f"{t}\n" for t in titles))
+    return log_path, corpus_path, len(rows)
+
+
+def interop_paths(tmp: str, fixture_dir: str, trained: dict) -> dict:
+    """(i) the train phase's 8-step CARS state through ``Checkpointer`` as
+    ``state.msgpack`` (the JAX package's format): read back bit for bit,
+    an ``Engine.from_checkpoint`` on it equal bit for bit to the Engine
+    over the weights in memory (``rank_batch`` over 64 requests, beam-5
+    ``suggest_batch`` over 64 histories), and the same state as a
+    ``state.pt`` directory (the port's format before msgpack) too; (ii)
+    ``prepare_data bm25`` on a click log of the AOL-scale fixture's first
+    ``INTEROP_SESSIONS`` train sessions over the distinct titles of their
+    slates, through the native scorer; (iii) ``cli.main`` CARS on the
+    prepared sessions for one epoch with the native vectorizer (its first
+    8 batches bit-equal to the Python vectorizer's), ``--resume`` for one
+    more epoch from its ``state.msgpack``, and ``--pretrained_path`` from
+    its best; (iv) beam-5 ``suggest_batch`` timed, with its host reads.
+    Returns {path: launches}."""
+    import shutil
+
+    from context_attentive_ir_tpu_torch.cli.main import (
+        build_parser,
+        main as cli_main,
+        prepare,
+    )
+    from context_attentive_ir_tpu_torch.cli.prepare_data import (
+        main as prepare_data,
+    )
+    from context_attentive_ir_tpu_torch.serve import Engine
+    from context_attentive_ir_tpu_torch.train import Checkpointer
+    from context_attentive_ir_tpu_torch.train.checkpoint import (
+        STATE_FILE,
+        TORCH_STATE_FILE,
+    )
+    from context_attentive_ir_tpu_torch.train.trainer import make_iterator
+
+    state, cfg = trained["state"], trained["config"]
+    word_dict, model = trained["word_dict"], trained["model"]
+    root = Path(tmp) / "interop"
+    launches = {}
+
+    # (i) the full-width state through state.msgpack
+    ckpt = Checkpointer(root / "runs", "cars")
+    t = time.perf_counter()
+    ckpt.save_latest(state, cfg, word_dict, {"epoch": 0})
+    ckpt.wait()
+    write_s = time.perf_counter() - t
+    path = ckpt.latest_path
+    mib = (path / STATE_FILE).stat().st_size / 2**20
+    t = time.perf_counter()
+    blob = Checkpointer.read_state(path)
+    read_s = time.perf_counter() - t
+    want = state.state_dict()
+    same = (blob["step"] == want["step"]
+            and blob["opt_state"]["count"] == want["opt_state"]["count"]
+            and all(torch.equal(blob["params"][n], t)
+                    for n, t in want["params"].items())
+            and all(torch.equal(blob["opt_state"][k][n], t)
+                    for k in ("mu", "nu")
+                    for n, t in want["opt_state"][k].items()))
+    log(f"interop: state.msgpack of the {state.step}-step CARS state "
+        f"(params + Adam moments) {mib:.1f} MiB, write {write_s:.3f} s "
+        f"(snapshot + encode + disk), read {read_s:.3f} s; read back bit "
+        f"for bit: {same}")
+    if not same:
+        raise AssertionError("interop: state.msgpack does not read back "
+                             "the saved state")
+    reqs, hists = requests(np.random.RandomState(5), word_dict, B)
+    mem = Engine(cfg, word_dict, model.state_dict(), beam_size=BEAM,
+                 batch_bucket=B)
+    loaded = Engine.from_checkpoint(path, beam_size=BEAM, batch_bucket=B)
+    with torch.inference_mode():
+        got_r, launches["rank_batch_msgpack"] = counted(
+            "rank_batch_msgpack", lambda: loaded.rank_batch(reqs))
+        got_s, launches["suggest_beam5_msgpack"] = counted(
+            "suggest_beam5_msgpack", lambda: loaded.suggest_batch(hists))
+        want_r, want_s = mem.rank_batch(reqs), mem.suggest_batch(hists)
+    log(f"interop: Engine.from_checkpoint(state.msgpack) equal to the "
+        f"in-memory Engine: rank_batch {got_r == want_r}, beam-5 "
+        f"suggest_batch {got_s == want_s}")
+    if got_r != want_r or got_s != want_s:
+        raise AssertionError("interop: the msgpack Engine differs")
+    old = root / "runs" / "cars_pt.mdl"
+    shutil.copytree(path, old)
+    (old / STATE_FILE).unlink()
+    torch.save(want, old / TORCH_STATE_FILE)
+    with torch.inference_mode():
+        pt_engine = Engine.from_checkpoint(old, beam_size=BEAM,
+                                           batch_bucket=B)
+        got_pt, launches["rank_batch_state_pt"] = counted(
+            "rank_batch_state_pt", lambda: pt_engine.rank_batch(reqs))
+    log(f"interop: a state.pt directory still loads: rank_batch equal "
+        f"{got_pt == want_r}")
+    if got_pt != want_r:
+        raise AssertionError("interop: the state.pt Engine differs")
+    del loaded, pt_engine, blob, want
+
+    # (iv) beam-5's walls and host reads (the early exit's finished.all(),
+    # the exact top-k's tied-row flag): the syncs a decode makes
+    def suggest():
+        with torch.inference_mode():
+            return mem.suggest_batch(hists)
+
+    log(f"interop: beam-5 suggest_batch steady wall ms (3 runs, B={B}): "
+        f"{json.dumps(steady_walls([('suggest_beam5', suggest)]))}")
+    host_reads("suggest_beam5", suggest)
+
+    # (ii) BM25 preparation of a click log
+    files = fit_files(fixture_dir)
+    log_path, corpus, n_clicks = write_click_log(files["train"], root,
+                                                 INTEROP_SESSIONS)
+    prepared = root / "bm25_train.jsonl"
+    t = time.perf_counter()
+    report = prepare_data(["bm25", "--log", str(log_path), "--corpus_file",
+                           str(corpus), "--output", str(prepared),
+                           "--num_candidates", str(N)])
+    bm25_s = time.perf_counter() - t
+    log(f"interop: prepare_data bm25 over {report['titles']} titles, "
+        f"{report['sessions']} sessions, {report['turns']} turns "
+        f"({n_clicks} log rows) in {bm25_s:.2f} s; turns with a click "
+        f"appended {report['appended']}, dropped {report['dropped']}, "
+        f"unmatched clicks {report['unmatched']}; native scorer "
+        f"{report['native']}")
+    if not report["native"]:
+        raise AssertionError("interop: the native BM25 scorer did not run")
+
+    # (iii) cli.main CARS on the prepared sessions
+    run_dir = root / "fit"
+    train = ["--train_file", str(prepared), "--dev_file", str(files["dev"]),
+             "--model_name", "cars_bm25"]
+    argv = fit_args("cars", files, str(run_dir), *train, "--num_epochs",
+                    "1")
+    _, run, trainer, train_s, _, _ = prepare(build_parser().parse_args(argv))
+    if trainer.fast is None:
+        raise AssertionError("interop: Trainer.fast is not set")
+    kw = dict(shuffle=True, seed=run.seed)
+    native_it = make_iterator(train_s, trainer.config, trainer.word_dict, B,
+                              fast=trainer.fast, **kw)
+    plain_it = make_iterator(train_s, trainer.config, trainer.word_dict, B,
+                             **kw)
+    for i, (a, b) in enumerate(zip(native_it.epoch(0), plain_it.epoch(0))):
+        if i == 8:
+            break
+        for f in ("query", "query_mask", "docs", "doc_mask", "clicks",
+                  "cand_mask", "turn_mask", "target_in", "target_out",
+                  "target_mask", "row_mask"):
+            if not np.array_equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"interop: native batch {i} differs "
+                                     f"in {f}")
+    pack_s = {}
+    for name, fv in (("native", trainer.fast), ("python", None)):
+        t = time.perf_counter()
+        make_iterator(train_s, trainer.config, trainer.word_dict, B,
+                      fast=fv, pack=True, **kw)
+        pack_s[name] = round(time.perf_counter() - t, 3)
+    log(f"interop: the first 8 batches native == Python; one-time pack of "
+        f"{len(train_s)} sessions, s: {json.dumps(pack_s)}")
+    del trainer, native_it, plain_it
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    res, launches["trainer_fit_bm25"] = counted(
+        "trainer_fit_bm25", lambda: cli_main(argv))
+    hist = res["fit"]["history"]
+    log(f"interop: cli.main on the BM25 corpus, 1 epoch + test in "
+        f"{time.perf_counter() - t:.1f} s: history "
+        + json.dumps([{k: round(v, 4) for k, v in h.items()} for h in hist])
+        + f"; test map {res['test']['map']:.4f}")
+    steps = -(-len(train_s) // B)
+    counts = launches["trainer_fit_bm25"]
+    pair = (counts["lstm_fused_res"], counts["lstm_fused_bwd"])
+    if pair != (4 * steps,) * 2:
+        raise AssertionError(f"interop: training-pair launches {counts}, "
+                             f"not 4 a step for {steps} steps")
+    latest = run_dir / "cars_bm25.mdl.checkpoint"
+    if not (latest / STATE_FILE).exists():
+        raise AssertionError("interop: the run wrote no state.msgpack")
+    res, launches["trainer_resume_bm25"] = counted(
+        "trainer_resume_bm25", lambda: cli_main(fit_args(
+            "cars", files, str(run_dir), *train, "--resume", "--num_epochs",
+            "2")))
+    epochs = [h["epoch"] for h in res["fit"]["history"]]
+    log(f"interop: --resume from {STATE_FILE} continued at epoch {epochs}")
+    if epochs != [1]:
+        raise AssertionError("interop: the resumed run did not start at "
+                             "epoch 1")
+    best = run_dir / "cars_bm25.mdl"
+    _, _, warm, _, _, _ = prepare(build_parser().parse_args(fit_args(
+        "cars", files, str(run_dir), "--train_file", str(prepared),
+        "--model_name", "cars_warm", "--pretrained_path", str(best))))
+    warm.init_state()
+    params = Checkpointer.read_state(best)["params"]
+    loaded_ok = all(torch.equal(p.detach().cpu(), params[n])
+                    for n, p in warm.model.named_parameters())
+    log(f"interop: --pretrained_path from the best's {STATE_FILE}: weights "
+        f"equal {loaded_ok}")
+    if not loaded_ok:
+        raise AssertionError("interop: --pretrained_path did not load")
+    del warm
+    torch.cuda.empty_cache()
+    # cli.main's log handlers (stdout, a file under tmp) end with the phase
+    root_logger = logging.getLogger()
+    for h in list(root_logger.handlers):
+        root_logger.removeHandler(h)
+        h.close()
+    return launches
+
+
 # -- phase 5: times ----------------------------------------------------------
 
 
@@ -3444,8 +3725,8 @@ EARLIER_MS = {"lstm_fused": 11.269, "lstm_fused_res": 11.256,
 # pool kernels' shares of "kernels"; a run with no selector runs every
 # other phase.
 PHASES = ("kernels", "lstm", "grukernels", "beamkernels", "slatekernels",
-          "serving", "train", "indexed", "gru", "small", "kernel6",
-          "trainer", "recommenders", "multitask", "rankers")
+          "serving", "train", "indexed", "interop", "gru", "small",
+          "kernel6", "trainer", "recommenders", "multitask", "rankers")
 SHARES = {"lstm", "grukernels", "beamkernels", "slatekernels"}
 
 
@@ -3540,10 +3821,13 @@ def main() -> int:
     if "serving" in run:
         with torch.inference_mode():
             launches.update(phase("serving", main_path))
+    # the cli.main phases share one set of fixtures
+    fixture_dir = tempfile.TemporaryDirectory()
     with tempfile.TemporaryDirectory() as tmp:
-        if run & {"train", "indexed"}:
-            # the indexed phase serves the train phase's checkpoint
-            train_launches, ms, ckpt_path = phase(
+        if run & {"train", "indexed", "interop"}:
+            # the indexed phase serves the train phase's checkpoint, the
+            # interop phase writes its state again
+            train_launches, ms, ckpt_path, trained = phase(
                 "train", lambda: train_path(tmp))
             launches.update(train_launches)
             train_ms.update(ms)
@@ -3554,6 +3838,10 @@ def main() -> int:
                     small_serving_check()
                 return out
             launches.update(phase("indexed", indexed))
+        if "interop" in run:
+            launches.update(phase("interop", lambda: interop_paths(
+                tmp, fixture_dir.name, trained)))
+            del trained
         if "gru" in run:
             gru_launches, ms = phase("gru", lambda: gru_paths(tmp))
             launches.update(gru_launches)
@@ -3563,11 +3851,9 @@ def main() -> int:
     if "kernel6" in run:
         with torch.inference_mode():
             launches.update(phase("kernel6", precomputed_path))
-    # the cli.main phases share one set of fixtures; the default run keeps
-    # --resume and the Trainer's timings for CARS alone (its time limit), a
-    # phase run alone keeps them for each of its models but the rankers
-    fixture_dir = tempfile.TemporaryDirectory()
-
+    # the default run keeps --resume and the Trainer's timings for CARS
+    # alone (its time limit), a phase run alone keeps them for each of its
+    # models but the rankers
     def resumed(*model_types):
         return model_types if full else None
 

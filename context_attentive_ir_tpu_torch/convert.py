@@ -26,13 +26,28 @@ from .config import ModelConfig
 from .models import build_model
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Iterator[tuple[str, object]]:
+def flatten_tree(tree: Mapping, prefix: str = ""
+                 ) -> Iterator[tuple[str, object]]:
+    """(dotted name, leaf) of every leaf of a nested tree (an empty map has
+    none)."""
     for k, v in tree.items():
         name = f"{prefix}{k}"
         if isinstance(v, Mapping):
-            yield from _flatten(v, name + ".")
+            yield from flatten_tree(v, name + ".")
         else:
             yield name, v
+
+
+def nest_tree(flat: Mapping) -> dict:
+    """Dotted names -> the nested tree (``flatten_tree``'s inverse)."""
+    out: dict = {}
+    for name, v in flat.items():
+        *path, leaf = name.split(".")
+        node = out
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
 
 
 def params_from_jax(params_np: Mapping,
@@ -45,7 +60,7 @@ def params_from_jax(params_np: Mapping,
     model = build_model(config, device="meta", seed=None)
     expected = {k: (tuple(v.shape), v.dtype)
                 for k, v in model.state_dict().items()}
-    flat = dict(_flatten(params_np))
+    flat = dict(flatten_tree(params_np))
     unknown = sorted(set(flat) - set(expected))
     missing = sorted(set(expected) - set(flat))
     if unknown or missing:

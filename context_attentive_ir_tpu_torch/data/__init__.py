@@ -1,7 +1,8 @@
 """Host-side data layer of the port: objects, dictionary, loaders, the
-synthetic fixtures, the vectorizer, the batch iterators and the packed /
-prefetching input pipeline."""
+synthetic fixtures, the vectorizer, the batch iterators, the packed /
+prefetching input pipeline and the BM25 slates."""
 
+from .bm25 import BM25Index
 from .dataset import BatchIterator, BucketedIterator
 from .dictionary import CharDictionary, Dictionary, build_dictionary
 from .loader import load_data, load_embedding_words, load_embeddings
@@ -31,7 +32,7 @@ from .vectorize import (
 )
 
 __all__ = [
-    "BatchIterator", "BucketedIterator", "CharDictionary", "Dictionary",
+    "BM25Index", "BatchIterator", "BucketedIterator", "CharDictionary", "Dictionary",
     "build_dictionary",
     "load_data", "load_embedding_words", "load_embeddings", "Document",
     "Query", "Session", "PackedBucketedIterator", "PackedIterator",

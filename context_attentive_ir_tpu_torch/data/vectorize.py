@@ -214,13 +214,17 @@ def suggest_examples(sessions: list[Session]
 
 
 def build_rank_batch(examples: list[Query], word_dict: Dictionary,
-                     shapes: ShapeConfig,
-                     batch_size: int | None = None) -> RankBatch:
+                     shapes: ShapeConfig, batch_size: int | None = None,
+                     fast=None) -> RankBatch:
     """One row per query: its ids and its first ``num_candidates``
     documents with their click labels; character ids too where
-    ``shapes.max_word_len > 0``."""
+    ``shapes.max_word_len > 0``.  ``fast``: a ``data.fast.FastVocab`` that
+    encodes the words natively (not the character ids), to the same
+    batch."""
     B = batch_size or len(examples)
     Lq, N, Ld = shapes.max_query_len, shapes.num_candidates, shapes.max_doc_len
+    if fast is not None and shapes.max_word_len == 0:
+        return _build_rank_batch_fast(examples, shapes, B, fast)
     query = np.full((B, Lq), PAD, np.int32)
     query_mask = np.zeros((B, Lq), bool)
     docs = np.full((B, N, Ld), PAD, np.int32)
@@ -246,12 +250,50 @@ def build_rank_batch(examples: list[Query], word_dict: Dictionary,
                      row_mask, q_chars, d_chars)
 
 
+def _build_rank_batch_fast(examples, shapes: ShapeConfig, B: int,
+                           fast) -> RankBatch:
+    """``build_rank_batch`` through the native vectorizer."""
+    Lq, N, Ld = (shapes.max_query_len, shapes.num_candidates,
+                 shapes.max_doc_len)
+    n = min(len(examples), B)
+    q_texts = [" ".join(q.tokens) for q in examples[:n]]
+    d_texts, labels_l, cand_l = [], [], []
+    for q in examples[:n]:
+        docs = q.documents[:N]
+        d_texts.extend(" ".join(d.tokens) for d in docs)
+        d_texts.extend([""] * (N - len(docs)))
+        labels_l.append([float(d.label) for d in docs]
+                        + [0.0] * (N - len(docs)))
+        cand_l.append([True] * len(docs) + [False] * (N - len(docs)))
+    q_ids, q_mask = fast.encode_batch(q_texts, Lq)
+    d_ids, d_mask = fast.encode_batch(d_texts, Ld)
+
+    query = np.full((B, Lq), PAD, np.int32)
+    query_mask = np.zeros((B, Lq), bool)
+    docs = np.full((B, N, Ld), PAD, np.int32)
+    doc_mask = np.zeros((B, N, Ld), bool)
+    labels = np.zeros((B, N), np.float32)
+    cand_mask = np.zeros((B, N), bool)
+    row_mask = np.zeros((B,), bool)
+    query[:n], query_mask[:n] = q_ids, q_mask
+    docs[:n] = d_ids.reshape(n, N, Ld)
+    doc_mask[:n] = d_mask.reshape(n, N, Ld)
+    labels[:n] = np.asarray(labels_l, np.float32).reshape(n, N)
+    cand_mask[:n] = np.asarray(cand_l, bool).reshape(n, N)
+    row_mask[:n] = True
+    return RankBatch(query, query_mask, docs, doc_mask, labels, cand_mask,
+                     row_mask)
+
+
 def build_suggest_batch(examples: list[tuple[list[Query], Query, Query]],
                         word_dict: Dictionary, shapes: ShapeConfig,
-                        batch_size: int | None = None) -> SuggestBatch:
+                        batch_size: int | None = None,
+                        fast=None) -> SuggestBatch:
     """``examples``: ``(context queries, current query, next query)`` per
     row; the last ``max_session_len`` context queries are kept and the next
-    query is the teacher-forced target."""
+    query is the teacher-forced target.  ``fast`` is taken and unused, as
+    in JAX: suggestion batches have no native path."""
+    del fast
     B = batch_size or len(examples)
     S, Lq = shapes.max_session_len, shapes.max_query_len
     Lt, Lsrc = shapes.max_target_len, shapes.max_source_len
@@ -281,11 +323,15 @@ def build_suggest_batch(examples: list[tuple[list[Query], Query, Query]],
 
 
 def build_session_batch(sessions: list[Session], word_dict: Dictionary,
-                        shapes: ShapeConfig,
-                        batch_size: int | None = None) -> SessionBatch:
+                        shapes: ShapeConfig, batch_size: int | None = None,
+                        fast=None) -> SessionBatch:
+    """One whole session a row; ``fast`` (a ``data.fast.FastVocab``)
+    encodes natively, to the same batch."""
     B = batch_size or len(sessions)
     S, Lq = shapes.max_session_len, shapes.max_query_len
     N, Ld, Lt = shapes.num_candidates, shapes.max_doc_len, shapes.max_target_len
+    if fast is not None:
+        return _build_session_batch_fast(sessions, shapes, B, fast)
     query = np.full((B, S, Lq), PAD, np.int32)
     query_mask = np.zeros((B, S, Lq), bool)
     docs = np.full((B, S, N, Ld), PAD, np.int32)
@@ -312,3 +358,69 @@ def build_session_batch(sessions: list[Session], word_dict: Dictionary,
         row_mask[i] = True
     return SessionBatch(query, query_mask, docs, doc_mask, clicks, cand_mask,
                         turn_mask, target_in, target_out, target_mask, row_mask)
+
+
+def _build_session_batch_fast(sessions, shapes: ShapeConfig, B: int,
+                              fast) -> SessionBatch:
+    """``build_session_batch`` through the native vectorizer: every text of
+    the batch (padded turns and slots as empty strings) in three native
+    calls, then the masks of the padding wiped."""
+    S, Lq = shapes.max_session_len, shapes.max_query_len
+    N, Ld, Lt = (shapes.num_candidates, shapes.max_doc_len,
+                 shapes.max_target_len)
+    n = min(len(sessions), B)
+    q_texts, d_texts, t_texts = [], [], []
+    clicks = np.zeros((B, S, N), np.float32)
+    cand_mask = np.zeros((B, S, N), bool)
+    turn_mask = np.zeros((B, S), bool)
+    has_target = np.zeros((B, S), bool)
+    row_mask = np.zeros((B,), bool)
+    for i, sess in enumerate(sessions[:n]):
+        qs = sess.queries[:S]
+        for t in range(S):
+            if t < len(qs):
+                q = qs[t]
+                q_texts.append(" ".join(q.tokens))
+                turn_mask[i, t] = True
+                docs_t = q.documents[:N]
+                d_texts.extend(" ".join(d.tokens) for d in docs_t)
+                d_texts.extend([""] * (N - len(docs_t)))
+                for j, d in enumerate(docs_t):
+                    clicks[i, t, j] = float(d.label)
+                    cand_mask[i, t, j] = True
+                if t + 1 < len(qs):
+                    t_texts.append(" ".join(qs[t + 1].tokens))
+                    has_target[i, t] = True
+                else:
+                    t_texts.append("")
+            else:
+                q_texts.append("")
+                t_texts.append("")
+                d_texts.extend([""] * N)
+        row_mask[i] = True
+
+    q_ids, q_mask = fast.encode_batch(q_texts, Lq)
+    d_ids, d_mask = fast.encode_batch(d_texts, Ld)
+    tin, tout, tmask = fast.encode_targets(t_texts, Lt)
+
+    query = np.full((B, S, Lq), PAD, np.int32)
+    query_mask = np.zeros((B, S, Lq), bool)
+    docs = np.full((B, S, N, Ld), PAD, np.int32)
+    doc_mask = np.zeros((B, S, N, Ld), bool)
+    target_in = np.full((B, S, Lt), PAD, np.int32)
+    target_out = np.full((B, S, Lt), PAD, np.int32)
+    target_mask = np.zeros((B, S, Lt), bool)
+    query[:n] = q_ids.reshape(n, S, Lq)
+    query_mask[:n] = q_mask.reshape(n, S, Lq)
+    docs[:n] = d_ids.reshape(n, S, N, Ld)
+    doc_mask[:n] = d_mask.reshape(n, S, N, Ld)
+    ht = has_target[:n].reshape(-1)
+    target_in[:n] = np.where(ht[:, None], tin, PAD).reshape(n, S, Lt)
+    target_out[:n] = np.where(ht[:, None], tout, PAD).reshape(n, S, Lt)
+    target_mask[:n] = (tmask & ht[:, None]).reshape(n, S, Lt)
+    # padded turns and slots: wipe the masks their empty strings left
+    query_mask[:n] &= turn_mask[:n, :, None]
+    doc_mask[:n] &= cand_mask[:n, :, :, None]
+    return SessionBatch(query, query_mask, docs, doc_mask, clicks, cand_mask,
+                        turn_mask, target_in, target_out, target_mask,
+                        row_mask)

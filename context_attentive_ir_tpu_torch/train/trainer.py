@@ -52,12 +52,15 @@ logger = logging.getLogger(__name__)
 
 def make_iterator(sessions: list[Session], config: ModelConfig,
                   word_dict: Dictionary, batch_size: int,
-                  shuffle: bool, seed: int,
+                  shuffle: bool, seed: int, fast=None,
                   session_buckets: tuple[int, ...] = (),
                   pack: bool = False):
     """The batch stream of ``config``'s family: (query, slate) rows for a
     ranker, whole sessions for the multitask family, (context, next query)
     pairs for a recommender.
+
+    ``fast``: a ``data.fast.FastVocab`` through which the ranker and
+    session vectorizers encode natively (the same batches).
 
     ``pack=True`` vectorizes the whole example list once and serves batches
     as row gathers (``data.pipeline.PackedIterator``, a bit-identical batch
@@ -69,7 +72,7 @@ def make_iterator(sessions: list[Session], config: ModelConfig,
     if family == "ranker":
         ex = rank_examples(sessions)
         collate = lambda e, batch_size=batch_size: build_rank_batch(
-            e, word_dict, shapes, batch_size=batch_size)
+            e, word_dict, shapes, batch_size=batch_size, fast=fast)
     elif family == "recommender":
         ex = suggest_examples(sessions)
         collate = lambda e, batch_size=batch_size: build_suggest_batch(
@@ -83,7 +86,7 @@ def make_iterator(sessions: list[Session], config: ModelConfig,
             def collate_b(e, bucket, batch_size=batch_size):
                 sh = dataclasses.replace(shapes, max_session_len=bucket)
                 return build_session_batch(e, word_dict, sh,
-                                           batch_size=batch_size)
+                                           batch_size=batch_size, fast=fast)
 
             if pack and ex:
                 it = PackedBucketedIterator(
@@ -97,7 +100,7 @@ def make_iterator(sessions: list[Session], config: ModelConfig,
                                     collate_b, batch_size, buckets,
                                     shuffle=shuffle, seed=seed)
         collate = lambda e, batch_size=batch_size: build_session_batch(
-            e, word_dict, shapes, batch_size=batch_size)
+            e, word_dict, shapes, batch_size=batch_size, fast=fast)
     if pack and ex:
         it = PackedIterator(ex, collate, batch_size, shuffle=shuffle,
                             seed=seed)
@@ -109,13 +112,12 @@ def make_iterator(sessions: list[Session], config: ModelConfig,
 
 def _check_run(run: RunConfig) -> None:
     """Raise for a runtime flag the port cannot honour yet."""
-    # the flag's default names the package's own single-file state; in the
-    # port that is state.pt
     if run.checkpoint_backend != "msgpack":
         raise NotImplementedError(
             f"checkpoint_backend={run.checkpoint_backend!r}: the port "
-            "writes its own state.pt checkpoints; other backends and "
-            "reading the JAX package's state.msgpack are ROADMAP items")
+            "reads and writes the JAX package's single-file state "
+            "(state.msgpack); orbax's per-array directories are a ROADMAP "
+            "item")
 
 
 class Trainer:
@@ -154,11 +156,18 @@ class Trainer:
         self.state: Optional[TrainState] = None
         self.start_epoch = 0
         self.best_valid = -np.inf
+        self.fast = None
         if run.native_vectorizer:
-            # "when buildable": the native vectorizer is not ported, and
-            # the Python one builds the same batches
-            logger.info("native fastvec vectorizer not ported: the Python "
-                        "vectorizer runs")
+            # when buildable: without g++ the Python vectorizer builds the
+            # same batches
+            from ..data.fast import FastVocab, available
+
+            if available():
+                self.fast = FastVocab(word_dict)
+                logger.info("native fastvec vectorizer enabled")
+            else:
+                logger.info("native fastvec unavailable: the Python "
+                            "vectorizer runs")
 
     # -- state setup ---------------------------------------------------------
 
@@ -196,11 +205,12 @@ class Trainer:
         run, config = self.run, self.config
         train_it = make_iterator(train_sessions, config, self.word_dict,
                                  run.batch_size, shuffle=True, seed=run.seed,
+                                 fast=self.fast,
                                  session_buckets=run.session_buckets,
                                  pack=run.pack_cache)
         dev_batches = list(make_iterator(
             dev_sessions, config, self.word_dict, run.test_batch_size,
-            shuffle=False, seed=0))
+            shuffle=False, seed=0, fast=self.fast))
         if self.state is None:
             self.init_state()
 
@@ -273,7 +283,7 @@ class Trainer:
             self.state = Checkpointer.load(self.ckpt.best_path, self.state)
         batches = list(make_iterator(
             test_sessions, self.config, self.word_dict,
-            self.run.test_batch_size, shuffle=False, seed=0))
+            self.run.test_batch_size, shuffle=False, seed=0, fast=self.fast))
         out = self.validate(batches, dump_prefix=dump_prefix)
         logger.info("\n%s", format_table([out], "test results"))
         self.metrics.write("test", **out)

@@ -105,8 +105,8 @@ def test_main_end_to_end_cars(files):
     for name in ("clismoke.test.ranks.jsonl", "clismoke.test.hyps.jsonl",
                  "clismoke.metrics.jsonl", "clismoke.txt"):
         assert (runs / name).exists() and (runs / name).read_text().strip()
-    assert (runs / "clismoke.mdl" / "state.pt").exists()
-    assert (runs / "clismoke.mdl.checkpoint" / "state.pt").exists()
+    assert (runs / "clismoke.mdl" / "state.msgpack").exists()
+    assert (runs / "clismoke.mdl.checkpoint" / "state.msgpack").exists()
     # --only_test reloads the saved model and reproduces the metrics; the
     # architecture comes from the checkpoint, not from the flags
     retest = main(["--model_type", "cars", "--only_test", "--test_file",

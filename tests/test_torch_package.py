@@ -1,6 +1,7 @@
 """Package rules of the PyTorch port: no JAX anywhere in it or in
-``chip_smoke.py``, entry points that refuse to fall back to the CPU, and
-kernels that stay unlaunched on CPU tensors."""
+``chip_smoke.py`` (nor flax's ``msgpack`` and ``ml_dtypes``, which the
+card's machine lacks), entry points that refuse to fall back to the CPU,
+and kernels that stay unlaunched on CPU tensors."""
 
 import ast
 import subprocess
@@ -18,13 +19,14 @@ from context_attentive_ir_tpu_torch.ops.kernels import beamgen, lstm
 from context_attentive_ir_tpu_torch.serve import Engine
 
 ROOT = Path(__file__).resolve().parent.parent
-BANNED_ROOTS = {"jax", "flax", "optax"}
+BANNED_ROOTS = {"jax", "flax", "optax", "msgpack", "ml_dtypes"}
 JAX_PACKAGE = "context_attentive_ir_tpu"
 
 
 def _banned(module: str) -> bool:
-    """True for jax/flax/optax and for the JAX package itself -- matched
-    as a module path, so ``context_attentive_ir_tpu_torch`` passes."""
+    """True for jax/flax/optax/msgpack/ml_dtypes and for the JAX package
+    itself -- matched as a module path, so
+    ``context_attentive_ir_tpu_torch`` passes."""
     return (module.split(".")[0] in BANNED_ROOTS or module == JAX_PACKAGE
             or module.startswith(JAX_PACKAGE + "."))
 
@@ -44,6 +46,7 @@ def _port_sources():
 
 def test_banned_matcher_is_exact():
     assert _banned("jax.numpy") and _banned("flax") and _banned("optax")
+    assert _banned("msgpack") and _banned("ml_dtypes")
     assert _banned("context_attentive_ir_tpu")
     assert _banned("context_attentive_ir_tpu.ops.rnn")
     assert not _banned("context_attentive_ir_tpu_torch.ops.rnn")
@@ -136,6 +139,9 @@ TRAINER_MODULES = (
     "data.synthetic", "decode.penalties", "eval.bleu", "eval.rank_metrics",
     "eval.rouge", "eval.text_metrics", "train.evaluate", "train.trainer",
     "utils.logging", "utils.meters",
+    # the checkpoint codec and the data-preparation path
+    "train.checkpoint", "train.flax_msgpack", "train.vocab_expand",
+    "cli.prepare_data", "data.bm25", "data.fast", "data.fast_bm25",
 )
 
 
@@ -156,7 +162,8 @@ def test_importing_the_port_loads_no_jax():
         "for m in mods + ('serve', 'ops.kernels.lstm'):\n"
         "    importlib.import_module('context_attentive_ir_tpu_torch.' + m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'context_attentive_ir_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'ml_dtypes', "
+        "'context_attentive_ir_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

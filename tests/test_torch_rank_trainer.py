@@ -154,7 +154,8 @@ def test_rank_dump_and_checkpoints(pair):
     assert not (tmp / "port" / "m.test.hyps.jsonl").exists()
     port_dir = tmp / "port"
     best, latest = port_dir / "m.mdl", port_dir / "m.mdl.checkpoint"
-    assert (best / "state.pt").exists() and (latest / "state.pt").exists()
+    assert ((best / "state.msgpack").exists()
+            and (latest / "state.msgpack").exists())
     assert Checkpointer.peek(latest)[2]["epoch"] == 2
 
 

@@ -339,7 +339,7 @@ def test_checkpoint_round_trip(setup, tmp_path):
     for k in ("mu", "nu"):
         for n, t in state.opt_state[k].items():
             assert torch.equal(t, other.opt_state[k][n]), (k, n)
-    blob = torch.load(ckpt.best_path / "state.pt", weights_only=True)
+    blob = Checkpointer.read_state(ckpt.best_path)
     assert set(blob) == {"params", "opt_state", "step"}
 
 

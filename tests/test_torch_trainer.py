@@ -220,7 +220,8 @@ def test_decode_init_full_fallback_count(cars):
 def test_checkpoints_and_metrics_file(pair):
     port_dir = pair["tmp"] / "port"
     best, latest = port_dir / "m.mdl", port_dir / "m.mdl.checkpoint"
-    assert (best / "state.pt").exists() and (latest / "state.pt").exists()
+    assert ((best / "state.msgpack").exists()
+            and (latest / "state.msgpack").exists())
     _, vocab, extra = Checkpointer.peek(latest)
     assert extra["epoch"] == 2 and len(vocab) == len(pair["word_dict"])
     hist = pair["port_fit"]["history"]
