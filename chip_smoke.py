@@ -1288,7 +1288,7 @@ def synthetic_dictionary(vocab: int):
 
 
 def requests(rng, word_dict, n: int):
-    words = word_dict.tokens()
+    words = np.asarray(word_dict.tokens())
 
     def text(lo, hi):
         return " ".join(rng.choice(words, size=rng.randint(lo, hi + 1)))
@@ -1328,11 +1328,59 @@ def counters() -> dict:
             "gru_fused_bwd": (gru.gru_fused_bwd, "launches")}
 
 
+# The generator kernel each fused decode path must launch, fixed here and
+# not read from the dispatch table, so that a rewritten table cannot move
+# a launch-count check with it: the pruned serial kernel on the beam paths
+# (the table's beam_gen_prune row at 1,600 rows, kc 6: 0.5944 ms against
+# 1.2138 unpruned), the unpruned one for greedy (its row at 320 rows,
+# kc 2: pruning 0.1747 against 0.1713, inside NEAR_TIE_MARGIN, so off).
+# table_choices() holds the committed table to these choices.
+BEAM_GEN = "generator_topk_lse_pruned"
+GREEDY_GEN = "generator_topk_lse"
+
+
+def table_choices() -> None:
+    """The committed dispatch table makes the choices PATH_KERNELS expects
+    at every row count the paths give the decode step (buckets of 1-64
+    requests, whole or in two shards), and no row of it sends an RNN or a
+    decode step to its plain version."""
+    from context_attentive_ir_tpu_torch.ops import dispatch
+
+    dispatch.reload_table()
+    table = dispatch._load_table()
+    m = dispatch.NEAR_TIE_MARGIN
+    plain = [e for e in table
+             if (e["kind"] in ("lstm", "gru")
+                 and e["scan_ms"] < (1 - m) * e["kernel_ms"])
+             or (e["kind"] == "beam_gen"
+                 and e["xla_ms"] < (1 - m) * e["fused_ms"])]
+    kernel = {BEAM + 1: BEAM_GEN, 2: GREEDY_GEN}
+    got = {}
+    for kc, want in kernel.items():
+        for rows in sorted({r * S * (kc - 1 if kc > 2 else 1)
+                            for r in (1, 2, 4, 8, B // 2, B)}):
+            pick = ("generator_topk_lse_pipelined"
+                    if dispatch.prefer_pipelined_generator(rows, kc)
+                    else "generator_topk_lse_pruned"
+                    if dispatch.prefer_pruned_generator(rows, kc)
+                    else "generator_topk_lse")
+            if pick != want or not dispatch.prefer_fused_generator(
+                    rows, VOCAB, EMSIZE, kc, t=LQ):
+                got[f"{rows}x{kc}"] = pick
+    log(f"dispatch table: {len(table)} rows, none preferring a plain "
+        f"version: {not plain}; the generator choices PATH_KERNELS expects "
+        f"({json.dumps({str(k): v for k, v in kernel.items()})}) hold at "
+        f"every row count: {not got}")
+    if plain or got:
+        raise AssertionError(f"the committed dispatch table moved a main "
+                             f"path's kernel: {plain} {got}")
+
+
 # the kernels each main-path call launches; every other count stays 0
 PATH_KERNELS = {
     "rank_batch": ("lstm_fused",),
-    "suggest_beam5": ("lstm_fused", "generator_topk_lse_pruned"),
-    "suggest_greedy": ("lstm_fused", "generator_topk_lse_pruned"),
+    "suggest_beam5": ("lstm_fused", BEAM_GEN),
+    "suggest_greedy": ("lstm_fused", GREEDY_GEN),
     "train_step": ("lstm_fused_res", "lstm_fused_bwd"),
     "eval_loss": ("lstm_fused",),
     "index_documents": ("lstm_fused",),
@@ -1342,14 +1390,14 @@ PATH_KERNELS = {
     "rank_indexed_proj": ("lstm_fused",),
     "rank_batch_slate": ("lstm_fused", "attn_pool"),
     "suggest_beam5_int8": ("lstm_fused", "generator_topk_lse_int8"),
-    "suggest_shortlist": ("lstm_fused", "generator_topk_lse_pruned"),
+    "suggest_shortlist": ("lstm_fused", BEAM_GEN),
     # suggest init of the slate Engine pools the B*S*C clicked docs
     "decode_unpruned": ("lstm_fused", "generator_topk_lse", "attn_pool"),
     "decode_pipelined": ("lstm_fused", "generator_topk_lse_pipelined",
                          "attn_pool"),
     # CARS with GRU encoders and session recurrences, and HRED-QS (GRU)
     "rank_batch_gru": ("gru_fused",),
-    "suggest_beam5_gru": ("gru_fused", "generator_topk_lse_pruned"),
+    "suggest_beam5_gru": ("gru_fused", BEAM_GEN),
     "train_step_gru": ("gru_fused_res", "gru_fused_bwd"),
     "eval_loss_gru": ("gru_fused",),
     "suggest_beam5_hredqs": ("gru_fused",),
@@ -1399,11 +1447,24 @@ PATH_KERNELS = {
     # interop: the Engine over a state.msgpack (and a state.pt) directory,
     # cli.main on the BM25-prepared corpus
     "rank_batch_msgpack": ("lstm_fused",),
-    "suggest_beam5_msgpack": ("lstm_fused", "generator_topk_lse_pruned"),
+    "suggest_beam5_msgpack": ("lstm_fused", BEAM_GEN),
     "rank_batch_state_pt": ("lstm_fused",),
     "trainer_fit_bm25": ("lstm_fused", "lstm_fused_res", "lstm_fused_bwd"),
     "trainer_resume_bm25": ("lstm_fused", "lstm_fused_res",
                             "lstm_fused_bwd"),
+    # parallel: the steps and the Engine on a two-replica mesh (one card
+    # twice, and two cards where there are); each replica launches the
+    # kernels of its shard
+    **{f"{p}_{mesh}{dt}": k for mesh in ("mesh2", "cards2")
+       for dt in ("", "_bf16") for p, k in (
+           ("train_step", ("lstm_fused_res", "lstm_fused_bwd")),
+           ("rank_batch", ("lstm_fused", "attn_pool")),
+           ("suggest_beam5", ("lstm_fused", BEAM_GEN, "attn_pool")),
+           ("index_documents", ("lstm_fused",)),
+           ("rank_indexed", ("lstm_fused", "attn_pool")),
+           ("rank_batch_min", ("lstm_fused", "attn_pool")),
+           ("suggest_beam5_min", ("lstm_fused", BEAM_GEN, "attn_pool")),
+           ("rank_indexed_min", ("lstm_fused", "attn_pool")))},
 }
 # exact encoder launches where they are fixed: CARS runs its query and doc
 # encoders (suggest: the clicked docs), two directions each; HRED-QS its
@@ -1433,6 +1494,13 @@ EXACT_LAUNCHES = {
     "rank_batch_match_tensor_gru": {"gru_fused": 4},
     "rank_batch_msgpack": {"lstm_fused": 4},
     "rank_batch_state_pt": {"lstm_fused": 4},
+    # two replicas: twice one replica's encoder launches
+    **{f"{p}_{mesh}{dt}": k for mesh in ("mesh2", "cards2")
+       for dt in ("", "_bf16") for p, k in (
+           ("train_step", {"lstm_fused_res": 8, "lstm_fused_bwd": 8}),
+           ("rank_batch", {"lstm_fused": 8}),
+           ("index_documents", {"lstm_fused": 4}),
+           ("rank_batch_min", {"lstm_fused": 8}))},
 }
 
 
@@ -1532,7 +1600,7 @@ def where_time_goes(name: str, fn) -> None:
 
 
 def corpus_texts(rng, word_dict, n: int) -> list[str]:
-    words = word_dict.tokens()
+    words = np.asarray(word_dict.tokens())
     return [" ".join(rng.choice(words, size=rng.randint(5, LD + 1)))
             for _ in range(n)]
 
@@ -2068,7 +2136,7 @@ def gru_paths(ckpt_dir: str) -> tuple[dict, dict]:
 def rec_histories(rng, word_dict, n: int) -> list[list[str]]:
     """``n`` histories of S_REC query texts of 2..Lq words: flat sources of
     up to S_REC * Lq tokens."""
-    words = word_dict.tokens()
+    words = np.asarray(word_dict.tokens())
     return [[" ".join(rng.choice(words, size=rng.randint(2, LQ + 1)))
              for _ in range(S_REC)] for _ in range(n)]
 
@@ -3696,6 +3764,402 @@ def ptxas_summary(text: str) -> str:
     return "ptxas per kernel:\n" + "\n".join(lines)
 
 
+# -- the parallel phase: data parallelism over a device mesh -----------------
+
+MESH_STEPS = 4          # Adam steps sharded against the same unsharded
+MESH_CORPUS = 4_000     # documents of the sharded index
+MESH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# float32 parameters after one Adam step from the same state, at an
+# element whose gradient stands clear of rounding noise (NOISE_TAU)
+PARAM_TOL = 1e-6
+# the whole-batch gradient reduced on the primary against the single one,
+# every element, relative to the single gradient's largest element
+GRAD_TOL = 1e-5
+# An element of the single run's gradient below NOISE_TAU times its
+# largest element (over the model) is rounding noise, decided from the
+# single run alone: a sum that cancels far below its terms (the listwise
+# loss does not change when every score of a slate shifts by one
+# constant, so the score bias's gradient is 0 up to rounding).  Adam
+# divides a gradient by its own size, so two summation orders can move
+# such an element by up to lr each, opposite ways: a noise element is
+# held to 2 lr, and at most NOISE_SHARE of a leaf's elements may use that
+# bound, unless the leaf's whole gradient is noise.  The score MLP's first
+# bias cancels the same way at a unit active on every document of a slate:
+# in one H100 step 27 of its 256 elements (10.5 %) used the bound, the
+# largest share of any leaf, and 521 of 66,436,100 element updates in all
+# over the 4 steps.
+NOISE_TAU = 1e-3
+NOISE_SHARE = 0.25
+TAUS = (1e-6, 1e-5, 1e-4, 1e-3, 1e-2)   # logged beside NOISE_TAU
+
+
+def mesh_train(name: str, mesh, dtype: str) -> dict:
+    """MESH_STEPS Adam steps of CARS at the serving widths (dropout 0) on
+    ``mesh`` against the unsharded step, on a ragged batch (uneven valid
+    rows, tokens and clicks across shards), two ways from one init.  Free
+    running, as a user trains: every step's loss and grad norm within
+    MESH_TOL relative.  Step by step, each sharded step starting from the
+    unsharded run's weights and optimizer state (float32): the reduced
+    gradient within GRAD_TOL of the single one's largest element, and the
+    updated parameters within PARAM_TOL, or within 2 lr at an element
+    whose single-run gradient is rounding noise (NOISE_TAU; at most
+    NOISE_SHARE of a leaf).  Returns the launches of the counted sharded
+    step."""
+    from context_attentive_ir_tpu_torch.models.multitask.cars import CARS
+    from context_attentive_ir_tpu_torch.parallel import shard_batch
+    from context_attentive_ir_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+    )
+
+    cfg = full_width_config("cars", compute_dtype=dtype)
+    host = random_session_batch(np.random.RandomState(7), ragged=True)
+    models, states, steps, grads = [], [], [], []
+    # single, sharded free running, sharded from the single's state
+    for m in (None, mesh, mesh):
+        model = CARS(cfg, device=mesh.primary, seed=0)
+        state = create_train_state(model, cfg)
+        seen = {}
+
+        def keep(params, g, opt_state, apply=state.tx.apply, seen=seen):
+            seen.clear()
+            seen.update({n: t.detach().float().clone()
+                         for n, t in g.items() if t is not None})
+            return apply(params, g, opt_state)
+
+        state.tx.apply = keep
+        models.append(model)
+        states.append(state)
+        steps.append(make_train_step(model, cfg, m))
+        grads.append(seen)
+    single, free, synced = states
+    f32 = dtype == "float32"
+    lr = cfg.learning_rate
+    launches, rel, per_step = None, 0.0, []
+    grad_err, worst, where, n_excused, excused_err = 0.0, 0.0, "", 0, 0.0
+    share, share_at, n_el = 0.0, "", 0
+    by_tau = {t: [0.0, 0] for t in TAUS}  # worst clear diff, noise diffs
+    for i in range(MESH_STEPS):
+        with torch.no_grad():
+            for p, q in zip(models[2].parameters(), models[0].parameters()):
+                p.copy_(q)
+            for k, v in single.opt_state.items():
+                if isinstance(v, dict):
+                    for n, t in v.items():
+                        synced.opt_state[k][n].copy_(t)
+                else:
+                    synced.opt_state[k] = v
+            synced.step = single.step
+        _, out3 = steps[1](free, shard_batch(host, mesh), 1)
+        shards = shard_batch(host, mesh)
+        if i == 1:
+            (_, out2), launches = counted(
+                f"train_step_{name}", lambda: steps[2](synced, shards, 1))
+        else:
+            _, out2 = steps[2](synced, shards, 1)
+        _, out1 = steps[0](single, host.to(mesh.primary), 1)
+        pair = [(float(out1[k]), float(out3[k]), float(out2[k]))
+                for k in ("loss", "grad_norm")]
+        per_step.append(pair)
+        rel = max([rel] + [abs(a - b) / max(abs(a), 1e-30)
+                           for a, *bs in pair for b in bs])
+        if not f32:
+            continue
+        g1, g2 = grads[0], grads[2]
+        top = max(float(t.abs().max()) for t in g1.values())
+        grad_err = max([grad_err] + [float((g2[n] - g1[n]).abs().max())
+                                     / top for n in g1])
+        for (n, p2), p1 in zip(models[2].named_parameters(),
+                               models[0].parameters()):
+            diff = (p2.detach().float() - p1.detach().float()).abs()
+            n_el += diff.numel()
+            g = g1[n].abs() if n in g1 else torch.zeros_like(diff)
+            for t, acc in by_tau.items():
+                clear = g >= t * top
+                if bool(clear.any()):
+                    acc[0] = max(acc[0], float(diff[clear].max()))
+                acc[1] += int(((~clear) & (diff > PARAM_TOL)).sum())
+            noise = g < NOISE_TAU * top
+            clear = diff[~noise]
+            if clear.numel() and float(clear.max()) > worst:
+                worst, where = float(clear.max()), n
+            excused = noise & (diff > PARAM_TOL)
+            k = int(excused.sum())
+            if k:
+                n_excused += k
+                excused_err = max(excused_err, float(diff[excused].max()))
+                if not bool(noise.all()) and k / diff.numel() > share:
+                    share, share_at = k / diff.numel(), n
+    tol = MESH_TOL[dtype]
+    log(f"train_step_{name} ({dtype}, {mesh.size} replicas on "
+        f"{[str(d) for d in mesh.devices]}): (loss, grad norm) single, "
+        f"sharded free running, sharded from the single's state a step "
+        f"{json.dumps(per_step)}, max rel diff {rel:.3e} (tol {tol})")
+    if f32:
+        log(f"train_step_{name} step by step: reduced gradient max abs "
+            f"diff {grad_err:.3e} of the largest element (tol {GRAD_TOL}); "
+            f"updated parameters max abs diff {worst:.3e} at {where} (tol "
+            f"{PARAM_TOL}) where the single gradient is at least "
+            f"{NOISE_TAU} of the largest; {n_excused} of {n_el} element "
+            f"updates below it and past {PARAM_TOL}, at most "
+            f"{excused_err:.3e} (tol 2 lr = {2 * lr:.1e}), at most "
+            f"{share:.3%} of a leaf ({share_at or '-'}; tol "
+            f"{NOISE_SHARE:.0%}); by threshold (worst clear diff, noise "
+            f"updates past {PARAM_TOL}): "
+            f"{json.dumps({str(t): v for t, v in by_tau.items()})}")
+    if not (rel <= tol and (not f32 or (
+            grad_err <= GRAD_TOL and worst <= PARAM_TOL
+            and excused_err <= 2 * lr and share <= NOISE_SHARE))):
+        raise AssertionError(f"train_step_{name} ({dtype}) disagrees with "
+                             "the unsharded step")
+    return launches
+
+
+def mesh_serving(name: str, mesh, dtype: str) -> dict:
+    """The sharded Engine against the single one at B = 64: rank_batch,
+    beam-5 suggest_batch, index_documents + rank_indexed_batch with the
+    slate kernel, then a bucket of one request a shard.  Scores within
+    MESH_TOL (suggestion scores relative to their size), float32
+    suggestion tokens equal.  Returns {path: launches}."""
+    from context_attentive_ir_tpu_torch.models.multitask.cars import CARS
+    from context_attentive_ir_tpu_torch.serve import Engine
+
+    cfg = full_width_config("cars", compute_dtype=dtype,
+                            use_pallas_slate=True)
+    word_dict = synthetic_dictionary(VOCAB)
+    params = CARS(cfg, device=mesh.primary, seed=0).state_dict()
+    single = Engine(cfg, word_dict, params, beam_size=BEAM, batch_bucket=B,
+                    device=mesh.primary)
+    sharded = Engine(cfg, word_dict, params, beam_size=BEAM, batch_bucket=B,
+                     mesh=mesh)
+    rng = np.random.RandomState(11)
+    reqs, hists = requests(rng, word_dict, B)
+    corpus = corpus_texts(rng, word_dict, MESH_CORPUS)
+    ids = [[int(i) for i in rng.choice(MESH_CORPUS, N, replace=False)]
+           for _ in range(B)]
+    plain = [(h[-1], d, [q for q, _ in h[:-1]]) for h, d in zip(hists, ids)]
+    index_1 = single.index_documents(corpus)
+    launches = {}
+    suf = "" if dtype == "float32" else "_bf16"
+    index_2, launches[f"index_documents_{name}{suf}"] = counted(
+        f"index_documents_{name}{suf}",
+        lambda: sharded.index_documents(corpus))
+    tol = MESH_TOL[dtype]
+    worst = {"index_states": float((index_2["states"].float()
+                                    - index_1["states"].float())
+                                   .abs().max())}
+    small = Engine(cfg, word_dict, params, beam_size=BEAM, batch_bucket=2,
+                   mesh=mesh)
+    small_1 = Engine(cfg, word_dict, params, beam_size=BEAM,
+                     batch_bucket=2, device=mesh.primary)
+    calls = (
+        ("rank_batch", lambda e: e.rank_batch(reqs), sharded, single),
+        ("suggest_beam5", lambda e: e.suggest_batch(hists), sharded, single),
+        ("rank_indexed", lambda e: e.rank_indexed_batch(
+            plain, index_2 if e is sharded else index_1), sharded, single),
+        ("rank_batch_min", lambda e: e.rank_batch(reqs[:2]), small,
+         small_1),
+        ("suggest_beam5_min", lambda e: e.suggest_batch(hists[:2]), small,
+         small_1),
+        ("rank_indexed_min", lambda e: e.rank_indexed_batch(
+            plain[:2], index_2 if e is small else index_1), small,
+         small_1))
+    same_tokens = True
+    for path, fn, eng, ref in calls:
+        key = f"{path}_{name}{suf}"
+        got, launches[key] = counted(key, lambda: fn(eng))
+        want = fn(ref)
+        if path.startswith("suggest"):
+            # a beam score is a sum of 16 log-probabilities (|score| ~ 80
+            # with random weights), each step's logsumexp merged over
+            # vocab splits that follow the row count: held relative
+            same_tokens &= ([[t for t, _ in nb] for nb in got]
+                            == [[t for t, _ in nb] for nb in want])
+            err = max(abs(a[1] - b[1]) / max(1.0, abs(b[1]))
+                      for x, y in zip(got, want) for a, b in zip(x, y))
+        else:
+            err = float(np.abs(np.asarray(got) - np.asarray(want)).max())
+        worst[path] = err
+    walls = steady_walls((
+        ("rank_batch single", lambda: single.rank_batch(reqs)),
+        ("rank_batch sharded", lambda: sharded.rank_batch(reqs)),
+        ("suggest_beam5 single", lambda: single.suggest_batch(hists)),
+        ("suggest_beam5 sharded", lambda: sharded.suggest_batch(hists))))
+    log(f"Engine on {name} ({dtype}) steady wall ms (3 runs each, B={B}): "
+        f"{json.dumps(walls)}")
+    log(f"Engine on {name} ({dtype}, {mesh.size} replicas, buckets "
+        f"{sharded.batch_bucket} and {small.batch_bucket}) against the "
+        f"single Engine: max abs diff (suggestions: relative) "
+        f"{json.dumps(worst)} (tol {tol}), "
+        f"suggestion tokens equal: {same_tokens}; launches "
+        f"{json.dumps({k: {n: c for n, c in v.items() if c} for k, v in launches.items()})}")
+    if max(worst.values()) > tol or (dtype == "float32"
+                                     and not same_tokens):
+        raise AssertionError(f"the Engine on {name} ({dtype}) disagrees "
+                             "with the single Engine")
+    return launches
+
+
+def request_batch_ms(eng, reqs) -> dict:
+    """The request -> batch host ms of ``rank_batch`` (sessions and
+    ``build_session_batch``, no device work) through ``utils.timed``, and
+    one ``rank_batch`` under ``utils.profile_trace``: its trace file, wall
+    and device-busy ms."""
+    from context_attentive_ir_tpu_torch.data import build_session_batch
+    from context_attentive_ir_tpu_torch.utils import profile_trace, timed
+
+    def host_batch():
+        sessions = [eng._to_sessions(h, q, d) for q, d, h in reqs]
+        return build_session_batch(sessions, eng.word_dict, eng.shapes,
+                                   batch_size=eng._bucket(len(sessions)))
+
+    host_batch()
+    runs = []
+    for _ in range(3):
+        with timed() as box:
+            host_batch()
+        runs.append(box["seconds"] * 1e3)
+    with tempfile.TemporaryDirectory() as logdir:
+        with profile_trace(logdir) as prof:
+            with timed() as wall:
+                scores = eng.rank_batch(reqs)
+        trace = Path(logdir) / "trace.json"
+        size = trace.stat().st_size if trace.exists() else 0
+    from torch.autograd import DeviceType
+
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    out = {"request_to_batch_ms": runs, "rank_batch_profiled_ms":
+           wall["seconds"] * 1e3, "device_busy_ms": busy,
+           "trace_bytes": size}
+    log(f"rank_batch B={len(reqs)}: request -> batch host ms (utils.timed, "
+        f"3 runs) {[round(r, 2) for r in runs]}; one call under "
+        f"utils.profile_trace: wall {out['rank_batch_profiled_ms']:.1f} ms, "
+        f"device busy {busy:.1f} ms, trace.json {size} bytes")
+    if size == 0 or len(scores) != len(reqs):
+        raise AssertionError("profile_trace wrote no trace")
+    return out
+
+
+def other_card_launch() -> None:
+    """Kernels 1 and 2 on tensors of card 1 while card 0 is current must
+    give the bits they give on card 0 (the launchers set up and launch on
+    the current device; the wrappers make the operands' card current)."""
+    from context_attentive_ir_tpu_torch.ops.kernels.beamgen import (
+        generator_topk_lse,
+    )
+    from context_attentive_ir_tpu_torch.ops.kernels.lstm import lstm_fused
+
+    gen = torch.Generator(device="cuda:0").manual_seed(3)
+    (x, w_ih, b, w_hh), mask = lstm_inputs(gen, torch.bfloat16, rows=1280)
+    bx, tt = beamgen_inputs(gen, B * S * BEAM, torch.bfloat16, False)
+    args = {"lstm_fused": (lstm_fused, (x, mask, w_ih, b, w_hh)),
+            "generator_topk_lse": (generator_topk_lse, (bx, tt, BEAM + 1))}
+    same = {}
+    with torch.cuda.device(0):
+        for name, (fn, xs) in args.items():
+            a = fn(*xs)
+            c = fn(*(t.to("cuda:1") if isinstance(t, torch.Tensor) else t
+                     for t in xs))
+            torch.cuda.synchronize(1)
+            a = a if isinstance(a, tuple) else (a,)
+            c = c if isinstance(c, tuple) else (c,)
+            same[name] = all(torch.equal(p, q.to("cuda:0"))
+                             for p, q in zip(a, c))
+    log(f"kernels on card 1 with card 0 current give card 0's bits: "
+        f"{json.dumps(same)}")
+    if not all(same.values()):
+        raise AssertionError("a kernel launched on the wrong card")
+
+
+def refuses_plain(eng, hists) -> None:
+    """On the card a dispatch-table row that prefers a plain version
+    raises instead of trading the kernel for it: an RNN row preferring the
+    scan (RNNLayer.kernel_ok), a beam_gen row preferring the logits step
+    (the Engine's decode step).  The committed table comes back after."""
+    from context_attentive_ir_tpu_torch.ops import dispatch
+    from context_attentive_ir_tpu_torch.ops.rnn import RNNLayer
+    from context_attentive_ir_tpu_torch.serve import ServeError
+
+    layer = RNNLayer(EMSIZE, NHID, use_kernel=True, dtype=torch.bfloat16,
+                     device="cuda")
+    x = torch.randn(B, LQ, EMSIZE, device="cuda")
+    mask = torch.ones(B, LQ, dtype=torch.bool, device="cuda")
+    cases = (
+        ("rnn_scan", {"kind": "lstm", "mode": "infer", "t": LQ,
+                      "e": EMSIZE, "h": NHID, "dtype": "bfloat16",
+                      "rows": B, "kernel_ms": 9.0, "scan_ms": 1.0},
+         lambda: torch.no_grad()(layer)(x, mask), ValueError),
+        ("logits_step", {"kind": "beam_gen", "rows": B * S * BEAM,
+                         "v": VOCAB, "e": EMSIZE, "kc": BEAM + 1,
+                         "fused_ms": 9.0, "xla_ms": 1.0},
+         lambda: eng.suggest_batch(hists[:1]), ServeError))
+    refused = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "table.json"
+        old, dispatch.TABLE_PATH = dispatch.TABLE_PATH, path
+        try:
+            for name, row, fn, err in cases:
+                dispatch.write_table([row], path)
+                try:
+                    fn()
+                    refused[name] = False
+                except err:
+                    refused[name] = True
+        finally:
+            dispatch.TABLE_PATH = old
+            dispatch.reload_table()
+    log(f"a table row preferring a plain version raises on the card: "
+        f"{json.dumps(refused)}")
+    if not all(refused.values()):
+        raise AssertionError("a dispatch-table row sent the card to a "
+                             "plain version")
+
+
+def parallel_paths() -> dict:
+    """The parallel phase: the train step and the Engine on a two-replica
+    mesh of the one card (and of two cards where there are two), in
+    float32 and bfloat16, against their unsharded selves; the request ->
+    batch host ms; the dispatch table's readings taken again beside the
+    committed table's choices.  Returns {path: launches}."""
+    from context_attentive_ir_tpu_torch.ops import dispatch
+    from context_attentive_ir_tpu_torch.parallel import make_mesh
+    from context_attentive_ir_tpu_torch.serve import Engine
+
+    meshes = [("mesh2", make_mesh(["cuda:0", "cuda:0"]))]
+    if torch.cuda.device_count() >= 2:
+        meshes.append(("cards2", make_mesh(["cuda:0", "cuda:1"])))
+        other_card_launch()
+    launches = {}
+    for name, mesh in meshes:
+        for dtype in ("float32", "bfloat16"):
+            suf = "" if dtype == "float32" else "_bf16"
+            launches[f"train_step_{name}{suf}"] = mesh_train(
+                f"{name}{suf}", mesh, dtype)
+            launches.update(mesh_serving(name, mesh, dtype))
+
+    from context_attentive_ir_tpu_torch.models.multitask.cars import CARS
+
+    cfg = full_width_config("cars")
+    word_dict = synthetic_dictionary(VOCAB)
+    eng = Engine(cfg, word_dict, CARS(cfg, device="cuda", seed=0)
+                 .state_dict(), beam_size=BEAM, batch_bucket=B)
+    reqs, hists = requests(np.random.RandomState(0), word_dict, B)
+    request_batch_ms(eng, reqs)
+    refuses_plain(eng, hists)
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from torch_dispatch_table import decisions, measure
+
+    table = dispatch._load_table()
+    readings = measure(seed=1)
+    log(f"dispatch table readings now: {json.dumps(readings)}")
+    log(f"their choices now: {json.dumps(decisions(readings))}; the "
+        f"committed table's: {json.dumps(decisions(table))}")
+    return launches
+
+
+
 def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3725,8 +4189,9 @@ EARLIER_MS = {"lstm_fused": 11.269, "lstm_fused_res": 11.256,
 # pool kernels' shares of "kernels"; a run with no selector runs every
 # other phase.
 PHASES = ("kernels", "lstm", "grukernels", "beamkernels", "slatekernels",
-          "serving", "train", "indexed", "interop", "gru", "small",
-          "kernel6", "trainer", "recommenders", "multitask", "rankers")
+          "serving", "parallel", "train", "indexed", "interop", "gru",
+          "small", "kernel6", "trainer", "recommenders", "multitask",
+          "rankers")
 SHARES = {"lstm", "grukernels", "beamkernels", "slatekernels"}
 
 
@@ -3763,6 +4228,7 @@ def main() -> int:
     ptxas = phase("build", lambda: build(ptxas_info=True))
     log(ptxas_summary(ptxas))
     log(tile_note())
+    table_choices()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3821,6 +4287,8 @@ def main() -> int:
     if "serving" in run:
         with torch.inference_mode():
             launches.update(phase("serving", main_path))
+    if "parallel" in run:
+        launches.update(phase("parallel", parallel_paths))
     # the cli.main phases share one set of fixtures
     fixture_dir = tempfile.TemporaryDirectory()
     with tempfile.TemporaryDirectory() as tmp:

@@ -154,5 +154,12 @@ def main(argv=None, device="cuda") -> dict:
     return results
 
 
+def console_main() -> None:
+    """The ``cair-train-torch`` console script: ``main`` on ``sys.argv``,
+    returning nothing (a console script exits with what its function
+    returns, and ``main``'s results would read as a failure)."""
+    main()
+
+
 if __name__ == "__main__":
     main()

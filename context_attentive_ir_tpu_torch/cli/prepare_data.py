@@ -257,5 +257,12 @@ def main(argv=None) -> dict | None:
     return args.fn(args)
 
 
+def console_main() -> None:
+    """The ``cair-prepare-data-torch`` console script: ``main`` on
+    ``sys.argv``, returning nothing (``main`` returns a summary dict,
+    which a console script would take for a failing exit status)."""
+    main()
+
+
 if __name__ == "__main__":
     main()

@@ -36,6 +36,13 @@ ARCHITECTURE_FIELDS = (
     "loss_type", "margin", "ablate_history", "cars_ablation",
 )
 
+# Optimizer fields (the JAX package's OPTIMIZER_FIELDS): a test-time merge
+# takes them from the new invocation.
+OPTIMIZER_FIELDS = (
+    "optimizer", "learning_rate", "weight_decay", "momentum",
+    "grad_clipping", "lr_decay", "lr_decay_steps", "warmup_steps",
+)
+
 
 @dataclass(frozen=True)
 class ModelConfig:
@@ -113,6 +120,9 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def architecture_args(self) -> dict[str, Any]:
+        return {k: getattr(self, k) for k in ARCHITECTURE_FIELDS}
 
     def to_json(self) -> str:
         d = dataclasses.asdict(self)

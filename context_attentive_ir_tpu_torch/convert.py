@@ -11,6 +11,11 @@ any parameter that the tree lacks, and any shape mismatch raise.  A
 serving tree from ``quantize_embedding_params`` (int8 ``embedding_q`` and
 f32 ``embedding_scale`` in place of ``embedding``) loads into a model
 whose config has ``quantize_embeddings``; its int8 leaves stay int8.
+
+``module_params_from_jax`` does the same for one layer of ``ops`` built on
+its own (``GlobalAttention``: ``linear_in``, ``query_proj``,
+``memory_proj``, ``v``, ``linear_out``; ``Highway``: ``lin{i}``,
+``gate{i}``; ``Maxout``: ``Dense_0``).
 """
 
 from __future__ import annotations
@@ -57,7 +62,15 @@ def params_from_jax(params_np: Mapping,
     ``config.model_type`` names.  Returns CPU tensors keyed by the port's
     parameter names, float32 except the int8 table of a quantized config
     (whose leaf must already be int8)."""
-    model = build_model(config, device="meta", seed=None)
+    return module_params_from_jax(
+        build_model(config, device="meta", seed=None), params_np)
+
+
+def module_params_from_jax(module: nn.Module,
+                           params_np: Mapping) -> dict[str, torch.Tensor]:
+    """``params_from_jax`` for any module of the port whose parameter names
+    follow the flax tree of its JAX counterpart."""
+    model = module
     expected = {k: (tuple(v.shape), v.dtype)
                 for k, v in model.state_dict().items()}
     flat = dict(flatten_tree(params_np))

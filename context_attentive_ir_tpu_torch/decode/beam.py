@@ -9,9 +9,9 @@ added log-prob.  The GNMT length penalty ranks the hypotheses.  Every top-k
 breaks ties toward the lower index, as ``lax.top_k`` does.  The per-beam
 top-(K+1) over the vocabulary (``_topk_rows``) sorts no row: ``exact`` is
 ``topk_exact`` (a library top-k, then the order of its few winners fixed);
-``chunked`` is the JAX two-stage form on top of it; ``approx`` and
-``auto`` take ``exact`` (off the TPU ``lax.approx_max_k`` returns
-``lax.top_k``'s values and indices, and the port has no dispatch table).
+``chunked`` is the JAX two-stage form on top of it; ``approx`` takes
+``exact`` (off the TPU ``lax.approx_max_k`` returns ``lax.top_k``'s values
+and indices) and ``auto`` the port's dispatch table's choice.
 The merge over ``K * (K+1)`` columns keeps the stable sort (``topk_desc``).
 
 Step functions return ``(state, logits [B*K, V])`` (normalised in-loop by a
@@ -34,6 +34,7 @@ from typing import Callable
 import torch
 
 from ..constants import BOS, EOS, PAD
+from ..ops.dispatch import prefer_chunked_topk
 from ..ops.masking import NEG_INF
 from .penalties import COVERAGE_PENALTIES, LENGTH_PENALTIES
 
@@ -142,14 +143,19 @@ def _chunk_count(v: int, kc: int) -> int:
     return 0
 
 
-def _resolve_topk_method(method: str) -> str:
-    """``auto`` and ``approx`` -> ``exact``: the port has no dispatch table
-    (ROADMAP, "Speed"), and off the TPU ``lax.approx_max_k`` returns
-    ``lax.top_k``'s values and indices at the beam's widths."""
+def _resolve_topk_method(method: str, v: int = 0, kc: int = 0) -> str:
+    """``auto`` resolves from the port's dispatch table of H100 rows
+    (``ops.dispatch.prefer_chunked_topk`` at ``v`` and ``kc``: ``chunked``
+    where a row measured it faster, ``exact`` elsewhere), as the JAX
+    package resolves it from its TPU table; ``approx`` is ``exact``: off
+    the TPU ``lax.approx_max_k`` returns ``lax.top_k``'s values and
+    indices at the beam's widths.  Both choices give the same bits."""
     if method not in TOPK_METHODS:
         raise ValueError(f"unknown topk_method {method!r}; choose from "
                          f"{TOPK_METHODS}")
-    return "exact" if method in ("auto", "approx") else method
+    if method == "auto":
+        return "chunked" if prefer_chunked_topk(v, kc) else "exact"
+    return "exact" if method == "approx" else method
 
 
 def _topk_rows(scores: torch.Tensor, kc: int, method: str):
@@ -159,7 +165,7 @@ def _topk_rows(scores: torch.Tensor, kc: int, method: str):
     (every global winner is within its chunk's top-kc, and chunk order is
     column order, so the ties resolve as in one stage); it takes ``exact``
     where ``_chunk_count`` finds no G."""
-    method = _resolve_topk_method(method)
+    method = _resolve_topk_method(method, scores.shape[-1], kc)
     if method == "chunked":
         v = scores.shape[-1]
         g = _chunk_count(v, kc)

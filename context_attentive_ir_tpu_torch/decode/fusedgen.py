@@ -7,10 +7,10 @@ and the fused generator kernel (``ops/kernels/beamgen.py``) into the
 ``greedy_decode``, for a float or an int8 table, the serial, pruned or
 pipelined kernel, and an optional vocabulary shortlist.
 
-The JAX package resolves ``pipeline=None`` and ``prune=None`` from its
-measured TPU dispatch table; the port has no table of its own yet, so
-``None`` resolves to ``False``, as the JAX lookup does for a shape it has
-not measured.
+``pipeline=None`` and ``prune=None`` resolve from the port's dispatch
+table of H100 rows (``ops.dispatch.prefer_pipelined_generator`` /
+``prefer_pruned_generator`` at the step's rows and kc), as the JAX package
+resolves them from its TPU table; every choice gives the same outputs.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..ops.dispatch import prefer_pipelined_generator, prefer_pruned_generator
 from ..ops.kernels.beamgen import (
     MAX_KC,
     aligned_table,
@@ -76,17 +77,24 @@ def make_fused_beam_step(model, memory: torch.Tensor,
     model cannot take the fused path, or the kernels do not hold the shape:
     ``kc`` above ``MAX_KC`` or an E that ``beamgen_supported`` refuses.  The
     caller then decodes through the model's logits step, which is exact.
-    ``memory`` and ``memory_mask`` must already be beam-tiled.  The transposed table is built once here and
-    reused by every step.
+    ``memory`` and ``memory_mask`` must already be beam-tiled.  The
+    transposed table is built once here and reused by every step.
 
-    An int8 table forces ``pipeline=False`` and ``pipeline`` forces
-    ``prune=False`` (both are serial-kernel modes); every choice gives the
-    same outputs.  ``shortlist``: int32 ``[C]`` sorted vocab ids
-    (``decode/shortlist.py``) -- the generator scores only these columns
-    and the returned indices are mapped back to vocab ids."""
+    ``pipeline=None`` / ``prune=None`` take the dispatch table's choice at
+    ``memory``'s row count and ``kc``.  An int8 table forces
+    ``pipeline=False`` and ``pipeline`` forces ``prune=False`` (both are
+    serial-kernel modes); every choice gives the same outputs.
+    ``shortlist``: int32 ``[C]`` sorted vocab ids (``decode/shortlist.py``)
+    -- the generator scores only these columns and the returned indices
+    are mapped back to vocab ids."""
     if not can_fuse_generator(model):
         return None
     table_t, scale = fused_generator_table(model, dtype)
+    rows = memory.shape[0]
+    if pipeline is None:
+        pipeline = prefer_pipelined_generator(rows, kc)
+    if prune is None:
+        prune = prefer_pruned_generator(rows, kc)
     pipeline = bool(pipeline) and scale is None
     prune = bool(prune) and not pipeline
     if kc > MAX_KC or not beamgen_supported(table_t.shape[0], dtype,

@@ -88,7 +88,35 @@ def copy_generator_nll_loss(gen_probs: torch.Tensor, targets: torch.Tensor,
     return -(logp * m).sum() / m.sum().clamp_min(1.0)
 
 
+def rank_loss_count(loss_type: str, labels, cand_mask,
+                    row_mask) -> torch.Tensor:
+    """The denominator of ``rank_loss`` before its ``max(., 1)``: valid rows
+    with a click (listwise), valid (positive, negative) pairs (pairwise) or
+    valid candidates (pointwise).  It reads masks and labels only, so a
+    batch split into shards can sum it before any forward: each shard's
+    loss times ``max(count, 1) / max(total count, 1)`` is its share of the
+    whole batch's loss."""
+    if loss_type == "listwise":
+        y_sum = (labels * cand_mask.to(labels.dtype)).sum(-1)
+        return (row_mask.to(torch.float32) * (y_sum > 0)).sum()
+    if loss_type == "pairwise":
+        pos = ((labels > 0) & cand_mask).to(torch.float32).sum(-1)
+        neg = ((labels <= 0) & cand_mask).to(torch.float32).sum(-1)
+        return (pos * neg * row_mask.to(torch.float32)).sum()
+    if loss_type == "pointwise":
+        return (cand_mask.to(torch.float32)
+                * row_mask[..., None].to(torch.float32)).sum()
+    raise ValueError(f"unknown loss_type {loss_type!r}")
+
+
+def token_count(target_mask) -> torch.Tensor:
+    """The denominator of ``sequence_nll_loss`` and
+    ``copy_generator_nll_loss`` before its ``max(., 1)``."""
+    return target_mask.to(torch.float32).sum()
+
+
 __all__ = [
+    "rank_loss_count", "token_count",
     "listwise_rank_loss", "pairwise_hinge_loss", "pointwise_bce_loss",
     "rank_loss", "sequence_nll_loss", "copy_generator_nll_loss",
 ]

@@ -1,5 +1,13 @@
-"""Attention pooling (port of ``AttentionPool`` in
+"""Luong-style global attention and attention pooling (port of
+``GlobalAttention`` and ``AttentionPool`` in
 ``context_attentive_ir_tpu/ops/attention.py``).
+
+``GlobalAttention`` scores a query against a masked memory with the
+``dot``, ``general`` or ``mlp`` function and returns the attentional state
+and the alignment, with the JAX module's conventions: the output
+projection ``linear_out`` has a bias and no tanh for ``mlp``, and a tanh
+and no bias for ``dot`` / ``general``.  No model of the zoo calls it; it is
+kept for the JAX package's ``ops`` surface.
 
 Pools token states into one vector, optionally conditioned on an external
 query vector (CARS's query-aware document pooling).  The query-independent
@@ -35,8 +43,61 @@ from .kernels.slate import (
     pool_jax_gate,
     pool_supported,
 )
-from .layers import ParamModule
+from .layers import Dense, ParamModule
 from .masking import masked_softmax
+
+ATTN_TYPES = ("dot", "general", "mlp")
+
+
+class GlobalAttention(ParamModule):
+    """``forward(query [B, Tq, H] or [B, H], memory [B, S, H], mask bool
+    [B, S]) -> (attn_h [B, Tq, H], align [B, Tq, S])``, squeezing Tq for a
+    rank-2 query.  Parameters (flax names): ``linear_in`` (general, no
+    bias), ``query_proj`` (mlp, bias), ``memory_proj`` (mlp, no bias),
+    ``v [dim, 1]`` (mlp) and ``linear_out [2 * dim, dim]``."""
+
+    def __init__(self, dim: int, attn_type: str = "general",
+                 dtype: torch.dtype = torch.float32, device="cuda"):
+        super().__init__(device)
+        if attn_type not in ATTN_TYPES:
+            raise ValueError(f"unknown attn_type {attn_type}")
+        self.dim = dim
+        self.attn_type = attn_type
+        self.dtype = dtype
+        dev = self.device
+        if attn_type == "general":
+            self.linear_in = Dense(dim, dim, use_bias=False, dtype=dtype,
+                                   device=dev)
+        elif attn_type == "mlp":
+            self.query_proj = Dense(dim, dim, dtype=dtype, device=dev)
+            self.memory_proj = Dense(dim, dim, use_bias=False, dtype=dtype,
+                                     device=dev)
+            self.v = self.new_param("v", (dim, 1), "glorot")
+        self.linear_out = Dense(2 * dim, dim, use_bias=attn_type == "mlp",
+                                dtype=dtype, device=dev)
+
+    def forward(self, query: torch.Tensor, memory: torch.Tensor,
+                memory_mask: torch.Tensor):
+        squeeze = query.dim() == 2
+        q = (query[:, None] if squeeze else query).to(self.dtype)
+        m = memory.to(self.dtype)
+        if self.attn_type == "general":
+            scores = torch.einsum("bth,bsh->bts", self.linear_in(q), m)
+        elif self.attn_type == "dot":
+            scores = torch.einsum("bth,bsh->bts", q, m)
+        else:
+            hidden = torch.tanh(self.query_proj(q)[:, :, None]
+                                + self.memory_proj(m)[:, None])
+            scores = torch.einsum("btsh,ho->bts", hidden,
+                                  self.v.to(self.dtype))
+        align = masked_softmax(scores, memory_mask[:, None, :], dim=-1)
+        context = torch.einsum("bts,bsh->bth", align, m)
+        attn_h = self.linear_out(torch.cat([context, q], dim=-1))
+        if self.attn_type != "mlp":
+            attn_h = torch.tanh(attn_h)
+        if squeeze:
+            return attn_h[:, 0], align[:, 0]
+        return attn_h, align
 
 
 class AttentionPool(ParamModule):

@@ -229,7 +229,7 @@ def generator_topk_lse(x: torch.Tensor, table_t: torch.Tensor, kc: int,
     if not x.is_contiguous() or (scale is not None
                                  and not scale.is_contiguous()):
         raise ValueError("generator_topk_lse needs a contiguous x and scale")
-    from .build import check, load_library
+    from .build import launch
 
     table_t = aligned_table(table_t)  # a copy only for an unaligned table
     index = (x.device.index if x.device.index is not None
@@ -255,14 +255,15 @@ def generator_topk_lse(x: torch.Tensor, table_t: torch.Tensor, kc: int,
     idx = torch.empty((R, kc), **i32)
     lse = torch.empty((R,), **f32)
     # the launcher refuses an E too large for its shared tiles
-    check(load_library().cair_beamgen(
+    launch(
+        "cair_beamgen", x.device,
         x.data_ptr(), table_t.data_ptr(),
         None if scale is None else scale.data_ptr(), R, E, V,
         table_t.stride(0), kc, n_split, per_split, part_v.data_ptr(),
         part_i.data_ptr(), part_m.data_ptr(), part_s.data_ptr(),
         vals.data_ptr(), idx.data_ptr(), lse.data_ptr(), x_code, t_code,
         int(prune), int(pipeline),
-        torch.cuda.current_stream(x.device).cuda_stream), "cair_beamgen")
+        torch.cuda.current_stream(x.device).cuda_stream)
     if pipeline:
         generator_topk_lse.launches_pipelined += 1
     elif scale is not None:

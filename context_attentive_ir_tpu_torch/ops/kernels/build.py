@@ -124,6 +124,18 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+def launch(launcher: str, device, *args) -> None:
+    """Call ``launcher`` with ``device`` (the operands' card) current and
+    raise on its CUDA error.  The launchers set each kernel's shared-memory
+    attribute on, and launch into, the current device: with another card
+    current, a kernel ran on the wrong device against the operands'
+    stream."""
+    import torch
+
+    with torch.cuda.device(device):
+        check(getattr(load_library(), launcher)(*args), launcher)
+
+
 def check(rc: int, launcher: str) -> None:
     """Raise if a launcher returned a CUDA error (an oversize shared tile,
     a hidden size the block cannot hold, a failed launch)."""

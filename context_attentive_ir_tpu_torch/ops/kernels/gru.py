@@ -314,12 +314,13 @@ def gru_fused(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
                                   b_hh)
     ops, (Ep, Hp) = _tile_operands(x, w_ih, b_ih, w_hh, b_hh)
     out = torch.empty((B, T, Hp), dtype=x.dtype, device=x.device)
-    from .build import check, load_library
+    from .build import launch
 
     # the launcher reports a hidden size or E + H its block cannot hold
-    check(load_library().cair_gru_fwd(
+    launch(
+        "cair_gru_fwd", x.device,
         *_pointers(ops[0], mask, *ops[1:], out), B, T, Ep, Hp, int(reverse),
-        _DTYPES[x.dtype], _stream(x)), "cair_gru_fwd")
+        _DTYPES[x.dtype], _stream(x))
     gru_fused.launches += 1
     return out if Hp == H else out[..., :H].contiguous()
 
@@ -348,11 +349,12 @@ def gru_fused_res(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
     out = torch.empty((B, T, Hp), dtype=x.dtype, device=x.device)
     hb = torch.empty((-(-T // tc), B, Hp), dtype=torch.float32,
                      device=x.device)
-    from .build import check, load_library
+    from .build import launch
 
-    check(load_library().cair_gru_fwd_res(
+    launch(
+        "cair_gru_fwd_res", x.device,
         *_pointers(ops[0], mask, *ops[1:], out, hb), B, T, Ep, Hp,
-        int(reverse), tc, _DTYPES[x.dtype], _stream(x)), "cair_gru_fwd_res")
+        int(reverse), tc, _DTYPES[x.dtype], _stream(x))
     gru_fused_res.launches += 1
     if Hp != H:
         # kernel 9 takes the unpadded operands and boundaries
@@ -394,7 +396,7 @@ def gru_fused_bwd(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
     if dout.dtype != x.dtype or tuple(dout.shape) != (B, T, H):
         raise ValueError(f"gru_fused_bwd: dout must be {x.dtype} "
                          f"{(B, T, H)}; got {dout.dtype} {tuple(dout.shape)}")
-    from .build import check, load_library
+    from .build import launch, load_library
 
     lib = load_library()
     dtype = _DTYPES[x.dtype]
@@ -420,10 +422,11 @@ def gru_fused_bwd(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
     workspace = torch.empty((n_bytes,), dtype=torch.uint8, device=x.device)
     dx = torch.empty_like(x)
     grads = [torch.empty_like(t) for t in (w_ih, b_ih, w_hh, b_hh)]
-    check(lib.cair_gru_bwd(
+    launch(
+        "cair_gru_bwd", x.device,
         x.data_ptr(), mask.data_ptr(), *weights,
         *_pointers(hb, dout, dx, *grads, workspace), B, T, Ep, Hp,
-        int(reverse), tc, dtype, row_tiles or 0, _stream(x)), "cair_gru_bwd")
+        int(reverse), tc, dtype, row_tiles or 0, _stream(x))
     gru_fused_bwd.launches += 1
     if (Ep, Hp) != (E, H):
         dx = dx[..., :E].contiguous()

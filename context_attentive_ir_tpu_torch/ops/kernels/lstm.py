@@ -375,13 +375,14 @@ def lstm_fused(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
     if x.dtype == torch.bfloat16:
         w_ih = stage_lstm_weights(w_ih, w_hh)
     out = torch.empty((B, T, Hp), dtype=x.dtype, device=x.device)
-    from .build import check, load_library
+    from .build import launch
 
     # the launcher reports a hidden size or E + H its block cannot hold
-    check(load_library().cair_lstm_fwd(
+    launch(
+        "cair_lstm_fwd", x.device,
         x.data_ptr(), mask.data_ptr(), w_ih.data_ptr(), b.data_ptr(),
         w_hh.data_ptr(), out.data_ptr(), B, T, Ep, Hp, int(reverse),
-        _DTYPES[x.dtype], _stream(x)), "cair_lstm_fwd")
+        _DTYPES[x.dtype], _stream(x))
     lstm_fused.launches += 1
     return out if Hp == H else out[..., :H].contiguous()
 
@@ -415,13 +416,13 @@ def lstm_fused_res(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
     hb = torch.empty((-(-T // tc), B, Hp), dtype=torch.float32,
                      device=x.device)
     cb = torch.empty_like(hb)
-    from .build import check, load_library
+    from .build import launch
 
-    check(load_library().cair_lstm_fwd_res(
+    launch(
+        "cair_lstm_fwd_res", x.device,
         x.data_ptr(), mask.data_ptr(), w_ih.data_ptr(), b.data_ptr(),
         w_hh.data_ptr(), out.data_ptr(), hb.data_ptr(), cb.data_ptr(), B, T,
-        Ep, Hp, int(reverse), tc, _DTYPES[x.dtype], _stream(x)),
-        "cair_lstm_fwd_res")
+        Ep, Hp, int(reverse), tc, _DTYPES[x.dtype], _stream(x))
     lstm_fused_res.launches += 1
     if Hp != H:
         out, hb, cb = (t[..., :H].contiguous() for t in (out, hb, cb))
@@ -461,7 +462,7 @@ def lstm_fused_bwd(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
     if dout.dtype != x.dtype or tuple(dout.shape) != (B, T, H):
         raise ValueError(f"lstm_fused_bwd: dout must be {x.dtype} "
                          f"{(B, T, H)}; got {dout.dtype} {tuple(dout.shape)}")
-    from .build import check, load_library
+    from .build import launch, load_library
 
     lib = load_library()
     dtype = _DTYPES[x.dtype]
@@ -485,13 +486,14 @@ def lstm_fused_bwd(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
     dx = torch.empty_like(x)
     dw_ih, db, dw_hh = (torch.empty_like(w_ih), torch.empty_like(b),
                         torch.empty_like(w_hh))
-    check(lib.cair_lstm_bwd(
+    launch(
+        "cair_lstm_bwd", x.device,
         x.data_ptr(), mask.data_ptr(),
         (staged if x.dtype == torch.bfloat16 else w_ih).data_ptr(),
         b.data_ptr(), w_hh.data_ptr(), *transposes, hb.data_ptr(),
         cb.data_ptr(), dout.data_ptr(), dx.data_ptr(), dw_ih.data_ptr(),
         db.data_ptr(), dw_hh.data_ptr(), workspace.data_ptr(), B, T, Ep, Hp,
-        int(reverse), tc, dtype, _stream(x)), "cair_lstm_bwd")
+        int(reverse), tc, dtype, _stream(x))
     lstm_fused_bwd.launches += 1
     if (Ep, Hp) != (E, H):
         dx = dx[..., :E].contiguous()
@@ -654,12 +656,12 @@ def lstm_recurrence_fwd(x_proj: torch.Tensor, mask: torch.Tensor,
         x_proj = _aligned(x_proj)
         w_hh = stage_lstm_weights(w_hh[:0], w_hh)
     out = torch.empty((B, T, H), dtype=x_proj.dtype, device=x_proj.device)
-    from .build import check, load_library
+    from .build import launch
 
-    check(load_library().cair_lstm_rec(
+    launch(
+        "cair_lstm_rec", x_proj.device,
         x_proj.data_ptr(), mask.data_ptr(), w_hh.data_ptr(), out.data_ptr(),
-        B, T, H, int(reverse), _DTYPES[x_proj.dtype], _stream(x_proj)),
-        "cair_lstm_rec")
+        B, T, H, int(reverse), _DTYPES[x_proj.dtype], _stream(x_proj))
     lstm_recurrence.launches += 1
     return out
 

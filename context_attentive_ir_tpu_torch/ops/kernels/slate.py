@@ -163,15 +163,15 @@ def attn_pool(states: torch.Tensor, mask: torch.Tensor, query: torch.Tensor,
         raise ValueError(f"attn_pool runs on cuda or cpu, not {dev}")
     R, T, H = _check_cuda_args(states, mask, query, w_p, b_p)
     out = torch.empty((R, H), dtype=states.dtype, device=states.device)
-    from .build import check, load_library
+    from .build import launch
 
     # the launcher reports a hidden size its blocks cannot hold
-    check(load_library().cair_slate_pool(
+    launch(
+        "cair_slate_pool", states.device,
         states.data_ptr(), mask.data_ptr(), query.data_ptr(),
         w_p.data_ptr(), b_p.data_ptr(), out.data_ptr(), R, T, H,
         _DTYPES[states.dtype],
-        torch.cuda.current_stream(states.device).cuda_stream),
-        "cair_slate_pool")
+        torch.cuda.current_stream(states.device).cuda_stream)
     attn_pool.launches += 1
     return out
 

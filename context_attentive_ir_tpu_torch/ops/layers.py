@@ -2,7 +2,7 @@
 Embeddings, CharCNN, MLP, cosine_similarity.
 
 Port of ``context_attentive_ir_tpu/ops/layers.py`` (``Embeddings``,
-``CharCNN``, ``MLP``, ``cosine_similarity``) plus flax's ``nn.Dense``,
+``CharCNN``, ``MLP``, ``Highway``, ``Maxout``, ``cosine_similarity``) plus flax's ``nn.Dense``,
 ``nn.Conv``, ``nn.max_pool`` and ``nn.Dropout``.  Weights keep the JAX
 layout -- dense kernels are ``[in, out]`` and layers compute ``x @ W``, conv
 kernels are ``[*window, in, out]`` -- so the weight bridge (``convert.py``)
@@ -232,6 +232,52 @@ class Embeddings(ParamModule):
             logits = h.to(self.dtype) @ self.embedding_q.to(self.dtype).T
             return logits * self.embedding_scale[:, 0].to(self.dtype)
         return h.to(self.dtype) @ self._table().to(self.dtype).T
+
+
+class Highway(nn.Module):
+    """``y = g * activation(x @ lin{i}) + (1 - g) * x`` with ``g =
+    sigmoid(x @ gate{i})``, ``num_layers`` times (the JAX ``Highway``;
+    ``activation`` relu by default)."""
+
+    def __init__(self, dim: int, num_layers: int = 1,
+                 activation: Callable = torch.relu,
+                 dtype: torch.dtype = torch.float32, device="cuda"):
+        super().__init__()
+        self.num_layers = num_layers
+        self.activation = activation
+        self.dtype = dtype
+        for i in range(num_layers):
+            self.add_module(f"lin{i}", Dense(dim, dim, dtype=dtype,
+                                             device=device))
+            self.add_module(f"gate{i}", Dense(dim, dim, dtype=dtype,
+                                              device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        for i in range(self.num_layers):
+            h = self.activation(getattr(self, f"lin{i}")(x))
+            g = torch.sigmoid(getattr(self, f"gate{i}")(x))
+            x = g * h + (1.0 - g) * x
+        return x
+
+
+class Maxout(nn.Module):
+    """The max over ``pool_size`` linear pieces of each of ``features``
+    outputs (the JAX ``Maxout``; its one dense layer is ``Dense_0``, out
+    axis ordered feature-major)."""
+
+    def __init__(self, in_features: int, features: int, pool_size: int = 2,
+                 dtype: torch.dtype = torch.float32, device="cuda"):
+        super().__init__()
+        self.features = features
+        self.pool_size = pool_size
+        self.Dense_0 = Dense(in_features, features * pool_size, dtype=dtype,
+                             device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.Dense_0(x)
+        return out.reshape(*out.shape[:-1], self.features,
+                           self.pool_size).amax(-1)
 
 
 def quantize_embedding_table(table) -> tuple[np.ndarray, np.ndarray]:

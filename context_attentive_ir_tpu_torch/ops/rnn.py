@@ -8,9 +8,11 @@ and weights keep the JAX layout (``w_ih [D, G]``, ``w_hh [H, G]``, ``b_ih
 [G]`` with G = 4H or 3H; a GRU also has its own ``b_hh [3H]``).
 
 ``RNNLayer(use_kernel=True)`` runs each direction through the fused
-kernels whenever no initial state is given and the kernels hold the shape
-(``fused_supported`` / ``gru_fused_supported``) -- the JAX ``_pallas_ok``
-condition without the TPU dispatch table.  A shape they do not hold goes
+kernels whenever no initial state is given, the kernels hold the shape
+(``fused_supported`` / ``gru_fused_supported``) and the port's dispatch
+table does not send it to the scan (``ops.dispatch.prefer_kernel``: the
+kernels unless an H100 row measured the scan faster) -- the JAX
+``_pallas_ok`` condition over the H100 table.  A shape they do not hold goes
 through ``lstm_scan`` / ``gru_scan`` on CPU tensors, as in JAX; on CUDA
 tensors it raises with the limit, and the caller chooses the scan with
 ``use_kernel=False`` (``use_pallas_rnn=False`` in the model config): the
@@ -30,6 +32,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .dispatch import prefer_kernel
 from .kernels.gru import gru_fused, gru_fused_supported, gru_fused_train
 from .kernels.lstm import fused_supported, lstm_fused, lstm_fused_train
 from .layers import ParamModule, dropout
@@ -55,6 +58,36 @@ def lstm_scan(x_proj: torch.Tensor, mask: torch.Tensor, w_hh: torch.Tensor,
         outs[t] = h
     out = torch.stack(outs, dim=1) * mask[..., None].to(h.dtype)
     return out, (h, c)
+
+
+def bilstm_scan(x_proj_f: torch.Tensor, x_proj_b: torch.Tensor,
+                mask: torch.Tensor, w_hh_f: torch.Tensor,
+                w_hh_b: torch.Tensor):
+    """Both directions of a BiLSTM in one loop over time (the JAX
+    ``bilstm_scan``): the forward direction reads step t while the backward
+    one reads step T - 1 - t, through one batched ``[2, B, H] @ [2, H,
+    4H]`` product a step, from a zero state.  Returns (out_f [B, T, H],
+    out_b [B, T, H], hT_f [B, H], hT_b [B, H]), as two ``lstm_scan`` calls
+    do.  No layer calls it (``RNNLayer`` runs the kernels or two scans)."""
+    B, T, G = x_proj_f.shape
+    H = G // 4
+    w = torch.stack([w_hh_f, w_hh_b])                       # [2, H, 4H]
+    h = x_proj_f.new_zeros((2, B, H))
+    c = h
+    outs_f, outs_b = [None] * T, [None] * T
+    for t in range(T):
+        xp = torch.stack([x_proj_f[:, t], x_proj_b[:, T - 1 - t]])
+        m = torch.stack([mask[:, t], mask[:, T - 1 - t]])[..., None]
+        gates = xp + torch.bmm(h, w)
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        h = torch.where(m, h_new, h)
+        c = torch.where(m, c_new, c)
+        outs_f[t], outs_b[T - 1 - t] = h[0], h[1]
+    mexp = mask[..., None].to(h.dtype)
+    return (torch.stack(outs_f, 1) * mexp, torch.stack(outs_b, 1) * mexp,
+            h[0], h[1])
 
 
 def gru_scan(x_proj: torch.Tensor, mask: torch.Tensor, w_hh: torch.Tensor,
@@ -103,17 +136,33 @@ class RNNLayer(ParamModule):
             if rnn_type == "gru":
                 self.new_param(f"b_hh_{d}", (G,), "zeros")
 
-    def kernel_ok(self, x: torch.Tensor, h0) -> bool:
+    def kernel_ok(self, x: torch.Tensor, h0, training: bool = False) -> bool:
         """Whether this call takes the fused kernels: asked for, no initial
-        state, and a shape the kernels hold.  A shape they do not hold takes
-        the scan on CPU tensors (as the JAX ``_pallas_ok`` decides) and
-        raises on CUDA tensors."""
+        state, a shape the kernels hold, and the dispatch table's choice
+        (``prefer_kernel``, ``training`` for a call that needs gradients).
+        A shape they do not hold, or a table row that prefers the scan,
+        takes the scan on CPU tensors (as the JAX ``_pallas_ok`` decides)
+        and raises on CUDA tensors: on the card the table never trades a
+        kernel for the plain scan."""
         if not (self.use_kernel and h0 is None):
             return False
         supported = (gru_fused_supported if self.rnn_type == "gru"
                      else fused_supported)
         if supported(x.shape[-1], self.features, x.shape[0], self.dtype):
-            return True
+            if prefer_kernel(self.rnn_type, x.shape[0], x.shape[1],
+                             x.shape[-1], self.features,
+                             str(self.dtype).rpartition(".")[2], training):
+                return True
+            if x.is_cuda:
+                raise ValueError(
+                    f"RNNLayer: a row of ops/dispatch_table.json prefers "
+                    f"the plain {self.rnn_type} scan to the fused kernels "
+                    f"at [{x.shape[0]}, {x.shape[1]}, {x.shape[-1]}] -> "
+                    f"{self.features}; the port runs no plain scan on the "
+                    "card in a kernel's place unasked: construct the layer "
+                    "with use_kernel=False (use_pallas_rnn=False in the "
+                    "model config) to run it")
+            return False
         if x.is_cuda:
             raise ValueError(
                 f"RNNLayer: the fused {self.rnn_type} kernels do not hold "
@@ -133,7 +182,9 @@ class RNNLayer(ParamModule):
         x = x.to(self.dtype).contiguous()
         outs, finals = [], []
         gru = self.rnn_type == "gru"
-        use_kernel = self.kernel_ok(x, h0)
+        train = torch.is_grad_enabled() and (x.requires_grad or any(
+            p.requires_grad for p in self.parameters()))
+        use_kernel = self.kernel_ok(x, h0, train)
         for d in self.dirs:
             w_ih = getattr(self, f"w_ih_{d}").to(self.dtype)
             w_hh = getattr(self, f"w_hh_{d}").to(self.dtype)
@@ -144,8 +195,6 @@ class RNNLayer(ParamModule):
             if use_kernel:
                 # the fused kernels compute the input projection themselves:
                 # no [B, T, G] gate tensor reaches device memory
-                train = torch.is_grad_enabled() and any(
-                    t.requires_grad for t in (x, w_ih, w_hh, b_ih, *b_hh))
                 if gru:
                     fn = gru_fused_train if train else gru_fused
                 else:

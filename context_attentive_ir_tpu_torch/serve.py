@@ -32,8 +32,15 @@ scoring.  ``suggest_shortlist=C`` restricts the generator to C vocab ids
 per request batch (``decode/shortlist.py``).  ``Engine.from_checkpoint``
 loads a checkpoint written by the port's ``train.Checkpointer``,
 optionally with the int8 embedding table (``quantize_embeddings=True``),
-whose suggestions run through the generator kernel's int8 mode.  Not
-ported: the device mesh.
+whose suggestions run through the generator kernel's int8 mode.
+
+``mesh`` (``parallel.make_mesh``) serves data-parallel, as the JAX engine
+does under its mesh: the parameters replicate, ``batch_bucket`` rounds up
+to a multiple of ``mesh.size``, every request batch shards on its leading
+axis (each replica runs its shard through the same kernels) and the
+results are gathered in order; ``index_documents`` pads the corpus to a
+mesh multiple, encodes it sharded and replicates the finished index, and a
+suggestion shortlist replicates.  A one-replica mesh serves as no mesh.
 """
 
 from __future__ import annotations
@@ -67,7 +74,17 @@ from .models import build_model, task_family
 from .models.base import compute_dtype
 from .models.multitask.cars import clicks_exceed_suggest_cap
 from .ops.kernels.beamgen import MAX_KC
+from .ops.dispatch import prefer_fused_generator
 from .ops.layers import quantize_embedding_table
+from .parallel.mesh import (
+    Mesh,
+    gather,
+    model_replicas,
+    pad_to_multiple,
+    replicated,
+    shard_batch,
+    to_device,
+)
 from .train.checkpoint import Checkpointer
 
 
@@ -110,19 +127,35 @@ class Engine:
     and clicked-document tokens, the most frequent ids as fill
     (approximate: the softmax support is the shortlist); 0 decodes over
     the whole vocabulary.
+
+    ``mesh``: a ``parallel.Mesh`` to serve on (module docstring); the
+    model then lives on the mesh's primary device and ``device`` must be
+    left unset or name that device.
     """
 
     def __init__(self, config: ModelConfig, word_dict: Dictionary, params,
                  beam_size: int = 5, batch_bucket: int = 8,
                  suggest_shortlist: int = 0,
-                 suggest_early_exit: bool = True, device="cuda"):
-        self.device = resolve_device(device)
+                 suggest_early_exit: bool = True, device=None,
+                 mesh: Optional[Mesh] = None):
+        if mesh is not None:
+            if device is not None and resolve_device(device) != mesh.primary:
+                raise ValueError(f"device={device} but the mesh's primary "
+                                 f"is {mesh.primary}")
+            self.device = mesh.primary
+            batch_bucket = pad_to_multiple(batch_bucket, mesh.size)
+        else:
+            self.device = resolve_device("cuda" if device is None
+                                         else device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.config = config
         self.family = task_family(config.model_type)
         self.word_dict = word_dict
         self.model = build_model(config, device=self.device, seed=None)
         self.model.load_state_dict(params)
         self.model.eval()
+        self.models = ([self.model] if self.mesh is None
+                       else model_replicas(self.model, self.mesh))
         self.shapes = shapes_from_config(config)
         self.beam_size = beam_size
         self.batch_bucket = batch_bucket
@@ -133,7 +166,7 @@ class Engine:
 
     @classmethod
     def from_checkpoint(cls, path: str | Path, beam_size: int = 5,
-                        quantize_embeddings: bool = False, device="cuda",
+                        quantize_embeddings: bool = False, device=None,
                         **kw) -> "Engine":
         """An Engine over the parameters of a checkpoint directory written
         by ``train.Checkpointer`` (config and vocabulary from its
@@ -179,6 +212,21 @@ class Engine:
         b = self.batch_bucket
         return ((n + b - 1) // b) * b
 
+    def _map(self, fn, *args):
+        """``fn(model, *args)`` on every replica and the outputs gathered
+        in replica order (``fn(self.model, *args)`` without a mesh).  Each
+        argument is a host batch or numpy array (split into contiguous
+        shards on axis 0, each moved to its replica's device) or a list of
+        per-replica values (``parallel.replicated``)."""
+        if self.mesh is None:
+            return fn(self.model, *(a[0] if isinstance(a, list)
+                                    else to_device(a, self.device)
+                                    for a in args))
+        per = [a if isinstance(a, list) else shard_batch(a, self.mesh)
+               for a in args]
+        return gather([fn(m, *(p[r] for p in per))
+                       for r, m in enumerate(self.models)], self.mesh)
+
     # -- ranking --------------------------------------------------------------
 
     def rank(self, query: str, docs: Sequence[str],
@@ -211,7 +259,7 @@ class Engine:
             batch = build_session_batch(sessions, self.word_dict,
                                         self.shapes, batch_size=B)
         with torch.inference_mode():
-            scores = self.model.score(batch.to(self.device))
+            scores = self._map(lambda m, b: m.score(b), batch)
             scores = scores.float().cpu().numpy()
         out = []
         for i, (req, sess) in enumerate(zip(requests, sessions)):
@@ -232,26 +280,43 @@ class Engine:
         kernel with it."""
         self._check_doc_cache()
         Ld = self.shapes.max_doc_len
-        ids = np.zeros((len(texts), Ld), np.int64)
-        mask = np.zeros((len(texts), Ld), bool)
+        n = len(texts)
+        # under a mesh the corpus pads to a mesh multiple and encodes
+        # sharded; the finished index replicates
+        n_pad = n if self.mesh is None else pad_to_multiple(
+            max(n, 1), self.mesh.size)
+        ids = np.zeros((n_pad, Ld), np.int64)
+        mask = np.zeros((n_pad, Ld), bool)
         for i, t in enumerate(texts):
             toks = self.word_dict.encode(t.split()[:Ld])
             ids[i, :len(toks)] = toks
             mask[i, :len(toks)] = True
-        ids = torch.from_numpy(ids).to(self.device)
-        mask = torch.from_numpy(mask).to(self.device)
+
+        def encode(model, ids, mask):
+            states = model.encode_docs(ids, mask)
+            if not cache_pool_proj:
+                return (states,)
+            return states, model.encode_docs_proj(states)
+
         with torch.inference_mode():
-            states = self.model.encode_docs(ids, mask)
-            proj = (self.model.encode_docs_proj(states) if cache_pool_proj
-                    else None)
-        return {"states": states, "mask": mask, "proj": proj}
+            out = self._map(encode, ids, mask)
+        states, proj = out[0], (out[1] if cache_pool_proj else None)
+        index = {"states": states[:n],
+                 "mask": torch.from_numpy(mask[:n]).to(self.device),
+                 "proj": None if proj is None else proj[:n]}
+        if self.mesh is not None:
+            index["replicas"] = replicated(
+                {k: index[k] for k in ("states", "mask", "proj")},
+                self.mesh)
+        return index
 
     def _check_doc_cache(self) -> None:
         if not hasattr(self.model, "encode_docs"):
             raise ServeError(
                 f"{self.config.model_type} has no cached-doc path")
 
-    def _rank_indexed_impl(self, batch, states, smask, idx, proj=None):
+    @staticmethod
+    def _rank_indexed_impl(model, batch, states, smask, idx, proj=None):
         """Score a session batch against per-row cached doc states.
         ``idx`` indexes the corpus rows; two layouts, told apart by rank:
 
@@ -269,8 +334,8 @@ class Engine:
                 B, S, *g.shape[1:])
 
         batch = dataclasses.replace(batch, doc_mask=expand(smask))
-        return self.model.score(batch, expand(states),
-                                None if proj is None else expand(proj))
+        return model.score(batch, expand(states),
+                           None if proj is None else expand(proj))
 
     def rank_indexed(self, query: str, doc_ids: Sequence[int], index: dict,
                      history: Sequence = ()) -> list[float]:
@@ -339,10 +404,20 @@ class Engine:
             idx = np.zeros((B, N), np.int64)
             for i, (_, ids, _) in enumerate(reqs):
                 idx[i, : len(ids)] = ids
+        if self.mesh is None:
+            reps = [(index["states"], index["mask"], index.get("proj"))]
+        elif "replicas" in index:
+            reps = [(r["states"], r["mask"], r["proj"])
+                    for r in index["replicas"]]
+        else:
+            raise ServeError("the index was not built by an Engine on this "
+                             "mesh; build it with this Engine's "
+                             "index_documents")
         with torch.inference_mode():
-            scores = self._rank_indexed_impl(
-                batch.to(self.device), index["states"], index["mask"],
-                torch.from_numpy(idx).to(self.device), index.get("proj"))
+            scores = self._map(
+                lambda m, b, i, rep: self._rank_indexed_impl(
+                    m, b, rep[0], rep[1], i, rep[2]),
+                batch, idx, reps)
             scores = scores.float().cpu().numpy()
         out = []
         for i, ((_, ids, _), sess) in enumerate(zip(reqs, sessions)):
@@ -352,59 +427,73 @@ class Engine:
 
     # -- suggestion -----------------------------------------------------------
 
-    def _decode_step(self, memory, memory_mask, kc: int, shortlist,
+    def _decode_step(self, model, memory, memory_mask, kc: int, shortlist,
                      kwargs: dict):
-        """The fused generator step with its pruned selection (exact, and
-        on the H100 at the serving shapes faster than the unpruned one,
-        PERF.md, where the JAX engine reads the choice from its TPU
-        dispatch table); where it is None (no ``decode_step_fused``, an
-        untied generator, or a kc or E the kernels do not hold), as the JAX
-        engine does, the model's logits step.  A shortlist past the
-        kernels' kc or E takes the plain shortlist step on CPU tensors and
-        raises on CUDA tensors, where that step would do the generator
+        """The fused generator step, with its serial, pruned or pipelined
+        selection from the dispatch table, as the JAX engine reads its
+        choices from its TPU table; where it is None (no
+        ``decode_step_fused``, an untied generator, or a kc or E the
+        kernels do not hold), as the JAX engine does, the model's logits
+        step.  A table row that prefers the logits step to a fused step
+        the kernels hold (``ops.dispatch.prefer_fused_generator``) takes it
+        on CPU tensors and raises on CUDA tensors, as does a shortlist past
+        the kernels' kc or E: there the plain step would do the generator
         kernel's work in plain PyTorch.  ``kwargs`` (the model's
         ``decode_kwargs``, ACG's source tokens) go to the logits step and
         rule out the other two."""
         dtype = compute_dtype(self.config)
         step = None
         if not kwargs:
-            step = make_fused_beam_step(self.model, memory, memory_mask, kc,
-                                        dtype, prune=True,
-                                        shortlist=shortlist)
+            step = make_fused_beam_step(model, memory, memory_mask, kc,
+                                        dtype, shortlist=shortlist)
+            v_eff = (self.config.vocab_size if shortlist is None
+                     else len(shortlist))
+            if step is not None and not prefer_fused_generator(
+                    memory.shape[0], v_eff, self.config.emsize, kc,
+                    t=self.shapes.max_target_len):
+                if memory.is_cuda:
+                    raise ServeError(
+                        "a row of ops/dispatch_table.json prefers the "
+                        f"logits step to the fused generator kernel at "
+                        f"{memory.shape[0]} rows, top-{kc}; the port runs "
+                        "no plain step on the card in the kernel's place")
+                step = None
             if step is None and shortlist is not None:
-                if memory.is_cuda and can_fuse_generator(self.model):
+                if memory.is_cuda and can_fuse_generator(model):
                     raise ServeError(
                         f"suggest_shortlist on the card runs the fused "
                         f"generator kernel, which holds top-{MAX_KC} "
                         f"(beam_size <= {MAX_KC - 1}) and the emsize "
                         f"beamgen_supported states; got top-{kc} at "
                         f"emsize {self.config.emsize}")
-                step = make_shortlist_xla_step(self.model, memory,
-                                               memory_mask, kc, dtype,
-                                               shortlist)
+                step = make_shortlist_xla_step(model, memory, memory_mask,
+                                               kc, dtype, shortlist)
         if step is None:
             def step(state, tokens):
-                return self.model.decode_step(state, tokens, memory,
-                                              memory_mask, **kwargs)
+                return model.decode_step(state, tokens, memory, memory_mask,
+                                         **kwargs)
         return step
 
-    def _suggest_impl(self, batch, init_method: str, shortlist=None):
-        state, memory, memory_mask = getattr(self.model, init_method)(batch)
+    def _suggest_impl(self, model, batch, init_method: str, shortlist=None):
+        """``(seqs [rows, K, T], scores [rows, K])`` of one replica's
+        batch."""
+        state, memory, memory_mask = getattr(model, init_method)(batch)
         rows = memory.shape[0]
         max_len = self.shapes.max_target_len
         K = self.beam_size
-        kwargs = self.model.decode_kwargs(batch)
+        kwargs = model.decode_kwargs(batch)
         if K > 1:
             rep = lambda t: t.repeat_interleave(K, dim=0)
-            step = self._decode_step(rep(memory), rep(memory_mask), K + 1,
-                                     shortlist,
+            step = self._decode_step(model, rep(memory), rep(memory_mask),
+                                     K + 1, shortlist,
                                      {k: rep(v) for k, v in kwargs.items()})
             return beam_search(step, state, rows, max_len, K,
                                return_nbest=True,
                                early_exit=self.suggest_early_exit)
         # greedy takes the same fused step at kc=2 (one spare slot covers a
         # min_length-blocked EOS -- exact)
-        step = self._decode_step(memory, memory_mask, 2, shortlist, kwargs)
+        step = self._decode_step(model, memory, memory_mask, 2, shortlist,
+                                 kwargs)
         seqs, scores = greedy_decode(step, state, rows, max_len,
                                      early_exit=self.suggest_early_exit)
         return seqs[:, None], scores[:, None]
@@ -465,8 +554,8 @@ class Engine:
                 self.suggest_shortlist, self.config.vocab_size,
                 np.concatenate([a.reshape(-1) for a in source]))
         with torch.inference_mode():
-            seqs, scores = self._suggest_impl(batch.to(self.device), init,
-                                              shortlist)
+            seqs, scores = self._map(
+                lambda m, b: self._suggest_impl(m, b, init, shortlist), batch)
             seqs, scores = seqs.cpu().numpy(), scores.float().cpu().numpy()
         return [[(" ".join(self.word_dict.decode(seqs[r, k])),
                   float(scores[r, k]))

@@ -28,6 +28,7 @@ from ..eval.rouge import rouge_l_sentence
 from ..eval.text_metrics import exact_match, token_f1
 from ..models import task_family
 from ..models.multitask.cars import clicks_exceed_suggest_cap
+from ..parallel.mesh import model_replicas, split_batch, sync_replicas
 
 
 def _device_of(model) -> torch.device:
@@ -36,7 +37,7 @@ def _device_of(model) -> torch.device:
 
 def build_decode_fn(model, config: ModelConfig, beam_size: int = 1,
                     max_len: Optional[int] = None,
-                    run: Optional["object"] = None):
+                    run: Optional["object"] = None, mesh=None):
     """Returns ``decode(batch) -> token ids [rows, T]`` (numpy) over a host
     batch, through the model's logits step as in the JAX package, given
     the model's ``decode_kwargs`` (ACG's source tokens), repeated per
@@ -49,7 +50,15 @@ def build_decode_fn(model, config: ModelConfig, beam_size: int = 1,
     clicked documents per turn; a batch beyond that goes to
     ``decode_init_full`` and ``decode.fallbacks`` counts it.
     ``decode.calls`` and ``decode.steps`` count the decodes and the decoder
-    steps they ran (early exit makes the latter data-dependent)."""
+    steps they ran (early exit makes the latter data-dependent).
+
+    Under a ``mesh`` of more than one replica each replica decodes its
+    contiguous shard of the batch and the rows are concatenated in order;
+    the fast-or-full init is decided on the whole batch, as the JAX
+    decoder decides it, and ``decode.steps`` sums the replicas' steps."""
+    if mesh is not None and mesh.size > 1:
+        return _sharded_decode_fn(model, config, beam_size, max_len, run,
+                                  mesh)
     max_len = max_len or (config.max_query_len + 1)
     beam_kw = {}
     if run is not None:
@@ -62,10 +71,14 @@ def build_decode_fn(model, config: ModelConfig, beam_size: int = 1,
     cap = config.suggest_max_clicks
 
     @torch.inference_mode()
-    def decode(batch):
+    def decode(batch, full: Optional[bool] = None):
+        """``full``: the caller's choice of ``decode_init_full`` (not
+        counted here); None decides and counts it on ``batch``."""
         init = model.decode_init
-        if has_full and clicks_exceed_suggest_cap(batch, cap):
-            decode.fallbacks += 1
+        if full is None:
+            full = has_full and clicks_exceed_suggest_cap(batch, cap)
+            decode.fallbacks += int(full)
+        if full:
             init = model.decode_init_full
         batch = batch.to(_device_of(model))
         state, memory, memory_mask = init(batch)
@@ -96,6 +109,30 @@ def build_decode_fn(model, config: ModelConfig, beam_size: int = 1,
         return seqs.cpu().numpy()
 
     decode.fallbacks = 0   # observable in tests / logs
+    decode.calls = 0
+    decode.steps = 0
+    return decode
+
+
+def _sharded_decode_fn(model, config: ModelConfig, beam_size: int,
+                       max_len: Optional[int], run, mesh):
+    models = model_replicas(model, mesh)
+    fns = [build_decode_fn(m, config, beam_size, max_len, run)
+           for m in models]
+    has_full = hasattr(model, "decode_init_full")
+
+    def decode(batch):
+        full = has_full and clicks_exceed_suggest_cap(
+            batch, config.suggest_max_clicks)
+        decode.fallbacks += int(full)
+        sync_replicas(models)
+        out = np.concatenate([fn(shard, full) for fn, shard in zip(
+            fns, split_batch(batch, mesh.size))])
+        decode.calls += 1
+        decode.steps = sum(fn.steps for fn in fns)
+        return out
+
+    decode.fallbacks = 0
     decode.calls = 0
     decode.steps = 0
     return decode

@@ -8,9 +8,18 @@ official validation, early stopping on ``valid_metric``, best / latest
 checkpoints, final test evaluation with prediction dumps.
 
 The hot loop is host collate (on the prefetch thread) -> ``batch.to(device)``
--> one eager ``train_step``; metrics and checkpoint IO stay off the device
-path.  Data order is deterministic and resumable (epoch-boundary checkpoints
-and seeded per-epoch shuffles).  The Trainer runs one device (no mesh).
+(or ``shard_batch`` under a mesh) -> one eager ``train_step``; metrics and
+checkpoint IO stay off the device path.  Data order is deterministic and
+resumable (epoch-boundary checkpoints and seeded per-epoch shuffles).
+
+``use_mesh=True`` (the JAX default) trains data-parallel over a
+``('data',)`` mesh (``parallel.mesh``): on ``device="cuda"`` every visible
+card, on the CPU or a named device (``"cuda:1"``) one replica, which runs
+exactly the unsharded step.  ``mesh=`` takes a mesh of the caller's
+(``make_mesh(["cpu"] * 8)``).  The batch shards on its leading axis,
+validation and test shard the dev batches, and the checkpoints hold the
+primary replica's state, so run directories, ``--resume`` and
+``--pretrained_path`` do not depend on the mesh.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from ..data import (
 )
 from ..device import resolve_device
 from ..models import build_model, task_family
+from ..parallel.mesh import Mesh, make_mesh, shard_batch
 from ..utils import AverageMeter, MetricsWriter, Timer, format_table
 from .checkpoint import Checkpointer
 from .evaluate import build_decode_fn, official_eval
@@ -123,13 +133,24 @@ def _check_run(run: RunConfig) -> None:
 class Trainer:
     """Owns model + state + steps + checkpointing for one run.
     ``device`` defaults to the card; pass ``device="cpu"`` to train on the
-    CPU."""
+    CPU.  ``use_mesh`` / ``mesh``: the module docstring."""
 
     def __init__(self, config: ModelConfig, run: RunConfig,
                  word_dict: Dictionary,
-                 pretrained: Optional[np.ndarray] = None, device="cuda"):
+                 pretrained: Optional[np.ndarray] = None, device="cuda",
+                 use_mesh: bool = True, mesh: Optional[Mesh] = None):
         _check_run(run)
-        self.device = resolve_device(device)
+        if mesh is None and use_mesh:
+            dev = resolve_device(device)
+            mesh = make_mesh(None if dev == torch.device("cuda")
+                             else [dev])
+        self.mesh = mesh
+        if mesh is not None and run.batch_size % mesh.size != 0:
+            raise ValueError(
+                f"batch_size {run.batch_size} not divisible by mesh size "
+                f"{mesh.size}")
+        self.device = (mesh.primary if mesh is not None
+                       else resolve_device(device))
         if config.vocab_size == 0:
             config = config.replace(vocab_size=len(word_dict))
         self.config = config
@@ -137,17 +158,17 @@ class Trainer:
         self.word_dict = word_dict
         self.pretrained = pretrained
         self.model = build_model(config, device=self.device, seed=run.seed)
-        self.train_step = make_train_step(self.model, config)
+        self.train_step = make_train_step(self.model, config, mesh)
         family = task_family(config.model_type)
         self.score_fn = self.decode_fn = None
         if family in ("ranker", "multitask"):
-            score = make_score_step(self.model, config)
+            score = make_score_step(self.model, config, mesh)
             self.score_fn = lambda batch: score(
-                batch.to(self.device)).float().cpu().numpy()
+                self._put(batch)).float().cpu().numpy()
         if family in ("recommender", "multitask"):
             self.decode_fn = build_decode_fn(
                 self.model, config, run.beam_size,
-                run.max_decode_len or None, run=run)
+                run.max_decode_len or None, run=run, mesh=mesh)
         self.ckpt = Checkpointer(run.model_dir, run.model_name,
                                  run.async_checkpoint)
         self.metrics = MetricsWriter(
@@ -168,6 +189,13 @@ class Trainer:
             else:
                 logger.info("native fastvec unavailable: the Python "
                             "vectorizer runs")
+
+    def _put(self, batch):
+        """A host batch on the device, or sharded over a mesh of more than
+        one replica."""
+        if self.mesh is not None and self.mesh.size > 1:
+            return shard_batch(batch, self.mesh)
+        return batch.to(self.device)
 
     # -- state setup ---------------------------------------------------------
 
@@ -224,7 +252,7 @@ class Trainer:
             for i, batch in enumerate(prefetch(train_it.epoch(epoch),
                                                run.prefetch_batches)):
                 self.state, m = self.train_step(
-                    self.state, batch.to(self.device), run.seed)
+                    self.state, self._put(batch), run.seed)
                 # reading the loss forces a device sync; sample it at
                 # display intervals so the host runs ahead of the device
                 sampled = (i + 1) % run.display_iter == 0

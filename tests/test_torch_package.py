@@ -142,6 +142,10 @@ TRAINER_MODULES = (
     # the checkpoint codec and the data-preparation path
     "train.checkpoint", "train.flax_msgpack", "train.vocab_expand",
     "cli.prepare_data", "data.bm25", "data.fast", "data.fast_bm25",
+    # the platform layer: the mesh, the dispatch table, profiling, and the
+    # last ops modules
+    "parallel.mesh", "ops.dispatch", "utils.profiling", "ops.attention",
+    "ops.layers", "ops.rnn",
 )
 
 
