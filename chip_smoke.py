@@ -18,13 +18,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    must give the same bits twice; kernel 4's output must be kernel 1's
    bits, kernel 8's kernel 7's), both pairs in bfloat16 also at the shapes
    that stress the tensor-core tiles (rows 1, 33 and 16,001, E = 300 with
-   H = 100, H = 8, T = 1, T = 17, H = 64, 256 and 384), the LSTM
+   H = 100, H = 8, T = 1, T = 17, H = 64, 256 and 384), the LSTM pair in
+   both dtypes also past the single block (E = 768, 1,024 and 2,048 through
+   the x slabs, H = 416 and 512 on clusters of 2, 640 and 1,024 on
+   clusters of 4 in bf16, H = 416 to 1,024 on float32 clusters), the LSTM
    recurrence on precomputed gates (kernel 6, with its autograd Function's
    gradients; in both dtypes also at rows one short of and one past the
    tensor-core tile's 64-row block, T = 1, masks with interior gaps and
    H = 256, 384 and 512, and in bf16 the same bits twice), kernel 9 in
    bf16 also with 16-row blocks off their block and at its limits (E = 672
-   at H = 128, H = 448 at E = 256), kernel 2, kernel 10 (slate pool) at
+   and 1,024 at H = 128, H = 448 at E = 256), kernel 2, kernel 10 (slate pool) at
    the rank slate and suggest init's row counts and a row count off its
    tile at every width it holds (H = 128, 256, 384, 512; 640, 768, 896
    and 1,024 at suggest init's rows, 640 and 768 also at the rank
@@ -125,7 +128,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    (Match-Tensor on the 5,120 sessions, the others on the first 1,280;
    train, validate, test, ``--only_test``; dev MAP above the untrained
    model's, or kept at the fixture's ceiling where the untrained model
-   already reaches it).  Every
+   already reaches it); then the wide LSTMs (``widelstm``): CARS at the
+   serving widths with nhid 512 in bf16 and float32 (clusters of 2 and 4
+   blocks) behind ``Engine`` (``rank_batch``, beam-5 ``suggest_batch``)
+   and 4 Adam steps, ``cli.main --nhid 512`` in bf16 on the fixture's
+   first 256 sessions (one epoch, beam-5 validation) and a bf16 CARS at
+   emsize 768 (``rank_batch``), each against the same weights with
+   ``use_pallas_rnn=False`` on the card (scores, top-1 beam scores, losses
+   within 2e-2 relative in bf16 and 1e-4 in float32; float32 top-1 tokens
+   equal).  Every
    call runs with every launch count set to 0
    just before it and read just after it and must launch exactly the
    kernels ``PATH_KERNELS`` names (``EXACT_LAUNCHES`` times, where fixed);
@@ -134,7 +145,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    with each kernel's bound, printed as one ``{"kernels": [...]}`` line,
    the redesigned kernels' earlier times beside them in the log, kernels
    1, 4 and 5 also at the recommenders' source shape ``[64, 150, 256]``
-   (rows with ``rows`` and ``steps``), kernel 9 with 16-row and 64-row
+   (rows with ``rows`` and ``steps``) and at ``[16000, 30, 256]`` -> 512
+   and 1,024 in both dtypes and float32 -> 256 and 384 (rows with
+   ``rows``, ``steps``, ``e``, ``h``, ``dtype``; checked against their
+   plain versions at 333 of those rows first), kernel 9 with 16-row and 64-row
    blocks at the query and doc encoders' shapes, kernel 10's wider
    instantiations (logged), and the train steps' times.
 
@@ -154,7 +168,11 @@ first for its checkpoint), ``interop`` (run directories, BM25 preparation,
 the native vectorizer, beam-5's host reads; runs ``train`` first for its
 state), ``gru`` (CARS-GRU and HRED-QS), ``small`` (the
 small float32 models card vs CPU), ``kernel6`` (``lstm_precomputed``),
-``trainer`` (``cli.main`` for CARS and HRED-QS), ``recommenders``
+``widelstm`` (CARS at nhid 512 in bf16 and float32 -- ``rank_batch``,
+beam-5 ``suggest_batch``, 4 train steps -- ``cli.main --nhid 512``, a bf16
+CARS at emsize 768, each against the same model on the plain scan, and
+kernels 1, 4, 5 timed at the doc encoder's rows and steps at H = 512 and
+1,024 in both dtypes and float32 H = 256 and 384), ``trainer`` (``cli.main`` for CARS and HRED-QS), ``recommenders``
 (seq2seq and ACG serving, train steps, checkpoint round trips and
 ``cli.main``, and the beam-40 CARS Engine), ``multitask`` (the top-k and
 conv timings, M-NSRF and M-MatchTensor serving, train steps, checkpoint
@@ -349,23 +367,30 @@ TRAIN_SHAPES = ((B * S * N, LD), (B * S, LQ), (B * S * N + 7, LD),
                 (B * S + 13, LQ), (333, 17), (B, S_REC * LQ))
 
 
-def pair_errors(gen, rnn: str, dtype, rows, steps, reverse, **widths) -> dict:
+def pair_inputs(gen, rnn: str, dtype, rows, steps, **widths):
+    """Seeded operands of ``rnn``'s training pair: x, the mask, the
+    weights in the kernels' argument order and dL/d out.  ``widths``:
+    ``e`` and ``h`` other than the main path's."""
+    (x, *w), mask = RNNS[rnn][0](gen, dtype, rows, steps, **widths)
+    dout = (torch.randn(x.shape[:2] + w[2].shape[:1], generator=gen,
+                        device="cuda") * 0.5).to(dtype)
+    return x, mask, w, dout
+
+
+def pair_check(rnn: str, x, mask, w, dout, reverse) -> dict:
     """The training pair of ``rnn`` against its plain versions on the same
     inputs (the backward kernel and its plain version both read the
     residual kernel's boundary state): per output, (max abs error, max abs
-    error / max |plain|).  The backward kernel must give the same bits
-    twice (no atomics), and the residual kernel's output must be the
-    forward kernel's bits (kernel 4 = kernel 1, kernel 8 = kernel 7).
-    ``widths``: ``e`` and ``h`` other than the main path's."""
+    error / max |plain|).  Masked outputs must be 0, the backward kernel
+    must give the same bits twice (no atomics), and the residual kernel's
+    output must be the forward kernel's bits (kernel 4 = kernel 1, kernel 8
+    = kernel 7)."""
     mod = rnn_kernels(rnn)
-    inputs, names = RNNS[rnn]
+    names = RNNS[rnn][1]
     res, bwd = f"{rnn}_fused_res", f"{rnn}_fused_bwd"
-    (x, *w), mask = inputs(gen, dtype, rows, steps, **widths)
     fwd = getattr(mod, res)(x, mask, *w, reverse, TIME_CHUNK)
     ref = getattr(mod, res + "_reference")(x, mask, *w, reverse, TIME_CHUNK)
     out, state = fwd[0], fwd[1:]
-    dout = (torch.randn(out.shape, generator=gen, device="cuda")
-            * 0.5).to(dtype)
     got_b = getattr(mod, bwd)(x, mask, *w, *state, dout, reverse, TIME_CHUNK)
     again = getattr(mod, bwd)(x, mask, *w, *state, dout, reverse, TIME_CHUNK)
     ref_b = getattr(mod, bwd + "_reference")(x, mask, *w, *state, dout,
@@ -395,34 +420,52 @@ def pair_errors(gen, rnn: str, dtype, rows, steps, reverse, **widths) -> dict:
 PAIR_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
+def held_errors(label: str, rnn: str, x, mask, w, dout, dtype) -> dict:
+    """``pair_check`` in both directions, each output within PAIR_TOL
+    [dtype] (raises otherwise), logged under ``label``; returns each
+    output's worst max abs error."""
+    tol = PAIR_TOL[dtype]
+    rows, steps, e = x.shape
+    at = f"{str(dtype)[6:]} [{rows},{steps},{e}]->{w[2].shape[0]}"
+    worst = dict.fromkeys(RNNS[rnn][1], 0.0)
+    for reverse in (False, True):
+        way = "reverse" if reverse else "forward"
+        errs = pair_check(rnn, x, mask, w, dout, reverse)
+        log(f"{rnn} {label} {at} TC={TIME_CHUNK} {way}: " +
+            ", ".join(f"{k} {a:.2e} ({r:.2e})" for k, (a, r) in errs.items())
+            + f" (abs (rel); tol rel {tol:g}; masked outputs 0; "
+            f"{rnn}_fused_bwd same bits twice, {rnn}_fused_res = "
+            f"{rnn}_fused bits)")
+        bad = {k: r for k, (_, r) in errs.items() if not r <= tol}
+        if bad:
+            raise AssertionError(f"{rnn} {label} {at} {way}: {bad} > {tol}")
+        for k, (a, _) in errs.items():
+            worst[k] = max(worst[k], a)
+    return worst
+
+
+def by_kernel(rnn: str, worst: dict) -> dict:
+    """``held_errors``'s worst errors per kernel of the training pair."""
+    names = RNNS[rnn][1]
+    n_res = names.index("dx")   # outputs of the residual kernel
+    return {f"{rnn}_fused_res": max(worst[k] for k in names[:n_res]),
+            f"{rnn}_fused_bwd": max(worst[k] for k in names[n_res:])}
+
+
 def check_train_pair(gen, rnn: str) -> dict:
     """The training pair of ``rnn`` (kernels 4 and 5, or 8 and 9) over
     TRAIN_SHAPES, both directions, f32 and bf16; returns each kernel's
     worst max abs error per dtype."""
-    res, bwd = f"{rnn}_fused_res", f"{rnn}_fused_bwd"
-    n_res = RNNS[rnn][1].index("dx")   # outputs of the residual kernel
-    worst = {res: {}, bwd: {}}
+    worst = {f"{rnn}_fused_res": {}, f"{rnn}_fused_bwd": {}}
     for dtype in (torch.float32, torch.bfloat16):
-        tol = PAIR_TOL[dtype]
         for kernel in worst:
             worst[kernel][dtype] = 0.0
         for rows, steps in TRAIN_SHAPES:
-            for reverse in (False, True):
-                errs = pair_errors(gen, rnn, dtype, rows, steps, reverse)
-                log(f"{rnn} train pair {dtype} [{rows},{steps},{EMSIZE}]->"
-                    f"{NHID} TC={TIME_CHUNK} "
-                    f"{'reverse' if reverse else 'forward'}: " +
-                    ", ".join(f"{k} {a:.2e} ({r:.2e})"
-                              for k, (a, r) in errs.items()) +
-                    f" (abs (rel); tol rel {tol:g}; {bwd} same bits twice)")
-                bad = {k: r for k, (_, r) in errs.items() if not r <= tol}
-                if bad:
-                    raise AssertionError(f"{rnn} train pair {dtype} [{rows},"
-                                         f"{steps}] reverse={reverse}: "
-                                         f"{bad} > {tol}")
-                for i, (a, _) in enumerate(errs.values()):
-                    kernel = res if i < n_res else bwd
-                    worst[kernel][dtype] = max(worst[kernel][dtype], a)
+            errs = by_kernel(rnn, held_errors(
+                "train pair", rnn,
+                *pair_inputs(gen, rnn, dtype, rows, steps), dtype))
+            for kernel, a in errs.items():
+                worst[kernel][dtype] = max(worst[kernel][dtype], a)
     return worst
 
 
@@ -436,36 +479,32 @@ TILE_SHAPES = ((1, LD, EMSIZE, NHID), (33, LD, EMSIZE, NHID),
                (70, 7, 64, 8), (40, 1, EMSIZE, NHID), (130, 17, EMSIZE, NHID),
                (200, 9, 64, 64), (100, 8, EMSIZE, 256), (50, 7, 128, 384))
 
+# (rows, steps, E, H) of kernels 1, 4 and 5 past the single block's tiles,
+# run in float32 and bf16: E streamed in slabs (768, 1,024, 2,048), the
+# bf16 cluster of 2 (H = 416, 512) and of 4 (640, 1,024), the float32
+# clusters (kernels 1 and 4 from H = 300, 3 blocks of 100 units; kernel 5
+# from 416: 4 to 8 blocks), rows off the 16-row block (9 rows: one block
+# of a cluster, mostly empty), T = 1 and a T the time chunk does not
+# divide
+WIDE_SHAPES = ((70, 7, 768, NHID), (40, 5, 1024, 256), (40, 7, 300, 300),
+               (33, 7, 300, 416),
+               (40, 5, 1024, 512), (50, 7, EMSIZE, 640),
+               (17, 3, 300, 1024), (40, 5, 2048, NHID), (9, 1, 300, 640))
 
-def check_tiles(gen, rnn: str, shapes=TILE_SHAPES) -> dict:
-    """The training pair of ``rnn`` and its forward in bf16 over
-    ``shapes``, both directions, each output against its plain version
-    (rel 2e-2); masked outputs (rows whose mask is all False included)
-    exactly 0, the backward the same bits twice, the residual kernel's
-    output the forward's bits.  Returns the worst max abs error of the
-    residual kernel and of the backward."""
-    dtype = torch.bfloat16
-    tol = PAIR_TOL[dtype]
-    res, bwd = f"{rnn}_fused_res", f"{rnn}_fused_bwd"
-    n_res = RNNS[rnn][1].index("dx")
-    worst = {res: 0.0, bwd: 0.0}
+
+def check_tiles(gen, rnn: str, shapes=TILE_SHAPES,
+                dtype=torch.bfloat16) -> dict:
+    """The training pair of ``rnn`` and its forward in ``dtype`` (bf16 by
+    default) over ``shapes``, both directions (``held_errors``; masked
+    outputs, rows whose mask is all False included, exactly 0).  Returns
+    the worst max abs error of the residual kernel and of the backward."""
+    worst = {f"{rnn}_fused_res": 0.0, f"{rnn}_fused_bwd": 0.0}
     for rows, steps, e, h in shapes:
-        for reverse in (False, True):
-            errs = pair_errors(gen, rnn, dtype, rows, steps, reverse,
-                               e=e, h=h)
-            log(f"{rnn} tiles bf16 [{rows},{steps},{e}]->{h} "
-                f"{'reverse' if reverse else 'forward'}: " +
-                ", ".join(f"{k} {a:.2e} ({r:.2e})"
-                          for k, (a, r) in errs.items()) +
-                f" (abs (rel); tol rel {tol:g}; {bwd} same bits twice, "
-                f"{res} = {rnn}_fused bits)")
-            bad = {k: r for k, (_, r) in errs.items() if not r <= tol}
-            if bad:
-                raise AssertionError(f"{rnn} tiles [{rows},{steps},{e}]->{h} "
-                                     f"reverse={reverse}: {bad} > {tol}")
-            for i, (a, _) in enumerate(errs.values()):
-                k = res if i < n_res else bwd
-                worst[k] = max(worst[k], a)
+        errs = by_kernel(rnn, held_errors(
+            "tiles", rnn, *pair_inputs(gen, rnn, dtype, rows, steps, e=e,
+                                       h=h), dtype))
+        for kernel, a in errs.items():
+            worst[kernel] = max(worst[kernel], a)
     return worst
 
 
@@ -474,7 +513,7 @@ def check_tiles(gen, rnn: str, shapes=TILE_SHAPES) -> dict:
 # 64-row blocks, TILE_SHAPES' 16,001 rows off theirs), and its new limits
 # (E = 672 at H = 128, H = 448 at E = 256; gru_fused_supported)
 GRU_TILE_SHAPES = ((B * S + 13, LQ, EMSIZE, NHID), (70, 7, 672, NHID),
-                   (40, 5, EMSIZE, 448))
+                   (40, 5, EMSIZE, 448), (70, 7, 1024, NHID))
 
 
 def tile_note() -> str:
@@ -493,11 +532,15 @@ def tile_note() -> str:
 
     return (f"tiles at E={EMSIZE} H={NHID} bf16: lstm_fused / lstm_fused_res "
             "mma.sync.m16n8k16 (bf16 in, f32 accumulate) + ldmatrix + a "
-            "cp.async.bulk / mbarrier weight ring, "
-            f"{tile_smem_bytes(EMSIZE, NHID)} bytes of "
+            "cp.async.bulk / mbarrier weight ring with x streamed beside "
+            f"it, {tile_smem_bytes(EMSIZE, NHID)} bytes of "
             "dynamic shared memory a block of 64 rows; lstm_fused_bwd phase "
             f"A the same, {tile_smem_bytes(EMSIZE, NHID, backward=True)} "
-            "bytes; gru_fused / gru_fused_res the same tiles with three "
+            "bytes; at H = 512 / 1,024 a cluster of 2 / 4 blocks of 16 rows, "
+            f"{tile_smem_bytes(EMSIZE, 512)} / {tile_smem_bytes(EMSIZE, 1024)}"
+            " bytes a block (backward "
+            f"{tile_smem_bytes(EMSIZE, 512, backward=True)} / "
+            f"{tile_smem_bytes(EMSIZE, 1024, backward=True)}); gru_fused / gru_fused_res the same tiles with three "
             f"gate blocks, {tile_smem_bytes(EMSIZE, NHID, gates=3)} bytes a "
             "block of 64 rows; phase B (dW, shared with gru_fused_bwd) "
             "mma.sync.m16n8k16 + ldmatrix.trans, 69632 bytes a 128 x 128 "
@@ -1095,19 +1138,25 @@ def check_refusals(gen) -> None:
                                           dtype=dtype))
 
     # fused_supported states the launchers' limits: a shape it accepts runs
-    # through all three kernels, one it rejects is refused by the backward
-    # (whose tiles are the largest); float32 above H = 128 runs the
-    # row-tile kernels under their wider launch bounds
+    # through all three kernels, one it rejects is refused by the backward;
+    # every E, and H up to 1,024 in both dtypes (bf16: one block to 384,
+    # clusters of 2 and 4 above; float32: one block to 403, clusters of up
+    # to 8 above), one refused shape a dtype past 1,024
     bf16 = torch.bfloat16
     for e, h, dtype in ((448, NHID, bf16), (512, NHID, bf16),
                         (512, 256, bf16), (EMSIZE, 512, bf16),
                         (64, 512, bf16), (300, 100, bf16),
+                        (4096, NHID, bf16), (EMSIZE, 1024, bf16),
+                        (EMSIZE, 1056, bf16),
                         (1400, NHID, torch.float32),
                         (1500, NHID, torch.float32),
+                        (4096, NHID, torch.float32),
                         (EMSIZE, 256, torch.float32),
                         (EMSIZE, 403, torch.float32),
                         (EMSIZE, 404, torch.float32),
-                        (EMSIZE, 512, torch.float32)):
+                        (EMSIZE, 512, torch.float32),
+                        (EMSIZE, 1024, torch.float32),
+                        (EMSIZE, 1025, torch.float32)):
         ok = fused_supported(e, h, 40, dtype)
         try:
             lstm_at(e, h, dtype) if ok else None
@@ -1115,7 +1164,7 @@ def check_refusals(gen) -> None:
             bwd_at(e, h, dtype)
             torch.cuda.synchronize()
             ran = True
-        except RuntimeError as err:
+        except (RuntimeError, ValueError) as err:
             ran, why = False, err
         log(f"fused_supported(E={e}, H={h}, {dtype}) = {ok}; the kernels "
             + ("ran" if ran else f"refused: {why}"))
@@ -1140,6 +1189,7 @@ def check_refusals(gen) -> None:
     # one (bf16: kernel 9's tensor-core tiles, whose limits hold the
     # forward's; float32: kernel 9's f32 tile)
     for e, h, dtype in ((672, NHID, bf16), (704, NHID, bf16),
+                        (1024, NHID, bf16), (4096, NHID, bf16),
                         (EMSIZE, 448, bf16), (EMSIZE, 449, bf16),
                         (300, 100, bf16), (1400, NHID, torch.float32),
                         (1500, NHID, torch.float32),
@@ -1192,22 +1242,20 @@ def check_refusals(gen) -> None:
                         at(e, h, dt))
                        for k, at in lstm_fns
                        for what, e, h, dt in (
-                           ("f32 E=4096 (shared tile)", 4096, NHID,
+                           ("f32 H=1152 (hidden above 1,024)", EMSIZE, 1152,
                             torch.float32),
-                           ("f32 H=1024 (threads per block)", EMSIZE, 1024,
-                            torch.float32),
-                           ("bf16 E=4096 (staged tiles beyond shared "
-                            "memory)", 4096, NHID, bf16),
-                           ("bf16 H=1024 (hidden above 512)", EMSIZE, 1024,
+                           ("bf16 H=1152 (hidden above 1,024)", EMSIZE, 1152,
                             bf16))),
-                     ("RNNLayer lstm bf16 H=520 (hidden above 512)",
-                      lambda: layer_at("lstm", EMSIZE, 520, bf16)),
-                     ("RNNLayer lstm f32 H=520 (threads per block)",
-                      lambda: layer_at("lstm", EMSIZE, 520, torch.float32)),
+                     ("RNNLayer lstm bf16 H=1152 (hidden above 1,024)",
+                      lambda: layer_at("lstm", EMSIZE, 1152, bf16)),
+                     ("RNNLayer lstm f32 H=1152 (hidden above 1,024)",
+                      lambda: layer_at("lstm", EMSIZE, 1152, torch.float32)),
                      ("RNNLayer gru f32 E=4096 (shared tile)",
                       lambda: layer_at("gru", 4096, NHID, torch.float32)),
-                     ("RNNLayer gru bf16 E=704 (staged tiles beyond shared "
-                      "memory)", lambda: layer_at("gru", 704, NHID, bf16)),
+                     ("RNNLayer gru bf16 H=480 (tiles beyond shared memory)",
+                      lambda: layer_at("gru", EMSIZE, 480, bf16)),
+                     ("gru_fused_bwd bf16 H=480 (tiles beyond shared memory)",
+                      lambda: gru_at("gru_fused_bwd", EMSIZE, 480, bf16)),
                      ("lstm_recurrence H=192 (H % 128)", lambda: rec_at(192)),
                      ("lstm_recurrence H=640 (threads per block)",
                       lambda: rec_at(640)),
@@ -1223,8 +1271,6 @@ def check_refusals(gen) -> None:
                             torch.float32),
                            ("f32 H=1024 (threads per block)", EMSIZE, 1024,
                             torch.float32),
-                           ("bf16 E=4096 (tiles beyond shared memory)",
-                            4096, NHID, bf16),
                            ("bf16 H=1024 (hidden above 512)", EMSIZE, 1024,
                             bf16))),
                      ("generator_topk_lse E=1024 (shared tile)",
@@ -1408,6 +1454,14 @@ PATH_KERNELS = {
     # cli.main: training through kernels 4/5 (8/9), validation and test
     # through kernel 1 (7) and the logits decode step
     "trainer_fit": ("lstm_fused", "lstm_fused_res", "lstm_fused_bwd"),
+    # the wide LSTMs: CARS at nhid 512 (bf16: clusters of 2; float32:
+    # clusters of 4) and a bf16 CARS at emsize 768
+    **{f"{p}_wide_{dt}": k for dt in ("bf16", "f32") for p, k in (
+        ("rank_batch", ("lstm_fused",)),
+        ("suggest_beam5", ("lstm_fused", BEAM_GEN)),
+        ("train_step", ("lstm_fused_res", "lstm_fused_bwd")))},
+    "trainer_fit_wide": ("lstm_fused", "lstm_fused_res", "lstm_fused_bwd"),
+    "rank_batch_e768": ("lstm_fused",),
     "trainer_fit_hredqs": ("gru_fused", "gru_fused_res", "gru_fused_bwd"),
     # the flat-source recommenders: their encoder over [B, S_REC * Lq]
     # through kernel 1 (serving) or 4 + 5 (training); their decode step is
@@ -3450,52 +3504,63 @@ RNN_TIMING = {
 }
 
 
-def time_rnn(gen, rnn: str, launches: dict, fwd_err: float,
-             pair_err: dict, shape: tuple | None = None) -> list[dict]:
+def time_rnn(gen, rnn: str, launches: dict, fwd_err: float | None = None,
+             pair_err: dict | None = None, shape: tuple | None = None,
+             dtype=torch.bfloat16, iters: int = 5, **widths) -> list[dict]:
     """The forward kernel and the training pair of ``rnn`` (kernels 1, 4,
     5 or 7, 8, 9) at the doc encoder's shape, or at ``shape`` = (rows,
-    steps) (then the rows carry ``rows`` and ``steps``), one direction,
-    bf16, against their plain versions and cuDNN's module of the same
-    recurrence as the yardstick (inference forward; training forward with
-    autograd on; backward alone, from a retained graph)."""
+    steps) and ``widths`` (``e``, ``h``; then the rows carry ``rows``,
+    ``steps``, ``e``, ``h`` and ``dtype``), one direction, in ``dtype``
+    (bf16 by default), against their plain versions and cuDNN's module of
+    the same recurrence as the yardstick (inference forward; training
+    forward with autograd on; backward alone, from a retained graph), each
+    the mean of ``iters`` calls.  Without ``pair_err`` the kernels are
+    first held to their plain versions on these very inputs, both
+    directions (``pair_check``: every output within PAIR_TOL, masked
+    outputs 0, the backward the same bits twice), and the rows carry those
+    errors."""
     mod = rnn_kernels(rnn)
     cudnn_cls, sources, replaces = RNN_TIMING[rnn]
     fwd, res, bwd = f"{rnn}_fused", f"{rnn}_fused_res", f"{rnn}_fused_bwd"
     plain = {k: getattr(mod, k + "_reference") for k in (fwd, res, bwd)}
-    dtype = torch.bfloat16
-    (x, *w), mask = RNNS[rnn][0](gen, dtype, *(shape or ()))
+    x, mask, w, dout = pair_inputs(gen, rnn, dtype,
+                                   *(shape or (B * S * N, LD)), **widths)
     rows, steps, e = x.shape
     h = w[2].shape[0]
+    if pair_err is None:
+        worst = held_errors("path shape", rnn, x, mask, w, dout, dtype)
+        fwd_err = worst["out"]
+        pair_err = {k: {dtype: a} for k, a in by_kernel(rnn, worst).items()}
     out, *state = getattr(mod, res)(x, mask, *w)
-    dout = (torch.randn(out.shape, generator=gen, device="cuda")
-            * 0.5).to(dtype)
     cudnn = cudnn_cls(e, h, batch_first=True, device="cuda", dtype=dtype)
     ms, plain_ms, lib = {}, {}, {}
+    few = min(iters, 3)
     with torch.inference_mode():
-        ms[fwd] = timed_ms(lambda: getattr(mod, fwd)(x, mask, *w), 5)
-        plain_ms[fwd] = timed_ms(lambda: plain[fwd](x, mask, *w), 3)
-        lib[fwd] = timed_ms(lambda: cudnn(x), 5)
-    ms[res] = timed_ms(lambda: getattr(mod, res)(x, mask, *w), 5)
-    plain_ms[res] = timed_ms(lambda: plain[res](x, mask, *w), 3)
+        ms[fwd] = timed_ms(lambda: getattr(mod, fwd)(x, mask, *w), iters)
+        plain_ms[fwd] = timed_ms(lambda: plain[fwd](x, mask, *w), few)
+        lib[fwd] = timed_ms(lambda: cudnn(x), iters)
+    ms[res] = timed_ms(lambda: getattr(mod, res)(x, mask, *w), iters)
+    plain_ms[res] = timed_ms(lambda: plain[res](x, mask, *w), few)
     ms[bwd] = timed_ms(lambda: getattr(mod, bwd)(x, mask, *w, *state, dout),
-                       5)
+                       iters)
     plain_ms[bwd] = timed_ms(lambda: plain[bwd](x, mask, *w, *state, dout),
-                             3)
+                             few)
     xg = x.detach().requires_grad_()
-    lib[res] = timed_ms(lambda: cudnn(xg), 5)
+    lib[res] = timed_ms(lambda: cudnn(xg), iters)
     o, _ = cudnn(xg)
     wrt = [xg, *cudnn.parameters()]
     lib[bwd] = timed_ms(lambda: torch.autograd.grad(o, wrt, dout,
-                                                    retain_graph=True), 5)
+                                                    retain_graph=True), iters)
     del o
 
     gates = w[0].shape[1] // h
-    weights = sum(t.numel() for t in w) * 2
+    weights = sum(t.numel() for t in w) * x.element_size()
     boundaries = len(state) * state[0].numel() * 4
     flops_f = 2.0 * rows * steps * (e + h) * gates * h
-    bytes_f = (x.numel() + out.numel()) * 2 + weights + mask.numel()
+    elt = x.element_size()
+    bytes_f = (x.numel() + out.numel()) * elt + weights + mask.numel()
     # recompute + dx + dh + dW_ih + dW_hh: three times the forward's flops
-    bytes_b = ((2 * x.numel() + dout.numel()) * 2 + 2 * weights
+    bytes_b = ((2 * x.numel() + dout.numel()) * elt + 2 * weights
                + mask.numel() + boundaries)
     rows_out = []
     for name, src, line, flops, n_bytes, err, what in (
@@ -3506,7 +3571,8 @@ def time_rnn(gen, rnn: str, launches: dict, fwd_err: float,
             (bwd, sources[2], replaces[2], 3 * flops_f, bytes_b,
              pair_err[bwd][dtype], "backward alone")):
         bnd, by = bound_ms(flops, n_bytes, dtype)
-        log(f"{name} bf16 [{rows},{steps},{e}]->{h} one direction, TC="
+        log(f"{name} {str(dtype)[6:]} [{rows},{steps},{e}]->{h} one "
+            f"direction, TC="
             f"{TIME_CHUNK}: kernel {ms[name]:.3f} ms, plain "
             f"{plain_ms[name]:.3f} ms, cuDNN {cudnn_cls.__name__} {what} "
             f"{lib[name]:.3f} ms, bound {bnd:.4f} ms ({by})")
@@ -3515,10 +3581,173 @@ def time_rnn(gen, rnn: str, launches: dict, fwd_err: float,
             log_earlier(name, ms[name], plain_ms[name], lib[name], bnd)
         else:
             extra = {"rows": rows, "steps": steps}
+            if widths:
+                extra.update(e=e, h=h, dtype=str(dtype)[6:])
         rows_out.append(kernel_row(name, src, line, launches, err, ms[name],
                                    plain_ms[name], lib[name], bnd, by,
                                    **extra))
     return rows_out
+
+
+# -- the wide LSTMs: kernels 1, 4, 5 past the single block --------------------
+
+WIDE_NHID = 512      # --nhid 512: bf16 clusters of 2, float32 clusters of 4
+WIDE_EMSIZE = 768    # a bf16 embedding past the staged x tile (E <= 480)
+WIDE_FIT_SESSIONS = 256
+# (H, dtype) of the timed wide kernels at the doc encoder's rows and steps:
+# H = 512 and 1,024 in both dtypes, and float32's one block at 256 and 384
+WIDE_TIMED = ((512, torch.bfloat16), (1024, torch.bfloat16),
+              (512, torch.float32), (1024, torch.float32),
+              (256, torch.float32), (384, torch.float32))
+
+
+def within_tol(path: str, got, want, dtype) -> None:
+    """max |got - want| within PAIR_TOL[dtype] of max |want| (the kernels
+    against the same model on the plain scan, on the card)."""
+    g, w = (np.asarray(v, np.float64) for v in (got, want))
+    err = float(np.abs(g - w).max())
+    scale = max(float(np.abs(w).max()), 1e-30)
+    log(f"{path}: max abs difference from use_pallas_rnn=False {err:.3e} "
+        f"(rel {err / scale:.2e}; tol rel {PAIR_TOL[dtype]:g})")
+    if not err <= PAIR_TOL[dtype] * scale:
+        raise AssertionError(f"{path}: {err} > {PAIR_TOL[dtype]} * {scale} "
+                             "from the plain scan")
+
+
+def wide_serving(word_dict, cfg, tag: str, dtype, launches: dict,
+                 suggest: bool = True) -> None:
+    """``Engine.rank_batch`` (and beam-5 ``suggest_batch``) of ``cfg``,
+    counted, against the same weights with use_pallas_rnn=False."""
+    from context_attentive_ir_tpu_torch.models.multitask.cars import CARS
+    from context_attentive_ir_tpu_torch.serve import Engine
+
+    params = CARS(cfg, device="cuda", seed=0).state_dict()
+    eng, ref = (Engine(c, word_dict, params, beam_size=BEAM, batch_bucket=B)
+                for c in (cfg, cfg.replace(use_pallas_rnn=False)))
+    reqs, hists = requests(np.random.RandomState(16), word_dict, B)
+    with torch.inference_mode():
+        path = f"rank_batch_{tag}"
+        scores, launches[path] = counted(path, lambda: eng.rank_batch(reqs))
+        within_tol(path, scores, ref.rank_batch(reqs), dtype)
+        if not suggest:
+            return
+        path = f"suggest_beam5_{tag}"
+        sugg, launches[path] = counted(path, lambda: eng.suggest_batch(hists))
+        want = ref.suggest_batch(hists)
+    check_suggestions(path, sugg, BEAM)
+    within_tol(path + " top-1 scores", [nb[0][1] for nb in sugg],
+               [nb[0][1] for nb in want], dtype)
+    same = sum(a[0][0] == b[0][0] for a, b in zip(sugg, want))
+    log(f"{path}: top-1 suggestions equal to the plain scan's in {same} of "
+        f"{B} requests")
+    if dtype == torch.float32 and same != B:
+        raise AssertionError(f"{path}: float32 suggestions differ from the "
+                             "plain scan's")
+
+
+def wide_train(cfg, tag: str, dtype, launches: dict) -> None:
+    """Four Adam steps of CARS on one batch through kernels 4 + 5 (the
+    second counted) and the same through the plain scan, from the same
+    weights: the losses must fall and agree within PAIR_TOL."""
+    from context_attentive_ir_tpu_torch.models.multitask.cars import CARS
+    from context_attentive_ir_tpu_torch.train import (
+        create_train_state,
+        make_train_step,
+    )
+
+    batch = random_session_batch(np.random.RandomState(17)).to("cuda")
+    path = f"train_step_{tag}"
+    losses = {}
+    for kernel in (True, False):
+        c = cfg if kernel else cfg.replace(use_pallas_rnn=False)
+        model = CARS(c, device="cuda", seed=0)
+        state, step = create_train_state(model, c), make_train_step(model, c)
+        out = []
+        for i in range(4):
+            if kernel and i == 1:
+                (state, m), launches[path] = counted(
+                    path, lambda: step(state, batch, 1))
+            else:
+                state, m = step(state, batch, 1)
+            out.append(float(m["loss"]))
+        losses[kernel] = out
+        del model, state, step
+    log(f"{path}: 4 Adam steps, losses through the kernels "
+        f"{[round(v, 5) for v in losses[True]]}, through the plain scan "
+        f"{[round(v, 5) for v in losses[False]]}")
+    if not (all(math.isfinite(v) for v in losses[True])
+            and losses[True][-1] < losses[True][0]):
+        raise AssertionError(f"{path}: the loss did not fall")
+    within_tol(path + " losses", losses[True], losses[False], dtype)
+
+
+def wide_fit(files: dict, run_dir: str, launches: dict) -> None:
+    """``cli.main --nhid 512 --compute_dtype bfloat16`` on the fixture's
+    first WIDE_FIT_SESSIONS sessions, one epoch with beam-5 validation and
+    a test, counted; then the same with --use_pallas_rnn false: the epoch's
+    train loss within PAIR_TOL of it."""
+    from context_attentive_ir_tpu_torch.cli.main import main as cli_main
+
+    hist = {}
+    for kernel in (True, False):
+        argv = fit_args("cars", files, str(Path(run_dir) / str(kernel)),
+                        "--train_file", str(files["train"]), "--dev_file",
+                        str(files["dev"]), "--num_epochs", "1",
+                        "--max_examples", str(WIDE_FIT_SESSIONS), "--nhid",
+                        str(WIDE_NHID),
+                        *(() if kernel else ("--use_pallas_rnn", "false")))
+        t = time.perf_counter()
+        if kernel:
+            res, launches["trainer_fit_wide"] = counted(
+                "trainer_fit_wide", lambda: cli_main(argv))
+        else:
+            res = cli_main(argv)
+        h = res["fit"]["history"]
+        log(f"trainer_fit_wide ({'kernels' if kernel else 'plain scan'}): "
+            f"cli.main --nhid {WIDE_NHID} bf16, {WIDE_FIT_SESSIONS} "
+            f"sessions, 1 epoch + test in {time.perf_counter() - t:.1f} s; "
+            f"history " + json.dumps([{k: round(v, 4) for k, v in e.items()}
+                                      for e in h]) + "; test " + json.dumps(
+                {k: round(v, 4) for k, v in res["test"].items()}))
+        if not all(math.isfinite(v) for e in h + [res["test"]]
+                   for v in e.values()):
+            raise AssertionError("trainer_fit_wide: non-finite metrics")
+        hist[kernel] = h[-1]["train_loss"]
+    within_tol("trainer_fit_wide train loss", [hist[True]], [hist[False]],
+               torch.bfloat16)
+
+
+def wide_paths(gen, fixture_dir: str) -> tuple[dict, list[dict]]:
+    """The slice's path: CARS at the serving widths with nhid 512 in bf16
+    and float32 (rank_batch, beam-5 suggest_batch, 4 train steps), cli.main
+    at nhid 512 in bf16, a bf16 CARS at emsize 768 (rank_batch), each
+    against the same model on the plain scan; then kernels 1, 4, 5 at the
+    doc encoder's rows and steps at each of WIDE_TIMED, held to their plain
+    versions on the same inputs, both directions, and timed beside cuDNN.
+    Returns the launches and the timing rows."""
+    word_dict = synthetic_dictionary(VOCAB)
+    launches = {}
+    for tag, dt in (("wide_bf16", "bfloat16"), ("wide_f32", "float32")):
+        dtype = getattr(torch, dt)
+        cfg = full_width_config("cars", nhid=WIDE_NHID, compute_dtype=dt)
+        wide_serving(word_dict, cfg, tag, dtype, launches)
+        wide_train(cfg, tag, dtype, launches)
+        torch.cuda.empty_cache()
+    wide_serving(word_dict, full_width_config("cars", emsize=WIDE_EMSIZE),
+                 "e768", torch.bfloat16, launches, suggest=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        wide_fit(fit_files(fixture_dir), tmp, launches)
+    torch.cuda.empty_cache()
+    log(f"wide LSTM launches per path: {json.dumps(launches)}")
+
+    rows = []
+    for h, dtype in WIDE_TIMED:
+        rows.extend(time_rnn(gen, "lstm", launches,
+                             shape=(B * S * N, LD), dtype=dtype,
+                             iters=5 if dtype == torch.bfloat16 else 2,
+                             e=EMSIZE, h=h))
+        torch.cuda.empty_cache()
+    return launches, rows
 
 
 def time_row_tiles(gen) -> None:
@@ -4190,8 +4419,8 @@ EARLIER_MS = {"lstm_fused": 11.269, "lstm_fused_res": 11.256,
 # other phase.
 PHASES = ("kernels", "lstm", "grukernels", "beamkernels", "slatekernels",
           "serving", "parallel", "train", "indexed", "interop", "gru",
-          "small", "kernel6", "trainer", "recommenders", "multitask",
-          "rankers")
+          "small", "kernel6", "widelstm", "trainer", "recommenders",
+          "multitask", "rankers")
 SHARES = {"lstm", "grukernels", "beamkernels", "slatekernels"}
 
 
@@ -4252,6 +4481,10 @@ def main() -> int:
 
     def check_lstm():
         check_rnn("lstm")
+        for dtype in (torch.float32, torch.bfloat16):
+            for k, v in check_tiles(gen, "lstm", WIDE_SHAPES, dtype).items():
+                d = errs["pair_lstm"][k]
+                d[dtype] = max(d[dtype], v)
         errs["rec"] = check_recurrence(gen)
 
     def check_beam():
@@ -4319,6 +4552,11 @@ def main() -> int:
     if "kernel6" in run:
         with torch.inference_mode():
             launches.update(phase("kernel6", precomputed_path))
+    wide_rows = []
+    if "widelstm" in run:
+        wide_launches, wide_rows = phase(
+            "widelstm", lambda: wide_paths(gen, fixture_dir.name))
+        launches.update(wide_launches)
     # the default run keeps --resume and the Trainer's timings for CARS
     # alone (its time limit), a phase run alone keeps them for each of its
     # models but the rankers
@@ -4396,6 +4634,7 @@ def main() -> int:
 
     if errs:
         phase("kernel timing", timing)
+    kernels.extend(wide_rows)
     if train_ms:
         log(f"train steps (CUDA events, mean of 5, B={B}): "
             f"{json.dumps(train_ms)}")

@@ -56,7 +56,7 @@
 // at every H when that layout would give fewer blocks than the card has
 // SMs, bwd_row_tiles).  The recompute is kernel 8's step (step_gates on
 // the staged [E + H, 3H + 8] weights streamed through the `cp.async.bulk`
-// ring, x double-buffered by `cp.async`, the n gate's x @ W_in and
+// ring, x_t's columns streamed beside each x slab, the n gate's x @ W_in and
 // h @ W_hn in their own slots, so hn = h_prev_c @ W_hn + b_hn comes out of
 // the product), with h carried in f32 registers.  It keeps h_prev, r, z, n
 // and hn of each cell -- five f32 planes, none of which the other four
@@ -281,10 +281,18 @@ gru_bwd_cell_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
 }
 
 // Phase A on bf16 tensor cores (see the header note).  Shared memory:
-// weight ring (mbarriers, slabs) | union of {x tile twice, h tile}
+// weight ring (mbarriers, slabs, x slots) | union of {h tile}
 // (recompute) and {slots tile, dh exchange (f32, rows h + 8 floats apart)}
-// (reverse pass) | bias slots r, z, xn, hn (f32).
+// (reverse pass) | bias slots r, z, xn, hn (f32).  As in kernel 5, the
+// reverse pass's dh and slot sums wait out each recompute in the block's
+// park area of the workspace (kPark float4 a thread, once a chunk), so the
+// recompute's accumulators keep their registers.
 constexpr int kPlanes = 5;  // per cell and step: h_prev, r, z, n, hn
+
+// float4 a thread: dh [MT][G][4]; dbs [G][4][2]
+__host__ __device__ constexpr int park_slots(int g, int mt) {
+  return mt * g + 2 * g;
+}
 
 template <int G, int MT>
 __global__ void __launch_bounds__(tiles::kThreads, 1)
@@ -304,30 +312,39 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
   using namespace tiles;
   extern __shared__ __align__(16) char smem[];
   constexpr int M = 16 * MT;
-  const int xs = x_stride(e), hs = h_stride(h_dim), ss = slot_stride(h_dim);
+  const int hs = h_stride(h_dim), ss = slot_stride(h_dim);
   const int g3 = 3 * h_dim, g4 = 4 * h_dim;
   const int ex_ld = h_dim + 8;  // floats per row of the dh exchange
+  const int row0 = blockIdx.x * M;
   WeightRing ring;
-  ring.init(smem, w_staged, e, h_dim, kGruGates, ks, 2LL * n_steps);
-  char* uni = ring.base + kStages * ring.slab_bytes;
-  char* xbuf[2];
-  xbuf[0] = uni;
-  xbuf[1] = uni + M * xs;
-  char* h_tile = uni + 2 * M * xs;
+  ring.init(smem, w_staged, x, e, h_dim, h_dim, kGruGates, ks, 2 * n_steps,
+            row0, M, n_rows, n_steps);
+  char* uni = ring.end();
+  char* h_tile = uni;
   char* dg_tile = uni;
   float* exch = reinterpret_cast<float*>(uni + M * ss);
   float* bias_s = reinterpret_cast<float*>(
-      uni + staged_bytes(e, h_dim, kGruGates, M, true));
+      uni + staged_bytes(h_dim, h_dim, kGruGates, M, true, 1));
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tg = lane & 3;
   const int ug0 = warp * G;
-  const int row0 = blockIdx.x * M;
   const int n_chunks = (n_steps + tc - 1) / tc;
-  // the block's activation planes: [tc][MT * G * kPlanes][kThreads] float4
+  // the x step of chunk q's first recompute step (-1 past the last chunk)
+  auto first_t = [&](int q) {
+    if (q >= n_chunks) return -1;
+    const int chunk = reverse ? q : n_chunks - 1 - q;
+    const int t_lo = chunk * tc;
+    return reverse ? t_lo + min(tc, n_steps - t_lo) - 1 : t_lo;
+  };
+  // the block's activation planes, [tc][MT * G * kPlanes][kThreads] float4,
+  // then its park area [kPark][kThreads] float4
   constexpr int kSlots = MT * G * kPlanes;
-  float4* my_act =
-      act + (size_t)blockIdx.x * tc * kSlots * kThreads + threadIdx.x;
+  constexpr int kPark = park_slots(G, MT);
+  float4* my_act = act +
+                   (size_t)blockIdx.x * (tc * kSlots + kPark) * kThreads +
+                   threadIdx.x;
+  float4* park = my_act + (size_t)tc * kSlots * kThreads;
 
   for (int i = threadIdx.x; i < h_dim; i += kThreads) {
 #pragma unroll
@@ -338,17 +355,9 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
     bias_s[3 * h_dim + i] = __bfloat162float(b_hh[2 * h_dim + i]);  // hn
   }
 
+  // the reverse pass's carried state (defined anew at each reverse pass:
+  // zeros, or what the last one parked)
   float dh[MT][G][4], dbs[G][4][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dh[mt][gi][i] = 0.0f;
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) dbs[gi][q][0] = dbs[gi][q][1] = 0.0f;
 
   unsigned live = 0;  // bit mt*2 + half: row mt*16 + g + half*8 is real
 #pragma unroll
@@ -357,8 +366,8 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
     for (int half = 0; half < 2; ++half)
       if (row0 + mt * 16 + g + half * 8 < n_rows) live |= 1u << (mt * 2 + half);
 
-  ring.prologue();
-  long long n = 0;
+  ring.prologue(first_t(0));
+  int n = 0;
 
   for (int q = 0; q < n_chunks; ++q) {
     // chunks in the reverse of the forward's processing order
@@ -388,10 +397,7 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
                 __floats2bfloat162_rn(hv.x, hv.y);
         }
       }
-    load_x_tile(xbuf[0], x, row0, M, n_rows, n_steps,
-                reverse ? t_lo + len - 1 : t_lo, e);
-    cp_async_commit();
-    cp_async_wait<0>();  // visible after the first slab's hand-over
+    // the h tile is visible after the first slab's hand-over
 
     for (int k = 0; k < len; ++k) {
       const int t = reverse ? t_lo + len - 1 - k : t_lo + k;
@@ -405,11 +411,9 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
             mb |= 1u << (mt * 2 + half);
 
       float acc[MT][G][4][4];  // slots r, z, xn, hn
+      const int t_next = k + 1 < len ? (reverse ? t - 1 : t + 1) : -1;
       step_gates<kGruGates, G, MT>(
-          acc, ring, n, xbuf[k & 1], h_tile, bias_s, ug0, lane, [&]() {
-            if (k + 1 < len)
-              load_x_tile(xbuf[(k + 1) & 1], x, row0, M, n_rows, n_steps,
-                          reverse ? t - 1 : t + 1, e);
+          acc, ring, n, t, t_next, h_tile, bias_s, h_dim, ug0, lane, [&]() {
             // h before this step, rounded: phase B's operand for dW_hh
             const int cpr = h_dim / 8;
             for (int idx = threadIdx.x; idx < M * cpr; idx += kThreads) {
@@ -420,7 +424,8 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
                     ((size_t)(row0 + r) * n_steps + t) * h_dim + cc * 8) =
                     *reinterpret_cast<const uint4*>(h_tile + r * hs + cc * 16);
             }
-          });
+          },
+          NoHook());
       __syncthreads();  // every warp has read the h tile of this step
 
       float4* a_k = my_act + (size_t)k * kSlots * kThreads;
@@ -462,6 +467,27 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
     __syncthreads();  // the recompute's tiles give way to the slots tile
 
     // --- reverse pass over the chunk --------------------------------------
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi)
+        f4_to(dh[mt][gi],
+              q > 0 ? ld_global_f4(park + (size_t)(mt * G + gi) * kThreads)
+                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const float4 v =
+            q > 0 ? ld_global_f4(park + (size_t)(MT * G + 2 * gi + p) *
+                                            kThreads)
+                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        dbs[gi][2 * p][0] = v.x;
+        dbs[gi][2 * p][1] = v.y;
+        dbs[gi][2 * p + 1][0] = v.z;
+        dbs[gi][2 * p + 1][1] = v.w;
+      }
+
     for (int k = len - 1; k >= 0; --k) {
       const int t = reverse ? t_lo + len - 1 - k : t_lo + k;
       unsigned mb = 0;
@@ -553,7 +579,8 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
       // ks rows are ks output columns; a warp takes 16 rows x 16 columns
       const int b_n = (lane & 7) + (lane >> 4) * 8, b_k = ((lane >> 3) & 1) * 8;
       for (int sl = 0; sl < ring.n_slabs; ++sl, ++n) {
-        const char* slab = ring.acquire(n);
+        const char* slab =
+            ring.acquire(n, sl, -1, k > 0 ? -1 : first_t(q + 1));
         cp_async_commit();
         const int k0 = sl * ks;
         const bool is_x = k0 < e;
@@ -618,6 +645,24 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
           }
         }
     }
+
+    // park the carried state for the next chunk's reverse pass
+    if (q + 1 < n_chunks) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi)
+          st_global_f4(park + (size_t)(mt * G + gi) * kThreads,
+                       f4_of(dh[mt][gi]));
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+          st_global_f4(park + (size_t)(MT * G + 2 * gi + p) * kThreads,
+                       make_float4(dbs[gi][2 * p][0], dbs[gi][2 * p][1],
+                                   dbs[gi][2 * p + 1][0],
+                                   dbs[gi][2 * p + 1][1]));
+    }
   }
 
   // per-block slot sums: a column's cells all sit in one warp; add its
@@ -674,8 +719,9 @@ Layout layout(int n_rows, int n_steps, int e, int h_dim, int tc, size_t elt,
   const size_t g3 = 3 * (size_t)h_dim, g4 = 4 * (size_t)h_dim;
   size_t off = 0;
   L.act = off;
-  off += align256(mt ? (size_t)L.n_blocks * tc * mt *
-                           tiles::pick_config(h_dim).g * kPlanes *
+  const int g = tiles::pick_config(h_dim).g;
+  off += align256(mt ? (size_t)L.n_blocks *
+                           (tc * mt * g * kPlanes + park_slots(g, mt)) *
                            tiles::kThreads * 16
                      : (size_t)L.n_blocks * tc * kSaved * kRows * h_dim * 4);
   L.dg = off;
@@ -706,8 +752,9 @@ bool mma_shape(int e, int h_dim) {
 // the row count then takes, so the limit is one of E and H alone
 bool mma_fits(int e, int h_dim) {
   int ks = 0;
-  return tiles::mma_smem(e, h_dim, tiles::kGruGates,
-                         16 * tiles::pick_config(h_dim).mt, true, &ks) != 0;
+  return tiles::mma_smem(h_dim, h_dim, tiles::kGruGates,
+                         16 * tiles::pick_config(h_dim).mt, true, 1,
+                         &ks) != 0;
 }
 
 // phase A, float32: exact f32 FMAs
@@ -755,8 +802,8 @@ int launch_mma(const void* x, const void* mask, const void* w_staged,
   using bf16 = __nv_bfloat16;
   int ks = 0;
   const size_t smem =
-      tiles::mma_smem(e, h_dim, tiles::kGruGates, 16 * MT, true, &ks);
-  if (smem == 0) return (int)cudaErrorInvalidValue;  // E + H too large
+      tiles::mma_smem(h_dim, h_dim, tiles::kGruGates, 16 * MT, true, 1, &ks);
+  if (smem == 0) return (int)cudaErrorInvalidValue;  // H too large
   cudaError_t err = cudaFuncSetAttribute(
       gru_bwd_mma_kernel<G, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -898,8 +945,8 @@ extern "C" int cair_gru_bwd(const void* x, const void* mask,
                             int tc, int dtype, int row_tiles, void* stream) {
   const int mt = row_tiles_of(n_rows, n_steps, e, h_dim, tc, dtype,
                               row_tiles);
-  // float32: a block has 2H threads (at most 1024); bfloat16: E + H fit
-  // the tiles
+  // float32: a block has 2H threads (at most 1024); bfloat16: H fits the
+  // tiles (any E: x is streamed)
   if (mt < 0 || (dtype == 0 ? kRowGroups * h_dim > 1024
                             : !mma_fits(e, h_dim)))
     return (int)cudaErrorInvalidValue;

@@ -30,10 +30,10 @@
 // four.  A block of 8 warps owns M = 64 rows (32 or 16 for H above 128 or
 // 256) for all T steps; per step [x_t | h] @ [W_ih; W_hh] is
 // `mma.sync.m16n8k16` tiles (bf16 in, f32 accumulate), both operands read
-// by `ldmatrix` from shared memory: [x_t | h] staged in bf16 (x
-// double-buffered by `cp.async`, one step ahead), the weights -- staged by
-// the wrapper as one padded [E + H, 3H + 8] matrix -- streamed from L2
-// through the three-slab ring of `cp.async.bulk` copies.  The n gate needs
+// by `ldmatrix` from shared memory: h staged in bf16, the weights --
+// staged by the wrapper as one padded [E + H, 3H + 8] matrix -- streamed
+// from L2 through the three-slab ring of `cp.async.bulk` copies, and x_t's
+// columns streamed beside each x slab (`cp.async`), so every E fits.  The n gate needs
 // x_t @ W_in and h @ W_hn apart (r multiplies only the second), so a
 // thread keeps four f32 slots per (row, unit): r and z take every slab, the
 // n tile of an x slab goes into xn and that of an h slab into hn -- no
@@ -155,7 +155,7 @@ gru_fwd_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
 }
 
 // The bf16 tensor-core kernel (see the header note and lstm_mma.cuh).
-// Shared memory: weight ring (mbarriers, slabs) | x tile, twice | h tile |
+// Shared memory: weight ring (mbarriers, slabs, x slots) | h tile |
 // bias slots r, z, xn, hn (f32).
 template <int G, int MT, bool kRes>
 __global__ void __launch_bounds__(tiles::kThreads, 1)
@@ -170,19 +170,17 @@ gru_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
   using namespace tiles;
   extern __shared__ __align__(16) char smem[];
   constexpr int M = 16 * MT;
-  const int xs = x_stride(e), hs = h_stride(h_dim);
+  const int hs = h_stride(h_dim);
+  const int row0 = blockIdx.x * M;
   WeightRing ring;
-  ring.init(smem, w_staged, e, h_dim, kGruGates, ks, n_steps);
-  char* xbuf[2];
-  xbuf[0] = ring.base + kStages * ring.slab_bytes;
-  xbuf[1] = xbuf[0] + M * xs;
-  char* h_tile = xbuf[1] + M * xs;
+  ring.init(smem, w_staged, x, e, h_dim, h_dim, kGruGates, ks, n_steps, row0,
+            M, n_rows, n_steps);
+  char* h_tile = ring.end();
   float* bias_s = reinterpret_cast<float*>(h_tile + M * hs);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tg = lane & 3;
   const int ug0 = warp * G;
-  const int row0 = blockIdx.x * M;
 
   for (int i = threadIdx.x; i < M * hs / 16; i += kThreads)
     reinterpret_cast<uint4*>(h_tile)[i] = make_uint4(0, 0, 0, 0);
@@ -203,13 +201,10 @@ gru_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int i = 0; i < 4; ++i) h[mt][gi][i] = 0.0f;
 
-  // the first x tile rides in the ring's first commit group
-  load_x_tile(xbuf[0], x, row0, M, n_rows, n_steps,
-              reverse ? n_steps - 1 : 0, e);
-  ring.prologue();
+  ring.prologue(reverse ? n_steps - 1 : 0);
   __syncthreads();  // bias_s and the zeroed h tile
 
-  long long n = 0;
+  int n = 0;
   for (int s = 0; s < n_steps; ++s) {
     const int t = reverse ? n_steps - 1 - s : s;
     // bit mt*2 + half: the step is unmasked for row mt*16 + g + half*8
@@ -247,12 +242,9 @@ gru_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
     }
 
     float acc[MT][G][4][4];  // slots r, z, xn, hn
-    step_gates<kGruGates, G, MT>(
-        acc, ring, n, xbuf[s & 1], h_tile, bias_s, ug0, lane, [&]() {
-          if (s + 1 < n_steps)
-            load_x_tile(xbuf[(s + 1) & 1], x, row0, M, n_rows, n_steps,
-                        reverse ? t - 1 : t + 1, e);
-        });
+    const int t_next = s + 1 < n_steps ? (reverse ? t - 1 : t + 1) : -1;
+    step_gates<kGruGates, G, MT>(acc, ring, n, t, t_next, h_tile, bias_s,
+                                 h_dim, ug0, lane, NoHook(), NoHook());
     __syncthreads();  // every warp has read the h tile of this step
 
     // cell update; masked steps carry the state and write zeros
@@ -298,8 +290,9 @@ int launch_mma(const void* x, const void* mask, const void* w_staged,
   using namespace tiles;
   using bf16 = __nv_bfloat16;
   int ks = 0;
-  const size_t smem = mma_smem(e, h_dim, kGruGates, 16 * MT, false, &ks);
-  if (smem == 0) return (int)cudaErrorInvalidValue;  // E + H too large
+  const size_t smem =
+      mma_smem(h_dim, h_dim, kGruGates, 16 * MT, false, 1, &ks);
+  if (smem == 0) return (int)cudaErrorInvalidValue;  // H too large
   cudaError_t err = cudaFuncSetAttribute(
       gru_fwd_mma_kernel<G, MT, kRes>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

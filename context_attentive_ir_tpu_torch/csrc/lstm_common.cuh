@@ -138,26 +138,84 @@ __device__ __forceinline__ void stage_x_h(float* tile, const T* __restrict__ x,
   __syncthreads();
 }
 
-// One LSTM step's gate pre-activations for the thread's 16 rows and unit j:
-// acc[g][i] = bias_g + x_t @ W_ih[:, g*H + j] + h @ W_hh[:, g*H + j].
-// Stages [x_t | h] (stage_x_h).
+// The float32 LSTM kernels (lstm_fwd.cu, lstm_bwd.cu) stage x_t in chunks
+// of kF32Chunk k-rows beside the whole h, so E takes no shared memory past
+// one chunk; f32_cluster gives the blocks of a cluster that splits the
+// units (1: one block of 2H threads).  The forward splits every H above
+// kF32FwdSingle into blocks of at most 256 threads (the one block of 2H
+// threads, launched under a bound of 1,024, spills 2.4 KB a thread and
+// took 1.05 s at [16000, 30, 256] -> 384 against 0.055 s split; up to 256
+// the one block is the faster); the backward keeps one block up to
+// kF32MaxSingle, as the first version did (its bits there), and splits
+// above.  A (row, unit)'s forward FMAs run in the same k order either way.
+// `f32_cluster` in ops/kernels/lstm.py states the same rule.
+constexpr int kF32Chunk = 256;
+constexpr int kF32MaxSingle = 403;  // 4H staged k-rows of kStride floats fit
+constexpr int kF32FwdSingle = 256;
+constexpr int kF32Units = 128;      // units a rank of a cluster: 256 threads
+constexpr int kF32MaxRanks = 8;
+
+inline int f32_cluster(int h, bool backward) {
+  if (h <= (backward ? kF32MaxSingle : kF32FwdSingle)) return 1;
+  const int c = (h + kF32Units - 1) / kF32Units;
+  return c <= kF32MaxRanks ? c : 0;
+}
+
+// units a block of the float32 kernels owns
+inline int f32_units(int h, bool backward) {
+  const int c = f32_cluster(h, backward);
+  return c > 0 ? (h + c - 1) / c : 0;
+}
+
+inline size_t f32_chunk_rows(int e) { return e < kF32Chunk ? e : kF32Chunk; }
+
+// Stage x_t[k0 .. k0 + kn - 1] for the block's rows k-major in `xt` and
+// synchronise the block.
+template <typename T>
+__device__ __forceinline__ void stage_x_chunk(float* xt,
+                                              const T* __restrict__ x,
+                                              int row0, int n_rows,
+                                              int n_steps, int t, int e,
+                                              int k0, int kn) {
+  for (int idx = threadIdx.x; idx < kRows * kn; idx += blockDim.x) {
+    const int r = idx / kn;
+    const int k = idx - r * kn;
+    const int row = row0 + r;
+    float v = 0.0f;
+    if (row < n_rows) v = to_f32(x[((size_t)row * n_steps + t) * e + k0 + k]);
+    xt[(size_t)k * kStride + r] = v;
+  }
+  __syncthreads();
+}
+
+// One LSTM step's gate pre-activations for the thread's 16 rows and unit j
+// (`active`: j < H): acc[g][i] = bias_g + x_t @ W_ih[:, g*H + j] +
+// h @ W_hh[:, g*H + j], x_t staged chunk by chunk into `xt`, h read from
+// the staged tile `ht` (all H units, k-major, rounded to T).  The FMAs run
+// in k order over [x_t | h].  The caller synchronises before xt or ht is
+// written again.
 template <typename T>
 __device__ __forceinline__ void gate_preacts(
-    float acc[4][kRowsPerThread], float* tile, const T* __restrict__ x,
-    const T* __restrict__ w_ih, const T* __restrict__ w_hh,
-    const float bg[4], const float h[kRowsPerThread], int row0, int n_rows,
-    int n_steps, int t, int e, int h_dim, int j, int rg) {
-  stage_x_h<T>(tile, x, h, row0, n_rows, n_steps, t, e, j, rg);
+    float acc[4][kRowsPerThread], float* xt, const float* ht,
+    const T* __restrict__ x, const T* __restrict__ w_ih,
+    const T* __restrict__ w_hh, const float bg[4], int row0, int n_rows,
+    int n_steps, int t, int e, int h_dim, int j, int rg, bool active) {
 #pragma unroll
   for (int g = 0; g < 4; ++g) {
 #pragma unroll
     for (int i = 0; i < kRowsPerThread; ++i) acc[g][i] = bg[g];
   }
   const int g4 = 4 * h_dim;
-  dot_rows<4, T>(acc, tile, 0, rg, w_ih + j, e, g4, h_dim);
-  dot_rows<4, T>(acc, tile, e, rg, w_hh + j, h_dim, g4, h_dim);
+  for (int k0 = 0; k0 < e; k0 += kF32Chunk) {
+    const int kn = e - k0 < kF32Chunk ? e - k0 : kF32Chunk;
+    stage_x_chunk<T>(xt, x, row0, n_rows, n_steps, t, e, k0, kn);
+    if (active)
+      dot_rows<4, T>(acc, xt, 0, rg, w_ih + (size_t)k0 * g4 + j, kn, g4,
+                     h_dim);
+    if (k0 + kF32Chunk < e) __syncthreads();  // the next chunk overwrites xt
+  }
+  if (active) dot_rows<4, T>(acc, ht, 0, rg, w_hh + j, h_dim, g4, h_dim);
 }
-
 
 // -- bf16 tensor-core primitives (used by lstm_mma.cuh and by phase B) -------
 
@@ -220,6 +278,35 @@ __device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2],
       : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_addr(p))
       : "memory");
+}
+
+// A float4 to or from global memory through an instruction the compiler
+// keeps where it stands (it forwards no value from such a store to a later
+// load), so the registers of what is stored are free in between.
+__device__ __forceinline__ void st_global_f4(float4* p, float4 v) {
+  asm volatile("st.global.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ float4 ld_global_f4(const float4* p) {
+  float4 v;
+  asm volatile("ld.global.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 f4_of(const float (&v)[4]) {
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void f4_to(float (&v)[4], float4 a) {
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = a.z;
+  v[3] = a.w;
 }
 
 // d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
@@ -338,22 +425,36 @@ __global__ void wgrad_partial_kernel(const T* __restrict__ a, int a_cols,
 // columns past the matrices are zero-filled.  The instruction order is
 // fixed, so a partial is the same bits every run.  Needs 16-byte aligned
 // `a` and `g` and a_cols, g_cols, g_ld multiples of 8.
+//
+// kAM: `a` lies m-major instead, a[m][r] in rows of n_rows elements (then
+// n_rows is a multiple of kWgK, one split), staged so and read through a
+// plain `ldmatrix`; the output is OutT.  So out = A @ G for a row-major A
+// [a_cols, n_rows] and G [n_rows, g_cols]: a cluster's phase C, dx =
+// dgates_c @ W_ih^T (launch_matmul).
 constexpr int kWgTile = 128;
 constexpr int kWgK = 32;
 constexpr int kWgStages = 4;
-constexpr int kWgStride = kWgTile * 2 + 16;  // bytes per staged row
+constexpr int kWgStride = kWgTile * 2 + 16;  // bytes per staged k-major row
 constexpr int kWgSlab = kWgK * kWgStride;
-constexpr int kWgSmem = kWgStages * 2 * kWgSlab;
+constexpr int kWgAmStride = kWgK * 2 + 16;   // bytes per staged m-major row
 
-template <typename T>  // T = __nv_bfloat16 (a template for its linkage)
+__host__ __device__ constexpr int wg_a_slab(bool am) {
+  return am ? kWgTile * kWgAmStride : kWgSlab;
+}
+__host__ __device__ constexpr int wg_smem(bool am) {
+  return kWgStages * (wg_a_slab(am) + kWgSlab);
+}
+
+template <typename T, bool kAM, typename OutT>  // T = __nv_bfloat16
 __global__ void __launch_bounds__(256)
 wgrad_partial_mma_kernel(const T* __restrict__ a, int a_cols,
                          const T* __restrict__ g, int g_cols,
                          int g_ld, int n_rows, int rows_per_split,
-                         float* __restrict__ partial, int out_ld,
+                         OutT* __restrict__ partial, int out_ld,
                          int out_col0) {
   using namespace tiles;
-  extern __shared__ __align__(16) char wg_smem[];
+  extern __shared__ __align__(16) char wg_smem_buf[];
+  constexpr int kStage = wg_a_slab(kAM) + kWgSlab;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp & 1, wn = warp >> 1;
   const int m0 = blockIdx.x * kWgTile;
@@ -363,17 +464,25 @@ wgrad_partial_mma_kernel(const T* __restrict__ a, int a_cols,
   const int n_iter = r_end > r_begin ? (r_end - r_begin + kWgK - 1) / kWgK : 0;
 
   auto load = [&](int it) {
-    char* as = wg_smem + (it % kWgStages) * 2 * kWgSlab;
-    char* gs = as + kWgSlab;
+    char* as = wg_smem_buf + (it % kWgStages) * kStage;
+    char* gs = as + wg_a_slab(kAM);
     const int rb = r_begin + it * kWgK;
     for (int idx = threadIdx.x; idx < kWgK * (kWgTile / 8); idx += 256) {
       const int r = idx / (kWgTile / 8);
       const int c = idx - r * (kWgTile / 8);
       const int row = rb + r;
-      const bool va = row < r_end && m0 + c * 8 < a_cols;
+      if constexpr (kAM) {
+        // the same count of 16-byte pieces: row m = idx / 4, piece idx % 4
+        const int m = idx / (kWgK / 8), p = idx - m * (kWgK / 8);
+        const bool va = m0 + m < a_cols;
+        cp_async16(as + m * kWgAmStride + p * 16,
+                   va ? a + (size_t)(m0 + m) * n_rows + rb + p * 8 : a, va);
+      } else {
+        const bool va = row < r_end && m0 + c * 8 < a_cols;
+        cp_async16(as + r * kWgStride + c * 16,
+                   va ? a + (size_t)row * a_cols + m0 + c * 8 : a, va);
+      }
       const bool vg = row < r_end && n0 + c * 8 < g_cols;
-      cp_async16(as + r * kWgStride + c * 16,
-                 va ? a + (size_t)row * a_cols + m0 + c * 8 : a, va);
       cp_async16(gs + r * kWgStride + c * 16,
                  vg ? g + (size_t)row * g_ld + n0 + c * 8 : g, vg);
     }
@@ -398,15 +507,20 @@ wgrad_partial_mma_kernel(const T* __restrict__ a, int a_cols,
     __syncthreads();
     if (it + kWgStages - 1 < n_iter) load(it + kWgStages - 1);
     cp_async_commit();
-    const char* as = wg_smem + (it % kWgStages) * 2 * kWgSlab;
-    const char* gs = as + kWgSlab;
+    const char* as = wg_smem_buf + (it % kWgStages) * kStage;
+    const char* gs = as + wg_a_slab(kAM);
 #pragma unroll
     for (int kk = 0; kk < kWgK; kk += 16) {
       uint32_t af[4][4], bf[2][4];
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldsm_x4_trans(af[mt], as + (kk + a_k) * kWgStride +
-                                  (wm * 64 + mt * 16 + a_m) * 2);
+      for (int mt = 0; mt < 4; ++mt) {
+        if constexpr (kAM)
+          ldsm_x4(af[mt], as + (wm * 64 + mt * 16 + (lane & 15)) * kWgAmStride +
+                              (kk + (lane >> 4) * 8) * 2);
+        else
+          ldsm_x4_trans(af[mt], as + (kk + a_k) * kWgStride +
+                                    (wm * 64 + mt * 16 + a_m) * 2);
+      }
 #pragma unroll
       for (int np = 0; np < 2; ++np)
         ldsm_x4_trans(bf[np], gs + (kk + b_k) * kWgStride +
@@ -431,7 +545,7 @@ wgrad_partial_mma_kernel(const T* __restrict__ a, int a_cols,
         const int nn = n0 + wn * 32 + nt * 8 + 2 * tg + (v & 1);
         if (m < a_cols && nn < g_cols)
           partial[((size_t)blockIdx.z * a_cols + m) * out_ld + out_col0 + nn] =
-              acc[mt][nt][v];
+              from_f32<OutT>(acc[mt][nt][v]);
       }
 }
 
@@ -445,14 +559,13 @@ inline cudaError_t launch_wgrad_partial(const T* a, int a_cols, const T* g,
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (tiles::aligned16(a) && tiles::aligned16(g) && a_cols % 8 == 0 &&
         g_cols % 8 == 0 && g_ld % 8 == 0) {
+      auto* kernel = wgrad_partial_mma_kernel<T, false, float>;
       cudaError_t err = cudaFuncSetAttribute(
-          wgrad_partial_mma_kernel<T>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg_smem(false));
       if (err != cudaSuccess) return err;
-      wgrad_partial_mma_kernel<T><<<dim3((a_cols + kWgTile - 1) / kWgTile,
-                                         (g_cols + kWgTile - 1) / kWgTile,
-                                         sp.splits),
-                                    256, kWgSmem, stream>>>(
+      kernel<<<dim3((a_cols + kWgTile - 1) / kWgTile,
+                    (g_cols + kWgTile - 1) / kWgTile, sp.splits),
+               256, wg_smem(false), stream>>>(
           a, a_cols, g, g_cols, g_ld, n_rows, sp.rows_per_split, partial,
           out_ld, out_col0);
       return cudaGetLastError();
@@ -476,6 +589,94 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial,
   float s = 0.0f;
   for (int z = 0; z < parts; ++z) s += partial[(size_t)z * stride + idx];
   out[idx] = from_f32<T>(s);
+}
+
+// out[r][c] = sum_k a[r][k] * b[k][c] (a [n_rows, k_dim], b [k_dim, n_cols],
+// out [n_rows, n_cols], all row-major), exact f32 FMAs in k order: the
+// float32 form of launch_matmul.  256 threads, a kTile x kTile output tile
+// per block, 4 x 4 per thread.
+template <typename T>
+__global__ void __launch_bounds__(256)
+matmul_kernel(const T* __restrict__ a, const T* __restrict__ b, int n_rows,
+              int n_cols, int k_dim, T* __restrict__ out) {
+  __shared__ __align__(16) float as[kTileK][kTile + 4];
+  __shared__ __align__(16) float bs[kTileK][kTile + 4];
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int r0 = blockIdx.x * kTile;
+  const int c0 = blockIdx.y * kTile;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.0f;
+  }
+  for (int k0 = 0; k0 < k_dim; k0 += kTileK) {
+    for (int idx = threadIdx.x; idx < kTileK * kTile; idx += blockDim.x) {
+      const int mm = idx / kTileK, ka = idx - mm * kTileK;
+      const int r = r0 + mm, k = k0 + ka;
+      as[ka][mm] = (r < n_rows && k < k_dim)
+                       ? to_f32(a[(size_t)r * k_dim + k])
+                       : 0.0f;
+      const int kb = idx / kTile, nn = idx - kb * kTile;
+      bs[kb][nn] = (k0 + kb < k_dim && c0 + nn < n_cols)
+                       ? to_f32(b[(size_t)(k0 + kb) * n_cols + c0 + nn])
+                       : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < kTileK; ++kk) {
+      const float4 av = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
+      const float4 bv = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
+      const float a4[4] = {av.x, av.y, av.z, av.w};
+      const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) acc[i][jj] += a4[i] * b4[jj];
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty * 4 + i;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int c = c0 + tx * 4 + jj;
+      if (r < n_rows && c < n_cols)
+        out[(size_t)r * n_cols + c] = from_f32<T>(acc[i][jj]);
+    }
+  }
+}
+
+// Phase C of a cluster's backward (lstm_bwd.cu): dx = dgates_c @ W_ih^T,
+// out [n_rows, n_cols] = a [n_rows, k_dim] @ b [k_dim, n_cols], all
+// row-major, cast to T.  bf16 on tensor cores (wgrad_partial_mma_kernel
+// with `a` m-major: k_dim a multiple of kWgK, n_cols of 8, 16-byte aligned
+// operands); float32 by matmul_kernel's exact FMAs.
+template <typename T>
+inline cudaError_t launch_matmul(const T* a, const T* b, int n_rows,
+                                 int n_cols, int k_dim, T* out,
+                                 cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (k_dim % kWgK != 0 || n_cols % 8 != 0 || !tiles::aligned16(a) ||
+        !tiles::aligned16(b))
+      return cudaErrorInvalidValue;
+    auto* kernel = wgrad_partial_mma_kernel<T, true, T>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg_smem(true));
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3((n_rows + kWgTile - 1) / kWgTile,
+                  (n_cols + kWgTile - 1) / kWgTile, 1),
+             256, wg_smem(true), stream>>>(a, n_rows, b, n_cols, n_cols,
+                                           k_dim, k_dim, out, n_cols, 0);
+  } else {
+    matmul_kernel<T><<<dim3((n_rows + kTile - 1) / kTile,
+                            (n_cols + kTile - 1) / kTile),
+                       256, 0, stream>>>(a, b, n_rows, n_cols, k_dim, out);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace cair_lstm

@@ -28,23 +28,29 @@
 // 256) for all T steps; per step the gate pre-activations
 // [M x 4H] = [x_t | h] @ [W_ih; W_hh] are `mma.sync.m16n8k16` tiles (bf16
 // in, f32 accumulate) with both operands read by `ldmatrix` from shared
-// memory: [x_t | h] staged in bf16 (x double-buffered by `cp.async`, one
-// step ahead), the weights -- staged by the wrapper as one padded matrix --
-// streamed from L2 through a three-slab ring, one bulk copy
-// (`cp.async.bulk` on an mbarrier) a slab, that runs on across steps.  Each
-// warp takes all rows of its hidden units and all four gates of them, so a
-// thread's accumulators hold the
-// four gates of its (row, unit) cells: the cell update is register-local,
-// c (and for kernel 4 the f32 h) never leave registers, and only the
-// bf16-rounded h goes back to the staged tile.  Kernel 4 writes hb / cb
-// (the state before time chunk j in processing order, zeros for the first
-// chunk processed) straight from those registers.  E and H are multiples of
-// 32 here: the wrapper zero-pads other sizes.
+// memory: h staged in bf16, the weights -- staged by the wrapper as one
+// padded matrix -- streamed from L2 through a three-slab ring, one bulk
+// copy (`cp.async.bulk` on an mbarrier) a slab, that runs on across steps,
+// and x_t's columns streamed beside each x slab (`cp.async`), so no tile
+// grows with E.  Each warp takes all rows of its hidden units and all four
+// gates of them, so a thread's accumulators hold the four gates of its
+// (row, unit) cells: the cell update is register-local, c (and for kernel 4
+// the f32 h) never leave registers, and only the bf16-rounded h goes back
+// to the staged tile.  Kernel 4 writes hb / cb (the state before time chunk
+// j in processing order, zeros for the first chunk processed) straight from
+// those registers.  Above H = 384 (kMaxSingle) the gate columns split over
+// a cluster of 2 or 4 blocks of 16 rows (lstm_mma.cuh): each rank computes
+// its H / C units from its own weight slice and writes their new h into
+// every rank's next h tile through distributed shared memory.  E and H are
+// multiples of 32 here: the wrapper zero-pads other sizes.
 //
 // float32 keeps exact f32 FMAs (no TF32): one block per 32 rows with 2*H
-// threads, thread (rg, j) owning unit j of 16 rows, [x_t | h] staged in f32
-// and the weights read through L2 (lstm_common.cuh's gate_preacts).  It
-// serves the small f32 checks against the CPU, not the full-width paths.
+// threads, thread (rg, j) owning unit j of 16 rows, h staged in f32 k-major
+// and x_t staged kF32Chunk k-rows at a time, the weights read through L2.
+// Above H = 256 (f32_cluster) the units split over a cluster of up to 8
+// blocks of at most 256 threads: each holds the whole h, and a block writes
+// its units' new h into every rank's tile.  Each (row, unit)'s FMAs run in
+// the same k order either way.
 //
 // As in the TPU kernel, h is rounded to the input dtype before the
 // recurrent product (`hs.astype(whh_ref.dtype)`); everything else is f32.
@@ -58,20 +64,28 @@ using namespace cair_lstm;
 
 // kRes: also store the chunk-boundary state into hb / cb [n_chunks, B, H].
 // Chunk c holds time steps c*tc .. min((c+1)*tc, T) - 1.  kBound: the
-// launch bound (row_tile_bound).
-template <typename T, bool kRes, int kBound>
+// launch bound (row_tile_bound).  A block has 2 * hc threads and owns units
+// rank*hc .. rank*hc + hc - 1 of a cluster of ceil(H / hc) blocks (kCl;
+// else hc = H: one block).  Shared memory: h of all H units [H][kStride] |
+// the x chunk [min(E, kF32Chunk)][kStride].
+template <typename T, bool kRes, int kBound, bool kCl>
 __global__ void __launch_bounds__(kBound)
 lstm_fwd_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
                 const T* __restrict__ w_ih, const T* __restrict__ bias,
                 const T* __restrict__ w_hh, T* __restrict__ out,
                 float* __restrict__ hb, float* __restrict__ cb, int n_rows,
-                int n_steps, int e, int h_dim, int reverse, int tc) {
+                int n_steps, int e, int h_dim, int reverse, int tc, int hc) {
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // [(e + h_dim)][kStride]
+  float* ht = reinterpret_cast<float*>(smem4);
+  float* xt = ht + (size_t)h_dim * kStride;
 
-  const int j = threadIdx.x % h_dim;
-  const int rg = threadIdx.x / h_dim;
-  const int row0 = blockIdx.x * kRows;
+  const int n_ranks = kCl ? (int)tiles::cluster_size() : 1;
+  const int rank = kCl ? (int)tiles::cluster_rank() : 0;
+  const int j = threadIdx.x % hc;
+  const int rg = threadIdx.x / hc;
+  const int unit = rank * hc + j;
+  const bool active = !kCl || unit < h_dim;
+  const int row0 = (blockIdx.x / n_ranks) * kRows;
   const int my_row0 = row0 + rg * kRowsPerThread;
 
   float h[kRowsPerThread];
@@ -83,11 +97,14 @@ lstm_fwd_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
   }
   float bg[4];
 #pragma unroll
-  for (int g = 0; g < 4; ++g) bg[g] = to_f32(bias[g * h_dim + j]);
+  for (int g = 0; g < 4; ++g)
+    bg[g] = active ? to_f32(bias[g * h_dim + unit]) : 0.0f;
+  for (int i = threadIdx.x; i < h_dim * kStride; i += blockDim.x) ht[i] = 0.0f;
+  f32_sync(kCl);
 
   for (int s = 0; s < n_steps; ++s) {
     const int t = reverse ? n_steps - 1 - s : s;
-    if (kRes) {
+    if (kRes && active) {
       // first step of a chunk in processing order: record the carried state
       const bool first = reverse ? (t == n_steps - 1 || (t + 1) % tc == 0)
                                  : (t % tc == 0);
@@ -97,22 +114,24 @@ lstm_fwd_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
         for (int i = 0; i < kRowsPerThread; ++i) {
           const int row = my_row0 + i;
           if (row < n_rows) {
-            hb[(base + row) * h_dim + j] = h[i];
-            cb[(base + row) * h_dim + j] = c[i];
+            hb[(base + row) * h_dim + unit] = h[i];
+            cb[(base + row) * h_dim + unit] = c[i];
           }
         }
       }
     }
 
     float acc[4][kRowsPerThread];
-    gate_preacts<T>(acc, xs, x, w_ih, w_hh, bg, h, row0, n_rows, n_steps, t,
-                    e, h_dim, j, rg);
+    gate_preacts<T>(acc, xt, ht, x, w_ih, w_hh, bg, row0, n_rows, n_steps, t,
+                    e, h_dim, unit, rg, active);
+    f32_sync(kCl);  // every block of the cluster is done reading its h tile
 
     // cell update; masked steps carry the state and write zeros
+    float hr[kRowsPerThread];
 #pragma unroll
     for (int i = 0; i < kRowsPerThread; ++i) {
       const int row = my_row0 + i;
-      if (row < n_rows) {
+      if (active && row < n_rows) {
         const size_t pos = (size_t)row * n_steps + t;
         const bool m = mask[pos] != 0;
         const float ig = sigmoid_f32(acc[0][i]);
@@ -125,17 +144,21 @@ lstm_fwd_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
           h[i] = h_new;
           c[i] = c_new;
         }
-        out[pos * h_dim + j] = from_f32<T>(m ? h[i] : 0.0f);
+        out[pos * h_dim + unit] = from_f32<T>(m ? h[i] : 0.0f);
       }
+      hr[i] = round_to<T>(h[i]);
     }
-    __syncthreads();  // the next step overwrites the staged tile
+    if (active) store_rows_all(ht, unit, rg, hr, kCl ? n_ranks : 0);
+    // the h tiles are whole: a cluster's barrier; in a single block the next
+    // step's x staging ends in a __syncthreads before h is read
+    if constexpr (kCl) tiles::cluster_sync();
   }
 }
 
 // The bf16 tensor-core kernel (see the header note and lstm_mma.cuh).
-// Shared memory: weight ring (mbarriers, slabs) | x tile, twice | h tile |
-// bias (f32).
-template <int G, int MT, bool kRes>
+// Shared memory: weight ring (mbarriers, slabs, x slots) | h tile (two in a
+// cluster, kCl) | bias of the block's units (f32).
+template <int G, int MT, bool kRes, bool kCl>
 __global__ void __launch_bounds__(tiles::kThreads, 1)
 lstm_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
                     const uint8_t* __restrict__ mask,
@@ -147,24 +170,30 @@ lstm_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
   using namespace tiles;
   extern __shared__ __align__(16) char smem[];
   constexpr int M = 16 * MT;
-  const int xs = x_stride(e), hs = h_stride(h_dim);
+  const int n_ranks = kCl ? (int)cluster_size() : 1;
+  const int rank = kCl ? (int)cluster_rank() : 0;
+  const int hc = h_dim / n_ranks, u_off = rank * hc;
+  const int hs = h_stride(h_dim);
+  const int row0 = (blockIdx.x / n_ranks) * M;
   WeightRing ring;
-  ring.init(smem, w_staged, e, h_dim, kLstmGates, ks, n_steps);
-  char* xbuf[2];
-  xbuf[0] = ring.base + kStages * ring.slab_bytes;
-  xbuf[1] = xbuf[0] + M * xs;
-  char* h_tile = xbuf[1] + M * xs;
-  float* bias_s = reinterpret_cast<float*>(h_tile + M * hs);
+  ring.init(smem,
+            w_staged + (size_t)rank * (e + h_dim) *
+                           (w_stride(hc, kLstmGates) / 2),
+            x, e, h_dim, hc, kLstmGates, ks, n_steps, row0, M, n_rows,
+            n_steps);
+  char* h_buf[2];
+  h_buf[0] = ring.end();
+  h_buf[1] = h_buf[0] + (kCl ? M * hs : 0);
+  float* bias_s = reinterpret_cast<float*>(h_buf[1] + M * hs);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tg = lane & 3;
   const int ug0 = warp * G;
-  const int row0 = blockIdx.x * M;
 
-  for (int i = threadIdx.x; i < M * hs / 16; i += kThreads)
-    reinterpret_cast<uint4*>(h_tile)[i] = make_uint4(0, 0, 0, 0);
-  for (int i = threadIdx.x; i < 4 * h_dim; i += kThreads)
-    bias_s[i] = __bfloat162float(bias[i]);
+  for (int i = threadIdx.x; i < (kCl ? 2 : 1) * M * hs / 16; i += kThreads)
+    reinterpret_cast<uint4*>(h_buf[0])[i] = make_uint4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < 4 * hc; i += kThreads)
+    bias_s[i] = __bfloat162float(bias[(i / hc) * h_dim + u_off + i % hc]);
 
   float c[MT][G][4];
   // the f32 h: only kernel 4's boundaries need it
@@ -179,13 +208,11 @@ lstm_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
         if constexpr (kRes) h[mt][gi][i] = 0.0f;
       }
 
-  // the first x tile rides in the ring's first commit group
-  load_x_tile(xbuf[0], x, row0, M, n_rows, n_steps,
-              reverse ? n_steps - 1 : 0, e);
-  ring.prologue();
-  __syncthreads();  // bias_s and the zeroed h tile
+  ring.prologue(reverse ? n_steps - 1 : 0);
+  __syncthreads();  // bias_s and the zeroed h tiles
+  if constexpr (kCl) cluster_sync();  // every rank's tiles are zeroed
 
-  long long n = 0;
+  int n = 0;
   for (int s = 0; s < n_steps; ++s) {
     const int t = reverse ? n_steps - 1 - s : s;
     // bit mt*2 + half: the step is unmasked for row mt*16 + g + half*8
@@ -213,9 +240,9 @@ lstm_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
               const int unit = (ug0 + gi) * 8 + 2 * tg;
-              if (unit < h_dim && (live >> (mt * 2 + half) & 1u)) {
+              if (unit < hc && (live >> (mt * 2 + half) & 1u)) {
                 const int row = row0 + mt * 16 + g + half * 8;
-                const size_t at = (base + row) * h_dim + unit;
+                const size_t at = (base + row) * h_dim + u_off + unit;
                 *reinterpret_cast<float2*>(hb + at) = make_float2(
                     h[mt][gi][half * 2], h[mt][gi][half * 2 + 1]);
                 *reinterpret_cast<float2*>(cb + at) = make_float2(
@@ -225,14 +252,22 @@ lstm_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
       }
     }
 
+    const int t_next = s + 1 < n_steps ? (reverse ? t - 1 : t + 1) : -1;
+    const char* h_cur = h_buf[s & 1];
     float acc[MT][G][4][4];
-    step_gates<kLstmGates, G, MT>(
-        acc, ring, n, xbuf[s & 1], h_tile, bias_s, ug0, lane, [&]() {
-          if (s + 1 < n_steps)
-            load_x_tile(xbuf[(s + 1) & 1], x, row0, M, n_rows, n_steps,
-                        reverse ? t - 1 : t + 1, e);
-        });
-    __syncthreads();  // every warp has read the h tile of this step
+    step_gates<kLstmGates, G, MT>(acc, ring, n, t, t_next, h_cur, bias_s, hc,
+                                  ug0, lane, NoHook(), [&]() {
+                                    // the other ranks' h of this step
+                                    if (kCl && s > 0) cluster_wait();
+                                  });
+    // a single block rewrites its h tile in place: every warp must have
+    // read it; a cluster writes the other tile
+    if constexpr (!kCl) __syncthreads();
+    const bool send = kCl && s + 1 < n_steps;
+    uint32_t dst[4] = {0, 0, 0, 0};  // the next h tile in each rank
+    if (send)
+      for (int q = 0; q < n_ranks; ++q)
+        dst[q] = map_rank(h_buf[(s + 1) & 1], q);
 
     // cell update; masked steps carry the state and write zeros
 #pragma unroll
@@ -240,7 +275,7 @@ lstm_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int gi = 0; gi < G; ++gi) {
         const int unit = (ug0 + gi) * 8 + 2 * tg;
-        if (unit < h_dim) {
+        if (unit < hc) {
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             const bool m = mb >> (mt * 2 + half) & 1u;
@@ -262,65 +297,78 @@ lstm_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
             }
             const bf162 v = __floats2bfloat162_rn(hn[0], hn[1]);
             const int r = mt * 16 + g + half * 8;
-            if (m) *reinterpret_cast<bf162*>(h_tile + r * hs + unit * 2) = v;
+            const int col = u_off + unit;
+            if constexpr (kCl) {
+              if (send) {
+                // the carried h where the step is masked
+                const bf162 keep =
+                    m ? v
+                      : *reinterpret_cast<const bf162*>(h_cur + r * hs +
+                                                        col * 2);
+                const uint32_t bits = *reinterpret_cast<const uint32_t*>(&keep);
+                for (int q = 0; q < n_ranks; ++q)
+                  st_cluster_b32(dst[q] + r * hs + col * 2, bits);
+              }
+            } else if (m) {
+              *reinterpret_cast<bf162*>(h_buf[0] + r * hs + col * 2) = v;
+            }
             if (live >> (mt * 2 + half) & 1u)
               *reinterpret_cast<bf162*>(
-                  out + ((size_t)(row0 + r) * n_steps + t) * h_dim + unit) = v;
+                  out + ((size_t)(row0 + r) * n_steps + t) * h_dim + col) = v;
           }
         }
       }
-    // the next step's first slab hand-over orders these h-tile writes
+    // a single block: the next step's first slab hand-over orders these
+    // h-tile writes; a cluster: its barrier
+    if (send) cluster_arrive();
   }
 }
 
-template <int G, int MT, bool kRes>
+template <int G, int MT, bool kRes, bool kCl>
 int launch_mma(const void* x, const void* mask, const void* w_ih,
                const void* b, void* out, void* hb, void* cb, int n_rows,
-               int n_steps, int e, int h_dim, int reverse, int tc,
+               int n_steps, int e, int h_dim, int reverse, int tc, int c,
                cudaStream_t stream) {
   using namespace tiles;
+  using bf16 = __nv_bfloat16;
   int ks = 0;
-  const size_t smem =
-      mma_smem(e, h_dim, kLstmGates, 16 * MT, false, &ks);
-  if (smem == 0) return (int)cudaErrorInvalidValue;  // E + H too large
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_fwd_mma_kernel<G, MT, kRes>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return (int)err;
-  }
   const int m_rows = 16 * MT;
-  lstm_fwd_mma_kernel<G, MT, kRes>
-      <<<(n_rows + m_rows - 1) / m_rows, kThreads, smem, stream>>>(
-          static_cast<const __nv_bfloat16*>(x),
-          static_cast<const uint8_t*>(mask),
-          static_cast<const __nv_bfloat16*>(w_ih),
-          static_cast<const __nv_bfloat16*>(b),
-          static_cast<__nv_bfloat16*>(out), static_cast<float*>(hb),
-          static_cast<float*>(cb), n_rows, n_steps, e, h_dim, reverse, tc,
-          ks);
-  return (int)cudaGetLastError();
+  const size_t smem =
+      mma_smem(h_dim, h_dim / c, kLstmGates, m_rows, false, c, &ks);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  return (int)launch_blocks(
+      lstm_fwd_mma_kernel<G, MT, kRes, kCl>, (n_rows + m_rows - 1) / m_rows,
+      c, kThreads, smem, stream, static_cast<const bf16*>(x),
+      static_cast<const uint8_t*>(mask), static_cast<const bf16*>(w_ih),
+      static_cast<const bf16*>(b), static_cast<bf16*>(out),
+      static_cast<float*>(hb), static_cast<float*>(cb), n_rows, n_steps, e,
+      h_dim, reverse, tc, ks);
 }
 
-// bf16: E and H multiples of 32, H <= 512, 16-byte aligned pointers, the
-// weights staged (the wrapper pads, aligns and stages); refused otherwise.
+// bf16: E and H multiples of 32, H <= kMaxClustered, 16-byte aligned
+// pointers, the weights staged (the wrapper pads, aligns and stages: one
+// matrix a rank of the cluster); refused otherwise.
 template <bool kRes>
 int dispatch_mma(const void* x, const void* mask, const void* w_ih,
                  const void* b, void* out, void* hb, void* cb, int n_rows,
                  int n_steps, int e, int h_dim, int reverse, int tc,
                  cudaStream_t s) {
   using namespace tiles;
-  if (e <= 0 || e % kAlign != 0 || h_dim % kAlign != 0 ||
-      h_dim > kMaxHidden || !aligned16(x) || !aligned16(w_ih) ||
-      !aligned16(out) || (kRes && !aligned16(hb)) ||
-      (kRes && !aligned16(cb)))
+  const int c = lstm_cluster(h_dim);
+  if (e <= 0 || e % kAlign != 0 || h_dim <= 0 || h_dim % kAlign != 0 ||
+      c == 0 || !aligned16(x) || !aligned16(w_ih) || !aligned16(out) ||
+      (kRes && !aligned16(hb)) || (kRes && !aligned16(cb)))
     return (int)cudaErrorInvalidValue;
+  if (c > 1)
+    return launch_mma<kClusterConfig.g, kClusterConfig.mt, kRes, true>(
+        x, mask, w_ih, b, out, hb, cb, n_rows, n_steps, e, h_dim, reverse, tc,
+        c, s);
   const Config cfg = pick_config(h_dim);
 #define CAIR_FWD_CASE(G_, MT_)                                               \
   if (cfg.g == G_)                                                           \
-    return launch_mma<G_, MT_, kRes>(x, mask, w_ih, b, out, hb, cb, n_rows,  \
-                                     n_steps, e, h_dim, reverse, tc, s);
+    return launch_mma<G_, MT_, kRes, false>(x, mask, w_ih, b, out, hb, cb,   \
+                                            n_rows, n_steps, e, h_dim,       \
+                                            reverse, tc, 1, s);
   CAIR_FWD_CASE(1, 4)
   CAIR_FWD_CASE(2, 4)
   CAIR_FWD_CASE(4, 2)
@@ -334,27 +382,25 @@ int launch(const void* x, const void* mask, const void* w_ih, const void* b,
            const void* w_hh, void* out, void* hb, void* cb, int n_rows,
            int n_steps, int e, int h_dim, int reverse, int tc,
            cudaStream_t stream) {
-  const size_t smem = (size_t)(e + h_dim) * kStride * sizeof(float);
-  const int bound = row_tile_bound(kRowGroups * h_dim);
-  if (bound == 0) return (int)cudaErrorInvalidValue;
-  auto* kernel = bound == 256   ? lstm_fwd_kernel<T, kRes, 256>
-                 : bound == 512 ? lstm_fwd_kernel<T, kRes, 512>
-                                : lstm_fwd_kernel<T, kRes, 1024>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) {  // e.g. E + H too large for the shared tile
-    cudaGetLastError();      // clear it so the next launch reads clean
-    return (int)err;
-  }
-  const dim3 grid((n_rows + kRows - 1) / kRows);
-  const dim3 block(kRowGroups * h_dim);
-  kernel<<<grid, block, smem, stream>>>(
+  const int c = f32_cluster(h_dim, false), hc = f32_units(h_dim, false);
+  if (c == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      ((size_t)h_dim + f32_chunk_rows(e)) * kStride * sizeof(float);
+  // a rank of a cluster has at most 2 * kF32Units = 256 threads, one block
+  // at most 2 * kF32FwdSingle = 512
+  const int bound = row_tile_bound(kRowGroups * hc);
+  if (bound == 0 || bound > 512 || (c > 1 && bound > 256))
+    return (int)cudaErrorInvalidValue;
+  auto* kernel = c > 1           ? lstm_fwd_kernel<T, kRes, 256, true>
+                 : bound == 256 ? lstm_fwd_kernel<T, kRes, 256, false>
+                                : lstm_fwd_kernel<T, kRes, 512, false>;
+  return (int)launch_blocks(
+      kernel, (n_rows + kRows - 1) / kRows, c, kRowGroups * hc, smem, stream,
       static_cast<const T*>(x), static_cast<const uint8_t*>(mask),
       static_cast<const T*>(w_ih), static_cast<const T*>(b),
       static_cast<const T*>(w_hh), static_cast<T*>(out),
       static_cast<float*>(hb), static_cast<float*>(cb), n_rows, n_steps, e,
-      h_dim, reverse, tc);
-  return (int)cudaGetLastError();
+      h_dim, reverse, tc, hc);
 }
 
 template <bool kRes>
@@ -363,14 +409,11 @@ int dispatch(const void* x, const void* mask, const void* w_ih, const void* b,
              int n_steps, int e, int h_dim, int reverse, int tc, int dtype,
              void* stream) {
   if (n_rows == 0 || n_steps == 0) return 0;
-  if (h_dim <= 0 || tc <= 0) return (int)cudaErrorInvalidValue;
+  if (h_dim <= 0 || e <= 0 || tc <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    // a block has 2H threads (at most 1024)
-    if (kRowGroups * h_dim > 1024) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)  // float32: H <= 1024 (f32_cluster)
     return launch<float, kRes>(x, mask, w_ih, b, w_hh, out, hb, cb, n_rows,
                                n_steps, e, h_dim, reverse, tc, s);
-  }
   if (dtype == 1)
     return dispatch_mma<kRes>(x, mask, w_ih, b, out, hb, cb, n_rows, n_steps,
                               e, h_dim, reverse, tc, s);
@@ -382,8 +425,10 @@ int dispatch(const void* x, const void* mask, const void* w_ih, const void* b,
 // Kernel 1.  x [B, T, E], mask uint8 [B, T], w_ih [E, 4H], b [4H],
 // w_hh [H, 4H], out [B, T, H]; all contiguous, one dtype (0 = float32,
 // 1 = bfloat16).  bfloat16: `w_ih` points at the staged weights
-// [E + H, 4H + 8] (W_ih over W_hh, 8 zero columns a row) and `w_hh` is not
-// read.  Returns the cudaError_t of the launch (0 on success).
+// [E + H, 4H + 8] (W_ih over W_hh, 8 zero columns a row) -- above H = 384
+// C = lstm_cluster(H) such matrices [E + H, 4H/C + 8], rank r's holding the
+// gate columns of units r*H/C .. (r+1)*H/C - 1 -- and `w_hh` is not read.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int cair_lstm_fwd(const void* x, const void* mask,
                              const void* w_ih, const void* b,
                              const void* w_hh, void* out, int n_rows,

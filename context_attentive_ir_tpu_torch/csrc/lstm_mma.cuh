@@ -7,9 +7,9 @@
 //
 // Layout of a row-tile block (8 warps, M = 16 * MT rows):
 //
-// - [x_t | h] is staged row-major in bf16, one row per sequence, every row
-//   padded by 16 bytes so the eight row addresses of an `ldmatrix` fall in
-//   eight different bank groups.
+// - h is staged row-major in bf16, one row per sequence, every row padded by
+//   16 bytes so the eight row addresses of an `ldmatrix` fall in eight
+//   different bank groups.
 // - The weights are streamed from L2 in slabs of `ks` k-rows through a ring
 //   of kStages slabs.  The wrapper stages them once a call as one matrix
 //   [W_ih; W_hh] of (E + H) rows of NG*H + 8 bf16 (8 zero columns: the
@@ -21,6 +21,13 @@
 //   across time steps, so the next step's first slabs arrive under the cell
 //   update.  E and H are multiples of 32 and a slab holds 32 or 16 k-rows,
 //   so every slab is all W_ih rows (an x slab) or all W_hh rows (an h slab).
+// - x is streamed beside the weights: an x slab of the weight ring comes
+//   with the [M, ks] bf16 columns of x_t it multiplies, copied by `cp.async`
+//   into the ring's x slot of the same index (rows padded by 16 bytes, so an
+//   `ldmatrix`'s eight row addresses again fall in eight bank groups).  No
+//   tile grows with E, so every E fits.  The slab order (x slabs, then h
+//   slabs) and the k order of the `mma` are those of a whole staged x row:
+//   the products are the same bits.
 // - Gate columns are not permuted in memory: the B fragment of an n-tile is
 //   eight consecutive columns of any gate, so warp w takes, for each of its
 //   G unit groups (8 hidden units), the n-tiles at columns q*H + 8*ug of
@@ -35,6 +42,18 @@
 // - The same slabs, read through non-transposed `ldmatrix`, are the B
 //   operand of dgates_c @ W^T in both backwards (slab rows = output
 //   columns), so no transposed copy of the weights exists anywhere.
+//
+// Wide LSTMs (H above kMaxSingle) split the gate columns over a thread-block
+// cluster of C blocks (kernels 1, 4, 5; the constants below): rank r owns
+// hidden units r*Hc .. r*Hc + Hc - 1 (Hc = H / C) with all four gates of
+// them, streams its own column slice of [W_ih; W_hh] (the wrapper stages C
+// matrices of (E + H) rows of 4*Hc + 8), and keeps the whole h in two tiles,
+// read and written in turn: each step a block writes its units' new h into
+// the next tile of every rank through distributed shared memory (`mapa`,
+// `st.shared::cluster`) and arrives on the cluster barrier; the next step
+// waits on it before its first h slab.  Here "hidden size" splits in two:
+// `hk`, the k extent of h (all H units), and `hc`, the units whose gate
+// columns a block computes (H in a single block).
 //
 // E and H are multiples of 32 here (the wrapper zero-pads other sizes; zero
 // weights and biases keep padded units at exactly 0) and every pointer is
@@ -52,9 +71,21 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 3;         // slabs in the weight ring
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use
 constexpr int kAlign = 32;          // E and H are multiples of this
-constexpr int kMaxHidden = 512;
+constexpr int kMaxHidden = 512;     // the GRU kernels' H
 constexpr int kLstmGates = 4;  // gate column blocks of each recurrence
 constexpr int kGruGates = 3;
+
+// The LSTM's cluster split (kernels 1, 4, 5): one block up to kMaxSingle,
+// C = 2 blocks up to kMaxPair, C = 4 up to kMaxClustered, each rank with
+// kClusterConfig's 16-row tile.  `lstm_cluster` in ops/kernels/lstm.py
+// states the same rule.
+constexpr int kMaxSingle = 384;
+constexpr int kMaxPair = 512;
+constexpr int kMaxClustered = 1024;
+
+inline int lstm_cluster(int h) {
+  return h <= kMaxSingle ? 1 : h <= kMaxPair ? 2 : h <= kMaxClustered ? 4 : 0;
+}
 
 // Rows and unit groups of a block by hidden size: warp w owns unit groups
 // w*G .. w*G + G - 1 (8 units each) of all M = 16*MT rows; G * MT <= 8 keeps
@@ -70,12 +101,16 @@ inline Config pick_config(int h) {
   return {8, 1};
 }
 
+// a rank of a cluster: up to 256 units over the 8 warps, 16 rows
+constexpr Config kClusterConfig = {4, 1};
+
 // bytes per staged row (16 bytes of padding each)
-__host__ __device__ inline int x_stride(int e) { return e * 2 + 16; }
 __host__ __device__ inline int h_stride(int h) { return h * 2 + 16; }
 __host__ __device__ inline int w_stride(int h, int gates) {
   return h * gates * 2 + 16;
 }
+// bytes per row of an x slot (ks bf16 columns of x_t)
+__host__ __device__ inline int xslot_stride(int ks) { return ks * 2 + 16; }
 
 // bytes per row of a backward's staged gradient tile: four slots of H
 // (the LSTM's four gates; the GRU's da_r, da_z, da_n, da_n * r)
@@ -86,35 +121,39 @@ __host__ __device__ inline size_t exch_bytes(int h, int m_rows) {
 }
 
 // Dynamic shared memory of a row-tile block of m_rows rows with `gates`
-// gate blocks, forward or backward phase A, or 0 if no slab depth fits
-// (*ks gets the depth: 32 k-rows, else 16): the ring's header and slabs,
-// the staged tiles, the bias (four f32 slots of H).  The forward stages two
-// x tiles and the h tile; a backward reuses that space for its gradient
+// gate blocks, forward or backward phase A, a rank of a cluster of c blocks
+// (c = 1: a single block, hc = hk), or 0 if no slab depth fits (*ks gets
+// the depth: 32 k-rows, else 16): the ring's header, slabs and x slots, the
+// staged tiles, the bias (four f32 slots of hc).  The forward stages the h
+// tile (two in a cluster); a backward reuses that space for its gradient
 // tile (m_rows rows of four slots) and needs the f32 tile that dh returns
-// through: the LSTM's kernel 5 keeps it after that union, the GRU's kernel
-// 9 inside it, after the gradient tile (the x tiles are idle in the
-// reverse pass), so kernel 9 holds every E its forward holds.
+// through: the LSTM's single-block kernel 5 keeps it after that union, the
+// GRU's kernel 9 inside it, after the gradient tile; a cluster's rank keeps
+// there one such tile per source rank (the dh partials of its units).
 // `tile_smem_bytes` in ops/kernels/lstm.py states the same sum.
 constexpr int kRingHeader = 64;  // the slots' mbarriers
 
-__host__ __device__ inline size_t staged_bytes(int e, int h, int gates,
-                                               int m_rows, bool backward) {
-  const size_t fwd =
-      2 * (size_t)m_rows * x_stride(e) + (size_t)m_rows * h_stride(h);
+__host__ __device__ inline size_t staged_bytes(int hk, int hc, int gates,
+                                               int m_rows, bool backward,
+                                               int c) {
+  const size_t fwd = (size_t)(c > 1 ? 2 : 1) * m_rows * h_stride(hk);
   if (!backward) return fwd;
-  size_t rev = (size_t)m_rows * slot_stride(h);
-  if (gates == kGruGates) rev += exch_bytes(h, m_rows);
+  size_t rev = (size_t)m_rows * slot_stride(hc);
+  if (gates == kGruGates) rev += exch_bytes(hk, m_rows);
+  if (c > 1) rev += (size_t)c * exch_bytes(hc, m_rows);
   return rev > fwd ? rev : fwd;
 }
 
-inline size_t mma_smem(int e, int h, int gates, int m_rows, bool backward,
-                       int* ks) {
+inline size_t mma_smem(int hk, int hc, int gates, int m_rows, bool backward,
+                       int c, int* ks) {
   for (int depth = 32; depth >= 16; depth /= 2) {
     const size_t bytes =
-        kRingHeader + (size_t)kStages * depth * w_stride(h, gates) +
-        staged_bytes(e, h, gates, m_rows, backward) +
-        (backward && gates == kLstmGates ? exch_bytes(h, m_rows) : 0) +
-        16 * h;
+        kRingHeader + (size_t)kStages * depth * w_stride(hc, gates) +
+        (size_t)kStages * m_rows * xslot_stride(depth) +
+        staged_bytes(hk, hc, gates, m_rows, backward, c) +
+        (backward && gates == kLstmGates && c == 1 ? exch_bytes(hk, m_rows)
+                                                   : 0) +
+        16 * hc;
     if (bytes <= kSmemLimit) {
       *ks = depth;
       return bytes;
@@ -122,6 +161,95 @@ inline size_t mma_smem(int e, int h, int gates, int m_rows, bool backward,
   }
   return 0;
 }
+
+// -- the cluster: rank, barrier, distributed shared memory --------------------
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned cluster_size() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// every thread of every block of the cluster arrives (release: its shared
+// and global writes before it are visible to the cluster after the wait)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// the shared::cluster address of `p` (a shared variable of this block) in
+// the block of the cluster with rank `rank`
+__device__ __forceinline__ uint32_t map_rank(const void* p, unsigned rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ void st_cluster_b32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared::cluster.b32 [%0], %1;\n" ::"r"(addr), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_cluster_f2(uint32_t addr, float a,
+                                              float b) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
+               "f"(a), "f"(b)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_cluster_f4(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+}  // namespace tiles
+
+__device__ __forceinline__ void f32_sync(bool cl) {
+  if (cl)
+    tiles::cluster_sync();
+  else
+    __syncthreads();
+}
+
+// store_rows of the thread's 16 row values at row k of `tile` in this block
+// (n_ranks = 0) or in every block of its cluster of n_ranks
+__device__ __forceinline__ void store_rows_all(float* tile, int k, int rg,
+                                               const float v[kRowsPerThread],
+                                               int n_ranks) {
+  if (n_ranks == 0) {
+    store_rows(tile, k, rg, v);
+    return;
+  }
+  const float* dst = tile + (size_t)k * kStride + rg * kRowsPerThread;
+  for (int q = 0; q < n_ranks; ++q) {
+    const uint32_t a = tiles::map_rank(dst, q);
+#pragma unroll
+    for (int p = 0; p < kRowsPerThread / 4; ++p)
+      tiles::st_cluster_f4(a + 16 * p, make_float4(v[4 * p], v[4 * p + 1],
+                                                   v[4 * p + 2],
+                                                   v[4 * p + 3]));
+  }
+}
+
+namespace tiles {
 
 // -- mbarrier and bulk copy (the weight ring) ---------------------------------
 
@@ -171,85 +299,141 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       : "memory");
 }
 
-// x[row0 .. row0 + m_rows - 1, t, :] into `dst` (rows x_stride(e) bytes
-// apart); rows past n_rows are zero-filled.
-__device__ __forceinline__ void load_x_tile(char* dst,
+// x[row0 .. row0 + m_rows - 1, t, k0 .. k0 + ks - 1] into the x slot `dst`
+// (rows xslot_stride(ks) bytes apart); rows past n_rows are zero-filled.
+__device__ __forceinline__ void load_x_slab(char* dst,
                                             const bf16* __restrict__ x,
                                             int row0, int m_rows, int n_rows,
-                                            int n_steps, int t, int e) {
-  const int cpr = e / 8;
-  const int total = m_rows * cpr;
-  const int xs = x_stride(e);
+                                            int n_steps, int t, int e, int k0,
+                                            int ks) {
+  const int shift = ks == 32 ? 2 : 1;  // 16-byte chunks a row: ks / 8
+  const int total = m_rows << shift;
+  const int xs = xslot_stride(ks);
   for (int idx = threadIdx.x; idx < total; idx += kThreads) {
-    const int r = idx / cpr;
-    const int c = idx - r * cpr;
+    const int r = idx >> shift;
+    const int c = idx - (r << shift);
     const int row = row0 + r;
     const bool valid = row < n_rows;
     const bf16* src =
-        valid ? x + ((size_t)row * n_steps + t) * e + c * 8 : x;
+        valid ? x + ((size_t)row * n_steps + t) * e + k0 + c * 8 : x;
     cp_async16(dst + r * xs + c * 16, src, valid);
   }
 }
 
-// The weight ring: slab n of the launch-long stream (slab n % n_slabs of the
-// staged weights `w`, (E + H) rows w_stride(h, gates) bytes apart, W_ih
-// over W_hh)
-// lives in slot n % kStages, behind kRingHeader bytes that hold the slots'
-// mbarriers.  `acquire(n)` waits for slab n (its k-th use of the slot
-// completes the barrier's phase of parity k & 1), frees the slot of slab
-// n - 1 (one __syncthreads: every warp is done reading it) and has thread 0
-// issue slab n + kStages - 1.  The caller may add cp.async copies of its own
-// (the x tile) and then calls cp_async_commit() exactly once per acquire.
+// The x step of a unit of the weight ring: t >= 0 streams every slab and
+// x_t's columns beside the x slabs; kNoX every slab without x (a single
+// block's reverse pass, whose dx reads the W_ih slabs); kHOnly the h slabs
+// alone (a cluster's reverse pass: its dx is phase C's product).
+constexpr int kNoX = -1;
+constexpr int kHOnly = -2;
+
+// The weight ring: slab n of the launch-long stream (slab s of a unit:
+// slab s of the staged weights `w`, (E + hk) rows w_stride(hc, gates) bytes
+// apart, W_ih over W_hh) lives in slot n % kStages, behind kRingHeader
+// bytes that hold the slots' mbarriers; an x slab's columns of x_t live in
+// x slot n % kStages.  A unit of the stream is one pass over the slabs
+// first_slab(t) .. n_slabs - 1 (a time step of the forward, the recompute
+// or the reverse pass), t its x step as above.  `acquire(n, s, t_cur,
+// t_next)` -- s the slab of slab n in its unit (the caller's loop index: no
+// division on the hot path), t_cur the x step of slab n's unit, t_next that
+// of the unit after it -- waits for slab n (its k-th use of the slot
+// completes the barrier's phase of parity k & 1, and its x copies are in
+// the cp.async group of slab n), frees the slots of slab n - 1 (one
+// __syncthreads: every warp is done reading them) and issues slab
+// n + kStages - 1 with its x columns.  The caller may add cp.async copies of
+// its own and then calls cp_async_commit() exactly once per acquire.
 struct WeightRing {
   char* base;
+  char* xbase;
   uint64_t* full;
   const char* w;
-  int e, h, ws, ks, n_slabs, slab_bytes;
-  long long total;
+  const bf16* x;
+  int e, hk, ws, ks, n_slabs, slab_bytes, xslot_bytes;
+  int row0, m_rows, n_rows, n_steps;
+  int total;
 
-  // every thread of the block calls this (it ends in a __syncthreads)
-  __device__ __forceinline__ void init(char* smem, const bf16* staged, int e_,
-                                       int h_, int gates, int ks_,
-                                       long long units) {
+  // every thread of the block calls this (it ends in a __syncthreads);
+  // the launch streams `units` units of every slab and `h_units` of the h
+  // slabs alone
+  __device__ __forceinline__ void init(char* smem, const bf16* staged,
+                                       const bf16* x_, int e_, int hk_,
+                                       int hc, int gates, int ks_,
+                                       int units, int row0_,
+                                       int m_rows_, int n_rows_,
+                                       int n_steps_, int h_units = 0) {
     full = reinterpret_cast<uint64_t*>(smem);
     base = smem + kRingHeader;
     w = reinterpret_cast<const char*>(staged);
+    x = x_;
     e = e_;
-    h = h_;
-    ws = w_stride(h, gates);
+    hk = hk_;
+    ws = w_stride(hc, gates);
     ks = ks_;
-    n_slabs = (e + h) / ks;
+    n_slabs = (e + hk) / ks;
     slab_bytes = ks * ws;
-    total = units * n_slabs;
+    xbase = base + kStages * slab_bytes;
+    row0 = row0_;
+    m_rows = m_rows_;
+    n_rows = n_rows_;
+    n_steps = n_steps_;
+    xslot_bytes = m_rows * xslot_stride(ks);
+    total = units * n_slabs + h_units * (hk / ks);
     if (threadIdx.x == 0) {
       for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
   }
-  __device__ __forceinline__ void issue(long long n) {
-    if (n < total && threadIdx.x == 0) {
-      const int slot = (int)(n % kStages);
-      mbar_expect_tx(&full[slot], slab_bytes);
-      bulk_copy(base + slot * slab_bytes,
-                w + (size_t)(n % n_slabs) * slab_bytes, slab_bytes,
-                &full[slot]);
-    }
+  // the first slab of a unit of x step t (ks is 32 or 16)
+  __device__ __forceinline__ int first_slab(int t) const {
+    return t == kHOnly ? e >> (ks == 32 ? 5 : 4) : 0;
   }
-  // slabs 0 .. kStages - 2, one cp.async commit group each (the caller's
-  // own copies issued before this ride in the first)
-  __device__ __forceinline__ void prologue() {
+  // the bytes the ring takes: slabs and x slots
+  __device__ __forceinline__ char* end() const {
+    return xbase + kStages * xslot_bytes;
+  }
+  __device__ __forceinline__ const char* x_slab(int n) const {
+    return xbase + (n % kStages) * xslot_bytes;
+  }
+  // slab n (slab s of its unit) and, if it is an x slab of a unit with an
+  // x step t >= 0, its x columns; every thread calls this
+  __device__ __forceinline__ void issue(int n, int s, int t) {
+    if (n >= total) return;
+    const int slot = n % kStages;
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&full[slot], slab_bytes);
+      bulk_copy(base + slot * slab_bytes, w + (size_t)s * slab_bytes,
+                slab_bytes, &full[slot]);
+    }
+    const int k0 = s * ks;
+    if (k0 < e && t >= 0)
+      load_x_slab(xbase + slot * xslot_bytes, x, row0, m_rows, n_rows,
+                  n_steps, t, e, k0, ks);
+  }
+  // the first kStages - 1 slabs of the first unit (x step t0), one
+  // cp.async commit group each (the caller's own copies issued before this
+  // ride in the first).  A unit has at least two slabs (kStages - 1), so
+  // they share one unit.
+  __device__ __forceinline__ void prologue(int t0) {
+    const int s0 = first_slab(t0);
     for (int p = 0; p < kStages - 1; ++p) {
-      issue(p);
+      issue(p, s0 + p, t0);
       cp_async_commit();
     }
   }
-  __device__ __forceinline__ const char* acquire(long long n) {
+  __device__ __forceinline__ const char* acquire(int n, int s, int t_cur,
+                                                 int t_next) {
     cp_async_wait<kStages - 2>();
     mbar_wait(&full[n % kStages], (uint32_t)(n / kStages) & 1u);
     __syncthreads();
-    issue(n + kStages - 1);
-    return base + (int)(n % kStages) * slab_bytes;
+    // slab n + kStages - 1 lies in this unit or the next (a unit has at
+    // least kStages - 1 slabs)
+    const int ahead = s + kStages - 1;
+    if (ahead < n_slabs)
+      issue(n + kStages - 1, ahead, t_cur);
+    else
+      issue(n + kStages - 1, first_slab(t_next) + ahead - n_slabs, t_next);
+    return base + (n % kStages) * slab_bytes;
   }
 };
 
@@ -309,27 +493,31 @@ __device__ __forceinline__ void slab_gates(float (&acc)[MT][G][4][4],
 }
 
 // All slabs of one step: acc = bias + [x_t | h] @ [W_ih; W_hh] for the
-// warp's cells, slot q starting from bias_s[q*H + unit] (f32; the GRU's
+// warp's cells, slot q starting from bias_s[q*hc + unit] (f32; the GRU's
 // slots r, z, xn, hn start from b_ih + b_hh, b_ih + b_hh, b_ih_n, b_hh_n).
-// `n` is the ring's slab counter (advanced by n_slabs); `after_first(void)`
-// runs once after the first slab's hand-over (the caller's prefetch of the
-// next x tile and other copies), before its commit.
-template <int NG, int G, int MT, typename F>
+// `n` is the ring's slab counter (advanced by n_slabs); t_cur / t_next the
+// x steps of this unit and the next (WeightRing::acquire).
+// `after_first(void)` runs once after the first slab's hand-over (the
+// caller's copies), before its commit; `before_h(void)` once after the first
+// h slab's hand-over, before the h tile is read (a cluster's wait for the
+// other ranks' h).
+template <int NG, int G, int MT, typename F, typename FH>
 __device__ __forceinline__ void step_gates(float (&acc)[MT][G][4][4],
-                                           WeightRing& ring, long long& n,
-                                           const char* x_tile,
+                                           WeightRing& ring, int& n,
+                                           int t_cur, int t_next,
                                            const char* h_tile,
-                                           const float* bias_s, int ug0,
-                                           int lane, F after_first) {
-  const int e = ring.e, h = ring.h, ks = ring.ks;
+                                           const float* bias_s, int hc,
+                                           int ug0, int lane, F after_first,
+                                           FH before_h) {
+  const int e = ring.e, ks = ring.ks;
   const int tg = lane & 3;
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) {
     const int u = (ug0 + gi) * 8 + 2 * tg;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const float b0 = u < h ? bias_s[q * h + u] : 0.0f;
-      const float b1 = u < h ? bias_s[q * h + u + 1] : 0.0f;
+      const float b0 = u < hc ? bias_s[q * hc + u] : 0.0f;
+      const float b1 = u < hc ? bias_s[q * hc + u + 1] : 0.0f;
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         acc[mt][gi][q][0] = b0;
@@ -340,18 +528,55 @@ __device__ __forceinline__ void step_gates(float (&acc)[MT][G][4][4],
     }
   }
   for (int s = 0; s < ring.n_slabs; ++s, ++n) {
-    const char* slab = ring.acquire(n);
+    const char* slab = ring.acquire(n, s, t_cur, t_next);
     if (s == 0) after_first();
     cp_async_commit();
     const int k0 = s * ks;
-    if (k0 < e)
-      slab_gates<NG, G, MT, false>(acc, x_tile, x_stride(e), k0, slab,
-                                   ring.ws, ks, h, ug0, lane);
-    else
-      slab_gates<NG, G, MT, true>(acc, h_tile, h_stride(h), k0 - e, slab,
-                                  ring.ws, ks, h, ug0, lane);
+    if (k0 < e) {
+      slab_gates<NG, G, MT, false>(acc, ring.x_slab(n), xslot_stride(ks), 0,
+                                   slab, ring.ws, ks, hc, ug0, lane);
+    } else {
+      if (k0 == e) before_h();
+      slab_gates<NG, G, MT, true>(acc, h_tile, h_stride(ring.hk), k0 - e,
+                                  slab, ring.ws, ks, hc, ug0, lane);
+    }
   }
 }
 
+// a no-op hook of step_gates
+struct NoHook {
+  __device__ __forceinline__ void operator()() const {}
+};
+
 }  // namespace tiles
+
+// Launch `kernel` on n_blocks row blocks of `c` blocks each (a cluster
+// when c > 1).
+template <typename K, typename... Args>
+inline cudaError_t launch_blocks(K kernel, int n_blocks, int c, int threads,
+                                 size_t smem, cudaStream_t stream,
+                                 Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_blocks * c);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = c > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
 }  // namespace cair_lstm

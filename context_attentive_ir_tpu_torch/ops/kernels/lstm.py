@@ -33,14 +33,21 @@ the two ``dW`` reductions -- is ``mma.sync.m16n8k16`` tiles (bf16 in, f32
 accumulate) on operands staged in shared memory in bf16
 (``csrc/lstm_mma.cuh``): a block of 8 warps owns 64 rows for all T steps,
 the weights (``stage_lstm_weights``: one padded matrix a call) stream from
-L2 through a ring of bulk copies, and a thread's
-accumulator fragments are the four gates of its own (row, unit) cells, so
-c, dh and dc stay in registers.  Those kernels take E and H that are
-multiples of 32 and 16-byte aligned tensors; ``pad_lstm_operands`` zero-pads
-other sizes here (zero weights and biases keep a padded unit at exactly 0),
-and the results are cut back.  float32 keeps exact f32 FMAs (no TF32) on
-the first version's one-thread-per-unit layout.  ``fused_supported`` states
-the shapes each dtype's kernels hold; ``PERF.md`` records times and bounds.
+L2 through a ring of bulk copies with x_t's columns beside each slab (so
+any E fits), and a thread's accumulator fragments are the four gates of its
+own (row, unit) cells, so c, dh and dc stay in registers.  Above H = 384
+the gate columns split over a thread-block cluster of 2 or 4 blocks
+(``lstm_cluster``; one staged matrix a rank) that exchange h, and kernel
+5's dh partials, through distributed shared memory.  Those kernels take E
+and H that are multiples of 32 and 16-byte aligned tensors;
+``pad_lstm_operands`` zero-pads other sizes here (zero weights and biases
+keep a padded unit at exactly 0), and the results are cut back.  float32
+keeps exact f32 FMAs (no TF32) on the first version's
+one-thread-per-unit layout, x staged in chunks, its units split over a
+cluster of up to 8 blocks of at most 256 threads above H = 256 in kernels
+1 and 4 and above 403 in kernel 5 (``f32_cluster``).
+``fused_supported`` states the shapes each dtype's kernels hold (any E, H
+up to 1,024); ``PERF.md`` records times and bounds.
 """
 
 from __future__ import annotations
@@ -54,17 +61,67 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # -- the shapes the CUDA kernels hold (csrc/lstm_mma.cuh, lstm_common.cuh) ----
 SMEM_LIMIT = 232448   # dynamic shared memory a block may use on sm_90
 TILE_ALIGN = 32       # the bf16 kernels' E and H are multiples of this
-MAX_HIDDEN_BF16 = 512
+MAX_HIDDEN_BF16 = 512  # the GRU kernels' H (kMaxHidden)
+MAX_HIDDEN = 1024      # kernels 1, 4, 5, both dtypes
+MAX_SINGLE_BF16 = 384  # one block; above it a cluster (kMaxSingle)
+MAX_PAIR_BF16 = 512    # a cluster of 2 up to here, of 4 above (kMaxPair)
+CLUSTER_TILE = (4, 1)  # a rank's unit groups per warp, 16-row tiles
 F32_STRIDE = 36       # floats per staged k-row of the float32 kernels
+F32_CHUNK = 256       # x k-rows the float32 LSTM kernels stage at a time
+F32_MAX_SINGLE = 403  # float32 kernel 5: one block up to here (4H k-rows)
+F32_FWD_SINGLE = 256  # float32 kernels 1, 4: one block up to here
+F32_UNITS = 128       # units a rank of a float32 cluster holds
+F32_MAX_RANKS = 8
 
 
 def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
+def lstm_cluster(hidden: int) -> int:
+    """Blocks of the cluster the bf16 kernels 1, 4, 5 split a padded
+    ``hidden`` size over (``lstm_cluster`` in ``csrc/lstm_mma.cuh``): 1 up
+    to 384, 2 up to 512, 4 up to 1,024; 0 above."""
+    if hidden <= MAX_SINGLE_BF16:
+        return 1
+    if hidden <= MAX_PAIR_BF16:
+        return 2
+    return 4 if hidden <= MAX_HIDDEN else 0
+
+
+def f32_cluster(hidden: int, backward: bool = True) -> int:
+    """Blocks of the cluster the float32 kernels split ``hidden`` units over
+    (``f32_cluster`` in ``csrc/lstm_common.cuh``): ceil(H / 128) blocks of
+    at most 256 threads, 0 past 8 blocks; one block of 2H threads up to 256
+    in kernels 1 and 4, and up to 403 in kernel 5 (``backward``: its 4H
+    gradient rows fit, as in the first version)."""
+    if hidden <= (F32_MAX_SINGLE if backward else F32_FWD_SINGLE):
+        return 1
+    c = -(-hidden // F32_UNITS)
+    return c if c <= F32_MAX_RANKS else 0
+
+
+def f32_smem_bytes(e: int, h: int, backward: bool = False) -> int:
+    """Dynamic shared memory of a block of the float32 kernel 1 / 4 or 5
+    (``launch`` in ``csrc/lstm_fwd.cu``, ``launch_cell`` in
+    ``csrc/lstm_bwd.cu``): h of all units and one x chunk of k-major rows
+    of 36 floats; a backward's reverse pass reuses them for the block's 4 Hc
+    gradient rows and, in a cluster, C * Hc rows of dh partials; 0 where
+    no cluster holds ``h``."""
+    c = f32_cluster(h)
+    if c == 0:
+        return 0
+    hc = -(-h // c)
+    rows = h + min(e, F32_CHUNK)
+    if backward:
+        rows = max(rows, 4 * hc + (c * hc if c > 1 else 0))
+    return rows * F32_STRIDE * 4
+
+
 def tile_config(hidden: int) -> tuple[int, int]:
     """(unit groups per warp, 16-row tiles per block) of the bf16 kernels
-    for a padded hidden size (``pick_config`` in ``csrc/lstm_mma.cuh``)."""
+    for a padded hidden size (``pick_config`` in ``csrc/lstm_mma.cuh``; a
+    rank of an LSTM cluster, above 384, takes ``CLUSTER_TILE`` instead)."""
     if hidden <= 64:
         return 1, 4
     if hidden <= 128:
@@ -75,26 +132,44 @@ def tile_config(hidden: int) -> tuple[int, int]:
 
 
 def tile_smem_bytes(e: int, h: int, backward: bool = False,
-                    gates: int = 4, rows: int | None = None) -> int:
+                    gates: int = 4, rows: int | None = None,
+                    ranks: int | None = None) -> int:
     """Dynamic shared memory of the bf16 forward or backward phase A kernel
     at padded widths ``e``, ``h`` with ``gates`` gate blocks (4: the LSTM,
-    3: the GRU) and ``rows`` rows a block (default: ``tile_config``'s): the
-    ring's mbarriers (64 bytes), its three slabs of 32 (else 16) k-rows, the
-    staged tiles, the bias (four f32 slots of H); 0 if neither depth fits
-    (``mma_smem`` in ``csrc/lstm_mma.cuh``).  A backward's gradient tile has
-    four slots of H whatever the gate count (the GRU's da_r, da_z, da_n,
+    3: the GRU), ``rows`` rows a block (default: ``tile_config``'s) and
+    ``ranks`` blocks a cluster (default: ``lstm_cluster`` for the LSTM, 1
+    for the GRU): the ring's mbarriers (64 bytes), its three slabs of 32
+    (else 16) k-rows of a rank's 4 Hc gate columns (Hc = H / ranks) and
+    three x slots of ``rows`` rows of a slab's depth of x_t columns, the h
+    tile (two in a
+    cluster), the bias (four f32 slots of Hc); 0 if neither depth fits
+    (``mma_smem`` in ``csrc/lstm_mma.cuh``).  E takes no shared memory: x
+    is streamed beside the weights.  A backward's gradient tile has four
+    slots of Hc whatever the gate count (the GRU's da_r, da_z, da_n,
     da_n * r) and takes the place of the forward's tiles, beside the f32
-    tile dh returns through: after that union in the LSTM's kernel 5,
-    inside it in the GRU's kernel 9."""
-    m = rows or 16 * tile_config(h)[1]
-    x_row, h_row, w_row = 2 * e + 16, 2 * h + 16, 2 * gates * h + 16
-    tiles = 2 * m * x_row + m * h_row
+    tile dh returns through: after that union in the LSTM's single-block
+    kernel 5, inside it in the GRU's kernel 9 and, one tile a source rank,
+    in a cluster."""
+    c = ranks or (lstm_cluster(h) if gates == 4 else 1)
+    if c == 0:
+        return 0
+    hc = h // c
+    m = rows or (16 * (CLUSTER_TILE[1] if c > 1 else tile_config(h)[1]))
+    h_row, w_row = 2 * h + 16, 2 * gates * hc + 16
+    tiles = (2 if c > 1 else 1) * m * h_row
+    exch_after = 0
     if backward:
-        slots, exch = m * (8 * h + 16), m * (h + 8) * 4
-        tiles = (max(tiles, slots) + exch if gates == 4
-                 else max(tiles, slots + exch))
+        rev = m * (8 * hc + 16)
+        if gates == 3:
+            rev += m * (h + 8) * 4
+        if c > 1:
+            rev += c * m * (hc + 8) * 4
+        tiles = max(tiles, rev)
+        if gates == 4 and c == 1:
+            exch_after = m * (h + 8) * 4
     for depth in (32, 16):
-        n_bytes = 64 + 3 * depth * w_row + tiles + 16 * h
+        n_bytes = (64 + 3 * depth * w_row + 3 * m * (2 * depth + 16) + tiles
+                   + exch_after + 16 * hc)
         if n_bytes <= SMEM_LIMIT:
             return n_bytes
     return 0
@@ -104,19 +179,21 @@ def fused_supported(embed: int, hidden: int, rows: int,
                     dtype: torch.dtype = torch.float32) -> bool:
     """Whether kernels 1, 4 and 5 hold an ``[rows, T, embed] -> hidden``
     LSTM in ``dtype`` (the counterpart of the JAX ``fused_supported``, with
-    this card's limits).  bfloat16: after padding to multiples of 32,
-    ``hidden <= 512`` and the backward's tiles fit a block's shared memory.
-    float32: a block has ``2 * hidden <= 1024`` threads and stages
-    ``max(embed + hidden, 4 * hidden)`` k-rows of 36 floats."""
+    this card's limits): any ``embed`` and a ``hidden`` size up to 1,024 in
+    both dtypes.  bfloat16: ``hidden`` padded to a multiple of 32, split
+    over a cluster of 2 or 4 blocks above 384 (``lstm_cluster``), whose
+    tiles fit a block's shared memory (``tile_smem_bytes``).  float32:
+    ``f32_cluster`` blocks of at most 2 * 403 threads and ``f32_smem_bytes``
+    of shared memory."""
     if embed < 1 or hidden < 1 or rows < 1:
         return False
     if dtype == torch.bfloat16:
         e, h = _round_up(embed, TILE_ALIGN), _round_up(hidden, TILE_ALIGN)
-        return (h <= MAX_HIDDEN_BF16
+        return (h <= MAX_HIDDEN
                 and tile_smem_bytes(e, h, backward=True) > 0)
     if dtype == torch.float32:
-        return (2 * hidden <= 1024
-                and max(embed + hidden, 4 * hidden) * F32_STRIDE * 4
+        return (hidden <= MAX_HIDDEN
+                and 0 < f32_smem_bytes(embed, hidden, backward=True)
                 <= SMEM_LIMIT)
     return False
 
@@ -307,14 +384,23 @@ def lstm_fused_bwd_reference(x, mask, w_ih, b, w_hh, hb, cb, dout,
             dwhh.to(w_hh.dtype))
 
 
-def stage_lstm_weights(w_ih: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+def stage_lstm_weights(w_ih: torch.Tensor, w_hh: torch.Tensor,
+                       ranks: int = 1) -> torch.Tensor:
     """``[W_ih; W_hh]`` as the bf16 kernels' weight ring copies it: one
     contiguous ``[E + H, G + 8]`` matrix (G = 4H for the LSTM, 3H for the
     GRU), each row followed by 8 zero columns (the 16 bytes of padding a
     staged row has in shared memory), so a slab of k-rows is one contiguous
-    range (~400 KB a call at the main path's LSTM widths)."""
-    return _aligned(torch.nn.functional.pad(torch.cat([w_ih, w_hh], 0),
-                                            (0, 8)))
+    range (~400 KB a call at the main path's LSTM widths).  ``ranks`` > 1
+    (an LSTM split over a cluster, ``lstm_cluster``): ``[ranks, E + H,
+    4 Hc + 8]``, rank r's matrix the gate columns of its units
+    r*Hc .. (r+1)*Hc - 1 (Hc = H / ranks) in gate order i, f, g, o."""
+    w = torch.cat([w_ih, w_hh], 0)
+    if ranks > 1:
+        k, g = w.shape
+        hc = g // (4 * ranks)
+        w = w.reshape(k, 4, ranks, hc).permute(2, 0, 1, 3).reshape(
+            ranks, k, 4 * hc)
+    return _aligned(torch.nn.functional.pad(w, (0, 8)))
 
 
 def _check_cuda_args(name: str, x, mask, w_ih, b, w_hh, *extra):
@@ -373,11 +459,11 @@ def lstm_fused(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
         x, w_ih, b, w_hh = pad_lstm_operands(x, w_ih, b, w_hh)
     Ep, Hp = x.shape[-1], w_hh.shape[0]
     if x.dtype == torch.bfloat16:
-        w_ih = stage_lstm_weights(w_ih, w_hh)
+        w_ih = stage_lstm_weights(w_ih, w_hh, lstm_cluster(Hp))
     out = torch.empty((B, T, Hp), dtype=x.dtype, device=x.device)
     from .build import launch
 
-    # the launcher reports a hidden size or E + H its block cannot hold
+    # the launcher reports a hidden size its blocks cannot hold
     launch(
         "cair_lstm_fwd", x.device,
         x.data_ptr(), mask.data_ptr(), w_ih.data_ptr(), b.data_ptr(),
@@ -411,7 +497,7 @@ def lstm_fused_res(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
         x, w_ih, b, w_hh = pad_lstm_operands(x, w_ih, b, w_hh)
     Ep, Hp = x.shape[-1], w_hh.shape[0]
     if x.dtype == torch.bfloat16:
-        w_ih = stage_lstm_weights(w_ih, w_hh)
+        w_ih = stage_lstm_weights(w_ih, w_hh, lstm_cluster(Hp))
     out = torch.empty((B, T, Hp), dtype=x.dtype, device=x.device)
     hb = torch.empty((-(-T // tc), B, Hp), dtype=torch.float32,
                      device=x.device)
@@ -467,12 +553,15 @@ def lstm_fused_bwd(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
     lib = load_library()
     dtype = _DTYPES[x.dtype]
     if x.dtype == torch.bfloat16:
-        # the tensor-core kernels read W^T out of the staged W's own slabs
+        # the tensor-core kernels read W^T out of the staged W's own slabs;
+        # a cluster's dx is one product with W_ih^T after them
         x, w_ih, b, w_hh = pad_lstm_operands(x, w_ih, b, w_hh)
         Hp = w_hh.shape[0]
         hb, cb, dout = (_aligned(_pad_last(t, Hp)) for t in (hb, cb, dout))
-        staged = stage_lstm_weights(w_ih, w_hh)
-        transposes = (0, 0)
+        ranks = lstm_cluster(Hp)
+        staged = stage_lstm_weights(w_ih, w_hh, ranks)
+        w_ih_t = w_ih.t().contiguous() if ranks > 1 else None
+        transposes = (0 if w_ih_t is None else w_ih_t.data_ptr(), 0)
     else:
         # float32: transposed weights for the dx and dh products
         w_ih_t, w_hh_t = w_ih.t().contiguous(), w_hh.t().contiguous()

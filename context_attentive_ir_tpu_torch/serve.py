@@ -135,9 +135,8 @@ class Engine:
 
     def __init__(self, config: ModelConfig, word_dict: Dictionary, params,
                  beam_size: int = 5, batch_bucket: int = 8,
-                 suggest_shortlist: int = 0,
-                 suggest_early_exit: bool = True, device=None,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None, suggest_shortlist: int = 0,
+                 suggest_early_exit: bool = True, device=None):
         if mesh is not None:
             if device is not None and resolve_device(device) != mesh.primary:
                 raise ValueError(f"device={device} but the mesh's primary "

@@ -1,22 +1,30 @@
 #!/usr/bin/env python3
 """SHA-256 digests of the PyTorch port's kernels' outputs on seeded
-inputs, to show whether two checkouts compute the same bits.
+inputs, to show whether two checkouts compute the same bits, and the
+recurrent kernels' device times, to compare two checkouts on one card.
 
     python3 scripts/torch_kernel_digest.py [--root DIR]
 
 Builds the kernel library of the checkout at DIR (default: the one this
 script lies in) and prints one line per kernel, dtype and direction:
 kernels 1, 4 and 5 (LSTM) and 7, 8 and 9 (GRU) at the doc encoder's shape
-[16000, 30, 256] -> 128, time chunk 6, kernel 6 (the recurrence on
+[16000, 30, 256] -> 128 and -> 256 and at the two other block layouts of
+the bf16 tiles below H = 512 ([1000, 9, 512] -> 256, [2000, 13, 300] ->
+384, E and H not multiples of 32 padded), time chunk 6, kernel 6 (the
+recurrence on
 precomputed gates) at x_proj [16000, 30, 512] -> 128, the generator's kernel 2
 (serial, ``prune``, int8 ``scale``) and 3 (``pipeline``) at the beam-5
 step's shape (R = 1600, E = 256, V = 50,000, kc = 6), and the slate pool's
 kernel 10 at the rank slate's and suggest init's shapes ([16000, 30, 256]
 and [1280, 30, 256]), in float32 and bfloat16, with a digest of each
 output's bytes.  Two checkouts print the
-same line for a kernel exactly when it gives the same bits.  The backward
-kernels (5, 9) are fed the boundaries of their residual kernels' plain
-versions, so their lines do not move with kernels 4 and 8.  Needs a card.
+same digest for a kernel exactly when it gives the same bits.  The
+backward kernels (5, 9) are fed the boundaries of their residual kernels'
+plain versions, so their lines do not move with kernels 4 and 8.  A
+recurrent kernel's line ends in `` | <t> ms``: the mean of ITERS calls
+(CUDA events, after two warm-up calls); run the script for each checkout
+in one call, in turns (A, B, B, A), and compare the digests with
+``cut -d'|' -f1``.  Needs a card.
 """
 
 from __future__ import annotations
@@ -30,6 +38,10 @@ from pathlib import Path
 import torch
 
 ROWS, STEPS, EMBED, HIDDEN, TIME_CHUNK = 16000, 30, 256, 128, 6
+# (rows, steps, E, H) of the recurrent kernels' digests
+RNN_SHAPES = ((ROWS, STEPS, EMBED, HIDDEN), (ROWS, STEPS, EMBED, 256),
+              (1000, 9, 512, 256), (2000, 13, 300, 384))
+ITERS = 5
 BEAM_ROWS, VOCAB, KC = 1600, 50_000, 6
 
 
@@ -41,21 +53,38 @@ def digest(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def inputs(gates: int, n_bias: int, dtype):
+def inputs(gates: int, n_bias: int, dtype, rows=ROWS, steps=STEPS,
+           embed=EMBED, hidden=HIDDEN):
     """x, mask, [w_ih, biases..., w_hh] (the kernels' argument order is
     built by the caller), dout; made on the CPU from one seed."""
     gen = torch.Generator().manual_seed(gates)
-    x = torch.randn((ROWS, STEPS, EMBED), generator=gen) * 0.5
-    w_ih = torch.randn((EMBED, gates * HIDDEN), generator=gen) * 0.08
-    w_hh = torch.randn((HIDDEN, gates * HIDDEN), generator=gen) * 0.08
-    biases = [torch.randn((gates * HIDDEN,), generator=gen) * 0.1
+    x = torch.randn((rows, steps, embed), generator=gen) * 0.5
+    w_ih = torch.randn((embed, gates * hidden), generator=gen) * 0.08
+    w_hh = torch.randn((hidden, gates * hidden), generator=gen) * 0.08
+    biases = [torch.randn((gates * hidden,), generator=gen) * 0.1
               for _ in range(n_bias)]
-    lens = torch.randint(0, STEPS + 1, (ROWS,), generator=gen)
-    lens[0], lens[1] = STEPS, 0
-    mask = torch.arange(STEPS)[None, :] < lens[:, None]
-    dout = torch.randn((ROWS, STEPS, HIDDEN), generator=gen) * 0.5
+    lens = torch.randint(0, steps + 1, (rows,), generator=gen)
+    lens[0], lens[1] = steps, 0
+    mask = torch.arange(steps)[None, :] < lens[:, None]
+    dout = torch.randn((rows, steps, hidden), generator=gen) * 0.5
     cuda = [t.to("cuda", dtype) for t in (x, w_ih, *biases, w_hh, dout)]
     return cuda[0], mask.cuda(), cuda[1:-1], cuda[-1]
+
+
+def timed_ms(fn) -> float:
+    """Mean device time of ``fn`` over ITERS calls, after two warm-up
+    calls (CUDA events)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(ITERS):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / ITERS
 
 
 def generator_inputs(dtype):
@@ -143,28 +172,37 @@ def main() -> int:
     print(f"kernels of {root}")
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        for rnn, mod, gates, n_bias in (("lstm", lstm, 4, 1),
-                                        ("gru", gru, 3, 2)):
-            x, mask, w, dout = inputs(gates, n_bias, dtype)
+        for (rnn, mod, gates, n_bias), shape in (
+                (r, s) for r in (("lstm", lstm, 4, 1), ("gru", gru, 3, 2))
+                for s in RNN_SHAPES):
+            x, mask, w, dout = inputs(gates, n_bias, dtype, *shape)
             # the modules' argument order: lstm (w_ih, b, w_hh), gru
             # (w_ih, b_ih, w_hh, b_hh)
             w = w if rnn == "lstm" else [w[0], w[1], w[3], w[2]]
+            at = "" if shape == RNN_SHAPES[0] else " [%d,%d,%d]->%d" % shape
             for reverse in (False, True):
-                way = "reverse" if reverse else "forward"
-                with torch.no_grad():
-                    fwd = getattr(mod, f"{rnn}_fused")(x, mask, *w, reverse)
-                res = getattr(mod, f"{rnn}_fused_res")(x, mask, *w, reverse,
-                                                       TIME_CHUNK)
+                way = ("reverse" if reverse else "forward") + at
                 state = getattr(mod, f"{rnn}_fused_res_reference")(
                     x, mask, *w, reverse, TIME_CHUNK)[1:]
-                bwd = getattr(mod, f"{rnn}_fused_bwd")(
-                    x, mask, *w, *state, dout, reverse, TIME_CHUNK)
-                torch.cuda.synchronize()
-                for kernel, outs in ((f"{rnn}_fused", (fwd,)),
-                                     (f"{rnn}_fused_res", res),
-                                     (f"{rnn}_fused_bwd", bwd)):
-                    print(f"{kernel} {name} {way}: {digest(*outs)}",
-                          flush=True)
+                calls = {
+                    f"{rnn}_fused": lambda: (getattr(mod, f"{rnn}_fused")(
+                        x, mask, *w, reverse),),
+                    f"{rnn}_fused_res": lambda: getattr(
+                        mod, f"{rnn}_fused_res")(x, mask, *w, reverse,
+                                                 TIME_CHUNK),
+                    f"{rnn}_fused_bwd": lambda: getattr(
+                        mod, f"{rnn}_fused_bwd")(x, mask, *w, *state, dout,
+                                                 reverse, TIME_CHUNK)}
+                for kernel, call in calls.items():
+                    with torch.inference_mode(kernel == f"{rnn}_fused"):
+                        outs = call()
+                        torch.cuda.synchronize()
+                        ms = timed_ms(call)
+                    print(f"{kernel} {name} {way}: {digest(*outs)} | "
+                          f"{ms:.3f} ms", flush=True)
+                del state, outs
+            del x, mask, w, dout
+            torch.cuda.empty_cache()
         recurrence_digests(lstm, dtype, name)
         generator_digests(beamgen, dtype, name)
         slate_digests(slate, dtype, name)

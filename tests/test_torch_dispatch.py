@@ -22,6 +22,7 @@ from test_torch_serve import BUCKET, REAL, _texts, served  # noqa: F401
 from context_attentive_ir_tpu.ops import dispatch as jax_dispatch
 from context_attentive_ir_tpu_torch.ops import dispatch
 from context_attentive_ir_tpu_torch.ops import rnn
+from context_attentive_ir_tpu_torch.ops.layers import reset_parameters
 from context_attentive_ir_tpu_torch.ops.rnn import RNNLayer
 from context_attentive_ir_tpu_torch.serve import Engine as PortEngine
 
@@ -184,6 +185,7 @@ def test_a_row_preferring_the_scan_takes_it_on_cpu_tensors(table,
     such a row raises); both routes give the same output (f32, 1e-6)."""
     torch.manual_seed(0)
     layer = RNNLayer(16, 8, use_kernel=True, device="cpu")
+    reset_parameters(layer, 0)  # a ParamModule's parameters start empty
     x = torch.randn(4, 5, 16)
     mask = torch.ones(4, 5, dtype=torch.bool)
     mask[1, 3:] = False

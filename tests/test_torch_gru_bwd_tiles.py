@@ -77,18 +77,20 @@ def _close_rel(got, ref, rel=REL):
 
 def _bwd_bytes(e, h, m, depth):
     """The GRU backward's sum written out: mbarriers, three slabs of
-    ``depth`` rows of 3H + 8 bf16, the union of the forward's tiles and
-    {m rows of four slots of H + 8 bf16, the f32 dh exchange}, the bias."""
-    fwd = 2 * m * (2 * e + 16) + m * (2 * h + 16)
+    ``depth`` rows of 3H + 8 bf16 and three x slots of m rows of ``depth``
+    + 8 bf16 (E takes no more), the union of the h tile and {m rows of four
+    slots of H + 8 bf16, the f32 dh exchange}, the bias."""
+    fwd = m * (2 * h + 16)
     rev = m * (2 * 4 * h + 16) + m * (h + 8) * 4
-    return 64 + 3 * depth * (2 * 3 * h + 16) + max(fwd, rev) + 16 * h
+    return (64 + 3 * depth * (2 * 3 * h + 16) + 3 * m * (2 * depth + 16)
+            + max(fwd, rev) + 16 * h)
 
 
 @pytest.mark.parametrize("e,h,rows,n_bytes", [
     (256, 128, None, _bwd_bytes(256, 128, 64, 32)),   # the main path
     (256, 128, 16, _bwd_bytes(256, 128, 16, 32)),     # 16-row blocks
-    (672, 128, None, _bwd_bytes(672, 128, 64, 16)),   # E's limit: 16 k-rows
-    (704, 128, None, 0),
+    (672, 128, None, _bwd_bytes(672, 128, 64, 32)),   # E takes no bytes
+    (704, 1152, None, 0),
     (256, 448, None, _bwd_bytes(256, 448, 16, 16)),   # H's limit
     (256, 480, None, 0),
     (64, 32, None, _bwd_bytes(64, 32, 64, 32)),
@@ -107,24 +109,27 @@ def test_the_four_slot_tile_sets_the_hidden_limit():
     blocks: with three, H = 480 would fit at E = 256; with four it does
     not, and 448 is the limit."""
     m, h = 16, 480
-    fwd = 2 * m * (2 * 256 + 16) + m * (2 * h + 16)
+    fwd = m * (2 * h + 16)
     three = m * (2 * 3 * h + 16) + m * (h + 8) * 4
-    ring = 3 * 16 * (2 * 3 * h + 16)
+    ring = 3 * 16 * (2 * 3 * h + 16) + 3 * m * (2 * 16 + 16)
     assert 64 + ring + max(fwd, three) + 16 * h <= L.SMEM_LIMIT
     assert L.tile_smem_bytes(256, 480, backward=True, gates=3) == 0
     assert L.tile_smem_bytes(256, 448, backward=True, gates=3) > 0
 
 
 @pytest.mark.parametrize("e,h", [(256, 128), (300, 100), (640, 96),
-                                 (256, 416), (100, 256)])
+                                 (256, 384), (100, 256)])
 def test_the_lstm_backward_keeps_its_layout(e, h):
-    """Kernel 5's sum is unchanged: the dh exchange after the union."""
+    """Kernel 5's single-block sum keeps the dh exchange after the union
+    (of the h tile and the dgates tile; x streams through the ring's
+    slots)."""
     ep, hp = L._round_up(e, 32), L._round_up(h, 32)
     m = 16 * L.tile_config(hp)[1]
-    fwd = 2 * m * (2 * ep + 16) + m * (2 * hp + 16)
+    fwd = m * (2 * hp + 16)
     tiles = max(fwd, m * (8 * hp + 16)) + m * (hp + 8) * 4
     for depth in (32, 16):
-        n_bytes = 64 + 3 * depth * (8 * hp + 16) + tiles + 16 * hp
+        n_bytes = (64 + 3 * depth * (8 * hp + 16) + 3 * m * (2 * depth + 16)
+                   + tiles + 16 * hp)
         if n_bytes <= L.SMEM_LIMIT:
             break
     else:
@@ -133,7 +138,7 @@ def test_the_lstm_backward_keeps_its_layout(e, h):
 
 
 @pytest.mark.parametrize("e,h,ok", [
-    (672, 128, True), (673, 128, False), (256, 448, True),
+    (672, 128, True), (673, 1152, False), (256, 448, True),
     (256, 449, False), (300, 100, True), (1, 1, True), (32, 512, False)])
 def test_bf16_limits_are_kernel_9s_tiles(e, h, ok):
     assert K.gru_fused_supported(e, h, 40, BF16) is ok

@@ -70,13 +70,13 @@ def _max_err(a, b):
     (300, 100, BF16, True),     # padded to 320, 128
     (37, 8, BF16, True),
     (480, 128, BF16, True),     # the LSTM's widest E at H = 128 ...
-    (672, 128, BF16, True),     # ... the GRU's: three gate blocks ...
-    (673, 128, BF16, False),    # ... 704 after padding does not fit
+    (672, 128, BF16, True),     # ... and the GRU's: x is streamed ...
+    (673, 1152, BF16, False),   # ... but H stays at most 448
     (256, 384, BF16, True),     # the LSTM's largest H at E = 256 ...
     (256, 403, BF16, True),     # ... float32's GRU (kernel 9's f32 tile) ...
     (256, 448, BF16, True),     # ... bf16's, set by kernel 9's four slots
     (256, 449, BF16, False),    # 480 after padding does not fit
-    (1486, 64, BF16, False),    # neither kernel 9's tiles nor the forward's
+    (1486, 1152, BF16, False),  # neither kernel 9's tiles nor the forward's
     (32, 512, BF16, False),     # kernel 9's tiles at H = 512
     (256, 513, BF16, False),    # hidden above 512
     (256, 128, F32, True),      # float32 keeps the row-tile rule
@@ -105,16 +105,17 @@ def test_gru_bf16_limit_is_the_forward_tiles_and_kernel_9(e, h):
 
 
 @pytest.mark.parametrize("e,h,gates,n_bytes", [
-    # mbarriers + 3 slabs of 32 x (2 * gates * h + 16) + 2 x tiles + h tile
-    # + bias (four f32 slots of h), 64 rows
-    (256, 128, 3, 64 + 3 * 32 * 784 + 2 * 64 * 528 + 64 * 272 + 2048),
-    (256, 128, 4, 64 + 3 * 32 * 1040 + 2 * 64 * 528 + 64 * 272 + 2048),
+    # mbarriers + 3 slabs of 32 x (2 * gates * h + 16) + 3 x slots of 64 x
+    # (2 * 32 + 16) + h tile + bias (four f32 slots of h), 64 rows
+    (256, 128, 3, 64 + 3 * 32 * 784 + 3 * 64 * 80 + 64 * 272 + 2048),
+    (256, 128, 4, 64 + 3 * 32 * 1040 + 3 * 64 * 80 + 64 * 272 + 2048),
     # 32 k-rows do not fit: 16
-    (672, 128, 3, 64 + 3 * 16 * 784 + 2 * 64 * 1360 + 64 * 272 + 2048),
+    (672, 448, 3, 64 + 3 * 16 * 2704 + 3 * 16 * 48 + 16 * 912 + 7168),
     # 16 rows a block above H = 256
-    (256, 416, 3, 64 + 3 * 16 * 2512 + 2 * 16 * 528 + 16 * 848 + 6656),
-    (320, 128, 3, 64 + 3 * 32 * 784 + 2 * 64 * 656 + 64 * 272 + 2048),
-    (704, 128, 3, 0), (4096, 128, 3, 0), (704, 128, 4, 0)])
+    (256, 416, 3, 64 + 3 * 16 * 2512 + 3 * 16 * 48 + 16 * 848 + 6656),
+    # E takes no shared memory
+    (320, 128, 3, 64 + 3 * 32 * 784 + 3 * 64 * 80 + 64 * 272 + 2048),
+    (704, 1152, 3, 0), (4096, 1152, 3, 0), (704, 1152, 4, 0)])
 def test_tile_smem_bytes_by_gate_count(e, h, gates, n_bytes):
     assert L.tile_smem_bytes(e, h, gates=gates) == n_bytes
     assert n_bytes <= L.SMEM_LIMIT
@@ -128,8 +129,8 @@ def test_layer_takes_the_new_bf16_limit():
     def on_card(e):
         return SimpleNamespace(shape=(5, 4, e), is_cuda=True)
 
-    for e, held in ((672, True), (704, False)):
-        layer = RNNLayer(e, 128, use_kernel=True, dtype=BF16, device="cpu",
+    for e, h, held in ((672, 128, True), (704, 1152, False)):
+        layer = RNNLayer(e, h, use_kernel=True, dtype=BF16, device="cpu",
                          rnn_type="gru")
         assert layer.kernel_ok(torch.zeros(5, 4, e), None) is held
         if held:

@@ -76,15 +76,22 @@ def test_tile_config_by_hidden_size(hidden, config):
 
 
 @pytest.mark.parametrize("e,h,backward,n_bytes", [
-    # mbarriers + 3 slabs of 32 x (8h + 16) + 2 x tiles + h tile + bias, 64 rows
-    (256, 128, False, 64 + 3 * 32 * 1040 + 2 * 64 * 528 + 64 * 272 + 2048),
-    # the backward: the union of the tiles and the dgates tile, + dh
-    (256, 128, True, 64 + 3 * 32 * 1040 + (2 * 64 * 528 + 64 * 272)
+    # mbarriers + 3 slabs of 32 x (8h + 16) + 3 x slots of 64 x (2 * 32 +
+    # 16) + h tile + bias, 64 rows; E takes no shared memory
+    (256, 128, False, 64 + 3 * 32 * 1040 + 3 * 64 * 80 + 64 * 272 + 2048),
+    # the backward: the union of the h tile and the dgates tile, + dh
+    (256, 128, True, 64 + 3 * 32 * 1040 + 3 * 64 * 80 + 64 * 1040
      + 64 * 136 * 4 + 2048),
     # 32 k-rows do not fit: 16
-    (320, 128, True, 64 + 3 * 16 * 1040 + (2 * 64 * 656 + 64 * 272)
-     + 64 * 136 * 4 + 2048),
-    (512, 128, True, 0), (4096, 128, False, 0), (256, 512, False, 0)])
+    (320, 384, True, 64 + 3 * 16 * 3088 + 3 * 16 * 48 + 16 * 3088
+     + 16 * 392 * 4 + 6144),
+    # a cluster of 2 ranks of 256 units: two h tiles of all 512; the
+    # backward's partials of dh, one tile of 256 + 8 floats a rank
+    (256, 512, False, 64 + 3 * 16 * 2064 + 3 * 16 * 48 + 2 * 16 * 1040
+     + 4096),
+    (4096, 1024, True, 64 + 3 * 16 * 2064 + 3 * 16 * 48 + 16 * 2064
+     + 4 * 16 * 264 * 4 + 4096),
+    (512, 1056, True, 0), (4096, 1152, False, 0), (256, 1088, False, 0)])
 def test_tile_smem_bytes(e, h, backward, n_bytes):
     assert K.tile_smem_bytes(e, h, backward) == n_bytes
     assert n_bytes <= K.SMEM_LIMIT
@@ -94,20 +101,20 @@ def test_tile_smem_bytes(e, h, backward, n_bytes):
     (256, 128, BF16, True),     # the main path
     (300, 100, BF16, True),     # padded to 320, 128
     (37, 8, BF16, True),
-    (480, 128, BF16, True),     # the widest E at H = 128 ...
-    (481, 128, BF16, False),    # ... 512 after padding does not fit
+    (480, 128, BF16, True),     # E is streamed: any E ...
+    (481, 1152, BF16, False),   # ... but no H above 1,024
     (512, 256, BF16, True),
-    (256, 384, BF16, True),     # the largest H at E = 256 ...
-    (256, 385, BF16, False),    # ... 416 after padding does not fit
-    (32, 512, BF16, False),     # the backward's tiles at H = 512
-    (256, 513, BF16, False),    # hidden above 512
+    (256, 384, BF16, True),     # the largest H of one block ...
+    (256, 1025, BF16, False),   # ... 1,056 after padding: no cluster
+    (32, 1152, BF16, False),
+    (256, 1056, BF16, False),   # hidden above 1,024
     (256, 128, F32, True),
-    (256, 512, F32, False),     # 4H k-rows of 36 floats
+    (256, 1152, F32, False),    # no cluster of 8 blocks holds it
     (256, 403, F32, True),      # 4 * 403 * 144 = 232,128 <= 232,448
-    (256, 404, F32, False),
-    (1485, 128, F32, True),     # (E + H) * 144 = 232,272
-    (1487, 128, F32, False),
-    (256, 513, F32, False),     # 2H > 1024 threads
+    (256, 1025, F32, False),
+    (1485, 128, F32, True),     # x staged in chunks: any E ...
+    (1487, 1152, F32, False),   # ... but no H above 1,024
+    (256, 1153, F32, False),    # hidden above 1,024
     (256, 128, torch.float16, False),
     (0, 128, BF16, False), (256, 0, BF16, False)])
 def test_fused_supported_at_and_beyond_each_limit(e, h, dtype, ok):

@@ -1,7 +1,9 @@
 """Package rules of the PyTorch port: no JAX anywhere in it or in
 ``chip_smoke.py`` (nor flax's ``msgpack`` and ``ml_dtypes``, which the
 card's machine lacks), entry points that refuse to fall back to the CPU,
-and kernels that stay unlaunched on CPU tensors."""
+kernels that stay unlaunched on CPU tensors, and a package surface -- every
+subpackage's exports, the ``Engine`` signature -- that matches the JAX
+package's but for the names it leaves out on purpose."""
 
 import ast
 import subprocess
@@ -221,3 +223,93 @@ def test_decode_steps_return_the_alignment():
         assert tuple(align.shape) == (3, 5)
         assert torch.allclose(align.sum(-1), torch.ones(3), atol=1e-5)
         assert float(align[~mask].abs().max()) == 0.0
+
+
+# -- the package surface against the JAX package's ----------------------------
+#
+# name -> why the port does not export it (ROADMAP Queue 1's "deliberately
+# not ported" list)
+NOT_PORTED = {
+    ".parallel": {"batch_sharding": "no reader in either package"},
+}
+# subpackages of the JAX package with no counterpart by name
+NO_COUNTERPART = {".ops.pallas": "the TPU kernels; the port's are "
+                                 ".ops.kernels"}
+PORT_PACKAGE = "context_attentive_ir_tpu_torch"
+
+
+def _subpackages(pkg):
+    base = ROOT / pkg
+    return sorted("" if d == base else
+                  "." + ".".join(d.relative_to(base).parts)
+                  for d in [base, *base.rglob("*")]
+                  if (d / "__init__.py").is_file()
+                  and "__pycache__" not in d.parts)
+
+
+def _exports(module):
+    """``__all__``, else the public classes and functions defined in the
+    module itself (imports of other modules' names left out)."""
+    import inspect
+
+    if hasattr(module, "__all__"):
+        return set(module.__all__)
+    return {name for name, v in vars(module).items()
+            if not name.startswith("_")
+            and (inspect.isclass(v) or inspect.isfunction(v))
+            and getattr(v, "__module__", "") == module.__name__}
+
+
+@pytest.mark.parametrize("sub", _subpackages(JAX_PACKAGE))
+def test_subpackage_exports_match_jax(sub):
+    import importlib
+
+    if sub in NO_COUNTERPART:
+        assert not (ROOT / PORT_PACKAGE / Path(*sub.strip(".").split("."))
+                    / "__init__.py").is_file()
+        return
+    jax_mod = importlib.import_module(JAX_PACKAGE + sub)
+    port_mod = importlib.import_module(PORT_PACKAGE + sub)
+    skip = set(NOT_PORTED.get(sub, {}))
+    missing = _exports(jax_mod) - set(dir(port_mod)) - skip
+    assert not missing, f"{PORT_PACKAGE}{sub} lacks {sorted(missing)}"
+    if hasattr(jax_mod, "__all__"):
+        unlisted = (set(jax_mod.__all__) - skip
+                    - set(getattr(port_mod, "__all__", ())))
+        assert not unlisted, f"{PORT_PACKAGE}{sub}.__all__ lacks {unlisted}"
+
+
+def test_not_ported_names_stay_out():
+    import importlib
+
+    for sub, names in NOT_PORTED.items():
+        port_mod = importlib.import_module(PORT_PACKAGE + sub)
+        for name in names:
+            assert not hasattr(port_mod, name), (sub, name)
+
+
+def test_engine_signature_takes_the_jax_order():
+    """``Engine.__init__`` takes the JAX package's arguments in its order
+    (a positional JAX-style call passes ``mesh`` as the mesh), with the
+    port's own ``device`` last."""
+    import inspect
+
+    from context_attentive_ir_tpu.serve import Engine as JaxEngine
+
+    jax_sig = inspect.signature(JaxEngine.__init__).parameters
+    port_sig = inspect.signature(Engine.__init__).parameters
+    assert list(port_sig) == list(jax_sig) + ["device"]
+    for name in list(jax_sig)[1:]:
+        assert port_sig[name].default == jax_sig[name].default, name
+
+
+def test_aliases_are_the_same_objects():
+    from context_attentive_ir_tpu_torch import data, decode, train
+    from context_attentive_ir_tpu_torch.decode import penalties
+    from context_attentive_ir_tpu_torch.models import recommenders
+
+    assert decode.length_penalty is penalties.length_wu
+    assert train.shapes_from_config is data.shapes_from_config
+    assert set(recommenders.RECOMMENDER_CLASSES) == {"seq2seq", "hredqs",
+                                                     "acg"}
+    assert recommenders.RECOMMENDER_CLASSES["acg"] is recommenders.ACG

@@ -30,7 +30,7 @@ BF16, F32 = torch.bfloat16, torch.float32
     (256, 403, F32, True),           # 4H * 36 * 4 = 232,128 <= 232,448
     (256, 449, BF16, False),         # kernel 9's tiles hold H <= 448
     (1485, 128, F32, True),          # (E + H) * 36 * 4 = 232,272
-    (1487, 128, BF16, False),
+    (1487, 1152, BF16, False),       # any E, but no H above 448
     (64, 512, F32, False),           # 2H = 1024 threads, but 4H k-rows
     (64, 513, F32, False),           # 2H > 1024 threads
     (256, 128, torch.float16, False), (0, 128, F32, False)])
@@ -85,11 +85,13 @@ def _count_calls(monkeypatch):
     return calls
 
 
-# (rnn, E, H, the kernels hold it): H = 520 is beyond 2H <= 1024 threads,
-# E = 1700 beyond the staged tile; an odd E and H stay with the kernels
-# (float32 has no alignment rule; bfloat16 is zero-padded by the wrapper)
+# (rnn, E, H, the kernels hold it): the LSTM kernels hold every E and H up
+# to 1,024 (1,152 is beyond them); the GRU's float32 kernels, H = 520
+# beyond 2H <= 1024 threads and E = 1700 beyond the staged tile; an odd E
+# and H stay with the kernels (float32 has no alignment rule; bfloat16 is
+# zero-padded by the wrapper)
 GATE_SHAPES = [("lstm", 24, 16, True), ("lstm", 37, 19, True),
-               ("lstm", 12, 520, False), ("lstm", 1700, 8, False),
+               ("lstm", 12, 1152, False), ("lstm", 1700, 1152, False),
                ("gru", 24, 16, True), ("gru", 37, 19, True),
                ("gru", 12, 520, False), ("gru", 1700, 8, False)]
 
@@ -122,11 +124,11 @@ def test_layer_refuses_card_tensors_beyond_the_limit(rnn):
     def on_card(e):
         return SimpleNamespace(shape=(5, 4, e), is_cuda=True)
 
-    layer = RNNLayer(12, 520, use_kernel=True, device="cpu", rnn_type=rnn)
+    layer = RNNLayer(12, 1152, use_kernel=True, device="cpu", rnn_type=rnn)
     with pytest.raises(ValueError, match="use_kernel=False"):
         layer.kernel_ok(on_card(12), None)
-    assert layer.kernel_ok(on_card(12), torch.zeros(5, 520)) is False
-    assert RNNLayer(12, 520, use_kernel=False, device="cpu",
+    assert layer.kernel_ok(on_card(12), torch.zeros(5, 1152)) is False
+    assert RNNLayer(12, 1152, use_kernel=False, device="cpu",
                     rnn_type=rnn).kernel_ok(on_card(12), None) is False
     assert RNNLayer(12, 16, use_kernel=True, device="cpu",
                     rnn_type=rnn).kernel_ok(on_card(12), None) is True
@@ -137,7 +139,7 @@ def test_layer_trains_through_the_scan_beyond_the_limit(monkeypatch, rnn):
     """With a gradient needed, an unsupported shape still takes the scan
     (and autograd through it), a supported one the training pair."""
     x, mask = _layer_inputs(4, 4, 3, 10)
-    for h, want in ((520, f"{rnn}_scan"), (16, f"{rnn}_fused_train")):
+    for h, want in ((1152, f"{rnn}_scan"), (16, f"{rnn}_fused_train")):
         layer = RNNLayer(10, h, use_kernel=True, device="cpu", rnn_type=rnn)
         gen = torch.Generator().manual_seed(h)
         with torch.no_grad():
@@ -178,9 +180,10 @@ def test_kernel_path_reads_hT_from_the_outputs(rnn):
     assert not fin_k[1].any()            # a length-0 row ends at zero
 
 
-# CARS end to end: nhid beyond the float32 kernels' 2H <= 1024 threads goes
-# through the scan in every encoder; an odd emsize stays with the kernels
-CARS_CASES = [("nhid_beyond_the_limit", dict(nhid=520), "lstm_scan"),
+# CARS end to end: nhid beyond the kernels' limits (the LSTM's 1,024, the
+# GRU's float32 2H <= 1024 threads) goes through the scan in every
+# encoder; an odd emsize stays with the kernels
+CARS_CASES = [("nhid_beyond_the_limit", dict(nhid=1152), "lstm_scan"),
               ("odd_emsize", dict(emsize=37), "lstm_fused"),
               ("gru_nhid_beyond_the_limit",
                dict(nhid=520, rnn_type="gru", session_rnn_type="gru"),
