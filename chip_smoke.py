@@ -136,7 +136,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    emsize 768 (``rank_batch``), each against the same weights with
    ``use_pallas_rnn=False`` on the card (scores, top-1 beam scores, losses
    within 2e-2 relative in bf16 and 1e-4 in float32; float32 top-1 tokens
-   equal).  Every
+   equal); then the wide GRUs (``widegru``): CARS with GRU encoders at
+   nhid 512 in bf16 and float32 (clusters of 2 and 4 blocks;
+   ``rank_batch``, beam-5 ``suggest_batch``, 4 Adam steps), HRED-QS at
+   nhid 1,024 in bf16 (clusters of 4; beam-5 ``suggest_batch``, 4 Adam
+   steps) and ``cli.main --rnn_type gru --nhid 512`` in bf16 on the first
+   256 sessions, against the plain scan as above.  Every
    call runs with every launch count set to 0
    just before it and read just after it and must launch exactly the
    kernels ``PATH_KERNELS`` names (``EXACT_LAUNCHES`` times, where fixed);
@@ -146,9 +151,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the redesigned kernels' earlier times beside them in the log, kernels
    1, 4 and 5 also at the recommenders' source shape ``[64, 150, 256]``
    (rows with ``rows`` and ``steps``) and at ``[16000, 30, 256]`` -> 512
-   and 1,024 in both dtypes and float32 -> 256 and 384 (rows with
+   and 1,024 in both dtypes and float32 -> 256 and 384, kernels 7, 8 and 9
+   at ``[16000, 30, 256]`` -> 512 and 1,024 in both dtypes (rows with
    ``rows``, ``steps``, ``e``, ``h``, ``dtype``; checked against their
-   plain versions at 333 of those rows first), kernel 9 with 16-row and 64-row
+   plain versions on those inputs first), kernel 9 with 16-row and 64-row
    blocks at the query and doc encoders' shapes, kernel 10's wider
    instantiations (logged), and the train steps' times.
 
@@ -172,7 +178,12 @@ small float32 models card vs CPU), ``kernel6`` (``lstm_precomputed``),
 beam-5 ``suggest_batch``, 4 train steps -- ``cli.main --nhid 512``, a bf16
 CARS at emsize 768, each against the same model on the plain scan, and
 kernels 1, 4, 5 timed at the doc encoder's rows and steps at H = 512 and
-1,024 in both dtypes and float32 H = 256 and 384), ``trainer`` (``cli.main`` for CARS and HRED-QS), ``recommenders``
+1,024 in both dtypes and float32 H = 256 and 384), ``widegru`` (CARS-GRU
+at nhid 512 in bf16 and float32, HRED-QS at nhid 1,024 in bf16,
+``cli.main --rnn_type gru --nhid 512``, each against the same model on the
+plain scan, and kernels 7, 8, 9 timed at the doc encoder's rows and steps
+at H = 512 and 1,024 in both dtypes), ``trainer`` (``cli.main`` for CARS
+and HRED-QS), ``recommenders``
 (seq2seq and ACG serving, train steps, checkpoint round trips and
 ``cli.main``, and the beam-40 CARS Engine), ``multitask`` (the top-k and
 conv timings, M-NSRF and M-MatchTensor serving, train steps, checkpoint
@@ -508,12 +519,21 @@ def check_tiles(gen, rnn: str, shapes=TILE_SHAPES,
     return worst
 
 
-# kernel 9 in bf16 beyond TILE_SHAPES: 16-row blocks at rows off their
-# block (the query encoder's B*S + 13; the doc encoder's row counts take
-# 64-row blocks, TILE_SHAPES' 16,001 rows off theirs), and its new limits
-# (E = 672 at H = 128, H = 448 at E = 256; gru_fused_supported)
+# kernels 7, 8, 9 beyond TILE_SHAPES, run in float32 and bf16: kernel 9's
+# 16-row blocks at rows off their block (the query encoder's B*S + 13; the
+# doc encoder's row counts take 64-row blocks, TILE_SHAPES' 16,001 rows off
+# theirs), E streamed (672, 1,024, 1,500: float32's old E + H <= 1,614
+# passed), bf16's one block at its widest (448) and its clusters of 2 (480,
+# 512) and 4 (544 padded to 576, 640, 1,024), float32's clusters (kernels
+# 7, 8 above H = 256, kernel 9 from 404: 4 to 8 blocks), rows off the
+# 16-row block (9 rows: one block of a cluster, mostly empty), T = 1 and a
+# T the time chunk does not divide
 GRU_TILE_SHAPES = ((B * S + 13, LQ, EMSIZE, NHID), (70, 7, 672, NHID),
-                   (40, 5, EMSIZE, 448), (70, 7, 1024, NHID))
+                   (40, 5, EMSIZE, 448), (70, 7, 1024, NHID),
+                   (70, 7, 1500, NHID), (33, 7, 300, 404),
+                   (40, 5, EMSIZE, 480), (40, 5, 1024, 512),
+                   (50, 7, EMSIZE, 544), (17, 3, 300, 1024),
+                   (9, 1, 300, 640))
 
 
 def tile_note() -> str:
@@ -1186,23 +1206,32 @@ def check_refusals(gen) -> None:
 
     # gru_fused_supported states the launchers' limits: a shape it accepts
     # runs through all three kernels, one it rejects is refused by at least
-    # one (bf16: kernel 9's tensor-core tiles, whose limits hold the
-    # forward's; float32: kernel 9's f32 tile)
+    # one; every E, and H up to 1,024 in both dtypes (bf16: one block to
+    # 448, clusters of 2 and 4 above, H padded to 64 in a cluster of 4;
+    # float32: kernels 7, 8 one block to 256 and 9 to 403, clusters of up
+    # to 8 above), one refused shape a dtype past 1,024
     for e, h, dtype in ((672, NHID, bf16), (704, NHID, bf16),
                         (1024, NHID, bf16), (4096, NHID, bf16),
                         (EMSIZE, 448, bf16), (EMSIZE, 449, bf16),
+                        (EMSIZE, 480, bf16), (64, 512, bf16),
+                        (EMSIZE, 513, bf16), (EMSIZE, 1000, bf16),
+                        (300, 1024, bf16), (EMSIZE, 1152, bf16),
                         (300, 100, bf16), (1400, NHID, torch.float32),
                         (1500, NHID, torch.float32),
+                        (4096, NHID, torch.float32),
                         (EMSIZE, 256, torch.float32),
                         (EMSIZE, 403, torch.float32),
-                        (EMSIZE, 404, torch.float32)):
+                        (EMSIZE, 404, torch.float32),
+                        (EMSIZE, 512, torch.float32),
+                        (EMSIZE, 1024, torch.float32),
+                        (EMSIZE, 1025, torch.float32)):
         ok = gru_fused_supported(e, h, 40, dtype)
         refused = []
         for k in GRU_KERNELS:
             try:
                 gru_at(k, e, h, dtype)
                 torch.cuda.synchronize()
-            except RuntimeError as err:
+            except (RuntimeError, ValueError) as err:
                 refused.append(f"{k}: {err}")
         log(f"gru_fused_supported(E={e}, H={h}, {dtype}) = {ok}; the "
             "kernels " + ("refused: " + "; ".join(refused) if refused
@@ -1250,12 +1279,10 @@ def check_refusals(gen) -> None:
                       lambda: layer_at("lstm", EMSIZE, 1152, bf16)),
                      ("RNNLayer lstm f32 H=1152 (hidden above 1,024)",
                       lambda: layer_at("lstm", EMSIZE, 1152, torch.float32)),
-                     ("RNNLayer gru f32 E=4096 (shared tile)",
-                      lambda: layer_at("gru", 4096, NHID, torch.float32)),
-                     ("RNNLayer gru bf16 H=480 (tiles beyond shared memory)",
-                      lambda: layer_at("gru", EMSIZE, 480, bf16)),
-                     ("gru_fused_bwd bf16 H=480 (tiles beyond shared memory)",
-                      lambda: gru_at("gru_fused_bwd", EMSIZE, 480, bf16)),
+                     ("RNNLayer gru bf16 H=1152 (hidden above 1,024)",
+                      lambda: layer_at("gru", EMSIZE, 1152, bf16)),
+                     ("RNNLayer gru f32 H=1025 (hidden above 1,024)",
+                      lambda: layer_at("gru", EMSIZE, 1025, torch.float32)),
                      ("lstm_recurrence H=192 (H % 128)", lambda: rec_at(192)),
                      ("lstm_recurrence H=640 (threads per block)",
                       lambda: rec_at(640)),
@@ -1267,11 +1294,9 @@ def check_refusals(gen) -> None:
                         gru_at(k, e, h, dt))
                        for k in GRU_KERNELS
                        for what, e, h, dt in (
-                           ("f32 E=4096 (shared tile)", 4096, NHID,
+                           ("f32 H=1025 (hidden above 1,024)", EMSIZE, 1025,
                             torch.float32),
-                           ("f32 H=1024 (threads per block)", EMSIZE, 1024,
-                            torch.float32),
-                           ("bf16 H=1024 (hidden above 512)", EMSIZE, 1024,
+                           ("bf16 H=1152 (hidden above 1,024)", EMSIZE, 1152,
                             bf16))),
                      ("generator_topk_lse E=1024 (shared tile)",
                       lambda: beamgen_at(1024)),
@@ -1313,6 +1338,8 @@ def check_refusals(gen) -> None:
     rec_at(NHID, dtype=bf16)
     layer_at("lstm", 300, 100, bf16)
     layer_at("gru", 300, 100, bf16)
+    layer_at("gru", 4096, NHID, torch.float32)
+    layer_at("gru", EMSIZE, 480, bf16)
     for k in GRU_KERNELS:
         for dtype in (torch.float32, bf16):
             gru_at(k, EMSIZE, NHID, dtype)
@@ -1462,6 +1489,15 @@ PATH_KERNELS = {
         ("train_step", ("lstm_fused_res", "lstm_fused_bwd")))},
     "trainer_fit_wide": ("lstm_fused", "lstm_fused_res", "lstm_fused_bwd"),
     "rank_batch_e768": ("lstm_fused",),
+    # the wide GRUs: CARS-GRU at nhid 512 (bf16: clusters of 2; float32:
+    # clusters of 4) and HRED-QS at nhid 1,024 (bf16: clusters of 4)
+    **{f"{p}_widegru_{dt}": k for dt in ("bf16", "f32") for p, k in (
+        ("rank_batch", ("gru_fused",)),
+        ("suggest_beam5", ("gru_fused", BEAM_GEN)),
+        ("train_step", ("gru_fused_res", "gru_fused_bwd")))},
+    "suggest_beam5_hredqs_1024": ("gru_fused",),
+    "train_step_hredqs_1024": ("gru_fused_res", "gru_fused_bwd"),
+    "trainer_fit_widegru": ("gru_fused", "gru_fused_res", "gru_fused_bwd"),
     "trainer_fit_hredqs": ("gru_fused", "gru_fused_res", "gru_fused_bwd"),
     # the flat-source recommenders: their encoder over [B, S_REC * Lq]
     # through kernel 1 (serving) or 4 + 5 (training); their decode step is
@@ -1533,6 +1569,12 @@ EXACT_LAUNCHES = {
     "suggest_beam5_hredqs": {"gru_fused": 2},
     "suggest_greedy_hredqs": {"gru_fused": 2},
     "train_step_hredqs": {"gru_fused_res": 2, "gru_fused_bwd": 2},
+    **{f"{p}_widegru_{dt}": k for dt in ("bf16", "f32") for p, k in (
+        ("rank_batch", {"gru_fused": 4}),
+        ("suggest_beam5", {"gru_fused": 4}),
+        ("train_step", {"gru_fused_res": 4, "gru_fused_bwd": 4}))},
+    "suggest_beam5_hredqs_1024": {"gru_fused": 2},
+    "train_step_hredqs_1024": {"gru_fused_res": 2, "gru_fused_bwd": 2},
     "lstm_precomputed": {"lstm_recurrence": 2},
     **{f"suggest_{mode}_{m}": {"lstm_fused": 2} for mode in ("beam5", "greedy")
        for m in ("seq2seq", "acg")},
@@ -3615,20 +3657,23 @@ def within_tol(path: str, got, want, dtype) -> None:
 
 
 def wide_serving(word_dict, cfg, tag: str, dtype, launches: dict,
-                 suggest: bool = True) -> None:
-    """``Engine.rank_batch`` (and beam-5 ``suggest_batch``) of ``cfg``,
-    counted, against the same weights with use_pallas_rnn=False."""
-    from context_attentive_ir_tpu_torch.models.multitask.cars import CARS
+                 suggest: bool = True, rank: bool = True) -> None:
+    """``Engine.rank_batch`` (unless not ``rank``) and beam-5
+    ``suggest_batch`` (unless not ``suggest``) of ``cfg``, counted, against
+    the same weights with use_pallas_rnn=False."""
+    from context_attentive_ir_tpu_torch.models import build_model
     from context_attentive_ir_tpu_torch.serve import Engine
 
-    params = CARS(cfg, device="cuda", seed=0).state_dict()
+    params = build_model(cfg, device="cuda", seed=0).state_dict()
     eng, ref = (Engine(c, word_dict, params, beam_size=BEAM, batch_bucket=B)
                 for c in (cfg, cfg.replace(use_pallas_rnn=False)))
     reqs, hists = requests(np.random.RandomState(16), word_dict, B)
     with torch.inference_mode():
-        path = f"rank_batch_{tag}"
-        scores, launches[path] = counted(path, lambda: eng.rank_batch(reqs))
-        within_tol(path, scores, ref.rank_batch(reqs), dtype)
+        if rank:
+            path = f"rank_batch_{tag}"
+            scores, launches[path] = counted(path,
+                                             lambda: eng.rank_batch(reqs))
+            within_tol(path, scores, ref.rank_batch(reqs), dtype)
         if not suggest:
             return
         path = f"suggest_beam5_{tag}"
@@ -3646,21 +3691,24 @@ def wide_serving(word_dict, cfg, tag: str, dtype, launches: dict,
 
 
 def wide_train(cfg, tag: str, dtype, launches: dict) -> None:
-    """Four Adam steps of CARS on one batch through kernels 4 + 5 (the
-    second counted) and the same through the plain scan, from the same
-    weights: the losses must fall and agree within PAIR_TOL."""
-    from context_attentive_ir_tpu_torch.models.multitask.cars import CARS
+    """Four Adam steps of ``cfg``'s model (CARS on a session batch, HRED-QS
+    on a suggestion batch) through the training pair (kernels 4 + 5 or 8 +
+    9; the second step counted) and the same through the plain scan, from
+    the same weights: the losses must fall and agree within PAIR_TOL."""
+    from context_attentive_ir_tpu_torch.models import build_model
     from context_attentive_ir_tpu_torch.train import (
         create_train_state,
         make_train_step,
     )
 
-    batch = random_session_batch(np.random.RandomState(17)).to("cuda")
+    rng = np.random.RandomState(17)
+    batch = (random_suggest_batch(rng) if cfg.model_type == "hredqs"
+             else random_session_batch(rng)).to("cuda")
     path = f"train_step_{tag}"
     losses = {}
     for kernel in (True, False):
         c = cfg if kernel else cfg.replace(use_pallas_rnn=False)
-        model = CARS(c, device="cuda", seed=0)
+        model = build_model(c, device="cuda", seed=0)
         state, step = create_train_state(model, c), make_train_step(model, c)
         out = []
         for i in range(4):
@@ -3681,11 +3729,13 @@ def wide_train(cfg, tag: str, dtype, launches: dict) -> None:
     within_tol(path + " losses", losses[True], losses[False], dtype)
 
 
-def wide_fit(files: dict, run_dir: str, launches: dict) -> None:
-    """``cli.main --nhid 512 --compute_dtype bfloat16`` on the fixture's
-    first WIDE_FIT_SESSIONS sessions, one epoch with beam-5 validation and
-    a test, counted; then the same with --use_pallas_rnn false: the epoch's
-    train loss within PAIR_TOL of it."""
+def wide_fit(files: dict, run_dir: str, launches: dict,
+             path: str = "trainer_fit_wide", *extra: str) -> None:
+    """``cli.main --model_type cars --nhid 512 --compute_dtype bfloat16``
+    (and the arguments ``extra``) on the fixture's first WIDE_FIT_SESSIONS
+    sessions, one epoch with beam-5 validation and a test, counted as
+    ``path``; then the same with --use_pallas_rnn false: the epoch's train
+    loss within PAIR_TOL of it."""
     from context_attentive_ir_tpu_torch.cli.main import main as cli_main
 
     hist = {}
@@ -3694,26 +3744,26 @@ def wide_fit(files: dict, run_dir: str, launches: dict) -> None:
                         "--train_file", str(files["train"]), "--dev_file",
                         str(files["dev"]), "--num_epochs", "1",
                         "--max_examples", str(WIDE_FIT_SESSIONS), "--nhid",
-                        str(WIDE_NHID),
+                        str(WIDE_NHID), *extra,
                         *(() if kernel else ("--use_pallas_rnn", "false")))
         t = time.perf_counter()
         if kernel:
-            res, launches["trainer_fit_wide"] = counted(
-                "trainer_fit_wide", lambda: cli_main(argv))
+            res, launches[path] = counted(path, lambda: cli_main(argv))
         else:
             res = cli_main(argv)
         h = res["fit"]["history"]
-        log(f"trainer_fit_wide ({'kernels' if kernel else 'plain scan'}): "
-            f"cli.main --nhid {WIDE_NHID} bf16, {WIDE_FIT_SESSIONS} "
+        log(f"{path} ({'kernels' if kernel else 'plain scan'}): "
+            f"cli.main --nhid {WIDE_NHID} {' '.join(extra)} bf16, "
+            f"{WIDE_FIT_SESSIONS} "
             f"sessions, 1 epoch + test in {time.perf_counter() - t:.1f} s; "
             f"history " + json.dumps([{k: round(v, 4) for k, v in e.items()}
                                       for e in h]) + "; test " + json.dumps(
                 {k: round(v, 4) for k, v in res["test"].items()}))
         if not all(math.isfinite(v) for e in h + [res["test"]]
                    for v in e.values()):
-            raise AssertionError("trainer_fit_wide: non-finite metrics")
+            raise AssertionError(f"{path}: non-finite metrics")
         hist[kernel] = h[-1]["train_loss"]
-    within_tol("trainer_fit_wide train loss", [hist[True]], [hist[False]],
+    within_tol(f"{path} train loss", [hist[True]], [hist[False]],
                torch.bfloat16)
 
 
@@ -3743,6 +3793,56 @@ def wide_paths(gen, fixture_dir: str) -> tuple[dict, list[dict]]:
     rows = []
     for h, dtype in WIDE_TIMED:
         rows.extend(time_rnn(gen, "lstm", launches,
+                             shape=(B * S * N, LD), dtype=dtype,
+                             iters=5 if dtype == torch.bfloat16 else 2,
+                             e=EMSIZE, h=h))
+        torch.cuda.empty_cache()
+    return launches, rows
+
+
+# -- the wide GRUs: kernels 7, 8, 9 past the single block --------------------
+
+# HRED-QS at its published width class (about 1,000 units): bf16 clusters
+# of 4
+WIDEGRU_HRED_NHID = 1024
+# (H, dtype) of the timed wide GRU kernels at the doc encoder's rows and
+# steps: bf16 clusters of 2 and 4, float32 clusters of 4 and 8
+WIDEGRU_TIMED = ((512, torch.bfloat16), (1024, torch.bfloat16),
+                 (512, torch.float32), (1024, torch.float32))
+
+
+def widegru_paths(gen, fixture_dir: str) -> tuple[dict, list[dict]]:
+    """The slice's path: CARS with GRU encoders at the serving widths and
+    nhid 512 in bf16 and float32 (rank_batch, beam-5 suggest_batch, 4 Adam
+    steps), HRED-QS at nhid 1,024 in bf16 (beam-5 suggest_batch, 4 Adam
+    steps), cli.main for CARS-GRU at nhid 512 in bf16, each against the
+    same model on the plain scan; then kernels 7, 8, 9 at the doc encoder's
+    rows and steps at each of WIDEGRU_TIMED, held to their plain versions
+    on the same inputs, both directions, and timed beside cuDNN.  Returns
+    the launches and the timing rows."""
+    word_dict = synthetic_dictionary(VOCAB)
+    launches = {}
+    for tag, dt in (("widegru_bf16", "bfloat16"), ("widegru_f32", "float32")):
+        dtype = getattr(torch, dt)
+        cfg = full_width_config("cars", nhid=WIDE_NHID, compute_dtype=dt,
+                                **GRU)
+        wide_serving(word_dict, cfg, tag, dtype, launches)
+        wide_train(cfg, tag, dtype, launches)
+        torch.cuda.empty_cache()
+    cfg = full_width_config("hredqs", nhid=WIDEGRU_HRED_NHID, **GRU)
+    wide_serving(word_dict, cfg, "hredqs_1024", torch.bfloat16, launches,
+                 rank=False)
+    wide_train(cfg, "hredqs_1024", torch.bfloat16, launches)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        wide_fit(fit_files(fixture_dir), tmp, launches, "trainer_fit_widegru",
+                 "--rnn_type", "gru", "--session_rnn_type", "gru")
+    torch.cuda.empty_cache()
+    log(f"wide GRU launches per path: {json.dumps(launches)}")
+
+    rows = []
+    for h, dtype in WIDEGRU_TIMED:
+        rows.extend(time_rnn(gen, "gru", launches,
                              shape=(B * S * N, LD), dtype=dtype,
                              iters=5 if dtype == torch.bfloat16 else 2,
                              e=EMSIZE, h=h))
@@ -4419,8 +4519,8 @@ EARLIER_MS = {"lstm_fused": 11.269, "lstm_fused_res": 11.256,
 # other phase.
 PHASES = ("kernels", "lstm", "grukernels", "beamkernels", "slatekernels",
           "serving", "parallel", "train", "indexed", "interop", "gru",
-          "small", "kernel6", "widelstm", "trainer", "recommenders",
-          "multitask", "rankers")
+          "small", "kernel6", "widelstm", "widegru", "trainer",
+          "recommenders", "multitask", "rankers")
 SHARES = {"lstm", "grukernels", "beamkernels", "slatekernels"}
 
 
@@ -4468,23 +4568,25 @@ def main() -> int:
 
     errs = {}
 
+    def merge_tiles(rnn, worst, dtype=torch.bfloat16):
+        for k, v in worst.items():
+            d = errs[f"pair_{rnn}"][k]
+            d[dtype] = max(d[dtype], v)
+
     def check_rnn(rnn):
         errs[f"fwd_{rnn}"] = check_forward(gen, rnn)
         errs[f"pair_{rnn}"] = check_train_pair(gen, rnn)
-        tiles = [check_tiles(gen, rnn)]
+        merge_tiles(rnn, check_tiles(gen, rnn))
         if rnn == "gru":
-            tiles.append(check_tiles(gen, rnn, GRU_TILE_SHAPES))
-        for worst in tiles:
-            for k, v in worst.items():
-                d = errs[f"pair_{rnn}"][k]
-                d[torch.bfloat16] = max(d[torch.bfloat16], v)
+            for dtype in (torch.float32, torch.bfloat16):
+                merge_tiles(rnn, check_tiles(gen, rnn, GRU_TILE_SHAPES,
+                                             dtype), dtype)
 
     def check_lstm():
         check_rnn("lstm")
         for dtype in (torch.float32, torch.bfloat16):
-            for k, v in check_tiles(gen, "lstm", WIDE_SHAPES, dtype).items():
-                d = errs["pair_lstm"][k]
-                d[dtype] = max(d[dtype], v)
+            merge_tiles("lstm", check_tiles(gen, "lstm", WIDE_SHAPES, dtype),
+                        dtype)
         errs["rec"] = check_recurrence(gen)
 
     def check_beam():
@@ -4557,6 +4659,11 @@ def main() -> int:
         wide_launches, wide_rows = phase(
             "widelstm", lambda: wide_paths(gen, fixture_dir.name))
         launches.update(wide_launches)
+    if "widegru" in run:
+        wide_launches, rows = phase(
+            "widegru", lambda: widegru_paths(gen, fixture_dir.name))
+        launches.update(wide_launches)
+        wide_rows.extend(rows)
     # the default run keeps --resume and the Trainer's timings for CARS
     # alone (its time limit), a phase run alone keeps them for each of its
     # models but the rankers

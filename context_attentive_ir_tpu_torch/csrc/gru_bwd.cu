@@ -79,10 +79,27 @@
 // barrier each) and the cell updates between them, more than the products
 // or the planes' traffic (PERF.md).
 //
+// Above H = 448 (gru_cluster: 2 or 4 blocks of 16 rows, H a multiple of 64
+// in a cluster of 4) the gate columns split over a thread-block cluster as
+// in kernel 5 (lstm_mma.cuh): the recompute is kernel 8's clustered step;
+// in the reverse pass a block's gradient slots are those of its Hc units,
+// so slots {0, 1, 3} @ W_hh^T over its slabs' h rows is a partial of every
+// unit's dh: each block sends the partials of rank r's units into rank r's
+// tile of partials (distributed shared memory, one tile of Hc columns a
+// source rank, so no full-H dh tile is staged) and rank r adds them in
+// rank order, then dh' z (the same bits every run); the reverse pass
+// streams the h slabs alone, and dx = slots 0..2 @ W_ih^T over all B*T
+// rows is one tensor-core product after phase A (phase C, launch_matmul on
+// the workspace's slots, rows 4H apart).
+//
 // float32 keeps exact f32 FMAs (no TF32) on the first version's layout
 // (gru_bwd_cell_kernel: one block per 32 rows, thread (rg, j) owning unit j
 // of 16 rows, five activation planes, host-made transposes of the weights
-// for the dx and dh products) and wgrad_partial_kernel.
+// for the dx and dh products, x staged in chunks of kF32Chunk k-rows) and
+// wgrad_partial_kernel; above H = 403 (f32_cluster: its 4H gradient rows
+// stop fitting) its units split over a cluster of up to 8 blocks by the
+// same scheme (dh's partials in rank order, dx in phase C by exact f32
+// FMAs).
 
 #include "lstm_common.cuh"
 #include "lstm_mma.cuh"
@@ -93,8 +110,13 @@ using namespace cair_lstm;
 
 constexpr int kSaved = 5;  // per step: h_prev, r, z, n, hn
 
-// kBound: the launch bound (row_tile_bound)
-template <typename T, int kBound>
+// kBound: the launch bound (row_tile_bound).  A block has 2 * hc threads and
+// owns units rank*hc .. rank*hc + hc - 1 of a cluster of ceil(H / hc) blocks
+// (kCl; else hc = H: one block).  Shared memory, recompute: h of all H units
+// [H][kStride] | the x chunk; reverse pass: the block's four gradient slots
+// [4 hc][kStride] | in a cluster, the dh partials of its units from every
+// rank [C][hc][kStride].
+template <typename T, int kBound, bool kCl>
 __global__ void __launch_bounds__(kBound)
 gru_bwd_cell_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
                     const T* __restrict__ w_ih, const T* __restrict__ b_ih,
@@ -104,26 +126,35 @@ gru_bwd_cell_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
                     T* __restrict__ dx, T* __restrict__ dg_ws,
                     T* __restrict__ h_prev_ws, float* __restrict__ act,
                     float* __restrict__ db_part, int n_rows, int n_steps, int e,
-                    int h_dim, int reverse, int tc) {
+                    int h_dim, int reverse, int tc, int hc) {
   extern __shared__ float4 smem4[];
   float* tile = reinterpret_cast<float*>(smem4);
+  float* ht = tile;
+  float* xt = tile + (size_t)h_dim * kStride;
+  float* exch = tile + (size_t)4 * hc * kStride;
 
-  const int j = threadIdx.x % h_dim;
-  const int rg = threadIdx.x / h_dim;
-  const int row0 = blockIdx.x * kRows;
+  constexpr bool cl = kCl;
+  const int n_ranks = cl ? (int)tiles::cluster_size() : 1;
+  const int rank = cl ? (int)tiles::cluster_rank() : 0;
+  const int j = threadIdx.x % hc;
+  const int rg = threadIdx.x / hc;
+  const int unit = rank * hc + j;
+  const bool active = !cl || unit < h_dim;
+  const int own = min(hc, h_dim - rank * hc);  // the block's real units
+  const int row0 = (blockIdx.x / n_ranks) * kRows;
   const int my_row0 = row0 + rg * kRowsPerThread;
   const int g3 = 3 * h_dim;
   const int g4 = 4 * h_dim;
   const int n_chunks = (n_steps + tc - 1) / tc;
-  const size_t plane = (size_t)kRows * h_dim;
+  const size_t plane = (size_t)kRows * hc;
   const size_t act_step = kSaved * plane;
   float* my_act = act + (size_t)blockIdx.x * tc * act_step;
 
   float bx[3], bh[3];
 #pragma unroll
   for (int g = 0; g < 3; ++g) {
-    bx[g] = to_f32(b_ih[g * h_dim + j]);
-    bh[g] = to_f32(b_hh[g * h_dim + j]);
+    bx[g] = active ? to_f32(b_ih[g * h_dim + unit]) : 0.0f;
+    bh[g] = active ? to_f32(b_hh[g * h_dim + unit]) : 0.0f;
   }
   float dh[kRowsPerThread];
 #pragma unroll
@@ -137,40 +168,47 @@ gru_bwd_cell_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
     const int len = min(tc, n_steps - t_lo);
 
     // --- recompute the forward inside the chunk from its boundary -------
+    __syncthreads();  // the last reverse step is done with the tile
     float h[kRowsPerThread];
 #pragma unroll
     for (int i = 0; i < kRowsPerThread; ++i) {
       const int row = my_row0 + i;
-      h[i] = row < n_rows ? hb[((size_t)chunk * n_rows + row) * h_dim + j]
-                          : 0.0f;
+      h[i] = active && row < n_rows
+                 ? hb[((size_t)chunk * n_rows + row) * h_dim + unit]
+                 : 0.0f;
     }
+    for (int idx = threadIdx.x; idx < kRows * h_dim; idx += blockDim.x) {
+      const int r = idx / h_dim;
+      const int u = idx - r * h_dim;
+      const int row = row0 + r;
+      ht[(size_t)u * kStride + r] =
+          row < n_rows
+              ? round_to<T>(hb[((size_t)chunk * n_rows + row) * h_dim + u])
+              : 0.0f;
+    }
+    // the tile is whole; in a cluster, every rank is done with its reverse
+    // pass (the other ranks' h writes below land in the same space)
+    f32_sync(cl);
     for (int k = 0; k < len; ++k) {
       const int t = reverse ? t_lo + len - 1 - k : t_lo + k;
       float ax[3][kRowsPerThread], ah[3][kRowsPerThread];
-      stage_x_h<T>(tile, x, h, row0, n_rows, n_steps, t, e, j, rg);
-#pragma unroll
-      for (int g = 0; g < 3; ++g) {
-#pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i) {
-          ax[g][i] = bx[g];
-          ah[g][i] = bh[g];
-        }
-      }
-      dot_rows<3, T>(ax, tile, 0, rg, w_ih + j, e, g3, h_dim);
-      dot_rows<3, T>(ah, tile, e, rg, w_hh + j, h_dim, g3, h_dim);
+      gru_preacts<T>(ax, ah, xt, ht, x, w_ih, w_hh, bx, bh, row0, n_rows,
+                     n_steps, t, e, h_dim, unit, rg, active);
+      f32_sync(cl);  // every block of the cluster is done reading its h tile
       float* a_k = my_act + k * act_step;
+      float hr[kRowsPerThread];
 #pragma unroll
       for (int i = 0; i < kRowsPerThread; ++i) {
         const int row = my_row0 + i;
-        if (row < n_rows) {
+        if (active && row < n_rows) {
           const size_t pos = (size_t)row * n_steps + t;
           const float r = sigmoid_f32(ax[0][i] + ah[0][i]);
           const float z = sigmoid_f32(ax[1][i] + ah[1][i]);
           const float hn = ah[2][i];
           const float n = tanhf(ax[2][i] + r * hn);
           const float h_new = (1.0f - z) * n + z * h[i];
-          h_prev_ws[pos * h_dim + j] = from_f32<T>(h[i]);
-          const size_t at = (size_t)(rg * kRowsPerThread + i) * h_dim + j;
+          h_prev_ws[pos * h_dim + unit] = from_f32<T>(h[i]);
+          const size_t at = (size_t)(rg * kRowsPerThread + i) * hc + j;
           a_k[at] = h[i];
           a_k[plane + at] = r;
           a_k[2 * plane + at] = z;
@@ -178,8 +216,13 @@ gru_bwd_cell_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
           a_k[4 * plane + at] = hn;
           if (mask[pos] != 0) h[i] = h_new;
         }
+        hr[i] = round_to<T>(h[i]);
       }
-      __syncthreads();  // the next step overwrites the staged tile
+      if (active) store_rows_all(ht, unit, rg, hr, cl ? n_ranks : 0);
+      // the h tiles are whole (a single block: the next step's x staging
+      // ends in a __syncthreads before h is read; after the last step the
+      // reverse pass's slots take the tile's place)
+      if (cl || k + 1 == len) f32_sync(cl);
     }
 
     // --- reverse pass over the chunk --------------------------------------
@@ -193,17 +236,17 @@ gru_bwd_cell_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
       for (int i = 0; i < kRowsPerThread; ++i) {
         const int row = my_row0 + i;
         float d0 = 0.0f, d1 = 0.0f, d2 = 0.0f, d3 = 0.0f, dz_h = 0.0f;
-        if (row < n_rows) {
+        if (active && row < n_rows) {
           const size_t pos = (size_t)row * n_steps + t;
           if (mask[pos] != 0) {
             valid |= 1u << i;
-            const size_t at = (size_t)(rg * kRowsPerThread + i) * h_dim + j;
+            const size_t at = (size_t)(rg * kRowsPerThread + i) * hc + j;
             const float h_prev = a_k[at];
             const float r = a_k[plane + at];
             const float z = a_k[2 * plane + at];
             const float n = a_k[3 * plane + at];
             const float hn = a_k[4 * plane + at];
-            const float dh_new = to_f32(dout[pos * h_dim + j]) + dh[i];
+            const float dh_new = to_f32(dout[pos * h_dim + unit]) + dh[i];
             const float dz = dh_new * (h_prev - n);
             const float da_n = dh_new * (1.0f - z) * (1.0f - n * n);
             d0 = da_n * hn * r * (1.0f - r);
@@ -212,7 +255,7 @@ gru_bwd_cell_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
             d3 = da_n * r;
             dz_h = dh_new * z;
           }
-          T* dst = dg_ws + pos * g4 + j;
+          T* dst = dg_ws + pos * g4 + unit;
           dst[0] = from_f32<T>(d0);
           dst[h_dim] = from_f32<T>(d1);
           dst[2 * h_dim] = from_f32<T>(d2);
@@ -232,35 +275,78 @@ gru_bwd_cell_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
           dbs[g] += dg[g][i];
           v[i] = round_to<T>(dg[g][i]);
         }
-        store_rows(tile, g * h_dim + j, rg, v);
+        store_rows(tile, g * hc + j, rg, v);
       }
-      __syncthreads();
+      // the slots tile is whole; in a cluster, every rank is done reading
+      // its dh partials of the step before
+      f32_sync(cl);
 
-      // dh = dh' z + dg_hh_c @ W_hh^T where unmasked (slots r, z against
-      // W_hh^T rows 0..2H-1, slot 3 against rows 2H..3H-1); masked steps
-      // carry dh
-      {
-        float acc[1][kRowsPerThread];
+      if constexpr (!cl) {
+        // dh = dh' z + dg_hh_c @ W_hh^T where unmasked (slots r, z against
+        // W_hh^T rows 0..2H-1, slot 3 against rows 2H..3H-1); masked steps
+        // carry dh
+        {
+          float acc[1][kRowsPerThread];
 #pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i) acc[0][i] = dh_z[i];
-        dot_rows<1, T>(acc, tile, 0, rg, w_hh_t + j, 2 * h_dim, h_dim, 0);
-        dot_rows<1, T>(acc, tile, g3, rg, w_hh_t + (size_t)2 * h_dim * h_dim
-                       + j, h_dim, h_dim, 0);
+          for (int i = 0; i < kRowsPerThread; ++i) acc[0][i] = dh_z[i];
+          dot_rows<1, T>(acc, tile, 0, rg, w_hh_t + j, 2 * h_dim, h_dim, 0);
+          dot_rows<1, T>(acc, tile, g3, rg, w_hh_t + (size_t)2 * h_dim * h_dim
+                         + j, h_dim, h_dim, 0);
 #pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i)
-          if (valid & (1u << i)) dh[i] = acc[0][i];
-      }
-      // dx_t = dg_ih_c @ W_ih^T (slots 0..2), columns j, j + H, ...
-      for (int col = j; col < e; col += h_dim) {
-        float acc[1][kRowsPerThread];
+          for (int i = 0; i < kRowsPerThread; ++i)
+            if (valid & (1u << i)) dh[i] = acc[0][i];
+        }
+        // dx_t = dg_ih_c @ W_ih^T (slots 0..2), columns j, j + H, ...
+        for (int col = j; col < e; col += h_dim) {
+          float acc[1][kRowsPerThread];
 #pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i) acc[0][i] = 0.0f;
-        dot_rows<1, T>(acc, tile, 0, rg, w_ih_t + col, g3, e, 0);
+          for (int i = 0; i < kRowsPerThread; ++i) acc[0][i] = 0.0f;
+          dot_rows<1, T>(acc, tile, 0, rg, w_ih_t + col, g3, e, 0);
+#pragma unroll
+          for (int i = 0; i < kRowsPerThread; ++i) {
+            const int row = my_row0 + i;
+            if (row < n_rows)
+              dx[((size_t)row * n_steps + t) * e + col] =
+                  from_f32<T>(acc[0][i]);
+          }
+        }
+      } else {
+        // the block's share of slots {0, 1, 3} @ W_hh^T for every unit: the
+        // W_hh^T rows of its units' r, z and n columns; unit m*hc + j goes
+        // to rank m's tile of partials, row rank*hc + j; dx is phase C's
+        // product
+        for (int m = 0; m < n_ranks; ++m) {
+          const int u = m * hc + j;
+          if (u >= h_dim) continue;
+          float acc[1][kRowsPerThread];
+#pragma unroll
+          for (int i = 0; i < kRowsPerThread; ++i) acc[0][i] = 0.0f;
+#pragma unroll
+          for (int g = 0; g < 3; ++g)
+            dot_rows<1, T>(acc, tile, (g < 2 ? g : 3) * hc, rg,
+                           w_hh_t + ((size_t)g * h_dim + rank * hc) * h_dim + u,
+                           own, h_dim, 0);
+          const uint32_t a = tiles::map_rank(
+              exch + (size_t)(rank * hc + j) * kStride + rg * kRowsPerThread,
+              m);
+#pragma unroll
+          for (int p = 0; p < kRowsPerThread / 4; ++p)
+            tiles::st_cluster_f4(a + 16 * p,
+                                 make_float4(acc[0][4 * p], acc[0][4 * p + 1],
+                                             acc[0][4 * p + 2],
+                                             acc[0][4 * p + 3]));
+        }
+        f32_sync(cl);  // every partial of the block's units has arrived
+        // the partials added in rank order, then dh' z
 #pragma unroll
         for (int i = 0; i < kRowsPerThread; ++i) {
-          const int row = my_row0 + i;
-          if (row < n_rows)
-            dx[((size_t)row * n_steps + t) * e + col] = from_f32<T>(acc[0][i]);
+          if (valid & (1u << i)) {
+            float v = 0.0f;
+            for (int src = 0; src < n_ranks; ++src)
+              v += exch[(size_t)(src * hc + j) * kStride + rg * kRowsPerThread +
+                        i];
+            dh[i] = v + dh_z[i];
+          }
         }
       }
       __syncthreads();  // the next step overwrites the staged gradients
@@ -268,25 +354,31 @@ gru_bwd_cell_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
   }
 
   // per-block slot sums: the two row groups' sums, in a fixed order
+  const int gc = 4 * hc;
 #pragma unroll
-  for (int g = 0; g < 4; ++g) tile[rg * g4 + g * h_dim + j] = dbs[g];
+  for (int g = 0; g < 4; ++g) tile[rg * gc + g * hc + j] = dbs[g];
   __syncthreads();
-  if (rg == 0) {
+  if (rg == 0 && active) {
 #pragma unroll
     for (int g = 0; g < 4; ++g) {
-      const int col = g * h_dim + j;
-      db_part[(size_t)blockIdx.x * g4 + col] = tile[col] + tile[g4 + col];
+      const int col = g * hc + j;
+      db_part[(size_t)(blockIdx.x / n_ranks) * g4 + g * h_dim + unit] =
+          tile[col] + tile[gc + col];
     }
   }
 }
 
 // Phase A on bf16 tensor cores (see the header note).  Shared memory:
-// weight ring (mbarriers, slabs, x slots) | union of {h tile}
-// (recompute) and {slots tile, dh exchange (f32, rows h + 8 floats apart)}
-// (reverse pass) | bias slots r, z, xn, hn (f32).  As in kernel 5, the
-// reverse pass's dh and slot sums wait out each recompute in the block's
-// park area of the workspace (kPark float4 a thread, once a chunk), so the
-// recompute's accumulators keep their registers.
+// weight ring (mbarriers, slabs, x slots) | union of {h tile (two in a
+// cluster, kCl)} (recompute) and {slots tile; a single block's dh exchange
+// (f32, rows h + 8 floats apart); in a cluster, the dh partials of the
+// block's units from every rank, [C][M][hc + 8] f32} (reverse pass) | bias
+// slots r, z, xn, hn of the block's units (f32).  In a cluster the reverse
+// pass computes no dx (phase C's product) and streams the h slabs alone.
+// As in kernel 5, the reverse pass's dh and slot sums wait out each
+// recompute in the block's park area of the workspace (kPark float4 a
+// thread, once a chunk), so the recompute's accumulators keep their
+// registers.
 constexpr int kPlanes = 5;  // per cell and step: h_prev, r, z, n, hn
 
 // float4 a thread: dh [MT][G][4]; dbs [G][4][2]
@@ -294,7 +386,7 @@ __host__ __device__ constexpr int park_slots(int g, int mt) {
   return mt * g + 2 * g;
 }
 
-template <int G, int MT>
+template <int G, int MT, bool kCl>
 __global__ void __launch_bounds__(tiles::kThreads, 1)
 gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
                    const uint8_t* __restrict__ mask,
@@ -312,19 +404,33 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
   using namespace tiles;
   extern __shared__ __align__(16) char smem[];
   constexpr int M = 16 * MT;
-  const int hs = h_stride(h_dim), ss = slot_stride(h_dim);
-  const int g3 = 3 * h_dim, g4 = 4 * h_dim;
-  const int ex_ld = h_dim + 8;  // floats per row of the dh exchange
-  const int row0 = blockIdx.x * M;
+  const int n_ranks = kCl ? (int)cluster_size() : 1;
+  const int rank = kCl ? (int)cluster_rank() : 0;
+  const int hc = h_dim / n_ranks, u_off = rank * hc;
+  const int hs = h_stride(h_dim), ss = slot_stride(hc);
+  const int gk = 3 * hc;  // the products' k extent: three slots of hc
+  const int g4 = 4 * h_dim;
+  const int ex_ld = hc + 8;  // floats per row of dh's tile
+  const int row0 = (blockIdx.x / n_ranks) * M;
+  // a cluster's reverse pass streams the h slabs alone (kHOnly)
+  constexpr int kRev = kCl ? kHOnly : kNoX;
   WeightRing ring;
-  ring.init(smem, w_staged, x, e, h_dim, h_dim, kGruGates, ks, 2 * n_steps,
-            row0, M, n_rows, n_steps);
+  ring.init(smem,
+            w_staged + (size_t)rank * (e + h_dim) *
+                           (w_stride(hc, kGruGates) / 2),
+            x, e, h_dim, hc, kGruGates, ks, kCl ? n_steps : 2 * n_steps, row0,
+            M, n_rows, n_steps, kCl ? n_steps : 0);
   char* uni = ring.end();
-  char* h_tile = uni;
+  char* h_buf[2];
+  h_buf[0] = uni;
+  h_buf[1] = uni + (kCl ? M * hs : 0);
   char* dg_tile = uni;
   float* exch = reinterpret_cast<float*>(uni + M * ss);
   float* bias_s = reinterpret_cast<float*>(
-      uni + staged_bytes(h_dim, h_dim, kGruGates, M, true, 1));
+      uni + staged_bytes(h_dim, hc, kGruGates, M, true, n_ranks));
+  uint32_t exch_at[4] = {0, 0, 0, 0};  // exch in each rank of the cluster
+  if constexpr (kCl)
+    for (int q = 0; q < n_ranks; ++q) exch_at[q] = map_rank(exch, q);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tg = lane & 3;
@@ -346,13 +452,14 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
                    threadIdx.x;
   float4* park = my_act + (size_t)tc * kSlots * kThreads;
 
-  for (int i = threadIdx.x; i < h_dim; i += kThreads) {
+  for (int i = threadIdx.x; i < hc; i += kThreads) {
+    const int u = u_off + i;
 #pragma unroll
     for (int q = 0; q < 2; ++q)  // r, z: both biases
-      bias_s[q * h_dim + i] = __bfloat162float(b_ih[q * h_dim + i]) +
-                              __bfloat162float(b_hh[q * h_dim + i]);
-    bias_s[2 * h_dim + i] = __bfloat162float(b_ih[2 * h_dim + i]);  // xn
-    bias_s[3 * h_dim + i] = __bfloat162float(b_hh[2 * h_dim + i]);  // hn
+      bias_s[q * hc + i] = __bfloat162float(b_ih[q * h_dim + u]) +
+                           __bfloat162float(b_hh[q * h_dim + u]);
+    bias_s[2 * hc + i] = __bfloat162float(b_ih[2 * h_dim + u]);  // xn
+    bias_s[3 * hc + i] = __bfloat162float(b_hh[2 * h_dim + u]);  // hn
   }
 
   // the reverse pass's carried state (defined anew at each reverse pass:
@@ -366,6 +473,21 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
     for (int half = 0; half < 2; ++half)
       if (row0 + mt * 16 + g + half * 8 < n_rows) live |= 1u << (mt * 2 + half);
 
+  // h before step t, rounded, columns col0 .. col0 + cols - 1 of the staged
+  // tile: phase B's operand for dW_hh
+  auto copy_h_prev = [&](const char* h_cur, int t, int col0, int cols) {
+    const int cpr = cols / 8;
+    for (int idx = threadIdx.x; idx < M * cpr; idx += kThreads) {
+      const int r = idx / cpr, cc = idx - r * cpr;
+      if (row0 + r < n_rows)
+        *reinterpret_cast<uint4*>(
+            h_prev_ws + ((size_t)(row0 + r) * n_steps + t) * h_dim + col0 +
+            cc * 8) =
+            *reinterpret_cast<const uint4*>(h_cur + r * hs +
+                                            (col0 + cc * 8) * 2);
+    }
+  };
+
   ring.prologue(first_t(0));
   int n = 0;
 
@@ -377,7 +499,7 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
 
     // --- recompute the forward inside the chunk from its boundary -------
     __syncthreads();  // the last reverse step is done with the union
-    float h[MT][G][4];  // the carried state, f32
+    float h[MT][G][4];  // the carried state of the block's units, f32
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -387,17 +509,33 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
         for (int half = 0; half < 2; ++half) {
           const int r = mt * 16 + g + half * 8;
           float2 hv = make_float2(0.0f, 0.0f);
-          if (unit < h_dim && (live >> (mt * 2 + half) & 1u))
+          if (unit < hc && (live >> (mt * 2 + half) & 1u))
             hv = *reinterpret_cast<const float2*>(
-                hb + ((size_t)chunk * n_rows + row0 + r) * h_dim + unit);
+                hb + ((size_t)chunk * n_rows + row0 + r) * h_dim + u_off +
+                unit);
           h[mt][gi][half * 2] = hv.x;
           h[mt][gi][half * 2 + 1] = hv.y;
-          if (unit < h_dim)
-            *reinterpret_cast<bf162*>(h_tile + r * hs + unit * 2) =
+          if (!kCl && unit < hc)
+            *reinterpret_cast<bf162*>(h_buf[0] + r * hs + unit * 2) =
                 __floats2bfloat162_rn(hv.x, hv.y);
         }
       }
-    // the h tile is visible after the first slab's hand-over
+    if constexpr (kCl) {
+      // h of every unit, rounded (rows past n_rows: 0); every rank is done
+      // with its reverse pass before the other ranks' h lands in the union
+      for (int idx = threadIdx.x; idx < M * (h_dim / 2); idx += kThreads) {
+        const int r = idx / (h_dim / 2);
+        const int u = (idx - r * (h_dim / 2)) * 2;
+        float2 hv = make_float2(0.0f, 0.0f);
+        if (row0 + r < n_rows)
+          hv = *reinterpret_cast<const float2*>(
+              hb + ((size_t)chunk * n_rows + row0 + r) * h_dim + u);
+        *reinterpret_cast<bf162*>(h_buf[0] + r * hs + u * 2) =
+            __floats2bfloat162_rn(hv.x, hv.y);
+      }
+      cluster_sync();
+    }
+    // a single block's h tile is visible after the first slab's hand-over
 
     for (int k = 0; k < len; ++k) {
       const int t = reverse ? t_lo + len - 1 - k : t_lo + k;
@@ -410,23 +548,28 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
               mask[(size_t)(row0 + mt * 16 + g + half * 8) * n_steps + t] != 0)
             mb |= 1u << (mt * 2 + half);
 
+      const char* h_cur = h_buf[kCl ? (k & 1) : 0];
       float acc[MT][G][4][4];  // slots r, z, xn, hn
-      const int t_next = k + 1 < len ? (reverse ? t - 1 : t + 1) : -1;
+      const int t_next = k + 1 < len ? (reverse ? t - 1 : t + 1) : kRev;
       step_gates<kGruGates, G, MT>(
-          acc, ring, n, t, t_next, h_tile, bias_s, h_dim, ug0, lane, [&]() {
-            // h before this step, rounded: phase B's operand for dW_hh
-            const int cpr = h_dim / 8;
-            for (int idx = threadIdx.x; idx < M * cpr; idx += kThreads) {
-              const int r = idx / cpr, cc = idx - r * cpr;
-              if (row0 + r < n_rows)
-                *reinterpret_cast<uint4*>(
-                    h_prev_ws +
-                    ((size_t)(row0 + r) * n_steps + t) * h_dim + cc * 8) =
-                    *reinterpret_cast<const uint4*>(h_tile + r * hs + cc * 16);
-            }
+          acc, ring, n, t, t_next, h_cur, bias_s, hc, ug0, lane,
+          [&]() {
+            if constexpr (!kCl) copy_h_prev(h_cur, t, 0, h_dim);
           },
-          NoHook());
-      __syncthreads();  // every warp has read the h tile of this step
+          [&]() {
+            if constexpr (kCl) {
+              if (k > 0) cluster_wait();  // the other ranks' h
+              copy_h_prev(h_cur, t, u_off, hc);
+            }
+          });
+      // a single block rewrites its h tile in place: every warp must have
+      // read it; a cluster writes the other tile
+      if constexpr (!kCl) __syncthreads();
+      const bool send = kCl && k + 1 < len;
+      uint32_t dst[4] = {0, 0, 0, 0};  // the next h tile in each rank
+      if (send)
+        for (int p = 0; p < n_ranks; ++p)
+          dst[p] = map_rank(h_buf[(k + 1) & 1], p);
 
       float4* a_k = my_act + (size_t)k * kSlots * kThreads;
 #pragma unroll
@@ -434,7 +577,7 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
         for (int gi = 0; gi < G; ++gi) {
           const int unit = (ug0 + gi) * 8 + 2 * tg;
-          if (unit < h_dim) {
+          if (unit < hc) {
             float pl[kPlanes][4], hn[4];
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
@@ -456,13 +599,30 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
               a_k[((mt * G + gi) * kPlanes + p) * kThreads] =
                   make_float4(pl[p][0], pl[p][1], pl[p][2], pl[p][3]);
 #pragma unroll
-            for (int half = 0; half < 2; ++half)
-              if (mb >> (mt * 2 + half) & 1u)
-                *reinterpret_cast<bf162*>(
-                    h_tile + (mt * 16 + g + half * 8) * hs + unit * 2) =
-                    __floats2bfloat162_rn(hn[half * 2], hn[half * 2 + 1]);
+            for (int half = 0; half < 2; ++half) {
+              const bool m = mb >> (mt * 2 + half) & 1u;
+              const int r = mt * 16 + g + half * 8;
+              const int col = u_off + unit;
+              const bf162 v =
+                  __floats2bfloat162_rn(hn[half * 2], hn[half * 2 + 1]);
+              if constexpr (kCl) {
+                if (send) {
+                  const bf162 keep =
+                      m ? v
+                        : *reinterpret_cast<const bf162*>(h_cur + r * hs +
+                                                          col * 2);
+                  const uint32_t bits =
+                      *reinterpret_cast<const uint32_t*>(&keep);
+                  for (int p = 0; p < n_ranks; ++p)
+                    st_cluster_b32(dst[p] + r * hs + col * 2, bits);
+                }
+              } else if (m) {
+                *reinterpret_cast<bf162*>(h_buf[0] + r * hs + col * 2) = v;
+              }
+            }
           }
         }
+      if (send) cluster_arrive();
     }
     __syncthreads();  // the recompute's tiles give way to the slots tile
 
@@ -490,6 +650,9 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
 
     for (int k = len - 1; k >= 0; --k) {
       const int t = reverse ? t_lo + len - 1 - k : t_lo + k;
+      // the unit after this one: another reverse step, or the next chunk's
+      // first recompute step
+      const int t_next = k > 0 ? kRev : first_t(q + 1);
       unsigned mb = 0;
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
@@ -513,7 +676,7 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
             for (int i = 0; i < 4; ++i) d[qq][i] = 0.0f;
 #pragma unroll
           for (int i = 0; i < 4; ++i) dhz[mt][gi][i] = 0.0f;
-          if (unit < h_dim) {
+          if (unit < hc) {
             if (mb >> (mt * 2) & 3u) {
               float pl[kPlanes][4];
 #pragma unroll
@@ -531,7 +694,7 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
                   const float2 dov = __bfloat1622float2(
                       *reinterpret_cast<const bf162*>(
                           dout + ((size_t)(row0 + r) * n_steps + t) * h_dim +
-                          unit));
+                          u_off + unit));
 #pragma unroll
                   for (int u = 0; u < 2; ++u) {
                     const int i = half * 2 + u;
@@ -556,15 +719,28 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
               for (int half = 0; half < 2; ++half)
                 *reinterpret_cast<bf162*>(dg_tile +
                                           (mt * 16 + g + half * 8) * ss +
-                                          (qq * h_dim + unit) * 2) =
+                                          (qq * hc + unit) * 2) =
                     __floats2bfloat162_rn(d[qq][half * 2], d[qq][half * 2 + 1]);
             }
           }
         }
       __syncthreads();  // the slots tile is whole
 
-      // the slots of (row, t) for phase B
-      {
+      // the slots of (row, t) for phase B: a single block's rows are whole
+      // rows of the workspace; a rank's are its columns of each slot
+      if constexpr (kCl) {
+        const int cpr = hc / 8;
+        for (int idx = threadIdx.x; idx < M * 4 * cpr; idx += kThreads) {
+          const int r = idx / (4 * cpr), rest = idx - r * 4 * cpr;
+          const int qq = rest / cpr, cc = rest - qq * cpr;
+          if (row0 + r < n_rows)
+            *reinterpret_cast<uint4*>(
+                dg_ws + ((size_t)(row0 + r) * n_steps + t) * g4 +
+                qq * h_dim + u_off + cc * 8) =
+                *reinterpret_cast<const uint4*>(dg_tile + r * ss +
+                                                (qq * hc + cc * 8) * 2);
+        }
+      } else {
         const int cpr = g4 / 8;
         for (int idx = threadIdx.x; idx < M * cpr; idx += kThreads) {
           const int r = idx / cpr, cc = idx - r * cpr;
@@ -574,20 +750,25 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
                 *reinterpret_cast<const uint4*>(dg_tile + r * ss + cc * 16);
         }
       }
+      // a cluster: every rank is done reading its dh partials of the step
+      // before, so this step's may land
+      if constexpr (kCl) cluster_sync();
 
       // dx_t = slots 0..2 @ W_ih^T and slots {0, 1, 3} @ W_hh^T: a slab's
-      // ks rows are ks output columns; a warp takes 16 rows x 16 columns
+      // ks rows are ks output columns; a warp takes 16 rows x 16 columns.
+      // In a cluster a block's slots are those of its units, so its
+      // products are partials: dx is left to phase C, and the dh partial
+      // of unit u goes to rank u / hc, into its row block of this rank.
       const int b_n = (lane & 7) + (lane >> 4) * 8, b_k = ((lane >> 3) & 1) * 8;
-      for (int sl = 0; sl < ring.n_slabs; ++sl, ++n) {
-        const char* slab =
-            ring.acquire(n, sl, -1, k > 0 ? -1 : first_t(q + 1));
+      for (int sl = ring.first_slab(kRev); sl < ring.n_slabs; ++sl, ++n) {
+        const char* slab = ring.acquire(n, sl, kRev, t_next);
         cp_async_commit();
         const int k0 = sl * ks;
         const bool is_x = k0 < e;
         const int col0 = is_x ? k0 : k0 - e;
         // the third k-block: slot 2 (da_n) against W_in, slot 3 (da_n * r)
         // against W_hn
-        const int shift = is_x ? 0 : h_dim;
+        const int shift = is_x ? 0 : hc;
         for (int wu = warp; wu < MT * (ks / 16); wu += kWarps) {
           const int mt = wu % MT, np = wu / MT;
           float o[2][4];
@@ -599,8 +780,8 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
               dg_tile + (mt * 16 + (lane & 15)) * ss + (lane >> 4) * 16;
           const char* b_base = slab + (np * 16 + b_n) * ring.ws + b_k * 2;
 #pragma unroll 4
-          for (int kk = 0; kk < g3; kk += 16) {
-            const int ka = kk < 2 * h_dim ? kk : kk + shift;
+          for (int kk = 0; kk < gk; kk += 16) {
+            const int ka = kk < 2 * hc ? kk : kk + shift;
             uint32_t af[4], bfr[4];
             ldsm_x4(af, a_base + ka * 2);
             ldsm_x4(bfr, b_base + kk * 2);
@@ -613,7 +794,13 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
             for (int half = 0; half < 2; ++half) {
               const int r = mt * 16 + g + half * 8;
               const int col = col0 + np * 16 + j * 8 + 2 * tg;
-              if (is_x) {
+              if constexpr (kCl) {
+                const int owner = col / hc;
+                st_cluster_f2(exch_at[owner] +
+                                  ((rank * M + r) * ex_ld + col - owner * hc) *
+                                      4,
+                              o[j][half * 2], o[j][half * 2 + 1]);
+              } else if (is_x) {
                 if (row0 + r < n_rows)
                   *reinterpret_cast<bf162*>(
                       dx + ((size_t)(row0 + r) * n_steps + t) * e + col) =
@@ -625,20 +812,34 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
             }
         }
       }
-      __syncthreads();  // dh's product is whole; the slots are read
+      // dh's product is whole (a cluster: every rank's partials have
+      // landed); every warp is done with the slots
+      if constexpr (kCl)
+        cluster_sync();
+      else
+        __syncthreads();
 
-      // dh = (1 - m) dh + m (dh' z + slots {0, 1, 3} @ W_hh^T)
+      // dh = (1 - m) dh + m (dh' z + slots {0, 1, 3} @ W_hh^T); a cluster
+      // adds its ranks' partials in rank order, then dh' z
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int gi = 0; gi < G; ++gi) {
           const int unit = (ug0 + gi) * 8 + 2 * tg;
-          if (unit < h_dim) {
+          if (unit < hc) {
 #pragma unroll
             for (int half = 0; half < 2; ++half)
               if (mb >> (mt * 2 + half) & 1u) {
-                const float2 v = *reinterpret_cast<const float2*>(
-                    exch + (mt * 16 + g + half * 8) * ex_ld + unit);
+                const int r = mt * 16 + g + half * 8;
+                float2 v = *reinterpret_cast<const float2*>(
+                    exch + r * ex_ld + unit);
+                if constexpr (kCl)
+                  for (int src = 1; src < n_ranks; ++src) {
+                    const float2 p = *reinterpret_cast<const float2*>(
+                        exch + (src * M + r) * ex_ld + unit);
+                    v.x += p.x;
+                    v.y += p.y;
+                  }
                 dh[mt][gi][half * 2] = v.x + dhz[mt][gi][half * 2];
                 dh[mt][gi][half * 2 + 1] = v.y + dhz[mt][gi][half * 2 + 1];
               }
@@ -678,8 +879,9 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
         v += __shfl_xor_sync(0xffffffffu, v, 4);
         v += __shfl_xor_sync(0xffffffffu, v, 8);
         v += __shfl_xor_sync(0xffffffffu, v, 16);
-        if (g == 0 && unit < h_dim)
-          db_part[(size_t)blockIdx.x * g4 + qq * h_dim + unit + u] = v;
+        if (g == 0 && unit < hc)
+          db_part[(size_t)(blockIdx.x / n_ranks) * g4 + qq * h_dim + u_off +
+                  unit + u] = v;
       }
   }
 }
@@ -689,7 +891,9 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
 // kSmallGrid (one H100's SMs): then 16-row blocks, four times as many, each
 // walking the same T steps with a quarter of the rows.  `forced` (1 or the
 // layout's own, for timing the two) overrides the rule; -1: not a choice.
-// `bwd_row_tiles` in ops/kernels/gru.py states the same rule.
+// A cluster's ranks (H above kGruMaxSingle) take 16 rows, as pick_config
+// gives every H above 256.  `bwd_row_tiles` in ops/kernels/gru.py states the
+// same rule.
 constexpr int kSmallGrid = 132;
 
 int bwd_row_tiles(int h_dim, int n_rows, int forced) {
@@ -701,9 +905,12 @@ int bwd_row_tiles(int h_dim, int n_rows, int forced) {
 
 // Byte offsets of the workspace regions (each 256-B aligned).  `mt`: the
 // bf16 tensor-core phase A's 16-row tiles per block (its own rows per
-// block and activation planes); 0: float32's row-tile kernel.
+// block and activation planes); 0: float32's row-tile kernel.  A row block
+// of `c` blocks (a cluster when c > 1; gru_cluster for bf16, f32_cluster
+// for float32) has one activation area per block and one db partial per
+// row block.
 struct Layout {
-  int n_blocks, splits, rows_per_split;
+  int row_blocks, n_blocks, c, splits, rows_per_split;
   size_t act, dg, h_prev, db_part, part_ih, part_hh, total;
 };
 
@@ -711,25 +918,28 @@ Layout layout(int n_rows, int n_steps, int e, int h_dim, int tc, size_t elt,
               int mt) {
   Layout L;
   const long long n = (long long)n_rows * n_steps;
+  L.c = mt ? tiles::gru_cluster(h_dim) : f32_cluster(h_dim, true);
   const int m_rows = mt ? 16 * mt : kRows;
-  L.n_blocks = (n_rows + m_rows - 1) / m_rows;
+  L.row_blocks = (n_rows + m_rows - 1) / m_rows;
+  L.n_blocks = L.row_blocks * L.c;
   const Splits sp = make_splits(n);
   L.splits = sp.splits;
   L.rows_per_split = sp.rows_per_split;
   const size_t g3 = 3 * (size_t)h_dim, g4 = 4 * (size_t)h_dim;
   size_t off = 0;
   L.act = off;
-  const int g = tiles::pick_config(h_dim).g;
+  const int g = L.c > 1 ? tiles::kClusterConfig.g : tiles::pick_config(h_dim).g;
   off += align256(mt ? (size_t)L.n_blocks *
                            (tc * mt * g * kPlanes + park_slots(g, mt)) *
                            tiles::kThreads * 16
-                     : (size_t)L.n_blocks * tc * kSaved * kRows * h_dim * 4);
+                     : (size_t)L.n_blocks * tc * kSaved * kRows *
+                           f32_units(h_dim, true) * 4);
   L.dg = off;
   off += align256((size_t)n * g4 * elt);
   L.h_prev = off;
   off += align256((size_t)n * h_dim * elt);
   L.db_part = off;
-  off += align256((size_t)L.n_blocks * g4 * 4);
+  off += align256((size_t)L.row_blocks * g4 * 4);
   L.part_ih = off;
   off += align256((size_t)L.splits * e * g3 * 4);
   L.part_hh = off;
@@ -742,19 +952,18 @@ bool valid_shape(int n_rows, int n_steps, int e, int h_dim, int tc) {
   return n_rows >= 0 && n_steps >= 0 && e > 0 && h_dim > 0 && tc > 0;
 }
 
-// bf16: E and H multiples of 32, H <= 512
-bool mma_shape(int e, int h_dim) {
-  return e % tiles::kAlign == 0 && h_dim % tiles::kAlign == 0 &&
-         h_dim <= tiles::kMaxHidden;
-}
-
-// bf16: the layout's own tiles fit a block's shared memory, whatever tile
-// the row count then takes, so the limit is one of E and H alone
-bool mma_fits(int e, int h_dim) {
+// bf16: the tiles' shapes (gru_tiles_ok) and shared memory -- the layout's
+// own tiles fit a block's, whatever tile the row count then takes, so the
+// limit is one of E and H alone; float32: f32_cluster holds H
+bool shape_ok(int e, int h_dim, int dtype) {
+  if (dtype == 0) return f32_cluster(h_dim, true) > 0;
+  if (dtype != 1 || !tiles::gru_tiles_ok(e, h_dim)) return false;
+  const int c = tiles::gru_cluster(h_dim);
+  const int mt = c > 1 ? tiles::kClusterConfig.mt
+                       : tiles::pick_config(h_dim).mt;
   int ks = 0;
-  return tiles::mma_smem(h_dim, h_dim, tiles::kGruGates,
-                         16 * tiles::pick_config(h_dim).mt, true, 1,
-                         &ks) != 0;
+  return tiles::mma_smem(h_dim, h_dim / c, tiles::kGruGates, 16 * mt, true,
+                         c, &ks) != 0;
 }
 
 // phase A, float32: exact f32 FMAs
@@ -766,33 +975,31 @@ int launch_cell(const void* x, const void* mask, const void* w_ih,
                 int n_steps, int e, int h_dim, int reverse, int tc,
                 cudaStream_t stream) {
   using T = float;
-  const int g4 = 4 * h_dim;
-  const int tile_rows = (e + h_dim) > g4 ? (e + h_dim) : g4;
-  const size_t smem = (size_t)tile_rows * kStride * sizeof(float);
-  const int bound = row_tile_bound(kRowGroups * h_dim);
-  if (bound == 0) return (int)cudaErrorInvalidValue;
-  auto* kernel = bound == 256   ? gru_bwd_cell_kernel<T, 256>
-                 : bound == 512 ? gru_bwd_cell_kernel<T, 512>
-                                : gru_bwd_cell_kernel<T, 1024>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) {  // E + H or 4H too large for the shared tile
-    cudaGetLastError();
-    return (int)err;
-  }
-  kernel<<<L.n_blocks, kRowGroups * h_dim, smem, stream>>>(
+  const int hc = f32_units(h_dim, true);
+  const size_t recompute = (size_t)h_dim + f32_chunk_rows(e);
+  const size_t rev = (size_t)4 * hc + (L.c > 1 ? (size_t)L.c * hc : 0);
+  const size_t smem =
+      (recompute > rev ? recompute : rev) * kStride * sizeof(float);
+  // a rank of a cluster has at most 2 * kF32Units = 256 threads
+  const int bound = row_tile_bound(kRowGroups * hc);
+  if (bound == 0 || (L.c > 1 && bound > 256)) return (int)cudaErrorInvalidValue;
+  auto* kernel = L.c > 1         ? gru_bwd_cell_kernel<T, 256, true>
+                 : bound == 256 ? gru_bwd_cell_kernel<T, 256, false>
+                 : bound == 512 ? gru_bwd_cell_kernel<T, 512, false>
+                                : gru_bwd_cell_kernel<T, 1024, false>;
+  return (int)launch_blocks(
+      kernel, L.row_blocks, L.c, kRowGroups * hc, smem, stream,
       static_cast<const T*>(x), static_cast<const uint8_t*>(mask),
       static_cast<const T*>(w_ih), static_cast<const T*>(b_ih),
       static_cast<const T*>(w_hh), static_cast<const T*>(b_hh),
       static_cast<const T*>(w_ih_t), static_cast<const T*>(w_hh_t),
       static_cast<const float*>(hb), static_cast<const T*>(dout),
       static_cast<T*>(dx), dg, h_prev, act, db_part, n_rows, n_steps, e,
-      h_dim, reverse, tc);
-  return (int)cudaGetLastError();
+      h_dim, reverse, tc, hc);
 }
 
 // phase A, bfloat16: tensor cores
-template <int G, int MT>
+template <int G, int MT, bool kCl>
 int launch_mma(const void* x, const void* mask, const void* w_staged,
                const void* b_ih, const void* b_hh, const void* hb,
                const void* dout, void* dx, __nv_bfloat16* dg,
@@ -801,24 +1008,17 @@ int launch_mma(const void* x, const void* mask, const void* w_staged,
                int reverse, int tc, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   int ks = 0;
-  const size_t smem =
-      tiles::mma_smem(h_dim, h_dim, tiles::kGruGates, 16 * MT, true, 1, &ks);
+  const size_t smem = tiles::mma_smem(h_dim, h_dim / L.c, tiles::kGruGates,
+                                      16 * MT, true, L.c, &ks);
   if (smem == 0) return (int)cudaErrorInvalidValue;  // H too large
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_bwd_mma_kernel<G, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return (int)err;
-  }
-  gru_bwd_mma_kernel<G, MT><<<L.n_blocks, tiles::kThreads, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const uint8_t*>(mask),
-      static_cast<const bf16*>(w_staged), static_cast<const bf16*>(b_ih),
-      static_cast<const bf16*>(b_hh), static_cast<const float*>(hb),
-      static_cast<const bf16*>(dout), static_cast<bf16*>(dx), dg, h_prev,
-      reinterpret_cast<float4*>(act), db_part, n_rows, n_steps, e, h_dim,
-      reverse, tc, ks);
-  return (int)cudaGetLastError();
+  return (int)launch_blocks(
+      gru_bwd_mma_kernel<G, MT, kCl>, L.row_blocks, L.c, tiles::kThreads,
+      smem, stream, static_cast<const bf16*>(x),
+      static_cast<const uint8_t*>(mask), static_cast<const bf16*>(w_staged),
+      static_cast<const bf16*>(b_ih), static_cast<const bf16*>(b_hh),
+      static_cast<const float*>(hb), static_cast<const bf16*>(dout),
+      static_cast<bf16*>(dx), dg, h_prev, reinterpret_cast<float4*>(act),
+      db_part, n_rows, n_steps, e, h_dim, reverse, tc, ks);
 }
 
 template <typename T>
@@ -839,6 +1039,7 @@ int launch(const void* x, const void* mask, const void* w_ih,
   float* part_hh = reinterpret_cast<float*>(ws + L.part_hh);
   const int g3 = 3 * h_dim;
   const int g4 = 4 * h_dim;
+  const int n = n_rows * n_steps;
   cudaError_t err;
 
   if (n_rows > 0 && n_steps > 0) {
@@ -848,29 +1049,41 @@ int launch(const void* x, const void* mask, const void* w_ih,
           !tiles::aligned16(hb) || !tiles::aligned16(dout) ||
           !tiles::aligned16(dx) || !tiles::aligned16(workspace))
         return rc;
-      const tiles::Config cfg = tiles::pick_config(h_dim);
+      if (L.c > 1) {
+        rc = launch_mma<tiles::kClusterConfig.g, tiles::kClusterConfig.mt,
+                        true>(x, mask, w_ih, b_ih, b_hh, hb, dout, dx, dg,
+                              h_prev, act, db_part, L, n_rows, n_steps, e,
+                              h_dim, reverse, tc, stream);
+      } else {
+        const tiles::Config cfg = tiles::pick_config(h_dim);
 #define CAIR_GRU_BWD_CASE(G_, MT_)                                          \
   if (cfg.g == G_ && mt == MT_)                                             \
-    rc = launch_mma<G_, MT_>(x, mask, w_ih, b_ih, b_hh, hb, dout, dx, dg,   \
-                             h_prev, act, db_part, L, n_rows, n_steps, e,   \
-                             h_dim, reverse, tc, stream);
-      CAIR_GRU_BWD_CASE(1, 4)
-      CAIR_GRU_BWD_CASE(2, 4)
-      CAIR_GRU_BWD_CASE(4, 2)
-      CAIR_GRU_BWD_CASE(8, 1)
-      CAIR_GRU_BWD_CASE(1, 1)
-      CAIR_GRU_BWD_CASE(2, 1)
-      CAIR_GRU_BWD_CASE(4, 1)
+    rc = launch_mma<G_, MT_, false>(x, mask, w_ih, b_ih, b_hh, hb, dout, dx, \
+                                    dg, h_prev, act, db_part, L, n_rows,    \
+                                    n_steps, e, h_dim, reverse, tc, stream);
+        CAIR_GRU_BWD_CASE(1, 4)
+        CAIR_GRU_BWD_CASE(2, 4)
+        CAIR_GRU_BWD_CASE(4, 2)
+        CAIR_GRU_BWD_CASE(8, 1)
+        CAIR_GRU_BWD_CASE(1, 1)
+        CAIR_GRU_BWD_CASE(2, 1)
+        CAIR_GRU_BWD_CASE(4, 1)
 #undef CAIR_GRU_BWD_CASE
+      }
     } else {
       rc = launch_cell(x, mask, w_ih, b_ih, w_hh, b_hh, w_ih_t, w_hh_t, hb,
                        dout, dx, dg, h_prev, act, db_part, L, n_rows, n_steps,
                        e, h_dim, reverse, tc, stream);
     }
     if (rc != 0) return rc;
+    if (L.c > 1) {
+      // phase C: a cluster's dx = slots 0..2 @ W_ih^T (rows of four slots)
+      err = launch_matmul<T>(dg, g4, static_cast<const T*>(w_ih_t), n, e, g3,
+                             static_cast<T*>(dx), stream);
+      if (err != cudaSuccess) return (int)err;
+    }
   }
 
-  const int n = n_rows * n_steps;
   const Splits sp = {L.splits, L.rows_per_split};
   // bf16 operands go through the tensor-core tiles, float32 stays on exact
   // f32 FMAs (launch_wgrad_partial).  dW_ih [E, 3H] from slots 0..2
@@ -890,22 +1103,24 @@ int launch(const void* x, const void* mask, const void* w_ih,
       part_hh, L.splits, h_dim * g3, h_dim * g3, static_cast<T*>(dw_hh));
   // db_ih = slots 0..2; db_hh = slots 0, 1 and 3
   sum_partials_kernel<T><<<(g3 + 255) / 256, 256, 0, stream>>>(
-      db_part, L.n_blocks, g4, g3, static_cast<T*>(db_ih));
+      db_part, L.row_blocks, g4, g3, static_cast<T*>(db_ih));
   sum_partials_kernel<T><<<(2 * h_dim + 255) / 256, 256, 0, stream>>>(
-      db_part, L.n_blocks, g4, 2 * h_dim, static_cast<T*>(db_hh));
+      db_part, L.row_blocks, g4, 2 * h_dim, static_cast<T*>(db_hh));
   sum_partials_kernel<T><<<(h_dim + 255) / 256, 256, 0, stream>>>(
-      db_part + g3, L.n_blocks, g4, h_dim, static_cast<T*>(db_hh) + 2 * h_dim);
+      db_part + g3, L.row_blocks, g4, h_dim,
+      static_cast<T*>(db_hh) + 2 * h_dim);
   return (int)cudaGetLastError();
 }
 
 // The 16-row tiles per block of phase A for these arguments (0: float32's
 // row-tile kernel), or -1 if they are invalid: float32 takes no tile
-// choice; bfloat16 needs the tiles' shapes (mma_shape).
+// choice; bfloat16 needs the tiles' shapes (shape_ok).
 int row_tiles_of(int n_rows, int n_steps, int e, int h_dim, int tc,
                  int dtype, int row_tiles) {
-  if (!valid_shape(n_rows, n_steps, e, h_dim, tc)) return -1;
+  if (!valid_shape(n_rows, n_steps, e, h_dim, tc) ||
+      !shape_ok(e, h_dim, dtype))
+    return -1;
   if (dtype == 0) return row_tiles == 0 ? 0 : -1;
-  if (dtype != 1 || !mma_shape(e, h_dim)) return -1;
   return bwd_row_tiles(h_dim, n_rows, row_tiles);
 }
 
@@ -930,10 +1145,13 @@ extern "C" long long cair_gru_bwd_workspace(int n_rows, int n_steps, int e,
 // [B, T, H] -> dx [B, T, E], dw_ih [E, 3H], db_ih [3H], dw_hh [H, 3H],
 // db_hh [3H]; one dtype for all but mask and hb; `workspace` holds
 // cair_gru_bwd_workspace(...) bytes.  bfloat16: `w_ih` points at the staged
-// weights [E + H, 3H + 8] (W_ih over W_hh, 8 zero columns a row); `w_hh`
-// and the transposes are not read; E and H are multiples of 32; row_tiles
-// is 0 (the rule of bwd_row_tiles), 1 or the tiles' own (for timing).
-// float32: row_tiles is 0.  Returns the first cudaError_t (0 on success).
+// weights as cair_gru_fwd takes them (one matrix a rank of the cluster
+// above H = 448), `w_ih_t` is read by a cluster's dx product alone, and
+// `w_hh`, `w_hh_t` are not read; E and H are multiples of 32 (64 in a
+// cluster of 4); row_tiles is 0 (the rule of bwd_row_tiles), 1 or the
+// tiles' own (for timing).  float32 reads both transposes (w_ih_t in phase
+// C above H = 403); row_tiles is 0.  Returns the first cudaError_t (0 on
+// success).
 extern "C" int cair_gru_bwd(const void* x, const void* mask,
                             const void* w_ih, const void* b_ih,
                             const void* w_hh, const void* b_hh,
@@ -945,11 +1163,7 @@ extern "C" int cair_gru_bwd(const void* x, const void* mask,
                             int tc, int dtype, int row_tiles, void* stream) {
   const int mt = row_tiles_of(n_rows, n_steps, e, h_dim, tc, dtype,
                               row_tiles);
-  // float32: a block has 2H threads (at most 1024); bfloat16: H fits the
-  // tiles (any E: x is streamed)
-  if (mt < 0 || (dtype == 0 ? kRowGroups * h_dim > 1024
-                            : !mma_fits(e, h_dim)))
-    return (int)cudaErrorInvalidValue;
+  if (mt < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(x, mask, w_ih, b_ih, w_hh, b_hh, w_ih_t, w_hh_t, hb,

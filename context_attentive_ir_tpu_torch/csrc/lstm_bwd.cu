@@ -1015,8 +1015,9 @@ int launch(const void* x, const void* mask, const void* w_ih, const void* b,
     if (rc != 0) return rc;
     if (L.c > 1) {
       // phase C: a cluster's dx = dgates_c @ W_ih^T
-      cudaError_t err = launch_matmul<T>(dgates, static_cast<const T*>(w_ih_t),
-                                         n, e, g4, static_cast<T*>(dx), stream);
+      cudaError_t err =
+          launch_matmul<T>(dgates, g4, static_cast<const T*>(w_ih_t), n, e,
+                           g4, static_cast<T*>(dx), stream);
       if (err != cudaSuccess) return (int)err;
     }
   }

@@ -4,8 +4,8 @@
 //
 // Two families live here.
 //
-// - The CUDA-core row-tile layout (the float32 LSTM and GRU forwards,
-//   kernel 6 and the GRU backward's phase A): a block owns kRows = 32 rows
+// - The CUDA-core row-tile layout (the float32 LSTM and GRU kernels and
+//   kernel 6): a block owns kRows = 32 rows
 //   and has kRowGroups * H threads; thread (rg, j) owns hidden unit j of
 //   rows rg*16 .. rg*16+15.  Operands of a product are staged in shared
 //   memory k-major in f32, one padded row of kStride floats per k, so a
@@ -114,41 +114,18 @@ __device__ __forceinline__ void dot_rows(float acc[NG][kRowsPerThread],
   }
 }
 
-// Stage [x_t | h] for the block's rows in `tile` ((e + h_dim) k-major rows),
-// h rounded to T (the recurrent product reads h in the input dtype, as the
-// TPU kernels do), and synchronise.  The caller synchronises again before
-// the tile is overwritten.
-template <typename T>
-__device__ __forceinline__ void stage_x_h(float* tile, const T* __restrict__ x,
-                                          const float h[kRowsPerThread],
-                                          int row0, int n_rows, int n_steps,
-                                          int t, int e, int j, int rg) {
-  for (int idx = threadIdx.x; idx < kRows * e; idx += blockDim.x) {
-    const int r = idx / e;
-    const int k = idx - r * e;
-    const int row = row0 + r;
-    float v = 0.0f;
-    if (row < n_rows) v = to_f32(x[((size_t)row * n_steps + t) * e + k]);
-    tile[(size_t)k * kStride + r] = v;
-  }
-  float hr[kRowsPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) hr[i] = round_to<T>(h[i]);
-  store_rows(tile, e + j, rg, hr);
-  __syncthreads();
-}
-
-// The float32 LSTM kernels (lstm_fwd.cu, lstm_bwd.cu) stage x_t in chunks
-// of kF32Chunk k-rows beside the whole h, so E takes no shared memory past
-// one chunk; f32_cluster gives the blocks of a cluster that splits the
-// units (1: one block of 2H threads).  The forward splits every H above
+// The float32 recurrent kernels (lstm_fwd.cu, lstm_bwd.cu, gru_fwd.cu,
+// gru_bwd.cu) stage x_t in chunks of kF32Chunk k-rows beside the whole h,
+// so E takes no shared memory past one chunk; f32_cluster gives the blocks
+// of a cluster that splits the units (1: one block of 2H threads).  The forward splits every H above
 // kF32FwdSingle into blocks of at most 256 threads (the one block of 2H
 // threads, launched under a bound of 1,024, spills 2.4 KB a thread and
 // took 1.05 s at [16000, 30, 256] -> 384 against 0.055 s split; up to 256
 // the one block is the faster); the backward keeps one block up to
 // kF32MaxSingle, as the first version did (its bits there), and splits
-// above.  A (row, unit)'s forward FMAs run in the same k order either way.
-// `f32_cluster` in ops/kernels/lstm.py states the same rule.
+// above (the GRU's kernel 9 has as many gradient rows, four slots of H).
+// A (row, unit)'s forward FMAs run in the same k order either way.
+// `f32_cluster` in ops/kernels/lstm.py states the same rule for both.
 constexpr int kF32Chunk = 256;
 constexpr int kF32MaxSingle = 403;  // 4H staged k-rows of kStride floats fit
 constexpr int kF32FwdSingle = 256;
@@ -215,6 +192,40 @@ __device__ __forceinline__ void gate_preacts(
     if (k0 + kF32Chunk < e) __syncthreads();  // the next chunk overwrites xt
   }
   if (active) dot_rows<4, T>(acc, ht, 0, rg, w_hh + j, h_dim, g4, h_dim);
+}
+
+// One GRU step's projections for the thread's 16 rows and unit j
+// (`active`: j < H): ax[g][i] = b_ih[g*H + j] + x_t @ W_ih[:, g*H + j] and
+// ah[g][i] = b_hh[g*H + j] + h @ W_hh[:, g*H + j], g = r, z, n -- apart,
+// since r multiplies only the recurrent n term.  x_t staged chunk by chunk
+// into `xt`, h read from the staged tile `ht` (all H units, k-major,
+// rounded to T); each sum runs in k order.  The caller synchronises before
+// xt or ht is written again.
+template <typename T>
+__device__ __forceinline__ void gru_preacts(
+    float ax[3][kRowsPerThread], float ah[3][kRowsPerThread], float* xt,
+    const float* ht, const T* __restrict__ x, const T* __restrict__ w_ih,
+    const T* __restrict__ w_hh, const float bx[3], const float bh[3],
+    int row0, int n_rows, int n_steps, int t, int e, int h_dim, int j, int rg,
+    bool active) {
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) {
+      ax[g][i] = bx[g];
+      ah[g][i] = bh[g];
+    }
+  }
+  const int g3 = 3 * h_dim;
+  for (int k0 = 0; k0 < e; k0 += kF32Chunk) {
+    const int kn = e - k0 < kF32Chunk ? e - k0 : kF32Chunk;
+    stage_x_chunk<T>(xt, x, row0, n_rows, n_steps, t, e, k0, kn);
+    if (active)
+      dot_rows<3, T>(ax, xt, 0, rg, w_ih + (size_t)k0 * g3 + j, kn, g3,
+                     h_dim);
+    if (k0 + kF32Chunk < e) __syncthreads();  // the next chunk overwrites xt
+  }
+  if (active) dot_rows<3, T>(ah, ht, 0, rg, w_hh + j, h_dim, g3, h_dim);
 }
 
 // -- bf16 tensor-core primitives (used by lstm_mma.cuh and by phase B) -------
@@ -426,11 +437,11 @@ __global__ void wgrad_partial_kernel(const T* __restrict__ a, int a_cols,
 // fixed, so a partial is the same bits every run.  Needs 16-byte aligned
 // `a` and `g` and a_cols, g_cols, g_ld multiples of 8.
 //
-// kAM: `a` lies m-major instead, a[m][r] in rows of n_rows elements (then
+// kAM: `a` lies m-major instead, a[m][r] in rows of a_ld elements (then
 // n_rows is a multiple of kWgK, one split), staged so and read through a
 // plain `ldmatrix`; the output is OutT.  So out = A @ G for a row-major A
-// [a_cols, n_rows] and G [n_rows, g_cols]: a cluster's phase C, dx =
-// dgates_c @ W_ih^T (launch_matmul).
+// [a_cols, n_rows] (rows a_ld apart) and G [n_rows, g_cols]: a cluster's
+// phase C, dx = dgates_c @ W_ih^T (launch_matmul).
 constexpr int kWgTile = 128;
 constexpr int kWgK = 32;
 constexpr int kWgStages = 4;
@@ -451,7 +462,7 @@ wgrad_partial_mma_kernel(const T* __restrict__ a, int a_cols,
                          const T* __restrict__ g, int g_cols,
                          int g_ld, int n_rows, int rows_per_split,
                          OutT* __restrict__ partial, int out_ld,
-                         int out_col0) {
+                         int out_col0, int a_ld) {
   using namespace tiles;
   extern __shared__ __align__(16) char wg_smem_buf[];
   constexpr int kStage = wg_a_slab(kAM) + kWgSlab;
@@ -476,7 +487,7 @@ wgrad_partial_mma_kernel(const T* __restrict__ a, int a_cols,
         const int m = idx / (kWgK / 8), p = idx - m * (kWgK / 8);
         const bool va = m0 + m < a_cols;
         cp_async16(as + m * kWgAmStride + p * 16,
-                   va ? a + (size_t)(m0 + m) * n_rows + rb + p * 8 : a, va);
+                   va ? a + (size_t)(m0 + m) * a_ld + rb + p * 8 : a, va);
       } else {
         const bool va = row < r_end && m0 + c * 8 < a_cols;
         cp_async16(as + r * kWgStride + c * 16,
@@ -567,7 +578,7 @@ inline cudaError_t launch_wgrad_partial(const T* a, int a_cols, const T* g,
                     (g_cols + kWgTile - 1) / kWgTile, sp.splits),
                256, wg_smem(false), stream>>>(
           a, a_cols, g, g_cols, g_ld, n_rows, sp.rows_per_split, partial,
-          out_ld, out_col0);
+          out_ld, out_col0, 0);
       return cudaGetLastError();
     }
   }
@@ -591,14 +602,14 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial,
   out[idx] = from_f32<T>(s);
 }
 
-// out[r][c] = sum_k a[r][k] * b[k][c] (a [n_rows, k_dim], b [k_dim, n_cols],
-// out [n_rows, n_cols], all row-major), exact f32 FMAs in k order: the
-// float32 form of launch_matmul.  256 threads, a kTile x kTile output tile
+// out[r][c] = sum_k a[r][k] * b[k][c] (a [n_rows, k_dim] in rows of lda,
+// b [k_dim, n_cols], out [n_rows, n_cols], all row-major), exact f32 FMAs
+// in k order: the float32 form of launch_matmul.  256 threads, a kTile x kTile output tile
 // per block, 4 x 4 per thread.
 template <typename T>
 __global__ void __launch_bounds__(256)
-matmul_kernel(const T* __restrict__ a, const T* __restrict__ b, int n_rows,
-              int n_cols, int k_dim, T* __restrict__ out) {
+matmul_kernel(const T* __restrict__ a, int lda, const T* __restrict__ b,
+              int n_rows, int n_cols, int k_dim, T* __restrict__ out) {
   __shared__ __align__(16) float as[kTileK][kTile + 4];
   __shared__ __align__(16) float bs[kTileK][kTile + 4];
   const int tx = threadIdx.x % 16;
@@ -616,7 +627,7 @@ matmul_kernel(const T* __restrict__ a, const T* __restrict__ b, int n_rows,
       const int mm = idx / kTileK, ka = idx - mm * kTileK;
       const int r = r0 + mm, k = k0 + ka;
       as[ka][mm] = (r < n_rows && k < k_dim)
-                       ? to_f32(a[(size_t)r * k_dim + k])
+                       ? to_f32(a[(size_t)r * lda + k])
                        : 0.0f;
       const int kb = idx / kTile, nn = idx - kb * kTile;
       bs[kb][nn] = (k0 + kb < k_dim && c0 + nn < n_cols)
@@ -650,18 +661,20 @@ matmul_kernel(const T* __restrict__ a, const T* __restrict__ b, int n_rows,
   }
 }
 
-// Phase C of a cluster's backward (lstm_bwd.cu): dx = dgates_c @ W_ih^T,
-// out [n_rows, n_cols] = a [n_rows, k_dim] @ b [k_dim, n_cols], all
-// row-major, cast to T.  bf16 on tensor cores (wgrad_partial_mma_kernel
-// with `a` m-major: k_dim a multiple of kWgK, n_cols of 8, 16-byte aligned
-// operands); float32 by matmul_kernel's exact FMAs.
+// Phase C of a cluster's backward (lstm_bwd.cu, gru_bwd.cu): dx =
+// dgates_c @ W_ih^T, out [n_rows, n_cols] = a [n_rows, k_dim] (rows lda
+// elements apart: the GRU's first three of four gradient slots) @ b
+// [k_dim, n_cols], all row-major, cast to T.  bf16 on tensor cores
+// (wgrad_partial_mma_kernel with `a` m-major: k_dim a multiple of kWgK,
+// n_cols and lda of 8, 16-byte aligned operands); float32 by matmul_kernel's
+// exact FMAs.
 template <typename T>
-inline cudaError_t launch_matmul(const T* a, const T* b, int n_rows,
+inline cudaError_t launch_matmul(const T* a, int lda, const T* b, int n_rows,
                                  int n_cols, int k_dim, T* out,
                                  cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (k_dim % kWgK != 0 || n_cols % 8 != 0 || !tiles::aligned16(a) ||
-        !tiles::aligned16(b))
+    if (k_dim % kWgK != 0 || n_cols % 8 != 0 || lda % 8 != 0 ||
+        !tiles::aligned16(a) || !tiles::aligned16(b))
       return cudaErrorInvalidValue;
     auto* kernel = wgrad_partial_mma_kernel<T, true, T>;
     cudaError_t err = cudaFuncSetAttribute(
@@ -670,11 +683,12 @@ inline cudaError_t launch_matmul(const T* a, const T* b, int n_rows,
     kernel<<<dim3((n_rows + kWgTile - 1) / kWgTile,
                   (n_cols + kWgTile - 1) / kWgTile, 1),
              256, wg_smem(true), stream>>>(a, n_rows, b, n_cols, n_cols,
-                                           k_dim, k_dim, out, n_cols, 0);
+                                           k_dim, k_dim, out, n_cols, 0, lda);
   } else {
     matmul_kernel<T><<<dim3((n_rows + kTile - 1) / kTile,
                             (n_cols + kTile - 1) / kTile),
-                       256, 0, stream>>>(a, b, n_rows, n_cols, k_dim, out);
+                       256, 0, stream>>>(a, lda, b, n_rows, n_cols, k_dim,
+                                         out);
   }
   return cudaGetLastError();
 }

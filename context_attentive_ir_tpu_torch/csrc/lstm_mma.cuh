@@ -43,11 +43,12 @@
 //   operand of dgates_c @ W^T in both backwards (slab rows = output
 //   columns), so no transposed copy of the weights exists anywhere.
 //
-// Wide LSTMs (H above kMaxSingle) split the gate columns over a thread-block
-// cluster of C blocks (kernels 1, 4, 5; the constants below): rank r owns
-// hidden units r*Hc .. r*Hc + Hc - 1 (Hc = H / C) with all four gates of
-// them, streams its own column slice of [W_ih; W_hh] (the wrapper stages C
-// matrices of (E + H) rows of 4*Hc + 8), and keeps the whole h in two tiles,
+// Wide recurrences (LSTM H above kMaxSingle, GRU above kGruMaxSingle) split
+// the gate columns over a thread-block cluster of C blocks (kernels 1, 4, 5
+// and 7, 8, 9; the constants below): rank r owns hidden units
+// r*Hc .. r*Hc + Hc - 1 (Hc = H / C) with every gate of them, streams its
+// own column slice of [W_ih; W_hh] (the wrapper stages C matrices of
+// (E + H) rows of NG*Hc + 8), and keeps the whole h in two tiles,
 // read and written in turn: each step a block writes its units' new h into
 // the next tile of every rank through distributed shared memory (`mapa`,
 // `st.shared::cluster`) and arrives on the cluster barrier; the next step
@@ -71,7 +72,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 3;         // slabs in the weight ring
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use
 constexpr int kAlign = 32;          // E and H are multiples of this
-constexpr int kMaxHidden = 512;     // the GRU kernels' H
 constexpr int kLstmGates = 4;  // gate column blocks of each recurrence
 constexpr int kGruGates = 3;
 
@@ -85,6 +85,30 @@ constexpr int kMaxClustered = 1024;
 
 inline int lstm_cluster(int h) {
   return h <= kMaxSingle ? 1 : h <= kMaxPair ? 2 : h <= kMaxClustered ? 4 : 0;
+}
+
+// The GRU's cluster split (kernels 7, 8, 9): one block up to
+// kGruMaxSingle (where kernel 9's single-block tiles stop fitting), then
+// the LSTM's: C = 2 up to kMaxPair, C = 4 up to kMaxClustered, each rank
+// with kClusterConfig's 16-row tile.  A rank's Hc units are a multiple of
+// 16, since kernel 9's products step over its 3 Hc gate columns by 16: a
+// cluster of 4 takes H a multiple of 64 (the wrapper pads to it).
+// `gru_cluster` / `gru_tile_hidden` in ops/kernels/gru.py state the same.
+constexpr int kGruMaxSingle = 448;
+
+inline int gru_cluster(int h) {
+  return h <= kGruMaxSingle ? 1
+         : h <= kMaxPair    ? 2
+         : h <= kMaxClustered ? 4
+                              : 0;
+}
+
+// bf16 GRU tiles take E and H multiples of 32, a cluster and its ranks'
+// multiple of 16 units
+inline bool gru_tiles_ok(int e, int h) {
+  const int c = gru_cluster(h);
+  return e > 0 && e % kAlign == 0 && h > 0 && h % kAlign == 0 && c > 0 &&
+         h % (16 * c) == 0;
 }
 
 // Rows and unit groups of a block by hidden size: warp w owns unit groups
@@ -128,8 +152,9 @@ __host__ __device__ inline size_t exch_bytes(int h, int m_rows) {
 // tile (two in a cluster); a backward reuses that space for its gradient
 // tile (m_rows rows of four slots) and needs the f32 tile that dh returns
 // through: the LSTM's single-block kernel 5 keeps it after that union, the
-// GRU's kernel 9 inside it, after the gradient tile; a cluster's rank keeps
-// there one such tile per source rank (the dh partials of its units).
+// GRU's single-block kernel 9 inside it, after the gradient tile; a
+// cluster's rank (either recurrence) keeps there instead one tile of Hc
+// columns per source rank (the dh partials of its units).
 // `tile_smem_bytes` in ops/kernels/lstm.py states the same sum.
 constexpr int kRingHeader = 64;  // the slots' mbarriers
 
@@ -139,8 +164,10 @@ __host__ __device__ inline size_t staged_bytes(int hk, int hc, int gates,
   const size_t fwd = (size_t)(c > 1 ? 2 : 1) * m_rows * h_stride(hk);
   if (!backward) return fwd;
   size_t rev = (size_t)m_rows * slot_stride(hc);
-  if (gates == kGruGates) rev += exch_bytes(hk, m_rows);
-  if (c > 1) rev += (size_t)c * exch_bytes(hc, m_rows);
+  if (c > 1)
+    rev += (size_t)c * exch_bytes(hc, m_rows);
+  else if (gates == kGruGates)
+    rev += exch_bytes(hk, m_rows);
   return rev > fwd ? rev : fwd;
 }
 

@@ -47,14 +47,21 @@ one staged ``[M, 4H]`` tile, multiply the same weight slabs read
 untransposed (``dx_t`` = slots 0..2 @ ``W_ih^T``, the product in ``dh`` =
 slots 0, 1, 3 @ ``W_hh^T``); its blocks take 16 rows where the tiles' own
 64 would leave most of the card idle (``bwd_row_tiles``); phase B is
-tensor-core tiles too.  Those kernels take E and H that are multiples of
-32 and 16-byte aligned tensors; ``pad_gru_operands`` zero-pads other sizes
-here (a padded unit has r = z = 1/2 and n = 0, so its h stays exactly 0
-and its gradients are 0) and the results are cut back.  float32 keeps the
-first version's layout: one thread block per 32 rows, a thread per hidden
-unit of 16 rows, ``[x_t | h]`` staged in f32, exact f32 FMAs, the weights
-read through L2.  ``gru_fused_supported`` states the shapes each dtype's
-kernels hold; ``PERF.md`` records times and bounds.
+tensor-core tiles too.  Above H = 448 the gate columns split over a
+thread-block cluster of 2 or 4 blocks (``gru_cluster``; one staged matrix
+a rank, ``stage_lstm_weights(..., ranks, gates=3)``) that exchange h, and
+kernel 9's dh partials (added in rank order), through distributed shared
+memory; a cluster's dx is one tensor-core product after kernel 9's
+recurrence.  Those kernels take E and H that are multiples of 32 (H of 64
+in a cluster of 4) and 16-byte aligned tensors; ``pad_gru_operands``
+zero-pads other sizes here (a padded unit has r = z = 1/2 and n = 0, so
+its h stays exactly 0 and its gradients are 0) and the results are cut
+back.  float32 keeps exact f32 FMAs (no TF32) on the first version's
+one-thread-per-unit layout, x staged in chunks (any E), its units split
+over a cluster of up to 8 blocks of at most 256 threads above H = 256 in
+kernels 7 and 8 and above 403 in kernel 9 (``f32_cluster``, as the
+LSTM's).  ``gru_fused_supported`` states the shapes each dtype's kernels
+hold (any E, H up to 1,024); ``PERF.md`` records times and bounds.
 """
 
 from __future__ import annotations
@@ -64,8 +71,8 @@ import torch
 from ...device import check_on, resolve_device
 from .lstm import (
     _DTYPES,
-    F32_STRIDE,
-    MAX_HIDDEN_BF16,
+    MAX_HIDDEN,
+    MAX_PAIR_BF16,
     SMEM_LIMIT,
     TILE_ALIGN,
     _aligned,
@@ -75,6 +82,7 @@ from .lstm import (
     _round_up,
     _stream,
     chunk_len,
+    f32_smem_bytes,
     pad_operands,
     stage_lstm_weights,
     tile_config,
@@ -82,29 +90,58 @@ from .lstm import (
 )
 
 GATES = 3  # r, z, n
+# one block up to here: kernel 9's single-block tiles stop fitting at 480
+# (kGruMaxSingle in csrc/lstm_mma.cuh)
+MAX_SINGLE_GRU = 448
+
+
+def gru_cluster(hidden: int) -> int:
+    """Blocks of the cluster the bf16 kernels 7, 8, 9 split a padded
+    ``hidden`` size over (``gru_cluster`` in ``csrc/lstm_mma.cuh``): 1 up
+    to 448, 2 up to 512, 4 up to 1,024; 0 above.  A rank's 16-row tile
+    spreads at most 256 units over its 8 warps (``CLUSTER_TILE``), as the
+    LSTM's."""
+    if hidden <= MAX_SINGLE_GRU:
+        return 1
+    if hidden <= MAX_PAIR_BF16:
+        return 2
+    return 4 if hidden <= MAX_HIDDEN else 0
+
+
+def _h_align(hidden: int) -> int:
+    """32, or 64 in a cluster of 4: a rank's units are a multiple of 16,
+    since kernel 9's products step over its 3 Hc gate columns by 16
+    (``gru_tiles_ok`` in ``csrc/lstm_mma.cuh``)."""
+    return max(TILE_ALIGN, 16 * gru_cluster(_round_up(hidden, TILE_ALIGN)))
+
+
+def gru_tile_hidden(hidden: int) -> int:
+    """The hidden size the bf16 kernels run ``hidden`` at: the next
+    multiple of 32, or of 64 in a cluster of 4."""
+    return _round_up(hidden, _h_align(hidden))
 
 
 def gru_fused_supported(embed: int, hidden: int, rows: int,
                         dtype: torch.dtype = torch.float32) -> bool:
     """Whether kernels 7, 8 and 9 hold an ``[rows, T, embed] -> hidden`` GRU
     in ``dtype`` (the counterpart of the JAX ``gru_fused_supported``, with
-    this card's limits).  float32: a block has ``2 * hidden <= 1024``
-    threads and stages ``max(embed + hidden, 4 * hidden)`` k-rows of 36
-    floats in shared memory (kernel 9's four gradient slots are the wider
-    tile).  bfloat16: after padding to multiples of 32, ``hidden <= 512``
-    and kernel 9's tensor-core tiles fit a block's shared memory -- its
-    four-slot gradient tile and dh exchange beside the forward's tiles, so
-    the forward's fit too (E <= 672 at H = 128, as the forward; H <= 448 at
-    E = 256)."""
+    this card's limits): any ``embed`` and a ``hidden`` size up to 1,024 in
+    both dtypes.  bfloat16: ``hidden`` padded (``gru_tile_hidden``), split
+    over a cluster of 2 or 4 blocks above 448 (``gru_cluster``), whose
+    tiles -- kernel 9's four-slot gradient tile beside the forward's -- fit
+    a block's shared memory (``tile_smem_bytes``).  float32: ``f32_cluster``
+    blocks of at most 2 * 403 threads and ``f32_smem_bytes`` of shared
+    memory, as the LSTM's."""
     if embed < 1 or hidden < 1 or rows < 1 or dtype not in _DTYPES:
         return False
     if dtype == torch.float32:
-        return (2 * hidden <= 1024
-                and max(embed + hidden, 4 * hidden) * F32_STRIDE * 4
+        return (hidden <= MAX_HIDDEN
+                and 0 < f32_smem_bytes(embed, hidden, backward=True)
                 <= SMEM_LIMIT)
-    e, h = _round_up(embed, TILE_ALIGN), _round_up(hidden, TILE_ALIGN)
-    return (h <= MAX_HIDDEN_BF16
-            and tile_smem_bytes(e, h, backward=True, gates=GATES) > 0)
+    e, h = _round_up(embed, TILE_ALIGN), gru_tile_hidden(hidden)
+    c = gru_cluster(h)
+    return c > 0 and tile_smem_bytes(e, h, backward=True, gates=GATES,
+                                     ranks=c) > 0
 
 
 # kernel 9's bf16 blocks take 16 rows when the tiles' own rows a block
@@ -116,22 +153,23 @@ SMALL_GRID = 132
 def bwd_row_tiles(hidden: int, rows: int) -> int:
     """16-row tiles a block of kernel 9's bf16 phase A takes for ``rows``
     rows at a padded ``hidden`` size: ``tile_config``'s, unless that gives
-    fewer than ``SMALL_GRID`` blocks; then 1."""
+    fewer than ``SMALL_GRID`` blocks; then 1 (a cluster's ranks, above 448,
+    take 1 either way)."""
     own = tile_config(hidden)[1]
     return 1 if -(-rows // (16 * own)) < SMALL_GRID else own
 
 
 def pad_gru_operands(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
                      w_hh: torch.Tensor, b_hh: torch.Tensor):
-    """The operands of a GRU with E and H zero-padded up to multiples of
-    ``TILE_ALIGN``: ``x [B, T, Ep]``, ``w_ih [Ep, 3Hp]``, ``b_ih [3Hp]``,
-    ``w_hh [Hp, 3Hp]``, ``b_hh [3Hp]``, every tensor 16-byte aligned.  The
-    padded GRU's first H units equal the original's: a padded unit has zero
-    weights and biases, so r = z = 1/2 and n = 0, its h stays exactly 0 from
-    the zero start and it feeds nothing back.  Aligned operands come back as
-    they are (no copy)."""
-    x, w_ih, w_hh, b_ih, b_hh = pad_operands(x, w_ih, w_hh, (b_ih, b_hh),
-                                             GATES)
+    """The operands of a GRU with E zero-padded up to a multiple of
+    ``TILE_ALIGN`` and H up to ``gru_tile_hidden(H)``: ``x [B, T, Ep]``,
+    ``w_ih [Ep, 3Hp]``, ``b_ih [3Hp]``, ``w_hh [Hp, 3Hp]``, ``b_hh [3Hp]``,
+    every tensor 16-byte aligned.  The padded GRU's first H units equal the
+    original's: a padded unit has zero weights and biases, so r = z = 1/2
+    and n = 0, its h stays exactly 0 from the zero start and it feeds
+    nothing back.  Aligned operands come back as they are (no copy)."""
+    x, w_ih, w_hh, b_ih, b_hh = pad_operands(
+        x, w_ih, w_hh, (b_ih, b_hh), GATES, _h_align(w_hh.shape[0]))
     return x, w_ih, b_ih, w_hh, b_hh
 
 
@@ -277,12 +315,14 @@ def _pointers(*tensors):
 
 def _tile_operands(x, w_ih, b_ih, w_hh, b_hh):
     """bfloat16: the operands as kernels 7 and 8's tiles take them --
-    padded (``pad_gru_operands``), with the staged ``[W_ih; W_hh]`` in
-    ``w_ih``'s place; float32: as they are.  Returns them and (Ep, Hp)."""
+    padded (``pad_gru_operands``), with the staged ``[W_ih; W_hh]`` (one
+    matrix a rank of the cluster, ``gru_cluster``) in ``w_ih``'s place;
+    float32: as they are.  Returns them and (Ep, Hp)."""
     if x.dtype == torch.bfloat16:
         x, w_ih, b_ih, w_hh, b_hh = pad_gru_operands(x, w_ih, b_ih, w_hh,
                                                      b_hh)
-        w_ih = stage_lstm_weights(w_ih, w_hh)
+        w_ih = stage_lstm_weights(w_ih, w_hh, gru_cluster(w_hh.shape[0]),
+                                  GATES)
     return (x, w_ih, b_ih, w_hh, b_hh), (x.shape[-1], w_hh.shape[0])
 
 
@@ -316,7 +356,7 @@ def gru_fused(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
     out = torch.empty((B, T, Hp), dtype=x.dtype, device=x.device)
     from .build import launch
 
-    # the launcher reports a hidden size or E + H its block cannot hold
+    # the launcher reports a hidden size its blocks cannot hold
     launch(
         "cair_gru_fwd", x.device,
         *_pointers(ops[0], mask, *ops[1:], out), B, T, Ep, Hp, int(reverse),
@@ -401,14 +441,18 @@ def gru_fused_bwd(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
     lib = load_library()
     dtype = _DTYPES[x.dtype]
     if x.dtype == torch.bfloat16:
-        # the tensor-core kernel reads W^T out of the staged W's own slabs
+        # the tensor-core kernel reads W^T out of the staged W's own slabs;
+        # a cluster's dx is one product with W_ih^T after them
         x, w_ih, b_ih, w_hh, b_hh = pad_gru_operands(x, w_ih, b_ih, w_hh,
                                                      b_hh)
         Hp = w_hh.shape[0]
         hb, dout = (_aligned(_pad_last(t, Hp)) for t in (hb, dout))
-        staged = stage_lstm_weights(w_ih, w_hh)  # alive until the launch
+        ranks = gru_cluster(Hp)
+        # alive until the launch
+        staged = stage_lstm_weights(w_ih, w_hh, ranks, GATES)
+        w_ih_t = w_ih.t().contiguous() if ranks > 1 else None
         weights = (staged.data_ptr(), b_ih.data_ptr(), 0, b_hh.data_ptr(),
-                   0, 0)
+                   0 if w_ih_t is None else w_ih_t.data_ptr(), 0)
     else:
         # float32: transposed weights for the dx and dh products
         w_ih_t, w_hh_t = w_ih.t().contiguous(), w_hh.t().contiguous()

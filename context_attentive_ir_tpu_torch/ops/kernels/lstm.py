@@ -61,15 +61,14 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # -- the shapes the CUDA kernels hold (csrc/lstm_mma.cuh, lstm_common.cuh) ----
 SMEM_LIMIT = 232448   # dynamic shared memory a block may use on sm_90
 TILE_ALIGN = 32       # the bf16 kernels' E and H are multiples of this
-MAX_HIDDEN_BF16 = 512  # the GRU kernels' H (kMaxHidden)
-MAX_HIDDEN = 1024      # kernels 1, 4, 5, both dtypes
+MAX_HIDDEN = 1024      # kernels 1, 4, 5 and 7, 8, 9, both dtypes
 MAX_SINGLE_BF16 = 384  # one block; above it a cluster (kMaxSingle)
 MAX_PAIR_BF16 = 512    # a cluster of 2 up to here, of 4 above (kMaxPair)
 CLUSTER_TILE = (4, 1)  # a rank's unit groups per warp, 16-row tiles
 F32_STRIDE = 36       # floats per staged k-row of the float32 kernels
-F32_CHUNK = 256       # x k-rows the float32 LSTM kernels stage at a time
-F32_MAX_SINGLE = 403  # float32 kernel 5: one block up to here (4H k-rows)
-F32_FWD_SINGLE = 256  # float32 kernels 1, 4: one block up to here
+F32_CHUNK = 256       # x k-rows the float32 kernels stage at a time
+F32_MAX_SINGLE = 403  # float32 kernels 5, 9: one block up to here (4H rows)
+F32_FWD_SINGLE = 256  # float32 kernels 1, 4, 7, 8: one block up to here
 F32_UNITS = 128       # units a rank of a float32 cluster holds
 F32_MAX_RANKS = 8
 
@@ -91,9 +90,10 @@ def lstm_cluster(hidden: int) -> int:
 
 def f32_cluster(hidden: int, backward: bool = True) -> int:
     """Blocks of the cluster the float32 kernels split ``hidden`` units over
-    (``f32_cluster`` in ``csrc/lstm_common.cuh``): ceil(H / 128) blocks of
-    at most 256 threads, 0 past 8 blocks; one block of 2H threads up to 256
-    in kernels 1 and 4, and up to 403 in kernel 5 (``backward``: its 4H
+    (``f32_cluster`` in ``csrc/lstm_common.cuh``; the LSTM's and the GRU's
+    alike): ceil(H / 128) blocks of at most 256 threads, 0 past 8 blocks;
+    one block of 2H threads up to 256 in the forwards (kernels 1, 4, 7, 8),
+    and up to 403 in the backwards (kernels 5, 9, ``backward``: their 4H
     gradient rows fit, as in the first version)."""
     if hidden <= (F32_MAX_SINGLE if backward else F32_FWD_SINGLE):
         return 1
@@ -102,9 +102,10 @@ def f32_cluster(hidden: int, backward: bool = True) -> int:
 
 
 def f32_smem_bytes(e: int, h: int, backward: bool = False) -> int:
-    """Dynamic shared memory of a block of the float32 kernel 1 / 4 or 5
-    (``launch`` in ``csrc/lstm_fwd.cu``, ``launch_cell`` in
-    ``csrc/lstm_bwd.cu``): h of all units and one x chunk of k-major rows
+    """Dynamic shared memory of a block of the float32 forward (kernels 1,
+    4, 7, 8: ``launch`` in ``csrc/lstm_fwd.cu``, ``csrc/gru_fwd.cu``) or
+    backward (kernels 5, 9: ``launch_cell`` in ``csrc/lstm_bwd.cu``,
+    ``csrc/gru_bwd.cu``): h of all units and one x chunk of k-major rows
     of 36 floats; a backward's reverse pass reuses them for the block's 4 Hc
     gradient rows and, in a cluster, C * Hc rows of dh partials; 0 where
     no cluster holds ``h``."""
@@ -138,18 +139,19 @@ def tile_smem_bytes(e: int, h: int, backward: bool = False,
     at padded widths ``e``, ``h`` with ``gates`` gate blocks (4: the LSTM,
     3: the GRU), ``rows`` rows a block (default: ``tile_config``'s) and
     ``ranks`` blocks a cluster (default: ``lstm_cluster`` for the LSTM, 1
-    for the GRU): the ring's mbarriers (64 bytes), its three slabs of 32
-    (else 16) k-rows of a rank's 4 Hc gate columns (Hc = H / ranks) and
-    three x slots of ``rows`` rows of a slab's depth of x_t columns, the h
-    tile (two in a
-    cluster), the bias (four f32 slots of Hc); 0 if neither depth fits
-    (``mma_smem`` in ``csrc/lstm_mma.cuh``).  E takes no shared memory: x
-    is streamed beside the weights.  A backward's gradient tile has four
-    slots of Hc whatever the gate count (the GRU's da_r, da_z, da_n,
-    da_n * r) and takes the place of the forward's tiles, beside the f32
-    tile dh returns through: after that union in the LSTM's single-block
-    kernel 5, inside it in the GRU's kernel 9 and, one tile a source rank,
-    in a cluster."""
+    -- a single block -- for the GRU, whose split ``gru_cluster`` in
+    ``ops/kernels/gru.py`` states): the ring's mbarriers (64 bytes), its
+    three slabs of 32 (else 16) k-rows of a rank's ``gates`` * Hc gate
+    columns (Hc = H / ranks) and three x slots of ``rows`` rows of a slab's
+    depth of x_t columns, the h tile (two in a cluster), the bias (four f32
+    slots of Hc); 0 if neither depth fits (``mma_smem`` in
+    ``csrc/lstm_mma.cuh``).  E takes no shared memory: x is streamed beside
+    the weights.  A backward's gradient tile has four slots of Hc whatever
+    the gate count (the GRU's da_r, da_z, da_n, da_n * r) and takes the
+    place of the forward's tiles, beside the f32 tile dh returns through:
+    after that union in the LSTM's single-block kernel 5, inside it in the
+    GRU's single-block kernel 9; a cluster's rank (either recurrence) keeps
+    inside it one tile of Hc columns a source rank instead."""
     c = ranks or (lstm_cluster(h) if gates == 4 else 1)
     if c == 0:
         return 0
@@ -160,10 +162,10 @@ def tile_smem_bytes(e: int, h: int, backward: bool = False,
     exch_after = 0
     if backward:
         rev = m * (8 * hc + 16)
-        if gates == 3:
-            rev += m * (h + 8) * 4
         if c > 1:
             rev += c * m * (hc + 8) * 4
+        elif gates == 3:
+            rev += m * (h + 8) * 4
         tiles = max(tiles, rev)
         if gates == 4 and c == 1:
             exch_after = m * (h + 8) * 4
@@ -231,15 +233,16 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def pad_operands(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
-                 biases, gates: int):
+                 biases, gates: int, h_align: int = TILE_ALIGN):
     """``(x, w_ih, w_hh, *biases)`` of a recurrence with ``gates`` gate
-    blocks, E and H zero-padded up to multiples of ``TILE_ALIGN`` (``x [B,
-    T, Ep]``, ``w_ih [Ep, gates * Hp]``, ``w_hh [Hp, gates * Hp]``, each
-    bias ``[gates * Hp]``), every tensor 16-byte aligned; aligned operands
-    come back as they are (no copy).  ``pad_lstm_operands`` and
-    ``pad_gru_operands`` state why the padding is exact."""
+    blocks, E zero-padded up to a multiple of ``TILE_ALIGN`` and H up to one
+    of ``h_align`` (``x [B, T, Ep]``, ``w_ih [Ep, gates * Hp]``, ``w_hh
+    [Hp, gates * Hp]``, each bias ``[gates * Hp]``), every tensor 16-byte
+    aligned; aligned operands come back as they are (no copy).
+    ``pad_lstm_operands`` and ``pad_gru_operands`` state why the padding is
+    exact."""
     e, h = x.shape[-1], w_hh.shape[0]
-    ep, hp = _round_up(e, TILE_ALIGN), _round_up(h, TILE_ALIGN)
+    ep, hp = _round_up(e, TILE_ALIGN), _round_up(h, h_align)
     x = _pad_last(x, ep)
     w_ih = _pad_gates(w_ih, h, hp, gates)
     if ep != e:
@@ -385,21 +388,22 @@ def lstm_fused_bwd_reference(x, mask, w_ih, b, w_hh, hb, cb, dout,
 
 
 def stage_lstm_weights(w_ih: torch.Tensor, w_hh: torch.Tensor,
-                       ranks: int = 1) -> torch.Tensor:
+                       ranks: int = 1, gates: int = 4) -> torch.Tensor:
     """``[W_ih; W_hh]`` as the bf16 kernels' weight ring copies it: one
-    contiguous ``[E + H, G + 8]`` matrix (G = 4H for the LSTM, 3H for the
-    GRU), each row followed by 8 zero columns (the 16 bytes of padding a
-    staged row has in shared memory), so a slab of k-rows is one contiguous
-    range (~400 KB a call at the main path's LSTM widths).  ``ranks`` > 1
-    (an LSTM split over a cluster, ``lstm_cluster``): ``[ranks, E + H,
-    4 Hc + 8]``, rank r's matrix the gate columns of its units
-    r*Hc .. (r+1)*Hc - 1 (Hc = H / ranks) in gate order i, f, g, o."""
+    contiguous ``[E + H, G + 8]`` matrix (G = 4H for the LSTM, ``gates`` =
+    3: 3H for the GRU), each row followed by 8 zero columns (the 16 bytes of
+    padding a staged row has in shared memory), so a slab of k-rows is one
+    contiguous range (~400 KB a call at the main path's LSTM widths).
+    ``ranks`` > 1 (a recurrence split over a cluster, ``lstm_cluster`` /
+    ``gru_cluster``): ``[ranks, E + H, gates * Hc + 8]``, rank r's matrix
+    the gate columns of its units r*Hc .. (r+1)*Hc - 1 (Hc = H / ranks) in
+    gate order (i, f, g, o; r, z, n)."""
     w = torch.cat([w_ih, w_hh], 0)
     if ranks > 1:
         k, g = w.shape
-        hc = g // (4 * ranks)
-        w = w.reshape(k, 4, ranks, hc).permute(2, 0, 1, 3).reshape(
-            ranks, k, 4 * hc)
+        hc = g // (gates * ranks)
+        w = w.reshape(k, gates, ranks, hc).permute(2, 0, 1, 3).reshape(
+            ranks, k, gates * hc)
     return _aligned(torch.nn.functional.pad(w, (0, 8)))
 
 

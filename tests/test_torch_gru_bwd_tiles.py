@@ -106,8 +106,10 @@ def test_gru_backward_tiles_count_four_slots(e, h, rows, n_bytes):
 
 def test_the_four_slot_tile_sets_the_hidden_limit():
     """The gradient tile has four slots of H, not the forward's three gate
-    blocks: with three, H = 480 would fit at E = 256; with four it does
-    not, and 448 is the limit."""
+    blocks: with three, H = 480 would fit one block at E = 256; with four
+    it does not, and 448 is the single block's limit -- where a cluster of
+    2 takes over (``gru_cluster``), whose ranks keep one dh tile of Hc
+    columns a source rank in place of the full-H one."""
     m, h = 16, 480
     fwd = m * (2 * h + 16)
     three = m * (2 * 3 * h + 16) + m * (h + 8) * 4
@@ -115,6 +117,8 @@ def test_the_four_slot_tile_sets_the_hidden_limit():
     assert 64 + ring + max(fwd, three) + 16 * h <= L.SMEM_LIMIT
     assert L.tile_smem_bytes(256, 480, backward=True, gates=3) == 0
     assert L.tile_smem_bytes(256, 448, backward=True, gates=3) > 0
+    assert K.gru_cluster(448) == 1 and K.gru_cluster(480) == 2
+    assert L.tile_smem_bytes(256, 480, backward=True, gates=3, ranks=2) > 0
 
 
 @pytest.mark.parametrize("e,h", [(256, 128), (300, 100), (640, 96),
@@ -139,12 +143,15 @@ def test_the_lstm_backward_keeps_its_layout(e, h):
 
 @pytest.mark.parametrize("e,h,ok", [
     (672, 128, True), (673, 1152, False), (256, 448, True),
-    (256, 449, False), (300, 100, True), (1, 1, True), (32, 512, False)])
+    (256, 449, True), (300, 100, True), (1, 1, True), (32, 512, True)])
 def test_bf16_limits_are_kernel_9s_tiles(e, h, ok):
+    """Kernel 9's tiles on ``gru_cluster``'s blocks: one up to 448, a
+    cluster of 2 at 449 (480 padded) and 512, none above 1,024."""
     assert K.gru_fused_supported(e, h, 40, BF16) is ok
-    ep, hp = L._round_up(e, 32), L._round_up(h, 32)
-    assert ok is (hp <= 512 and L.tile_smem_bytes(
-        ep, hp, backward=True, gates=3) > 0)
+    ep, hp = L._round_up(e, 32), K.gru_tile_hidden(h)
+    c = K.gru_cluster(hp)
+    assert ok is (hp <= 1024 and c > 0 and L.tile_smem_bytes(
+        ep, hp, backward=True, gates=3, ranks=c) > 0)
 
 
 @pytest.mark.parametrize("h,rows,tiles", [

@@ -71,19 +71,22 @@ def _max_err(a, b):
     (37, 8, BF16, True),
     (480, 128, BF16, True),     # the LSTM's widest E at H = 128 ...
     (672, 128, BF16, True),     # ... and the GRU's: x is streamed ...
-    (673, 1152, BF16, False),   # ... but H stays at most 448
-    (256, 384, BF16, True),     # the LSTM's largest H at E = 256 ...
-    (256, 403, BF16, True),     # ... float32's GRU (kernel 9's f32 tile) ...
-    (256, 448, BF16, True),     # ... bf16's, set by kernel 9's four slots
-    (256, 449, BF16, False),    # 480 after padding does not fit
-    (1486, 1152, BF16, False),  # neither kernel 9's tiles nor the forward's
-    (32, 512, BF16, False),     # kernel 9's tiles at H = 512
-    (256, 513, BF16, False),    # hidden above 512
-    (256, 128, F32, True),      # float32 keeps the row-tile rule
-    (1485, 128, F32, True),     # (E + H) * 144 = 232,272
-    (1487, 128, F32, False),
-    (256, 403, F32, True), (256, 404, F32, False),
-    (256, 513, F32, False),     # 2H > 1024 threads
+    (673, 1152, BF16, False),   # ... and H stays at most 1,024
+    (256, 384, BF16, True),     # the LSTM's largest single block at E = 256
+    (256, 403, BF16, True),
+    (256, 448, BF16, True),     # the GRU's single block, kernel 9's four slots
+    (256, 449, BF16, True),     # 480 after padding: a cluster of 2
+    (1486, 1152, BF16, False),  # no cluster holds H above 1,024
+    (32, 512, BF16, True),      # a cluster of 2 at H = 512
+    (256, 513, BF16, True),     # 576 after padding: a cluster of 4
+    (256, 1024, BF16, True), (256, 1025, BF16, False),
+    (256, 128, F32, True),      # float32: x staged in chunks ...
+    (1485, 128, F32, True),
+    (1487, 128, F32, True),     # ... so any E
+    (256, 403, F32, True),      # kernel 9's one block (4H rows) ...
+    (256, 404, F32, True),      # ... then clusters of up to 8 blocks
+    (256, 513, F32, True), (256, 1024, F32, True),
+    (256, 1025, F32, False),    # more than 8 blocks of 128 units
     (256, 128, torch.float16, False), (0, 128, BF16, False),
     (256, 0, BF16, False)])
 def test_gru_fused_supported_at_and_beyond_each_limit(e, h, dtype, ok):
@@ -94,14 +97,17 @@ def test_gru_fused_supported_at_and_beyond_each_limit(e, h, dtype, ok):
 @pytest.mark.parametrize("e,h", [(672, 128), (256, 403), (300, 100),
                                  (256, 448), (256, 449), (704, 128)])
 def test_gru_bf16_limit_is_the_forward_tiles_and_kernel_9(e, h):
-    """bf16 holds a shape exactly when, padded, H <= 512 and kernel 9's
-    tensor-core tiles fit; those hold the three-gate forward's tiles, so
-    the forward fits wherever kernel 9 does."""
-    ep, hp = L._round_up(e, 32), L._round_up(h, 32)
-    held = L.tile_smem_bytes(ep, hp, backward=True, gates=3) > 0
-    assert K.gru_fused_supported(e, h, 1, BF16) is (hp <= 512 and held)
+    """bf16 holds a shape exactly when, padded, H <= 1,024 and kernel 9's
+    tensor-core tiles fit on ``gru_cluster``'s blocks; those hold the
+    three-gate forward's tiles, so the forward fits wherever kernel 9
+    does."""
+    ep, hp = L._round_up(e, 32), K.gru_tile_hidden(h)
+    c = K.gru_cluster(hp)
+    held = c > 0 and L.tile_smem_bytes(ep, hp, backward=True, gates=3,
+                                       ranks=c) > 0
+    assert K.gru_fused_supported(e, h, 1, BF16) is (hp <= 1024 and held)
     if held:
-        assert L.tile_smem_bytes(ep, hp, gates=3) > 0
+        assert L.tile_smem_bytes(ep, hp, gates=3, ranks=c) > 0
 
 
 @pytest.mark.parametrize("e,h,gates,n_bytes", [
@@ -124,8 +130,8 @@ def test_tile_smem_bytes_by_gate_count(e, h, gates, n_bytes):
 
 
 def test_layer_takes_the_new_bf16_limit():
-    """``RNNLayer`` routes a bf16 GRU beyond the forward tiles to the scan
-    on CPU tensors and refuses it on CUDA tensors."""
+    """``RNNLayer`` routes a bf16 GRU beyond the kernels' tiles (H above
+    1,024) to the scan on CPU tensors and refuses it on CUDA tensors."""
     def on_card(e):
         return SimpleNamespace(shape=(5, 4, e), is_cuda=True)
 

@@ -27,12 +27,12 @@ BF16, F32 = torch.bfloat16, torch.float32
 @pytest.mark.parametrize("e,h,dtype,ok", [
     (256, 128, F32, True), (256, 128, BF16, True),
     (300, 100, BF16, True),          # padded to 320, 128 for the tiles
-    (256, 403, F32, True),           # 4H * 36 * 4 = 232,128 <= 232,448
-    (256, 449, BF16, False),         # kernel 9's tiles hold H <= 448
-    (1485, 128, F32, True),          # (E + H) * 36 * 4 = 232,272
-    (1487, 1152, BF16, False),       # any E, but no H above 448
-    (64, 512, F32, False),           # 2H = 1024 threads, but 4H k-rows
-    (64, 513, F32, False),           # 2H > 1024 threads
+    (256, 403, F32, True),           # one block: 4H * 36 * 4 <= 232,448
+    (256, 449, BF16, True),          # a cluster of 2 past one block's 448
+    (1485, 128, F32, True),          # x staged in chunks: any E
+    (1487, 1152, BF16, False),       # any E, but no H above 1,024
+    (64, 512, F32, True),            # a cluster of 4 blocks of 128 units
+    (64, 1025, F32, False),          # more than 8 such blocks
     (256, 128, torch.float16, False), (0, 128, F32, False)])
 def test_gru_fused_supported_at_and_beyond_each_limit(e, h, dtype, ok):
     assert gru_fused_supported(e, h, 40, dtype) is ok
@@ -85,15 +85,16 @@ def _count_calls(monkeypatch):
     return calls
 
 
-# (rnn, E, H, the kernels hold it): the LSTM kernels hold every E and H up
-# to 1,024 (1,152 is beyond them); the GRU's float32 kernels, H = 520
-# beyond 2H <= 1024 threads and E = 1700 beyond the staged tile; an odd E
-# and H stay with the kernels (float32 has no alignment rule; bfloat16 is
-# zero-padded by the wrapper)
+# (rnn, E, H, the kernels hold it): the LSTM and GRU kernels hold every E
+# and H up to 1,024 (1,152 is beyond them; the GRU's float32 H = 520 on a
+# cluster of 5 blocks, E = 1700 staged in chunks); an odd E and H stay with
+# the kernels (float32 has no alignment rule; bfloat16 is zero-padded by
+# the wrapper)
 GATE_SHAPES = [("lstm", 24, 16, True), ("lstm", 37, 19, True),
                ("lstm", 12, 1152, False), ("lstm", 1700, 1152, False),
                ("gru", 24, 16, True), ("gru", 37, 19, True),
-               ("gru", 12, 520, False), ("gru", 1700, 8, False)]
+               ("gru", 12, 520, True), ("gru", 1700, 8, True),
+               ("gru", 12, 1152, False)]
 
 
 @pytest.mark.parametrize("rnn,e,h,held", GATE_SHAPES)
@@ -180,13 +181,13 @@ def test_kernel_path_reads_hT_from_the_outputs(rnn):
     assert not fin_k[1].any()            # a length-0 row ends at zero
 
 
-# CARS end to end: nhid beyond the kernels' limits (the LSTM's 1,024, the
-# GRU's float32 2H <= 1024 threads) goes through the scan in every
-# encoder; an odd emsize stays with the kernels
+# CARS end to end: nhid beyond the kernels' limit (1,024 for the LSTM and
+# the GRU) goes through the scan in every encoder; an odd emsize stays with
+# the kernels
 CARS_CASES = [("nhid_beyond_the_limit", dict(nhid=1152), "lstm_scan"),
               ("odd_emsize", dict(emsize=37), "lstm_fused"),
               ("gru_nhid_beyond_the_limit",
-               dict(nhid=520, rnn_type="gru", session_rnn_type="gru"),
+               dict(nhid=1152, rnn_type="gru", session_rnn_type="gru"),
                "gru_scan")]
 
 

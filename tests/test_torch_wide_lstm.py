@@ -309,8 +309,8 @@ def _mma_smem(hk, hc, gates, m, backward, c):
 
     staged = (2 if c > 1 else 1) * m * h_row
     if backward:
-        rev = m * slot_row + (exch(hk) if gates == 3 else 0) + (
-            c * exch(hc) if c > 1 else 0)
+        rev = m * slot_row + (c * exch(hc) if c > 1 else
+                              exch(hk) if gates == 3 else 0)
         staged = max(staged, rev)
     for depth in (32, 16):
         n = (64 + 3 * depth * (2 * gates * hc + 16) + 3 * m * (2 * depth + 16)
@@ -363,11 +363,13 @@ def test_float32_cluster_and_shared_memory(h, c, hc):
 
 @pytest.mark.parametrize("e", [768, 1024, 4096])
 def test_gru_bf16_takes_every_e(e):
-    assert G.gru_fused_supported(e, 128, 64, BF16)
-    assert G.gru_fused_supported(e, 448, 64, BF16)
-    assert not G.gru_fused_supported(e, 480, 64, BF16)
-    assert (G.gru_fused_supported(e, 128, 64, F32)
-            is ((e + 128) * 144 <= K.SMEM_LIMIT))
+    """The GRU's kernels take every E and H up to 1,024 too (past 448 in
+    bf16 on clusters, ``gru_cluster``; float32 with x in chunks)."""
+    for h in (128, 448, 480, 1024):
+        assert G.gru_fused_supported(e, h, 64, BF16)
+    assert not G.gru_fused_supported(e, 1152, 64, BF16)
+    assert G.gru_fused_supported(e, 128, 64, F32)
+    assert not G.gru_fused_supported(e, 1025, 64, F32)
 
 
 @pytest.mark.parametrize("e,h,dtype", [(256, 512, BF16), (256, 512, F32),
