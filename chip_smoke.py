@@ -41,11 +41,14 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    (pipelined) against kernel 2, which must give the same bits, also on
    tables laid out as the decoders lay them (V = 50,004 with padded rows,
    the 4,096-word shortlist; kernel 3 at the greedy shape) and on a
-   contiguous table with unaligned rows; then shapes a kernel cannot hold
-   must be refused, and ``fused_supported`` / ``gru_fused_supported`` /
-   ``beamgen_supported`` must say what the launchers take (kernel 6's
-   launcher called directly at H = 640 must refuse it; each limit run,
-   one past it refused);
+   contiguous table with unaligned rows, at each kernel's last whole x
+   tile and the E past it (x streamed), E = 3,000, and kc = 128 in every
+   mode; then shapes a kernel cannot hold must be refused (the generator
+   at kc = 129), and ``fused_supported`` / ``gru_fused_supported`` must
+   say what the launchers take, ``beamgen_smem_bytes`` /
+   ``beamgen_streams_x`` equal the generator launcher's plan at every
+   (E, kc, mode) of a grid (kernel 6's launcher called directly at H = 640
+   must refuse it, the generator's at kc = 129);
 4. the main paths at full width: CARS at the serving widths (vocab
    50,000, emsize 256, nhid 128, nhid_ffnn 256, S=5, N=50, Lq=15, Ld=30,
    bf16, seeded random weights) behind ``serve.Engine``: ``rank_batch``
@@ -102,9 +105,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    behind ``Engine``, beam-5 and greedy ``suggest_batch`` for 64
    histories, 8 Adam steps each (the float32 NLL reading must fall), a
    checkpoint -> ``Engine.from_checkpoint`` round trip with equal
-   suggestions each, a small float32 CARS ``Engine`` at beam 40 (past the
-   generator kernels' top-32: its logits step, no generator launch) equal
-   to the CPU's up to near-tied scores, and ``cli.main`` for seq2seq and
+   suggestions each, a small float32 CARS ``Engine`` at beam 40 through
+   the generator kernel (top-41), with and without a shortlist, equal to
+   the CPU's up to near-tied scores (a beam-128 shortlist ``Engine``
+   refused on the card), and ``cli.main`` for seq2seq and
    ACG as for HRED-QS on the first 1,280 sessions; then the multitask
    baselines (``multitask``): the logits step's top-6 (``exact`` and
    ``chunked`` equal to ``topk_desc`` on f32, bf16-rounded and
@@ -141,7 +145,19 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``rank_batch``, beam-5 ``suggest_batch``, 4 Adam steps), HRED-QS at
    nhid 1,024 in bf16 (clusters of 4; beam-5 ``suggest_batch``, 4 Adam
    steps) and ``cli.main --rnn_type gru --nhid 512`` in bf16 on the first
-   256 sessions, against the plain scan as above.  Every
+   256 sessions, against the plain scan as above; then the generator past
+   top-32 and one x tile (``widebeam``): CARS at the serving widths
+   behind ``Engine`` at beams 40 and 127 (top-41, top-128) on the float
+   and int8 tables and at beam 40 with a 4,096-id shortlist, and CARS at
+   emsize 1,536 (x streamed) at beam 5, greedy and one beam-5 decode
+   through kernel 3, and in float32 at beam 5, each against the same
+   weights through the logits step (n-best scores within PAIR_TOL of the
+   Engine's dtype), with the first step's log-probabilities both ways
+   beside the bf16 rounding step of the logits; kernels 2, 2p, 2q and 3
+   at the beam-40 (R = 12,800, kc = 41), beam-127 (R = 40,640, kc = 128) and
+   beam-5 (E = 1,536 and 2,048) steps and at kc 33, 64, 127 and 128 (R =
+   1,605), in bf16 and float32, held to their plain version on integer
+   and random data, every mode of a table the same bits.  Every
    call runs with every launch count set to 0
    just before it and read just after it and must launch exactly the
    kernels ``PATH_KERNELS`` names (``EXACT_LAUNCHES`` times, where fixed);
@@ -154,7 +170,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    and 1,024 in both dtypes and float32 -> 256 and 384, kernels 7, 8 and 9
    at ``[16000, 30, 256]`` -> 512 and 1,024 in both dtypes (rows with
    ``rows``, ``steps``, ``e``, ``h``, ``dtype``; checked against their
-   plain versions on those inputs first), kernel 9 with 16-row and 64-row
+   plain versions on those inputs first), kernels 2, 2p, 2q and 3 at
+   ``widebeam``'s steps (rows with ``step``, ``rows``, ``e``, ``kc``,
+   ``dtype``), kernel 9 with 16-row and 64-row
    blocks at the query and doc encoders' shapes, kernel 10's wider
    instantiations (logged), and the train steps' times.
 
@@ -182,10 +200,14 @@ kernels 1, 4, 5 timed at the doc encoder's rows and steps at H = 512 and
 at nhid 512 in bf16 and float32, HRED-QS at nhid 1,024 in bf16,
 ``cli.main --rnn_type gru --nhid 512``, each against the same model on the
 plain scan, and kernels 7, 8, 9 timed at the doc encoder's rows and steps
-at H = 512 and 1,024 in both dtypes), ``trainer`` (``cli.main`` for CARS
-and HRED-QS), ``recommenders``
+at H = 512 and 1,024 in both dtypes), ``widebeam`` (CARS ``Engine``s at
+beams 40 and 127 on the float and int8 tables and with a shortlist, CARS
+at emsize 1,536 in bf16 and float32, each against the logits step, and
+kernels 2, 2p, 2q, 3 held and timed past top-32 and one x tile),
+``trainer`` (``cli.main`` for
+CARS and HRED-QS), ``recommenders``
 (seq2seq and ACG serving, train steps, checkpoint round trips and
-``cli.main``, and the beam-40 CARS Engine), ``multitask`` (the top-k and
+``cli.main``, and the beam-40 CARS Engines), ``multitask`` (the top-k and
 conv timings, M-NSRF and M-MatchTensor serving, train steps, checkpoint
 round trips and ``cli.main``), ``rankers`` (the eight rankers' serving,
 train steps, checkpoint round trips and ``cli.main``).  Every phase prints
@@ -661,14 +683,14 @@ def check_recurrence(gen) -> dict:
     return out
 
 
-def beamgen_inputs(gen, rows, dtype, integer):
+def beamgen_inputs(gen, rows, dtype, integer, e=EMSIZE):
     dev = "cuda"
     if integer:
-        x = torch.randint(-3, 4, (rows, EMSIZE), generator=gen, device=dev)
-        t = torch.randint(-3, 4, (EMSIZE, VOCAB), generator=gen, device=dev)
+        x = torch.randint(-3, 4, (rows, e), generator=gen, device=dev)
+        t = torch.randint(-3, 4, (e, VOCAB), generator=gen, device=dev)
     else:
-        x = torch.randn((rows, EMSIZE), generator=gen, device=dev) * 0.5
-        t = torch.randn((EMSIZE, VOCAB), generator=gen, device=dev) * 0.5
+        x = torch.randn((rows, e), generator=gen, device=dev) * 0.5
+        t = torch.randn((e, VOCAB), generator=gen, device=dev) * 0.5
     return x.to(dtype), t.to(dtype)
 
 
@@ -699,7 +721,13 @@ def hold(name: str, out, x, tt, kc: int, integer: bool,
 
     v, i, lse = out
     rows = x.shape[0]
-    rv, ri, rlse = generator_topk_lse_reference(x, tt, kc + 1, scale)
+    # the plain version row chunk by row chunk (each row is its own): a
+    # beam-127 step's [40640, 50000] logits sorted at once need ~40 GB
+    chunk = max(1, (1 << 29) // tt.shape[1])
+    parts = [generator_topk_lse_reference(x[r:r + chunk], tt, kc + 1, scale)
+             for r in range(0, rows, chunk)]
+    rv, ri, rlse = (torch.cat(p) for p in zip(*parts))
+    del parts
     torch.cuda.synchronize()
     lse_rel = float(((lse - rlse).abs() / rlse.abs()).max())
     v_err = float((v - rv[:, :kc]).abs().max())
@@ -711,11 +739,13 @@ def hold(name: str, out, x, tt, kc: int, integer: bool,
             raise AssertionError(f"{name} disagrees")
         return v_err
     top = rv.abs().amax(-1, keepdim=True)
-    logits = x.float() @ tt.float()
-    if scale is not None:
-        logits = logits * scale[None, :]
-    got = logits.gather(1, i.long())
-    del logits
+    got = torch.empty_like(v)
+    for r in range(0, rows, chunk):
+        logits = x[r:r + chunk].float() @ tt.float()
+        if scale is not None:
+            logits = logits * scale[None, :]
+        got[r:r + chunk] = logits.gather(1, i[r:r + chunk].long())
+        del logits
     miss = i != ri[:, :kc]
     unexplained = miss & ~near_tie_positions(rv, kc)
     off = ((got - rv[:, :kc]).abs() > 1e-5 * top).any(-1)
@@ -900,20 +930,20 @@ def check_pool_gate(gen) -> None:
         + ", ".join(seen))
 
 
-def int8_inputs(gen, rows, dtype, integer):
-    """x [rows, E] and the int8 table of a random [V, E] embedding through
-    quantize_embedding_table, transposed: (x, q_t [E, V], scale [V])."""
+def int8_inputs(gen, rows, dtype, integer, e=EMSIZE):
+    """x [rows, e] and the int8 table of a random [V, e] embedding through
+    quantize_embedding_table, transposed: (x, q_t [e, V], scale [V])."""
     from context_attentive_ir_tpu_torch.ops.layers import (
         quantize_embedding_table,
     )
 
-    table = torch.randn((VOCAB, EMSIZE), generator=gen, device="cuda") * 0.1
+    table = torch.randn((VOCAB, e), generator=gen, device="cuda") * 0.1
     q, scale = quantize_embedding_table(table.cpu().numpy())
     q_t = torch.from_numpy(q).cuda().t().contiguous()
     if integer:
-        x = torch.randint(-3, 4, (rows, EMSIZE), generator=gen, device="cuda")
+        x = torch.randint(-3, 4, (rows, e), generator=gen, device="cuda")
     else:
-        x = torch.randn((rows, EMSIZE), generator=gen, device="cuda") * 0.5
+        x = torch.randn((rows, e), generator=gen, device="cuda") * 0.5
     return x.to(dtype), q_t, torch.from_numpy(scale).cuda().reshape(-1)
 
 
@@ -1068,49 +1098,118 @@ def check_beamgen_layouts(gen) -> None:
             raise AssertionError(f"{name}: the modes differ")
 
 
+# E of the limit checks: not multiples of 16 (100, 300: the zero-filled
+# last k-slab), each kernel's last whole x tile and the E past it, and one
+# far past every whole tile
+LIMIT_ES = (100, 300, 3000)
+WHOLE_TILE_TOPS = {(torch.bfloat16, False): 1264, (torch.bfloat16, True): 976,
+                   (torch.float32, False): 908, (torch.float32, True): 652}
+# (name, keyword arguments) of each generator mode; int8 takes a table of
+# its own
+GEN_MODES = (("serial", {}), ("pruned", {"prune": True}),
+             ("int8", {"scale": True}), ("pipelined", {"pipeline": True}))
+
+
+def beamgen_integer_case(gen, rows, e, v, dtype, int8):
+    """Integer-valued x [rows, e] and table [e, v] (int8 with power-of-two
+    scales for the int8 mode): every product and sum exact."""
+    x = torch.randint(-3, 4, (rows, e), generator=gen, device="cuda")
+    t = torch.randint(-3, 4, (e, v), generator=gen, device="cuda")
+    if not int8:
+        return x.to(dtype), t.to(dtype), None
+    scale = 2.0 ** torch.randint(-3, 3, (v,), generator=gen,
+                                 device="cuda").float()
+    return x.to(dtype), t.to(torch.int8), scale
+
+
 def check_beamgen_limits(gen) -> None:
-    """``beamgen_supported`` states the launchers' limits: in each dtype and
-    kernel, the largest E it accepts runs (and is exact on integer data),
-    the next E is refused by the launcher and the next launch runs clean;
-    E = 300 and E = 100 (not multiples of 16: the zero-filled last k-slab)
-    run too."""
+    """The gates against the launchers.  ``beamgen_smem_bytes`` and
+    ``beamgen_streams_x`` equal ``cair_beamgen_smem`` (the launcher's plan)
+    at every (E, kc, mode) of a grid; every E runs in each dtype and
+    kernel -- 100, 300, each kernel's last whole x tile and the E past it
+    (x streamed), 3,000 -- exact on integer data; kc = 128 runs in every
+    mode (E = 300 and 3,000); kc = 129 is refused by the wrapper and by the
+    launcher called directly, and the next launch runs clean."""
     from context_attentive_ir_tpu_torch.ops.kernels.beamgen import (
+        MAX_KC,
         beamgen_smem_bytes,
+        beamgen_streams_x,
         beamgen_supported,
         generator_topk_lse,
     )
+    from context_attentive_ir_tpu_torch.ops.kernels.build import load_library
 
-    def at(e, dtype, pipeline):
-        x = torch.randint(-3, 4, (70, e), generator=gen, device="cuda")
-        t = torch.randint(-3, 4, (e, 304), generator=gen, device="cuda")
-        x, t = x.to(dtype), t.to(dtype)
-        return x, t, generator_topk_lse(x, t, 2, pipeline=pipeline)
+    lib = load_library()
+    checked = 0
+    for (dtype, pipeline), top in WHOLE_TILE_TOPS.items():
+        for mode, kw in GEN_MODES:
+            if (mode == "pipelined") != pipeline:
+                continue
+            x_code = 0 if dtype == torch.float32 else 1
+            t_code = 2 if mode == "int8" else x_code
+            for e in (1, 15, 100, 256, 300, top, top + 1, 1536, 2048, 3000,
+                      8192):
+                for kc in (1, 32, 33, 64, 65, 128):
+                    n, streamed = ctypes.c_longlong(), ctypes.c_int()
+                    rc = lib.cair_beamgen_smem(
+                        e, kc, x_code, t_code, int(mode == "pruned"),
+                        int(pipeline), ctypes.byref(n), ctypes.byref(streamed))
+                    want = (beamgen_smem_bytes(e, dtype, pipeline, kc),
+                            beamgen_streams_x(e, dtype, pipeline))
+                    if (rc != 0 or (n.value, bool(streamed.value)) != want
+                            or not beamgen_supported(e, dtype, pipeline)):
+                        raise AssertionError(
+                            f"beamgen_smem_bytes / beamgen_streams_x {want} "
+                            f"disagree with the launcher's ({rc}, {n.value}, "
+                            f"{streamed.value}) at E={e} kc={kc} {dtype} "
+                            f"{mode}")
+                    checked += 1
+    log(f"beamgen_smem_bytes and beamgen_streams_x equal the launcher's "
+        f"plan at {checked} (E, kc, mode) points; every E is supported")
 
+    for (dtype, pipeline), top in WHOLE_TILE_TOPS.items():
+        for e in (LIMIT_ES[0], LIMIT_ES[1], top, top + 1, LIMIT_ES[2]):
+            x, t, _ = beamgen_integer_case(gen, 70, e, 304, dtype, False)
+            what = (f"generator_topk_lse{' pipeline' if pipeline else ''} "
+                    f"E={e} {dtype} ({beamgen_smem_bytes(e, dtype, pipeline)}"
+                    " bytes of shared memory, x "
+                    f"{'streamed' if beamgen_streams_x(e, dtype, pipeline) else 'whole'})")
+            hold(what, generator_topk_lse(x, t, 2, pipeline=pipeline), x, t,
+                 2, True)
     for dtype in (torch.float32, torch.bfloat16):
-        for pipeline in (False, True):
-            top = max(e for e in range(1, 4096)
-                      if beamgen_supported(e, dtype, pipeline))
-            for e in (100, 300, top, top + 1):
-                ok = beamgen_supported(e, dtype, pipeline)
-                what = (f"generator_topk_lse{' pipeline' if pipeline else ''}"
-                        f" E={e} {dtype}")
-                try:
-                    x, t, out = at(e, dtype, pipeline)
-                    torch.cuda.synchronize()
-                    ran = True
-                except RuntimeError as err:
-                    ran, why = False, err
-                log(f"beamgen_supported(E={e}, {dtype}, pipeline={pipeline})"
-                    f" = {ok} ({beamgen_smem_bytes(e, dtype, pipeline)} "
-                    "bytes of shared memory); the kernel "
-                    + ("ran" if ran else f"refused: {why}"))
-                if ran != ok:
-                    raise AssertionError(f"beamgen_supported disagrees with "
-                                         f"the launcher at {what}")
-                if ran:
-                    hold(what, out, x, t, 2, True)
-    at(EMSIZE, torch.bfloat16, True)
+        for e in (300, 3000):
+            for mode, kw in GEN_MODES:
+                x, t, scale = beamgen_integer_case(gen, 70, e, 304, dtype,
+                                                   mode == "int8")
+                kw = dict(kw, scale=scale) if mode == "int8" else kw
+                hold(f"generator_topk_lse {mode} kc={MAX_KC} E={e} {dtype}",
+                     generator_topk_lse(x, t, MAX_KC, **kw), x, t, MAX_KC,
+                     True, scale)
+    x, t, _ = beamgen_integer_case(gen, 70, EMSIZE, 304, torch.bfloat16,
+                                   False)
+    try:
+        generator_topk_lse(x, t, MAX_KC + 1)
+    except ValueError as err:
+        log(f"generator_topk_lse kc={MAX_KC + 1} refused: {err}")
+    else:
+        raise AssertionError(f"generator_topk_lse ran at kc={MAX_KC + 1}")
+    n_split, per = 1, -(-304 // 128)
+    out = [torch.empty((n_split, 70, MAX_KC + 1), device="cuda")
+           for _ in range(2)] + [torch.empty((n_split, 70), device="cuda")
+                                 for _ in range(2)]
+    res = [torch.empty((70, MAX_KC + 1), device="cuda") for _ in range(2)]
+    lse = torch.empty((70,), device="cuda")
+    rc = lib.cair_beamgen(
+        x.data_ptr(), t.data_ptr(), None, 70, EMSIZE, EMSIZE, 304, 304,
+        MAX_KC + 1, n_split, per, *(a.data_ptr() for a in out),
+        *(a.data_ptr() for a in res), lse.data_ptr(), 1, 1, 0, 0,
+        torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
+    log(f"cair_beamgen kc={MAX_KC + 1} called directly: returned {rc}")
+    if rc == 0:
+        raise AssertionError(f"cair_beamgen ran at kc={MAX_KC + 1}")
+    hold("generator_topk_lse after the refusals",
+         generator_topk_lse(x, t, 2, pipeline=True), x, t, 2, True)
     log("generator_topk_lse launches clean after the refusals")
 
 
@@ -1241,13 +1340,10 @@ def check_refusals(gen) -> None:
                                  f"{dtype}) = {ok} but the kernels "
                                  f"{'refused' if refused else 'ran'}")
 
-    def beamgen_at(e, v=300, **kw):
+    def beamgen_at(e, v=300, kc=2, **kw):
         x = torch.randn((70, e), generator=gen, device="cuda")
         t = torch.randn((e, v), generator=gen, device="cuda")
-        if "scale" in kw:
-            t = t.to(torch.int8)
-            kw["scale"] = torch.ones((v,), device="cuda")
-        return generator_topk_lse(x, t, 2, **kw)
+        return generator_topk_lse(x, t, kc, **kw)
 
     def pool_at(h, rows=40):
         (s, q, w, b), mask = slate_inputs(gen, torch.float32, rows, 3, h=h)
@@ -1298,12 +1394,8 @@ def check_refusals(gen) -> None:
                             torch.float32),
                            ("bf16 H=1152 (hidden above 1,024)", EMSIZE, 1152,
                             bf16))),
-                     ("generator_topk_lse E=1024 (shared tile)",
-                      lambda: beamgen_at(1024)),
-                     ("generator_topk_lse pipeline E=1024 (shared tile)",
-                      lambda: beamgen_at(1024, pipeline=True)),
-                     ("generator_topk_lse pipeline with scale (int8)",
-                      lambda: beamgen_at(EMSIZE, pipeline=True, scale=1)),
+                     ("generator_topk_lse kc=129 (top-kc above 128)",
+                      lambda: beamgen_at(EMSIZE, kc=129)),
                      ("attn_pool H=192 (H % 128)", lambda: pool_at(192)),
                      ("attn_pool H=1152 (the launcher's widths)",
                       lambda: pool_at(1152)),
@@ -1410,6 +1502,11 @@ def counters() -> dict:
 # table_choices() holds the committed table to these choices.
 BEAM_GEN = "generator_topk_lse_pruned"
 GREEDY_GEN = "generator_topk_lse"
+# beams 40 and 127 (kc 41 and 128): the table has no row at their kc, so
+# the pruned serial kernel (dispatch.PRUNE_ABOVE_KC: an unmeasured kc
+# above 32 prunes)
+WIDEBEAMS = (40, 127)
+WIDEBEAM_GEN = "generator_topk_lse_pruned"
 
 
 def table_choices() -> None:
@@ -1427,7 +1524,8 @@ def table_choices() -> None:
                  and e["scan_ms"] < (1 - m) * e["kernel_ms"])
              or (e["kind"] == "beam_gen"
                  and e["xla_ms"] < (1 - m) * e["fused_ms"])]
-    kernel = {BEAM + 1: BEAM_GEN, 2: GREEDY_GEN}
+    kernel = {BEAM + 1: BEAM_GEN, 2: GREEDY_GEN,
+              **{b + 1: WIDEBEAM_GEN for b in WIDEBEAMS}}
     got = {}
     for kc, want in kernel.items():
         for rows in sorted({r * S * (kc - 1 if kc > 2 else 1)
@@ -1510,9 +1608,21 @@ PATH_KERNELS = {
     "train_step_acg": ("lstm_fused_res", "lstm_fused_bwd"),
     "trainer_fit_seq2seq": ("lstm_fused", "lstm_fused_res", "lstm_fused_bwd"),
     "trainer_fit_acg": ("lstm_fused", "lstm_fused_res", "lstm_fused_bwd"),
-    # a small float32 CARS at beam 40: past the generator kernels' top-kc,
-    # so it decodes through its logits step
-    "suggest_beam40_cars": ("lstm_fused",),
+    # a small float32 CARS at beam 40 (kc 41, within the generator kernels'
+    # top-128), also with a shortlist
+    "suggest_beam40_cars": ("lstm_fused", WIDEBEAM_GEN),
+    "suggest_beam40_shortlist_cars": ("lstm_fused", WIDEBEAM_GEN),
+    # widebeam: CARS at the serving widths at beams 40 and 127 on the float
+    # and int8 tables and at beam 40 with a shortlist; CARS at emsize
+    # 1,536 (x streamed) at beam 5, greedy and beam 5 through kernel 3
+    **{f"suggest_beam{b}_{t}": ("lstm_fused", k) for b in WIDEBEAMS
+       for t, k in (("wide", WIDEBEAM_GEN),
+                    ("wide_int8", "generator_topk_lse_int8"))},
+    "suggest_beam40_wide_shortlist": ("lstm_fused", WIDEBEAM_GEN),
+    "suggest_beam5_e1536": ("lstm_fused", BEAM_GEN),
+    "suggest_beam5_e1536_f32": ("lstm_fused", BEAM_GEN),
+    "suggest_greedy_e1536": ("lstm_fused", GREEDY_GEN),
+    "decode_pipelined_e1536": ("lstm_fused", "generator_topk_lse_pipelined"),
     # M-NSRF and M-MatchTensor: both encoders through kernel 1 (ranking) or
     # 4 + 5 (training); suggestion encodes the queries alone and decodes
     # through the logits step (no generator kernel); the session recurrence
@@ -2352,16 +2462,35 @@ def nbest_difference(got, want, tol: float) -> dict:
 BEAM40_TIE_TOL = 3e-5
 
 
+def nbest_check(name: str, got, want) -> dict:
+    """``nbest_difference`` of every request's n-best with
+    ``BEAM40_TIE_TOL``, logged; raises unless no group differs and the
+    scores agree within 1e-4."""
+    total = dict(differ=0, groups=0, tied=0, unchecked=0, err=0.0)
+    for nb_g, nb_c in zip(got, want):
+        d = nbest_difference(nb_g, nb_c, BEAM40_TIE_TOL)
+        total = {k: max(v, d[k]) if k == "err" else v + d[k]
+                 for k, v in total.items()}
+    log(f"{name}: {sum(len(nb) for nb in want)} hypotheses in "
+        f"{total['groups']} groups of scores within {BEAM40_TIE_TOL:g} "
+        f"({total['tied']} hypotheses in groups of two or more, "
+        f"{total['unchecked']} in last groups left unchecked), "
+        f"{total['differ']} groups whose texts differ from the CPU "
+        f"Engine's, score max abs err {total['err']:.3e} (tol 1e-4)")
+    if not (total["differ"] == 0 and total["err"] <= 1e-4):
+        raise AssertionError(f"{name} disagrees with the CPU Engine")
+    return total
+
+
 def beam40_check() -> dict:
-    """A small float32 CARS ``Engine`` at beam 40 (top-41, past the
-    generator kernels' top-32): it decodes through its logits step, so no
-    generator kernel launches, and its n-best lists are the CPU Engine's
-    up to the order of near-tied scores (``nbest_difference`` with
-    ``BEAM40_TIE_TOL``: an exact order check failed on the card, since
-    forty beams of a random model lie about 4e-6 apart, below the 7.6e-6
-    that float32 sums in another order move them).  A shortlist Engine at
-    beam 40 is refused on the card (the generator kernel holds top-32).
-    Returns its launches."""
+    """A small float32 CARS ``Engine`` at beam 40 (top-41): it decodes
+    through the generator kernel (kc 41, within the kernels' top-128), and
+    its n-best lists are the CPU Engine's up to the order of near-tied
+    scores (``nbest_difference`` with ``BEAM40_TIE_TOL``: forty beams of a
+    random model lie about 4e-6 apart, below the 7.6e-6 that float32 sums
+    in another order move them); so are those of a beam-40 shortlist
+    Engine.  A shortlist Engine at beam 128 (top-129, past the kernels) is
+    refused on the card.  Returns the launches."""
     from context_attentive_ir_tpu_torch.models import build_model
     from context_attentive_ir_tpu_torch.serve import Engine, ServeError
 
@@ -2369,36 +2498,33 @@ def beam40_check() -> dict:
     word_dict = synthetic_dictionary(SMALL_DIMS["vocab_size"])
     _, hists = small_requests(word_dict)
     params = build_model(cfg, device="cpu", seed=1).state_dict()
-    gpu, cpu = (Engine(cfg, word_dict, params, beam_size=40, batch_bucket=4,
-                       device=d) for d in ("cuda", "cpu"))
-    with torch.inference_mode():
-        got, launches = counted("suggest_beam40_cars",
-                                lambda: gpu.suggest_batch(hists))
-        want = cpu.suggest_batch(hists)
-    total = dict(differ=0, groups=0, tied=0, unchecked=0, err=0.0)
-    for nb_g, nb_c in zip(got, want):
-        d = nbest_difference(nb_g, nb_c, BEAM40_TIE_TOL)
-        total = {k: max(v, d[k]) if k == "err" else v + d[k]
-                 for k, v in total.items()}
-    log(f"small f32 CARS Engine at beam 40: launches {json.dumps(launches)}, "
-        f"{sum(len(nb) for nb in want)} hypotheses in {total['groups']} "
-        f"groups of scores within {BEAM40_TIE_TOL:g} ({total['tied']} "
-        f"hypotheses in groups of two or more, {total['unchecked']} in "
-        f"last groups left unchecked), {total['differ']} groups whose texts "
-        f"differ from the CPU Engine's, score max abs err "
-        f"{total['err']:.3e} (tol 1e-4)")
-    if not (total["differ"] == 0 and total["err"] <= 1e-4):
-        raise AssertionError("the beam-40 CARS Engine disagrees with the CPU "
-                             "Engine")
-    shortlisted = Engine(cfg, word_dict, params, beam_size=40,
-                         batch_bucket=4, suggest_shortlist=64, device="cuda")
+    launches = {}
+    for path, shortlist in (("suggest_beam40_cars", 0),
+                            ("suggest_beam40_shortlist_cars", 64)):
+        gpu, cpu = (Engine(cfg, word_dict, params, beam_size=40,
+                           batch_bucket=4, suggest_shortlist=shortlist,
+                           device=d) for d in ("cuda", "cpu"))
+        with torch.inference_mode():
+            got, launches[path] = counted(path,
+                                          lambda: gpu.suggest_batch(hists))
+            want = cpu.suggest_batch(hists)
+        log(f"small f32 CARS Engine at beam 40"
+            f"{f' with a {shortlist}-id shortlist' if shortlist else ''}: "
+            f"launches {json.dumps(launches[path])}")
+        nbest_check(path, got, want)
+    shortlisted = Engine(cfg, word_dict, params, beam_size=128,
+                         batch_bucket=4, suggest_shortlist=200,
+                         device="cuda")
     try:
         shortlisted.suggest_batch(hists)
     except ServeError as err:
-        log(f"beam-40 shortlist Engine refused on the card: {err}")
+        log(f"beam-128 shortlist Engine refused on the card: {err}")
+        if "128" not in str(err):
+            raise AssertionError("the refusal does not name the kernels' "
+                                 "top-128") from err
     else:
-        raise AssertionError("a beam-40 shortlist Engine ran on the card")
-    return {"suggest_beam40_cars": launches}
+        raise AssertionError("a beam-128 shortlist Engine ran on the card")
+    return launches
 
 
 # -- the multitask baselines (M-NSRF, M-MatchTensor) and the logits step's
@@ -3850,6 +3976,318 @@ def widegru_paths(gen, fixture_dir: str) -> tuple[dict, list[dict]]:
     return launches, rows
 
 
+# -- the generator past top-32 and one x tile (widebeam) ---------------------
+
+WIDEBEAM_EMSIZE = 1536   # past every kernel's whole x tile (bf16 kernel 2: 1,264)
+# (step, rows, E, kc) of the generator kernels timed alone: the beam-40
+# and beam-127 steps at the serving widths, the beam-5 step past one x
+# tile, and a sweep of kc past one slot at a row count off the 64-row block
+WIDEBEAM_SHAPES = (("beam-40", B * S * 40, EMSIZE, 41),
+                   ("beam-127", B * S * 127, EMSIZE, 128),
+                   ("beam-5", B * S * BEAM, WIDEBEAM_EMSIZE, BEAM + 1),
+                   ("beam-5", B * S * BEAM, 2048, BEAM + 1),
+                   *(("kc sweep", B * S * BEAM + 5, EMSIZE, kc)
+                     for kc in (33, 64, 127, 128)))
+
+
+class logits_step:
+    """Within it, an ``Engine`` decodes through the model's logits step
+    (``beam_search`` over ``model.decode_step``), or with a shortlist the
+    shortlist's plain step on the gathered columns: the reference of a
+    fused decode on the same weights.  ``make_fused_beam_step`` is patched
+    in ``serve`` to give way."""
+
+    def __enter__(self):
+        from context_attentive_ir_tpu_torch import serve
+        from context_attentive_ir_tpu_torch.decode import (
+            make_shortlist_xla_step,
+        )
+
+        self.orig = serve.make_fused_beam_step
+
+        def plain(model, memory, memory_mask, kc, dtype=torch.bfloat16,
+                  shortlist=None, **_):
+            if shortlist is None:
+                return None
+            return make_shortlist_xla_step(model, memory, memory_mask, kc,
+                                           dtype, shortlist)
+
+        serve.make_fused_beam_step = plain
+        return self
+
+    def __exit__(self, *exc):
+        from context_attentive_ir_tpu_torch import serve
+
+        serve.make_fused_beam_step = self.orig
+
+
+def nbest_scores_within(path: str, got, want, dtype) -> None:
+    """Each request's n-best scores, best first, rank by rank within
+    PAIR_TOL[dtype] of the reference's largest |score|, over the
+    reference's real hypotheses (above NEG_INF); the lists as long."""
+    worst, scale, real = 0.0, 1e-30, 0
+    for nb_g, nb_w in zip(got, want):
+        g = sorted((sc for _, sc in nb_g), reverse=True)
+        w = sorted((sc for _, sc in nb_w), reverse=True)
+        if len(g) != len(w):
+            raise AssertionError(f"{path}: n-best of {len(g)}, not "
+                                 f"{len(w)}")
+        for a, b in zip(g, w):
+            if b > -1e8:
+                real += 1
+                worst = max(worst, abs(a - b))
+                scale = max(scale, abs(b))
+    same = sum(a[0][0] == b[0][0] for a, b in zip(got, want))
+    log(f"{path}: {real} real hypotheses, n-best scores max abs difference "
+        f"from the logits step {worst:.3e} (rel {worst / scale:.2e}; tol "
+        f"rel {PAIR_TOL[dtype]:g}); top-1 text equal in {same} of "
+        f"{len(want)} requests")
+    if not worst <= PAIR_TOL[dtype] * scale:
+        raise AssertionError(f"{path}: n-best scores off the logits step's")
+
+
+def widebeam_engines(launches: dict) -> None:
+    """CARS at the serving widths (bf16, seeded weights) behind ``Engine``:
+    beam-40 and beam-127 ``suggest_batch`` on the float table and on the
+    int8 table, beam 40 with a 4,096-id shortlist; then CARS at emsize
+    1,536 (x streamed in every generator kernel): beam-5 and greedy
+    ``suggest_batch`` and one beam-5 decode through the pipelined kernel 3
+    (the pruned serial kernel's bits), the first step's log-probabilities
+    of both steps (``first_step_rounding``), and beam 5 in float32.  Each
+    counted run is held to the same weights through the logits step
+    (``nbest_scores_within``, at PAIR_TOL of the run's dtype)."""
+    from context_attentive_ir_tpu_torch.decode import (
+        beam_search,
+        make_fused_beam_step,
+    )
+    from context_attentive_ir_tpu_torch.models.multitask.cars import CARS
+    from context_attentive_ir_tpu_torch.serve import (
+        Engine,
+        quantize_embedding_params,
+    )
+
+    word_dict = synthetic_dictionary(VOCAB)
+    _, hists = requests(np.random.RandomState(18), word_dict, B)
+    cfg = full_width_config("cars")
+    params = CARS(cfg, device="cuda", seed=0).state_dict()
+    q_cfg = cfg.replace(quantize_embeddings=True)
+    q_params = quantize_embedding_params(params)
+
+    def run(path, eng, beam, dtype=torch.bfloat16):
+        t = time.perf_counter()
+        with torch.inference_mode():
+            out, launches[path] = counted(path,
+                                          lambda: eng.suggest_batch(hists))
+            first = (time.perf_counter() - t) * 1e3
+            with logits_step():
+                want = eng.suggest_batch(hists)
+        log(f"{path}: launches {json.dumps(launches[path])}, first-call "
+            f"wall {first:.1f} ms")
+        check_suggestions(path, out, beam)
+        nbest_scores_within(path, out, want, dtype)
+        return out
+
+    for beam in WIDEBEAMS:
+        for tag, c, p in (("wide", cfg, params), ("wide_int8", q_cfg,
+                                                   q_params)):
+            run(f"suggest_beam{beam}_{tag}",
+                Engine(c, word_dict, p, beam_size=beam, batch_bucket=B), beam)
+            torch.cuda.empty_cache()
+    run("suggest_beam40_wide_shortlist",
+        Engine(cfg, word_dict, params, beam_size=40, batch_bucket=B,
+               suggest_shortlist=SHORTLIST), 40)
+    del params, q_params
+    torch.cuda.empty_cache()
+
+    cfg = full_width_config("cars", emsize=WIDEBEAM_EMSIZE)
+    params = CARS(cfg, device="cuda", seed=0).state_dict()
+    eng = Engine(cfg, word_dict, params, beam_size=BEAM, batch_bucket=B)
+    greedy = Engine(cfg, word_dict, params, beam_size=1, batch_bucket=B)
+    run("suggest_beam5_e1536", eng, BEAM)
+    run("suggest_greedy_e1536", greedy, 1)
+    model = eng.model
+    batch = decode_batch(eng, hists)
+
+    def decode(**kw):
+        state, memory, mask = model.decode_init(batch)
+        step = make_fused_beam_step(
+            model, memory.repeat_interleave(BEAM, 0),
+            mask.repeat_interleave(BEAM, 0), BEAM + 1, torch.bfloat16, **kw)
+        return beam_search(step, state, memory.shape[0],
+                           eng.shapes.max_target_len, BEAM,
+                           return_nbest=True)
+
+    with torch.inference_mode():
+        piped, launches["decode_pipelined_e1536"] = counted(
+            "decode_pipelined_e1536", lambda: decode(pipeline=True))
+        serial = decode(prune=True)
+    same = all(torch.equal(a, b) for a, b in zip(piped, serial))
+    log(f"decode_pipelined_e1536: launches "
+        f"{json.dumps(launches['decode_pipelined_e1536'])}; tokens and "
+        f"scores equal to the pruned serial kernel's: {same}")
+    if not same:
+        raise AssertionError("kernel 3 at E=1536 differs from kernel 2")
+    first_step_rounding(model, batch)
+    del eng, greedy, params, model
+    torch.cuda.empty_cache()
+
+    cfg = full_width_config("cars", emsize=WIDEBEAM_EMSIZE,
+                            compute_dtype="float32")
+    params = CARS(cfg, device="cuda", seed=0).state_dict()
+    run("suggest_beam5_e1536_f32",
+        Engine(cfg, word_dict, params, beam_size=BEAM, batch_bucket=B), BEAM,
+        torch.float32)
+    del params
+    torch.cuda.empty_cache()
+
+
+def first_step_rounding(model, batch) -> None:
+    """The first decode step of ``batch`` (BOS from the init state) both
+    ways: the top-2 log-probabilities of the fused step (the kernel's f32
+    sums) against the logits step's (its bf16 logits, then log_softmax in
+    float32), beside the bf16 rounding step at the largest |logit|: the
+    cause of the bf16 Engines' n-best differences."""
+    from context_attentive_ir_tpu_torch.constants import BOS
+    from context_attentive_ir_tpu_torch.decode import make_fused_beam_step
+
+    with torch.inference_mode():
+        state, memory, mask = model.decode_init(batch)
+        tokens = torch.full((memory.shape[0],), BOS, dtype=torch.long,
+                            device=memory.device)
+        _, logits, _ = model.decode_step(state, tokens, memory, mask)
+        step = make_fused_beam_step(model, memory, mask, 2, torch.bfloat16)
+        _, (vals, idx, lse) = step(state, tokens)
+        plain = logits.float()
+        plain = (plain.gather(1, idx.long())
+                 - torch.logsumexp(plain, -1, keepdim=True))
+        fused = vals - lse[:, None]
+        top = float(logits.float().abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+    log(f"first decode step at emsize {WIDEBEAM_EMSIZE}: logits step "
+        f"{logits.dtype}, largest |logit| {top:.4g} (bf16 step there "
+        f"{ulp:.3g}); top-2 log-probabilities of the fused step (f32 sums) "
+        f"off the logits step's by up to "
+        f"{float((plain - fused).abs().max()):.3e}, the top-2 gap under "
+        f"{ulp:.3g} in {int(((fused[:, 0] - fused[:, 1]) < ulp).sum())} "
+        f"of {fused.shape[0]} rows")
+
+
+def widebeam_kernels(gen, launches: dict) -> list[dict]:
+    """Kernels 2, 2p, 2q (int8 table, bf16 x) and 3 alone at
+    ``WIDEBEAM_SHAPES`` in bfloat16 and float32: each mode held to its
+    plain version (``hold``) on integer data (vals and idx exact) and on
+    random data, every mode of one table giving the same bits, then timed
+    beside the plain version and the library call (matmul + logsumexp +
+    topk, a yardstick only).  Returns the timing rows."""
+    from context_attentive_ir_tpu_torch.ops.kernels.beamgen import (
+        beamgen_streams_x,
+        generator_topk_lse,
+        generator_topk_lse_reference,
+    )
+
+    names = {"serial": "generator_topk_lse",
+             "pruned": "generator_topk_lse_pruned",
+             "int8": "generator_topk_lse_int8",
+             "pipelined": "generator_topk_lse_pipelined"}
+    rows_out = []
+    for step, rows, e, kc in WIDEBEAM_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            errs = {}
+            for data in ("integer", "random"):
+                integer = data == "integer"
+                x, tt, _ = (beamgen_integer_case(gen, rows, e, VOCAB, dtype,
+                                                 False) if integer else
+                            (*beamgen_inputs(gen, rows, dtype, False, e),
+                             None))
+                outs = {}
+                for mode, kw in GEN_MODES:
+                    if mode == "int8":
+                        continue
+                    outs[mode] = generator_topk_lse(x, tt, kc, **kw)
+                name = (f"generator_topk_lse {step} R={rows} E={e} kc={kc} "
+                        f"{dtype} {data}")
+                errs["serial"] = hold(name, outs["serial"], x, tt, kc,
+                                      integer)
+                same = all(same_bits(outs["serial"], o)
+                           for o in outs.values())
+                log(f"{name}: serial = pruned = pipelined, same bits: {same}")
+                if not same:
+                    raise AssertionError(f"{name}: the modes differ")
+                errs["pruned"] = errs["pipelined"] = errs["serial"]
+                del outs
+                if dtype == torch.bfloat16:
+                    xq, q_t, scale = (
+                        beamgen_integer_case(gen, rows, e, VOCAB, dtype, True)
+                        if integer else int8_inputs(gen, rows, dtype, False,
+                                                    e))
+                    base = generator_topk_lse(xq, q_t, kc, scale=scale)
+                    pruned = generator_topk_lse(xq, q_t, kc, scale=scale,
+                                                prune=True)
+                    errs["int8"] = hold(f"{name} int8", base, xq, q_t, kc,
+                                        integer, scale)
+                    if not same_bits(base, pruned):
+                        raise AssertionError(f"{name} int8: prune changes "
+                                             "the bits")
+                    del base, pruned, xq, q_t
+                torch.cuda.empty_cache()
+            # timing on the random data of the last pass
+            x, tt = beamgen_inputs(gen, rows, dtype, False, e)
+            size = 2 if dtype == torch.bfloat16 else 4
+            flops = 2.0 * rows * e * VOCAB
+            out_bytes = rows * (kc * 8 + 4)
+            big = rows * VOCAB > 2e8
+            plain = timed_ms(lambda: generator_topk_lse_reference(x, tt, kc),
+                             1 if big else 3, 1)
+
+            def library(table, scl=None):
+                logits = torch.matmul(x, table)
+                if scl is not None:
+                    logits = logits * scl
+                return (torch.logsumexp(logits.float(), -1),
+                        torch.topk(logits, kc))
+
+            lib = timed_ms(lambda: library(tt), 2 if big else 5, 1)
+            for mode, kw in GEN_MODES:
+                if mode == "int8" and dtype == torch.float32:
+                    continue
+                if mode == "int8":
+                    _, q_t, scale = int8_inputs(gen, 1, dtype, False, e)
+                    table, kw = q_t, {"scale": scale, "prune": True}
+                    n_bytes = x.numel() * 2 + q_t.numel() + VOCAB * 4
+                    q_bf16 = q_t.to(dtype)
+                    lib_ms = timed_ms(lambda: library(q_bf16,
+                                                      scale.to(dtype)),
+                                      2 if big else 5, 1)
+                else:
+                    table = tt
+                    n_bytes = (x.numel() + tt.numel()) * size
+                    lib_ms = lib
+                ms = timed_ms(lambda: generator_topk_lse(x, table, kc, **kw),
+                              2 if big else 5, 1)
+                bnd, by = bound_ms(flops, n_bytes + out_bytes, dtype)
+                log(f"generator_topk_lse {mode} {step} {dtype} R={rows} "
+                    f"E={e} V={VOCAB} kc={kc} (x "
+                    f"{'streamed' if beamgen_streams_x(e, dtype, mode == 'pipelined') else 'whole'}"
+                    f"): kernel {ms:.3f} ms, plain {plain:.3f} ms, library "
+                    f"{lib_ms:.3f} ms, bound {bnd:.4f} ms ({by})")
+                rows_out.append(kernel_row(
+                    names[mode], "beamgen.cu", "beamgen.py:286", launches,
+                    errs[mode], ms, plain, lib_ms, bnd, by, step=step,
+                    rows=rows, e=e, kc=kc, dtype=str(dtype).split(".")[-1]))
+            del x, tt
+            torch.cuda.empty_cache()
+    return rows_out
+
+
+def widebeam_paths(gen) -> tuple[dict, list[dict]]:
+    """The slice's path: ``widebeam_engines``, then ``widebeam_kernels``.
+    Returns the launches and the timing rows."""
+    launches = {}
+    widebeam_engines(launches)
+    log(f"widebeam launches per path: {json.dumps(launches)}")
+    return launches, widebeam_kernels(gen, launches)
+
+
 def time_row_tiles(gen) -> None:
     """Kernel 9 in bf16, one direction, at the query encoder's shape (R =
     B*S, T = Lq; also HRED-QS's) and the doc encoder's (R = B*S*N, T = Ld)
@@ -4044,7 +4482,7 @@ def time_beamgen_modes(gen, launches: dict, max_err: float,
         t_code = 2 if "scale" in kw else 1
         resident = ctypes.c_int()
         load_library().cair_beamgen_occupancy(
-            EMSIZE, 1, t_code, int("prune" in kw), int("pipeline" in kw),
+            EMSIZE, g_kc, 1, t_code, int("prune" in kw), int("pipeline" in kw),
             ctypes.byref(resident))
         blocks = resident.value
         # every mode is split as the serial kernel's residency gives
@@ -4519,7 +4957,7 @@ EARLIER_MS = {"lstm_fused": 11.269, "lstm_fused_res": 11.256,
 # other phase.
 PHASES = ("kernels", "lstm", "grukernels", "beamkernels", "slatekernels",
           "serving", "parallel", "train", "indexed", "interop", "gru",
-          "small", "kernel6", "widelstm", "widegru", "trainer",
+          "small", "kernel6", "widelstm", "widegru", "widebeam", "trainer",
           "recommenders", "multitask", "rankers")
 SHARES = {"lstm", "grukernels", "beamkernels", "slatekernels"}
 
@@ -4662,6 +5100,10 @@ def main() -> int:
     if "widegru" in run:
         wide_launches, rows = phase(
             "widegru", lambda: widegru_paths(gen, fixture_dir.name))
+        launches.update(wide_launches)
+        wide_rows.extend(rows)
+    if "widebeam" in run:
+        wide_launches, rows = phase("widebeam", lambda: widebeam_paths(gen))
         launches.update(wide_launches)
         wide_rows.extend(rows)
     # the default run keeps --resume and the Trainer's timings for CARS

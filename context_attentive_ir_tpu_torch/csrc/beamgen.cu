@@ -9,7 +9,8 @@
 //     after the dot as in the TPU kernel);
 //   - `_beamgen_pipelined_kernel` (kernel 3, `pipeline=True`, float table).
 // Outputs: vals [R, kc] f32 and idx [R, kc] i32 (descending, ties to the
-// LOWER vocab index, exactly as lax.top_k) and lse [R] f32.  Every mode
+// LOWER vocab index, exactly as lax.top_k) and lse [R] f32, for any
+// 1 <= kc <= 128 (the TPU kernel's _KPAD) and any E >= 1.  Every mode
 // gives the same bits on the same float table.
 //
 // What bounds it on the H100: at the beam-5 serving shape (R = 1600,
@@ -23,20 +24,26 @@
 // rows and a contiguous run of 128-column vocab tiles, and writes a partial
 // top-kc plus its (max, sumexp) pair; a second, tiny kernel merges the
 // splits per row with the same tie rule and the log-sum-exp merge
-// m + log(sum_s s_s * exp(m_s - m)).  The wrapper picks the split count
-// (`vocab_splits` in ops/kernels/beamgen.py), the same for every mode of a
-// table.  Inside a block each selection warp owns 8 rows and each lane 4
-// columns of a tile (beamgen_common.cuh: rows_select, four rows at once so
-// their shuffle chains overlap): the online logsumexp, then with `prune`
-// an insertion of only the columns that beat the row's running kc-th entry
+// m + log(sum_s s_s * exp(m_s - m)) (a warp a row).  The wrapper picks
+// the split count (`vocab_splits` in ops/kernels/beamgen.py), the same for
+// every mode of a table at one kc.
+// Inside a block each selection warp owns 8 rows and each lane 4 columns
+// of a tile (beamgen_common.cuh: rows_select, four rows at once so their
+// shuffle chains overlap): the online logsumexp, then with `prune` an
+// insertion of only the columns that beat the row's running kc-th entry
 // (a tile with none costs one warp vote), without it kc exact argmax passes
-// on every tile, as the TPU's unpruned kernel.
+// on every tile, as the TPU's unpruned kernel.  A row's running top-kc
+// lies across its warp's lanes, 1, 2 or 4 register slots a lane (kc up to
+// 32, 64, 128: a template parameter, so kc <= 32 compiles to the one-slot
+// code); the bf16 kernel 2 with more than one slot runs one block an SM
+// (its registers past 128 a thread), and the split follows that residency.
 //
 // bf16 x (the serving path) takes the tensor cores (beamgen_common.cuh,
-// namespace tc): the x rows staged once in bf16, the table streamed in
-// 32-row slabs through a four-slot `cp.async` ring, the 64 x 128 score
-// tile as `mma.sync.m16n8k16` (bf16 in, f32 accumulate) staged in shared
-// memory, then read back by the selection warps.  64-row blocks (not 128)
+// namespace tc): the x rows staged once in bf16 (past the E that fits,
+// streamed in 32-column slabs beside the table's: tc::stream_x), the table
+// streamed in 32-row slabs through a four-slot `cp.async` ring, the
+// 64 x 128 score tile as `mma.sync.m16n8k16` (bf16 in, f32 accumulate)
+// staged in shared memory, then read back by the selection warps.  64-row blocks (not 128)
 // keep a block's registers under 128 a thread and its shared memory at
 // 103.4 KB for E = 256, so two blocks share an SM; the price is the table
 // crossing L2 -> SM once per 64 rows (25 x 25.6 MB a beam-5 call; 128 rows
@@ -54,7 +61,9 @@
 // kernel 3, and kernel 2 with or without `prune`, give the same bits.  The
 // int8 mode stages the int8 table (half the bytes) and widens each slab to
 // bf16 in shared memory; x float32 keeps the exact CUDA-core kernels below
-// (one fmaf per product, the parent's bits), as do int8 tables with f32 x.
+// (one fmaf per product), as do int8 tables with f32 x; past the E whose
+// whole x tile fits they stage x in chunks of k-rows (f32_stream_x), the
+// fmafs in the same k order.
 //
 // What holds the bf16 kernels at the beam-5 shape (PERF.md): the product
 // is bound by shared-memory traffic (the slabs' copies and `ldmatrix`, about
@@ -79,22 +88,26 @@ using namespace beamgen;
 // One signature for every partial kernel, so the launcher and the
 // occupancy query can pick one by mode (x and table typed inside).
 using PartialFn = void (*)(const void*, const void*, const float*, int, int,
-                           int, int, int, int, float*, int*, float*, float*);
+                           int, int, int, int, int, float*, int*, float*,
+                           float*);
 
 // -- float32 x: exact CUDA-core kernels --------------------------------------
 
-template <typename TX, typename TW, bool kScale, bool kPrune>
+// Kernel 2 on float32 x (TW: float32 table, or int8 with `scale`): the
+// whole x tile staged once, or (f32_stream_x) kF32XChunk k-rows of x staged
+// per chunk of each vocab tile; the table read from global memory.
+template <typename TX, typename TW, bool kScale, bool kPrune, int S>
 __global__ void __launch_bounds__(kWarps * 32)
 beamgen_partial_kernel(const void* x_, const void* table_,
                        const float* __restrict__ scale, int n_rows, int e,
-                       int v_size, int ld, int kc, int tiles_per_split,
-                       float* __restrict__ part_v, int* __restrict__ part_i,
-                       float* __restrict__ part_m,
+                       int ldx, int v_size, int ld, int kc,
+                       int tiles_per_split, float* __restrict__ part_v,
+                       int* __restrict__ part_i, float* __restrict__ part_m,
                        float* __restrict__ part_s) {
   const TX* __restrict__ x = static_cast<const TX*>(x_);
   const TW* __restrict__ table = static_cast<const TW*>(table_);
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // [e][kRowBlock]
+  float* xs = reinterpret_cast<float*>(smem4);  // [e or kF32XChunk][kRowBlock]
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -103,19 +116,16 @@ beamgen_partial_kernel(const void* x_, const void* table_,
   const int n_tiles = (v_size + kTile - 1) / kTile;
   const int tile_begin = split * tiles_per_split;
   const int tile_end = min(n_tiles, tile_begin + tiles_per_split);
+  const bool stream = f32_stream_x(e, false);
 
-  stage_x(x, xs, n_rows, e, row0);
-  __syncthreads();
-
-  float m_run[kRowsPerWarp], s_run[kRowsPerWarp], buf_v[kRowsPerWarp];
-  int buf_i[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m_run[r] = -INFINITY;
-    s_run[r] = 0.0f;
-    buf_v[r] = -INFINITY;  // lane l < kc holds buffer slot l of row r
-    buf_i[r] = kNoIndex;
+  if (!stream) {
+    stage_x(x, xs, n_rows, ldx, row0, 0, e);
+    __syncthreads();
   }
+
+  float m_run[kRowsPerWarp], s_run[kRowsPerWarp], buf_v[kRowsPerWarp][S];
+  int buf_i[kRowsPerWarp][S];
+  init_rows(m_run, s_run, buf_v, buf_i);
   const float* a_base = xs + warp * kRowsPerWarp;
 
   for (int tile = tile_begin; tile < tile_end; ++tile) {
@@ -128,21 +138,28 @@ beamgen_partial_kernel(const void* x_, const void* table_,
       scl[c] = kScale && ok[c] ? __ldg(scale + col0 + 32 * c) : 1.0f;
     }
     float acc[kRowsPerWarp][kColsPerLane] = {};
-    tile_fma<TW, true>(acc, a_base, table + col0, ld, 0, e, ok);
+    if (!stream) {
+      tile_fma<TW, true>(acc, a_base, table + col0, ld, 0, e, ok);
+    } else {
+      for (int k0 = 0; k0 < e; k0 += kF32XChunk) {
+        const int kn = min(kF32XChunk, e - k0);
+        __syncthreads();  // every warp is done with the last chunk
+        stage_x(x, xs, n_rows, ldx, row0, k0, kn);
+        __syncthreads();
+        tile_fma<TW, true>(acc, a_base, table + (size_t)k0 * ld + col0, ld,
+                           0, kn, ok);
+      }
+    }
     int vi[kColsPerLane];
 #pragma unroll
     for (int c = 0; c < kColsPerLane; ++c) vi[c] = ok[c] ? col0 + 32 * c : kNoIndex;
-    rows_select<kPrune>(
+    rows_select<kPrune, S>(
         [&](int r, int c) { return kScale ? acc[r][c] * scl[c] : acc[r][c]; },
         vi, ok, m_run, s_run, buf_v, buf_i, kc, lane);
   }
   store_partials(m_run, s_run, buf_v, buf_i, row0, warp, lane, split, n_rows,
                  kc, part_v, part_i, part_m, part_s);
 }
-
-// table rows of one k-chunk staged per ring slot of the f32 pipelined
-// kernel: 32 KB per stage
-constexpr int kF32Chunk = 32768 / (kTile * 4);
 
 // Start the copy of table rows [k0, k1) x tile columns into a ring slot
 // [kF32Chunk][kTile]; pieces past v_size are zero-filled.
@@ -162,19 +179,25 @@ __device__ __forceinline__ void stage_chunk(const float* __restrict__ table,
 }
 
 // Kernel 3 in float32: a two-stage cp.async ring of table k-chunks under
-// the same tile_fma / rows_select as beamgen_partial_kernel.
+// the same tile_fma / rows_select as beamgen_partial_kernel; x staged whole
+// or (f32_stream_x) the x rows of each k-chunk beside it in a two-slot
+// ring of its own, staged one unit ahead.
+template <int S>
 __global__ void __launch_bounds__(kWarps * 32)
 beamgen_pipelined_kernel(const void* x_, const void* table_,
                          const float* __restrict__ /*scale*/, int n_rows,
-                         int e, int v_size, int ld, int kc,
+                         int e, int ldx, int v_size, int ld, int kc,
                          int tiles_per_split, float* __restrict__ part_v,
                          int* __restrict__ part_i, float* __restrict__ part_m,
                          float* __restrict__ part_s) {
   const float* __restrict__ x = static_cast<const float*>(x_);
   const float* __restrict__ table = static_cast<const float*>(table_);
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // [e][kRowBlock]
-  float* ring = xs + e * kRowBlock;             // [2][kF32Chunk][kTile]
+  const bool stream = f32_stream_x(e, true);
+  // [e][kRowBlock], or [2][kF32Chunk][kRowBlock] streamed
+  float* xs = reinterpret_cast<float*>(smem4);
+  float* ring = xs + (stream ? 2 * kF32Chunk : e) * kRowBlock;  // [2][kF32Chunk][kTile]
+  constexpr int kXSlot = kF32Chunk * kRowBlock;
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -189,34 +212,37 @@ beamgen_pipelined_kernel(const void* x_, const void* table_,
   if (n_units > 0)
     stage_chunk(table, ring, v_size, ld, tile_begin, 0, min(e, kF32Chunk));
   tc::cp_async_commit();
-  stage_x(x, xs, n_rows, e, row0);
+  if (!stream)
+    stage_x(x, xs, n_rows, ldx, row0, 0, e);
+  else if (n_units > 0)
+    stage_x(x, xs, n_rows, ldx, row0, 0, min(e, kF32Chunk));
 
-  float m_run[kRowsPerWarp], s_run[kRowsPerWarp], buf_v[kRowsPerWarp];
-  int buf_i[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m_run[r] = -INFINITY;
-    s_run[r] = 0.0f;
-    buf_v[r] = -INFINITY;
-    buf_i[r] = kNoIndex;
-  }
-  const float* a_base = xs + warp * kRowsPerWarp;
+  float m_run[kRowsPerWarp], s_run[kRowsPerWarp], buf_v[kRowsPerWarp][S];
+  int buf_i[kRowsPerWarp][S];
+  init_rows(m_run, s_run, buf_v, buf_i);
   float acc[kRowsPerWarp][kColsPerLane];
 
   for (int u = 0; u < n_units; ++u) {
     if (u + 1 < n_units) {
       const int nt = tile_begin + (u + 1) / n_chunks;
       const int nk0 = ((u + 1) % n_chunks) * kF32Chunk;
+      const int nk1 = min(e, nk0 + kF32Chunk);
       stage_chunk(table, ring + ((u + 1) & 1) * kF32Chunk * kTile, v_size,
-                  ld, nt, nk0, min(e, nk0 + kF32Chunk));
+                  ld, nt, nk0, nk1);
+      // x slot (u + 1) & 1 was last read at unit u - 1, before its
+      // closing barrier
+      if (stream)
+        stage_x(x, xs + ((u + 1) & 1) * kXSlot, n_rows, ldx, row0, nk0,
+                nk1 - nk0);
     }
     tc::cp_async_commit();
     tc::cp_async_wait<1>();  // this thread's copies of chunk u have landed
-    __syncthreads();        // ... and everyone's (and xs, at u = 0)
+    __syncthreads();        // ... and everyone's (and x's)
 
     const int tile = tile_begin + u / n_chunks;
     const int chunk = u % n_chunks;
     const int k0 = chunk * kF32Chunk;
+    const int k1 = min(e, k0 + kF32Chunk);
     const int col0 = tile * kTile + lane;
     bool ok[kColsPerLane];
 #pragma unroll
@@ -228,16 +254,20 @@ beamgen_pipelined_kernel(const void* x_, const void* table_,
         for (int c = 0; c < kColsPerLane; ++c) acc[r][c] = 0.0f;
       }
     }
-    tile_fma<float, false>(acc, a_base,
-                           ring + (u & 1) * kF32Chunk * kTile + lane, kTile,
-                           k0, min(e, k0 + kF32Chunk), ok);
+    const float* w = ring + (u & 1) * kF32Chunk * kTile + lane;
+    if (!stream)
+      tile_fma<float, false>(acc, xs + warp * kRowsPerWarp, w, kTile, k0, k1,
+                             ok);
+    else
+      tile_fma<float, false>(acc, xs + (u & 1) * kXSlot + warp * kRowsPerWarp,
+                             w, kTile, 0, k1 - k0, ok);
     if (chunk == n_chunks - 1) {
       int vi[kColsPerLane];
 #pragma unroll
       for (int c = 0; c < kColsPerLane; ++c)
         vi[c] = ok[c] ? col0 + 32 * c : kNoIndex;
-      rows_select<false>([&](int r, int c) { return acc[r][c]; }, vi, ok,
-                         m_run, s_run, buf_v, buf_i, kc, lane);
+      rows_select<false, S>([&](int r, int c) { return acc[r][c]; }, vi, ok,
+                            m_run, s_run, buf_v, buf_i, kc, lane);
     }
     __syncthreads();  // slot u & 1 is refilled at iteration u + 1
   }
@@ -247,35 +277,26 @@ beamgen_pipelined_kernel(const void* x_, const void* table_,
 
 // -- bf16 x: tensor-core kernels ---------------------------------------------
 
-__device__ __forceinline__ void init_rows(float (&m_run)[kRowsPerWarp],
-                                          float (&s_run)[kRowsPerWarp],
-                                          float (&buf_v)[kRowsPerWarp],
-                                          int (&buf_i)[kRowsPerWarp]) {
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m_run[r] = -INFINITY;
-    s_run[r] = 0.0f;
-    buf_v[r] = -INFINITY;
-    buf_i[r] = kNoIndex;
-  }
-}
-
 // Kernel 2 on bf16 x (TW: bf16 table, or int8 with `scale`): eight warps,
-// each tile's product then its selection.  Shared memory: the x tile, one
-// score buffer, the slab ring (tc::smem_bytes(e, false)).
-template <typename TW, bool kScale, bool kPrune>
-__global__ void __launch_bounds__(tc::kThreads, 2)
+// each tile's product then its selection.  Shared memory: the x tile
+// (unless streamed), one score buffer, the slab ring
+// (tc::smem_bytes(e, false, tc::stream_x(e, false))).  Two blocks an SM
+// for a one-slot top-kc (registers under 128 a thread); one for more
+// slots, whose buffers take a thread to 156-160 registers at two slots
+// and 188-193 at four (ptxas, sm_90a).
+template <typename TW, bool kScale, bool kPrune, int S>
+__global__ void __launch_bounds__(tc::kThreads, S == 1 ? 2 : 1)
 tc_serial_kernel(const void* x_, const void* table_,
-                 const float* __restrict__ scale, int n_rows, int e,
+                 const float* __restrict__ scale, int n_rows, int e, int ldx,
                  int v_size, int ld, int kc, int tiles_per_split,
                  float* __restrict__ part_v, int* __restrict__ part_i,
                  float* __restrict__ part_m, float* __restrict__ part_s) {
   extern __shared__ __align__(16) char smem[];
+  const bool stream = tc::stream_x(e, false);
   char* xs = smem;
-  float* scores = reinterpret_cast<float*>(xs + kRowBlock * tc::x_stride(e));
+  float* scores = reinterpret_cast<float*>(
+      xs + (stream ? 0 : kRowBlock * tc::x_stride(e)));
   char* ring_base = reinterpret_cast<char*>(scores) + tc::kScoreBytes;
-  // an int8 ring's widened slab sits after its kStages narrow slots
-  char* wide = ring_base + tc::kStages * tc::kKs * tc::kNarrowStride;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -286,16 +307,21 @@ tc_serial_kernel(const void* x_, const void* table_,
   const int tile_begin = split * tiles_per_split;
   const int tile_end = min(n_tiles, tile_begin + tiles_per_split);
   const int n_slabs = (e + tc::kKs - 1) / tc::kKs;
+  const tc::bf16* x = static_cast<const tc::bf16*>(x_);
 
-  tc::SlabRing<TW, true> ring{ring_base, static_cast<const TW*>(table_), e,
-                              v_size, ld, n_slabs, tile_begin,
-                              max(0, tile_end - tile_begin) * n_slabs};
+  tc::SlabRing<TW, true> ring{ring_base, static_cast<const TW*>(table_),
+                              stream ? x : nullptr, e, v_size, ld, n_slabs,
+                              tile_begin,
+                              max(0, tile_end - tile_begin) * n_slabs, ldx,
+                              n_rows, row0};
+  // an int8 ring's widened slab sits after its kStages narrow slots
+  char* wide = ring.end();
   ring.prologue(tid);
-  tc::stage_x_bf16(static_cast<const tc::bf16*>(x_), xs, n_rows, e, row0,
-                   tid, tc::kThreads);  // visible after the first acquire
+  if (!stream)  // visible after the first acquire
+    tc::stage_x_bf16(x, xs, n_rows, e, ldx, row0, tid, tc::kThreads);
 
-  float m_run[kRowsPerWarp], s_run[kRowsPerWarp], buf_v[kRowsPerWarp];
-  int buf_i[kRowsPerWarp];
+  float m_run[kRowsPerWarp], s_run[kRowsPerWarp], buf_v[kRowsPerWarp][S];
+  int buf_i[kRowsPerWarp][S];
   init_rows(m_run, s_run, buf_v, buf_i);
   const int wm = warp & 1, wn = warp >> 1;
   int n = 0;
@@ -306,8 +332,8 @@ tc_serial_kernel(const void* x_, const void* table_,
     // tile's first acquire, so the score buffer is free
     tc::store_scores(acc, scores, wm, wn, lane);
     __syncthreads();
-    tc::select_tile<kScale, kPrune>(scores, scale, tile, v_size, kc, warp,
-                                    lane, m_run, s_run, buf_v, buf_i);
+    tc::select_tile<kScale, kPrune, S>(scores, scale, tile, v_size, kc, warp,
+                                       lane, m_run, s_run, buf_v, buf_i);
   }
   store_partials(m_run, s_run, buf_v, buf_i, row0, warp, lane, split, n_rows,
                  kc, part_v, part_i, part_m, part_s);
@@ -318,18 +344,23 @@ tc_serial_kernel(const void* x_, const void* table_,
 // completes when the eight product warps have stored into buffer b,
 // empty[b] when the eight selection warps have read it (one arrival a
 // warp); use u of buffer b (tile 2u + b) completes phase u of each, so its
-// parity is u & 1.
+// parity is u & 1.  The selection warps keep the same S-slot buffers as
+// kernel 2's; at 512 threads a block a thread has 128 registers, so the
+// four-slot instance spills (320 bytes a thread, ptxas).
+template <int S>
 __global__ void __launch_bounds__(2 * tc::kThreads, 1)
 tc_pipelined_kernel(const void* x_, const void* table_,
                     const float* __restrict__ /*scale*/, int n_rows, int e,
-                    int v_size, int ld, int kc, int tiles_per_split,
+                    int ldx, int v_size, int ld, int kc, int tiles_per_split,
                     float* __restrict__ part_v, int* __restrict__ part_i,
                     float* __restrict__ part_m, float* __restrict__ part_s) {
   extern __shared__ __align__(16) char smem[];
+  const bool stream = tc::stream_x(e, true);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + 2;
   char* xs = smem + tc::kHeader;
-  float* scores = reinterpret_cast<float*>(xs + kRowBlock * tc::x_stride(e));
+  float* scores = reinterpret_cast<float*>(
+      xs + (stream ? 0 : kRowBlock * tc::x_stride(e)));
   char* ring_base = reinterpret_cast<char*>(scores) + 2 * tc::kScoreBytes;
 
   const int tid = threadIdx.x;
@@ -343,10 +374,12 @@ tc_pipelined_kernel(const void* x_, const void* table_,
   const int n_local = max(0, min(n_tiles, tile_begin + tiles_per_split) -
                                  tile_begin);
   const int n_slabs = (e + tc::kKs - 1) / tc::kKs;
+  const tc::bf16* x = static_cast<const tc::bf16*>(x_);
 
   tc::SlabRing<tc::bf16, false> ring{
-      ring_base, static_cast<const tc::bf16*>(table_), e, v_size, ld,
-      n_slabs, tile_begin, n_local * n_slabs};
+      ring_base, static_cast<const tc::bf16*>(table_), stream ? x : nullptr,
+      e, v_size, ld, n_slabs, tile_begin, n_local * n_slabs, ldx, n_rows,
+      row0};
   if (tid == 0) {
     for (int b = 0; b < 2; ++b) {
       tc::mbar_init(&full[b], kWarps);
@@ -355,8 +388,8 @@ tc_pipelined_kernel(const void* x_, const void* table_,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if (producer) ring.prologue(tid);
-  tc::stage_x_bf16(static_cast<const tc::bf16*>(x_), xs, n_rows, e, row0,
-                   tid, 2 * tc::kThreads);
+  if (!stream)
+    tc::stage_x_bf16(x, xs, n_rows, e, ldx, row0, tid, 2 * tc::kThreads);
   __syncthreads();  // the barriers and the x tile; no block barrier after
 
   if (producer) {
@@ -376,31 +409,40 @@ tc_pipelined_kernel(const void* x_, const void* table_,
     return;
   }
   const int sw = warp - kWarps;
-  float m_run[kRowsPerWarp], s_run[kRowsPerWarp], buf_v[kRowsPerWarp];
-  int buf_i[kRowsPerWarp];
+  float m_run[kRowsPerWarp], s_run[kRowsPerWarp], buf_v[kRowsPerWarp][S];
+  int buf_i[kRowsPerWarp][S];
   init_rows(m_run, s_run, buf_v, buf_i);
   for (int t = 0; t < n_local; ++t) {
     const int b = t & 1;
     tc::mbar_wait(&full[b], (uint32_t)(t >> 1) & 1u);
-    tc::select_tile<false, false>(scores + b * kRowBlock * tc::kScoreStride,
-                                  nullptr, tile_begin + t, v_size, kc, sw,
-                                  lane, m_run, s_run, buf_v, buf_i);
+    tc::select_tile<false, false, S>(
+        scores + b * kRowBlock * tc::kScoreStride, nullptr, tile_begin + t,
+        v_size, kc, sw, lane, m_run, s_run, buf_v, buf_i);
     tc::warp_arrive(&empty[b], lane);
   }
   store_partials(m_run, s_run, buf_v, buf_i, row0, sw, lane, split, n_rows,
                  kc, part_v, part_i, part_m, part_s);
 }
 
-__global__ void beamgen_merge_kernel(const float* __restrict__ part_v,
-                                     const int* __restrict__ part_i,
-                                     const float* __restrict__ part_m,
-                                     const float* __restrict__ part_s,
-                                     int n_rows, int kc, int n_split,
-                                     float* __restrict__ vals,
-                                     int* __restrict__ idx,
-                                     float* __restrict__ lse) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n_rows) return;
+// The vocab splits' partials of a row merged, a warp a row (kMergeWarps
+// rows a block): lse = m + log(sum_s s_s * exp(m_s - m)) with the sum in
+// split order (every lane runs it, lane 0 stores it), and the top-kc by
+// `beats`.  The running top-kc lies as in the partial kernels (entry p on
+// lane p % 32, slot p / 32), and each split's sorted partial is inserted
+// entry by entry (insert_entry) until an entry no longer beats the kc-th.
+constexpr int kMergeWarps = 4;
+
+template <int S>
+__global__ void __launch_bounds__(kMergeWarps * 32)
+beamgen_merge_warp_kernel(const float* __restrict__ part_v,
+                          const int* __restrict__ part_i,
+                          const float* __restrict__ part_m,
+                          const float* __restrict__ part_s, int n_rows,
+                          int kc, int n_split, float* __restrict__ vals,
+                          int* __restrict__ idx, float* __restrict__ lse) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kMergeWarps + (threadIdx.x >> 5);
+  if (row >= n_rows) return;  // the whole warp
   float m = -INFINITY;
   for (int s = 0; s < n_split; ++s) m = fmaxf(m, part_m[(size_t)s * n_rows + row]);
   float total = 0.0f;
@@ -408,33 +450,51 @@ __global__ void beamgen_merge_kernel(const float* __restrict__ part_v,
     const size_t at = (size_t)s * n_rows + row;
     total += part_s[at] * expf(part_m[at] - m);
   }
-  lse[row] = m + logf(total);
+  if (lane == 0) lse[row] = m + logf(total);
 
-  float bv[kMaxK];
-  int bi[kMaxK];
-  for (int q = 0; q < kc; ++q) {
-    bv[q] = -INFINITY;
-    bi[q] = kNoIndex;
+  float bv[S];
+  int bi[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    bv[j] = -INFINITY;
+    bi[j] = kNoIndex;
   }
   for (int s = 0; s < n_split; ++s) {
     const size_t at = ((size_t)s * n_rows + row) * kc;
+    float pv[S];
+    int pi[S];
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const int q = 32 * j + lane;
+      pv[j] = q < kc ? part_v[at + q] : -INFINITY;
+      pi[j] = q < kc ? part_i[at + q] : kNoIndex;
+    }
     for (int q = 0; q < kc; ++q) {
-      const float v = part_v[at + q];
-      const int i = part_i[at + q];
-      if (!beats(v, i, bv[kc - 1], bi[kc - 1])) break;  // partials are sorted
-      int pos = kc - 1;
-      while (pos > 0 && beats(v, i, bv[pos - 1], bi[pos - 1])) {
-        bv[pos] = bv[pos - 1];
-        bi[pos] = bi[pos - 1];
-        --pos;
+      float cv = pv[0];
+      int ci = pi[0];
+#pragma unroll
+      for (int j = 1; j < S; ++j) {
+        if (j == (q >> 5)) {
+          cv = pv[j];
+          ci = pi[j];
+        }
       }
-      bv[pos] = v;
-      bi[pos] = i;
+      cv = __shfl_sync(kFull, cv, q & 31);
+      ci = __shfl_sync(kFull, ci, q & 31);
+      float kth_v;
+      int kth_i;
+      kth_entry(bv, bi, kc, kth_v, kth_i);
+      if (!beats(cv, ci, kth_v, kth_i)) break;  // partials are sorted
+      insert_entry(bv, bi, cv, ci, kc, lane);
     }
   }
-  for (int q = 0; q < kc; ++q) {
-    vals[(size_t)row * kc + q] = bv[q];
-    idx[(size_t)row * kc + q] = bi[q];
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const int q = 32 * j + lane;
+    if (q < kc) {
+      vals[(size_t)row * kc + q] = bv[j];
+      idx[(size_t)row * kc + q] = bi[j];
+    }
   }
 }
 
@@ -446,48 +506,63 @@ struct Plan {
   size_t smem;
   size_t elem;  // bytes per table element (the 16-byte rule of ld)
   bool copies;  // stages the table by 16-byte copies
+  bool stream;  // streams bf16 x by 16-byte copies (the 16-byte rule of ldx)
 };
 
-template <typename TX, typename TW, bool kScale>
+template <typename TX, typename TW, bool kScale, int S>
 PartialFn f32_serial(bool prune) {
-  return prune ? beamgen_partial_kernel<TX, TW, kScale, true>
-               : beamgen_partial_kernel<TX, TW, kScale, false>;
+  return prune ? beamgen_partial_kernel<TX, TW, kScale, true, S>
+               : beamgen_partial_kernel<TX, TW, kScale, false, S>;
 }
 
-template <typename TW, bool kScale>
+template <typename TW, bool kScale, int S>
 PartialFn tc_serial(bool prune) {
-  return prune ? tc_serial_kernel<TW, kScale, true>
-               : tc_serial_kernel<TW, kScale, false>;
+  return prune ? tc_serial_kernel<TW, kScale, true, S>
+               : tc_serial_kernel<TW, kScale, false, S>;
 }
 
-Plan plan(int x_dtype, int table_dtype, bool prune, bool pipeline, int e) {
+template <int S>
+Plan plan_slots(int x_dtype, int table_dtype, bool prune, bool pipeline,
+                int e) {
   const bool int8_table = table_dtype == 2;
-  const size_t f32_tile = (size_t)e * kRowBlock * sizeof(float);
   if (x_dtype == 0) {
+    const size_t smem =
+        f32_smem_bytes(e, pipeline, f32_stream_x(e, pipeline));
     if (pipeline)
-      return {beamgen_pipelined_kernel, kWarps * 32,
-              f32_tile + 2 * (size_t)kF32Chunk * kTile * sizeof(float), 4,
-              true};
+      return {beamgen_pipelined_kernel<S>, kWarps * 32, smem, 4, true, false};
     if (int8_table)
-      return {f32_serial<float, int8_t, true>(prune), kWarps * 32, f32_tile,
-              1, false};
-    return {f32_serial<float, float, false>(prune), kWarps * 32, f32_tile, 4,
-            false};
+      return {f32_serial<float, int8_t, true, S>(prune), kWarps * 32, smem,
+              1, false, false};
+    return {f32_serial<float, float, false, S>(prune), kWarps * 32, smem, 4,
+            false, false};
   }
+  const bool stream = tc::stream_x(e, pipeline);
+  const size_t smem = tc::smem_bytes(e, pipeline, stream);
   if (pipeline)
-    return {tc_pipelined_kernel, 2 * tc::kThreads, tc::smem_bytes(e, true), 2,
-            true};
+    return {tc_pipelined_kernel<S>, 2 * tc::kThreads, smem, 2, true, stream};
   if (int8_table)
-    return {tc_serial<int8_t, true>(prune), tc::kThreads,
-            tc::smem_bytes(e, false), 1, true};
-  return {tc_serial<tc::bf16, false>(prune), tc::kThreads,
-          tc::smem_bytes(e, false), 2, true};
+    return {tc_serial<int8_t, true, S>(prune), tc::kThreads, smem, 1, true,
+            stream};
+  return {tc_serial<tc::bf16, false, S>(prune), tc::kThreads, smem, 2, true,
+          stream};
 }
 
-// Set the plan's dynamic shared memory (an E too large for it is refused
+Plan plan(int x_dtype, int table_dtype, bool prune, bool pipeline, int e,
+          int kc) {
+  switch (slots_for(kc)) {
+    case 1:
+      return plan_slots<1>(x_dtype, table_dtype, prune, pipeline, e);
+    case 2:
+      return plan_slots<2>(x_dtype, table_dtype, prune, pipeline, e);
+    default:
+      return plan_slots<4>(x_dtype, table_dtype, prune, pipeline, e);
+  }
+}
+
+// Set the plan's dynamic shared memory (a sum past the limit is refused
 // here, and the error cleared so the next launch reads clean).
 int prepare(const Plan& p) {
-  if (p.smem > (size_t)tc::kSmemLimit) return (int)cudaErrorInvalidValue;
+  if (p.smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
       p.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (err != cudaSuccess) {
@@ -505,62 +580,104 @@ bool valid_mode(int x_dtype, int table_dtype, bool prune, bool pipeline,
          (x_dtype == 0 || x_dtype == 1);
 }
 
+bool valid_shape(int e, int kc) { return e > 0 && kc > 0 && kc <= kMaxK; }
+
 }  // namespace
 
-// How many blocks of the mode's partial kernel at E = e one SM holds at
-// once (the wrapper sizes the vocab split to fill the card with them).
-// Returns the cudaError_t (0 = ok); an E the kernel cannot hold is refused.
-extern "C" int cair_beamgen_occupancy(int e, int x_dtype, int table_dtype,
-                                      int prune, int pipeline, int* blocks) {
-  if (e <= 0 || !valid_mode(x_dtype, table_dtype, prune, pipeline,
-                            table_dtype == 2))
+// The mode's partial kernel at E = e and top-kc: its dynamic shared memory
+// in *bytes and whether it streams x (*streamed), for the wrapper's
+// `beamgen_smem_bytes` / `beamgen_streams_x` to be held to.  Returns the
+// cudaError_t (0 = ok).
+extern "C" int cair_beamgen_smem(int e, int kc, int x_dtype, int table_dtype,
+                                 int prune, int pipeline, long long* bytes,
+                                 int* streamed) {
+  if (!valid_shape(e, kc) ||
+      !valid_mode(x_dtype, table_dtype, prune, pipeline, table_dtype == 2))
     return (int)cudaErrorInvalidValue;
-  const Plan p = plan(x_dtype, table_dtype, prune, pipeline, e);
+  const Plan p = plan(x_dtype, table_dtype, prune, pipeline, e, kc);
+  *bytes = (long long)p.smem;
+  *streamed = x_dtype == 0 ? (int)f32_stream_x(e, pipeline) : (int)p.stream;
+  return 0;
+}
+
+// How many blocks of the mode's partial kernel at E = e and top-kc one SM
+// holds at once (the wrapper sizes the vocab split to fill the card with
+// them).  Returns the cudaError_t (0 = ok).
+extern "C" int cair_beamgen_occupancy(int e, int kc, int x_dtype,
+                                      int table_dtype, int prune,
+                                      int pipeline, int* blocks) {
+  if (!valid_shape(e, kc) ||
+      !valid_mode(x_dtype, table_dtype, prune, pipeline, table_dtype == 2))
+    return (int)cudaErrorInvalidValue;
+  const Plan p = plan(x_dtype, table_dtype, prune, pipeline, e, kc);
   int rc = prepare(p);
   if (rc != 0) return rc;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, p.fn,
                                                             p.threads, p.smem);
 }
 
-// x [R, E] contiguous (x_dtype 0 = float32, 1 = bfloat16), table_t [E, V]
-// with rows ld elements apart (table_dtype: x_dtype for a float table, 2 =
-// int8 with scale [V] float32); scratch part_v/part_i [n_split, R, kc],
-// part_m/part_s [n_split, R]; outputs vals/idx [R, kc], lse [R].  prune
-// selects the pruned serial kernel, pipeline the pipelined one (float table
-// only, not with prune).  Every split must own at least one vocab tile of
-// 128 columns.  The bf16 kernels and the float32 pipelined one need a
-// 16-byte aligned table with ld * element size a multiple of 16.  Returns
-// the cudaError_t (0 = ok).
+// x [R, E] with rows ldx >= E elements apart (x_dtype 0 = float32, 1 =
+// bfloat16), table_t [E, V] with rows ld elements apart (table_dtype:
+// x_dtype for a float table, 2 = int8 with scale [V] float32); scratch
+// part_v/part_i [n_split, R, kc], part_m/part_s [n_split, R]; outputs
+// vals/idx [R, kc], lse [R].  1 <= kc <= min(kMaxK, V).  prune selects the
+// pruned serial kernel, pipeline the pipelined one (float table only, not
+// with prune).  Every split must own at least one vocab tile of 128
+// columns.  The bf16 kernels and the float32 pipelined one need a 16-byte
+// aligned table with ld * element size a multiple of 16; a bf16 kernel
+// that streams x (tc::stream_x) needs x 16-byte aligned, ldx a multiple of
+// 8 and x's columns [E, ldx) finite.  Returns the cudaError_t (0 = ok).
 extern "C" int cair_beamgen(const void* x, const void* table,
-                            const void* scale, int n_rows, int e, int v_size,
-                            int ld, int kc, int n_split, int tiles_per_split,
-                            void* part_v, void* part_i, void* part_m,
-                            void* part_s, void* vals, void* idx, void* lse,
-                            int x_dtype, int table_dtype, int prune,
-                            int pipeline, void* stream) {
+                            const void* scale, int n_rows, int e, int ldx,
+                            int v_size, int ld, int kc, int n_split,
+                            int tiles_per_split, void* part_v, void* part_i,
+                            void* part_m, void* part_s, void* vals, void* idx,
+                            void* lse, int x_dtype, int table_dtype,
+                            int prune, int pipeline, void* stream) {
   if (n_rows == 0) return 0;
-  if (kc <= 0 || kc > kMaxK || kc > v_size || n_split <= 0 || e <= 0 ||
-      ld < v_size ||
+  if (!valid_shape(e, kc) || kc > v_size || n_split <= 0 || ld < v_size ||
+      ldx < e ||
       !valid_mode(x_dtype, table_dtype, prune, pipeline, scale != nullptr))
     return (int)cudaErrorInvalidValue;
-  const Plan p = plan(x_dtype, table_dtype, prune, pipeline, e);
+  const Plan p = plan(x_dtype, table_dtype, prune, pipeline, e, kc);
   if (p.copies && (reinterpret_cast<uintptr_t>(table) % 16 != 0 ||
                    ((size_t)ld * p.elem) % 16 != 0))
+    return (int)cudaErrorMisalignedAddress;
+  if (p.stream &&
+      (reinterpret_cast<uintptr_t>(x) % 16 != 0 || ldx % 8 != 0))
     return (int)cudaErrorMisalignedAddress;
   int rc = prepare(p);
   if (rc != 0) return rc;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((n_rows + kRowBlock - 1) / kRowBlock, n_split);
   p.fn<<<grid, p.threads, p.smem, s>>>(
-      x, table, static_cast<const float*>(scale), n_rows, e, v_size, ld, kc,
-      tiles_per_split, static_cast<float*>(part_v), static_cast<int*>(part_i),
-      static_cast<float*>(part_m), static_cast<float*>(part_s));
+      x, table, static_cast<const float*>(scale), n_rows, e, ldx, v_size, ld,
+      kc, tiles_per_split, static_cast<float*>(part_v),
+      static_cast<int*>(part_i), static_cast<float*>(part_m),
+      static_cast<float*>(part_s));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  beamgen_merge_kernel<<<(n_rows + 127) / 128, 128, 0, s>>>(
-      static_cast<const float*>(part_v), static_cast<const int*>(part_i),
-      static_cast<const float*>(part_m), static_cast<const float*>(part_s),
-      n_rows, kc, n_split, static_cast<float*>(vals), static_cast<int*>(idx),
-      static_cast<float*>(lse));
+  const float* pv = static_cast<const float*>(part_v);
+  const int* pi = static_cast<const int*>(part_i);
+  const float* pm = static_cast<const float*>(part_m);
+  const float* ps = static_cast<const float*>(part_s);
+  float* ov = static_cast<float*>(vals);
+  int* oi = static_cast<int*>(idx);
+  float* ol = static_cast<float*>(lse);
+  const int warp_blocks = (n_rows + kMergeWarps - 1) / kMergeWarps;
+  switch (slots_for(kc)) {
+    case 1:
+      beamgen_merge_warp_kernel<1><<<warp_blocks, kMergeWarps * 32, 0, s>>>(
+          pv, pi, pm, ps, n_rows, kc, n_split, ov, oi, ol);
+      break;
+    case 2:
+      beamgen_merge_warp_kernel<2><<<warp_blocks, kMergeWarps * 32, 0, s>>>(
+          pv, pi, pm, ps, n_rows, kc, n_split, ov, oi, ol);
+      break;
+    default:
+      beamgen_merge_warp_kernel<4><<<warp_blocks, kMergeWarps * 32, 0, s>>>(
+          pv, pi, pm, ps, n_rows, kc, n_split, ov, oi, ol);
+      break;
+  }
   return (int)cudaGetLastError();
 }

@@ -11,6 +11,7 @@ pipelined kernel, and an optional vocabulary shortlist.
 table of H100 rows (``ops.dispatch.prefer_pipelined_generator`` /
 ``prefer_pruned_generator`` at the step's rows and kc), as the JAX package
 resolves them from its TPU table; every choice gives the same outputs.
+An unmeasured kc above 32 prunes (``dispatch.PRUNE_ABOVE_KC``).
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ from ..ops.dispatch import prefer_pipelined_generator, prefer_pruned_generator
 from ..ops.kernels.beamgen import (
     MAX_KC,
     aligned_table,
-    beamgen_supported,
     generator_topk_lse,
     generator_topk_lse_reference,
 )
@@ -74,9 +74,9 @@ def make_fused_beam_step(model, memory: torch.Tensor,
                          prune: bool | None = None,
                          shortlist=None) -> Optional[Callable]:
     """``(state, tokens) -> (state, (vals, idx, lse))`` or None when the
-    model cannot take the fused path, or the kernels do not hold the shape:
-    ``kc`` above ``MAX_KC`` or an E that ``beamgen_supported`` refuses.  The
-    caller then decodes through the model's logits step, which is exact.
+    model cannot take the fused path, or ``kc`` is above ``MAX_KC`` = 128
+    (the JAX kernel's own top-kc); the kernels hold every E.  The caller
+    then decodes through the model's logits step, which is exact.
     ``memory`` and ``memory_mask`` must already be beam-tiled.  The
     transposed table is built once here and reused by every step.
 
@@ -87,7 +87,7 @@ def make_fused_beam_step(model, memory: torch.Tensor,
     ``shortlist``: int32 ``[C]`` sorted vocab ids (``decode/shortlist.py``)
     -- the generator scores only these columns and the returned indices
     are mapped back to vocab ids."""
-    if not can_fuse_generator(model):
+    if not can_fuse_generator(model) or kc > MAX_KC:
         return None
     table_t, scale = fused_generator_table(model, dtype)
     rows = memory.shape[0]
@@ -97,9 +97,6 @@ def make_fused_beam_step(model, memory: torch.Tensor,
         prune = prefer_pruned_generator(rows, kc)
     pipeline = bool(pipeline) and scale is None
     prune = bool(prune) and not pipeline
-    if kc > MAX_KC or not beamgen_supported(table_t.shape[0], dtype,
-                                            pipeline):
-        return None
     sl = None
     if shortlist is not None:
         table_t, scale, sl = _shortlisted(table_t, scale, shortlist)

@@ -24,7 +24,8 @@ on it rather than trade a kernel for plain PyTorch on the card (every
 H100 row measured so far prefers the kernel).  Choices between two exact
 kernel variants (the chunked top-k, the pipelined or pruned generator)
 keep the JAX default, off, unless a row measured the variant faster by
-the margin.
+the margin; the one exception is the pruned generator above
+``PRUNE_ABOVE_KC``, on by default (``prefer_pruned_generator``).
 
 ``prefer_fused_bookkeeping`` has no counterpart: the port's beam search
 has one bookkeeping, which the JAX package's ``legacy`` and ``fused`` both
@@ -46,6 +47,13 @@ SCAN_FASTER_ROWS = 6000
 # the lookup takes it: timing noise between runs must not flip an exact,
 # speed-only decision.
 NEAR_TIE_MARGIN = 0.05
+
+# Above this top-kc (one slot a lane in kernel 2's running top-kc) an
+# unmeasured row count prunes: the unpruned kernel's kc argmax passes a
+# vocab tile cost it 3-31x the pruned kernel's time at kc 33-128 on the
+# H100, in both dtypes (PERF.md, "Generator kernels past top-32 and one x
+# tile").
+PRUNE_ABOVE_KC = 32
 
 TABLE_PATH = Path(__file__).with_name("dispatch_table.json")
 
@@ -145,11 +153,12 @@ def prefer_pruned_generator(rows: int, kc: int) -> bool:
     """Should the serial generator kernel skip the selection of a vocab
     tile whose best score cannot enter any row's top-kc (``prune``;
     exact, ties included)?  Measured ``beam_gen_prune`` rows (exact
-    ``kc``, nearest rows) decide; unmeasured: no."""
+    ``kc``, nearest rows) decide; unmeasured: no up to ``PRUNE_ABOVE_KC``
+    (the JAX default), yes above it."""
     matches = [x for x in _load_table()
                if x["kind"] == "beam_gen_prune" and x["kc"] == kc]
     if not matches:
-        return False
+        return kc > PRUNE_ABOVE_KC
     best = _nearest(matches, rows=rows)
     return best["prune_ms"] < (1 - NEAR_TIE_MARGIN) * best["base_ms"]
 

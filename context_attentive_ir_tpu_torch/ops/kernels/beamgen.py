@@ -28,7 +28,12 @@ tensor-core products of the staged x rows and table slabs streamed by
 ``cp.async`` (an int8 table widened to bf16 in shared memory); kernel 3
 runs the product and the selection on two warp groups with two score
 buffers.  Float32 ``x`` keeps the exact CUDA-core kernels (one f32 FMA per
-product).  ``beamgen_supported`` states the E the shared tiles hold.
+product).  Every kernel takes any E: past the E whose whole x tile a
+block's shared memory holds (``beamgen_streams_x``), x is streamed in
+k-slabs beside the table's (bf16) or staged in chunks of k-rows (float32),
+the products in the same k order.  The running top-kc takes any kc up to
+``MAX_KC`` = 128, as the TPU kernel: a row's entries lie across its warp's
+lanes, ``slots(kc)`` registers a lane.
 
 Ties go to the lower vocab index, as ``lax.top_k``.  Each mode keeps its
 own launch count: ``launches`` (float table, serial), ``launches_pruned``
@@ -59,36 +64,75 @@ import torch
 from ...device import check_on, resolve_device
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-MAX_KC = 32
+MAX_KC = 128       # the running top-kc (kMaxK; the TPU kernel's _KPAD)
 ROW_BLOCK = 64     # rows of a block (csrc/beamgen_common.cuh: kRowBlock)
 TILE = 128         # vocab columns of a tile (kTile)
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on the H100
-# the bf16 tiles (namespace tc): score buffer, slab ring, mbarrier header
+# the bf16 tiles (namespace tc): score buffer, a ring slot's table slab
+# and streamed x slab (4 slots of 32 k-rows), mbarrier header
 _SCORE_BYTES = ROW_BLOCK * (TILE + 8) * 4
-_RING_BYTES = 4 * 32 * (TILE * 2 + 16)
+_SLAB_BYTES = 32 * (TILE * 2 + 16)
+_XSLAB_BYTES = ROW_BLOCK * (32 * 2 + 16)
 _HEADER = 64
-_F32_STAGE_BYTES = 32_768  # one slot of the float32 pipelined kernel's ring
+# the float32 kernels: kernel 3's ring of two 64-row table stages (32 KB
+# each; streamed, two 64-row x stages beside them), kernel 2's streamed x
+# chunk of 256 k-rows
+_F32_STAGE_ROWS = 64
+_F32_X_CHUNK = 256
 
 
-def beamgen_smem_bytes(e: int, dtype: torch.dtype,
-                       pipeline: bool = False) -> int:
-    """Dynamic shared memory of a partial-kernel block at E = ``e`` for x
-    of ``dtype`` (``tc::smem_bytes`` / ``plan`` in ``csrc/beamgen.cu``).
-    bfloat16: (kernel 3's mbarriers,) the x tile of 64 rows of ``ep(e)``
-    bf16 (E rounded up to 16, the last k-slab zero-filled) plus 16 bytes
-    each, one f32 score buffer (two for kernel 3) and the slab ring.
-    float32: the f32 x tile (and kernel 3's two 32 KB stages)."""
+def slots(kc: int) -> int:
+    """Registers a lane gives each row's running top-kc (``slots_for``):
+    entry p lies on lane p % 32 in slot p // 32."""
+    return 1 if kc <= 32 else 2 if kc <= 64 else 4
+
+
+def _smem_bytes(e: int, dtype: torch.dtype, pipeline: bool,
+                stream: bool) -> int:
+    row = ROW_BLOCK * 4
     if dtype == torch.float32:
-        return e * ROW_BLOCK * 4 + (2 * _F32_STAGE_BYTES if pipeline else 0)
+        if pipeline:
+            return (2 * _F32_STAGE_ROWS * TILE * 4
+                    + (2 * _F32_STAGE_ROWS if stream else e) * row)
+        return (_F32_X_CHUNK if stream else e) * row
     ep = -(-e // 16) * 16
-    return ((_HEADER if pipeline else 0) + ROW_BLOCK * (2 * ep + 16)
-            + (2 if pipeline else 1) * _SCORE_BYTES + _RING_BYTES)
+    return ((_HEADER if pipeline else 0)
+            + (0 if stream else ROW_BLOCK * (2 * ep + 16))
+            + (2 if pipeline else 1) * _SCORE_BYTES
+            + 4 * (_SLAB_BYTES + (_XSLAB_BYTES if stream else 0)))
+
+
+def beamgen_streams_x(e: int, dtype: torch.dtype,
+                      pipeline: bool = False) -> bool:
+    """Whether a block streams x past E = ``e`` (``tc::stream_x`` /
+    ``f32_stream_x``): exactly when the whole x tile does not fit --
+    bfloat16 E > 1,264 (kernel 3: > 976), float32 E > 908 (> 652)."""
+    return _smem_bytes(e, dtype, pipeline, False) > SMEM_LIMIT
+
+
+def beamgen_smem_bytes(e: int, dtype: torch.dtype, pipeline: bool = False,
+                       kc: int = 1) -> int:
+    """Dynamic shared memory of a partial-kernel block at E = ``e`` and
+    top-``kc`` for x of ``dtype`` (``plan`` in ``csrc/beamgen.cu``, which
+    ``cair_beamgen_smem`` returns).  bfloat16: (kernel 3's mbarriers,) the
+    x tile of 64 rows of ``ep(e)`` bf16 (E rounded up to 16, the last
+    k-slab zero-filled) plus 16 bytes each unless x is streamed, one f32
+    score buffer (two for kernel 3) and the ring of four slots, each a
+    table slab and, streamed, its [64, 32] x slab.  float32: the f32 x
+    tile, or kernel 2's 256-row x chunk (and kernel 3's two 32 KB table
+    stages, streamed with two 16 KB x stages).  The running top-kc lies in
+    registers, so ``kc`` does not change the sum."""
+    if not 1 <= kc <= MAX_KC:
+        raise ValueError(f"kc={kc}: the kernels keep a running top-kc of "
+                         f"1 to {MAX_KC} entries")
+    return _smem_bytes(e, dtype, pipeline,
+                       beamgen_streams_x(e, dtype, pipeline))
 
 
 def beamgen_supported(e: int, dtype: torch.dtype,
                       pipeline: bool = False) -> bool:
-    """Whether the kernels hold E = ``e`` for x of ``dtype``: bfloat16
-    E <= 1,264 (kernel 3: <= 976), float32 E <= 908 (kernel 3: <= 652).
+    """Whether the kernels hold E = ``e`` for x of ``dtype``: every E >= 1
+    (x streamed past the whole tile), as the JAX kernel, which pads any E.
     The launcher refuses exactly the E this rejects."""
     return e >= 1 and beamgen_smem_bytes(e, dtype, pipeline) <= SMEM_LIMIT
 
@@ -139,15 +183,17 @@ def _sm_count(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _blocks_per_sm(index: int, e: int, x_code: int, t_code: int) -> int:
+def _blocks_per_sm(index: int, e: int, x_code: int, t_code: int,
+                   n_slots: int = 1) -> int:
     """Blocks of the serial partial kernel one SM of card ``index`` holds
-    at E = ``e`` (refused, with the launcher's error, past the limit)."""
+    at E = ``e`` with ``n_slots`` top-kc slots a lane (their registers set
+    the bf16 kernel's residency)."""
     from .build import check, load_library
 
     blocks = ctypes.c_int()
     with torch.cuda.device(index):
         check(load_library().cair_beamgen_occupancy(
-            e, x_code, t_code, 0, 0, ctypes.byref(blocks)),
+            e, 32 * n_slots, x_code, t_code, 0, 0, ctypes.byref(blocks)),
             "cair_beamgen_occupancy")
     return blocks.value
 
@@ -203,9 +249,9 @@ def generator_topk_lse(x: torch.Tensor, table_t: torch.Tensor, kc: int,
     ``scale`` with ``pipeline``, raise.  ``table_t`` may be a view with
     unit column stride whose rows lie further apart (``aligned_table``).
 
-    On CUDA tensors this launches ``cair_beamgen`` (``kc <= MAX_KC``); on
-    CPU tensors (``device="cpu"``) it runs ``generator_topk_lse_reference``
-    at any ``1 <= kc <= V``."""
+    On CUDA tensors this launches ``cair_beamgen`` (``kc <= MAX_KC`` = 128,
+    any E); on CPU tensors (``device="cpu"``) it runs
+    ``generator_topk_lse_reference`` at any ``1 <= kc <= V``."""
     dev = resolve_device(device)
     tensors = (x, table_t) if scale is None else (x, table_t, scale)
     check_on(dev, *tensors)
@@ -232,6 +278,15 @@ def generator_topk_lse(x: torch.Tensor, table_t: torch.Tensor, kc: int,
     from .build import launch
 
     table_t = aligned_table(table_t)  # a copy only for an unaligned table
+    ldx = E
+    if (x.dtype == torch.bfloat16 and beamgen_streams_x(E, x.dtype, pipeline)
+            and (E % 8 or x.data_ptr() % 16)):
+        # streamed x is copied in 16-byte pieces: rows a multiple of 8
+        # columns apart, the padding zero
+        ldx = -(-E // 8) * 8
+        padded = x.new_zeros((R, ldx))
+        padded[:, :E] = x
+        x = padded
     index = (x.device.index if x.device.index is not None
              else torch.cuda.current_device())
     x_code, t_code = _DTYPES[x.dtype], _DTYPES[table_t.dtype]
@@ -239,12 +294,13 @@ def generator_topk_lse(x: torch.Tensor, table_t: torch.Tensor, kc: int,
         n_split, per_split = vocab_splits(R, V, 2 * _sm_count(index),
                                           whole_wave=False)
     else:
-        # sized by the serial kernel's residency whatever the mode: every
-        # mode of one table merges the same partials in the same order, so
-        # every mode gives the same bits (kernel 3, one block an SM, runs
-        # the grid in two waves)
+        # sized by the serial kernel's residency at this kc whatever the
+        # mode: every mode of one table merges the same partials in the
+        # same order, so every mode gives the same bits (kernel 3, one
+        # block an SM, runs the grid in two waves)
         n_split, per_split = vocab_splits(
-            R, V, _sm_count(index) * _blocks_per_sm(index, E, x_code, t_code))
+            R, V, _sm_count(index) * _blocks_per_sm(index, E, x_code, t_code,
+                                                    slots(kc)))
     f32 = dict(dtype=torch.float32, device=x.device)
     i32 = dict(dtype=torch.int32, device=x.device)
     part_v = torch.empty((n_split, R, kc), **f32)
@@ -254,11 +310,10 @@ def generator_topk_lse(x: torch.Tensor, table_t: torch.Tensor, kc: int,
     vals = torch.empty((R, kc), **f32)
     idx = torch.empty((R, kc), **i32)
     lse = torch.empty((R,), **f32)
-    # the launcher refuses an E too large for its shared tiles
     launch(
         "cair_beamgen", x.device,
         x.data_ptr(), table_t.data_ptr(),
-        None if scale is None else scale.data_ptr(), R, E, V,
+        None if scale is None else scale.data_ptr(), R, E, ldx, V,
         table_t.stride(0), kc, n_split, per_split, part_v.data_ptr(),
         part_i.data_ptr(), part_m.data_ptr(), part_s.data_ptr(),
         vals.data_ptr(), idx.data_ptr(), lse.data_ptr(), x_code, t_code,

@@ -41,8 +41,10 @@ SIGNATURES = {
     "cair_gru_fwd_res": ([_P] * 8 + [_I] * 7 + [_P], _I),
     "cair_gru_bwd_workspace": ([_I] * 7, ctypes.c_longlong),
     "cair_gru_bwd": ([_P] * 16 + [_I] * 8 + [_P], _I),
-    "cair_beamgen_occupancy": ([_I] * 5 + [_IP], _I),
-    "cair_beamgen": ([_P, _P, _P] + [_I] * 7 + [_P] * 7 + [_I] * 4 + [_P],
+    "cair_beamgen_smem": ([_I] * 6 + [ctypes.POINTER(ctypes.c_longlong),
+                                      _IP], _I),
+    "cair_beamgen_occupancy": ([_I] * 6 + [_IP], _I),
+    "cair_beamgen": ([_P, _P, _P] + [_I] * 8 + [_P] * 7 + [_I] * 4 + [_P],
                      _I),
     "cair_slate_pool": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "cair_error_string": ([_I], ctypes.c_char_p),

@@ -15,8 +15,8 @@ runs beam search (or greedy at
 ``beam_size=1``).  CARS with a tied generator decodes through the fused
 generator step -- top-``beam_size + 1`` for beam, top-2 for greedy -- so
 the ``[rows, V]`` logits never exist, wherever the kernels hold the shape
-(``make_fused_beam_step``: top-kc up to 32, so beam up to 31, and the
-emsize ``beamgen_supported`` states); past that, untied, and for every
+(``make_fused_beam_step``: top-kc up to 128, so beam up to 127, the JAX
+kernel's limit, at any emsize); past that, untied, and for every
 other model, none of which has a fused step in the JAX package either, it
 decodes through the model's logits step, which is exact.  M-NSRF and
 M-MatchTensor decode every turn of the session (``B*S`` rows) from the
@@ -462,9 +462,7 @@ class Engine:
                     raise ServeError(
                         f"suggest_shortlist on the card runs the fused "
                         f"generator kernel, which holds top-{MAX_KC} "
-                        f"(beam_size <= {MAX_KC - 1}) and the emsize "
-                        f"beamgen_supported states; got top-{kc} at "
-                        f"emsize {self.config.emsize}")
+                        f"(beam_size <= {MAX_KC - 1}); got top-{kc}")
                 step = make_shortlist_xla_step(model, memory, memory_mask,
                                                kc, dtype, shortlist)
         if step is None:

@@ -14,7 +14,10 @@ the bf16 tiles below H = 512 ([1000, 9, 512] -> 256, [2000, 13, 300] ->
 recurrence on
 precomputed gates) at x_proj [16000, 30, 512] -> 128, the generator's kernel 2
 (serial, ``prune``, int8 ``scale``) and 3 (``pipeline``) at the beam-5
-step's shape (R = 1600, E = 256, V = 50,000, kc = 6), and the slate pool's
+step's shape (R = 1600, E = 256, V = 50,000, kc = 6), the greedy step's (R
+= 320, kc = 2), the old top-kc (R = 1605, E = 300, kc = 32) and each
+dtype's last whole x tile of kernel 3 (E = 976 bf16, 652 float32), each
+generator line ending in its serial kernel's time, and the slate pool's
 kernel 10 at the rank slate's and suggest init's shapes ([16000, 30, 256]
 and [1280, 30, 256]), in float32 and bfloat16, with a digest of each
 output's bytes.  Two checkouts print the
@@ -43,6 +46,11 @@ RNN_SHAPES = ((ROWS, STEPS, EMBED, HIDDEN), (ROWS, STEPS, EMBED, 256),
               (1000, 9, 512, 256), (2000, 13, 300, 384))
 ITERS = 5
 BEAM_ROWS, VOCAB, KC = 1600, 50_000, 6
+# (rows, E, kc) of the generator digests: the beam-5 and greedy steps, the
+# old top-32 off the row block, kernel 3's last whole x tile (E by dtype)
+GEN_SHAPES = ((BEAM_ROWS, EMBED, KC), (320, EMBED, 2), (1605, 300, 32),
+              (BEAM_ROWS, None, KC))
+WHOLE_TILE = {torch.float32: 652, torch.bfloat16: 976}
 
 
 def digest(*tensors) -> str:
@@ -87,12 +95,12 @@ def timed_ms(fn) -> float:
     return start.elapsed_time(end) / ITERS
 
 
-def generator_inputs(dtype):
-    """x [1600, 256], table_t [256, 50000] and its int8 form (q_t, scale),
-    made on the CPU from one seed."""
+def generator_inputs(dtype, rows=BEAM_ROWS, embed=EMBED):
+    """x [rows, embed], table_t [embed, 50000] and its int8 form (q_t,
+    scale), made on the CPU from one seed."""
     gen = torch.Generator().manual_seed(2)
-    x = torch.randn((BEAM_ROWS, EMBED), generator=gen) * 0.5
-    emb = torch.randn((VOCAB, EMBED), generator=gen) * 0.5
+    x = torch.randn((rows, embed), generator=gen) * 0.5
+    emb = torch.randn((VOCAB, embed), generator=gen) * 0.5
     scale = emb.abs().amax(-1) / 127.0
     q_t = torch.round(emb / scale[:, None]).to(torch.int8).t().contiguous()
     return (x.to("cuda", dtype), emb.t().contiguous().to("cuda", dtype),
@@ -100,17 +108,27 @@ def generator_inputs(dtype):
 
 
 def generator_digests(beamgen, dtype, name: str) -> None:
-    x, table_t, q_t, scale = generator_inputs(dtype)
-    for kernel, table, kw in (
-            ("generator_topk_lse", table_t, {}),
-            ("generator_topk_lse_pruned", table_t, {"prune": True}),
-            ("generator_topk_lse_int8", q_t, {"scale": scale}),
-            ("generator_topk_lse_int8_pruned", q_t,
-             {"scale": scale, "prune": True}),
-            ("generator_topk_lse_pipelined", table_t, {"pipeline": True})):
-        out = beamgen.generator_topk_lse(x, table, KC, **kw)
-        torch.cuda.synchronize()
-        print(f"{kernel} {name}: {digest(*out)}", flush=True)
+    for rows, embed, kc in GEN_SHAPES:
+        embed = embed or WHOLE_TILE[dtype]
+        x, table_t, q_t, scale = generator_inputs(dtype, rows, embed)
+        at = "" if (rows, embed, kc) == GEN_SHAPES[0] else \
+            f" R={rows} E={embed} kc={kc}"
+        for kernel, table, kw in (
+                ("generator_topk_lse", table_t, {}),
+                ("generator_topk_lse_pruned", table_t, {"prune": True}),
+                ("generator_topk_lse_int8", q_t, {"scale": scale}),
+                ("generator_topk_lse_int8_pruned", q_t,
+                 {"scale": scale, "prune": True}),
+                ("generator_topk_lse_pipelined", table_t,
+                 {"pipeline": True})):
+            out = beamgen.generator_topk_lse(x, table, kc, **kw)
+            torch.cuda.synchronize()
+            line = f"{kernel} {name}{at}: {digest(*out)}"
+            if not kw:
+                ms = timed_ms(lambda: beamgen.generator_topk_lse(x, table,
+                                                                 kc))
+                line += f" | {ms:.3f} ms"
+            print(line, flush=True)
 
 
 def recurrence_digests(lstm, dtype, name: str) -> None:

@@ -7,12 +7,17 @@ row blocks of 64 rows; the vocab cut into 128-column tiles and split into
 runs of tiles (``vocab_splits``); per (row block, split) an online
 logsumexp and a running top-kc over the tiles in ascending order, the
 selection of a tile skipped for a row when ``prune`` finds no column of
-the tile beating the row's kc-th entry; an int8 table widened to bf16
-(exact) before the dot and the scale applied to the f32 score after it;
-the table read through its padded row stride with columns past the
-logical V masked; then the merge of the splits per row in split order
-(the lse merge ``m + log(sum_s s_s * exp(m_s - m))``, the top-kc by the
-kernel's tie rule: larger value, else lower index).
+the tile beating the row's kc-th entry; a tile's scores summed over x's
+k-slabs in ascending k where the kernels stream x (``slab``); an int8
+table widened to bf16 (exact) before the dot and the scale applied to the
+f32 score after it; the table read through its padded row stride with
+columns past the logical V masked; the running top-kc held as the
+kernels hold it, entry p on lane p % 32 in slot p // 32 (``slots``
+registers a lane); then the merge of the splits per row in split order
+(the lse merge ``m + log(sum_s s_s * exp(m_s - m))``; the top-kc by the
+kernel's tie rule, larger value, else lower index, as the warp merge
+runs it: each split's sorted entries inserted one by one until one no
+longer beats the running kc-th).
 
 JAX side: ``generator_topk_lse`` in Pallas interpret mode and its XLA
 reference.  Tolerance: on integer-valued data vals and idx bit-exact and
@@ -46,18 +51,18 @@ NO_INDEX = 2 ** 31 - 1
 BF16, F32 = torch.bfloat16, torch.float32
 
 
-def _data(seed, r, v, integer=False, int8=False, front=False):
-    """x [r, E] f32 and table_t [E, v] (int8 with its scale [v] when
+def _data(seed, r, v, integer=False, int8=False, front=False, e=E):
+    """x [r, e] f32 and table_t [e, v] (int8 with its scale [v] when
     ``int8``: integer data small integers with power-of-two scales, random
     data through the JAX package's quantizer); ``front`` puts every row's
     top scores in the first 128 columns, so ``prune`` skips later tiles."""
     rng = np.random.RandomState(seed)
     if integer:
-        x = rng.randint(-3, 4, size=(r, E)).astype(np.float32)
-        t = rng.randint(-3, 4, size=(E, v)).astype(np.float32)
+        x = rng.randint(-3, 4, size=(r, e)).astype(np.float32)
+        t = rng.randint(-3, 4, size=(e, v)).astype(np.float32)
     else:
-        x = (rng.normal(size=(r, E)) * 0.5).astype(np.float32)
-        t = (rng.normal(size=(E, v)) * 0.5).astype(np.float32)
+        x = (rng.normal(size=(r, e)) * 0.5).astype(np.float32)
+        t = (rng.normal(size=(e, v)) * 0.5).astype(np.float32)
     if front:
         x = np.abs(x) + 0.1
         t[:, :128] = np.abs(t[:, :128]) + 1.0
@@ -93,12 +98,61 @@ def _top(vals, idx, kc):
     return vals.gather(-1, order)[:, :kc], idx.gather(-1, order)[:, :kc]
 
 
+def _beats(av, ai, bv, bi):
+    """The kernels' order: a larger value, or an equal one at a lower
+    index."""
+    return (av > bv) | ((av == bv) & (ai < bi))
+
+
+def _insert(buf_v, buf_i, cv, ci, rows):
+    """``insert_entry`` for the rows ``rows`` (numpy, in place): (cv, ci),
+    which beats the row's kc-th entry, lands after the entries that beat
+    it; every later entry p takes entry p - 1's place (lane p % 32 - 1 of
+    slot p // 32, or lane 31 of the slot before) and the kc-th falls out.
+    Buffers are [rows, kc] in entry order p = 32 * slot + lane."""
+    bv, bi = buf_v[rows], buf_i[rows]
+    cv, ci = cv[rows, None], ci[rows, None]
+    pos = _beats(bv, bi, cv, ci).sum(-1, keepdims=True)
+    p = np.arange(bv.shape[1])
+    up_v = np.concatenate([bv[:, :1], bv[:, :-1]], -1)
+    up_i = np.concatenate([bi[:, :1], bi[:, :-1]], -1)
+    buf_v[rows] = np.where(p < pos, bv, np.where(p == pos, cv, up_v))
+    buf_i[rows] = np.where(p < pos, bi, np.where(p == pos, ci, up_i))
+
+
+def _warp_merge(part_v, part_i, kc):
+    """The warp merge: each split's sorted partial entered entry
+    by entry while the entry beats the running kc-th (a row stops at the
+    first that does not: the rest of that split cannot enter).  In numpy:
+    thousands of row-vector steps, each too small for torch's threads."""
+    part_v, part_i = part_v.numpy(), part_i.numpy()
+    r = part_v.shape[1]
+    vals = np.full((r, kc), -np.inf, np.float32)
+    idx = np.full((r, kc), NO_INDEX, np.int64)
+    for s in range(part_v.shape[0]):
+        live = np.ones(r, bool)
+        for q in range(kc):
+            cv, ci = part_v[s, :, q], part_i[s, :, q]
+            live &= _beats(cv, ci, vals[:, -1], idx[:, -1])
+            if not live.any():
+                break
+            _insert(vals, idx, cv, ci, live)
+    return torch.from_numpy(vals), torch.from_numpy(idx)
+
+
 def tiles_forward(x, table_t, kc, scale=None, prune=False, slots=264,
-                  whole_wave=True, stats=None):
+                  whole_wave=True, stats=None, slab=None):
     """The generator kernels' algorithm in plain PyTorch (f32): ``table_t``
     [E, V] may be a view whose rows lie ``ld`` elements apart; what lies
-    past V in a row is read with the tile and masked, as the kernels do."""
-    r, _ = x.shape
+    past V in a row is read with the tile and masked, as the kernels do.
+    ``slab``: x streamed in k-slabs of that many rows (32 for the bf16
+    kernels, 256 for float32 kernel 2, 64 for float32 kernel 3), each
+    tile's score the sum of the slabs' products in ascending k."""
+    r, e = x.shape
+    # the running top-kc as the kernels lay it out: slot j of lane l holds
+    # entry 32 * j + l, so [rows, slots, 32] flattens to entry order
+    n_slots = K.slots(kc)
+    assert 32 * n_slots >= kc
     v = table_t.shape[1]
     ld = table_t.stride(0)
     store = table_t.as_strided((table_t.shape[0], ld), (ld, 1))
@@ -118,13 +172,20 @@ def tiles_forward(x, table_t, kc, scale=None, prune=False, slots=264,
         for s in range(n_split):
             m = torch.full((xb.shape[0],), -torch.inf)
             ssum = torch.zeros(xb.shape[0])
-            buf_v = torch.full((xb.shape[0], kc), -torch.inf)
-            buf_i = torch.full((xb.shape[0], kc), NO_INDEX, dtype=torch.int64)
+            lanes = (xb.shape[0], n_slots, 32)
+            buf_v = torch.full(lanes, -torch.inf).flatten(1)[:, :kc]
+            buf_i = torch.full(lanes, NO_INDEX,
+                               dtype=torch.int64).flatten(1)[:, :kc]
             for tile in range(s * per, min(n_tiles, (s + 1) * per)):
                 cols = torch.arange(tile * K.TILE, (tile + 1) * K.TILE)
                 ok = cols < v
                 tile_t = store[:, cols.clamp(max=ld - 1)]
-                sc = xb @ tile_t
+                if slab is None:
+                    sc = xb @ tile_t
+                else:
+                    sc = torch.zeros((xb.shape[0], K.TILE))
+                    for k0 in range(0, e, slab):
+                        sc = sc + xb[:, k0:k0 + slab] @ tile_t[k0:k0 + slab]
                 if scale is not None:
                     sc = sc * torch.where(ok, scale[cols.clamp(max=v - 1)],
                                           1.0)
@@ -152,11 +213,7 @@ def tiles_forward(x, table_t, kc, scale=None, prune=False, slots=264,
     total = torch.zeros(r)
     for s in range(n_split):
         total = total + part_s[s] * torch.exp(part_m[s] - m)
-    vals = torch.full((r, kc), -torch.inf)
-    idx = torch.full((r, kc), NO_INDEX, dtype=torch.int64)
-    for s in range(n_split):
-        vals, idx = _top(torch.cat([vals, part_v[s]], -1),
-                         torch.cat([idx, part_i[s]], -1), kc)
+    vals, idx = _warp_merge(part_v, part_i, kc)
     return (vals.numpy(), idx.to(torch.int32).numpy(),
             (m + torch.log(total)).numpy())
 
@@ -181,8 +238,22 @@ def _agree(got, refs, integer):
 
 # -- the emulation against the JAX package ----------------------------------
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The emulation runs thousands of small tensor ops; in a test worker
+    beside five others torch's intra-op threads contend for the cores (a
+    case took 30-70 s in the suite against 1-4 s alone), so this module
+    runs them on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 SHAPES = [(53, 999), (129, 1002)]   # R off the 64-row block; V off the tile,
-KCS = [1, 2, 6, 32]                 # 1002 = 2 mod 8 (unaligned bf16 rows)
+# 1002 = 2 mod 8 (unaligned bf16 rows); kc past one slot (33), at two
+# slots' end (64) and at the top (128, the JAX kernel's _KPAD)
+KCS = [1, 2, 6, 32, 33, 64, 128]
 _JAX_CACHE = {}
 
 
@@ -191,7 +262,7 @@ def _case(shape, integer, int8):
     if key not in _JAX_CACHE:
         r, v = shape
         x, t, scale = _data(7 + 2 * r + integer, r, v, integer, int8)
-        _JAX_CACHE[key] = (x, t, scale, _jax(x, t, scale, 32))
+        _JAX_CACHE[key] = (x, t, scale, _jax(x, t, scale, K.MAX_KC))
     return _JAX_CACHE[key]
 
 
@@ -200,13 +271,54 @@ def _case(shape, integer, int8):
 @pytest.mark.parametrize("shape", SHAPES, ids=["53x999", "129x1002"])
 def test_tiles_match_jax(shape, mode, data):
     """Every kc of one case against the JAX kernel's and reference's
-    top-32 (whose first kc entries are the top-kc)."""
+    top-128 (whose first kc entries are the top-kc)."""
     integer = data == "integer"
     x, t, scale, refs = _case(shape, integer, mode.startswith("int8"))
     for kc in KCS:
         got = _emulate(x, t, scale, kc, prune=mode.endswith("prune"))
         _agree(got, [(v[:, :kc], i[:, :kc], lse) for v, i, lse in refs],
                integer)
+
+
+# (E, slab, kernel): past every whole x tile -- E = 1,300 above bf16
+# kernel 2's 1,264, E = 2,100 above everything -- with each kernel's slab
+WIDE = [(1300, 32, "bf16"), (2100, 32, "bf16"), (1300, 256, "f32"),
+        (2100, 64, "f32-pipeline")]
+
+
+@pytest.mark.parametrize("data", ["integer", "random"])
+@pytest.mark.parametrize("e,slab,kernel", WIDE,
+                         ids=[f"E{e}-{k}" for e, _, k in WIDE])
+def test_streamed_x_slabs_match_jax(e, slab, kernel, data):
+    """x in k-slabs: each tile's score summed slab by slab in ascending k,
+    at kc 6 and 128 (one slot and four), pruned and not, against the JAX
+    kernel (E padded to 128 inside it) and its reference.  Integer data:
+    vals and idx bit-exact, lse within 1e-6 relative.  Random data: idx
+    exact, lse within 1e-5 relative, vals within 1e-5 of the row's largest
+    score (a sum of E = 2,100 products in another order moves a score by
+    an amount set by the terms' size, not by the score's own)."""
+    integer = data == "integer"
+    dtype = F32 if kernel.startswith("f32") else BF16
+    pipeline = kernel.endswith("pipeline")
+    assert K.beamgen_streams_x(e, dtype, pipeline)
+    key = ("wide", e, integer)
+    if key not in _JAX_CACHE:   # one JAX run per E and data kind
+        x, t, _ = _data(17 + e + integer, 53, 300, integer, e=e)
+        _JAX_CACHE[key] = (x, t, _jax(x, t, None, K.MAX_KC))
+    x, t, refs = _JAX_CACHE[key]
+    for kc in (6, 128):
+        for prune in (False, True):
+            v, i, lse = _emulate(x, t, None, kc, prune=prune, slab=slab)
+            for rv, ri, rlse in refs:
+                rv, ri = rv[:, :kc], ri[:, :kc]
+                np.testing.assert_array_equal(i, ri)
+                if integer:
+                    np.testing.assert_array_equal(v, rv)
+                else:
+                    top = np.abs(rv).max(-1, keepdims=True)
+                    assert (np.abs(v - rv) <= 1e-5 * top).all()
+                np.testing.assert_allclose(
+                    lse, rlse, rtol=1e-6 if integer else 1e-5, atol=0)
 
 
 @pytest.mark.parametrize("slots,whole_wave", [(1, True), (3, True),
@@ -356,18 +468,47 @@ def test_decoders_build_the_padded_table_once():
 # -- the shared tiles' limits ------------------------------------------------
 
 
-@pytest.mark.parametrize("dtype,pipeline,top", [(BF16, False, 1264),
-                                                (BF16, True, 976),
-                                                (F32, False, 908),
-                                                (F32, True, 652)])
+# the last E whose whole x tile fits, per dtype and kernel
+WHOLE_TILE_TOPS = [(BF16, False, 1264), (BF16, True, 976), (F32, False, 908),
+                   (F32, True, 652)]
+
+
+def _launcher_smem(e, dtype, pipeline):
+    """``plan`` in csrc/beamgen.cu, written out: (the pipelined header,)
+    the whole x tile or none, the score buffer(s) and the ring (bf16);
+    the f32 x tile or its streamed chunks and kernel 3's table stages."""
+    if dtype == F32:
+        stages = 2 * 64 * 128 * 4 if pipeline else 0
+        rows = (128 if pipeline else 256) if e > (652 if pipeline else 908) \
+            else e
+        return stages + rows * 64 * 4
+    stream = e > (976 if pipeline else 1264)
+    x_tile = 0 if stream else 64 * (2 * (-(-e // 16) * 16) + 16)
+    slot = 32 * (2 * 128 + 16) + (64 * (2 * 32 + 16) if stream else 0)
+    return ((64 if pipeline else 0) + x_tile
+            + (2 if pipeline else 1) * 64 * 136 * 4 + 4 * slot)
+
+
+@pytest.mark.parametrize("dtype,pipeline,top", WHOLE_TILE_TOPS)
 def test_beamgen_supported_at_and_past_each_limit(dtype, pipeline, top):
-    assert K.beamgen_supported(top, dtype, pipeline)
-    assert not K.beamgen_supported(top + 1, dtype, pipeline)
+    """Every E >= 1 is held: up to ``top`` with the whole x tile, past it
+    with x streamed (the switch of ``tc::stream_x`` / ``f32_stream_x``);
+    ``beamgen_smem_bytes`` is the launcher's sum at every (E, kc, mode),
+    and the kc it takes is the JAX kernel's 1 .. 128."""
+    assert not K.beamgen_streams_x(top, dtype, pipeline)
+    assert K.beamgen_streams_x(top + 1, dtype, pipeline)
     assert K.beamgen_smem_bytes(top, dtype, pipeline) <= K.SMEM_LIMIT
-    assert K.beamgen_smem_bytes(top + 1, dtype, pipeline) > K.SMEM_LIMIT
-    for e in (1, 100, 256, 300):
+    for e in (1, 15, 16, 100, 256, 300, top, top + 1, 1300, 2048, 2100,
+              4096, 12_288):
         assert K.beamgen_supported(e, dtype, pipeline)
+        assert K.beamgen_streams_x(e, dtype, pipeline) is (e > top)
+        for kc in (1, 32, 33, 64, 65, 128):
+            assert (K.beamgen_smem_bytes(e, dtype, pipeline, kc)
+                    == _launcher_smem(e, dtype, pipeline) <= K.SMEM_LIMIT)
     assert not K.beamgen_supported(0, dtype, pipeline)
+    for kc in (0, 129):
+        with pytest.raises(ValueError, match="kc"):
+            K.beamgen_smem_bytes(256, dtype, pipeline, kc)
 
 
 def test_smem_bytes_of_the_serving_width():
@@ -379,3 +520,28 @@ def test_smem_bytes_of_the_serving_width():
     # E not a multiple of 16 stages the last k-slab zero-filled to 16
     assert K.beamgen_smem_bytes(300, BF16) == K.beamgen_smem_bytes(304, BF16)
     assert K.beamgen_smem_bytes(256, F32) == 256 * 64 * 4
+    # streamed: no x tile; four slots of a table slab and a [64, 32] x
+    # slab (80-byte rows)
+    assert (K.beamgen_smem_bytes(1536, BF16)
+            == 34_816 + 4 * (8_704 + 5_120) == 90_112)
+    assert (K.beamgen_smem_bytes(1536, BF16, pipeline=True)
+            == 64 + 2 * 34_816 + 4 * (8_704 + 5_120))
+    assert K.beamgen_smem_bytes(2048, F32) == 256 * 64 * 4
+    assert (K.beamgen_smem_bytes(2048, F32, pipeline=True)
+            == 2 * 32_768 + 2 * 64 * 64 * 4)
+
+
+def test_kc_limit_is_the_jax_kernels():
+    """The kernels' top-kc limit is the JAX kernel's lane-padded buffer
+    (``_KPAD``): it takes kc = 128 (``test_tiles_match_jax``) and asserts
+    at 129, as the port's wrapper refuses 129 on card tensors; the slots a
+    lane gives a row."""
+    from context_attentive_ir_tpu.ops.pallas import beamgen as jax_beamgen
+
+    assert K.MAX_KC == jax_beamgen._KPAD == 128
+    assert [K.slots(kc) for kc in (1, 32, 33, 64, 65, 128)] == [1, 1, 2, 2,
+                                                               4, 4]
+    x, t, _ = _data(3, 8, 200)
+    with pytest.raises(AssertionError):
+        jax_kernel(jnp.asarray(x), jnp.asarray(t), 129, block_r=64,
+                   block_v=256, interpret=True)

@@ -22,7 +22,7 @@ from context_attentive_ir_tpu.data import (
 from context_attentive_ir_tpu.data.objects import Session
 from context_attentive_ir_tpu.models import build_model
 from context_attentive_ir_tpu_torch.config import ModelConfig as PortConfig
-from context_attentive_ir_tpu_torch.convert import params_from_jax
+from context_attentive_ir_tpu_torch.convert import nest_tree, params_from_jax
 from context_attentive_ir_tpu_torch.data.vectorize import (
     SessionBatch as PortBatch,
 )
@@ -42,10 +42,16 @@ ABLATED = {"none": (), "no_click_flow": ("click_flow",),
            "no_context_attn": ("ctx_wq", "ctx_wm", "ctx_v", "ctx_gate")}
 
 
-def tiny_setup(n_sessions=6, seed=0, **overrides):
+def tiny_setup(n_sessions=6, seed=0, jax_init=True, extra_words=0,
+               **overrides):
     """(jax model, config, params, batch, word_dict, sessions) of a tiny
     f32 CARS; one turn clicks more candidates than ``suggest_max_clicks``.
-    ``overrides`` replace config fields (e.g. ``rnn_type="gru"``)."""
+    ``overrides`` replace config fields (e.g. ``rnn_type="gru"``).
+    ``jax_init=False`` draws every leaf uniform in [-0.1, 0.1) from
+    ``seed`` at the port's shapes, as the flax tree (the bridge is a
+    rename): a flax init runs op by op on the CPU, some 30 s at nhid
+    1,152.  ``extra_words`` adds that many words that no session uses to
+    the dictionary (the synthetic sessions hold 84 words)."""
     sessions = [Session.from_dict(d) for d in generate_sessions(
         n_sessions=n_sessions, n_candidates=8, seed=seed)]
     for d in sessions[0].queries[0].documents[:6]:
@@ -53,6 +59,7 @@ def tiny_setup(n_sessions=6, seed=0, **overrides):
     streams = [q.tokens for s in sessions for q in s.queries]
     streams += [d.tokens for s in sessions for q in s.queries
                 for d in q.documents]
+    streams.append([f"unused{i}" for i in range(extra_words)])
     word_dict = build_dictionary(streams)
     cfg = default_config("cars").replace(vocab_size=len(word_dict),
                                         **{**DIMS, **overrides})
@@ -61,8 +68,16 @@ def tiny_setup(n_sessions=6, seed=0, **overrides):
     batch = build_session_batch(sessions, word_dict, shapes,
                                 batch_size=n_sessions)
     model = build_model(cfg)
-    params = jax.device_get(model.init({"params": jax.random.key(seed)},
-                                       batch, True)["params"])
+    if jax_init:
+        params = jax.device_get(model.init({"params": jax.random.key(seed)},
+                                           batch, True)["params"])
+    else:
+        rng = np.random.default_rng(seed)
+        shapes = PortCARS(PortConfig.from_json(cfg.to_json()), device="meta",
+                          seed=None).state_dict()
+        params = nest_tree({
+            k: (rng.random(tuple(v.shape), dtype=np.float32) - 0.5) * 0.2
+            for k, v in shapes.items()})
     return model, cfg, params, batch, word_dict, sessions
 
 

@@ -123,6 +123,24 @@ def test_beam_gen_prune_dispatch(table):
         assert _both("prefer_pruned_generator", *args) == (want, want)
 
 
+def test_unmeasured_wide_top_kc_prunes(table):
+    """The intended difference: an unmeasured kc above one slot a lane
+    (``PRUNE_ABOVE_KC`` = 32) prunes in the port, where JAX keeps its
+    default (off); at and below it both keep off, and a measured row still
+    decides."""
+    table([dict(kind="beam_gen_prune", rows=12800, kc=41, prune_ms=9.0,
+                base_ms=8.0)])
+    assert dispatch.PRUNE_ABOVE_KC == 32
+    for rows in (320, 12800):
+        for kc in (2, 6, 32):
+            assert _both("prefer_pruned_generator", rows, kc) == (False,
+                                                                 False)
+        for kc in (33, 64, 128):
+            assert _both("prefer_pruned_generator", rows, kc) == (True,
+                                                                 False)
+        assert _both("prefer_pruned_generator", rows, 41) == (False, False)
+
+
 def test_nearest_row_point_decides(table):
     table([_entry(2000, kernel_ms=2.0, scan_ms=3.0),
            _entry(16000, kernel_ms=7.0, scan_ms=5.0)])

@@ -4,11 +4,13 @@
   H a multiple of 128 from 128 to 1024, at least 8 rows), and
   ``AttentionPool`` routes a width the JAX gate takes but the launcher
   does not (H = 1152) to the plain formulation on CPU tensors.
-- An ``Engine`` decodes at any beam up to V: past the fused generator
-  kernels' top-kc (``MAX_KC`` = 32, kc = beam + 1) ``make_fused_beam_step``
-  returns None and CARS decodes through its logits step, as the JAX engine
-  does; a CARS ``Engine`` at beams 32 and 40 gives the JAX ``Engine``'s
-  tokens.  The plain generator top-k takes any kc up to V.
+- An ``Engine`` decodes at any beam up to V: up to the fused generator
+  kernels' top-kc (``MAX_KC`` = 128, the JAX kernel's, kc = beam + 1) a
+  CARS ``Engine`` takes the fused step (beams 32 and 40, on the kernels'
+  plain version here), past it ``make_fused_beam_step`` returns None and
+  CARS decodes through its logits step, as the JAX engine does (beam
+  128); either way it gives the JAX ``Engine``'s tokens.  The plain
+  generator top-k takes any kc up to V.
 - The untied generator (``tie_embeddings=False``, a ``Dense(H2, V)`` named
   ``proj``) in CARS and HRED-QS: forward and loss against the JAX package,
   and no fused step.
@@ -95,11 +97,10 @@ def test_attention_pool_plain_on_cpu(hidden):
 # -- beams past the fused kernels' top-kc ---------------------------------------
 
 
-@pytest.fixture(scope="module")
-def served():
+def _served(**kw):
     """The tiny CARS of ``tests/test_torch_serve.py``: EOS logits that vary
     with the decoder state, so decodes end at different steps."""
-    _, cfg, params, _, word_dict, sessions = tiny_setup()
+    _, cfg, params, _, word_dict, sessions = tiny_setup(**kw)
     params = jax.tree_util.tree_map(np.array, params)
     table = params["embeddings"]["embedding"]
     table[EOS] *= 10.0
@@ -107,6 +108,18 @@ def served():
         0.05 * table[EOS] / (table[EOS] @ table[EOS]))
     pcfg = PortConfig.from_json(cfg.to_json())
     return cfg, word_dict, params, pcfg, sessions
+
+
+@pytest.fixture(scope="module")
+def served():
+    return _served()
+
+
+@pytest.fixture(scope="module")
+def served_wide():
+    """The same with 120 more words, so beam 128 (kc 129) fits the
+    vocabulary with a 160-word shortlist."""
+    return _served(extra_words=120)
 
 
 def _compare_engines(jax_eng, port_eng, hists):
@@ -122,15 +135,59 @@ def _compare_engines(jax_eng, port_eng, hists):
     return n_real
 
 
-@pytest.mark.parametrize("shortlist", [0, 48])
-@pytest.mark.parametrize("beam_size", [32, 40])
-def test_cars_engine_beyond_the_kernels_top_kc(served, beam_size, shortlist):
-    """Past the kernels' top-kc the Engine takes the logits step, or with a
-    shortlist the plain shortlist step on CPU tensors (on CUDA tensors it
-    raises), token-equal to the JAX Engine's."""
+def _compare_engines_tied(jax_eng, port_eng, hists, tol=1e-5):
+    """``_compare_engines`` where near-tied scores may swap places: at
+    beam 128 an untrained model's hypotheses lie ~1e-6 apart, below what
+    float32 sums in another order move them.  The JAX n-best's real
+    hypotheses fall into groups whose neighbouring scores lie within
+    ``tol``; each group holds the same texts in both lists, save the
+    members within ``tol`` of the last real score when the group reaches
+    the list's end (a tied hypothesis past the n-th may take one's
+    place), and the scores agree rank by rank within 1e-4.  Returns the
+    real hypotheses and the texts held, per request."""
+    ref, got = jax_eng.suggest_batch(hists), port_eng.suggest_batch(hists)
+    assert [len(nb) for nb in got] == [len(nb) for nb in ref]
+    counts = []
+    for nb_p, nb_j in zip(got, ref):
+        real = [k for k, (_, sj) in enumerate(nb_j) if sj > REAL]
+        last = nb_j[real[-1]][1] if real else 0.0
+        held, start = 0, 0
+        for k in range(1, len(real) + 1):
+            if k < len(real) and nb_j[real[k - 1]][1] - nb_j[real[k]][1] <= tol:
+                continue
+            group = real[start:k]
+            want = {nb_j[i][0] for i in group}
+            have = {nb_p[i][0] for i in group}
+            if k == len(real) and group[-1] == len(nb_j) - 1:
+                sure = {nb_j[i][0] for i in group if nb_j[i][1] - last > tol}
+                assert sure <= have
+                held += len(sure)
+            else:
+                assert have == want
+                held += len(group)
+            start = k
+        for k in real:
+            assert abs(nb_p[k][1] - nb_j[k][1]) <= 1e-4
+        counts.append((len(real), held))
+    return counts
+
+
+def _fused_calls(monkeypatch):
+    """Count the fused step's generator calls (the kernels' wrapper)."""
+    from context_attentive_ir_tpu_torch.decode import fusedgen
+
+    calls = []
+
+    def counted(*a, **kw):
+        calls.append(a[2])
+        return generator_topk_lse(*a, **kw)
+
+    monkeypatch.setattr(fusedgen, "generator_topk_lse", counted)
+    return calls
+
+
+def _engines(served, beam_size, shortlist):
     cfg, wd, params, pcfg, sessions = served
-    assert beam_size + 1 > MAX_KC and cfg.vocab_size > max(beam_size,
-                                                           shortlist)
     hists = [list(h) + [q] for q, _, h in _texts(sessions)]
     jax_eng = JaxEngine(cfg, wd, params, beam_size=beam_size, batch_bucket=4,
                         suggest_shortlist=shortlist)
@@ -138,23 +195,79 @@ def test_cars_engine_beyond_the_kernels_top_kc(served, beam_size, shortlist):
                           params_from_jax(params, pcfg), beam_size=beam_size,
                           batch_bucket=4, suggest_shortlist=shortlist,
                           device="cpu")
+    return jax_eng, port_eng, hists
+
+
+@pytest.mark.parametrize("shortlist", [0, 48])
+@pytest.mark.parametrize("beam_size", [32, 40])
+def test_cars_engine_within_the_kernels_top_kc(served, monkeypatch,
+                                               beam_size, shortlist):
+    """Up to the kernels' top-128 the Engine takes the fused step (with a
+    shortlist, over the shortlisted columns), token-equal to the JAX
+    Engine's."""
+    cfg = served[0]
+    assert beam_size + 1 <= MAX_KC and cfg.vocab_size > max(beam_size,
+                                                            shortlist)
+    jax_eng, port_eng, hists = _engines(served, beam_size, shortlist)
+    calls = _fused_calls(monkeypatch)
     assert _compare_engines(jax_eng, port_eng, hists) >= 2 * len(hists)
+    assert calls and set(calls) == {beam_size + 1}
+
+
+@pytest.mark.parametrize("shortlist", [0, 48])
+@pytest.mark.parametrize("beam_size", [32, 40])
+def test_cars_engine_logits_step_matches_jax(served, monkeypatch, beam_size,
+                                            shortlist):
+    """The Engine's logits step, or with a shortlist the plain shortlist
+    step (the fused step given way, as past the kernels' top-kc), held
+    token-equal to the JAX Engine's at beams whose scores do not tie."""
+    from context_attentive_ir_tpu_torch import serve
+
+    monkeypatch.setattr(serve, "make_fused_beam_step", lambda *a, **kw: None)
+    jax_eng, port_eng, hists = _engines(served, beam_size, shortlist)
+    calls = _fused_calls(monkeypatch)
+    assert _compare_engines(jax_eng, port_eng, hists) >= 2 * len(hists)
+    assert not calls
+
+
+@pytest.mark.parametrize("shortlist", [0, 160])
+@pytest.mark.parametrize("beam_size", [128])
+def test_cars_engine_beyond_the_kernels_top_kc(served_wide, monkeypatch,
+                                               beam_size, shortlist):
+    """Past the kernels' top-kc the Engine takes the logits step, or with a
+    shortlist the plain shortlist step on CPU tensors (on CUDA tensors it
+    raises), token-equal to the JAX Engine's up to the order of near-tied
+    hypotheses."""
+    cfg = served_wide[0]
+    assert beam_size + 1 > MAX_KC and cfg.vocab_size > max(beam_size,
+                                                           shortlist)
+    jax_eng, port_eng, hists = _engines(served_wide, beam_size, shortlist)
+    calls = _fused_calls(monkeypatch)
+    counts = _compare_engines_tied(jax_eng, port_eng, hists)
+    assert sum(n for n, _ in counts) >= 2 * len(hists)
+    assert all(2 * held >= n for n, held in counts)
+    assert not calls
 
 
 def test_fused_step_gives_way_where_the_kernels_end(served):
-    """``make_fused_beam_step`` is None past ``MAX_KC`` and past the E that
-    ``beamgen_supported`` states; the plain top-k takes any kc <= V."""
+    """``make_fused_beam_step`` is None past ``MAX_KC`` = 128 and a step at
+    every kc up to it at every E (E = 1,272: x streamed past bf16's whole
+    x tile of 1,264 and float32's 908); the plain top-k takes any kc <=
+    V."""
     _, _, _, pcfg, _ = served
     model = build_model(pcfg, device="cpu")
     mem = torch.zeros((2, 3, 32))
     mask = torch.ones((2, 3), dtype=torch.bool)
+    assert MAX_KC == 128
     assert make_fused_beam_step(model, mem, mask, MAX_KC) is not None
     assert make_fused_beam_step(model, mem, mask, MAX_KC + 1) is None
-    # past beamgen_supported: bf16 E <= 1,264, float32 E <= 908
     wide_model = build_model(pcfg.replace(emsize=1272), device="cpu")
-    assert make_fused_beam_step(wide_model, mem, mask, 6) is None
-    assert make_fused_beam_step(wide_model, mem, mask, 6,
-                                dtype=torch.float32) is None
+    for dtype in (torch.bfloat16, torch.float32):
+        for kc in (6, MAX_KC):
+            assert make_fused_beam_step(wide_model, mem, mask, kc,
+                                        dtype=dtype) is not None
+        assert make_fused_beam_step(wide_model, mem, mask, MAX_KC + 1,
+                                    dtype=dtype) is None
     rng = np.random.RandomState(1)
     x = torch.from_numpy(rng.normal(size=(5, 16)).astype(np.float32))
     t = torch.from_numpy(rng.normal(size=(16, 50)).astype(np.float32))
