@@ -21,11 +21,13 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    H = 100, H = 8, T = 1, T = 17, H = 64, 256 and 384), the LSTM pair in
    both dtypes also past the single block (E = 768, 1,024 and 2,048 through
    the x slabs, H = 416 and 512 on clusters of 2, 640 and 1,024 on
-   clusters of 4 in bf16, H = 416 to 1,024 on float32 clusters), the LSTM
-   recurrence on precomputed gates (kernel 6, with its autograd Function's
-   gradients; in both dtypes also at rows one short of and one past the
-   tensor-core tile's 64-row block, T = 1, masks with interior gaps and
-   H = 256, 384 and 512, and in bf16 the same bits twice), kernel 9 in
+   clusters of 4 in bf16, H = 416 to 1,024 on float32 clusters, H = 1,100,
+   1,152 and 2,048 on the step route), the LSTM recurrence on precomputed
+   gates (kernel 6, with its autograd Function's gradients; in both dtypes
+   also at rows one short of and one past the tensor-core tile's 64-row
+   block, T = 1, masks with interior gaps and H = 256, 384 and 512, and
+   640, 1,024 and 2,048 on the step route, and in bf16 the same bits
+   twice), kernel 9 in
    bf16 also with 16-row blocks off their block and at its limits (E = 672
    and 1,024 at H = 128, H = 448 at E = 256), kernel 2, kernel 10 (slate pool) at
    the rank slate and suggest init's row counts and a row count off its
@@ -44,11 +46,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    contiguous table with unaligned rows, at each kernel's last whole x
    tile and the E past it (x streamed), E = 3,000, and kc = 128 in every
    mode; then shapes a kernel cannot hold must be refused (the generator
-   at kc = 129), and ``fused_supported`` / ``gru_fused_supported`` must
-   say what the launchers take, ``beamgen_smem_bytes`` /
-   ``beamgen_streams_x`` equal the generator launcher's plan at every
-   (E, kc, mode) of a grid (kernel 6's launcher called directly at H = 640
-   must refuse it, the generator's at kc = 129);
+   at kc = 129, the GRU past H = 1,024, kernel 6 at H = 192), and
+   ``fused_supported`` / ``gru_fused_supported`` must say what the
+   launchers take (the LSTM's step-route shapes E = 256 / 300 at H =
+   1,152, 2,048 and 4,096 in both dtypes also held to the plain version),
+   ``lstm_route`` equal ``cair_lstm_route`` at every H to 4,096,
+   ``beamgen_smem_bytes`` / ``beamgen_streams_x`` equal the generator
+   launcher's plan at every (E, kc, mode) of a grid (kernel 6's one-block
+   launcher called directly at H = 640 must refuse it, the step route's
+   launcher a cluster's or one block's shape, the generator's kc = 129);
 4. the main paths at full width: CARS at the serving widths (vocab
    50,000, emsize 256, nhid 128, nhid_ffnn 256, S=5, N=50, Lq=15, Ld=30,
    bf16, seeded random weights) behind ``serve.Engine``: ``rank_batch``
@@ -157,7 +163,17 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    at the beam-40 (R = 12,800, kc = 41), beam-127 (R = 40,640, kc = 128) and
    beam-5 (E = 1,536 and 2,048) steps and at kc 33, 64, 127 and 128 (R =
    1,605), in bf16 and float32, held to their plain version on integer
-   and random data, every mode of a table the same bits.  Every
+   and random data, every mode of a table the same bits; then the step
+   route (``widestep``): CARS at nhid 2,048 in bf16 (``rank_batch``,
+   beam-5 ``suggest_batch``) and 1,152 in float32 (``rank_batch``), and 4
+   Adam steps of each at 8 sessions, against the same weights on the
+   plain scan; kernels 1, 4, 5 at ``[16000, 30, 256]`` -> 1,152 and 2,048
+   in bf16 and 2,048 in float32 and at ``[64, 150, 256]`` -> 4,096 in
+   bf16, every output held to its plain version on those inputs in both
+   directions and timed beside cuDNN; kernel 6 at ``x_proj [16000, 30,
+   4H]``, H = 640 and 2,048 in bf16 and 1,024 in float32, both directions
+   counted, held to its plain version and to kernel 1 on the same weights,
+   and timed.  Every
    call runs with every launch count set to 0
    just before it and read just after it and must launch exactly the
    kernels ``PATH_KERNELS`` names (``EXACT_LAUNCHES`` times, where fixed);
@@ -204,6 +220,8 @@ at H = 512 and 1,024 in both dtypes), ``widebeam`` (CARS ``Engine``s at
 beams 40 and 127 on the float and int8 tables and with a shortlist, CARS
 at emsize 1,536 in bf16 and float32, each against the logits step, and
 kernels 2, 2p, 2q, 3 held and timed past top-32 and one x tile),
+``widestep`` (CARS at nhid 2,048 in bf16 and 1,152 in float32 against the
+plain scan, kernels 1, 4, 5 and 6 on the step route held and timed),
 ``trainer`` (``cli.main`` for
 CARS and HRED-QS), ``recommenders``
 (seq2seq and ACG serving, train steps, checkpoint round trips and
@@ -283,11 +301,20 @@ def bound_ms(flops: float, n_bytes: float, dtype) -> tuple[float, str]:
 
 
 def lstm_inputs(gen, dtype, rows=B * S * N, steps=LD, e=EMSIZE, h=NHID):
+    """LSTM operands ``[x, w_ih, b, w_hh]`` in ``dtype`` and a length mask
+    with row 0 full and row 1 fully masked.  W_hh's scale falls as
+    1 / sqrt(H) above 1,024 units, keeping the recurrence's gain at its
+    1,024-unit level: at a fixed 0.08 the H = 2,048 recurrence amplifies a
+    one-ulp difference in h about 25-fold over 30 steps in bf16 and 55-fold
+    in float32, so two correct implementations that round h at different
+    last bits part by more than any tolerance
+    (``scripts/torch_lstm_error_growth.py``)."""
     dev = "cuda"
     x = torch.randn((rows, steps, e), generator=gen, device=dev) * 0.5
     w_ih = torch.randn((e, 4 * h), generator=gen, device=dev) * 0.08
     b = torch.randn((4 * h,), generator=gen, device=dev) * 0.1
-    w_hh = torch.randn((h, 4 * h), generator=gen, device=dev) * 0.08
+    w_hh = (torch.randn((h, 4 * h), generator=gen, device=dev) * 0.08
+            * min(1.0, math.sqrt(1024 / h)))
     lens = torch.randint(0, steps + 1, (rows,), generator=gen, device=dev)
     lens[0] = steps
     if rows > 1:
@@ -518,11 +545,13 @@ TILE_SHAPES = ((1, LD, EMSIZE, NHID), (33, LD, EMSIZE, NHID),
 # clusters (kernels 1 and 4 from H = 300, 3 blocks of 100 units; kernel 5
 # from 416: 4 to 8 blocks), rows off the 16-row block (9 rows: one block
 # of a cluster, mostly empty), T = 1 and a T the time chunk does not
-# divide
+# divide; past 1,024 the step route (bf16 H padded to 1,280 and 2,048 in
+# tiles of 256, float32 tiles of 128, the last partial at 1,100)
 WIDE_SHAPES = ((70, 7, 768, NHID), (40, 5, 1024, 256), (40, 7, 300, 300),
                (33, 7, 300, 416),
                (40, 5, 1024, 512), (50, 7, EMSIZE, 640),
-               (17, 3, 300, 1024), (40, 5, 2048, NHID), (9, 1, 300, 640))
+               (17, 3, 300, 1024), (40, 5, 2048, NHID), (9, 1, 300, 640),
+               (33, 7, 300, 1152), (17, 3, 768, 2048), (9, 1, 300, 1100))
 
 
 def check_tiles(gen, rnn: str, shapes=TILE_SHAPES,
@@ -566,6 +595,7 @@ def tile_note() -> str:
     )
     from context_attentive_ir_tpu_torch.ops.kernels.lstm import (
         rec_smem_bytes,
+        step_smem_bytes,
         tile_smem_bytes,
     )
     from context_attentive_ir_tpu_torch.ops.kernels.slate import (
@@ -603,7 +633,14 @@ def tile_note() -> str:
             "mma.sync.m16n8k16 + ldmatrix with W_hh resident (one "
             "cp.async.bulk a block) and the x_proj rows by cp.async.bulk "
             f"into one tile, {rec_smem_bytes(NHID)} bytes a block of 64 "
-            f"rows, {-(-B * S * N // 64)} blocks at the doc encoder's rows")
+            f"rows, {-(-B * S * N // 64)} blocks at the doc encoder's rows; "
+            "the step route (kernels 1, 4, 5 past H = 1,024, 6 past 512; a "
+            "launch a step) bf16 blocks of 16 rows x 256 units, "
+            f"{step_smem_bytes()} bytes (the dh product "
+            f"{step_smem_bytes(backward=True)}), float32 32 rows x 128 units,"
+            f" {step_smem_bytes(torch.float32)} "
+            f"({step_smem_bytes(torch.float32, backward=True)}), at any E "
+            "and H")
 
 
 GRU_KERNELS = ("gru_fused", "gru_fused_res", "gru_fused_bwd")
@@ -625,12 +662,14 @@ def recurrence_inputs(gen, dtype, rows=B * S * N, steps=LD, h=NHID,
 
 # (rows, steps, H, interior gaps) of kernel 6 beyond LSTM_SHAPES: rows one
 # short of and one past the tensor-core route's 64-row block, T = 1, masks
-# with interior gaps at the doc encoder's rows off the block, and H = 256,
-# 384 and 512 (the CUDA-core route in both dtypes)
+# with interior gaps at the doc encoder's rows off the block, H = 256, 384
+# and 512 (the CUDA-core route in both dtypes), and 640, 1,024 and 2,048
+# (the step route: bf16 640 padded to 768) at rows off its blocks
 REC_SHAPES = ((63, LD, NHID, False), (65, LD, NHID, True),
               (300, 1, NHID, True), (B * S * N + 7, LD, NHID, True),
               (300, LD, 256, True), (300, LD, 384, True),
-              (300, LD, 512, False))
+              (300, LD, 512, False), (65, 7, 640, True),
+              (63, 5, 1024, False), (40, 3, 2048, True))
 
 
 def check_recurrence(gen) -> dict:
@@ -1258,15 +1297,17 @@ def check_refusals(gen) -> None:
 
     # fused_supported states the launchers' limits: a shape it accepts runs
     # through all three kernels, one it rejects is refused by the backward;
-    # every E, and H up to 1,024 in both dtypes (bf16: one block to 384,
-    # clusters of 2 and 4 above; float32: one block to 403, clusters of up
-    # to 8 above), one refused shape a dtype past 1,024
+    # every E and H in both dtypes (bf16: one block to 384, clusters of 2
+    # and 4 to 1,024; float32: one block to 403, clusters of up to 8 to
+    # 1,024; the step route above), the step route's shapes each held to
+    # the plain version, both directions
     bf16 = torch.bfloat16
     for e, h, dtype in ((448, NHID, bf16), (512, NHID, bf16),
                         (512, 256, bf16), (EMSIZE, 512, bf16),
                         (64, 512, bf16), (300, 100, bf16),
                         (4096, NHID, bf16), (EMSIZE, 1024, bf16),
-                        (EMSIZE, 1056, bf16),
+                        (EMSIZE, 1056, bf16), (EMSIZE, 1152, bf16),
+                        (300, 2048, bf16), (EMSIZE, 4096, bf16),
                         (1400, NHID, torch.float32),
                         (1500, NHID, torch.float32),
                         (4096, NHID, torch.float32),
@@ -1275,7 +1316,10 @@ def check_refusals(gen) -> None:
                         (EMSIZE, 404, torch.float32),
                         (EMSIZE, 512, torch.float32),
                         (EMSIZE, 1024, torch.float32),
-                        (EMSIZE, 1025, torch.float32)):
+                        (EMSIZE, 1025, torch.float32),
+                        (EMSIZE, 1152, torch.float32),
+                        (300, 2048, torch.float32),
+                        (EMSIZE, 4096, torch.float32)):
         ok = fused_supported(e, h, 40, dtype)
         try:
             lstm_at(e, h, dtype) if ok else None
@@ -1291,6 +1335,55 @@ def check_refusals(gen) -> None:
             raise AssertionError(f"fused_supported(E={e}, H={h}, {dtype}) "
                                  f"= {ok} but the kernels "
                                  f"{'ran' if ran else 'refused'}")
+        if ran and h > 1024:
+            held_errors("step route", "lstm",
+                        *pair_inputs(gen, "lstm", dtype, 40, 3, e=e, h=h),
+                        dtype)
+
+    # the route rule the launchers apply (cair_lstm_route, lstm_route in
+    # csrc/lstm_mma.cuh) is the one ops/kernels/lstm.py states, at every
+    # multiple of 32 to 4,096 (and the odd 1,025), each dtype and kernel
+    from context_attentive_ir_tpu_torch.ops.kernels.build import load_library
+    from context_attentive_ir_tpu_torch.ops.kernels.lstm import lstm_route
+
+    lib = load_library()
+    names = ("single", "cluster", "step")
+    moved = [(h, code, kernel) for h in (*range(32, 4097, 32), 1025)
+             for code, dtype in enumerate((torch.float32, bf16))
+             for kernel in range(3)
+             if names[lib.cair_lstm_route(h, code, kernel)]
+             != lstm_route(h, dtype, backward=kernel == 1,
+                           recurrence=kernel == 2)]
+    log(f"lstm_route equal to cair_lstm_route at every H of 32 .. 4,096 "
+        f"(multiples of 32) and 1,025, both dtypes, kernels 1/4, 5, 6: "
+        f"{not moved}")
+    if moved:
+        raise AssertionError(f"lstm_route differs from the launchers' at "
+                             f"(H, dtype, kernel) {moved}")
+
+    def rec_held(h, dtype):
+        # kernel 6 past 512 (the step route) against its plain version
+        from context_attentive_ir_tpu_torch.ops.kernels.lstm import (
+            lstm_recurrence_reference,
+        )
+
+        xp, mask, w_hh = recurrence_inputs(gen, dtype, 40, 3, h=h)
+        for reverse in (False, True):
+            got = lstm_recurrence(xp, mask, w_hh, reverse).float()
+            ref = lstm_recurrence_reference(xp, mask, w_hh, reverse).float()
+            err = float((got - ref).abs().max())
+            rel = err / float(ref.abs().max())
+            held = err if dtype == torch.float32 else rel
+            tol = 1e-4 if dtype == torch.float32 else 2e-2
+            log(f"lstm_recurrence {dtype} H={h} [40,3] reverse={reverse}: "
+                f"max abs err {err:.3e}, rel {rel:.3e} (tol {tol:g}); masked "
+                f"outputs 0: {bool((got[~mask] == 0).all())}")
+            if not (held <= tol and bool((got[~mask] == 0).all())):
+                raise AssertionError(f"lstm_recurrence H={h} {dtype}")
+
+    for h in (640, 1024, 2048):
+        for dtype in (torch.float32, bf16):
+            rec_held(h, dtype)
 
     def gru_at(kernel, e, h, dtype=torch.float32):
         (x, *w), mask = gru_inputs(gen, dtype, 40, 3, e=e, h=h)
@@ -1361,29 +1454,13 @@ def check_refusals(gen) -> None:
             return layer(x, torch.ones((40, 3), dtype=torch.bool,
                                        device="cuda"))
 
-    lstm_fns = (("lstm_fused", lstm_at), ("lstm_fused_res", res_at),
-                ("lstm_fused_bwd", bwd_at))
-    for name, fn in (*((f"{k} {what}", lambda at=at, e=e, h=h, dt=dt:
-                        at(e, h, dt))
-                       for k, at in lstm_fns
-                       for what, e, h, dt in (
-                           ("f32 H=1152 (hidden above 1,024)", EMSIZE, 1152,
-                            torch.float32),
-                           ("bf16 H=1152 (hidden above 1,024)", EMSIZE, 1152,
-                            bf16))),
-                     ("RNNLayer lstm bf16 H=1152 (hidden above 1,024)",
-                      lambda: layer_at("lstm", EMSIZE, 1152, bf16)),
-                     ("RNNLayer lstm f32 H=1152 (hidden above 1,024)",
-                      lambda: layer_at("lstm", EMSIZE, 1152, torch.float32)),
-                     ("RNNLayer gru bf16 H=1152 (hidden above 1,024)",
+    for name, fn in (("RNNLayer gru bf16 H=1152 (hidden above 1,024)",
                       lambda: layer_at("gru", EMSIZE, 1152, bf16)),
                      ("RNNLayer gru f32 H=1025 (hidden above 1,024)",
                       lambda: layer_at("gru", EMSIZE, 1025, torch.float32)),
                      ("lstm_recurrence H=192 (H % 128)", lambda: rec_at(192)),
-                     ("lstm_recurrence H=640 (threads per block)",
-                      lambda: rec_at(640)),
-                     ("lstm_recurrence bf16 H=640 (hidden above 512)",
-                      lambda: rec_at(640, dtype=bf16)),
+                     ("lstm_recurrence bf16 H=192 (H % 128)",
+                      lambda: rec_at(192, dtype=bf16)),
                      ("lstm_recurrence strided x_proj (contiguity)",
                       lambda: rec_at(NHID, strided=True)),
                      *((f"{k} {what}", lambda k=k, e=e, h=h, dt=dt:
@@ -1406,11 +1483,29 @@ def check_refusals(gen) -> None:
             log(f"{name} refused: {type(err).__name__}: {err}")
         else:
             raise AssertionError(f"{name} was not refused")
-    # kernel 6's launcher refuses H = 640 itself: cair_lstm_rec called
-    # directly, past the wrapper's check (_check_rec_args), which the
-    # lstm_recurrence H=640 entries above meet first
-    from context_attentive_ir_tpu_torch.ops.kernels.build import load_library
-
+    # kernel 6's one-block launcher refuses H = 640 itself (the wrapper
+    # sends it to the step route's cair_lstm_step), and cair_lstm_step
+    # refuses what is not the step route's: kernel 1 at H = 1,024 (a
+    # cluster's) and kernel 6 at 512 (one block's), each called directly
+    for code, dtype in enumerate((torch.float32, bf16)):
+        for e, h, rec in ((EMSIZE, 1024, 0), (0, 512, 1)):
+            xs = torch.zeros((40, 3, 4 * h if rec else e), dtype=dtype,
+                             device="cuda")
+            mask = torch.ones((40, 3), dtype=torch.bool, device="cuda")
+            w = torch.zeros((e + h, 4 * h + 8), dtype=dtype, device="cuda")
+            out = torch.empty((40, 3, h), dtype=dtype, device="cuda")
+            ws = torch.empty((1 << 24,), dtype=torch.uint8, device="cuda")
+            rc = load_library().cair_lstm_step(
+                xs.data_ptr(), mask.data_ptr(), w.data_ptr(), w.data_ptr(),
+                w.data_ptr(), out.data_ptr(), 0, 0, ws.data_ptr(), 40, 3, e,
+                h, 0, 1, 0, rec, code,
+                torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            log(f"cair_lstm_step {dtype} H={h} rec={rec} called directly "
+                f"(not the step route's): returned {rc}")
+            if rc == 0:
+                raise AssertionError(f"cair_lstm_step {dtype} H={h} rec={rec} "
+                                     "was not refused by the launcher")
     for code, dtype in enumerate((torch.float32, bf16)):
         xp, mask, w_hh = recurrence_inputs(gen, dtype, 40, 3, h=640)
         out = torch.empty((40, 3, 640), dtype=dtype, device="cuda")
@@ -1429,6 +1524,8 @@ def check_refusals(gen) -> None:
     rec_at(NHID)
     rec_at(NHID, dtype=bf16)
     layer_at("lstm", 300, 100, bf16)
+    layer_at("lstm", EMSIZE, 1152, bf16)
+    layer_at("lstm", EMSIZE, 1152, torch.float32)
     layer_at("gru", 300, 100, bf16)
     layer_at("gru", 4096, NHID, torch.float32)
     layer_at("gru", EMSIZE, 480, bf16)
@@ -1547,6 +1644,24 @@ def table_choices() -> None:
                              f"path's kernel: {plain} {got}")
 
 
+# CARS's encoders on the step route: bf16 at --nhid 2,048 (bf16's tiles of
+# 256), float32 at 1,152 (just past the clusters, nine tiles of 128)
+STEP_NHID = {torch.bfloat16: 2048, torch.float32: 1152}
+# sessions a train step: at B = 64 the plain scan's autograd keeps about 5
+# f32 planes of [16,000, 8,192] a step -- about 79 GB a direction over 30
+# steps -- so both sides of the comparison train at B = 8
+STEP_TRAIN_B = 8
+# (H, dtype, rows, steps, iterations) of kernels 1, 4, 5 alone on the step
+# route: the doc encoder's rows and steps, and the recommenders' source
+STEP_TIMED = ((1152, torch.bfloat16, B * S * N, LD, 3),
+              (2048, torch.bfloat16, B * S * N, LD, 2),
+              (2048, torch.float32, B * S * N, LD, 1),
+              (4096, torch.bfloat16, B, S_REC * LQ, 3))
+# (H, dtype) of kernel 6 alone at the doc encoder's rows and steps
+STEP_REC = ((640, torch.bfloat16), (2048, torch.bfloat16),
+            (1024, torch.float32))
+
+
 # the kernels each main-path call launches; every other count stays 0
 PATH_KERNELS = {
     "rank_batch": ("lstm_fused",),
@@ -1623,6 +1738,15 @@ PATH_KERNELS = {
     "suggest_beam5_e1536_f32": ("lstm_fused", BEAM_GEN),
     "suggest_greedy_e1536": ("lstm_fused", GREEDY_GEN),
     "decode_pipelined_e1536": ("lstm_fused", "generator_topk_lse_pipelined"),
+    # widestep: CARS on the step route (bf16 nhid 2,048, float32 1,152) and
+    # the doc encoder as a matmul projection + kernel 6 past 512 units
+    "rank_batch_step_bf16": ("lstm_fused",),
+    "suggest_beam5_step_bf16": ("lstm_fused", BEAM_GEN),
+    "train_step_step_bf16": ("lstm_fused_res", "lstm_fused_bwd"),
+    "rank_batch_step_f32": ("lstm_fused",),
+    "train_step_step_f32": ("lstm_fused_res", "lstm_fused_bwd"),
+    **{f"lstm_precomputed_{h}_{str(dt)[6:]}": ("lstm_recurrence",)
+       for h, dt in STEP_REC},
     # M-NSRF and M-MatchTensor: both encoders through kernel 1 (ranking) or
     # 4 + 5 (training); suggestion encodes the queries alone and decodes
     # through the logits step (no generator kernel); the session recurrence
@@ -1686,6 +1810,11 @@ EXACT_LAUNCHES = {
     "suggest_beam5_hredqs_1024": {"gru_fused": 2},
     "train_step_hredqs_1024": {"gru_fused_res": 2, "gru_fused_bwd": 2},
     "lstm_precomputed": {"lstm_recurrence": 2},
+    **{f"lstm_precomputed_{h}_{str(dt)[6:]}": {"lstm_recurrence": 2}
+       for h, dt in STEP_REC},
+    **{f"rank_batch_step_{dt}": {"lstm_fused": 4} for dt in ("bf16", "f32")},
+    **{f"train_step_step_{dt}": {"lstm_fused_res": 4, "lstm_fused_bwd": 4}
+       for dt in ("bf16", "f32")},
     **{f"suggest_{mode}_{m}": {"lstm_fused": 2} for mode in ("beam5", "greedy")
        for m in ("seq2seq", "acg")},
     **{f"train_step_{m}": {"lstm_fused_res": 2, "lstm_fused_bwd": 2}
@@ -3674,7 +3803,8 @@ RNN_TIMING = {
 
 def time_rnn(gen, rnn: str, launches: dict, fwd_err: float | None = None,
              pair_err: dict | None = None, shape: tuple | None = None,
-             dtype=torch.bfloat16, iters: int = 5, **widths) -> list[dict]:
+             dtype=torch.bfloat16, iters: int = 5, warmup: int = 2,
+             sources: tuple | None = None, **widths) -> list[dict]:
     """The forward kernel and the training pair of ``rnn`` (kernels 1, 4,
     5 or 7, 8, 9) at the doc encoder's shape, or at ``shape`` = (rows,
     steps) and ``widths`` (``e``, ``h``; then the rows carry ``rows``,
@@ -3686,9 +3816,11 @@ def time_rnn(gen, rnn: str, launches: dict, fwd_err: float | None = None,
     first held to their plain versions on these very inputs, both
     directions (``pair_check``: every output within PAIR_TOL, masked
     outputs 0, the backward the same bits twice), and the rows carry those
-    errors."""
+    errors.  ``warmup`` calls precede each timing; ``sources`` names the
+    files the rows' kernels run from (default RNN_TIMING's)."""
     mod = rnn_kernels(rnn)
-    cudnn_cls, sources, replaces = RNN_TIMING[rnn]
+    cudnn_cls, default_sources, replaces = RNN_TIMING[rnn]
+    sources = sources or default_sources
     fwd, res, bwd = f"{rnn}_fused", f"{rnn}_fused_res", f"{rnn}_fused_bwd"
     plain = {k: getattr(mod, k + "_reference") for k in (fwd, res, bwd)}
     x, mask, w, dout = pair_inputs(gen, rnn, dtype,
@@ -3703,30 +3835,39 @@ def time_rnn(gen, rnn: str, launches: dict, fwd_err: float | None = None,
     cudnn = cudnn_cls(e, h, batch_first=True, device="cuda", dtype=dtype)
     ms, plain_ms, lib = {}, {}, {}
     few = min(iters, 3)
+    wu = {"warmup": warmup}
     with torch.inference_mode():
-        ms[fwd] = timed_ms(lambda: getattr(mod, fwd)(x, mask, *w), iters)
-        plain_ms[fwd] = timed_ms(lambda: plain[fwd](x, mask, *w), few)
-        lib[fwd] = timed_ms(lambda: cudnn(x), iters)
-    ms[res] = timed_ms(lambda: getattr(mod, res)(x, mask, *w), iters)
-    plain_ms[res] = timed_ms(lambda: plain[res](x, mask, *w), few)
+        ms[fwd] = timed_ms(lambda: getattr(mod, fwd)(x, mask, *w), iters,
+                           **wu)
+        plain_ms[fwd] = timed_ms(lambda: plain[fwd](x, mask, *w), few, **wu)
+        lib[fwd] = timed_ms(lambda: cudnn(x), iters, **wu)
+    ms[res] = timed_ms(lambda: getattr(mod, res)(x, mask, *w), iters, **wu)
+    plain_ms[res] = timed_ms(lambda: plain[res](x, mask, *w), few, **wu)
     ms[bwd] = timed_ms(lambda: getattr(mod, bwd)(x, mask, *w, *state, dout),
-                       iters)
+                       iters, **wu)
     plain_ms[bwd] = timed_ms(lambda: plain[bwd](x, mask, *w, *state, dout),
-                             few)
+                             few, **wu)
+    # cuDNN's training graph at H = 2,048 in float32 wants ~20 GB: the
+    # kernels' outputs and the allocator's cached blocks go first
+    n_out, n_state, state_numel = out.numel(), len(state), state[0].numel()
+    del out, state
+    torch.cuda.empty_cache()
     xg = x.detach().requires_grad_()
-    lib[res] = timed_ms(lambda: cudnn(xg), iters)
+    lib[res] = timed_ms(lambda: cudnn(xg), iters, **wu)
     o, _ = cudnn(xg)
     wrt = [xg, *cudnn.parameters()]
     lib[bwd] = timed_ms(lambda: torch.autograd.grad(o, wrt, dout,
-                                                    retain_graph=True), iters)
+                                                    retain_graph=True), iters,
+                        **wu)
     del o
+    torch.cuda.empty_cache()
 
     gates = w[0].shape[1] // h
     weights = sum(t.numel() for t in w) * x.element_size()
-    boundaries = len(state) * state[0].numel() * 4
+    boundaries = n_state * state_numel * 4
     flops_f = 2.0 * rows * steps * (e + h) * gates * h
     elt = x.element_size()
-    bytes_f = (x.numel() + out.numel()) * elt + weights + mask.numel()
+    bytes_f = (x.numel() + n_out) * elt + weights + mask.numel()
     # recompute + dx + dh + dW_ih + dW_hh: three times the forward's flops
     bytes_b = ((2 * x.numel() + dout.numel()) * elt + 2 * weights
                + mask.numel() + boundaries)
@@ -3783,10 +3924,11 @@ def within_tol(path: str, got, want, dtype) -> None:
 
 
 def wide_serving(word_dict, cfg, tag: str, dtype, launches: dict,
-                 suggest: bool = True, rank: bool = True) -> None:
+                 suggest: bool = True, rank: bool = True) -> dict:
     """``Engine.rank_batch`` (unless not ``rank``) and beam-5
     ``suggest_batch`` (unless not ``suggest``) of ``cfg``, counted, against
-    the same weights with use_pallas_rnn=False."""
+    the same weights with use_pallas_rnn=False.  Returns those weights
+    (``cfg``'s model seeded 0), for ``wide_train``."""
     from context_attentive_ir_tpu_torch.models import build_model
     from context_attentive_ir_tpu_torch.serve import Engine
 
@@ -3801,7 +3943,7 @@ def wide_serving(word_dict, cfg, tag: str, dtype, launches: dict,
                                              lambda: eng.rank_batch(reqs))
             within_tol(path, scores, ref.rank_batch(reqs), dtype)
         if not suggest:
-            return
+            return params
         path = f"suggest_beam5_{tag}"
         sugg, launches[path] = counted(path, lambda: eng.suggest_batch(hists))
         want = ref.suggest_batch(hists)
@@ -3814,13 +3956,18 @@ def wide_serving(word_dict, cfg, tag: str, dtype, launches: dict,
     if dtype == torch.float32 and same != B:
         raise AssertionError(f"{path}: float32 suggestions differ from the "
                              "plain scan's")
+    return params
 
 
-def wide_train(cfg, tag: str, dtype, launches: dict) -> None:
+def wide_train(cfg, tag: str, dtype, launches: dict, b: int = B,
+               fall: str = "last", params: dict | None = None) -> None:
     """Four Adam steps of ``cfg``'s model (CARS on a session batch, HRED-QS
-    on a suggestion batch) through the training pair (kernels 4 + 5 or 8 +
-    9; the second step counted) and the same through the plain scan, from
-    the same weights: the losses must fall and agree within PAIR_TOL."""
+    on a suggestion batch) of ``b`` sessions through the training pair
+    (kernels 4 + 5 or 8 + 9; the second step counted) and the same through
+    the plain scan, from the same weights (``params``, or ``cfg``'s model
+    seeded 0: one seeded init, loaded into both): the losses must fall
+    (``fall`` "last": the last below the first; "some": a later one below
+    the first) and agree within PAIR_TOL."""
     from context_attentive_ir_tpu_torch.models import build_model
     from context_attentive_ir_tpu_torch.train import (
         create_train_state,
@@ -3828,13 +3975,16 @@ def wide_train(cfg, tag: str, dtype, launches: dict) -> None:
     )
 
     rng = np.random.RandomState(17)
-    batch = (random_suggest_batch(rng) if cfg.model_type == "hredqs"
-             else random_session_batch(rng)).to("cuda")
+    batch = (random_suggest_batch(rng, b=b) if cfg.model_type == "hredqs"
+             else random_session_batch(rng, b=b)).to("cuda")
     path = f"train_step_{tag}"
     losses = {}
+    init = (params if params is not None
+            else build_model(cfg, device="cuda", seed=0).state_dict())
     for kernel in (True, False):
         c = cfg if kernel else cfg.replace(use_pallas_rnn=False)
-        model = build_model(c, device="cuda", seed=0)
+        model = build_model(c, device="cuda", seed=None)
+        model.load_state_dict(init)
         state, step = create_train_state(model, c), make_train_step(model, c)
         out = []
         for i in range(4):
@@ -3846,11 +3996,12 @@ def wide_train(cfg, tag: str, dtype, launches: dict) -> None:
             out.append(float(m["loss"]))
         losses[kernel] = out
         del model, state, step
-    log(f"{path}: 4 Adam steps, losses through the kernels "
+    log(f"{path}: 4 Adam steps at B = {b}, losses through the kernels "
         f"{[round(v, 5) for v in losses[True]]}, through the plain scan "
         f"{[round(v, 5) for v in losses[False]]}")
+    later = losses[True][-1] if fall == "last" else min(losses[True][1:])
     if not (all(math.isfinite(v) for v in losses[True])
-            and losses[True][-1] < losses[True][0]):
+            and later < losses[True][0]):
         raise AssertionError(f"{path}: the loss did not fall")
     within_tol(path + " losses", losses[True], losses[False], dtype)
 
@@ -3920,8 +4071,8 @@ def wide_paths(gen, fixture_dir: str) -> tuple[dict, list[dict]]:
     for h, dtype in WIDE_TIMED:
         rows.extend(time_rnn(gen, "lstm", launches,
                              shape=(B * S * N, LD), dtype=dtype,
-                             iters=5 if dtype == torch.bfloat16 else 2,
-                             e=EMSIZE, h=h))
+                             iters=3 if dtype == torch.bfloat16 else 1,
+                             warmup=1, e=EMSIZE, h=h))
         torch.cuda.empty_cache()
     return launches, rows
 
@@ -3970,9 +4121,140 @@ def widegru_paths(gen, fixture_dir: str) -> tuple[dict, list[dict]]:
     for h, dtype in WIDEGRU_TIMED:
         rows.extend(time_rnn(gen, "gru", launches,
                              shape=(B * S * N, LD), dtype=dtype,
-                             iters=5 if dtype == torch.bfloat16 else 2,
-                             e=EMSIZE, h=h))
+                             iters=3 if dtype == torch.bfloat16 else 1,
+                             warmup=1, e=EMSIZE, h=h))
         torch.cuda.empty_cache()
+    return launches, rows
+
+
+# -- the step route: kernels 1, 4, 5 past H = 1,024, kernel 6 past 512 --------
+
+def step_recurrence_rows(gen, launches: dict) -> list[dict]:
+    """Kernel 6 on the step route at x_proj [B*S*N, Ld, 4H] for each of
+    STEP_REC: both directions counted as ``lstm_precomputed_<H>_<dtype>``
+    (a ``torch.matmul`` projection before each), each held to its plain
+    version (f32 1e-4 abs, bf16 2e-2 rel.; masked outputs 0) and to kernel
+    1 on the same weights (bf16, which reads x_proj rounded: max 2e-2 abs,
+    mean 5e-4, as lstm_precomputed; f32 1e-4 abs), then timed beside the
+    plain version.  No single PyTorch call runs an LSTM from precomputed
+    gates: library_ms null."""
+    from context_attentive_ir_tpu_torch.ops.kernels.lstm import (
+        lstm_fused,
+        lstm_recurrence,
+        lstm_recurrence_fwd,
+        lstm_recurrence_reference,
+    )
+
+    rows_out = []
+    for h, dtype in STEP_REC:
+        dt = str(dtype)[6:]
+        (x, w_ih, b, w_hh), mask = lstm_inputs(gen, dtype, h=h)
+        xp = (torch.matmul(x, w_ih) + b).contiguous()
+        path = f"lstm_precomputed_{h}_{dt}"
+        with torch.inference_mode():
+            outs, launches[path] = counted(path, lambda: [
+                lstm_recurrence(xp, mask, w_hh, rev) for rev in (False, True)])
+            worst = worst_rel = 0.0
+            for reverse, got in zip((False, True), outs):
+                ref = lstm_recurrence_reference(xp, mask, w_hh, reverse)
+                if not bool((got[~mask] == 0).all()):
+                    raise AssertionError(f"{path}: masked outputs not zero")
+                err = float((got.float() - ref.float()).abs().max())
+                worst = max(worst, err)
+                worst_rel = max(worst_rel, err / float(ref.float().abs().max()))
+                del ref
+                k1 = lstm_fused(x, mask, w_ih, b, w_hh, reverse).float()
+                diff = (got.float() - k1).abs()
+                d_max, d_mean = float(diff.max()), float(diff.mean())
+                del k1, diff
+                tol_k1 = (2e-2, 5e-4) if dtype == torch.bfloat16 else (1e-4,
+                                                                        1e-4)
+                log(f"{path} reverse={reverse}: vs kernel 1 on the same "
+                    f"weights max abs diff {d_max:.3e} (tol {tol_k1[0]:g}), "
+                    f"mean {d_mean:.3e} (tol {tol_k1[1]:g})")
+                if not (d_max <= tol_k1[0] and d_mean <= tol_k1[1]):
+                    raise AssertionError(f"{path}: disagrees with kernel 1")
+            del outs
+            tol = 1e-4 if dtype == torch.float32 else 2e-2
+            held = worst if dtype == torch.float32 else worst_rel
+            log(f"lstm_recurrence {dt} [{xp.shape[0]},{LD},{4 * h}]->{h} "
+                f"both directions: max abs err {worst:.3e}, max rel err "
+                f"{worst_rel:.3e} (tol {'abs' if dtype == torch.float32 else 'rel'} "
+                f"{tol:g}; masked outputs 0)")
+            if not held <= tol:
+                raise AssertionError(f"{path}: error {held} > {tol}")
+            ms = timed_ms(lambda: lstm_recurrence_fwd(xp, mask, w_hh), 3,
+                          warmup=1)
+            plain = timed_ms(lambda: lstm_recurrence_reference(xp, mask,
+                                                               w_hh), 1,
+                             warmup=1)
+        rows, steps = xp.shape[:2]
+        flops = 2.0 * rows * steps * h * 4 * h
+        n_bytes = ((xp.numel() + rows * steps * h + w_hh.numel())
+                   * xp.element_size() + mask.numel())
+        bnd, by = bound_ms(flops, n_bytes, dtype)
+        log(f"lstm_recurrence {dt} [{rows},{steps},{4 * h}]->{h} one "
+            f"direction (step route): kernel {ms:.3f} ms, plain {plain:.3f} "
+            f"ms, library none, bound {bnd:.4f} ms ({by})")
+        rows_out.append(kernel_row("lstm_recurrence", "lstm_step.cu",
+                                   "lstm.py:129", launches, worst, ms, plain,
+                                   None, bnd, by, rows=rows, steps=steps,
+                                   h=h, dtype=dt))
+        del x, w_ih, b, w_hh, mask, xp
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+def widestep_paths(gen) -> tuple[dict, list[dict]]:
+    """The slice's path: CARS at the serving widths with nhid 2,048 in bf16
+    (rank_batch and beam-5 suggest_batch at B = 64) and 1,152 in float32
+    (rank_batch), and 4 Adam steps each at STEP_TRAIN_B sessions, against
+    the same model on the plain scan; then kernels 1, 4, 5 alone at each of
+    STEP_TIMED, held to their plain versions on the same inputs, both
+    directions, and timed beside cuDNN; then kernel 6 alone
+    (step_recurrence_rows).  Returns the launches and the timing rows."""
+    word_dict = synthetic_dictionary(VOCAB)
+    launches = {}
+    t0 = time.perf_counter()
+
+    def lap(what: str) -> None:
+        nonlocal t0
+        torch.cuda.synchronize()
+        log(f"widestep {what}: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+
+    for dtype, tag in ((torch.bfloat16, "step_bf16"),
+                       (torch.float32, "step_f32")):
+        cfg = full_width_config("cars", nhid=STEP_NHID[dtype],
+                                compute_dtype=str(dtype)[6:])
+        params = wide_serving(word_dict, cfg, tag, dtype, launches,
+                              suggest=dtype == torch.bfloat16)
+        torch.cuda.empty_cache()
+        lap(f"serving {tag}")
+        log(f"train_step_{tag} at B = {STEP_TRAIN_B} sessions: at B = {B} "
+            "the plain scan's autograd would keep about 5 f32 planes of "
+            "[16,000, 8,192] a step, about 79 GB a direction over 30 steps")
+        # float32 at nhid 1,152: Adam's fourth step at the default learning
+        # rate raises the loss on these 8 sessions, through the plain scan
+        # to the same digits, so a later step below the first is asked
+        wide_train(cfg, tag, dtype, launches, b=STEP_TRAIN_B,
+                   fall="last" if dtype == torch.bfloat16 else "some",
+                   params=params)
+        del params
+        torch.cuda.empty_cache()
+        lap(f"train {tag}")
+    log(f"step route launches per path: {json.dumps(launches)}")
+
+    rows = []
+    for h, dtype, n_rows, steps, iters in STEP_TIMED:
+        rows.extend(time_rnn(gen, "lstm", launches, shape=(n_rows, steps),
+                             dtype=dtype, iters=iters, warmup=1,
+                             sources=("lstm_step.cu",) * 3, e=EMSIZE, h=h))
+        torch.cuda.empty_cache()
+        lap(f"kernels 1, 4, 5 at [{n_rows}, {steps}] -> {h} "
+            f"{str(dtype)[6:]}")
+    rows.extend(step_recurrence_rows(gen, launches))
+    lap("kernel 6")
     return launches, rows
 
 
@@ -4957,7 +5239,8 @@ EARLIER_MS = {"lstm_fused": 11.269, "lstm_fused_res": 11.256,
 # other phase.
 PHASES = ("kernels", "lstm", "grukernels", "beamkernels", "slatekernels",
           "serving", "parallel", "train", "indexed", "interop", "gru",
-          "small", "kernel6", "widelstm", "widegru", "widebeam", "trainer",
+          "small", "kernel6", "widelstm", "widegru", "widebeam", "widestep",
+          "trainer",
           "recommenders", "multitask", "rankers")
 SHARES = {"lstm", "grukernels", "beamkernels", "slatekernels"}
 
@@ -5104,6 +5387,10 @@ def main() -> int:
         wide_rows.extend(rows)
     if "widebeam" in run:
         wide_launches, rows = phase("widebeam", lambda: widebeam_paths(gen))
+        launches.update(wide_launches)
+        wide_rows.extend(rows)
+    if "widestep" in run:
+        wide_launches, rows = phase("widestep", lambda: widestep_paths(gen))
         launches.update(wide_launches)
         wide_rows.extend(rows)
     # the default run keeps --resume and the Trainer's timings for CARS

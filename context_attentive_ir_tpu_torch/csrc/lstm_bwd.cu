@@ -81,9 +81,15 @@
 // wgrad_partial_kernel; above H = 403 its units split over a cluster of up
 // to 8 blocks by the same scheme (dh's partials in rank order, dx in phase
 // C by exact f32 FMAs).
+//
+// Above H = 1,024, in both dtypes, phase A takes the step route
+// (lstm_step.cu: the recompute a launch a step, the reverse pass two, with
+// each unit tile's dh partial added in tile order), and phases B and C run
+// as for a cluster: any H the JAX kernel takes.
 
 #include "lstm_common.cuh"
 #include "lstm_mma.cuh"
+#include "lstm_step.cuh"
 
 namespace {
 
@@ -854,22 +860,30 @@ lstm_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
 // bf16 tensor-core phase A (its own rows per block and activation planes).
 // A row block of `c` blocks (a cluster when c > 1; lstm_cluster for bf16,
 // f32_cluster for float32) has one activation area per block and one db
-// partial per row block.
+// partial per row block.  The step route (`step`, above H = 1,024) keeps
+// its planes [tc][kStepSaved][rows, H] where the activation areas lie, one
+// db partial per kDgRows rows, and after phase B's partials its own
+// buffers (lstm_step.cuh's StepBwd): h in turn, c, dh, dc and the unit
+// tiles' dh partials.
 struct Layout {
   int row_blocks, n_blocks, c, splits, rows_per_split;
-  size_t act, dgates, h_prev, db_part, part_ih, part_hh, total;
+  bool step;
+  size_t act, dgates, h_prev, db_part, part_ih, part_hh, hbuf, c_state, dh,
+      dc, partial, total;
 };
 
 Layout layout(int n_rows, int n_steps, int e, int h_dim, int tc, size_t elt,
               bool mma) {
   Layout L;
   const long long n = (long long)n_rows * n_steps;
-  L.c = mma ? tiles::lstm_cluster(h_dim) : f32_cluster(h_dim, true);
+  L.step = tiles::lstm_route(h_dim, mma, true, false) == tiles::kRouteStep;
+  L.c = L.step ? 1 : mma ? tiles::lstm_cluster(h_dim) : f32_cluster(h_dim, true);
   const tiles::Config cfg =
       L.c > 1 ? tiles::kClusterConfig : tiles::pick_config(h_dim);
-  const int m_rows = mma ? 16 * cfg.mt : kRows;
+  const int m_rows = L.step ? kDgRows : mma ? 16 * cfg.mt : kRows;
   L.row_blocks = (n_rows + m_rows - 1) / m_rows;
   L.n_blocks = L.row_blocks * L.c;
+  const size_t plane = (size_t)n_rows * h_dim;
   const Splits sp = make_splits(n);
   L.splits = sp.splits;
   L.rows_per_split = sp.rows_per_split;
@@ -877,7 +891,8 @@ Layout layout(int n_rows, int n_steps, int e, int h_dim, int tc, size_t elt,
   size_t off = 0;
   L.act = off;
   off += align256(
-      mma ? (size_t)L.n_blocks *
+      L.step ? (size_t)tc * kStepSaved * plane * 4
+      : mma ? (size_t)L.n_blocks *
                 (tc * cfg.mt * cfg.g * kPlanes + park_slots(cfg.g, cfg.mt)) *
                 tiles::kThreads * 16
           : (size_t)L.n_blocks * tc * kSaved * kRows *
@@ -892,6 +907,18 @@ Layout layout(int n_rows, int n_steps, int e, int h_dim, int tc, size_t elt,
   off += align256((size_t)L.splits * e * g4 * 4);
   L.part_hh = off;
   off += align256((size_t)L.splits * h_dim * g4 * 4);
+  const size_t step_plane = L.step ? align256(plane * 4) : 0;
+  L.hbuf = off;
+  off += L.step ? align256(2 * plane * elt) : 0;
+  L.c_state = off;
+  off += step_plane;
+  L.dh = off;
+  off += step_plane;
+  L.dc = off;
+  off += step_plane;
+  L.partial = off;
+  off += L.step ? align256(step_unit_tiles(h_dim, mma ? 1 : 0) * plane * 4)
+                : 0;
   L.total = off;
   return L;
 }
@@ -900,8 +927,11 @@ bool valid_shape(int n_rows, int n_steps, int e, int h_dim, int tc) {
   return n_rows >= 0 && n_steps >= 0 && e > 0 && h_dim > 0 && tc > 0;
 }
 
-// bf16: E and H multiples of 32, H <= kMaxClustered; float32: H <= 1024
+// bf16: E and H multiples of 32, and above kMaxClustered (the step route)
+// H of 256; float32: any H
 bool shape_ok(int e, int h_dim, int dtype) {
+  if (tiles::lstm_route(h_dim, dtype == 1, true, false) == tiles::kRouteStep)
+    return step_shape_ok(e, h_dim, dtype);
   if (dtype == 0) return f32_cluster(h_dim, true) > 0;
   return dtype == 1 && e % tiles::kAlign == 0 && h_dim % tiles::kAlign == 0 &&
          tiles::lstm_cluster(h_dim) > 0;
@@ -989,6 +1019,17 @@ int launch(const void* x, const void* mask, const void* w_ih, const void* b,
           !tiles::aligned16(cb) || !tiles::aligned16(dout) ||
           !tiles::aligned16(dx) || !tiles::aligned16(workspace))
         return rc;
+    }
+    if (L.step) {
+      const StepBwd sb = {ws + L.hbuf, reinterpret_cast<float*>(ws + L.c_state),
+                          act, reinterpret_cast<float*>(ws + L.dh),
+                          reinterpret_cast<float*>(ws + L.dc),
+                          reinterpret_cast<float*>(ws + L.partial), db_part,
+                          dgates, h_prev};
+      rc = step_phase_a(x, mask, w_ih, b, w_hh, w_hh_t, hb, cb, dout, sb,
+                        n_rows, n_steps, e, h_dim, reverse, tc, kMma ? 1 : 0,
+                        stream);
+    } else if constexpr (kMma) {
       if (L.c > 1) {
         rc = launch_mma<tiles::kClusterConfig.g, tiles::kClusterConfig.mt,
                         true>(x, mask, w_ih, b, hb, cb, dout, dx, dgates,
@@ -1013,8 +1054,8 @@ int launch(const void* x, const void* mask, const void* w_ih, const void* b,
                        e, h_dim, reverse, tc, stream);
     }
     if (rc != 0) return rc;
-    if (L.c > 1) {
-      // phase C: a cluster's dx = dgates_c @ W_ih^T
+    if (L.c > 1 || L.step) {
+      // phase C: a cluster's (the step route's) dx = dgates_c @ W_ih^T
       cudaError_t err =
           launch_matmul<T>(dgates, g4, static_cast<const T*>(w_ih_t), n, e,
                            g4, static_cast<T*>(dx), stream);
@@ -1042,7 +1083,11 @@ int launch(const void* x, const void* mask, const void* w_ih, const void* b,
 }  // namespace
 
 // Bytes of workspace cair_lstm_bwd needs for these shapes, or -1 if they
-// are invalid (dtype 0 = float32, 1 = bfloat16).
+// are invalid (dtype 0 = float32, 1 = bfloat16): phase A's (the planes, or
+// the activation areas and the parked sums), phase B's operands and
+// partials, the db partials, and above H = 1,024 the step route's state --
+// h in turn, c, dh, dc and the dh partials of H / 256 (bf16) or
+// ceil(H / 128) (float32) unit tiles, each [rows, H].
 extern "C" long long cair_lstm_bwd_workspace(int n_rows, int n_steps, int e,
                                              int h_dim, int tc, int dtype) {
   if (!valid_shape(n_rows, n_steps, e, h_dim, tc) ||
@@ -1059,10 +1104,11 @@ extern "C" long long cair_lstm_bwd_workspace(int n_rows, int n_steps, int e,
 // dx [B, T, E], dw_ih [E, 4H], db [4H], dw_hh [H, 4H]; one dtype for all but
 // mask, hb and cb; `workspace` holds cair_lstm_bwd_workspace(...) bytes.
 // bfloat16: `w_ih` points at the staged weights as cair_lstm_fwd takes them
-// (one matrix a rank of the cluster above H = 384), `w_ih_t` is read by a
-// cluster's dx product alone, and `w_hh`, `w_hh_t` are not read.  float32
-// reads both transposes (w_ih_t in phase C above H = 403).  Returns the
-// first cudaError_t (0 on success).
+// (one matrix a rank of the cluster above H = 384; above H = 1,024 one a
+// unit tile of 256, H a multiple of 256), `w_ih_t` is read by a cluster's
+// (the step route's) dx product alone, and `w_hh`, `w_hh_t` are not read.
+// float32 reads both transposes (w_ih_t in phase C above H = 403).  Returns
+// the first cudaError_t (0 on success).
 extern "C" int cair_lstm_bwd(const void* x, const void* mask,
                              const void* w_ih, const void* b,
                              const void* w_hh, const void* w_ih_t,

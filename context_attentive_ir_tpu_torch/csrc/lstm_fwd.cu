@@ -52,6 +52,12 @@
 // its units' new h into every rank's tile.  Each (row, unit)'s FMAs run in
 // the same k order either way.
 //
+// These launchers hold H up to 1,024 (kMaxClustered) in both dtypes; above
+// it kernels 1 and 4 take the step route (`lstm_route` in lstm_mma.cuh;
+// cair_lstm_step in lstm_step.cu: the cluster's ranks made independent
+// blocks, h through device memory, a launch a time step), whose state needs
+// a workspace these launchers do not take.
+//
 // As in the TPU kernel, h is rounded to the input dtype before the
 // recurrent product (`hs.astype(whh_ref.dtype)`); everything else is f32.
 
@@ -424,7 +430,7 @@ int dispatch(const void* x, const void* mask, const void* w_ih, const void* b,
 
 // Kernel 1.  x [B, T, E], mask uint8 [B, T], w_ih [E, 4H], b [4H],
 // w_hh [H, 4H], out [B, T, H]; all contiguous, one dtype (0 = float32,
-// 1 = bfloat16).  bfloat16: `w_ih` points at the staged weights
+// 1 = bfloat16); H up to 1,024 (above it: cair_lstm_step).  bfloat16: `w_ih` points at the staged weights
 // [E + H, 4H + 8] (W_ih over W_hh, 8 zero columns a row) -- above H = 384
 // C = lstm_cluster(H) such matrices [E + H, 4H/C + 8], rank r's holding the
 // gate columns of units r*H/C .. (r+1)*H/C - 1 -- and `w_hh` is not read.

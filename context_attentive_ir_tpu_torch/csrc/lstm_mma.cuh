@@ -87,6 +87,24 @@ inline int lstm_cluster(int h) {
   return h <= kMaxSingle ? 1 : h <= kMaxPair ? 2 : h <= kMaxClustered ? 4 : 0;
 }
 
+// The route of the LSTM kernels, in both dtypes: one block, a cluster of
+// blocks that exchange h through distributed shared memory (kernels 1, 4, 5:
+// bf16 lstm_cluster, float32 f32_cluster), or the step route (lstm_step.cu:
+// one launch a time step, h through device memory) for every H past those:
+// above kMaxClustered for kernels 1, 4, 5 and above kMaxRec for kernel 6
+// (`rec`; its one block has 2H <= 1,024 threads).  `lstm_route` in
+// ops/kernels/lstm.py states the same rule.
+enum Route { kRouteSingle = 0, kRouteCluster = 1, kRouteStep = 2 };
+constexpr int kMaxRec = 512;
+
+inline int lstm_route(int h, bool bf16, bool backward, bool rec) {
+  if (rec) return h <= kMaxRec ? kRouteSingle : kRouteStep;
+  if (h > kMaxClustered) return kRouteStep;
+  return (bf16 ? lstm_cluster(h) : f32_cluster(h, backward)) > 1
+             ? kRouteCluster
+             : kRouteSingle;
+}
+
 // The GRU's cluster split (kernels 7, 8, 9): one block up to
 // kGruMaxSingle (where kernel 9's single-block tiles stop fitting), then
 // the LSTM's: C = 2 up to kMaxPair, C = 4 up to kMaxClustered, each rank
@@ -127,6 +145,9 @@ inline Config pick_config(int h) {
 
 // a rank of a cluster: up to 256 units over the 8 warps, 16 rows
 constexpr Config kClusterConfig = {4, 1};
+// a unit tile of the step route: a rank's tile, all of its 256 units (the
+// bf16 step route pads H to a multiple of it)
+constexpr int kStepUnits = kClusterConfig.g * 8 * kWarps;
 
 // bytes per staged row (16 bytes of padding each)
 __host__ __device__ inline int h_stride(int h) { return h * 2 + 16; }
@@ -181,6 +202,29 @@ inline size_t mma_smem(int hk, int hc, int gates, int m_rows, bool backward,
         (backward && gates == kLstmGates && c == 1 ? exch_bytes(hk, m_rows)
                                                    : 0) +
         16 * hc;
+    if (bytes <= kSmemLimit) {
+      *ks = depth;
+      return bytes;
+    }
+  }
+  return 0;
+}
+
+// Dynamic shared memory of a bf16 step-route block (lstm_step.cu: a unit
+// tile of kStepUnits units, kClusterConfig's 16 rows), or 0 if no slab depth
+// fits (*ks gets the depth): the ring's header, slabs of the tile's staged
+// weights and x slots (x_t and h_{t-1} both stream through them), then the
+// bias (four f32 slots of the tile, the forward) or the dgates tile of the
+// tile's gate columns (the backward's dh product).  No term grows with E or
+// H.  `step_smem_bytes` in ops/kernels/lstm.py states the same sum.
+inline size_t step_smem(bool backward, int* ks) {
+  const int m_rows = 16 * kClusterConfig.mt;
+  for (int depth = 32; depth >= 16; depth /= 2) {
+    const size_t bytes =
+        kRingHeader + (size_t)kStages * depth * w_stride(kStepUnits, kLstmGates) +
+        (size_t)kStages * m_rows * xslot_stride(depth) +
+        (backward ? (size_t)m_rows * slot_stride(kStepUnits)
+                  : (size_t)16 * kStepUnits);
     if (bytes <= kSmemLimit) {
       *ks = depth;
       return bytes;
@@ -375,6 +419,10 @@ struct WeightRing {
   uint64_t* full;
   const char* w;
   const bf16* x;
+  // h streamed beside the h slabs as x is beside the x slabs, from a
+  // row-major [rows, hk] bf16 buffer (the step route); null: h is a staged
+  // tile the caller reads
+  const bf16* hx;
   int e, hk, ws, ks, n_slabs, slab_bytes, xslot_bytes;
   int row0, m_rows, n_rows, n_steps;
   int total;
@@ -392,6 +440,7 @@ struct WeightRing {
     base = smem + kRingHeader;
     w = reinterpret_cast<const char*>(staged);
     x = x_;
+    hx = nullptr;
     e = e_;
     hk = hk_;
     ws = w_stride(hc, gates);
@@ -436,6 +485,9 @@ struct WeightRing {
     if (k0 < e && t >= 0)
       load_x_slab(xbase + slot * xslot_bytes, x, row0, m_rows, n_rows,
                   n_steps, t, e, k0, ks);
+    else if (hx != nullptr && t >= 0)
+      load_x_slab(xbase + slot * xslot_bytes, hx, row0, m_rows, n_rows, 1, 0,
+                  hk, k0 - e, ks);
   }
   // the first kStages - 1 slabs of the first unit (x step t0), one
   // cp.async commit group each (the caller's own copies issued before this

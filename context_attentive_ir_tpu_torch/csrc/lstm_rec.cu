@@ -61,6 +61,12 @@
 // As in the TPU kernel, h is rounded to W_hh's dtype before the product
 // (`h.astype(whh_ref.dtype)`); gates and state are f32, the nonlinearities
 // the exact expf / tanhf.
+//
+// This launcher holds H up to 512 (kMaxRec: 2H <= 1,024 threads a block).
+// Above it, in both dtypes, kernel 6 takes the step route (`lstm_route` in
+// lstm_mma.cuh; cair_lstm_step with rec = 1 in lstm_step.cu): kernel 1's
+// step kernel with E = 0, its accumulators started from x_proj, a launch a
+// time step, any multiple of 128 the JAX kernel takes.
 
 #include "lstm_common.cuh"
 #include "lstm_mma.cuh"
@@ -369,8 +375,9 @@ int launch(const void* x_proj, const void* mask, const void* w_hh, void* out,
 // contiguous, one dtype (0 = float32, 1 = bfloat16).  The route: bfloat16 at
 // H = 128 runs the tensor-core kernel, and then `w_hh` points at the staged
 // W_hh [H, 4H + 8] (8 zero columns a row) and x_proj, w_hh and out are
-// 16-byte aligned; everything else runs the CUDA-core kernel on w_hh
-// [H, 4H] (2H <= 1024 threads).  `rec_tensor_cores` in ops/kernels/lstm.py
+// 16-byte aligned; everything else up to H = 512 runs the CUDA-core kernel
+// on w_hh [H, 4H] (2H <= 1024 threads); above it the launch is refused
+// (the step route: cair_lstm_step).  `rec_tensor_cores` in ops/kernels/lstm.py
 // states the same rule.  Returns the cudaError_t of the launch (0 on
 // success).
 extern "C" int cair_lstm_rec(const void* x_proj, const void* mask,

@@ -37,6 +37,9 @@ SIGNATURES = {
     "cair_lstm_rec": ([_P] * 4 + [_I] * 5 + [_P], _I),
     "cair_lstm_bwd_workspace": ([_I] * 6, ctypes.c_longlong),
     "cair_lstm_bwd": ([_P] * 15 + [_I] * 7 + [_P], _I),
+    "cair_lstm_step_workspace": ([_I] * 3, ctypes.c_longlong),
+    "cair_lstm_step": ([_P] * 9 + [_I] * 9 + [_P], _I),
+    "cair_lstm_route": ([_I] * 3, _I),
     "cair_gru_fwd": ([_P] * 7 + [_I] * 6 + [_P], _I),
     "cair_gru_fwd_res": ([_P] * 8 + [_I] * 7 + [_P], _I),
     "cair_gru_bwd_workspace": ([_I] * 7, ctypes.c_longlong),

@@ -71,7 +71,7 @@ import torch
 from ...device import check_on, resolve_device
 from .lstm import (
     _DTYPES,
-    MAX_HIDDEN,
+    MAX_CLUSTER_HIDDEN,
     MAX_PAIR_BF16,
     SMEM_LIMIT,
     TILE_ALIGN,
@@ -105,7 +105,7 @@ def gru_cluster(hidden: int) -> int:
         return 1
     if hidden <= MAX_PAIR_BF16:
         return 2
-    return 4 if hidden <= MAX_HIDDEN else 0
+    return 4 if hidden <= MAX_CLUSTER_HIDDEN else 0
 
 
 def _h_align(hidden: int) -> int:
@@ -135,7 +135,7 @@ def gru_fused_supported(embed: int, hidden: int, rows: int,
     if embed < 1 or hidden < 1 or rows < 1 or dtype not in _DTYPES:
         return False
     if dtype == torch.float32:
-        return (hidden <= MAX_HIDDEN
+        return (hidden <= MAX_CLUSTER_HIDDEN
                 and 0 < f32_smem_bytes(embed, hidden, backward=True)
                 <= SMEM_LIMIT)
     e, h = _round_up(embed, TILE_ALIGN), gru_tile_hidden(hidden)

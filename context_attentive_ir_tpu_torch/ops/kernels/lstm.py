@@ -46,8 +46,14 @@ keeps exact f32 FMAs (no TF32) on the first version's
 one-thread-per-unit layout, x staged in chunks, its units split over a
 cluster of up to 8 blocks of at most 256 threads above H = 256 in kernels
 1 and 4 and above 403 in kernel 5 (``f32_cluster``).
-``fused_supported`` states the shapes each dtype's kernels hold (any E, H
-up to 1,024); ``PERF.md`` records times and bounds.
+
+Above H = 1,024, in both dtypes, kernels 1, 4 and 5 take the step route
+(``csrc/lstm_step.cu``, ``lstm_route``): the cluster's ranks made
+independent blocks of a row tile and a unit tile of 256 (bf16, H padded to
+a multiple of it) or 128 (float32) units, h through device memory, a launch
+a time step, so no shared memory grows with H.  ``fused_supported`` states
+the shapes each dtype's kernels hold (any E, any H); ``PERF.md`` records
+times and bounds.
 """
 
 from __future__ import annotations
@@ -61,7 +67,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # -- the shapes the CUDA kernels hold (csrc/lstm_mma.cuh, lstm_common.cuh) ----
 SMEM_LIMIT = 232448   # dynamic shared memory a block may use on sm_90
 TILE_ALIGN = 32       # the bf16 kernels' E and H are multiples of this
-MAX_HIDDEN = 1024      # kernels 1, 4, 5 and 7, 8, 9, both dtypes
+MAX_CLUSTER_HIDDEN = 1024  # clusters hold kernels 1, 4, 5 and 7, 8, 9 to here
 MAX_SINGLE_BF16 = 384  # one block; above it a cluster (kMaxSingle)
 MAX_PAIR_BF16 = 512    # a cluster of 2 up to here, of 4 above (kMaxPair)
 CLUSTER_TILE = (4, 1)  # a rank's unit groups per warp, 16-row tiles
@@ -71,6 +77,10 @@ F32_MAX_SINGLE = 403  # float32 kernels 5, 9: one block up to here (4H rows)
 F32_FWD_SINGLE = 256  # float32 kernels 1, 4, 7, 8: one block up to here
 F32_UNITS = 128       # units a rank of a float32 cluster holds
 F32_MAX_RANKS = 8
+# units of a unit tile of the step route (kStepUnits: a bf16 cluster rank's;
+# kF32Units), and a bf16 step block's rows (kClusterConfig's tile)
+STEP_UNITS = {torch.bfloat16: 256, torch.float32: F32_UNITS}
+STEP_ROWS = 16
 
 
 def _round_up(v: int, m: int) -> int:
@@ -80,12 +90,62 @@ def _round_up(v: int, m: int) -> int:
 def lstm_cluster(hidden: int) -> int:
     """Blocks of the cluster the bf16 kernels 1, 4, 5 split a padded
     ``hidden`` size over (``lstm_cluster`` in ``csrc/lstm_mma.cuh``): 1 up
-    to 384, 2 up to 512, 4 up to 1,024; 0 above."""
+    to 384, 2 up to 512, 4 up to 1,024; 0 above, where the step route
+    takes them (``lstm_route``)."""
     if hidden <= MAX_SINGLE_BF16:
         return 1
     if hidden <= MAX_PAIR_BF16:
         return 2
-    return 4 if hidden <= MAX_HIDDEN else 0
+    return 4 if hidden <= MAX_CLUSTER_HIDDEN else 0
+
+
+def lstm_route(hidden: int, dtype: torch.dtype = torch.float32,
+               backward: bool = False, recurrence: bool = False) -> str:
+    """The route of the LSTM kernels at ``hidden`` units in ``dtype``
+    (``lstm_route`` in ``csrc/lstm_mma.cuh``, which the launchers apply):
+    ``"single"`` (one block), ``"cluster"`` (a cluster of blocks that
+    exchange h through distributed shared memory: bf16 ``lstm_cluster``,
+    float32 ``f32_cluster``, ``backward`` for kernel 5's) or ``"step"``
+    (``csrc/lstm_step.cu``: a launch a time step, h through device
+    memory) -- kernels 1, 4, 5 above 1,024 units and kernel 6
+    (``recurrence``) above 512, in both dtypes."""
+    if recurrence:
+        return "single" if hidden <= MAX_HIDDEN_REC else "step"
+    if hidden > MAX_CLUSTER_HIDDEN:
+        return "step"
+    c = (lstm_cluster(_round_up(hidden, TILE_ALIGN))
+         if dtype == torch.bfloat16 else f32_cluster(hidden, backward))
+    return "cluster" if c > 1 else "single"
+
+
+def step_hidden(hidden: int, dtype: torch.dtype) -> int:
+    """The hidden size the step route runs ``hidden`` at: bf16 the next
+    multiple of its 256-unit tile (zero-padded by the wrappers), float32
+    ``hidden`` itself (its last tile partial)."""
+    return (_round_up(hidden, STEP_UNITS[dtype]) if dtype == torch.bfloat16
+            else hidden)
+
+
+def step_smem_bytes(dtype: torch.dtype = torch.bfloat16,
+                    backward: bool = False) -> int:
+    """Dynamic shared memory of a step-route block, which no E or H
+    changes.  bf16 (``step_smem`` in ``csrc/lstm_mma.cuh``): the ring's
+    mbarriers (64 bytes), three slabs of 32 (else 16) k-rows of the 256-unit
+    tile's 1,024 gate columns (+ 16 bytes a row), three x slots of 16 rows
+    of a slab's depth (x_t and h_{t-1} both stream through them), then the
+    forward's bias (four f32 slots of the tile) or the dh product's dgates
+    tile (16 rows of 8 * 256 + 16 bytes).  float32 (``csrc/lstm_step.cu``):
+    the forward stages one chunk of 256 k-rows, the dh product the tile's
+    4 * 128 dgates columns, k-major rows of 36 floats."""
+    if dtype == torch.float32:
+        return (4 * F32_UNITS if backward else F32_CHUNK) * F32_STRIDE * 4
+    units, m = STEP_UNITS[torch.bfloat16], STEP_ROWS
+    for depth in (32, 16):
+        n_bytes = (64 + 3 * depth * (8 * units + 16) + 3 * m * (2 * depth + 16)
+                   + (m * (8 * units + 16) if backward else 16 * units))
+        if n_bytes <= SMEM_LIMIT:
+            return n_bytes
+    return 0
 
 
 def f32_cluster(hidden: int, backward: bool = True) -> int:
@@ -181,23 +241,23 @@ def fused_supported(embed: int, hidden: int, rows: int,
                     dtype: torch.dtype = torch.float32) -> bool:
     """Whether kernels 1, 4 and 5 hold an ``[rows, T, embed] -> hidden``
     LSTM in ``dtype`` (the counterpart of the JAX ``fused_supported``, with
-    this card's limits): any ``embed`` and a ``hidden`` size up to 1,024 in
-    both dtypes.  bfloat16: ``hidden`` padded to a multiple of 32, split
-    over a cluster of 2 or 4 blocks above 384 (``lstm_cluster``), whose
-    tiles fit a block's shared memory (``tile_smem_bytes``).  float32:
-    ``f32_cluster`` blocks of at most 2 * 403 threads and ``f32_smem_bytes``
-    of shared memory."""
-    if embed < 1 or hidden < 1 or rows < 1:
+    this card's limits): every ``embed``, ``hidden`` and ``rows`` of at
+    least 1 in both dtypes.  Up to 1,024 units, bfloat16: ``hidden`` padded
+    to a multiple of 32, split over a cluster of 2 or 4 blocks above 384
+    (``lstm_cluster``), whose tiles fit a block's shared memory
+    (``tile_smem_bytes``); float32: ``f32_cluster`` blocks of at most 2 *
+    403 threads and ``f32_smem_bytes`` of shared memory.  Above it the step
+    route (``lstm_route``), whose blocks' shared memory
+    (``step_smem_bytes``) no width changes."""
+    if embed < 1 or hidden < 1 or rows < 1 or dtype not in _DTYPES:
         return False
+    if lstm_route(hidden, dtype, backward=True) == "step":
+        return (step_smem_bytes(dtype) > 0
+                and step_smem_bytes(dtype, backward=True) > 0)
     if dtype == torch.bfloat16:
         e, h = _round_up(embed, TILE_ALIGN), _round_up(hidden, TILE_ALIGN)
-        return (h <= MAX_HIDDEN
-                and tile_smem_bytes(e, h, backward=True) > 0)
-    if dtype == torch.float32:
-        return (hidden <= MAX_HIDDEN
-                and 0 < f32_smem_bytes(embed, hidden, backward=True)
-                <= SMEM_LIMIT)
-    return False
+        return tile_smem_bytes(e, h, backward=True) > 0
+    return 0 < f32_smem_bytes(embed, hidden, backward=True) <= SMEM_LIMIT
 
 
 def _pad_last(t: torch.Tensor, size: int) -> torch.Tensor:
@@ -255,15 +315,16 @@ def pad_operands(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
 
 
 def pad_lstm_operands(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor,
-                      w_hh: torch.Tensor):
-    """The operands of an LSTM with E and H zero-padded up to multiples of
-    ``TILE_ALIGN``:
+                      w_hh: torch.Tensor, h_align: int = TILE_ALIGN):
+    """The operands of an LSTM with E zero-padded up to a multiple of
+    ``TILE_ALIGN`` and H up to one of ``h_align`` (the step route's unit
+    tile, or ``TILE_ALIGN``):
     ``x [B, T, Ep]``, ``w_ih [Ep, 4Hp]``, ``b [4Hp]``, ``w_hh [Hp, 4Hp]``,
     every tensor 16-byte aligned.  The padded LSTM's first H units equal the
     original's: a padded unit has zero weights and bias, so its gates are 0,
     its c and h stay exactly 0 and it feeds nothing back; its gradients are
     0.  Aligned operands come back as they are (no copy)."""
-    x, w_ih, w_hh, b = pad_operands(x, w_ih, w_hh, (b,), 4)
+    x, w_ih, w_hh, b = pad_operands(x, w_ih, w_hh, (b,), 4, h_align)
     return x, w_ih, b, w_hh
 
 
@@ -437,6 +498,68 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _step_workspace(n_rows: int, h: int, x: torch.Tensor) -> torch.Tensor:
+    """The step route's forward state (h in turn, c, bf16's f32 h) on x's
+    card: ``cair_lstm_step_workspace`` bytes."""
+    from .build import load_library
+
+    n_bytes = load_library().cair_lstm_step_workspace(n_rows, h,
+                                                      _DTYPES[x.dtype])
+    if n_bytes < 0:
+        raise ValueError(f"lstm step route: invalid shape B={n_rows} H={h}")
+    return torch.empty((n_bytes,), dtype=torch.uint8, device=x.device)
+
+
+def _forward(name: str, x, mask, w_ih, b, w_hh, reverse: bool, tc: int,
+             res: bool):
+    """Kernel 1 (``res`` False) or 4 on CUDA tensors, by the route of H:
+    ``cair_lstm_fwd`` / ``cair_lstm_fwd_res`` up to 1,024 units,
+    ``cair_lstm_step`` above.  Returns ``(out, hb, cb)`` at the padded H
+    (hb, cb None without ``res``) and H."""
+    B, T, E, H = _check_cuda_args(name, x, mask, w_ih, b, w_hh)
+    step = lstm_route(H, x.dtype) == "step"
+    if x.dtype == torch.bfloat16:
+        # zero-padded to the tiles' widths, the weights staged: one matrix a
+        # rank of a cluster or a unit tile of the step route
+        x, w_ih, b, w_hh = pad_lstm_operands(
+            x, w_ih, b, w_hh, STEP_UNITS[x.dtype] if step else TILE_ALIGN)
+        Hp = w_hh.shape[0]
+        w_ih = stage_lstm_weights(
+            w_ih, w_hh, Hp // STEP_UNITS[x.dtype] if step else
+            lstm_cluster(Hp))
+    Ep, Hp = x.shape[-1], w_hh.shape[0]
+    out = torch.empty((B, T, Hp), dtype=x.dtype, device=x.device)
+    hb = cb = None
+    if res:
+        hb = torch.empty((-(-T // tc), B, Hp), dtype=torch.float32,
+                         device=x.device)
+        cb = torch.empty_like(hb)
+    from .build import launch
+
+    # the launchers report a hidden size their blocks cannot hold
+    if step:
+        workspace = _step_workspace(B, Hp, x)
+        launch(
+            "cair_lstm_step", x.device,
+            x.data_ptr(), mask.data_ptr(), w_ih.data_ptr(), b.data_ptr(),
+            w_hh.data_ptr(), out.data_ptr(), hb.data_ptr() if res else 0,
+            cb.data_ptr() if res else 0, workspace.data_ptr(), B, T, Ep, Hp,
+            int(reverse), tc, int(res), 0, _DTYPES[x.dtype], _stream(x))
+    elif res:
+        launch(
+            "cair_lstm_fwd_res", x.device,
+            x.data_ptr(), mask.data_ptr(), w_ih.data_ptr(), b.data_ptr(),
+            w_hh.data_ptr(), out.data_ptr(), hb.data_ptr(), cb.data_ptr(), B,
+            T, Ep, Hp, int(reverse), tc, _DTYPES[x.dtype], _stream(x))
+    else:
+        launch(
+            "cair_lstm_fwd", x.device,
+            x.data_ptr(), mask.data_ptr(), w_ih.data_ptr(), b.data_ptr(),
+            w_hh.data_ptr(), out.data_ptr(), B, T, Ep, Hp, int(reverse),
+            _DTYPES[x.dtype], _stream(x))
+    return out, hb, cb, H
+
+
 def lstm_fused(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
                b: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False,
                device="cuda") -> torch.Tensor:
@@ -458,23 +581,10 @@ def lstm_fused(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
         return lstm_fused_reference(x, mask, w_ih, b, w_hh, reverse)
     if dev.type != "cuda":
         raise ValueError(f"lstm_fused runs on cuda or cpu, not {dev}")
-    B, T, E, H = _check_cuda_args("lstm_fused", x, mask, w_ih, b, w_hh)
-    if x.dtype == torch.bfloat16:
-        x, w_ih, b, w_hh = pad_lstm_operands(x, w_ih, b, w_hh)
-    Ep, Hp = x.shape[-1], w_hh.shape[0]
-    if x.dtype == torch.bfloat16:
-        w_ih = stage_lstm_weights(w_ih, w_hh, lstm_cluster(Hp))
-    out = torch.empty((B, T, Hp), dtype=x.dtype, device=x.device)
-    from .build import launch
-
-    # the launcher reports a hidden size its blocks cannot hold
-    launch(
-        "cair_lstm_fwd", x.device,
-        x.data_ptr(), mask.data_ptr(), w_ih.data_ptr(), b.data_ptr(),
-        w_hh.data_ptr(), out.data_ptr(), B, T, Ep, Hp, int(reverse),
-        _DTYPES[x.dtype], _stream(x))
+    out, _, _, H = _forward("lstm_fused", x, mask, w_ih, b, w_hh, reverse,
+                            x.shape[1], False)
     lstm_fused.launches += 1
-    return out if Hp == H else out[..., :H].contiguous()
+    return out if out.shape[-1] == H else out[..., :H].contiguous()
 
 
 lstm_fused.launches = 0
@@ -495,26 +605,11 @@ def lstm_fused_res(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
                                         time_chunk)
     if dev.type != "cuda":
         raise ValueError(f"lstm_fused_res runs on cuda or cpu, not {dev}")
-    B, T, E, H = _check_cuda_args("lstm_fused_res", x, mask, w_ih, b, w_hh)
-    tc = chunk_len(T, time_chunk)
-    if x.dtype == torch.bfloat16:
-        x, w_ih, b, w_hh = pad_lstm_operands(x, w_ih, b, w_hh)
-    Ep, Hp = x.shape[-1], w_hh.shape[0]
-    if x.dtype == torch.bfloat16:
-        w_ih = stage_lstm_weights(w_ih, w_hh, lstm_cluster(Hp))
-    out = torch.empty((B, T, Hp), dtype=x.dtype, device=x.device)
-    hb = torch.empty((-(-T // tc), B, Hp), dtype=torch.float32,
-                     device=x.device)
-    cb = torch.empty_like(hb)
-    from .build import launch
-
-    launch(
-        "cair_lstm_fwd_res", x.device,
-        x.data_ptr(), mask.data_ptr(), w_ih.data_ptr(), b.data_ptr(),
-        w_hh.data_ptr(), out.data_ptr(), hb.data_ptr(), cb.data_ptr(), B, T,
-        Ep, Hp, int(reverse), tc, _DTYPES[x.dtype], _stream(x))
+    out, hb, cb, H = _forward("lstm_fused_res", x, mask, w_ih, b, w_hh,
+                              reverse, chunk_len(x.shape[1], time_chunk),
+                              True)
     lstm_fused_res.launches += 1
-    if Hp != H:
+    if out.shape[-1] != H:
         out, hb, cb = (t[..., :H].contiguous() for t in (out, hb, cb))
     return out, hb, cb
 
@@ -557,12 +652,16 @@ def lstm_fused_bwd(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
     lib = load_library()
     dtype = _DTYPES[x.dtype]
     if x.dtype == torch.bfloat16:
-        # the tensor-core kernels read W^T out of the staged W's own slabs;
-        # a cluster's dx is one product with W_ih^T after them
-        x, w_ih, b, w_hh = pad_lstm_operands(x, w_ih, b, w_hh)
+        # the tensor-core kernels read W^T out of the staged W's own slabs
+        # (one matrix a rank of a cluster or a unit tile of the step route);
+        # a cluster's, or the step route's, dx is one product with W_ih^T
+        # after them
+        step = lstm_route(H, x.dtype, backward=True) == "step"
+        x, w_ih, b, w_hh = pad_lstm_operands(
+            x, w_ih, b, w_hh, STEP_UNITS[x.dtype] if step else TILE_ALIGN)
         Hp = w_hh.shape[0]
         hb, cb, dout = (_aligned(_pad_last(t, Hp)) for t in (hb, cb, dout))
-        ranks = lstm_cluster(Hp)
+        ranks = Hp // STEP_UNITS[x.dtype] if step else lstm_cluster(Hp)
         staged = stage_lstm_weights(w_ih, w_hh, ranks)
         w_ih_t = w_ih.t().contiguous() if ranks > 1 else None
         transposes = (0 if w_ih_t is None else w_ih_t.data_ptr(), 0)
@@ -644,9 +743,11 @@ def lstm_fused_train(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
 # 6.3e10 flops (0.064 ms): bound by bytes.  In bfloat16 at H = 128 it runs on
 # ``csrc/lstm_mma.cuh``'s tensor-core tiles with W_hh resident in shared
 # memory (``rec_tensor_cores``); float32 and bf16 H = 256 .. 512 keep the
-# CUDA-core kernel.
+# CUDA-core kernel; above 512, in both dtypes, the step route of kernels 1,
+# 4, 5 with E = 0 (``csrc/lstm_step.cu``: its accumulators start from
+# x_proj, a launch a time step), so any multiple of 128 runs.
 
-MAX_HIDDEN_REC = 512  # the CUDA-core kernel's block: 2H <= 1024 threads
+MAX_HIDDEN_REC = 512  # the CUDA-core kernel's block (2H <= 1024 threads)
 REC_HIDDEN = 128      # the tensor-core route's H (its tiles' constant)
 REC_ROWS = 64         # rows a block of the tensor-core route
 
@@ -722,9 +823,6 @@ def _check_rec_args(x_proj, mask, w_hh):
     if H % 128 != 0:
         raise ValueError("lstm_recurrence: the kernel needs a hidden size "
                          f"that is a multiple of 128, got H={H}")
-    if H > MAX_HIDDEN_REC:
-        raise ValueError("lstm_recurrence: the kernel holds a hidden size up "
-                         f"to {MAX_HIDDEN_REC}, got H={H}")
     if not all(t.is_contiguous() for t in (x_proj, mask, w_hh)):
         raise ValueError("lstm_recurrence needs contiguous tensors")
     return B, T, H
@@ -743,14 +841,39 @@ def lstm_recurrence_fwd(x_proj: torch.Tensor, mask: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"lstm_recurrence runs on cuda or cpu, not {dev}")
     B, T, H = _check_rec_args(x_proj, mask, w_hh)
+    from .build import launch
+
+    if lstm_route(H, x_proj.dtype, recurrence=True) == "step":
+        dtype = x_proj.dtype
+        Hp = step_hidden(H, dtype)
+        if Hp != H:
+            # zero gate blocks and W_hh rows: a padded unit's gates are 0,
+            # its c and h stay exactly 0
+            x_proj = _pad_gates(x_proj, H, Hp)
+            w_hh = torch.nn.functional.pad(_pad_gates(w_hh, H, Hp),
+                                           (0, 0, 0, Hp - H))
+        x_proj = _aligned(x_proj)
+        # bf16: the staged W_hh of each unit tile (an empty W_ih over it);
+        # float32 reads W_hh as it is
+        staged = (stage_lstm_weights(w_hh[:0], w_hh, Hp // STEP_UNITS[dtype])
+                  if dtype == torch.bfloat16 else None)
+        out = torch.empty((B, T, Hp), dtype=dtype, device=x_proj.device)
+        workspace = _step_workspace(B, Hp, x_proj)
+        launch(
+            "cair_lstm_step", x_proj.device,
+            x_proj.data_ptr(), mask.data_ptr(),
+            0 if staged is None else staged.data_ptr(), 0,
+            w_hh.data_ptr() if staged is None else 0, out.data_ptr(), 0, 0,
+            workspace.data_ptr(), B, T, 0, Hp, int(reverse), 1, 0, 1,
+            _DTYPES[dtype], _stream(x_proj))
+        lstm_recurrence.launches += 1
+        return out if Hp == H else out[..., :H].contiguous()
     if rec_tensor_cores(H, x_proj.dtype):
         # the tensor-core kernel bulk-copies the x_proj rows and the staged
         # W_hh (an empty W_ih over it: [H, 4H + 8]) into shared memory
         x_proj = _aligned(x_proj)
         w_hh = stage_lstm_weights(w_hh[:0], w_hh)
     out = torch.empty((B, T, H), dtype=x_proj.dtype, device=x_proj.device)
-    from .build import launch
-
     launch(
         "cair_lstm_rec", x_proj.device,
         x_proj.data_ptr(), mask.data_ptr(), w_hh.data_ptr(), out.data_ptr(),
@@ -786,9 +909,9 @@ def lstm_recurrence(x_proj: torch.Tensor, mask: torch.Tensor,
                     w_hh: torch.Tensor, reverse: bool = False,
                     device="cuda") -> torch.Tensor:
     """x_proj [B, T, 4H] (``x @ W_ih + b``, gate order i, f, g, o), mask bool
-    [B, T], w_hh [H, 4H] (one dtype, float32 or bfloat16; on the card H a
-    multiple of 128 up to 512) -> h [B, T, H] in that dtype, from a zero
-    state.
+    [B, T], w_hh [H, 4H] (one dtype, float32 or bfloat16; on the card H any
+    multiple of 128, as the JAX kernel takes: one block up to 512, the step
+    route above) -> h [B, T, H] in that dtype, from a zero state.
 
     The counterpart of the JAX ``lstm_pallas``: kernel 6 on CUDA tensors,
     its plain version on CPU tensors (``device="cpu"``), differentiable in

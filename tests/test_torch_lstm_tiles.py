@@ -102,19 +102,19 @@ def test_tile_smem_bytes(e, h, backward, n_bytes):
     (300, 100, BF16, True),     # padded to 320, 128
     (37, 8, BF16, True),
     (480, 128, BF16, True),     # E is streamed: any E ...
-    (481, 1152, BF16, False),   # ... but no H above 1,024
+    (481, 1152, BF16, True),    # ... and H above 1,024 the step route
     (512, 256, BF16, True),
     (256, 384, BF16, True),     # the largest H of one block ...
-    (256, 1025, BF16, False),   # ... 1,056 after padding: no cluster
-    (32, 1152, BF16, False),
-    (256, 1056, BF16, False),   # hidden above 1,024
+    (256, 1025, BF16, True),    # ... 1,056 after padding: the step route
+    (32, 1152, BF16, True),
+    (256, 1056, BF16, True),    # hidden above 1,024: the step route
     (256, 128, F32, True),
-    (256, 1152, F32, False),    # no cluster of 8 blocks holds it
+    (256, 1152, F32, True),     # no cluster of 8 blocks: the step route
     (256, 403, F32, True),      # 4 * 403 * 144 = 232,128 <= 232,448
-    (256, 1025, F32, False),
+    (256, 1025, F32, True),
     (1485, 128, F32, True),     # x staged in chunks: any E ...
-    (1487, 1152, F32, False),   # ... but no H above 1,024
-    (256, 1153, F32, False),    # hidden above 1,024
+    (1487, 1152, F32, True),    # ... and H above 1,024 the step route
+    (256, 1153, F32, True),     # hidden above 1,024
     (256, 128, torch.float16, False),
     (0, 128, BF16, False), (256, 0, BF16, False)])
 def test_fused_supported_at_and_beyond_each_limit(e, h, dtype, ok):

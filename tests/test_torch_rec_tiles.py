@@ -2,7 +2,8 @@
 ``ops/kernels/lstm.py``) on the host: the shared-memory sum at and beyond its
 limit (``rec_smem_bytes``), the route between the tensor-core and the
 CUDA-core kernels (``rec_tensor_cores``), the hidden sizes the wrapper
-holds, the staged W_hh the kernel keeps resident, and a plain-PyTorch
+holds (any multiple of 128: above 512 the step route, ``tests/
+test_torch_step_lstm.py``), the staged W_hh the kernel keeps resident, and a plain-PyTorch
 emulation of the tensor-core kernel's tile walk held to the JAX package.
 
 The emulation follows ``lstm_rec_mma_kernel``: blocks of M = 64 rows (the
@@ -106,7 +107,7 @@ def test_wrapper_holds_every_hidden_size_up_to_512(h, dtype):
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("h,why", [(640, "up to 512"),
+@pytest.mark.parametrize("h,why", [(704, "multiple of 128"),
                                    (192, "multiple of 128"),
                                    (64, "multiple of 128")])
 def test_wrapper_refuses_other_hidden_sizes(h, why, dtype):

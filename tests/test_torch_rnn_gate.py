@@ -85,13 +85,13 @@ def _count_calls(monkeypatch):
     return calls
 
 
-# (rnn, E, H, the kernels hold it): the LSTM and GRU kernels hold every E
-# and H up to 1,024 (1,152 is beyond them; the GRU's float32 H = 520 on a
-# cluster of 5 blocks, E = 1700 staged in chunks); an odd E and H stay with
-# the kernels (float32 has no alignment rule; bfloat16 is zero-padded by
-# the wrapper)
+# (rnn, E, H, the kernels hold it): the LSTM kernels hold every E and H
+# (1,152 on the step route), the GRU's every E and H up to 1,024 (1,152 is
+# beyond them; the GRU's float32 H = 520 on a cluster of 5 blocks, E = 1700
+# staged in chunks); an odd E and H stay with the kernels (float32 has no
+# alignment rule; bfloat16 is zero-padded by the wrapper)
 GATE_SHAPES = [("lstm", 24, 16, True), ("lstm", 37, 19, True),
-               ("lstm", 12, 1152, False), ("lstm", 1700, 1152, False),
+               ("lstm", 12, 1152, True), ("lstm", 1700, 1152, True),
                ("gru", 24, 16, True), ("gru", 37, 19, True),
                ("gru", 12, 520, True), ("gru", 1700, 8, True),
                ("gru", 12, 1152, False)]
@@ -118,14 +118,20 @@ def test_layer_routes_by_shape_and_matches_jax(monkeypatch, rnn, e, h, held):
 @pytest.mark.parametrize("rnn", ["lstm", "gru"])
 def test_layer_refuses_card_tensors_beyond_the_limit(rnn):
     """On CUDA tensors the layer never leaves the kernels by itself: a shape
-    they do not hold raises and names the way to the scan; a shape they hold,
-    an initial state or ``use_kernel=False`` decide as on the CPU."""
+    they do not hold raises and names the way to the scan -- the GRU past
+    1,024 units, the LSTM (which holds every H, 1,152 on the step route) in
+    a dtype its kernels do not take --; a shape they hold, an initial state
+    or ``use_kernel=False`` decide as on the CPU."""
     from types import SimpleNamespace
 
     def on_card(e):
         return SimpleNamespace(shape=(5, 4, e), is_cuda=True)
 
-    layer = RNNLayer(12, 1152, use_kernel=True, device="cpu", rnn_type=rnn)
+    if rnn == "lstm":
+        assert RNNLayer(12, 1152, use_kernel=True, device="cpu").kernel_ok(
+            on_card(12), None) is True
+    layer = RNNLayer(12, 1152, use_kernel=True, device="cpu", rnn_type=rnn,
+                     dtype=torch.float16 if rnn == "lstm" else F32)
     with pytest.raises(ValueError, match="use_kernel=False"):
         layer.kernel_ok(on_card(12), None)
     assert layer.kernel_ok(on_card(12), torch.zeros(5, 1152)) is False
@@ -138,9 +144,12 @@ def test_layer_refuses_card_tensors_beyond_the_limit(rnn):
 @pytest.mark.parametrize("rnn", ["lstm", "gru"])
 def test_layer_trains_through_the_scan_beyond_the_limit(monkeypatch, rnn):
     """With a gradient needed, an unsupported shape still takes the scan
-    (and autograd through it), a supported one the training pair."""
+    (and autograd through it), a supported one the training pair: the GRU
+    at 1,152 units the scan, the LSTM there the training pair's plain
+    versions (the step route on the card)."""
     x, mask = _layer_inputs(4, 4, 3, 10)
-    for h, want in ((1152, f"{rnn}_scan"), (16, f"{rnn}_fused_train")):
+    wide = f"{rnn}_scan" if rnn == "gru" else f"{rnn}_fused_train"
+    for h, want in ((1152, wide), (16, f"{rnn}_fused_train")):
         layer = RNNLayer(10, h, use_kernel=True, device="cpu", rnn_type=rnn)
         gen = torch.Generator().manual_seed(h)
         with torch.no_grad():
@@ -181,10 +190,10 @@ def test_kernel_path_reads_hT_from_the_outputs(rnn):
     assert not fin_k[1].any()            # a length-0 row ends at zero
 
 
-# CARS end to end: nhid beyond the kernels' limit (1,024 for the LSTM and
-# the GRU) goes through the scan in every encoder; an odd emsize stays with
-# the kernels
-CARS_CASES = [("nhid_beyond_the_limit", dict(nhid=1152), "lstm_scan"),
+# CARS end to end: nhid beyond the clusters' limit (1,024) stays with the
+# LSTM kernels (the step route on the card) and goes through the scan in
+# every GRU encoder; an odd emsize stays with the kernels
+CARS_CASES = [("nhid_beyond_the_limit", dict(nhid=1152), "lstm_fused"),
               ("odd_emsize", dict(emsize=37), "lstm_fused"),
               ("gru_nhid_beyond_the_limit",
                dict(nhid=1152, rnn_type="gru", session_rnn_type="gru"),

@@ -293,11 +293,16 @@ def test_rank_weights_are_the_column_slices():
 
 @pytest.mark.parametrize("dtype", [BF16, F32])
 def test_fused_supported_takes_every_width_up_to_1024(dtype):
+    """Every width up to 1,024 on one block or a cluster; past it the step
+    route (``tests/test_torch_step_lstm.py``) takes every H too."""
     for e in (256, 300, 512, 768, 1024, 2048):
         for h in (128, 256, 384, 512, 640, 768, 1024):
             assert K.fused_supported(e, h, 64, dtype), (e, h)
-    assert not K.fused_supported(256, 1152, 64, dtype)
-    assert not K.fused_supported(256, 1025, 64, dtype)
+            assert K.lstm_route(h, dtype, backward=True) != "step"
+    for h in (1025, 1152):
+        assert K.fused_supported(256, h, 64, dtype)
+        assert K.lstm_route(h, dtype) == "step"
+        assert K.lstm_cluster(h) == 0
 
 
 def _mma_smem(hk, hc, gates, m, backward, c):
@@ -382,6 +387,10 @@ def test_layer_takes_wide_shapes_on_card_tensors(e, h, dtype):
     layer = RNNLayer(e, h, use_kernel=True, dtype=dtype, device="cpu")
     assert layer.kernel_ok(on_card(), None) is True
     assert layer.kernel_ok(on_card(), None, training=True) is True
+    # past 1,024 the LSTM takes the step route; the GRU still raises
     wide = RNNLayer(e, 1152, use_kernel=True, dtype=dtype, device="cpu")
+    assert wide.kernel_ok(on_card(), None, training=True) is True
+    gru = RNNLayer(e, 1152, use_kernel=True, dtype=dtype, device="cpu",
+                   rnn_type="gru")
     with pytest.raises(ValueError, match="1,024"):
-        wide.kernel_ok(on_card(), None)
+        gru.kernel_ok(on_card(), None)
