@@ -33,8 +33,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the rank slate and suggest init's row counts and a row count off its
    tile at every width it holds (H = 128, 256, 384, 512; 640, 768, 896
    and 1,024 at suggest init's rows, 640 and 768 also at the rank
-   slate's), ``pool_supported`` held to ``cair_slate_pool`` called
-   directly at every multiple of 128 up to 1,152, at the
+   slate's; the wide route past 1,024 -- H = 1,152, 1,280, 2,304 and
+   4,096, rows off its 128-token score tile, T = 1 and 65 -- and at 1,024
+   forced onto it), ``pool_supported`` held to ``cair_slate_pool`` called
+   directly at every multiple of 64 up to 4,096, at the
    tensor-core tiles' edges (T = 1, 7, 15, 17, 33, 64 and 65, the first T
    beyond a tile) with fully masked rows pooling to exactly 0,
    fewer than 8 rows refused, and its autograd Function's gradients,
@@ -46,15 +48,17 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    contiguous table with unaligned rows, at each kernel's last whole x
    tile and the E past it (x streamed), E = 3,000, and kc = 128 in every
    mode; then shapes a kernel cannot hold must be refused (the generator
-   at kc = 129, the GRU past H = 1,024, kernel 6 at H = 192), and
-   ``fused_supported`` / ``gru_fused_supported`` must say what the
-   launchers take (the LSTM's step-route shapes E = 256 / 300 at H =
-   1,152, 2,048 and 4,096 in both dtypes also held to the plain version),
-   ``lstm_route`` equal ``cair_lstm_route`` at every H to 4,096,
+   at kc = 129, kernel 6 at H = 192, the pool at H % 128 or 7 rows, a
+   float16 encoder layer), and ``fused_supported`` /
+   ``gru_fused_supported`` must say what the launchers take (the step
+   routes' shapes E = 256 / 300 at H = 1,025 (GRU), 1,056 (GRU), 1,152,
+   2,048 and 4,096 in both dtypes also held to the plain version),
+   ``lstm_route`` / ``gru_route`` equal ``cair_lstm_route`` /
+   ``cair_gru_route`` at every H to 4,096,
    ``beamgen_smem_bytes`` / ``beamgen_streams_x`` equal the generator
    launcher's plan at every (E, kc, mode) of a grid (kernel 6's one-block
-   launcher called directly at H = 640 must refuse it, the step route's
-   launcher a cluster's or one block's shape, the generator's kc = 129);
+   launcher called directly at H = 640 must refuse it, the step routes'
+   launchers a cluster's or one block's shape, the generator's kc = 129);
 4. the main paths at full width: CARS at the serving widths (vocab
    50,000, emsize 256, nhid 128, nhid_ffnn 256, S=5, N=50, Lq=15, Ld=30,
    bf16, seeded random weights) behind ``serve.Engine``: ``rank_batch``
@@ -96,8 +100,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    encoder's two directions as one ``torch.matmul`` projection + kernel 6
    (``lstm_precomputed``, held to kernel 1 on the same weights); then the
    training entry point
-   (``trainer_fit``): ``cli.main.main`` trains CARS on a
-   seeded AOL-scale fixture of 5,120 sessions with a 50,000-word
+   (``trainer_fit``): ``cli.main.main`` trains CARS on the first 2,560
+   sessions of a seeded AOL-scale fixture of 5,120 with a 50,000-word
    vocabulary (B = 64, the ModelConfig training defaults, beam-5
    validation on 256 sessions) for 2 epochs, tests, reproduces the test
    metrics with ``--only_test`` and resumes for one more epoch, then the
@@ -125,7 +129,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``suggest_batch`` decoding all 320 turns, peak memory read,
    ``index_documents`` refused), 8 Adam steps each on a ragged batch (the
    float32 NLL reading must fall; peak memory read), checkpoint round
-   trips, and ``cli.main`` for both as for CARS (5,120 sessions, dev MAP
+   trips, and ``cli.main`` for both as for CARS (2,560 sessions, dev MAP
    above the untrained model's); then the rankers (``rankers``): ESM,
    DSSM (also with ``use_charngram``, byte ids [64, 50, 30, 16]), CDSSM,
    DUET, ARC-I, ARC-II, DRMM and Match-Tensor at their published widths
@@ -135,7 +139,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    Match-Tensor's ``rank_batch``), 8 Adam steps each on a ragged
    ``RankBatch`` (the float32 rank-loss reading must fall; ESM's frozen
    table must not move), checkpoint round trips, and ``cli.main`` for each
-   (Match-Tensor on the 5,120 sessions, the others on the first 1,280;
+   (Match-Tensor on the first 2,560 sessions, the others on 1,280;
    train, validate, test, ``--only_test``; dev MAP above the untrained
    model's, or kept at the fixture's ceiling where the untrained model
    already reaches it); then the wide LSTMs (``widelstm``): CARS at the
@@ -168,12 +172,22 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    beam-5 ``suggest_batch``) and 1,152 in float32 (``rank_batch``), and 4
    Adam steps of each at 8 sessions, against the same weights on the
    plain scan; kernels 1, 4, 5 at ``[16000, 30, 256]`` -> 1,152 and 2,048
-   in bf16 and 2,048 in float32 and at ``[64, 150, 256]`` -> 4,096 in
+   in bf16 and 1,152 in float32 and at ``[64, 150, 256]`` -> 4,096 in
    bf16, every output held to its plain version on those inputs in both
    directions and timed beside cuDNN; kernel 6 at ``x_proj [16000, 30,
    4H]``, H = 640 and 2,048 in bf16 and 1,024 in float32, both directions
    counted, held to its plain version and to kernel 1 on the same weights,
-   and timed.  Every
+   and timed; then the GRU's step route with the slate kernel past 1,024
+   (``widegrustep``): CARS-GRU at nhid 1,152 with ``use_pallas_slate``
+   (its doc pool 2,304 wide: kernel 10's wide route) in bf16
+   (``rank_batch``, beam-5 ``suggest_batch``) and float32 (``rank_batch``),
+   and 4 Adam steps of each at 8 sessions, against the same weights on the
+   plain scan and pool; kernels 7, 8, 9 at ``[16000, 30, 256]`` -> 1,152
+   and 2,048 in bf16 and 1,152 in float32, every output held to its plain
+   version in both directions and timed beside cuDNN; kernel 10's wide
+   route at ``[16000 | 1280, 30, 2304]`` in both dtypes and ``[1280, 30,
+   4096]`` in bf16, and at H = 1,024 beside the CUDA-core kernel, held to
+   its plain version, counted and timed.  Every
    call runs with every launch count set to 0
    just before it and read just after it and must launch exactly the
    kernels ``PATH_KERNELS`` names (``EXACT_LAUNCHES`` times, where fixed);
@@ -222,6 +236,9 @@ at emsize 1,536 in bf16 and float32, each against the logits step, and
 kernels 2, 2p, 2q, 3 held and timed past top-32 and one x tile),
 ``widestep`` (CARS at nhid 2,048 in bf16 and 1,152 in float32 against the
 plain scan, kernels 1, 4, 5 and 6 on the step route held and timed),
+``widegrustep`` (CARS-GRU at nhid 1,152 with the slate kernel in bf16 and
+float32 against the plain scan and pool, kernels 7, 8, 9 on the step route
+and kernel 10's wide route held and timed),
 ``trainer`` (``cli.main`` for
 CARS and HRED-QS), ``recommenders``
 (seq2seq and ACG serving, train steps, checkpoint round trips and
@@ -325,12 +342,15 @@ def lstm_inputs(gen, dtype, rows=B * S * N, steps=LD, e=EMSIZE, h=NHID):
 
 def gru_inputs(gen, dtype, rows=B * S * N, steps=LD, e=EMSIZE, h=NHID):
     """GRU operands ``[x, w_ih, b_ih, w_hh, b_hh]`` in ``dtype`` and a
-    length mask with row 0 full and row 1 fully masked."""
+    length mask with row 0 full and row 1 fully masked.  W_hh's scale falls
+    as 1 / sqrt(H) above 1,024 units, as ``lstm_inputs``' does: the
+    recurrence amplifies a one-ulp difference in h in any implementation."""
     dev = "cuda"
     x = torch.randn((rows, steps, e), generator=gen, device=dev) * 0.5
     w_ih = torch.randn((e, 3 * h), generator=gen, device=dev) * 0.08
     b_ih = torch.randn((3 * h,), generator=gen, device=dev) * 0.1
-    w_hh = torch.randn((h, 3 * h), generator=gen, device=dev) * 0.08
+    w_hh = (torch.randn((h, 3 * h), generator=gen, device=dev) * 0.08
+            * min(1.0, math.sqrt(1024 / h)))
     b_hh = torch.randn((3 * h,), generator=gen, device=dev) * 0.1
     lens = torch.randint(0, steps + 1, (rows,), generator=gen, device=dev)
     lens[0] = steps
@@ -578,13 +598,16 @@ def check_tiles(gen, rnn: str, shapes=TILE_SHAPES,
 # 512) and 4 (544 padded to 576, 640, 1,024), float32's clusters (kernels
 # 7, 8 above H = 256, kernel 9 from 404: 4 to 8 blocks), rows off the
 # 16-row block (9 rows: one block of a cluster, mostly empty), T = 1 and a
-# T the time chunk does not divide
+# T the time chunk does not divide; past 1,024 the step route (bf16 H
+# padded to 1,280 and 2,048 in tiles of 256, float32 tiles of 128, the last
+# partial at 1,100)
 GRU_TILE_SHAPES = ((B * S + 13, LQ, EMSIZE, NHID), (70, 7, 672, NHID),
                    (40, 5, EMSIZE, 448), (70, 7, 1024, NHID),
                    (70, 7, 1500, NHID), (33, 7, 300, 404),
                    (40, 5, EMSIZE, 480), (40, 5, 1024, 512),
                    (50, 7, EMSIZE, 544), (17, 3, 300, 1024),
-                   (9, 1, 300, 640))
+                   (9, 1, 300, 640), (33, 7, 300, 1152),
+                   (17, 3, 768, 2048), (9, 1, 300, 1100))
 
 
 def tile_note() -> str:
@@ -640,7 +663,14 @@ def tile_note() -> str:
             f"{step_smem_bytes(backward=True)}), float32 32 rows x 128 units,"
             f" {step_smem_bytes(torch.float32)} "
             f"({step_smem_bytes(torch.float32, backward=True)}), at any E "
-            "and H")
+            "and H; kernels 7, 8, 9 past H = 1,024 the same with three gate "
+            f"blocks, {step_smem_bytes(gates=3)} bytes "
+            f"({step_smem_bytes(backward=True, gates=3)}), float32 "
+            f"{step_smem_bytes(torch.float32, gates=3)} "
+            f"({step_smem_bytes(torch.float32, True, 3)}); attn_pool past "
+            "H = 1,024 (the wide route) 128 x 128 score tiles from a "
+            "three-slab cp.async ring, 57856 bytes a block (float32 33792), "
+            "then a block a document")
 
 
 GRU_KERNELS = ("gru_fused", "gru_fused_res", "gru_fused_bwd")
@@ -845,6 +875,15 @@ WIDE_POOLS = (640, 768, 896, 1024)
 SLATE_SHAPES += tuple((r, LD, h) for h in WIDE_POOLS
                       for r in (B * S * MAX_CLICKS, B * S * MAX_CLICKS + 7))
 SLATE_SHAPES += tuple((B * S * N, LD, h) for h in (640, 768))
+# the wide route (H above 1,024: a doc pool of 2 * nhid for nhid 576 and
+# up): rows off its 128-token score tile, T = 1 and one past the
+# tensor-core tiles' 64, the CARS-GRU doc pool at nhid 1,152 (2,304) at
+# suggest init's rows; H = 1,024 forced onto it (`wide`), beside the
+# CUDA-core kernel there
+WIDE_ROUTE_SHAPES = ((333, LD, 1152, False), (41, 1, 1152, False),
+                     (40, 65, 1280, False),
+                     (B * S * MAX_CLICKS + 7, LD, 2304, False),
+                     (50, 7, 4096, False), (B * S * MAX_CLICKS, LD, 1024, True))
 
 
 def slate_inputs(gen, dtype, rows, steps, h=H2):
@@ -884,9 +923,11 @@ def check_slate(gen) -> dict:
     out = {}
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         out[dtype] = 0.0
-        for rows, steps, h in SLATE_SHAPES:
+        for rows, steps, h, wide in (*((*shape, False)
+                                       for shape in SLATE_SHAPES),
+                                     *WIDE_ROUTE_SHAPES):
             (s, q, w, b), mask = slate_inputs(gen, dtype, rows, steps, h)
-            got = attn_pool(s, mask, q, w, b).float()
+            got = attn_pool(s, mask, q, w, b, wide=wide).float()
             ref = attn_pool_reference(s.float(), mask, q.float(), w.float(),
                                       b.float())
             same_dtype = attn_pool_reference(s, mask, q, w, b).float()
@@ -897,7 +938,8 @@ def check_slate(gen) -> dict:
             empty = ~mask.any(-1)
             zeros = bool((got[empty] == 0).all())
             worst = err if dtype == torch.float32 else rel
-            log(f"attn_pool {dtype} [{rows},{steps},{h}]: max abs err "
+            log(f"attn_pool {dtype} [{rows},{steps},{h}]"
+                f"{' (wide route)' if wide or h > 1024 else ''}: max abs err "
                 f"{err:.3e} (rel {rel:.3e}; vs the plain version in "
                 f"{dtype} {err_plain:.3e}), {int(empty.sum())} fully "
                 f"masked rows exactly 0: {zeros} (tol "
@@ -909,7 +951,7 @@ def check_slate(gen) -> dict:
                 out[dtype] = err
 
     # fewer than 8 rows: refused at every width and dtype (pool_supported)
-    for h in (128, 256, 384, 512, *WIDE_POOLS):
+    for h in (128, 256, 384, 512, *WIDE_POOLS, 1152, 2304):
         for dtype in (torch.float32, torch.bfloat16):
             (s, q, w, b), mask = slate_inputs(gen, dtype, 7, LD, h)
             try:
@@ -919,7 +961,7 @@ def check_slate(gen) -> dict:
             else:
                 raise AssertionError(f"attn_pool {dtype} R=7 H={h} was not "
                                      "refused")
-    log(f"attn_pool R=7 refused at H = 128 .. 1024 in both dtypes "
+    log(f"attn_pool R=7 refused at H = 128 .. 2304 in both dtypes "
         f"({refused})")
     check_pool_gate(gen)
 
@@ -941,9 +983,11 @@ def check_slate(gen) -> dict:
 
 def check_pool_gate(gen) -> None:
     """``pool_supported`` says what the launcher runs: at every multiple of
-    128 up to 1152, in both dtypes, ``cair_slate_pool`` called directly
-    (past the wrapper's check of the gate) succeeds exactly where the gate
-    holds the width, and refuses the rest itself."""
+    64 up to 4,096, in both dtypes, ``cair_slate_pool`` called directly
+    (past the wrapper's check of the gate, with the workspace
+    ``cair_slate_pool_workspace`` asks for) succeeds exactly where the gate
+    holds the width -- every multiple of 128 -- and refuses the rest
+    itself."""
     from context_attentive_ir_tpu_torch.ops.kernels.build import load_library
     from context_attentive_ir_tpu_torch.ops.kernels.slate import (
         pool_supported,
@@ -951,19 +995,23 @@ def check_pool_gate(gen) -> None:
 
     lib = load_library()
     seen = []
-    for h in range(128, 1153, 128):
+    for h in range(64, 4097, 64):
         for code, dtype in enumerate((torch.float32, torch.bfloat16)):
             (s, q, w, b), mask = slate_inputs(gen, dtype, 40, 3, h)
             out = torch.empty((40, h), dtype=dtype, device="cuda")
+            n_bytes = lib.cair_slate_pool_workspace(40, 3, h, 0)
+            ws = torch.empty((max(n_bytes, 16),), dtype=torch.uint8,
+                             device="cuda")
             rc = lib.cair_slate_pool(
                 s.data_ptr(), mask.data_ptr(), q.data_ptr(), w.data_ptr(),
-                b.data_ptr(), out.data_ptr(), 40, 3, h, code,
-                torch.cuda.current_stream().cuda_stream)
+                b.data_ptr(), out.data_ptr(), ws.data_ptr(), 40, 3, h, code,
+                0, torch.cuda.current_stream().cuda_stream)
             torch.cuda.synchronize()
             ok = pool_supported(h, 40)
-            if (rc == 0) != ok:
+            if (rc == 0) != ok or (n_bytes >= 0) != ok:
                 raise AssertionError(f"pool_supported({h}, 40) = {ok} but "
-                                     f"cair_slate_pool returned {rc}")
+                                     f"cair_slate_pool returned {rc} "
+                                     f"(workspace {n_bytes})")
             seen.append(f"{h}:{'ran' if rc == 0 else f'refused ({rc})'}")
     log("pool_supported held to cair_slate_pool, f32 / bf16 per width: "
         + ", ".join(seen))
@@ -1398,16 +1446,19 @@ def check_refusals(gen) -> None:
 
     # gru_fused_supported states the launchers' limits: a shape it accepts
     # runs through all three kernels, one it rejects is refused by at least
-    # one; every E, and H up to 1,024 in both dtypes (bf16: one block to
-    # 448, clusters of 2 and 4 above, H padded to 64 in a cluster of 4;
-    # float32: kernels 7, 8 one block to 256 and 9 to 403, clusters of up
-    # to 8 above), one refused shape a dtype past 1,024
+    # one; every E and H in both dtypes (bf16: one block to 448, clusters of
+    # 2 and 4 to 1,024, H padded to 64 in a cluster of 4; float32: kernels
+    # 7, 8 one block to 256 and 9 to 403, clusters of up to 8 to 1,024; the
+    # step route above, bf16 H padded to a multiple of 256), the step
+    # route's shapes each held to the plain version, both directions
     for e, h, dtype in ((672, NHID, bf16), (704, NHID, bf16),
                         (1024, NHID, bf16), (4096, NHID, bf16),
                         (EMSIZE, 448, bf16), (EMSIZE, 449, bf16),
                         (EMSIZE, 480, bf16), (64, 512, bf16),
                         (EMSIZE, 513, bf16), (EMSIZE, 1000, bf16),
-                        (300, 1024, bf16), (EMSIZE, 1152, bf16),
+                        (300, 1024, bf16), (EMSIZE, 1025, bf16),
+                        (EMSIZE, 1056, bf16), (EMSIZE, 1152, bf16),
+                        (300, 2048, bf16), (EMSIZE, 4096, bf16),
                         (300, 100, bf16), (1400, NHID, torch.float32),
                         (1500, NHID, torch.float32),
                         (4096, NHID, torch.float32),
@@ -1416,7 +1467,11 @@ def check_refusals(gen) -> None:
                         (EMSIZE, 404, torch.float32),
                         (EMSIZE, 512, torch.float32),
                         (EMSIZE, 1024, torch.float32),
-                        (EMSIZE, 1025, torch.float32)):
+                        (EMSIZE, 1025, torch.float32),
+                        (EMSIZE, 1056, torch.float32),
+                        (EMSIZE, 1152, torch.float32),
+                        (300, 2048, torch.float32),
+                        (EMSIZE, 4096, torch.float32)):
         ok = gru_fused_supported(e, h, 40, dtype)
         refused = []
         for k in GRU_KERNELS:
@@ -1432,6 +1487,27 @@ def check_refusals(gen) -> None:
             raise AssertionError(f"gru_fused_supported(E={e}, H={h}, "
                                  f"{dtype}) = {ok} but the kernels "
                                  f"{'refused' if refused else 'ran'}")
+        if ok and h > 1024:
+            held_errors("step route", "gru",
+                        *pair_inputs(gen, "gru", dtype, 40, 3, e=e, h=h),
+                        dtype)
+
+    # the GRU's route rule (cair_gru_route, gru_route in csrc/lstm_mma.cuh)
+    # is the one ops/kernels/gru.py states, at every multiple of 32 to
+    # 4,096 (and the odd 1,025), each dtype, forward and backward
+    from context_attentive_ir_tpu_torch.ops.kernels.gru import gru_route
+
+    moved = [(h, code, bw) for h in (*range(32, 4097, 32), 1025)
+             for code, dtype in enumerate((torch.float32, bf16))
+             for bw in (0, 1)
+             if names[lib.cair_gru_route(h, code, bw)]
+             != gru_route(h, dtype, backward=bool(bw))]
+    log(f"gru_route equal to cair_gru_route at every H of 32 .. 4,096 "
+        f"(multiples of 32) and 1,025, both dtypes, kernels 7/8 and 9: "
+        f"{not moved}")
+    if moved:
+        raise AssertionError(f"gru_route differs from the launchers' at "
+                             f"(H, dtype, backward) {moved}")
 
     def beamgen_at(e, v=300, kc=2, **kw):
         x = torch.randn((70, e), generator=gen, device="cuda")
@@ -1454,29 +1530,20 @@ def check_refusals(gen) -> None:
             return layer(x, torch.ones((40, 3), dtype=torch.bool,
                                        device="cuda"))
 
-    for name, fn in (("RNNLayer gru bf16 H=1152 (hidden above 1,024)",
-                      lambda: layer_at("gru", EMSIZE, 1152, bf16)),
-                     ("RNNLayer gru f32 H=1025 (hidden above 1,024)",
-                      lambda: layer_at("gru", EMSIZE, 1025, torch.float32)),
+    for name, fn in (("RNNLayer gru float16 (dtype)",
+                      lambda: layer_at("gru", EMSIZE, 1152, torch.float16)),
                      ("lstm_recurrence H=192 (H % 128)", lambda: rec_at(192)),
                      ("lstm_recurrence bf16 H=192 (H % 128)",
                       lambda: rec_at(192, dtype=bf16)),
                      ("lstm_recurrence strided x_proj (contiguity)",
                       lambda: rec_at(NHID, strided=True)),
-                     *((f"{k} {what}", lambda k=k, e=e, h=h, dt=dt:
-                        gru_at(k, e, h, dt))
-                       for k in GRU_KERNELS
-                       for what, e, h, dt in (
-                           ("f32 H=1025 (hidden above 1,024)", EMSIZE, 1025,
-                            torch.float32),
-                           ("bf16 H=1152 (hidden above 1,024)", EMSIZE, 1152,
-                            bf16))),
                      ("generator_topk_lse kc=129 (top-kc above 128)",
                       lambda: beamgen_at(EMSIZE, kc=129)),
                      ("attn_pool H=192 (H % 128)", lambda: pool_at(192)),
-                     ("attn_pool H=1152 (the launcher's widths)",
-                      lambda: pool_at(1152)),
-                     ("attn_pool R=7 (rows)", lambda: pool_at(H2, 7))):
+                     ("attn_pool H=2240 (H % 128)", lambda: pool_at(2240)),
+                     ("attn_pool R=7 (rows)", lambda: pool_at(H2, 7)),
+                     ("attn_pool R=7 H=2304 (rows)",
+                      lambda: pool_at(2304, 7))):
         try:
             fn()
         except (RuntimeError, ValueError) as err:
@@ -1506,6 +1573,25 @@ def check_refusals(gen) -> None:
             if rc == 0:
                 raise AssertionError(f"cair_lstm_step {dtype} H={h} rec={rec} "
                                      "was not refused by the launcher")
+    # cair_gru_step refuses a cluster's shape (H = 1,024), called directly
+    for code, dtype in enumerate((torch.float32, bf16)):
+        xs = torch.zeros((40, 3, EMSIZE), dtype=dtype, device="cuda")
+        mask = torch.ones((40, 3), dtype=torch.bool, device="cuda")
+        w = torch.zeros((EMSIZE + 1024, 3 * 1024 + 8), dtype=dtype,
+                        device="cuda")
+        out = torch.empty((40, 3, 1024), dtype=dtype, device="cuda")
+        ws = torch.empty((1 << 24,), dtype=torch.uint8, device="cuda")
+        rc = load_library().cair_gru_step(
+            xs.data_ptr(), mask.data_ptr(), w.data_ptr(), w.data_ptr(),
+            w.data_ptr(), w.data_ptr(), out.data_ptr(), 0, ws.data_ptr(), 40,
+            3, EMSIZE, 1024, 0, 3, 0, code,
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        log(f"cair_gru_step {dtype} H=1024 called directly (not the step "
+            f"route's): returned {rc}")
+        if rc == 0:
+            raise AssertionError(f"cair_gru_step {dtype} H=1024 was not "
+                                 "refused by the launcher")
     for code, dtype in enumerate((torch.float32, bf16)):
         xp, mask, w_hh = recurrence_inputs(gen, dtype, 40, 3, h=640)
         out = torch.empty((40, 3, 640), dtype=dtype, device="cuda")
@@ -1529,12 +1615,15 @@ def check_refusals(gen) -> None:
     layer_at("gru", 300, 100, bf16)
     layer_at("gru", 4096, NHID, torch.float32)
     layer_at("gru", EMSIZE, 480, bf16)
+    layer_at("gru", EMSIZE, 1152, bf16)
+    layer_at("gru", EMSIZE, 1025, torch.float32)
     for k in GRU_KERNELS:
         for dtype in (torch.float32, bf16):
             gru_at(k, EMSIZE, NHID, dtype)
     beamgen_at(EMSIZE)
     beamgen_at(EMSIZE, 304, pipeline=True)
     pool_at(H2)
+    pool_at(1152)
     torch.cuda.synchronize()
     log("kernels launch clean after the refusals")
 
@@ -1653,13 +1742,33 @@ STEP_NHID = {torch.bfloat16: 2048, torch.float32: 1152}
 STEP_TRAIN_B = 8
 # (H, dtype, rows, steps, iterations) of kernels 1, 4, 5 alone on the step
 # route: the doc encoder's rows and steps, and the recommenders' source
+# (float32 at 1,152, the width CARS runs there: the 2,048 row took 36 s of
+# the default run's time limit)
 STEP_TIMED = ((1152, torch.bfloat16, B * S * N, LD, 3),
               (2048, torch.bfloat16, B * S * N, LD, 2),
-              (2048, torch.float32, B * S * N, LD, 1),
+              (1152, torch.float32, B * S * N, LD, 1),
               (4096, torch.bfloat16, B, S_REC * LQ, 3))
 # (H, dtype) of kernel 6 alone at the doc encoder's rows and steps
 STEP_REC = ((640, torch.bfloat16), (2048, torch.bfloat16),
             (1024, torch.float32))
+
+
+# --nhid 1,152: the GRU kernels' step route (bf16 five tiles of 256, H
+# padded to 1,280; float32 nine tiles of 128) and a doc pool of 2 * 1,152 =
+# 2,304 units (kernel 10's wide route)
+WIDEGRUSTEP_NHID = 1152
+# (H, dtype, iterations) of kernels 7, 8, 9 alone at the doc encoder's rows
+# and steps
+WIDEGRUSTEP_TIMED = ((1152, torch.bfloat16, 3), (2048, torch.bfloat16, 2),
+                     (1152, torch.float32, 1))
+# (rows, H, dtype) of kernel 10's wide route alone at T = Ld: the rank
+# slate and suggest init's clicked docs of CARS at --nhid 1,152 (2,304) and
+# 2,048 (4,096)
+WIDE_POOL_TIMED = ((B * S * N, 2304, torch.bfloat16),
+                   (B * S * N, 2304, torch.float32),
+                   (B * S * MAX_CLICKS, 2304, torch.bfloat16),
+                   (B * S * MAX_CLICKS, 2304, torch.float32),
+                   (B * S * MAX_CLICKS, 4096, torch.bfloat16))
 
 
 # the kernels each main-path call launches; every other count stays 0
@@ -1747,6 +1856,20 @@ PATH_KERNELS = {
     "train_step_step_f32": ("lstm_fused_res", "lstm_fused_bwd"),
     **{f"lstm_precomputed_{h}_{str(dt)[6:]}": ("lstm_recurrence",)
        for h, dt in STEP_REC},
+    # widegrustep: CARS-GRU at nhid 1,152 on the GRU's step route with the
+    # slate kernel's wide route (suggest pools the clicked docs), and
+    # kernel 10 alone
+    "rank_batch_widegrustep_bf16": ("gru_fused", "attn_pool"),
+    "suggest_beam5_widegrustep_bf16": ("gru_fused", BEAM_GEN, "attn_pool"),
+    "train_step_widegrustep_bf16": ("gru_fused_res", "gru_fused_bwd",
+                                    "attn_pool"),
+    "rank_batch_widegrustep_f32": ("gru_fused", "attn_pool"),
+    "train_step_widegrustep_f32": ("gru_fused_res", "gru_fused_bwd",
+                                   "attn_pool"),
+    **{f"attn_pool_{r}_{h}_{str(dt)[6:]}": ("attn_pool",)
+       for r, h, dt in WIDE_POOL_TIMED},
+    **{f"attn_pool_{B * S * MAX_CLICKS}_1024_bfloat16{w}": ("attn_pool",)
+       for w in ("", "_wide")},
     # M-NSRF and M-MatchTensor: both encoders through kernel 1 (ranking) or
     # 4 + 5 (training); suggestion encodes the queries alone and decodes
     # through the logits step (no generator kernel); the session recurrence
@@ -1813,6 +1936,11 @@ EXACT_LAUNCHES = {
     **{f"lstm_precomputed_{h}_{str(dt)[6:]}": {"lstm_recurrence": 2}
        for h, dt in STEP_REC},
     **{f"rank_batch_step_{dt}": {"lstm_fused": 4} for dt in ("bf16", "f32")},
+    **{f"{p}_widegrustep_{dt}": k for dt in ("bf16", "f32") for p, k in (
+        ("rank_batch", {"gru_fused": 4, "attn_pool": 1}),
+        ("train_step", {"gru_fused_res": 4, "gru_fused_bwd": 4,
+                        "attn_pool": 1}))},
+    "suggest_beam5_widegrustep_bf16": {"gru_fused": 4},
     **{f"train_step_step_{dt}": {"lstm_fused_res": 4, "lstm_fused_bwd": 4}
        for dt in ("bf16", "f32")},
     **{f"suggest_{mode}_{m}": {"lstm_fused": 2} for mode in ("beam5", "greedy")
@@ -3197,6 +3325,12 @@ def precomputed_path() -> dict:
 
 FIT_TOPICS, FIT_WORDS = 1250, 40   # a 50,000-word vocabulary
 FIT_SESSIONS = {"train": 5120, "dev": 256, "test": 64}
+# the multitask models (CARS, M-NSRF, M-MatchTensor) and Match-Tensor train
+# on the fixture's first sessions (the vocabulary stays the whole
+# fixture's): the default run's time limit; each model's dev MAP already
+# rises above the untrained one's, or holds the ceiling, within the first
+# epoch's 80 steps on all 5,120 sessions
+FIT_TRAIN_SESSIONS = 2560
 FIT_EPOCHS = {"cars": 2, "hredqs": 2, "seq2seq": 2, "acg": 2, "mnsrf": 2,
               "m_match_tensor": 2, **{m: 2 for m in RANKERS}}
 MULTITASK = ("cars", "mnsrf", "m_match_tensor")
@@ -3220,10 +3354,11 @@ def fit_args(model_type: str, files: dict, run_dir: str, *extra) -> list:
             "--display_iter", "5", "--test_file", str(files["test"])]
     if model_type == "hredqs":
         args += ["--rnn_type", "gru", "--session_rnn_type", "gru"]
-    if ranker:
-        if model_type != "match_tensor":
-            args += ["--max_examples", str(RANKER_SESSIONS)]
-    elif model_type not in MULTITASK:
+    if model_type in (*MULTITASK, "match_tensor"):
+        args += ["--max_examples", str(FIT_TRAIN_SESSIONS)]
+    elif ranker:
+        args += ["--max_examples", str(RANKER_SESSIONS)]
+    else:
         args += ["--valid_metric", "bleu-1", "--max_examples",
                  str(HRED_SESSIONS)]
     return args + list(extra)
@@ -3298,9 +3433,8 @@ def trainer_path(model_type: str, files: dict, run_dir: str,
     if abs(vocab - VOCAB) > VOCAB // 100:
         raise AssertionError(f"{path}: vocabulary {vocab} is not within 1 % "
                              f"of {VOCAB}")
-    n_train = FIT_SESSIONS["train"]
     if mt:
-        steps = epochs * -(-n_train // B)
+        steps = epochs * -(-FIT_TRAIN_SESSIONS // B)
     else:
         from context_attentive_ir_tpu_torch.data import (
             load_data,
@@ -3311,7 +3445,7 @@ def trainer_path(model_type: str, files: dict, run_dir: str,
         examples = rank_examples if ranks else suggest_examples
         n_ex = len(examples(load_data(
             files["train"], LQ, LD, N, S,
-            -1 if model_type == "match_tensor" else
+            FIT_TRAIN_SESSIONS if model_type == "match_tensor" else
             RANKER_SESSIONS if ranks else HRED_SESSIONS)))
         steps = epochs * -(-n_ex // B)
     if PATH_KERNELS[path]:
@@ -3912,29 +4046,36 @@ WIDE_TIMED = ((512, torch.bfloat16), (1024, torch.bfloat16),
 
 def within_tol(path: str, got, want, dtype) -> None:
     """max |got - want| within PAIR_TOL[dtype] of max |want| (the kernels
-    against the same model on the plain scan, on the card)."""
+    against the same model on the plain scan and pool, on the card)."""
     g, w = (np.asarray(v, np.float64) for v in (got, want))
     err = float(np.abs(g - w).max())
     scale = max(float(np.abs(w).max()), 1e-30)
-    log(f"{path}: max abs difference from use_pallas_rnn=False {err:.3e} "
+    log(f"{path}: max abs difference from the plain scan and pool {err:.3e} "
         f"(rel {err / scale:.2e}; tol rel {PAIR_TOL[dtype]:g})")
     if not err <= PAIR_TOL[dtype] * scale:
         raise AssertionError(f"{path}: {err} > {PAIR_TOL[dtype]} * {scale} "
-                             "from the plain scan")
+                             "from the plain scan and pool")
+
+
+def plain_config(cfg):
+    """``cfg`` on the plain scan and the plain pool: the same model with
+    use_pallas_rnn and use_pallas_slate off."""
+    return cfg.replace(use_pallas_rnn=False, use_pallas_slate=False)
 
 
 def wide_serving(word_dict, cfg, tag: str, dtype, launches: dict,
                  suggest: bool = True, rank: bool = True) -> dict:
     """``Engine.rank_batch`` (unless not ``rank``) and beam-5
     ``suggest_batch`` (unless not ``suggest``) of ``cfg``, counted, against
-    the same weights with use_pallas_rnn=False.  Returns those weights
+    the same weights on the plain scan and pool (``plain_config``).
+    Returns those weights
     (``cfg``'s model seeded 0), for ``wide_train``."""
     from context_attentive_ir_tpu_torch.models import build_model
     from context_attentive_ir_tpu_torch.serve import Engine
 
     params = build_model(cfg, device="cuda", seed=0).state_dict()
     eng, ref = (Engine(c, word_dict, params, beam_size=BEAM, batch_bucket=B)
-                for c in (cfg, cfg.replace(use_pallas_rnn=False)))
+                for c in (cfg, plain_config(cfg)))
     reqs, hists = requests(np.random.RandomState(16), word_dict, B)
     with torch.inference_mode():
         if rank:
@@ -3982,7 +4123,7 @@ def wide_train(cfg, tag: str, dtype, launches: dict, b: int = B,
     init = (params if params is not None
             else build_model(cfg, device="cuda", seed=0).state_dict())
     for kernel in (True, False):
-        c = cfg if kernel else cfg.replace(use_pallas_rnn=False)
+        c = cfg if kernel else plain_config(cfg)
         model = build_model(c, device="cuda", seed=None)
         model.load_state_dict(init)
         state, step = create_train_state(model, c), make_train_step(model, c)
@@ -4255,6 +4396,120 @@ def widestep_paths(gen) -> tuple[dict, list[dict]]:
             f"{str(dtype)[6:]}")
     rows.extend(step_recurrence_rows(gen, launches))
     lap("kernel 6")
+    return launches, rows
+
+
+# -- CARS-GRU past the clusters, with the slate kernel (widegrustep) ---------
+
+def wide_pool_rows(gen, launches: dict) -> list[dict]:
+    """Kernel 10's wide route alone at each of WIDE_POOL_TIMED, counted as
+    ``attn_pool_<rows>_<H>_<dtype>``, held to ``attn_pool_reference`` run
+    in f32 on the same inputs (f32 1e-4 abs, bf16 2e-2 rel.; fully masked
+    rows exactly 0), then timed beside the plain version; then at H =
+    1,024, R = B*S*C, bf16, the wide route (``wide=True``) and the
+    CUDA-core kernel there, each held and timed.  No single PyTorch call
+    computes this pool: library_ms null."""
+    from context_attentive_ir_tpu_torch.ops.kernels.slate import (
+        attn_pool,
+        attn_pool_reference,
+    )
+
+    rows_out = []
+    for n_rows, h, dtype, wide in (*((*c, False) for c in WIDE_POOL_TIMED),
+                                   (B * S * MAX_CLICKS, 1024, torch.bfloat16,
+                                    True),
+                                   (B * S * MAX_CLICKS, 1024, torch.bfloat16,
+                                    False)):
+        dt = str(dtype)[6:]
+        (s, q, w, b), mask = slate_inputs(gen, dtype, n_rows, LD, h)
+        path = f"attn_pool_{n_rows}_{h}_{dt}" + ("_wide" if wide else "")
+        with torch.inference_mode():
+            got, launches[path] = counted(
+                path, lambda: attn_pool(s, mask, q, w, b, wide=wide))
+            ref = attn_pool_reference(s.float(), mask, q.float(), w.float(),
+                                      b.float())
+            err = float((got.float() - ref).abs().max())
+            rel = err / float(ref.abs().max())
+            zeros = bool((got[~mask.any(-1)] == 0).all())
+            del got, ref
+            tol = 1e-4 if dtype == torch.float32 else 2e-2
+            held = err if dtype == torch.float32 else rel
+            route = "wide route" if wide or h > 1024 else "CUDA-core kernel"
+            log(f"attn_pool {dt} [{n_rows},{LD},{h}] ({route}): max abs err "
+                f"{err:.3e} (rel {rel:.3e}; tol "
+                f"{'abs' if dtype == torch.float32 else 'rel'} {tol:g}); "
+                f"fully masked rows exactly 0: {zeros}")
+            if not (held <= tol and zeros):
+                raise AssertionError(f"{path} disagrees")
+            ms = timed_ms(lambda: attn_pool(s, mask, q, w, b, wide=wide), 3,
+                          warmup=1)
+            plain = timed_ms(lambda: attn_pool_reference(s, mask, q, w, b),
+                             1, warmup=1)
+        size = s.element_size()
+        flops = 2.0 * n_rows * LD * h * h + 4.0 * n_rows * LD * h
+        n_bytes = ((s.numel() + q.numel() + w.numel() + b.numel()
+                    + n_rows * h) * size + mask.numel())
+        bnd, by = bound_ms(flops, n_bytes, dtype)
+        log(f"attn_pool {dt} [{n_rows},{LD},{h}] ({route}): kernel {ms:.3f} "
+            f"ms, plain {plain:.3f} ms, library none, bound {bnd:.4f} ms "
+            f"({by})")
+        rows_out.append(kernel_row(
+            "attn_pool", "slate_pool.cu", "slate.py:158", launches, err, ms,
+            plain, None, bnd, by, rows=n_rows, steps=LD, h=h, dtype=dt,
+            wide=wide or h > 1024))
+        del s, q, w, b, mask
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+def widegrustep_paths(gen) -> tuple[dict, list[dict]]:
+    """The slice's path: CARS-GRU at the serving widths with nhid 1,152 and
+    the slate kernel (use_pallas_slate), in bf16 (rank_batch and beam-5
+    suggest_batch at B = 64) and float32 (rank_batch), and 4 Adam steps of
+    each at STEP_TRAIN_B sessions, against the same model on the plain scan
+    and pool; then kernels 7, 8, 9 alone at each of WIDEGRUSTEP_TIMED, held
+    to their plain versions on the same inputs, both directions, and timed
+    beside cuDNN; then kernel 10's wide route alone (wide_pool_rows).
+    Returns the launches and the timing rows."""
+    word_dict = synthetic_dictionary(VOCAB)
+    launches = {}
+    t0 = time.perf_counter()
+
+    def lap(what: str) -> None:
+        nonlocal t0
+        torch.cuda.synchronize()
+        log(f"widegrustep {what}: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+
+    for dtype, tag in ((torch.bfloat16, "widegrustep_bf16"),
+                       (torch.float32, "widegrustep_f32")):
+        cfg = full_width_config("cars", nhid=WIDEGRUSTEP_NHID,
+                                compute_dtype=str(dtype)[6:],
+                                use_pallas_slate=True, **GRU)
+        params = wide_serving(word_dict, cfg, tag, dtype, launches,
+                              suggest=dtype == torch.bfloat16)
+        torch.cuda.empty_cache()
+        lap(f"serving {tag}")
+        # Adam's fourth step at the default learning rate may raise the
+        # loss on these 8 sessions (widestep's float32 CARS did, through
+        # the plain scan to the same digits): a later step below the first
+        wide_train(cfg, tag, dtype, launches, b=STEP_TRAIN_B, fall="some",
+                   params=params)
+        del params
+        torch.cuda.empty_cache()
+        lap(f"train {tag}")
+    log(f"widegrustep launches per path: {json.dumps(launches)}")
+
+    rows = []
+    for h, dtype, iters in WIDEGRUSTEP_TIMED:
+        rows.extend(time_rnn(gen, "gru", launches, shape=(B * S * N, LD),
+                             dtype=dtype, iters=iters, warmup=1,
+                             sources=("lstm_step.cu",) * 3, e=EMSIZE, h=h))
+        torch.cuda.empty_cache()
+        lap(f"kernels 7, 8, 9 at [{B * S * N}, {LD}] -> {h} "
+            f"{str(dtype)[6:]}")
+    rows.extend(wide_pool_rows(gen, launches))
+    lap("kernel 10")
     return launches, rows
 
 
@@ -5240,7 +5495,7 @@ EARLIER_MS = {"lstm_fused": 11.269, "lstm_fused_res": 11.256,
 PHASES = ("kernels", "lstm", "grukernels", "beamkernels", "slatekernels",
           "serving", "parallel", "train", "indexed", "interop", "gru",
           "small", "kernel6", "widelstm", "widegru", "widebeam", "widestep",
-          "trainer",
+          "widegrustep", "trainer",
           "recommenders", "multitask", "rankers")
 SHARES = {"lstm", "grukernels", "beamkernels", "slatekernels"}
 
@@ -5393,6 +5648,11 @@ def main() -> int:
         wide_launches, rows = phase("widestep", lambda: widestep_paths(gen))
         launches.update(wide_launches)
         wide_rows.extend(rows)
+    if "widegrustep" in run:
+        wide_launches, rows = phase("widegrustep",
+                                    lambda: widegrustep_paths(gen))
+        launches.update(wide_launches)
+        wide_rows.extend(rows)
     # the default run keeps --resume and the Trainer's timings for CARS
     # alone (its time limit), a phase run alone keeps them for each of its
     # models but the rankers
@@ -5430,8 +5690,9 @@ def main() -> int:
     if "rankers" in run:
         def rankers(tmp):
             rk_launches, ms = ranker_paths(tmp)
-            # Match-Tensor on the 5,120 sessions, the other seven on the
-            # first RANKER_SESSIONS; train, validate, test, --only_test
+            # Match-Tensor on the first FIT_TRAIN_SESSIONS, the other seven
+            # on the first RANKER_SESSIONS; train, validate, test,
+            # --only_test
             rk_launches.update(trainer_paths(tmp, fixture_dir.name, RANKERS,
                                              resumed=()))
             return rk_launches, ms
@@ -5471,6 +5732,10 @@ def main() -> int:
     if errs:
         phase("kernel timing", timing)
     kernels.extend(wide_rows)
+    # every row's launches from the whole run's counts (a phase's rows were
+    # made before the later phases ran)
+    for row in kernels:
+        row.update(by_path(launches, row["name"]))
     if train_ms:
         log(f"train steps (CUDA events, mean of 5, B={B}): "
             f"{json.dumps(train_ms)}")

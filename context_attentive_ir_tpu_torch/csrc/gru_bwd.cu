@@ -92,6 +92,16 @@
 // rows is one tensor-core product after phase A (phase C, launch_matmul on
 // the workspace's slots, rows 4H apart).
 //
+// Above H = 1,024 (gru_route), in both dtypes, phase A takes the step route
+// (lstm_step.cu with three gate blocks): each chunk recomputed from hb a
+// launch a step by kernel 8's step kernel, which keeps the planes h_prev,
+// r, z, n, hn and h_prev_c; then a step at a time an elementwise kernel
+// forms the four gradient slots and the db partials of each 16-row group,
+// and a product kernel writes each unit tile's partial of dh_{t-1} from
+// slots 0, 1 and 3 against its staged slabs read untransposed (float32:
+// exact FMAs against W_hh^T), which the next step adds in tile order, then
+// dh' z.  Phases B and C run as a cluster's.
+//
 // float32 keeps exact f32 FMAs (no TF32) on the first version's layout
 // (gru_bwd_cell_kernel: one block per 32 rows, thread (rg, j) owning unit j
 // of 16 rows, five activation planes, host-made transposes of the weights
@@ -103,6 +113,7 @@
 
 #include "lstm_common.cuh"
 #include "lstm_mma.cuh"
+#include "lstm_step.cuh"
 
 namespace {
 
@@ -908,32 +919,42 @@ int bwd_row_tiles(int h_dim, int n_rows, int forced) {
 // block and activation planes); 0: float32's row-tile kernel.  A row block
 // of `c` blocks (a cluster when c > 1; gru_cluster for bf16, f32_cluster
 // for float32) has one activation area per block and one db partial per
-// row block.
+// row block.  The step route (`step`, above H = 1,024) keeps its planes
+// [tc][kGruStepSaved][rows, H] where the activation areas lie, one db
+// partial per kDgRows rows, and after phase B's partials its own buffers
+// (lstm_step.cuh's StepBwd): h in turn, bf16's f32 h, dh, dh' z and the
+// unit tiles' dh partials.
 struct Layout {
   int row_blocks, n_blocks, c, splits, rows_per_split;
-  size_t act, dg, h_prev, db_part, part_ih, part_hh, total;
+  bool step;
+  size_t act, dg, h_prev, db_part, part_ih, part_hh, hbuf, h32, dh, dhz,
+      partial, total;
 };
 
 Layout layout(int n_rows, int n_steps, int e, int h_dim, int tc, size_t elt,
               int mt) {
   Layout L;
   const long long n = (long long)n_rows * n_steps;
-  L.c = mt ? tiles::gru_cluster(h_dim) : f32_cluster(h_dim, true);
-  const int m_rows = mt ? 16 * mt : kRows;
+  const bool bf16 = elt == 2;
+  L.step = tiles::gru_route(h_dim, bf16, true) == tiles::kRouteStep;
+  L.c = L.step ? 1 : mt ? tiles::gru_cluster(h_dim) : f32_cluster(h_dim, true);
+  const int m_rows = L.step ? kDgRows : mt ? 16 * mt : kRows;
   L.row_blocks = (n_rows + m_rows - 1) / m_rows;
   L.n_blocks = L.row_blocks * L.c;
   const Splits sp = make_splits(n);
   L.splits = sp.splits;
   L.rows_per_split = sp.rows_per_split;
+  const size_t plane = (size_t)n_rows * h_dim;
   const size_t g3 = 3 * (size_t)h_dim, g4 = 4 * (size_t)h_dim;
   size_t off = 0;
   L.act = off;
   const int g = L.c > 1 ? tiles::kClusterConfig.g : tiles::pick_config(h_dim).g;
-  off += align256(mt ? (size_t)L.n_blocks *
-                           (tc * mt * g * kPlanes + park_slots(g, mt)) *
-                           tiles::kThreads * 16
-                     : (size_t)L.n_blocks * tc * kSaved * kRows *
-                           f32_units(h_dim, true) * 4);
+  off += align256(L.step ? (size_t)tc * kGruStepSaved * plane * 4
+                  : mt ? (size_t)L.n_blocks *
+                             (tc * mt * g * kPlanes + park_slots(g, mt)) *
+                             tiles::kThreads * 16
+                       : (size_t)L.n_blocks * tc * kSaved * kRows *
+                             f32_units(h_dim, true) * 4);
   L.dg = off;
   off += align256((size_t)n * g4 * elt);
   L.h_prev = off;
@@ -944,6 +965,18 @@ Layout layout(int n_rows, int n_steps, int e, int h_dim, int tc, size_t elt,
   off += align256((size_t)L.splits * e * g3 * 4);
   L.part_hh = off;
   off += align256((size_t)L.splits * h_dim * g3 * 4);
+  const size_t step_plane = L.step ? align256(plane * 4) : 0;
+  L.hbuf = off;
+  off += L.step ? align256(2 * plane * elt) : 0;
+  L.h32 = off;
+  off += bf16 ? step_plane : 0;
+  L.dh = off;
+  off += step_plane;
+  L.dhz = off;
+  off += step_plane;
+  L.partial = off;
+  off += L.step ? align256(step_unit_tiles(h_dim, bf16 ? 1 : 0) * plane * 4)
+                : 0;
   L.total = off;
   return L;
 }
@@ -952,10 +985,13 @@ bool valid_shape(int n_rows, int n_steps, int e, int h_dim, int tc) {
   return n_rows >= 0 && n_steps >= 0 && e > 0 && h_dim > 0 && tc > 0;
 }
 
-// bf16: the tiles' shapes (gru_tiles_ok) and shared memory -- the layout's
-// own tiles fit a block's, whatever tile the row count then takes, so the
-// limit is one of E and H alone; float32: f32_cluster holds H
+// the step route (above H = 1,024): step_shape_ok (bf16 E a multiple of 32
+// and H of 256); bf16: the tiles' shapes (gru_tiles_ok) and shared memory
+// -- the layout's own tiles fit a block's, whatever tile the row count then
+// takes, so the limit is one of E and H alone; float32: f32_cluster holds H
 bool shape_ok(int e, int h_dim, int dtype) {
+  if (tiles::gru_route(h_dim, dtype == 1, true) == tiles::kRouteStep)
+    return step_shape_ok(e, h_dim, dtype);
   if (dtype == 0) return f32_cluster(h_dim, true) > 0;
   if (dtype != 1 || !tiles::gru_tiles_ok(e, h_dim)) return false;
   const int c = tiles::gru_cluster(h_dim);
@@ -1049,6 +1085,19 @@ int launch(const void* x, const void* mask, const void* w_ih,
           !tiles::aligned16(hb) || !tiles::aligned16(dout) ||
           !tiles::aligned16(dx) || !tiles::aligned16(workspace))
         return rc;
+    }
+    if (L.step) {
+      const StepBwd sb = {ws + L.hbuf, nullptr,
+                          kMma ? reinterpret_cast<float*>(ws + L.h32)
+                               : nullptr,
+                          act, reinterpret_cast<float*>(ws + L.dh),
+                          reinterpret_cast<float*>(ws + L.dhz),
+                          reinterpret_cast<float*>(ws + L.partial), db_part,
+                          dg, h_prev};
+      rc = step_phase_a(x, mask, w_ih, b_ih, b_hh, w_hh, w_hh_t, hb, nullptr,
+                        dout, sb, n_rows, n_steps, e, h_dim, reverse, tc,
+                        tiles::kGruGates, kMma ? 1 : 0, stream);
+    } else if constexpr (kMma) {
       if (L.c > 1) {
         rc = launch_mma<tiles::kClusterConfig.g, tiles::kClusterConfig.mt,
                         true>(x, mask, w_ih, b_ih, b_hh, hb, dout, dx, dg,
@@ -1076,8 +1125,9 @@ int launch(const void* x, const void* mask, const void* w_ih,
                        e, h_dim, reverse, tc, stream);
     }
     if (rc != 0) return rc;
-    if (L.c > 1) {
-      // phase C: a cluster's dx = slots 0..2 @ W_ih^T (rows of four slots)
+    if (L.c > 1 || L.step) {
+      // phase C: a cluster's (the step route's) dx = slots 0..2 @ W_ih^T
+      // (rows of four slots)
       err = launch_matmul<T>(dg, g4, static_cast<const T*>(w_ih_t), n, e, g3,
                              static_cast<T*>(dx), stream);
       if (err != cudaSuccess) return (int)err;
@@ -1113,14 +1163,17 @@ int launch(const void* x, const void* mask, const void* w_ih,
 }
 
 // The 16-row tiles per block of phase A for these arguments (0: float32's
-// row-tile kernel), or -1 if they are invalid: float32 takes no tile
-// choice; bfloat16 needs the tiles' shapes (shape_ok).
+// row-tile kernel, or the step route's), or -1 if they are invalid: float32
+// and the step route take no tile choice; bfloat16 needs the tiles' shapes
+// (shape_ok).
 int row_tiles_of(int n_rows, int n_steps, int e, int h_dim, int tc,
                  int dtype, int row_tiles) {
   if (!valid_shape(n_rows, n_steps, e, h_dim, tc) ||
       !shape_ok(e, h_dim, dtype))
     return -1;
-  if (dtype == 0) return row_tiles == 0 ? 0 : -1;
+  if (dtype == 0 ||
+      tiles::gru_route(h_dim, dtype == 1, true) == tiles::kRouteStep)
+    return row_tiles == 0 ? 0 : -1;
   return bwd_row_tiles(h_dim, n_rows, row_tiles);
 }
 
@@ -1145,13 +1198,14 @@ extern "C" long long cair_gru_bwd_workspace(int n_rows, int n_steps, int e,
 // [B, T, H] -> dx [B, T, E], dw_ih [E, 3H], db_ih [3H], dw_hh [H, 3H],
 // db_hh [3H]; one dtype for all but mask and hb; `workspace` holds
 // cair_gru_bwd_workspace(...) bytes.  bfloat16: `w_ih` points at the staged
-// weights as cair_gru_fwd takes them (one matrix a rank of the cluster
-// above H = 448), `w_ih_t` is read by a cluster's dx product alone, and
-// `w_hh`, `w_hh_t` are not read; E and H are multiples of 32 (64 in a
-// cluster of 4); row_tiles is 0 (the rule of bwd_row_tiles), 1 or the
-// tiles' own (for timing).  float32 reads both transposes (w_ih_t in phase
-// C above H = 403); row_tiles is 0.  Returns the first cudaError_t (0 on
-// success).
+// weights as cair_gru_fwd (cair_gru_step) takes them (one matrix a rank of
+// the cluster above H = 448, a unit tile of 256 above H = 1,024), `w_ih_t`
+// is read by a cluster's (the step route's) dx product alone, and `w_hh`,
+// `w_hh_t` are not read; E and H are multiples of 32 (64 in a cluster of
+// 4, 256 on the step route); row_tiles is 0 (the rule of bwd_row_tiles),
+// 1 or the tiles' own (for timing; the step route takes 0).  float32 reads
+// both transposes (w_ih_t in phase C above H = 403); row_tiles is 0.
+// Returns the first cudaError_t (0 on success).
 extern "C" int cair_gru_bwd(const void* x, const void* mask,
                             const void* w_ih, const void* b_ih,
                             const void* w_hh, const void* b_hh,

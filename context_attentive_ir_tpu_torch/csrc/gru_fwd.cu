@@ -61,6 +61,13 @@
 // block writes its units' new h into every rank's tile.  Each (row, unit)'s
 // FMAs run in the same k order either way.
 //
+// Above H = 1,024, in both dtypes, kernels 7 and 8 take the step route
+// (gru_route in lstm_mma.cuh; lstm_step.cu with three gate blocks,
+// entered through cair_gru_step): blocks of a row tile and a unit tile of
+// 256 (bf16, H zero-padded to a multiple of it) or 128 (float32) units, h
+// through device memory and a launch a time step, so no shared memory
+// grows with H.
+//
 // As in the TPU kernel, h is rounded to the input dtype before the
 // recurrent product (`hs.astype(whh_ref.dtype)`); everything else is f32.
 
@@ -418,13 +425,23 @@ int dispatch(const void* x, const void* mask, const void* w_ih,
 
 }  // namespace
 
+// The route rule of lstm_mma.cuh (`gru_route`): 0 one block, 1 a cluster,
+// 2 the step route (cair_gru_step; cair_gru_bwd's phase A on
+// lstm_step.cu), for hidden size h_dim in dtype (0 = float32, 1 =
+// bfloat16) of kernels 7 and 8 (backward 0) or 9 (1).
+extern "C" int cair_gru_route(int h_dim, int dtype, int backward) {
+  return cair_lstm::tiles::gru_route(h_dim, dtype == 1, backward != 0);
+}
+
 // Kernel 7.  x [B, T, E], mask uint8 [B, T], w_ih [E, 3H], b_ih [3H],
 // w_hh [H, 3H], b_hh [3H], out [B, T, H]; all contiguous, one dtype
 // (0 = float32, 1 = bfloat16).  bfloat16: `w_ih` points at the staged
 // weights [E + H, 3H + 8] (W_ih over W_hh, 8 zero columns a row) -- above
 // H = 448 C = gru_cluster(H) such matrices [E + H, 3H/C + 8], rank r's
 // holding the r, z, n columns of units r*H/C .. (r+1)*H/C - 1 -- and `w_hh`
-// is not read.  Returns the cudaError_t of the launch (0 on success).
+// is not read.  Above H = 1,024 (the step route) it refuses: cair_gru_step
+// runs kernels 7 and 8 there.  Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int cair_gru_fwd(const void* x, const void* mask,
                             const void* w_ih, const void* b_ih,
                             const void* w_hh, const void* b_hh, void* out,

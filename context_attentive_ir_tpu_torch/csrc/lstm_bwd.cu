@@ -1022,13 +1022,13 @@ int launch(const void* x, const void* mask, const void* w_ih, const void* b,
     }
     if (L.step) {
       const StepBwd sb = {ws + L.hbuf, reinterpret_cast<float*>(ws + L.c_state),
-                          act, reinterpret_cast<float*>(ws + L.dh),
+                          nullptr, act, reinterpret_cast<float*>(ws + L.dh),
                           reinterpret_cast<float*>(ws + L.dc),
                           reinterpret_cast<float*>(ws + L.partial), db_part,
                           dgates, h_prev};
-      rc = step_phase_a(x, mask, w_ih, b, w_hh, w_hh_t, hb, cb, dout, sb,
-                        n_rows, n_steps, e, h_dim, reverse, tc, kMma ? 1 : 0,
-                        stream);
+      rc = step_phase_a(x, mask, w_ih, b, nullptr, w_hh, w_hh_t, hb, cb, dout,
+                        sb, n_rows, n_steps, e, h_dim, reverse, tc,
+                        tiles::kLstmGates, kMma ? 1 : 0, stream);
     } else if constexpr (kMma) {
       if (L.c > 1) {
         rc = launch_mma<tiles::kClusterConfig.g, tiles::kClusterConfig.mt,

@@ -121,6 +121,19 @@ inline int gru_cluster(int h) {
                               : 0;
 }
 
+// The route of the GRU kernels 7, 8 (forward) and 9 (`backward`), in both
+// dtypes, by the rule of lstm_route: one block (bf16 up to kGruMaxSingle,
+// float32 f32_cluster's one block), a cluster (bf16 gru_cluster, float32
+// f32_cluster), or the step route (lstm_step.cu with three gate blocks)
+// above kMaxClustered.  `gru_route` in ops/kernels/gru.py states the same
+// rule.
+inline int gru_route(int h, bool bf16, bool backward) {
+  if (h > kMaxClustered) return kRouteStep;
+  return (bf16 ? gru_cluster(h) : f32_cluster(h, backward)) > 1
+             ? kRouteCluster
+             : kRouteSingle;
+}
+
 // bf16 GRU tiles take E and H multiples of 32, a cluster and its ranks'
 // multiple of 16 units
 inline bool gru_tiles_ok(int e, int h) {
@@ -211,17 +224,18 @@ inline size_t mma_smem(int hk, int hc, int gates, int m_rows, bool backward,
 }
 
 // Dynamic shared memory of a bf16 step-route block (lstm_step.cu: a unit
-// tile of kStepUnits units, kClusterConfig's 16 rows), or 0 if no slab depth
-// fits (*ks gets the depth): the ring's header, slabs of the tile's staged
-// weights and x slots (x_t and h_{t-1} both stream through them), then the
-// bias (four f32 slots of the tile, the forward) or the dgates tile of the
-// tile's gate columns (the backward's dh product).  No term grows with E or
-// H.  `step_smem_bytes` in ops/kernels/lstm.py states the same sum.
-inline size_t step_smem(bool backward, int* ks) {
+// tile of kStepUnits units, kClusterConfig's 16 rows) with `gates` gate
+// blocks (the LSTM's 4, the GRU's 3), or 0 if no slab depth fits (*ks gets
+// the depth): the ring's header, slabs of the tile's staged weights and x
+// slots (x_t and h_{t-1} both stream through them), then the bias (four f32
+// slots of the tile, the forward) or the tile's four gradient slots (the
+// backward's dh product).  No term grows with E or H.  `step_smem_bytes`
+// in ops/kernels/lstm.py states the same sum.
+inline size_t step_smem(bool backward, int gates, int* ks) {
   const int m_rows = 16 * kClusterConfig.mt;
   for (int depth = 32; depth >= 16; depth /= 2) {
     const size_t bytes =
-        kRingHeader + (size_t)kStages * depth * w_stride(kStepUnits, kLstmGates) +
+        kRingHeader + (size_t)kStages * depth * w_stride(kStepUnits, gates) +
         (size_t)kStages * m_rows * xslot_stride(depth) +
         (backward ? (size_t)m_rows * slot_stride(kStepUnits)
                   : (size_t)16 * kStepUnits);

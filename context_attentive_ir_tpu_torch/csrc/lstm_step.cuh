@@ -1,7 +1,9 @@
-// The step route of the LSTM kernels (lstm_step.cu): kernels 1, 4, 5 above
-// H = 1,024 and kernel 6 above H = 512, in both dtypes (`lstm_route` in
-// lstm_mma.cuh): the entry points cair_lstm_step and lstm_bwd.cu's kernel 5
-// call, and the buffers they lay out.
+// The step route of the recurrent kernels (lstm_step.cu): the LSTM's
+// kernels 1, 4, 5 above H = 1,024 and kernel 6 above H = 512, the GRU's
+// kernels 7, 8, 9 above H = 1,024, in both dtypes (`lstm_route`,
+// `gru_route` in lstm_mma.cuh): the entry points cair_lstm_step,
+// cair_gru_step and the backwards' phase A call, and the buffers they lay
+// out.
 
 #pragma once
 
@@ -9,8 +11,13 @@
 
 namespace cair_lstm {
 
-// planes a cell and step of kernel 5's recompute: i, f, g, o, c_prev, c_new
+// planes a cell and step of kernel 5's recompute (i, f, g, o, c_prev,
+// c_new) and of kernel 9's (h_prev, r, z, n, hn), by the gate count
 constexpr int kStepSaved = 6;
+constexpr int kGruStepSaved = 5;
+inline int step_planes(int gates) {
+  return gates == tiles::kLstmGates ? kStepSaved : kGruStepSaved;
+}
 // rows whose dgates one thread of the reverse pass sums into its db partial
 constexpr int kDgRows = 16;
 
@@ -33,22 +40,24 @@ inline bool step_shape_ok(int e, int h_dim, int dtype) {
   return dtype == 1 && e % tiles::kAlign == 0 && h_dim % tiles::kStepUnits == 0;
 }
 
-// Byte offsets of the forward's state (cair_lstm_step's workspace): h in
-// the compute dtype, read and written in turn [2, rows, H]; c, f32 [rows,
-// H]; bf16 only, the f32 h kernel 4's boundaries copy out [rows, H] (a
-// float32 h is the h buffers' own).
+// Byte offsets of the forward's state (cair_lstm_step's and
+// cair_gru_step's workspace): h in the compute dtype, read and written in
+// turn [2, rows, H]; the LSTM's c, f32 [rows, H]; bf16 only, the f32 h
+// [rows, H] (the LSTM's kernel 4 copies its boundaries out of it; the GRU
+// carries h in it, since z * h reads the f32 h) -- a float32 h is the h
+// buffers' own.
 struct StepState {
   size_t hbuf, c, h32, total;
 };
 
-inline StepState step_state(int n_rows, int h_dim, int dtype) {
+inline StepState step_state(int n_rows, int h_dim, int dtype, int gates) {
   const size_t p = (size_t)n_rows * h_dim;
   StepState L;
   size_t off = 0;
   L.hbuf = off;
   off += align256(2 * p * (dtype == 1 ? 2 : 4));
   L.c = off;
-  off += align256(p * 4);
+  off += gates == tiles::kLstmGates ? align256(p * 4) : 0;
   L.h32 = off;
   off += dtype == 1 ? align256(p * 4) : 0;
   L.total = off;
@@ -56,22 +65,26 @@ inline StepState step_state(int n_rows, int h_dim, int dtype) {
 }
 
 // Kernels 1, 4 (res) and 6 (rec: x is x_proj [B, T, 4H], e = 0, b unused)
-// on the step route; arguments as cair_lstm_step's.
+// on the step route (gates = 4, b_hh unused), or kernels 7, 8 (res; gates =
+// 3, b the GRU's b_ih); arguments as cair_lstm_step's / cair_gru_step's.
 int step_forward(const void* x, const void* mask, const void* w_ih,
-                 const void* b, const void* w_hh, void* out, void* hb,
-                 void* cb, void* workspace, int n_rows, int n_steps, int e,
-                 int h_dim, int reverse, int tc, bool res, bool rec,
-                 int dtype, cudaStream_t stream);
+                 const void* b, const void* b_hh, const void* w_hh, void* out,
+                 void* hb, void* cb, void* workspace, int n_rows, int n_steps,
+                 int e, int h_dim, int reverse, int tc, bool res, bool rec,
+                 int gates, int dtype, cudaStream_t stream);
 
-// Kernel 5's step-route buffers, in lstm_bwd.cu's workspace: h [2, rows,
-// H] and c [rows, H] of the recompute, the planes [tc][kStepSaved][rows,
-// H], the carried dh and dc [rows, H], the dh partials of the unit tiles
-// [tiles][rows, H] (all f32 but h, in the compute dtype), the db partials
-// [ceil(rows / kDgRows)][4H], and phase B's operands dgates_c [B*T, 4H]
-// and h_prev [B*T, H].
+// Phase A's step-route buffers, in lstm_bwd.cu's (gru_bwd.cu's)
+// workspace: h [2, rows, H] (compute dtype) of the recompute, the LSTM's c
+// or bf16's f32 h of the GRU [rows, H], the planes [tc][step_planes][rows,
+// H], the carried dh and the LSTM's dc or the GRU's dh' z [rows, H], the dh
+// partials of the unit tiles [tiles][rows, H] (all f32 but h), the db
+// partials [ceil(rows / kDgRows)][4H], and phase B's operands: the four
+// gradient slots [B*T, 4H] (the LSTM's dgates; the GRU's da_r, da_z, da_n,
+// da_n * r) and h_prev [B*T, H].
 struct StepBwd {
   void* hbuf;
   float* c;
+  float* h32;
   float* act;
   float* dh;
   float* dc;
@@ -81,16 +94,17 @@ struct StepBwd {
   void* h_prev;
 };
 
-// Kernel 5's phase A on the step route: per chunk in reverse processing
-// order, the recompute from (hb, cb), a launch a step, then the reverse
-// pass, two launches a step (the dgates, then the dh partials).  bf16:
+// Kernel 5's (gates = 4) or kernel 9's (gates = 3; b the GRU's b_ih, cb
+// unused) phase A on the step route: per chunk in reverse processing order,
+// the recompute from (hb, cb), a launch a step, then the reverse pass, two
+// launches a step (the gradient slots, then the dh partials).  bf16:
 // `w_ih` the staged tiles, `w_hh`, `w_hh_t` not read; float32: `w_ih`,
-// `w_hh` as given, `w_hh_t` [4H, H].
+// `w_hh` as given, `w_hh_t` [gates * H, H].
 int step_phase_a(const void* x, const void* mask, const void* w_ih,
-                 const void* b, const void* w_hh, const void* w_hh_t,
-                 const void* hb, const void* cb, const void* dout,
-                 const StepBwd& ws, int n_rows, int n_steps, int e,
-                 int h_dim, int reverse, int tc, int dtype,
+                 const void* b, const void* b_hh, const void* w_hh,
+                 const void* w_hh_t, const void* hb, const void* cb,
+                 const void* dout, const StepBwd& ws, int n_rows, int n_steps,
+                 int e, int h_dim, int reverse, int tc, int gates, int dtype,
                  cudaStream_t stream);
 
 }  // namespace cair_lstm

@@ -57,6 +57,27 @@
 // projection with CUDA-core FMAs, each lane owning H/32 contiguous output
 // columns, W_p read from shared memory (bf16 at H <= 256) or from L2 (f32,
 // or H > 256), with an online softmax over the tokens.
+//
+// The wide route (above H = 1,024 -- CARS's doc pool at --nhid 576 and up
+// -- in both dtypes; at any width when asked, for timing) does not carry
+// that design on: it reads all of W_p from L2 for every token, 32.2 ms at
+// H = 1,024 against the plain version's 0.436 (R = 1,280, T = 30, bf16).
+// It is two launches in a fixed order.  The score kernel
+// (slate_score_kernel) runs the projection as the GEMM [R*T, H] @ [H, H]
+// in tiles of 128 tokens x 128 columns, so a tile reads its k-slabs of W_p
+// once for 128 tokens: bf16 on `mma.sync.m16n8k16` tiles (bf16 in, f32
+// accumulate), both operands' k-slabs of 32 streamed through a three-slab
+// `cp.async` ring; float32 on exact f32 FMAs, 8 x 8 outputs a thread, the
+// slabs staged k-major.  Its epilogue reduces tanh(acc + b_p) * query[doc]
+// over the tile's 128 columns into one partial score per token and column
+// tile, [H / 128, R*T] f32 in the caller's workspace.  The pool kernel
+// (slate_wide_pool_kernel, a block a document) adds a token's column
+// tiles' partials in tile order, takes the masked softmax over the
+// document's T scores at once (masked tokens score -1e30 and weigh 0; a
+// fully masked row pools to exactly 0) and sums p_t x_t in f32 over the
+// tokens in order.  No atomics: the same bits every run.  Bound at the
+// CARS slate at --nhid 1152 ([16000, 30, 2304], bf16): 2*R*T*H^2 = 5.1e12
+// flops, 5.15 ms at 989 TFLOP/s, by operations.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -557,20 +578,364 @@ int launch_tc(const void* states, const void* mask, const void* query,
   return (int)cudaGetLastError();
 }
 
+// -- the wide route: score tiles, then a pool a document ---------------------
+
+constexpr int kMaxCudaCore = 1024;  // the widest CUDA-core instantiation
+constexpr int kScoreRows = 128;     // tokens of a score tile
+constexpr int kScoreCols = 128;     // W_p columns of a score tile
+constexpr int kScoreK = 32;         // k-rows of a slab
+constexpr int kScoreStages = 3;     // slabs in the bf16 ring
+// bytes per staged row of the bf16 ring: a token row's kScoreK values, a
+// slab row's kScoreCols, each padded by 16 bytes for `ldmatrix`
+constexpr int kScoreARow = kScoreK * 2 + 16;
+constexpr int kScoreBRow = kScoreCols * 2 + 16;
+constexpr int kScoreStage = kScoreRows * kScoreARow + kScoreK * kScoreBRow;
+// floats per staged k-row of the float32 kernel
+constexpr int kScoreF32Row = kScoreRows + 4;
+
+// Dynamic shared memory of slate_score_kernel: bf16 the ring, then the
+// column halves' score exchange (2 x kScoreRows f32); float32 the two
+// k-major slabs.
+inline size_t score_smem(int dtype) {
+  return dtype == 1 ? (size_t)kScoreStages * kScoreStage + 2 * kScoreRows * 4
+                    : (size_t)2 * kScoreK * kScoreF32Row * 4;
+}
+
+// partial[blockIdx.y][tok] = sum over the tile's 128 columns c of
+// tanh((states @ W_p)[tok, c] + b_p[c]) * query[tok / T, c], for the tile's
+// 128 tokens (blockIdx.x); rows past n_tok read zeros and write nothing.
+// bf16: warp w owns tokens (w % 4) * 32 .. + 31 and columns (w / 4) * 64 ..
+// + 63 of the tile (2 x 8 `mma` tiles), fragments by `ldmatrix` from the
+// ring's slabs.  float32: thread (ty, tx) owns tokens ty * 8 .. + 7 and
+// columns tx * 8 .. + 7, exact f32 FMAs in k order.  A token's columns are
+// summed in column order within a thread, by quad (bf16) or half-warp
+// (float32) shuffles across threads, then the bf16 column halves in order.
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+slate_score_kernel(const T* __restrict__ states, const T* __restrict__ query,
+                   const T* __restrict__ w_p, const T* __restrict__ b_p,
+                   float* __restrict__ partial, int n_tok, int t_len, int h) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  extern __shared__ __align__(16) char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tok0 = blockIdx.x * kScoreRows;
+  const int c0 = blockIdx.y * kScoreCols;
+  const int n_k = h / kScoreK;
+  if constexpr (kBf16) {
+    using cair_lstm::tiles::cp_async16;
+    using cair_lstm::tiles::cp_async_commit;
+    using cair_lstm::tiles::cp_async_wait;
+    using cair_lstm::tiles::bf162;
+    using cair_lstm::tiles::ldsm_x4;
+    using cair_lstm::tiles::ldsm_x4_trans;
+    using cair_lstm::tiles::mma_bf16;
+    const int g = lane >> 2, tg = lane & 3;
+    const int wm = warp & 3, wn = warp >> 2;
+    float* sc_ex = reinterpret_cast<float*>(smem + kScoreStages * kScoreStage);
+    // slab kt of both operands into stage s: 512 16-byte pieces each
+    auto load = [&](int kt, int st) {
+      char* a_s = smem + st * kScoreStage;
+      char* b_s = a_s + kScoreRows * kScoreARow;
+      const int k0 = kt * kScoreK;
+      for (int i = tid; i < kScoreRows * (kScoreK / 8); i += kWarps * 32) {
+        const int r = i / (kScoreK / 8), c = i - r * (kScoreK / 8);
+        const bool valid = tok0 + r < n_tok;
+        cp_async16(a_s + r * kScoreARow + c * 16,
+                   valid ? states + (size_t)(tok0 + r) * h + k0 + c * 8
+                         : states,
+                   valid);
+      }
+      for (int i = tid; i < kScoreK * (kScoreCols / 8); i += kWarps * 32) {
+        const int r = i / (kScoreCols / 8), c = i - r * (kScoreCols / 8);
+        cp_async16(b_s + r * kScoreBRow + c * 16,
+                   w_p + (size_t)(k0 + r) * h + c0 + c * 8, true);
+      }
+    };
+    float acc[2][8][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[mt][nt][v] = 0.0f;
+#pragma unroll
+    for (int st = 0; st < kScoreStages - 1; ++st) {
+      if (st < n_k) load(st, st);
+      cp_async_commit();
+    }
+    for (int kt = 0; kt < n_k; ++kt) {
+      cp_async_wait<kScoreStages - 2>();
+      __syncthreads();  // slab kt landed; every warp is done with kt - 1's
+      if (kt + kScoreStages - 1 < n_k)
+        load(kt + kScoreStages - 1, (kt + kScoreStages - 1) % kScoreStages);
+      cp_async_commit();
+      const char* a_s = smem + (kt % kScoreStages) * kScoreStage;
+      const char* b_s = a_s + kScoreRows * kScoreARow;
+      const char* a_src = a_s + (wm * 32 + (lane & 15)) * kScoreARow +
+                          (lane >> 4) * 16;
+      const char* b_src =
+          b_s + (lane & 15) * kScoreBRow + (wn * 64 + (lane >> 4) * 8) * 2;
+#pragma unroll
+      for (int kk = 0; kk < kScoreK; kk += 16) {
+        uint32_t a[2][4], b[4][4];  // b[np]: n-tiles 2np, 2np + 1
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          ldsm_x4(a[mt], a_src + mt * 16 * kScoreARow + kk * 2);
+#pragma unroll
+        for (int np = 0; np < 4; ++np)
+          ldsm_x4_trans(b[np], b_src + kk * kScoreBRow + np * 32);
+#pragma unroll
+        for (int np = 0; np < 4; ++np)
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_bf16(acc[mt][2 * np], a[mt], b[np][0], b[np][1]);
+            mma_bf16(acc[mt][2 * np + 1], a[mt], b[np][2], b[np][3]);
+          }
+      }
+    }
+    // epilogue: tanh(. + b_p) . query over the warp's 64 columns
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = wm * 32 + mt * 16 + g + half * 8;
+        float v = 0.0f;
+        if (tok0 + r < n_tok) {
+          const T* q_d = query + (size_t)((tok0 + r) / t_len) * h;
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            const int col = c0 + wn * 64 + nt * 8 + 2 * tg;
+            const float2 qv =
+                __bfloat1622float2(*reinterpret_cast<const bf162*>(q_d + col));
+            const float2 bv =
+                __bfloat1622float2(*reinterpret_cast<const bf162*>(b_p + col));
+            v += tanhf(acc[mt][nt][half * 2] + bv.x) * qv.x +
+                 tanhf(acc[mt][nt][half * 2 + 1] + bv.y) * qv.y;
+          }
+        }
+        v += __shfl_xor_sync(kFull, v, 1);
+        v += __shfl_xor_sync(kFull, v, 2);
+        if (tg == 0) sc_ex[wn * kScoreRows + r] = v;
+      }
+    // the two column halves added in order, one partial a token
+    __syncthreads();
+    if (tid < kScoreRows && tok0 + tid < n_tok)
+      partial[(size_t)blockIdx.y * n_tok + tok0 + tid] =
+          sc_ex[tid] + sc_ex[kScoreRows + tid];
+  } else {
+    float* a_s = reinterpret_cast<float*>(smem);     // [kScoreK][kScoreF32Row]
+    float* b_s = a_s + kScoreK * kScoreF32Row;       // the same
+    const int tx = tid & 15, ty = tid >> 4;
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    for (int kt = 0; kt < n_k; ++kt) {
+      const int k0 = kt * kScoreK;
+      __syncthreads();  // every thread is done with the slabs before
+      for (int i = tid; i < kScoreRows * (kScoreK / 4); i += kWarps * 32) {
+        const int r = i / (kScoreK / 4), c = (i - r * (kScoreK / 4)) * 4;
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (tok0 + r < n_tok)
+          v = __ldg(reinterpret_cast<const float4*>(
+              states + (size_t)(tok0 + r) * h + k0 + c));
+        a_s[(c + 0) * kScoreF32Row + r] = v.x;
+        a_s[(c + 1) * kScoreF32Row + r] = v.y;
+        a_s[(c + 2) * kScoreF32Row + r] = v.z;
+        a_s[(c + 3) * kScoreF32Row + r] = v.w;
+      }
+      for (int i = tid; i < kScoreK * (kScoreCols / 4); i += kWarps * 32) {
+        const int r = i / (kScoreCols / 4), c = (i - r * (kScoreCols / 4)) * 4;
+        *reinterpret_cast<float4*>(b_s + r * kScoreF32Row + c) =
+            __ldg(reinterpret_cast<const float4*>(
+                w_p + (size_t)(k0 + r) * h + c0 + c));
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int k = 0; k < kScoreK; ++k) {
+        const float4 a0 = *reinterpret_cast<const float4*>(
+            a_s + k * kScoreF32Row + ty * 8);
+        const float4 a1 = *reinterpret_cast<const float4*>(
+            a_s + k * kScoreF32Row + ty * 8 + 4);
+        const float4 b0 = *reinterpret_cast<const float4*>(
+            b_s + k * kScoreF32Row + tx * 8);
+        const float4 b1 = *reinterpret_cast<const float4*>(
+            b_s + k * kScoreF32Row + tx * 8 + 4);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = ty * 8 + i;
+      float v = 0.0f;
+      if (tok0 + r < n_tok) {
+        const T* q_d = query + (size_t)((tok0 + r) / t_len) * h;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = c0 + tx * 8 + j;
+          v += tanhf(acc[i][j] + __ldg(b_p + col)) * __ldg(q_d + col);
+        }
+      }
+      // the half-warp's 16 column groups, by a fixed shuffle tree
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) v += __shfl_xor_sync(kFull, v, off);
+      if (tx == 0 && tok0 + r < n_tok)
+        partial[(size_t)blockIdx.y * n_tok + tok0 + r] = v;
+    }
+  }
+}
+
+// a block-wide reduction in a fixed order (kWarps warps): max or sum
+template <bool kMax>
+__device__ __forceinline__ float block_reduce(float v, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float o = __shfl_xor_sync(kFull, v, off);
+    v = kMax ? fmaxf(v, o) : v + o;
+  }
+  __syncthreads();  // red's last readers are done
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float r = red[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) r = kMax ? fmaxf(r, red[w]) : r + red[w];
+  return r;
+}
+
+// Document blockIdx.x of the wide route: s_t = the column tiles' partials
+// of token t added in tile order, the masked softmax over the T scores
+// (p_t written over partial[0]'s entry, which only this block reads), and
+// pooled = sum_t p_t x_t / max(sum_t p_t, 1e-13) in f32, a column pair a
+// thread, tokens in order.
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+slate_wide_pool_kernel(const T* __restrict__ states,
+                       const bool* __restrict__ mask, float* partial,
+                       int n_tiles, T* __restrict__ out, int n_rows,
+                       int t_len, int h) {
+  __shared__ float red[kWarps];
+  const int row = blockIdx.x;
+  const size_t n_tok = (size_t)n_rows * t_len;
+  float* p_row = partial + (size_t)row * t_len;
+  const bool* m_row = mask + (size_t)row * t_len;
+  float m_loc = kMaskedScore;
+  for (int t = threadIdx.x; t < t_len; t += blockDim.x) {
+    float s = p_row[t];
+    for (int q = 1; q < n_tiles; ++q) s += p_row[q * n_tok + t];
+    const float sc = m_row[t] ? s : kMaskedScore;
+    p_row[t] = sc;
+    m_loc = fmaxf(m_loc, sc);
+  }
+  const float m = block_reduce<true>(m_loc, red);
+  float s_loc = 0.0f;
+  for (int t = threadIdx.x; t < t_len; t += blockDim.x) {
+    const float p = m_row[t] ? expf(p_row[t] - m) : 0.0f;
+    p_row[t] = p;
+    s_loc += p;
+  }
+  const float den = fmaxf(block_reduce<false>(s_loc, red), 1e-13f);
+  // block_reduce's barriers order the p_t writes before these reads
+  for (int c = threadIdx.x * 2; c < h; c += blockDim.x * 2) {
+    const T* x = states + (size_t)row * t_len * h + c;
+    float ax = 0.0f, ay = 0.0f;
+    for (int t = 0; t < t_len; ++t) {
+      const float pt = p_row[t];
+      float xv[2];
+      if constexpr (sizeof(T) == 2) {
+        const float2 v = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(x + (size_t)t * h));
+        xv[0] = v.x;
+        xv[1] = v.y;
+      } else {
+        const float2 v = *reinterpret_cast<const float2*>(x + (size_t)t * h);
+        xv[0] = v.x;
+        xv[1] = v.y;
+      }
+      ax = fmaf(pt, xv[0], ax);
+      ay = fmaf(pt, xv[1], ay);
+    }
+    store(out + (size_t)row * h + c, ax / den);
+    store(out + (size_t)row * h + c + 1, ay / den);
+  }
+}
+
+// Whether cair_slate_pool takes the wide route: above the CUDA-core
+// instantiations, or when asked (`wide`, for timing it beside them).
+inline bool wide_route(int h, int wide) { return wide || h > kMaxCudaCore; }
+
+inline size_t wide_workspace(int n_rows, int t_len, int h) {
+  return (size_t)(h / kScoreCols) * n_rows * t_len * sizeof(float);
+}
+
+template <typename T>
+int launch_wide(const void* states, const void* mask, const void* query,
+                const void* w_p, const void* b_p, void* out, void* workspace,
+                int n_rows, int t_len, int h, cudaStream_t stream) {
+  if (reinterpret_cast<uintptr_t>(workspace) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const long long n_tok = (long long)n_rows * t_len;
+  const int dtype = sizeof(T) == 2 ? 1 : 0;
+  float* partial = static_cast<float*>(workspace);
+  if (n_tok > 0) {
+    auto* kernel = slate_score_kernel<T>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)score_smem(dtype));
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return (int)err;
+    }
+    kernel<<<dim3((unsigned)((n_tok + kScoreRows - 1) / kScoreRows),
+                  h / kScoreCols),
+             kWarps * 32, score_smem(dtype), stream>>>(
+        static_cast<const T*>(states), static_cast<const T*>(query),
+        static_cast<const T*>(w_p), static_cast<const T*>(b_p), partial,
+        (int)n_tok, t_len, h);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  slate_wide_pool_kernel<T><<<n_rows, kWarps * 32, 0, stream>>>(
+      static_cast<const T*>(states), static_cast<const bool*>(mask), partial,
+      h / kScoreCols, static_cast<T*>(out), n_rows, t_len, h);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// Bytes of workspace cair_slate_pool needs (the wide route's partial
+// scores, [H / 128, R*T] f32; 0 on the other routes and at H = 0), or -1
+// for a width it refuses.
+extern "C" long long cair_slate_pool_workspace(int n_rows, int t_len, int h,
+                                               int wide) {
+  if (n_rows < 0 || t_len < 0 || h < 0 || h % 128 != 0) return -1;
+  return h > 0 && wide_route(h, wide)
+             ? (long long)wide_workspace(n_rows, t_len, h)
+             : 0;
+}
 
 // states [R, T, H], mask bool [R, T], query [R, H], w_p [H, H], b_p [H]
 // (contiguous, one dtype: 0 = float32, 1 = bfloat16; states, query and w_p
 // 16-byte aligned) -> out [R, H] in that dtype.  H must be a multiple of
-// 128 from 128 to 1024 (`pool_supported` in ops/kernels/slate.py states the
-// same set).  bfloat16 at H = 128 or 256 with 1 <= T <= 64 runs
-// slate_pool_tc_kernel, everything else slate_pool_kernel.  Returns the
-// cudaError_t (0 = ok).
+// 128 (`pool_supported` in ops/kernels/slate.py states the same set; H = 0
+// writes nothing).  Up
+// to H = 1,024: bfloat16 at H = 128 or 256 with 1 <= T <= 64 runs
+// slate_pool_tc_kernel, everything else slate_pool_kernel; above it (or at
+// any H with `wide` set) the wide route, slate_score_kernel then
+// slate_wide_pool_kernel, its partial scores in `workspace`
+// (cair_slate_pool_workspace bytes, 16-byte aligned; unread elsewhere).
+// Returns the cudaError_t (0 = ok).
 extern "C" int cair_slate_pool(const void* states, const void* mask,
                                const void* query, const void* w_p,
-                               const void* b_p, void* out, int n_rows,
-                               int t_len, int h, int dtype, void* stream) {
-  if (n_rows == 0) return 0;
+                               const void* b_p, void* out, void* workspace,
+                               int n_rows, int t_len, int h, int dtype,
+                               int wide, void* stream) {
+  if (n_rows == 0 || h == 0) return 0;
   if (t_len < 0) return (int)cudaErrorInvalidValue;
   const void* vectors[] = {states, query, w_p};
   for (const void* p : vectors)
@@ -579,10 +944,17 @@ extern "C" int cair_slate_pool(const void* states, const void* mask,
   if (reinterpret_cast<uintptr_t>(b_p) % 8 != 0)
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (h >= 128 && h % 128 == 0 && wide_route(h, wide))
+    return dtype == 1
+               ? launch_wide<__nv_bfloat16>(states, mask, query, w_p, b_p,
+                                            out, workspace, n_rows, t_len, h,
+                                            s)
+               : launch_wide<float>(states, mask, query, w_p, b_p, out,
+                                    workspace, n_rows, t_len, h, s);
   if (dtype == 0)
     return launch_h<float>(states, mask, query, w_p, b_p, out, n_rows, t_len,
                            h, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
   // bf16 on tensor cores where W_p and a tile of whole documents fit
   if (t_len >= 1 && t_len <= kTileRows) {
     if (h == 128)

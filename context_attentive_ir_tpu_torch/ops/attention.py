@@ -17,18 +17,16 @@ half ``tanh(states @ W_p + b_p)`` is exposed (``proj_only``) and reusable
 ``use_kernel=True`` sends the query-conditioned pool to the fused
 slate-pool kernel (kernel 10, ``ops/kernels/slate.py``) when the JAX
 ``_pallas_ok`` conditions hold -- a query is given, no cached projection,
-``states`` has the pool's width, ``pool_jax_gate`` -- and the states lie on
-a CUDA device.  A shape the JAX gate refuses takes the formulation below,
-as in JAX.  A shape the JAX gate takes but the launcher does not
-(``pool_supported``: H above 1024) takes the formulation below on CPU
-tensors and raises on CUDA tensors, as ``RNNLayer.kernel_ok`` does: the
-pool never leaves the kernel by itself on the card.
+``states`` has the pool's width, ``pool_supported`` (the JAX gate, which
+the launcher holds whole) -- and the states lie on a CUDA device.  A shape
+the JAX gate refuses takes the formulation below, as in JAX.
 
-Speed: above H = 256 (CARS's doc pool at ``nhid`` > 128) the kernel is
-its CUDA-core form, which reads all of W_p from L2 for every token of
-every block of 8 to 32 rows; on the H100 it is 3-74x slower there than
-this module with ``use_kernel=False`` (``use_pallas_slate=False``),
-PERF.md.
+Speed: from H = 384 to 1,024 (CARS's doc pool at ``nhid`` 192 to 512) the
+kernel is its CUDA-core form, which reads all of W_p from L2 for every
+token of every block of 8 to 32 rows; on the H100 it is 3-74x slower there
+than this module with ``use_kernel=False`` (``use_pallas_slate=False``).
+Above 1,024 it takes the wide route (score tiles on tensor cores, then a
+pool a document), PERF.md.
 """
 
 from __future__ import annotations
@@ -37,12 +35,7 @@ import math
 
 import torch
 
-from .kernels.slate import (
-    attn_pool,
-    attn_pool_train,
-    pool_jax_gate,
-    pool_supported,
-)
+from .kernels.slate import attn_pool, attn_pool_train, pool_supported
 from .layers import Dense, ParamModule
 from .masking import masked_softmax
 
@@ -134,15 +127,8 @@ class AttentionPool(ParamModule):
         lead, T, D = states.shape[:-2], states.shape[-2], states.shape[-1]
         rows = math.prod(lead)
         if (self.use_kernel and query is not None and proj_states is None
-                and D == self.dim and pool_jax_gate(D, rows)
+                and D == self.dim and pool_supported(D, rows)
                 and states.device.type == "cuda"):
-            if not pool_supported(D, rows):
-                raise ValueError(
-                    f"AttentionPool: the slate-pool kernel does not hold "
-                    f"H={D} (pool_supported states its widths); construct "
-                    "the pool with use_kernel=False (use_pallas_slate=False "
-                    "in the model config) to run the plain formulation on "
-                    "the card")
             train = torch.is_grad_enabled() and any(
                 t.requires_grad for t in (s, query, w_p, b_p))
             out = (attn_pool_train if train else attn_pool)(

@@ -41,6 +41,9 @@ SIGNATURES = {
     "cair_lstm_step": ([_P] * 9 + [_I] * 9 + [_P], _I),
     "cair_lstm_route": ([_I] * 3, _I),
     "cair_gru_fwd": ([_P] * 7 + [_I] * 6 + [_P], _I),
+    "cair_gru_route": ([_I] * 3, _I),
+    "cair_gru_step_workspace": ([_I] * 3, ctypes.c_longlong),
+    "cair_gru_step": ([_P] * 9 + [_I] * 8 + [_P], _I),
     "cair_gru_fwd_res": ([_P] * 8 + [_I] * 7 + [_P], _I),
     "cair_gru_bwd_workspace": ([_I] * 7, ctypes.c_longlong),
     "cair_gru_bwd": ([_P] * 16 + [_I] * 8 + [_P], _I),
@@ -49,7 +52,8 @@ SIGNATURES = {
     "cair_beamgen_occupancy": ([_I] * 6 + [_IP], _I),
     "cair_beamgen": ([_P, _P, _P] + [_I] * 8 + [_P] * 7 + [_I] * 4 + [_P],
                      _I),
-    "cair_slate_pool": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    "cair_slate_pool_workspace": ([_I] * 4, ctypes.c_longlong),
+    "cair_slate_pool": ([_P] * 7 + [_I] * 5 + [_P], _I),
     "cair_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -60,8 +60,16 @@ back.  float32 keeps exact f32 FMAs (no TF32) on the first version's
 one-thread-per-unit layout, x staged in chunks (any E), its units split
 over a cluster of up to 8 blocks of at most 256 threads above H = 256 in
 kernels 7 and 8 and above 403 in kernel 9 (``f32_cluster``, as the
-LSTM's).  ``gru_fused_supported`` states the shapes each dtype's kernels
-hold (any E, H up to 1,024); ``PERF.md`` records times and bounds.
+LSTM's).
+
+Above H = 1,024, in both dtypes, kernels 7, 8 and 9 take the step route
+(``csrc/lstm_step.cu`` with three gate blocks, ``gru_route``) as the LSTM's
+do: the cluster's ranks made independent blocks of a row tile and a unit
+tile of 256 (bf16, H padded to a multiple of it, ``gru_step_hidden``) or
+128 (float32) units, h through device memory, a launch a time step; kernel
+9's dh partials of the unit tiles are added in tile order.  No shared
+memory grows with H.  ``gru_fused_supported`` states the shapes each
+dtype's kernels hold (any E, any H); ``PERF.md`` records times and bounds.
 """
 
 from __future__ import annotations
@@ -74,17 +82,22 @@ from .lstm import (
     MAX_CLUSTER_HIDDEN,
     MAX_PAIR_BF16,
     SMEM_LIMIT,
+    STEP_UNITS,
     TILE_ALIGN,
     _aligned,
     _cut_gates,
     _first_in_chunk,
     _pad_last,
     _round_up,
+    _step_workspace,
     _stream,
     chunk_len,
+    f32_cluster,
     f32_smem_bytes,
     pad_operands,
     stage_lstm_weights,
+    step_hidden,
+    step_smem_bytes,
     tile_config,
     tile_smem_bytes,
 )
@@ -121,23 +134,50 @@ def gru_tile_hidden(hidden: int) -> int:
     return _round_up(hidden, _h_align(hidden))
 
 
+def gru_route(hidden: int, dtype: torch.dtype = torch.float32,
+              backward: bool = False) -> str:
+    """The route of kernels 7, 8 (and 9, ``backward``) at ``hidden`` units
+    in ``dtype`` (``gru_route`` in ``csrc/lstm_mma.cuh``, which the
+    launchers apply): ``"single"`` (one block), ``"cluster"`` (a cluster of
+    blocks that exchange h through distributed shared memory: bf16
+    ``gru_cluster``, float32 ``f32_cluster``) or ``"step"``
+    (``csrc/lstm_step.cu``: a launch a time step, h through device memory)
+    above 1,024 units, in both dtypes."""
+    if hidden > MAX_CLUSTER_HIDDEN:
+        return "step"
+    c = (gru_cluster(gru_tile_hidden(hidden)) if dtype == torch.bfloat16
+         else f32_cluster(hidden, backward))
+    return "cluster" if c > 1 else "single"
+
+
+def gru_step_hidden(hidden: int, dtype: torch.dtype) -> int:
+    """The hidden size the step route runs ``hidden`` at: the LSTM's rule
+    (``step_hidden``), bf16 the next multiple of its 256-unit tile
+    (zero-padded by the wrappers), float32 ``hidden`` itself (its last tile
+    partial)."""
+    return step_hidden(hidden, dtype)
+
+
 def gru_fused_supported(embed: int, hidden: int, rows: int,
                         dtype: torch.dtype = torch.float32) -> bool:
     """Whether kernels 7, 8 and 9 hold an ``[rows, T, embed] -> hidden`` GRU
     in ``dtype`` (the counterpart of the JAX ``gru_fused_supported``, with
-    this card's limits): any ``embed`` and a ``hidden`` size up to 1,024 in
-    both dtypes.  bfloat16: ``hidden`` padded (``gru_tile_hidden``), split
-    over a cluster of 2 or 4 blocks above 448 (``gru_cluster``), whose
-    tiles -- kernel 9's four-slot gradient tile beside the forward's -- fit
-    a block's shared memory (``tile_smem_bytes``).  float32: ``f32_cluster``
-    blocks of at most 2 * 403 threads and ``f32_smem_bytes`` of shared
-    memory, as the LSTM's."""
+    this card's limits): every ``embed``, ``hidden`` and ``rows`` of at
+    least 1 in both dtypes.  Up to 1,024 units, bfloat16: ``hidden`` padded
+    (``gru_tile_hidden``), split over a cluster of 2 or 4 blocks above 448
+    (``gru_cluster``), whose tiles -- kernel 9's four-slot gradient tile
+    beside the forward's -- fit a block's shared memory
+    (``tile_smem_bytes``); float32: ``f32_cluster`` blocks of at most 2 *
+    403 threads and ``f32_smem_bytes`` of shared memory, as the LSTM's.
+    Above it the step route (``gru_route``), whose blocks' shared memory
+    (``step_smem_bytes`` with three gate blocks) no width changes."""
     if embed < 1 or hidden < 1 or rows < 1 or dtype not in _DTYPES:
         return False
+    if gru_route(hidden, dtype, backward=True) == "step":
+        return (step_smem_bytes(dtype, gates=GATES) > 0
+                and step_smem_bytes(dtype, backward=True, gates=GATES) > 0)
     if dtype == torch.float32:
-        return (hidden <= MAX_CLUSTER_HIDDEN
-                and 0 < f32_smem_bytes(embed, hidden, backward=True)
-                <= SMEM_LIMIT)
+        return 0 < f32_smem_bytes(embed, hidden, backward=True) <= SMEM_LIMIT
     e, h = _round_up(embed, TILE_ALIGN), gru_tile_hidden(hidden)
     c = gru_cluster(h)
     return c > 0 and tile_smem_bytes(e, h, backward=True, gates=GATES,
@@ -162,14 +202,19 @@ def bwd_row_tiles(hidden: int, rows: int) -> int:
 def pad_gru_operands(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
                      w_hh: torch.Tensor, b_hh: torch.Tensor):
     """The operands of a GRU with E zero-padded up to a multiple of
-    ``TILE_ALIGN`` and H up to ``gru_tile_hidden(H)``: ``x [B, T, Ep]``,
-    ``w_ih [Ep, 3Hp]``, ``b_ih [3Hp]``, ``w_hh [Hp, 3Hp]``, ``b_hh [3Hp]``,
-    every tensor 16-byte aligned.  The padded GRU's first H units equal the
-    original's: a padded unit has zero weights and biases, so r = z = 1/2
-    and n = 0, its h stays exactly 0 from the zero start and it feeds
-    nothing back.  Aligned operands come back as they are (no copy)."""
+    ``TILE_ALIGN`` and H up to the bf16 kernels' hidden size
+    (``gru_tile_hidden(H)``; on the step route, above 1,024,
+    ``gru_step_hidden``): ``x [B, T, Ep]``, ``w_ih [Ep, 3Hp]``, ``b_ih
+    [3Hp]``, ``w_hh [Hp, 3Hp]``, ``b_hh [3Hp]``, every tensor 16-byte
+    aligned.  The padded GRU's first H units equal the original's: a padded
+    unit has zero weights and biases, so r = z = 1/2 and n = 0, its h stays
+    exactly 0 from the zero start and it feeds nothing back.  Aligned
+    operands come back as they are (no copy)."""
+    h = w_hh.shape[0]
+    align = (STEP_UNITS[torch.bfloat16]
+             if gru_route(h, torch.bfloat16) == "step" else _h_align(h))
     x, w_ih, w_hh, b_ih, b_hh = pad_operands(
-        x, w_ih, w_hh, (b_ih, b_hh), GATES, _h_align(w_hh.shape[0]))
+        x, w_ih, w_hh, (b_ih, b_hh), GATES, align)
     return x, w_ih, b_ih, w_hh, b_hh
 
 
@@ -313,17 +358,45 @@ def _pointers(*tensors):
     return [t.data_ptr() for t in tensors]
 
 
-def _tile_operands(x, w_ih, b_ih, w_hh, b_hh):
-    """bfloat16: the operands as kernels 7 and 8's tiles take them --
-    padded (``pad_gru_operands``), with the staged ``[W_ih; W_hh]`` (one
-    matrix a rank of the cluster, ``gru_cluster``) in ``w_ih``'s place;
-    float32: as they are.  Returns them and (Ep, Hp)."""
+def _forward(name: str, x, mask, w_ih, b_ih, w_hh, b_hh, reverse: bool,
+             tc: int, res: bool):
+    """Kernel 7 (``res`` False) or 8 on CUDA tensors, by the route of H:
+    ``cair_gru_fwd`` / ``cair_gru_fwd_res`` up to 1,024 units,
+    ``cair_gru_step`` above.  bfloat16 runs on operands padded to the
+    tiles' widths (``pad_gru_operands``) with the staged ``[W_ih; W_hh]`` --
+    one matrix a rank of a cluster (``gru_cluster``) or a unit tile of the
+    step route -- in ``w_ih``'s place; float32 on the operands as they are.
+    Returns ``(out, hb)`` at the padded H (hb None without ``res``) and
+    H."""
+    B, T, E, H = _check_cuda_args(name, x, mask, w_ih, b_ih, w_hh, b_hh)
+    step = gru_route(H, x.dtype) == "step"
     if x.dtype == torch.bfloat16:
         x, w_ih, b_ih, w_hh, b_hh = pad_gru_operands(x, w_ih, b_ih, w_hh,
                                                      b_hh)
-        w_ih = stage_lstm_weights(w_ih, w_hh, gru_cluster(w_hh.shape[0]),
-                                  GATES)
-    return (x, w_ih, b_ih, w_hh, b_hh), (x.shape[-1], w_hh.shape[0])
+        Hp = w_hh.shape[0]
+        w_ih = stage_lstm_weights(
+            w_ih, w_hh, Hp // STEP_UNITS[x.dtype] if step else
+            gru_cluster(Hp), GATES)
+    Ep, Hp = x.shape[-1], w_hh.shape[0]
+    out = torch.empty((B, T, Hp), dtype=x.dtype, device=x.device)
+    hb = (torch.empty((-(-T // tc), B, Hp), dtype=torch.float32,
+                      device=x.device) if res else None)
+    ptrs = _pointers(x, mask, w_ih, b_ih, w_hh, b_hh, out)
+    from .build import launch
+
+    # the launchers report a hidden size their blocks cannot hold
+    if step:
+        workspace = _step_workspace(B, Hp, x, "gru")
+        launch("cair_gru_step", x.device, *ptrs,
+               hb.data_ptr() if res else 0, workspace.data_ptr(), B, T, Ep,
+               Hp, int(reverse), tc, int(res), _DTYPES[x.dtype], _stream(x))
+    elif res:
+        launch("cair_gru_fwd_res", x.device, *ptrs, hb.data_ptr(), B, T, Ep,
+               Hp, int(reverse), tc, _DTYPES[x.dtype], _stream(x))
+    else:
+        launch("cair_gru_fwd", x.device, *ptrs, B, T, Ep, Hp, int(reverse),
+               _DTYPES[x.dtype], _stream(x))
+    return out, hb, H
 
 
 def gru_fused(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
@@ -333,9 +406,9 @@ def gru_fused(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
     [H, 3H], b_hh [3H] (one dtype, float32 or bfloat16) -> h [B, T, H] in
     x's dtype.
 
-    On CUDA tensors this launches ``cair_gru_fwd`` (bfloat16: on operands
-    padded to the tiles' multiple of 32 and the staged weights, the output
-    cut back to H); on CPU tensors
+    On CUDA tensors this launches ``cair_gru_fwd`` (above 1,024 units
+    ``cair_gru_step``; bfloat16: on operands padded to the tiles' widths and
+    the staged weights, the output cut back to H); on CPU tensors
     (``device="cpu"``) it runs ``gru_fused_reference``.  It computes no
     gradient: with grad mode on and an input that requires one it raises
     (``gru_fused_train`` is the differentiable form)."""
@@ -350,19 +423,10 @@ def gru_fused(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
         return gru_fused_reference(x, mask, w_ih, b_ih, w_hh, b_hh, reverse)
     if dev.type != "cuda":
         raise ValueError(f"gru_fused runs on cuda or cpu, not {dev}")
-    B, T, E, H = _check_cuda_args("gru_fused", x, mask, w_ih, b_ih, w_hh,
-                                  b_hh)
-    ops, (Ep, Hp) = _tile_operands(x, w_ih, b_ih, w_hh, b_hh)
-    out = torch.empty((B, T, Hp), dtype=x.dtype, device=x.device)
-    from .build import launch
-
-    # the launcher reports a hidden size its blocks cannot hold
-    launch(
-        "cair_gru_fwd", x.device,
-        *_pointers(ops[0], mask, *ops[1:], out), B, T, Ep, Hp, int(reverse),
-        _DTYPES[x.dtype], _stream(x))
+    out, _, H = _forward("gru_fused", x, mask, w_ih, b_ih, w_hh, b_hh,
+                         reverse, x.shape[1], False)
     gru_fused.launches += 1
-    return out if Hp == H else out[..., :H].contiguous()
+    return out if out.shape[-1] == H else out[..., :H].contiguous()
 
 
 gru_fused.launches = 0
@@ -373,8 +437,9 @@ def gru_fused_res(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
                   reverse: bool = False, time_chunk: int = 6, device="cuda"):
     """Kernel 8: ``gru_fused``'s output plus the chunk-boundary state,
     ``(out [B, T, H], hb)`` with hb float32 ``[ceil(T / tc), B, H]``
-    (``tc = chunk_len(T, time_chunk)``).  Launches ``cair_gru_fwd_res`` on
-    CUDA tensors, runs ``gru_fused_res_reference`` on CPU tensors."""
+    (``tc = chunk_len(T, time_chunk)``).  Launches ``cair_gru_fwd_res``
+    (above 1,024 units ``cair_gru_step``) on CUDA tensors, runs
+    ``gru_fused_res_reference`` on CPU tensors."""
     dev = resolve_device(device)
     check_on(dev, x, mask, w_ih, b_ih, w_hh, b_hh)
     if dev.type == "cpu":
@@ -382,21 +447,10 @@ def gru_fused_res(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
                                        reverse, time_chunk)
     if dev.type != "cuda":
         raise ValueError(f"gru_fused_res runs on cuda or cpu, not {dev}")
-    B, T, E, H = _check_cuda_args("gru_fused_res", x, mask, w_ih, b_ih, w_hh,
-                                  b_hh)
-    tc = chunk_len(T, time_chunk)
-    ops, (Ep, Hp) = _tile_operands(x, w_ih, b_ih, w_hh, b_hh)
-    out = torch.empty((B, T, Hp), dtype=x.dtype, device=x.device)
-    hb = torch.empty((-(-T // tc), B, Hp), dtype=torch.float32,
-                     device=x.device)
-    from .build import launch
-
-    launch(
-        "cair_gru_fwd_res", x.device,
-        *_pointers(ops[0], mask, *ops[1:], out, hb), B, T, Ep, Hp,
-        int(reverse), tc, _DTYPES[x.dtype], _stream(x))
+    out, hb, H = _forward("gru_fused_res", x, mask, w_ih, b_ih, w_hh, b_hh,
+                          reverse, chunk_len(x.shape[1], time_chunk), True)
     gru_fused_res.launches += 1
-    if Hp != H:
+    if out.shape[-1] != H:
         # kernel 9 takes the unpadded operands and boundaries
         out, hb = (t[..., :H].contiguous() for t in (out, hb))
     return out, hb
@@ -413,11 +467,11 @@ def gru_fused_bwd(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
     """Kernel 9: the gradients ``(dx, dw_ih, db_ih, dw_hh, db_hh)`` of
     ``gru_fused_res`` with respect to x and the weights, given its ``hb``
     and ``dout = dL/d out`` (x's dtype).  Launches ``cair_gru_bwd`` on CUDA
-    tensors (bfloat16: on operands padded to the tiles' multiple of 32 and
-    the staged weights, the gradients cut back), runs
+    tensors (bfloat16: on operands padded to the tiles' widths and the
+    staged weights, the gradients cut back), runs
     ``gru_fused_bwd_reference`` on CPU tensors.  ``row_tiles`` (bfloat16
-    only; 1 or ``tile_config``'s) overrides ``bwd_row_tiles``, to time the
-    two."""
+    up to 1,024 units only; 1 or ``tile_config``'s) overrides
+    ``bwd_row_tiles``, to time the two."""
     dev = resolve_device(device)
     check_on(dev, x, mask, w_ih, b_ih, w_hh, b_hh, hb, dout)
     if dev.type == "cpu":
@@ -441,13 +495,16 @@ def gru_fused_bwd(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
     lib = load_library()
     dtype = _DTYPES[x.dtype]
     if x.dtype == torch.bfloat16:
-        # the tensor-core kernel reads W^T out of the staged W's own slabs;
-        # a cluster's dx is one product with W_ih^T after them
+        # the tensor-core kernels read W^T out of the staged W's own slabs
+        # (one matrix a rank of a cluster or a unit tile of the step
+        # route); a cluster's, or the step route's, dx is one product with
+        # W_ih^T after them
+        step = gru_route(H, x.dtype, backward=True) == "step"
         x, w_ih, b_ih, w_hh, b_hh = pad_gru_operands(x, w_ih, b_ih, w_hh,
                                                      b_hh)
         Hp = w_hh.shape[0]
         hb, dout = (_aligned(_pad_last(t, Hp)) for t in (hb, dout))
-        ranks = gru_cluster(Hp)
+        ranks = Hp // STEP_UNITS[x.dtype] if step else gru_cluster(Hp)
         # alive until the launch
         staged = stage_lstm_weights(w_ih, w_hh, ranks, GATES)
         w_ih_t = w_ih.t().contiguous() if ranks > 1 else None

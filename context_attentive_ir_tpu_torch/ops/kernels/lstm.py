@@ -127,21 +127,24 @@ def step_hidden(hidden: int, dtype: torch.dtype) -> int:
 
 
 def step_smem_bytes(dtype: torch.dtype = torch.bfloat16,
-                    backward: bool = False) -> int:
-    """Dynamic shared memory of a step-route block, which no E or H
-    changes.  bf16 (``step_smem`` in ``csrc/lstm_mma.cuh``): the ring's
-    mbarriers (64 bytes), three slabs of 32 (else 16) k-rows of the 256-unit
-    tile's 1,024 gate columns (+ 16 bytes a row), three x slots of 16 rows
-    of a slab's depth (x_t and h_{t-1} both stream through them), then the
-    forward's bias (four f32 slots of the tile) or the dh product's dgates
-    tile (16 rows of 8 * 256 + 16 bytes).  float32 (``csrc/lstm_step.cu``):
-    the forward stages one chunk of 256 k-rows, the dh product the tile's
-    4 * 128 dgates columns, k-major rows of 36 floats."""
+                    backward: bool = False, gates: int = 4) -> int:
+    """Dynamic shared memory of a step-route block with ``gates`` gate
+    blocks (4: the LSTM, 3: the GRU), which no E or H changes.  bf16
+    (``step_smem`` in ``csrc/lstm_mma.cuh``): the ring's mbarriers (64
+    bytes), three slabs of 32 (else 16) k-rows of the 256-unit tile's
+    ``gates`` * 256 gate columns (+ 16 bytes a row), three x slots of 16
+    rows of a slab's depth (x_t and h_{t-1} both stream through them), then
+    the forward's bias (four f32 slots of the tile) or the dh product's
+    tile of four gradient slots (16 rows of 8 * 256 + 16 bytes).  float32
+    (``csrc/lstm_step.cu``): the forward stages one chunk of 256 k-rows,
+    the dh product the tile's ``gates`` * 128 slot columns, k-major rows of
+    36 floats."""
     if dtype == torch.float32:
-        return (4 * F32_UNITS if backward else F32_CHUNK) * F32_STRIDE * 4
+        return (gates * F32_UNITS if backward else F32_CHUNK) * F32_STRIDE * 4
     units, m = STEP_UNITS[torch.bfloat16], STEP_ROWS
     for depth in (32, 16):
-        n_bytes = (64 + 3 * depth * (8 * units + 16) + 3 * m * (2 * depth + 16)
+        n_bytes = (64 + 3 * depth * (2 * gates * units + 16)
+                   + 3 * m * (2 * depth + 16)
                    + (m * (8 * units + 16) if backward else 16 * units))
         if n_bytes <= SMEM_LIMIT:
             return n_bytes
@@ -498,15 +501,17 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _step_workspace(n_rows: int, h: int, x: torch.Tensor) -> torch.Tensor:
-    """The step route's forward state (h in turn, c, bf16's f32 h) on x's
-    card: ``cair_lstm_step_workspace`` bytes."""
+def _step_workspace(n_rows: int, h: int, x: torch.Tensor,
+                    rnn: str = "lstm") -> torch.Tensor:
+    """The step route's forward state (h in turn, the LSTM's c, bf16's f32
+    h) of ``rnn`` on x's card: ``cair_lstm_step_workspace`` (or
+    ``cair_gru_step_workspace``) bytes."""
     from .build import load_library
 
-    n_bytes = load_library().cair_lstm_step_workspace(n_rows, h,
-                                                      _DTYPES[x.dtype])
+    n_bytes = getattr(load_library(), f"cair_{rnn}_step_workspace")(
+        n_rows, h, _DTYPES[x.dtype])
     if n_bytes < 0:
-        raise ValueError(f"lstm step route: invalid shape B={n_rows} H={h}")
+        raise ValueError(f"{rnn} step route: invalid shape B={n_rows} H={h}")
     return torch.empty((n_bytes,), dtype=torch.uint8, device=x.device)
 
 

@@ -31,6 +31,17 @@ memory) and T above one tile keep the first version: a block owns 64 rows
 token's states in f32 and runs the projection on CUDA cores with an online
 softmax.
 
+Above H = 1,024 (``pool_wide``; CARS's doc pool is ``2 * nhid`` wide) both
+dtypes take the wide route, two launches: a score kernel runs the
+projection as the GEMM ``[R*T, H] @ [H, H]`` in tiles of 128 tokens x 128
+columns (bf16 ``mma.sync`` tiles from a ``cp.async`` ring of k-slabs;
+float32 exact f32 FMAs), so W_p is read once a token tile, and reduces
+``tanh(acc + b_p) . query`` over each tile's columns into a partial score
+per token and column tile; a pool kernel adds a token's partials in tile
+order, takes each document's masked softmax at once and sums the pooled
+vector in f32.  ``wide=True`` runs that route at any width, to time it
+beside the CUDA-core kernel.
+
 Bound on the H100 (CARS slate, R = B*S*N = 16,000 rows, T = 30, H = 256,
 bf16): 2*R*T*H^2 = 6.3e10 flops (0.064 ms at the bf16 tensor-core peak)
 against 262 MB of states, queries and output (0.078 ms): memory-bound with
@@ -53,7 +64,9 @@ from ..masking import masked_softmax
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-MAX_HIDDEN = 1024   # the widest pool the launcher instantiates
+# the widest pool of the CUDA-core kernel (csrc/slate_pool.cu, launch_h);
+# the wide route holds every multiple of 128 above it
+CUDA_CORE_MAX_HIDDEN = 1024
 
 
 def pool_jax_gate(hidden: int, rows: int) -> bool:
@@ -64,9 +77,16 @@ def pool_jax_gate(hidden: int, rows: int) -> bool:
 
 def pool_supported(hidden: int, rows: int) -> bool:
     """Whether the fused pool kernel takes this shape -- exactly what the
-    launcher ``cair_slate_pool`` runs: the JAX gate (``pool_jax_gate``) and
-    ``128 <= hidden <= MAX_HIDDEN``."""
-    return pool_jax_gate(hidden, rows) and 128 <= hidden <= MAX_HIDDEN
+    launcher ``cair_slate_pool`` runs: the JAX gate (``pool_jax_gate``),
+    every multiple of 128 from 8 rows, the CUDA-core and tensor-core
+    kernels up to ``CUDA_CORE_MAX_HIDDEN``, the wide route above."""
+    return pool_jax_gate(hidden, rows)
+
+
+def pool_wide(hidden: int) -> bool:
+    """Whether ``attn_pool`` takes the wide route at this width (the
+    launcher's rule): above ``CUDA_CORE_MAX_HIDDEN``."""
+    return hidden > CUDA_CORE_MAX_HIDDEN
 
 
 # the bf16 tensor-core kernel (csrc/slate_pool.cu, slate_pool_tc_kernel)
@@ -136,23 +156,23 @@ def _check_cuda_args(states, mask, query, w_p, b_p):
             f"{tuple(w_p.shape)}, b_p {tuple(b_p.shape)} do not form one "
             "pool")
     if not pool_supported(H, R):
-        raise ValueError(f"attn_pool: the kernel needs H % 128 == 0, "
-                         f"128 <= H <= {MAX_HIDDEN} and at least 8 rows; got "
-                         f"H={H}, R={R}")
+        raise ValueError(f"attn_pool: the kernel needs H a multiple of 128 "
+                         f"and at least 8 rows; got H={H}, R={R}")
     if not all(t.is_contiguous() for t in (states, mask, query, w_p, b_p)):
         raise ValueError("attn_pool needs contiguous tensors")
     return R, T, H
 
 
 def attn_pool(states: torch.Tensor, mask: torch.Tensor, query: torch.Tensor,
-              w_p: torch.Tensor, b_p: torch.Tensor,
-              device="cuda") -> torch.Tensor:
+              w_p: torch.Tensor, b_p: torch.Tensor, device="cuda",
+              wide: bool = False) -> torch.Tensor:
     """states [R, T, H], mask bool [R, T], query [R, H], w_p [H, H], b_p
     [H] (one dtype, float32 or bfloat16) -> pooled [R, H] in that dtype.
 
     On CUDA tensors this launches ``cair_slate_pool`` (the tensor-core
     kernel where ``pool_tensor_cores`` says so, the CUDA-core kernel
-    otherwise); on CPU tensors (``device="cpu"``) it runs
+    otherwise up to ``CUDA_CORE_MAX_HIDDEN``, the wide route above it or,
+    with ``wide``, at any width); on CPU tensors (``device="cpu"``) it runs
     ``attn_pool_reference``.  It computes no gradient (``AttnPoolFn`` is the
     differentiable form)."""
     dev = resolve_device(device)
@@ -163,14 +183,21 @@ def attn_pool(states: torch.Tensor, mask: torch.Tensor, query: torch.Tensor,
         raise ValueError(f"attn_pool runs on cuda or cpu, not {dev}")
     R, T, H = _check_cuda_args(states, mask, query, w_p, b_p)
     out = torch.empty((R, H), dtype=states.dtype, device=states.device)
-    from .build import launch
+    from .build import launch, load_library
 
+    workspace = None
+    if wide or pool_wide(H):
+        # the wide route's partial scores, [H / 128, R*T] f32
+        workspace = torch.empty(
+            (load_library().cair_slate_pool_workspace(R, T, H, 1),),
+            dtype=torch.uint8, device=states.device)
     # the launcher reports a hidden size its blocks cannot hold
     launch(
         "cair_slate_pool", states.device,
         states.data_ptr(), mask.data_ptr(), query.data_ptr(),
-        w_p.data_ptr(), b_p.data_ptr(), out.data_ptr(), R, T, H,
-        _DTYPES[states.dtype],
+        w_p.data_ptr(), b_p.data_ptr(), out.data_ptr(),
+        0 if workspace is None else workspace.data_ptr(), R, T, H,
+        _DTYPES[states.dtype], int(wide),
         torch.cuda.current_stream(states.device).cuda_stream)
     attn_pool.launches += 1
     return out

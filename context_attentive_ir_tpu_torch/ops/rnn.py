@@ -164,17 +164,13 @@ class RNNLayer(ParamModule):
                     "model config) to run it")
             return False
         if x.is_cuda:
-            held = ("any E and hidden sizes up to 1,024"
-                    if self.rnn_type == "gru"
-                    else "any E and H of at least one row in float32 and "
-                         "bfloat16")
             raise ValueError(
                 f"RNNLayer: the fused {self.rnn_type} kernels do not hold "
                 f"[{x.shape[0]}, T, {x.shape[-1]}] -> {self.features} in "
-                f"{self.dtype} ({supported.__name__} states {held}); "
-                "construct the layer with use_kernel=False "
-                "(use_pallas_rnn=False in the model config) to run the "
-                "plain scan on the card")
+                f"{self.dtype} ({supported.__name__} states any E and H of "
+                "at least one row in float32 and bfloat16); construct the "
+                "layer with use_kernel=False (use_pallas_rnn=False in the "
+                "model config) to run the plain scan on the card")
         return False
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,

@@ -8,10 +8,12 @@ recurrent kernels' device times, to compare two checkouts on one card.
 Builds the kernel library of the checkout at DIR (default: the one this
 script lies in) and prints one line per kernel, dtype and direction:
 kernels 1, 4 and 5 (LSTM) and 7, 8 and 9 (GRU) at the doc encoder's shape
-[16000, 30, 256] -> 128 and -> 256 and at the two other block layouts of
+[16000, 30, 256] -> 128 and -> 256, at the two other block layouts of
 the bf16 tiles below H = 512 ([1000, 9, 512] -> 256, [2000, 13, 300] ->
-384, E and H not multiples of 32 padded), time chunk 6, kernel 6 (the
-recurrence on
+384, E and H not multiples of 32 padded), on clusters ([640, 7, 256] ->
+512 and 1,024) and past them ([640, 7, 256] -> 1,152: the step route;
+a checkout whose gate refuses a shape prints "not held" there), time
+chunk 6, kernel 6 (the recurrence on
 precomputed gates) at x_proj [16000, 30, 512] -> 128, the generator's kernel 2
 (serial, ``prune``, int8 ``scale``) and 3 (``pipeline``) at the beam-5
 step's shape (R = 1600, E = 256, V = 50,000, kc = 6), the greedy step's (R
@@ -19,8 +21,9 @@ step's shape (R = 1600, E = 256, V = 50,000, kc = 6), the greedy step's (R
 dtype's last whole x tile of kernel 3 (E = 976 bf16, 652 float32), each
 generator line ending in its serial kernel's time, and the slate pool's
 kernel 10 at the rank slate's and suggest init's shapes ([16000, 30, 256]
-and [1280, 30, 256]), in float32 and bfloat16, with a digest of each
-output's bytes.  Two checkouts print the
+and [1280, 30, 256]) and at suggest init's rows of the CUDA-core kernel
+(H = 1,024) and past it (H = 2,304), in float32 and bfloat16, with a
+digest of each output's bytes.  Two checkouts print the
 same digest for a kernel exactly when it gives the same bits.  The
 backward kernels (5, 9) are fed the boundaries of their residual kernels'
 plain versions, so their lines do not move with kernels 4 and 8.  A
@@ -43,7 +46,9 @@ import torch
 ROWS, STEPS, EMBED, HIDDEN, TIME_CHUNK = 16000, 30, 256, 128, 6
 # (rows, steps, E, H) of the recurrent kernels' digests
 RNN_SHAPES = ((ROWS, STEPS, EMBED, HIDDEN), (ROWS, STEPS, EMBED, 256),
-              (1000, 9, 512, 256), (2000, 13, 300, 384))
+              (1000, 9, 512, 256), (2000, 13, 300, 384),
+              (640, 7, EMBED, 512), (640, 7, EMBED, 1024),
+              (640, 7, EMBED, 1152))
 ITERS = 5
 BEAM_ROWS, VOCAB, KC = 1600, 50_000, 6
 # (rows, E, kc) of the generator digests: the beam-5 and greedy steps, the
@@ -149,15 +154,20 @@ def recurrence_digests(lstm, dtype, name: str) -> None:
 
 
 def slate_digests(slate, dtype, name: str) -> None:
-    """Kernel 10 at R = 16,000 and 1,280 documents of T = 30, H = 256 (rows
-    0 and 5 fully masked), inputs made on the CPU from one seed."""
+    """Kernel 10 at R = 16,000 and 1,280 documents of T = 30, H = 256, and
+    at R = 1,280 with H = 1,024 and 2,304 (rows 0 and 5 fully masked),
+    inputs made on the CPU from one seed."""
     gen = torch.Generator().manual_seed(10)
-    for rows in (16000, 1280):
-        states = torch.rand((rows, STEPS, 2 * HIDDEN), generator=gen) * 2 - 1
-        query = torch.rand((rows, 2 * HIDDEN), generator=gen) * 2 - 1
-        w_p = (torch.rand((2 * HIDDEN, 2 * HIDDEN), generator=gen) * 2 - 1
-               ) * 0.1
-        b_p = (torch.rand((2 * HIDDEN,), generator=gen) * 2 - 1) * 0.1
+    for rows, h in ((16000, 2 * HIDDEN), (1280, 2 * HIDDEN), (1280, 1024),
+                    (1280, 2304)):
+        at = "" if h == 2 * HIDDEN else f" H={h}"
+        if not slate.pool_supported(h, rows):
+            print(f"attn_pool {name} R={rows}{at}: not held", flush=True)
+            continue
+        states = torch.rand((rows, STEPS, h), generator=gen) * 2 - 1
+        query = torch.rand((rows, h), generator=gen) * 2 - 1
+        w_p = (torch.rand((h, h), generator=gen) * 2 - 1) * 0.1
+        b_p = (torch.rand((h,), generator=gen) * 2 - 1) * 0.1
         lens = torch.randint(0, STEPS + 1, (rows,), generator=gen)
         lens[0], lens[5] = 0, 0
         mask = torch.arange(STEPS)[None, :] < lens[:, None]
@@ -166,7 +176,7 @@ def slate_digests(slate, dtype, name: str) -> None:
                                 else t.cuda()
                                 for t in (states, mask, query, w_p, b_p)))
         torch.cuda.synchronize()
-        print(f"attn_pool {name} R={rows}: {digest(out)}", flush=True)
+        print(f"attn_pool {name} R={rows}{at}: {digest(out)}", flush=True)
 
 
 def main() -> int:
@@ -193,11 +203,17 @@ def main() -> int:
         for (rnn, mod, gates, n_bias), shape in (
                 (r, s) for r in (("lstm", lstm, 4, 1), ("gru", gru, 3, 2))
                 for s in RNN_SHAPES):
+            at = "" if shape == RNN_SHAPES[0] else " [%d,%d,%d]->%d" % shape
+            held = (lstm.fused_supported if rnn == "lstm"
+                    else gru.gru_fused_supported)(shape[2], shape[3],
+                                                  shape[0], dtype)
+            if not held:
+                print(f"{rnn}_fused* {name}{at}: not held", flush=True)
+                continue
             x, mask, w, dout = inputs(gates, n_bias, dtype, *shape)
             # the modules' argument order: lstm (w_ih, b, w_hh), gru
             # (w_ih, b_ih, w_hh, b_hh)
             w = w if rnn == "lstm" else [w[0], w[1], w[3], w[2]]
-            at = "" if shape == RNN_SHAPES[0] else " [%d,%d,%d]->%d" % shape
             for reverse in (False, True):
                 way = ("reverse" if reverse else "forward") + at
                 state = getattr(mod, f"{rnn}_fused_res_reference")(

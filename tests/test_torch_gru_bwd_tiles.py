@@ -142,15 +142,20 @@ def test_the_lstm_backward_keeps_its_layout(e, h):
 
 
 @pytest.mark.parametrize("e,h,ok", [
-    (672, 128, True), (673, 1152, False), (256, 448, True),
+    (672, 128, True), (673, 1152, True), (256, 448, True),
     (256, 449, True), (300, 100, True), (1, 1, True), (32, 512, True)])
 def test_bf16_limits_are_kernel_9s_tiles(e, h, ok):
     """Kernel 9's tiles on ``gru_cluster``'s blocks: one up to 448, a
-    cluster of 2 at 449 (480 padded) and 512, none above 1,024."""
+    cluster of 2 at 449 (480 padded) and 512, none above 1,024, where the
+    step route's blocks (``step_smem_bytes``, three gate blocks) take it."""
     assert K.gru_fused_supported(e, h, 40, BF16) is ok
     ep, hp = L._round_up(e, 32), K.gru_tile_hidden(h)
     c = K.gru_cluster(hp)
-    assert ok is (hp <= 1024 and c > 0 and L.tile_smem_bytes(
+    if hp > 1024:
+        assert c == 0 and K.gru_route(h, BF16, backward=True) == "step"
+        assert ok is (L.step_smem_bytes(BF16, True, K.GATES) > 0)
+        return
+    assert ok is (c > 0 and L.tile_smem_bytes(
         ep, hp, backward=True, gates=3, ranks=c) > 0)
 
 

@@ -71,22 +71,22 @@ def _max_err(a, b):
     (37, 8, BF16, True),
     (480, 128, BF16, True),     # the LSTM's widest E at H = 128 ...
     (672, 128, BF16, True),     # ... and the GRU's: x is streamed ...
-    (673, 1152, BF16, False),   # ... and H stays at most 1,024
+    (673, 1152, BF16, True),    # ... and past H = 1,024 the step route
     (256, 384, BF16, True),     # the LSTM's largest single block at E = 256
     (256, 403, BF16, True),
     (256, 448, BF16, True),     # the GRU's single block, kernel 9's four slots
     (256, 449, BF16, True),     # 480 after padding: a cluster of 2
-    (1486, 1152, BF16, False),  # no cluster holds H above 1,024
+    (1486, 1152, BF16, True),   # no cluster holds H above 1,024: the step route
     (32, 512, BF16, True),      # a cluster of 2 at H = 512
     (256, 513, BF16, True),     # 576 after padding: a cluster of 4
-    (256, 1024, BF16, True), (256, 1025, BF16, False),
+    (256, 1024, BF16, True), (256, 1025, BF16, True),
     (256, 128, F32, True),      # float32: x staged in chunks ...
     (1485, 128, F32, True),
     (1487, 128, F32, True),     # ... so any E
     (256, 403, F32, True),      # kernel 9's one block (4H rows) ...
     (256, 404, F32, True),      # ... then clusters of up to 8 blocks
     (256, 513, F32, True), (256, 1024, F32, True),
-    (256, 1025, F32, False),    # more than 8 blocks of 128 units
+    (256, 1025, F32, True),     # more than 8 blocks of 128: the step route
     (256, 128, torch.float16, False), (0, 128, BF16, False),
     (256, 0, BF16, False)])
 def test_gru_fused_supported_at_and_beyond_each_limit(e, h, dtype, ok):
@@ -97,8 +97,8 @@ def test_gru_fused_supported_at_and_beyond_each_limit(e, h, dtype, ok):
 @pytest.mark.parametrize("e,h", [(672, 128), (256, 403), (300, 100),
                                  (256, 448), (256, 449), (704, 128)])
 def test_gru_bf16_limit_is_the_forward_tiles_and_kernel_9(e, h):
-    """bf16 holds a shape exactly when, padded, H <= 1,024 and kernel 9's
-    tensor-core tiles fit on ``gru_cluster``'s blocks; those hold the
+    """bf16 holds a shape up to 1,024 units exactly when, padded, kernel
+    9's tensor-core tiles fit on ``gru_cluster``'s blocks; those hold the
     three-gate forward's tiles, so the forward fits wherever kernel 9
     does."""
     ep, hp = L._round_up(e, 32), K.gru_tile_hidden(h)
@@ -130,13 +130,17 @@ def test_tile_smem_bytes_by_gate_count(e, h, gates, n_bytes):
 
 
 def test_layer_takes_the_new_bf16_limit():
-    """``RNNLayer`` routes a bf16 GRU beyond the kernels' tiles (H above
-    1,024) to the scan on CPU tensors and refuses it on CUDA tensors."""
+    """``RNNLayer`` takes a bf16 GRU past one x tile (E = 672) and past the
+    kernels' clusters (H above 1,024: the step route) on CPU and CUDA
+    tensors; a dtype the kernels do not take goes to the scan on CPU
+    tensors and is refused on CUDA tensors."""
     def on_card(e):
         return SimpleNamespace(shape=(5, 4, e), is_cuda=True)
 
-    for e, h, held in ((672, 128, True), (704, 1152, False)):
-        layer = RNNLayer(e, h, use_kernel=True, dtype=BF16, device="cpu",
+    for e, h, dtype, held in ((672, 128, BF16, True),
+                              (704, 1152, BF16, True),
+                              (704, 1152, torch.float16, False)):
+        layer = RNNLayer(e, h, use_kernel=True, dtype=dtype, device="cpu",
                          rnn_type="gru")
         assert layer.kernel_ok(torch.zeros(5, 4, e), None) is held
         if held:

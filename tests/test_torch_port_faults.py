@@ -51,7 +51,7 @@ from context_attentive_ir_tpu_torch.ops.kernels.beamgen import (
     generator_topk_lse_reference,
 )
 from context_attentive_ir_tpu_torch.ops.kernels.slate import (
-    MAX_HIDDEN,
+    CUDA_CORE_MAX_HIDDEN,
     pool_jax_gate,
     pool_supported,
 )
@@ -64,12 +64,14 @@ from context_attentive_ir_tpu_torch.train import make_loss_fn
 
 @pytest.mark.parametrize("hidden,ok", [(128, True), (640, True), (768, True),
                                        (896, True), (1024, True),
-                                       (1152, False), (1280, False),
+                                       (1152, True), (1280, True),
                                        (192, False), (64, False)])
 def test_pool_supported_is_the_launchers_set(hidden, ok):
-    """The launcher (``csrc/slate_pool.cu:launch_h``) instantiates every
-    multiple of 128 up to 1024; the gate says exactly that, from 8 rows."""
-    assert MAX_HIDDEN == 1024
+    """The launcher (``csrc/slate_pool.cu``) instantiates every multiple of
+    128 up to 1024 on CUDA cores (``launch_h``) and takes every multiple of
+    128 above it on the wide route; the gate says exactly that, from 8
+    rows."""
+    assert CUDA_CORE_MAX_HIDDEN == 1024
     assert pool_supported(hidden, 8) is ok
     assert not pool_supported(hidden, 7)
     assert pool_jax_gate(hidden, 8) is (hidden % 128 == 0)

@@ -30,9 +30,9 @@ BF16, F32 = torch.bfloat16, torch.float32
     (256, 403, F32, True),           # one block: 4H * 36 * 4 <= 232,448
     (256, 449, BF16, True),          # a cluster of 2 past one block's 448
     (1485, 128, F32, True),          # x staged in chunks: any E
-    (1487, 1152, BF16, False),       # any E, but no H above 1,024
+    (1487, 1152, BF16, True),        # any E; H above 1,024: the step route
     (64, 512, F32, True),            # a cluster of 4 blocks of 128 units
-    (64, 1025, F32, False),          # more than 8 such blocks
+    (64, 1025, F32, True),           # past 8 such blocks: the step route
     (256, 128, torch.float16, False), (0, 128, F32, False)])
 def test_gru_fused_supported_at_and_beyond_each_limit(e, h, dtype, ok):
     assert gru_fused_supported(e, h, 40, dtype) is ok
@@ -85,16 +85,16 @@ def _count_calls(monkeypatch):
     return calls
 
 
-# (rnn, E, H, the kernels hold it): the LSTM kernels hold every E and H
-# (1,152 on the step route), the GRU's every E and H up to 1,024 (1,152 is
-# beyond them; the GRU's float32 H = 520 on a cluster of 5 blocks, E = 1700
-# staged in chunks); an odd E and H stay with the kernels (float32 has no
-# alignment rule; bfloat16 is zero-padded by the wrapper)
+# (rnn, E, H, the kernels hold it): the LSTM and GRU kernels hold every E
+# and H (1,152 on the step route; the GRU's float32 H = 520 on a cluster of
+# 5 blocks, E = 1700 staged in chunks); an odd E and H stay with the
+# kernels (float32 has no alignment rule; bfloat16 is zero-padded by the
+# wrapper)
 GATE_SHAPES = [("lstm", 24, 16, True), ("lstm", 37, 19, True),
                ("lstm", 12, 1152, True), ("lstm", 1700, 1152, True),
                ("gru", 24, 16, True), ("gru", 37, 19, True),
                ("gru", 12, 520, True), ("gru", 1700, 8, True),
-               ("gru", 12, 1152, False)]
+               ("gru", 12, 1152, True)]
 
 
 @pytest.mark.parametrize("rnn,e,h,held", GATE_SHAPES)
@@ -118,20 +118,19 @@ def test_layer_routes_by_shape_and_matches_jax(monkeypatch, rnn, e, h, held):
 @pytest.mark.parametrize("rnn", ["lstm", "gru"])
 def test_layer_refuses_card_tensors_beyond_the_limit(rnn):
     """On CUDA tensors the layer never leaves the kernels by itself: a shape
-    they do not hold raises and names the way to the scan -- the GRU past
-    1,024 units, the LSTM (which holds every H, 1,152 on the step route) in
-    a dtype its kernels do not take --; a shape they hold, an initial state
-    or ``use_kernel=False`` decide as on the CPU."""
+    they do not hold raises and names the way to the scan -- either
+    recurrence (which holds every H, 1,152 on the step route) in a dtype
+    its kernels do not take --; a shape they hold, an initial state or
+    ``use_kernel=False`` decide as on the CPU."""
     from types import SimpleNamespace
 
     def on_card(e):
         return SimpleNamespace(shape=(5, 4, e), is_cuda=True)
 
-    if rnn == "lstm":
-        assert RNNLayer(12, 1152, use_kernel=True, device="cpu").kernel_ok(
-            on_card(12), None) is True
+    assert RNNLayer(12, 1152, use_kernel=True, device="cpu",
+                    rnn_type=rnn).kernel_ok(on_card(12), None) is True
     layer = RNNLayer(12, 1152, use_kernel=True, device="cpu", rnn_type=rnn,
-                     dtype=torch.float16 if rnn == "lstm" else F32)
+                     dtype=torch.float16)
     with pytest.raises(ValueError, match="use_kernel=False"):
         layer.kernel_ok(on_card(12), None)
     assert layer.kernel_ok(on_card(12), torch.zeros(5, 1152)) is False
@@ -143,13 +142,12 @@ def test_layer_refuses_card_tensors_beyond_the_limit(rnn):
 
 @pytest.mark.parametrize("rnn", ["lstm", "gru"])
 def test_layer_trains_through_the_scan_beyond_the_limit(monkeypatch, rnn):
-    """With a gradient needed, an unsupported shape still takes the scan
-    (and autograd through it), a supported one the training pair: the GRU
-    at 1,152 units the scan, the LSTM there the training pair's plain
-    versions (the step route on the card)."""
+    """With a gradient needed, a supported shape takes the training pair
+    (and autograd through it): at 1,152 units both recurrences the
+    training pair's plain versions (the step route on the card), as at
+    16."""
     x, mask = _layer_inputs(4, 4, 3, 10)
-    wide = f"{rnn}_scan" if rnn == "gru" else f"{rnn}_fused_train"
-    for h, want in ((1152, wide), (16, f"{rnn}_fused_train")):
+    for h, want in ((1152, f"{rnn}_fused_train"), (16, f"{rnn}_fused_train")):
         layer = RNNLayer(10, h, use_kernel=True, device="cpu", rnn_type=rnn)
         gen = torch.Generator().manual_seed(h)
         with torch.no_grad():
@@ -191,13 +189,13 @@ def test_kernel_path_reads_hT_from_the_outputs(rnn):
 
 
 # CARS end to end: nhid beyond the clusters' limit (1,024) stays with the
-# LSTM kernels (the step route on the card) and goes through the scan in
-# every GRU encoder; an odd emsize stays with the kernels
+# LSTM and GRU kernels (the step route on the card); an odd emsize stays
+# with the kernels
 CARS_CASES = [("nhid_beyond_the_limit", dict(nhid=1152), "lstm_fused"),
               ("odd_emsize", dict(emsize=37), "lstm_fused"),
               ("gru_nhid_beyond_the_limit",
                dict(nhid=1152, rnn_type="gru", session_rnn_type="gru"),
-               "gru_scan")]
+               "gru_fused")]
 
 
 @pytest.mark.parametrize("name,overrides,route",

@@ -388,15 +388,14 @@ def test_recurrence_wrapper_holds_multiples_of_128_past_512(h, dtype):
 @pytest.mark.parametrize("dtype", [BF16, F32])
 def test_layer_takes_the_lstm_past_1024_on_card_tensors(dtype):
     """On card tensors the LSTM layer takes its kernels at 1,152 units (the
-    step route); the GRU's still raise there, with their message."""
+    step route), and so does the GRU's (its own step route)."""
     def on_card(e):
         return SimpleNamespace(shape=(64, 30, e), is_cuda=True)
 
     lstm = RNNLayer(256, 1152, use_kernel=True, dtype=dtype, device="cpu")
     assert lstm.kernel_ok(on_card(256), None) is True
     assert lstm.kernel_ok(on_card(256), None, training=True) is True
-    assert not G.gru_fused_supported(256, 1152, 64, dtype)
+    assert G.gru_fused_supported(256, 1152, 64, dtype)
     gru = RNNLayer(256, 1152, use_kernel=True, dtype=dtype, device="cpu",
                    rnn_type="gru")
-    with pytest.raises(ValueError, match="hidden sizes up to 1,024"):
-        gru.kernel_ok(on_card(256), None)
+    assert gru.kernel_ok(on_card(256), None) is True

@@ -346,17 +346,22 @@ def _f32_smem(e, h, backward):
 @pytest.mark.parametrize("dtype", [BF16, F32])
 def test_gate_is_the_launchers_at_every_hidden_size(dtype):
     """At every H from 32 to 1,056 and E of 1, 300 and 4,096: the gate
-    holds exactly up to 1,024, wherever the JAX gate holds up to there, and
-    exactly where the launchers' arithmetic does -- bf16: H padded to 32
-    (64 in a cluster of 4), ``gru_cluster``'s blocks whose tiles fit,
-    forward and backward; float32: ``f32_cluster``'s blocks of at most 806
-    threads (256 in a cluster) whose rows fit."""
+    holds every H, wherever the JAX gate holds too; up to 1,024 exactly
+    where the launchers' arithmetic does -- bf16: H padded to 32 (64 in a
+    cluster of 4), ``gru_cluster``'s blocks whose tiles fit, forward and
+    backward; float32: ``f32_cluster``'s blocks of at most 806 threads (256
+    in a cluster) whose rows fit -- and above it on the step route, whose
+    blocks' shared memory no width changes."""
     for h in range(32, 1057):
         for e in (1, 300, 4096):
             ok = G.gru_fused_supported(e, h, 8, dtype)
-            assert ok is (h <= 1024), (e, h)
-            if jax_gru_fused_supported(e, h, 8) and h <= 1024:
+            assert ok, (e, h)
+            if jax_gru_fused_supported(e, h, 8):
                 assert ok
+            if h > 1024:
+                assert G.gru_route(h, dtype, backward=True) == "step"
+                assert K.step_smem_bytes(dtype, True, G.GATES) > 0
+                continue
             if dtype == BF16:
                 hp = G.gru_tile_hidden(h)
                 c = G.gru_cluster(hp)
@@ -417,7 +422,7 @@ def test_layer_takes_wide_shapes_on_card_tensors(e, h, dtype):
                      rnn_type="gru")
     assert layer.kernel_ok(on_card(), None) is True
     assert layer.kernel_ok(on_card(), None, training=True) is True
+    # past 1,024 units the step route holds it too
     wide = RNNLayer(e, 1152, use_kernel=True, dtype=dtype, device="cpu",
                     rnn_type="gru")
-    with pytest.raises(ValueError, match="1,024"):
-        wide.kernel_ok(on_card(), None)
+    assert wide.kernel_ok(on_card(), None) is True

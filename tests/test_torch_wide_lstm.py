@@ -368,13 +368,14 @@ def test_float32_cluster_and_shared_memory(h, c, hc):
 
 @pytest.mark.parametrize("e", [768, 1024, 4096])
 def test_gru_bf16_takes_every_e(e):
-    """The GRU's kernels take every E and H up to 1,024 too (past 448 in
-    bf16 on clusters, ``gru_cluster``; float32 with x in chunks)."""
+    """The GRU's kernels take every E and H too (past 448 in bf16 on
+    clusters, ``gru_cluster``; float32 with x in chunks; past 1,024 the
+    step route)."""
     for h in (128, 448, 480, 1024):
         assert G.gru_fused_supported(e, h, 64, BF16)
-    assert not G.gru_fused_supported(e, 1152, 64, BF16)
+    assert G.gru_fused_supported(e, 1152, 64, BF16)
     assert G.gru_fused_supported(e, 128, 64, F32)
-    assert not G.gru_fused_supported(e, 1025, 64, F32)
+    assert G.gru_fused_supported(e, 1025, 64, F32)
 
 
 @pytest.mark.parametrize("e,h,dtype", [(256, 512, BF16), (256, 512, F32),
@@ -387,10 +388,9 @@ def test_layer_takes_wide_shapes_on_card_tensors(e, h, dtype):
     layer = RNNLayer(e, h, use_kernel=True, dtype=dtype, device="cpu")
     assert layer.kernel_ok(on_card(), None) is True
     assert layer.kernel_ok(on_card(), None, training=True) is True
-    # past 1,024 the LSTM takes the step route; the GRU still raises
+    # past 1,024 the LSTM and the GRU take their step routes
     wide = RNNLayer(e, 1152, use_kernel=True, dtype=dtype, device="cpu")
     assert wide.kernel_ok(on_card(), None, training=True) is True
     gru = RNNLayer(e, 1152, use_kernel=True, dtype=dtype, device="cpu",
                    rnn_type="gru")
-    with pytest.raises(ValueError, match="1,024"):
-        gru.kernel_ok(on_card(), None)
+    assert gru.kernel_ok(on_card(), None) is True
