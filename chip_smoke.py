@@ -167,8 +167,17 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    at the beam-40 (R = 12,800, kc = 41), beam-127 (R = 40,640, kc = 128) and
    beam-5 (E = 1,536 and 2,048) steps and at kc 33, 64, 127 and 128 (R =
    1,605), in bf16 and float32, held to their plain version on integer
-   and random data, every mode of a table the same bits; then the step
-   route (``widestep``): CARS at nhid 2,048 in bf16 (``rank_batch``,
+   and random data, every mode of a table the same bits; then float32
+   kernels 5 and 9 on split TF32 (``f32bwd``): their gates against the
+   launchers at every H to 1,024 and their routes to 1,152, both held to
+   their plain versions in both directions (the same bits twice) at the
+   doc encoder's rows with H = 128, 256, 384, 512 and 1,024, the
+   recommenders' source, the edges of the one block and of the clusters
+   (129, 257, 403, 404, 513, 1,000) and an odd E and H (37, 200), and timed
+   beside cuDNN's exact-f32 backward (the rows ``widelstm`` / ``widegru``
+   time already are held only), and 4 Adam steps of a float32 CARS and
+   CARS-GRU at the serving widths through kernels 4 + 5 / 8 + 9 against
+   the plain scan; then the step route (``widestep``): CARS at nhid 2,048 in bf16 (``rank_batch``,
    beam-5 ``suggest_batch``) and 1,152 in float32 (``rank_batch``), and 4
    Adam steps of each at 8 sessions, against the same weights on the
    plain scan; kernels 1, 4, 5 at ``[16000, 30, 256]`` -> 1,152 and 2,048
@@ -222,7 +231,9 @@ first for its checkpoint), ``interop`` (run directories, BM25 preparation,
 the native vectorizer, beam-5's host reads; runs ``train`` first for its
 state), ``gru`` (CARS-GRU and HRED-QS), ``small`` (the
 small float32 models card vs CPU), ``kernel6`` (``lstm_precomputed``),
-``widelstm`` (CARS at nhid 512 in bf16 and float32 -- ``rank_batch``,
+``f32bwd`` (float32 kernels 5 and 9 on split TF32: gates, checks and
+backward timings at H = 128 to 1,024 and the source, float32 CARS and
+CARS-GRU train steps against the plain scan), ``widelstm`` (CARS at nhid 512 in bf16 and float32 -- ``rank_batch``,
 beam-5 ``suggest_batch``, 4 train steps -- ``cli.main --nhid 512``, a bf16
 CARS at emsize 768, each against the same model on the plain scan, and
 kernels 1, 4, 5 timed at the doc encoder's rows and steps at H = 512 and
@@ -270,7 +281,11 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 # published H100 SXM peaks (dense), see PERF.md
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# float32 products run on the tensor cores in split TF32 (three TF32
+# products of hi / lo halves keep about 22 of float32's 24 bits): 495 / 3 =
+# 165 TFLOP/s is the least time float32-accurate work can take on the card,
+# not the 67 TFLOP/s of f32 FMAs
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 165e12}
 HBM_BYTES_PER_S = 3.35e12
 
 # main-path widths (the serving configuration of bench.py)
@@ -562,8 +577,9 @@ TILE_SHAPES = ((1, LD, EMSIZE, NHID), (33, LD, EMSIZE, NHID),
 # (rows, steps, E, H) of kernels 1, 4 and 5 past the single block's tiles,
 # run in float32 and bf16: E streamed in slabs (768, 1,024, 2,048), the
 # bf16 cluster of 2 (H = 416, 512) and of 4 (640, 1,024), the float32
-# clusters (kernels 1 and 4 from H = 300, 3 blocks of 100 units; kernel 5
-# from 416: 4 to 8 blocks), rows off the 16-row block (9 rows: one block
+# clusters (kernels 1 and 4 from H = 300, 3 blocks of 100 units; kernel 5's
+# split-TF32 tiles from 129: 2 ranks at 256, 4 at 300 to 512, 8 at 640 and
+# 1,024), rows off the 16-row block (9 rows: one block
 # of a cluster, mostly empty), T = 1 and a T the time chunk does not
 # divide; past 1,024 the step route (bf16 H padded to 1,280 and 2,048 in
 # tiles of 256, float32 tiles of 128, the last partial at 1,100)
@@ -596,7 +612,8 @@ def check_tiles(gen, rnn: str, shapes=TILE_SHAPES,
 # theirs), E streamed (672, 1,024, 1,500: float32's old E + H <= 1,614
 # passed), bf16's one block at its widest (448) and its clusters of 2 (480,
 # 512) and 4 (544 padded to 576, 640, 1,024), float32's clusters (kernels
-# 7, 8 above H = 256, kernel 9 from 404: 4 to 8 blocks), rows off the
+# 7, 8 above H = 256, kernel 9's split-TF32 tiles from 129: 4 ranks at 404
+# and 512, 8 at 544 to 1,024), rows off the
 # 16-row block (9 rows: one block of a cluster, mostly empty), T = 1 and a
 # T the time chunk does not divide; past 1,024 the step route (bf16 H
 # padded to 1,280 and 2,048 in tiles of 256, float32 tiles of 128, the last
@@ -1346,9 +1363,10 @@ def check_refusals(gen) -> None:
     # fused_supported states the launchers' limits: a shape it accepts runs
     # through all three kernels, one it rejects is refused by the backward;
     # every E and H in both dtypes (bf16: one block to 384, clusters of 2
-    # and 4 to 1,024; float32: one block to 403, clusters of up to 8 to
-    # 1,024; the step route above), the step route's shapes each held to
-    # the plain version, both directions
+    # and 4 to 1,024; float32: kernels 1, 4 one block to 256, kernel 5's
+    # split-TF32 tiles one block to 128, clusters of 2, 4, 8 to 1,024; the
+    # step route above), the step route's shapes each held to the plain
+    # version, both directions
     bf16 = torch.bfloat16
     for e, h, dtype in ((448, NHID, bf16), (512, NHID, bf16),
                         (512, 256, bf16), (EMSIZE, 512, bf16),
@@ -1448,7 +1466,7 @@ def check_refusals(gen) -> None:
     # runs through all three kernels, one it rejects is refused by at least
     # one; every E and H in both dtypes (bf16: one block to 448, clusters of
     # 2 and 4 to 1,024, H padded to 64 in a cluster of 4; float32: kernels
-    # 7, 8 one block to 256 and 9 to 403, clusters of up to 8 to 1,024; the
+    # 7, 8 one block to 256 and 9 to 128, clusters of up to 8 to 1,024; the
     # step route above, bf16 H padded to a multiple of 256), the step
     # route's shapes each held to the plain version, both directions
     for e, h, dtype in ((672, NHID, bf16), (704, NHID, bf16),
@@ -1847,6 +1865,10 @@ PATH_KERNELS = {
     "suggest_beam5_e1536_f32": ("lstm_fused", BEAM_GEN),
     "suggest_greedy_e1536": ("lstm_fused", GREEDY_GEN),
     "decode_pipelined_e1536": ("lstm_fused", "generator_topk_lse_pipelined"),
+    # f32bwd: CARS and CARS-GRU at the serving widths in float32 (the
+    # configuration's default dtype), kernels 5 and 9 on split TF32
+    "train_step_f32bwd": ("lstm_fused_res", "lstm_fused_bwd"),
+    "train_step_f32bwd_gru": ("gru_fused_res", "gru_fused_bwd"),
     # widestep: CARS on the step route (bf16 nhid 2,048, float32 1,152) and
     # the doc encoder as a matmul projection + kernel 6 past 512 units
     "rank_batch_step_bf16": ("lstm_fused",),
@@ -1932,6 +1954,8 @@ EXACT_LAUNCHES = {
         ("train_step", {"gru_fused_res": 4, "gru_fused_bwd": 4}))},
     "suggest_beam5_hredqs_1024": {"gru_fused": 2},
     "train_step_hredqs_1024": {"gru_fused_res": 2, "gru_fused_bwd": 2},
+    "train_step_f32bwd": {"lstm_fused_res": 4, "lstm_fused_bwd": 4},
+    "train_step_f32bwd_gru": {"gru_fused_res": 4, "gru_fused_bwd": 4},
     "lstm_precomputed": {"lstm_recurrence": 2},
     **{f"lstm_precomputed_{h}_{str(dt)[6:]}": {"lstm_recurrence": 2}
        for h, dt in STEP_REC},
@@ -3938,7 +3962,8 @@ RNN_TIMING = {
 def time_rnn(gen, rnn: str, launches: dict, fwd_err: float | None = None,
              pair_err: dict | None = None, shape: tuple | None = None,
              dtype=torch.bfloat16, iters: int = 5, warmup: int = 2,
-             sources: tuple | None = None, **widths) -> list[dict]:
+             sources: tuple | None = None, bwd_only: bool = False,
+             **widths) -> list[dict]:
     """The forward kernel and the training pair of ``rnn`` (kernels 1, 4,
     5 or 7, 8, 9) at the doc encoder's shape, or at ``shape`` = (rows,
     steps) and ``widths`` (``e``, ``h``; then the rows carry ``rows``,
@@ -3951,7 +3976,8 @@ def time_rnn(gen, rnn: str, launches: dict, fwd_err: float | None = None,
     directions (``pair_check``: every output within PAIR_TOL, masked
     outputs 0, the backward the same bits twice), and the rows carry those
     errors.  ``warmup`` calls precede each timing; ``sources`` names the
-    files the rows' kernels run from (default RNN_TIMING's)."""
+    files the rows' kernels run from (default RNN_TIMING's); ``bwd_only``
+    times (and returns the row of) the backward alone."""
     mod = rnn_kernels(rnn)
     cudnn_cls, default_sources, replaces = RNN_TIMING[rnn]
     sources = sources or default_sources
@@ -3970,13 +3996,16 @@ def time_rnn(gen, rnn: str, launches: dict, fwd_err: float | None = None,
     ms, plain_ms, lib = {}, {}, {}
     few = min(iters, 3)
     wu = {"warmup": warmup}
-    with torch.inference_mode():
-        ms[fwd] = timed_ms(lambda: getattr(mod, fwd)(x, mask, *w), iters,
+    if not bwd_only:
+        with torch.inference_mode():
+            ms[fwd] = timed_ms(lambda: getattr(mod, fwd)(x, mask, *w), iters,
+                               **wu)
+            plain_ms[fwd] = timed_ms(lambda: plain[fwd](x, mask, *w), few,
+                                     **wu)
+            lib[fwd] = timed_ms(lambda: cudnn(x), iters, **wu)
+        ms[res] = timed_ms(lambda: getattr(mod, res)(x, mask, *w), iters,
                            **wu)
-        plain_ms[fwd] = timed_ms(lambda: plain[fwd](x, mask, *w), few, **wu)
-        lib[fwd] = timed_ms(lambda: cudnn(x), iters, **wu)
-    ms[res] = timed_ms(lambda: getattr(mod, res)(x, mask, *w), iters, **wu)
-    plain_ms[res] = timed_ms(lambda: plain[res](x, mask, *w), few, **wu)
+        plain_ms[res] = timed_ms(lambda: plain[res](x, mask, *w), few, **wu)
     ms[bwd] = timed_ms(lambda: getattr(mod, bwd)(x, mask, *w, *state, dout),
                        iters, **wu)
     plain_ms[bwd] = timed_ms(lambda: plain[bwd](x, mask, *w, *state, dout),
@@ -3987,7 +4016,8 @@ def time_rnn(gen, rnn: str, launches: dict, fwd_err: float | None = None,
     del out, state
     torch.cuda.empty_cache()
     xg = x.detach().requires_grad_()
-    lib[res] = timed_ms(lambda: cudnn(xg), iters, **wu)
+    if not bwd_only:
+        lib[res] = timed_ms(lambda: cudnn(xg), iters, **wu)
     o, _ = cudnn(xg)
     wrt = [xg, *cudnn.parameters()]
     lib[bwd] = timed_ms(lambda: torch.autograd.grad(o, wrt, dout,
@@ -4013,6 +4043,8 @@ def time_rnn(gen, rnn: str, launches: dict, fwd_err: float | None = None,
              pair_err[res][dtype], "training forward"),
             (bwd, sources[2], replaces[2], 3 * flops_f, bytes_b,
              pair_err[bwd][dtype], "backward alone")):
+        if name not in ms:
+            continue
         bnd, by = bound_ms(flops, n_bytes, dtype)
         log(f"{name} {str(dtype)[6:]} [{rows},{steps},{e}]->{h} one "
             f"direction, TC="
@@ -4030,6 +4062,103 @@ def time_rnn(gen, rnn: str, launches: dict, fwd_err: float | None = None,
                                    plain_ms[name], lib[name], bnd, by,
                                    **extra))
     return rows_out
+
+
+# -- float32 kernels 5 and 9 on split TF32 ----------------------------------
+
+# (rows, steps, E, H) at which float32 kernels 5 and 9 are held to their
+# plain versions (both directions, the same bits twice) and timed beside
+# cuDNN's exact-f32 backward: the doc encoder's rows at H = 128 (the main
+# shape), 256, 384, 512 and 1,024, and the recommenders' source [64, 150];
+# WIDE_TIMED / WIDEGRU_TIMED time some of them in a default run already
+F32BWD_TIMED = ((B * S * N, LD, EMSIZE, NHID), (B, S_REC * LQ, EMSIZE, NHID),
+                (B * S * N, LD, EMSIZE, 256), (B * S * N, LD, EMSIZE, 384),
+                (B * S * N, LD, EMSIZE, 512), (B * S * N, LD, EMSIZE, 1024))
+# and held only: the edges of the one block (128 / 129) and of the
+# clusters of 2, 4 and 8 (256 / 257, 512 / 513), the old CUDA-core
+# kernel's (403 / 404), 1,000 (padded to 1,024), an odd E and H, rows off
+# the 32-row block
+F32BWD_HELD = ((333, 7, EMSIZE, 129), (333, 7, EMSIZE, 257),
+               (333, 7, EMSIZE, 403), (333, 7, EMSIZE, 404),
+               (65, 7, 300, 513), (33, 5, 300, 1000),
+               (B * S + 13, LQ, 37, 200))
+
+
+def f32bwd_paths(gen, timed_elsewhere=()) -> tuple[dict, list[dict]]:
+    """The slice's path in float32: kernels 5 and 9 (split TF32) at each
+    of F32BWD_TIMED held to their plain versions, both directions, and
+    timed beside their bound, plain version and cuDNN's exact-f32 backward
+    (but the (rnn, H) of ``timed_elsewhere``: held there), at F32BWD_HELD
+    held; their gates against the launchers at every H; then four Adam
+    steps of a float32 CARS and of a float32 CARS-GRU at the serving widths
+    through kernels 4 + 5 and 8 + 9 against the plain scan.  Returns the
+    launches and the timing rows."""
+    from context_attentive_ir_tpu_torch.ops.kernels.build import load_library
+    from context_attentive_ir_tpu_torch.ops.kernels.lstm import (
+        f32_cluster,
+        f32_smem_bytes,
+        f32_tile_hidden,
+    )
+
+    f32 = torch.float32
+    # the gates are the launchers': the workspace query refuses exactly
+    # the padded widths whose split-TF32 tiles f32_smem_bytes says do not
+    # fit, at every H to 1,024 and an E off and on the tile
+    lib = load_library()
+    moved = []
+    for rnn, gates in (("lstm", 4), ("gru", 3)):
+        for h in range(1, MAX_F32_TILED + 1):
+            for e in (37, EMSIZE):
+                hp, ep = f32_tile_hidden(h), -(-e // 32) * 32
+                held = f32_smem_bytes(e, h, True, gates) > 0
+                ws = (lib.cair_lstm_bwd_workspace(40, 3, ep, hp, 2, 0)
+                      if rnn == "lstm"
+                      else lib.cair_gru_bwd_workspace(40, 3, ep, hp, 2, 0, 0))
+                if held != (ws >= 0):
+                    moved.append((rnn, e, h))
+    log(f"float32 kernels 5 and 9: f32_smem_bytes(..., backward=True) > 0 "
+        f"exactly where the launchers take the padded widths, at every H of "
+        f"1 .. {MAX_F32_TILED} and E = 37, {EMSIZE} (f32_cluster: one "
+        f"block to 128, {f32_cluster(256)} ranks to 256, "
+        f"{f32_cluster(512)} to 512, {f32_cluster(1024)} to 1,024): "
+        f"{not moved}")
+    if moved:
+        raise AssertionError(f"float32 backward gates differ from the "
+                             f"launchers at (rnn, E, H) {moved[:10]}")
+    # and the routes (one block, a cluster, the step route) are theirs
+    from context_attentive_ir_tpu_torch.ops.kernels.gru import gru_route
+    from context_attentive_ir_tpu_torch.ops.kernels.lstm import lstm_route
+
+    names = ("single", "cluster", "step")
+    moved = [h for h in range(1, 1153)
+             if names[lib.cair_lstm_route(h, 0, 1)]
+             != lstm_route(h, f32, backward=True)
+             or names[lib.cair_gru_route(h, 0, 1)]
+             != gru_route(h, f32, backward=True)]
+    log(f"float32 kernels 5 and 9: lstm_route / gru_route equal to the "
+        f"launchers' at every H of 1 .. 1,152: {not moved}")
+    if moved:
+        raise AssertionError(f"float32 backward routes differ at H {moved}")
+    launches, rows = {}, []
+    for rnn in RNNS:
+        for r, t, e, h in F32BWD_HELD:
+            held_errors("f32bwd", rnn, *pair_inputs(gen, rnn, f32, r, t,
+                                                    e=e, h=h), f32)
+        for r, t, e, h in F32BWD_TIMED:
+            if (rnn, h) in timed_elsewhere and (r, t) == (B * S * N, LD):
+                held_errors("f32bwd", rnn, *pair_inputs(gen, rnn, f32, r, t,
+                                                        e=e, h=h), f32)
+                continue
+            rows.extend(time_rnn(gen, rnn, launches, shape=(r, t),
+                                 dtype=f32, iters=2, warmup=1,
+                                 bwd_only=True, e=e, h=h))
+            torch.cuda.empty_cache()
+    for tag, kw in (("f32bwd", {}), ("f32bwd_gru", GRU)):
+        wide_train(full_width_config("cars", compute_dtype="float32", **kw),
+                   tag, f32, launches)
+        torch.cuda.empty_cache()
+    log(f"f32bwd launches per path: {json.dumps(launches)}")
+    return launches, rows
 
 
 # -- the wide LSTMs: kernels 1, 4, 5 past the single block --------------------
@@ -5471,6 +5600,8 @@ def card() -> str:
         text=True).stdout.strip()
 
 
+MAX_F32_TILED = 1024   # float32 kernels 5 and 9 on tiles to here
+
 # the timing rows' earlier readings (ms, bf16, one H100 80GB HBM3 at
 # 700 W; the recurrent kernels at the doc-encoder shape, the generator's
 # modes at the beam-5 step's, kernel 10 by row count at T = Ld, as the last
@@ -5494,8 +5625,8 @@ EARLIER_MS = {"lstm_fused": 11.269, "lstm_fused_res": 11.256,
 # other phase.
 PHASES = ("kernels", "lstm", "grukernels", "beamkernels", "slatekernels",
           "serving", "parallel", "train", "indexed", "interop", "gru",
-          "small", "kernel6", "widelstm", "widegru", "widebeam", "widestep",
-          "widegrustep", "trainer",
+          "small", "kernel6", "f32bwd", "widelstm", "widegru", "widebeam",
+          "widestep", "widegrustep", "trainer",
           "recommenders", "multitask", "rankers")
 SHARES = {"lstm", "grukernels", "beamkernels", "slatekernels"}
 
@@ -5631,10 +5762,22 @@ def main() -> int:
         with torch.inference_mode():
             launches.update(phase("kernel6", precomputed_path))
     wide_rows = []
+    if "f32bwd" in run:
+        # the float32 rows the wide phases time anyway are held here
+        elsewhere = ({("lstm", h) for h, dt in WIDE_TIMED if dt == torch.float32}
+                     if "widelstm" in run else set())
+        if "widegru" in run:
+            elsewhere |= {("gru", h) for h, dt in WIDEGRU_TIMED
+                          if dt == torch.float32}
+        f32_launches, rows = phase("f32bwd", lambda: f32bwd_paths(
+            gen, elsewhere))
+        launches.update(f32_launches)
+        wide_rows.extend(rows)
     if "widelstm" in run:
-        wide_launches, wide_rows = phase(
+        wide_launches, rows = phase(
             "widelstm", lambda: wide_paths(gen, fixture_dir.name))
         launches.update(wide_launches)
+        wide_rows.extend(rows)
     if "widegru" in run:
         wide_launches, rows = phase(
             "widegru", lambda: widegru_paths(gen, fixture_dir.name))

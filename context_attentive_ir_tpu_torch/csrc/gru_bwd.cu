@@ -42,7 +42,8 @@
 //   a per-block partial of each slot's sum (the db's).
 // - Phase B (lstm_common.cuh's launch_wgrad_partial): dW_ih = X^T G[0:3]
 //   and dW_hh = Hp^T G[0, 1, 3] over all B*T (row, step) pairs as output
-//   tiles (bf16: 128 x 128 on tensor cores; float32: 64 x 64 of f32 FMAs),
+//   tiles (bf16: 128 x 128 on tensor cores; float32: the same in split
+//   TF32, tf32_mma.cuh),
 //   split over up to 32 row ranges to fill the card;
 //   sum_partials_kernel then adds the splits (and the per-block db partials)
 //   in a fixed order.
@@ -102,14 +103,16 @@
 // exact FMAs against W_hh^T), which the next step adds in tile order, then
 // dh' z.  Phases B and C run as a cluster's.
 //
-// float32 keeps exact f32 FMAs (no TF32) on the first version's layout
-// (gru_bwd_cell_kernel: one block per 32 rows, thread (rg, j) owning unit j
-// of 16 rows, five activation planes, host-made transposes of the weights
-// for the dx and dh products, x staged in chunks of kF32Chunk k-rows) and
-// wgrad_partial_kernel; above H = 403 (f32_cluster: its 4H gradient rows
-// stop fitting) its units split over a cluster of up to 8 blocks by the
-// same scheme (dh's partials in rank order, dx in phase C by exact f32
-// FMAs).
+// float32 (the configuration's default dtype) runs the same kernel,
+// gru_bwd_mma_kernel<float>, on split-TF32 tiles as kernel 5 does
+// (tf32_mma.cuh; lstm_bwd.cu states the design): every product, phases B
+// and C too, `mma.sync.m16n8k8` TF32 tiles of split operands, three
+// products a tile in a fixed order; one block up to H = 128 (64 or 32
+// rows), clusters of 2, 4 or 8 ranks of at most 128 units to 1,024
+// (f32_cluster; 32 rows a rank up to 4 ranks, 16 in 8).  Bound at the
+// doc encoder's shape -> 128: 4.25e11 flops at 165 TFLOP/s, 2.57 ms.  The
+// recompute may differ from kernel 8's forward (exact f32 FMAs) by float32
+// rounding.
 
 #include "lstm_common.cuh"
 #include "lstm_mma.cuh"
@@ -118,266 +121,6 @@
 namespace {
 
 using namespace cair_lstm;
-
-constexpr int kSaved = 5;  // per step: h_prev, r, z, n, hn
-
-// kBound: the launch bound (row_tile_bound).  A block has 2 * hc threads and
-// owns units rank*hc .. rank*hc + hc - 1 of a cluster of ceil(H / hc) blocks
-// (kCl; else hc = H: one block).  Shared memory, recompute: h of all H units
-// [H][kStride] | the x chunk; reverse pass: the block's four gradient slots
-// [4 hc][kStride] | in a cluster, the dh partials of its units from every
-// rank [C][hc][kStride].
-template <typename T, int kBound, bool kCl>
-__global__ void __launch_bounds__(kBound)
-gru_bwd_cell_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
-                    const T* __restrict__ w_ih, const T* __restrict__ b_ih,
-                    const T* __restrict__ w_hh, const T* __restrict__ b_hh,
-                    const T* __restrict__ w_ih_t, const T* __restrict__ w_hh_t,
-                    const float* __restrict__ hb, const T* __restrict__ dout,
-                    T* __restrict__ dx, T* __restrict__ dg_ws,
-                    T* __restrict__ h_prev_ws, float* __restrict__ act,
-                    float* __restrict__ db_part, int n_rows, int n_steps, int e,
-                    int h_dim, int reverse, int tc, int hc) {
-  extern __shared__ float4 smem4[];
-  float* tile = reinterpret_cast<float*>(smem4);
-  float* ht = tile;
-  float* xt = tile + (size_t)h_dim * kStride;
-  float* exch = tile + (size_t)4 * hc * kStride;
-
-  constexpr bool cl = kCl;
-  const int n_ranks = cl ? (int)tiles::cluster_size() : 1;
-  const int rank = cl ? (int)tiles::cluster_rank() : 0;
-  const int j = threadIdx.x % hc;
-  const int rg = threadIdx.x / hc;
-  const int unit = rank * hc + j;
-  const bool active = !cl || unit < h_dim;
-  const int own = min(hc, h_dim - rank * hc);  // the block's real units
-  const int row0 = (blockIdx.x / n_ranks) * kRows;
-  const int my_row0 = row0 + rg * kRowsPerThread;
-  const int g3 = 3 * h_dim;
-  const int g4 = 4 * h_dim;
-  const int n_chunks = (n_steps + tc - 1) / tc;
-  const size_t plane = (size_t)kRows * hc;
-  const size_t act_step = kSaved * plane;
-  float* my_act = act + (size_t)blockIdx.x * tc * act_step;
-
-  float bx[3], bh[3];
-#pragma unroll
-  for (int g = 0; g < 3; ++g) {
-    bx[g] = active ? to_f32(b_ih[g * h_dim + unit]) : 0.0f;
-    bh[g] = active ? to_f32(b_hh[g * h_dim + unit]) : 0.0f;
-  }
-  float dh[kRowsPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) dh[i] = 0.0f;
-  float dbs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-
-  for (int q = 0; q < n_chunks; ++q) {
-    // chunks in the reverse of the forward's processing order
-    const int chunk = reverse ? q : n_chunks - 1 - q;
-    const int t_lo = chunk * tc;
-    const int len = min(tc, n_steps - t_lo);
-
-    // --- recompute the forward inside the chunk from its boundary -------
-    __syncthreads();  // the last reverse step is done with the tile
-    float h[kRowsPerThread];
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int row = my_row0 + i;
-      h[i] = active && row < n_rows
-                 ? hb[((size_t)chunk * n_rows + row) * h_dim + unit]
-                 : 0.0f;
-    }
-    for (int idx = threadIdx.x; idx < kRows * h_dim; idx += blockDim.x) {
-      const int r = idx / h_dim;
-      const int u = idx - r * h_dim;
-      const int row = row0 + r;
-      ht[(size_t)u * kStride + r] =
-          row < n_rows
-              ? round_to<T>(hb[((size_t)chunk * n_rows + row) * h_dim + u])
-              : 0.0f;
-    }
-    // the tile is whole; in a cluster, every rank is done with its reverse
-    // pass (the other ranks' h writes below land in the same space)
-    f32_sync(cl);
-    for (int k = 0; k < len; ++k) {
-      const int t = reverse ? t_lo + len - 1 - k : t_lo + k;
-      float ax[3][kRowsPerThread], ah[3][kRowsPerThread];
-      gru_preacts<T>(ax, ah, xt, ht, x, w_ih, w_hh, bx, bh, row0, n_rows,
-                     n_steps, t, e, h_dim, unit, rg, active);
-      f32_sync(cl);  // every block of the cluster is done reading its h tile
-      float* a_k = my_act + k * act_step;
-      float hr[kRowsPerThread];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) {
-        const int row = my_row0 + i;
-        if (active && row < n_rows) {
-          const size_t pos = (size_t)row * n_steps + t;
-          const float r = sigmoid_f32(ax[0][i] + ah[0][i]);
-          const float z = sigmoid_f32(ax[1][i] + ah[1][i]);
-          const float hn = ah[2][i];
-          const float n = tanhf(ax[2][i] + r * hn);
-          const float h_new = (1.0f - z) * n + z * h[i];
-          h_prev_ws[pos * h_dim + unit] = from_f32<T>(h[i]);
-          const size_t at = (size_t)(rg * kRowsPerThread + i) * hc + j;
-          a_k[at] = h[i];
-          a_k[plane + at] = r;
-          a_k[2 * plane + at] = z;
-          a_k[3 * plane + at] = n;
-          a_k[4 * plane + at] = hn;
-          if (mask[pos] != 0) h[i] = h_new;
-        }
-        hr[i] = round_to<T>(h[i]);
-      }
-      if (active) store_rows_all(ht, unit, rg, hr, cl ? n_ranks : 0);
-      // the h tiles are whole (a single block: the next step's x staging
-      // ends in a __syncthreads before h is read; after the last step the
-      // reverse pass's slots take the tile's place)
-      if (cl || k + 1 == len) f32_sync(cl);
-    }
-
-    // --- reverse pass over the chunk --------------------------------------
-    for (int k = len - 1; k >= 0; --k) {
-      const int t = reverse ? t_lo + len - 1 - k : t_lo + k;
-      const float* a_k = my_act + k * act_step;
-      float dg[4][kRowsPerThread];
-      float dh_z[kRowsPerThread];
-      uint32_t valid = 0;  // bit i: row i is real and step t unmasked
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) {
-        const int row = my_row0 + i;
-        float d0 = 0.0f, d1 = 0.0f, d2 = 0.0f, d3 = 0.0f, dz_h = 0.0f;
-        if (active && row < n_rows) {
-          const size_t pos = (size_t)row * n_steps + t;
-          if (mask[pos] != 0) {
-            valid |= 1u << i;
-            const size_t at = (size_t)(rg * kRowsPerThread + i) * hc + j;
-            const float h_prev = a_k[at];
-            const float r = a_k[plane + at];
-            const float z = a_k[2 * plane + at];
-            const float n = a_k[3 * plane + at];
-            const float hn = a_k[4 * plane + at];
-            const float dh_new = to_f32(dout[pos * h_dim + unit]) + dh[i];
-            const float dz = dh_new * (h_prev - n);
-            const float da_n = dh_new * (1.0f - z) * (1.0f - n * n);
-            d0 = da_n * hn * r * (1.0f - r);
-            d1 = dz * z * (1.0f - z);
-            d2 = da_n;
-            d3 = da_n * r;
-            dz_h = dh_new * z;
-          }
-          T* dst = dg_ws + pos * g4 + unit;
-          dst[0] = from_f32<T>(d0);
-          dst[h_dim] = from_f32<T>(d1);
-          dst[2 * h_dim] = from_f32<T>(d2);
-          dst[3 * h_dim] = from_f32<T>(d3);
-        }
-        dg[0][i] = d0;
-        dg[1][i] = d1;
-        dg[2][i] = d2;
-        dg[3][i] = d3;
-        dh_z[i] = dz_h;
-      }
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        float v[kRowsPerThread];
-#pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i) {
-          dbs[g] += dg[g][i];
-          v[i] = round_to<T>(dg[g][i]);
-        }
-        store_rows(tile, g * hc + j, rg, v);
-      }
-      // the slots tile is whole; in a cluster, every rank is done reading
-      // its dh partials of the step before
-      f32_sync(cl);
-
-      if constexpr (!cl) {
-        // dh = dh' z + dg_hh_c @ W_hh^T where unmasked (slots r, z against
-        // W_hh^T rows 0..2H-1, slot 3 against rows 2H..3H-1); masked steps
-        // carry dh
-        {
-          float acc[1][kRowsPerThread];
-#pragma unroll
-          for (int i = 0; i < kRowsPerThread; ++i) acc[0][i] = dh_z[i];
-          dot_rows<1, T>(acc, tile, 0, rg, w_hh_t + j, 2 * h_dim, h_dim, 0);
-          dot_rows<1, T>(acc, tile, g3, rg, w_hh_t + (size_t)2 * h_dim * h_dim
-                         + j, h_dim, h_dim, 0);
-#pragma unroll
-          for (int i = 0; i < kRowsPerThread; ++i)
-            if (valid & (1u << i)) dh[i] = acc[0][i];
-        }
-        // dx_t = dg_ih_c @ W_ih^T (slots 0..2), columns j, j + H, ...
-        for (int col = j; col < e; col += h_dim) {
-          float acc[1][kRowsPerThread];
-#pragma unroll
-          for (int i = 0; i < kRowsPerThread; ++i) acc[0][i] = 0.0f;
-          dot_rows<1, T>(acc, tile, 0, rg, w_ih_t + col, g3, e, 0);
-#pragma unroll
-          for (int i = 0; i < kRowsPerThread; ++i) {
-            const int row = my_row0 + i;
-            if (row < n_rows)
-              dx[((size_t)row * n_steps + t) * e + col] =
-                  from_f32<T>(acc[0][i]);
-          }
-        }
-      } else {
-        // the block's share of slots {0, 1, 3} @ W_hh^T for every unit: the
-        // W_hh^T rows of its units' r, z and n columns; unit m*hc + j goes
-        // to rank m's tile of partials, row rank*hc + j; dx is phase C's
-        // product
-        for (int m = 0; m < n_ranks; ++m) {
-          const int u = m * hc + j;
-          if (u >= h_dim) continue;
-          float acc[1][kRowsPerThread];
-#pragma unroll
-          for (int i = 0; i < kRowsPerThread; ++i) acc[0][i] = 0.0f;
-#pragma unroll
-          for (int g = 0; g < 3; ++g)
-            dot_rows<1, T>(acc, tile, (g < 2 ? g : 3) * hc, rg,
-                           w_hh_t + ((size_t)g * h_dim + rank * hc) * h_dim + u,
-                           own, h_dim, 0);
-          const uint32_t a = tiles::map_rank(
-              exch + (size_t)(rank * hc + j) * kStride + rg * kRowsPerThread,
-              m);
-#pragma unroll
-          for (int p = 0; p < kRowsPerThread / 4; ++p)
-            tiles::st_cluster_f4(a + 16 * p,
-                                 make_float4(acc[0][4 * p], acc[0][4 * p + 1],
-                                             acc[0][4 * p + 2],
-                                             acc[0][4 * p + 3]));
-        }
-        f32_sync(cl);  // every partial of the block's units has arrived
-        // the partials added in rank order, then dh' z
-#pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i) {
-          if (valid & (1u << i)) {
-            float v = 0.0f;
-            for (int src = 0; src < n_ranks; ++src)
-              v += exch[(size_t)(src * hc + j) * kStride + rg * kRowsPerThread +
-                        i];
-            dh[i] = v + dh_z[i];
-          }
-        }
-      }
-      __syncthreads();  // the next step overwrites the staged gradients
-    }
-  }
-
-  // per-block slot sums: the two row groups' sums, in a fixed order
-  const int gc = 4 * hc;
-#pragma unroll
-  for (int g = 0; g < 4; ++g) tile[rg * gc + g * hc + j] = dbs[g];
-  __syncthreads();
-  if (rg == 0 && active) {
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      const int col = g * hc + j;
-      db_part[(size_t)(blockIdx.x / n_ranks) * g4 + g * h_dim + unit] =
-          tile[col] + tile[gc + col];
-    }
-  }
-}
 
 // Phase A on bf16 tensor cores (see the header note).  Shared memory:
 // weight ring (mbarriers, slabs, x slots) | union of {h tile (two in a
@@ -397,38 +140,39 @@ __host__ __device__ constexpr int park_slots(int g, int mt) {
   return mt * g + 2 * g;
 }
 
-template <int G, int MT, bool kCl>
+template <typename T, int G, int MT, bool kCl>
 __global__ void __launch_bounds__(tiles::kThreads, 1)
-gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                   const uint8_t* __restrict__ mask,
-                   const __nv_bfloat16* __restrict__ w_staged,
-                   const __nv_bfloat16* __restrict__ b_ih,
-                   const __nv_bfloat16* __restrict__ b_hh,
-                   const float* __restrict__ hb,
-                   const __nv_bfloat16* __restrict__ dout,
-                   __nv_bfloat16* __restrict__ dx,
-                   __nv_bfloat16* __restrict__ dg_ws,
-                   __nv_bfloat16* __restrict__ h_prev_ws,
+gru_bwd_mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
+                   const T* __restrict__ w_staged, const T* __restrict__ b_ih,
+                   const T* __restrict__ b_hh, const float* __restrict__ hb,
+                   const T* __restrict__ dout, T* __restrict__ dx,
+                   T* __restrict__ dg_ws, T* __restrict__ h_prev_ws,
                    float4* __restrict__ act, float* __restrict__ db_part,
                    int n_rows, int n_steps, int e, int h_dim, int reverse,
                    int tc, int ks) {
   using namespace tiles;
+  using E = Elt<T>;
+  constexpr int kE = (int)sizeof(T);  // bytes an element
+  constexpr int kPer = 16 / kE;       // elements a 16-byte copy
+  // ranks a cluster may have: bf16 lstm_cluster / gru_cluster, float32
+  // f32_cluster
+  constexpr int kMaxC = kE == 4 ? kF32MaxRanks : 4;
   extern __shared__ __align__(16) char smem[];
   constexpr int M = 16 * MT;
   const int n_ranks = kCl ? (int)cluster_size() : 1;
   const int rank = kCl ? (int)cluster_rank() : 0;
   const int hc = h_dim / n_ranks, u_off = rank * hc;
-  const int hs = h_stride(h_dim), ss = slot_stride(hc);
+  const int hs = h_stride(h_dim, kE), ss = slot_stride(hc, kE);
   const int gk = 3 * hc;  // the products' k extent: three slots of hc
   const int g4 = 4 * h_dim;
   const int ex_ld = hc + 8;  // floats per row of dh's tile
   const int row0 = (blockIdx.x / n_ranks) * M;
   // a cluster's reverse pass streams the h slabs alone (kHOnly)
   constexpr int kRev = kCl ? kHOnly : kNoX;
-  WeightRing ring;
+  WeightRingT<T> ring;
   ring.init(smem,
             w_staged + (size_t)rank * (e + h_dim) *
-                           (w_stride(hc, kGruGates) / 2),
+                           (w_stride(hc, kGruGates, kE) / kE),
             x, e, h_dim, hc, kGruGates, ks, kCl ? n_steps : 2 * n_steps, row0,
             M, n_rows, n_steps, kCl ? n_steps : 0);
   char* uni = ring.end();
@@ -438,8 +182,10 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
   char* dg_tile = uni;
   float* exch = reinterpret_cast<float*>(uni + M * ss);
   float* bias_s = reinterpret_cast<float*>(
-      uni + staged_bytes(h_dim, hc, kGruGates, M, true, n_ranks));
-  uint32_t exch_at[4] = {0, 0, 0, 0};  // exch in each rank of the cluster
+      uni + staged_bytes(h_dim, hc, kGruGates, M, true, n_ranks, kE));
+  // float32: the reverse products' partials of the warps of a tile
+  float* red = bias_s + 4 * hc;
+  uint32_t exch_at[kMaxC] = {};  // exch in each rank of the cluster
   if constexpr (kCl)
     for (int q = 0; q < n_ranks; ++q) exch_at[q] = map_rank(exch, q);
 
@@ -467,10 +213,10 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
     const int u = u_off + i;
 #pragma unroll
     for (int q = 0; q < 2; ++q)  // r, z: both biases
-      bias_s[q * hc + i] = __bfloat162float(b_ih[q * h_dim + u]) +
-                           __bfloat162float(b_hh[q * h_dim + u]);
-    bias_s[2 * hc + i] = __bfloat162float(b_ih[2 * h_dim + u]);  // xn
-    bias_s[3 * hc + i] = __bfloat162float(b_hh[2 * h_dim + u]);  // hn
+      bias_s[q * hc + i] = to_f32(b_ih[q * h_dim + u]) +
+                           to_f32(b_hh[q * h_dim + u]);
+    bias_s[2 * hc + i] = to_f32(b_ih[2 * h_dim + u]);  // xn
+    bias_s[3 * hc + i] = to_f32(b_hh[2 * h_dim + u]);  // hn
   }
 
   // the reverse pass's carried state (defined anew at each reverse pass:
@@ -487,15 +233,15 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
   // h before step t, rounded, columns col0 .. col0 + cols - 1 of the staged
   // tile: phase B's operand for dW_hh
   auto copy_h_prev = [&](const char* h_cur, int t, int col0, int cols) {
-    const int cpr = cols / 8;
+    const int cpr = cols / kPer;
     for (int idx = threadIdx.x; idx < M * cpr; idx += kThreads) {
       const int r = idx / cpr, cc = idx - r * cpr;
       if (row0 + r < n_rows)
         *reinterpret_cast<uint4*>(
             h_prev_ws + ((size_t)(row0 + r) * n_steps + t) * h_dim + col0 +
-            cc * 8) =
+            cc * kPer) =
             *reinterpret_cast<const uint4*>(h_cur + r * hs +
-                                            (col0 + cc * 8) * 2);
+                                            (col0 + cc * kPer) * kE);
     }
   };
 
@@ -527,8 +273,7 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
           h[mt][gi][half * 2] = hv.x;
           h[mt][gi][half * 2 + 1] = hv.y;
           if (!kCl && unit < hc)
-            *reinterpret_cast<bf162*>(h_buf[0] + r * hs + unit * 2) =
-                __floats2bfloat162_rn(hv.x, hv.y);
+            E::store2(h_buf[0] + r * hs + unit * kE, hv.x, hv.y);
         }
       }
     if constexpr (kCl) {
@@ -541,8 +286,7 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
         if (row0 + r < n_rows)
           hv = *reinterpret_cast<const float2*>(
               hb + ((size_t)chunk * n_rows + row0 + r) * h_dim + u);
-        *reinterpret_cast<bf162*>(h_buf[0] + r * hs + u * 2) =
-            __floats2bfloat162_rn(hv.x, hv.y);
+        E::store2(h_buf[0] + r * hs + u * kE, hv.x, hv.y);
       }
       cluster_sync();
     }
@@ -577,7 +321,7 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
       // read it; a cluster writes the other tile
       if constexpr (!kCl) __syncthreads();
       const bool send = kCl && k + 1 < len;
-      uint32_t dst[4] = {0, 0, 0, 0};  // the next h tile in each rank
+      uint32_t dst[kMaxC] = {};  // the next h tile in each rank
       if (send)
         for (int p = 0; p < n_ranks; ++p)
           dst[p] = map_rank(h_buf[(k + 1) & 1], p);
@@ -614,21 +358,14 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
               const bool m = mb >> (mt * 2 + half) & 1u;
               const int r = mt * 16 + g + half * 8;
               const int col = u_off + unit;
-              const bf162 v =
-                  __floats2bfloat162_rn(hn[half * 2], hn[half * 2 + 1]);
               if constexpr (kCl) {
-                if (send) {
-                  const bf162 keep =
-                      m ? v
-                        : *reinterpret_cast<const bf162*>(h_cur + r * hs +
-                                                          col * 2);
-                  const uint32_t bits =
-                      *reinterpret_cast<const uint32_t*>(&keep);
+                if (send)
                   for (int p = 0; p < n_ranks; ++p)
-                    st_cluster_b32(dst[p] + r * hs + col * 2, bits);
-                }
+                    E::send2(dst[p] + r * hs + col * kE, m, hn[half * 2],
+                             hn[half * 2 + 1], h_cur + r * hs + col * kE);
               } else if (m) {
-                *reinterpret_cast<bf162*>(h_buf[0] + r * hs + col * 2) = v;
+                E::store2(h_buf[0] + r * hs + col * kE, hn[half * 2],
+                          hn[half * 2 + 1]);
               }
             }
           }
@@ -702,10 +439,9 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
               for (int half = 0; half < 2; ++half)
                 if (mb >> (mt * 2 + half) & 1u) {
                   const int r = mt * 16 + g + half * 8;
-                  const float2 dov = __bfloat1622float2(
-                      *reinterpret_cast<const bf162*>(
-                          dout + ((size_t)(row0 + r) * n_steps + t) * h_dim +
-                          u_off + unit));
+                  const float2 dov = E::load2(
+                      dout + ((size_t)(row0 + r) * n_steps + t) * h_dim +
+                      u_off + unit);
 #pragma unroll
                   for (int u = 0; u < 2; ++u) {
                     const int i = half * 2 + u;
@@ -728,10 +464,9 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
               dbs[gi][qq][1] += d[qq][1] + d[qq][3];
 #pragma unroll
               for (int half = 0; half < 2; ++half)
-                *reinterpret_cast<bf162*>(dg_tile +
-                                          (mt * 16 + g + half * 8) * ss +
-                                          (qq * hc + unit) * 2) =
-                    __floats2bfloat162_rn(d[qq][half * 2], d[qq][half * 2 + 1]);
+                E::store2(dg_tile + (mt * 16 + g + half * 8) * ss +
+                              (qq * hc + unit) * kE,
+                          d[qq][half * 2], d[qq][half * 2 + 1]);
             }
           }
         }
@@ -740,24 +475,25 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
       // the slots of (row, t) for phase B: a single block's rows are whole
       // rows of the workspace; a rank's are its columns of each slot
       if constexpr (kCl) {
-        const int cpr = hc / 8;
+        const int cpr = hc / kPer;
         for (int idx = threadIdx.x; idx < M * 4 * cpr; idx += kThreads) {
           const int r = idx / (4 * cpr), rest = idx - r * 4 * cpr;
           const int qq = rest / cpr, cc = rest - qq * cpr;
           if (row0 + r < n_rows)
             *reinterpret_cast<uint4*>(
                 dg_ws + ((size_t)(row0 + r) * n_steps + t) * g4 +
-                qq * h_dim + u_off + cc * 8) =
+                qq * h_dim + u_off + cc * kPer) =
                 *reinterpret_cast<const uint4*>(dg_tile + r * ss +
-                                                (qq * hc + cc * 8) * 2);
+                                                (qq * hc + cc * kPer) * kE);
         }
       } else {
-        const int cpr = g4 / 8;
+        const int cpr = g4 / kPer;
         for (int idx = threadIdx.x; idx < M * cpr; idx += kThreads) {
           const int r = idx / cpr, cc = idx - r * cpr;
           if (row0 + r < n_rows)
             *reinterpret_cast<uint4*>(
-                dg_ws + ((size_t)(row0 + r) * n_steps + t) * g4 + cc * 8) =
+                dg_ws + ((size_t)(row0 + r) * n_steps + t) * g4 +
+                cc * kPer) =
                 *reinterpret_cast<const uint4*>(dg_tile + r * ss + cc * 16);
         }
       }
@@ -770,7 +506,13 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
       // In a cluster a block's slots are those of its units, so its
       // products are partials: dx is left to phase C, and the dh partial
       // of unit u goes to rank u / hc, into its row block of this rank.
-      const int b_n = (lane & 7) + (lane >> 4) * 8, b_k = ((lane >> 3) & 1) * 8;
+      // a lane's row of the two n-tiles' B fragments and its byte offset
+      const int b_n = (lane & 7) + (lane >> 4) * 8, b_k = ((lane >> 3) & 1) * 16;
+      // 16-column groups of a slab (float32's slabs of 8 k-rows: one n-tile)
+      const bool one = kE == 4 && ks == 8;
+      const int n_np = one ? 1 : ks / 16;
+      const int units = MT * n_np;       // output tiles of a slab
+      const int parts = kE == 4 ? kWarps / units : 1;
       for (int sl = ring.first_slab(kRev); sl < ring.n_slabs; ++sl, ++n) {
         const char* slab = ring.acquire(n, sl, kRev, t_next);
         cp_async_commit();
@@ -780,8 +522,16 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
         // the third k-block: slot 2 (da_n) against W_in, slot 3 (da_n * r)
         // against W_hn
         const int shift = is_x ? 0 : hc;
-        for (int wu = warp; wu < MT * (ks / 16); wu += kWarps) {
+        // a warp takes a tile of 16 rows x 16 columns (8 in float32's
+        // 8-row slabs); float32 splits a tile's k extent over the warps the
+        // tiles leave idle, `parts` a tile, whose partials the first adds in
+        // warp order through `red`
+        if (warp < units * parts) {
+          const int wu = warp % units, part = warp / units;
           const int mt = wu % MT, np = wu / MT;
+          const int k_steps = gk / E::kK;
+          const int k_lo = part * k_steps / parts * E::kK;
+          const int k_hi = (part + 1) * k_steps / parts * E::kK;
           float o[2][4];
 #pragma unroll
           for (int j = 0; j < 2; ++j)
@@ -789,38 +539,70 @@ gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
             for (int i = 0; i < 4; ++i) o[j][i] = 0.0f;
           const char* a_base =
               dg_tile + (mt * 16 + (lane & 15)) * ss + (lane >> 4) * 16;
-          const char* b_base = slab + (np * 16 + b_n) * ring.ws + b_k * 2;
+          const char* b_base = slab + (np * 16 + b_n) * ring.ws + b_k;
+          if constexpr (kE == 4) {
+            tf32_rev_product(o, a_base, b_base, k_lo, k_hi, one,
+                             [&](int kk) {
+                               return kk < 2 * hc ? kk : kk + shift;
+                             });
+          } else {
 #pragma unroll 4
-          for (int kk = 0; kk < gk; kk += 16) {
-            const int ka = kk < 2 * hc ? kk : kk + shift;
-            uint32_t af[4], bfr[4];
-            ldsm_x4(af, a_base + ka * 2);
-            ldsm_x4(bfr, b_base + kk * 2);
-            mma_bf16(o[0], af, bfr[0], bfr[1]);
-            mma_bf16(o[1], af, bfr[2], bfr[3]);
-          }
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              const int r = mt * 16 + g + half * 8;
-              const int col = col0 + np * 16 + j * 8 + 2 * tg;
-              if constexpr (kCl) {
-                const int owner = col / hc;
-                st_cluster_f2(exch_at[owner] +
-                                  ((rank * M + r) * ex_ld + col - owner * hc) *
-                                      4,
-                              o[j][half * 2], o[j][half * 2 + 1]);
-              } else if (is_x) {
-                if (row0 + r < n_rows)
-                  *reinterpret_cast<bf162*>(
-                      dx + ((size_t)(row0 + r) * n_steps + t) * e + col) =
-                      __floats2bfloat162_rn(o[j][half * 2], o[j][half * 2 + 1]);
-              } else {
-                *reinterpret_cast<float2*>(exch + r * ex_ld + col) =
-                    make_float2(o[j][half * 2], o[j][half * 2 + 1]);
-              }
+            for (int kk = k_lo; kk < k_hi; kk += E::kK) {
+              const int ka = kk < 2 * hc ? kk : kk + shift;
+              uint32_t af[4], bfr[4];
+              ldsm_x4(af, a_base + ka * 2);
+              ldsm_x4(bfr, b_base + kk * 2);
+              mma_bf16(o[0], af, bfr[0], bfr[1]);
+              mma_bf16(o[1], af, bfr[2], bfr[3]);
             }
+          }
+          if (parts > 1) {
+            // the partials of the warps past the first part, warp order
+            if (part > 0) {
+              float4* mine = reinterpret_cast<float4*>(red) +
+                             ((warp - units) * 32 + lane) * 2;
+              mine[0] = f4_of(o[0]);
+              mine[1] = f4_of(o[1]);
+            }
+            __syncthreads();
+            if (part == 0)
+              for (int p = 1; p < parts; ++p) {
+                const float4* src = reinterpret_cast<const float4*>(red) +
+                                    (((p - 1) * units + wu) * 32 + lane) * 2;
+                const float4 v0 = src[0], v1 = src[1];
+                o[0][0] += v0.x;
+                o[0][1] += v0.y;
+                o[0][2] += v0.z;
+                o[0][3] += v0.w;
+                o[1][0] += v1.x;
+                o[1][1] += v1.y;
+                o[1][2] += v1.z;
+                o[1][3] += v1.w;
+              }
+          }
+          if (part == 0) {
+#pragma unroll
+            for (int j = 0; j < (one ? 1 : 2); ++j)
+#pragma unroll
+              for (int half = 0; half < 2; ++half) {
+                const int r = mt * 16 + g + half * 8;
+                const int col = col0 + np * 16 + j * 8 + 2 * tg;
+                if constexpr (kCl) {
+                  const int owner = col / hc;
+                  st_cluster_f2(exch_at[owner] +
+                                    ((rank * M + r) * ex_ld + col - owner * hc) *
+                                        4,
+                                o[j][half * 2], o[j][half * 2 + 1]);
+                } else if (is_x) {
+                  if (row0 + r < n_rows)
+                    E::store2(dx + ((size_t)(row0 + r) * n_steps + t) * e + col,
+                              o[j][half * 2], o[j][half * 2 + 1]);
+                } else {
+                  *reinterpret_cast<float2*>(exch + r * ex_ld + col) =
+                      make_float2(o[j][half * 2], o[j][half * 2 + 1]);
+                }
+              }
+          }
         }
       }
       // dh's product is whole (a cluster: every rank's partials have
@@ -914,16 +696,16 @@ int bwd_row_tiles(int h_dim, int n_rows, int forced) {
   return blocks < kSmallGrid ? 1 : own;
 }
 
-// Byte offsets of the workspace regions (each 256-B aligned).  `mt`: the
-// bf16 tensor-core phase A's 16-row tiles per block (its own rows per
-// block and activation planes); 0: float32's row-tile kernel.  A row block
-// of `c` blocks (a cluster when c > 1; gru_cluster for bf16, f32_cluster
-// for float32) has one activation area per block and one db partial per
-// row block.  The step route (`step`, above H = 1,024) keeps its planes
-// [tc][kGruStepSaved][rows, H] where the activation areas lie, one db
-// partial per kDgRows rows, and after phase B's partials its own buffers
-// (lstm_step.cuh's StepBwd): h in turn, bf16's f32 h, dh, dh' z and the
-// unit tiles' dh partials.
+// Byte offsets of the workspace regions (each 256-B aligned).  `mt`: phase
+// A's 16-row tiles per block (its rows per block and activation planes):
+// bf16 bwd_row_tiles's, float32 pick_config_f32's, a cluster's ranks 1; 0
+// on the step route.  A row block of `c` blocks (a cluster when c > 1;
+// gru_cluster for bf16, f32_cluster for float32) has one activation area
+// per block and one db partial per row block.  The step route (`step`,
+// above H = 1,024) keeps its planes [tc][kGruStepSaved][rows, H] where the
+// activation areas lie, one db partial per kDgRows rows, and after phase
+// B's partials its own buffers (lstm_step.cuh's StepBwd): h in turn, bf16's
+// f32 h, dh, dh' z and the unit tiles' dh partials.
 struct Layout {
   int row_blocks, n_blocks, c, splits, rows_per_split;
   bool step;
@@ -937,8 +719,8 @@ Layout layout(int n_rows, int n_steps, int e, int h_dim, int tc, size_t elt,
   const long long n = (long long)n_rows * n_steps;
   const bool bf16 = elt == 2;
   L.step = tiles::gru_route(h_dim, bf16, true) == tiles::kRouteStep;
-  L.c = L.step ? 1 : mt ? tiles::gru_cluster(h_dim) : f32_cluster(h_dim, true);
-  const int m_rows = L.step ? kDgRows : mt ? 16 * mt : kRows;
+  L.c = L.step ? 1 : bf16 ? tiles::gru_cluster(h_dim) : f32_cluster(h_dim, true);
+  const int m_rows = L.step ? kDgRows : 16 * mt;
   L.row_blocks = (n_rows + m_rows - 1) / m_rows;
   L.n_blocks = L.row_blocks * L.c;
   const Splits sp = make_splits(n);
@@ -948,13 +730,14 @@ Layout layout(int n_rows, int n_steps, int e, int h_dim, int tc, size_t elt,
   const size_t g3 = 3 * (size_t)h_dim, g4 = 4 * (size_t)h_dim;
   size_t off = 0;
   L.act = off;
-  const int g = L.c > 1 ? tiles::kClusterConfig.g : tiles::pick_config(h_dim).g;
+  const int g = bf16 ? (L.c > 1 ? tiles::kClusterConfig.g
+                               : tiles::pick_config(h_dim).g)
+                : L.c > 1 ? tiles::cluster_config_f32(L.c).g
+                          : tiles::pick_config_f32(h_dim).g;
   off += align256(L.step ? (size_t)tc * kGruStepSaved * plane * 4
-                  : mt ? (size_t)L.n_blocks *
-                             (tc * mt * g * kPlanes + park_slots(g, mt)) *
-                             tiles::kThreads * 16
-                       : (size_t)L.n_blocks * tc * kSaved * kRows *
-                             f32_units(h_dim, true) * 4);
+                         : (size_t)L.n_blocks *
+                               (tc * mt * g * kPlanes + park_slots(g, mt)) *
+                               tiles::kThreads * 16);
   L.dg = off;
   off += align256((size_t)n * g4 * elt);
   L.h_prev = off;
@@ -986,85 +769,63 @@ bool valid_shape(int n_rows, int n_steps, int e, int h_dim, int tc) {
 }
 
 // the step route (above H = 1,024): step_shape_ok (bf16 E a multiple of 32
-// and H of 256); bf16: the tiles' shapes (gru_tiles_ok) and shared memory
-// -- the layout's own tiles fit a block's, whatever tile the row count then
-// takes, so the limit is one of E and H alone; float32: f32_cluster holds H
+// and H of 256); up to it the tensor-core tiles: bf16 their shapes
+// (gru_tiles_ok) and shared memory -- the layout's own tiles fit a block's,
+// whatever tile the row count then takes, so the limit is one of E and H
+// alone; float32 (split TF32) E and H multiples of 32, a cluster's ranks'
+// units of 16 (f32_cluster), whose shared memory fits
 bool shape_ok(int e, int h_dim, int dtype) {
   if (tiles::gru_route(h_dim, dtype == 1, true) == tiles::kRouteStep)
     return step_shape_ok(e, h_dim, dtype);
-  if (dtype == 0) return f32_cluster(h_dim, true) > 0;
+  int ks = 0;
+  if (dtype == 0) {
+    const int c = f32_cluster(h_dim, true);
+    if (c == 0 || e % tiles::kAlign != 0 || h_dim % tiles::kAlign != 0 ||
+        h_dim % (16 * c) != 0)
+      return false;
+    const int mt = c > 1 ? tiles::cluster_config_f32(c).mt
+                         : tiles::pick_config_f32(h_dim).mt;
+    return tiles::mma_smem(h_dim, h_dim / c, tiles::kGruGates, 16 * mt, true,
+                           c, &ks, 4) != 0;
+  }
   if (dtype != 1 || !tiles::gru_tiles_ok(e, h_dim)) return false;
   const int c = tiles::gru_cluster(h_dim);
   const int mt = c > 1 ? tiles::kClusterConfig.mt
                        : tiles::pick_config(h_dim).mt;
-  int ks = 0;
   return tiles::mma_smem(h_dim, h_dim / c, tiles::kGruGates, 16 * mt, true,
                          c, &ks) != 0;
 }
 
-// phase A, float32: exact f32 FMAs
-int launch_cell(const void* x, const void* mask, const void* w_ih,
-                const void* b_ih, const void* w_hh, const void* b_hh,
-                const void* w_ih_t, const void* w_hh_t, const void* hb,
-                const void* dout, void* dx, float* dg, float* h_prev,
-                float* act, float* db_part, const Layout& L, int n_rows,
-                int n_steps, int e, int h_dim, int reverse, int tc,
-                cudaStream_t stream) {
-  using T = float;
-  const int hc = f32_units(h_dim, true);
-  const size_t recompute = (size_t)h_dim + f32_chunk_rows(e);
-  const size_t rev = (size_t)4 * hc + (L.c > 1 ? (size_t)L.c * hc : 0);
-  const size_t smem =
-      (recompute > rev ? recompute : rev) * kStride * sizeof(float);
-  // a rank of a cluster has at most 2 * kF32Units = 256 threads
-  const int bound = row_tile_bound(kRowGroups * hc);
-  if (bound == 0 || (L.c > 1 && bound > 256)) return (int)cudaErrorInvalidValue;
-  auto* kernel = L.c > 1         ? gru_bwd_cell_kernel<T, 256, true>
-                 : bound == 256 ? gru_bwd_cell_kernel<T, 256, false>
-                 : bound == 512 ? gru_bwd_cell_kernel<T, 512, false>
-                                : gru_bwd_cell_kernel<T, 1024, false>;
-  return (int)launch_blocks(
-      kernel, L.row_blocks, L.c, kRowGroups * hc, smem, stream,
-      static_cast<const T*>(x), static_cast<const uint8_t*>(mask),
-      static_cast<const T*>(w_ih), static_cast<const T*>(b_ih),
-      static_cast<const T*>(w_hh), static_cast<const T*>(b_hh),
-      static_cast<const T*>(w_ih_t), static_cast<const T*>(w_hh_t),
-      static_cast<const float*>(hb), static_cast<const T*>(dout),
-      static_cast<T*>(dx), dg, h_prev, act, db_part, n_rows, n_steps, e,
-      h_dim, reverse, tc, hc);
-}
-
-// phase A, bfloat16: tensor cores
-template <int G, int MT, bool kCl>
+// phase A up to H = 1,024: tensor cores (float32: split TF32)
+template <typename T, int G, int MT, bool kCl>
 int launch_mma(const void* x, const void* mask, const void* w_staged,
                const void* b_ih, const void* b_hh, const void* hb,
-               const void* dout, void* dx, __nv_bfloat16* dg,
-               __nv_bfloat16* h_prev, float* act, float* db_part,
-               const Layout& L, int n_rows, int n_steps, int e, int h_dim,
-               int reverse, int tc, cudaStream_t stream) {
-  using bf16 = __nv_bfloat16;
+               const void* dout, void* dx, T* dg, T* h_prev, float* act,
+               float* db_part, const Layout& L, int n_rows, int n_steps,
+               int e, int h_dim, int reverse, int tc, cudaStream_t stream) {
   int ks = 0;
-  const size_t smem = tiles::mma_smem(h_dim, h_dim / L.c, tiles::kGruGates,
-                                      16 * MT, true, L.c, &ks);
+  const size_t smem =
+      tiles::mma_smem(h_dim, h_dim / L.c, tiles::kGruGates, 16 * MT, true,
+                      L.c, &ks, (int)sizeof(T));
   if (smem == 0) return (int)cudaErrorInvalidValue;  // H too large
   return (int)launch_blocks(
-      gru_bwd_mma_kernel<G, MT, kCl>, L.row_blocks, L.c, tiles::kThreads,
-      smem, stream, static_cast<const bf16*>(x),
-      static_cast<const uint8_t*>(mask), static_cast<const bf16*>(w_staged),
-      static_cast<const bf16*>(b_ih), static_cast<const bf16*>(b_hh),
-      static_cast<const float*>(hb), static_cast<const bf16*>(dout),
-      static_cast<bf16*>(dx), dg, h_prev, reinterpret_cast<float4*>(act),
+      gru_bwd_mma_kernel<T, G, MT, kCl>, L.row_blocks, L.c, tiles::kThreads,
+      smem, stream, static_cast<const T*>(x),
+      static_cast<const uint8_t*>(mask), static_cast<const T*>(w_staged),
+      static_cast<const T*>(b_ih), static_cast<const T*>(b_hh),
+      static_cast<const float*>(hb), static_cast<const T*>(dout),
+      static_cast<T*>(dx), dg, h_prev, reinterpret_cast<float4*>(act),
       db_part, n_rows, n_steps, e, h_dim, reverse, tc, ks);
 }
 
 template <typename T>
 int launch(const void* x, const void* mask, const void* w_ih,
            const void* b_ih, const void* w_hh, const void* b_hh,
-           const void* w_ih_t, const void* w_hh_t, const void* hb,
+           const void* w_dx, const void* w_hh_t, const void* hb,
            const void* dout, void* dx, void* dw_ih, void* db_ih, void* dw_hh,
            void* db_hh, void* workspace, int n_rows, int n_steps, int e,
            int h_dim, int reverse, int tc, int mt, cudaStream_t stream) {
-  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   const Layout L = layout(n_rows, n_steps, e, h_dim, tc, sizeof(T), mt);
   char* ws = static_cast<char*>(workspace);
   T* dg = reinterpret_cast<T*>(ws + L.dg);
@@ -1080,36 +841,50 @@ int launch(const void* x, const void* mask, const void* w_ih,
 
   if (n_rows > 0 && n_steps > 0) {
     int rc = (int)cudaErrorInvalidValue;
-    if constexpr (kMma) {
-      if (!tiles::aligned16(x) || !tiles::aligned16(w_ih) ||
-          !tiles::aligned16(hb) || !tiles::aligned16(dout) ||
-          !tiles::aligned16(dx) || !tiles::aligned16(workspace))
-        return rc;
-    }
+    // the tiles' bulk and 16-byte copies (the float32 step route reads its
+    // operands as they lie)
+    if ((kBf16 || !L.step) &&
+        (!tiles::aligned16(x) || !tiles::aligned16(w_ih) ||
+         !tiles::aligned16(hb) || !tiles::aligned16(dout) ||
+         !tiles::aligned16(dx) || !tiles::aligned16(workspace)))
+      return rc;
     if (L.step) {
       const StepBwd sb = {ws + L.hbuf, nullptr,
-                          kMma ? reinterpret_cast<float*>(ws + L.h32)
-                               : nullptr,
+                          kBf16 ? reinterpret_cast<float*>(ws + L.h32)
+                                : nullptr,
                           act, reinterpret_cast<float*>(ws + L.dh),
                           reinterpret_cast<float*>(ws + L.dhz),
                           reinterpret_cast<float*>(ws + L.partial), db_part,
                           dg, h_prev};
       rc = step_phase_a(x, mask, w_ih, b_ih, b_hh, w_hh, w_hh_t, hb, nullptr,
                         dout, sb, n_rows, n_steps, e, h_dim, reverse, tc,
-                        tiles::kGruGates, kMma ? 1 : 0, stream);
-    } else if constexpr (kMma) {
-      if (L.c > 1) {
-        rc = launch_mma<tiles::kClusterConfig.g, tiles::kClusterConfig.mt,
+                        tiles::kGruGates, kBf16 ? 1 : 0, stream);
+    } else if (L.c > 1) {
+      if constexpr (kBf16)
+        rc = launch_mma<T, tiles::kClusterConfig.g, tiles::kClusterConfig.mt,
                         true>(x, mask, w_ih, b_ih, b_hh, hb, dout, dx, dg,
                               h_prev, act, db_part, L, n_rows, n_steps, e,
                               h_dim, reverse, tc, stream);
-      } else {
-        const tiles::Config cfg = tiles::pick_config(h_dim);
-#define CAIR_GRU_BWD_CASE(G_, MT_)                                          \
-  if (cfg.g == G_ && mt == MT_)                                             \
-    rc = launch_mma<G_, MT_, false>(x, mask, w_ih, b_ih, b_hh, hb, dout, dx, \
-                                    dg, h_prev, act, db_part, L, n_rows,    \
-                                    n_steps, e, h_dim, reverse, tc, stream);
+      else if (mt == 2)
+        rc = launch_mma<T, 2, 2, true>(x, mask, w_ih, b_ih, b_hh, hb, dout,
+                                       dx, dg, h_prev, act, db_part, L,
+                                       n_rows, n_steps, e, h_dim, reverse,
+                                       tc, stream);
+      else
+        rc = launch_mma<T, 2, 1, true>(x, mask, w_ih, b_ih, b_hh, hb, dout,
+                                       dx, dg, h_prev, act, db_part, L,
+                                       n_rows, n_steps, e, h_dim, reverse,
+                                       tc, stream);
+    } else {
+      const tiles::Config cfg = kBf16 ? tiles::pick_config(h_dim)
+                                      : tiles::pick_config_f32(h_dim);
+#define CAIR_GRU_BWD_CASE(G_, MT_)                                           \
+  if (cfg.g == G_ && mt == MT_)                                              \
+    rc = launch_mma<T, G_, MT_, false>(x, mask, w_ih, b_ih, b_hh, hb, dout,  \
+                                       dx, dg, h_prev, act, db_part, L,      \
+                                       n_rows, n_steps, e, h_dim, reverse,   \
+                                       tc, stream);
+      if constexpr (kBf16) {
         CAIR_GRU_BWD_CASE(1, 4)
         CAIR_GRU_BWD_CASE(2, 4)
         CAIR_GRU_BWD_CASE(4, 2)
@@ -1117,26 +892,29 @@ int launch(const void* x, const void* mask, const void* w_ih,
         CAIR_GRU_BWD_CASE(1, 1)
         CAIR_GRU_BWD_CASE(2, 1)
         CAIR_GRU_BWD_CASE(4, 1)
-#undef CAIR_GRU_BWD_CASE
+      } else {
+        CAIR_GRU_BWD_CASE(1, 4)
+        CAIR_GRU_BWD_CASE(2, 2)
       }
-    } else {
-      rc = launch_cell(x, mask, w_ih, b_ih, w_hh, b_hh, w_ih_t, w_hh_t, hb,
-                       dout, dx, dg, h_prev, act, db_part, L, n_rows, n_steps,
-                       e, h_dim, reverse, tc, stream);
+#undef CAIR_GRU_BWD_CASE
     }
     if (rc != 0) return rc;
     if (L.c > 1 || L.step) {
       // phase C: a cluster's (the step route's) dx = slots 0..2 @ W_ih^T
-      // (rows of four slots)
-      err = launch_matmul<T>(dg, g4, static_cast<const T*>(w_ih_t), n, e, g3,
-                             static_cast<T*>(dx), stream);
+      // (rows of four slots); float32 reads W_ih as it lies
+      if constexpr (kBf16)
+        err = launch_matmul(dg, g4, static_cast<const T*>(w_dx), n, e, g3,
+                            static_cast<T*>(dx), stream);
+      else
+        err = launch_matmul_tf32(dg, g4, static_cast<const float*>(w_dx), g3,
+                                 n, e, g3, static_cast<float*>(dx), stream);
       if (err != cudaSuccess) return (int)err;
     }
   }
 
   const Splits sp = {L.splits, L.rows_per_split};
-  // bf16 operands go through the tensor-core tiles, float32 stays on exact
-  // f32 FMAs (launch_wgrad_partial).  dW_ih [E, 3H] from slots 0..2
+  // dW_ih [E, 3H] from slots 0..2 (launch_wgrad_partial: tensor-core tiles,
+  // float32 in split TF32)
   err = launch_wgrad_partial<T>(static_cast<const T*>(x), e, dg, g3, g4, n,
                                 sp, part_ih, g3, 0, stream);
   if (err != cudaSuccess) return (int)err;
@@ -1162,18 +940,23 @@ int launch(const void* x, const void* mask, const void* w_ih,
   return (int)cudaGetLastError();
 }
 
-// The 16-row tiles per block of phase A for these arguments (0: float32's
-// row-tile kernel, or the step route's), or -1 if they are invalid: float32
-// and the step route take no tile choice; bfloat16 needs the tiles' shapes
-// (shape_ok).
+// The 16-row tiles per block of phase A for these arguments (0 on the step
+// route), or -1 if they are invalid: float32 and the step route take no
+// tile choice (row_tiles 0; float32 pick_config_f32's, a cluster's ranks
+// 1); bfloat16 needs the tiles' shapes (shape_ok).
 int row_tiles_of(int n_rows, int n_steps, int e, int h_dim, int tc,
                  int dtype, int row_tiles) {
   if (!valid_shape(n_rows, n_steps, e, h_dim, tc) ||
       !shape_ok(e, h_dim, dtype))
     return -1;
-  if (dtype == 0 ||
-      tiles::gru_route(h_dim, dtype == 1, true) == tiles::kRouteStep)
+  if (tiles::gru_route(h_dim, dtype == 1, true) == tiles::kRouteStep)
     return row_tiles == 0 ? 0 : -1;
+  if (dtype == 0) {
+    if (row_tiles != 0) return -1;
+    const int c = f32_cluster(h_dim, true);
+    return c > 1 ? tiles::cluster_config_f32(c).mt
+                 : tiles::pick_config_f32(h_dim).mt;
+  }
   return bwd_row_tiles(h_dim, n_rows, row_tiles);
 }
 
@@ -1193,23 +976,25 @@ extern "C" long long cair_gru_bwd_workspace(int n_rows, int n_steps, int e,
 }
 
 // Kernel 9.  x [B, T, E], mask uint8 [B, T], w_ih [E, 3H], b_ih [3H],
-// w_hh [H, 3H], b_hh [3H], w_ih_t [3H, E] and w_hh_t [3H, H] (the
-// transposes), hb float32 [ceil(T / tc), B, H] from cair_gru_fwd_res, dout
-// [B, T, H] -> dx [B, T, E], dw_ih [E, 3H], db_ih [3H], dw_hh [H, 3H],
-// db_hh [3H]; one dtype for all but mask and hb; `workspace` holds
-// cair_gru_bwd_workspace(...) bytes.  bfloat16: `w_ih` points at the staged
-// weights as cair_gru_fwd (cair_gru_step) takes them (one matrix a rank of
-// the cluster above H = 448, a unit tile of 256 above H = 1,024), `w_ih_t`
-// is read by a cluster's (the step route's) dx product alone, and `w_hh`,
-// `w_hh_t` are not read; E and H are multiples of 32 (64 in a cluster of
-// 4, 256 on the step route); row_tiles is 0 (the rule of bwd_row_tiles),
-// 1 or the tiles' own (for timing; the step route takes 0).  float32 reads
-// both transposes (w_ih_t in phase C above H = 403); row_tiles is 0.
-// Returns the first cudaError_t (0 on success).
+// w_hh [H, 3H], b_hh [3H], w_dx and w_hh_t [3H, H] (W_hh's transpose), hb
+// float32 [ceil(T / tc), B, H] from cair_gru_fwd_res, dout [B, T, H] ->
+// dx [B, T, E], dw_ih [E, 3H], db_ih [3H], dw_hh [H, 3H], db_hh [3H]; one
+// dtype for all but mask and hb; `workspace` holds
+// cair_gru_bwd_workspace(...) bytes.  Up to H = 1,024 (both dtypes) and
+// on the bf16 step route, `w_ih` points at the staged weights as
+// cair_gru_fwd (cair_gru_step) takes them (one matrix a rank of a cluster
+// -- bf16 above H = 448, float32 above 256 -- or a unit tile of 256), and
+// `w_hh`, `w_hh_t` are not read; E and H are multiples of 32 (bf16 64 in
+// a cluster of 4, float32 16 C in a cluster of C, 256 on the bf16 step
+// route); the float32 step route reads w_ih and w_hh as given and w_hh_t.
+// `w_dx` is read by a cluster's (the step route's) dx product alone: bf16
+// W_ih^T [3H, E], float32 W_ih itself.  row_tiles: bf16 0 (the rule of
+// bwd_row_tiles), 1 or the tiles' own (for timing; the step route takes
+// 0); float32 0.  Returns the first cudaError_t (0 on success).
 extern "C" int cair_gru_bwd(const void* x, const void* mask,
                             const void* w_ih, const void* b_ih,
                             const void* w_hh, const void* b_hh,
-                            const void* w_ih_t, const void* w_hh_t,
+                            const void* w_dx, const void* w_hh_t,
                             const void* hb, const void* dout, void* dx,
                             void* dw_ih, void* db_ih, void* dw_hh,
                             void* db_hh, void* workspace, int n_rows,
@@ -1220,10 +1005,10 @@ extern "C" int cair_gru_bwd(const void* x, const void* mask,
   if (mt < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(x, mask, w_ih, b_ih, w_hh, b_hh, w_ih_t, w_hh_t, hb,
+    return launch<float>(x, mask, w_ih, b_ih, w_hh, b_hh, w_dx, w_hh_t, hb,
                          dout, dx, dw_ih, db_ih, dw_hh, db_hh, workspace,
-                         n_rows, n_steps, e, h_dim, reverse, tc, 0, s);
-  return launch<__nv_bfloat16>(x, mask, w_ih, b_ih, w_hh, b_hh, w_ih_t,
+                         n_rows, n_steps, e, h_dim, reverse, tc, mt, s);
+  return launch<__nv_bfloat16>(x, mask, w_ih, b_ih, w_hh, b_hh, w_dx,
                                w_hh_t, hb, dout, dx, dw_ih, db_ih, dw_hh,
                                db_hh, workspace, n_rows, n_steps, e, h_dim,
                                reverse, tc, mt, s);

@@ -74,14 +74,38 @@
 // sums wait in the workspace, so the recompute's accumulators keep their
 // registers.
 //
-// float32 keeps exact f32 FMAs (no TF32) on the first version's layout
-// (lstm_bwd_cell_kernel: one block per 32 rows, thread (rg, j) owning unit
-// j of 16 rows, six activation planes, host-made transposes of the weights
-// for the dx and dh products, x staged in chunks of kF32Chunk k-rows) and
-// wgrad_partial_kernel; above H = 403 its units split over a cluster of up
-// to 8 blocks by the same scheme (dh's partials in rank order, dx in phase
-// C by exact f32 FMAs).
-//
+// float32 (the configuration's default dtype) runs the same kernel,
+// lstm_bwd_mma_kernel<float>, on split-TF32 tiles (tf32_mma.cuh): every
+// product -- the recompute's [x_t | h] @ W, the reverse pass's dgates_c @
+// W^T, phase B's dW and a cluster's phase C -- is `mma.sync.m16n8k8` TF32
+// tiles on operands split where their fragments are loaded, hi = tf32(v)
+// and lo = v - hi, three products a tile (lo*hi, hi*lo, hi*hi; about 21 of
+// float32's 24 bits), in a fixed order.  What bounds it: at the doc
+// encoder's shape -> 128, 5.66e11 flops in split TF32's 495 / 3 = 165
+// TFLOP/s, 3.43 ms; bound by operations.  What the design does about it:
+// the bf16 layout with f32 operands -- the weights staged f32, one matrix
+// a rank (stage_lstm_weights), streamed through the bulk-copy ring in
+// slabs of 32, 16 or 8 k-rows (f32 doubles a slab's bytes), the dgates
+// tile f32, the slabs read untransposed by `ldmatrix` in the reverse pass
+// and by two scalar loads a lane in the recompute (no transposing
+// `ldmatrix` exists for 32-bit elements), so no transposed weights exist;
+// one block of 64 or 32 rows (pick_config_f32) up to H = 128, then
+// clusters of ranks of at most 128 units (f32_cluster, cluster_config_f32:
+// 2 or 4 ranks of 32 rows to 512, 8 of 16 rows to 1,024; dh partials in
+// rank order, dx in phase C against W_ih read as it lies): more rows a
+// block stream the weights for more rows (phase A moves about 2 TB/s of
+// slabs from L2, PERF.md).
+// The reverse pass's few output tiles a slab (one of 16 x 8 in an 8-row
+// slab) split their k extent over the warps they leave idle, partials
+// added in warp order, small and large terms and even and odd k steps in
+// accumulators of their own (tf32_rev_product), so no dependent chain of
+// `mma`s is long.  The cell update and its gradient keep exact expf /
+// tanhf in f32.  The recompute may differ from kernel 4's forward (exact
+// f32 FMAs, lstm_fwd.cu) by float32 rounding (about 1e-7), as the plain
+// version recomputes by its own arithmetic too.  What holds it now: the
+// slab hand-overs (an mbarrier wait and one or two barriers a slab, the
+// slabs half as deep as bf16's) with one block of 8 warps an SM (PERF.md).
+
 // Above H = 1,024, in both dtypes, phase A takes the step route
 // (lstm_step.cu: the recompute a launch a step, the reverse pass two, with
 // each unit tile's dh partial added in tile order), and phases B and C run
@@ -94,266 +118,6 @@
 namespace {
 
 using namespace cair_lstm;
-
-constexpr int kSaved = 6;  // per step: i, f, g, o, c_prev, c_new
-
-// kBound: the launch bound (row_tile_bound).  A block has 2 * hc threads and
-// owns units rank*hc .. rank*hc + hc - 1 of a cluster of ceil(H / hc) blocks
-// (kCl; else hc = H: one block).  Shared memory, recompute: h of all H units
-// [H][kStride] | the x chunk; reverse pass: the block's dgates
-// [4 hc][kStride] | in a cluster, the dh partials of its units from every
-// rank [C][hc][kStride].
-template <typename T, int kBound, bool kCl>
-__global__ void __launch_bounds__(kBound)
-lstm_bwd_cell_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
-                     const T* __restrict__ w_ih, const T* __restrict__ bias,
-                     const T* __restrict__ w_hh, const T* __restrict__ w_ih_t,
-                     const T* __restrict__ w_hh_t, const float* __restrict__ hb,
-                     const float* __restrict__ cb, const T* __restrict__ dout,
-                     T* __restrict__ dx, T* __restrict__ dgates_ws,
-                     T* __restrict__ h_prev_ws, float* __restrict__ act,
-                     float* __restrict__ db_part, int n_rows, int n_steps,
-                     int e, int h_dim, int reverse, int tc, int hc) {
-  extern __shared__ float4 smem4[];
-  float* tile = reinterpret_cast<float*>(smem4);
-  float* ht = tile;
-  float* xt = tile + (size_t)h_dim * kStride;
-  float* exch = tile + (size_t)4 * hc * kStride;
-
-  constexpr bool cl = kCl;
-  const int n_ranks = cl ? (int)tiles::cluster_size() : 1;
-  const int rank = cl ? (int)tiles::cluster_rank() : 0;
-  const int j = threadIdx.x % hc;
-  const int rg = threadIdx.x / hc;
-  const int unit = rank * hc + j;
-  const bool active = !cl || unit < h_dim;
-  const int own = min(hc, h_dim - rank * hc);  // the block's real units
-  const int row0 = (blockIdx.x / n_ranks) * kRows;
-  const int my_row0 = row0 + rg * kRowsPerThread;
-  const int g4 = 4 * h_dim;
-  const int n_chunks = (n_steps + tc - 1) / tc;
-  const size_t act_step = (size_t)kSaved * kRows * hc;
-  const size_t plane = (size_t)kRows * hc;
-  float* my_act = act + (size_t)blockIdx.x * tc * act_step;
-
-  float bg[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g)
-    bg[g] = active ? to_f32(bias[g * h_dim + unit]) : 0.0f;
-  float dh[kRowsPerThread], dc[kRowsPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    dh[i] = 0.0f;
-    dc[i] = 0.0f;
-  }
-  float dbs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-
-  for (int q = 0; q < n_chunks; ++q) {
-    // chunks in the reverse of the forward's processing order
-    const int chunk = reverse ? q : n_chunks - 1 - q;
-    const int t_lo = chunk * tc;
-    const int len = min(tc, n_steps - t_lo);
-
-    // --- recompute the forward inside the chunk from its boundary -------
-    __syncthreads();  // the last reverse step is done with the tile
-    float h[kRowsPerThread], c[kRowsPerThread];
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int row = my_row0 + i;
-      const size_t at = ((size_t)chunk * n_rows + row) * h_dim + unit;
-      h[i] = active && row < n_rows ? hb[at] : 0.0f;
-      c[i] = active && row < n_rows ? cb[at] : 0.0f;
-    }
-    for (int idx = threadIdx.x; idx < kRows * h_dim; idx += blockDim.x) {
-      const int r = idx / h_dim;
-      const int u = idx - r * h_dim;
-      const int row = row0 + r;
-      ht[(size_t)u * kStride + r] =
-          row < n_rows
-              ? round_to<T>(hb[((size_t)chunk * n_rows + row) * h_dim + u])
-              : 0.0f;
-    }
-    // the tile is whole; in a cluster, every rank is done with its reverse
-    // pass (the other ranks' h writes below land in the same space)
-    f32_sync(cl);
-    for (int k = 0; k < len; ++k) {
-      const int t = reverse ? t_lo + len - 1 - k : t_lo + k;
-      float acc[4][kRowsPerThread];
-      gate_preacts<T>(acc, xt, ht, x, w_ih, w_hh, bg, row0, n_rows, n_steps,
-                      t, e, h_dim, unit, rg, active);
-      f32_sync(cl);  // every block of the cluster is done reading its h tile
-      float* a_k = my_act + k * act_step;
-      float hr[kRowsPerThread];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) {
-        const int row = my_row0 + i;
-        if (active && row < n_rows) {
-          const size_t pos = (size_t)row * n_steps + t;
-          const float ig = sigmoid_f32(acc[0][i]);
-          const float fg = sigmoid_f32(acc[1][i]);
-          const float gg = tanhf(acc[2][i]);
-          const float og = sigmoid_f32(acc[3][i]);
-          const float c_new = fg * c[i] + ig * gg;
-          const float h_new = og * tanhf(c_new);
-          h_prev_ws[pos * h_dim + unit] = from_f32<T>(h[i]);
-          const size_t r = (size_t)(rg * kRowsPerThread + i) * hc + j;
-          a_k[r] = ig;
-          a_k[plane + r] = fg;
-          a_k[2 * plane + r] = gg;
-          a_k[3 * plane + r] = og;
-          a_k[4 * plane + r] = c[i];
-          a_k[5 * plane + r] = c_new;
-          if (mask[pos] != 0) {
-            h[i] = h_new;
-            c[i] = c_new;
-          }
-        }
-        hr[i] = round_to<T>(h[i]);
-      }
-      if (active) store_rows_all(ht, unit, rg, hr, cl ? n_ranks : 0);
-      // the h tiles are whole (a single block: the next step's x staging
-      // ends in a __syncthreads before h is read; after the last step the
-      // reverse pass's dgates take the tile's place)
-      if (cl || k + 1 == len) f32_sync(cl);
-    }
-
-    // --- reverse pass over the chunk --------------------------------------
-    for (int k = len - 1; k >= 0; --k) {
-      const int t = reverse ? t_lo + len - 1 - k : t_lo + k;
-      const float* a_k = my_act + k * act_step;
-      float dg[4][kRowsPerThread];
-      uint32_t valid = 0;  // bit i: row i is real and step t unmasked
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) {
-        const int row = my_row0 + i;
-        float d0 = 0.0f, d1 = 0.0f, d2 = 0.0f, d3 = 0.0f;
-        if (active && row < n_rows) {
-          const size_t pos = (size_t)row * n_steps + t;
-          if (mask[pos] != 0) {
-            valid |= 1u << i;
-            const size_t r = (size_t)(rg * kRowsPerThread + i) * hc + j;
-            const float ig = a_k[r];
-            const float fg = a_k[plane + r];
-            const float gg = a_k[2 * plane + r];
-            const float og = a_k[3 * plane + r];
-            const float c_prev = a_k[4 * plane + r];
-            const float c_new = a_k[5 * plane + r];
-            const float dh_new = to_f32(dout[pos * h_dim + unit]) + dh[i];
-            const float tanh_c = tanhf(c_new);
-            const float do_ = dh_new * tanh_c;
-            const float dcn = dc[i] + dh_new * og * (1.0f - tanh_c * tanh_c);
-            d0 = dcn * gg * ig * (1.0f - ig);
-            d1 = dcn * c_prev * fg * (1.0f - fg);
-            d2 = dcn * ig * (1.0f - gg * gg);
-            d3 = do_ * og * (1.0f - og);
-            dc[i] = dcn * fg;
-          }
-          T* dst = dgates_ws + pos * g4 + unit;
-          dst[0] = from_f32<T>(d0);
-          dst[h_dim] = from_f32<T>(d1);
-          dst[2 * h_dim] = from_f32<T>(d2);
-          dst[3 * h_dim] = from_f32<T>(d3);
-        }
-        dg[0][i] = d0;
-        dg[1][i] = d1;
-        dg[2][i] = d2;
-        dg[3][i] = d3;
-      }
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        float v[kRowsPerThread];
-#pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i) {
-          dbs[g] += dg[g][i];
-          v[i] = round_to<T>(dg[g][i]);
-        }
-        store_rows(tile, g * hc + j, rg, v);
-      }
-      // the dgates tile is whole; in a cluster, every rank is done reading
-      // its dh partials of the step before
-      f32_sync(cl);
-
-      if constexpr (!cl) {
-        // dh = (1 - m) dh + dgates_c @ W_hh^T (the product is 0 where m = 0)
-        {
-          float acc[1][kRowsPerThread];
-#pragma unroll
-          for (int i = 0; i < kRowsPerThread; ++i) acc[0][i] = 0.0f;
-          dot_rows<1, T>(acc, tile, 0, rg, w_hh_t + j, g4, h_dim, 0);
-#pragma unroll
-          for (int i = 0; i < kRowsPerThread; ++i)
-            if (valid & (1u << i)) dh[i] = acc[0][i];
-        }
-        // dx_t = dgates_c @ W_ih^T, columns j, j + H, ...
-        for (int col = j; col < e; col += h_dim) {
-          float acc[1][kRowsPerThread];
-#pragma unroll
-          for (int i = 0; i < kRowsPerThread; ++i) acc[0][i] = 0.0f;
-          dot_rows<1, T>(acc, tile, 0, rg, w_ih_t + col, g4, e, 0);
-#pragma unroll
-          for (int i = 0; i < kRowsPerThread; ++i) {
-            const int row = my_row0 + i;
-            if (row < n_rows)
-              dx[((size_t)row * n_steps + t) * e + col] =
-                  from_f32<T>(acc[0][i]);
-          }
-        }
-      } else {
-        // the block's share of dh = dgates_c @ W_hh^T for every unit: unit
-        // m*hc + j goes to rank m's tile of partials, row rank*hc + j; dx is
-        // phase C's product
-        for (int m = 0; m < n_ranks; ++m) {
-          const int u = m * hc + j;
-          if (u >= h_dim) continue;
-          float acc[1][kRowsPerThread];
-#pragma unroll
-          for (int i = 0; i < kRowsPerThread; ++i) acc[0][i] = 0.0f;
-#pragma unroll
-          for (int g = 0; g < 4; ++g)
-            dot_rows<1, T>(acc, tile, g * hc, rg,
-                           w_hh_t + ((size_t)g * h_dim + rank * hc) * h_dim + u,
-                           own, h_dim, 0);
-          const uint32_t a = tiles::map_rank(
-              exch + (size_t)(rank * hc + j) * kStride + rg * kRowsPerThread,
-              m);
-#pragma unroll
-          for (int p = 0; p < kRowsPerThread / 4; ++p)
-            tiles::st_cluster_f4(a + 16 * p,
-                                 make_float4(acc[0][4 * p], acc[0][4 * p + 1],
-                                             acc[0][4 * p + 2],
-                                             acc[0][4 * p + 3]));
-        }
-        f32_sync(cl);  // every partial of the block's units has arrived
-        // the partials added in rank order
-#pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i) {
-          if (valid & (1u << i)) {
-            float v = 0.0f;
-            for (int src = 0; src < n_ranks; ++src)
-              v += exch[(size_t)(src * hc + j) * kStride + rg * kRowsPerThread +
-                        i];
-            dh[i] = v;
-          }
-        }
-      }
-      __syncthreads();  // the next step overwrites the staged dgates
-    }
-  }
-
-  // per-block db: the two row groups' sums, in a fixed order
-  const int gc = 4 * hc;
-#pragma unroll
-  for (int g = 0; g < 4; ++g) tile[rg * gc + g * hc + j] = dbs[g];
-  __syncthreads();
-  if (rg == 0 && active) {
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      const int col = g * hc + j;
-      db_part[(size_t)(blockIdx.x / n_ranks) * g4 + g * h_dim + unit] =
-          tile[col] + tile[gc + col];
-    }
-  }
-}
 
 // Phase A on bf16 tensor cores (see the header note).  Shared memory:
 // weight ring (mbarriers, slabs, x slots) | union of {h tile (two in a
@@ -374,35 +138,38 @@ __host__ __device__ constexpr int park_slots(int g, int mt) {
   return 2 * mt * g + 2 * g;
 }
 
-template <int G, int MT, bool kCl>
+template <typename T, int G, int MT, bool kCl>
 __global__ void __launch_bounds__(tiles::kThreads, 1)
-lstm_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                    const uint8_t* __restrict__ mask,
-                    const __nv_bfloat16* __restrict__ w_staged,
-                    const __nv_bfloat16* __restrict__ bias,
+lstm_bwd_mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
+                    const T* __restrict__ w_staged, const T* __restrict__ bias,
                     const float* __restrict__ hb, const float* __restrict__ cb,
-                    const __nv_bfloat16* __restrict__ dout,
-                    __nv_bfloat16* __restrict__ dx,
-                    __nv_bfloat16* __restrict__ dgates_ws,
-                    __nv_bfloat16* __restrict__ h_prev_ws,
+                    const T* __restrict__ dout, T* __restrict__ dx,
+                    T* __restrict__ dgates_ws, T* __restrict__ h_prev_ws,
                     float4* __restrict__ act, float* __restrict__ db_part,
                     int n_rows, int n_steps, int e, int h_dim, int reverse,
                     int tc, int ks) {
   using namespace tiles;
+  using E = Elt<T>;
+  constexpr int kE = (int)sizeof(T);  // bytes an element
+  constexpr int kPer = 16 / kE;       // elements a 16-byte copy
+  // ranks a cluster may have: bf16 lstm_cluster / gru_cluster, float32
+  // f32_cluster
+  constexpr int kMaxC = kE == 4 ? kF32MaxRanks : 4;
   extern __shared__ __align__(16) char smem[];
   constexpr int M = 16 * MT;
   const int n_ranks = kCl ? (int)cluster_size() : 1;
   const int rank = kCl ? (int)cluster_rank() : 0;
   const int hc = h_dim / n_ranks, u_off = rank * hc;
-  const int hs = h_stride(h_dim);
-  const int ws = w_stride(hc, kLstmGates);
+  const int hs = h_stride(h_dim, kE);
+  const int ws = w_stride(hc, kLstmGates, kE);
+  const int ss = slot_stride(hc, kE);  // the dgates tile (bf16: ws)
   const int g4 = 4 * h_dim, gc = 4 * hc;
   const int ex_ld = (kCl ? hc : h_dim) + 8;  // floats per row of dh's tile
   const int row0 = (blockIdx.x / n_ranks) * M;
   // a cluster's reverse pass streams the h slabs alone (kHOnly)
   constexpr int kRev = kCl ? kHOnly : kNoX;
-  WeightRing ring;
-  ring.init(smem, w_staged + (size_t)rank * (e + h_dim) * (ws / 2), x, e,
+  WeightRingT<T> ring;
+  ring.init(smem, w_staged + (size_t)rank * (e + h_dim) * (ws / kE), x, e,
             h_dim, hc, kLstmGates, ks, kCl ? n_steps : 2 * n_steps, row0, M,
             n_rows, n_steps, kCl ? n_steps : 0);
   char* uni = ring.end();
@@ -411,12 +178,14 @@ lstm_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
   h_buf[1] = uni + (kCl ? M * hs : 0);
   char* dg_tile = uni;
   const size_t staged =
-      staged_bytes(h_dim, hc, kLstmGates, M, true, n_ranks);
+      staged_bytes(h_dim, hc, kLstmGates, M, true, n_ranks, kE);
   float* exch = reinterpret_cast<float*>(
-      kCl ? uni + M * slot_stride(hc) : uni + staged);
+      kCl ? uni + M * ss : uni + staged);
   float* bias_s = reinterpret_cast<float*>(
       uni + staged + (kCl ? 0 : exch_bytes(h_dim, M)));
-  uint32_t exch_at[4] = {0, 0, 0, 0};  // exch in each rank of the cluster
+  // float32: the reverse products' partials of the warps of a tile
+  float* red = bias_s + gc;
+  uint32_t exch_at[kMaxC] = {};  // exch in each rank of the cluster
   if constexpr (kCl)
     for (int q = 0; q < n_ranks; ++q) exch_at[q] = map_rank(exch, q);
 
@@ -434,7 +203,7 @@ lstm_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
   float4* park = my_act + (size_t)tc * kSlots * kThreads;
 
   for (int i = threadIdx.x; i < gc; i += kThreads)
-    bias_s[i] = __bfloat162float(bias[(i / hc) * h_dim + u_off + i % hc]);
+    bias_s[i] = to_f32(bias[(i / hc) * h_dim + u_off + i % hc]);
 
   // the reverse pass's carried state (defined anew at each reverse pass:
   // zeros, or what the last one parked)
@@ -490,8 +259,7 @@ lstm_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
       if (row0 + r < n_rows)
         hv = *reinterpret_cast<const float2*>(
             hb + ((size_t)chunk * n_rows + row0 + r) * h_dim + u);
-      *reinterpret_cast<bf162*>(h_buf[0] + r * hs + u * 2) =
-          __floats2bfloat162_rn(hv.x, hv.y);
+      E::store2(h_buf[0] + r * hs + u * kE, hv.x, hv.y);
     }
     // a cluster: every rank is done with its reverse pass before the other
     // ranks' h lands in the union (a single block: the first slab's
@@ -518,22 +286,22 @@ lstm_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
             if (kCl && k > 0) cluster_wait();  // the other ranks' h
             // h before this step, rounded, of the block's units: phase B's
             // operand for dW_hh
-            const int cpr = hc / 8;
+            const int cpr = hc / kPer;
             for (int idx = threadIdx.x; idx < M * cpr; idx += kThreads) {
               const int r = idx / cpr, cc = idx - r * cpr;
               if (row0 + r < n_rows)
                 *reinterpret_cast<uint4*>(
                     h_prev_ws + ((size_t)(row0 + r) * n_steps + t) * h_dim +
-                    u_off + cc * 8) =
+                    u_off + cc * kPer) =
                     *reinterpret_cast<const uint4*>(h_cur + r * hs +
-                                                    (u_off + cc * 8) * 2);
+                                                    (u_off + cc * kPer) * kE);
             }
           });
       // a single block rewrites its h tile in place: every warp must have
       // read it; a cluster writes the other tile
       if constexpr (!kCl) __syncthreads();
       const bool send = kCl && k + 1 < len;
-      uint32_t dst[4] = {0, 0, 0, 0};  // the next h tile in each rank
+      uint32_t dst[kMaxC] = {};  // the next h tile in each rank
       if (send)
         for (int p = 0; p < n_ranks; ++p)
           dst[p] = map_rank(h_buf[(k + 1) & 1], p);
@@ -570,21 +338,14 @@ lstm_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
               const bool m = mb >> (mt * 2 + half) & 1u;
               const int r = mt * 16 + g + half * 8;
               const int col = u_off + unit;
-              const bf162 v =
-                  __floats2bfloat162_rn(hn[half * 2], hn[half * 2 + 1]);
               if constexpr (kCl) {
-                if (send) {
-                  const bf162 keep =
-                      m ? v
-                        : *reinterpret_cast<const bf162*>(h_cur + r * hs +
-                                                          col * 2);
-                  const uint32_t bits =
-                      *reinterpret_cast<const uint32_t*>(&keep);
+                if (send)
                   for (int p = 0; p < n_ranks; ++p)
-                    st_cluster_b32(dst[p] + r * hs + col * 2, bits);
-                }
+                    E::send2(dst[p] + r * hs + col * kE, m, hn[half * 2],
+                             hn[half * 2 + 1], h_cur + r * hs + col * kE);
               } else if (m) {
-                *reinterpret_cast<bf162*>(h_buf[0] + r * hs + col * 2) = v;
+                E::store2(h_buf[0] + r * hs + col * kE, hn[half * 2],
+                          hn[half * 2 + 1]);
               }
             }
           }
@@ -659,10 +420,9 @@ lstm_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
               for (int half = 0; half < 2; ++half)
                 if (mb >> (mt * 2 + half) & 1u) {
                   const int r = mt * 16 + g + half * 8;
-                  const float2 dov = __bfloat1622float2(
-                      *reinterpret_cast<const bf162*>(
-                          dout + ((size_t)(row0 + r) * n_steps + t) * h_dim +
-                          u_off + unit));
+                  const float2 dov = E::load2(
+                      dout + ((size_t)(row0 + r) * n_steps + t) * h_dim +
+                      u_off + unit);
 #pragma unroll
                   for (int u = 0; u < 2; ++u) {
                     const int i = half * 2 + u;
@@ -687,10 +447,9 @@ lstm_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
               dbs[gi][qq][1] += d[qq][1] + d[qq][3];
 #pragma unroll
               for (int half = 0; half < 2; ++half)
-                *reinterpret_cast<bf162*>(dg_tile +
-                                          (mt * 16 + g + half * 8) * ws +
-                                          (qq * hc + unit) * 2) =
-                    __floats2bfloat162_rn(d[qq][half * 2], d[qq][half * 2 + 1]);
+                E::store2(dg_tile + (mt * 16 + g + half * 8) * ss +
+                              (qq * hc + unit) * kE,
+                          d[qq][half * 2], d[qq][half * 2 + 1]);
             }
           }
         }
@@ -699,26 +458,26 @@ lstm_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
       // dgates_c of (row, t) for phase B: a single block's rows are whole
       // rows of the workspace; a rank's are its columns of each gate
       if constexpr (kCl) {
-        const int cpr = hc / 8;
+        const int cpr = hc / kPer;
         for (int idx = threadIdx.x; idx < M * 4 * cpr; idx += kThreads) {
           const int r = idx / (4 * cpr), rest = idx - r * 4 * cpr;
           const int qq = rest / cpr, cc = rest - qq * cpr;
           if (row0 + r < n_rows)
             *reinterpret_cast<uint4*>(
                 dgates_ws + ((size_t)(row0 + r) * n_steps + t) * g4 +
-                qq * h_dim + u_off + cc * 8) =
-                *reinterpret_cast<const uint4*>(dg_tile + r * ws +
-                                                (qq * hc + cc * 8) * 2);
+                qq * h_dim + u_off + cc * kPer) =
+                *reinterpret_cast<const uint4*>(dg_tile + r * ss +
+                                                (qq * hc + cc * kPer) * kE);
         }
       } else {
-        const int cpr = g4 / 8;
+        const int cpr = g4 / kPer;
         for (int idx = threadIdx.x; idx < M * cpr; idx += kThreads) {
           const int r = idx / cpr, cc = idx - r * cpr;
           if (row0 + r < n_rows)
             *reinterpret_cast<uint4*>(
                 dgates_ws + ((size_t)(row0 + r) * n_steps + t) * g4 +
-                cc * 8) =
-                *reinterpret_cast<const uint4*>(dg_tile + r * ws + cc * 16);
+                cc * kPer) =
+                *reinterpret_cast<const uint4*>(dg_tile + r * ss + cc * 16);
         }
       }
       // a cluster: every rank is done reading its dh partials of the step
@@ -730,53 +489,97 @@ lstm_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
       // a cluster a block's dgates are those of its units, so its products
       // are partials: dx is left to phase C, and the dh partial of unit u
       // goes to rank u / hc, into its row block of this rank.
-      const int b_n = (lane & 7) + (lane >> 4) * 8, b_k = ((lane >> 3) & 1) * 8;
+      // a lane's row of the two n-tiles' B fragments and its byte offset
+      const int b_n = (lane & 7) + (lane >> 4) * 8, b_k = ((lane >> 3) & 1) * 16;
+      // 16-column groups of a slab (float32's slabs of 8 k-rows: one n-tile)
+      const bool one = kE == 4 && ks == 8;
+      const int n_np = one ? 1 : ks / 16;
+      const int units = MT * n_np;       // output tiles of a slab
+      const int parts = kE == 4 ? kWarps / units : 1;
       for (int sl = ring.first_slab(kRev); sl < ring.n_slabs; ++sl, ++n) {
         const char* slab = ring.acquire(n, sl, kRev, t_next);
         cp_async_commit();
         const int k0 = sl * ks;
         const bool is_x = k0 < e;
         const int col0 = is_x ? k0 : k0 - e;
-        for (int wu = warp; wu < MT * (ks / 16); wu += kWarps) {
+        // a warp takes a tile of 16 rows x 16 columns (8 in float32's
+        // 8-row slabs); float32 splits a tile's k extent over the warps the
+        // tiles leave idle, `parts` a tile, whose partials the first adds in
+        // warp order through `red`
+        if (warp < units * parts) {
+          const int wu = warp % units, part = warp / units;
           const int mt = wu % MT, np = wu / MT;
+          const int k_steps = gc / E::kK;
+          const int k_lo = part * k_steps / parts * E::kK;
+          const int k_hi = (part + 1) * k_steps / parts * E::kK;
           float o[2][4];
 #pragma unroll
           for (int j = 0; j < 2; ++j)
 #pragma unroll
             for (int i = 0; i < 4; ++i) o[j][i] = 0.0f;
           const char* a_base =
-              dg_tile + (mt * 16 + (lane & 15)) * ws + (lane >> 4) * 16;
-          const char* b_base = slab + (np * 16 + b_n) * ws + b_k * 2;
+              dg_tile + (mt * 16 + (lane & 15)) * ss + (lane >> 4) * 16;
+          const char* b_base = slab + (np * 16 + b_n) * ws + b_k;
+          if constexpr (kE == 4) {
+            tf32_rev_product(o, a_base, b_base, k_lo, k_hi, one,
+                             [](int kk) { return kk; });
+          } else {
 #pragma unroll 4
-          for (int kk = 0; kk < gc; kk += 16) {
-            uint32_t af[4], bfr[4];
-            ldsm_x4(af, a_base + kk * 2);
-            ldsm_x4(bfr, b_base + kk * 2);
-            mma_bf16(o[0], af, bfr[0], bfr[1]);
-            mma_bf16(o[1], af, bfr[2], bfr[3]);
-          }
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              const int r = mt * 16 + g + half * 8;
-              const int col = col0 + np * 16 + j * 8 + 2 * tg;
-              if constexpr (kCl) {
-                const int owner = col / hc;
-                st_cluster_f2(exch_at[owner] +
-                                  ((rank * M + r) * ex_ld + col - owner * hc) *
-                                      4,
-                              o[j][half * 2], o[j][half * 2 + 1]);
-              } else if (is_x) {
-                if (row0 + r < n_rows)
-                  *reinterpret_cast<bf162*>(
-                      dx + ((size_t)(row0 + r) * n_steps + t) * e + col) =
-                      __floats2bfloat162_rn(o[j][half * 2], o[j][half * 2 + 1]);
-              } else {
-                *reinterpret_cast<float2*>(exch + r * ex_ld + col) =
-                    make_float2(o[j][half * 2], o[j][half * 2 + 1]);
-              }
+            for (int kk = k_lo; kk < k_hi; kk += E::kK) {
+              uint32_t af[4], bfr[4];
+              ldsm_x4(af, a_base + kk * 2);
+              ldsm_x4(bfr, b_base + kk * 2);
+              mma_bf16(o[0], af, bfr[0], bfr[1]);
+              mma_bf16(o[1], af, bfr[2], bfr[3]);
             }
+          }
+          if (parts > 1) {
+            // the partials of the warps past the first part, warp order
+            if (part > 0) {
+              float4* mine = reinterpret_cast<float4*>(red) +
+                             ((warp - units) * 32 + lane) * 2;
+              mine[0] = f4_of(o[0]);
+              mine[1] = f4_of(o[1]);
+            }
+            __syncthreads();
+            if (part == 0)
+              for (int p = 1; p < parts; ++p) {
+                const float4* src = reinterpret_cast<const float4*>(red) +
+                                    (((p - 1) * units + wu) * 32 + lane) * 2;
+                const float4 v0 = src[0], v1 = src[1];
+                o[0][0] += v0.x;
+                o[0][1] += v0.y;
+                o[0][2] += v0.z;
+                o[0][3] += v0.w;
+                o[1][0] += v1.x;
+                o[1][1] += v1.y;
+                o[1][2] += v1.z;
+                o[1][3] += v1.w;
+              }
+          }
+          if (part == 0) {
+#pragma unroll
+            for (int j = 0; j < (one ? 1 : 2); ++j)
+#pragma unroll
+              for (int half = 0; half < 2; ++half) {
+                const int r = mt * 16 + g + half * 8;
+                const int col = col0 + np * 16 + j * 8 + 2 * tg;
+                if constexpr (kCl) {
+                  const int owner = col / hc;
+                  st_cluster_f2(exch_at[owner] +
+                                    ((rank * M + r) * ex_ld + col - owner * hc) *
+                                        4,
+                                o[j][half * 2], o[j][half * 2 + 1]);
+                } else if (is_x) {
+                  if (row0 + r < n_rows)
+                    E::store2(dx + ((size_t)(row0 + r) * n_steps + t) * e + col,
+                              o[j][half * 2], o[j][half * 2 + 1]);
+                } else {
+                  *reinterpret_cast<float2*>(exch + r * ex_ld + col) =
+                      make_float2(o[j][half * 2], o[j][half * 2 + 1]);
+                }
+              }
+          }
         }
       }
       // dh is whole (a cluster: every rank's partials have landed); every
@@ -856,31 +659,34 @@ lstm_bwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// Byte offsets of the workspace regions (each 256-B aligned).  `mma`: the
-// bf16 tensor-core phase A (its own rows per block and activation planes).
-// A row block of `c` blocks (a cluster when c > 1; lstm_cluster for bf16,
-// f32_cluster for float32) has one activation area per block and one db
-// partial per row block.  The step route (`step`, above H = 1,024) keeps
-// its planes [tc][kStepSaved][rows, H] where the activation areas lie, one
-// db partial per kDgRows rows, and after phase B's partials its own
-// buffers (lstm_step.cuh's StepBwd): h in turn, c, dh, dc and the unit
-// tiles' dh partials.
+// Byte offsets of the workspace regions (each 256-B aligned).  Phase A up
+// to H = 1,024 is the tensor-core kernel in both dtypes (its rows per block
+// and activation planes: pick_config for bf16, pick_config_f32 for float32,
+// kClusterConfig for a cluster's ranks).  A row block of `c` blocks (a
+// cluster when c > 1; lstm_cluster for bf16, f32_cluster for float32) has
+// one activation area per block and one db partial per row block.  The
+// step route (`step`, above H = 1,024) keeps its planes [tc][kStepSaved]
+// [rows, H] where the activation areas lie, one db partial per kDgRows
+// rows, and after phase B's partials its own buffers (lstm_step.cuh's
+// StepBwd): h in turn, c, dh, dc and the unit tiles' dh partials.
 struct Layout {
   int row_blocks, n_blocks, c, splits, rows_per_split;
   bool step;
+  tiles::Config cfg;
   size_t act, dgates, h_prev, db_part, part_ih, part_hh, hbuf, c_state, dh,
       dc, partial, total;
 };
 
 Layout layout(int n_rows, int n_steps, int e, int h_dim, int tc, size_t elt,
-              bool mma) {
+              bool bf16) {
   Layout L;
   const long long n = (long long)n_rows * n_steps;
-  L.step = tiles::lstm_route(h_dim, mma, true, false) == tiles::kRouteStep;
-  L.c = L.step ? 1 : mma ? tiles::lstm_cluster(h_dim) : f32_cluster(h_dim, true);
-  const tiles::Config cfg =
-      L.c > 1 ? tiles::kClusterConfig : tiles::pick_config(h_dim);
-  const int m_rows = L.step ? kDgRows : mma ? 16 * cfg.mt : kRows;
+  L.step = tiles::lstm_route(h_dim, bf16, true, false) == tiles::kRouteStep;
+  L.c = L.step ? 1 : bf16 ? tiles::lstm_cluster(h_dim) : f32_cluster(h_dim, true);
+  L.cfg = bf16 ? (L.c > 1 ? tiles::kClusterConfig : tiles::pick_config(h_dim))
+         : L.c > 1 ? tiles::cluster_config_f32(L.c)
+                   : tiles::pick_config_f32(h_dim);
+  const int m_rows = L.step ? kDgRows : 16 * L.cfg.mt;
   L.row_blocks = (n_rows + m_rows - 1) / m_rows;
   L.n_blocks = L.row_blocks * L.c;
   const size_t plane = (size_t)n_rows * h_dim;
@@ -890,13 +696,11 @@ Layout layout(int n_rows, int n_steps, int e, int h_dim, int tc, size_t elt,
   const size_t g4 = 4 * (size_t)h_dim;
   size_t off = 0;
   L.act = off;
-  off += align256(
-      L.step ? (size_t)tc * kStepSaved * plane * 4
-      : mma ? (size_t)L.n_blocks *
-                (tc * cfg.mt * cfg.g * kPlanes + park_slots(cfg.g, cfg.mt)) *
-                tiles::kThreads * 16
-          : (size_t)L.n_blocks * tc * kSaved * kRows *
-                f32_units(h_dim, true) * 4);
+  off += align256(L.step ? (size_t)tc * kStepSaved * plane * 4
+                         : (size_t)L.n_blocks *
+                               (tc * L.cfg.mt * L.cfg.g * kPlanes +
+                                park_slots(L.cfg.g, L.cfg.mt)) *
+                               tiles::kThreads * 16);
   L.dgates = off;
   off += align256((size_t)n * g4 * elt);
   L.h_prev = off;
@@ -917,7 +721,7 @@ Layout layout(int n_rows, int n_steps, int e, int h_dim, int tc, size_t elt,
   L.dc = off;
   off += step_plane;
   L.partial = off;
-  off += L.step ? align256(step_unit_tiles(h_dim, mma ? 1 : 0) * plane * 4)
+  off += L.step ? align256(step_unit_tiles(h_dim, bf16 ? 1 : 0) * plane * 4)
                 : 0;
   L.total = off;
   return L;
@@ -927,80 +731,55 @@ bool valid_shape(int n_rows, int n_steps, int e, int h_dim, int tc) {
   return n_rows >= 0 && n_steps >= 0 && e > 0 && h_dim > 0 && tc > 0;
 }
 
-// bf16: E and H multiples of 32, and above kMaxClustered (the step route)
-// H of 256; float32: any H
+// Up to H = 1,024 the tensor-core tiles: E and H multiples of 32 (float32
+// in a cluster of C blocks H of 16 C, so a rank's units are a multiple of
+// 16; f32_cluster), whose shared memory fits; above it the step route
+// (bf16 H of 256, float32 any)
 bool shape_ok(int e, int h_dim, int dtype) {
   if (tiles::lstm_route(h_dim, dtype == 1, true, false) == tiles::kRouteStep)
     return step_shape_ok(e, h_dim, dtype);
-  if (dtype == 0) return f32_cluster(h_dim, true) > 0;
-  return dtype == 1 && e % tiles::kAlign == 0 && h_dim % tiles::kAlign == 0 &&
-         tiles::lstm_cluster(h_dim) > 0;
+  if (e % tiles::kAlign != 0 || h_dim % tiles::kAlign != 0) return false;
+  if (dtype == 1) return tiles::lstm_cluster(h_dim) > 0;
+  const int c = f32_cluster(h_dim, true);
+  if (dtype != 0 || c == 0 || h_dim % (16 * c) != 0) return false;
+  int ks = 0;
+  return tiles::mma_smem(h_dim, h_dim / c, tiles::kLstmGates,
+                         16 * (c > 1 ? tiles::cluster_config_f32(c)
+                                     : tiles::pick_config_f32(h_dim)).mt,
+                         true, c, &ks, 4) != 0;
 }
 
-// phase A, float32: exact f32 FMAs
-int launch_cell(const void* x, const void* mask, const void* w_ih,
-                const void* b, const void* w_hh, const void* w_ih_t,
-                const void* w_hh_t, const void* hb, const void* cb,
-                const void* dout, void* dx, float* dgates, float* h_prev,
-                float* act, float* db_part, const Layout& L, int n_rows,
-                int n_steps, int e, int h_dim, int reverse, int tc,
-                cudaStream_t stream) {
-  using T = float;
-  const int hc = f32_units(h_dim, true);
-  const size_t recompute = (size_t)h_dim + f32_chunk_rows(e);
-  const size_t rev = (size_t)4 * hc + (L.c > 1 ? (size_t)L.c * hc : 0);
-  const size_t smem =
-      (recompute > rev ? recompute : rev) * kStride * sizeof(float);
-  // a rank of a cluster has at most 2 * kF32Units = 256 threads
-  const int bound = row_tile_bound(kRowGroups * hc);
-  if (bound == 0 || (L.c > 1 && bound > 256)) return (int)cudaErrorInvalidValue;
-  auto* kernel = L.c > 1         ? lstm_bwd_cell_kernel<T, 256, true>
-                 : bound == 256 ? lstm_bwd_cell_kernel<T, 256, false>
-                 : bound == 512 ? lstm_bwd_cell_kernel<T, 512, false>
-                                : lstm_bwd_cell_kernel<T, 1024, false>;
-  return (int)launch_blocks(
-      kernel, L.row_blocks, L.c, kRowGroups * hc, smem, stream,
-      static_cast<const T*>(x), static_cast<const uint8_t*>(mask),
-      static_cast<const T*>(w_ih), static_cast<const T*>(b),
-      static_cast<const T*>(w_hh), static_cast<const T*>(w_ih_t),
-      static_cast<const T*>(w_hh_t), static_cast<const float*>(hb),
-      static_cast<const float*>(cb), static_cast<const T*>(dout),
-      static_cast<T*>(dx), dgates, h_prev, act, db_part, n_rows, n_steps, e,
-      h_dim, reverse, tc, hc);
-}
-
-// phase A, bfloat16: tensor cores
-template <int G, int MT, bool kCl>
+// phase A up to H = 1,024: tensor cores (float32: split TF32)
+template <typename T, int G, int MT, bool kCl>
 int launch_mma(const void* x, const void* mask, const void* w_ih,
                const void* b, const void* hb, const void* cb,
-               const void* dout, void* dx,
-               __nv_bfloat16* dgates, __nv_bfloat16* h_prev, float* act,
+               const void* dout, void* dx, T* dgates, T* h_prev, float* act,
                float* db_part, const Layout& L, int n_rows, int n_steps,
                int e, int h_dim, int reverse, int tc, cudaStream_t stream) {
-  using bf16 = __nv_bfloat16;
   int ks = 0;
-  const size_t smem = tiles::mma_smem(h_dim, h_dim / L.c, tiles::kLstmGates,
-                                      16 * MT, true, L.c, &ks);
+  const size_t smem =
+      tiles::mma_smem(h_dim, h_dim / L.c, tiles::kLstmGates, 16 * MT, true,
+                      L.c, &ks, (int)sizeof(T));
   if (smem == 0) return (int)cudaErrorInvalidValue;
   return (int)launch_blocks(
-      lstm_bwd_mma_kernel<G, MT, kCl>, L.row_blocks, L.c, tiles::kThreads,
-      smem, stream, static_cast<const bf16*>(x),
-      static_cast<const uint8_t*>(mask), static_cast<const bf16*>(w_ih),
-      static_cast<const bf16*>(b), static_cast<const float*>(hb),
-      static_cast<const float*>(cb), static_cast<const bf16*>(dout),
-      static_cast<bf16*>(dx), dgates, h_prev, reinterpret_cast<float4*>(act),
+      lstm_bwd_mma_kernel<T, G, MT, kCl>, L.row_blocks, L.c, tiles::kThreads,
+      smem, stream, static_cast<const T*>(x),
+      static_cast<const uint8_t*>(mask), static_cast<const T*>(w_ih),
+      static_cast<const T*>(b), static_cast<const float*>(hb),
+      static_cast<const float*>(cb), static_cast<const T*>(dout),
+      static_cast<T*>(dx), dgates, h_prev, reinterpret_cast<float4*>(act),
       db_part, n_rows, n_steps, e, h_dim, reverse, tc, ks);
 }
 
 template <typename T>
 int launch(const void* x, const void* mask, const void* w_ih, const void* b,
-           const void* w_hh, const void* w_ih_t, const void* w_hh_t,
+           const void* w_hh, const void* w_dx, const void* w_hh_t,
            const void* hb, const void* cb, const void* dout, void* dx,
            void* dw_ih, void* db, void* dw_hh, void* workspace, int n_rows,
            int n_steps, int e, int h_dim, int reverse, int tc,
            cudaStream_t stream) {
-  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
-  const Layout L = layout(n_rows, n_steps, e, h_dim, tc, sizeof(T), kMma);
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  const Layout L = layout(n_rows, n_steps, e, h_dim, tc, sizeof(T), kBf16);
   char* ws = static_cast<char*>(workspace);
   T* dgates = reinterpret_cast<T*>(ws + L.dgates);
   T* h_prev = reinterpret_cast<T*>(ws + L.h_prev);
@@ -1013,13 +792,14 @@ int launch(const void* x, const void* mask, const void* w_ih, const void* b,
 
   if (n_rows > 0 && n_steps > 0) {
     int rc = (int)cudaErrorInvalidValue;
-    if constexpr (kMma) {
-      if (!tiles::aligned16(x) || !tiles::aligned16(w_ih) ||
-          !tiles::aligned16(hb) ||
-          !tiles::aligned16(cb) || !tiles::aligned16(dout) ||
-          !tiles::aligned16(dx) || !tiles::aligned16(workspace))
-        return rc;
-    }
+    // the tiles' bulk and 16-byte copies (the float32 step route reads its
+    // operands as they lie)
+    if ((kBf16 || !L.step) &&
+        (!tiles::aligned16(x) || !tiles::aligned16(w_ih) ||
+         !tiles::aligned16(hb) || !tiles::aligned16(cb) ||
+         !tiles::aligned16(dout) || !tiles::aligned16(dx) ||
+         !tiles::aligned16(workspace)))
+      return rc;
     if (L.step) {
       const StepBwd sb = {ws + L.hbuf, reinterpret_cast<float*>(ws + L.c_state),
                           nullptr, act, reinterpret_cast<float*>(ws + L.dh),
@@ -1028,37 +808,53 @@ int launch(const void* x, const void* mask, const void* w_ih, const void* b,
                           dgates, h_prev};
       rc = step_phase_a(x, mask, w_ih, b, nullptr, w_hh, w_hh_t, hb, cb, dout,
                         sb, n_rows, n_steps, e, h_dim, reverse, tc,
-                        tiles::kLstmGates, kMma ? 1 : 0, stream);
-    } else if constexpr (kMma) {
-      if (L.c > 1) {
-        rc = launch_mma<tiles::kClusterConfig.g, tiles::kClusterConfig.mt,
+                        tiles::kLstmGates, kBf16 ? 1 : 0, stream);
+    } else if (L.c > 1) {
+      if constexpr (kBf16)
+        rc = launch_mma<T, tiles::kClusterConfig.g, tiles::kClusterConfig.mt,
                         true>(x, mask, w_ih, b, hb, cb, dout, dx, dgates,
                               h_prev, act, db_part, L, n_rows, n_steps, e,
                               h_dim, reverse, tc, stream);
-      } else {
-        const tiles::Config cfg = tiles::pick_config(h_dim);
-#define CAIR_BWD_CASE(G_, MT_)                                              \
-  if (cfg.g == G_)                                                          \
-    rc = launch_mma<G_, MT_, false>(x, mask, w_ih, b, hb, cb, dout, dx,     \
-                                    dgates, h_prev, act, db_part, L, n_rows, \
-                                    n_steps, e, h_dim, reverse, tc, stream);
+      else if (L.cfg.mt == 2)
+        rc = launch_mma<T, 2, 2, true>(x, mask, w_ih, b, hb, cb, dout, dx,
+                                       dgates, h_prev, act, db_part, L,
+                                       n_rows, n_steps, e, h_dim, reverse, tc,
+                                       stream);
+      else
+        rc = launch_mma<T, 2, 1, true>(x, mask, w_ih, b, hb, cb, dout, dx,
+                                       dgates, h_prev, act, db_part, L,
+                                       n_rows, n_steps, e, h_dim, reverse, tc,
+                                       stream);
+    } else {
+#define CAIR_BWD_CASE(G_, MT_)                                               \
+  if (L.cfg.g == G_ && L.cfg.mt == MT_)                                      \
+    rc = launch_mma<T, G_, MT_, false>(x, mask, w_ih, b, hb, cb, dout, dx,   \
+                                       dgates, h_prev, act, db_part, L,      \
+                                       n_rows, n_steps, e, h_dim, reverse,   \
+                                       tc, stream);
+      if constexpr (kBf16) {
         CAIR_BWD_CASE(1, 4)
         CAIR_BWD_CASE(2, 4)
         CAIR_BWD_CASE(4, 2)
         CAIR_BWD_CASE(8, 1)
-#undef CAIR_BWD_CASE
+      } else {
+        CAIR_BWD_CASE(1, 4)
+        CAIR_BWD_CASE(2, 2)
       }
-    } else {
-      rc = launch_cell(x, mask, w_ih, b, w_hh, w_ih_t, w_hh_t, hb, cb, dout,
-                       dx, dgates, h_prev, act, db_part, L, n_rows, n_steps,
-                       e, h_dim, reverse, tc, stream);
+#undef CAIR_BWD_CASE
     }
     if (rc != 0) return rc;
     if (L.c > 1 || L.step) {
-      // phase C: a cluster's (the step route's) dx = dgates_c @ W_ih^T
-      cudaError_t err =
-          launch_matmul<T>(dgates, g4, static_cast<const T*>(w_ih_t), n, e,
-                           g4, static_cast<T*>(dx), stream);
+      // phase C: a cluster's (the step route's) dx = dgates_c @ W_ih^T;
+      // float32 reads W_ih as it lies
+      cudaError_t err;
+      if constexpr (kBf16)
+        err = launch_matmul(dgates, g4, static_cast<const T*>(w_dx), n, e,
+                            g4, static_cast<T*>(dx), stream);
+      else
+        err = launch_matmul_tf32(dgates, g4, static_cast<const float*>(w_dx),
+                                 g4, n, e, g4, static_cast<float*>(dx),
+                                 stream);
       if (err != cudaSuccess) return (int)err;
     }
   }
@@ -1099,19 +895,21 @@ extern "C" long long cair_lstm_bwd_workspace(int n_rows, int n_steps, int e,
 }
 
 // Kernel 5.  x [B, T, E], mask uint8 [B, T], w_ih [E, 4H], b [4H],
-// w_hh [H, 4H], w_ih_t [4H, E] and w_hh_t [4H, H] (the transposes), hb, cb
-// float32 [ceil(T / tc), B, H] from cair_lstm_fwd_res, dout [B, T, H] ->
-// dx [B, T, E], dw_ih [E, 4H], db [4H], dw_hh [H, 4H]; one dtype for all but
+// w_hh [H, 4H], w_dx and w_hh_t [4H, H] (W_hh's transpose), hb, cb float32
+// [ceil(T / tc), B, H] from cair_lstm_fwd_res, dout [B, T, H] -> dx
+// [B, T, E], dw_ih [E, 4H], db [4H], dw_hh [H, 4H]; one dtype for all but
 // mask, hb and cb; `workspace` holds cair_lstm_bwd_workspace(...) bytes.
-// bfloat16: `w_ih` points at the staged weights as cair_lstm_fwd takes them
-// (one matrix a rank of the cluster above H = 384; above H = 1,024 one a
-// unit tile of 256, H a multiple of 256), `w_ih_t` is read by a cluster's
-// (the step route's) dx product alone, and `w_hh`, `w_hh_t` are not read.
-// float32 reads both transposes (w_ih_t in phase C above H = 403).  Returns
-// the first cudaError_t (0 on success).
+// Up to H = 1,024 (both dtypes) and on the bf16 step route, `w_ih` points
+// at the staged weights as cair_lstm_fwd takes them (one matrix a rank of
+// a cluster -- bf16 above H = 384, float32 above 256 -- or, bf16 above H =
+// 1,024, a unit tile of 256, H a multiple of 256), and `w_hh`, `w_hh_t`
+// are not read; the float32 step route reads w_ih and w_hh as given and
+// w_hh_t.  `w_dx` is read by a cluster's (the step route's) dx product
+// alone: bf16 W_ih^T [4H, E], float32 W_ih itself.  Returns the first
+// cudaError_t (0 on success).
 extern "C" int cair_lstm_bwd(const void* x, const void* mask,
                              const void* w_ih, const void* b,
-                             const void* w_hh, const void* w_ih_t,
+                             const void* w_hh, const void* w_dx,
                              const void* w_hh_t, const void* hb,
                              const void* cb, const void* dout, void* dx,
                              void* dw_ih, void* db, void* dw_hh,
@@ -1123,10 +921,10 @@ extern "C" int cair_lstm_bwd(const void* x, const void* mask,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(x, mask, w_ih, b, w_hh, w_ih_t, w_hh_t, hb, cb, dout,
+    return launch<float>(x, mask, w_ih, b, w_hh, w_dx, w_hh_t, hb, cb, dout,
                          dx, dw_ih, db, dw_hh, workspace, n_rows, n_steps, e,
                          h_dim, reverse, tc, s);
-  return launch<__nv_bfloat16>(x, mask, w_ih, b, w_hh, w_ih_t, w_hh_t, hb, cb,
+  return launch<__nv_bfloat16>(x, mask, w_ih, b, w_hh, w_dx, w_hh_t, hb, cb,
                                dout, dx, dw_ih, db, dw_hh, workspace, n_rows,
                                n_steps, e, h_dim, reverse, tc, s);
 }

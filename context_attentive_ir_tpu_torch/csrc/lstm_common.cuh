@@ -4,22 +4,24 @@
 //
 // Two families live here.
 //
-// - The CUDA-core row-tile layout (the float32 LSTM and GRU kernels and
-//   kernel 6): a block owns kRows = 32 rows
+// - The CUDA-core row-tile layout (the float32 forwards -- kernels 1, 4, 7,
+//   8 -- and kernel 6): a block owns kRows = 32 rows
 //   and has kRowGroups * H threads; thread (rg, j) owns hidden unit j of
 //   rows rg*16 .. rg*16+15.  Operands of a product are staged in shared
 //   memory k-major in f32, one padded row of kStride floats per k, so a
 //   thread reads its 16 rows as four float4 broadcasts and multiplies with
 //   exact f32 FMAs (dot_rows).  Those
-//   broadcasts, not FMAs or bytes, bound that layout; the bf16 LSTM kernels
-//   and GRU forwards left it for tensor-core tiles (lstm_mma.cuh).
+//   broadcasts, not FMAs or bytes, bound that layout; the bf16 kernels and
+//   both dtypes' backwards (kernels 5 and 9) left it for tensor-core tiles
+//   (lstm_mma.cuh; float32 in split TF32, tf32_mma.cuh).
 // - The bf16 tensor-core primitives (namespace tiles: `cp.async`,
 //   `ldmatrix`, `mma.sync.m16n8k16`), used by lstm_mma.cuh (the bf16 LSTM
-//   and GRU forwards, the LSTM's phase A) and by phase B.
+//   and GRU forwards, the backwards' phase A) and by phase B.
 //
 // The backward kernels share the weight-gradient reduction (phase B):
-// launch_wgrad_partial (tensor-core tiles for bf16, exact f32 FMAs for
-// float32) and sum_partials_kernel, in a fixed order with no atomics.
+// launch_wgrad_partial (tf32_mma.cuh: tensor-core tiles, bf16 or split
+// TF32 for float32) and sum_partials_kernel, in a fixed order with no
+// atomics.
 
 #pragma once
 
@@ -114,26 +116,34 @@ __device__ __forceinline__ void dot_rows(float acc[NG][kRowsPerThread],
   }
 }
 
-// The float32 recurrent kernels (lstm_fwd.cu, lstm_bwd.cu, gru_fwd.cu,
-// gru_bwd.cu) stage x_t in chunks of kF32Chunk k-rows beside the whole h,
-// so E takes no shared memory past one chunk; f32_cluster gives the blocks
-// of a cluster that splits the units (1: one block of 2H threads).  The forward splits every H above
+// The float32 forwards (lstm_fwd.cu, gru_fwd.cu) stage x_t in chunks of
+// kF32Chunk k-rows beside the whole h, so E takes no shared memory past
+// one chunk; f32_cluster gives the blocks of a cluster that splits the
+// units (1: one block of 2H threads).  The forward splits every H above
 // kF32FwdSingle into blocks of at most 256 threads (the one block of 2H
 // threads, launched under a bound of 1,024, spills 2.4 KB a thread and
 // took 1.05 s at [16000, 30, 256] -> 384 against 0.055 s split; up to 256
-// the one block is the faster); the backward keeps one block up to
-// kF32MaxSingle, as the first version did (its bits there), and splits
-// above (the GRU's kernel 9 has as many gradient rows, four slots of H).
-// A (row, unit)'s forward FMAs run in the same k order either way.
-// `f32_cluster` in ops/kernels/lstm.py states the same rule for both.
+// the one block is the faster).  The float32 backwards (kernels 5 and 9,
+// `backward`: the split-TF32 tiles of lstm_mma.cuh) take one block up to
+// H = 128 (pick_config_f32's rows) and above it clusters of ranks of at
+// most 128 units (cluster_config_f32): 2 up to 256 and 4 up to 512, ranks
+// of 32 rows, and 8 of 16 rows up to 1,024, where 32 rows' h tiles no
+// longer fit (mma_smem; a rank's H / C units a multiple of 16, the wrapper
+// pads H to it).  `f32_cluster` in ops/kernels/lstm.py states the same
+// rule for both.
 constexpr int kF32Chunk = 256;
-constexpr int kF32MaxSingle = 403;  // 4H staged k-rows of kStride floats fit
 constexpr int kF32FwdSingle = 256;
 constexpr int kF32Units = 128;      // units a rank of a cluster: 256 threads
 constexpr int kF32MaxRanks = 8;
+constexpr int kF32BwdRank = 128;  // units a float32 backward rank holds
 
 inline int f32_cluster(int h, bool backward) {
-  if (h <= (backward ? kF32MaxSingle : kF32FwdSingle)) return 1;
+  if (backward) {
+    int c = 1;
+    while (c < kF32MaxRanks && h > c * kF32BwdRank) c *= 2;
+    return h <= c * kF32BwdRank ? c : 0;
+  }
+  if (h <= kF32FwdSingle) return 1;
   const int c = (h + kF32Units - 1) / kF32Units;
   return c <= kF32MaxRanks ? c : 0;
 }
@@ -289,6 +299,15 @@ __device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2],
       : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_addr(p))
       : "memory");
+}
+
+// two 8 x 8 matrices: rows from the addresses of lanes 0 .. 15 (lanes
+// 16 .. 31 pass addresses that are not read)
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p))
+               : "memory");
 }
 
 // A float4 to or from global memory through an instruction the compiler
@@ -560,36 +579,6 @@ wgrad_partial_mma_kernel(const T* __restrict__ a, int a_cols,
       }
 }
 
-// One phase-B product: the tensor-core kernel for bf16 operands it can
-// take, wgrad_partial_kernel's exact f32 FMAs otherwise (float32 always).
-template <typename T>
-inline cudaError_t launch_wgrad_partial(const T* a, int a_cols, const T* g,
-                                        int g_cols, int g_ld, int n_rows,
-                                        Splits sp, float* partial, int out_ld,
-                                        int out_col0, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (tiles::aligned16(a) && tiles::aligned16(g) && a_cols % 8 == 0 &&
-        g_cols % 8 == 0 && g_ld % 8 == 0) {
-      auto* kernel = wgrad_partial_mma_kernel<T, false, float>;
-      cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg_smem(false));
-      if (err != cudaSuccess) return err;
-      kernel<<<dim3((a_cols + kWgTile - 1) / kWgTile,
-                    (g_cols + kWgTile - 1) / kWgTile, sp.splits),
-               256, wg_smem(false), stream>>>(
-          a, a_cols, g, g_cols, g_ld, n_rows, sp.rows_per_split, partial,
-          out_ld, out_col0, 0);
-      return cudaGetLastError();
-    }
-  }
-  wgrad_partial_kernel<T><<<dim3((a_cols + kTile - 1) / kTile,
-                                 (g_cols + kTile - 1) / kTile, sp.splits),
-                            256, 0, stream>>>(a, a_cols, g, g_cols, g_ld,
-                                              n_rows, sp.rows_per_split,
-                                              partial, out_ld, out_col0);
-  return cudaGetLastError();
-}
-
 // out[idx] = sum_z partial[z * stride + idx] in z order, cast to T
 template <typename T>
 __global__ void sum_partials_kernel(const float* __restrict__ partial,
@@ -602,94 +591,29 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial,
   out[idx] = from_f32<T>(s);
 }
 
-// out[r][c] = sum_k a[r][k] * b[k][c] (a [n_rows, k_dim] in rows of lda,
-// b [k_dim, n_cols], out [n_rows, n_cols], all row-major), exact f32 FMAs
-// in k order: the float32 form of launch_matmul.  256 threads, a kTile x kTile output tile
-// per block, 4 x 4 per thread.
-template <typename T>
-__global__ void __launch_bounds__(256)
-matmul_kernel(const T* __restrict__ a, int lda, const T* __restrict__ b,
-              int n_rows, int n_cols, int k_dim, T* __restrict__ out) {
-  __shared__ __align__(16) float as[kTileK][kTile + 4];
-  __shared__ __align__(16) float bs[kTileK][kTile + 4];
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int r0 = blockIdx.x * kTile;
-  const int c0 = blockIdx.y * kTile;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.0f;
-  }
-  for (int k0 = 0; k0 < k_dim; k0 += kTileK) {
-    for (int idx = threadIdx.x; idx < kTileK * kTile; idx += blockDim.x) {
-      const int mm = idx / kTileK, ka = idx - mm * kTileK;
-      const int r = r0 + mm, k = k0 + ka;
-      as[ka][mm] = (r < n_rows && k < k_dim)
-                       ? to_f32(a[(size_t)r * lda + k])
-                       : 0.0f;
-      const int kb = idx / kTile, nn = idx - kb * kTile;
-      bs[kb][nn] = (k0 + kb < k_dim && c0 + nn < n_cols)
-                       ? to_f32(b[(size_t)(k0 + kb) * n_cols + c0 + nn])
-                       : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kTileK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
-      const float a4[4] = {av.x, av.y, av.z, av.w};
-      const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) acc[i][jj] += a4[i] * b4[jj];
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty * 4 + i;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int c = c0 + tx * 4 + jj;
-      if (r < n_rows && c < n_cols)
-        out[(size_t)r * n_cols + c] = from_f32<T>(acc[i][jj]);
-    }
-  }
-}
-
-// Phase C of a cluster's backward (lstm_bwd.cu, gru_bwd.cu): dx =
-// dgates_c @ W_ih^T, out [n_rows, n_cols] = a [n_rows, k_dim] (rows lda
+// Phase C of a cluster's backward (lstm_bwd.cu, gru_bwd.cu) in bf16: dx
+// = dgates_c @ W_ih^T, out [n_rows, n_cols] = a [n_rows, k_dim] (rows lda
 // elements apart: the GRU's first three of four gradient slots) @ b
-// [k_dim, n_cols], all row-major, cast to T.  bf16 on tensor cores
+// [k_dim, n_cols], all row-major, on tensor cores
 // (wgrad_partial_mma_kernel with `a` m-major: k_dim a multiple of kWgK,
-// n_cols and lda of 8, 16-byte aligned operands); float32 by matmul_kernel's
-// exact FMAs.
-template <typename T>
-inline cudaError_t launch_matmul(const T* a, int lda, const T* b, int n_rows,
-                                 int n_cols, int k_dim, T* out,
+// n_cols and lda of 8, 16-byte aligned operands).  float32's is
+// launch_matmul_tf32 (tf32_mma.cuh).
+inline cudaError_t launch_matmul(const __nv_bfloat16* a, int lda,
+                                 const __nv_bfloat16* b, int n_rows,
+                                 int n_cols, int k_dim, __nv_bfloat16* out,
                                  cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (k_dim % kWgK != 0 || n_cols % 8 != 0 || lda % 8 != 0 ||
-        !tiles::aligned16(a) || !tiles::aligned16(b))
-      return cudaErrorInvalidValue;
-    auto* kernel = wgrad_partial_mma_kernel<T, true, T>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg_smem(true));
-    if (err != cudaSuccess) return err;
-    kernel<<<dim3((n_rows + kWgTile - 1) / kWgTile,
-                  (n_cols + kWgTile - 1) / kWgTile, 1),
-             256, wg_smem(true), stream>>>(a, n_rows, b, n_cols, n_cols,
-                                           k_dim, k_dim, out, n_cols, 0, lda);
-  } else {
-    matmul_kernel<T><<<dim3((n_rows + kTile - 1) / kTile,
-                            (n_cols + kTile - 1) / kTile),
-                       256, 0, stream>>>(a, lda, b, n_rows, n_cols, k_dim,
-                                         out);
-  }
+  using T = __nv_bfloat16;
+  if (k_dim % kWgK != 0 || n_cols % 8 != 0 || lda % 8 != 0 ||
+      !tiles::aligned16(a) || !tiles::aligned16(b))
+    return cudaErrorInvalidValue;
+  auto* kernel = wgrad_partial_mma_kernel<T, true, T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg_smem(true));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((n_rows + kWgTile - 1) / kWgTile,
+                (n_cols + kWgTile - 1) / kWgTile, 1),
+           256, wg_smem(true), stream>>>(a, n_rows, b, n_cols, n_cols,
+                                         k_dim, k_dim, out, n_cols, 0, lda);
   return cudaGetLastError();
 }
 

@@ -63,6 +63,7 @@
 #pragma once
 
 #include "lstm_common.cuh"
+#include "tf32_mma.cuh"
 
 namespace cair_lstm {
 namespace tiles {
@@ -156,23 +157,42 @@ inline Config pick_config(int h) {
   return {8, 1};
 }
 
+// The float32 tensor-core phase A of kernels 5 and 9 (split TF32) in one
+// block (H up to 128, f32_cluster): the same unit groups per warp, fewer
+// rows, since its f32 tiles take twice the bytes: 64 rows up to H = 64, 32
+// up to 128.
+inline Config pick_config_f32(int h) {
+  return h <= 64 ? Config{1, 4} : Config{2, 2};
+}
+
 // a rank of a cluster: up to 256 units over the 8 warps, 16 rows
 constexpr Config kClusterConfig = {4, 1};
+// a float32 rank of kernels 5 and 9 (split TF32) in a cluster of c: its
+// units (at most 128) in 2 unit groups a warp; 32 rows up to 4 ranks, 16 in
+// a cluster of 8 (two 32-row h tiles of H = 1,024 do not fit)
+inline Config cluster_config_f32(int c) { return {2, c <= 4 ? 2 : 1}; }
 // a unit tile of the step route: a rank's tile, all of its 256 units (the
 // bf16 step route pads H to a multiple of it)
 constexpr int kStepUnits = kClusterConfig.g * 8 * kWarps;
 
-// bytes per staged row (16 bytes of padding each)
-__host__ __device__ inline int h_stride(int h) { return h * 2 + 16; }
-__host__ __device__ inline int w_stride(int h, int gates) {
-  return h * gates * 2 + 16;
+// bytes per staged row of elements of `elt` bytes (bf16 2, float32 4):
+// 16 bytes of padding each, and a staged weight row's 8 zero columns
+__host__ __device__ inline int h_stride(int h, int elt = 2) {
+  return h * elt + 16;
 }
-// bytes per row of an x slot (ks bf16 columns of x_t)
-__host__ __device__ inline int xslot_stride(int ks) { return ks * 2 + 16; }
+__host__ __device__ inline int w_stride(int h, int gates, int elt = 2) {
+  return (h * gates + 8) * elt;
+}
+// bytes per row of an x slot (ks columns of x_t)
+__host__ __device__ inline int xslot_stride(int ks, int elt = 2) {
+  return ks * elt + 16;
+}
 
 // bytes per row of a backward's staged gradient tile: four slots of H
 // (the LSTM's four gates; the GRU's da_r, da_z, da_n, da_n * r)
-__host__ __device__ inline int slot_stride(int h) { return h * 8 + 16; }
+__host__ __device__ inline int slot_stride(int h, int elt = 2) {
+  return h * 4 * elt + 16;
+}
 // bytes of the f32 tile through which dh returns to its owning threads
 __host__ __device__ inline size_t exch_bytes(int h, int m_rows) {
   return (size_t)m_rows * (h + 8) * 4;
@@ -181,8 +201,10 @@ __host__ __device__ inline size_t exch_bytes(int h, int m_rows) {
 // Dynamic shared memory of a row-tile block of m_rows rows with `gates`
 // gate blocks, forward or backward phase A, a rank of a cluster of c blocks
 // (c = 1: a single block, hc = hk), or 0 if no slab depth fits (*ks gets
-// the depth: 32 k-rows, else 16): the ring's header, slabs and x slots, the
-// staged tiles, the bias (four f32 slots of hc).  The forward stages the h
+// the depth: 32 k-rows, else 16, and for float32 (elt 4) else 8): the
+// ring's header, slabs and x slots of `elt`-byte elements, the
+// staged tiles, the bias (four f32 slots of hc) and, float32's backward,
+// the warps' partials of its reverse products.  The forward stages the h
 // tile (two in a cluster); a backward reuses that space for its gradient
 // tile (m_rows rows of four slots) and needs the f32 tile that dh returns
 // through: the LSTM's single-block kernel 5 keeps it after that union, the
@@ -191,13 +213,16 @@ __host__ __device__ inline size_t exch_bytes(int h, int m_rows) {
 // columns per source rank (the dh partials of its units).
 // `tile_smem_bytes` in ops/kernels/lstm.py states the same sum.
 constexpr int kRingHeader = 64;  // the slots' mbarriers
+// float32 backward: the partials of a reverse product's tiles from the
+// warps of their split k extent but the first (32 lanes x 8 floats a warp)
+constexpr int kRedBytes = (kWarps - 1) * 32 * 8 * 4;
 
 __host__ __device__ inline size_t staged_bytes(int hk, int hc, int gates,
                                                int m_rows, bool backward,
-                                               int c) {
-  const size_t fwd = (size_t)(c > 1 ? 2 : 1) * m_rows * h_stride(hk);
+                                               int c, int elt = 2) {
+  const size_t fwd = (size_t)(c > 1 ? 2 : 1) * m_rows * h_stride(hk, elt);
   if (!backward) return fwd;
-  size_t rev = (size_t)m_rows * slot_stride(hc);
+  size_t rev = (size_t)m_rows * slot_stride(hc, elt);
   if (c > 1)
     rev += (size_t)c * exch_bytes(hc, m_rows);
   else if (gates == kGruGates)
@@ -206,15 +231,15 @@ __host__ __device__ inline size_t staged_bytes(int hk, int hc, int gates,
 }
 
 inline size_t mma_smem(int hk, int hc, int gates, int m_rows, bool backward,
-                       int c, int* ks) {
-  for (int depth = 32; depth >= 16; depth /= 2) {
+                       int c, int* ks, int elt = 2) {
+  for (int depth = 32; depth >= (elt == 4 ? 8 : 16); depth /= 2) {
     const size_t bytes =
-        kRingHeader + (size_t)kStages * depth * w_stride(hc, gates) +
-        (size_t)kStages * m_rows * xslot_stride(depth) +
-        staged_bytes(hk, hc, gates, m_rows, backward, c) +
+        kRingHeader + (size_t)kStages * depth * w_stride(hc, gates, elt) +
+        (size_t)kStages * m_rows * xslot_stride(depth, elt) +
+        staged_bytes(hk, hc, gates, m_rows, backward, c, elt) +
         (backward && gates == kLstmGates && c == 1 ? exch_bytes(hk, m_rows)
                                                    : 0) +
-        16 * hc;
+        16 * hc + (backward && elt == 4 ? kRedBytes : 0);
     if (bytes <= kSmemLimit) {
       *ks = depth;
       return bytes;
@@ -307,6 +332,54 @@ __device__ __forceinline__ void st_cluster_f4(uint32_t addr, float4 v) {
 
 }  // namespace tiles
 
+// -- the element type of the recurrent tiles (lstm_mma.cuh) ----------------
+//
+// The tensor-core phase A of kernels 5 and 9 is one kernel for both types:
+// bf16 runs `mma.sync.m16n8k16` on bf16 operands, float32 the split-TF32
+// tiles (tf32_mma.cuh; slab_gates_tf32, tf32_rev_product below).  Elt<T>
+// holds the k values of a 32-byte step and the loads and stores of two
+// adjacent values: to and from memory, and to another rank's h tile.
+
+template <typename T>
+struct Elt;
+
+template <>
+struct Elt<__nv_bfloat16> {
+  static constexpr int kK = 16;  // k values of a 32-byte step
+  static __device__ __forceinline__ void store2(void* p, float a, float b) {
+    *reinterpret_cast<tiles::bf162*>(p) = __floats2bfloat162_rn(a, b);
+  }
+  static __device__ __forceinline__ float2 load2(const void* p) {
+    return __bfloat1622float2(*reinterpret_cast<const tiles::bf162*>(p));
+  }
+  // the pair (a, b) rounded, or the pair at `keep` unchanged (!m), to the
+  // shared::cluster address `addr`
+  static __device__ __forceinline__ void send2(uint32_t addr, bool m, float a,
+                                               float b, const void* keep) {
+    const tiles::bf162 v =
+        m ? __floats2bfloat162_rn(a, b)
+          : *reinterpret_cast<const tiles::bf162*>(keep);
+    tiles::st_cluster_b32(addr, *reinterpret_cast<const uint32_t*>(&v));
+  }
+};
+
+template <>
+struct Elt<float> {
+  static constexpr int kK = 8;
+  static __device__ __forceinline__ void store2(void* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  }
+  static __device__ __forceinline__ float2 load2(const void* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+  static __device__ __forceinline__ void send2(uint32_t addr, bool m, float a,
+                                               float b, const void* keep) {
+    const float2 v =
+        m ? make_float2(a, b) : *reinterpret_cast<const float2*>(keep);
+    tiles::st_cluster_f2(addr, v.x, v.y);
+  }
+};
+
 __device__ __forceinline__ void f32_sync(bool cl) {
   if (cl)
     tiles::cluster_sync();
@@ -386,21 +459,24 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
 
 // x[row0 .. row0 + m_rows - 1, t, k0 .. k0 + ks - 1] into the x slot `dst`
 // (rows xslot_stride(ks) bytes apart); rows past n_rows are zero-filled.
+template <typename T>
 __device__ __forceinline__ void load_x_slab(char* dst,
-                                            const bf16* __restrict__ x,
+                                            const T* __restrict__ x,
                                             int row0, int m_rows, int n_rows,
                                             int n_steps, int t, int e, int k0,
                                             int ks) {
-  const int shift = ks == 32 ? 2 : 1;  // 16-byte chunks a row: ks / 8
+  constexpr int kPer = 16 / (int)sizeof(T);  // elements of a 16-byte chunk
+  // 16-byte chunks a row: 2, 4 or 8
+  const int shift = ks == 2 * kPer ? 1 : ks == 4 * kPer ? 2 : 3;
   const int total = m_rows << shift;
-  const int xs = xslot_stride(ks);
+  const int xs = xslot_stride(ks, (int)sizeof(T));
   for (int idx = threadIdx.x; idx < total; idx += kThreads) {
     const int r = idx >> shift;
     const int c = idx - (r << shift);
     const int row = row0 + r;
     const bool valid = row < n_rows;
-    const bf16* src =
-        valid ? x + ((size_t)row * n_steps + t) * e + k0 + c * 8 : x;
+    const T* src =
+        valid ? x + ((size_t)row * n_steps + t) * e + k0 + c * kPer : x;
     cp_async16(dst + r * xs + c * 16, src, valid);
   }
 }
@@ -427,16 +503,19 @@ constexpr int kHOnly = -2;
 // __syncthreads: every warp is done reading them) and issues slab
 // n + kStages - 1 with its x columns.  The caller may add cp.async copies of
 // its own and then calls cp_async_commit() exactly once per acquire.
-struct WeightRing {
+// T: the element type of the staged weights and x (bf16, or float32 for
+// the split-TF32 backwards).
+template <typename T>
+struct WeightRingT {
   char* base;
   char* xbase;
   uint64_t* full;
   const char* w;
-  const bf16* x;
+  const T* x;
   // h streamed beside the h slabs as x is beside the x slabs, from a
   // row-major [rows, hk] bf16 buffer (the step route); null: h is a staged
   // tile the caller reads
-  const bf16* hx;
+  const T* hx;
   int e, hk, ws, ks, n_slabs, slab_bytes, xslot_bytes;
   int row0, m_rows, n_rows, n_steps;
   int total;
@@ -444,8 +523,8 @@ struct WeightRing {
   // every thread of the block calls this (it ends in a __syncthreads);
   // the launch streams `units` units of every slab and `h_units` of the h
   // slabs alone
-  __device__ __forceinline__ void init(char* smem, const bf16* staged,
-                                       const bf16* x_, int e_, int hk_,
+  __device__ __forceinline__ void init(char* smem, const T* staged,
+                                       const T* x_, int e_, int hk_,
                                        int hc, int gates, int ks_,
                                        int units, int row0_,
                                        int m_rows_, int n_rows_,
@@ -457,7 +536,7 @@ struct WeightRing {
     hx = nullptr;
     e = e_;
     hk = hk_;
-    ws = w_stride(hc, gates);
+    ws = w_stride(hc, gates, (int)sizeof(T));
     ks = ks_;
     n_slabs = (e + hk) / ks;
     slab_bytes = ks * ws;
@@ -466,7 +545,7 @@ struct WeightRing {
     m_rows = m_rows_;
     n_rows = n_rows_;
     n_steps = n_steps_;
-    xslot_bytes = m_rows * xslot_stride(ks);
+    xslot_bytes = m_rows * xslot_stride(ks, (int)sizeof(T));
     total = units * n_slabs + h_units * (hk / ks);
     if (threadIdx.x == 0) {
       for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
@@ -474,9 +553,9 @@ struct WeightRing {
     }
     __syncthreads();
   }
-  // the first slab of a unit of x step t (ks is 32 or 16)
+  // the first slab of a unit of x step t
   __device__ __forceinline__ int first_slab(int t) const {
-    return t == kHOnly ? e >> (ks == 32 ? 5 : 4) : 0;
+    return t == kHOnly ? e / ks : 0;
   }
   // the bytes the ring takes: slabs and x slots
   __device__ __forceinline__ char* end() const {
@@ -529,6 +608,8 @@ struct WeightRing {
     return base + (n % kStages) * slab_bytes;
   }
 };
+
+using WeightRing = WeightRingT<bf16>;
 
 // acc[mt][gi][slot] += A[rows of m-tile mt, a_col .. a_col + ks - 1] * slab
 // for the warp's unit groups ug0 .. ug0 + G - 1: the gate pre-activations'
@@ -585,6 +666,113 @@ __device__ __forceinline__ void slab_gates(float (&acc)[MT][G][4][4],
   }
 }
 
+// slab_gates in float32 on split-TF32 tiles (tf32_mma.cuh): the same
+// accumulator slots, A (an f32 tile) by `ldmatrix` split as it is loaded,
+// the k-major slab's B fragments by two scalar loads a lane (a staged row
+// of gates * h + 8 floats), k steps of 8.
+template <int NG, int G, int MT, bool kHSlab>
+__device__ __forceinline__ void slab_gates_tf32(float (&acc)[MT][G][4][4],
+                                                const char* a_tile,
+                                                int a_stride, int a_col,
+                                                const char* slab, int ws,
+                                                int ks, int h, int ug0,
+                                                int lane) {
+  static_assert(NG == 3 || NG == 4, "the LSTM's four or the GRU's three");
+  const int a_row = lane & 15, a_k = (lane >> 4) * 4;
+  const int g = lane >> 2, tg = lane & 3;
+  for (int kk = 0; kk < ks; kk += 8) {
+    tf32::AFrag a[MT];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      uint32_t raw[4];
+      ldsm_x4(raw, a_tile + (mt * 16 + a_row) * a_stride +
+                       (a_col + kk + a_k) * 4);
+      tf32::split_a(a[mt], raw);
+    }
+    const float* b0 = reinterpret_cast<const float*>(slab + (kk + tg) * ws);
+    const float* b1 = reinterpret_cast<const float*>(slab + (kk + tg + 4) * ws);
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      const int u0 = (ug0 + gi) * 8;
+      if (u0 < h) {  // warp-uniform
+        tf32::BFrag b[NG];
+#pragma unroll
+        for (int q = 0; q < NG; ++q) {
+          const int col = q * h + u0 + g;
+          b[q] = tf32::split_b(b0[col], b1[col]);
+        }
+        // an accumulator's three terms in their order, its neighbours'
+        // between them (no two dependent mma back to back)
+#pragma unroll
+        for (int term = 0; term < 3; ++term)
+#pragma unroll
+          for (int q = 0; q < NG; ++q) {
+            const int slot = NG == 3 && q == 2 && kHSlab ? 3 : q;
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              tf32::mma_term(acc[mt][gi][slot], a[mt], b[q], term);
+          }
+      }
+    }
+  }
+}
+
+// The backwards' reverse product of one warp tile in float32: o[j] (n-tile
+// j of two; one of an 8-row slab) = the k steps kk in [k_lo, k_hi) of A at
+// column ka(kk) -- a staged f32 tile, rows a_base -- times B, the slab's
+// rows read untransposed at b_base.  Each k step adds lo*hi and hi*lo into
+// a small-term accumulator and hi*hi into its own, even and odd k steps
+// apart, so no chain of dependent `mma`s is longer than a third of the
+// steps; o = (small_even + small_odd) + (big_even + big_odd), a fixed order.
+template <typename KA>
+__device__ __forceinline__ void tf32_rev_product(float (&o)[2][4],
+                                                 const char* a_base,
+                                                 const char* b_base, int k_lo,
+                                                 int k_hi, bool one, KA ka) {
+  float sm[2][2][4], bg[2][2][4];
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sm[p][j][i] = bg[p][j][i] = 0.0f;
+  auto step = [&](int kk, float (&s)[2][4], float (&b)[2][4]) {
+    uint32_t raw[4];
+    tf32::AFrag af;
+    ldsm_x4(raw, a_base + ka(kk) * 4);
+    tf32::split_a(af, raw);
+    tf32::BFrag bf[2];
+    if (one) {
+      uint32_t r2[2];
+      ldsm_x2(r2, b_base + kk * 4);
+      bf[0] = tf32::split_b(__uint_as_float(r2[0]), __uint_as_float(r2[1]));
+    } else {
+      uint32_t r4[4];
+      ldsm_x4(r4, b_base + kk * 4);
+      bf[0] = tf32::split_b(__uint_as_float(r4[0]), __uint_as_float(r4[1]));
+      bf[1] = tf32::split_b(__uint_as_float(r4[2]), __uint_as_float(r4[3]));
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      if (j == 0 || !one) {
+        tf32::mma(s[j], af.lo, bf[j].hi0, bf[j].hi1);
+        tf32::mma(b[j], af.hi, bf[j].hi0, bf[j].hi1);
+        tf32::mma(s[j], af.hi, bf[j].lo0, bf[j].lo1);
+      }
+  };
+  int kk = k_lo;
+  for (; kk + 8 < k_hi; kk += 16) {
+    step(kk, sm[0], bg[0]);
+    step(kk + 8, sm[1], bg[1]);
+  }
+  if (kk < k_hi) step(kk, sm[0], bg[0]);
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      o[j][i] = (sm[0][j][i] + sm[1][j][i]) + (bg[0][j][i] + bg[1][j][i]);
+}
+
 // All slabs of one step: acc = bias + [x_t | h] @ [W_ih; W_hh] for the
 // warp's cells, slot q starting from bias_s[q*hc + unit] (f32; the GRU's
 // slots r, z, xn, hn start from b_ih + b_hh, b_ih + b_hh, b_ih_n, b_hh_n).
@@ -594,9 +782,9 @@ __device__ __forceinline__ void slab_gates(float (&acc)[MT][G][4][4],
 // caller's copies), before its commit; `before_h(void)` once after the first
 // h slab's hand-over, before the h tile is read (a cluster's wait for the
 // other ranks' h).
-template <int NG, int G, int MT, typename F, typename FH>
+template <int NG, int G, int MT, typename T, typename F, typename FH>
 __device__ __forceinline__ void step_gates(float (&acc)[MT][G][4][4],
-                                           WeightRing& ring, int& n,
+                                           WeightRingT<T>& ring, int& n,
                                            int t_cur, int t_next,
                                            const char* h_tile,
                                            const float* bias_s, int hc,
@@ -625,7 +813,19 @@ __device__ __forceinline__ void step_gates(float (&acc)[MT][G][4][4],
     if (s == 0) after_first();
     cp_async_commit();
     const int k0 = s * ks;
-    if (k0 < e) {
+    constexpr int kE = (int)sizeof(T);
+    if constexpr (kE == 4) {
+      if (k0 < e) {
+        slab_gates_tf32<NG, G, MT, false>(acc, ring.x_slab(n),
+                                          xslot_stride(ks, kE), 0, slab,
+                                          ring.ws, ks, hc, ug0, lane);
+      } else {
+        if (k0 == e) before_h();
+        slab_gates_tf32<NG, G, MT, true>(acc, h_tile, h_stride(ring.hk, kE),
+                                         k0 - e, slab, ring.ws, ks, hc, ug0,
+                                         lane);
+      }
+    } else if (k0 < e) {
       slab_gates<NG, G, MT, false>(acc, ring.x_slab(n), xslot_stride(ks), 0,
                                    slab, ring.ws, ks, hc, ug0, lane);
     } else {

@@ -56,11 +56,13 @@ recurrence.  Those kernels take E and H that are multiples of 32 (H of 64
 in a cluster of 4) and 16-byte aligned tensors; ``pad_gru_operands``
 zero-pads other sizes here (a padded unit has r = z = 1/2 and n = 0, so
 its h stays exactly 0 and its gradients are 0) and the results are cut
-back.  float32 keeps exact f32 FMAs (no TF32) on the first version's
-one-thread-per-unit layout, x staged in chunks (any E), its units split
-over a cluster of up to 8 blocks of at most 256 threads above H = 256 in
-kernels 7 and 8 and above 403 in kernel 9 (``f32_cluster``, as the
-LSTM's).
+back.  In float32 kernel 9 runs the same tiles, and its phases B and C,
+on split TF32 as the LSTM's kernel 5 does (``csrc/tf32_mma.cuh``: one
+block up to H = 128, clusters of 2, 4 or 8 ranks up to 1,024,
+``f32_cluster``); the float32 forwards, kernels 7 and 8, keep exact f32
+FMAs on the first version's one-thread-per-unit layout, x staged in chunks
+(any E), their units split over a cluster of up to 8 blocks of at most 256
+threads above H = 256.
 
 Above H = 1,024, in both dtypes, kernels 7, 8 and 9 take the step route
 (``csrc/lstm_step.cu`` with three gate blocks, ``gru_route``) as the LSTM's
@@ -167,17 +169,20 @@ def gru_fused_supported(embed: int, hidden: int, rows: int,
     (``gru_tile_hidden``), split over a cluster of 2 or 4 blocks above 448
     (``gru_cluster``), whose tiles -- kernel 9's four-slot gradient tile
     beside the forward's -- fit a block's shared memory
-    (``tile_smem_bytes``); float32: ``f32_cluster`` blocks of at most 2 *
-    403 threads and ``f32_smem_bytes`` of shared memory, as the LSTM's.
-    Above it the step route (``gru_route``), whose blocks' shared memory
-    (``step_smem_bytes`` with three gate blocks) no width changes."""
+    (``tile_smem_bytes``); float32: the forwards' ``f32_cluster`` blocks
+    of at most 2 * 256 threads whose ``f32_smem_bytes`` fit, and kernel 9's
+    split-TF32 tiles with three gate blocks, whose ``f32_smem_bytes(...,
+    backward=True, gates=3)`` fit, as the LSTM's.  Above it the step route
+    (``gru_route``), whose blocks' shared memory (``step_smem_bytes`` with
+    three gate blocks) no width changes."""
     if embed < 1 or hidden < 1 or rows < 1 or dtype not in _DTYPES:
         return False
     if gru_route(hidden, dtype, backward=True) == "step":
         return (step_smem_bytes(dtype, gates=GATES) > 0
                 and step_smem_bytes(dtype, backward=True, gates=GATES) > 0)
     if dtype == torch.float32:
-        return 0 < f32_smem_bytes(embed, hidden, backward=True) <= SMEM_LIMIT
+        return (0 < f32_smem_bytes(embed, hidden) <= SMEM_LIMIT
+                and f32_smem_bytes(embed, hidden, True, GATES) > 0)
     e, h = _round_up(embed, TILE_ALIGN), gru_tile_hidden(hidden)
     c = gru_cluster(h)
     return c > 0 and tile_smem_bytes(e, h, backward=True, gates=GATES,
@@ -200,19 +205,22 @@ def bwd_row_tiles(hidden: int, rows: int) -> int:
 
 
 def pad_gru_operands(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
-                     w_hh: torch.Tensor, b_hh: torch.Tensor):
+                     w_hh: torch.Tensor, b_hh: torch.Tensor,
+                     h_align: int | None = None):
     """The operands of a GRU with E zero-padded up to a multiple of
     ``TILE_ALIGN`` and H up to the bf16 kernels' hidden size
     (``gru_tile_hidden(H)``; on the step route, above 1,024,
-    ``gru_step_hidden``): ``x [B, T, Ep]``, ``w_ih [Ep, 3Hp]``, ``b_ih
+    ``gru_step_hidden``), or up to a multiple of ``h_align`` (float32
+    kernel 9's, ``f32_tile_hidden``): ``x [B, T, Ep]``, ``w_ih [Ep, 3Hp]``, ``b_ih
     [3Hp]``, ``w_hh [Hp, 3Hp]``, ``b_hh [3Hp]``, every tensor 16-byte
     aligned.  The padded GRU's first H units equal the original's: a padded
     unit has zero weights and biases, so r = z = 1/2 and n = 0, its h stays
     exactly 0 from the zero start and it feeds nothing back.  Aligned
     operands come back as they are (no copy)."""
     h = w_hh.shape[0]
-    align = (STEP_UNITS[torch.bfloat16]
-             if gru_route(h, torch.bfloat16) == "step" else _h_align(h))
+    align = h_align or (STEP_UNITS[torch.bfloat16]
+                        if gru_route(h, torch.bfloat16) == "step"
+                        else _h_align(h))
     x, w_ih, w_hh, b_ih, b_hh = pad_operands(
         x, w_ih, w_hh, (b_ih, b_hh), GATES, align)
     return x, w_ih, b_ih, w_hh, b_hh
@@ -494,26 +502,31 @@ def gru_fused_bwd(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
 
     lib = load_library()
     dtype = _DTYPES[x.dtype]
-    if x.dtype == torch.bfloat16:
-        # the tensor-core kernels read W^T out of the staged W's own slabs
-        # (one matrix a rank of a cluster or a unit tile of the step
-        # route); a cluster's, or the step route's, dx is one product with
-        # W_ih^T after them
-        step = gru_route(H, x.dtype, backward=True) == "step"
-        x, w_ih, b_ih, w_hh, b_hh = pad_gru_operands(x, w_ih, b_ih, w_hh,
-                                                     b_hh)
+    step = gru_route(H, x.dtype, backward=True) == "step"
+    # the tensor-core kernels (float32: split TF32) read W^T out of the
+    # staged W's own slabs (one matrix a rank of a cluster or, bf16, a unit
+    # tile of the step route); a cluster's, or the step route's, dx is one
+    # product after them with W_ih^T (bf16) or W_ih read as it lies
+    # (float32).  The float32 step route reads W_ih, W_hh as given and
+    # W_hh^T.
+    if x.dtype == torch.bfloat16 or not step:
+        bf16 = x.dtype == torch.bfloat16
+        x, w_ih, b_ih, w_hh, b_hh = pad_gru_operands(
+            x, w_ih, b_ih, w_hh, b_hh,
+            None if bf16 else max(TILE_ALIGN, 16 * f32_cluster(H)))
         Hp = w_hh.shape[0]
         hb, dout = (_aligned(_pad_last(t, Hp)) for t in (hb, dout))
-        ranks = Hp // STEP_UNITS[x.dtype] if step else gru_cluster(Hp)
+        ranks = (Hp // STEP_UNITS[x.dtype] if step else gru_cluster(Hp)
+                 if bf16 else f32_cluster(Hp))
         # alive until the launch
         staged = stage_lstm_weights(w_ih, w_hh, ranks, GATES)
-        w_ih_t = w_ih.t().contiguous() if ranks > 1 else None
+        w_dx = ((w_ih.t().contiguous() if bf16 else w_ih) if ranks > 1
+                else None)
         weights = (staged.data_ptr(), b_ih.data_ptr(), 0, b_hh.data_ptr(),
-                   0 if w_ih_t is None else w_ih_t.data_ptr(), 0)
+                   0 if w_dx is None else w_dx.data_ptr(), 0)
     else:
-        # float32: transposed weights for the dx and dh products
-        w_ih_t, w_hh_t = w_ih.t().contiguous(), w_hh.t().contiguous()
-        weights = _pointers(w_ih, b_ih, w_hh, b_hh, w_ih_t, w_hh_t)
+        w_hh_t = w_hh.t().contiguous()
+        weights = _pointers(w_ih, b_ih, w_hh, b_hh, w_ih, w_hh_t)
     Ep, Hp = x.shape[-1], w_hh.shape[0]
     n_bytes = lib.cair_gru_bwd_workspace(B, T, Ep, Hp, tc, dtype,
                                          row_tiles or 0)

@@ -41,11 +41,23 @@ the gate columns split over a thread-block cluster of 2 or 4 blocks
 5's dh partials, through distributed shared memory.  Those kernels take E
 and H that are multiples of 32 and 16-byte aligned tensors;
 ``pad_lstm_operands`` zero-pads other sizes here (zero weights and biases
-keep a padded unit at exactly 0), and the results are cut back.  float32
-keeps exact f32 FMAs (no TF32) on the first version's
-one-thread-per-unit layout, x staged in chunks, its units split over a
-cluster of up to 8 blocks of at most 256 threads above H = 256 in kernels
-1 and 4 and above 403 in kernel 5 (``f32_cluster``).
+keep a padded unit at exactly 0), and the results are cut back.
+
+In float32 (the configuration's default dtype) kernel 5 runs the same
+tiles on split TF32 (``csrc/tf32_mma.cuh``): each operand splits into
+hi = tf32(v) and lo = tf32(v - hi) as its fragment is loaded, and a product
+is lo*hi + hi*lo + hi*hi in ``mma.sync.m16n8k8`` tiles, about 22 of
+float32's 24 bits at a third of TF32's 495 TFLOP/s -- 2.5 times the f32
+FMA peak -- in a fixed order (the same bits every run); phases B and C
+too.  One block of 64 or 32 rows (``tile_config_f32``) takes H up to
+128, clusters of 2, 4 or 8 ranks of at most 128 units the rest up to
+1,024 (``f32_cluster``, ``cluster_tile_f32``: 32 rows a rank up to 4
+ranks, 16 in 8; ``f32_tile_hidden``: H padded to 16 C).  Its recompute
+may differ from kernel 4's forward by float32 rounding (about 1e-7): the
+float32 forwards, kernels 1 and 4, keep exact f32 FMAs on the first
+version's one-thread-per-unit layout, x staged in chunks, their units
+split over a cluster of up to 8 blocks of at most 256 threads above
+H = 256.
 
 Above H = 1,024, in both dtypes, kernels 1, 4 and 5 take the step route
 (``csrc/lstm_step.cu``, ``lstm_route``): the cluster's ranks made
@@ -73,10 +85,12 @@ MAX_PAIR_BF16 = 512    # a cluster of 2 up to here, of 4 above (kMaxPair)
 CLUSTER_TILE = (4, 1)  # a rank's unit groups per warp, 16-row tiles
 F32_STRIDE = 36       # floats per staged k-row of the float32 kernels
 F32_CHUNK = 256       # x k-rows the float32 kernels stage at a time
-F32_MAX_SINGLE = 403  # float32 kernels 5, 9: one block up to here (4H rows)
 F32_FWD_SINGLE = 256  # float32 kernels 1, 4, 7, 8: one block up to here
-F32_UNITS = 128       # units a rank of a float32 cluster holds
+F32_UNITS = 128       # units a rank of a float32 forward's cluster holds
 F32_MAX_RANKS = 8
+# float32 kernels 5, 9 (split TF32): one block up to 128 units, then ranks
+# of at most 128 (kF32BwdRank in csrc/lstm_common.cuh): 2, 4 or 8 of them
+F32_BWD_RANK = 128
 # units of a unit tile of the step route (kStepUnits: a bf16 cluster rank's;
 # kF32Units), and a bf16 step block's rows (kClusterConfig's tile)
 STEP_UNITS = {torch.bfloat16: 256, torch.float32: F32_UNITS}
@@ -154,32 +168,62 @@ def step_smem_bytes(dtype: torch.dtype = torch.bfloat16,
 def f32_cluster(hidden: int, backward: bool = True) -> int:
     """Blocks of the cluster the float32 kernels split ``hidden`` units over
     (``f32_cluster`` in ``csrc/lstm_common.cuh``; the LSTM's and the GRU's
-    alike): ceil(H / 128) blocks of at most 256 threads, 0 past 8 blocks;
-    one block of 2H threads up to 256 in the forwards (kernels 1, 4, 7, 8),
-    and up to 403 in the backwards (kernels 5, 9, ``backward``: their 4H
-    gradient rows fit, as in the first version)."""
-    if hidden <= (F32_MAX_SINGLE if backward else F32_FWD_SINGLE):
+    alike), 0 where none holds them.  The forwards (kernels 1, 4, 7, 8):
+    one block of 2H threads up to 256, else ceil(H / 128) blocks of at most
+    256 threads, up to 8.  The backwards (kernels 5, 9, ``backward``: the
+    split-TF32 tiles): one block up to 128, then 2, 4 or 8 ranks of at
+    most 128 units (32 rows a rank in a cluster of 2 or 4, 16 in one of
+    8)."""
+    if backward:
+        c = 1
+        while c < F32_MAX_RANKS and hidden > c * F32_BWD_RANK:
+            c *= 2
+        return c if hidden <= c * F32_BWD_RANK else 0
+    if hidden <= F32_FWD_SINGLE:
         return 1
     c = -(-hidden // F32_UNITS)
     return c if c <= F32_MAX_RANKS else 0
 
 
-def f32_smem_bytes(e: int, h: int, backward: bool = False) -> int:
+def f32_tile_hidden(hidden: int) -> int:
+    """The hidden size float32 kernels 5 and 9 run ``hidden`` at: the next
+    multiple of 32, and of 16 C in a cluster of C ranks (a rank's units a
+    multiple of 16); zero-padded by the wrappers."""
+    return _round_up(hidden, max(TILE_ALIGN, 16 * f32_cluster(hidden)))
+
+
+def tile_config_f32(hidden: int) -> tuple[int, int]:
+    """(unit groups per warp, 16-row tiles per block) of float32 kernels 5
+    and 9 in one block, H up to 128 (``pick_config_f32`` in
+    ``csrc/lstm_mma.cuh``): the bf16 tiles' unit groups, 64 rows up to
+    H = 64, 32 up to 128; a cluster's ranks take ``cluster_tile_f32``."""
+    return (1, 4) if hidden <= 64 else (2, 2)
+
+
+def cluster_tile_f32(ranks: int) -> tuple[int, int]:
+    """(unit groups per warp, 16-row tiles) of a rank of float32 kernels
+    5 and 9 in a cluster of ``ranks`` (``cluster_config_f32`` in
+    ``csrc/lstm_mma.cuh``): at most 128 units in 2 groups a warp, 32 rows
+    up to 4 ranks, 16 in a cluster of 8."""
+    return 2, 2 if ranks <= 4 else 1
+
+
+def f32_smem_bytes(e: int, h: int, backward: bool = False,
+                   gates: int = 4) -> int:
     """Dynamic shared memory of a block of the float32 forward (kernels 1,
-    4, 7, 8: ``launch`` in ``csrc/lstm_fwd.cu``, ``csrc/gru_fwd.cu``) or
-    backward (kernels 5, 9: ``launch_cell`` in ``csrc/lstm_bwd.cu``,
-    ``csrc/gru_bwd.cu``): h of all units and one x chunk of k-major rows
-    of 36 floats; a backward's reverse pass reuses them for the block's 4 Hc
-    gradient rows and, in a cluster, C * Hc rows of dh partials; 0 where
-    no cluster holds ``h``."""
-    c = f32_cluster(h)
-    if c == 0:
-        return 0
-    hc = -(-h // c)
-    rows = h + min(e, F32_CHUNK)
+    4, 7, 8: ``launch`` in ``csrc/lstm_fwd.cu``, ``csrc/gru_fwd.cu``: h of
+    all units and one x chunk of k-major rows of 36 floats) or of a block
+    (a rank) of the float32 backward's phase A (kernels 5, 9 with
+    ``gates`` gate blocks: ``tile_smem_bytes`` of the split-TF32 tiles at
+    the padded widths); 0 where no cluster holds ``h``."""
     if backward:
-        rows = max(rows, 4 * hc + (c * hc if c > 1 else 0))
-    return rows * F32_STRIDE * 4
+        if f32_cluster(h) == 0:
+            return 0
+        return tile_smem_bytes(_round_up(e, TILE_ALIGN), f32_tile_hidden(h),
+                               True, gates, dtype=torch.float32)
+    if f32_cluster(h, backward=False) == 0:
+        return 0
+    return (h + min(e, F32_CHUNK)) * F32_STRIDE * 4
 
 
 def tile_config(hidden: int) -> tuple[int, int]:
@@ -197,34 +241,44 @@ def tile_config(hidden: int) -> tuple[int, int]:
 
 def tile_smem_bytes(e: int, h: int, backward: bool = False,
                     gates: int = 4, rows: int | None = None,
-                    ranks: int | None = None) -> int:
-    """Dynamic shared memory of the bf16 forward or backward phase A kernel
-    at padded widths ``e``, ``h`` with ``gates`` gate blocks (4: the LSTM,
-    3: the GRU), ``rows`` rows a block (default: ``tile_config``'s) and
-    ``ranks`` blocks a cluster (default: ``lstm_cluster`` for the LSTM, 1
-    -- a single block -- for the GRU, whose split ``gru_cluster`` in
-    ``ops/kernels/gru.py`` states): the ring's mbarriers (64 bytes), its
-    three slabs of 32 (else 16) k-rows of a rank's ``gates`` * Hc gate
-    columns (Hc = H / ranks) and three x slots of ``rows`` rows of a slab's
-    depth of x_t columns, the h tile (two in a cluster), the bias (four f32
-    slots of Hc); 0 if neither depth fits (``mma_smem`` in
-    ``csrc/lstm_mma.cuh``).  E takes no shared memory: x is streamed beside
-    the weights.  A backward's gradient tile has four slots of Hc whatever
-    the gate count (the GRU's da_r, da_z, da_n, da_n * r) and takes the
-    place of the forward's tiles, beside the f32 tile dh returns through:
-    after that union in the LSTM's single-block kernel 5, inside it in the
-    GRU's single-block kernel 9; a cluster's rank (either recurrence) keeps
-    inside it one tile of Hc columns a source rank instead."""
-    c = ranks or (lstm_cluster(h) if gates == 4 else 1)
+                    ranks: int | None = None,
+                    dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory of the tensor-core forward or backward phase A
+    kernel in ``dtype`` (bf16; float32: the split-TF32 backward) at padded
+    widths ``e``, ``h`` with ``gates`` gate blocks (4: the LSTM, 3: the
+    GRU), ``rows`` rows a block (default: ``tile_config``'s, float32
+    ``tile_config_f32``'s) and ``ranks`` blocks a cluster (default: bf16
+    ``lstm_cluster`` for the LSTM, 1 -- a single block -- for the GRU,
+    whose split ``gru_cluster`` in ``ops/kernels/gru.py`` states; float32
+    ``f32_cluster``): the ring's mbarriers (64 bytes), its three slabs of
+    32 (else 16, float32 else 8) k-rows of a rank's ``gates`` * Hc gate
+    columns (Hc = H / ranks; 8 zero columns a row) and three x slots of
+    ``rows`` rows of a slab's depth of x_t columns (+ 16 bytes a row), the
+    h tile (two in a cluster), the bias (four f32 slots of Hc), float32's
+    backward the partials of its reverse products from seven warps (7 KB);
+    0 if no depth fits (``mma_smem`` in ``csrc/lstm_mma.cuh``).  E takes no shared
+    memory: x is streamed beside the weights.  A backward's gradient tile
+    has four slots of Hc whatever the gate count (the GRU's da_r, da_z,
+    da_n, da_n * r) and takes the place of the forward's tiles, beside the
+    f32 tile dh returns through: after that union in the LSTM's
+    single-block kernel 5, inside it in the GRU's single-block kernel 9; a
+    cluster's rank (either recurrence) keeps inside it one tile of Hc
+    columns a source rank instead."""
+    f32 = dtype == torch.float32
+    elt = 4 if f32 else 2
+    c = ranks or (f32_cluster(h) if f32
+                  else lstm_cluster(h) if gates == 4 else 1)
     if c == 0:
         return 0
     hc = h // c
-    m = rows or (16 * (CLUSTER_TILE[1] if c > 1 else tile_config(h)[1]))
-    h_row, w_row = 2 * h + 16, 2 * gates * hc + 16
+    own = tile_config_f32(h) if f32 else tile_config(h)
+    rank = cluster_tile_f32(c) if f32 else CLUSTER_TILE
+    m = rows or (16 * (rank[1] if c > 1 else own[1]))
+    h_row, w_row = elt * h + 16, elt * (gates * hc + 8)
     tiles = (2 if c > 1 else 1) * m * h_row
     exch_after = 0
     if backward:
-        rev = m * (8 * hc + 16)
+        rev = m * (4 * elt * hc + 16)
         if c > 1:
             rev += c * m * (hc + 8) * 4
         elif gates == 3:
@@ -232,9 +286,11 @@ def tile_smem_bytes(e: int, h: int, backward: bool = False,
         tiles = max(tiles, rev)
         if gates == 4 and c == 1:
             exch_after = m * (h + 8) * 4
-    for depth in (32, 16):
-        n_bytes = (64 + 3 * depth * w_row + 3 * m * (2 * depth + 16) + tiles
-                   + exch_after + 16 * hc)
+    if backward and f32:
+        exch_after += 7 * 32 * 8 * 4   # the warps' partials (kRedBytes)
+    for depth in ((32, 16, 8) if f32 else (32, 16)):
+        n_bytes = (64 + 3 * depth * w_row + 3 * m * (elt * depth + 16)
+                   + tiles + exch_after + 16 * hc)
         if n_bytes <= SMEM_LIMIT:
             return n_bytes
     return 0
@@ -248,10 +304,12 @@ def fused_supported(embed: int, hidden: int, rows: int,
     least 1 in both dtypes.  Up to 1,024 units, bfloat16: ``hidden`` padded
     to a multiple of 32, split over a cluster of 2 or 4 blocks above 384
     (``lstm_cluster``), whose tiles fit a block's shared memory
-    (``tile_smem_bytes``); float32: ``f32_cluster`` blocks of at most 2 *
-    403 threads and ``f32_smem_bytes`` of shared memory.  Above it the step
-    route (``lstm_route``), whose blocks' shared memory
-    (``step_smem_bytes``) no width changes."""
+    (``tile_smem_bytes``); float32: the forwards' ``f32_cluster`` blocks
+    of at most 2 * 256 threads whose ``f32_smem_bytes`` fit, and kernel 5's
+    split-TF32 tiles at ``f32_tile_hidden``, one block or a cluster of 2, 4
+    or 8 (``f32_cluster``), whose ``f32_smem_bytes(..., backward=True)``
+    fit.  Above it the step route (``lstm_route``), whose blocks' shared
+    memory (``step_smem_bytes``) no width changes."""
     if embed < 1 or hidden < 1 or rows < 1 or dtype not in _DTYPES:
         return False
     if lstm_route(hidden, dtype, backward=True) == "step":
@@ -260,7 +318,8 @@ def fused_supported(embed: int, hidden: int, rows: int,
     if dtype == torch.bfloat16:
         e, h = _round_up(embed, TILE_ALIGN), _round_up(hidden, TILE_ALIGN)
         return tile_smem_bytes(e, h, backward=True) > 0
-    return 0 < f32_smem_bytes(embed, hidden, backward=True) <= SMEM_LIMIT
+    return (0 < f32_smem_bytes(embed, hidden) <= SMEM_LIMIT
+            and f32_smem_bytes(embed, hidden, backward=True) > 0)
 
 
 def _pad_last(t: torch.Tensor, size: int) -> torch.Tensor:
@@ -656,24 +715,29 @@ def lstm_fused_bwd(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
 
     lib = load_library()
     dtype = _DTYPES[x.dtype]
-    if x.dtype == torch.bfloat16:
-        # the tensor-core kernels read W^T out of the staged W's own slabs
-        # (one matrix a rank of a cluster or a unit tile of the step route);
-        # a cluster's, or the step route's, dx is one product with W_ih^T
-        # after them
-        step = lstm_route(H, x.dtype, backward=True) == "step"
+    step = lstm_route(H, x.dtype, backward=True) == "step"
+    # the tensor-core kernels (float32: split TF32) read W^T out of the
+    # staged W's own slabs (one matrix a rank of a cluster or, bf16, a unit
+    # tile of the step route); a cluster's, or the step route's, dx is one
+    # product after them with W_ih^T (bf16) or W_ih read as it lies
+    # (float32).  The float32 step route reads W_ih, W_hh as given and
+    # W_hh^T.
+    w_dx = w_hh_t = None
+    if x.dtype == torch.bfloat16 or not step:
+        bf16 = x.dtype == torch.bfloat16
         x, w_ih, b, w_hh = pad_lstm_operands(
-            x, w_ih, b, w_hh, STEP_UNITS[x.dtype] if step else TILE_ALIGN)
+            x, w_ih, b, w_hh,
+            (STEP_UNITS[x.dtype] if step else TILE_ALIGN) if bf16
+            else max(TILE_ALIGN, 16 * f32_cluster(H)))
         Hp = w_hh.shape[0]
         hb, cb, dout = (_aligned(_pad_last(t, Hp)) for t in (hb, cb, dout))
-        ranks = Hp // STEP_UNITS[x.dtype] if step else lstm_cluster(Hp)
+        ranks = (Hp // STEP_UNITS[x.dtype] if step else lstm_cluster(Hp)
+                 if bf16 else f32_cluster(Hp))
         staged = stage_lstm_weights(w_ih, w_hh, ranks)
-        w_ih_t = w_ih.t().contiguous() if ranks > 1 else None
-        transposes = (0 if w_ih_t is None else w_ih_t.data_ptr(), 0)
+        if ranks > 1:
+            w_dx = w_ih.t().contiguous() if bf16 else w_ih
     else:
-        # float32: transposed weights for the dx and dh products
-        w_ih_t, w_hh_t = w_ih.t().contiguous(), w_hh.t().contiguous()
-        transposes = (w_ih_t.data_ptr(), w_hh_t.data_ptr())
+        staged, w_dx, w_hh_t = w_ih, w_ih, w_hh.t().contiguous()
     Ep, Hp = x.shape[-1], w_hh.shape[0]
     n_bytes = lib.cair_lstm_bwd_workspace(B, T, Ep, Hp, tc, dtype)
     if n_bytes < 0:
@@ -685,12 +749,13 @@ def lstm_fused_bwd(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
                         torch.empty_like(w_hh))
     launch(
         "cair_lstm_bwd", x.device,
-        x.data_ptr(), mask.data_ptr(),
-        (staged if x.dtype == torch.bfloat16 else w_ih).data_ptr(),
-        b.data_ptr(), w_hh.data_ptr(), *transposes, hb.data_ptr(),
-        cb.data_ptr(), dout.data_ptr(), dx.data_ptr(), dw_ih.data_ptr(),
-        db.data_ptr(), dw_hh.data_ptr(), workspace.data_ptr(), B, T, Ep, Hp,
-        int(reverse), tc, dtype, _stream(x))
+        x.data_ptr(), mask.data_ptr(), staged.data_ptr(), b.data_ptr(),
+        w_hh.data_ptr(), *(0 if t is None else t.data_ptr()
+                           for t in (w_dx, w_hh_t)),
+        hb.data_ptr(), cb.data_ptr(), dout.data_ptr(), dx.data_ptr(),
+        dw_ih.data_ptr(), db.data_ptr(), dw_hh.data_ptr(),
+        workspace.data_ptr(), B, T, Ep, Hp, int(reverse), tc, dtype,
+        _stream(x))
     lstm_fused_bwd.launches += 1
     if (Ep, Hp) != (E, H):
         dx = dx[..., :E].contiguous()

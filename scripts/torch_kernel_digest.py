@@ -23,7 +23,11 @@ generator line ending in its serial kernel's time, and the slate pool's
 kernel 10 at the rank slate's and suggest init's shapes ([16000, 30, 256]
 and [1280, 30, 256]) and at suggest init's rows of the CUDA-core kernel
 (H = 1,024) and past it (H = 2,304), in float32 and bfloat16, with a
-digest of each output's bytes.  Two checkouts print the
+digest of each output's bytes; then float32 kernels 5 and 9 alone at the
+shapes of their split-TF32 tiles (F32_BWD_SHAPES: the recommenders'
+source [64, 150, 256] -> 128, the doc encoder's rows at H = 384, 512 and
+1,024, the one block's and the old kernel's edges, an odd E and H), each
+line ending in its time over F32_ITERS calls.  Two checkouts print the
 same digest for a kernel exactly when it gives the same bits.  The
 backward kernels (5, 9) are fed the boundaries of their residual kernels'
 plain versions, so their lines do not move with kernels 4 and 8.  A
@@ -50,6 +54,14 @@ RNN_SHAPES = ((ROWS, STEPS, EMBED, HIDDEN), (ROWS, STEPS, EMBED, 256),
               (640, 7, EMBED, 512), (640, 7, EMBED, 1024),
               (640, 7, EMBED, 1152))
 ITERS = 5
+# (rows, steps, E, H) of float32 kernels 5 and 9 alone, timed over
+# F32_ITERS calls after one warm-up call
+F32_BWD_SHAPES = ((64, 150, EMBED, HIDDEN), (ROWS, STEPS, EMBED, 384),
+                  (ROWS, STEPS, EMBED, 512), (ROWS, STEPS, EMBED, 1024),
+                  (2000, 13, EMBED, 256), (2000, 13, EMBED, 257),
+                  (2000, 13, EMBED, 403), (2000, 13, EMBED, 404),
+                  (2000, 13, 37, 200))
+F32_ITERS = 2
 BEAM_ROWS, VOCAB, KC = 1600, 50_000, 6
 # (rows, E, kc) of the generator digests: the beam-5 and greedy steps, the
 # old top-32 off the row block, kernel 3's last whole x tile (E by dtype)
@@ -84,20 +96,20 @@ def inputs(gates: int, n_bias: int, dtype, rows=ROWS, steps=STEPS,
     return cuda[0], mask.cuda(), cuda[1:-1], cuda[-1]
 
 
-def timed_ms(fn) -> float:
-    """Mean device time of ``fn`` over ITERS calls, after two warm-up
-    calls (CUDA events)."""
-    for _ in range(2):
+def timed_ms(fn, iters: int = ITERS, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls, after ``warmup``
+    warm-up calls (CUDA events)."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(ITERS):
+    for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / ITERS
+    return start.elapsed_time(end) / iters
 
 
 def generator_inputs(dtype, rows=BEAM_ROWS, embed=EMBED):
@@ -179,6 +191,34 @@ def slate_digests(slate, dtype, name: str) -> None:
         print(f"attn_pool {name} R={rows}{at}: {digest(out)}", flush=True)
 
 
+def f32_bwd_digests(lstm, gru) -> None:
+    """Float32 kernels 5 and 9 at F32_BWD_SHAPES, both directions, fed the
+    boundaries of their residual kernels' plain versions."""
+    for (rnn, mod, gates, n_bias), shape in (
+            (r, s) for r in (("lstm", lstm, 4, 1), ("gru", gru, 3, 2))
+            for s in F32_BWD_SHAPES):
+        at = " [%d,%d,%d]->%d" % shape
+        x, mask, w, dout = inputs(gates, n_bias, torch.float32, *shape)
+        w = w if rnn == "lstm" else [w[0], w[1], w[3], w[2]]
+        for reverse in (False, True):
+            state = getattr(mod, f"{rnn}_fused_res_reference")(
+                x, mask, *w, reverse, TIME_CHUNK)[1:]
+
+            def call():
+                return getattr(mod, f"{rnn}_fused_bwd")(
+                    x, mask, *w, *state, dout, reverse, TIME_CHUNK)
+
+            outs = call()
+            torch.cuda.synchronize()
+            ms = timed_ms(call, F32_ITERS, 1)
+            way = "reverse" if reverse else "forward"
+            print(f"{rnn}_fused_bwd float32 alone {way}{at}: "
+                  f"{digest(*outs)} | {ms:.3f} ms", flush=True)
+            del state, outs
+        del x, mask, w, dout
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -240,6 +280,7 @@ def main() -> int:
         recurrence_digests(lstm, dtype, name)
         generator_digests(beamgen, dtype, name)
         slate_digests(slate, dtype, name)
+    f32_bwd_digests(lstm, gru)
     return 0
 
 

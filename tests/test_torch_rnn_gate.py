@@ -87,7 +87,8 @@ def _count_calls(monkeypatch):
 
 # (rnn, E, H, the kernels hold it): the LSTM and GRU kernels hold every E
 # and H (1,152 on the step route; the GRU's float32 H = 520 on a cluster of
-# 5 blocks, E = 1700 staged in chunks); an odd E and H stay with the
+# 5 blocks in kernels 7, 8 and of 4 ranks in kernel 9, E = 1700 staged in
+# chunks); an odd E and H stay with the
 # kernels (float32 has no alignment rule; bfloat16 is zero-padded by the
 # wrapper)
 GATE_SHAPES = [("lstm", 24, 16, True), ("lstm", 37, 19, True),
@@ -189,13 +190,17 @@ def test_kernel_path_reads_hT_from_the_outputs(rnn):
 
 
 # CARS end to end: nhid beyond the clusters' limit (1,024) stays with the
-# LSTM and GRU kernels (the step route on the card); an odd emsize stays
-# with the kernels
+# LSTM and GRU kernels (the step route on the card), also with the slate
+# pool's kernel (its wide route past H = 1,024 on the card); an odd emsize
+# stays with the kernels
 CARS_CASES = [("nhid_beyond_the_limit", dict(nhid=1152), "lstm_fused"),
               ("odd_emsize", dict(emsize=37), "lstm_fused"),
               ("gru_nhid_beyond_the_limit",
                dict(nhid=1152, rnn_type="gru", session_rnn_type="gru"),
-               "gru_fused")]
+               "gru_fused"),
+              ("gru_nhid_beyond_the_limit_slate",
+               dict(nhid=1152, rnn_type="gru", session_rnn_type="gru",
+                    use_pallas_slate=True), "gru_fused")]
 
 
 @pytest.mark.parametrize("name,overrides,route",

@@ -330,7 +330,8 @@ def test_fused_supported_takes_every_hidden_size(dtype):
     (1025, BF16, "fwd", "step"), (1056, BF16, "bwd", "step"),
     (4096, BF16, "bwd", "step"),
     (256, F32, "fwd", "single"), (257, F32, "fwd", "cluster"),
-    (403, F32, "bwd", "single"), (404, F32, "bwd", "cluster"),
+    (128, F32, "bwd", "single"), (129, F32, "bwd", "cluster"),
+    (403, F32, "bwd", "cluster"), (404, F32, "bwd", "cluster"),
     (1024, F32, "bwd", "cluster"), (1025, F32, "fwd", "step"),
     (1025, F32, "bwd", "step"),
     (128, BF16, "rec", "single"), (512, F32, "rec", "single"),

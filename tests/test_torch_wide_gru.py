@@ -31,6 +31,7 @@ import pytest
 import torch
 from test_torch_gru_bwd_tiles import NAMES, _close_rel
 from test_torch_gru_bwd_tiles import _inputs as _gru_inputs
+from test_torch_wide_lstm import f32_tiles_smem
 
 from context_attentive_ir_tpu.ops.pallas.gru import (
     _gru_fused_bwd_impl,
@@ -268,7 +269,8 @@ def test_cluster_algorithm_matches_jax(b, t, e, h, tc, reverse):
 
 def test_float32_cluster_of_four_matches_jax():
     """float32's split of H = 512: four ranks of 128 units
-    (``f32_cluster``) in kernel 9, slabs of 32 k-rows."""
+    (``f32_cluster``) in kernel 9, as in kernels 7 and 8, slabs of 32
+    k-rows."""
     b, t, e, h, tc = 16, 3, 300, 512, 2
     assert K.f32_cluster(h) == 4 and K.f32_cluster(h, backward=False) == 4
     args, dout = _inputs(b, t, e, h)
@@ -329,18 +331,14 @@ def _mma_smem(h, c, backward):
 
 
 def _f32_smem(e, h, backward):
-    """The float32 launchers' sums (``launch`` in ``csrc/gru_fwd.cu``,
-    ``launch_cell`` in ``csrc/gru_bwd.cu``): h of all units and one x chunk
-    of at most 256 k-rows of 36 floats; the backward's 4 Hc gradient rows
-    and, in a cluster of C blocks, C * Hc rows of dh partials."""
-    c = K.f32_cluster(h, backward)
-    if c == 0:
+    """The float32 launchers' sums: the forward (``launch`` in
+    ``csrc/gru_fwd.cu``) h of all units and one x chunk of at most 256
+    k-rows of 36 floats; the backward (``mma_smem`` in
+    ``csrc/lstm_mma.cuh``) the split-TF32 tiles with three gate blocks
+    (``f32_tiles_smem``)."""
+    if K.f32_cluster(h, backward) == 0:
         return 0
-    hc = -(-h // c)
-    rows = h + min(e, 256)
-    if backward:
-        rows = max(rows, 4 * hc + (c * hc if c > 1 else 0))
-    return rows * 36 * 4
+    return f32_tiles_smem(h, 3) if backward else (h + min(e, 256)) * 144
 
 
 @pytest.mark.parametrize("dtype", [BF16, F32])
@@ -349,9 +347,10 @@ def test_gate_is_the_launchers_at_every_hidden_size(dtype):
     holds every H, wherever the JAX gate holds too; up to 1,024 exactly
     where the launchers' arithmetic does -- bf16: H padded to 32 (64 in a
     cluster of 4), ``gru_cluster``'s blocks whose tiles fit, forward and
-    backward; float32: ``f32_cluster``'s blocks of at most 806 threads (256
-    in a cluster) whose rows fit -- and above it on the step route, whose
-    blocks' shared memory no width changes."""
+    backward; float32: the forwards' rows of 36 floats, and kernel 9's
+    split-TF32 tiles at ``f32_tile_hidden``, ``f32_cluster``'s ranks of at
+    most 128 units whose tiles fit -- and above it on the step route,
+    whose blocks' shared memory no width changes."""
     for h in range(32, 1057):
         for e in (1, 300, 4096):
             ok = G.gru_fused_supported(e, h, 8, dtype)
@@ -381,11 +380,11 @@ def test_gate_is_the_launchers_at_every_hidden_size(dtype):
                 held = all(0 < _f32_smem(e, h, bw) <= K.SMEM_LIMIT
                            for bw in (False, True))
                 c = K.f32_cluster(h)
-                held = held and c > 0 and 2 * -(-h // c) <= 806
+                held = held and c > 0 and K.f32_tile_hidden(h) // c <= 128
                 assert ok is held, (e, h)
                 if c:
-                    assert K.f32_smem_bytes(e, h, True) == _f32_smem(e, h,
-                                                                     True)
+                    assert K.f32_smem_bytes(e, h, True, G.GATES) == \
+                        _f32_smem(e, h, True)
                     assert K.f32_smem_bytes(e, h) == (h + min(e, 256)) * 144
 
 

@@ -249,16 +249,16 @@ def test_cluster_algorithm_matches_jax(b, t, e, h, tc, reverse):
 
 def test_float32_cluster_of_four_matches_jax():
     """float32's split of H = 512: four ranks of 128 units
-    (``f32_cluster``), slabs of 32 k-rows."""
+    (``f32_cluster``), slabs of 16 k-rows."""
     b, t, e, h, tc = 16, 3, 300, 512, 2
-    assert K.f32_cluster(h) == 4
+    assert K.f32_cluster(h) == 4 and K.f32_tile_hidden(h) == h
     x, mask, w_ih, bias, w_hh, dout = map(torch.from_numpy,
                                           _inputs(5, b, t, e, h))
     x, w_ih, bias, w_hh = K.pad_lstm_operands(x, w_ih, bias, w_hh)
-    out, hb, cb = cluster_forward(x, mask, w_ih, bias, w_hh, 4, ks=32,
+    out, hb, cb = cluster_forward(x, mask, w_ih, bias, w_hh, 4, ks=16,
                                   time_chunk=tc)
     dx, dw_ih, db, dw_hh = cluster_backward(x, mask, w_ih, bias, w_hh, hb,
-                                            cb, dout, 4, ks=32,
+                                            cb, dout, 4, ks=16,
                                             time_chunk=tc)
     got = (dx[..., :e], dw_ih[:e], db, dw_hh)
     (out_j, hb_j, cb_j), ref = _jax(5, b, t, e, h, tc, False)
@@ -340,30 +340,62 @@ def test_tile_smem_bytes_is_the_launchers_sum(h, backward):
         assert K.tile_smem_bytes(e, h, backward) == want > 0
 
 
-@pytest.mark.parametrize("h,c,hc", [(128, 1, 128), (403, 1, 403),
-                                    (404, 4, 101), (512, 4, 128),
-                                    (640, 5, 128), (1000, 8, 125),
+def f32_tiles_smem(h, gates=4, depth=False, ranks=None):
+    """``mma_smem`` of ``csrc/lstm_mma.cuh`` for the split-TF32 phase A of
+    float32 kernels 5 (``gates`` 4) and 9 (3), written out: one block to
+    H = 128, 2, 4 or 8 ranks of at most 128 units above (``ranks``: a
+    cluster of that many instead), H padded to 32 (16 C in a cluster of
+    C), 64 / 32 rows a block by H, 32 a rank of 2 or 4, 16 of 8;
+    three slabs of 32, 16 or 8 k-rows of gates * Hc + 8 floats, three x
+    slots (+ 16 bytes a row), the union of the h tile(s) and the gradient
+    tile of four f32 slots with the dh partials, kernel 5's dh tile after
+    it in one block, the bias, seven warps' partials of the reverse
+    products (32 lanes x 8 floats each).  ``depth``: (bytes, rows a block,
+    the slab depth) instead.""" 
+    c = ranks or (1 if h <= 128 else 2 if h <= 256 else 4 if h <= 512
+                  else 8)
+    hp = -(-h // max(32, 16 * c)) * max(32, 16 * c)
+    hc = hp // c
+    m = (32 if c <= 4 else 16) if c > 1 else \
+        64 if hp <= 64 else 32
+    fwd = (2 if c > 1 else 1) * m * (4 * hp + 16)
+    exch = c * m * (hc + 8) * 4 if c > 1 else \
+        m * (hp + 8) * 4 if gates == 3 else 0
+    union = max(fwd, m * (16 * hc + 16) + exch)
+    after = m * (hp + 8) * 4 if gates == 4 and c == 1 else 0
+    for ks in (32, 16, 8):
+        n = (64 + 3 * ks * 4 * (gates * hc + 8) + 3 * m * (4 * ks + 16)
+             + union + after + 16 * hc + 7 * 32 * 8 * 4)
+        if n <= K.SMEM_LIMIT:
+            return (n, m, ks) if depth else n
+    return (0, m, 0) if depth else 0
+
+
+@pytest.mark.parametrize("h,c,hc", [(128, 1, 128), (403, 4, 112),
+                                    (404, 4, 112), (512, 4, 128),
+                                    (640, 8, 80), (1000, 8, 128),
                                     (1024, 8, 128), (1025, 0, 0)])
 def test_float32_cluster_and_shared_memory(h, c, hc):
     """``f32_cluster`` and ``f32_smem_bytes`` against the launchers
     (``csrc/lstm_common.cuh``, ``launch`` in ``csrc/lstm_fwd.cu``,
-    ``launch_cell`` in ``csrc/lstm_bwd.cu``): blocks of 2 Hc <= 806
-    threads, h of all units plus one x chunk of at most 256 k-rows, the
-    backward's 4 Hc gradient rows and C * Hc partial rows."""
+    ``mma_smem`` in ``csrc/lstm_mma.cuh``): the forwards' blocks of 2 Hc
+    <= 512 threads, h of all units plus one x chunk of at most 256 k-rows;
+    the backward's split-TF32 tiles, one block to 128 and ranks of Hc <=
+    128 units above (``f32_tiles_smem``)."""
     assert K.f32_cluster(h) == c
     # kernels 1 and 4 split every H above 256
     assert K.f32_cluster(h, backward=False) == (
-        1 if h <= 256 else c if h > 403 else -(-h // 128))
+        1 if h <= 256 else -(-h // 128) if h <= 1024 else 0)
     if not c:
         assert K.f32_smem_bytes(256, h) == 0
+        assert K.f32_smem_bytes(256, h, backward=True) == 0
         return
-    assert -(-h // c) == hc and 2 * hc <= 806
+    assert K.f32_tile_hidden(h) // c == hc and hc % 16 == 0 and hc <= 128
     for e in (1, 256, 4096):
         fwd = (h + min(e, 256)) * 36 * 4
-        rev = (4 * hc + (c * hc if c > 1 else 0)) * 36 * 4
-        assert K.f32_smem_bytes(e, h) == fwd
-        assert K.f32_smem_bytes(e, h, backward=True) == max(fwd, rev)
-        assert max(fwd, rev) <= K.SMEM_LIMIT
+        assert K.f32_smem_bytes(e, h) == fwd <= K.SMEM_LIMIT
+        assert (K.f32_smem_bytes(e, h, backward=True) == f32_tiles_smem(h)
+                > 0)
 
 
 @pytest.mark.parametrize("e", [768, 1024, 4096])
