@@ -167,17 +167,23 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    at the beam-40 (R = 12,800, kc = 41), beam-127 (R = 40,640, kc = 128) and
    beam-5 (E = 1,536 and 2,048) steps and at kc 33, 64, 127 and 128 (R =
    1,605), in bf16 and float32, held to their plain version on integer
-   and random data, every mode of a table the same bits; then float32
-   kernels 5 and 9 on split TF32 (``f32bwd``): their gates against the
-   launchers at every H to 1,024 and their routes to 1,152, both held to
-   their plain versions in both directions (the same bits twice) at the
-   doc encoder's rows with H = 128, 256, 384, 512 and 1,024, the
-   recommenders' source, the edges of the one block and of the clusters
-   (129, 257, 403, 404, 513, 1,000) and an odd E and H (37, 200), and timed
-   beside cuDNN's exact-f32 backward (the rows ``widelstm`` / ``widegru``
-   time already are held only), and 4 Adam steps of a float32 CARS and
-   CARS-GRU at the serving widths through kernels 4 + 5 / 8 + 9 against
-   the plain scan; then the step route (``widestep``): CARS at nhid 2,048 in bf16 (``rank_batch``,
+   and random data, every mode of a table the same bits; then the float32
+   tiles, kernels 1, 4, 5 and 7, 8, 9 on split TF32 (``f32bwd``, also
+   ``f32``): their gates and the forwards' layout (shared memory, rows, h
+   tiles) against the launchers at every H to 1,024 and their routes to
+   1,152, 5 and 9 fed 4's and 8's boundaries at time chunks 1 and 6 the
+   same bits (their recompute reproduces the forwards' states), all held
+   to their plain versions in both directions (5 and 9 the same bits
+   twice, 4 and 8 the bits of 1 and 7) at the doc encoder's rows
+   with H = 128, 256, 384, 512 and 1,024, the recommenders' source, the
+   edges of the one block, of the clusters and of the forwards' h tiles and
+   64-row ranks (129, 160, 224, 257, 403, 404, 513, 640, 641, 1,000) and an
+   odd E and H (37, 200), and timed beside cuDNN's exact-f32 module (the
+   forwards at H = 128 and the source, the backward everywhere; the rows
+   ``widelstm`` / ``widegru`` time already are held only), then a float32
+   CARS and CARS-GRU at the serving widths: ``rank_batch`` through kernels
+   1 / 7 and 4 Adam steps through kernels 4 + 5 / 8 + 9, against the plain
+   scan; then the step route (``widestep``): CARS at nhid 2,048 in bf16 (``rank_batch``,
    beam-5 ``suggest_batch``) and 1,152 in float32 (``rank_batch``), and 4
    Adam steps of each at 8 sessions, against the same weights on the
    plain scan; kernels 1, 4, 5 at ``[16000, 30, 256]`` -> 1,152 and 2,048
@@ -231,9 +237,10 @@ first for its checkpoint), ``interop`` (run directories, BM25 preparation,
 the native vectorizer, beam-5's host reads; runs ``train`` first for its
 state), ``gru`` (CARS-GRU and HRED-QS), ``small`` (the
 small float32 models card vs CPU), ``kernel6`` (``lstm_precomputed``),
-``f32bwd`` (float32 kernels 5 and 9 on split TF32: gates, checks and
-backward timings at H = 128 to 1,024 and the source, float32 CARS and
-CARS-GRU train steps against the plain scan), ``widelstm`` (CARS at nhid 512 in bf16 and float32 -- ``rank_batch``,
+``f32bwd`` or ``f32`` (float32 kernels 1, 4, 5, 7, 8, 9 on split TF32:
+gates, layouts, checks, forward timings at H = 128 and the source and
+backward timings at H = 128 to 1,024, float32 CARS and CARS-GRU
+``rank_batch`` and train steps against the plain scan), ``widelstm`` (CARS at nhid 512 in bf16 and float32 -- ``rank_batch``,
 beam-5 ``suggest_batch``, 4 train steps -- ``cli.main --nhid 512``, a bf16
 CARS at emsize 768, each against the same model on the plain scan, and
 kernels 1, 4, 5 timed at the doc encoder's rows and steps at H = 512 and
@@ -577,9 +584,8 @@ TILE_SHAPES = ((1, LD, EMSIZE, NHID), (33, LD, EMSIZE, NHID),
 # (rows, steps, E, H) of kernels 1, 4 and 5 past the single block's tiles,
 # run in float32 and bf16: E streamed in slabs (768, 1,024, 2,048), the
 # bf16 cluster of 2 (H = 416, 512) and of 4 (640, 1,024), the float32
-# clusters (kernels 1 and 4 from H = 300, 3 blocks of 100 units; kernel 5's
-# split-TF32 tiles from 129: 2 ranks at 256, 4 at 300 to 512, 8 at 640 and
-# 1,024), rows off the 16-row block (9 rows: one block
+# clusters (kernels 1, 4 and 5's split-TF32 tiles from 129: 2 ranks at
+# 256, 4 at 300 to 512, 8 at 640 and 1,024), rows off the 16-row block (9 rows: one block
 # of a cluster, mostly empty), T = 1 and a T the time chunk does not
 # divide; past 1,024 the step route (bf16 H padded to 1,280 and 2,048 in
 # tiles of 256, float32 tiles of 128, the last partial at 1,100)
@@ -612,8 +618,8 @@ def check_tiles(gen, rnn: str, shapes=TILE_SHAPES,
 # theirs), E streamed (672, 1,024, 1,500: float32's old E + H <= 1,614
 # passed), bf16's one block at its widest (448) and its clusters of 2 (480,
 # 512) and 4 (544 padded to 576, 640, 1,024), float32's clusters (kernels
-# 7, 8 above H = 256, kernel 9's split-TF32 tiles from 129: 4 ranks at 404
-# and 512, 8 at 544 to 1,024), rows off the
+# 7, 8, 9's split-TF32 tiles from 129: 4 ranks at 404 and 512, 8 at 544 to
+# 1,024), rows off the
 # 16-row block (9 rows: one block of a cluster, mostly empty), T = 1 and a
 # T the time chunk does not divide; past 1,024 the step route (bf16 H
 # padded to 1,280 and 2,048 in tiles of 256, float32 tiles of 128, the last
@@ -1363,8 +1369,8 @@ def check_refusals(gen) -> None:
     # fused_supported states the launchers' limits: a shape it accepts runs
     # through all three kernels, one it rejects is refused by the backward;
     # every E and H in both dtypes (bf16: one block to 384, clusters of 2
-    # and 4 to 1,024; float32: kernels 1, 4 one block to 256, kernel 5's
-    # split-TF32 tiles one block to 128, clusters of 2, 4, 8 to 1,024; the
+    # and 4 to 1,024; float32: kernels 1, 4, 5's split-TF32 tiles one
+    # block to 128, clusters of 2, 4, 8 to 1,024; the
     # step route above), the step route's shapes each held to the plain
     # version, both directions
     bf16 = torch.bfloat16
@@ -1418,8 +1424,7 @@ def check_refusals(gen) -> None:
              for code, dtype in enumerate((torch.float32, bf16))
              for kernel in range(3)
              if names[lib.cair_lstm_route(h, code, kernel)]
-             != lstm_route(h, dtype, backward=kernel == 1,
-                           recurrence=kernel == 2)]
+             != lstm_route(h, dtype, recurrence=kernel == 2)]
     log(f"lstm_route equal to cair_lstm_route at every H of 32 .. 4,096 "
         f"(multiples of 32) and 1,025, both dtypes, kernels 1/4, 5, 6: "
         f"{not moved}")
@@ -1466,7 +1471,7 @@ def check_refusals(gen) -> None:
     # runs through all three kernels, one it rejects is refused by at least
     # one; every E and H in both dtypes (bf16: one block to 448, clusters of
     # 2 and 4 to 1,024, H padded to 64 in a cluster of 4; float32: kernels
-    # 7, 8 one block to 256 and 9 to 128, clusters of up to 8 to 1,024; the
+    # 7, 8, 9 one block to 128, clusters of 2, 4, 8 to 1,024; the
     # step route above, bf16 H padded to a multiple of 256), the step
     # route's shapes each held to the plain version, both directions
     for e, h, dtype in ((672, NHID, bf16), (704, NHID, bf16),
@@ -1512,20 +1517,18 @@ def check_refusals(gen) -> None:
 
     # the GRU's route rule (cair_gru_route, gru_route in csrc/lstm_mma.cuh)
     # is the one ops/kernels/gru.py states, at every multiple of 32 to
-    # 4,096 (and the odd 1,025), each dtype, forward and backward
+    # 4,096 (and the odd 1,025), each dtype (kernels 7, 8, 9 alike)
     from context_attentive_ir_tpu_torch.ops.kernels.gru import gru_route
 
-    moved = [(h, code, bw) for h in (*range(32, 4097, 32), 1025)
+    moved = [(h, code) for h in (*range(32, 4097, 32), 1025)
              for code, dtype in enumerate((torch.float32, bf16))
-             for bw in (0, 1)
-             if names[lib.cair_gru_route(h, code, bw)]
-             != gru_route(h, dtype, backward=bool(bw))]
+             if names[lib.cair_gru_route(h, code)] != gru_route(h, dtype)]
     log(f"gru_route equal to cair_gru_route at every H of 32 .. 4,096 "
-        f"(multiples of 32) and 1,025, both dtypes, kernels 7/8 and 9: "
+        f"(multiples of 32) and 1,025, both dtypes, kernels 7, 8, 9: "
         f"{not moved}")
     if moved:
         raise AssertionError(f"gru_route differs from the launchers' at "
-                             f"(H, dtype, backward) {moved}")
+                             f"(H, dtype) {moved}")
 
     def beamgen_at(e, v=300, kc=2, **kw):
         x = torch.randn((70, e), generator=gen, device="cuda")
@@ -1866,7 +1869,10 @@ PATH_KERNELS = {
     "suggest_greedy_e1536": ("lstm_fused", GREEDY_GEN),
     "decode_pipelined_e1536": ("lstm_fused", "generator_topk_lse_pipelined"),
     # f32bwd: CARS and CARS-GRU at the serving widths in float32 (the
-    # configuration's default dtype), kernels 5 and 9 on split TF32
+    # configuration's default dtype), kernels 1, 4, 5 and 7, 8, 9 on split
+    # TF32
+    "rank_batch_f32": ("lstm_fused",),
+    "rank_batch_f32_gru": ("gru_fused",),
     "train_step_f32bwd": ("lstm_fused_res", "lstm_fused_bwd"),
     "train_step_f32bwd_gru": ("gru_fused_res", "gru_fused_bwd"),
     # widestep: CARS on the step route (bf16 nhid 2,048, float32 1,152) and
@@ -1954,6 +1960,8 @@ EXACT_LAUNCHES = {
         ("train_step", {"gru_fused_res": 4, "gru_fused_bwd": 4}))},
     "suggest_beam5_hredqs_1024": {"gru_fused": 2},
     "train_step_hredqs_1024": {"gru_fused_res": 2, "gru_fused_bwd": 2},
+    "rank_batch_f32": {"lstm_fused": 4},
+    "rank_batch_f32_gru": {"gru_fused": 4},
     "train_step_f32bwd": {"lstm_fused_res": 4, "lstm_fused_bwd": 4},
     "train_step_f32bwd_gru": {"gru_fused_res": 4, "gru_fused_bwd": 4},
     "lstm_precomputed": {"lstm_recurrence": 2},
@@ -4064,100 +4072,165 @@ def time_rnn(gen, rnn: str, launches: dict, fwd_err: float | None = None,
     return rows_out
 
 
-# -- float32 kernels 5 and 9 on split TF32 ----------------------------------
+# -- the float32 tiles: kernels 1, 4, 5 and 7, 8, 9 on split TF32 ----------
 
-# (rows, steps, E, H) at which float32 kernels 5 and 9 are held to their
-# plain versions (both directions, the same bits twice) and timed beside
-# cuDNN's exact-f32 backward: the doc encoder's rows at H = 128 (the main
-# shape), 256, 384, 512 and 1,024, and the recommenders' source [64, 150];
-# WIDE_TIMED / WIDEGRU_TIMED time some of them in a default run already
-F32BWD_TIMED = ((B * S * N, LD, EMSIZE, NHID), (B, S_REC * LQ, EMSIZE, NHID),
-                (B * S * N, LD, EMSIZE, 256), (B * S * N, LD, EMSIZE, 384),
-                (B * S * N, LD, EMSIZE, 512), (B * S * N, LD, EMSIZE, 1024))
+# (rows, steps, E, H) at which float32 kernels 1, 4, 5 and 7, 8, 9 are held
+# to their plain versions (both directions, 5 and 9 the same bits twice, 4
+# and 8 the bits of 1 and 7) and timed beside cuDNN's exact-f32 module: the
+# doc encoder's rows at H = 128 (the main shape; forwards and backward),
+# 256, 384, 512 and 1,024 (backward), and the recommenders' source [64,
+# 150] (forwards and backward); WIDE_TIMED / WIDEGRU_TIMED time some of
+# them in a default run already
+F32_TILE_TIMED = ((B * S * N, LD, EMSIZE, NHID),
+                  (B, S_REC * LQ, EMSIZE, NHID),
+                  (B * S * N, LD, EMSIZE, 256), (B * S * N, LD, EMSIZE, 384),
+                  (B * S * N, LD, EMSIZE, 512), (B * S * N, LD, EMSIZE, 1024))
 # and held only: the edges of the one block (128 / 129) and of the
 # clusters of 2, 4 and 8 (256 / 257, 512 / 513), the old CUDA-core
-# kernel's (403 / 404), 1,000 (padded to 1,024), an odd E and H, rows off
-# the 32-row block
-F32BWD_HELD = ((333, 7, EMSIZE, 129), (333, 7, EMSIZE, 257),
-               (333, 7, EMSIZE, 403), (333, 7, EMSIZE, 404),
-               (65, 7, 300, 513), (33, 5, 300, 1000),
-               (B * S + 13, LQ, 37, 200))
+# kernels' (403 / 404), the forwards' two h tiles (LSTM 224, GRU 160) and
+# their 64-row ranks' last width (640; 641 padded to 768 takes 32), 1,000
+# (padded to 1,024), an odd E and H, rows off the blocks
+F32_TILE_HELD = ((333, 7, EMSIZE, 129), (333, 7, EMSIZE, 160),
+                 (333, 7, EMSIZE, 224), (333, 7, EMSIZE, 257),
+                 (333, 7, EMSIZE, 403), (333, 7, EMSIZE, 404),
+                 (65, 7, 300, 513), (65, 7, 300, 640), (65, 7, 300, 641),
+                 (33, 5, 300, 1000), (B * S + 13, LQ, 37, 200))
 
 
-def f32bwd_paths(gen, timed_elsewhere=()) -> tuple[dict, list[dict]]:
-    """The slice's path in float32: kernels 5 and 9 (split TF32) at each
-    of F32BWD_TIMED held to their plain versions, both directions, and
-    timed beside their bound, plain version and cuDNN's exact-f32 backward
-    (but the (rnn, H) of ``timed_elsewhere``: held there), at F32BWD_HELD
-    held; their gates against the launchers at every H; then four Adam
-    steps of a float32 CARS and of a float32 CARS-GRU at the serving widths
-    through kernels 4 + 5 and 8 + 9 against the plain scan.  Returns the
-    launches and the timing rows."""
-    from context_attentive_ir_tpu_torch.ops.kernels.build import load_library
+def f32_tile_gates(lib) -> None:
+    """The float32 tiles' gates and routes against the launchers at every
+    H to 1,024 (routes to 1,152): kernels 5 and 9's workspace query refuses
+    exactly the padded widths whose tiles ``f32_smem_bytes(...,
+    backward=True)`` says do not fit, and the forwards' layout
+    (``cair_f32_fwd_layout``: shared memory, rows, h tiles) is
+    ``f32_smem_bytes`` / ``f32_forward_tiles``' at every padded H."""
+    from context_attentive_ir_tpu_torch.ops.kernels.gru import gru_route
     from context_attentive_ir_tpu_torch.ops.kernels.lstm import (
         f32_cluster,
+        f32_forward_tiles,
         f32_smem_bytes,
         f32_tile_hidden,
+        lstm_route,
+        tile_smem_bytes,
     )
 
     f32 = torch.float32
-    # the gates are the launchers': the workspace query refuses exactly
-    # the padded widths whose split-TF32 tiles f32_smem_bytes says do not
-    # fit, at every H to 1,024 and an E off and on the tile
-    lib = load_library()
+    rows, ks, tiles = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     moved = []
     for rnn, gates in (("lstm", 4), ("gru", 3)):
         for h in range(1, MAX_F32_TILED + 1):
+            hp = f32_tile_hidden(h)
             for e in (37, EMSIZE):
-                hp, ep = f32_tile_hidden(h), -(-e // 32) * 32
+                ep = -(-e // 32) * 32
                 held = f32_smem_bytes(e, h, True, gates) > 0
                 ws = (lib.cair_lstm_bwd_workspace(40, 3, ep, hp, 2, 0)
                       if rnn == "lstm"
                       else lib.cair_gru_bwd_workspace(40, 3, ep, hp, 2, 0, 0))
                 if held != (ws >= 0):
-                    moved.append((rnn, e, h))
-    log(f"float32 kernels 5 and 9: f32_smem_bytes(..., backward=True) > 0 "
-        f"exactly where the launchers take the padded widths, at every H of "
-        f"1 .. {MAX_F32_TILED} and E = 37, {EMSIZE} (f32_cluster: one "
-        f"block to 128, {f32_cluster(256)} ranks to 256, "
-        f"{f32_cluster(512)} to 512, {f32_cluster(1024)} to 1,024): "
+                    moved.append((rnn, "backward", e, h))
+            # the forwards at the doc encoder's, the query encoder's and
+            # the source's row counts (the rows a block follow them)
+            for n_rows in (B * S * N, B * S, B):
+                n = lib.cair_f32_fwd_layout(hp, gates, n_rows,
+                                            ctypes.byref(rows),
+                                            ctypes.byref(ks),
+                                            ctypes.byref(tiles))
+                m, t = f32_forward_tiles(hp, gates, n_rows)
+                want = tile_smem_bytes(32, hp, False, gates, m,
+                                       f32_cluster(hp), f32, t)
+                if (n != want or n <= 0 or (rows.value, tiles.value) != (m, t)
+                        or (n_rows == B * S * N
+                            and n != f32_smem_bytes(EMSIZE, h, False, gates))):
+                    moved.append((rnn, "forward", h, n_rows))
+    log(f"float32 tiles: f32_smem_bytes / f32_forward_tiles equal to the "
+        f"launchers' (kernels 5, 9: the workspace query at E = 37, "
+        f"{EMSIZE}; kernels 1, 4, 7, 8: cair_f32_fwd_layout's bytes, rows "
+        f"and h tiles at {B * S * N}, {B * S} and {B} rows) at every H of "
+        f"1 .. {MAX_F32_TILED} (f32_cluster: one block to 128, "
+        f"{f32_cluster(256)} ranks to 256, {f32_cluster(512)} to 512, "
+        f"{f32_cluster(1024)} to 1,024; the forwards' rows and h tiles at "
+        f"128 / 256 / 512 / 1,024 for {B * S * N} rows: "
+        f"{[f32_forward_tiles(h) for h in (128, 256, 512, 1024)]}): "
         f"{not moved}")
     if moved:
-        raise AssertionError(f"float32 backward gates differ from the "
-                             f"launchers at (rnn, E, H) {moved[:10]}")
-    # and the routes (one block, a cluster, the step route) are theirs
-    from context_attentive_ir_tpu_torch.ops.kernels.gru import gru_route
-    from context_attentive_ir_tpu_torch.ops.kernels.lstm import lstm_route
-
+        raise AssertionError(f"float32 gates differ from the launchers at "
+                             f"(rnn, kernel, ...) {moved[:10]}")
     names = ("single", "cluster", "step")
     moved = [h for h in range(1, 1153)
-             if names[lib.cair_lstm_route(h, 0, 1)]
-             != lstm_route(h, f32, backward=True)
-             or names[lib.cair_gru_route(h, 0, 1)]
-             != gru_route(h, f32, backward=True)]
-    log(f"float32 kernels 5 and 9: lstm_route / gru_route equal to the "
-        f"launchers' at every H of 1 .. 1,152: {not moved}")
+             if any(names[lib.cair_lstm_route(h, 0, k)] != lstm_route(h, f32)
+                    for k in (0, 1))
+             or names[lib.cair_gru_route(h, 0)] != gru_route(h, f32)]
+    log(f"float32 tiles: lstm_route / gru_route equal to the launchers' "
+        f"(kernels 1, 4, 5; 7, 8, 9) at every H of 1 .. 1,152: {not moved}")
     if moved:
-        raise AssertionError(f"float32 backward routes differ at H {moved}")
+        raise AssertionError(f"float32 routes differ at H {moved}")
+
+
+def recompute_bits(gen, rnn: str, h: int) -> None:
+    """Kernel 5 (9) fed kernel 4's (8's) boundaries at a time chunk of 1
+    and of TIME_CHUNK gives the same bits exactly when its recompute of a
+    chunk reproduces the forward's states bit for bit (its reverse pass,
+    parked sums and phase B do not depend on the chunk); logs and raises
+    otherwise."""
+    mod = rnn_kernels(rnn)
+    x, mask, w, dout = pair_inputs(gen, rnn, torch.float32, 333, 13, h=h)
+    outs = []
+    for tc in (1, TIME_CHUNK):
+        state = getattr(mod, f"{rnn}_fused_res")(x, mask, *w, False, tc)[1:]
+        outs.append(getattr(mod, f"{rnn}_fused_bwd")(x, mask, *w, *state,
+                                                    dout, False, tc))
+    err = max(float((a - b).abs().max()) for a, b in zip(*outs))
+    log(f"{rnn}_fused_bwd float32 [333,13,{x.shape[2]}]->{h} from "
+        f"{rnn}_fused_res's boundaries at time chunks 1 and {TIME_CHUNK}: "
+        f"the same bits {same_bits(*outs)} (max abs difference {err:.3e})")
+    if not same_bits(*outs):
+        raise AssertionError(f"{rnn}_fused_bwd's recompute differs from "
+                             f"{rnn}_fused_res's states at H = {h}")
+
+
+def f32bwd_paths(gen, timed_elsewhere=()) -> tuple[dict, list[dict]]:
+    """The default dtype's tiles: float32 kernels 1, 4, 5 and 7, 8, 9
+    (split TF32) at each of F32_TILE_TIMED held to their plain versions,
+    both directions, and timed beside their bound, plain version and
+    cuDNN's exact-f32 module -- the forwards at H = 128 (the main shape and
+    the source), the backward at every row -- (but the (rnn, H) of
+    ``timed_elsewhere``: held there), at F32_TILE_HELD held; their gates
+    and routes against the launchers (``f32_tile_gates``); kernels 5 and
+    9 recomputing the forwards' bits (``recompute_bits``); then float32
+    CARS and CARS-GRU at the serving widths: ``rank_batch`` through
+    kernels 1 and 7 and four Adam steps through 4 + 5 and 8 + 9, each
+    against the plain scan.  Returns the launches and the timing rows."""
+    from context_attentive_ir_tpu_torch.ops.kernels.build import load_library
+
+    f32 = torch.float32
+    f32_tile_gates(load_library())
     launches, rows = {}, []
     for rnn in RNNS:
-        for r, t, e, h in F32BWD_HELD:
-            held_errors("f32bwd", rnn, *pair_inputs(gen, rnn, f32, r, t,
-                                                    e=e, h=h), f32)
-        for r, t, e, h in F32BWD_TIMED:
+        for h in (NHID, 512):   # one block; a cluster of 4 ranks
+            recompute_bits(gen, rnn, h)
+        for r, t, e, h in F32_TILE_HELD:
+            held_errors("f32 tiles", rnn, *pair_inputs(gen, rnn, f32, r, t,
+                                                       e=e, h=h), f32)
+        for r, t, e, h in F32_TILE_TIMED:
             if (rnn, h) in timed_elsewhere and (r, t) == (B * S * N, LD):
-                held_errors("f32bwd", rnn, *pair_inputs(gen, rnn, f32, r, t,
-                                                        e=e, h=h), f32)
+                held_errors("f32 tiles", rnn, *pair_inputs(
+                    gen, rnn, f32, r, t, e=e, h=h), f32)
                 continue
             rows.extend(time_rnn(gen, rnn, launches, shape=(r, t),
                                  dtype=f32, iters=2, warmup=1,
-                                 bwd_only=True, e=e, h=h))
+                                 bwd_only=h != NHID, e=e, h=h))
             torch.cuda.empty_cache()
+    word_dict = synthetic_dictionary(VOCAB)
+    for tag, kw in (("f32", {}), ("f32_gru", GRU)):
+        wide_serving(word_dict, full_width_config(
+            "cars", compute_dtype="float32", **kw), tag, f32, launches,
+            suggest=False)
+        torch.cuda.empty_cache()
     for tag, kw in (("f32bwd", {}), ("f32bwd_gru", GRU)):
         wide_train(full_width_config("cars", compute_dtype="float32", **kw),
                    tag, f32, launches)
         torch.cuda.empty_cache()
-    log(f"f32bwd launches per path: {json.dumps(launches)}")
+    log(f"f32 tiles launches per path: {json.dumps(launches)}")
     return launches, rows
 
 
@@ -5600,7 +5673,7 @@ def card() -> str:
         text=True).stdout.strip()
 
 
-MAX_F32_TILED = 1024   # float32 kernels 5 and 9 on tiles to here
+MAX_F32_TILED = 1024   # the float32 tile kernels hold H to here
 
 # the timing rows' earlier readings (ms, bf16, one H100 80GB HBM3 at
 # 700 W; the recurrent kernels at the doc-encoder shape, the generator's
@@ -5629,14 +5702,16 @@ PHASES = ("kernels", "lstm", "grukernels", "beamkernels", "slatekernels",
           "widestep", "widegrustep", "trainer",
           "recommenders", "multitask", "rankers")
 SHARES = {"lstm", "grukernels", "beamkernels", "slatekernels"}
+ALIASES = {"f32": "f32bwd"}   # other names of a phase
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="",
                     help="comma-separated phases to run after the build "
-                         f"(of {', '.join(PHASES)}); default: all")
-    only = [p for p in ap.parse_args().only.split(",") if p]
+                         f"(of {', '.join(PHASES)}; f32 is f32bwd); default: "
+                         "all")
+    only = [ALIASES.get(p, p) for p in ap.parse_args().only.split(",") if p]
     if any(p not in PHASES for p in only):
         ap.error(f"--only takes phases of {PHASES}")
     full = not only

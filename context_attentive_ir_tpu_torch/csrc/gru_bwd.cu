@@ -111,8 +111,9 @@
 // rows), clusters of 2, 4 or 8 ranks of at most 128 units to 1,024
 // (f32_cluster; 32 rows a rank up to 4 ranks, 16 in 8).  Bound at the
 // doc encoder's shape -> 128: 4.25e11 flops at 165 TFLOP/s, 2.57 ms.  The
-// recompute may differ from kernel 8's forward (exact f32 FMAs) by float32
-// rounding.
+// recompute is kernel 8's float32 step (gru_fwd.cu), so from kernel 8's
+// boundaries it recomputes kernel 8's states bit for bit (chip_smoke's
+// f32 phase: kernel 9 the same bits at a time chunk of 1 and of 6).
 
 #include "lstm_common.cuh"
 #include "lstm_mma.cuh"
@@ -718,8 +719,8 @@ Layout layout(int n_rows, int n_steps, int e, int h_dim, int tc, size_t elt,
   Layout L;
   const long long n = (long long)n_rows * n_steps;
   const bool bf16 = elt == 2;
-  L.step = tiles::gru_route(h_dim, bf16, true) == tiles::kRouteStep;
-  L.c = L.step ? 1 : bf16 ? tiles::gru_cluster(h_dim) : f32_cluster(h_dim, true);
+  L.step = tiles::gru_route(h_dim, bf16) == tiles::kRouteStep;
+  L.c = L.step ? 1 : bf16 ? tiles::gru_cluster(h_dim) : f32_cluster(h_dim);
   const int m_rows = L.step ? kDgRows : 16 * mt;
   L.row_blocks = (n_rows + m_rows - 1) / m_rows;
   L.n_blocks = L.row_blocks * L.c;
@@ -775,11 +776,11 @@ bool valid_shape(int n_rows, int n_steps, int e, int h_dim, int tc) {
 // alone; float32 (split TF32) E and H multiples of 32, a cluster's ranks'
 // units of 16 (f32_cluster), whose shared memory fits
 bool shape_ok(int e, int h_dim, int dtype) {
-  if (tiles::gru_route(h_dim, dtype == 1, true) == tiles::kRouteStep)
+  if (tiles::gru_route(h_dim, dtype == 1) == tiles::kRouteStep)
     return step_shape_ok(e, h_dim, dtype);
   int ks = 0;
   if (dtype == 0) {
-    const int c = f32_cluster(h_dim, true);
+    const int c = f32_cluster(h_dim);
     if (c == 0 || e % tiles::kAlign != 0 || h_dim % tiles::kAlign != 0 ||
         h_dim % (16 * c) != 0)
       return false;
@@ -949,11 +950,11 @@ int row_tiles_of(int n_rows, int n_steps, int e, int h_dim, int tc,
   if (!valid_shape(n_rows, n_steps, e, h_dim, tc) ||
       !shape_ok(e, h_dim, dtype))
     return -1;
-  if (tiles::gru_route(h_dim, dtype == 1, true) == tiles::kRouteStep)
+  if (tiles::gru_route(h_dim, dtype == 1) == tiles::kRouteStep)
     return row_tiles == 0 ? 0 : -1;
   if (dtype == 0) {
     if (row_tiles != 0) return -1;
-    const int c = f32_cluster(h_dim, true);
+    const int c = f32_cluster(h_dim);
     return c > 1 ? tiles::cluster_config_f32(c).mt
                  : tiles::pick_config_f32(h_dim).mt;
   }

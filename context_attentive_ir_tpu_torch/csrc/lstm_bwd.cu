@@ -100,11 +100,15 @@
 // added in warp order, small and large terms and even and odd k steps in
 // accumulators of their own (tf32_rev_product), so no dependent chain of
 // `mma`s is long.  The cell update and its gradient keep exact expf /
-// tanhf in f32.  The recompute may differ from kernel 4's forward (exact
-// f32 FMAs, lstm_fwd.cu) by float32 rounding (about 1e-7), as the plain
-// version recomputes by its own arithmetic too.  What holds it now: the
-// slab hand-overs (an mbarrier wait and one or two barriers a slab, the
-// slabs half as deep as bf16's) with one block of 8 warps an SM (PERF.md).
+// tanhf in f32.  The recompute is kernel 4's float32 step (lstm_fwd.cu:
+// the same step_gates on the same staged slabs, k steps and split in the
+// same order; only the rows a block holds differ, which change no row's
+// sums), so from kernel 4's boundaries it recomputes kernel 4's states
+// bit for bit: kernel 5 fed kernel 4's boundaries at a time chunk of 1
+// and of 6 gives the same bits (chip_smoke's f32 phase).  What holds it
+// now: the slab hand-overs (an mbarrier wait and one or two barriers a
+// slab, the slabs half as deep as bf16's) with one block of 8 warps an SM
+// (PERF.md).
 
 // Above H = 1,024, in both dtypes, phase A takes the step route
 // (lstm_step.cu: the recompute a launch a step, the reverse pass two, with
@@ -681,8 +685,8 @@ Layout layout(int n_rows, int n_steps, int e, int h_dim, int tc, size_t elt,
               bool bf16) {
   Layout L;
   const long long n = (long long)n_rows * n_steps;
-  L.step = tiles::lstm_route(h_dim, bf16, true, false) == tiles::kRouteStep;
-  L.c = L.step ? 1 : bf16 ? tiles::lstm_cluster(h_dim) : f32_cluster(h_dim, true);
+  L.step = tiles::lstm_route(h_dim, bf16, false) == tiles::kRouteStep;
+  L.c = L.step ? 1 : bf16 ? tiles::lstm_cluster(h_dim) : f32_cluster(h_dim);
   L.cfg = bf16 ? (L.c > 1 ? tiles::kClusterConfig : tiles::pick_config(h_dim))
          : L.c > 1 ? tiles::cluster_config_f32(L.c)
                    : tiles::pick_config_f32(h_dim);
@@ -736,11 +740,11 @@ bool valid_shape(int n_rows, int n_steps, int e, int h_dim, int tc) {
 // 16; f32_cluster), whose shared memory fits; above it the step route
 // (bf16 H of 256, float32 any)
 bool shape_ok(int e, int h_dim, int dtype) {
-  if (tiles::lstm_route(h_dim, dtype == 1, true, false) == tiles::kRouteStep)
+  if (tiles::lstm_route(h_dim, dtype == 1, false) == tiles::kRouteStep)
     return step_shape_ok(e, h_dim, dtype);
   if (e % tiles::kAlign != 0 || h_dim % tiles::kAlign != 0) return false;
   if (dtype == 1) return tiles::lstm_cluster(h_dim) > 0;
-  const int c = f32_cluster(h_dim, true);
+  const int c = f32_cluster(h_dim);
   if (dtype != 0 || c == 0 || h_dim % (16 * c) != 0) return false;
   int ks = 0;
   return tiles::mma_smem(h_dim, h_dim / c, tiles::kLstmGates,

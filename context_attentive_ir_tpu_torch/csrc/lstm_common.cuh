@@ -4,19 +4,20 @@
 //
 // Two families live here.
 //
-// - The CUDA-core row-tile layout (the float32 forwards -- kernels 1, 4, 7,
-//   8 -- and kernel 6): a block owns kRows = 32 rows
-//   and has kRowGroups * H threads; thread (rg, j) owns hidden unit j of
-//   rows rg*16 .. rg*16+15.  Operands of a product are staged in shared
-//   memory k-major in f32, one padded row of kStride floats per k, so a
-//   thread reads its 16 rows as four float4 broadcasts and multiplies with
-//   exact f32 FMAs (dot_rows).  Those
-//   broadcasts, not FMAs or bytes, bound that layout; the bf16 kernels and
-//   both dtypes' backwards (kernels 5 and 9) left it for tensor-core tiles
-//   (lstm_mma.cuh; float32 in split TF32, tf32_mma.cuh).
+// - The CUDA-core row-tile layout, whose only users are kernel 6's
+//   CUDA-core kernel (lstm_rec.cu) and the float32 step route
+//   (lstm_step.cu): a block owns kRows = 32 rows and has kRowGroups * H
+//   threads (a step-route block kRowGroups * kF32Units); thread (rg, j)
+//   owns hidden unit j of rows rg*16 .. rg*16+15.  Operands of a product
+//   are staged in shared memory k-major in f32, one padded row of kStride
+//   floats per k, so a thread reads its 16 rows as four float4 broadcasts
+//   and multiplies with exact f32 FMAs (dot_rows).  Those broadcasts, not
+//   FMAs or bytes, bound that layout; every other recurrent kernel left it
+//   for tensor-core tiles (lstm_mma.cuh; float32 in split TF32,
+//   tf32_mma.cuh).
 // - The bf16 tensor-core primitives (namespace tiles: `cp.async`,
-//   `ldmatrix`, `mma.sync.m16n8k16`), used by lstm_mma.cuh (the bf16 LSTM
-//   and GRU forwards, the backwards' phase A) and by phase B.
+//   `ldmatrix`, `mma.sync.m16n8k16`), used by lstm_mma.cuh (the LSTM and
+//   GRU forwards, the backwards' phase A) and by phase B.
 //
 // The backward kernels share the weight-gradient reduction (phase B):
 // launch_wgrad_partial (tf32_mma.cuh: tensor-core tiles, bf16 or split
@@ -116,45 +117,26 @@ __device__ __forceinline__ void dot_rows(float acc[NG][kRowsPerThread],
   }
 }
 
-// The float32 forwards (lstm_fwd.cu, gru_fwd.cu) stage x_t in chunks of
-// kF32Chunk k-rows beside the whole h, so E takes no shared memory past
-// one chunk; f32_cluster gives the blocks of a cluster that splits the
-// units (1: one block of 2H threads).  The forward splits every H above
-// kF32FwdSingle into blocks of at most 256 threads (the one block of 2H
-// threads, launched under a bound of 1,024, spills 2.4 KB a thread and
-// took 1.05 s at [16000, 30, 256] -> 384 against 0.055 s split; up to 256
-// the one block is the faster).  The float32 backwards (kernels 5 and 9,
-// `backward`: the split-TF32 tiles of lstm_mma.cuh) take one block up to
-// H = 128 (pick_config_f32's rows) and above it clusters of ranks of at
-// most 128 units (cluster_config_f32): 2 up to 256 and 4 up to 512, ranks
-// of 32 rows, and 8 of 16 rows up to 1,024, where 32 rows' h tiles no
-// longer fit (mma_smem; a rank's H / C units a multiple of 16, the wrapper
-// pads H to it).  `f32_cluster` in ops/kernels/lstm.py states the same
-// rule for both.
+// The float32 tensor-core kernels (split TF32: the forwards 1, 4, 7, 8 and
+// the backwards 5, 9) split H over the same ranks: one block up to
+// kF32Rank = 128 units, then clusters of 2, 4 or 8 ranks of at most 128
+// units each -- 2 up to 256, 4 up to 512, 8 up to 1,024 (a rank's H / C
+// units a multiple of 16: the wrapper pads H to it).  Each kernel picks
+// its own rows a rank (lstm_mma.cuh: f32_fwd_groups and
+// f32_fwd_smem, pick_config_f32 and cluster_config_f32).  `f32_cluster` in
+// ops/kernels/lstm.py states the same rule.  The float32 step route above
+// H = 1,024 (lstm_step.cu) stages x_t and h in chunks of kF32Chunk k-rows
+// and takes unit tiles of kF32Units.
 constexpr int kF32Chunk = 256;
-constexpr int kF32FwdSingle = 256;
-constexpr int kF32Units = 128;      // units a rank of a cluster: 256 threads
+constexpr int kF32Units = 128;  // units of a float32 step-route unit tile
 constexpr int kF32MaxRanks = 8;
-constexpr int kF32BwdRank = 128;  // units a float32 backward rank holds
+constexpr int kF32Rank = 128;   // units a float32 rank holds at most
 
-inline int f32_cluster(int h, bool backward) {
-  if (backward) {
-    int c = 1;
-    while (c < kF32MaxRanks && h > c * kF32BwdRank) c *= 2;
-    return h <= c * kF32BwdRank ? c : 0;
-  }
-  if (h <= kF32FwdSingle) return 1;
-  const int c = (h + kF32Units - 1) / kF32Units;
-  return c <= kF32MaxRanks ? c : 0;
+inline int f32_cluster(int h) {
+  int c = 1;
+  while (c < kF32MaxRanks && h > c * kF32Rank) c *= 2;
+  return h <= c * kF32Rank ? c : 0;
 }
-
-// units a block of the float32 kernels owns
-inline int f32_units(int h, bool backward) {
-  const int c = f32_cluster(h, backward);
-  return c > 0 ? (h + c - 1) / c : 0;
-}
-
-inline size_t f32_chunk_rows(int e) { return e < kF32Chunk ? e : kF32Chunk; }
 
 // Stage x_t[k0 .. k0 + kn - 1] for the block's rows k-major in `xt` and
 // synchronise the block.
@@ -173,69 +155,6 @@ __device__ __forceinline__ void stage_x_chunk(float* xt,
     xt[(size_t)k * kStride + r] = v;
   }
   __syncthreads();
-}
-
-// One LSTM step's gate pre-activations for the thread's 16 rows and unit j
-// (`active`: j < H): acc[g][i] = bias_g + x_t @ W_ih[:, g*H + j] +
-// h @ W_hh[:, g*H + j], x_t staged chunk by chunk into `xt`, h read from
-// the staged tile `ht` (all H units, k-major, rounded to T).  The FMAs run
-// in k order over [x_t | h].  The caller synchronises before xt or ht is
-// written again.
-template <typename T>
-__device__ __forceinline__ void gate_preacts(
-    float acc[4][kRowsPerThread], float* xt, const float* ht,
-    const T* __restrict__ x, const T* __restrict__ w_ih,
-    const T* __restrict__ w_hh, const float bg[4], int row0, int n_rows,
-    int n_steps, int t, int e, int h_dim, int j, int rg, bool active) {
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) acc[g][i] = bg[g];
-  }
-  const int g4 = 4 * h_dim;
-  for (int k0 = 0; k0 < e; k0 += kF32Chunk) {
-    const int kn = e - k0 < kF32Chunk ? e - k0 : kF32Chunk;
-    stage_x_chunk<T>(xt, x, row0, n_rows, n_steps, t, e, k0, kn);
-    if (active)
-      dot_rows<4, T>(acc, xt, 0, rg, w_ih + (size_t)k0 * g4 + j, kn, g4,
-                     h_dim);
-    if (k0 + kF32Chunk < e) __syncthreads();  // the next chunk overwrites xt
-  }
-  if (active) dot_rows<4, T>(acc, ht, 0, rg, w_hh + j, h_dim, g4, h_dim);
-}
-
-// One GRU step's projections for the thread's 16 rows and unit j
-// (`active`: j < H): ax[g][i] = b_ih[g*H + j] + x_t @ W_ih[:, g*H + j] and
-// ah[g][i] = b_hh[g*H + j] + h @ W_hh[:, g*H + j], g = r, z, n -- apart,
-// since r multiplies only the recurrent n term.  x_t staged chunk by chunk
-// into `xt`, h read from the staged tile `ht` (all H units, k-major,
-// rounded to T); each sum runs in k order.  The caller synchronises before
-// xt or ht is written again.
-template <typename T>
-__device__ __forceinline__ void gru_preacts(
-    float ax[3][kRowsPerThread], float ah[3][kRowsPerThread], float* xt,
-    const float* ht, const T* __restrict__ x, const T* __restrict__ w_ih,
-    const T* __restrict__ w_hh, const float bx[3], const float bh[3],
-    int row0, int n_rows, int n_steps, int t, int e, int h_dim, int j, int rg,
-    bool active) {
-#pragma unroll
-  for (int g = 0; g < 3; ++g) {
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      ax[g][i] = bx[g];
-      ah[g][i] = bh[g];
-    }
-  }
-  const int g3 = 3 * h_dim;
-  for (int k0 = 0; k0 < e; k0 += kF32Chunk) {
-    const int kn = e - k0 < kF32Chunk ? e - k0 : kF32Chunk;
-    stage_x_chunk<T>(xt, x, row0, n_rows, n_steps, t, e, k0, kn);
-    if (active)
-      dot_rows<3, T>(ax, xt, 0, rg, w_ih + (size_t)k0 * g3 + j, kn, g3,
-                     h_dim);
-    if (k0 + kF32Chunk < e) __syncthreads();  // the next chunk overwrites xt
-  }
-  if (active) dot_rows<3, T>(ah, ht, 0, rg, w_hh + j, h_dim, g3, h_dim);
 }
 
 // -- bf16 tensor-core primitives (used by lstm_mma.cuh and by phase B) -------

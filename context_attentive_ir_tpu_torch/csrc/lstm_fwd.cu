@@ -44,13 +44,32 @@
 // every rank's next h tile through distributed shared memory.  E and H are
 // multiples of 32 here: the wrapper zero-pads other sizes.
 //
-// float32 keeps exact f32 FMAs (no TF32): one block per 32 rows with 2*H
-// threads, thread (rg, j) owning unit j of 16 rows, h staged in f32 k-major
-// and x_t staged kF32Chunk k-rows at a time, the weights read through L2.
-// Above H = 256 (f32_cluster) the units split over a cluster of up to 8
-// blocks of at most 256 threads: each holds the whole h, and a block writes
-// its units' new h into every rank's tile.  Each (row, unit)'s FMAs run in
-// the same k order either way.
+// float32 (the configuration's default dtype) runs the same kernel,
+// lstm_fwd_mma_kernel<float>, on split-TF32 tiles (tf32_mma.cuh):
+// [x_t | h] @ [W_ih; W_hh] is `mma.sync.m16n8k8` TF32 tiles on operands
+// split where their fragments are loaded, hi = tf32(v) and lo = v - hi,
+// three products a tile (lo*hi, hi*lo, hi*hi; about 21 of float32's 24
+// bits) in a fixed order, the same step as kernel 5's recompute.  The
+// weights are staged f32 (one matrix a rank), x_t's columns and h too, so
+// the h tile holds the carried h exactly and kernel 4 writes hb from it
+// (no f32 h stays in registers); c stays in registers, and the cell update
+// keeps exact expf / tanhf in f32.  What bounds it: at the doc encoder's
+// shape -> 128, 1.9e11 flops at split TF32's 165 TFLOP/s, 1.16 ms, bound
+// by operations; as H grows, the weight slabs' stream from L2 too, since
+// every row block re-reads its rank's slice of [W_ih; W_hh] each step (at
+// H = 1,024 the whole 21 MB a step, 16,000 / M times).  What the design
+// does about it: more rows a block than kernel 5's phase A holds (no
+// gradient tile shares the shared memory) -- one block up to H = 128, then
+// kernel 5's clusters of 2, 4 or 8 ranks of at most 128 units
+// (f32_cluster), 64 rows a block or rank where its h tile fits (to H =
+// 640) and 32 beyond -- so each slab feeds more rows, and fewer rows (to
+// 16) where the row blocks would leave SMs idle (the recommenders'
+// source, the query encoder); a rank keeps two h tiles, read and written
+// in turn, unless one tile lets its slabs be deeper or two do not fit (H =
+// 1,024: 32 rows of 4,112 bytes), and then one, which the ranks rewrite
+// after a second cluster barrier a step
+// (f32_fwd_smem).  E and H are multiples of 32 here, H of 16 C on a
+// cluster of C (the wrapper pads).
 //
 // These launchers hold H up to 1,024 (kMaxClustered) in both dtypes; above
 // it kernels 1 and 4 take the step route (`lstm_route` in lstm_mma.cuh;
@@ -68,142 +87,57 @@ namespace {
 
 using namespace cair_lstm;
 
-// kRes: also store the chunk-boundary state into hb / cb [n_chunks, B, H].
-// Chunk c holds time steps c*tc .. min((c+1)*tc, T) - 1.  kBound: the
-// launch bound (row_tile_bound).  A block has 2 * hc threads and owns units
-// rank*hc .. rank*hc + hc - 1 of a cluster of ceil(H / hc) blocks (kCl;
-// else hc = H: one block).  Shared memory: h of all H units [H][kStride] |
-// the x chunk [min(E, kF32Chunk)][kStride].
-template <typename T, bool kRes, int kBound, bool kCl>
-__global__ void __launch_bounds__(kBound)
-lstm_fwd_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
-                const T* __restrict__ w_ih, const T* __restrict__ bias,
-                const T* __restrict__ w_hh, T* __restrict__ out,
-                float* __restrict__ hb, float* __restrict__ cb, int n_rows,
-                int n_steps, int e, int h_dim, int reverse, int tc, int hc) {
-  extern __shared__ float4 smem4[];
-  float* ht = reinterpret_cast<float*>(smem4);
-  float* xt = ht + (size_t)h_dim * kStride;
-
-  const int n_ranks = kCl ? (int)tiles::cluster_size() : 1;
-  const int rank = kCl ? (int)tiles::cluster_rank() : 0;
-  const int j = threadIdx.x % hc;
-  const int rg = threadIdx.x / hc;
-  const int unit = rank * hc + j;
-  const bool active = !kCl || unit < h_dim;
-  const int row0 = (blockIdx.x / n_ranks) * kRows;
-  const int my_row0 = row0 + rg * kRowsPerThread;
-
-  float h[kRowsPerThread];
-  float c[kRowsPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    h[i] = 0.0f;
-    c[i] = 0.0f;
-  }
-  float bg[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g)
-    bg[g] = active ? to_f32(bias[g * h_dim + unit]) : 0.0f;
-  for (int i = threadIdx.x; i < h_dim * kStride; i += blockDim.x) ht[i] = 0.0f;
-  f32_sync(kCl);
-
-  for (int s = 0; s < n_steps; ++s) {
-    const int t = reverse ? n_steps - 1 - s : s;
-    if (kRes && active) {
-      // first step of a chunk in processing order: record the carried state
-      const bool first = reverse ? (t == n_steps - 1 || (t + 1) % tc == 0)
-                                 : (t % tc == 0);
-      if (first) {
-        const size_t base = (size_t)(t / tc) * n_rows;
-#pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i) {
-          const int row = my_row0 + i;
-          if (row < n_rows) {
-            hb[(base + row) * h_dim + unit] = h[i];
-            cb[(base + row) * h_dim + unit] = c[i];
-          }
-        }
-      }
-    }
-
-    float acc[4][kRowsPerThread];
-    gate_preacts<T>(acc, xt, ht, x, w_ih, w_hh, bg, row0, n_rows, n_steps, t,
-                    e, h_dim, unit, rg, active);
-    f32_sync(kCl);  // every block of the cluster is done reading its h tile
-
-    // cell update; masked steps carry the state and write zeros
-    float hr[kRowsPerThread];
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int row = my_row0 + i;
-      if (active && row < n_rows) {
-        const size_t pos = (size_t)row * n_steps + t;
-        const bool m = mask[pos] != 0;
-        const float ig = sigmoid_f32(acc[0][i]);
-        const float fg = sigmoid_f32(acc[1][i]);
-        const float gg = tanhf(acc[2][i]);
-        const float og = sigmoid_f32(acc[3][i]);
-        const float c_new = fg * c[i] + ig * gg;
-        const float h_new = og * tanhf(c_new);
-        if (m) {
-          h[i] = h_new;
-          c[i] = c_new;
-        }
-        out[pos * h_dim + unit] = from_f32<T>(m ? h[i] : 0.0f);
-      }
-      hr[i] = round_to<T>(h[i]);
-    }
-    if (active) store_rows_all(ht, unit, rg, hr, kCl ? n_ranks : 0);
-    // the h tiles are whole: a cluster's barrier; in a single block the next
-    // step's x staging ends in a __syncthreads before h is read
-    if constexpr (kCl) tiles::cluster_sync();
-  }
-}
-
-// The bf16 tensor-core kernel (see the header note and lstm_mma.cuh).
-// Shared memory: weight ring (mbarriers, slabs, x slots) | h tile (two in a
-// cluster, kCl) | bias of the block's units (f32).
-template <int G, int MT, bool kRes, bool kCl>
+// The tensor-core kernel in both dtypes (see the header note and
+// lstm_mma.cuh).  Shared memory: weight ring (mbarriers, slabs, x slots) |
+// h tile (two in a cluster, kCl, unless kOne) | bias of the block's units
+// (f32).  kOne: a float32 cluster whose ranks keep one h tile, rewritten
+// between two cluster barriers a step.
+template <typename T, int G, int MT, bool kRes, bool kCl, bool kOne>
 __global__ void __launch_bounds__(tiles::kThreads, 1)
-lstm_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                    const uint8_t* __restrict__ mask,
-                    const __nv_bfloat16* __restrict__ w_staged,
-                    const __nv_bfloat16* __restrict__ bias,
-                    __nv_bfloat16* __restrict__ out, float* __restrict__ hb,
+lstm_fwd_mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
+                    const T* __restrict__ w_staged, const T* __restrict__ bias,
+                    T* __restrict__ out, float* __restrict__ hb,
                     float* __restrict__ cb, int n_rows, int n_steps, int e,
                     int h_dim, int reverse, int tc, int ks) {
   using namespace tiles;
+  using E = Elt<T>;
+  constexpr int kE = (int)sizeof(T);  // bytes an element
+  constexpr bool kF32 = kE == 4;
+  // ranks a cluster may have: bf16 lstm_cluster, float32 f32_cluster
+  constexpr int kMaxC = kF32 ? kF32MaxRanks : 4;
+  constexpr bool kTwo = kCl && !kOne;  // two h tiles in turn
+  // kernel 4's f32 h in registers: bf16's staged h is rounded, float32's
+  // tile holds it exactly
+  constexpr bool kRegH = kRes && !kF32;
   extern __shared__ __align__(16) char smem[];
   constexpr int M = 16 * MT;
   const int n_ranks = kCl ? (int)cluster_size() : 1;
   const int rank = kCl ? (int)cluster_rank() : 0;
   const int hc = h_dim / n_ranks, u_off = rank * hc;
-  const int hs = h_stride(h_dim);
+  const int hs = h_stride(h_dim, kE);
   const int row0 = (blockIdx.x / n_ranks) * M;
-  WeightRing ring;
+  WeightRingT<T> ring;
   ring.init(smem,
             w_staged + (size_t)rank * (e + h_dim) *
-                           (w_stride(hc, kLstmGates) / 2),
+                           (w_stride(hc, kLstmGates, kE) / kE),
             x, e, h_dim, hc, kLstmGates, ks, n_steps, row0, M, n_rows,
             n_steps);
   char* h_buf[2];
   h_buf[0] = ring.end();
-  h_buf[1] = h_buf[0] + (kCl ? M * hs : 0);
+  h_buf[1] = h_buf[0] + (kTwo ? M * hs : 0);
   float* bias_s = reinterpret_cast<float*>(h_buf[1] + M * hs);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tg = lane & 3;
   const int ug0 = warp * G;
 
-  for (int i = threadIdx.x; i < (kCl ? 2 : 1) * M * hs / 16; i += kThreads)
+  for (int i = threadIdx.x; i < (kTwo ? 2 : 1) * M * hs / 16; i += kThreads)
     reinterpret_cast<uint4*>(h_buf[0])[i] = make_uint4(0, 0, 0, 0);
   for (int i = threadIdx.x; i < 4 * hc; i += kThreads)
-    bias_s[i] = __bfloat162float(bias[(i / hc) * h_dim + u_off + i % hc]);
+    bias_s[i] = to_f32(bias[(i / hc) * h_dim + u_off + i % hc]);
 
   float c[MT][G][4];
-  // the f32 h: only kernel 4's boundaries need it
-  float h[kRes ? MT : 1][kRes ? G : 1][4];
+  float h[kRegH ? MT : 1][kRegH ? G : 1][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -211,7 +145,7 @@ lstm_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         c[mt][gi][i] = 0.0f;
-        if constexpr (kRes) h[mt][gi][i] = 0.0f;
+        if constexpr (kRegH) h[mt][gi][i] = 0.0f;
       }
 
   ring.prologue(reverse ? n_steps - 1 : 0);
@@ -233,47 +167,57 @@ lstm_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
           if (mask[(size_t)row * n_steps + t] != 0) mb |= 1u << (mt * 2 + half);
         }
       }
-    if constexpr (kRes) {
-      // first step of a chunk in processing order: record the carried state
-      const bool first = reverse ? (t == n_steps - 1 || (t + 1) % tc == 0)
-                                 : (t % tc == 0);
-      if (first) {
-        const size_t base = (size_t)(t / tc) * n_rows;
+    const char* h_cur = h_buf[kTwo ? (s & 1) : 0];
+    // kernel 4: the first step of a chunk in processing order records the
+    // carried state (the h tile is whole once the step's first h slab is
+    // handed over, a cluster's wait included)
+    const bool first =
+        kRes && (reverse ? (t == n_steps - 1 || (t + 1) % tc == 0)
+                         : (t % tc == 0));
+    auto boundary = [&]() {
+      const size_t base = (size_t)(t / tc) * n_rows;
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-          for (int gi = 0; gi < G; ++gi)
+        for (int gi = 0; gi < G; ++gi)
 #pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              const int unit = (ug0 + gi) * 8 + 2 * tg;
-              if (unit < hc && (live >> (mt * 2 + half) & 1u)) {
-                const int row = row0 + mt * 16 + g + half * 8;
-                const size_t at = (base + row) * h_dim + u_off + unit;
-                *reinterpret_cast<float2*>(hb + at) = make_float2(
-                    h[mt][gi][half * 2], h[mt][gi][half * 2 + 1]);
-                *reinterpret_cast<float2*>(cb + at) = make_float2(
-                    c[mt][gi][half * 2], c[mt][gi][half * 2 + 1]);
-              }
+          for (int half = 0; half < 2; ++half) {
+            const int unit = (ug0 + gi) * 8 + 2 * tg;
+            if (unit < hc && (live >> (mt * 2 + half) & 1u)) {
+              const int r = mt * 16 + g + half * 8;
+              const size_t at = (base + row0 + r) * h_dim + u_off + unit;
+              float2 hv;
+              if constexpr (kRegH)
+                hv = make_float2(h[mt][gi][half * 2],
+                                 h[mt][gi][half * 2 + 1]);
+              else
+                hv = E::load2(h_cur + r * hs + (u_off + unit) * kE);
+              *reinterpret_cast<float2*>(hb + at) = hv;
+              *reinterpret_cast<float2*>(cb + at) = make_float2(
+                  c[mt][gi][half * 2], c[mt][gi][half * 2 + 1]);
             }
-      }
-    }
+          }
+    };
 
     const int t_next = s + 1 < n_steps ? (reverse ? t - 1 : t + 1) : -1;
-    const char* h_cur = h_buf[s & 1];
     float acc[MT][G][4][4];
     step_gates<kLstmGates, G, MT>(acc, ring, n, t, t_next, h_cur, bias_s, hc,
                                   ug0, lane, NoHook(), [&]() {
                                     // the other ranks' h of this step
                                     if (kCl && s > 0) cluster_wait();
+                                    if (first) boundary();
                                   });
-    // a single block rewrites its h tile in place: every warp must have
-    // read it; a cluster writes the other tile
-    if constexpr (!kCl) __syncthreads();
     const bool send = kCl && s + 1 < n_steps;
-    uint32_t dst[4] = {0, 0, 0, 0};  // the next h tile in each rank
+    // h is rewritten in place in a single block or a one-tile cluster:
+    // every warp (every rank) must have read it; two tiles: the other one
+    if constexpr (!kCl)
+      __syncthreads();
+    else if (kOne && send)
+      cluster_sync();
+    uint32_t dst[kMaxC] = {};  // the next h tile in each rank
     if (send)
       for (int q = 0; q < n_ranks; ++q)
-        dst[q] = map_rank(h_buf[(s + 1) & 1], q);
+        dst[q] = map_rank(h_buf[kTwo ? (s + 1) & 1 : 0], q);
 
     // cell update; masked steps carry the state and write zeros
 #pragma unroll
@@ -297,30 +241,30 @@ lstm_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
               const float h_new = og * tanhf(c_new);
               if (m) {
                 c[mt][gi][i] = c_new;
-                if constexpr (kRes) h[mt][gi][i] = h_new;
+                if constexpr (kRegH) h[mt][gi][i] = h_new;
               }
               hn[u] = m ? h_new : 0.0f;
             }
-            const bf162 v = __floats2bfloat162_rn(hn[0], hn[1]);
             const int r = mt * 16 + g + half * 8;
-            const int col = u_off + unit;
-            if constexpr (kCl) {
-              if (send) {
-                // the carried h where the step is masked
-                const bf162 keep =
-                    m ? v
-                      : *reinterpret_cast<const bf162*>(h_cur + r * hs +
-                                                        col * 2);
-                const uint32_t bits = *reinterpret_cast<const uint32_t*>(&keep);
+            const int at = r * hs + (u_off + unit) * kE;
+            if constexpr (kTwo) {
+              // every rank's next tile: h_new, or the carried h
+              if (send)
                 for (int q = 0; q < n_ranks; ++q)
-                  st_cluster_b32(dst[q] + r * hs + col * 2, bits);
-              }
+                  E::send2(dst[q] + at, m, hn[0], hn[1], h_cur + at);
             } else if (m) {
-              *reinterpret_cast<bf162*>(h_buf[0] + r * hs + col * 2) = v;
+              if constexpr (kCl) {
+                if (send)
+                  for (int q = 0; q < n_ranks; ++q)
+                    E::send2(dst[q] + at, true, hn[0], hn[1], nullptr);
+              } else {
+                E::store2(h_buf[0] + at, hn[0], hn[1]);
+              }
             }
             if (live >> (mt * 2 + half) & 1u)
-              *reinterpret_cast<bf162*>(
-                  out + ((size_t)(row0 + r) * n_steps + t) * h_dim + col) = v;
+              E::store2(out + ((size_t)(row0 + r) * n_steps + t) * h_dim +
+                            u_off + unit,
+                        hn[0], hn[1]);
           }
         }
       }
@@ -330,129 +274,136 @@ lstm_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int G, int MT, bool kRes, bool kCl>
+template <typename T, int G, int MT, bool kRes, bool kCl, bool kOne>
 int launch_mma(const void* x, const void* mask, const void* w_ih,
                const void* b, void* out, void* hb, void* cb, int n_rows,
                int n_steps, int e, int h_dim, int reverse, int tc, int c,
-               cudaStream_t stream) {
-  using namespace tiles;
-  using bf16 = __nv_bfloat16;
-  int ks = 0;
+               int ks, size_t smem, cudaStream_t stream) {
   const int m_rows = 16 * MT;
-  const size_t smem =
-      mma_smem(h_dim, h_dim / c, kLstmGates, m_rows, false, c, &ks);
-  if (smem == 0) return (int)cudaErrorInvalidValue;
   return (int)launch_blocks(
-      lstm_fwd_mma_kernel<G, MT, kRes, kCl>, (n_rows + m_rows - 1) / m_rows,
-      c, kThreads, smem, stream, static_cast<const bf16*>(x),
-      static_cast<const uint8_t*>(mask), static_cast<const bf16*>(w_ih),
-      static_cast<const bf16*>(b), static_cast<bf16*>(out),
-      static_cast<float*>(hb), static_cast<float*>(cb), n_rows, n_steps, e,
-      h_dim, reverse, tc, ks);
-}
-
-// bf16: E and H multiples of 32, H <= kMaxClustered, 16-byte aligned
-// pointers, the weights staged (the wrapper pads, aligns and stages: one
-// matrix a rank of the cluster); refused otherwise.
-template <bool kRes>
-int dispatch_mma(const void* x, const void* mask, const void* w_ih,
-                 const void* b, void* out, void* hb, void* cb, int n_rows,
-                 int n_steps, int e, int h_dim, int reverse, int tc,
-                 cudaStream_t s) {
-  using namespace tiles;
-  const int c = lstm_cluster(h_dim);
-  if (e <= 0 || e % kAlign != 0 || h_dim <= 0 || h_dim % kAlign != 0 ||
-      c == 0 || !aligned16(x) || !aligned16(w_ih) || !aligned16(out) ||
-      (kRes && !aligned16(hb)) || (kRes && !aligned16(cb)))
-    return (int)cudaErrorInvalidValue;
-  if (c > 1)
-    return launch_mma<kClusterConfig.g, kClusterConfig.mt, kRes, true>(
-        x, mask, w_ih, b, out, hb, cb, n_rows, n_steps, e, h_dim, reverse, tc,
-        c, s);
-  const Config cfg = pick_config(h_dim);
-#define CAIR_FWD_CASE(G_, MT_)                                               \
-  if (cfg.g == G_)                                                           \
-    return launch_mma<G_, MT_, kRes, false>(x, mask, w_ih, b, out, hb, cb,   \
-                                            n_rows, n_steps, e, h_dim,       \
-                                            reverse, tc, 1, s);
-  CAIR_FWD_CASE(1, 4)
-  CAIR_FWD_CASE(2, 4)
-  CAIR_FWD_CASE(4, 2)
-  CAIR_FWD_CASE(8, 1)
-#undef CAIR_FWD_CASE
-  return (int)cudaErrorInvalidValue;
-}
-
-template <typename T, bool kRes>
-int launch(const void* x, const void* mask, const void* w_ih, const void* b,
-           const void* w_hh, void* out, void* hb, void* cb, int n_rows,
-           int n_steps, int e, int h_dim, int reverse, int tc,
-           cudaStream_t stream) {
-  const int c = f32_cluster(h_dim, false), hc = f32_units(h_dim, false);
-  if (c == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      ((size_t)h_dim + f32_chunk_rows(e)) * kStride * sizeof(float);
-  // a rank of a cluster has at most 2 * kF32Units = 256 threads, one block
-  // at most 2 * kF32FwdSingle = 512
-  const int bound = row_tile_bound(kRowGroups * hc);
-  if (bound == 0 || bound > 512 || (c > 1 && bound > 256))
-    return (int)cudaErrorInvalidValue;
-  auto* kernel = c > 1           ? lstm_fwd_kernel<T, kRes, 256, true>
-                 : bound == 256 ? lstm_fwd_kernel<T, kRes, 256, false>
-                                : lstm_fwd_kernel<T, kRes, 512, false>;
-  return (int)launch_blocks(
-      kernel, (n_rows + kRows - 1) / kRows, c, kRowGroups * hc, smem, stream,
+      lstm_fwd_mma_kernel<T, G, MT, kRes, kCl, kOne>,
+      (n_rows + m_rows - 1) / m_rows, c, tiles::kThreads, smem, stream,
       static_cast<const T*>(x), static_cast<const uint8_t*>(mask),
       static_cast<const T*>(w_ih), static_cast<const T*>(b),
-      static_cast<const T*>(w_hh), static_cast<T*>(out),
-      static_cast<float*>(hb), static_cast<float*>(cb), n_rows, n_steps, e,
-      h_dim, reverse, tc, hc);
+      static_cast<T*>(out), static_cast<float*>(hb), static_cast<float*>(cb),
+      n_rows, n_steps, e, h_dim, reverse, tc, ks);
 }
 
+// launch_mma in float32 at mt 16-row tiles (4, 2 or 1) a block
+template <bool kRes, int G, bool kCl, bool kOne, typename... Args>
+int launch_rows(int mt, Args... args) {
+  if (mt == 4) return launch_mma<float, G, 4, kRes, kCl, kOne>(args...);
+  if (mt == 2) return launch_mma<float, G, 2, kRes, kCl, kOne>(args...);
+  return launch_mma<float, G, 1, kRes, kCl, kOne>(args...);
+}
+
+// the float32 layout of f32_fwd_smem: a rank of a cluster (`cl`) with 2
+// unit groups a warp and one h tile (`one`) or two, or one block with
+// `groups` unit groups a warp
+template <bool kRes, typename... Args>
+int launch_f32(int mt, int groups, bool cl, bool one, Args... args) {
+  if (cl)
+    return one ? launch_rows<kRes, 2, true, true>(mt, args...)
+               : launch_rows<kRes, 2, true, false>(mt, args...);
+  return groups == 1 ? launch_rows<kRes, 1, false, false>(mt, args...)
+                     : launch_rows<kRes, 2, false, false>(mt, args...);
+}
+
+// E and H multiples of 32 (float32: H of 16 C in a cluster of C), H <=
+// kMaxClustered, 16-byte aligned pointers, the weights staged (the wrapper
+// pads, aligns and stages: one matrix a rank of the cluster); refused
+// otherwise.  bf16: lstm_cluster's blocks, pick_config's rows, 16 a rank;
+// float32: f32_cluster's, f32_fwd_groups' unit groups, f32_fwd_smem's
+// rows and h tiles.
 template <bool kRes>
 int dispatch(const void* x, const void* mask, const void* w_ih, const void* b,
-             const void* w_hh, void* out, void* hb, void* cb, int n_rows,
-             int n_steps, int e, int h_dim, int reverse, int tc, int dtype,
-             void* stream) {
+             void* out, void* hb, void* cb, int n_rows, int n_steps, int e,
+             int h_dim, int reverse, int tc, int dtype, void* stream) {
+  using namespace tiles;
   if (n_rows == 0 || n_steps == 0) return 0;
-  if (h_dim <= 0 || e <= 0 || tc <= 0) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  const bool bf16 = dtype == 1;
+  const int c = bf16 ? lstm_cluster(h_dim) : f32_cluster(h_dim);
+  if (tc <= 0 || e <= 0 || e % kAlign != 0 || h_dim <= 0 ||
+      h_dim % kAlign != 0 || c == 0 || (!bf16 && h_dim % (16 * c) != 0) ||
+      !aligned16(x) || !aligned16(w_ih) || !aligned16(out) ||
+      (kRes && !aligned16(hb)) || (kRes && !aligned16(cb)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)  // float32: H <= 1024 (f32_cluster)
-    return launch<float, kRes>(x, mask, w_ih, b, w_hh, out, hb, cb, n_rows,
-                               n_steps, e, h_dim, reverse, tc, s);
-  if (dtype == 1)
-    return dispatch_mma<kRes>(x, mask, w_ih, b, out, hb, cb, n_rows, n_steps,
-                              e, h_dim, reverse, tc, s);
+  int ks = 0, n_tiles = 1;
+  if (!bf16) {
+    int m_rows = 0;
+    const size_t smem =
+        f32_fwd_smem(h_dim, kLstmGates, n_rows, &m_rows, &ks, &n_tiles);
+    if (smem == 0) return (int)cudaErrorInvalidValue;
+    return launch_f32<kRes>(m_rows / 16, f32_fwd_groups(h_dim), c > 1,
+                            n_tiles == 1, x, mask, w_ih, b, out, hb, cb,
+                            n_rows, n_steps, e, h_dim, reverse, tc, c, ks,
+                            smem, s);
+  }
+  using bf16_t = __nv_bfloat16;
+  const Config cfg = c > 1 ? kClusterConfig : pick_config(h_dim);
+  const size_t smem =
+      mma_smem(h_dim, h_dim / c, kLstmGates, 16 * cfg.mt, false, c, &ks);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+#define CAIR_FWD_CASE(G_, MT_, CL_)                                          \
+  if (cfg.g == G_)                                                           \
+    return launch_mma<bf16_t, G_, MT_, kRes, CL_, false>(                    \
+        x, mask, w_ih, b, out, hb, cb, n_rows, n_steps, e, h_dim, reverse,   \
+        tc, c, ks, smem, s);
+  if (c > 1) {
+    CAIR_FWD_CASE(kClusterConfig.g, kClusterConfig.mt, true)
+  }
+  CAIR_FWD_CASE(1, 4, false)
+  CAIR_FWD_CASE(2, 4, false)
+  CAIR_FWD_CASE(4, 2, false)
+  CAIR_FWD_CASE(8, 1, false)
+#undef CAIR_FWD_CASE
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Kernel 1.  x [B, T, E], mask uint8 [B, T], w_ih [E, 4H], b [4H],
-// w_hh [H, 4H], out [B, T, H]; all contiguous, one dtype (0 = float32,
-// 1 = bfloat16); H up to 1,024 (above it: cair_lstm_step).  bfloat16: `w_ih` points at the staged weights
-// [E + H, 4H + 8] (W_ih over W_hh, 8 zero columns a row) -- above H = 384
-// C = lstm_cluster(H) such matrices [E + H, 4H/C + 8], rank r's holding the
-// gate columns of units r*H/C .. (r+1)*H/C - 1 -- and `w_hh` is not read.
+// The float32 forwards' layout at padded hidden size h_dim with `gates`
+// gate blocks (4: kernels 1, 4; 3: kernels 7, 8) for n_rows rows: the
+// dynamic shared memory of a block or rank (0: refused), its rows, slab
+// depth and h tiles (f32_fwd_smem, lstm_mma.cuh), as cair_lstm_fwd and
+// cair_gru_fwd launch them.
+extern "C" long long cair_f32_fwd_layout(int h_dim, int gates, int n_rows,
+                                         int* rows, int* ks, int* tiles) {
+  *rows = *ks = *tiles = 0;
+  if (h_dim <= 0 || h_dim % tiles::kAlign != 0 || n_rows <= 0 ||
+      (gates != tiles::kLstmGates && gates != tiles::kGruGates))
+    return 0;
+  const int c = f32_cluster(h_dim);
+  if (c == 0 || h_dim % (16 * c) != 0) return 0;
+  return (long long)tiles::f32_fwd_smem(h_dim, gates, n_rows, rows, ks,
+                                        tiles);
+}
+
+// Kernel 1.  x [B, T, E], mask uint8 [B, T], b [4H], out [B, T, H]; all
+// contiguous, one dtype (0 = float32, 1 = bfloat16); H up to 1,024 (above
+// it: cair_lstm_step).  `w_staged` is [W_ih; W_hh] staged (W_ih [E, 4H]
+// over W_hh [H, 4H], 8 zero columns a row): one matrix [E + H, 4H + 8] in
+// one block, or C matrices [E + H, 4H/C + 8] on a cluster of C (bf16 C =
+// lstm_cluster(H) above H = 384, float32 C = f32_cluster(H) above 128),
+// rank r's holding the gate columns of units r*H/C .. (r+1)*H/C - 1.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int cair_lstm_fwd(const void* x, const void* mask,
-                             const void* w_ih, const void* b,
-                             const void* w_hh, void* out, int n_rows,
-                             int n_steps, int e, int h_dim, int reverse,
-                             int dtype, void* stream) {
-  return dispatch<false>(x, mask, w_ih, b, w_hh, out, nullptr, nullptr,
-                         n_rows, n_steps, e, h_dim, reverse, n_steps, dtype,
-                         stream);
+                             const void* w_staged, const void* b, void* out,
+                             int n_rows, int n_steps, int e, int h_dim,
+                             int reverse, int dtype, void* stream) {
+  return dispatch<false>(x, mask, w_staged, b, out, nullptr, nullptr, n_rows,
+                         n_steps, e, h_dim, reverse, n_steps, dtype, stream);
 }
 
 // Kernel 4: kernel 1 plus hb, cb float32 [ceil(T / tc), B, H], the carried
 // (h, c) before each time chunk of tc steps in processing order.
 extern "C" int cair_lstm_fwd_res(const void* x, const void* mask,
-                                 const void* w_ih, const void* b,
-                                 const void* w_hh, void* out, void* hb,
-                                 void* cb, int n_rows, int n_steps, int e,
-                                 int h_dim, int reverse, int tc, int dtype,
-                                 void* stream) {
-  return dispatch<true>(x, mask, w_ih, b, w_hh, out, hb, cb, n_rows, n_steps,
+                                 const void* w_staged, const void* b,
+                                 void* out, void* hb, void* cb, int n_rows,
+                                 int n_steps, int e, int h_dim, int reverse,
+                                 int tc, int dtype, void* stream) {
+  return dispatch<true>(x, mask, w_staged, b, out, hb, cb, n_rows, n_steps,
                         e, h_dim, reverse, tc, dtype, stream);
 }

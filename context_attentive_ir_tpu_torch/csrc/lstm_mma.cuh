@@ -1,7 +1,9 @@
-// bf16 tensor-core tiles of the recurrent kernels (lstm_fwd.cu,
-// lstm_bwd.cu, gru_fwd.cu, gru_bwd.cu): `mma.sync.m16n8k16` (bf16 x bf16, f32
+// Tensor-core tiles of the recurrent kernels (lstm_fwd.cu, lstm_bwd.cu,
+// gru_fwd.cu, gru_bwd.cu): `mma.sync.m16n8k16` (bf16 x bf16, f32
 // accumulate) fed by `ldmatrix` from operands staged in shared memory in
-// bf16, and the ring of bulk copies that streams the weights.  Everything
+// bf16 -- float32 the same layout with f32 operands on split-TF32
+// `m16n8k8` tiles (Elt<T> below, tf32_mma.cuh) -- and the ring of bulk
+// copies that streams the weights.  Everything
 // here takes the number of gate column blocks NG: 4 for the LSTM (i, f, g,
 // o), 3 for the GRU (r, z, n).
 //
@@ -89,21 +91,20 @@ inline int lstm_cluster(int h) {
 }
 
 // The route of the LSTM kernels, in both dtypes: one block, a cluster of
-// blocks that exchange h through distributed shared memory (kernels 1, 4, 5:
-// bf16 lstm_cluster, float32 f32_cluster), or the step route (lstm_step.cu:
-// one launch a time step, h through device memory) for every H past those:
-// above kMaxClustered for kernels 1, 4, 5 and above kMaxRec for kernel 6
-// (`rec`; its one block has 2H <= 1,024 threads).  `lstm_route` in
-// ops/kernels/lstm.py states the same rule.
+// blocks that exchange h through distributed shared memory (kernels 1, 4, 5
+// alike: bf16 lstm_cluster, float32 f32_cluster), or the step route
+// (lstm_step.cu: one launch a time step, h through device memory) for every
+// H past those: above kMaxClustered for kernels 1, 4, 5 and above kMaxRec
+// for kernel 6 (`rec`; its one block has 2H <= 1,024 threads).
+// `lstm_route` in ops/kernels/lstm.py states the same rule.
 enum Route { kRouteSingle = 0, kRouteCluster = 1, kRouteStep = 2 };
 constexpr int kMaxRec = 512;
 
-inline int lstm_route(int h, bool bf16, bool backward, bool rec) {
+inline int lstm_route(int h, bool bf16, bool rec) {
   if (rec) return h <= kMaxRec ? kRouteSingle : kRouteStep;
   if (h > kMaxClustered) return kRouteStep;
-  return (bf16 ? lstm_cluster(h) : f32_cluster(h, backward)) > 1
-             ? kRouteCluster
-             : kRouteSingle;
+  return (bf16 ? lstm_cluster(h) : f32_cluster(h)) > 1 ? kRouteCluster
+                                                       : kRouteSingle;
 }
 
 // The GRU's cluster split (kernels 7, 8, 9): one block up to
@@ -122,17 +123,16 @@ inline int gru_cluster(int h) {
                               : 0;
 }
 
-// The route of the GRU kernels 7, 8 (forward) and 9 (`backward`), in both
-// dtypes, by the rule of lstm_route: one block (bf16 up to kGruMaxSingle,
-// float32 f32_cluster's one block), a cluster (bf16 gru_cluster, float32
+// The route of the GRU kernels 7, 8 and 9 alike, in both dtypes, by the
+// rule of lstm_route: one block (bf16 up to kGruMaxSingle, float32
+// f32_cluster's one block), a cluster (bf16 gru_cluster, float32
 // f32_cluster), or the step route (lstm_step.cu with three gate blocks)
 // above kMaxClustered.  `gru_route` in ops/kernels/gru.py states the same
 // rule.
-inline int gru_route(int h, bool bf16, bool backward) {
+inline int gru_route(int h, bool bf16) {
   if (h > kMaxClustered) return kRouteStep;
-  return (bf16 ? gru_cluster(h) : f32_cluster(h, backward)) > 1
-             ? kRouteCluster
-             : kRouteSingle;
+  return (bf16 ? gru_cluster(h) : f32_cluster(h)) > 1 ? kRouteCluster
+                                                      : kRouteSingle;
 }
 
 // bf16 GRU tiles take E and H multiples of 32, a cluster and its ranks'
@@ -171,6 +171,16 @@ constexpr Config kClusterConfig = {4, 1};
 // units (at most 128) in 2 unit groups a warp; 32 rows up to 4 ranks, 16 in
 // a cluster of 8 (two 32-row h tiles of H = 1,024 do not fit)
 inline Config cluster_config_f32(int c) { return {2, c <= 4 ? 2 : 1}; }
+
+// The float32 forwards, kernels 1, 4, 7, 8 (split TF32), on f32_cluster's
+// ranks: no gradient tile or dh partials share their shared memory, so a
+// block holds more rows than the backward's, and the rows a block holds
+// set how often the weight slabs stream from L2.  One block has 1 unit
+// group a warp up to 64 units, 2 up to 128; a rank (at most 128 units) 2;
+// their rows: f32_fwd_smem.
+inline int f32_fwd_groups(int h) { return h <= 64 ? 1 : 2; }
+// blocks that fill one H100 (its SMs): fewer row blocks take fewer rows
+constexpr int kFillBlocks = 132;
 // a unit tile of the step route: a rank's tile, all of its 256 units (the
 // bf16 step route pads H to a multiple of it)
 constexpr int kStepUnits = kClusterConfig.g * 8 * kWarps;
@@ -205,12 +215,13 @@ __host__ __device__ inline size_t exch_bytes(int h, int m_rows) {
 // ring's header, slabs and x slots of `elt`-byte elements, the
 // staged tiles, the bias (four f32 slots of hc) and, float32's backward,
 // the warps' partials of its reverse products.  The forward stages the h
-// tile (two in a cluster); a backward reuses that space for its gradient
-// tile (m_rows rows of four slots) and needs the f32 tile that dh returns
-// through: the LSTM's single-block kernel 5 keeps it after that union, the
-// GRU's single-block kernel 9 inside it, after the gradient tile; a
-// cluster's rank (either recurrence) keeps there instead one tile of Hc
-// columns per source rank (the dh partials of its units).
+// tile (two in a cluster; a float32 forward passes c = 1 for a cluster
+// whose rank keeps one, f32_fwd_smem); a backward reuses that space for
+// its gradient tile (m_rows rows of four slots) and needs the f32 tile
+// that dh returns through: the LSTM's single-block kernel 5 keeps it after
+// that union, the GRU's single-block kernel 9 inside it, after the
+// gradient tile; a cluster's rank (either recurrence) keeps there instead
+// one tile of Hc columns per source rank (the dh partials of its units).
 // `tile_smem_bytes` in ops/kernels/lstm.py states the same sum.
 constexpr int kRingHeader = 64;  // the slots' mbarriers
 // float32 backward: the partials of a reverse product's tiles from the
@@ -244,6 +255,42 @@ inline size_t mma_smem(int hk, int hc, int gates, int m_rows, bool backward,
       *ks = depth;
       return bytes;
     }
+  }
+  return 0;
+}
+
+// A float32 forward block (kernels 1, 4 with `gates` 4; 7, 8 with 3) at
+// padded hidden size h for n_rows rows: its dynamic shared memory (0 if
+// f32_cluster(h) is 0), *m_rows its rows, *ks its slab depth and *tiles
+// its h tiles.  A block or rank takes the most rows of 64, 32 and 16 whose
+// h tile fits beside some slab and whose row blocks, times the ranks, fill
+// the card (kFillBlocks), else 16: rows a block save slab bytes only where
+// every SM is busy.  One block keeps one tile, rewritten in place.  A rank
+// keeps two, read and written in turn, unless one tile lets its slabs be
+// deeper or two do not fit: then one, which the ranks rewrite after a
+// second cluster barrier a step (every rank done reading it).  A deeper
+// slab halves the ring's hand-overs a step, an mbarrier wait and a
+// barrier each.  `f32_forward_tiles` in ops/kernels/lstm.py states the
+// same rule.
+inline size_t f32_fwd_smem(int h, int gates, int n_rows, int* m_rows,
+                           int* ks, int* tiles) {
+  const int c = f32_cluster(h);
+  for (int m = 64; c > 0 && m >= 16; m /= 2) {
+    int ks1 = 0, ks2 = 0;
+    const size_t one = mma_smem(h, h / c, gates, m, false, 1, &ks1, 4);
+    const long long blocks = ((long long)n_rows + m - 1) / m * c;
+    if (one == 0 || (m > 16 && blocks < kFillBlocks)) continue;
+    const size_t two =
+        c > 1 ? mma_smem(h, h / c, gates, m, false, c, &ks2, 4) : 0;
+    *m_rows = m;
+    if (two != 0 && ks2 >= ks1) {
+      *ks = ks2;
+      *tiles = 2;
+      return two;
+    }
+    *ks = ks1;
+    *tiles = 1;
+    return one;
   }
   return 0;
 }
@@ -323,20 +370,14 @@ __device__ __forceinline__ void st_cluster_f2(uint32_t addr, float a,
                : "memory");
 }
 
-__device__ __forceinline__ void st_cluster_f4(uint32_t addr, float4 v) {
-  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                   addr),
-               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
-               : "memory");
-}
-
 }  // namespace tiles
 
 // -- the element type of the recurrent tiles (lstm_mma.cuh) ----------------
 //
-// The tensor-core phase A of kernels 5 and 9 is one kernel for both types:
-// bf16 runs `mma.sync.m16n8k16` on bf16 operands, float32 the split-TF32
-// tiles (tf32_mma.cuh; slab_gates_tf32, tf32_rev_product below).  Elt<T>
+// Each recurrent tile kernel -- the forwards 1, 4, 7, 8 and phase A of the
+// backwards 5, 9 -- is one kernel for both types: bf16 runs
+// `mma.sync.m16n8k16` on bf16 operands, float32 the split-TF32 tiles
+// (tf32_mma.cuh; slab_gates_tf32, tf32_rev_product below).  Elt<T>
 // holds the k values of a 32-byte step and the loads and stores of two
 // adjacent values: to and from memory, and to another rank's h tile.
 
@@ -379,33 +420,6 @@ struct Elt<float> {
     tiles::st_cluster_f2(addr, v.x, v.y);
   }
 };
-
-__device__ __forceinline__ void f32_sync(bool cl) {
-  if (cl)
-    tiles::cluster_sync();
-  else
-    __syncthreads();
-}
-
-// store_rows of the thread's 16 row values at row k of `tile` in this block
-// (n_ranks = 0) or in every block of its cluster of n_ranks
-__device__ __forceinline__ void store_rows_all(float* tile, int k, int rg,
-                                               const float v[kRowsPerThread],
-                                               int n_ranks) {
-  if (n_ranks == 0) {
-    store_rows(tile, k, rg, v);
-    return;
-  }
-  const float* dst = tile + (size_t)k * kStride + rg * kRowsPerThread;
-  for (int q = 0; q < n_ranks; ++q) {
-    const uint32_t a = tiles::map_rank(dst, q);
-#pragma unroll
-    for (int p = 0; p < kRowsPerThread / 4; ++p)
-      tiles::st_cluster_f4(a + 16 * p, make_float4(v[4 * p], v[4 * p + 1],
-                                                   v[4 * p + 2],
-                                                   v[4 * p + 3]));
-  }
-}
 
 namespace tiles {
 
@@ -504,7 +518,7 @@ constexpr int kHOnly = -2;
 // n + kStages - 1 with its x columns.  The caller may add cp.async copies of
 // its own and then calls cp_async_commit() exactly once per acquire.
 // T: the element type of the staged weights and x (bf16, or float32 for
-// the split-TF32 backwards).
+// the split-TF32 tiles).
 template <typename T>
 struct WeightRingT {
   char* base;

@@ -842,8 +842,8 @@ int step_forward(const void* x, const void* mask, const void* w_ih,
                  int gates, int dtype, cudaStream_t stream) {
   if (n_rows == 0 || n_steps == 0) return 0;
   const bool gru = gates == tiles::kGruGates;
-  const int route = gru ? tiles::gru_route(h_dim, dtype == 1, false)
-                        : tiles::lstm_route(h_dim, dtype == 1, false, rec);
+  const int route = gru ? tiles::gru_route(h_dim, dtype == 1)
+                        : tiles::lstm_route(h_dim, dtype == 1, rec);
   if (n_rows < 0 || n_steps < 0 || tc <= 0 || (rec && (e != 0 || gru)) ||
       (!rec && e <= 0) || !step_shape_ok(e, h_dim, dtype) ||
       route != tiles::kRouteStep)
@@ -894,10 +894,10 @@ extern "C" long long cair_lstm_step_workspace(int n_rows, int h_dim,
 
 // The route rule of lstm_mma.cuh (`lstm_route`): 0 one block, 1 a cluster,
 // 2 the step route, for hidden size h_dim in dtype (0 = float32, 1 =
-// bfloat16) of kernels 1 and 4 (kernel 0), 5 (1) or 6 (2).
+// bfloat16) of kernels 1 and 4 (kernel 0), 5 (1) or 6 (2); 1, 4 and 5
+// share one route.
 extern "C" int cair_lstm_route(int h_dim, int dtype, int kernel) {
-  return cair_lstm::tiles::lstm_route(h_dim, dtype == 1, kernel == 1,
-                                      kernel == 2);
+  return cair_lstm::tiles::lstm_route(h_dim, dtype == 1, kernel == 2);
 }
 
 // Kernels 1 (res = 0), 4 (res = 1) and 6 (rec = 1) on the step route:

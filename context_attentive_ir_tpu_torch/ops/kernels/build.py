@@ -31,20 +31,20 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # (argtypes, restype) of every exported function; pointers and the stream
 # are c_void_p so ctypes never truncates them to 32 bits
 SIGNATURES = {
-    "cair_lstm_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-                      _I),
-    "cair_lstm_fwd_res": ([_P] * 8 + [_I] * 7 + [_P], _I),
+    "cair_lstm_fwd": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    "cair_lstm_fwd_res": ([_P] * 7 + [_I] * 7 + [_P], _I),
     "cair_lstm_rec": ([_P] * 4 + [_I] * 5 + [_P], _I),
     "cair_lstm_bwd_workspace": ([_I] * 6, ctypes.c_longlong),
     "cair_lstm_bwd": ([_P] * 15 + [_I] * 7 + [_P], _I),
     "cair_lstm_step_workspace": ([_I] * 3, ctypes.c_longlong),
     "cair_lstm_step": ([_P] * 9 + [_I] * 9 + [_P], _I),
     "cair_lstm_route": ([_I] * 3, _I),
-    "cair_gru_fwd": ([_P] * 7 + [_I] * 6 + [_P], _I),
-    "cair_gru_route": ([_I] * 3, _I),
+    "cair_f32_fwd_layout": ([_I] * 3 + [_IP] * 3, ctypes.c_longlong),
+    "cair_gru_fwd": ([_P] * 6 + [_I] * 6 + [_P], _I),
+    "cair_gru_route": ([_I] * 2, _I),
     "cair_gru_step_workspace": ([_I] * 3, ctypes.c_longlong),
     "cair_gru_step": ([_P] * 9 + [_I] * 8 + [_P], _I),
-    "cair_gru_fwd_res": ([_P] * 8 + [_I] * 7 + [_P], _I),
+    "cair_gru_fwd_res": ([_P] * 7 + [_I] * 7 + [_P], _I),
     "cair_gru_bwd_workspace": ([_I] * 7, ctypes.c_longlong),
     "cair_gru_bwd": ([_P] * 16 + [_I] * 8 + [_P], _I),
     "cair_beamgen_smem": ([_I] * 6 + [ctypes.POINTER(ctypes.c_longlong),

@@ -56,13 +56,14 @@ recurrence.  Those kernels take E and H that are multiples of 32 (H of 64
 in a cluster of 4) and 16-byte aligned tensors; ``pad_gru_operands``
 zero-pads other sizes here (a padded unit has r = z = 1/2 and n = 0, so
 its h stays exactly 0 and its gradients are 0) and the results are cut
-back.  In float32 kernel 9 runs the same tiles, and its phases B and C,
-on split TF32 as the LSTM's kernel 5 does (``csrc/tf32_mma.cuh``: one
-block up to H = 128, clusters of 2, 4 or 8 ranks up to 1,024,
-``f32_cluster``); the float32 forwards, kernels 7 and 8, keep exact f32
-FMAs on the first version's one-thread-per-unit layout, x staged in chunks
-(any E), their units split over a cluster of up to 8 blocks of at most 256
-threads above H = 256.
+back.  In float32 (the configuration's default dtype) kernels 7, 8 and 9
+run the same tiles, kernel 9's phases B and C too, on split TF32 as the
+LSTM's kernels 1, 4 and 5 do (``csrc/tf32_mma.cuh``; bound at the doc
+encoder's shape 0.86 ms for 7 or 8 at 165 TFLOP/s, and the weight slabs'
+stream from L2 as H grows): one block up to H = 128 (64 rows the
+forwards), clusters of 2, 4 or 8 ranks of at most 128 units up to 1,024
+(``f32_cluster``; 32 rows a forward's rank, one h tile or two by
+``f32_forward_tiles``), H padded to ``f32_tile_hidden``.
 
 Above H = 1,024, in both dtypes, kernels 7, 8 and 9 take the step route
 (``csrc/lstm_step.cu`` with three gate blocks, ``gru_route``) as the LSTM's
@@ -83,7 +84,6 @@ from .lstm import (
     _DTYPES,
     MAX_CLUSTER_HIDDEN,
     MAX_PAIR_BF16,
-    SMEM_LIMIT,
     STEP_UNITS,
     TILE_ALIGN,
     _aligned,
@@ -136,19 +136,18 @@ def gru_tile_hidden(hidden: int) -> int:
     return _round_up(hidden, _h_align(hidden))
 
 
-def gru_route(hidden: int, dtype: torch.dtype = torch.float32,
-              backward: bool = False) -> str:
-    """The route of kernels 7, 8 (and 9, ``backward``) at ``hidden`` units
-    in ``dtype`` (``gru_route`` in ``csrc/lstm_mma.cuh``, which the
-    launchers apply): ``"single"`` (one block), ``"cluster"`` (a cluster of
-    blocks that exchange h through distributed shared memory: bf16
+def gru_route(hidden: int, dtype: torch.dtype = torch.float32) -> str:
+    """The route of kernels 7, 8 and 9 alike at ``hidden`` units in
+    ``dtype`` (``gru_route`` in ``csrc/lstm_mma.cuh``, which the launchers
+    apply): ``"single"`` (one block), ``"cluster"`` (a cluster of blocks
+    that exchange h through distributed shared memory: bf16
     ``gru_cluster``, float32 ``f32_cluster``) or ``"step"``
     (``csrc/lstm_step.cu``: a launch a time step, h through device memory)
     above 1,024 units, in both dtypes."""
     if hidden > MAX_CLUSTER_HIDDEN:
         return "step"
     c = (gru_cluster(gru_tile_hidden(hidden)) if dtype == torch.bfloat16
-         else f32_cluster(hidden, backward))
+         else f32_cluster(hidden))
     return "cluster" if c > 1 else "single"
 
 
@@ -169,20 +168,20 @@ def gru_fused_supported(embed: int, hidden: int, rows: int,
     (``gru_tile_hidden``), split over a cluster of 2 or 4 blocks above 448
     (``gru_cluster``), whose tiles -- kernel 9's four-slot gradient tile
     beside the forward's -- fit a block's shared memory
-    (``tile_smem_bytes``); float32: the forwards' ``f32_cluster`` blocks
-    of at most 2 * 256 threads whose ``f32_smem_bytes`` fit, and kernel 9's
-    split-TF32 tiles with three gate blocks, whose ``f32_smem_bytes(...,
-    backward=True, gates=3)`` fit, as the LSTM's.  Above it the step route
-    (``gru_route``), whose blocks' shared memory (``step_smem_bytes`` with
-    three gate blocks) no width changes."""
+    (``tile_smem_bytes``); float32: the split-TF32 tiles of kernels 7, 8
+    and 9 with three gate blocks at ``f32_tile_hidden``, whose
+    ``f32_smem_bytes(..., gates=3)`` fit, forward and backward, as the
+    LSTM's.  Above it the step route (``gru_route``), whose blocks' shared
+    memory (``step_smem_bytes`` with three gate blocks) no width
+    changes."""
     if embed < 1 or hidden < 1 or rows < 1 or dtype not in _DTYPES:
         return False
-    if gru_route(hidden, dtype, backward=True) == "step":
+    if gru_route(hidden, dtype) == "step":
         return (step_smem_bytes(dtype, gates=GATES) > 0
                 and step_smem_bytes(dtype, backward=True, gates=GATES) > 0)
     if dtype == torch.float32:
-        return (0 < f32_smem_bytes(embed, hidden) <= SMEM_LIMIT
-                and f32_smem_bytes(embed, hidden, True, GATES) > 0)
+        return all(f32_smem_bytes(embed, hidden, bw, GATES) > 0
+                   for bw in (False, True))
     e, h = _round_up(embed, TILE_ALIGN), gru_tile_hidden(hidden)
     c = gru_cluster(h)
     return c > 0 and tile_smem_bytes(e, h, backward=True, gates=GATES,
@@ -370,35 +369,41 @@ def _forward(name: str, x, mask, w_ih, b_ih, w_hh, b_hh, reverse: bool,
              tc: int, res: bool):
     """Kernel 7 (``res`` False) or 8 on CUDA tensors, by the route of H:
     ``cair_gru_fwd`` / ``cair_gru_fwd_res`` up to 1,024 units,
-    ``cair_gru_step`` above.  bfloat16 runs on operands padded to the
-    tiles' widths (``pad_gru_operands``) with the staged ``[W_ih; W_hh]`` --
-    one matrix a rank of a cluster (``gru_cluster``) or a unit tile of the
-    step route -- in ``w_ih``'s place; float32 on the operands as they are.
-    Returns ``(out, hb)`` at the padded H (hb None without ``res``) and
-    H."""
+    ``cair_gru_step`` above.  The tiles (both dtypes up to 1,024 units, bf16
+    above) run on operands padded to their widths (``pad_gru_operands``:
+    bf16 ``gru_tile_hidden`` or the step route's unit tile, float32
+    ``f32_tile_hidden``) with the staged ``[W_ih; W_hh]`` -- one matrix a
+    rank of a cluster (bf16 ``gru_cluster``, float32 ``f32_cluster``) or a
+    unit tile of the step route -- in ``w_ih``'s place; the float32 step
+    route on the operands as they are.  Returns ``(out, hb)`` at the
+    padded H (hb None without ``res``) and H."""
     B, T, E, H = _check_cuda_args(name, x, mask, w_ih, b_ih, w_hh, b_hh)
     step = gru_route(H, x.dtype) == "step"
-    if x.dtype == torch.bfloat16:
-        x, w_ih, b_ih, w_hh, b_hh = pad_gru_operands(x, w_ih, b_ih, w_hh,
-                                                     b_hh)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 or not step:
+        x, w_ih, b_ih, w_hh, b_hh = pad_gru_operands(
+            x, w_ih, b_ih, w_hh, b_hh,
+            None if bf16 else max(TILE_ALIGN, 16 * f32_cluster(H)))
         Hp = w_hh.shape[0]
         w_ih = stage_lstm_weights(
             w_ih, w_hh, Hp // STEP_UNITS[x.dtype] if step else
-            gru_cluster(Hp), GATES)
+            gru_cluster(Hp) if bf16 else f32_cluster(Hp), GATES)
     Ep, Hp = x.shape[-1], w_hh.shape[0]
     out = torch.empty((B, T, Hp), dtype=x.dtype, device=x.device)
     hb = (torch.empty((-(-T // tc), B, Hp), dtype=torch.float32,
                       device=x.device) if res else None)
-    ptrs = _pointers(x, mask, w_ih, b_ih, w_hh, b_hh, out)
     from .build import launch
 
     # the launchers report a hidden size their blocks cannot hold
     if step:
         workspace = _step_workspace(B, Hp, x, "gru")
-        launch("cair_gru_step", x.device, *ptrs,
+        launch("cair_gru_step", x.device,
+               *_pointers(x, mask, w_ih, b_ih, w_hh, b_hh, out),
                hb.data_ptr() if res else 0, workspace.data_ptr(), B, T, Ep,
                Hp, int(reverse), tc, int(res), _DTYPES[x.dtype], _stream(x))
-    elif res:
+        return out, hb, H
+    ptrs = _pointers(x, mask, w_ih, b_ih, b_hh, out)
+    if res:
         launch("cair_gru_fwd_res", x.device, *ptrs, hb.data_ptr(), B, T, Ep,
                Hp, int(reverse), tc, _DTYPES[x.dtype], _stream(x))
     else:
@@ -502,7 +507,7 @@ def gru_fused_bwd(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
 
     lib = load_library()
     dtype = _DTYPES[x.dtype]
-    step = gru_route(H, x.dtype, backward=True) == "step"
+    step = gru_route(H, x.dtype) == "step"
     # the tensor-core kernels (float32: split TF32) read W^T out of the
     # staged W's own slabs (one matrix a rank of a cluster or, bf16, a unit
     # tile of the step route); a cluster's, or the step route's, dx is one

@@ -43,21 +43,23 @@ and H that are multiples of 32 and 16-byte aligned tensors;
 ``pad_lstm_operands`` zero-pads other sizes here (zero weights and biases
 keep a padded unit at exactly 0), and the results are cut back.
 
-In float32 (the configuration's default dtype) kernel 5 runs the same
-tiles on split TF32 (``csrc/tf32_mma.cuh``): each operand splits into
+In float32 (the configuration's default dtype) kernels 1, 4 and 5 run the
+same tiles on split TF32 (``csrc/tf32_mma.cuh``): each operand splits into
 hi = tf32(v) and lo = tf32(v - hi) as its fragment is loaded, and a product
 is lo*hi + hi*lo + hi*hi in ``mma.sync.m16n8k8`` tiles, about 22 of
 float32's 24 bits at a third of TF32's 495 TFLOP/s -- 2.5 times the f32
-FMA peak -- in a fixed order (the same bits every run); phases B and C
-too.  One block of 64 or 32 rows (``tile_config_f32``) takes H up to
-128, clusters of 2, 4 or 8 ranks of at most 128 units the rest up to
-1,024 (``f32_cluster``, ``cluster_tile_f32``: 32 rows a rank up to 4
-ranks, 16 in 8; ``f32_tile_hidden``: H padded to 16 C).  Its recompute
-may differ from kernel 4's forward by float32 rounding (about 1e-7): the
-float32 forwards, kernels 1 and 4, keep exact f32 FMAs on the first
-version's one-thread-per-unit layout, x staged in chunks, their units
-split over a cluster of up to 8 blocks of at most 256 threads above
-H = 256.
+FMA peak -- in a fixed order (the same bits every run); kernel 5's phases
+B and C too.  The bound of kernels 1 and 4 at the doc encoder's shape is
+then 1.16 ms (165 TFLOP/s); as H grows the weight slabs' stream from L2
+joins it, since each row block re-reads them every step, so a block holds
+as many rows as its shared memory allows.  One block takes H up to 128
+(64 rows the forwards, ``f32_forward_tiles``; 64 or 32 kernel 5,
+``tile_config_f32``), clusters of 2, 4 or 8 ranks of at most 128 units the
+rest up to 1,024 (``f32_cluster``; 32 rows a forward's rank, with one h
+tile where two would not fit or would make its slabs shallower; kernel
+5's 32 rows up to 4 ranks, 16 in 8, ``cluster_tile_f32``;
+``f32_tile_hidden``: H padded to 16 C).  Kernel 5's recompute is kernel
+4's step on the same staged weights, in the same k order.
 
 Above H = 1,024, in both dtypes, kernels 1, 4 and 5 take the step route
 (``csrc/lstm_step.cu``, ``lstm_route``): the cluster's ranks made
@@ -83,14 +85,16 @@ MAX_CLUSTER_HIDDEN = 1024  # clusters hold kernels 1, 4, 5 and 7, 8, 9 to here
 MAX_SINGLE_BF16 = 384  # one block; above it a cluster (kMaxSingle)
 MAX_PAIR_BF16 = 512    # a cluster of 2 up to here, of 4 above (kMaxPair)
 CLUSTER_TILE = (4, 1)  # a rank's unit groups per warp, 16-row tiles
-F32_STRIDE = 36       # floats per staged k-row of the float32 kernels
-F32_CHUNK = 256       # x k-rows the float32 kernels stage at a time
-F32_FWD_SINGLE = 256  # float32 kernels 1, 4, 7, 8: one block up to here
-F32_UNITS = 128       # units a rank of a float32 forward's cluster holds
+F32_STRIDE = 36       # floats per staged k-row of the float32 step route
+F32_CHUNK = 256       # x k-rows the float32 step route stages at a time
+F32_UNITS = 128       # units of a float32 step-route unit tile
 F32_MAX_RANKS = 8
-# float32 kernels 5, 9 (split TF32): one block up to 128 units, then ranks
-# of at most 128 (kF32BwdRank in csrc/lstm_common.cuh): 2, 4 or 8 of them
-F32_BWD_RANK = 128
+# float32 kernels 1, 4, 5 and 7, 8, 9 (split TF32): one block up to 128
+# units, then ranks of at most 128 (kF32Rank in csrc/lstm_common.cuh): 2,
+# 4 or 8 of them
+F32_RANK = 128
+F32_FWD_ROWS = (64, 32, 16)  # rows a float32 forward block may take
+FILL_BLOCKS = 132     # blocks that fill one H100 (kFillBlocks)
 # units of a unit tile of the step route (kStepUnits: a bf16 cluster rank's;
 # kF32Units), and a bf16 step block's rows (kClusterConfig's tile)
 STEP_UNITS = {torch.bfloat16: 256, torch.float32: F32_UNITS}
@@ -114,12 +118,12 @@ def lstm_cluster(hidden: int) -> int:
 
 
 def lstm_route(hidden: int, dtype: torch.dtype = torch.float32,
-               backward: bool = False, recurrence: bool = False) -> str:
+               recurrence: bool = False) -> str:
     """The route of the LSTM kernels at ``hidden`` units in ``dtype``
     (``lstm_route`` in ``csrc/lstm_mma.cuh``, which the launchers apply):
     ``"single"`` (one block), ``"cluster"`` (a cluster of blocks that
     exchange h through distributed shared memory: bf16 ``lstm_cluster``,
-    float32 ``f32_cluster``, ``backward`` for kernel 5's) or ``"step"``
+    float32 ``f32_cluster``; kernels 1, 4 and 5 alike) or ``"step"``
     (``csrc/lstm_step.cu``: a launch a time step, h through device
     memory) -- kernels 1, 4, 5 above 1,024 units and kernel 6
     (``recurrence``) above 512, in both dtypes."""
@@ -128,7 +132,7 @@ def lstm_route(hidden: int, dtype: torch.dtype = torch.float32,
     if hidden > MAX_CLUSTER_HIDDEN:
         return "step"
     c = (lstm_cluster(_round_up(hidden, TILE_ALIGN))
-         if dtype == torch.bfloat16 else f32_cluster(hidden, backward))
+         if dtype == torch.bfloat16 else f32_cluster(hidden))
     return "cluster" if c > 1 else "single"
 
 
@@ -165,30 +169,22 @@ def step_smem_bytes(dtype: torch.dtype = torch.bfloat16,
     return 0
 
 
-def f32_cluster(hidden: int, backward: bool = True) -> int:
-    """Blocks of the cluster the float32 kernels split ``hidden`` units over
-    (``f32_cluster`` in ``csrc/lstm_common.cuh``; the LSTM's and the GRU's
-    alike), 0 where none holds them.  The forwards (kernels 1, 4, 7, 8):
-    one block of 2H threads up to 256, else ceil(H / 128) blocks of at most
-    256 threads, up to 8.  The backwards (kernels 5, 9, ``backward``: the
-    split-TF32 tiles): one block up to 128, then 2, 4 or 8 ranks of at
-    most 128 units (32 rows a rank in a cluster of 2 or 4, 16 in one of
-    8)."""
-    if backward:
-        c = 1
-        while c < F32_MAX_RANKS and hidden > c * F32_BWD_RANK:
-            c *= 2
-        return c if hidden <= c * F32_BWD_RANK else 0
-    if hidden <= F32_FWD_SINGLE:
-        return 1
-    c = -(-hidden // F32_UNITS)
-    return c if c <= F32_MAX_RANKS else 0
+def f32_cluster(hidden: int) -> int:
+    """Blocks of the cluster the float32 tile kernels split ``hidden`` units
+    over (``f32_cluster`` in ``csrc/lstm_common.cuh``; the forwards 1, 4,
+    7, 8 and the backwards 5, 9 alike), 0 where none holds them: one block
+    up to 128, then 2, 4 or 8 ranks of at most 128 units."""
+    c = 1
+    while c < F32_MAX_RANKS and hidden > c * F32_RANK:
+        c *= 2
+    return c if hidden <= c * F32_RANK else 0
 
 
 def f32_tile_hidden(hidden: int) -> int:
-    """The hidden size float32 kernels 5 and 9 run ``hidden`` at: the next
-    multiple of 32, and of 16 C in a cluster of C ranks (a rank's units a
-    multiple of 16); zero-padded by the wrappers."""
+    """The hidden size the float32 tile kernels (1, 4, 5, 7, 8, 9) run
+    ``hidden`` at: the next multiple of 32, and of 16 C in a cluster of C
+    ranks (a rank's units a multiple of 16); zero-padded by the
+    wrappers."""
     return _round_up(hidden, max(TILE_ALIGN, 16 * f32_cluster(hidden)))
 
 
@@ -208,22 +204,45 @@ def cluster_tile_f32(ranks: int) -> tuple[int, int]:
     return 2, 2 if ranks <= 4 else 1
 
 
+def f32_forward_tiles(hidden: int, gates: int = 4,
+                      rows: int | None = None) -> tuple[int, int]:
+    """(rows a block, h tiles) of float32 kernels 1, 4 (``gates`` 4) and 7,
+    8 (3) at a padded ``hidden`` size up to 1,024 for ``rows`` rows (None:
+    enough to fill the card; ``f32_fwd_smem`` in ``csrc/lstm_mma.cuh``): a
+    block (one up to 128 units, else a rank of ``f32_cluster``'s clusters)
+    takes the most of 64, 32 and 16 rows whose h tile fits beside a slab
+    and whose row blocks, times the ranks, fill ``FILL_BLOCKS``, else 16;
+    one block keeps one h tile, a rank two, read and written in turn,
+    unless one tile lets its slabs be deeper or two do not fit -- then one,
+    rewritten after a second cluster barrier a step.  (0, 0) where no
+    cluster holds ``hidden``."""
+    c = f32_cluster(hidden)
+    for m in F32_FWD_ROWS if c else ():
+        depth = [_tile_smem(TILE_ALIGN, hidden, False, gates, m, c,
+                            torch.float32, n)[1] for n in (1, 2)]
+        if depth[0] and (m == F32_FWD_ROWS[-1] or rows is None
+                         or -(-rows // m) * c >= FILL_BLOCKS):
+            return m, 2 if c > 1 and depth[1] >= depth[0] else 1
+    return 0, 0
+
+
 def f32_smem_bytes(e: int, h: int, backward: bool = False,
                    gates: int = 4) -> int:
-    """Dynamic shared memory of a block of the float32 forward (kernels 1,
-    4, 7, 8: ``launch`` in ``csrc/lstm_fwd.cu``, ``csrc/gru_fwd.cu``: h of
-    all units and one x chunk of k-major rows of 36 floats) or of a block
-    (a rank) of the float32 backward's phase A (kernels 5, 9 with
-    ``gates`` gate blocks: ``tile_smem_bytes`` of the split-TF32 tiles at
-    the padded widths); 0 where no cluster holds ``h``."""
-    if backward:
-        if f32_cluster(h) == 0:
-            return 0
-        return tile_smem_bytes(_round_up(e, TILE_ALIGN), f32_tile_hidden(h),
-                               True, gates, dtype=torch.float32)
-    if f32_cluster(h, backward=False) == 0:
+    """Dynamic shared memory of a block (a rank) of the float32 split-TF32
+    tiles at the padded widths (E to 32, H to ``f32_tile_hidden``) with
+    ``gates`` gate blocks: the forwards (kernels 1, 4, 7, 8;
+    ``f32_forward_tiles``' rows and h tiles for rows that fill the card,
+    the most a block takes) or the backward's phase A
+    (kernels 5, 9, ``backward``; ``tile_config_f32`` / ``cluster_tile_f32``
+    rows); 0 where no cluster holds ``h``."""
+    if f32_cluster(h) == 0:
         return 0
-    return (h + min(e, F32_CHUNK)) * F32_STRIDE * 4
+    ep, hp = _round_up(e, TILE_ALIGN), f32_tile_hidden(h)
+    if backward:
+        return tile_smem_bytes(ep, hp, True, gates, dtype=torch.float32)
+    rows, tiles = f32_forward_tiles(hp, gates)
+    return tile_smem_bytes(ep, hp, False, gates, rows, dtype=torch.float32,
+                           h_tiles=tiles)
 
 
 def tile_config(hidden: int) -> tuple[int, int]:
@@ -242,9 +261,10 @@ def tile_config(hidden: int) -> tuple[int, int]:
 def tile_smem_bytes(e: int, h: int, backward: bool = False,
                     gates: int = 4, rows: int | None = None,
                     ranks: int | None = None,
-                    dtype: torch.dtype = torch.bfloat16) -> int:
+                    dtype: torch.dtype = torch.bfloat16,
+                    h_tiles: int | None = None) -> int:
     """Dynamic shared memory of the tensor-core forward or backward phase A
-    kernel in ``dtype`` (bf16; float32: the split-TF32 backward) at padded
+    kernel in ``dtype`` (bf16; float32: the split-TF32 tiles) at padded
     widths ``e``, ``h`` with ``gates`` gate blocks (4: the LSTM, 3: the
     GRU), ``rows`` rows a block (default: ``tile_config``'s, float32
     ``tile_config_f32``'s) and ``ranks`` blocks a cluster (default: bf16
@@ -254,28 +274,35 @@ def tile_smem_bytes(e: int, h: int, backward: bool = False,
     32 (else 16, float32 else 8) k-rows of a rank's ``gates`` * Hc gate
     columns (Hc = H / ranks; 8 zero columns a row) and three x slots of
     ``rows`` rows of a slab's depth of x_t columns (+ 16 bytes a row), the
-    h tile (two in a cluster), the bias (four f32 slots of Hc), float32's
-    backward the partials of its reverse products from seven warps (7 KB);
-    0 if no depth fits (``mma_smem`` in ``csrc/lstm_mma.cuh``).  E takes no shared
-    memory: x is streamed beside the weights.  A backward's gradient tile
+    h tile (two in a cluster, or ``h_tiles``), the bias (four f32 slots of
+    Hc), float32's backward the partials of its reverse products from seven
+    warps (7 KB); 0 if no depth fits (``mma_smem`` in
+    ``csrc/lstm_mma.cuh``).  E takes no shared memory: x is streamed beside
+    the weights.  A backward's gradient tile
     has four slots of Hc whatever the gate count (the GRU's da_r, da_z,
     da_n, da_n * r) and takes the place of the forward's tiles, beside the
     f32 tile dh returns through: after that union in the LSTM's
     single-block kernel 5, inside it in the GRU's single-block kernel 9; a
     cluster's rank (either recurrence) keeps inside it one tile of Hc
     columns a source rank instead."""
+    return _tile_smem(e, h, backward, gates, rows, ranks, dtype, h_tiles)[0]
+
+
+def _tile_smem(e, h, backward, gates, rows, ranks, dtype, h_tiles=None):
+    """``tile_smem_bytes`` and the slab depth it fits at, ``(0, 0)`` where
+    none fits."""
     f32 = dtype == torch.float32
     elt = 4 if f32 else 2
     c = ranks or (f32_cluster(h) if f32
                   else lstm_cluster(h) if gates == 4 else 1)
     if c == 0:
-        return 0
+        return 0, 0
     hc = h // c
     own = tile_config_f32(h) if f32 else tile_config(h)
     rank = cluster_tile_f32(c) if f32 else CLUSTER_TILE
     m = rows or (16 * (rank[1] if c > 1 else own[1]))
     h_row, w_row = elt * h + 16, elt * (gates * hc + 8)
-    tiles = (2 if c > 1 else 1) * m * h_row
+    tiles = (h_tiles or (2 if c > 1 else 1)) * m * h_row
     exch_after = 0
     if backward:
         rev = m * (4 * elt * hc + 16)
@@ -292,8 +319,8 @@ def tile_smem_bytes(e: int, h: int, backward: bool = False,
         n_bytes = (64 + 3 * depth * w_row + 3 * m * (elt * depth + 16)
                    + tiles + exch_after + 16 * hc)
         if n_bytes <= SMEM_LIMIT:
-            return n_bytes
-    return 0
+            return n_bytes, depth
+    return 0, 0
 
 
 def fused_supported(embed: int, hidden: int, rows: int,
@@ -304,22 +331,20 @@ def fused_supported(embed: int, hidden: int, rows: int,
     least 1 in both dtypes.  Up to 1,024 units, bfloat16: ``hidden`` padded
     to a multiple of 32, split over a cluster of 2 or 4 blocks above 384
     (``lstm_cluster``), whose tiles fit a block's shared memory
-    (``tile_smem_bytes``); float32: the forwards' ``f32_cluster`` blocks
-    of at most 2 * 256 threads whose ``f32_smem_bytes`` fit, and kernel 5's
-    split-TF32 tiles at ``f32_tile_hidden``, one block or a cluster of 2, 4
-    or 8 (``f32_cluster``), whose ``f32_smem_bytes(..., backward=True)``
-    fit.  Above it the step route (``lstm_route``), whose blocks' shared
-    memory (``step_smem_bytes``) no width changes."""
+    (``tile_smem_bytes``); float32: the split-TF32 tiles of kernels 1, 4
+    and 5 at ``f32_tile_hidden``, one block or a cluster of 2, 4 or 8
+    (``f32_cluster``), whose ``f32_smem_bytes`` fit, forward and backward.
+    Above it the step route (``lstm_route``), whose blocks' shared memory
+    (``step_smem_bytes``) no width changes."""
     if embed < 1 or hidden < 1 or rows < 1 or dtype not in _DTYPES:
         return False
-    if lstm_route(hidden, dtype, backward=True) == "step":
+    if lstm_route(hidden, dtype) == "step":
         return (step_smem_bytes(dtype) > 0
                 and step_smem_bytes(dtype, backward=True) > 0)
     if dtype == torch.bfloat16:
         e, h = _round_up(embed, TILE_ALIGN), _round_up(hidden, TILE_ALIGN)
         return tile_smem_bytes(e, h, backward=True) > 0
-    return (0 < f32_smem_bytes(embed, hidden) <= SMEM_LIMIT
-            and f32_smem_bytes(embed, hidden, backward=True) > 0)
+    return all(f32_smem_bytes(embed, hidden, bw) > 0 for bw in (False, True))
 
 
 def _pad_last(t: torch.Tensor, size: int) -> torch.Tensor:
@@ -582,15 +607,19 @@ def _forward(name: str, x, mask, w_ih, b, w_hh, reverse: bool, tc: int,
     (hb, cb None without ``res``) and H."""
     B, T, E, H = _check_cuda_args(name, x, mask, w_ih, b, w_hh)
     step = lstm_route(H, x.dtype) == "step"
-    if x.dtype == torch.bfloat16:
-        # zero-padded to the tiles' widths, the weights staged: one matrix a
-        # rank of a cluster or a unit tile of the step route
+    if x.dtype == torch.bfloat16 or not step:
+        # zero-padded to the tiles' widths (bf16 H to 32 or the step route's
+        # unit tile, float32 to f32_tile_hidden), the weights staged: one
+        # matrix a rank of a cluster or a unit tile of the step route; the
+        # float32 step route reads the weights as they are
+        bf16 = x.dtype == torch.bfloat16
         x, w_ih, b, w_hh = pad_lstm_operands(
-            x, w_ih, b, w_hh, STEP_UNITS[x.dtype] if step else TILE_ALIGN)
+            x, w_ih, b, w_hh, STEP_UNITS[x.dtype] if step else
+            TILE_ALIGN if bf16 else max(TILE_ALIGN, 16 * f32_cluster(H)))
         Hp = w_hh.shape[0]
         w_ih = stage_lstm_weights(
             w_ih, w_hh, Hp // STEP_UNITS[x.dtype] if step else
-            lstm_cluster(Hp))
+            lstm_cluster(Hp) if bf16 else f32_cluster(Hp))
     Ep, Hp = x.shape[-1], w_hh.shape[0]
     out = torch.empty((B, T, Hp), dtype=x.dtype, device=x.device)
     hb = cb = None
@@ -613,14 +642,14 @@ def _forward(name: str, x, mask, w_ih, b, w_hh, reverse: bool, tc: int,
         launch(
             "cair_lstm_fwd_res", x.device,
             x.data_ptr(), mask.data_ptr(), w_ih.data_ptr(), b.data_ptr(),
-            w_hh.data_ptr(), out.data_ptr(), hb.data_ptr(), cb.data_ptr(), B,
-            T, Ep, Hp, int(reverse), tc, _DTYPES[x.dtype], _stream(x))
+            out.data_ptr(), hb.data_ptr(), cb.data_ptr(), B, T, Ep, Hp,
+            int(reverse), tc, _DTYPES[x.dtype], _stream(x))
     else:
         launch(
             "cair_lstm_fwd", x.device,
             x.data_ptr(), mask.data_ptr(), w_ih.data_ptr(), b.data_ptr(),
-            w_hh.data_ptr(), out.data_ptr(), B, T, Ep, Hp, int(reverse),
-            _DTYPES[x.dtype], _stream(x))
+            out.data_ptr(), B, T, Ep, Hp, int(reverse), _DTYPES[x.dtype],
+            _stream(x))
     return out, hb, cb, H
 
 
@@ -715,7 +744,7 @@ def lstm_fused_bwd(x: torch.Tensor, mask: torch.Tensor, w_ih: torch.Tensor,
 
     lib = load_library()
     dtype = _DTYPES[x.dtype]
-    step = lstm_route(H, x.dtype, backward=True) == "step"
+    step = lstm_route(H, x.dtype) == "step"
     # the tensor-core kernels (float32: split TF32) read W^T out of the
     # staged W's own slabs (one matrix a rank of a cluster or, bf16, a unit
     # tile of the step route); a cluster's, or the step route's, dx is one

@@ -152,7 +152,7 @@ def test_bf16_limits_are_kernel_9s_tiles(e, h, ok):
     ep, hp = L._round_up(e, 32), K.gru_tile_hidden(h)
     c = K.gru_cluster(hp)
     if hp > 1024:
-        assert c == 0 and K.gru_route(h, BF16, backward=True) == "step"
+        assert c == 0 and K.gru_route(h, BF16) == "step"
         assert ok is (L.step_smem_bytes(BF16, True, K.GATES) > 0)
         return
     assert ok is (c > 0 and L.tile_smem_bytes(

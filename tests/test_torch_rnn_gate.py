@@ -15,10 +15,22 @@ import torch
 from test_torch_cars import port_batch, port_model, tiny_setup
 
 from context_attentive_ir_tpu.ops.rnn import RNNLayer as JaxRNNLayer
+from context_attentive_ir_tpu.train.state import TrainState as JaxTrainState
+from context_attentive_ir_tpu.train.state import (
+    make_optimizer as jax_make_optimizer,
+)
+from context_attentive_ir_tpu.train.steps import (
+    make_train_step as jax_make_train_step,
+)
+from context_attentive_ir_tpu_torch.config import ModelConfig as PortConfig
 from context_attentive_ir_tpu_torch.ops import rnn as port_rnn
 from context_attentive_ir_tpu_torch.ops.kernels.gru import gru_fused_supported
 from context_attentive_ir_tpu_torch.ops.kernels.lstm import fused_supported
 from context_attentive_ir_tpu_torch.ops.rnn import RNNLayer
+from context_attentive_ir_tpu_torch.train import (
+    create_train_state,
+    make_train_step,
+)
 
 TOL = 1e-5
 BF16, F32 = torch.bfloat16, torch.float32
@@ -27,12 +39,12 @@ BF16, F32 = torch.bfloat16, torch.float32
 @pytest.mark.parametrize("e,h,dtype,ok", [
     (256, 128, F32, True), (256, 128, BF16, True),
     (300, 100, BF16, True),          # padded to 320, 128 for the tiles
-    (256, 403, F32, True),           # one block: 4H * 36 * 4 <= 232,448
+    (256, 403, F32, True),           # 4 ranks of 112 units (448 padded)
     (256, 449, BF16, True),          # a cluster of 2 past one block's 448
-    (1485, 128, F32, True),          # x staged in chunks: any E
+    (1485, 128, F32, True),          # x streamed beside the slabs: any E
     (1487, 1152, BF16, True),        # any E; H above 1,024: the step route
-    (64, 512, F32, True),            # a cluster of 4 blocks of 128 units
-    (64, 1025, F32, True),           # past 8 such blocks: the step route
+    (64, 512, F32, True),            # a cluster of 4 ranks of 128 units
+    (64, 1025, F32, True),           # past 8 such ranks: the step route
     (256, 128, torch.float16, False), (0, 128, F32, False)])
 def test_gru_fused_supported_at_and_beyond_each_limit(e, h, dtype, ok):
     assert gru_fused_supported(e, h, 40, dtype) is ok
@@ -87,10 +99,9 @@ def _count_calls(monkeypatch):
 
 # (rnn, E, H, the kernels hold it): the LSTM and GRU kernels hold every E
 # and H (1,152 on the step route; the GRU's float32 H = 520 on a cluster of
-# 5 blocks in kernels 7, 8 and of 4 ranks in kernel 9, E = 1700 staged in
-# chunks); an odd E and H stay with the
-# kernels (float32 has no alignment rule; bfloat16 is zero-padded by the
-# wrapper)
+# 8 ranks, padded to 640, E = 1700 streamed beside the slabs); an odd E and
+# H stay with the kernels (the wrappers zero-pad them to the tiles'
+# widths)
 GATE_SHAPES = [("lstm", 24, 16, True), ("lstm", 37, 19, True),
                ("lstm", 12, 1152, True), ("lstm", 1700, 1152, True),
                ("gru", 24, 16, True), ("gru", 37, 19, True),
@@ -225,3 +236,51 @@ def test_cars_beyond_the_limits_matches_jax(monkeypatch, name, overrides,
     assert got.shape == ref.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
                                atol=1e-4)
+
+
+def test_cars_float32_score_and_train_step_match_jax(monkeypatch):
+    """The configuration's default dtype, float32, at an odd emsize and
+    nhid (widths the card zero-pads for its split-TF32 tiles,
+    ``f32_tile_hidden``): a CARS scores, and takes one Adam step, through
+    the kernel wrappers (their plain versions on the CPU) as the JAX
+    package does -- scores 1e-4 abs, loss and grad norm 1e-5 relative,
+    parameters 2e-5 abs after the step (as ``tests/test_torch_cars.py`` and
+    ``tests/test_torch_train_steps.py``; the listwise loss's rank-MLP
+    output bias, rounding noise in both, is left out under Adam)."""
+    jm, cfg, params, batch, _, _ = tiny_setup(n_sessions=3, jax_init=False,
+                                              emsize=37, nhid=20)
+    assert cfg.compute_dtype == "float32" and cfg.use_pallas_rnn
+    pm = port_model(cfg, params)
+    calls = _count_calls(monkeypatch)
+    with torch.no_grad():
+        got = pm.score(port_batch(batch))
+    ref = jax.jit(lambda p, b: jm.apply({"params": p}, b,
+                                        method=jm.score))(params, batch)
+    assert calls.get("lstm_fused", 0) >= 4
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                               atol=1e-4)
+    jstate = JaxTrainState.create(apply_fn=jm.apply, params=params,
+                                  tx=jax_make_optimizer(cfg))
+    jstate, mj = jax_make_train_step(jm, cfg)(jstate, batch,
+                                              jax.random.key(1))
+    pcfg = PortConfig.from_json(cfg.to_json())
+    pstate, mp = make_train_step(pm, pcfg)(create_train_state(pm, pcfg),
+                                           port_batch(batch), 1)
+    assert calls.get("lstm_fused_train", 0) >= 4
+    for k in ("loss", "grad_norm"):
+        assert abs(float(mp[k]) - float(mj[k])) <= 1e-5 * abs(float(mj[k]))
+    flat = _flat(jax.device_get(jstate.params))
+    for n, p in pm.named_parameters():
+        if n != "rank_mlp.fc1.bias":
+            np.testing.assert_allclose(p.detach().numpy(), flat[n], rtol=0,
+                                       atol=2e-5, err_msg=n)
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out

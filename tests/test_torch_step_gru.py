@@ -337,16 +337,19 @@ def test_gru_fused_supported_takes_every_hidden_size(dtype):
     (449, BF16, "fwd", "cluster"), (1024, BF16, "bwd", "cluster"),
     (1025, BF16, "fwd", "step"), (1056, BF16, "bwd", "step"),
     (4096, BF16, "bwd", "step"),
-    (256, F32, "fwd", "single"), (257, F32, "fwd", "cluster"),
+    (128, F32, "fwd", "single"), (129, F32, "fwd", "cluster"),
+    (256, F32, "fwd", "cluster"), (257, F32, "fwd", "cluster"),
     (128, F32, "bwd", "single"), (129, F32, "bwd", "cluster"),
     (403, F32, "bwd", "cluster"), (404, F32, "bwd", "cluster"),
     (1024, F32, "bwd", "cluster"), (1025, F32, "fwd", "step"),
     (1025, F32, "bwd", "step"), (2048, F32, "bwd", "step")])
 def test_route_rule(h, dtype, kernel, route):
     """``gru_route`` (``csrc/lstm_mma.cuh``'s rule): kernels 7, 8, 9 keep
-    one block or a cluster up to 1,024 units and take the step route
-    above, in both dtypes; the cluster's own rule says 0 above 1,024."""
-    assert G.gru_route(h, dtype, backward=kernel == "bwd") == route
+    one block or a cluster up to 1,024 units (float32 past 128 on
+    ``f32_cluster``'s ranks, forward and backward alike) and take the step
+    route above, in both dtypes; the cluster's own rule says 0 above
+    1,024."""
+    assert G.gru_route(h, dtype) == route
     if route == "step":
         assert G.gru_cluster(G.gru_tile_hidden(h)) == 0
 

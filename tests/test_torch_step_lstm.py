@@ -329,7 +329,8 @@ def test_fused_supported_takes_every_hidden_size(dtype):
     (385, BF16, "fwd", "cluster"), (1024, BF16, "fwd", "cluster"),
     (1025, BF16, "fwd", "step"), (1056, BF16, "bwd", "step"),
     (4096, BF16, "bwd", "step"),
-    (256, F32, "fwd", "single"), (257, F32, "fwd", "cluster"),
+    (128, F32, "fwd", "single"), (129, F32, "fwd", "cluster"),
+    (256, F32, "fwd", "cluster"), (257, F32, "fwd", "cluster"),
     (128, F32, "bwd", "single"), (129, F32, "bwd", "cluster"),
     (403, F32, "bwd", "cluster"), (404, F32, "bwd", "cluster"),
     (1024, F32, "bwd", "cluster"), (1025, F32, "fwd", "step"),
@@ -339,11 +340,11 @@ def test_fused_supported_takes_every_hidden_size(dtype):
     (2048, F32, "rec", "step")])
 def test_route_rule(h, dtype, kernel, route):
     """``lstm_route`` (``csrc/lstm_mma.cuh``'s rule): kernels 1, 4, 5 keep
-    one block or a cluster up to 1,024 units and take the step route above,
-    kernel 6 above 512, in both dtypes; the cluster's own rule says 0
-    above 1,024."""
-    assert K.lstm_route(h, dtype, backward=kernel == "bwd",
-                        recurrence=kernel == "rec") == route
+    one block or a cluster up to 1,024 units (float32 past 128 on
+    ``f32_cluster``'s ranks, forward and backward alike) and take the step
+    route above, kernel 6 above 512, in both dtypes; the cluster's own rule
+    says 0 above 1,024."""
+    assert K.lstm_route(h, dtype, recurrence=kernel == "rec") == route
     if route == "step" and kernel != "rec":
         assert K.lstm_cluster(h) == 0
         assert K.tile_smem_bytes(256, h) == 0

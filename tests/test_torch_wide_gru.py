@@ -31,7 +31,7 @@ import pytest
 import torch
 from test_torch_gru_bwd_tiles import NAMES, _close_rel
 from test_torch_gru_bwd_tiles import _inputs as _gru_inputs
-from test_torch_wide_lstm import f32_tiles_smem
+from test_torch_wide_lstm import f32_fwd_tiles_smem, f32_tiles_smem
 
 from context_attentive_ir_tpu.ops.pallas.gru import (
     _gru_fused_bwd_impl,
@@ -269,10 +269,10 @@ def test_cluster_algorithm_matches_jax(b, t, e, h, tc, reverse):
 
 def test_float32_cluster_of_four_matches_jax():
     """float32's split of H = 512: four ranks of 128 units
-    (``f32_cluster``) in kernel 9, as in kernels 7 and 8, slabs of 32
-    k-rows."""
+    (``f32_cluster``) in kernels 7, 8 (64 rows and one h tile a rank,
+    ``f32_forward_tiles``) and 9; slabs of 32 k-rows."""
     b, t, e, h, tc = 16, 3, 300, 512, 2
-    assert K.f32_cluster(h) == 4 and K.f32_cluster(h, backward=False) == 4
+    assert K.f32_cluster(h) == 4 and K.f32_forward_tiles(h, 3) == (64, 1)
     args, dout = _inputs(b, t, e, h)
     x, mask, w_ih, b_ih, w_hh, b_hh = map(torch.from_numpy, args)
     # zero columns of x past E (slabs of 32 k-rows) add nothing
@@ -331,14 +331,13 @@ def _mma_smem(h, c, backward):
 
 
 def _f32_smem(e, h, backward):
-    """The float32 launchers' sums: the forward (``launch`` in
-    ``csrc/gru_fwd.cu``) h of all units and one x chunk of at most 256
-    k-rows of 36 floats; the backward (``mma_smem`` in
-    ``csrc/lstm_mma.cuh``) the split-TF32 tiles with three gate blocks
-    (``f32_tiles_smem``)."""
-    if K.f32_cluster(h, backward) == 0:
+    """The float32 launchers' sums (``f32_fwd_smem`` / ``mma_smem`` in
+    ``csrc/lstm_mma.cuh``): the split-TF32 tiles with three gate blocks,
+    the forward's (``f32_fwd_tiles_smem``) and the backward's
+    (``f32_tiles_smem``); E takes none."""
+    if K.f32_cluster(h) == 0:
         return 0
-    return f32_tiles_smem(h, 3) if backward else (h + min(e, 256)) * 144
+    return f32_tiles_smem(h, 3) if backward else f32_fwd_tiles_smem(h, 3)
 
 
 @pytest.mark.parametrize("dtype", [BF16, F32])
@@ -347,9 +346,9 @@ def test_gate_is_the_launchers_at_every_hidden_size(dtype):
     holds every H, wherever the JAX gate holds too; up to 1,024 exactly
     where the launchers' arithmetic does -- bf16: H padded to 32 (64 in a
     cluster of 4), ``gru_cluster``'s blocks whose tiles fit, forward and
-    backward; float32: the forwards' rows of 36 floats, and kernel 9's
-    split-TF32 tiles at ``f32_tile_hidden``, ``f32_cluster``'s ranks of at
-    most 128 units whose tiles fit -- and above it on the step route,
+    backward; float32: the split-TF32 tiles of kernels 7, 8 and 9 at
+    ``f32_tile_hidden``, ``f32_cluster``'s ranks of at most 128 units whose
+    tiles fit, forward and backward -- and above it on the step route,
     whose blocks' shared memory no width changes."""
     for h in range(32, 1057):
         for e in (1, 300, 4096):
@@ -358,7 +357,7 @@ def test_gate_is_the_launchers_at_every_hidden_size(dtype):
             if jax_gru_fused_supported(e, h, 8):
                 assert ok
             if h > 1024:
-                assert G.gru_route(h, dtype, backward=True) == "step"
+                assert G.gru_route(h, dtype) == "step"
                 assert K.step_smem_bytes(dtype, True, G.GATES) > 0
                 continue
             if dtype == BF16:
@@ -385,7 +384,8 @@ def test_gate_is_the_launchers_at_every_hidden_size(dtype):
                 if c:
                     assert K.f32_smem_bytes(e, h, True, G.GATES) == \
                         _f32_smem(e, h, True)
-                    assert K.f32_smem_bytes(e, h) == (h + min(e, 256)) * 144
+                    assert K.f32_smem_bytes(e, h, False, G.GATES) == \
+                        _f32_smem(e, h, False)
 
 
 @pytest.mark.parametrize("h,hp,c", [(448, 448, 1), (449, 480, 2),

@@ -298,7 +298,7 @@ def test_fused_supported_takes_every_width_up_to_1024(dtype):
     for e in (256, 300, 512, 768, 1024, 2048):
         for h in (128, 256, 384, 512, 640, 768, 1024):
             assert K.fused_supported(e, h, 64, dtype), (e, h)
-            assert K.lstm_route(h, dtype, backward=True) != "step"
+            assert K.lstm_route(h, dtype) != "step"
     for h in (1025, 1152):
         assert K.fused_supported(256, h, 64, dtype)
         assert K.lstm_route(h, dtype) == "step"
@@ -371,29 +371,59 @@ def f32_tiles_smem(h, gates=4, depth=False, ranks=None):
     return (0, m, 0) if depth else 0
 
 
+def f32_fwd_tiles_smem(h, gates=4, layout=False):
+    """``f32_fwd_smem`` of ``csrc/lstm_mma.cuh`` for the split-TF32
+    forwards, kernels 1, 4 (``gates`` 4) and 7, 8 (3), written out: the
+    backward's ranks (one block to H = 128, then 2, 4 or 8 of at most 128
+    units; H padded to 32, 16 C in a cluster of C), 64 rows where one h
+    tile of them fits, else 32; three slabs of 32, 16 or 8 k-rows of gates
+    * Hc + 8 floats, three x slots (+ 16 bytes a row), the h tiles -- one
+    in a block; two in a rank where they fit at a slab as deep as one tile
+    allows, else one --, the bias.  ``layout``: (bytes, rows, slab depth,
+    h tiles)."""
+    c = 1 if h <= 128 else 2 if h <= 256 else 4 if h <= 512 else 8
+    hp = -(-h // max(32, 16 * c)) * max(32, 16 * c)
+    hc = hp // c
+
+    def fit(m, tiles):
+        for ks in (32, 16, 8):
+            n = (64 + 3 * ks * 4 * (gates * hc + 8) + 3 * m * (4 * ks + 16)
+                 + tiles * m * (4 * hp + 16) + 16 * hc)
+            if n <= K.SMEM_LIMIT:
+                return n, ks
+        return 0, 0
+
+    m = 64 if fit(64, 1)[0] else 32
+    one, two = fit(m, 1), fit(m, 2)
+    if c > 1 and two[0] and two[1] >= one[1]:
+        n, ks, tiles = *two, 2
+    else:
+        n, ks, tiles = *one, 1
+    return (n, m, ks, tiles) if layout else n
+
+
 @pytest.mark.parametrize("h,c,hc", [(128, 1, 128), (403, 4, 112),
                                     (404, 4, 112), (512, 4, 128),
                                     (640, 8, 80), (1000, 8, 128),
                                     (1024, 8, 128), (1025, 0, 0)])
 def test_float32_cluster_and_shared_memory(h, c, hc):
     """``f32_cluster`` and ``f32_smem_bytes`` against the launchers
-    (``csrc/lstm_common.cuh``, ``launch`` in ``csrc/lstm_fwd.cu``,
-    ``mma_smem`` in ``csrc/lstm_mma.cuh``): the forwards' blocks of 2 Hc
-    <= 512 threads, h of all units plus one x chunk of at most 256 k-rows;
-    the backward's split-TF32 tiles, one block to 128 and ranks of Hc <=
-    128 units above (``f32_tiles_smem``)."""
+    (``csrc/lstm_common.cuh``, ``f32_fwd_smem`` / ``mma_smem`` in
+    ``csrc/lstm_mma.cuh``): the split-TF32 tiles, one block to 128 and
+    ranks of Hc <= 128 units above, forward and backward alike -- the
+    forwards' 64 rows in one block, 32 a rank with one or two h tiles
+    (``f32_fwd_tiles_smem``), the backward's (``f32_tiles_smem``)."""
     assert K.f32_cluster(h) == c
-    # kernels 1 and 4 split every H above 256
-    assert K.f32_cluster(h, backward=False) == (
-        1 if h <= 256 else -(-h // 128) if h <= 1024 else 0)
     if not c:
         assert K.f32_smem_bytes(256, h) == 0
         assert K.f32_smem_bytes(256, h, backward=True) == 0
         return
-    assert K.f32_tile_hidden(h) // c == hc and hc % 16 == 0 and hc <= 128
+    hp = K.f32_tile_hidden(h)
+    assert hp // c == hc and hc % 16 == 0 and hc <= 128
+    _, rows, _, tiles = f32_fwd_tiles_smem(h, layout=True)
+    assert K.f32_forward_tiles(hp) == (rows, tiles)
     for e in (1, 256, 4096):
-        fwd = (h + min(e, 256)) * 36 * 4
-        assert K.f32_smem_bytes(e, h) == fwd <= K.SMEM_LIMIT
+        assert K.f32_smem_bytes(e, h) == f32_fwd_tiles_smem(h) > 0
         assert (K.f32_smem_bytes(e, h, backward=True) == f32_tiles_smem(h)
                 > 0)
 
