@@ -182,7 +182,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    forwards at H = 128 and the source, the backward everywhere; the rows
    ``widelstm`` / ``widegru`` time already are held only), then a float32
    CARS and CARS-GRU at the serving widths: ``rank_batch`` through kernels
-   1 / 7 and 4 Adam steps through kernels 4 + 5 / 8 + 9, against the plain
+   1 / 7 (CARS also beam-5 ``suggest_batch`` through the split-TF32
+   generator kernel 2, each call profiled once more) and 4 Adam steps
+   through kernels 4 + 5 / 8 + 9, against the plain
    scan; then the step route (``widestep``): CARS at nhid 2,048 in bf16 (``rank_batch``,
    beam-5 ``suggest_batch``) and 1,152 in float32 (``rank_batch``), and 4
    Adam steps of each at 8 sessions, against the same weights on the
@@ -216,8 +218,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    at ``[16000, 30, 256]`` -> 512 and 1,024 in both dtypes (rows with
    ``rows``, ``steps``, ``e``, ``h``, ``dtype``; checked against their
    plain versions on those inputs first), kernels 2, 2p, 2q and 3 at
-   ``widebeam``'s steps (rows with ``step``, ``rows``, ``e``, ``kc``,
-   ``dtype``), kernel 9 with 16-row and 64-row
+   ``widebeam``'s steps and in float32 at the beam-5 and greedy steps
+   (rows with ``step``, ``rows``, ``e``, ``kc``, ``dtype``), kernel 9
+   with 16-row and 64-row
    blocks at the query and doc encoders' shapes, kernel 10's wider
    instantiations (logged), and the train steps' times.
 
@@ -240,7 +243,8 @@ small float32 models card vs CPU), ``kernel6`` (``lstm_precomputed``),
 ``f32bwd`` or ``f32`` (float32 kernels 1, 4, 5, 7, 8, 9 on split TF32:
 gates, layouts, checks, forward timings at H = 128 and the source and
 backward timings at H = 128 to 1,024, float32 CARS and CARS-GRU
-``rank_batch`` and train steps against the plain scan), ``widelstm`` (CARS at nhid 512 in bf16 and float32 -- ``rank_batch``,
+``rank_batch``, CARS beam-5 ``suggest_batch`` and train steps against the
+plain scan), ``widelstm`` (CARS at nhid 512 in bf16 and float32 -- ``rank_batch``,
 beam-5 ``suggest_batch``, 4 train steps -- ``cli.main --nhid 512``, a bf16
 CARS at emsize 768, each against the same model on the plain scan, and
 kernels 1, 4, 5 timed at the doc encoder's rows and steps at H = 512 and
@@ -1072,18 +1076,18 @@ def same_bits(a, b) -> bool:
     return all(torch.equal(p, q) for p, q in zip(a, b))
 
 
-def check_beamgen_modes(gen) -> float:
+def check_beamgen_modes(gen) -> dict:
     """Kernel 2's int8 mode against its plain version (the f32
     reference, not a bf16-rounded logits path), at the beam-5 and greedy
     shapes: integer-valued x exact, random x 0 index mismatches away from
     near ties.  ``prune`` on and off, and kernel 3 against kernel 2, must
     give the same bits.  Returns the int8 mode's max abs error on random
-    data at the beam-5 shape (bf16 x)."""
+    data at the beam-5 shape by the dtype of x."""
     from context_attentive_ir_tpu_torch.ops.kernels.beamgen import (
         generator_topk_lse,
     )
 
-    worst = 0.0
+    worst = {}
     for rows, kc in ((B * S * BEAM, BEAM + 1), (B * S, 2)):
         for dtype in (torch.float32, torch.bfloat16):
             for integer in (True, False):
@@ -1094,9 +1098,8 @@ def check_beamgen_modes(gen) -> float:
                 name = (f"generator_topk_lse int8 R={rows} kc={kc} {dtype} "
                         f"{'integer' if integer else 'random'}")
                 v_err = hold(name, base, x, q_t, kc, integer, scale)
-                if (rows == B * S * BEAM and dtype == torch.bfloat16
-                        and not integer):
-                    worst = v_err
+                if rows == B * S * BEAM and not integer:
+                    worst[dtype] = v_err
                 if not same_bits(base, pruned):
                     raise AssertionError(f"{name}: prune changes the bits")
 
@@ -1213,7 +1216,7 @@ def check_beamgen_layouts(gen) -> None:
 # far past every whole tile
 LIMIT_ES = (100, 300, 3000)
 WHOLE_TILE_TOPS = {(torch.bfloat16, False): 1264, (torch.bfloat16, True): 976,
-                   (torch.float32, False): 908, (torch.float32, True): 652}
+                   (torch.float32, False): 496, (torch.float32, True): 352}
 # (name, keyword arguments) of each generator mode; int8 takes a table of
 # its own
 GEN_MODES = (("serial", {}), ("pruned", {"prune": True}),
@@ -1702,12 +1705,14 @@ def counters() -> dict:
 
 # The generator kernel each fused decode path must launch, fixed here and
 # not read from the dispatch table, so that a rewritten table cannot move
-# a launch-count check with it: the pruned serial kernel on the beam paths
-# (the table's beam_gen_prune row at 1,600 rows, kc 6: 0.5944 ms against
-# 1.2138 unpruned), the unpruned one for greedy (its row at 320 rows,
-# kc 2: pruning 0.1747 against 0.1713, inside NEAR_TIE_MARGIN, so off).
-# table_choices() holds the committed table to these choices.
-BEAM_GEN = "generator_topk_lse_pruned"
+# a launch-count check with it: the unpruned serial kernel on the beam
+# paths and for greedy (the table's beam_gen_prune rows: at 1,600
+# rows, kc 6, pruning 0.6018 ms against 0.5785; at 320 rows, kc 2, 0.1694
+# against 0.1674 -- both modes insert only what beats the kc-th entry, so
+# pruning no longer wins by NEAR_TIE_MARGIN, and the JAX default, off,
+# holds; kernel 3 0.6263 / 0.1832, off too).  table_choices() holds the
+# committed table to these choices.
+BEAM_GEN = "generator_topk_lse"
 GREEDY_GEN = "generator_topk_lse"
 # beams 40 and 127 (kc 41 and 128): the table has no row at their kc, so
 # the pruned serial kernel (dispatch.PRUNE_ABOVE_KC: an unmeasured kc
@@ -1872,6 +1877,7 @@ PATH_KERNELS = {
     # configuration's default dtype), kernels 1, 4, 5 and 7, 8, 9 on split
     # TF32
     "rank_batch_f32": ("lstm_fused",),
+    "suggest_beam5_f32": ("lstm_fused", BEAM_GEN),
     "rank_batch_f32_gru": ("gru_fused",),
     "train_step_f32bwd": ("lstm_fused_res", "lstm_fused_bwd"),
     "train_step_f32bwd_gru": ("gru_fused_res", "gru_fused_bwd"),
@@ -4221,10 +4227,12 @@ def f32bwd_paths(gen, timed_elsewhere=()) -> tuple[dict, list[dict]]:
                                  bwd_only=h != NHID, e=e, h=h))
             torch.cuda.empty_cache()
     word_dict = synthetic_dictionary(VOCAB)
+    # CARS in float32 (the configuration's default) answers beam-5
+    # suggestions through the split-TF32 generator (kernel 2p), profiled
     for tag, kw in (("f32", {}), ("f32_gru", GRU)):
         wide_serving(word_dict, full_width_config(
             "cars", compute_dtype="float32", **kw), tag, f32, launches,
-            suggest=False)
+            suggest=tag == "f32", profile=True)
         torch.cuda.empty_cache()
     for tag, kw in (("f32bwd", {}), ("f32bwd_gru", GRU)):
         wide_train(full_width_config("cars", compute_dtype="float32", **kw),
@@ -4266,10 +4274,12 @@ def plain_config(cfg):
 
 
 def wide_serving(word_dict, cfg, tag: str, dtype, launches: dict,
-                 suggest: bool = True, rank: bool = True) -> dict:
+                 suggest: bool = True, rank: bool = True,
+                 profile: bool = False) -> dict:
     """``Engine.rank_batch`` (unless not ``rank``) and beam-5
     ``suggest_batch`` (unless not ``suggest``) of ``cfg``, counted, against
-    the same weights on the plain scan and pool (``plain_config``).
+    the same weights on the plain scan and pool (``plain_config``); with
+    ``profile``, one more call of each profiled (``where_time_goes``).
     Returns those weights
     (``cfg``'s model seeded 0), for ``wide_train``."""
     from context_attentive_ir_tpu_torch.models import build_model
@@ -4285,11 +4295,15 @@ def wide_serving(word_dict, cfg, tag: str, dtype, launches: dict,
             scores, launches[path] = counted(path,
                                              lambda: eng.rank_batch(reqs))
             within_tol(path, scores, ref.rank_batch(reqs), dtype)
+            if profile:
+                where_time_goes(path, lambda: eng.rank_batch(reqs))
         if not suggest:
             return params
         path = f"suggest_beam5_{tag}"
         sugg, launches[path] = counted(path, lambda: eng.suggest_batch(hists))
         want = ref.suggest_batch(hists)
+        if profile:
+            where_time_goes(path, lambda: eng.suggest_batch(hists))
     check_suggestions(path, sugg, BEAM)
     within_tol(path + " top-1 scores", [nb[0][1] for nb in sugg],
                [nb[0][1] for nb in want], dtype)
@@ -4912,7 +4926,7 @@ def first_step_rounding(model, batch) -> None:
 
 
 def widebeam_kernels(gen, launches: dict) -> list[dict]:
-    """Kernels 2, 2p, 2q (int8 table, bf16 x) and 3 alone at
+    """Kernels 2, 2p, 2q (int8 table) and 3 alone at
     ``WIDEBEAM_SHAPES`` in bfloat16 and float32: each mode held to its
     plain version (``hold``) on integer data (vals and idx exact) and on
     random data, every mode of one table giving the same bits, then timed
@@ -4954,20 +4968,18 @@ def widebeam_kernels(gen, launches: dict) -> list[dict]:
                     raise AssertionError(f"{name}: the modes differ")
                 errs["pruned"] = errs["pipelined"] = errs["serial"]
                 del outs
-                if dtype == torch.bfloat16:
-                    xq, q_t, scale = (
-                        beamgen_integer_case(gen, rows, e, VOCAB, dtype, True)
-                        if integer else int8_inputs(gen, rows, dtype, False,
-                                                    e))
-                    base = generator_topk_lse(xq, q_t, kc, scale=scale)
-                    pruned = generator_topk_lse(xq, q_t, kc, scale=scale,
-                                                prune=True)
-                    errs["int8"] = hold(f"{name} int8", base, xq, q_t, kc,
-                                        integer, scale)
-                    if not same_bits(base, pruned):
-                        raise AssertionError(f"{name} int8: prune changes "
-                                             "the bits")
-                    del base, pruned, xq, q_t
+                xq, q_t, scale = (
+                    beamgen_integer_case(gen, rows, e, VOCAB, dtype, True)
+                    if integer else int8_inputs(gen, rows, dtype, False, e))
+                base = generator_topk_lse(xq, q_t, kc, scale=scale)
+                pruned = generator_topk_lse(xq, q_t, kc, scale=scale,
+                                            prune=True)
+                errs["int8"] = hold(f"{name} int8", base, xq, q_t, kc,
+                                    integer, scale)
+                if not same_bits(base, pruned):
+                    raise AssertionError(f"{name} int8: prune changes "
+                                         "the bits")
+                del base, pruned, xq, q_t
                 torch.cuda.empty_cache()
             # timing on the random data of the last pass
             x, tt = beamgen_inputs(gen, rows, dtype, False, e)
@@ -4987,12 +4999,10 @@ def widebeam_kernels(gen, launches: dict) -> list[dict]:
 
             lib = timed_ms(lambda: library(tt), 2 if big else 5, 1)
             for mode, kw in GEN_MODES:
-                if mode == "int8" and dtype == torch.float32:
-                    continue
                 if mode == "int8":
                     _, q_t, scale = int8_inputs(gen, 1, dtype, False, e)
                     table, kw = q_t, {"scale": scale, "prune": True}
-                    n_bytes = x.numel() * 2 + q_t.numel() + VOCAB * 4
+                    n_bytes = x.numel() * size + q_t.numel() + VOCAB * 4
                     q_bf16 = q_t.to(dtype)
                     lib_ms = timed_ms(lambda: library(q_bf16,
                                                       scale.to(dtype)),
@@ -5230,6 +5240,65 @@ def time_beamgen_modes(gen, launches: dict, max_err: float,
             f"{ms:.3f} ms; {blocks} block(s) an SM, splits (n, tiles) at "
             f"R={rows}: {vocab_splits(rows, VOCAB, slots)}, at R={g_rows}: "
             f"{vocab_splits(g_rows, VOCAB, slots)}")
+    return rows_out
+
+
+def time_beamgen_f32(gen, launches: dict, max_err: dict,
+                     int8_err: dict) -> list[dict]:
+    """Kernels 2, 2p, 2q and 3 on float32 x (split TF32) at the beam-5
+    (R = 1600, kc = 6) and greedy (R = 320, kc = 2) steps: kernel, plain
+    version and library call (f32 matmul with TF32 off + logsumexp +
+    topk; for int8 the matmul on the float-cast int8 table, times the
+    scale), the bound at split TF32's 165 TFLOP/s.  The max abs errors are
+    the beam-5 step's, of ``check_beamgen`` / ``check_beamgen_modes``."""
+    from context_attentive_ir_tpu_torch.ops.kernels.beamgen import (
+        generator_topk_lse,
+        generator_topk_lse_reference,
+    )
+
+    f32 = torch.float32
+    rows_out = []
+    for step, rows, kc in (("beam-5", B * S * BEAM, BEAM + 1),
+                           ("greedy", B * S, 2)):
+        x, tt = beamgen_inputs(gen, rows, f32, integer=False)
+        _, q_t, scale = int8_inputs(gen, rows, f32, integer=False)
+        flops = 2.0 * rows * EMSIZE * VOCAB
+        out_bytes = rows * (kc * 8 + 4)
+
+        def library(table, scl=None):
+            logits = torch.matmul(x, table)
+            if scl is not None:
+                logits = logits * scl
+            return torch.logsumexp(logits, -1), torch.topk(logits, kc)
+
+        lib = timed_ms(lambda: library(tt), 10)
+        q_f32 = q_t.float()
+        lib_q = timed_ms(lambda: library(q_f32, scale), 10)
+        for name, kw, table in (
+                ("generator_topk_lse", {}, tt),
+                ("generator_topk_lse_pruned", {"prune": True}, tt),
+                ("generator_topk_lse_int8", {"scale": scale, "prune": True},
+                 q_t),
+                ("generator_topk_lse_pipelined", {"pipeline": True}, tt)):
+            int8 = "scale" in kw
+            ms = timed_ms(lambda: generator_topk_lse(x, table, kc, **kw), 10)
+            plain = timed_ms(lambda: generator_topk_lse_reference(
+                x, table, kc, kw.get("scale")), 5)
+            n_bytes = (x.numel() * 4 + q_t.numel() + scale.numel() * 4
+                       if int8 else (x.numel() + tt.numel()) * 4)
+            bnd, by = bound_ms(flops, n_bytes + out_bytes, f32)
+            lib_ms = lib_q if int8 else lib
+            log(f"{name} float32 (split TF32) {step} R={rows} E={EMSIZE} "
+                f"V={VOCAB} kc={kc}: kernel {ms:.3f} ms, plain {plain:.3f} "
+                f"ms, library {lib_ms:.3f} ms, bound {bnd:.4f} ms ({by}); "
+                f"{ms / lib_ms:.2f} x the library call")
+            err = (int8_err if int8 else max_err)[f32]
+            rows_out.append(kernel_row(
+                name, "beamgen.cu", "beamgen.py:286", launches, err, ms,
+                plain, lib_ms, bnd, by, step=step, rows=rows, e=EMSIZE,
+                kc=kc, dtype="float32"))
+        del x, tt, q_t, q_f32
+        torch.cuda.empty_cache()
     return rows_out
 
 
@@ -5945,7 +6014,9 @@ def main() -> int:
         if "beam" in errs:
             kernels.extend(time_beamgen_modes(gen, launches,
                                               errs["beam"][bf16],
-                                              errs["int8"]))
+                                              errs["int8"][bf16]))
+            kernels.extend(time_beamgen_f32(gen, launches, errs["beam"],
+                                            errs["int8"]))
 
     if errs:
         phase("kernel timing", timing)

@@ -14,9 +14,11 @@
 // gives the same bits on the same float table.
 //
 // What bounds it on the H100: at the beam-5 serving shape (R = 1600,
-// E = 256, V = 50,000) one call is 2*R*E*V = 4.1e10 flops (41 us at the
-// 989 TFLOP/s bf16 tensor-core peak) against a 25.6 MB bf16 table (8 us at
-// 3.35 TB/s; the int8 table 12.8 MB): compute-bound.
+// E = 256, V = 50,000) one call is 2*R*E*V = 4.1e10 flops: 41 us at the
+// 989 TFLOP/s bf16 tensor-core peak against a 25.6 MB bf16 table (8 us at
+// 3.35 TB/s; the int8 table 12.8 MB), 249 us at split TF32's 165 TFLOP/s
+// (a third of TF32's 495) against a 51.2 MB float32 table (15 us):
+// compute-bound in every mode and dtype.
 //
 // Design.  The TPU sweeps the vocab in order on one core with the running
 // top-k and (max, sumexp) in VMEM.  Blocks on Hopper run in parallel and
@@ -25,29 +27,32 @@
 // top-kc plus its (max, sumexp) pair; a second, tiny kernel merges the
 // splits per row with the same tie rule and the log-sum-exp merge
 // m + log(sum_s s_s * exp(m_s - m)) (a warp a row).  The wrapper picks
-// the split count (`vocab_splits` in ops/kernels/beamgen.py), the same for
-// every mode of a table at one kc.
+// the split count (`vocab_splits` in ops/kernels/beamgen.py) from the
+// serial kernel's residency, the same for every mode of a table at one kc.
+// Every kernel takes its score tiles from the tensor cores
+// (beamgen_common.cuh, namespace tc): the x rows staged once in x's type
+// (past the E that fits, streamed in 32-column slabs beside the table's:
+// tc::stream_x), the table streamed in 32-row slabs through a four-slot
+// `cp.async` ring, the 64 x 128 score tile as `mma.sync.m16n8k16` for bf16
+// x (bf16 in, f32 accumulate) or as split-TF32 `mma.sync.m16n8k8` for
+// float32 x (lo*hi + hi*lo + hi*hi, a fresh accumulator a slab; about 21
+// of float32's 24 bits, tf32_mma.cuh), staged in shared memory, then read
+// back by the selection warps.  64-row blocks (not 128) keep a bf16
+// block's registers under 128 a thread and its shared memory at 103.4 KB
+// for E = 256, so two blocks share an SM (float32: 171.0 KB, one block);
+// the price is the table crossing L2 -> SM once per 64 rows.
 // Inside a block each selection warp owns 8 rows and each lane 4 columns
 // of a tile (beamgen_common.cuh: rows_select, four rows at once so their
-// shuffle chains overlap): the online logsumexp, then with `prune` an
-// insertion of only the columns that beat the row's running kc-th entry
-// (a tile with none costs one warp vote), without it kc exact argmax passes
-// on every tile, as the TPU's unpruned kernel.  A row's running top-kc
-// lies across its warp's lanes, 1, 2 or 4 register slots a lane (kc up to
-// 32, 64, 128: a template parameter, so kc <= 32 compiles to the one-slot
+// shuffle chains overlap): the online logsumexp, then the insertion of
+// only the columns that beat the row's running kc-th entry (a row with
+// none costs one warp vote; `prune` votes four rows in lockstep first and
+// skips the rows without one).  The TPU's unpruned kernel merges every
+// tile whole; here the selection costs what enters the top-kc, which after
+// the first tiles is a few columns a row.  A row's running top-kc lies
+// across its warp's lanes, 1, 2 or 4 register slots a lane (kc up to 32,
+// 64, 128: a template parameter, so kc <= 32 compiles to the one-slot
 // code); the bf16 kernel 2 with more than one slot runs one block an SM
 // (its registers past 128 a thread), and the split follows that residency.
-//
-// bf16 x (the serving path) takes the tensor cores (beamgen_common.cuh,
-// namespace tc): the x rows staged once in bf16 (past the E that fits,
-// streamed in 32-column slabs beside the table's: tc::stream_x), the table
-// streamed in 32-row slabs through a four-slot `cp.async` ring, the
-// 64 x 128 score tile as `mma.sync.m16n8k16` (bf16 in, f32 accumulate)
-// staged in shared memory, then read back by the selection warps.  64-row blocks (not 128)
-// keep a block's registers under 128 a thread and its shared memory at
-// 103.4 KB for E = 256, so two blocks share an SM; the price is the table
-// crossing L2 -> SM once per 64 rows (25 x 25.6 MB a beam-5 call; 128 rows
-// would halve it, at 64 KB more x tile and twice the accumulators).
 //   - kernel 2 (tc_serial_kernel): the same eight warps run a tile's
 //     product, then its selection, then the next tile's product; the ring
 //     keeps the next tile's first slabs in flight under the selection.
@@ -59,25 +64,21 @@
 //     never completes traps.
 // Both run the same product and the same selection in the same order, so
 // kernel 3, and kernel 2 with or without `prune`, give the same bits.  The
-// int8 mode stages the int8 table (half the bytes) and widens each slab to
-// bf16 in shared memory; x float32 keeps the exact CUDA-core kernels below
-// (one fmaf per product), as do int8 tables with f32 x; past the E whose
-// whole x tile fits they stage x in chunks of k-rows (f32_stream_x), the
-// fmafs in the same k order.
+// int8 mode stages the int8 table (half the bytes): widened to bf16 in
+// shared memory for bf16 x, read as TF32 values (exact) for float32 x.
 //
 // What holds the bf16 kernels at the beam-5 shape (PERF.md): the product
 // is bound by shared-memory traffic (the slabs' copies and `ldmatrix`, about
 // 384 KB a block-tile) and its copies and `mma` do not overlap; the two
-// blocks of an SM run product and selection in step; kernel 3's eight
-// selection warps, which run every pass, set its pace.  `wgmma` from
-// shared memory and a 128-row tile are the next steps.
+// blocks of an SM run product and selection in step.  `wgmma` from shared
+// memory and a 128-row tile are the next steps.
 //
-// Table layout: table_t [E, V] with rows `ld` >= V elements apart.  The
-// bf16 kernels and the f32 pipelined kernel copy 16-byte pieces, so they
-// need a 16-byte aligned table and ld * sizeof(element) a multiple of 16;
-// the wrapper pads a table that is not (`aligned_table`), the decoders
-// build the padded table once per decode (decode/fusedgen.py).  Columns in
-// [V, ld) are never selected and never enter the logsumexp.
+// Table layout: table_t [E, V] with rows `ld` >= V elements apart.  Every
+// kernel copies 16-byte pieces, so it needs a 16-byte aligned table and
+// ld * sizeof(element) a multiple of 16; the wrapper pads a table that is
+// not (`aligned_table`), the decoders build the padded table once per
+// decode (decode/fusedgen.py).  Columns in [V, ld) are never selected and
+// never enter the logsumexp.
 
 #include "beamgen_common.cuh"
 
@@ -91,211 +92,27 @@ using PartialFn = void (*)(const void*, const void*, const float*, int, int,
                            int, int, int, int, int, float*, int*, float*,
                            float*);
 
-// -- float32 x: exact CUDA-core kernels --------------------------------------
-
-// Kernel 2 on float32 x (TW: float32 table, or int8 with `scale`): the
-// whole x tile staged once, or (f32_stream_x) kF32XChunk k-rows of x staged
-// per chunk of each vocab tile; the table read from global memory.
+// Kernel 2 (TX: bf16 or float x; TW: a table of x's type, or int8 with
+// `scale`): eight warps, each tile's product then its selection.  Shared
+// memory: the x tile (unless streamed), one score buffer, the slab ring
+// (tc::smem_bytes<TX>(e, false, tc::stream_x<TX>(e, false))).  Two bf16
+// blocks an SM for a one-slot top-kc (registers under 128 a thread); one
+// for more slots, whose buffers take a thread to 156-160 registers at two
+// slots and 188-193 at four (ptxas, sm_90a), and one for float32, whose
+// tile alone takes 171.0 KB at E = 256.
 template <typename TX, typename TW, bool kScale, bool kPrune, int S>
-__global__ void __launch_bounds__(kWarps * 32)
-beamgen_partial_kernel(const void* x_, const void* table_,
-                       const float* __restrict__ scale, int n_rows, int e,
-                       int ldx, int v_size, int ld, int kc,
-                       int tiles_per_split, float* __restrict__ part_v,
-                       int* __restrict__ part_i, float* __restrict__ part_m,
-                       float* __restrict__ part_s) {
-  const TX* __restrict__ x = static_cast<const TX*>(x_);
-  const TW* __restrict__ table = static_cast<const TW*>(table_);
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // [e or kF32XChunk][kRowBlock]
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row0 = blockIdx.x * kRowBlock;
-  const int split = blockIdx.y;
-  const int n_tiles = (v_size + kTile - 1) / kTile;
-  const int tile_begin = split * tiles_per_split;
-  const int tile_end = min(n_tiles, tile_begin + tiles_per_split);
-  const bool stream = f32_stream_x(e, false);
-
-  if (!stream) {
-    stage_x(x, xs, n_rows, ldx, row0, 0, e);
-    __syncthreads();
-  }
-
-  float m_run[kRowsPerWarp], s_run[kRowsPerWarp], buf_v[kRowsPerWarp][S];
-  int buf_i[kRowsPerWarp][S];
-  init_rows(m_run, s_run, buf_v, buf_i);
-  const float* a_base = xs + warp * kRowsPerWarp;
-
-  for (int tile = tile_begin; tile < tile_end; ++tile) {
-    const int col0 = tile * kTile + lane;
-    bool ok[kColsPerLane];
-    float scl[kColsPerLane];
-#pragma unroll
-    for (int c = 0; c < kColsPerLane; ++c) {
-      ok[c] = col0 + 32 * c < v_size;
-      scl[c] = kScale && ok[c] ? __ldg(scale + col0 + 32 * c) : 1.0f;
-    }
-    float acc[kRowsPerWarp][kColsPerLane] = {};
-    if (!stream) {
-      tile_fma<TW, true>(acc, a_base, table + col0, ld, 0, e, ok);
-    } else {
-      for (int k0 = 0; k0 < e; k0 += kF32XChunk) {
-        const int kn = min(kF32XChunk, e - k0);
-        __syncthreads();  // every warp is done with the last chunk
-        stage_x(x, xs, n_rows, ldx, row0, k0, kn);
-        __syncthreads();
-        tile_fma<TW, true>(acc, a_base, table + (size_t)k0 * ld + col0, ld,
-                           0, kn, ok);
-      }
-    }
-    int vi[kColsPerLane];
-#pragma unroll
-    for (int c = 0; c < kColsPerLane; ++c) vi[c] = ok[c] ? col0 + 32 * c : kNoIndex;
-    rows_select<kPrune, S>(
-        [&](int r, int c) { return kScale ? acc[r][c] * scl[c] : acc[r][c]; },
-        vi, ok, m_run, s_run, buf_v, buf_i, kc, lane);
-  }
-  store_partials(m_run, s_run, buf_v, buf_i, row0, warp, lane, split, n_rows,
-                 kc, part_v, part_i, part_m, part_s);
-}
-
-// Start the copy of table rows [k0, k1) x tile columns into a ring slot
-// [kF32Chunk][kTile]; pieces past v_size are zero-filled.
-__device__ __forceinline__ void stage_chunk(const float* __restrict__ table,
-                                            float* stage, int v_size, int ld,
-                                            int tile, int k0, int k1) {
-  constexpr int kCopiesPerRow = kTile / 4;
-  const int n = (k1 - k0) * kCopiesPerRow;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int row = i / kCopiesPerRow;
-    const int piece = i - row * kCopiesPerRow;
-    const int col = tile * kTile + piece * 4;
-    const bool in = col < v_size;  // rows hold whole 16-byte pieces
-    const float* src = in ? table + (size_t)(k0 + row) * ld + col : table;
-    tc::cp_async16(stage + row * kTile + piece * 4, src, in);
-  }
-}
-
-// Kernel 3 in float32: a two-stage cp.async ring of table k-chunks under
-// the same tile_fma / rows_select as beamgen_partial_kernel; x staged whole
-// or (f32_stream_x) the x rows of each k-chunk beside it in a two-slot
-// ring of its own, staged one unit ahead.
-template <int S>
-__global__ void __launch_bounds__(kWarps * 32)
-beamgen_pipelined_kernel(const void* x_, const void* table_,
-                         const float* __restrict__ /*scale*/, int n_rows,
-                         int e, int ldx, int v_size, int ld, int kc,
-                         int tiles_per_split, float* __restrict__ part_v,
-                         int* __restrict__ part_i, float* __restrict__ part_m,
-                         float* __restrict__ part_s) {
-  const float* __restrict__ x = static_cast<const float*>(x_);
-  const float* __restrict__ table = static_cast<const float*>(table_);
-  extern __shared__ float4 smem4[];
-  const bool stream = f32_stream_x(e, true);
-  // [e][kRowBlock], or [2][kF32Chunk][kRowBlock] streamed
-  float* xs = reinterpret_cast<float*>(smem4);
-  float* ring = xs + (stream ? 2 * kF32Chunk : e) * kRowBlock;  // [2][kF32Chunk][kTile]
-  constexpr int kXSlot = kF32Chunk * kRowBlock;
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row0 = blockIdx.x * kRowBlock;
-  const int split = blockIdx.y;
-  const int n_tiles = (v_size + kTile - 1) / kTile;
-  const int tile_begin = split * tiles_per_split;
-  const int tile_end = min(n_tiles, tile_begin + tiles_per_split);
-  const int n_chunks = (e + kF32Chunk - 1) / kF32Chunk;
-  const int n_units = max(0, tile_end - tile_begin) * n_chunks;
-
-  if (n_units > 0)
-    stage_chunk(table, ring, v_size, ld, tile_begin, 0, min(e, kF32Chunk));
-  tc::cp_async_commit();
-  if (!stream)
-    stage_x(x, xs, n_rows, ldx, row0, 0, e);
-  else if (n_units > 0)
-    stage_x(x, xs, n_rows, ldx, row0, 0, min(e, kF32Chunk));
-
-  float m_run[kRowsPerWarp], s_run[kRowsPerWarp], buf_v[kRowsPerWarp][S];
-  int buf_i[kRowsPerWarp][S];
-  init_rows(m_run, s_run, buf_v, buf_i);
-  float acc[kRowsPerWarp][kColsPerLane];
-
-  for (int u = 0; u < n_units; ++u) {
-    if (u + 1 < n_units) {
-      const int nt = tile_begin + (u + 1) / n_chunks;
-      const int nk0 = ((u + 1) % n_chunks) * kF32Chunk;
-      const int nk1 = min(e, nk0 + kF32Chunk);
-      stage_chunk(table, ring + ((u + 1) & 1) * kF32Chunk * kTile, v_size,
-                  ld, nt, nk0, nk1);
-      // x slot (u + 1) & 1 was last read at unit u - 1, before its
-      // closing barrier
-      if (stream)
-        stage_x(x, xs + ((u + 1) & 1) * kXSlot, n_rows, ldx, row0, nk0,
-                nk1 - nk0);
-    }
-    tc::cp_async_commit();
-    tc::cp_async_wait<1>();  // this thread's copies of chunk u have landed
-    __syncthreads();        // ... and everyone's (and x's)
-
-    const int tile = tile_begin + u / n_chunks;
-    const int chunk = u % n_chunks;
-    const int k0 = chunk * kF32Chunk;
-    const int k1 = min(e, k0 + kF32Chunk);
-    const int col0 = tile * kTile + lane;
-    bool ok[kColsPerLane];
-#pragma unroll
-    for (int c = 0; c < kColsPerLane; ++c) ok[c] = col0 + 32 * c < v_size;
-    if (chunk == 0) {
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-#pragma unroll
-        for (int c = 0; c < kColsPerLane; ++c) acc[r][c] = 0.0f;
-      }
-    }
-    const float* w = ring + (u & 1) * kF32Chunk * kTile + lane;
-    if (!stream)
-      tile_fma<float, false>(acc, xs + warp * kRowsPerWarp, w, kTile, k0, k1,
-                             ok);
-    else
-      tile_fma<float, false>(acc, xs + (u & 1) * kXSlot + warp * kRowsPerWarp,
-                             w, kTile, 0, k1 - k0, ok);
-    if (chunk == n_chunks - 1) {
-      int vi[kColsPerLane];
-#pragma unroll
-      for (int c = 0; c < kColsPerLane; ++c)
-        vi[c] = ok[c] ? col0 + 32 * c : kNoIndex;
-      rows_select<false, S>([&](int r, int c) { return acc[r][c]; }, vi, ok,
-                            m_run, s_run, buf_v, buf_i, kc, lane);
-    }
-    __syncthreads();  // slot u & 1 is refilled at iteration u + 1
-  }
-  store_partials(m_run, s_run, buf_v, buf_i, row0, warp, lane, split, n_rows,
-                 kc, part_v, part_i, part_m, part_s);
-}
-
-// -- bf16 x: tensor-core kernels ---------------------------------------------
-
-// Kernel 2 on bf16 x (TW: bf16 table, or int8 with `scale`): eight warps,
-// each tile's product then its selection.  Shared memory: the x tile
-// (unless streamed), one score buffer, the slab ring
-// (tc::smem_bytes(e, false, tc::stream_x(e, false))).  Two blocks an SM
-// for a one-slot top-kc (registers under 128 a thread); one for more
-// slots, whose buffers take a thread to 156-160 registers at two slots
-// and 188-193 at four (ptxas, sm_90a).
-template <typename TW, bool kScale, bool kPrune, int S>
-__global__ void __launch_bounds__(tc::kThreads, S == 1 ? 2 : 1)
+__global__ void __launch_bounds__(tc::kThreads,
+                                  sizeof(TX) == 2 && S == 1 ? 2 : 1)
 tc_serial_kernel(const void* x_, const void* table_,
                  const float* __restrict__ scale, int n_rows, int e, int ldx,
                  int v_size, int ld, int kc, int tiles_per_split,
                  float* __restrict__ part_v, int* __restrict__ part_i,
                  float* __restrict__ part_m, float* __restrict__ part_s) {
   extern __shared__ __align__(16) char smem[];
-  const bool stream = tc::stream_x(e, false);
+  const bool stream = tc::stream_x<TX>(e, false);
   char* xs = smem;
   float* scores = reinterpret_cast<float*>(
-      xs + (stream ? 0 : kRowBlock * tc::x_stride(e)));
+      xs + (stream ? 0 : kRowBlock * tc::x_stride<TX>(e)));
   char* ring_base = reinterpret_cast<char*>(scores) + tc::kScoreBytes;
 
   const int tid = threadIdx.x;
@@ -307,18 +124,18 @@ tc_serial_kernel(const void* x_, const void* table_,
   const int tile_begin = split * tiles_per_split;
   const int tile_end = min(n_tiles, tile_begin + tiles_per_split);
   const int n_slabs = (e + tc::kKs - 1) / tc::kKs;
-  const tc::bf16* x = static_cast<const tc::bf16*>(x_);
+  const TX* x = static_cast<const TX*>(x_);
 
-  tc::SlabRing<TW, true> ring{ring_base, static_cast<const TW*>(table_),
-                              stream ? x : nullptr, e, v_size, ld, n_slabs,
-                              tile_begin,
-                              max(0, tile_end - tile_begin) * n_slabs, ldx,
-                              n_rows, row0};
-  // an int8 ring's widened slab sits after its kStages narrow slots
+  tc::SlabRing<TX, TW, true> ring{ring_base, static_cast<const TW*>(table_),
+                                  stream ? x : nullptr, e, v_size, ld,
+                                  n_slabs, tile_begin,
+                                  max(0, tile_end - tile_begin) * n_slabs,
+                                  ldx, n_rows, row0};
+  // a bf16 int8 ring's widened slab sits after its kStages narrow slots
   char* wide = ring.end();
   ring.prologue(tid);
   if (!stream)  // visible after the first acquire
-    tc::stage_x_bf16(x, xs, n_rows, e, ldx, row0, tid, tc::kThreads);
+    tc::stage_x(x, xs, n_rows, e, ldx, row0, tid, tc::kThreads);
 
   float m_run[kRowsPerWarp], s_run[kRowsPerWarp], buf_v[kRowsPerWarp][S];
   int buf_i[kRowsPerWarp][S];
@@ -327,7 +144,7 @@ tc_serial_kernel(const void* x_, const void* table_,
   int n = 0;
   for (int tile = tile_begin; tile < tile_end; ++tile) {
     float acc[2][4][4];
-    tc::tile_mma<TW, true>(acc, ring, n, xs, wide, e, wm, wn, tid, lane);
+    tc::tile_mma(acc, ring, n, xs, wide, e, wm, wn, tid, lane);
     // every warp's selection of the previous tile ended before this
     // tile's first acquire, so the score buffer is free
     tc::store_scores(acc, scores, wm, wn, lane);
@@ -339,15 +156,15 @@ tc_serial_kernel(const void* x_, const void* table_,
                  kc, part_v, part_i, part_m, part_s);
 }
 
-// Kernel 3 on bf16: warps 0-7 run the product of tile t into score buffer
-// t & 1 while warps 8-15 select tile t - 1 from the other.  full[b]
-// completes when the eight product warps have stored into buffer b,
-// empty[b] when the eight selection warps have read it (one arrival a
-// warp); use u of buffer b (tile 2u + b) completes phase u of each, so its
-// parity is u & 1.  The selection warps keep the same S-slot buffers as
-// kernel 2's; at 512 threads a block a thread has 128 registers, so the
-// four-slot instance spills (320 bytes a thread, ptxas).
-template <int S>
+// Kernel 3: warps 0-7 run the product of tile t into score buffer t & 1
+// while warps 8-15 select tile t - 1 from the other.  full[b] completes
+// when the eight product warps have stored into buffer b, empty[b] when
+// the eight selection warps have read it (one arrival a warp); use u of
+// buffer b (tile 2u + b) completes phase u of each, so its parity is
+// u & 1.  The selection warps keep the same S-slot buffers as kernel 2's;
+// at 512 threads a block a thread has 128 registers, so the four-slot
+// instance spills (ptxas).
+template <typename TX, int S>
 __global__ void __launch_bounds__(2 * tc::kThreads, 1)
 tc_pipelined_kernel(const void* x_, const void* table_,
                     const float* __restrict__ /*scale*/, int n_rows, int e,
@@ -355,12 +172,12 @@ tc_pipelined_kernel(const void* x_, const void* table_,
                     float* __restrict__ part_v, int* __restrict__ part_i,
                     float* __restrict__ part_m, float* __restrict__ part_s) {
   extern __shared__ __align__(16) char smem[];
-  const bool stream = tc::stream_x(e, true);
+  const bool stream = tc::stream_x<TX>(e, true);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + 2;
   char* xs = smem + tc::kHeader;
   float* scores = reinterpret_cast<float*>(
-      xs + (stream ? 0 : kRowBlock * tc::x_stride(e)));
+      xs + (stream ? 0 : kRowBlock * tc::x_stride<TX>(e)));
   char* ring_base = reinterpret_cast<char*>(scores) + 2 * tc::kScoreBytes;
 
   const int tid = threadIdx.x;
@@ -374,12 +191,11 @@ tc_pipelined_kernel(const void* x_, const void* table_,
   const int n_local = max(0, min(n_tiles, tile_begin + tiles_per_split) -
                                  tile_begin);
   const int n_slabs = (e + tc::kKs - 1) / tc::kKs;
-  const tc::bf16* x = static_cast<const tc::bf16*>(x_);
+  const TX* x = static_cast<const TX*>(x_);
 
-  tc::SlabRing<tc::bf16, false> ring{
-      ring_base, static_cast<const tc::bf16*>(table_), stream ? x : nullptr,
-      e, v_size, ld, n_slabs, tile_begin, n_local * n_slabs, ldx, n_rows,
-      row0};
+  tc::SlabRing<TX, TX, false> ring{
+      ring_base, static_cast<const TX*>(table_), stream ? x : nullptr, e,
+      v_size, ld, n_slabs, tile_begin, n_local * n_slabs, ldx, n_rows, row0};
   if (tid == 0) {
     for (int b = 0; b < 2; ++b) {
       tc::mbar_init(&full[b], kWarps);
@@ -388,8 +204,7 @@ tc_pipelined_kernel(const void* x_, const void* table_,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if (producer) ring.prologue(tid);
-  if (!stream)
-    tc::stage_x_bf16(x, xs, n_rows, e, ldx, row0, tid, 2 * tc::kThreads);
+  if (!stream) tc::stage_x(x, xs, n_rows, e, ldx, row0, tid, 2 * tc::kThreads);
   __syncthreads();  // the barriers and the x tile; no block barrier after
 
   if (producer) {
@@ -397,9 +212,8 @@ tc_pipelined_kernel(const void* x_, const void* table_,
     int n = 0;
     for (int t = 0; t < n_local; ++t) {
       float acc[2][4][4];
-      // bf16 slabs are read in place: no widened slab
-      tc::tile_mma<tc::bf16, false>(acc, ring, n, xs, nullptr, e, wm, wn,
-                                    tid, lane);
+      // float tables are read in place: no widened slab
+      tc::tile_mma(acc, ring, n, xs, nullptr, e, wm, wn, tid, lane);
       const int b = t & 1;
       if (t >= 2) tc::mbar_wait(&empty[b], (uint32_t)((t >> 1) - 1) & 1u);
       tc::store_scores(acc, scores + b * kRowBlock * tc::kScoreStride, wm,
@@ -499,52 +313,43 @@ beamgen_merge_warp_kernel(const float* __restrict__ part_v,
 }
 
 // The partial kernel of one mode, its block size and dynamic shared memory
-// for E = e; fn == nullptr for a mode no kernel takes.
+// for E = e.
 struct Plan {
   PartialFn fn;
   int threads;
   size_t smem;
-  size_t elem;  // bytes per table element (the 16-byte rule of ld)
-  bool copies;  // stages the table by 16-byte copies
-  bool stream;  // streams bf16 x by 16-byte copies (the 16-byte rule of ldx)
+  size_t elem;    // bytes per table element (the 16-byte rule of ld)
+  size_t x_elem;  // bytes per x element (the 16-byte rule of a streamed ldx)
+  bool stream;    // streams x by 16-byte copies
 };
 
 template <typename TX, typename TW, bool kScale, int S>
-PartialFn f32_serial(bool prune) {
-  return prune ? beamgen_partial_kernel<TX, TW, kScale, true, S>
-               : beamgen_partial_kernel<TX, TW, kScale, false, S>;
+PartialFn tc_serial(bool prune) {
+  return prune ? tc_serial_kernel<TX, TW, kScale, true, S>
+               : tc_serial_kernel<TX, TW, kScale, false, S>;
 }
 
-template <typename TW, bool kScale, int S>
-PartialFn tc_serial(bool prune) {
-  return prune ? tc_serial_kernel<TW, kScale, true, S>
-               : tc_serial_kernel<TW, kScale, false, S>;
+template <typename TX, int S>
+Plan plan_x(bool int8_table, bool prune, bool pipeline, int e) {
+  const bool stream = tc::stream_x<TX>(e, pipeline);
+  const size_t smem = tc::smem_bytes<TX>(e, pipeline, stream);
+  if (pipeline)
+    return {tc_pipelined_kernel<TX, S>, 2 * tc::kThreads, smem, sizeof(TX),
+            sizeof(TX), stream};
+  if (int8_table)
+    return {tc_serial<TX, int8_t, true, S>(prune), tc::kThreads, smem, 1,
+            sizeof(TX), stream};
+  return {tc_serial<TX, TX, false, S>(prune), tc::kThreads, smem,
+          sizeof(TX), sizeof(TX), stream};
 }
 
 template <int S>
 Plan plan_slots(int x_dtype, int table_dtype, bool prune, bool pipeline,
                 int e) {
   const bool int8_table = table_dtype == 2;
-  if (x_dtype == 0) {
-    const size_t smem =
-        f32_smem_bytes(e, pipeline, f32_stream_x(e, pipeline));
-    if (pipeline)
-      return {beamgen_pipelined_kernel<S>, kWarps * 32, smem, 4, true, false};
-    if (int8_table)
-      return {f32_serial<float, int8_t, true, S>(prune), kWarps * 32, smem,
-              1, false, false};
-    return {f32_serial<float, float, false, S>(prune), kWarps * 32, smem, 4,
-            false, false};
-  }
-  const bool stream = tc::stream_x(e, pipeline);
-  const size_t smem = tc::smem_bytes(e, pipeline, stream);
-  if (pipeline)
-    return {tc_pipelined_kernel<S>, 2 * tc::kThreads, smem, 2, true, stream};
-  if (int8_table)
-    return {tc_serial<int8_t, true, S>(prune), tc::kThreads, smem, 1, true,
-            stream};
-  return {tc_serial<tc::bf16, false, S>(prune), tc::kThreads, smem, 2, true,
-          stream};
+  return x_dtype == 0
+             ? plan_x<float, S>(int8_table, prune, pipeline, e)
+             : plan_x<tc::bf16, S>(int8_table, prune, pipeline, e);
 }
 
 Plan plan(int x_dtype, int table_dtype, bool prune, bool pipeline, int e,
@@ -596,7 +401,7 @@ extern "C" int cair_beamgen_smem(int e, int kc, int x_dtype, int table_dtype,
     return (int)cudaErrorInvalidValue;
   const Plan p = plan(x_dtype, table_dtype, prune, pipeline, e, kc);
   *bytes = (long long)p.smem;
-  *streamed = x_dtype == 0 ? (int)f32_stream_x(e, pipeline) : (int)p.stream;
+  *streamed = (int)p.stream;
   return 0;
 }
 
@@ -623,10 +428,10 @@ extern "C" int cair_beamgen_occupancy(int e, int kc, int x_dtype,
 // vals/idx [R, kc], lse [R].  1 <= kc <= min(kMaxK, V).  prune selects the
 // pruned serial kernel, pipeline the pipelined one (float table only, not
 // with prune).  Every split must own at least one vocab tile of 128
-// columns.  The bf16 kernels and the float32 pipelined one need a 16-byte
-// aligned table with ld * element size a multiple of 16; a bf16 kernel
-// that streams x (tc::stream_x) needs x 16-byte aligned, ldx a multiple of
-// 8 and x's columns [E, ldx) finite.  Returns the cudaError_t (0 = ok).
+// columns.  Every kernel needs a 16-byte aligned table with ld * element
+// size a multiple of 16; a kernel that streams x (tc::stream_x) needs x
+// 16-byte aligned, ldx * element size a multiple of 16 and x's columns
+// [E, ldx) finite.  Returns the cudaError_t (0 = ok).
 extern "C" int cair_beamgen(const void* x, const void* table,
                             const void* scale, int n_rows, int e, int ldx,
                             int v_size, int ld, int kc, int n_split,
@@ -640,11 +445,11 @@ extern "C" int cair_beamgen(const void* x, const void* table,
       !valid_mode(x_dtype, table_dtype, prune, pipeline, scale != nullptr))
     return (int)cudaErrorInvalidValue;
   const Plan p = plan(x_dtype, table_dtype, prune, pipeline, e, kc);
-  if (p.copies && (reinterpret_cast<uintptr_t>(table) % 16 != 0 ||
-                   ((size_t)ld * p.elem) % 16 != 0))
+  if (reinterpret_cast<uintptr_t>(table) % 16 != 0 ||
+      ((size_t)ld * p.elem) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
-  if (p.stream &&
-      (reinterpret_cast<uintptr_t>(x) % 16 != 0 || ldx % 8 != 0))
+  if (p.stream && (reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+                   ((size_t)ldx * p.x_elem) % 16 != 0))
     return (int)cudaErrorMisalignedAddress;
   int rc = prepare(p);
   if (rc != 0) return rc;

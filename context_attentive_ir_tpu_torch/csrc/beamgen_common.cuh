@@ -1,11 +1,10 @@
 // Device pieces shared by the serial (kernel 2) and pipelined (kernel 3)
 // generator kernels in beamgen.cu: the block geometry, the per-row online
-// logsumexp + running top-kc update (rows_select), and the two ways to get
-// a tile's scores -- the exact f32 FMA loop of the float32 kernels
-// (tile_fma) and the bf16 tensor-core tiles of the bf16 kernels (namespace
-// tc).  Kernels of one dtype run the same product and the same selection,
-// in the same order over k and over the vocab tiles, so every mode of one
-// dtype gives the same bits.
+// logsumexp + running top-kc update (rows_select), and the tensor-core
+// score tiles (namespace tc): bf16 x on `mma.sync.m16n8k16`, float32 x on
+// split-TF32 `mma.sync.m16n8k8` (tf32_mma.cuh).  Kernels of one dtype run
+// the same product and the same selection, in the same order over k and
+// over the vocab tiles, so every mode of one dtype gives the same bits.
 //
 // A row's running top-kc (kc <= kMaxK = 128, the TPU kernel's _KPAD) is
 // spread over its warp's lanes: entry p lies on lane p % 32 in slot p / 32,
@@ -37,109 +36,12 @@ __host__ __device__ constexpr int slots_for(int kc) {
   return kc <= 32 ? 1 : kc <= 64 ? 2 : 4;
 }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float to_f32(int8_t v) {
-  return static_cast<float>(v);
-}
-
 // a ranks before b: larger value, or equal value and lower index
 __device__ __forceinline__ bool beats(float av, int ai, float bv, int bi) {
   return av > bv || (av == bv && ai < bi);
 }
 
-// Columns [k0, k0 + kn) of x rows [row0, row0 + kRowBlock) (x rows ldx
-// elements apart) into shared memory as f32, k-major: xs[k * kRowBlock + r]
-// for k < kn (rows past n_rows read 0).  The whole x tile is k0 = 0,
-// kn = e.
-template <typename TX>
-__device__ __forceinline__ void stage_x(const TX* __restrict__ x, float* xs,
-                                        int n_rows, int ldx, int row0,
-                                        int k0, int kn) {
-  for (int i = threadIdx.x; i < kRowBlock * kn; i += blockDim.x) {
-    const int r = i / kn;
-    const int k = i - r * kn;
-    const int row = row0 + r;
-    xs[k * kRowBlock + r] =
-        row < n_rows ? to_f32(x[(size_t)row * ldx + k0 + k]) : 0.0f;
-  }
-}
-
-// -- float32 x: where x lives --------------------------------------------------
-//
-// The CUDA-core kernels stage x as f32, k-major.  Up to the E a block's
-// shared memory holds, the whole [E, 64] x tile once per block (the serial
-// kernel: E <= 908; the pipelined kernel beside its two table stages:
-// E <= 652); past it, x is streamed in chunks of k-rows: the serial kernel
-// stages kF32XChunk k-rows of x at a time for each vocab tile, the
-// pipelined kernel puts the x rows of each table k-chunk (kF32Chunk rows)
-// beside it in a second two-slot ring.  Either way every product's fmaf
-// runs in ascending k, so the chunked kernels give the whole tile's bits.
-// `beamgen_smem_bytes` / `beamgen_streams_x` in ops/kernels/beamgen.py
-// state the same sums and switch.
 constexpr int kSmemLimit = 232448;  // dynamic shared memory of a block
-constexpr int kTile4 = kTile * 4;    // bytes of a table row of one f32 tile
-// table rows of one k-chunk staged per ring slot of the f32 pipelined
-// kernel: 32 KB per stage
-constexpr int kF32Chunk = 32768 / kTile4;
-// x k-rows the serial f32 kernel stages at once when x is streamed (64 KB)
-constexpr int kF32XChunk = 256;
-
-__host__ __device__ inline size_t f32_smem_bytes(int e, bool pipelined,
-                                                 bool stream) {
-  const size_t row = kRowBlock * sizeof(float);
-  if (pipelined)
-    return 2 * (size_t)kF32Chunk * kTile4 +
-           (stream ? 2 * (size_t)kF32Chunk : (size_t)e) * row;
-  return (stream ? (size_t)kF32XChunk : (size_t)e) * row;
-}
-
-__host__ __device__ inline bool f32_stream_x(int e, bool pipelined) {
-  return f32_smem_bytes(e, pipelined, false) > (size_t)kSmemLimit;
-}
-
-template <typename TW, bool kGlobal>
-__device__ __forceinline__ float load_w(const TW* p) {
-  if constexpr (kGlobal) {
-    return to_f32(__ldg(p));
-  } else {
-    return to_f32(*p);
-  }
-}
-
-// acc[r][c] += sum over k in [k0, k1) of x[row r][k] * table[k][col c] for
-// the warp's 8 rows (a_base: xs at the warp's first row) and the lane's 4
-// columns (w: table row k0 at the lane's first column, consecutive k rows
-// `stride` elements apart, the lane's columns 32 apart).  One fmaf per
-// product, k ascending: the same sequence in both float32 kernels.
-template <typename TW, bool kGlobal>
-__device__ __forceinline__ void tile_fma(float (&acc)[kRowsPerWarp][kColsPerLane],
-                                         const float* a_base,
-                                         const TW* w, size_t stride, int k0,
-                                         int k1,
-                                         const bool (&ok)[kColsPerLane]) {
-#pragma unroll 4
-  for (int k = k0; k < k1; ++k) {
-    const float4* a4 = reinterpret_cast<const float4*>(a_base + k * kRowBlock);
-    const float4 lo = a4[0];
-    const float4 hi = a4[1];
-    const float a[kRowsPerWarp] = {lo.x, lo.y, lo.z, lo.w,
-                                   hi.x, hi.y, hi.z, hi.w};
-    const TW* wr = w + (size_t)(k - k0) * stride;
-    float wv[kColsPerLane];
-#pragma unroll
-    for (int c = 0; c < kColsPerLane; ++c)
-      wv[c] = ok[c] ? load_w<TW, kGlobal>(wr + 32 * c) : 0.0f;
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-#pragma unroll
-      for (int c = 0; c < kColsPerLane; ++c)
-        acc[r][c] = fmaf(a[r], wv[c], acc[r][c]);
-    }
-  }
-}
 
 constexpr int kGroup = 4;  // rows of a warp folded at once
 
@@ -222,14 +124,13 @@ __device__ __forceinline__ bool gains(const float (&v)[kColsPerLane],
   return gain;
 }
 
-// prune: insert into the row's running top-kc (entry p on lane p % 32,
-// slot p / 32, sorted by `beats`) each of the tile's candidates that beats
-// the running kc-th entry, first lane first; every insertion raises the
-// kc-th entry, and a candidate that no longer beats it is left out.  Only
+// Insert into the row's running top-kc (entry p on lane p % 32, slot
+// p / 32, sorted by `beats`) each of the tile's candidates that beats the
+// running kc-th entry, first lane first; every insertion raises the kc-th
+// entry, and a candidate that no longer beats it is left out.  Only
 // candidates that could enter are touched, S ballots and one shuffle-shift
-// each; the buffer ends as the exact top-kc of [buffer | tile], whatever
-// the order.  The caller has found that some candidate beats the kc-th
-// entry.
+// each, and a row with none costs one vote; the buffer ends as the exact
+// top-kc of [buffer | tile], whatever the order.
 template <int S>
 __device__ __forceinline__ void insert_gains(const float (&v)[kColsPerLane],
                                              const int (&vi)[kColsPerLane],
@@ -263,109 +164,18 @@ __device__ __forceinline__ void insert_gains(const float (&v)[kColsPerLane],
   }
 }
 
-// Rows g0 .. g0 + kGroup - 1: kc exact argmax passes over [tile | buffer]
-// (v[g]: row g0 + g's scores), the rows in lockstep; pass p's winner is
-// entry p of the new buffer (lane p % 32, slot p / 32).
-template <int S>
-__device__ __forceinline__ void passes_select(
-    const float (&v)[kGroup][kColsPerLane], const int (&vi)[kColsPerLane],
-    const bool (&ok)[kColsPerLane], float (&buf_v)[kRowsPerWarp][S],
-    int (&buf_i)[kRowsPerWarp][S], int g0, int kc, int lane) {
-  // bit c: tile column c, bit kColsPerLane + j: buffer slot j
-  unsigned taken[kGroup];
-  float new_v[kGroup][S];
-  int new_i[kGroup][S];
-#pragma unroll
-  for (int g = 0; g < kGroup; ++g) {
-    taken[g] = 0;
-#pragma unroll
-    for (int j = 0; j < S; ++j) {
-      new_v[g][j] = -INFINITY;
-      new_i[g][j] = kNoIndex;
-    }
-  }
-  for (int p = 0; p < kc; ++p) {
-    float lv[kGroup], gv[kGroup];
-    int li[kGroup], gi[kGroup], slot[kGroup];
-#pragma unroll
-    for (int g = 0; g < kGroup; ++g) {
-      lv[g] = -INFINITY;
-      li[g] = kNoIndex;
-      slot[g] = -1;
-#pragma unroll
-      for (int c = 0; c < kColsPerLane; ++c) {
-        if (ok[c] && !(taken[g] >> c & 1u) &&
-            (slot[g] < 0 || beats(v[g][c], vi[c], lv[g], li[g]))) {
-          lv[g] = v[g][c];
-          li[g] = vi[c];
-          slot[g] = c;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < S; ++j) {
-        if (32 * j + lane < kc && !(taken[g] >> (kColsPerLane + j) & 1u) &&
-            (slot[g] < 0 ||
-             beats(buf_v[g0 + g][j], buf_i[g0 + g][j], lv[g], li[g]))) {
-          lv[g] = buf_v[g0 + g][j];
-          li[g] = buf_i[g0 + g][j];
-          slot[g] = kColsPerLane + j;
-        }
-      }
-      gv[g] = lv[g];
-      gi[g] = li[g];
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        const float ov = __shfl_xor_sync(kFull, gv[g], off);
-        const int oi = __shfl_xor_sync(kFull, gi[g], off);
-        if (beats(ov, oi, gv[g], gi[g])) {
-          gv[g] = ov;
-          gi[g] = oi;
-        }
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < kGroup; ++g) {
-      const unsigned owners = __ballot_sync(
-          kFull, slot[g] >= 0 && lv[g] == gv[g] && li[g] == gi[g]);
-      if (owners != 0 && lane == __ffs(owners) - 1)
-        taken[g] |= 1u << slot[g];
-      if (lane == (p & 31)) {
-#pragma unroll
-        for (int j = 0; j < S; ++j) {
-          if (j == (p >> 5)) {
-            new_v[g][j] = gv[g];
-            new_i[g][j] = gi[g];
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < kGroup; ++g) {
-#pragma unroll
-    for (int j = 0; j < S; ++j) {
-      if (32 * j + lane < kc) {
-        buf_v[g0 + g][j] = new_v[g][j];
-        buf_i[g0 + g][j] = new_i[g][j];
-      }
-    }
-  }
-}
-
 // The warp's rows' scores of one tile folded into each row's online
 // logsumexp (m_run, s_run) and running top-kc (entry p on lane p % 32,
 // slot p / 32): load(r, c) is row r's logit at the lane's column c (vocab id
 // vi[c], ok[c] whether it exists).  kGroup rows go through the logsumexp
-// (and the passes) at once, so their shuffle chains overlap; every row's
-// arithmetic is the one-row sequence (a butterfly max and sum, expf in
-// column order).  The top-kc is exact in both forms, so they give the same
-// bits: kPrune inserts only the candidates that beat the row's running
-// kc-th entry (insert_gains; a tile with none costs one vote), otherwise
-// kc exact argmax passes run over [tile | buffer] on every tile, as the
-// TPU's unpruned kernel.
+// at once, so their shuffle chains overlap; every row's arithmetic is the
+// one-row sequence (a butterfly max and sum, expf in column order).  Both
+// modes insert only the candidates that beat the row's running kc-th entry
+// (insert_gains), so the selection costs what enters the top-kc, not kc
+// passes a tile (the TPU's unpruned kernel merges every tile whole: a
+// design for its vector unit); kPrune first votes the kGroup rows in
+// lockstep and skips the rows whose tile holds no such candidate.  The
+// top-kc is exact either way, so the modes give the same bits.
 template <bool kPrune, int S, typename Load>
 __device__ __forceinline__ void rows_select(
     Load load, const int (&vi)[kColsPerLane], const bool (&ok)[kColsPerLane],
@@ -425,7 +235,9 @@ __device__ __forceinline__ void rows_select(
         if (__any_sync(kFull, gain[g]))
           insert_gains(v[g], vi, ok, buf_v[g0 + g], buf_i[g0 + g], kc, lane);
     } else {
-      passes_select(v, vi, ok, buf_v, buf_i, g0, kc, lane);
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g)
+        insert_gains(v[g], vi, ok, buf_v[g0 + g], buf_i[g0 + g], kc, lane);
     }
   }
 }
@@ -477,33 +289,48 @@ __device__ __forceinline__ void store_partials(
   }
 }
 
-// -- bf16 tensor-core tiles (kernels 2 and 3 on bf16 x) ----------------------
+// -- tensor-core score tiles (kernels 2 and 3) ------------------------------
 //
 // A block owns kRowBlock rows and a run of vocab tiles.  Up to the E its
-// shared memory holds whole (stream_x), its x rows are staged once in bf16,
-// row-major, each row padded by 16 bytes so the eight row addresses of an
-// `ldmatrix` fall in eight bank groups, and zero past e up to ep(e), the
-// next multiple of 16 (the last k-slab's zero fill).  The table's [e, kTile]
-// column tiles stream through a ring of kStages slabs of kKs k-rows, copied
-// by 16-byte `cp.async` (rows past e and pieces past V zero-filled), so the
-// copy of the next slabs -- across tile boundaries -- runs under the `mma`
-// of this one.  Past that E, x is streamed too: each ring slot holds the
-// table slab and beside it the [kRowBlock, kKs] x slab it multiplies
-// (rows kXSlabStride bytes apart, again eight bank groups), copied with it
-// by `cp.async` from x rows `ldx` elements apart (the wrapper pads x to a
-// multiple of 8 columns with zeros); x's columns from e on are
-// zero-filled, and the table's rows there are zero, so the last slab adds
-// nothing past e.  No tile grows with E, so every E fits; the `mma` run in
-// the same k order over the same values, so a streamed x gives the whole
-// tile's bits.  Eight product warps (2 x 4) each own
-// 32 rows x 32 columns of the 64 x 128 score tile: per k16 step two A
-// fragments (`ldmatrix.x4`), two B fragment pairs (`ldmatrix.x4.trans`),
-// eight `mma.sync.m16n8k16` (bf16 in, f32 accumulate), k ascending.  The
-// f32 tile goes to a shared [kRowBlock][kScoreStride] buffer, from which
-// the selection warps read their rows in rows_select's layout (lane l:
-// columns l, l + 32, l + 64, l + 96).  An int8 table is staged as int8
-// (half the bytes) and widened to bf16 in shared memory before its B
-// fragments: every int8 value is exact in bf16.
+// shared memory holds whole (stream_x), its x rows are staged once in x's
+// type, row-major, each row padded by 16 bytes so the eight row addresses
+// of an `ldmatrix` fall in eight bank groups, and zero past e up to ep(e),
+// the next multiple of one `mma`'s k (16 bf16, 8 float32: the last k step's
+// zero fill).  The table's [e, kTile] column tiles stream through a ring of
+// kStages slabs of kKs k-rows, copied by 16-byte `cp.async` (rows past e
+// and pieces past V zero-filled), so the copy of the next slabs -- across
+// tile boundaries -- runs under the `mma` of this one.  Past that E, x is
+// streamed too: each ring slot holds the table slab and beside it the
+// [kRowBlock, kKs] x slab it multiplies (rows an odd number of 16-byte
+// pieces apart, again eight bank groups), copied with it by `cp.async`
+// from x rows `ldx` elements apart (the wrapper pads x to whole 16-byte
+// pieces with zeros); x's columns from e on are zero-filled, and the
+// table's rows there are zero, so the last slab adds nothing past e.  No
+// tile grows with E, so every E fits; the `mma` run in the same k order
+// over the same values, so a streamed x gives the whole tile's bits.
+// Eight product warps (2 x 4) each own 32 rows x 32 columns of the
+// 64 x 128 score tile.
+//   - bf16 x (Tile<bf16>): per k16 step two A fragments (`ldmatrix.x4`),
+//     two B fragment pairs (`ldmatrix.x4.trans`), eight
+//     `mma.sync.m16n8k16` (bf16 in, f32 accumulate), k ascending, into the
+//     tile's accumulators.  An int8 table is staged as int8 (half the
+//     bytes) and widened to bf16 in shared memory before its B fragments:
+//     every int8 value is exact in bf16.
+//   - float32 x (Tile<float>): split TF32 (tf32_mma.cuh).  Per k8 step two
+//     A fragments (`ldmatrix.x4` of f32 rows) and four B fragments (two
+//     scalar loads a lane from a slab row of 136 floats: 8 words modulo
+//     32, no bank conflict), each split into hi and lo where it is loaded;
+//     each 16 x 8 tile takes lo*hi, hi*lo, hi*hi in that order, 24
+//     `mma.sync.m16n8k8` a warp a step.  A slab's products start from a
+//     fresh accumulator that f32 adds then fold into the tile's sum: the
+//     tensor core's own adds do not round to nearest, which biased long
+//     sums (PERF.md, float32 kernels 5 and 9).  An int8 table stays int8
+//     in its slab: |q| <= 127 is exact in TF32, so a B fragment is the
+//     values themselves and a product two terms, x_lo*q then x_hi*q (the
+//     scale applied to the score after the dot).
+// The f32 score tile goes to a shared [kRowBlock][kScoreStride] buffer,
+// from which the selection warps read their rows in rows_select's layout
+// (lane l: columns l, l + 32, l + 64, l + 96).
 namespace tc {
 
 using cair_lstm::tiles::bf16;
@@ -516,56 +343,86 @@ using cair_lstm::tiles::mbar_init;
 using cair_lstm::tiles::mbar_wait;
 using cair_lstm::tiles::mma_bf16;
 using cair_lstm::tiles::smem_addr;
+namespace t32 = cair_lstm::tf32;
 
 constexpr int kThreads = kWarps * 32;  // the product warps of a block
 constexpr int kKs = 32;                // table k-rows per slab
 constexpr int kStages = 4;             // slabs in the ring
-constexpr int kScoreStride = kTile + 8;        // floats per staged score row
-constexpr int kWideStride = kTile * 2 + 16;    // bytes per bf16 slab row
-constexpr int kNarrowStride = kTile + 16;      // bytes per int8 slab row
-constexpr int kXSlabStride = kKs * 2 + 16;     // bytes per streamed x row
-constexpr int kXSlabBytes = kRowBlock * kXSlabStride;
+constexpr int kScoreStride = kTile + 8;    // floats per staged score row
+constexpr int kNarrowStride = kTile + 16;  // bytes per int8 slab row
 constexpr int kScoreBytes = kRowBlock * kScoreStride * 4;
 constexpr int kHeader = 64;  // the pipelined kernel's mbarriers
 
-__host__ __device__ inline int ep(int e) { return (e + 15) / 16 * 16; }
-__host__ __device__ inline int x_stride(int e) { return ep(e) * 2 + 16; }
+// What the tiles of one type of x take: the k of one `mma`, the bytes of a
+// float-table slab row and of a streamed x slab row.
+template <typename TX>
+struct Tile;
+template <>
+struct Tile<bf16> {
+  static constexpr int kStep = 16;
+  static constexpr int kWideRow = kTile * 2 + 16;
+  static constexpr int kXRow = kKs * 2 + 16;
+};
+template <>
+struct Tile<float> {
+  static constexpr int kStep = 8;
+  static constexpr int kWideRow = kTile * 4 + 32;
+  static constexpr int kXRow = kKs * 4 + 16;
+};
 
-// The slab ring's bytes: kStages bf16 table slabs, each with its x slab
-// when x is streamed (an int8 ring -- narrow slots plus one widened slab --
-// fits in a bf16 ring's bytes either way).
+template <typename TX>
+__host__ __device__ inline int ep(int e) {
+  return (e + Tile<TX>::kStep - 1) / Tile<TX>::kStep * Tile<TX>::kStep;
+}
+template <typename TX>
+__host__ __device__ inline int x_stride(int e) {
+  return ep<TX>(e) * (int)sizeof(TX) + 16;
+}
+template <typename TX>
+__host__ __device__ constexpr int x_slab_bytes() {
+  return kRowBlock * Tile<TX>::kXRow;
+}
+
+// The slab ring's bytes: kStages float-table slabs, each with its x slab
+// when x is streamed (an int8 ring -- narrow slots, plus one widened slab
+// for bf16 x -- fits in a float ring's bytes either way).
+template <typename TX>
 __host__ __device__ constexpr int ring_bytes(bool stream) {
-  return kStages * (kKs * kWideStride + (stream ? kXSlabBytes : 0));
+  return kStages *
+         (kKs * Tile<TX>::kWideRow + (stream ? x_slab_bytes<TX>() : 0));
 }
 
 // Dynamic shared memory of a block: (the pipelined kernel's header,) the
 // whole x tile unless x is streamed, one score buffer (two when pipelined)
 // and the slab ring.  `beamgen_smem_bytes` in ops/kernels/beamgen.py
 // states the same sum.
+template <typename TX>
 __host__ __device__ inline size_t smem_bytes(int e, bool pipelined,
                                              bool stream) {
   return (pipelined ? kHeader : 0) +
-         (stream ? 0 : (size_t)kRowBlock * x_stride(e)) +
-         (pipelined ? 2 : 1) * (size_t)kScoreBytes + ring_bytes(stream);
+         (stream ? 0 : (size_t)kRowBlock * x_stride<TX>(e)) +
+         (pipelined ? 2 : 1) * (size_t)kScoreBytes + ring_bytes<TX>(stream);
 }
 
 // Whether a block streams x in k-slabs: exactly when the whole x tile does
-// not fit (kernel 2 past E = 1,264, kernel 3 past 976), so every shape that
-// fits keeps the whole tile.  `beamgen_streams_x` states the same rule.
+// not fit (bf16: kernel 2 past E = 1,264, kernel 3 past 976; float32:
+// kernel 2 past 496, kernel 3 past 352), so every shape that fits keeps
+// the whole tile.  `beamgen_streams_x` states the same rule.
+template <typename TX>
 __host__ __device__ inline bool stream_x(int e, bool pipelined) {
-  return smem_bytes(e, pipelined, false) > (size_t)kSmemLimit;
+  return smem_bytes<TX>(e, pipelined, false) > (size_t)kSmemLimit;
 }
 
-// x rows [row0, row0 + kRowBlock) of x [n_rows, e] (bf16, rows ldx
-// elements apart) into the staged tile (rows x_stride(e) bytes apart);
-// rows past n_rows and columns [e, ep(e)) are zero.  Plain 2-byte loads:
-// x rows need not be 16-byte aligned, and the tile is read once per block.
-__device__ __forceinline__ void stage_x_bf16(
-    const bf16* __restrict__ x, char* xs, int n_rows, int e, int ldx,
-    int row0, int tid, int n_threads) {
+// x rows [row0, row0 + kRowBlock) of x [n_rows, e] (rows ldx elements
+// apart) into the staged tile (rows x_stride(e) bytes apart); rows past
+// n_rows and columns [e, ep(e)) are zero.  Plain loads (bf16 in pairs): x
+// rows need not be 16-byte aligned, and the tile is read once per block.
+__device__ __forceinline__ void stage_x(const bf16* __restrict__ x, char* xs,
+                                        int n_rows, int e, int ldx, int row0,
+                                        int tid, int n_threads) {
   const unsigned short* xb = reinterpret_cast<const unsigned short*>(x);
-  const int half = ep(e) / 2;
-  const int xst = x_stride(e);
+  const int half = ep<bf16>(e) / 2;
+  const int xst = x_stride<bf16>(e);
   for (int i = tid; i < kRowBlock * half; i += n_threads) {
     const int r = i / half;
     const int k = 2 * (i - r * half);
@@ -578,6 +435,20 @@ __device__ __forceinline__ void stage_x_bf16(
       pair = lo | (hi << 16);
     }
     *reinterpret_cast<uint32_t*>(xs + r * xst + k * 2) = pair;
+  }
+}
+
+__device__ __forceinline__ void stage_x(const float* __restrict__ x,
+                                        char* xs, int n_rows, int e, int ldx,
+                                        int row0, int tid, int n_threads) {
+  const int kp = ep<float>(e);
+  const int xst = x_stride<float>(e);
+  for (int i = tid; i < kRowBlock * kp; i += n_threads) {
+    const int r = i / kp;
+    const int k = i - r * kp;
+    const int row = row0 + r;
+    *reinterpret_cast<float*>(xs + r * xst + k * 4) =
+        row < n_rows && k < e ? __ldg(x + (size_t)row * ldx + k) : 0.0f;
   }
 }
 
@@ -606,34 +477,36 @@ __device__ __forceinline__ void warp_arrive(uint64_t* bar, int lane) {
 
 // The table stream of one block: slab n is k-rows [s * kKs, (s + 1) * kKs)
 // (s = n % n_slabs) of vocab tile tile_begin + n / n_slabs, in ring slot
-// n % kStages, staged row-major (TW: bf16 rows kWideStride bytes apart,
-// int8 rows kNarrowStride).  Table rows are `ld` elements apart (ld * size
-// of TW a multiple of 16, the table 16-byte aligned), so every 16-byte
-// piece is one cp.async; a piece that starts past v_size is zero-filled,
-// one that crosses it reads the row's padding (masked by the selection).
-// With `x` set (x streamed), the slot also takes x's columns
-// [s * kKs, (s + 1) * kKs) of the block's rows, kTableBytes into it.
-// Only the kThreads product threads call these; each thread's cp.async
-// group g holds its copies of slab g.
-template <typename TW, bool kAll>
+// n % kStages, staged row-major (a float table's rows Tile<TX>::kWideRow
+// bytes apart, an int8 table's kNarrowStride).  Table rows are `ld`
+// elements apart (ld * size of TW a multiple of 16, the table 16-byte
+// aligned), so every 16-byte piece is one cp.async; a piece that starts
+// past v_size is zero-filled, one that crosses it reads the row's padding
+// (masked by the selection).  With `x` set (x streamed), the slot also
+// takes x's columns [s * kKs, (s + 1) * kKs) of the block's rows,
+// kTableBytes into it.  Only the kThreads product threads call these; each
+// thread's cp.async group g holds its copies of slab g.
+template <typename TX, typename TW, bool kAll>
 struct SlabRing {
-  static constexpr int kRow = sizeof(TW) == 1 ? kNarrowStride : kWideStride;
+  static constexpr int kRow =
+      sizeof(TW) == 1 ? kNarrowStride : Tile<TX>::kWideRow;
   static constexpr int kTableBytes = kKs * kRow;
-  static constexpr int kPer = 16 / (int)sizeof(TW);  // elements per piece
-  static constexpr int kPieces = kTile / kPer;       // pieces per row
-  static constexpr int kXPieces = kKs / 8;           // x pieces per row
+  static constexpr int kPer = 16 / (int)sizeof(TW);   // elements per piece
+  static constexpr int kPieces = kTile / kPer;        // pieces per row
+  static constexpr int kXPer = 16 / (int)sizeof(TX);  // x elements per piece
+  static constexpr int kXPieces = kKs / kXPer;        // x pieces per row
 
   char* base;
   const TW* table;
-  const bf16* x;  // nullptr: the whole x tile is staged
+  const TX* x;  // nullptr: the whole x tile is staged
   int e, v_size, ld, n_slabs, tile_begin, total;
   int ldx, n_rows, row0;
 
   // bytes of a ring slot
   __device__ __forceinline__ int slot() const {
-    return kTableBytes + (x != nullptr ? kXSlabBytes : 0);
+    return kTableBytes + (x != nullptr ? x_slab_bytes<TX>() : 0);
   }
-  // where the slab ring ends (an int8 ring's widened slab starts here)
+  // where the slab ring ends (a bf16 int8 ring's widened slab starts here)
   __device__ __forceinline__ char* end() const {
     return base + kStages * slot();
   }
@@ -658,10 +531,10 @@ struct SlabRing {
         const int r = i / kXPieces;
         const int p = i - r * kXPieces;
         const int row = row0 + r;
-        const int k = k0 + p * 8;
+        const int k = k0 + p * kXPer;
         const bool in = row < n_rows && k < e;
-        const bf16* src = in ? x + (size_t)row * ldx + k : x;
-        cp_async16(xd + r * kXSlabStride + p * 16, src, in);
+        const TX* src = in ? x + (size_t)row * ldx + k : x;
+        cp_async16(xd + r * Tile<TX>::kXRow + p * 16, src, in);
       }
     }
   }
@@ -684,9 +557,10 @@ struct SlabRing {
   }
 };
 
-// An int8 slab widened to bf16 (exact) into `wide` (rows kWideStride bytes
-// apart), then a barrier: the caller's slab_mma reads it.  `wide` is free:
-// the acquire that returned `narrow` came after every warp's last read.
+// An int8 slab widened to bf16 (exact) into `wide` (rows
+// Tile<bf16>::kWideRow bytes apart), then a barrier: the caller's slab_mma
+// reads it.  `wide` is free: the acquire that returned `narrow` came after
+// every warp's last read.
 template <bool kAll>
 __device__ __forceinline__ void widen_slab(const char* narrow, char* wide,
                                            int tid) {
@@ -704,7 +578,8 @@ __device__ __forceinline__ void widen_slab(const char* narrow, char* wide,
           static_cast<float>(qb[2 * j]), static_cast<float>(qb[2 * j + 1]));
       w[j] = *reinterpret_cast<const uint32_t*>(&pr);
     }
-    int4* dst = reinterpret_cast<int4*>(wide + r * kWideStride + p * 32);
+    int4* dst =
+        reinterpret_cast<int4*>(wide + r * Tile<bf16>::kWideRow + p * 32);
     dst[0] = make_int4((int)w[0], (int)w[1], (int)w[2], (int)w[3]);
     dst[1] = make_int4((int)w[4], (int)w[5], (int)w[6], (int)w[7]);
   }
@@ -718,6 +593,7 @@ __device__ __forceinline__ void slab_mma(float (&acc)[2][4][4],
                                          const char* xs, int xst, int k0,
                                          const char* slab, int kcount,
                                          int wm, int wn, int lane) {
+  constexpr int kRow = Tile<bf16>::kWideRow;
   const int a_row = lane & 15, a_k = (lane >> 4) * 8;
   const int b_k = lane & 15, b_n = (lane >> 4) * 8;
   for (int kk = 0; kk < kcount; kk += 16) {
@@ -728,7 +604,7 @@ __device__ __forceinline__ void slab_mma(float (&acc)[2][4][4],
                          (k0 + kk + a_k) * 2);
 #pragma unroll
     for (int np = 0; np < 2; ++np)
-      ldsm_x4_trans(b[np], slab + (kk + b_k) * kWideStride +
+      ldsm_x4_trans(b[np], slab + (kk + b_k) * kRow +
                                (wn * 32 + np * 16 + b_n) * 2);
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
@@ -741,15 +617,78 @@ __device__ __forceinline__ void slab_mma(float (&acc)[2][4][4],
   }
 }
 
+// The same share of one float32 (TW float) or int8 (TW int8_t) slab with
+// f32 x, in split TF32: k8 steps ascending (kcount a multiple of 8) into a
+// fresh accumulator, which is then added to acc.
+template <typename TW>
+__device__ __forceinline__ void slab_mma_tf32(float (&acc)[2][4][4],
+                                              const char* xs, int xst,
+                                              int k0, const char* slab,
+                                              int kcount, int wm, int wn,
+                                              int lane) {
+  constexpr int kRow = SlabRing<float, TW, true>::kRow;
+  const int g = lane >> 2, tg = lane & 3;
+  float part[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) part[mt][nt][q] = 0.0f;
+  // the A fragment rows of lanes 0-15, k + 4 for lanes 16-31
+  const char* a_base =
+      xs + (wm * 32 + (lane & 15)) * xst + (k0 + (lane >> 4) * 4) * 4;
+  // the B fragments: k row tg (b0) and tg + 4 (b1), column g of each n-tile
+  const char* b_base = slab + tg * kRow + (wn * 32 + g) * (int)sizeof(TW);
+  for (int kk = 0; kk < kcount; kk += 8) {
+    t32::AFrag a[2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      uint32_t raw[4];
+      ldsm_x4(raw, a_base + mt * 16 * xst + kk * 4);
+      t32::split_a(a[mt], raw);
+    }
+    const TW* b_lo = reinterpret_cast<const TW*>(b_base + kk * kRow);
+    const TW* b_hi = reinterpret_cast<const TW*>(b_base + (kk + 4) * kRow);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const float b0 = static_cast<float>(b_lo[nt * 8]);
+      const float b1 = static_cast<float>(b_hi[nt * 8]);
+      if constexpr (sizeof(TW) == 4) {
+        const t32::BFrag b = t32::split_b(b0, b1);
+#pragma unroll
+        for (int term = 0; term < 3; ++term)
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            t32::mma_term(part[mt][nt], a[mt], b, term);
+      } else {
+        // an int8 value is a TF32 value: no lo half
+        const uint32_t q0 = __float_as_uint(b0), q1 = __float_as_uint(b1);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) t32::mma(part[mt][nt], a[mt].lo, q0, q1);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) t32::mma(part[mt][nt], a[mt].hi, q0, q1);
+      }
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] += part[mt][nt][q];
+}
+
 // All slabs of one vocab tile: acc = x_tile @ table[:, tile] (ring slabs
 // n .. n + n_slabs - 1; n advances), x from the whole staged tile `xs` or,
-// streamed, from each slot's x slab.
-template <typename TW, bool kAll>
+// streamed, from each slot's x slab.  `wide`: a bf16 int8 ring's widened
+// slab.
+template <typename TX, typename TW, bool kAll>
 __device__ __forceinline__ void tile_mma(float (&acc)[2][4][4],
-                                         SlabRing<TW, kAll>& ring,
-                                         int& n, const char* xs,
-                                         char* wide, int e, int wm, int wn,
-                                         int tid, int lane) {
+                                         SlabRing<TX, TW, kAll>& ring,
+                                         int& n, const char* xs, char* wide,
+                                         int e, int wm, int wn, int tid,
+                                         int lane) {
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -757,21 +696,26 @@ __device__ __forceinline__ void tile_mma(float (&acc)[2][4][4],
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.0f;
   const bool streamed = ring.x != nullptr;
-  const int xst = streamed ? kXSlabStride : x_stride(e), e16 = ep(e);
+  const int xst = streamed ? Tile<TX>::kXRow : x_stride<TX>(e);
+  const int ek = ep<TX>(e);
   for (int s = 0; s < ring.n_slabs; ++s, ++n) {
     const char* slot = ring.acquire(n, tid);
-    const char* slab = slot;
-    if constexpr (sizeof(TW) == 1) {
-      widen_slab<kAll>(slot, wide, tid);
-      slab = wide;
-    }
     const int k0 = s * kKs;
-    const int kcount = min(kKs, e16 - k0);
-    if (streamed)
-      slab_mma(acc, slot + SlabRing<TW, kAll>::kTableBytes, xst, 0, slab,
-               kcount, wm, wn, lane);
-    else
-      slab_mma(acc, xs, xst, k0, slab, kcount, wm, wn, lane);
+    const int kcount = min(kKs, ek - k0);
+    // x from the slot's slab (its k from 0) or from the whole tile
+    const char* a = streamed ? slot + SlabRing<TX, TW, kAll>::kTableBytes
+                             : xs;
+    const int ka = streamed ? 0 : k0;
+    if constexpr (std::is_same<TX, float>::value) {
+      slab_mma_tf32<TW>(acc, a, xst, ka, slot, kcount, wm, wn, lane);
+    } else {
+      const char* slab = slot;
+      if constexpr (sizeof(TW) == 1) {
+        widen_slab<kAll>(slot, wide, tid);
+        slab = wide;
+      }
+      slab_mma(acc, a, xst, ka, slab, kcount, wm, wn, lane);
+    }
   }
 }
 

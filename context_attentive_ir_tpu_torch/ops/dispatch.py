@@ -49,10 +49,11 @@ SCAN_FASTER_ROWS = 6000
 NEAR_TIE_MARGIN = 0.05
 
 # Above this top-kc (one slot a lane in kernel 2's running top-kc) an
-# unmeasured row count prunes: the unpruned kernel's kc argmax passes a
-# vocab tile cost it 3-31x the pruned kernel's time at kc 33-128 on the
-# H100, in both dtypes (PERF.md, "Generator kernels past top-32 and one x
-# tile").
+# unmeasured row count prunes.  The rule dates from the unpruned kernel's
+# kc argmax passes a vocab tile (3-31x the pruned kernel's time at kc
+# 33-128); both modes now insert only the columns that beat a row's kc-th
+# entry and differ by the pruned mode's lockstep vote (PERF.md), so
+# either choice costs about the same.
 PRUNE_ABOVE_KC = 32
 
 TABLE_PATH = Path(__file__).with_name("dispatch_table.json")

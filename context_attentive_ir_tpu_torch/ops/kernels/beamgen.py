@@ -8,12 +8,14 @@ modes:
   ``csrc/beamgen.cu``.  Blocks own 64 rows and a contiguous run of
   128-column vocab tiles, keep a running top-kc and an online (max, sumexp)
   per row, and a second tiny kernel merges the vocab splits per row; the
-  ``[R, V]`` logits never reach device memory.  ``prune=True`` inserts
-  into a row's running top-kc only the columns that beat its kc-th entry
-  (a tile with none costs one warp vote, as the TPU kernel skips the
-  tile); ``prune=False`` runs kc exact argmax passes on every tile, as the
-  TPU's unpruned kernel.  Both keep the exact top-kc with ties to the lower
-  index, so they give the same bits.
+  ``[R, V]`` logits never reach device memory.  A row's running top-kc
+  takes only the tile's columns that beat its kc-th entry, inserted one by
+  one, so the selection costs what enters the top-kc (the TPU's unpruned
+  kernel merges every tile whole, a design for its vector unit);
+  ``prune=True`` first votes four rows in lockstep and skips the rows
+  whose tile holds no such column, as the TPU kernel skips the tile.  Both
+  keep the exact top-kc with ties to the lower index, so they give the
+  same bits.
 - the same serial kernel on an int8 table with a per-column ``scale``
   (kernel 2's int8 mode, the quantized tied generator): logits are
   ``scale_v * (x @ q_v)``, the scale applied after the dot.
@@ -23,15 +25,16 @@ modes:
   product and the selection with kernel 2 (``csrc/beamgen_common.cuh``),
   so its outputs are kernel 2's bit for bit.
 
-On bf16 ``x`` (the serving path) the score tiles are ``mma.sync`` bf16
-tensor-core products of the staged x rows and table slabs streamed by
-``cp.async`` (an int8 table widened to bf16 in shared memory); kernel 3
-runs the product and the selection on two warp groups with two score
-buffers.  Float32 ``x`` keeps the exact CUDA-core kernels (one f32 FMA per
-product).  Every kernel takes any E: past the E whose whole x tile a
-block's shared memory holds (``beamgen_streams_x``), x is streamed in
-k-slabs beside the table's (bf16) or staged in chunks of k-rows (float32),
-the products in the same k order.  The running top-kc takes any kc up to
+The score tiles are tensor-core products of the staged x rows and table
+slabs streamed by ``cp.async``: ``mma.sync`` bf16 tiles on bf16 ``x`` (the
+serving path; an int8 table widened to bf16 in shared memory), split-TF32
+tiles on float32 ``x`` (each operand split into a TF32 hi and lo part, the
+product lo*hi + hi*lo + hi*hi, about 21 of float32's 24 bits; an int8
+table is exact in TF32, two products).  Kernel 3 runs the product and the
+selection on two warp groups with two score buffers.  Every kernel takes
+any E: past the E whose whole x tile a block's shared memory holds
+(``beamgen_streams_x``), x is streamed in k-slabs beside the table's, the
+products in the same k order.  The running top-kc takes any kc up to
 ``MAX_KC`` = 128, as the TPU kernel: a row's entries lie across its warp's
 lanes, ``slots(kc)`` registers a lane.
 
@@ -48,10 +51,10 @@ apart is padded by the wrapper on every call; padded columns never reach
 the logsumexp or the top-k.
 
 Bound on the H100 (beam-5 step, R = 1600, E = 256, V = 50,000):
-2*R*E*V = 4.1e10 flops, 41 us at the bf16 tensor-core peak, against a
-25.6 MB bf16 table (8 us; the int8 table 12.8 MB): compute-bound in every
-mode (``x`` stays bf16, so no int8 product applies).  ``PERF.md`` records
-each mode's time against that bound.
+2*R*E*V = 4.1e10 flops, 41 us at the bf16 tensor-core peak against a
+25.6 MB bf16 table (8 us; the int8 table 12.8 MB), 249 us at split TF32's
+165 TFLOP/s against a 51.2 MB float32 table: compute-bound in every mode
+and dtype.  ``PERF.md`` records each mode's time against that bound.
 """
 
 from __future__ import annotations
@@ -68,17 +71,11 @@ MAX_KC = 128       # the running top-kc (kMaxK; the TPU kernel's _KPAD)
 ROW_BLOCK = 64     # rows of a block (csrc/beamgen_common.cuh: kRowBlock)
 TILE = 128         # vocab columns of a tile (kTile)
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on the H100
-# the bf16 tiles (namespace tc): score buffer, a ring slot's table slab
-# and streamed x slab (4 slots of 32 k-rows), mbarrier header
+# the tensor-core tiles (namespace tc): score buffer, ring of four slots of
+# 32 k-rows, mbarrier header
 _SCORE_BYTES = ROW_BLOCK * (TILE + 8) * 4
-_SLAB_BYTES = 32 * (TILE * 2 + 16)
-_XSLAB_BYTES = ROW_BLOCK * (32 * 2 + 16)
+_STAGES, _KS = 4, 32
 _HEADER = 64
-# the float32 kernels: kernel 3's ring of two 64-row table stages (32 KB
-# each; streamed, two 64-row x stages beside them), kernel 2's streamed x
-# chunk of 256 k-rows
-_F32_STAGE_ROWS = 64
-_F32_X_CHUNK = 256
 
 
 def slots(kc: int) -> int:
@@ -89,24 +86,22 @@ def slots(kc: int) -> int:
 
 def _smem_bytes(e: int, dtype: torch.dtype, pipeline: bool,
                 stream: bool) -> int:
-    row = ROW_BLOCK * 4
-    if dtype == torch.float32:
-        if pipeline:
-            return (2 * _F32_STAGE_ROWS * TILE * 4
-                    + (2 * _F32_STAGE_ROWS if stream else e) * row)
-        return (_F32_X_CHUNK if stream else e) * row
-    ep = -(-e // 16) * 16
+    size = 4 if dtype == torch.float32 else 2
+    step = 8 if size == 4 else 16        # k of one mma (Tile<TX>::kStep)
+    ep = -(-e // step) * step
+    slab_row = TILE * size + (32 if size == 4 else 16)   # kWideRow
+    x_slab = ROW_BLOCK * (_KS * size + 16)               # x_slab_bytes
     return ((_HEADER if pipeline else 0)
-            + (0 if stream else ROW_BLOCK * (2 * ep + 16))
+            + (0 if stream else ROW_BLOCK * (size * ep + 16))
             + (2 if pipeline else 1) * _SCORE_BYTES
-            + 4 * (_SLAB_BYTES + (_XSLAB_BYTES if stream else 0)))
+            + _STAGES * (_KS * slab_row + (x_slab if stream else 0)))
 
 
 def beamgen_streams_x(e: int, dtype: torch.dtype,
                       pipeline: bool = False) -> bool:
-    """Whether a block streams x past E = ``e`` (``tc::stream_x`` /
-    ``f32_stream_x``): exactly when the whole x tile does not fit --
-    bfloat16 E > 1,264 (kernel 3: > 976), float32 E > 908 (> 652)."""
+    """Whether a block streams x past E = ``e`` (``tc::stream_x``):
+    exactly when the whole x tile does not fit -- bfloat16 E > 1,264
+    (kernel 3: > 976), float32 E > 496 (> 352)."""
     return _smem_bytes(e, dtype, pipeline, False) > SMEM_LIMIT
 
 
@@ -114,14 +109,13 @@ def beamgen_smem_bytes(e: int, dtype: torch.dtype, pipeline: bool = False,
                        kc: int = 1) -> int:
     """Dynamic shared memory of a partial-kernel block at E = ``e`` and
     top-``kc`` for x of ``dtype`` (``plan`` in ``csrc/beamgen.cu``, which
-    ``cair_beamgen_smem`` returns).  bfloat16: (kernel 3's mbarriers,) the
-    x tile of 64 rows of ``ep(e)`` bf16 (E rounded up to 16, the last
-    k-slab zero-filled) plus 16 bytes each unless x is streamed, one f32
-    score buffer (two for kernel 3) and the ring of four slots, each a
-    table slab and, streamed, its [64, 32] x slab.  float32: the f32 x
-    tile, or kernel 2's 256-row x chunk (and kernel 3's two 32 KB table
-    stages, streamed with two 16 KB x stages).  The running top-kc lies in
-    registers, so ``kc`` does not change the sum."""
+    ``cair_beamgen_smem`` returns): (kernel 3's mbarriers,) the x tile of
+    64 rows of ``ep(e)`` elements (E rounded up to one mma's k, 16 bf16 or
+    8 float32, the last k step zero-filled) plus 16 bytes each unless x is
+    streamed, one f32 score buffer (two for kernel 3) and the ring of four
+    slots, each a [32, 128] table slab (rows of 272 bytes bf16, 544
+    float32) and, streamed, its [64, 32] x slab.  The running top-kc lies
+    in registers, so ``kc`` does not change the sum."""
     if not 1 <= kc <= MAX_KC:
         raise ValueError(f"kc={kc}: the kernels keep a running top-kc of "
                          f"1 to {MAX_KC} entries")
@@ -161,18 +155,15 @@ def aligned_table(table_t: torch.Tensor) -> torch.Tensor:
     return out[:, :v]
 
 
-def vocab_splits(rows: int, v: int, slots: int,
-                 whole_wave: bool = True) -> tuple[int, int]:
+def vocab_splits(rows: int, v: int, slots: int) -> tuple[int, int]:
     """``(n_split, tiles_per_split)``: the vocab split of R rows into runs
-    of 128-column tiles, every split owning at least one tile, for
-    ``slots`` blocks resident on the card at once.  ``whole_wave`` keeps
-    the grid within one wave of slots (the bf16 kernels); without it the
-    grid rounds up past it (the float32 kernels' rule, kept so float32
-    keeps its bits).  The split decides the order of the lse merge, so the
-    modes of one table must share it to share their bits."""
+    of 128-column tiles, every split owning at least one tile, the grid
+    within one wave of the ``slots`` blocks resident on the card at once.
+    The split decides the order of the lse merge, so the modes of one
+    table must share it to share their bits."""
     row_blocks = max(1, -(-rows // ROW_BLOCK))
     tiles = -(-v // TILE)
-    want = slots // row_blocks if whole_wave else -(-slots // row_blocks)
+    want = slots // row_blocks
     per = -(-tiles // max(1, min(tiles, want)))
     return -(-tiles // per), per
 
@@ -187,7 +178,8 @@ def _blocks_per_sm(index: int, e: int, x_code: int, t_code: int,
                    n_slots: int = 1) -> int:
     """Blocks of the serial partial kernel one SM of card ``index`` holds
     at E = ``e`` with ``n_slots`` top-kc slots a lane (their registers set
-    the bf16 kernel's residency)."""
+    the bf16 kernel's residency; a float32 block's shared memory holds it
+    to one)."""
     from .build import check, load_library
 
     blocks = ctypes.c_int()
@@ -279,28 +271,25 @@ def generator_topk_lse(x: torch.Tensor, table_t: torch.Tensor, kc: int,
 
     table_t = aligned_table(table_t)  # a copy only for an unaligned table
     ldx = E
-    if (x.dtype == torch.bfloat16 and beamgen_streams_x(E, x.dtype, pipeline)
-            and (E % 8 or x.data_ptr() % 16)):
-        # streamed x is copied in 16-byte pieces: rows a multiple of 8
-        # columns apart, the padding zero
-        ldx = -(-E // 8) * 8
+    per = 16 // x.element_size()
+    if (beamgen_streams_x(E, x.dtype, pipeline)
+            and (E % per or x.data_ptr() % 16)):
+        # streamed x is copied in 16-byte pieces: rows whole pieces
+        # apart, the padding zero
+        ldx = -(-E // per) * per
         padded = x.new_zeros((R, ldx))
         padded[:, :E] = x
         x = padded
     index = (x.device.index if x.device.index is not None
              else torch.cuda.current_device())
     x_code, t_code = _DTYPES[x.dtype], _DTYPES[table_t.dtype]
-    if x.dtype == torch.float32:
-        n_split, per_split = vocab_splits(R, V, 2 * _sm_count(index),
-                                          whole_wave=False)
-    else:
-        # sized by the serial kernel's residency at this kc whatever the
-        # mode: every mode of one table merges the same partials in the
-        # same order, so every mode gives the same bits (kernel 3, one
-        # block an SM, runs the grid in two waves)
-        n_split, per_split = vocab_splits(
-            R, V, _sm_count(index) * _blocks_per_sm(index, E, x_code, t_code,
-                                                    slots(kc)))
+    # sized by the serial kernel's residency at this kc whatever the mode:
+    # every mode of one table merges the same partials in the same order,
+    # so every mode gives the same bits (bf16 kernel 3, one block an SM,
+    # runs the grid in two waves)
+    n_split, per_split = vocab_splits(
+        R, V, _sm_count(index) * _blocks_per_sm(index, E, x_code, t_code,
+                                                slots(kc)))
     f32 = dict(dtype=torch.float32, device=x.device)
     i32 = dict(dtype=torch.int32, device=x.device)
     part_v = torch.empty((n_split, R, kc), **f32)

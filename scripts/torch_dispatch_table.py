@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Measure the PyTorch port's dispatch table on the card and write it.
 
-    python3 scripts/torch_dispatch_table.py [--dry-run]
+    python3 scripts/torch_dispatch_table.py [--dry-run] [--generator]
 
 Times, with CUDA events (mean of several calls after warm-up), each choice
 that ``context_attentive_ir_tpu_torch/ops/dispatch.py`` makes, at the
@@ -25,7 +25,8 @@ The inputs are seeded random tensors (a random-weight model's scores: the
 conservative case for ``prune``, whose skips grow with front-loaded
 scores).  Writes ``ops/dispatch_table.json`` with the card's name and
 power limit in its ``comment`` (``--dry-run`` prints the rows and writes
-nothing).  ``chip_smoke.py --only parallel`` takes the same readings again
+nothing; ``--generator`` measures the ``beam_*`` rows alone and keeps the
+table's other rows as they are).  ``chip_smoke.py --only parallel`` takes the same readings again
 and logs them beside the committed table's choices.  Needs a card.
 """
 
@@ -171,13 +172,21 @@ def beam_rows(gen) -> list[dict]:
     return out
 
 
-def measure(seed: int = 0) -> list[dict]:
-    """Every row of the table, measured now on the card."""
+def measure(seed: int = 0, generator_only: bool = False) -> list[dict]:
+    """Every row of the table, measured now on the card; with
+    ``generator_only`` the ``beam_*`` rows, the committed table's others
+    kept."""
+    from context_attentive_ir_tpu_torch.ops import dispatch
     from context_attentive_ir_tpu_torch.ops.kernels.build import build
 
     build()
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return rnn_rows(gen) + beam_rows(gen)
+    if not generator_only:
+        return rnn_rows(gen) + beam_rows(gen)
+    dispatch.reload_table()
+    kept = [e for e in dispatch._load_table()
+            if not e["kind"].startswith("beam")]
+    return kept + beam_rows(gen)
 
 
 def decisions(entries: list[dict]) -> dict:
@@ -221,12 +230,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dry-run", action="store_true",
                     help="print the rows, write nothing")
+    ap.add_argument("--generator", action="store_true",
+                    help="measure the beam_* rows alone, keep the others")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_dispatch_table: no CUDA device", file=sys.stderr)
         return 1
     name = card()
-    entries = measure()
+    entries = measure(generator_only=args.generator)
     for e in entries:
         print(json.dumps(e))
     print(json.dumps(decisions(entries)))

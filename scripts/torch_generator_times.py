@@ -10,7 +10,8 @@ Imports the package of the checkout at DIR (default: the one this script
 lies in), builds CARS at the serving widths (vocab 50,000, emsize 256,
 nhid 128, bfloat16, 64 requests of 5 turns, seeded weights) and prints one
 line per ``suggest_batch`` case: beams 5, 40 and 127 on the float table,
-40 and 127 on the int8 table, and beam 40 with a 4,096-id shortlist.
+40 and 127 on the int8 table, beam 40 with a 4,096-id shortlist, and beam
+5 in float32 (the configuration's default dtype).
 Each line gives the mean, median and least wall time of ``--iters``
 calls after one warm-up call (host clock, the card synchronised), the
 device time of one more call (the sum of its kernels' times,
@@ -100,6 +101,9 @@ def engine_times(pkg, iters: int, only: set[str]) -> None:
                           else [(q_cfg, q_params)])]
     cases.append(("beam40_shortlist", cfg, params, 40,
                   {"suggest_shortlist": SHORTLIST}))
+    f32_cfg = cfg.replace(compute_dtype="float32")
+    cases.append(("beam5_f32", f32_cfg, cars.CARS(
+        f32_cfg, device="cuda", seed=0).state_dict(), 5, {}))
     for name, c, p, beam, kw in cases:
         if only and name not in only:
             continue

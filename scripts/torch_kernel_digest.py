@@ -17,8 +17,9 @@ chunk 6, kernel 6 (the recurrence on
 precomputed gates) at x_proj [16000, 30, 512] -> 128, the generator's kernel 2
 (serial, ``prune``, int8 ``scale``) and 3 (``pipeline``) at the beam-5
 step's shape (R = 1600, E = 256, V = 50,000, kc = 6), the greedy step's (R
-= 320, kc = 2), the old top-kc (R = 1605, E = 300, kc = 32) and each
-dtype's last whole x tile of kernel 3 (E = 976 bf16, 652 float32), each
+= 320, kc = 2), the old top-kc (R = 1605, E = 300, kc = 32), top-33 and
+top-128 (R = 1605, E = 256) and each dtype's last whole x tile of kernel 3
+(E = 976 bf16, 352 float32), each
 generator line ending in its serial kernel's time, and the slate pool's
 kernel 10 at the rank slate's and suggest init's shapes ([16000, 30, 256]
 and [1280, 30, 256]) and at suggest init's rows of the CUDA-core kernel
@@ -64,10 +65,11 @@ F32_BWD_SHAPES = ((64, 150, EMBED, HIDDEN), (ROWS, STEPS, EMBED, 384),
 F32_ITERS = 2
 BEAM_ROWS, VOCAB, KC = 1600, 50_000, 6
 # (rows, E, kc) of the generator digests: the beam-5 and greedy steps, the
-# old top-32 off the row block, kernel 3's last whole x tile (E by dtype)
+# old top-32 off the row block, past one and four top-kc slots, kernel 3's
+# last whole x tile (E by dtype)
 GEN_SHAPES = ((BEAM_ROWS, EMBED, KC), (320, EMBED, 2), (1605, 300, 32),
-              (BEAM_ROWS, None, KC))
-WHOLE_TILE = {torch.float32: 652, torch.bfloat16: 976}
+              (1605, EMBED, 33), (1605, EMBED, 128), (BEAM_ROWS, None, KC))
+WHOLE_TILE = {torch.float32: 352, torch.bfloat16: 976}
 
 
 def digest(*tensors) -> str:

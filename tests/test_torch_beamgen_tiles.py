@@ -141,13 +141,14 @@ def _warp_merge(part_v, part_i, kc):
 
 
 def tiles_forward(x, table_t, kc, scale=None, prune=False, slots=264,
-                  whole_wave=True, stats=None, slab=None):
+                  stats=None, slab=None, mm=None):
     """The generator kernels' algorithm in plain PyTorch (f32): ``table_t``
     [E, V] may be a view whose rows lie ``ld`` elements apart; what lies
     past V in a row is read with the tile and masked, as the kernels do.
-    ``slab``: x streamed in k-slabs of that many rows (32 for the bf16
-    kernels, 256 for float32 kernel 2, 64 for float32 kernel 3), each
-    tile's score the sum of the slabs' products in ascending k."""
+    ``slab``: x streamed in k-slabs of that many rows (32, every kernel),
+    each tile's score the sum of the slabs' products in ascending k.
+    ``mm(x_block, tile)``: a tile's score as the kernel's tiles compute it
+    (the float32 kernels' split TF32); by default the f32 product."""
     r, e = x.shape
     # the running top-kc as the kernels lay it out: slot j of lane l holds
     # entry 32 * j + l, so [rows, slots, 32] flattens to entry order
@@ -159,7 +160,7 @@ def tiles_forward(x, table_t, kc, scale=None, prune=False, slots=264,
     if scale is not None:
         store = store.to(BF16)   # the widening: exact for int8
     store = store.float()
-    n_split, per = K.vocab_splits(r, v, slots, whole_wave)
+    n_split, per = K.vocab_splits(r, v, slots)
     n_tiles = -(-v // K.TILE)
     assert (n_split - 1) * per < n_tiles <= n_split * per
     part_v = torch.full((n_split, r, kc), -torch.inf)
@@ -180,7 +181,9 @@ def tiles_forward(x, table_t, kc, scale=None, prune=False, slots=264,
                 cols = torch.arange(tile * K.TILE, (tile + 1) * K.TILE)
                 ok = cols < v
                 tile_t = store[:, cols.clamp(max=ld - 1)]
-                if slab is None:
+                if mm is not None:
+                    sc = mm(xb, tile_t)
+                elif slab is None:
                     sc = xb @ tile_t
                 else:
                     sc = torch.zeros((xb.shape[0], K.TILE))
@@ -282,8 +285,8 @@ def test_tiles_match_jax(shape, mode, data):
 
 # (E, slab, kernel): past every whole x tile -- E = 1,300 above bf16
 # kernel 2's 1,264, E = 2,100 above everything -- with each kernel's slab
-WIDE = [(1300, 32, "bf16"), (2100, 32, "bf16"), (1300, 256, "f32"),
-        (2100, 64, "f32-pipeline")]
+WIDE = [(1300, 32, "bf16"), (2100, 32, "bf16"), (1300, 32, "f32"),
+        (2100, 32, "f32-pipeline")]
 
 
 @pytest.mark.parametrize("data", ["integer", "random"])
@@ -321,16 +324,14 @@ def test_streamed_x_slabs_match_jax(e, slab, kernel, data):
                     lse, rlse, rtol=1e-6 if integer else 1e-5, atol=0)
 
 
-@pytest.mark.parametrize("slots,whole_wave", [(1, True), (3, True),
-                                              (7, True), (264, True),
-                                              (10_000, True), (264, False)])
-def test_split_counts(slots, whole_wave):
+@pytest.mark.parametrize("slots", [1, 3, 7, 132, 264, 10_000])
+def test_split_counts(slots):
     """One split, several, a ragged last split and one tile a split give
     the same vals and idx, and lse within 1e-6 relative."""
     r, v = 53, 999
     x, t, scale, refs = _case((r, v), False, False)
-    n_split, per = K.vocab_splits(r, v, slots, whole_wave)
-    got = _emulate(x, t, scale, 6, slots=slots, whole_wave=whole_wave)
+    n_split, per = K.vocab_splits(r, v, slots)
+    got = _emulate(x, t, scale, 6, slots=slots)
     one = _emulate(x, t, scale, 6, slots=1)
     np.testing.assert_array_equal(got[0], one[0])
     np.testing.assert_array_equal(got[1], one[1])
@@ -342,18 +343,18 @@ def test_split_counts(slots, whole_wave):
 
 def test_ragged_and_whole_wave_splits():
     assert K.vocab_splits(1600, 50_000, 264) == (10, 40)
-    assert K.vocab_splits(1600, 50_000, 264, whole_wave=False) == (11, 36)
     assert K.vocab_splits(320, 50_000, 264) == (49, 8)
+    # float32 (one block an SM) and bf16 past one slot
     assert K.vocab_splits(1600, 50_000, 132) == (5, 79)
+    assert K.vocab_splits(320, 50_000, 132) == (25, 16)
     for rows, v, slots in ((1, 1, 1), (53, 999, 9), (129, 1002, 1),
-                           (5000, 4096, 264), (1600, 50_004, 264)):
-        for whole in (True, False):
-            n, per = K.vocab_splits(rows, v, slots, whole)
-            tiles = -(-v // K.TILE)
-            assert (n - 1) * per < tiles <= n * per
-            if whole:
-                blocks = -(-rows // K.ROW_BLOCK) * n
-                assert blocks <= max(slots, -(-rows // K.ROW_BLOCK))
+                           (5000, 4096, 264), (1600, 50_004, 264),
+                           (40_640, 50_000, 132)):
+        n, per = K.vocab_splits(rows, v, slots)
+        tiles = -(-v // K.TILE)
+        assert (n - 1) * per < tiles <= n * per
+        blocks = -(-rows // K.ROW_BLOCK) * n
+        assert blocks <= max(slots, -(-rows // K.ROW_BLOCK))
 
 
 @pytest.mark.parametrize("kc", [2, 6])
@@ -469,19 +470,22 @@ def test_decoders_build_the_padded_table_once():
 
 
 # the last E whose whole x tile fits, per dtype and kernel
-WHOLE_TILE_TOPS = [(BF16, False, 1264), (BF16, True, 976), (F32, False, 908),
-                   (F32, True, 652)]
+WHOLE_TILE_TOPS = [(BF16, False, 1264), (BF16, True, 976), (F32, False, 496),
+                   (F32, True, 352)]
 
 
 def _launcher_smem(e, dtype, pipeline):
     """``plan`` in csrc/beamgen.cu, written out: (the pipelined header,)
-    the whole x tile or none, the score buffer(s) and the ring (bf16);
-    the f32 x tile or its streamed chunks and kernel 3's table stages."""
+    the whole x tile or none, the score buffer(s) and the ring of four
+    slots: a 32-row table slab (bf16 rows of 128 elements + 16 bytes,
+    float32 of 128 + 8 elements) and, streamed, a [64, 32] x slab (rows of
+    32 elements + 16 bytes)."""
     if dtype == F32:
-        stages = 2 * 64 * 128 * 4 if pipeline else 0
-        rows = (128 if pipeline else 256) if e > (652 if pipeline else 908) \
-            else e
-        return stages + rows * 64 * 4
+        stream = e > (352 if pipeline else 496)
+        x_tile = 0 if stream else 64 * (4 * (-(-e // 8) * 8) + 16)
+        slot = 32 * (4 * 136) + (64 * (4 * 32 + 16) if stream else 0)
+        return ((64 if pipeline else 0) + x_tile
+                + (2 if pipeline else 1) * 64 * 136 * 4 + 4 * slot)
     stream = e > (976 if pipeline else 1264)
     x_tile = 0 if stream else 64 * (2 * (-(-e // 16) * 16) + 16)
     slot = 32 * (2 * 128 + 16) + (64 * (2 * 32 + 16) if stream else 0)
@@ -519,16 +523,24 @@ def test_smem_bytes_of_the_serving_width():
             == 64 + 33_792 + 2 * 34_816 + 34_816)
     # E not a multiple of 16 stages the last k-slab zero-filled to 16
     assert K.beamgen_smem_bytes(300, BF16) == K.beamgen_smem_bytes(304, BF16)
-    assert K.beamgen_smem_bytes(256, F32) == 256 * 64 * 4
+    # float32: x tile 64 x (4*256 + 16), one score buffer, four 32-row
+    # slabs of 136 floats (17,408 bytes each)
+    assert K.beamgen_smem_bytes(256, F32) == 66_560 + 34_816 + 69_632
+    assert (K.beamgen_smem_bytes(256, F32, pipeline=True)
+            == 64 + 66_560 + 2 * 34_816 + 69_632)
+    assert K.beamgen_smem_bytes(100, F32) == K.beamgen_smem_bytes(104, F32)
     # streamed: no x tile; four slots of a table slab and a [64, 32] x
     # slab (80-byte rows)
     assert (K.beamgen_smem_bytes(1536, BF16)
             == 34_816 + 4 * (8_704 + 5_120) == 90_112)
     assert (K.beamgen_smem_bytes(1536, BF16, pipeline=True)
             == 64 + 2 * 34_816 + 4 * (8_704 + 5_120))
-    assert K.beamgen_smem_bytes(2048, F32) == 256 * 64 * 4
+    # float32 streamed: slots of a 17,408-byte table slab and a [64, 32]
+    # x slab (144-byte rows)
+    assert (K.beamgen_smem_bytes(2048, F32)
+            == 34_816 + 4 * (17_408 + 9_216) == 141_312)
     assert (K.beamgen_smem_bytes(2048, F32, pipeline=True)
-            == 2 * 32_768 + 2 * 64 * 64 * 4)
+            == 64 + 2 * 34_816 + 4 * (17_408 + 9_216))
 
 
 def test_kc_limit_is_the_jax_kernels():

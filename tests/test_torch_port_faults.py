@@ -254,7 +254,7 @@ def test_cars_engine_beyond_the_kernels_top_kc(served_wide, monkeypatch,
 def test_fused_step_gives_way_where_the_kernels_end(served):
     """``make_fused_beam_step`` is None past ``MAX_KC`` = 128 and a step at
     every kc up to it at every E (E = 1,272: x streamed past bf16's whole
-    x tile of 1,264 and float32's 908); the plain top-k takes any kc <=
+    x tile of 1,264 and float32's 496); the plain top-k takes any kc <=
     V."""
     _, _, _, pcfg, _ = served
     model = build_model(pcfg, device="cpu")
