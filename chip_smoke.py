@@ -31,14 +31,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    bf16 also with 16-row blocks off their block and at its limits (E = 672
    and 1,024 at H = 128, H = 448 at E = 256), kernel 2, kernel 10 (slate pool) at
    the rank slate and suggest init's row counts and a row count off its
-   tile at every width it holds (H = 128, 256, 384, 512; 640, 768, 896
-   and 1,024 at suggest init's rows, 640 and 768 also at the rank
-   slate's; the wide route past 1,024 -- H = 1,152, 1,280, 2,304 and
-   4,096, rows off its 128-token score tile, T = 1 and 65 -- and at 1,024
-   forced onto it), ``pool_supported`` held to ``cair_slate_pool`` called
-   directly at every multiple of 64 up to 4,096, at the
-   tensor-core tiles' edges (T = 1, 7, 15, 17, 33, 64 and 65, the first T
-   beyond a tile) with fully masked rows pooling to exactly 0,
+   tile at every multiple of 128 to 1,024 in both dtypes (the resident
+   kernel in bf16 at 128 and 256, the wide route elsewhere; the wide
+   route past 1,024 -- H = 1,152, 1,280, 2,304 and 4,096, rows off its
+   128-token score tile, T = 1 and 65 -- and at 1,024 forced onto it),
+   ``pool_supported`` held to ``cair_slate_pool`` called directly and
+   ``pool_route`` to ``cair_slate_route`` at every multiple of 64 up to
+   4,096, at the tiles' edges (T = 1, 7, 15, 17, 32, 33, 64 and 65 at H =
+   128, 256, 384 and 1,024: the first T beyond the resident kernel's
+   tile) with fully masked rows pooling to exactly 0,
    fewer than 8 rows refused, and its autograd Function's gradients,
    kernel 2's int8
    mode on a quantized table, and ``prune`` on and off and kernel 3
@@ -145,10 +146,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    already reaches it); then the wide LSTMs (``widelstm``): CARS at the
    serving widths with nhid 512 in bf16 and float32 (clusters of 2 and 4
    blocks) behind ``Engine`` (``rank_batch``, beam-5 ``suggest_batch``)
-   and 4 Adam steps, ``cli.main --nhid 512`` in bf16 on the fixture's
+   and 4 Adam steps, the same with ``use_pallas_slate`` (its doc pool
+   1,024 wide: kernel 10's wide route; ``rank_batch`` and 4 Adam steps
+   at 8 sessions), ``cli.main --nhid 512`` in bf16 on the fixture's
    first 256 sessions (one epoch, beam-5 validation) and a bf16 CARS at
    emsize 768 (``rank_batch``), each against the same weights with
-   ``use_pallas_rnn=False`` on the card (scores, top-1 beam scores, losses
+   ``use_pallas_rnn=False`` and ``use_pallas_slate=False`` on the card (scores, top-1 beam scores, losses
    within 2e-2 relative in bf16 and 1e-4 in float32; float32 top-1 tokens
    equal); then the wide GRUs (``widegru``): CARS with GRU encoders at
    nhid 512 in bf16 and float32 (clusters of 2 and 4 blocks;
@@ -184,8 +187,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    CARS and CARS-GRU at the serving widths: ``rank_batch`` through kernels
    1 / 7 (CARS also beam-5 ``suggest_batch`` through the split-TF32
    generator kernel 2, each call profiled once more) and 4 Adam steps
-   through kernels 4 + 5 / 8 + 9, against the plain
-   scan; then the step route (``widestep``): CARS at nhid 2,048 in bf16 (``rank_batch``,
+   through kernels 4 + 5 / 8 + 9, and a float32 CARS with
+   ``use_pallas_slate`` (kernel 10's wide route at the doc pool's 256:
+   ``rank_batch``, beam-5 ``suggest_batch``, whose init pools the clicked
+   documents, and 4 Adam steps), against the plain scan and pool; then the step route (``widestep``): CARS at nhid 2,048 in bf16 (``rank_batch``,
    beam-5 ``suggest_batch``) and 1,152 in float32 (``rank_batch``), and 4
    Adam steps of each at 8 sessions, against the same weights on the
    plain scan; kernels 1, 4, 5 at ``[16000, 30, 256]`` -> 1,152 and 2,048
@@ -203,8 +208,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    and 2,048 in bf16 and 1,152 in float32, every output held to its plain
    version in both directions and timed beside cuDNN; kernel 10's wide
    route at ``[16000 | 1280, 30, 2304]`` in both dtypes and ``[1280, 30,
-   4096]`` in bf16, and at H = 1,024 beside the CUDA-core kernel, held to
-   its plain version, counted and timed.  Every
+   4096]`` in bf16, and at H = 1,024 in bf16, held to its plain version,
+   counted and timed.  Every
    call runs with every launch count set to 0
    just before it and read just after it and must launch exactly the
    kernels ``PATH_KERNELS`` names (``EXACT_LAUNCHES`` times, where fixed);
@@ -221,8 +226,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``widebeam``'s steps and in float32 at the beam-5 and greedy steps
    (rows with ``step``, ``rows``, ``e``, ``kc``, ``dtype``), kernel 9
    with 16-row and 64-row
-   blocks at the query and doc encoders' shapes, kernel 10's wider
-   instantiations (logged), and the train steps' times.
+   blocks at the query and doc encoders' shapes, kernel 10 at every width
+   to 1,024 in both dtypes at the rank slate's and suggest init's rows
+   beside the plain version (three rounds each, median and range; the
+   wide route forced beside the resident kernel; logged, the bf16 rows at
+   256 and the float32 rank slate's in the line), and the train
+   steps' times.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script needs a
 card: without one it exits non-zero and prints no result.
@@ -694,9 +703,10 @@ def tile_note() -> str:
             f"blocks, {step_smem_bytes(gates=3)} bytes "
             f"({step_smem_bytes(backward=True, gates=3)}), float32 "
             f"{step_smem_bytes(torch.float32, gates=3)} "
-            f"({step_smem_bytes(torch.float32, True, 3)}); attn_pool past "
-            "H = 1,024 (the wide route) 128 x 128 score tiles from a "
-            "three-slab cp.async ring, 57856 bytes a block (float32 33792), "
+            f"({step_smem_bytes(torch.float32, True, 3)}); attn_pool "
+            "elsewhere (the wide route) 128 x 128 score tiles from a "
+            "three-slab cp.async ring, 57856 bytes a block (float32 108544,"
+            " split TF32), "
             "then a block a document")
 
 
@@ -882,31 +892,25 @@ def check_beamgen(gen) -> dict:
 
 
 # (rows, steps, H) kernel 10 sees on the main path -- the rank slate B*S*N and
-# suggest init's clicked docs B*S*C -- plus a row count off its 2-document
-# tile, at the documents' Ld and every width it holds (H % 128 == 0 up to
-# 512: tensor cores in bf16 at 128 and 256, the CUDA-core kernel otherwise)
+# suggest init's clicked docs B*S*C -- plus a row count off its tiles, at
+# the documents' Ld and every width to 1,024 (H % 128 == 0: the resident
+# kernel in bf16 at 128 and 256, the wide route otherwise), each checked in
+# both dtypes
 H2 = 2 * NHID
 SLATE_ROWS = (B * S * N, B * S * N + 7, B * S * MAX_CLICKS)
-SLATE_SHAPES = tuple((r, LD, h) for h in (128, 256, 384, 512)
-                     for r in SLATE_ROWS)
-# the tensor-core tiles' edges at 333 rows: T = 1 (four documents of 16
-# rows a tile), 7, 15, 17 (two of 32), 33 (one of 48), 64 (one of 64, the
-# limit), 65 (beyond it: the CUDA-core kernel)
-SLATE_SHAPES += tuple((333, t, h) for h in (128, 256)
-                      for t in (1, 7, 15, 17, 33, 64, 65))
-# the wider CUDA-core instantiations (H = 640 .. 1024, a doc pool of
-# 2 * nhid for nhid 320 .. 512): suggest init's rows and a count off their
-# 16- and 8-row blocks, and the rank slate at the two widths that the
-# recurrent kernels' nhid 320 and 384 give
-WIDE_POOLS = (640, 768, 896, 1024)
-SLATE_SHAPES += tuple((r, LD, h) for h in WIDE_POOLS
-                      for r in (B * S * MAX_CLICKS, B * S * MAX_CLICKS + 7))
-SLATE_SHAPES += tuple((B * S * N, LD, h) for h in (640, 768))
+TILED_POOLS = tuple(range(128, 1025, 128))
+SLATE_SHAPES = tuple((r, LD, h) for h in TILED_POOLS for r in SLATE_ROWS)
+# the tiles' edges at 333 rows: T = 1 (four documents of 16 rows a
+# resident tile), 7, 15, 17 (two of 32), 32, 33 (one of 48), 64 (one of
+# 64, the limit), 65 (beyond it: the wide route), on the resident kernel's
+# widths, and the same T on the wide route at 384 and 1,024 (tokens off
+# its 128-token score tile)
+SLATE_SHAPES += tuple((333, t, h) for h in (128, 256, 384, 1024)
+                      for t in (1, 7, 15, 17, 32, 33, 64, 65))
 # the wide route (H above 1,024: a doc pool of 2 * nhid for nhid 576 and
-# up): rows off its 128-token score tile, T = 1 and one past the
-# tensor-core tiles' 64, the CARS-GRU doc pool at nhid 1,152 (2,304) at
-# suggest init's rows; H = 1,024 forced onto it (`wide`), beside the
-# CUDA-core kernel there
+# up): rows off its 128-token score tile, T = 1 and one past the tiles'
+# 64, the CARS-GRU doc pool at nhid 1,152 (2,304) at suggest init's rows;
+# H = 1,024 forced onto it (`wide`, the launcher's own route there)
 WIDE_ROUTE_SHAPES = ((333, LD, 1152, False), (41, 1, 1152, False),
                      (40, 65, 1280, False),
                      (B * S * MAX_CLICKS + 7, LD, 2304, False),
@@ -945,6 +949,7 @@ def check_slate(gen) -> dict:
         AttnPoolFn,
         attn_pool,
         attn_pool_reference,
+        pool_route,
     )
 
     out = {}
@@ -965,8 +970,8 @@ def check_slate(gen) -> dict:
             empty = ~mask.any(-1)
             zeros = bool((got[empty] == 0).all())
             worst = err if dtype == torch.float32 else rel
-            log(f"attn_pool {dtype} [{rows},{steps},{h}]"
-                f"{' (wide route)' if wide or h > 1024 else ''}: max abs err "
+            log(f"attn_pool {dtype} [{rows},{steps},{h}] "
+                f"({pool_route(h, steps, dtype, wide)}): max abs err "
                 f"{err:.3e} (rel {rel:.3e}; vs the plain version in "
                 f"{dtype} {err_plain:.3e}), {int(empty.sum())} fully "
                 f"masked rows exactly 0: {zeros} (tol "
@@ -978,7 +983,7 @@ def check_slate(gen) -> dict:
                 out[dtype] = err
 
     # fewer than 8 rows: refused at every width and dtype (pool_supported)
-    for h in (128, 256, 384, 512, *WIDE_POOLS, 1152, 2304):
+    for h in (*TILED_POOLS, 1152, 2304):
         for dtype in (torch.float32, torch.bfloat16):
             (s, q, w, b), mask = slate_inputs(gen, dtype, 7, LD, h)
             try:
@@ -1014,19 +1019,23 @@ def check_pool_gate(gen) -> None:
     (past the wrapper's check of the gate, with the workspace
     ``cair_slate_pool_workspace`` asks for) succeeds exactly where the gate
     holds the width -- every multiple of 128 -- and refuses the rest
-    itself."""
+    itself.  ``pool_route`` is ``cair_slate_route`` at each of those widths,
+    both dtypes, T = 1, 32, 33, 64, 65 and with and without ``wide``, and
+    the workspace is asked for exactly on the wide route."""
     from context_attentive_ir_tpu_torch.ops.kernels.build import load_library
     from context_attentive_ir_tpu_torch.ops.kernels.slate import (
+        pool_route,
         pool_supported,
     )
 
     lib = load_library()
-    seen = []
+    seen, moved = [], []
+    names = {-1: None, 0: "resident", 1: "wide"}
     for h in range(64, 4097, 64):
         for code, dtype in enumerate((torch.float32, torch.bfloat16)):
             (s, q, w, b), mask = slate_inputs(gen, dtype, 40, 3, h)
             out = torch.empty((40, h), dtype=dtype, device="cuda")
-            n_bytes = lib.cair_slate_pool_workspace(40, 3, h, 0)
+            n_bytes = lib.cair_slate_pool_workspace(40, 3, h, code, 0)
             ws = torch.empty((max(n_bytes, 16),), dtype=torch.uint8,
                              device="cuda")
             rc = lib.cair_slate_pool(
@@ -1040,8 +1049,22 @@ def check_pool_gate(gen) -> None:
                                      f"cair_slate_pool returned {rc} "
                                      f"(workspace {n_bytes})")
             seen.append(f"{h}:{'ran' if rc == 0 else f'refused ({rc})'}")
+            for t in (1, 32, 33, 64, 65):
+                for wide in (0, 1):
+                    route = pool_route(h, t, dtype, bool(wide))
+                    ws_bytes = lib.cair_slate_pool_workspace(40, t, h, code,
+                                                             wide)
+                    if (names[lib.cair_slate_route(40, t, h, code, wide)]
+                            != route or (ws_bytes > 0) != (route == "wide")):
+                        moved.append((h, str(dtype)[6:], t, wide))
     log("pool_supported held to cair_slate_pool, f32 / bf16 per width: "
         + ", ".join(seen))
+    log(f"pool_route equal to cair_slate_route (and the workspace asked for "
+        f"exactly on the wide route) at every multiple of 64 to 4,096, both "
+        f"dtypes, T = 1 / 32 / 33 / 64 / 65, wide off and on: {not moved}")
+    if moved:
+        raise AssertionError(f"pool_route differs from cair_slate_route at "
+                             f"(H, dtype, T, wide) {moved[:10]}")
 
 
 def int8_inputs(gen, rows, dtype, integer, e=EMSIZE):
@@ -1881,6 +1904,16 @@ PATH_KERNELS = {
     "rank_batch_f32_gru": ("gru_fused",),
     "train_step_f32bwd": ("lstm_fused_res", "lstm_fused_bwd"),
     "train_step_f32bwd_gru": ("gru_fused_res", "gru_fused_bwd"),
+    # f32bwd, widelstm: float32 CARS with the slate kernel at the serving
+    # widths (the wide route at H = 256), CARS at nhid 512 with it in
+    # both dtypes (H = 1,024)
+    "rank_batch_f32_slate": ("lstm_fused", "attn_pool"),
+    "suggest_beam5_f32_slate": ("lstm_fused", BEAM_GEN, "attn_pool"),
+    "train_step_f32_slate": ("lstm_fused_res", "lstm_fused_bwd",
+                             "attn_pool"),
+    **{f"{p}_wide_{dt}_slate": k for dt in ("bf16", "f32") for p, k in (
+        ("rank_batch", ("lstm_fused", "attn_pool")),
+        ("train_step", ("lstm_fused_res", "lstm_fused_bwd", "attn_pool")))},
     # widestep: CARS on the step route (bf16 nhid 2,048, float32 1,152) and
     # the doc encoder as a matmul projection + kernel 6 past 512 units
     "rank_batch_step_bf16": ("lstm_fused",),
@@ -1902,8 +1935,7 @@ PATH_KERNELS = {
                                    "attn_pool"),
     **{f"attn_pool_{r}_{h}_{str(dt)[6:]}": ("attn_pool",)
        for r, h, dt in WIDE_POOL_TIMED},
-    **{f"attn_pool_{B * S * MAX_CLICKS}_1024_bfloat16{w}": ("attn_pool",)
-       for w in ("", "_wide")},
+    f"attn_pool_{B * S * MAX_CLICKS}_1024_bfloat16": ("attn_pool",),
     # M-NSRF and M-MatchTensor: both encoders through kernel 1 (ranking) or
     # 4 + 5 (training); suggestion encodes the queries alone and decodes
     # through the logits step (no generator kernel); the session recurrence
@@ -1970,6 +2002,11 @@ EXACT_LAUNCHES = {
     "rank_batch_f32_gru": {"gru_fused": 4},
     "train_step_f32bwd": {"lstm_fused_res": 4, "lstm_fused_bwd": 4},
     "train_step_f32bwd_gru": {"gru_fused_res": 4, "gru_fused_bwd": 4},
+    **{f"rank_batch_{t}_slate": {"lstm_fused": 4, "attn_pool": 1}
+       for t in ("f32", "wide_bf16", "wide_f32")},
+    **{f"train_step_{t}_slate": {"lstm_fused_res": 4, "lstm_fused_bwd": 4,
+                                 "attn_pool": 1}
+       for t in ("f32", "wide_bf16", "wide_f32")},
     "lstm_precomputed": {"lstm_recurrence": 2},
     **{f"lstm_precomputed_{h}_{str(dt)[6:]}": {"lstm_recurrence": 2}
        for h, dt in STEP_REC},
@@ -4238,6 +4275,14 @@ def f32bwd_paths(gen, timed_elsewhere=()) -> tuple[dict, list[dict]]:
         wide_train(full_width_config("cars", compute_dtype="float32", **kw),
                    tag, f32, launches)
         torch.cuda.empty_cache()
+    # the default dtype's slate pool: kernel 10's wide route in split
+    # TF32 at the rank slate, suggest init's clicked docs and a train step
+    cfg = full_width_config("cars", compute_dtype="float32",
+                            use_pallas_slate=True)
+    params = wide_serving(word_dict, cfg, "f32_slate", f32, launches)
+    wide_train(cfg, "f32_slate", f32, launches, params=params)
+    del params
+    torch.cuda.empty_cache()
     log(f"f32 tiles launches per path: {json.dumps(launches)}")
     return launches, rows
 
@@ -4414,8 +4459,15 @@ def wide_paths(gen, fixture_dir: str) -> tuple[dict, list[dict]]:
     for tag, dt in (("wide_bf16", "bfloat16"), ("wide_f32", "float32")):
         dtype = getattr(torch, dt)
         cfg = full_width_config("cars", nhid=WIDE_NHID, compute_dtype=dt)
-        wide_serving(word_dict, cfg, tag, dtype, launches)
-        wide_train(cfg, tag, dtype, launches)
+        params = wide_serving(word_dict, cfg, tag, dtype, launches)
+        wide_train(cfg, tag, dtype, launches, params=params)
+        # the doc pool 2 * nhid = 1,024 wide on kernel 10's wide route
+        slate = cfg.replace(use_pallas_slate=True)
+        wide_serving(word_dict, slate, f"{tag}_slate", dtype, launches,
+                     suggest=False)
+        wide_train(slate, f"{tag}_slate", dtype, launches, b=STEP_TRAIN_B,
+                   fall="some", params=params)
+        del params
         torch.cuda.empty_cache()
     wide_serving(word_dict, full_width_config("cars", emsize=WIDE_EMSIZE),
                  "e768", torch.bfloat16, launches, suggest=False)
@@ -4621,27 +4673,23 @@ def wide_pool_rows(gen, launches: dict) -> list[dict]:
     """Kernel 10's wide route alone at each of WIDE_POOL_TIMED, counted as
     ``attn_pool_<rows>_<H>_<dtype>``, held to ``attn_pool_reference`` run
     in f32 on the same inputs (f32 1e-4 abs, bf16 2e-2 rel.; fully masked
-    rows exactly 0), then timed beside the plain version; then at H =
-    1,024, R = B*S*C, bf16, the wide route (``wide=True``) and the
-    CUDA-core kernel there, each held and timed.  No single PyTorch call
-    computes this pool: library_ms null."""
+    rows exactly 0), then timed beside the plain version; then the same
+    at H = 1,024, R = B*S*C, bf16.  No single PyTorch call computes this
+    pool: library_ms null."""
     from context_attentive_ir_tpu_torch.ops.kernels.slate import (
         attn_pool,
         attn_pool_reference,
     )
 
     rows_out = []
-    for n_rows, h, dtype, wide in (*((*c, False) for c in WIDE_POOL_TIMED),
-                                   (B * S * MAX_CLICKS, 1024, torch.bfloat16,
-                                    True),
-                                   (B * S * MAX_CLICKS, 1024, torch.bfloat16,
-                                    False)):
+    for n_rows, h, dtype in (*WIDE_POOL_TIMED,
+                             (B * S * MAX_CLICKS, 1024, torch.bfloat16)):
         dt = str(dtype)[6:]
         (s, q, w, b), mask = slate_inputs(gen, dtype, n_rows, LD, h)
-        path = f"attn_pool_{n_rows}_{h}_{dt}" + ("_wide" if wide else "")
+        path = f"attn_pool_{n_rows}_{h}_{dt}"
         with torch.inference_mode():
             got, launches[path] = counted(
-                path, lambda: attn_pool(s, mask, q, w, b, wide=wide))
+                path, lambda: attn_pool(s, mask, q, w, b))
             ref = attn_pool_reference(s.float(), mask, q.float(), w.float(),
                                       b.float())
             err = float((got.float() - ref).abs().max())
@@ -4650,15 +4698,13 @@ def wide_pool_rows(gen, launches: dict) -> list[dict]:
             del got, ref
             tol = 1e-4 if dtype == torch.float32 else 2e-2
             held = err if dtype == torch.float32 else rel
-            route = "wide route" if wide or h > 1024 else "CUDA-core kernel"
-            log(f"attn_pool {dt} [{n_rows},{LD},{h}] ({route}): max abs err "
-                f"{err:.3e} (rel {rel:.3e}; tol "
+            log(f"attn_pool {dt} [{n_rows},{LD},{h}] (wide route): max abs "
+                f"err {err:.3e} (rel {rel:.3e}; tol "
                 f"{'abs' if dtype == torch.float32 else 'rel'} {tol:g}); "
                 f"fully masked rows exactly 0: {zeros}")
             if not (held <= tol and zeros):
                 raise AssertionError(f"{path} disagrees")
-            ms = timed_ms(lambda: attn_pool(s, mask, q, w, b, wide=wide), 3,
-                          warmup=1)
+            ms = timed_ms(lambda: attn_pool(s, mask, q, w, b), 3, warmup=1)
             plain = timed_ms(lambda: attn_pool_reference(s, mask, q, w, b),
                              1, warmup=1)
         size = s.element_size()
@@ -4666,13 +4712,13 @@ def wide_pool_rows(gen, launches: dict) -> list[dict]:
         n_bytes = ((s.numel() + q.numel() + w.numel() + b.numel()
                     + n_rows * h) * size + mask.numel())
         bnd, by = bound_ms(flops, n_bytes, dtype)
-        log(f"attn_pool {dt} [{n_rows},{LD},{h}] ({route}): kernel {ms:.3f} "
-            f"ms, plain {plain:.3f} ms, library none, bound {bnd:.4f} ms "
+        log(f"attn_pool {dt} [{n_rows},{LD},{h}] (wide route): kernel "
+            f"{ms:.3f} ms, plain {plain:.3f} ms, library none, bound {bnd:.4f} ms "
             f"({by})")
         rows_out.append(kernel_row(
             "attn_pool", "slate_pool.cu", "slate.py:158", launches, err, ms,
             plain, None, bnd, by, rows=n_rows, steps=LD, h=h, dtype=dt,
-            wide=wide or h > 1024))
+            wide=True))
         del s, q, w, b, mask
         torch.cuda.empty_cache()
     return rows_out
@@ -5103,54 +5149,72 @@ def kernel_row(name: str, src: str, replaces: str, launches: dict,
             "library_ms": lib, **extra}
 
 
-def time_slate(gen, launches: dict, max_err: float) -> list[dict]:
-    """Kernel 10 at the rank slate (R = B*S*N) and suggest init's clicked
-    docs (R = B*S*C), T = Ld, bf16.  No single PyTorch call computes this
-    function, so library_ms is null."""
+SLATE_TIMED_ROWS = (B * S * N, B * S * MAX_CLICKS)
+SLATE_ROUNDS = 3   # alternating kernel / plain rounds a shape
+
+
+def time_slate(gen, launches: dict, max_err: dict) -> list[dict]:
+    """Kernel 10 at every width to 1,024 (TILED_POOLS), in both dtypes, at
+    the rank slate (R = B*S*N) and suggest init's clicked docs (R = B*S*C),
+    T = Ld: the kernel on its route and the plain version, timed in
+    SLATE_ROUNDS alternating rounds (the median and the range logged), the
+    wide route forced (``wide=True``) where the route is the resident
+    kernel's, and the bound, beside the parent's time (EARLIER_MS; logged,
+    not measured in this run).  The bf16 rows at H2 and the float32 row at
+    the rank slate's shape go into the kernels line with their medians
+    (``max_err``: each dtype's error there).  No single PyTorch call
+    computes this pool, so library_ms is null."""
     from context_attentive_ir_tpu_torch.ops.kernels.slate import (
         attn_pool,
         attn_pool_reference,
+        pool_route,
     )
 
-    dtype = torch.bfloat16
+    def spread(v):
+        return f"{np.median(v):.3f} ms ({min(v):.3f}-{max(v):.3f})"
+
     rows_out = []
-    for rows in (B * S * N, B * S * MAX_CLICKS):
-        (s, q, w, b), mask = slate_inputs(gen, dtype, rows, LD)
-        ms = timed_ms(lambda: attn_pool(s, mask, q, w, b), 10)
-        plain = timed_ms(lambda: attn_pool_reference(s, mask, q, w, b), 5)
-        h = H2
-        flops = 2.0 * rows * LD * h * h + 4.0 * rows * LD * h
-        n_bytes = ((s.numel() + q.numel() + w.numel() + b.numel()
-                    + rows * h) * 2 + mask.numel())
-        bnd, by = bound_ms(flops, n_bytes, dtype)
-        log(f"attn_pool bf16 [{rows},{LD},{h}]: kernel {ms:.3f} ms, plain "
-            f"{plain:.3f} ms, library none (no single PyTorch call), bound "
-            f"{bnd:.4f} ms ({by})")
-        log_earlier("attn_pool", ms, plain, None, bnd, rows)
-        f32 = [t.float() for t in (s, q, w, b)]
-        ms32 = timed_ms(lambda: attn_pool(f32[0], mask, *f32[1:]), 5)
-        log(f"attn_pool f32 [{rows},{LD},{h}] (the CUDA-core kernel): "
-            f"{ms32:.3f} ms")
-        rows_out.append(kernel_row(
-            "attn_pool", "slate_pool.cu", "slate.py:158", launches, max_err,
-            ms, plain, None, bnd, by, rows=rows, steps=LD))
-    # the wider CUDA-core instantiations at suggest init's rows (logged
-    # only: no main path runs them at the serving widths)
-    rows = B * S * MAX_CLICKS
-    for h in (384, 512, *WIDE_POOLS):
-        for dtype in (torch.bfloat16, torch.float32):
-            (s, q, w, b), mask = slate_inputs(gen, dtype, rows, LD, h)
-            ms = timed_ms(lambda: attn_pool(s, mask, q, w, b), 5)
-            plain = timed_ms(lambda: attn_pool_reference(s, mask, q, w, b),
-                             3)
-            size = 2 if dtype == torch.bfloat16 else 4
-            flops = 2.0 * rows * LD * h * h + 4.0 * rows * LD * h
-            n_bytes = ((s.numel() + q.numel() + w.numel() + b.numel()
-                        + rows * h) * size + mask.numel())
-            bnd, by = bound_ms(flops, n_bytes, dtype)
-            log(f"attn_pool {dtype} [{rows},{LD},{h}] (CUDA-core kernel): "
-                f"kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
-                f"{bnd:.4f} ms ({by})")
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype)[6:]
+        for h in TILED_POOLS:
+            for rows in SLATE_TIMED_ROWS:
+                (s, q, w, b), mask = slate_inputs(gen, dtype, rows, LD, h)
+                flops = 2.0 * rows * LD * h * h + 4.0 * rows * LD * h
+                iters = max(2, min(20, int(4e11 / flops)))
+                route = pool_route(h, LD, dtype)
+                kernel, plain = [], []
+                for _ in range(SLATE_ROUNDS):
+                    kernel.append(timed_ms(
+                        lambda: attn_pool(s, mask, q, w, b), iters))
+                    plain.append(timed_ms(
+                        lambda: attn_pool_reference(s, mask, q, w, b),
+                        max(1, iters // 2)))
+                ms, plain_ms = float(np.median(kernel)), float(np.median(plain))
+                extra = {}
+                if route != "wide":
+                    extra["wide_ms"] = timed_ms(
+                        lambda: attn_pool(s, mask, q, w, b, wide=True), iters)
+                n_bytes = ((s.numel() + q.numel() + w.numel() + b.numel()
+                            + rows * h) * s.element_size() + mask.numel())
+                bnd, by = bound_ms(flops, n_bytes, dtype)
+                earlier = EARLIER_MS["attn_pool"].get((dt, h, rows))
+                log(f"attn_pool {dt} [{rows},{LD},{h}] ({route}): kernel "
+                    f"{spread(kernel)}, plain {spread(plain)}"
+                    + (f", the wide route forced {extra['wide_ms']:.3f} ms"
+                       if extra else "")
+                    + f", library none (no single PyTorch call), bound "
+                    f"{bnd:.4f} ms ({by}); {ms / plain_ms:.2f} x plain, "
+                    f"{ms / bnd:.1f} x its bound; the parent's "
+                    + ("not taken" if earlier is None else
+                       f"{earlier:.3f} ms (not this run: an H100 80GB HBM3 "
+                       f"at 700 W), {earlier / ms:.2f} x this"))
+                if h == H2 and (dtype == torch.bfloat16 or rows == B * S * N):
+                    rows_out.append(kernel_row(
+                        "attn_pool", "slate_pool.cu", "slate.py:158",
+                        launches, max_err[dtype], ms, plain_ms, None, bnd, by,
+                        rows=rows, steps=LD, h=h, dtype=dt, **extra))
+                del s, q, w, b, mask
+                torch.cuda.empty_cache()
     return rows_out
 
 
@@ -5302,16 +5366,12 @@ def time_beamgen_f32(gen, launches: dict, max_err: dict,
     return rows_out
 
 
-def log_earlier(name: str, ms: float, plain: float, lib, bnd: float,
-                rows: int | None = None) -> None:
+def log_earlier(name: str, ms: float, plain: float, lib, bnd: float) -> None:
     """Log a redesigned kernel's time beside its last CUDA-core version's
-    (for the log only: EARLIER_MS was not measured in this run); ``rows``
-    picks the reading of a kernel timed at several row counts."""
+    (for the log only: EARLIER_MS was not measured in this run)."""
     earlier = EARLIER_MS.get(name)
-    if isinstance(earlier, dict):
-        earlier = earlier.get(rows)
     if earlier is not None:
-        log(f"{name}{'' if rows is None else f' R={rows}'}: {ms:.3f} ms "
+        log(f"{name}: {ms:.3f} ms "
             f"now, {earlier:.3f} ms in its last CUDA-core version on an "
             "H100 80GB HBM3 at 700 W; "
             f"{ms / plain:.2f} x its plain version, "
@@ -5744,13 +5804,16 @@ def card() -> str:
 
 MAX_F32_TILED = 1024   # the float32 tile kernels hold H to here
 
-# the timing rows' earlier readings (ms, bf16, one H100 80GB HBM3 at
-# 700 W; the recurrent kernels at the doc-encoder shape, the generator's
-# modes at the beam-5 step's, kernel 10 by row count at T = Ld, as the last
-# chip_smoke run before their redesign read them): the last CUDA-core
-# versions of the kernels that have since been redesigned.  Logged beside
-# the new times, never put into the kernels line, which holds only what
-# this run measured.
+# the timing rows' earlier readings (ms, one H100 80GB HBM3 at 700 W; the
+# recurrent kernels at the doc-encoder shape, the generator's modes at the
+# beam-5 step's, bf16, as the last chip_smoke run before their redesign
+# read them): the last CUDA-core versions of the kernels that have since
+# been redesigned; kernel 10 by (dtype, H, rows) at T = Ld, the route of
+# the last commit with its CUDA-core kernel (the resident kernel at bf16 H
+# = 128 / 256, the CUDA-core kernel elsewhere), the mean of two runs of
+# `scripts/torch_kernel_digest.py --root` on that commit in one call.  Logged beside the new times,
+# never put into the kernels line, which holds only what this run
+# measured.
 EARLIER_MS = {"lstm_fused": 11.269, "lstm_fused_res": 11.256,
               "lstm_fused_bwd": 44.075, "gru_fused": 10.068,
               "gru_fused_res": 9.722, "gru_fused_bwd": 28.380,
@@ -5759,7 +5822,39 @@ EARLIER_MS = {"lstm_fused": 11.269, "lstm_fused_res": 11.256,
               "generator_topk_lse_int8": 3.041,
               "generator_topk_lse_pipelined": 3.761,
               "lstm_recurrence": 3.795,
-              "attn_pool": {B * S * N: 2.067, B * S * MAX_CLICKS: 0.958}}
+              "attn_pool": {
+                  ("bfloat16", 128, B * S * N): 0.322,
+                  ("bfloat16", 128, B * S * MAX_CLICKS): 0.048,
+                  ("bfloat16", 256, B * S * N): 0.448,
+                  ("bfloat16", 256, B * S * MAX_CLICKS): 0.065,
+                  ("bfloat16", 384, B * S * N): 8.484,
+                  ("bfloat16", 384, B * S * MAX_CLICKS): 2.085,
+                  ("bfloat16", 512, B * S * N): 15.266,
+                  ("bfloat16", 512, B * S * MAX_CLICKS): 3.856,
+                  ("bfloat16", 640, B * S * N): 22.469,
+                  ("bfloat16", 640, B * S * MAX_CLICKS): 5.412,
+                  ("bfloat16", 768, B * S * N): 42.953,
+                  ("bfloat16", 768, B * S * MAX_CLICKS): 5.483,
+                  ("bfloat16", 896, B * S * N): 62.312,
+                  ("bfloat16", 896, B * S * MAX_CLICKS): 7.996,
+                  ("bfloat16", 1024, B * S * N): 256.511,
+                  ("bfloat16", 1024, B * S * MAX_CLICKS): 32.196,
+                  ("float32", 128, B * S * N): 0.935,
+                  ("float32", 128, B * S * MAX_CLICKS): 0.640,
+                  ("float32", 256, B * S * N): 3.883,
+                  ("float32", 256, B * S * MAX_CLICKS): 1.924,
+                  ("float32", 384, B * S * N): 10.718,
+                  ("float32", 384, B * S * MAX_CLICKS): 2.724,
+                  ("float32", 512, B * S * N): 34.739,
+                  ("float32", 512, B * S * MAX_CLICKS): 8.691,
+                  ("float32", 640, B * S * N): 41.758,
+                  ("float32", 640, B * S * MAX_CLICKS): 8.276,
+                  ("float32", 768, B * S * N): 90.648,
+                  ("float32", 768, B * S * MAX_CLICKS): 11.442,
+                  ("float32", 896, B * S * N): 188.612,
+                  ("float32", 896, B * S * MAX_CLICKS): 23.694,
+                  ("float32", 1024, B * S * N): 1019.877,
+                  ("float32", 1024, B * S * MAX_CLICKS): 127.731}}
 
 # --only selectors, in running order.  "lstm", "grukernels",
 # "beamkernels" and "slatekernels" are the LSTM, GRU, generator and slate
@@ -6010,7 +6105,7 @@ def main() -> int:
         if "beam" in errs:
             kernels.append(time_beamgen(gen, launches, errs["beam"][bf16]))
         if "slate" in errs:
-            kernels.extend(time_slate(gen, launches, errs["slate"][bf16]))
+            kernels.extend(time_slate(gen, launches, errs["slate"]))
         if "beam" in errs:
             kernels.extend(time_beamgen_modes(gen, launches,
                                               errs["beam"][bf16],

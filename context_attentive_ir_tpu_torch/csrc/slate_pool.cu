@@ -11,17 +11,25 @@
 // context_attentive_ir_tpu/ops/pallas/slate.py (CARS's query-aware doc
 // pooling, `use_pallas_slate`).
 //
-// What bounds it on the H100: at the CARS slate (R = B*S*N = 16,000 rows,
-// T = 30, H = 256, bf16) one call is 2*R*T*H^2 = 6.3e10 flops (0.064 ms at
-// the 989 TFLOP/s bf16 tensor-core peak) against 262 MB of states, queries
-// and output (0.078 ms at 3.35 TB/s): memory-bound, if the projection runs
-// on tensor cores (on CUDA cores alone its flops need >= 0.94 ms); the
+// What bounds it on the H100: the projection is the GEMM [R*T, H] @ [H, H]
+// (states is contiguous), 2*R*T*H^2 flops, against the states, queries
+// and output read or written once.  At the CARS slate (R = B*S*N = 16,000
+// rows, T = 30, H = 256) that is 6.3e10 flops against 262 MB in bf16
+// (0.064 ms at the 989 TFLOP/s bf16 peak, 0.078 ms of bytes: memory-bound)
+// and 525 MB in float32 (0.384 ms at split TF32's 165 TFLOP/s, 0.157 ms of
+// bytes: operations); from H = 384 on, operations in both dtypes.  The
 // [R, T, H] projection never reaches device memory.
 //
-// Design, bfloat16 at H = 128 and 256 with 1 <= T <= 64
-// (slate_pool_tc_kernel): the projection is the GEMM [R*T, H] @ [H, H]
-// (states is contiguous).  A persistent grid of one block of 8 warps per
-// SM stages W_p once in shared memory (bf16, rows padded by 16 bytes for
+// Every route runs the projection on tensor cores and takes each
+// document's masked softmax over its T scores at once (the TPU kernel's
+// online softmax differs from it only in rounding); no atomics, so the
+// same bits every run, whatever the grid.  cair_slate_route says which
+// route a shape takes (`pool_route` in ops/kernels/slate.py is the same
+// rule):
+//
+// The resident kernel (slate_pool_tc_kernel), bfloat16 at H = 128 and 256
+// with 1 <= T <= 64: a persistent grid of one block of 8 warps per SM
+// stages W_p once in shared memory (bf16, rows padded by 16 bytes for
 // `ldmatrix`; 132 KB at H = 256) and walks tiles of whole documents: 64
 // token rows, each document's T padded to a multiple of 16 (2 documents at
 // T = 30, 4 at T <= 16, 1 at T > 32).  A tile's token rows and queries
@@ -33,51 +41,32 @@
 // `mma.sync.m16n8k16` tiles (bf16 in, f32 accumulate; the `ldmatrix`
 // fragments of the next k-step load under this one's `mma`), adds b_p,
 // takes tanh and the dot with its document's query in the accumulator
-// epilogue;
-// quad shuffles and one shared exchange across the 8 warps give each row's
-// score; one warp per document then takes the masked softmax over its T
-// scores at once, and the pooled sum_t p_t x_t / max(s, 1e-13) is read off
-// the staged tile in f32.  The TPU kernel (and slate_pool_kernel below)
-// take the softmax online, token by token with a running rescale; taken
-// per document at once it differs from theirs only in rounding.  No
-// atomics: the same bits every run, whatever the grid.
-// What holds it now: one block of 8 warps an SM runs a tile's phases in
-// turn -- the product (its shared-memory fragment traffic), the exact
-// tanhf of every projected element, three barriers and a softmax on one
-// warp per document -- so the copies hide, but the phases do not overlap
-// each other (PERF.md).
+// epilogue; quad shuffles and one shared exchange across the 8 warps give
+// each row's score; one warp per document then takes the masked softmax
+// over its T scores, and the pooled sum_t p_t x_t / max(s, 1e-13) is read
+// off the staged tile in f32.  What holds it: one block of 8 warps an SM
+// runs a tile's phases in turn -- the product, the exact tanhf of every
+// projected element, three barriers and a softmax on one warp per
+// document -- so the copies hide, but the phases do not overlap.
 //
-// The first version (slate_pool_kernel) stays for float32 (its bits
-// unchanged), for H = 384 .. 1024 (whose bf16 W_p, 288 KB and up, does not
-// fit a block's shared memory) and for T outside 1..64 (a document beyond
-// one tile): a block of 8 warps owns 64 rows (32 at H = 384 / 512, 16 at
-// 640 / 768, 8 at 896 / 1024: 8, 4, 2 or 1 rows per warp) and walks the T
-// tokens.  Per token it stages the rows' states
-// in shared memory as f32 (row-major), then each warp computes its rows'
-// projection with CUDA-core FMAs, each lane owning H/32 contiguous output
-// columns, W_p read from shared memory (bf16 at H <= 256) or from L2 (f32,
-// or H > 256), with an online softmax over the tokens.
-//
-// The wide route (above H = 1,024 -- CARS's doc pool at --nhid 576 and up
-// -- in both dtypes; at any width when asked, for timing) does not carry
-// that design on: it reads all of W_p from L2 for every token, 32.2 ms at
-// H = 1,024 against the plain version's 0.436 (R = 1,280, T = 30, bf16).
-// It is two launches in a fixed order.  The score kernel
-// (slate_score_kernel) runs the projection as the GEMM [R*T, H] @ [H, H]
-// in tiles of 128 tokens x 128 columns, so a tile reads its k-slabs of W_p
-// once for 128 tokens: bf16 on `mma.sync.m16n8k16` tiles (bf16 in, f32
-// accumulate), both operands' k-slabs of 32 streamed through a three-slab
-// `cp.async` ring; float32 on exact f32 FMAs, 8 x 8 outputs a thread, the
-// slabs staged k-major.  Its epilogue reduces tanh(acc + b_p) * query[doc]
-// over the tile's 128 columns into one partial score per token and column
-// tile, [H / 128, R*T] f32 in the caller's workspace.  The pool kernel
-// (slate_wide_pool_kernel, a block a document) adds a token's column
-// tiles' partials in tile order, takes the masked softmax over the
-// document's T scores at once (masked tokens score -1e30 and weigh 0; a
-// fully masked row pools to exactly 0) and sums p_t x_t in f32 over the
-// tokens in order.  No atomics: the same bits every run.  Bound at the
-// CARS slate at --nhid 1152 ([16000, 30, 2304], bf16): 2*R*T*H^2 = 5.1e12
-// flops, 5.15 ms at 989 TFLOP/s, by operations.
+// The wide route, every other shape: float32 at every width, bfloat16
+// from H = 384 (whose W_p, 288 KB and up, does not fit a block's shared
+// memory) and at 128 / 256 where a document does not fit a tile (T = 0,
+// T > 64), and any shape when asked (`wide`, for timing).  It is two
+// launches in a fixed order.  The score kernel
+// (slate_score_kernel) runs the projection in tiles of 128 tokens x 128
+// columns, so a tile reads its k-slabs of W_p once for 128 tokens, both
+// operands' k-slabs of 32 streamed through a three-slab `cp.async` ring:
+// bf16 on `mma.sync.m16n8k16` tiles (bf16 in, f32 accumulate), float32 on
+// the same tiles in split TF32 (a fresh accumulator a slab).  Its epilogue
+// reduces tanh(acc + b_p) * query[doc] over the tile's 128 columns into one
+// partial score per token and column tile, [H / 128, R*T] f32 in the
+// caller's workspace.  The pool kernel (slate_wide_pool_kernel, a block a
+// document) adds a token's column tiles' partials in tile order, takes the
+// masked softmax over the document's T scores at once and sums p_t x_t in
+// f32 over the tokens in order.  Bound at the CARS slate at --nhid 1152
+// ([16000, 30, 2304], bf16): 2*R*T*H^2 = 5.1e12 flops, 5.15 ms at 989
+// TFLOP/s, by operations.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,221 +87,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ void unpack(const uint2& u, float* out,
-                                       const float*) {
-  out[0] = __uint_as_float(u.x);
-  out[1] = __uint_as_float(u.y);
-}
-__device__ __forceinline__ void unpack(const uint2& u, float* out,
-                                       const __nv_bfloat16*) {
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  out[0] = a.x;
-  out[1] = a.y;
-  out[2] = b.x;
-  out[3] = b.y;
-}
-
-// n consecutive elements at p (8-byte aligned, n * sizeof(T) a multiple of
-// 8) as floats, in 8-byte loads; kGlobal reads through the read-only cache
-template <typename T, int N, bool kGlobal>
-__device__ __forceinline__ void load_row(const T* p, float (&out)[N]) {
-  constexpr int kPer = 8 / sizeof(T);
-  static_assert(N % kPer == 0, "row length must fill 8-byte loads");
-  const uint2* p2 = reinterpret_cast<const uint2*>(p);
-#pragma unroll
-  for (int i = 0; i < N / kPer; ++i) {
-    uint2 u;
-    if constexpr (kGlobal) {
-      u = __ldg(p2 + i);
-    } else {
-      u = p2[i];
-    }
-    unpack(u, out + i * kPer, p);
-  }
-}
-
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-template <typename T, int kCols, int kRowsPerWarp, bool kWShared>
-__global__ void __launch_bounds__(kWarps * 32)
-slate_pool_kernel(const T* __restrict__ states, const bool* __restrict__ mask,
-                  const T* __restrict__ query, const T* __restrict__ w_p,
-                  const T* __restrict__ b_p, T* __restrict__ out, int n_rows,
-                  int t_len) {
-  constexpr int H = 32 * kCols;
-  constexpr int kRowBlock = kWarps * kRowsPerWarp;
-  constexpr int kPer16 = 16 / sizeof(T);  // elements per 16-byte load
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);             // [kRowBlock][H]
-  T* ws = reinterpret_cast<T*>(xs + kRowBlock * H);        // [H][H]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int row0 = blockIdx.x * kRowBlock;
-  const int col0 = lane * kCols;
-
-  if constexpr (kWShared) {
-    const uint4* src = reinterpret_cast<const uint4*>(w_p);
-    uint4* dst = reinterpret_cast<uint4*>(ws);
-    for (int i = tid; i < H * H / kPer16; i += blockDim.x) dst[i] = __ldg(src + i);
-  }
-  const T* w = kWShared ? ws : w_p;
-
-  float bias[kCols];
-  load_row<T, kCols, true>(b_p + col0, bias);
-  float pooled[kRowsPerWarp][kCols], m_run[kRowsPerWarp], s_run[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m_run[r] = kMaskedScore;
-    s_run[r] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) pooled[r][c] = 0.0f;
-  }
-  const float* a_base = xs + warp * kRowsPerWarp * H;
-
-  for (int t = 0; t < t_len; ++t) {
-    __syncthreads();  // the previous token's readers of xs are done
-    for (int i = tid; i < kRowBlock * H / kPer16; i += blockDim.x) {
-      const int r = i / (H / kPer16);
-      const int k = (i - r * (H / kPer16)) * kPer16;
-      const int row = row0 + r;
-      float v[kPer16];
-      if (row < n_rows) {
-        load_row<T, kPer16, true>(states + ((size_t)row * t_len + t) * H + k,
-                                  v);
-      } else {
-#pragma unroll
-        for (int j = 0; j < kPer16; ++j) v[j] = 0.0f;
-      }
-      float4* dst = reinterpret_cast<float4*>(xs + r * H + k);
-#pragma unroll
-      for (int j = 0; j < kPer16 / 4; ++j)
-        dst[j] = make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2],
-                             v[4 * j + 3]);
-    }
-    __syncthreads();
-
-    float acc[kRowsPerWarp][kCols];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[r][c] = 0.0f;
-    }
-#pragma unroll 2
-    for (int k = 0; k < H; ++k) {
-      float wv[kCols];
-      load_row<T, kCols, !kWShared>(w + (size_t)k * H + col0, wv);
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float a = a_base[r * H + k];
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[r][c] = fmaf(a, wv[c], acc[r][c]);
-      }
-    }
-
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int row = row0 + warp * kRowsPerWarp + r;
-      float part = 0.0f;
-      if (row < n_rows) {
-        float q[kCols];
-        load_row<T, kCols, true>(query + (size_t)row * H + col0, q);
-#pragma unroll
-        for (int c = 0; c < kCols; ++c)
-          part += tanhf(acc[r][c] + bias[c]) * q[c];
-      }
-      const float score = warp_sum(part);
-      const bool valid = row < n_rows && mask[(size_t)row * t_len + t];
-      const float sc = valid ? score : kMaskedScore;
-      const float m_new = fmaxf(m_run[r], sc);
-      const float alpha = expf(m_run[r] - m_new);
-      const float p = valid ? expf(sc - m_new) : 0.0f;
-      s_run[r] = s_run[r] * alpha + p;
-      const float* x_r = a_base + r * H + col0;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c)
-        pooled[r][c] = pooled[r][c] * alpha + p * x_r[c];
-      m_run[r] = m_new;
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = row0 + warp * kRowsPerWarp + r;
-    if (row >= n_rows) continue;
-    const float den = fmaxf(s_run[r], 1e-13f);
-#pragma unroll
-    for (int c = 0; c < kCols; ++c)
-      store(out + (size_t)row * H + col0 + c, pooled[r][c] / den);
-  }
-}
-
-template <typename T, int kCols, int kRowsPerWarp, bool kWShared>
-int launch(const void* states, const void* mask, const void* query,
-           const void* w_p, const void* b_p, void* out, int n_rows,
-           int t_len, cudaStream_t stream) {
-  constexpr int H = 32 * kCols;
-  constexpr int kRowBlock = kWarps * kRowsPerWarp;
-  const size_t smem = (size_t)kRowBlock * H * sizeof(float) +
-                      (kWShared ? (size_t)H * H * sizeof(T) : 0);
-  auto kernel = slate_pool_kernel<T, kCols, kRowsPerWarp, kWShared>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it so the next launch reads clean
-    return (int)err;
-  }
-  kernel<<<(n_rows + kRowBlock - 1) / kRowBlock, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(states), static_cast<const bool*>(mask),
-      static_cast<const T*>(query), static_cast<const T*>(w_p),
-      static_cast<const T*>(b_p), static_cast<T*>(out), n_rows, t_len);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_h(const void* states, const void* mask, const void* query,
-             const void* w_p, const void* b_p, void* out, int n_rows,
-             int t_len, int h, cudaStream_t stream) {
-  constexpr bool kBf16 = sizeof(T) == 2;  // W_p in shared memory at H <= 256
-  switch (h) {
-    case 128:
-      return launch<T, 4, 8, kBf16>(states, mask, query, w_p, b_p, out,
-                                    n_rows, t_len, stream);
-    case 256:
-      return launch<T, 8, 8, kBf16>(states, mask, query, w_p, b_p, out,
-                                    n_rows, t_len, stream);
-    case 384:
-      return launch<T, 12, 4, false>(states, mask, query, w_p, b_p, out,
-                                     n_rows, t_len, stream);
-    case 512:
-      return launch<T, 16, 4, false>(states, mask, query, w_p, b_p, out,
-                                     n_rows, t_len, stream);
-    // wider pools (CARS's doc pool is 2 * nhid wide): fewer rows a warp, so
-    // a thread's accumulators and pooled sums (2 * kCols * kRowsPerWarp
-    // floats) stay inside the 255 registers of the 256-thread block
-    case 640:
-      return launch<T, 20, 2, false>(states, mask, query, w_p, b_p, out,
-                                     n_rows, t_len, stream);
-    case 768:
-      return launch<T, 24, 2, false>(states, mask, query, w_p, b_p, out,
-                                     n_rows, t_len, stream);
-    case 896:
-      return launch<T, 28, 1, false>(states, mask, query, w_p, b_p, out,
-                                     n_rows, t_len, stream);
-    case 1024:
-      return launch<T, 32, 1, false>(states, mask, query, w_p, b_p, out,
-                                     n_rows, t_len, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-// -- the bf16 tensor-core kernel -------------------------------------------
+// -- the resident kernel: bf16 W_p in shared memory ------------------------
 
 constexpr int kTileRows = 64;                 // token rows of a tile
 constexpr int kMaxDocs = kTileRows / 16;      // documents of a tile (T <= 16)
@@ -336,6 +116,87 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// The resident kernel's walk of whole-document tiles.  doc_tile:
+// documents doc0 .. doc0 + nd - 1 into a tile buffer `dst` (token rows rb
+// bytes apart, document d's rows from d * t_pad) and their queries into
+// `q_dst`, one bulk copy per token row and one for the queries, all
+// completing on `bar` (one warp, lane 0 arming it).
+template <typename T>
+__device__ __forceinline__ void doc_tile(char* dst, T* q_dst,
+                                         const T* states, const T* query,
+                                         int doc0, int nd, int t_len,
+                                         int t_pad, int h, int rb,
+                                         uint64_t* bar, int lane) {
+  constexpr int E = (int)sizeof(T);
+  if (lane == 0)
+    cair_lstm::tiles::mbar_expect_tx(bar, (uint32_t)nd * (t_len + 1) * h * E);
+  __syncwarp();
+  fence_proxy_async();
+  for (int i = lane; i < nd * t_len; i += 32) {
+    const int d = i / t_len, t = i - d * t_len;
+    cair_lstm::tiles::bulk_copy(dst + (d * t_pad + t) * rb,
+                                states + ((size_t)(doc0 + d) * t_len + t) * h,
+                                h * E, bar);
+  }
+  if (lane == 0)
+    cair_lstm::tiles::bulk_copy(q_dst, query + (size_t)doc0 * h, nd * h * E,
+                                bar);
+}
+
+// The masked softmax of one document's T <= 64 scores on one warp
+// (score(t) read only for valid tokens): masked tokens score -1e30 and
+// weigh 0; the weights of tokens 0 .. t_pad - 1 to p_d, their sum to *den.
+template <typename Score>
+__device__ __forceinline__ void doc_softmax(const bool* m_row, int t_len,
+                                            int t_pad, int lane, float* p_d,
+                                            float* den, Score score) {
+  float sc[2], p[2];
+  bool valid[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int t = lane + 32 * j;
+    valid[j] = t < t_len && m_row[t];
+    sc[j] = valid[j] ? score(t) : kMaskedScore;
+  }
+  float m = fmaxf(sc[0], sc[1]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    p[j] = valid[j] ? expf(sc[j] - m) : 0.0f;
+    const int t = lane + 32 * j;
+    if (t < t_pad) p_d[t] = p[j];
+  }
+  const float s = warp_sum(p[0] + p[1]);
+  if (lane == 0) *den = s;
+}
+
+// pooled = sum_t p_t x_t / max(s, 1e-13) of the tile's nd documents, in
+// f32 off the staged rows, a column pair a thread (n_threads of them)
+template <typename T>
+__device__ __forceinline__ void doc_pool(const char* x_s, int rb,
+                                         const float* p_s,
+                                         const float* den_s, int nd,
+                                         int t_len, int t_pad, int h, T* out,
+                                         int tid, int n_threads) {
+  using cair_lstm::Elt;
+  for (int idx = tid; idx < nd * (h / 2); idx += n_threads) {
+    const int d = idx / (h / 2), col = (idx - d * (h / 2)) * 2;
+    const char* x_d = x_s + (size_t)d * t_pad * rb + col * (int)sizeof(T);
+    const float* p_d = p_s + d * t_pad;
+    float ax = 0.0f, ay = 0.0f;
+    for (int t = 0; t < t_len; ++t) {
+      const float pt = p_d[t];
+      const float2 xv = Elt<T>::load2(x_d + (size_t)t * rb);
+      ax = fmaf(pt, xv.x, ax);
+      ay = fmaf(pt, xv.y, ay);
+    }
+    const float den = fmaxf(den_s[d], 1e-13f);
+    Elt<T>::store2(out + (size_t)d * h + col, ax / den, ay / den);
+  }
+}
+
 template <int H>
 __global__ void __launch_bounds__(kWarps * 32, 1)
 slate_pool_tc_kernel(const __nv_bfloat16* __restrict__ states,
@@ -348,10 +209,8 @@ slate_pool_tc_kernel(const __nv_bfloat16* __restrict__ states,
   // the tiles' primitives (lstm_mma.cuh); kWarps and kFull are this file's
   using cair_lstm::tiles::bf16;
   using cair_lstm::tiles::bf162;
-  using cair_lstm::tiles::bulk_copy;
   using cair_lstm::tiles::ldsm_x4;
   using cair_lstm::tiles::ldsm_x4_trans;
-  using cair_lstm::tiles::mbar_expect_tx;
   using cair_lstm::tiles::mbar_init;
   using cair_lstm::tiles::mbar_wait;
   using cair_lstm::tiles::mma_bf16;
@@ -401,20 +260,9 @@ slate_pool_tc_kernel(const __nv_bfloat16* __restrict__ states,
   // for the documents' queries, all completing on the buffer's mbarrier
   auto issue = [&](int tile, int b) {
     const int doc0 = tile * docs;
-    const int nd = min(docs, n_rows - doc0);
-    if (lane == 0)
-      mbar_expect_tx(&bar[b], (uint32_t)nd * (t_len + 1) * H * 2);
-    __syncwarp();
-    fence_proxy_async();
-    char* dst = buf0 + b * kTileRows * RB;
-    for (int i = lane; i < nd * t_len; i += 32) {
-      const int d = i / t_len, t = i - d * t_len;
-      bulk_copy(dst + (d * t_pad + t) * RB,
-                states + ((size_t)(doc0 + d) * t_len + t) * H, H * 2, &bar[b]);
-    }
-    if (lane == 0)
-      bulk_copy(q_s + b * kMaxDocs * H, query + (size_t)doc0 * H, nd * H * 2,
-                &bar[b]);
+    doc_tile(buf0 + b * kTileRows * RB, q_s + b * kMaxDocs * H, states, query,
+             doc0, min(docs, n_rows - doc0), t_len, t_pad, H, RB, &bar[b],
+             lane);
   };
 
   if (warp == 0 && (int)blockIdx.x < n_tiles) issue(blockIdx.x, 0);
@@ -495,55 +343,20 @@ slate_pool_tc_kernel(const __nv_bfloat16* __restrict__ states,
       }
     __syncthreads();
 
-    // masked softmax of each document's T scores (warp d: document d)
-    if (warp < nd) {
-      const bool* m_row = mask + (size_t)(doc0 + warp) * t_len;
-      float sc[2], p[2];
-      bool valid[2];
+    // masked softmax of each document's T scores (warp d: document d), a
+    // token's score the 8 warps' partials in order
+    if (warp < nd)
+      doc_softmax(mask + (size_t)(doc0 + warp) * t_len, t_len, t_pad, lane,
+                  p_s + warp * t_pad, &den_s[warp], [&](int t) {
+                    float s = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int t = lane + 32 * j;
-        valid[j] = t < t_len && m_row[t];
-        float s = 0.0f;
-        if (valid[j]) {
-#pragma unroll
-          for (int w = 0; w < kWarps; ++w)
-            s += sc_part[w * kTileRows + warp * t_pad + t];
-        }
-        sc[j] = valid[j] ? s : kMaskedScore;
-      }
-      float m = fmaxf(sc[0], sc[1]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        p[j] = valid[j] ? expf(sc[j] - m) : 0.0f;
-        const int t = lane + 32 * j;
-        if (t < t_pad) p_s[warp * t_pad + t] = p[j];
-      }
-      const float den = warp_sum(p[0] + p[1]);
-      if (lane == 0) den_s[warp] = den;
-    }
+                    for (int w = 0; w < kWarps; ++w)
+                      s += sc_part[w * kTileRows + warp * t_pad + t];
+                    return s;
+                  });
     __syncthreads();
-
-    // pooled = sum_t p_t x_t / max(s, 1e-13), a column pair a thread
-    for (int idx = tid; idx < nd * (H / 2); idx += blockDim.x) {
-      const int d = idx / (H / 2), col = (idx - d * (H / 2)) * 2;
-      const char* x_d = x_s + d * t_pad * RB + col * 2;
-      const float* p_d = p_s + d * t_pad;
-      float ax = 0.0f, ay = 0.0f;
-      for (int t = 0; t < t_len; ++t) {
-        const float pt = p_d[t];
-        const float2 xv =
-            __bfloat1622float2(*reinterpret_cast<const bf162*>(x_d + t * RB));
-        ax = fmaf(pt, xv.x, ax);
-        ay = fmaf(pt, xv.y, ay);
-      }
-      const float den = fmaxf(den_s[d], 1e-13f);
-      *reinterpret_cast<bf162*>(out + (size_t)(doc0 + d) * H + col) =
-          __floats2bfloat162_rn(ax / den, ay / den);
-    }
+    doc_pool(x_s, RB, p_s, den_s, nd, t_len, t_pad, H, out + (size_t)doc0 * H,
+             tid, blockDim.x);
     __syncthreads();  // the buffer, the scores and the weights are free
   }
 }
@@ -580,36 +393,41 @@ int launch_tc(const void* states, const void* mask, const void* query,
 
 // -- the wide route: score tiles, then a pool a document ---------------------
 
-constexpr int kMaxCudaCore = 1024;  // the widest CUDA-core instantiation
 constexpr int kScoreRows = 128;     // tokens of a score tile
 constexpr int kScoreCols = 128;     // W_p columns of a score tile
 constexpr int kScoreK = 32;         // k-rows of a slab
-constexpr int kScoreStages = 3;     // slabs in the bf16 ring
+constexpr int kScoreStages = 3;     // slabs in the ring
 // bytes per staged row of the bf16 ring: a token row's kScoreK values, a
 // slab row's kScoreCols, each padded by 16 bytes for `ldmatrix`
 constexpr int kScoreARow = kScoreK * 2 + 16;
 constexpr int kScoreBRow = kScoreCols * 2 + 16;
 constexpr int kScoreStage = kScoreRows * kScoreARow + kScoreK * kScoreBRow;
-// floats per staged k-row of the float32 kernel
-constexpr int kScoreF32Row = kScoreRows + 4;
+// the float32 ring: token rows of kScoreK floats padded by 16 bytes
+// (`ldmatrix`), k-major slab rows of 136 floats (8 words modulo 32: a
+// warp's scalar B loads hit 32 banks)
+constexpr int kScoreF32ARow = kScoreK * 4 + 16;
+constexpr int kScoreF32BRow = kScoreCols * 4 + 32;
+constexpr int kScoreF32Stage =
+    kScoreRows * kScoreF32ARow + kScoreK * kScoreF32BRow;
 
-// Dynamic shared memory of slate_score_kernel: bf16 the ring, then the
-// column halves' score exchange (2 x kScoreRows f32); float32 the two
-// k-major slabs.
+// Dynamic shared memory of slate_score_kernel: the ring, then the column
+// halves' score exchange (2 x kScoreRows f32).
 inline size_t score_smem(int dtype) {
-  return dtype == 1 ? (size_t)kScoreStages * kScoreStage + 2 * kScoreRows * 4
-                    : (size_t)2 * kScoreK * kScoreF32Row * 4;
+  return (size_t)kScoreStages * (dtype == 1 ? kScoreStage : kScoreF32Stage) +
+         2 * kScoreRows * 4;
 }
 
 // partial[blockIdx.y][tok] = sum over the tile's 128 columns c of
 // tanh((states @ W_p)[tok, c] + b_p[c]) * query[tok / T, c], for the tile's
 // 128 tokens (blockIdx.x); rows past n_tok read zeros and write nothing.
-// bf16: warp w owns tokens (w % 4) * 32 .. + 31 and columns (w / 4) * 64 ..
-// + 63 of the tile (2 x 8 `mma` tiles), fragments by `ldmatrix` from the
-// ring's slabs.  float32: thread (ty, tx) owns tokens ty * 8 .. + 7 and
-// columns tx * 8 .. + 7, exact f32 FMAs in k order.  A token's columns are
-// summed in column order within a thread, by quad (bf16) or half-warp
-// (float32) shuffles across threads, then the bf16 column halves in order.
+// Warp w owns tokens (w % 4) * 32 .. + 31 and columns (w / 4) * 64 .. + 63
+// of the tile (2 x 8 `mma` tiles), fragments from the ring's slabs: bf16
+// by `ldmatrix` (A) and `ldmatrix.trans` (B) into `mma.sync.m16n8k16`;
+// float32 in split TF32, A by `ldmatrix` of f32 rows, B by two scalar
+// loads a lane, each slab's products in a fresh accumulator added to the
+// tile's in f32.  A token's columns are summed in column order within a
+// thread, by quad shuffles across threads, then the column halves in
+// order.
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 slate_score_kernel(const T* __restrict__ states, const T* __restrict__ query,
@@ -723,71 +541,123 @@ slate_score_kernel(const T* __restrict__ states, const T* __restrict__ query,
       partial[(size_t)blockIdx.y * n_tok + tok0 + tid] =
           sc_ex[tid] + sc_ex[kScoreRows + tid];
   } else {
-    float* a_s = reinterpret_cast<float*>(smem);     // [kScoreK][kScoreF32Row]
-    float* b_s = a_s + kScoreK * kScoreF32Row;       // the same
-    const int tx = tid & 15, ty = tid >> 4;
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-    for (int kt = 0; kt < n_k; ++kt) {
+    namespace t32 = cair_lstm::tf32;
+    using cair_lstm::tiles::cp_async16;
+    using cair_lstm::tiles::cp_async_commit;
+    using cair_lstm::tiles::cp_async_wait;
+    using cair_lstm::tiles::ldsm_x4;
+    const int g = lane >> 2, tg = lane & 3;
+    const int wm = warp & 3, wn = warp >> 2;
+    float* sc_ex =
+        reinterpret_cast<float*>(smem + kScoreStages * kScoreF32Stage);
+    // slab kt of both operands into stage s: 1,024 16-byte pieces each
+    auto load = [&](int kt, int st) {
+      char* a_s = smem + st * kScoreF32Stage;
+      char* b_s = a_s + kScoreRows * kScoreF32ARow;
       const int k0 = kt * kScoreK;
-      __syncthreads();  // every thread is done with the slabs before
       for (int i = tid; i < kScoreRows * (kScoreK / 4); i += kWarps * 32) {
-        const int r = i / (kScoreK / 4), c = (i - r * (kScoreK / 4)) * 4;
-        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (tok0 + r < n_tok)
-          v = __ldg(reinterpret_cast<const float4*>(
-              states + (size_t)(tok0 + r) * h + k0 + c));
-        a_s[(c + 0) * kScoreF32Row + r] = v.x;
-        a_s[(c + 1) * kScoreF32Row + r] = v.y;
-        a_s[(c + 2) * kScoreF32Row + r] = v.z;
-        a_s[(c + 3) * kScoreF32Row + r] = v.w;
+        const int r = i / (kScoreK / 4), c = i - r * (kScoreK / 4);
+        const bool valid = tok0 + r < n_tok;
+        cp_async16(a_s + r * kScoreF32ARow + c * 16,
+                   valid ? states + (size_t)(tok0 + r) * h + k0 + c * 4
+                         : states,
+                   valid);
       }
       for (int i = tid; i < kScoreK * (kScoreCols / 4); i += kWarps * 32) {
-        const int r = i / (kScoreCols / 4), c = (i - r * (kScoreCols / 4)) * 4;
-        *reinterpret_cast<float4*>(b_s + r * kScoreF32Row + c) =
-            __ldg(reinterpret_cast<const float4*>(
-                w_p + (size_t)(k0 + r) * h + c0 + c));
+        const int r = i / (kScoreCols / 4), c = i - r * (kScoreCols / 4);
+        cp_async16(b_s + r * kScoreF32BRow + c * 16,
+                   w_p + (size_t)(k0 + r) * h + c0 + c * 4, true);
       }
-      __syncthreads();
-#pragma unroll 4
-      for (int k = 0; k < kScoreK; ++k) {
-        const float4 a0 = *reinterpret_cast<const float4*>(
-            a_s + k * kScoreF32Row + ty * 8);
-        const float4 a1 = *reinterpret_cast<const float4*>(
-            a_s + k * kScoreF32Row + ty * 8 + 4);
-        const float4 b0 = *reinterpret_cast<const float4*>(
-            b_s + k * kScoreF32Row + tx * 8);
-        const float4 b1 = *reinterpret_cast<const float4*>(
-            b_s + k * kScoreF32Row + tx * 8 + 4);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    };
+    float acc[2][8][4];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[mt][nt][v] = 0.0f;
+#pragma unroll
+    for (int st = 0; st < kScoreStages - 1; ++st) {
+      if (st < n_k) load(st, st);
+      cp_async_commit();
     }
+    for (int kt = 0; kt < n_k; ++kt) {
+      cp_async_wait<kScoreStages - 2>();
+      __syncthreads();  // slab kt landed; every warp is done with kt - 1's
+      if (kt + kScoreStages - 1 < n_k)
+        load(kt + kScoreStages - 1, (kt + kScoreStages - 1) % kScoreStages);
+      cp_async_commit();
+      const char* a_s = smem + (kt % kScoreStages) * kScoreF32Stage;
+      const char* b_s = a_s + kScoreRows * kScoreF32ARow;
+      // A: rows from lanes 0-15, k + 4 from lanes 16-31; B: k rows tg (b0)
+      // and tg + 4 (b1), column g of each n-tile
+      const char* a_base =
+          a_s + (wm * 32 + (lane & 15)) * kScoreF32ARow + (lane >> 4) * 16;
+      const char* b_base = b_s + tg * kScoreF32BRow + (wn * 64 + g) * 4;
+      float part[2][8][4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = ty * 8 + i;
-      float v = 0.0f;
-      if (tok0 + r < n_tok) {
-        const T* q_d = query + (size_t)((tok0 + r) / t_len) * h;
+      for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int col = c0 + tx * 8 + j;
-          v += tanhf(acc[i][j] + __ldg(b_p + col)) * __ldg(q_d + col);
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) part[mt][nt][v] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < kScoreK; kk += 8) {
+        t32::AFrag a[2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          uint32_t raw[4];
+          ldsm_x4(raw, a_base + mt * 16 * kScoreF32ARow + kk * 4);
+          t32::split_a(a[mt], raw);
+        }
+        const float* b_lo =
+            reinterpret_cast<const float*>(b_base + kk * kScoreF32BRow);
+        const float* b_hi =
+            reinterpret_cast<const float*>(b_base + (kk + 4) * kScoreF32BRow);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const t32::BFrag b = t32::split_b(b_lo[nt * 8], b_hi[nt * 8]);
+#pragma unroll
+          for (int term = 0; term < 3; ++term)
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+              t32::mma_term(part[mt][nt], a[mt], b, term);
         }
       }
-      // the half-warp's 16 column groups, by a fixed shuffle tree
 #pragma unroll
-      for (int off = 1; off < 16; off <<= 1) v += __shfl_xor_sync(kFull, v, off);
-      if (tx == 0 && tok0 + r < n_tok)
-        partial[(size_t)blockIdx.y * n_tok + tok0 + r] = v;
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[mt][nt][v] += part[mt][nt][v];
     }
+    // epilogue: tanh(. + b_p) . query over the warp's 64 columns
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = wm * 32 + mt * 16 + g + half * 8;
+        float v = 0.0f;
+        if (tok0 + r < n_tok) {
+          const T* q_d = query + (size_t)((tok0 + r) / t_len) * h;
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            const int col = c0 + wn * 64 + nt * 8 + 2 * tg;
+            const float2 qv = *reinterpret_cast<const float2*>(q_d + col);
+            const float2 bv = *reinterpret_cast<const float2*>(b_p + col);
+            v += tanhf(acc[mt][nt][half * 2] + bv.x) * qv.x +
+                 tanhf(acc[mt][nt][half * 2 + 1] + bv.y) * qv.y;
+          }
+        }
+        v += __shfl_xor_sync(kFull, v, 1);
+        v += __shfl_xor_sync(kFull, v, 2);
+        if (tg == 0) sc_ex[wn * kScoreRows + r] = v;
+      }
+    // the two column halves added in order, one partial a token
+    __syncthreads();
+    if (tid < kScoreRows && tok0 + tid < n_tok)
+      partial[(size_t)blockIdx.y * n_tok + tok0 + tid] =
+          sc_ex[tid] + sc_ex[kScoreRows + tid];
   }
 }
 
@@ -865,10 +735,6 @@ slate_wide_pool_kernel(const T* __restrict__ states,
   }
 }
 
-// Whether cair_slate_pool takes the wide route: above the CUDA-core
-// instantiations, or when asked (`wide`, for timing it beside them).
-inline bool wide_route(int h, int wide) { return wide || h > kMaxCudaCore; }
-
 inline size_t wide_workspace(int n_rows, int t_len, int h) {
   return (size_t)(h / kScoreCols) * n_rows * t_len * sizeof(float);
 }
@@ -883,6 +749,7 @@ int launch_wide(const void* states, const void* mask, const void* query,
   const int dtype = sizeof(T) == 2 ? 1 : 0;
   float* partial = static_cast<float*>(workspace);
   if (n_tok > 0) {
+    if (partial == nullptr) return (int)cudaErrorInvalidValue;
     auto* kernel = slate_score_kernel<T>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -906,28 +773,51 @@ int launch_wide(const void* states, const void* mask, const void* query,
   return (int)cudaGetLastError();
 }
 
+// -- the route rule -----------------------------------------------------------
+
+enum Route { kRefused = -1, kResident = 0, kWide = 1 };
+
+// The route of a pool of width h over documents of t_len tokens in dtype
+// (0 = float32, 1 = bfloat16): the resident kernel for bf16 at H = 128 /
+// 256 with 1 <= T <= 64 and `wide` unset; the wide route for every other
+// shape.  Refused: H not a positive multiple of 128, T < 0, another dtype.
+inline int route_of(int t_len, int h, int dtype, int wide) {
+  if (t_len < 0 || h <= 0 || h % 128 != 0 || (dtype != 0 && dtype != 1))
+    return kRefused;
+  return !wide && dtype == 1 && (h == 128 || h == 256) && t_len >= 1 &&
+                 t_len <= kTileRows
+             ? kResident
+             : kWide;
+}
+
 }  // namespace
+
+// The route cair_slate_pool takes for this shape: 0 the resident kernel, 1
+// the wide route; -1 for a shape it refuses.
+extern "C" int cair_slate_route(int n_rows, int t_len, int h, int dtype,
+                                int wide) {
+  return n_rows < 0 ? kRefused : route_of(t_len, h, dtype, wide);
+}
 
 // Bytes of workspace cair_slate_pool needs (the wide route's partial
 // scores, [H / 128, R*T] f32; 0 on the other routes and at H = 0), or -1
-// for a width it refuses.
+// for a shape it refuses.
 extern "C" long long cair_slate_pool_workspace(int n_rows, int t_len, int h,
-                                               int wide) {
-  if (n_rows < 0 || t_len < 0 || h < 0 || h % 128 != 0) return -1;
-  return h > 0 && wide_route(h, wide)
-             ? (long long)wide_workspace(n_rows, t_len, h)
-             : 0;
+                                               int dtype, int wide) {
+  if (n_rows < 0 || t_len < 0 || (dtype != 0 && dtype != 1)) return -1;
+  if (h == 0) return 0;
+  const int route = route_of(t_len, h, dtype, wide);
+  if (route == kRefused) return -1;
+  return route == kWide ? (long long)wide_workspace(n_rows, t_len, h) : 0;
 }
 
 // states [R, T, H], mask bool [R, T], query [R, H], w_p [H, H], b_p [H]
 // (contiguous, one dtype: 0 = float32, 1 = bfloat16; states, query and w_p
 // 16-byte aligned) -> out [R, H] in that dtype.  H must be a multiple of
 // 128 (`pool_supported` in ops/kernels/slate.py states the same set; H = 0
-// writes nothing).  Up
-// to H = 1,024: bfloat16 at H = 128 or 256 with 1 <= T <= 64 runs
-// slate_pool_tc_kernel, everything else slate_pool_kernel; above it (or at
-// any H with `wide` set) the wide route, slate_score_kernel then
-// slate_wide_pool_kernel, its partial scores in `workspace`
+// writes nothing).  The route is cair_slate_route's: slate_pool_tc_kernel,
+// or slate_score_kernel then slate_wide_pool_kernel with their partial
+// scores in `workspace`
 // (cair_slate_pool_workspace bytes, 16-byte aligned; unread elsewhere).
 // Returns the cudaError_t (0 = ok).
 extern "C" int cair_slate_pool(const void* states, const void* mask,
@@ -936,7 +826,8 @@ extern "C" int cair_slate_pool(const void* states, const void* mask,
                                int n_rows, int t_len, int h, int dtype,
                                int wide, void* stream) {
   if (n_rows == 0 || h == 0) return 0;
-  if (t_len < 0) return (int)cudaErrorInvalidValue;
+  const int route = route_of(t_len, h, dtype, wide);
+  if (n_rows < 0 || route == kRefused) return (int)cudaErrorInvalidValue;
   const void* vectors[] = {states, query, w_p};
   for (const void* p : vectors)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
@@ -944,26 +835,18 @@ extern "C" int cair_slate_pool(const void* states, const void* mask,
   if (reinterpret_cast<uintptr_t>(b_p) % 8 != 0)
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  if (h >= 128 && h % 128 == 0 && wide_route(h, wide))
-    return dtype == 1
-               ? launch_wide<__nv_bfloat16>(states, mask, query, w_p, b_p,
-                                            out, workspace, n_rows, t_len, h,
-                                            s)
-               : launch_wide<float>(states, mask, query, w_p, b_p, out,
-                                    workspace, n_rows, t_len, h, s);
-  if (dtype == 0)
-    return launch_h<float>(states, mask, query, w_p, b_p, out, n_rows, t_len,
-                           h, s);
-  // bf16 on tensor cores where W_p and a tile of whole documents fit
-  if (t_len >= 1 && t_len <= kTileRows) {
-    if (h == 128)
-      return launch_tc<128>(states, mask, query, w_p, b_p, out, n_rows, t_len,
-                            s);
-    if (h == 256)
-      return launch_tc<256>(states, mask, query, w_p, b_p, out, n_rows, t_len,
-                            s);
+  using bf16 = __nv_bfloat16;
+  switch (route) {
+    case kResident:
+      return h == 128 ? launch_tc<128>(states, mask, query, w_p, b_p, out,
+                                       n_rows, t_len, s)
+                      : launch_tc<256>(states, mask, query, w_p, b_p, out,
+                                       n_rows, t_len, s);
+    default:
+      return dtype == 1
+                 ? launch_wide<bf16>(states, mask, query, w_p, b_p, out,
+                                     workspace, n_rows, t_len, h, s)
+                 : launch_wide<float>(states, mask, query, w_p, b_p, out,
+                                      workspace, n_rows, t_len, h, s);
   }
-  return launch_h<__nv_bfloat16>(states, mask, query, w_p, b_p, out, n_rows,
-                                 t_len, h, s);
 }

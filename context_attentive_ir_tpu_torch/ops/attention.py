@@ -21,12 +21,14 @@ slate-pool kernel (kernel 10, ``ops/kernels/slate.py``) when the JAX
 the launcher holds whole) -- and the states lie on a CUDA device.  A shape
 the JAX gate refuses takes the formulation below, as in JAX.
 
-Speed: from H = 384 to 1,024 (CARS's doc pool at ``nhid`` 192 to 512) the
-kernel is its CUDA-core form, which reads all of W_p from L2 for every
-token of every block of 8 to 32 rows; on the H100 it is 3-74x slower there
-than this module with ``use_kernel=False`` (``use_pallas_slate=False``).
-Above 1,024 it takes the wide route (score tiles on tensor cores, then a
-pool a document), PERF.md.
+Speed: the kernel runs on tensor cores at every width (``pool_route``: the
+resident kernel for bf16 at 128 / 256, the wide route elsewhere).  On the
+H100 (PERF.md) it is faster than this module with ``use_kernel=False`` in
+float32 at every width, and in bf16 at suggest init's 1,280 documents at
+every width and at the rank slate's 16,000 documents to H = 768; at H =
+896-1,024 (CARS's doc pool at ``nhid`` 448-512) it is 1.02-1.16x slower
+there in bf16, and above 1,024 1.8-2.2x slower in bf16, so leave
+``use_pallas_slate`` off at those widths in bf16 for ranking.
 """
 
 from __future__ import annotations

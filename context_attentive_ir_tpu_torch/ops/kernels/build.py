@@ -52,7 +52,8 @@ SIGNATURES = {
     "cair_beamgen_occupancy": ([_I] * 6 + [_IP], _I),
     "cair_beamgen": ([_P, _P, _P] + [_I] * 8 + [_P] * 7 + [_I] * 4 + [_P],
                      _I),
-    "cair_slate_pool_workspace": ([_I] * 4, ctypes.c_longlong),
+    "cair_slate_route": ([_I] * 5, _I),
+    "cair_slate_pool_workspace": ([_I] * 5, ctypes.c_longlong),
     "cair_slate_pool": ([_P] * 7 + [_I] * 5 + [_P], _I),
     "cair_error_string": ([_I], ctypes.c_char_p),
 }

@@ -15,38 +15,35 @@ float32 (masked tokens score -1e30 and weigh 0), so the ``[R, T, H]``
 projection never reaches device memory.  A fully masked row pools to
 exactly 0.  The output has the states' dtype.
 
-The kernel is ``csrc/slate_pool.cu``.  In bfloat16 at H = 128 and 256
-with 1 <= T <= 64 (``pool_tensor_cores``) it runs the projection as the
-GEMM ``[R*T, H] @ [H, H]`` on tensor cores (``mma.sync.m16n8k16``, bf16 in,
-f32 accumulate): a persistent block per SM stages W_p once in shared memory
-and walks tiles of whole documents (``pool_tiles``: 64 token rows, each
-document's T padded to a multiple of 16), copied by ``cp.async.bulk`` into
-one buffer while it works on the other; the scores come out of the
-accumulators' epilogue, each document takes its masked softmax over its T
-scores at once, and the pooled vector is summed off the staged tile in
-f32.  That per-document softmax differs from the online one only in
-rounding.  float32, H = 384 .. 1024 (whose W_p does not fit in shared
-memory) and T above one tile keep the first version: a block owns 64 rows
-(32 at H = 384 / 512, 16 at 640 / 768, 8 at 896 / 1024), stages each
-token's states in f32 and runs the projection on CUDA cores with an online
-softmax.
+The kernel is ``csrc/slate_pool.cu``; ``pool_route`` says which of its
+two routes a shape takes (``cair_slate_route``, the launcher's rule),
+each running the projection ``[R*T, H] @ [H, H]`` on tensor cores and
+taking each document's masked softmax over its T scores at once (the TPU
+kernel's online softmax differs from it only in rounding):
 
-Above H = 1,024 (``pool_wide``; CARS's doc pool is ``2 * nhid`` wide) both
-dtypes take the wide route, two launches: a score kernel runs the
-projection as the GEMM ``[R*T, H] @ [H, H]`` in tiles of 128 tokens x 128
-columns (bf16 ``mma.sync`` tiles from a ``cp.async`` ring of k-slabs;
-float32 exact f32 FMAs), so W_p is read once a token tile, and reduces
-``tanh(acc + b_p) . query`` over each tile's columns into a partial score
-per token and column tile; a pool kernel adds a token's partials in tile
-order, takes each document's masked softmax at once and sums the pooled
-vector in f32.  ``wide=True`` runs that route at any width, to time it
-beside the CUDA-core kernel.
+- ``"resident"``: bfloat16 at H = 128 and 256 with 1 <= T <= 64.  A
+  persistent block per SM stages W_p once in shared memory and walks tiles
+  of whole documents (``pool_tiles``: 64 token rows, each document's T
+  padded to a multiple of 16), copied by ``cp.async.bulk`` into one buffer
+  while it works on the other; ``mma.sync.m16n8k16`` (bf16 in, f32
+  accumulate), the scores out of the accumulators' epilogue, the pooled
+  vector summed off the staged tile in f32.
+- ``"wide"``: every other shape -- float32 at every width, bfloat16 from
+  H = 384 (whose W_p does not fit in shared memory) and at 128 / 256 where
+  a document does not fit a tile (T = 0, T > 64) -- and any shape with
+  ``wide=True`` (for timing): two launches, a score kernel in tiles of 128
+  tokens x 128 columns (both operands' k-slabs of 32 through a
+  ``cp.async`` ring; bf16 ``mma.sync.m16n8k16``, float32 split TF32:
+  three ``m16n8k8`` TF32 products a fragment pair, about 22 of float32's
+  24 bits) writing a partial score per token and column tile, then a pool
+  kernel a document that adds a token's partials in tile order and sums
+  the pooled vector in f32.
 
-Bound on the H100 (CARS slate, R = B*S*N = 16,000 rows, T = 30, H = 256,
-bf16): 2*R*T*H^2 = 6.3e10 flops (0.064 ms at the bf16 tensor-core peak)
-against 262 MB of states, queries and output (0.078 ms): memory-bound with
-the projection on tensor cores (on CUDA cores alone it needs >= 0.94 ms).
-``PERF.md`` records the times.
+Bound on the H100 (CARS slate, R = B*S*N = 16,000 rows, T = 30, H = 256):
+2*R*T*H^2 = 6.3e10 flops against 262 MB of states, queries and output in
+bf16 (0.078 ms of bytes, 0.064 ms at the bf16 tensor-core peak) or 525 MB
+in float32 (0.384 ms at split TF32's 165 TFLOP/s).  ``PERF.md`` records
+the times.
 
 ``AttnPoolFn`` is the differentiable form (the JAX ``custom_vjp``): the
 kernel forward, and a backward that replays autograd of the plain version,
@@ -64,11 +61,6 @@ from ..masking import masked_softmax
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-# the widest pool of the CUDA-core kernel (csrc/slate_pool.cu, launch_h);
-# the wide route holds every multiple of 128 above it
-CUDA_CORE_MAX_HIDDEN = 1024
-
-
 def pool_jax_gate(hidden: int, rows: int) -> bool:
     """The JAX package's condition for its Pallas pool (``_pallas_ok`` in
     ``ops/pallas/slate.py``): 128-aligned features, at least 8 rows."""
@@ -78,33 +70,29 @@ def pool_jax_gate(hidden: int, rows: int) -> bool:
 def pool_supported(hidden: int, rows: int) -> bool:
     """Whether the fused pool kernel takes this shape -- exactly what the
     launcher ``cair_slate_pool`` runs: the JAX gate (``pool_jax_gate``),
-    every multiple of 128 from 8 rows, the CUDA-core and tensor-core
-    kernels up to ``CUDA_CORE_MAX_HIDDEN``, the wide route above."""
+    every multiple of 128 from 8 rows, on one of ``pool_route``'s
+    routes."""
     return pool_jax_gate(hidden, rows)
 
 
-def pool_wide(hidden: int) -> bool:
-    """Whether ``attn_pool`` takes the wide route at this width (the
-    launcher's rule): above ``CUDA_CORE_MAX_HIDDEN``."""
-    return hidden > CUDA_CORE_MAX_HIDDEN
-
-
-# the bf16 tensor-core kernel (csrc/slate_pool.cu, slate_pool_tc_kernel)
 SMEM_LIMIT = 232448   # dynamic shared memory a block may use on sm_90
+
+# the resident kernel (csrc/slate_pool.cu, slate_pool_tc_kernel)
 TILE_ROWS = 64        # token rows of a document tile
 MAX_DOCS = TILE_ROWS // 16
+RESIDENT_HIDDEN = (128, 256)
 
 
 def pool_tiles(steps: int) -> tuple[int, int]:
-    """(padded T, documents a tile) of the tensor-core kernel: each
+    """(padded T, documents a tile) of the resident kernel: each
     document's ``steps`` tokens padded to a multiple of 16, as many whole
-    documents as ``TILE_ROWS`` rows hold."""
+    documents as a tile of ``TILE_ROWS`` token rows holds."""
     t_pad = -(-steps // 16) * 16
     return t_pad, TILE_ROWS // t_pad
 
 
 def pool_smem_bytes(hidden: int) -> int:
-    """Dynamic shared memory of the tensor-core kernel at width ``hidden``
+    """Dynamic shared memory of the resident kernel at width ``hidden``
     (``tc_smem`` in ``csrc/slate_pool.cu``): the buffers' mbarriers (64
     bytes), W_p and two buffers of ``TILE_ROWS`` token rows in bf16 (rows
     padded by 16 bytes), two buffers' queries, the score exchange (8 warps
@@ -114,15 +102,20 @@ def pool_smem_bytes(hidden: int) -> int:
             * 2 + 8 * TILE_ROWS * 4 + TILE_ROWS * 4 + MAX_DOCS * 4)
 
 
-def pool_tensor_cores(hidden: int, steps: int, dtype: torch.dtype) -> bool:
-    """Whether ``attn_pool`` runs the tensor-core kernel for this shape (the
-    launcher's gate): bfloat16, H = 128 or 256 (W_p and both buffers fit a
-    block's shared memory; at H = 384 W_p alone does not), and a document
-    fits one tile (1 <= T <= ``TILE_ROWS``).  Every other shape that
-    ``pool_supported`` holds runs the CUDA-core kernel."""
-    return (dtype == torch.bfloat16 and hidden in (128, 256)
-            and 1 <= steps <= TILE_ROWS
-            and pool_smem_bytes(hidden) <= SMEM_LIMIT)
+def pool_route(hidden: int, steps: int, dtype: torch.dtype,
+               wide: bool = False) -> str | None:
+    """The route ``cair_slate_pool`` takes for documents of ``steps``
+    tokens at width ``hidden`` (``cair_slate_route``, the launcher's rule):
+    ``"resident"`` for bfloat16 at H = 128 / 256 with 1 <= T <=
+    ``TILE_ROWS`` and ``wide`` unset; ``"wide"`` for every other shape.
+    None where the launcher refuses: H not a positive multiple of 128,
+    T < 0, another dtype."""
+    if hidden <= 0 or hidden % 128 or steps < 0 or dtype not in _DTYPES:
+        return None
+    if (not wide and dtype == torch.bfloat16 and hidden in RESIDENT_HIDDEN
+            and 1 <= steps <= TILE_ROWS):
+        return "resident"
+    return "wide"
 
 
 def attn_pool_reference(states: torch.Tensor, mask: torch.Tensor,
@@ -169,12 +162,10 @@ def attn_pool(states: torch.Tensor, mask: torch.Tensor, query: torch.Tensor,
     """states [R, T, H], mask bool [R, T], query [R, H], w_p [H, H], b_p
     [H] (one dtype, float32 or bfloat16) -> pooled [R, H] in that dtype.
 
-    On CUDA tensors this launches ``cair_slate_pool`` (the tensor-core
-    kernel where ``pool_tensor_cores`` says so, the CUDA-core kernel
-    otherwise up to ``CUDA_CORE_MAX_HIDDEN``, the wide route above it or,
-    with ``wide``, at any width); on CPU tensors (``device="cpu"``) it runs
-    ``attn_pool_reference``.  It computes no gradient (``AttnPoolFn`` is the
-    differentiable form)."""
+    On CUDA tensors this launches ``cair_slate_pool`` on the route
+    ``pool_route`` names (``wide``: the wide route at any width); on CPU
+    tensors (``device="cpu"``) it runs ``attn_pool_reference``.  It
+    computes no gradient (``AttnPoolFn`` is the differentiable form)."""
     dev = resolve_device(device)
     check_on(dev, states, mask, query, w_p, b_p)
     if dev.type == "cpu":
@@ -185,13 +176,13 @@ def attn_pool(states: torch.Tensor, mask: torch.Tensor, query: torch.Tensor,
     out = torch.empty((R, H), dtype=states.dtype, device=states.device)
     from .build import launch, load_library
 
-    workspace = None
-    if wide or pool_wide(H):
-        # the wide route's partial scores, [H / 128, R*T] f32
-        workspace = torch.empty(
-            (load_library().cair_slate_pool_workspace(R, T, H, 1),),
-            dtype=torch.uint8, device=states.device)
-    # the launcher reports a hidden size its blocks cannot hold
+    lib = load_library()
+    # the wide route's partial scores, [H / 128, R*T] f32; none elsewhere
+    n_bytes = lib.cair_slate_pool_workspace(R, T, H, _DTYPES[states.dtype],
+                                            int(wide))
+    workspace = (torch.empty((n_bytes,), dtype=torch.uint8,
+                             device=states.device) if n_bytes > 0 else None)
+    # the launcher refuses a workspace missing on its wide route
     launch(
         "cair_slate_pool", states.device,
         states.data_ptr(), mask.data_ptr(), query.data_ptr(),

@@ -21,10 +21,12 @@ step's shape (R = 1600, E = 256, V = 50,000, kc = 6), the greedy step's (R
 top-128 (R = 1605, E = 256) and each dtype's last whole x tile of kernel 3
 (E = 976 bf16, 352 float32), each
 generator line ending in its serial kernel's time, and the slate pool's
-kernel 10 at the rank slate's and suggest init's shapes ([16000, 30, 256]
-and [1280, 30, 256]) and at suggest init's rows of the CUDA-core kernel
-(H = 1,024) and past it (H = 2,304), in float32 and bfloat16, with a
-digest of each output's bytes; then float32 kernels 5 and 9 alone at the
+kernel 10 at every width to 1,024 at the rank slate's and suggest init's
+rows ([16000 | 1280, 30, H]), at T = 65 (past the resident kernel's
+tile) and 33, past 1,024 (H = 2,304) and at 1,024 forced onto the wide
+route, in float32 and
+bfloat16, with a digest of each output's bytes, each line ending in its
+time (``--only slate``: these lines alone); then float32 kernels 5 and 9 alone at the
 shapes of their split-TF32 tiles (F32_BWD_SHAPES: the recommenders'
 source [64, 150, 256] -> 128, the doc encoder's rows at H = 384, 512 and
 1,024, the one block's and the old kernel's edges, an odd E and H), each
@@ -167,30 +169,53 @@ def recurrence_digests(lstm, dtype, name: str) -> None:
         print(f"lstm_recurrence {name} {way}: {digest(out)}", flush=True)
 
 
+# (rows, steps, H, wide) of kernel 10's lines: every width to 1,024 at the
+# rank slate's and suggest init's rows, T = 65 (past the resident tile)
+# and 33, the wide route past 1,024 and forced at 1,024
+SLATE_SHAPES = (*((r, STEPS, h, False) for h in range(128, 1025, 128)
+                  for r in (ROWS, 1280)),
+                (1280, 65, 256, False), (1280, 33, 1024, False),
+                (1280, STEPS, 2304, False), (1280, STEPS, 1024, True))
+
+
 def slate_digests(slate, dtype, name: str) -> None:
-    """Kernel 10 at R = 16,000 and 1,280 documents of T = 30, H = 256, and
-    at R = 1,280 with H = 1,024 and 2,304 (rows 0 and 5 fully masked),
-    inputs made on the CPU from one seed."""
-    gen = torch.Generator().manual_seed(10)
-    for rows, h in ((16000, 2 * HIDDEN), (1280, 2 * HIDDEN), (1280, 1024),
-                    (1280, 2304)):
-        at = "" if h == 2 * HIDDEN else f" H={h}"
+    """Kernel 10 at each of SLATE_SHAPES (rows 0 and 5 fully masked),
+    inputs made on the card from one seed a shape, each line ending in the
+    mean device time of ITERS calls (fewer at the largest shapes)."""
+    for i, (rows, steps, h, wide) in enumerate(SLATE_SHAPES):
+        at = (f" [{rows},{steps},{h}]" + (" wide" if wide else ""))
         if not slate.pool_supported(h, rows):
-            print(f"attn_pool {name} R={rows}{at}: not held", flush=True)
+            print(f"attn_pool {name}{at}: not held", flush=True)
             continue
-        states = torch.rand((rows, STEPS, h), generator=gen) * 2 - 1
-        query = torch.rand((rows, h), generator=gen) * 2 - 1
-        w_p = (torch.rand((h, h), generator=gen) * 2 - 1) * 0.1
-        b_p = (torch.rand((h,), generator=gen) * 2 - 1) * 0.1
-        lens = torch.randint(0, STEPS + 1, (rows,), generator=gen)
+        gen = torch.Generator(device="cuda").manual_seed(10 + i)
+
+        def uniform(*shape, scale=1.0):
+            return ((torch.rand(shape, generator=gen, device="cuda") * 2 - 1)
+                    * scale)
+
+        states = uniform(rows, steps, h)
+        query = uniform(rows, h)
+        w_p = uniform(h, h, scale=0.1)
+        b_p = uniform(h, scale=0.1)
+        lens = torch.randint(0, steps + 1, (rows,), generator=gen,
+                             device="cuda")
         lens[0], lens[5] = 0, 0
-        mask = torch.arange(STEPS)[None, :] < lens[:, None]
-        states = states * mask[..., None]
-        out = slate.attn_pool(*(t.to("cuda", dtype) if t.is_floating_point()
-                                else t.cuda()
-                                for t in (states, mask, query, w_p, b_p)))
+        mask = torch.arange(steps, device="cuda")[None, :] < lens[:, None]
+        args = [(t * mask[..., None] if t is states else t).to(dtype)
+                for t in (states, query, w_p, b_p)]
+        del states, query, w_p, b_p
+
+        def call():
+            return slate.attn_pool(args[0], mask, *args[1:], wide=wide)
+
+        out = call()
         torch.cuda.synchronize()
-        print(f"attn_pool {name} R={rows}{at}: {digest(out)}", flush=True)
+        flops = 2.0 * rows * steps * h * h
+        ms = timed_ms(call, max(2, min(ITERS, int(2e11 / flops))), 1)
+        print(f"attn_pool {name}{at}: {digest(out)} | {ms:.3f} ms",
+              flush=True)
+        del args, mask, out
+        torch.cuda.empty_cache()
 
 
 def f32_bwd_digests(lstm, gru) -> None:
@@ -224,7 +249,10 @@ def f32_bwd_digests(lstm, gru) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
-    root = Path(ap.parse_args().root).resolve()
+    ap.add_argument("--only", choices=("all", "slate"), default="all",
+                    help="slate: kernel 10's lines alone")
+    args = ap.parse_args()
+    root = Path(args.root).resolve()
     if not torch.cuda.is_available():
         print("torch_kernel_digest: no CUDA device", file=sys.stderr)
         return 1
@@ -240,6 +268,10 @@ def main() -> int:
     if not Path(lstm.__file__).resolve().is_relative_to(root):
         raise RuntimeError(f"imported {lstm.__file__}, not from {root}")
     print(f"kernels of {root}")
+    if args.only == "slate":
+        for dtype in (torch.float32, torch.bfloat16):
+            slate_digests(slate, dtype, str(dtype).split(".")[-1])
+        return 0
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for (rnn, mod, gates, n_bias), shape in (

@@ -51,8 +51,9 @@ from context_attentive_ir_tpu_torch.ops.kernels.beamgen import (
     generator_topk_lse_reference,
 )
 from context_attentive_ir_tpu_torch.ops.kernels.slate import (
-    CUDA_CORE_MAX_HIDDEN,
+    RESIDENT_HIDDEN,
     pool_jax_gate,
+    pool_route,
     pool_supported,
 )
 from context_attentive_ir_tpu_torch.ops.layers import reset_parameters
@@ -67,11 +68,17 @@ from context_attentive_ir_tpu_torch.train import make_loss_fn
                                        (1152, True), (1280, True),
                                        (192, False), (64, False)])
 def test_pool_supported_is_the_launchers_set(hidden, ok):
-    """The launcher (``csrc/slate_pool.cu``) instantiates every multiple of
-    128 up to 1024 on CUDA cores (``launch_h``) and takes every multiple of
-    128 above it on the wide route; the gate says exactly that, from 8
-    rows."""
-    assert CUDA_CORE_MAX_HIDDEN == 1024
+    """The launcher (``csrc/slate_pool.cu``) takes every multiple of 128:
+    bf16 at 128 and 256 on the resident kernel (documents of Ld tokens),
+    every other width and float32 on the wide route, and refuses the rest
+    (``pool_route`` None); the gate says exactly that, from 8 rows."""
+    assert RESIDENT_HIDDEN == (128, 256)
+    for dtype in (torch.float32, torch.bfloat16):
+        route = pool_route(hidden, 30, dtype)
+        assert route == (None if not ok else "resident"
+                         if dtype == torch.bfloat16
+                         and hidden in RESIDENT_HIDDEN else "wide"), \
+            (hidden, dtype)
     assert pool_supported(hidden, 8) is ok
     assert not pool_supported(hidden, 7)
     assert pool_jax_gate(hidden, 8) is (hidden % 128 == 0)

@@ -1,9 +1,9 @@
-"""What surrounds kernel 10's bf16 tensor-core path (``csrc/slate_pool.cu``,
+"""What surrounds kernel 10's bf16 resident kernel (``csrc/slate_pool.cu``,
 ``ops/kernels/slate.py``) on the host: the document tiles (``pool_tiles``),
 the shared-memory sizing at and beyond its limit (``pool_smem_bytes``), the
-gate between the tensor-core and the CUDA-core kernels
-(``pool_tensor_cores``; ``pool_supported`` unchanged), and a plain-PyTorch
-emulation of the tensor-core kernel's algorithm held to the JAX package at
+route between the resident kernel and the wide route
+(``pool_route``; ``pool_supported`` unchanged), and a plain-PyTorch
+emulation of the resident kernel's algorithm held to the JAX package at
 f32 on ragged shapes.
 
 The emulation follows ``slate_pool_tc_kernel``: tiles of 64 token rows
@@ -74,8 +74,8 @@ def test_pool_tiles_hold_whole_documents(steps, t_pad, docs):
      + 16)])
 def test_pool_smem_bytes_at_and_beyond_the_limit(hidden, n_bytes):
     """H = 256 fits a block (209,232 of 232,448 bytes); at H = 384 W_p
-    alone (301,056 bytes) does not, so 384 and 512 keep the CUDA-core
-    kernel."""
+    alone (301,056 bytes) does not, so 384 and 512 take the wide
+    route."""
     assert S.pool_smem_bytes(hidden) == n_bytes
     assert (n_bytes <= S.SMEM_LIMIT) is (hidden <= 256)
     if hidden == 384:
@@ -83,12 +83,16 @@ def test_pool_smem_bytes_at_and_beyond_the_limit(hidden, n_bytes):
 
 
 @pytest.mark.parametrize("hidden,steps,dtype,tc", [
-    (256, 30, BF16, True), (128, 30, BF16, True), (256, 1, BF16, True),
-    (256, 64, BF16, True), (256, 65, BF16, False), (256, 0, BF16, False),
-    (384, 30, BF16, False), (512, 30, BF16, False), (256, 30, F32, False),
-    (128, 30, torch.float16, False)])
+    (256, 30, BF16, "resident"), (128, 30, BF16, "resident"),
+    (256, 1, BF16, "resident"), (256, 64, BF16, "resident"),
+    (256, 65, BF16, "wide"), (256, 0, BF16, "wide"),
+    (384, 30, BF16, "wide"), (512, 30, BF16, "wide"),
+    (256, 30, F32, "wide"), (128, 30, torch.float16, None)])
 def test_pool_tensor_cores_gate(hidden, steps, dtype, tc):
-    assert S.pool_tensor_cores(hidden, steps, dtype) is tc
+    """The resident kernel takes bf16 at H = 128 / 256 with 1 <= T <= 64;
+    every other shape takes the wide route (tensor cores in both dtypes);
+    float16 is refused."""
+    assert S.pool_route(hidden, steps, dtype) == tc
 
 
 @pytest.mark.parametrize("hidden", [128, 256, 384, 512])
